@@ -1,0 +1,24 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of `paddle_tpu`, for one NVIDIA
+H100 (Hopper, sm_90a).
+
+The public surface keeps Paddle's names and layouts (`Linear.weight` is
+`[in, out]`, attention tensors are `[B, S, H, D]`, `state_dict` keys equal
+`paddle_tpu`'s); inside, it is plain PyTorch: `nn.Module`s, explicit devices
+and dtypes, explicit `torch.Generator`s. Every kernel that `paddle_tpu`
+wrote in Pallas for the TPU is a hand-written CUDA kernel here
+(`paddle_tpu_torch/csrc/`), built with nvcc at first use and bound with
+ctypes (`ops/_build.py`).
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; without
+a GPU they raise rather than quietly run on the CPU. On CPU tensors each
+kernel wrapper runs its plain PyTorch version, which is what the CPU tests
+hold against `paddle_tpu`.
+
+Ported so far: the paged GPT-3 serving path (`models.gpt`,
+`inference.create_serving_engine`) with the fused LayerNorm/RMSNorm forward
+and paged decode attention kernels. See ROADMAP.md for the rest.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

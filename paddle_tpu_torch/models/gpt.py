@@ -1,0 +1,364 @@
+"""GPT-3 decoder LM (↔ paddle_tpu/models/gpt.py), for serving.
+
+Pre-LN blocks: LayerNorm -> QKV -> causal attention -> out-projection ->
+LayerNorm -> exact-erf GELU MLP, learned positions, and a tied LM head
+(logits = h @ W_emb.T). Parameter names and layouts equal the JAX package's,
+so `paddle_tpu_torch.convert.load_paddle_tpu_state` moves its weights over
+as they are.
+
+Attention has the two cached branches the serving engine drives:
+
+- dense cache [B, S_max, Hkv, D] with a scalar offset (the prefill): the
+  step's K/V are written at the offset and a full bool mask feeds the exact
+  composite `scaled_dot_product_attention`;
+- paged cache [n_pages, Hkv, page_size, D] with block tables and per-row
+  lengths (decode, one token per row): `paged_kv_write` appends the step's
+  K/V, then `paged_decode_attention` (the CUDA kernel on the card) attends
+  over lengths + 1 tokens.
+
+Both write the caches IN PLACE (the JAX package returns fresh arrays): a
+serving process's KV pages are its largest allocation, and a copy per layer
+per step would double them.
+
+Weights are drawn from an explicit `torch.Generator` seeded by `seed`, as
+N(0, initializer_range) like the JAX package's `_init_attr`; the two
+frameworks' generators give different numbers, so cross-package tests copy
+weights with `load_paddle_tpu_state`.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+the LLaMA form (RoPE, SwiGLU, RMSNorm, A7), flashmask attention (A10), ring
+/ context and sequence parallelism (A9), recompute and dropout (training,
+A6), the int8 KV cache (A8 int8) and the vector-offset dense cache of the
+continuous-batching engine (A8 dense engine).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..distributed.fleet.layers.mpu.mp_layers import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from ..nn import Embedding, LayerNorm
+from ..nn import functional as F
+from ..ops.decode_attention import paged_decode_attention, paged_kv_write
+
+__all__ = [
+    "GPTConfig",
+    "GPTModel",
+    "GPTForCausalLM",
+    "gpt3_tiny",
+    "gpt3_125m",
+    "gpt3_350m",
+    "gpt3_1p3b",
+    "gpt3_6p7b",
+    "gpt3_13b",
+]
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: int | None = None  # GQA; None = MHA
+    intermediate_size: int | None = None  # None -> 4h (gelu) or 8h/3 rounded (swiglu)
+    max_position_embeddings: int = 2048
+    norm_type: str = "layernorm"  # "layernorm" | "rmsnorm"
+    activation: str = "gelu"  # "gelu" | "swiglu"
+    use_rope: bool = False  # False -> learned position embeddings
+    rope_theta: float = 10000.0
+    use_neox_rotary_style: bool = True
+    tie_word_embeddings: bool = True
+    hidden_dropout_prob: float = 0.0
+    attention_dropout_prob: float = 0.0
+    initializer_range: float = 0.02
+    layer_norm_epsilon: float = 1e-5
+    sequence_parallel: bool = False
+    use_recompute: bool = False
+    attn_variant: str = "flash"
+    context_parallel: bool = False
+
+    @property
+    def kv_heads(self):
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_heads
+
+    @property
+    def ffn_size(self):
+        if self.intermediate_size is not None:
+            return self.intermediate_size
+        if self.activation == "swiglu":
+            return int(math.ceil(8 * self.hidden_size / 3 / 256) * 256)
+        return 4 * self.hidden_size
+
+
+def _check_supported(cfg: GPTConfig):
+    """Raise on the branches of the JAX model this slice does not port."""
+    if cfg.use_rope or cfg.activation != "gelu" or cfg.norm_type != "layernorm":
+        raise NotImplementedError(
+            "the LLaMA form (RoPE, SwiGLU, RMSNorm) is ported with ROADMAP A7")
+    if not cfg.tie_word_embeddings:
+        raise NotImplementedError(
+            "the untied LM head is ported with the LLaMA form (ROADMAP A7)")
+    if cfg.attn_variant != "flash":
+        raise NotImplementedError(
+            "flashmask attention is ported with ROADMAP A10")
+    if cfg.context_parallel or cfg.sequence_parallel:
+        raise NotImplementedError(
+            "context/sequence parallelism is ported with ROADMAP A9")
+    if cfg.use_recompute or cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
+        raise NotImplementedError(
+            "recompute and dropout belong to the training slice (ROADMAP A6)")
+
+
+def _dyn_update(buf, new, off):
+    """Write `new` [B, S, H, D] into the dense cache `buf` at sequence
+    offset `off` (a scalar), in place. Like lax.dynamic_update_slice, the
+    offset is clamped so the update fits."""
+    if torch.is_tensor(off) and off.dim() > 0:
+        raise NotImplementedError(
+            "per-row cache offsets belong to the dense continuous-batching "
+            "engine (ROADMAP A8 dense engine)")
+    S = new.shape[1]
+    o = min(max(int(off), 0), buf.shape[1] - S)
+    buf[:, o:o + S] = new.to(buf.dtype)
+    return buf
+
+
+def _decode_mask(s_max, off, s_new, device):
+    """Bool mask [1, 1, s_new, s_max]: position i (absolute off + i) attends
+    to j <= off + i."""
+    cols = torch.arange(s_max, device=device)[None, :]
+    rows = int(off) + torch.arange(s_new, device=device)[:, None]
+    return (cols <= rows)[None, None]
+
+
+def _paged_update(buf, new, tables, lengths):
+    """Write this step's `new` [B, 1, H, D] K/V rows into the paged cache
+    `buf` [n_pages, Hkv, ps, D] at each row's next slot (decode is S == 1)."""
+    return paged_kv_write(buf, new[:, 0], tables, lengths)
+
+
+def _paged_attend(q, kc, vc, tables, lengths):
+    """q [B, 1, H, D] against the paged cache; `lengths` counts tokens
+    present BEFORE this step and the step's K/V were just written, so the
+    kernel sees lengths + 1 valid tokens."""
+    B, S, H, D = q.shape
+    o = paged_decode_attention(q.reshape(B, H, D), kc, vc, tables,
+                               (lengths + 1).to(torch.int32))
+    return o.reshape(B, S, H, D)
+
+
+class GPTAttention(nn.Module):
+    """Multi-head / grouped-query causal self-attention."""
+
+    def __init__(self, config: GPTConfig, *, generator, device, dtype):
+        super().__init__()
+        self.config = config
+        h, d = config.hidden_size, config.head_dim
+        kw = dict(weight_std=config.initializer_range, generator=generator,
+                  device=device, dtype=dtype)
+        self.q_proj = ColumnParallelLinear(h, config.num_heads * d, gather_output=False, **kw)
+        self.k_proj = ColumnParallelLinear(h, config.kv_heads * d, gather_output=False, **kw)
+        self.v_proj = ColumnParallelLinear(h, config.kv_heads * d, gather_output=False, **kw)
+        self.out_proj = RowParallelLinear(config.num_heads * d, h, input_is_parallel=True, **kw)
+
+    def forward(self, x, position_ids=None, cache=None, cache_offset=None,
+                block_tables=None):
+        cfg = self.config
+        B, S = x.shape[0], x.shape[1]
+        q = self.q_proj(x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        v = self.v_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        new_cache = None
+        if cache is not None and block_tables is not None:
+            if len(cache) == 4:
+                raise NotImplementedError(
+                    "the int8 paged KV cache is ported with the quantized "
+                    "serving slice (ROADMAP A8 int8)")
+            k_all = _paged_update(cache[0], k, block_tables, cache_offset)
+            v_all = _paged_update(cache[1], v, block_tables, cache_offset)
+            new_cache = (k_all, v_all)
+            out = _paged_attend(q, k_all, v_all, block_tables, cache_offset)
+        elif cache is not None:
+            k_all = _dyn_update(cache[0], k, cache_offset)
+            v_all = _dyn_update(cache[1], v, cache_offset)
+            new_cache = (k_all, v_all)
+            mask = _decode_mask(k_all.shape[1], cache_offset, S, x.device)
+            out = F.scaled_dot_product_attention(
+                q, k_all, v_all, attn_mask=mask, is_causal=False,
+                training=self.training)
+        else:
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, training=self.training)
+        out = self.out_proj(out.reshape(B, S, cfg.num_heads * cfg.head_dim))
+        if cache is not None:
+            return out, new_cache
+        return out
+
+
+class GPTMLP(nn.Module):
+    """FFN: fc1 -> exact-erf GELU -> fc2."""
+
+    def __init__(self, config: GPTConfig, *, generator, device, dtype):
+        super().__init__()
+        h, f = config.hidden_size, config.ffn_size
+        kw = dict(weight_std=config.initializer_range, generator=generator,
+                  device=device, dtype=dtype)
+        self.fc1 = ColumnParallelLinear(h, f, gather_output=False, **kw)
+        self.fc2 = RowParallelLinear(f, h, input_is_parallel=True, **kw)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class GPTDecoderLayer(nn.Module):
+    """Pre-norm decoder block."""
+
+    def __init__(self, config: GPTConfig, *, generator, device, dtype):
+        super().__init__()
+        self.config = config
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        norm_kw = dict(epsilon=config.layer_norm_epsilon, device=device, dtype=dtype)
+        self.input_layernorm = LayerNorm(config.hidden_size, **norm_kw)
+        self.self_attn = GPTAttention(config, **kw)
+        self.post_attention_layernorm = LayerNorm(config.hidden_size, **norm_kw)
+        self.mlp = GPTMLP(config, **kw)
+
+    def forward(self, x, position_ids=None, cache=None, cache_offset=None,
+                block_tables=None):
+        h = self.input_layernorm(x)
+        if cache is not None:
+            h, new_cache = self.self_attn(h, position_ids, cache, cache_offset,
+                                          block_tables=block_tables)
+        else:
+            h = self.self_attn(h, position_ids)
+            new_cache = None
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        if cache is not None:
+            return x, new_cache
+        return x
+
+
+class GPTModel(nn.Module):
+    """Embeddings + decoder stack + final norm."""
+
+    def __init__(self, config: GPTConfig, *, generator, device, dtype):
+        super().__init__()
+        self.config = config
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        std = config.initializer_range
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, weight_std=std, **kw)
+        self.embed_positions = Embedding(
+            config.max_position_embeddings, config.hidden_size, weight_std=std, **kw)
+        self.layers = nn.ModuleList(
+            [GPTDecoderLayer(config, **kw) for _ in range(config.num_layers)])
+        self.final_norm = LayerNorm(config.hidden_size,
+                                    epsilon=config.layer_norm_epsilon,
+                                    device=device, dtype=dtype)
+
+    def forward(self, input_ids, position_ids=None, caches=None,
+                cache_offset=None, block_tables=None):
+        B, S = input_ids.shape[0], input_ids.shape[1]
+        dev = input_ids.device
+        if position_ids is None:
+            start = 0
+            if caches is not None and cache_offset is not None:
+                # decode default: absolute positions start at the offset
+                start = int(cache_offset)
+            position_ids = (start + torch.arange(S, device=dev))[None].expand(B, S)
+        h = self.embed_tokens(input_ids) + self.embed_positions(position_ids)
+        new_caches = [] if caches is not None else None
+        for i, layer in enumerate(self.layers):
+            if caches is not None:
+                h, nc = layer(h, position_ids, caches[i], cache_offset,
+                              block_tables=block_tables)
+                new_caches.append(nc)
+            else:
+                h = layer(h, position_ids)
+        h = self.final_norm(h)
+        if caches is not None:
+            return h, new_caches
+        return h
+
+
+class GPTForCausalLM(nn.Module):
+    """LM head on top of GPTModel, tied to the token embedding.
+
+    `device` defaults to `cuda` (raises without a GPU); pass `device="cpu"`
+    for the plain PyTorch path. `dtype` is the parameter (and compute) type.
+    `seed` seeds the explicit generator the weights are drawn from."""
+
+    def __init__(self, config: GPTConfig, *, device=None, dtype=torch.float32,
+                 seed=0):
+        super().__init__()
+        _check_supported(config)
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        self.config = config
+        self.gpt = GPTModel(config, generator=gen, device=dev, dtype=dtype)
+
+    def forward(self, input_ids, position_ids=None, caches=None,
+                cache_offset=None, block_tables=None):
+        out = self.gpt(input_ids, position_ids, caches, cache_offset,
+                       block_tables=block_tables)
+        h, new_caches = out if caches is not None else (out, None)
+        logits = torch.matmul(h, self.gpt.embed_tokens.weight.t())
+        if caches is not None:
+            return logits, new_caches
+        return logits
+
+    def init_kv_caches(self, batch_size, max_seq_len, dtype=None):
+        """Static-capacity dense decode caches, one (k, v) pair per layer,
+        zeroed, on the model's device (dtype defaults to the model's)."""
+        cfg = self.config
+        w = self.gpt.embed_tokens.weight
+        shape = (batch_size, max_seq_len, cfg.kv_heads, cfg.head_dim)
+        dt = w.dtype if dtype is None else dtype
+        return [(torch.zeros(shape, device=w.device, dtype=dt),
+                 torch.zeros(shape, device=w.device, dtype=dt))
+                for _ in range(cfg.num_layers)]
+
+
+# ----------------------------------------------------------------------- #
+# presets (sizes per GPT-3 paper table 2.1, as in the JAX package)
+# ----------------------------------------------------------------------- #
+
+
+def gpt3_tiny(**kw):
+    return GPTConfig(vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+                     max_position_embeddings=128, **kw)
+
+
+def gpt3_125m(**kw):
+    return GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw)
+
+
+def gpt3_350m(**kw):
+    return GPTConfig(hidden_size=1024, num_layers=24, num_heads=16, **kw)
+
+
+def gpt3_1p3b(**kw):
+    return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16, **kw)
+
+
+def gpt3_6p7b(**kw):
+    return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32, **kw)
+
+
+def gpt3_13b(**kw):
+    return GPTConfig(hidden_size=5120, num_layers=40, num_heads=40, **kw)

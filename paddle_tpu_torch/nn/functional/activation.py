@@ -1,0 +1,12 @@
+"""Activations (↔ paddle_tpu/nn/functional/activation.py)."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["gelu"]
+
+
+def gelu(x, approximate=False, name=None):
+    """GELU; exact erf form unless `approximate` (tanh form), as Paddle's."""
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate else "none")

@@ -1,0 +1,155 @@
+"""Build and load the port's CUDA kernels.
+
+Every `paddle_tpu_torch/csrc/*.cu` file is compiled by nvcc for Hopper
+(`sm_90a`) into one shared library with a plain C interface, loaded with
+ctypes. The sources include no PyTorch header, so a build takes seconds
+rather than the minutes `torch.utils.cpp_extension.load` needs. Each source
+compiles in its own nvcc process, all started together; one link step joins
+them.
+
+The library is built at first use, from the sources in the checkout only,
+into `paddle_tpu_torch/_build/` (listed in .gitignore). Its file name
+carries a hash of the sources and flags, so an edited kernel never loads a
+stale build.
+
+Calling convention (see each .cu file): pointers and the stream are
+`c_void_p` (the stream is `torch.cuda.current_stream().cuda_stream`), sizes
+are `c_int`/`c_longlong`, and every entry point returns
+`cudaGetLastError()`, which `check()` turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+__all__ = ["DTYPE_CODES", "build_library", "check", "load_library"]
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# element-type codes shared with csrc/common.cuh
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
+
+_c_void_p, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_longlong, ctypes.c_float)
+
+# argtypes of every C entry point, in the order of their declarations
+_SIGNATURES = {
+    # x, w, b, out, rstd, mean, rows, n, eps, x_dtype, w_dtype, kind, stream
+    "ptt_norm_fwd": [_c_void_p] * 6 + [_c_ll, _c_int, _c_float, _c_int,
+                                       _c_int, _c_int, _c_void_p],
+    # q, kc, vc, tables, lengths, out, B, Hkv, g, D, ps, P, scale, dtype,
+    # stream
+    "ptt_paged_decode_attention": [_c_void_p] * 6 + [_c_int] * 6
+    + [_c_float, _c_int, _c_void_p],
+}
+
+_LOCK = threading.Lock()
+_LIB = None
+BUILD_LOG = ""  # nvcc's output of the build this process made, if any
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the port's "
+        "CUDA kernels are built from paddle_tpu_torch/csrc at first use")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {CSRC}")
+    return srcs
+
+
+def _library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return BUILD_DIR / f"libpaddle_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build_library() -> pathlib.Path:
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
+    into one shared library; returns its path. A no-op when the library for
+    these exact sources already exists. Raises RuntimeError carrying nvcc's
+    output when a step fails."""
+    global BUILD_LOG
+    out = _library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(cmd[-3])
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
+        tmp_lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", tmp_lib, *[obj for _, obj, _ in procs]]
+        link = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        os.replace(tmp_lib, out)
+    BUILD_LOG = "\n".join(logs)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first call and loaded once per
+    process, with argtypes/restype declared for every entry point."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ptt_error_string.argtypes = [ctypes.c_int]
+            lib.ptt_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(err: int, what: str):
+    """Raise if a C entry point reported a CUDA error (its return value is
+    `cudaGetLastError()` right after the launch)."""
+    if err != 0:
+        msg = load_library().ptt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
