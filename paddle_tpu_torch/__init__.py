@@ -16,7 +16,11 @@ hold against `paddle_tpu`.
 
 Ported so far: the paged GPT-3 serving path (`models.gpt`,
 `inference.create_serving_engine`) with the fused LayerNorm/RMSNorm forward
-and paged decode attention kernels. See ROADMAP.md for the rest.
+and paged decode attention kernels, and the GPT-3 training step
+(`jit.TrainStep` / `distributed.DistributedTrainStep` with `optimizer.AdamW`,
+`amp` O1/O2 and per-layer recompute) with the flash-attention forward, dq
+and dk/dv kernels and the fused-norm dx kernel. See ROADMAP.md for the
+rest.
 """
 
 from .device import resolve_device

@@ -1,10 +1,13 @@
-"""Move weights from the JAX package into the port.
+"""Move weights and optimizer state from the JAX package into the port.
 
 Both packages use the same parameter names and layouts (Paddle's: a
 Linear weight is [in, out]), so `load_paddle_tpu_state` copies each array
 into the port parameter of the same name, cast to that parameter's dtype
-and placed on its device. It raises on a missing or extra key and on a
-shape mismatch, never silently skipping one.
+and placed on its device, and `load_paddle_tpu_opt_state` carries a JAX
+`TrainStep`'s optimizer state (m, v and an optional f32 master per
+parameter name) and step count into the port's optimizer, so both packages
+can resume from one mid-training state. Both raise on a missing or extra
+key and on a shape mismatch, never silently skipping one.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["load_paddle_tpu_state"]
+__all__ = ["load_paddle_tpu_opt_state", "load_paddle_tpu_state"]
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -39,3 +42,38 @@ def load_paddle_tpu_state(model: torch.nn.Module, state: dict) -> torch.nn.Modul
                                  f"{tuple(dst.shape)}")
             dst.copy_(src.to(dst.dtype))
     return model
+
+
+def load_paddle_tpu_opt_state(optimizer, opt_states: dict, step: int):
+    """Set `optimizer`'s state from `{name: {"m", "v"[, "master"]: array}}`
+    (a JAX `TrainStep.opt_states` as numpy arrays) and its step count to
+    `step`. The optimizer must know its parameters by name, which a
+    `jit.TrainStep` built on it records. Moments keep the dtype the
+    optimizer would give them; the master copy is f32."""
+    params = optimizer._names
+    if not params:
+        raise ValueError("the optimizer knows no parameter names: build the "
+                         "TrainStep (or DistributedTrainStep) on it first")
+    missing = sorted(set(params) - set(opt_states))
+    extra = sorted(set(opt_states) - set(params))
+    if missing or extra:
+        raise KeyError(f"optimizer state keys differ: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, p in params.items():
+            fresh = optimizer.init_state(p)
+            src = opt_states[name]
+            if set(src) - {"master"} != set(fresh):
+                raise KeyError(f"{name}: state holds {sorted(src)}, the "
+                               f"optimizer wants {sorted(fresh)}")
+            st = {}
+            for key, arr in src.items():
+                t = _to_tensor(arr)
+                if tuple(t.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}.{key}: shape {tuple(t.shape)} "
+                                     f"!= {tuple(p.shape)}")
+                dt = torch.float32 if key == "master" else fresh[key].dtype
+                st[key] = t.to(device=p.device, dtype=dt)
+            optimizer._states[id(p)] = st
+    optimizer._step_count = int(step)
+    return optimizer

@@ -1,5 +1,5 @@
-from .mp_layers import (ColumnParallelLinear, RowParallelLinear,
-                        VocabParallelEmbedding)
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
+                        RowParallelLinear, VocabParallelEmbedding)
 
-__all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+__all__ = ["ColumnParallelLinear", "ParallelCrossEntropy",
+           "RowParallelLinear", "VocabParallelEmbedding"]

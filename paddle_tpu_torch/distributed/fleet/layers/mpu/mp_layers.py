@@ -1,18 +1,20 @@
 """Tensor-parallel layers (↔ paddle_tpu/distributed/fleet/layers/mpu/mp_layers.py),
 for now as plain single-device layers with the same parameter names and
 layouts: ColumnParallelLinear and RowParallelLinear hold the full
-[in, out] weight, VocabParallelEmbedding the full [vocab, hidden] table.
-Their sharded form over a device mesh comes with the distributed slice
+[in, out] weight, VocabParallelEmbedding the full [vocab, hidden] table,
+and ParallelCrossEntropy is the cross entropy over unsharded logits. Their
+sharded form over a device mesh comes with the distributed slice
 (ROADMAP A9)."""
 
 from __future__ import annotations
 
 import torch
 
+from .....nn import functional as F
 from .....nn.layer.common import Embedding, Linear
 
-__all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+__all__ = ["ColumnParallelLinear", "ParallelCrossEntropy",
+           "RowParallelLinear", "VocabParallelEmbedding"]
 
 
 class VocabParallelEmbedding(Embedding):
@@ -50,3 +52,16 @@ class RowParallelLinear(Linear):
                          weight_std=weight_std, generator=generator,
                          device=device, dtype=dtype)
         self.input_is_parallel = input_is_parallel
+
+
+class ParallelCrossEntropy(torch.nn.Module):
+    """Per-token cross entropy (reduction "none") over the vocabulary
+    (↔ mp_layers.py:143-156); rows labelled `ignore_index` give 0."""
+
+    def __init__(self, mp_group=None, name=None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):  # noqa: A002
+        return F.cross_entropy(input, label, reduction="none",
+                               ignore_index=self.ignore_index)

@@ -1,4 +1,4 @@
-"""GPT-3 decoder LM (↔ paddle_tpu/models/gpt.py), for serving.
+"""GPT-3 decoder LM (↔ paddle_tpu/models/gpt.py), for serving and training.
 
 Pre-LN blocks: LayerNorm -> QKV -> causal attention -> out-projection ->
 LayerNorm -> exact-erf GELU MLP, learned positions, and a tied LM head
@@ -6,8 +6,12 @@ LayerNorm -> exact-erf GELU MLP, learned positions, and a tied LM head
 so `paddle_tpu_torch.convert.load_paddle_tpu_state` moves its weights over
 as they are.
 
-Attention has the two cached branches the serving engine drives:
+Attention has three branches:
 
+- no cache (the training forward and full-sequence inference): causal
+  `scaled_dot_product_attention`, which goes to the flash-attention kernels
+  on the card; with `use_recompute` and the model in training mode each
+  decoder layer runs under `fleet.recompute` (JAX `gpt.py:458-471`);
 - dense cache [B, S_max, Hkv, D] with a scalar offset (the prefill): the
   step's K/V are written at the offset and a full bool mask feeds the exact
   composite `scaled_dot_product_attention`;
@@ -16,9 +20,12 @@ Attention has the two cached branches the serving engine drives:
   K/V, then `paged_decode_attention` (the CUDA kernel on the card) attends
   over lengths + 1 tokens.
 
-Both write the caches IN PLACE (the JAX package returns fresh arrays): a
-serving process's KV pages are its largest allocation, and a copy per layer
-per step would double them.
+The cached branches write the caches IN PLACE (the JAX package returns
+fresh arrays): a serving process's KV pages are its largest allocation, and
+a copy per layer per step would double them. They serve inference only.
+
+Every op casts its inputs for AMP under the JAX package's op names
+(`paddle_tpu_torch.amp`), the tied head as "lm_head_tied".
 
 Weights are drawn from an explicit `torch.Generator` seeded by `seed`, as
 N(0, initializer_range) like the JAX package's `_init_attr`; the two
@@ -27,9 +34,9 @@ weights with `load_paddle_tpu_state`.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the LLaMA form (RoPE, SwiGLU, RMSNorm, A7), flashmask attention (A10), ring
-/ context and sequence parallelism (A9), recompute and dropout (training,
-A6), the int8 KV cache (A8 int8) and the vector-offset dense cache of the
-continuous-batching engine (A8 dense engine).
+/ context and sequence parallelism (A9), dropout (A3), the int8 KV cache
+(A8 int8) and the vector-offset dense cache of the continuous-batching
+engine (A8 dense engine).
 """
 
 from __future__ import annotations
@@ -40,12 +47,15 @@ import math
 import torch
 from torch import nn
 
+from .. import amp
 from ..device import resolve_device
 from ..distributed.fleet.layers.mpu.mp_layers import (
     ColumnParallelLinear,
+    ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..distributed.fleet.recompute import recompute
 from ..nn import Embedding, LayerNorm
 from ..nn import functional as F
 from ..ops.decode_attention import paged_decode_attention, paged_kv_write
@@ -54,6 +64,7 @@ __all__ = [
     "GPTConfig",
     "GPTModel",
     "GPTForCausalLM",
+    "GPTPretrainingCriterion",
     "gpt3_tiny",
     "gpt3_125m",
     "gpt3_350m",
@@ -118,9 +129,10 @@ def _check_supported(cfg: GPTConfig):
     if cfg.context_parallel or cfg.sequence_parallel:
         raise NotImplementedError(
             "context/sequence parallelism is ported with ROADMAP A9")
-    if cfg.use_recompute or cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
+    if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
         raise NotImplementedError(
-            "recompute and dropout belong to the training slice (ROADMAP A6)")
+            "dropout (explicit generators, Philox in the attention kernels) "
+            "is a later slice (ROADMAP A3)")
 
 
 def _dyn_update(buf, new, off):
@@ -246,8 +258,9 @@ class GPTDecoderLayer(nn.Module):
         else:
             h = self.self_attn(h, position_ids)
             new_cache = None
-        x = x + h
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        x = torch.add(*amp.cast_inputs("add", x, h))
+        h = self.mlp(self.post_attention_layernorm(x))
+        x = torch.add(*amp.cast_inputs("add", x, h))
         if cache is not None:
             return x, new_cache
         return x
@@ -281,13 +294,16 @@ class GPTModel(nn.Module):
                 # decode default: absolute positions start at the offset
                 start = int(cache_offset)
             position_ids = (start + torch.arange(S, device=dev))[None].expand(B, S)
-        h = self.embed_tokens(input_ids) + self.embed_positions(position_ids)
+        h = torch.add(*amp.cast_inputs("add", self.embed_tokens(input_ids),
+                                       self.embed_positions(position_ids)))
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
                 h, nc = layer(h, position_ids, caches[i], cache_offset,
                               block_tables=block_tables)
                 new_caches.append(nc)
+            elif self.config.use_recompute and self.training:
+                h = recompute(layer, h, position_ids)
             else:
                 h = layer(h, position_ids)
         h = self.final_norm(h)
@@ -317,7 +333,8 @@ class GPTForCausalLM(nn.Module):
         out = self.gpt(input_ids, position_ids, caches, cache_offset,
                        block_tables=block_tables)
         h, new_caches = out if caches is not None else (out, None)
-        logits = torch.matmul(h, self.gpt.embed_tokens.weight.t())
+        h, w = amp.cast_inputs("lm_head_tied", h, self.gpt.embed_tokens.weight)
+        logits = torch.matmul(h, w.t())
         if caches is not None:
             return logits, new_caches
         return logits
@@ -332,6 +349,22 @@ class GPTForCausalLM(nn.Module):
         return [(torch.zeros(shape, device=w.device, dtype=dt),
                  torch.zeros(shape, device=w.device, dtype=dt))
                 for _ in range(cfg.num_layers)]
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Masked next-token cross entropy (↔ gpt.py:525-537): the mean of the
+    per-token losses, or their mean over `loss_mask` when one is given."""
+
+    def __init__(self, config: GPTConfig = None):
+        super().__init__()
+        self.ce = ParallelCrossEntropy()
+
+    def forward(self, logits, labels, loss_mask=None):
+        losses = self.ce(logits, labels)  # [B, S]
+        if loss_mask is not None:
+            m = loss_mask.reshape(losses.shape).float()
+            return (losses.float() * m).sum() / m.sum().clamp(min=1.0)
+        return losses.mean()
 
 
 # ----------------------------------------------------------------------- #

@@ -1,7 +1,10 @@
-"""paddle_tpu_torch.nn.functional — the functionals the ported path uses."""
+"""paddle_tpu_torch.nn.functional — the functionals the ported paths use."""
 
 from .activation import gelu
-from .flash_attention import scaled_dot_product_attention
+from .common import embedding, linear
+from .flash_attention import flash_attention, scaled_dot_product_attention
+from .loss import cross_entropy
 from .norm import layer_norm, rms_norm
 
-__all__ = ["gelu", "layer_norm", "rms_norm", "scaled_dot_product_attention"]
+__all__ = ["cross_entropy", "embedding", "flash_attention", "gelu",
+           "layer_norm", "linear", "rms_norm", "scaled_dot_product_attention"]

@@ -2,20 +2,30 @@
 
 Paddle layout: q/k/v are [batch, seq, num_heads, head_dim].
 
-Only `scaled_dot_product_attention` is ported so far, as the exact composite
-`_ref_attention` of the JAX package: f32 logits, a bottom-right aligned
-causal mask `tril(k=Skv-Sq)`, a bool mask that fills -1e30, GQA by head
-repetition. It is plain PyTorch in both packages, never a kernel: the
-serving prefill passes a full bool mask, which the JAX package also sends to
-this composite. The flash-attention kernels (and the key-padding fused
-path) come with the training slice.
+`scaled_dot_product_attention` dispatches as the JAX package does
+(:99-140): a call with dropout 0 and either no mask or a key-padding mask
+(broadcastable to [B, 1, 1, Skv], needing no gradient) goes to the flash
+attention of `paddle_tpu_torch.ops.flash_attention` (the hand-written
+kernels on CUDA tensors, their plain versions on CPU tensors), with the
+mask folded into an additive per-key bias. Everything else, the serving
+prefill's full bool mask included, goes to the exact composite
+`_ref_attention`: f32 logits, a bottom-right aligned causal mask
+`tril(k=Skv-Sq)`, a bool mask that fills -1e30, GQA by head repetition.
+The two disagree only on a row that sees no key: the composite returns the
+mean of V there, the kernel zeros (as the JAX default kernel does).
+
+Inputs are cast for AMP as the op "flash_attention" on the kernel route and
+"sdpa" on the composite one (both on the white list).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["scaled_dot_product_attention"]
+from ... import amp
+from ...ops.flash_attention import NEG_INF, flash_attention_fwd
+
+__all__ = ["flash_attention", "scaled_dot_product_attention"]
 
 
 def _ref_attention(q, k, v, mask=None, causal=False, scale=None):
@@ -42,10 +52,50 @@ def _ref_attention(q, k, v, mask=None, causal=False, scale=None):
     return out.to(q.dtype)
 
 
+def _is_key_padding(mask, q, k):
+    """A [B|1, 1, 1, Skv] mask that needs no gradient: a per-key padding
+    mask, which rides the kernel as an additive key bias."""
+    shape = tuple(mask.shape)
+    return (len(shape) == 4 and shape[1] == 1 and shape[2] == 1
+            and shape[3] == k.shape[1] and shape[0] in (1, q.shape[0])
+            and not mask.requires_grad)
+
+
+def _key_bias(mask, batch):
+    """[B|1, 1, 1, Skv] bool or additive mask -> f32 key bias [B, Skv]."""
+    m = mask.reshape(mask.shape[0], -1)
+    if m.dtype == torch.bool:
+        kb = torch.where(m, 0.0, NEG_INF).to(torch.float32)
+    else:
+        kb = m.float()
+    if kb.shape[0] == 1 and batch > 1:
+        kb = kb.expand(batch, kb.shape[1])
+    return kb
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False, training=True,
                                  name=None):
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            "attention dropout needs the training slice (ROADMAP A6)")
-    return _ref_attention(query, key, value, mask=attn_mask, causal=is_causal)
+            "attention dropout (explicit generators, Philox in the kernels) "
+            "is a later slice (ROADMAP A3)")
+    has_mask = attn_mask is not None
+    if dropout_p == 0.0 and (not has_mask
+                             or _is_key_padding(attn_mask, query, key)):
+        q, k, v, m = amp.cast_inputs("flash_attention", query, key, value,
+                                     attn_mask)
+        kb = _key_bias(m, q.shape[0]) if has_mask else None
+        return flash_attention_fwd(q, k, v, causal=is_causal, key_bias=kb)
+    q, k, v, m = amp.cast_inputs("sdpa", query, key, value, attn_mask)
+    return _ref_attention(q, k, v, mask=m, causal=is_causal)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """paddle.nn.functional.flash_attention: returns (out, None), the second
+    slot standing for the softmax the reference API may return."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None

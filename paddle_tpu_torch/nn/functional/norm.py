@@ -1,15 +1,18 @@
 """Normalization functionals (↔ paddle_tpu/nn/functional/norm.py).
 
-`layer_norm` over one axis and `rms_norm` go through the fused forward of
-`paddle_tpu_torch.ops.fused_norm` — the kernel on a CUDA tensor, its plain
-version on a CPU tensor. A LayerNorm over several trailing axes is the
-plain composite, as in the JAX package.
+`layer_norm` over one axis and `rms_norm` go through
+`paddle_tpu_torch.ops.fused_norm.FusedNorm`: the forward and dx kernels on a
+CUDA tensor, their plain versions on a CPU tensor, so a LayerNorm carries a
+`grad_fn` like any other op. A LayerNorm over several trailing axes is the
+plain composite, as in the JAX package. Both cast their inputs for AMP as
+the ops "layer_norm" and "rms_norm" (black list: float32).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import amp
 from ...ops.fused_norm import layer_norm_fwd, rms_norm_fwd
 
 __all__ = ["layer_norm", "rms_norm"]
@@ -20,6 +23,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     n_axes = len(normalized_shape)
+    x, weight, bias = amp.cast_inputs("layer_norm", x, weight, bias)
     if n_axes == 1:
         return layer_norm_fwd(x, weight, bias, epsilon)
     axes = tuple(range(x.dim() - n_axes, x.dim()))
@@ -36,4 +40,5 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
 
 def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """RMSNorm over the last axis with f32 statistics."""
+    x, weight = amp.cast_inputs("rms_norm", x, weight)
     return rms_norm_fwd(x, weight, epsilon)

@@ -1,7 +1,8 @@
 """Linear and Embedding (↔ paddle_tpu/nn/layer/common.py).
 
 Paddle's layout: `Linear.weight` is [in_features, out_features] and the
-layer computes x @ W + b. Parameters are created on an explicit device and
+layer computes x @ W + b (`nn.functional.linear`, which casts for AMP).
+Parameters are created on an explicit device and
 dtype and initialised from an explicit `torch.Generator`:
 `weight_std=None` keeps Paddle's default initializer (Xavier-uniform for a
 Linear weight, N(0, 1) for an Embedding), a float draws N(0, weight_std)
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ...device import resolve_device
+from .. import functional as F
 
 __all__ = ["Embedding", "Linear", "init_weight"]
 
@@ -56,8 +58,7 @@ class Linear(nn.Module):
                 torch.zeros(out_features, device=dev, dtype=dtype))
 
     def forward(self, x):
-        out = torch.matmul(x, self.weight)
-        return out if self.bias is None else out + self.bias
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in_features={self._in_features}, out_features={self._out_features}"
@@ -78,7 +79,7 @@ class Embedding(nn.Module):
             weight_std, default_init, generator))
 
     def forward(self, x):
-        return self.weight[x.long()]
+        return F.embedding(x, self.weight)
 
     def extra_repr(self):
         return f"num_embeddings={self._num_embeddings}, embedding_dim={self._embedding_dim}"

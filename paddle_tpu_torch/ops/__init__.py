@@ -1,10 +1,13 @@
-"""The port's kernels: each module pairs a hand-written CUDA kernel
-(`paddle_tpu_torch/csrc/`) with its plain PyTorch version and a launch
-counter.
+"""The port's kernels: each module pairs hand-written CUDA kernels
+(`paddle_tpu_torch/csrc/`) with their plain PyTorch versions and launch
+counters.
 
-- `fused_norm` ↔ `paddle_tpu/ops/pallas/fused_norm.py` (forward).
+- `fused_norm` ↔ `paddle_tpu/ops/pallas/fused_norm.py` (forward and dx,
+  with `FusedNorm`, the autograd Function).
 - `decode_attention` ↔ `paddle_tpu/ops/pallas/decode_attention.py` (paged,
-  full precision).
+  full precision; no gradient).
+- `flash_attention` ↔ `paddle_tpu/ops/pallas/flash_attention.py` (forward,
+  dq and dk/dv, with `FlashAttention`, the autograd Function).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.

@@ -14,7 +14,8 @@ stale build.
 
 Calling convention (see each .cu file): pointers and the stream are
 `c_void_p` (the stream is `torch.cuda.current_stream().cuda_stream`), sizes
-are `c_int`/`c_longlong`, and every entry point returns
+are `c_int`/`c_longlong`, stride lists a `c_longlong` array (`longlongs`),
+and every entry point returns
 `cudaGetLastError()`, which `check()` turns into an exception.
 """
 
@@ -29,7 +30,8 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["DTYPE_CODES", "build_library", "check", "load_library"]
+__all__ = ["DTYPE_CODES", "build_library", "check", "load_library",
+           "longlongs", "open_library"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,6 +45,7 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
 
 _c_void_p, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_longlong, ctypes.c_float)
+_c_ll_p = ctypes.POINTER(ctypes.c_longlong)
 
 # argtypes of every C entry point, in the order of their declarations
 _SIGNATURES = {
@@ -53,6 +56,21 @@ _SIGNATURES = {
     # stream
     "ptt_paged_decode_attention": [_c_void_p] * 6 + [_c_int] * 6
     + [_c_float, _c_int, _c_void_p],
+    # x, w, dy, rstd, mean, dx, rows, n, x_dtype, w_dtype, kind, stream
+    "ptt_norm_bwd_dx": [_c_void_p] * 6 + [_c_ll, _c_int, _c_int, _c_int,
+                                          _c_int, _c_void_p],
+    # q, k, v, kbias, out, lse, B, H, Hkv, Sq, Skv, D, strides[12], scale,
+    # causal, dtype, stream
+    "ptt_flash_fwd": [_c_void_p] * 6 + [_c_int] * 6
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, kbias, dout, lse, delta, dq, B, H, Hkv, Sq, Skv, D,
+    # strides[12], scale, causal, dtype, stream
+    "ptt_flash_bwd_dq": [_c_void_p] * 8 + [_c_int] * 6
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, kbias, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Skv, D,
+    # strides[12], scale, causal, dtype, stream
+    "ptt_flash_bwd_dkv": [_c_void_p] * 9 + [_c_int] * 6
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
 }
 
 _LOCK = threading.Lock()
@@ -73,36 +91,37 @@ def _nvcc() -> str:
         "CUDA kernels are built from paddle_tpu_torch/csrc at first use")
 
 
-def _sources():
-    srcs = sorted(CSRC.glob("*.cu"))
+def _sources(csrc):
+    srcs = sorted(csrc.glob("*.cu"))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources in {CSRC}")
+        raise RuntimeError(f"no CUDA sources in {csrc}")
     return srcs
 
 
-def _library_path() -> pathlib.Path:
+def _library_path(csrc, build_dir) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.iterdir()):
+    for p in sorted(csrc.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-    return BUILD_DIR / f"libpaddle_tpu_torch_{h.hexdigest()[:16]}.so"
+    return build_dir / f"libpaddle_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build_library() -> pathlib.Path:
+def build_library(csrc=CSRC, build_dir=BUILD_DIR) -> pathlib.Path:
     """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
-    into one shared library; returns its path. A no-op when the library for
-    these exact sources already exists. Raises RuntimeError carrying nvcc's
-    output when a step fails."""
+    into one shared library in `build_dir`; returns its path. A no-op when
+    the library for these exact sources already exists. Raises RuntimeError
+    carrying nvcc's output when a step fails."""
     global BUILD_LOG
-    out = _library_path()
+    csrc, build_dir = pathlib.Path(csrc), pathlib.Path(build_dir)
+    out = _library_path(csrc, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         procs = []
-        for src in _sources():
+        for src in _sources(csrc):
             obj = os.path.join(tmp, src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
             procs.append((cmd, obj, subprocess.Popen(
@@ -130,21 +149,32 @@ def build_library() -> pathlib.Path:
     return out
 
 
+def open_library(path) -> ctypes.CDLL:
+    """A built library loaded with ctypes, with argtypes/restype declared
+    for every entry point."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ptt_error_string.argtypes = [ctypes.c_int]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first call and loaded once per
-    process, with argtypes/restype declared for every entry point."""
+    """The kernel library of the checkout's sources, built on first call
+    and loaded once per process."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.ptt_error_string.argtypes = [ctypes.c_int]
-            lib.ptt_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB = open_library(build_library())
         return _LIB
+
+
+def longlongs(values):
+    """A ctypes `long long` array holding `values` (kernel stride lists)."""
+    return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
 
 
 def check(err: int, what: str):

@@ -13,6 +13,11 @@ IN PLACE: the JAX package returns a fresh array per step, but the page pool
 is the largest allocation of a serving process and a copy per layer per
 step would double it.
 
+Neither has a gradient (the JAX package gives the decode kernel no VJP), so
+both raise when grad mode is on and an input requires grad, rather than
+return a result cut from the graph; the serving engine runs under
+`torch.no_grad()`.
+
 Later slices: the int8 page layout (`kv_scales=`, `paged_kv_write_q8`) and
 the dense-cache variant (`dense_decode_attention`).
 """
@@ -64,6 +69,14 @@ def paged_decode_attention_plain(q, key_cache, value_cache, block_tables,
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def _refuse_grad(what, *tensors):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no gradient: call it under torch.no_grad() (or on "
+            "tensors that do not require grad)")
+
+
 def _check(q, key_cache, value_cache, block_tables, lengths):
     if q.dim() != 3 or key_cache.dim() != 4:
         raise ValueError("q must be [B, H, D] and the caches "
@@ -101,6 +114,7 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables, lengths,
         raise NotImplementedError(
             "int8 KV pages (kv_scales=) are ported with the quantized-serving "
             "slice (ROADMAP A8 int8 / B4 int8 variant)")
+    _refuse_grad("paged_decode_attention", q, key_cache, value_cache)
     _check(q, key_cache, value_cache, block_tables, lengths)
     B, H, D = q.shape
     _, Hkv, ps, _ = key_cache.shape
@@ -141,6 +155,7 @@ def paged_kv_write(cache, new, block_tables, lengths):
     entry is -1 (parked rows of the fixed-shape batch) go to physical page
     0, the pool's reserved null page, which no live block table references.
     Returns `cache`."""
+    _refuse_grad("paged_kv_write", cache, new)
     B = new.shape[0]
     ps = cache.shape[2]
     lengths = lengths.long()

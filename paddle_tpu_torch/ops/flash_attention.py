@@ -1,0 +1,350 @@
+"""Flash attention (↔ paddle_tpu/ops/pallas/flash_attention.py).
+
+`flash_attention_fwd(q, k, v, causal, scale, key_bias)` takes Paddle's
+layout, q [B, Sq, H, D] and k/v [B, Skv, Hkv, D] with H a multiple of Hkv
+(GQA), and returns [B, Sq, H, D]. It is differentiable through
+`FlashAttention`, a `torch.autograd.Function` (the JAX package's custom
+VJP) whose forward saves the f32 row log-sum-exp and whose backward
+recomputes the probabilities from it. Three kernels, each beside its plain
+version and its launch counter:
+
+- `flash_fwd` → (O, LSE): `csrc/flash_attention.cu` `flash_fwd_kernel` on
+  CUDA tensors, `flash_fwd_plain` on CPU tensors; `FWD_LAUNCHES`;
+- `flash_bwd_dq` → dQ in q's dtype: `flash_dq_kernel` / `flash_bwd_dq_plain`;
+  `DQ_LAUNCHES`;
+- `flash_bwd_dkv` → dK, dV per query head in f32: `flash_dkv_kernel` /
+  `flash_bwd_dkv_plain`; `DKV_LAUNCHES`. The backward sums the g heads of a
+  kv head and casts to k's dtype, as `_bwd` does with jnp.
+
+Semantics, shared by the kernels and the plain versions:
+
+- Causal masking is bottom-right aligned: query r sees key c iff
+  c <= r + Skv - Sq (the flash-attn convention the JAX kernel follows;
+  torch's own `is_causal` is top-left).
+- `key_bias` [B, Skv] is an additive f32 per-key bias (a padding mask)
+  added to every logit; its cotangent is zero (None).
+- The softmax is the exact running-max form, the JAX package's
+  `PADDLE_TPU_FLASH_SAFE_SOFTMAX=1` kernel. The JAX default is the
+  unshifted exp(min(s, 60)) form without a running max: the two agree
+  wherever every logit is below 60; where logits reach 60 the JAX default
+  saturates to equal weights and this port stays exact.
+- A row that sees no key (causal with Sq > Skv, or every key biased to
+  -1e30, i.e. a running max at or below -5e29) gives zeros, never NaN and
+  never the mean of V, and LSE = +inf, so the backward gives it exactly
+  zero gradient: what the JAX default's l == 0 guard gives.
+- f32 inputs compute in full f32 (the CUDA-core kernels). bf16 inputs
+  run the tensor-core kernels: products of bf16 operands accumulated in
+  f32, with the probabilities and dS rounded to bf16 before they enter the
+  next product (as the JAX kernel casts p and ds to the operand type) and
+  the softmax statistics in f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES", "FlashAttention",
+           "flash_attention_fwd", "flash_bwd_dkv",
+           "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
+           "flash_fwd", "flash_fwd_plain"]
+
+NEG_INF = -1e30  # paddle_tpu/ops/pallas/flash_attention.py NEG_INF
+EMPTY = -5e29    # a row whose largest logit is at or below this saw no key
+MAX_HEAD_DIM = 128
+
+# kernel launches since import (or since a caller reset them)
+FWD_LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
+
+
+# --------------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------------- #
+
+
+def _visible(sq, skv, causal, device):
+    """[Sq, Skv] bool: query r sees key c (bottom-right causal)."""
+    if not causal:
+        return torch.ones(sq, skv, dtype=torch.bool, device=device)
+    return torch.ones(sq, skv, dtype=torch.bool, device=device).tril(
+        diagonal=skv - sq)
+
+
+def _expand_kv(x, g):
+    """[B, S, Hkv, D] -> f32 [B, S, Hkv * g, D]: query head h reads kv head
+    h // g."""
+    x = x.float()
+    return x if g == 1 else x.repeat_interleave(g, dim=2)
+
+
+def _logits(q, k, key_bias, causal, scale):
+    """f32 [B, H, Sq, Skv] logits with the bias added and invisible pairs at
+    -inf."""
+    g = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k, g)) * scale
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    vis = _visible(q.shape[1], k.shape[1], causal, q.device)
+    return s.masked_fill(~vis, float("-inf"))
+
+
+def _operand(x, like):
+    """x rounded to `like`'s dtype and back to f32: what a product of that
+    dtype sees (a no-op for f32)."""
+    return x.to(like.dtype).float()
+
+
+def flash_fwd_plain(q, k, v, causal, scale, key_bias=None):
+    """Plain PyTorch version of the forward kernel: the f32 softmax with the
+    row max subtracted, the zero-row rule, and LSE = m + log(l) [B, H, Sq]
+    f32 (+inf for a row that saw no key); P enters P V in q's dtype. Returns
+    (O in q's dtype, LSE)."""
+    g = q.shape[2] // k.shape[2]
+    s = _logits(q, k, key_bias, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    empty = ~(m > EMPTY)
+    m_use = torch.where(empty, torch.zeros_like(m), m)
+    p = torch.exp(s - m_use)
+    l = p.sum(-1, keepdim=True)
+    empty = empty | (l == 0)
+    inv = torch.where(empty, torch.zeros_like(l), 1.0 / torch.where(
+        empty, torch.ones_like(l), l))
+    o = torch.einsum("bhqk,bkhd->bqhd", _operand(p, q), _expand_kv(v, g))
+    o = o * inv.transpose(1, 2)
+    lse = torch.where(empty, torch.full_like(m, float("inf")),
+                      m_use + torch.log(torch.where(empty, torch.ones_like(l), l)))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def _probs_and_ds(q, k, v, key_bias, dout, lse, delta, causal, scale):
+    """The backward's recompute: P = exp(s - LSE) on visible pairs (0
+    elsewhere) and dS = P * (dO V^T - delta) * scale, both f32
+    [B, H, Sq, Skv]."""
+    g = q.shape[2] // k.shape[2]
+    s = _logits(q, k, key_bias, causal, scale)
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), _expand_kv(v, g))
+    ds = p * (dp - delta.float()[..., None]) * scale
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, key_bias, dout, lse, delta, causal, scale):
+    """Plain PyTorch version of the dq kernel: dQ = dS K with dS in q's
+    dtype, accumulated in f32, returned in q's dtype [B, Sq, H, D]."""
+    g = q.shape[2] // k.shape[2]
+    _, ds = _probs_and_ds(q, k, v, key_bias, dout, lse, delta, causal, scale)
+    return torch.einsum("bhqk,bkhd->bqhd", _operand(ds, q),
+                        _expand_kv(k, g)).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, key_bias, dout, lse, delta, causal, scale):
+    """Plain PyTorch version of the dk/dv kernel: dK = dS^T Q and
+    dV = P^T dO per query head with P and dS in q's dtype, f32
+    [B, Skv, H, D] each."""
+    p, ds = _probs_and_ds(q, k, v, key_bias, dout, lse, delta, causal, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", _operand(ds, q), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _operand(p, q), dout.float())
+    return dk, dv
+
+
+# --------------------------------------------------------------------------- #
+# kernel wrappers
+# --------------------------------------------------------------------------- #
+
+
+def _check(q, k, v, key_bias):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention wants q [B, Sq, H, D] and k/v "
+                         "[B, Skv, Hkv, D]")
+    B, _, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash attention: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"{H} query heads do not group over {k.shape[2]} "
+                         "kv heads")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("flash attention: q, k and v must share one dtype")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash attention: unsupported dtype {q.dtype}")
+    for t in (k, v, key_bias):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"flash attention: all inputs must be on {q.device}")
+    if key_bias is not None:
+        if key_bias.shape != (B, k.shape[1]):
+            raise ValueError(f"key_bias must be [B, Skv] = [{B}, {k.shape[1]}], "
+                             f"got {tuple(key_bias.shape)}")
+        if key_bias.dtype != torch.float32:
+            raise TypeError("key_bias must be float32")
+
+
+def _cuda_operands(q, k, v, key_bias, dout=None):
+    """Kernel operands: views with a unit head-dim stride (copied only if
+    the last axis is strided), the key bias contiguous, and the 12 (b, s, h)
+    element strides of q, k, v and dout."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: unsupported device {q.device}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got {q.shape[-1]}")
+
+    def unit_d(t):
+        return t if t.stride(-1) == 1 else t.contiguous()
+
+    q, k, v = unit_d(q), unit_d(k), unit_d(v)
+    dout = None if dout is None else unit_d(dout.to(q.dtype))
+    kb = None if key_bias is None else key_bias.contiguous()
+    strides = []
+    for t in (q, k, v, dout if dout is not None else q):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    return q, k, v, kb, dout, _build.longlongs(strides)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_fwd(q, k, v, causal, scale, key_bias=None):
+    """(O [B, Sq, H, D] in q's dtype, LSE [B, H, Sq] f32). CPU tensors run
+    the plain version; CUDA tensors launch the kernel."""
+    global FWD_LAUNCHES
+    _check(q, k, v, key_bias)
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal, scale, key_bias)
+    q, k, v, kb, _, strides = _cuda_operands(q, k, v, key_bias)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty(B, Sq, H, D, device=q.device, dtype=q.dtype)
+    lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out, lse
+    lib = _build.load_library()
+    err = lib.ptt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kb), out.data_ptr(),
+        lse.data_ptr(), B, H, Hkv, Sq, Skv, D, strides, float(scale),
+        int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "ptt_flash_fwd")
+    FWD_LAUNCHES += 1
+    return out, lse
+
+
+def _bwd_checks(q, lse, delta):
+    want = (q.shape[0], q.shape[2], q.shape[1])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 [B, H, Sq] = {list(want)}")
+
+
+def flash_bwd_dq(q, k, v, key_bias, dout, lse, delta, causal, scale):
+    """dQ [B, Sq, H, D] in q's dtype, from the forward's LSE and
+    delta = rowsum(dO * O) [B, H, Sq] f32. CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    global DQ_LAUNCHES
+    _check(q, k, v, key_bias)
+    _bwd_checks(q, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, key_bias, dout, lse, delta, causal,
+                                  scale)
+    q, k, v, kb, dout, strides = _cuda_operands(q, k, v, key_bias, dout)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dq = torch.empty(B, Sq, H, D, device=q.device, dtype=q.dtype)
+    if dq.numel() == 0:
+        return dq
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib = _build.load_library()
+    err = lib.ptt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kb), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Sq, Skv,
+        D, strides, float(scale), int(bool(causal)),
+        _build.DTYPE_CODES[str(q.dtype)],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "ptt_flash_bwd_dq")
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal, scale):
+    """(dK, dV), each f32 [B, Skv, H, D]: one slice per query head, not yet
+    summed over the g heads of a kv head. CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    global DKV_LAUNCHES
+    _check(q, k, v, key_bias)
+    _bwd_checks(q, lse, delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, key_bias, dout, lse, delta,
+                                   causal, scale)
+    q, k, v, kb, dout, strides = _cuda_operands(q, k, v, key_bias, dout)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dk = torch.empty(B, Skv, H, D, device=q.device, dtype=torch.float32)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    lse, delta = lse.contiguous(), delta.contiguous()
+    lib = _build.load_library()
+    err = lib.ptt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kb), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
+        Hkv, Sq, Skv, D, strides, float(scale), int(bool(causal)),
+        _build.DTYPE_CODES[str(q.dtype)],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "ptt_flash_bwd_dkv")
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
+# --------------------------------------------------------------------------- #
+# autograd and the public entry
+# --------------------------------------------------------------------------- #
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its flash backward (↔ `_flash` / `_flash_kb`'s custom
+    VJP). Saves q, k, v, O and the LSE; the backward computes
+    delta = rowsum(dO * O) in f32 with torch (as `_bwd` does with jnp),
+    runs the dq and dk/dv kernels, and group-sums dK/dV for GQA. The key
+    bias is data: its gradient is None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, causal, scale):
+        out, lse = flash_fwd(q, k, v, causal, scale, key_bias)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
+        ctx.causal = causal
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
+        causal, scale = ctx.causal, ctx.scale
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, key_bias, dout, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal,
+                               scale)
+        B, Skv, Hkv, D = k.shape
+        g = q.shape[2] // Hkv
+        if g > 1:
+            dk = dk.reshape(B, Skv, Hkv, g, D).sum(3)
+            dv = dv.reshape(B, Skv, Hkv, g, D).sum(3)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None, key_bias=None):
+    """Paddle-layout entry: q [B, Sq, H, D], k/v [B, Skv, Hkv, D] ->
+    [B, Sq, H, D], differentiable. `key_bias`: optional [B, Skv] additive
+    per-key bias, treated as data (no gradient). k and v are cast to q's
+    dtype, as in the JAX package."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    k = k.to(q.dtype)
+    v = v.to(q.dtype)
+    if key_bias is not None:
+        key_bias = key_bias.detach().float()
+    return FlashAttention.apply(q, k, v, key_bias, bool(causal), float(scale))

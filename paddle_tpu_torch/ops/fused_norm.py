@@ -1,12 +1,15 @@
-"""Fused LayerNorm / RMSNorm forward (↔ paddle_tpu/ops/pallas/fused_norm.py).
+"""Fused LayerNorm / RMSNorm (↔ paddle_tpu/ops/pallas/fused_norm.py).
 
 `layer_norm_fwd` and `rms_norm_fwd` normalize over the last axis with f32
-statistics and an optional weight/bias [N]. On a CUDA tensor they launch
-the kernel of `csrc/fused_norm.cu` (one block per row, the row read from HBM
-once); on a CPU tensor they run `norm_fwd_plain`, the same arithmetic in
-plain PyTorch. `LAUNCHES` counts kernel launches.
-
-The backward kernel (`fused_norm.py:196`) comes with the training slice.
+statistics and an optional weight/bias [N], differentiably: they go through
+`FusedNorm`, a `torch.autograd.Function` (the JAX package's custom VJP).
+Its forward is `norm_fwd`, its backward `norm_bwd_dx` for dx plus torch
+reductions in f32 for dweight and dbias (jnp reductions in the JAX package,
+`fused_norm.py:288-295`). On a CUDA tensor `norm_fwd` and `norm_bwd_dx`
+launch the kernels of `csrc/fused_norm.cu` (one block per row, the row read
+from HBM once); on a CPU tensor they run `norm_fwd_plain` and
+`norm_bwd_dx_plain`, the same arithmetic in plain PyTorch. `LAUNCHES` counts
+forward kernel launches and `DX_LAUNCHES` dx kernel launches.
 """
 
 from __future__ import annotations
@@ -15,10 +18,13 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "layer_norm_fwd", "rms_norm_fwd", "norm_fwd",
-           "norm_fwd_plain"]
+__all__ = ["DX_LAUNCHES", "FusedNorm", "LAUNCHES", "layer_norm_fwd",
+           "norm_bwd_dx", "norm_bwd_dx_plain", "norm_fwd", "norm_fwd_plain",
+           "rms_norm_fwd"]
 
-LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset them)
+LAUNCHES = 0     # forward
+DX_LAUNCHES = 0  # dx
 
 _KINDS = ("ln", "rms")
 
@@ -102,17 +108,110 @@ def norm_fwd(x2, weight, bias, kind, eps):
     return out, rstd, mean
 
 
+def norm_bwd_dx_plain(x2, weight, dy2, rstd, mean, kind):
+    """Plain PyTorch version of the dx kernel on x2, dy2 [R, N] with the
+    forward's rstd (and mean) [R]: g = dy * w, x_hat = (x - mean) * rstd,
+    dx = rstd * (g - mean(g) - x_hat * mean(g * x_hat)) for LayerNorm and
+    rstd * (g - x_hat * mean(g * x_hat)) for RMSNorm, in f32; dx in x2's
+    dtype."""
+    x = x2.float()
+    g = dy2.float()
+    if weight is not None:
+        g = g * weight.float()
+    inv_n = 1.0 / x.shape[-1]
+    r = rstd[:, None]
+    if kind == "ln":
+        xhat = (x - mean[:, None]) * r
+        c1 = g.sum(-1, keepdim=True) * inv_n
+    else:
+        xhat = x * r
+        c1 = 0.0
+    c2 = (g * xhat).sum(-1, keepdim=True) * inv_n
+    return (r * (g - c1 - xhat * c2)).to(x2.dtype)
+
+
+def norm_bwd_dx(x2, weight, dy2, rstd, mean, kind):
+    """dx [R, N] of the norm from x2, dy2 [R, N] and the forward's f32
+    rstd (and mean). CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
+    global DX_LAUNCHES
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}")
+    if dy2.shape != x2.shape or x2.dim() != 2:
+        raise ValueError(f"fused norm dx: x {tuple(x2.shape)} and dy "
+                         f"{tuple(dy2.shape)} must be one [rows, N] shape")
+    _check(x2, weight, None)
+    dy2 = dy2.to(x2.dtype)
+    if x2.device.type == "cpu":
+        return norm_bwd_dx_plain(x2, weight, dy2, rstd, mean, kind)
+    if x2.device.type != "cuda":
+        raise ValueError(f"fused norm dx: unsupported device {x2.device}")
+    dy2 = dy2.contiguous()
+    for v in (x2, weight, rstd, mean):
+        if v is not None and not v.is_contiguous():
+            raise ValueError("fused norm dx: inputs must be contiguous")
+    r, n = x2.shape
+    dx = torch.empty_like(x2)
+    if r == 0:
+        return dx
+    lib = _build.load_library()
+    w_code = _build.DTYPE_CODES[str(weight.dtype)] if weight is not None else 0
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    err = lib.ptt_norm_bwd_dx(
+        x2.data_ptr(), None if weight is None else weight.data_ptr(),
+        dy2.data_ptr(), rstd.data_ptr(),
+        None if mean is None else mean.data_ptr(), dx.data_ptr(), r, n,
+        _build.DTYPE_CODES[str(x2.dtype)], w_code, 1 if kind == "ln" else 0,
+        stream)
+    _build.check(err, "ptt_norm_bwd_dx")
+    DX_LAUNCHES += 1
+    return dx
+
+
+class FusedNorm(torch.autograd.Function):
+    """The norm over the last axis with its gradient (↔ `_fused_norm`'s
+    custom VJP). Saves x, weight, rstd and mean; the backward runs the dx
+    kernel (its plain version on the CPU) and the dweight/dbias row
+    reductions in f32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, kind, eps):
+        x2 = x.reshape(-1, x.shape[-1])
+        out, rstd, mean = norm_fwd(x2, weight, bias, kind, eps)
+        ctx.save_for_backward(x2, weight, rstd, mean)
+        ctx.kind = kind
+        ctx.shape = x.shape
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, weight, rstd, mean = ctx.saved_tensors
+        dy2 = dout.reshape(x2.shape)
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        if need_x:
+            dx = norm_bwd_dx(x2, weight, dy2, rstd, mean,
+                             ctx.kind).reshape(ctx.shape)
+        if need_w:
+            x32 = x2.float()
+            if ctx.kind == "ln":
+                x32 = x32 - mean[:, None]
+            dw = (dy2.float() * (x32 * rstd[:, None])).sum(0).to(weight.dtype)
+        if need_b:
+            db = dy2.float().sum(0).to(ctx.bias_dtype)
+        return dx, dw, db, None, None
+
+
 def layer_norm_fwd(x, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the last axis of x [..., N] (two-pass centred variance,
-    f32 stats), optional weight/bias [N]; returns x's shape and dtype."""
-    out, _, _ = norm_fwd(x.reshape(-1, x.shape[-1]), weight, bias, "ln",
-                         float(epsilon))
-    return out.reshape(x.shape)
+    f32 stats), optional weight/bias [N]; returns x's shape and dtype.
+    Differentiable through `FusedNorm`."""
+    return FusedNorm.apply(x, weight, bias, "ln", float(epsilon))
 
 
 def rms_norm_fwd(x, weight=None, epsilon=1e-6, bias=None):
     """RMSNorm over the last axis of x [..., N] (f32 stats), optional
-    weight/bias [N]; returns x's shape and dtype."""
-    out, _, _ = norm_fwd(x.reshape(-1, x.shape[-1]), weight, bias, "rms",
-                         float(epsilon))
-    return out.reshape(x.shape)
+    weight/bias [N]; returns x's shape and dtype. Differentiable through
+    `FusedNorm`."""
+    return FusedNorm.apply(x, weight, bias, "rms", float(epsilon))
