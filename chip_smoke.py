@@ -15,8 +15,11 @@ Phases; any failure raises and the script exits non-zero:
                 version's time, the least time the card could take (bound),
                 and the time of one PyTorch library call computing the same
                 function where there is one. Fused norm forward and dx,
-                paged decode attention, flash attention forward, dq and
-                dk/dv.
+                paged decode attention (full precision and int8 pages, with
+                g = 4, a zero-length row, -1 table entries and a page whose
+                scales are 0), dense-cache decode attention (the MMHA shape
+                and g = 4), flash attention forward, dq and dk/dv, and the
+                flash forward at the dense engine's decode shape (Sq = 1).
 2b. faults    — the flash kernels built again from copies of csrc/, each
                 with one planted fault (a kv or q tile skipped, long rows
                 normalised 1% off): at the path's shape every one must
@@ -33,6 +36,23 @@ Phases; any failure raises and the script exits non-zero:
                 greedy requests through the engine on the card (kernels) and
                 on the CPU (plain versions); first-decode-tick logits within
                 tolerance and identical tokens.
+4b. serve-quant — bench.py's serving_quant A/B on gpt3_1p3b bf16: 64
+                requests of the mix, 32 new tokens, B 16, S 512, page size
+                32, an equal KV budget of (B*S)/(2*ps) bf16 pages. Leg A bf16
+                pages, leg B kv_quant + serve_w8; each leg launches only its
+                own paged decode kernel, ticks x 24 times, and the norm
+                kernel (requests + ticks) x 49 times; leg B holds >= 1.9x
+                the pages and no less peak concurrency. A profile of leg B's
+                decode tick.
+4c. dense     — the 12-request mix through create_serving_engine(paged=
+                False): flash forward at Sq = 1 ticks x 24, norm (requests
+                + ticks) x 49; model.generate on one greedy prompt gives the
+                engine's tokens; a profile of the dense decode tick.
+4d. mmha      — 32 steps of incubate masked_multihead_attention at B 16,
+                16 heads of 128, S_max 2048: the dense-cache kernel exactly
+                32 times, every step within tolerance of the plain version.
+4e. quant hold — phase 4 with kv_quant and serve_w8: tokens identical,
+                logits within tolerance, int8 payloads within 1.
 5. train      — gpt3_1p3b at full width and depth, batch 4 x 2048 tokens,
                 the bench's 1.3B recipe: amp.decorate O2 (bf16 parameters,
                 LayerNorm in f32), AdamW(lr 1e-4, bf16 moments), per-layer
@@ -81,6 +101,12 @@ DECODE_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 # ~1 summed in other orders over K <= 8192 differ by a few 1e-6; 1e-3
 # leaves room for that while catching a wrong mask, page or layer.
 HOLD_LOGIT_TOL = 1e-3
+# The same with int8 KV pages and int8 weights: the weights quantize
+# identically on both sides (elementwise, IEEE division), but K/V rows
+# that differ by rounding can land on either side of a quantizer's rounding
+# boundary, moving one payload by 1 (one scale step, <= 1/127 of its page's
+# abs-max); a few such moves shift a logit by far less than 1e-2.
+QUANT_HOLD_LOGIT_TOL = 1e-2
 # Norm dx kernel vs plain, max |err| of outputs of magnitude <= ~4: the
 # same f32 arithmetic, row sums in another order; bf16 rounds once, two
 # ulps as for the forward.
@@ -284,19 +310,21 @@ def _decode_case(torch, gen, B, H, Hkv, D, ps, P, lengths, holes, dtype):
             torch.tensor(lens, device="cuda"), valid)
 
 
+# serving path: B=16 rows, 16 heads of 128, page size 32, 512 tokens;
+# ragged lengths, a zero-length row, a parked row (length 1, table all -1,
+# by the holes of the cases) and a -1 hole in the middle of a row's table
+DECODE_PATH_LENGTHS = [512, 1, 0, 33, 100, 255, 256, 257, 300, 31, 32, 64,
+                       480, 129, 17, 200]
+
+
 def check_decode(card, torch):
     from paddle_tpu_torch.ops import decode_attention as da
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # serving path: B=16 rows, 16 heads of 128, page size 32, 512 tokens;
-    # ragged lengths, a zero-length row, a parked row (length 1, table all
-    # -1) and a -1 hole in the middle of a row's table
-    path_lengths = [512, 1, 0, 33, 100, 255, 256, 257, 300, 31, 32, 64, 480,
-                    129, 17, 200]
     cases = {
-        "path_g1": (16, 16, 16, 128, 32, 16, path_lengths,
+        "path_g1": (16, 16, 16, 128, 32, 16, DECODE_PATH_LENGTHS,
                     [(1, 0), (3, 0), (8, 4)]),
-        "gqa_g4": (16, 16, 4, 128, 32, 16, path_lengths, [(12, 7)]),
+        "gqa_g4": (16, 16, 4, 128, 32, 16, DECODE_PATH_LENGTHS, [(12, 7)]),
         "gqa_g2_d64_ps13": (5, 8, 4, 64, 13, 10, [130, 1, 0, 77, 14], [(3, 2)]),
     }
     worst = 0.0
@@ -344,6 +372,206 @@ def check_decode(card, torch):
     say(card, "paged_decode library_ms: none; no single PyTorch call attends "
               "through a block table over a paged cache")
     return {"worst": worst, "main": main}
+
+
+def _q8_case(torch, gen, B, H, Hkv, D, ps, P, lengths, holes, zero_scale,
+             dtype):
+    """An int8 paged case: random payloads in [-127, 127] and scales
+    (|K|, |V| up to ~3), block tables as `_decode_case` builds them, the
+    scales of the page at `zero_scale` (row, logical page) set to 0. Also
+    returns the valid tokens and the (page, head) scale pairs read."""
+    q, _, _, tables, lens, valid = _decode_case(torch, gen, B, H, Hkv, D, ps,
+                                                P, lengths, holes, dtype)
+    n_pages = B * P + 1
+    kc = torch.randint(-127, 128, (n_pages, Hkv, ps, D), device="cuda",
+                       generator=gen, dtype=torch.int8)
+    vc = torch.randint(-127, 128, (n_pages, Hkv, ps, D), device="cuda",
+                       generator=gen, dtype=torch.int8)
+    ks = 0.005 + 0.02 * torch.rand(n_pages, Hkv, device="cuda", generator=gen)
+    vs = 0.005 + 0.02 * torch.rand(n_pages, Hkv, device="cuda", generator=gen)
+    if zero_scale is not None:
+        page = int(tables[zero_scale])
+        ks[page] = 0.0
+        vs[page] = 0.0
+    tab = tables.cpu().numpy()
+    pages_read = sum(1 for b, L in enumerate(lengths) for j in range(P)
+                     if tab[b, j] >= 0 and j * ps < L)
+    return q, kc, vc, ks, vs, tables, lens, valid, pages_read
+
+
+def check_decode_q8(card, torch):
+    """The int8 paged decode kernel (`kv_scales=`) against its plain
+    version: the serving path's shape (B 16, 16 heads of 128, page size 32,
+    the ragged lengths of check_decode with a zero-length row, a parked row
+    and -1 holes), GQA g = 4, and a page whose scales are 0; q in bf16 (the
+    path) and f32."""
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = {
+        "path_g1": (16, 16, 16, 128, 32, 16, DECODE_PATH_LENGTHS,
+                    [(1, 0), (3, 0), (8, 4)], None),
+        "gqa_g4": (16, 16, 4, 128, 32, 16, DECODE_PATH_LENGTHS, [(12, 7)],
+                   None),
+        "zero_scale_page_d64": (5, 8, 4, 64, 16, 10, [130, 1, 0, 77, 14],
+                                [(3, 2)], (0, 3)),
+    }
+    worst, main = 0.0, None
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for name, (B, H, Hkv, D, ps, P, lengths, holes, zero) in cases.items():
+            q, kc, vc, ks, vs, tables, lens, valid, pages_read = _q8_case(
+                torch, gen, B, H, Hkv, D, ps, P, lengths, holes, zero, dt)
+            out = da.paged_decode_attention(q, kc, vc, tables, lens,
+                                            kv_scales=(ks, vs))
+            ref = da.paged_decode_attention_q8_plain(q, kc, vc, tables, lens,
+                                                     D ** -0.5, ks, vs)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError(f"paged_decode_q8 {name} {dtype}: "
+                                     "non-finite output")
+            zero_rows = [b for b in range(B) if (tables[b] < 0).all()]
+            if any(out[b].abs().max().item() != 0 for b in zero_rows):
+                raise AssertionError(f"paged_decode_q8 {name} {dtype}: a row "
+                                     "without valid tokens is not zero")
+            err = (out.float() - ref.float()).abs().max().item()
+            if not err <= DECODE_TOL[dtype]:
+                raise AssertionError(f"paged_decode_q8 {name} {dtype}: "
+                                     f"max|err| {err} (tol {DECODE_TOL[dtype]})")
+            worst = max(worst, err)
+            es = q.element_size()
+            nbytes = (2 * valid * Hkv * D + 2 * 4 * pages_read * Hkv
+                      + 2 * q.numel() * es + tables.numel() * 4
+                      + lens.numel() * 4)
+            bnd, by = bound_ms(nbytes, 4 * valid * H * D, dtype)
+            call = lambda: da.paged_decode_attention(  # noqa: E731
+                q, kc, vc, tables, lens, kv_scales=(ks, vs))
+            row = dict(case=name, dtype=dtype, B=B, H=H, Hkv=Hkv, D=D, ps=ps,
+                       valid_tokens=valid, max_abs_err=err,
+                       tol=DECODE_TOL[dtype], ms=time_ms(call),
+                       eager_ms=eager_ms(call),
+                       plain_ms=time_ms(lambda: da.paged_decode_attention_q8_plain(
+                           q, kc, vc, tables, lens, D ** -0.5, ks, vs),
+                           reps=5, inner=3),
+                       bound_ms=bnd, bound_by=by, library_ms=None)
+            say(card, "paged_decode_q8 " + json.dumps(row))
+            if (name, dtype) == ("path_g1", "bfloat16"):
+                main = row
+    say(card, "paged_decode_q8 library_ms: none; no single PyTorch call "
+              "attends over int8 pages through a block table")
+    return {"worst": worst, "main": main}
+
+
+def check_dense_decode(card, torch):
+    """The dense-cache decode kernel against its plain version at the MMHA
+    shape (B 16, 16 heads of 128, S_max 2048, lengths from 1 to 2048), at
+    GQA g = 4 and at a short odd cache with a zero-length row; bf16 (the
+    path) and f32. The library yardstick is F.scaled_dot_product_attention
+    over the same keys with a bool key mask, at g = 1."""
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mmha_lengths = [int(x) for x in np.linspace(1, 2048, 16)]
+    cases = {
+        "mmha_g1": (16, 16, 16, 128, 2048, mmha_lengths),
+        "gqa_g4": (16, 16, 4, 128, 2048, mmha_lengths),
+        "odd_s_max_d64": (4, 8, 8, 64, 301, [0, 1, 300, 301]),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, main = 0.0, None
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for name, (B, H, Hkv, D, S, lengths) in cases.items():
+            q = torch.randn(B, H, D, device="cuda", generator=gen).to(dt)
+            kc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).to(dt)
+            vc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).to(dt)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            out = da.dense_decode_attention(q, kc, vc, lens)
+            ref = da.dense_decode_attention_plain(q, kc, vc, lens, D ** -0.5)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            zero_rows = [b for b, L in enumerate(lengths) if L == 0]
+            if (not torch.isfinite(out.float()).all()
+                    or any(out[b].abs().max().item() != 0 for b in zero_rows)):
+                raise AssertionError(f"dense_decode {name} {dtype}: non-finite "
+                                     "output or a zero-length row not zero")
+            if not err <= DECODE_TOL[dtype]:
+                raise AssertionError(f"dense_decode {name} {dtype}: max|err| "
+                                     f"{err} (tol {DECODE_TOL[dtype]})")
+            worst = max(worst, err)
+            valid = sum(min(L, S) for L in lengths)
+            es = q.element_size()
+            nbytes = 2 * valid * Hkv * D * es + 2 * q.numel() * es + B * 4
+            bnd, by = bound_ms(nbytes, 4 * valid * H * D, dtype)
+            lib = None
+            if Hkv == H:
+                keep = (torch.arange(S, device="cuda")[None, :]
+                        < lens[:, None])[:, None, None, :]
+                q4 = q[:, :, None, :]
+                lib = time_ms(lambda: sdpa(q4, kc, vc, attn_mask=keep))
+            call = lambda: da.dense_decode_attention(q, kc, vc, lens)  # noqa: E731
+            row = dict(case=name, dtype=dtype, B=B, H=H, Hkv=Hkv, D=D, S_max=S,
+                       valid_tokens=valid, max_abs_err=err,
+                       tol=DECODE_TOL[dtype], ms=time_ms(call),
+                       eager_ms=eager_ms(call),
+                       plain_ms=time_ms(lambda: da.dense_decode_attention_plain(
+                           q, kc, vc, lens, D ** -0.5), reps=5, inner=3),
+                       bound_ms=bnd, bound_by=by, library_ms=lib)
+            say(card, "dense_decode " + json.dumps(row))
+            if (name, dtype) == ("mmha_g1", "bfloat16"):
+                main = row
+            del q, kc, vc, out, ref
+    say(card, "dense_decode library_ms: F.scaled_dot_product_attention on "
+              "[B, H, 1, D] against the cache with a bool key mask (g = 1)")
+    return {"worst": worst, "main": main}
+
+
+def check_flash_decode(card, torch):
+    """The flash forward kernel at the dense engine's decode shape: B 16,
+    Sq 1, Skv 512, 16 heads of 128, bf16, a key bias that keeps each row's
+    first lengths[b] + 1 keys (a parked row keeps key 0 only), held with
+    check_flash's limits. Library: F.scaled_dot_product_attention with the
+    same keys as a bool mask."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, Skv, H, D = 16, 512, 16, 128
+    lengths = [0] + [int(x) for x in np.linspace(10, 510, B - 1)]
+    q = torch.randn(B, 1, H, D, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(B, Skv, H, D, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, Skv, H, D, device="cuda", generator=gen).bfloat16()
+    keep = (torch.arange(Skv, device="cuda")[None, :]
+            <= torch.tensor(lengths, device="cuda")[:, None])
+    kb = torch.where(keep, 0.0, -1e30).float()
+    scale = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, False, scale, kb)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, False, scale, kb)
+    torch.cuda.synchronize()
+    errs = _flash_errs({"out": out, "lse": lse}, {"out": out_p, "lse": lse_p})
+    bad = _flash_violations(errs, "bfloat16")
+    valid = int(keep.sum())
+    es = q.element_size()
+    nbytes = 2 * q.numel() * es + 2 * valid * H * D * es + B * H * 4 + B * Skv * 4
+    bnd, by = bound_ms(nbytes, 4 * valid * H * D, "bfloat16")
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    mask = keep[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    call = lambda: fa.flash_fwd(q, k, v, False, scale, kb)  # noqa: E731
+    row = dict(case="dense_decode_sq1", B=B, Sq=1, Skv=Skv, H=H, D=D,
+               dtype="bfloat16", key_bias=True, valid_keys=valid,
+               max_abs_err=errs["out"][0], row_rel_err=errs["out"][1],
+               frobenius_rel_err=errs["out"][2], lse_err=errs["lse"],
+               tol=FLASH_TOL["bfloat16"], ms=time_ms(call),
+               eager_ms=eager_ms(call),
+               plain_ms=time_ms(lambda: fa.flash_fwd_plain(q, k, v, False,
+                                                           scale, kb),
+                                reps=5, inner=3),
+               bound_ms=bnd, bound_by=by,
+               library_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask)))
+    say(card, "flash_attention " + json.dumps(row))
+    if bad:
+        raise AssertionError(f"flash_fwd at Sq = 1: {bad}")
+    return row
 
 
 def check_norm_dx(card, torch):
@@ -690,8 +918,6 @@ def serving_workload(vocab_size, S, n_req):
 def serve(card, torch):
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
-    from paddle_tpu_torch.ops import decode_attention as da
-    from paddle_tpu_torch.ops import fused_norm as fn
 
     cfg = gpt3_1p3b()
     B, S, ps, n_req, max_new = 16, 512, 32, 12, 16
@@ -714,8 +940,7 @@ def serve(card, torch):
     for prompt, temp in serving_workload(cfg.vocab_size, S, n_req):
         eng.add_request(prompt, max_new_tokens=max_new, temperature=temp)
     torch.cuda.synchronize()
-    fn.LAUNCHES = 0
-    da.LAUNCHES = 0
+    _zero_counters()
     t_start = time.perf_counter()
     peak_used = 0
     while eng.has_work():
@@ -723,14 +948,14 @@ def serve(card, torch):
         peak_used = max(peak_used, eng.pool.pages_total - eng.pool.pages_free)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t_start
-    launches = {"fused_norm": fn.LAUNCHES, "paged_decode_attention": da.LAUNCHES}
+    launches = _counters()
 
     done = eng.finished
     m = eng.metrics
     decode_ticks = m["step_seconds"].count(engine="paged")
     L = cfg.num_layers
-    want = {"fused_norm": (n_req + decode_ticks) * (2 * L + 1),
-            "paged_decode_attention": decode_ticks * L}
+    want = _expected(fused_norm=(n_req + decode_ticks) * (2 * L + 1),
+                     paged_decode_attention=decode_ticks * L)
     if len(done) != n_req or any(len(r.generated) != max_new for r in done):
         raise AssertionError("serve: not every request finished with "
                              f"{max_new} tokens")
@@ -755,25 +980,27 @@ def serve(card, torch):
     }
     say(card, "serve (smoke run, not a benchmark) " + json.dumps(line))
     del eng
-    profile_decode(card, torch, model, B, S, ps)
+    profile_decode(card, torch, model, B, S, page_size=ps)
     del model
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_decode(card, torch, model, B, S, ps, ticks=5):
+def profile_decode(card, torch, model, B, S, ticks=5, label="paged",
+                   **engine_kw):
     """Where a decode tick's time goes: torch.profiler over `ticks` decode
     ticks of a full batch (B live rows, 16-token prompts; the admission
-    tick is left out). Prints the wall time per tick, the device-busy time
-    per tick (the sum of device activity; one stream, so nothing overlaps)
-    and the kernels that take the most device time."""
+    tick is left out) of the engine `create_serving_engine(model,
+    **engine_kw)` builds. Prints the wall time per tick, the device-busy
+    time per tick (the sum of device activity; one stream, so nothing
+    overlaps) and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.inference import create_serving_engine
 
     eng = create_serving_engine(model, max_batch_size=B, max_seq_len=S,
-                                page_size=ps, seed=0)
+                                seed=0, **engine_kw)
     rng = np.random.default_rng(1)
     for _ in range(B):
         eng.add_request(rng.integers(1, model.config.vocab_size, 16),
@@ -797,7 +1024,7 @@ def profile_decode(card, torch, model, B, S, ps, ticks=5):
     busy_us = sum(dev_us(e) for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:8]
     say(card, "decode tick profile " + json.dumps({
-        "rows": B, "ticks": ticks, "wall_ms_per_tick": wall * 1e3 / ticks,
+        "engine": label, "rows": B, "ticks": ticks, "wall_ms_per_tick": wall * 1e3 / ticks,
         "device_busy_ms_per_tick": busy_us / 1e3 / ticks,
         "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
         "top_device_kernels": [
@@ -841,6 +1068,262 @@ def hold(card, torch):
 
 
 # --------------------------------------------------------------------------- #
+# phase 4b-4e: the rest of serving (int8, dense engine, generate, MMHA)
+# --------------------------------------------------------------------------- #
+
+
+def _state_bytes(model):
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values())
+
+
+def _drain(torch, eng, workload, max_new):
+    """Add the workload, drain the engine with the launch counters zeroed
+    just before and read just after. Returns (finished requests, seconds,
+    peak live rows, launches)."""
+    for prompt, temp in workload:
+        eng.add_request(prompt, max_new_tokens=max_new, temperature=temp)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    peak = 0
+    while eng.has_work():
+        eng.step()
+        peak = max(peak, sum(r is not None for r in eng.active))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counters()
+    done = eng.finished
+    if len(done) != len(workload) or any(len(r.generated) != max_new
+                                         for r in done):
+        raise AssertionError(f"{eng.engine_label}: not every request finished "
+                             f"with {max_new} tokens")
+    if not torch.isfinite(eng.last_logits.float()).all():
+        raise AssertionError(f"{eng.engine_label}: non-finite logits")
+    return done, seconds, peak, launches
+
+
+def _serve_line(eng, done, seconds, peak, launches):
+    m = eng.metrics
+    lab = eng.engine_label
+    tokens = m["tokens"].value(engine=lab)
+    return {"requests": len(done), "tokens": tokens, "seconds": seconds,
+            "tokens_per_s": tokens / seconds,
+            "ttft_p50_s": float(np.percentile(m["ttft"].values(engine=lab), 50)),
+            "step_p99_s": float(np.percentile(
+                m["step_seconds"].values(engine=lab), 99)),
+            "decode_ticks": m["step_seconds"].count(engine=lab),
+            "peak_concurrency": peak, "launches": launches}
+
+
+def serve_quant(card, torch):
+    """bench.py's serving_quant A/B on gpt3_1p3b bf16 with the rung's own
+    settings: B 16, S 512, page size 32, the serving mix of 64 requests, 32
+    new tokens each, an equal KV budget of (B*S)/(2*ps) bf16 pages. Leg A:
+    bf16 pages; leg B: kv_quant (int8 pages) and serve_w8 (int8 weights).
+    Each leg must launch only its own paged decode kernel, ticks x 24
+    times, and the norm kernel (requests + ticks) x 49 times; leg B must
+    hold >= 1.9x the pages and no less peak concurrency."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.inference.paged import BlockPool
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+
+    cfg = gpt3_1p3b()
+    B, S, ps, n_req, max_new = 16, 512, 32, 64, 32
+    L = cfg.num_layers
+    budget = (B * S) // (2 * ps) * BlockPool.page_nbytes(
+        L, cfg.kv_heads, cfg.head_dim, ps, torch.bfloat16)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    workload = serving_workload(cfg.vocab_size, S, n_req)
+    legs = {}
+    for leg, quant in (("A_bf16", False), ("B_int8_w8", True)):
+        w_before = _state_bytes(model)
+        eng = create_serving_engine(model, max_batch_size=B, max_seq_len=S,
+                                    page_size=ps, seed=0, kv_quant=quant,
+                                    serve_w8=quant, kv_budget_bytes=budget)
+        w_after = _state_bytes(model)
+        done, seconds, peak, launches = _drain(torch, eng, workload, max_new)
+        line = _serve_line(eng, done, seconds, peak, launches)
+        ticks = line["decode_ticks"]
+        decode = ("paged_decode_attention_q8" if quant
+                  else "paged_decode_attention")
+        want = _expected(fused_norm=(n_req + ticks) * (2 * L + 1),
+                         **{decode: ticks * L})
+        line.update({
+            "kv_budget_bytes": budget, "pages_total": eng.pool.pages_total,
+            "bytes_per_page": eng.pool.bytes_per_page,
+            "kv_bytes_per_token": eng.pool.bytes_per_token,
+            "preemptions": eng.metrics["preemptions"].value(),
+            "weight_bytes_before": w_before, "weight_bytes_after": w_after,
+            "kv_dtype": str(eng.pool.kv[0][0].dtype)})
+        say(card, f"serve_quant leg {leg} (smoke run, not a benchmark) "
+                  + json.dumps(line))
+        if launches != want:
+            raise AssertionError(f"serve_quant {leg}: kernel launches "
+                                 f"{launches}, expected {want}")
+        legs[leg] = line
+        del eng
+        torch.cuda.empty_cache()
+        if quant:
+            profile_decode(card, torch, model, B, S, label="paged int8+w8",
+                           page_size=ps, kv_quant=True, serve_w8=True)
+    total = {k: legs["A_bf16"]["launches"][k] + legs["B_int8_w8"]["launches"][k]
+             for k in legs["A_bf16"]["launches"]}
+    a, b = legs["A_bf16"], legs["B_int8_w8"]
+    ratio = b["pages_total"] / a["pages_total"]
+    say(card, "serve_quant A/B " + json.dumps({
+        "pages_ratio": ratio, "peak_concurrency": [a["peak_concurrency"],
+                                                   b["peak_concurrency"]],
+        "tokens_per_s": [a["tokens_per_s"], b["tokens_per_s"]]}))
+    if not (ratio >= 1.9 and b["peak_concurrency"] >= a["peak_concurrency"]):
+        raise AssertionError("serve_quant: the int8 leg must hold >= 1.9x the "
+                             "pages and no less peak concurrency")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def serve_dense(card, torch):
+    """gpt3_1p3b bf16 through create_serving_engine(paged=False) (16 slots of
+    512 tokens) over the 12-request mix of phase 3: every decode attention
+    goes through the flash forward kernel at Sq = 1 (ticks x 24) and every
+    LayerNorm through the norm kernel ((requests + ticks) x 49). Then
+    model.generate on one greedy prompt of the mix must give the engine's
+    tokens."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+
+    cfg = gpt3_1p3b()
+    B, S, n_req, max_new = 16, 512, 12, 16
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    workload = serving_workload(cfg.vocab_size, S, n_req)
+    eng = create_serving_engine(model, paged=False, max_batch_size=B,
+                                max_seq_len=S, seed=0)
+    done, seconds, peak, launches = _drain(torch, eng, workload, max_new)
+    line = _serve_line(eng, done, seconds, peak, launches)
+    ticks = line["decode_ticks"]
+    want = _expected(fused_norm=(n_req + ticks) * (2 * L + 1),
+                     flash_fwd=ticks * L)
+    say(card, "serve_dense (smoke run, not a benchmark) " + json.dumps(line))
+    if launches != want:
+        raise AssertionError(f"serve_dense: kernel launches {launches}, "
+                             f"expected {want}")
+    by_prompt = {tuple(r.prompt): r.generated for r in done}
+    prompt = next(p for p, temp in workload if temp == 0.0)
+    t0 = time.perf_counter()
+    gen = model.generate(prompt[None], max_new_tokens=max_new,
+                         temperature=0.0)[0, len(prompt):].tolist()
+    same = gen == by_prompt[tuple(prompt)]
+    say(card, "generate " + json.dumps({
+        "prompt_tokens": len(prompt), "new_tokens": max_new,
+        "seconds": time.perf_counter() - t0, "tokens_identical_to_engine": same,
+        "tokens": gen}))
+    if not same:
+        raise AssertionError("generate: greedy tokens differ from the dense "
+                             "engine's")
+    del eng
+    profile_decode(card, torch, model, B, S, label="dense", paged=False)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mmha(card, torch):
+    """32 decode steps of incubate masked_multihead_attention at the MMHA
+    shape (B 16, 16 heads of 128, S_max 2048, bf16, start lengths spread
+    over 0..2016, no src_mask): every step must launch the dense-cache
+    kernel once and agree with the plain version on the updated cache."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        masked_multihead_attention,
+    )
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    B, H, D, S, steps = 16, 16, 128, 2048, 32
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cache = torch.randn(2, B, H, S, D, device="cuda", generator=gen).bfloat16()
+    bias = (0.1 * torch.randn(3 * H * D, device="cuda", generator=gen)).bfloat16()
+    start = np.linspace(0, S - steps, B).astype(np.int32)
+    xs = [torch.randn(B, 3 * H * D, device="cuda", generator=gen).bfloat16()
+          for _ in range(steps)]
+    torch.cuda.synchronize()
+    _zero_counters()
+    worst = 0.0
+    t0 = time.perf_counter()
+    for t, x in enumerate(xs):
+        seq = torch.tensor(start + t, device="cuda")
+        out, cache = masked_multihead_attention(x, cache, bias=bias,
+                                                sequence_lengths=seq)
+        q = (x + bias).reshape(B, 3, H, D)[:, 0]
+        ref = da.dense_decode_attention_plain(q, cache[0], cache[1], seq + 1,
+                                              D ** -0.5)
+        worst = max(worst, (out.float() - ref.reshape(B, H * D).float())
+                    .abs().max().item())
+    torch.cuda.synchronize()
+    launches = _counters()
+    say(card, "mmha " + json.dumps({
+        "B": B, "H": H, "D": D, "S_max": S, "steps": steps, "dtype": "bfloat16",
+        "max_abs_err": worst, "tol": DECODE_TOL["bfloat16"],
+        "seconds_with_checks": time.perf_counter() - t0,
+        "launches": launches}))
+    if launches != _expected(dense_decode_attention=steps):
+        raise AssertionError(f"mmha: kernel launches {launches}, expected "
+                             f"{steps} dense-cache launches and no other")
+    if not worst <= DECODE_TOL["bfloat16"]:
+        raise AssertionError(f"mmha: max|err| {worst} against the plain version")
+    return launches
+
+
+def quant_hold(card, torch):
+    """gpt3_1p3b width at 2 layers in f32 (TF32 off) with kv_quant and
+    serve_w8: the same greedy requests through the paged engine on the card
+    (kernels) and on the CPU (plain versions). Tokens identical, first-tick
+    logits within QUANT_HOLD_LOGIT_TOL, int8 payloads within 1 of each
+    other (the card's and the CPU's K/V differ by rounding, which can move
+    a value across a rounding boundary of the quantizer)."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(gpt3_1p3b(), num_layers=2)
+    gpu = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=1)
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32, seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompts = [p for p, _ in serving_workload(cfg.vocab_size, 128, 4)]
+    res = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        eng = create_serving_engine(model, max_batch_size=4, max_seq_len=128,
+                                    page_size=32, seed=0, kv_quant=True,
+                                    serve_w8=True)
+        ids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+        eng.step()
+        first = eng.last_logits.float().cpu()
+        by = {r.req_id: r for r in eng.run()}
+        pay = [t.cpu() for layer in eng.pool.kv for t in layer]
+        res[name] = (first, [by[i].generated for i in ids], pay,
+                     eng.pool.scales)
+    diff = (res["cuda"][0] - res["cpu"][0]).abs().max().item()
+    same = res["cuda"][1] == res["cpu"][1]
+    pay_diff = max((a.int() - b.int()).abs().max().item()
+                   for a, b in zip(res["cuda"][2], res["cpu"][2]))
+    n_diff = sum(int((a != b).sum()) for a, b in zip(res["cuda"][2],
+                                                     res["cpu"][2]))
+    scale_rel = max(((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    .item() for sa, sb in zip(res["cuda"][3], res["cpu"][3])
+                    for a, b in zip(sa, sb))
+    say(card, "quant hold " + json.dumps({
+        "model": "gpt3_1p3b width, 2 layers", "dtype": "float32",
+        "kv_quant": True, "serve_w8": True,
+        "first_tick_max_abs_logit_diff": diff, "tol": QUANT_HOLD_LOGIT_TOL,
+        "tokens_identical": same, "max_int8_payload_diff": pay_diff,
+        "int8_payloads_differing": n_diff, "max_scale_rel_diff": scale_rel,
+        "tokens_cuda": res["cuda"][1]}))
+    if not (diff <= QUANT_HOLD_LOGIT_TOL and same and pay_diff <= 1):
+        raise AssertionError("quant hold: the card's int8 engine disagrees "
+                             "with the CPU's")
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: train gpt3_1p3b
 # --------------------------------------------------------------------------- #
 
@@ -862,20 +1345,33 @@ def decoder_flops(cfg, batch, seq):
 
 
 def _counters():
+    """Every kernel's launch counter, by the name of the kernels line."""
+    from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
 
-    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
-            "flash_bwd_dkv": fa.DKV_LAUNCHES, "fused_norm": fn.LAUNCHES,
-            "fused_norm_dx": fn.DX_LAUNCHES}
+    return {"fused_norm": fn.LAUNCHES, "fused_norm_dx": fn.DX_LAUNCHES,
+            "paged_decode_attention": da.LAUNCHES,
+            "paged_decode_attention_q8": da.Q8_LAUNCHES,
+            "dense_decode_attention": da.DENSE_LAUNCHES,
+            "flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.DKV_LAUNCHES}
 
 
 def _zero_counters():
+    from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
 
-    fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
     fn.LAUNCHES = fn.DX_LAUNCHES = 0
+    da.LAUNCHES = da.Q8_LAUNCHES = da.DENSE_LAUNCHES = 0
+    fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+
+
+def _expected(**counts):
+    """The launch counts a path must show: `counts`, and 0 for every other
+    kernel."""
+    return {**dict.fromkeys(_counters(), 0), **counts}
 
 
 def _train_setup(torch, cfg, device, dtype, seed, recipe):
@@ -946,7 +1442,7 @@ def train(card, torch):
     L = cfg.num_layers
     per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
                 "fused_norm": (2 * L + 1) + 2 * L, "fused_norm_dx": 2 * L + 1}
-    want = {k: v * timed for k, v in per_step.items()}
+    want = _expected(**{k: v * timed for k, v in per_step.items()})
     losses = [loss0] + [l.item() for l in losses]
     if not all(math.isfinite(l) for l in losses):
         raise AssertionError(f"train: non-finite loss {losses}")
@@ -1070,29 +1566,42 @@ def main():
     norm = check_norm(card, torch)
     norm_dx = check_norm_dx(card, torch)
     decode = check_decode(card, torch)
+    decode_q8 = check_decode_q8(card, torch)
+    dense = check_dense_decode(card, torch)
     flash = check_flash(card, torch)
+    check_flash_decode(card, torch)
     planted_kernel_faults(card, torch)
     serve_launches = serve(card, torch)
     hold(card, torch)
+    quant_launches = serve_quant(card, torch)
+    dense_launches = serve_dense(card, torch)
+    mmha_launches = mmha(card, torch)
+    quant_hold(card, torch)
     train_launches = train(card, torch)
     train_hold(card, torch)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
-    launches = {
-        "fused_norm": serve_launches["fused_norm"] + train_launches["fused_norm"],
-        "paged_decode_attention": serve_launches["paged_decode_attention"],
-        **{k: train_launches[k] for k in ("fused_norm_dx", "flash_fwd",
-                                          "flash_bwd_dq", "flash_bwd_dkv")}}
+    paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
+             train_launches)
+    launches = {name: sum(p.get(name, 0) for p in paths) for name in (
+        "fused_norm", "paged_decode_attention", "paged_decode_attention_q8",
+        "dense_decode_attention", "fused_norm_dx", "flash_fwd",
+        "flash_bwd_dq", "flash_bwd_dkv")}
+    da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
+    da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
     kernels = []
     for name, src, replaces, main_row, err in (
             ("fused_norm", "paddle_tpu_torch/csrc/fused_norm.cu",
              "paddle_tpu/ops/pallas/fused_norm.py:107", norm["main"], norm["worst"]),
-            ("paged_decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
-             "paddle_tpu/ops/pallas/decode_attention.py:50", decode["main"],
+            ("paged_decode_attention", da_src, da_ref, decode["main"],
              decode["worst"]),
+            ("paged_decode_attention_q8", da_src, da_ref, decode_q8["main"],
+             decode_q8["worst"]),
+            ("dense_decode_attention", da_src, da_ref, dense["main"],
+             dense["worst"]),
             ("fused_norm_dx", "paddle_tpu_torch/csrc/fused_norm.cu",
              "paddle_tpu/ops/pallas/fused_norm.py:196", norm_dx["main"],
              norm_dx["worst"]),

@@ -14,13 +14,16 @@ a GPU they raise rather than quietly run on the CPU. On CPU tensors each
 kernel wrapper runs its plain PyTorch version, which is what the CPU tests
 hold against `paddle_tpu`.
 
-Ported so far: the paged GPT-3 serving path (`models.gpt`,
-`inference.create_serving_engine`) with the fused LayerNorm/RMSNorm forward
-and paged decode attention kernels, and the GPT-3 training step
-(`jit.TrainStep` / `distributed.DistributedTrainStep` with `optimizer.AdamW`,
-`amp` O1/O2 and per-layer recompute) with the flash-attention forward, dq
-and dk/dv kernels and the fused-norm dx kernel. See ROADMAP.md for the
-rest.
+Ported so far: GPT-3 serving (`models.gpt`,
+`inference.create_serving_engine`: the paged engine with bf16 or int8 KV
+pages and optional int8 weights, the dense continuous-batching engine,
+`GPTForCausalLM.generate`, incubate `masked_multihead_attention`) with the
+fused LayerNorm/RMSNorm forward, paged (full precision and int8) and
+dense-cache decode attention kernels, and the GPT-3 training step
+(`jit.TrainStep` / `distributed.DistributedTrainStep` with
+`optimizer.AdamW`, `amp` O1/O2 and per-layer recompute) with the
+flash-attention forward, dq and dk/dv kernels and the fused-norm dx
+kernel. See ROADMAP.md for the rest.
 """
 
 from .device import resolve_device

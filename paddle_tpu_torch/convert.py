@@ -1,9 +1,11 @@
 """Move weights and optimizer state from the JAX package into the port.
 
-Both packages use the same parameter names and layouts (Paddle's: a
-Linear weight is [in, out]), so `load_paddle_tpu_state` copies each array
-into the port parameter of the same name, cast to that parameter's dtype
-and placed on its device, and `load_paddle_tpu_opt_state` carries a JAX
+Both packages use the same parameter and buffer names and layouts
+(Paddle's: a Linear weight is [in, out]; after `ptq_convert_for_serving` a
+projection holds an int8 `weight_quant`, an f32 `weight_scale` [1, out] and
+its `bias`), so `load_paddle_tpu_state` copies each array into the port
+tensor of the same name, cast to that tensor's dtype and placed on its
+device, and `load_paddle_tpu_opt_state` carries a JAX
 `TrainStep`'s optimizer state (m, v and an optional f32 master per
 parameter name) and step count into the port's optimizer, so both packages
 can resume from one mid-training state. Both raise on a missing or extra
@@ -27,7 +29,8 @@ def _to_tensor(arr) -> torch.Tensor:
 
 def load_paddle_tpu_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
     """Copy `{name: np.ndarray}` (a `paddle_tpu` model's state_dict as
-    numpy arrays) into `model` in place; returns `model`."""
+    numpy arrays: parameters and buffers) into `model` in place; returns
+    `model`."""
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))

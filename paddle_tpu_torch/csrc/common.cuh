@@ -2,8 +2,11 @@
 //
 // Element types travel from Python as integer codes (ops/_build.py
 // DTYPE_CODES): 0 = float32, 1 = bfloat16, 2 = float16. Conversions to and
-// from float go through the CUDA intrinsics only.
+// from float go through the CUDA intrinsics only; int8 KV payloads convert
+// exactly.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -16,6 +19,7 @@ enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }

@@ -1,34 +1,44 @@
-// Paged decode attention (one query token per row) for Hopper (sm_90a).
+// Decode attention (one query token per row) for Hopper (sm_90a): paged
+// full precision, paged int8, and dense-cache.
 //
-// Replaces: paddle_tpu/ops/pallas/decode_attention.py:50 `_decode_kernel`
-// in its paged, full-precision form (reached through `_run_decode` :118
-// from `paged_decode_attention` :192). Same semantics: GQA with g = H/Hkv
-// query heads per KV head; a page is skipped when it starts at or past the
-// row's length or its block-table entry is negative; the last page is
-// masked per slot; NEG_INF = -1e30; the online softmax runs in f32 with
+// Replaces: paddle_tpu/ops/pallas/decode_attention.py:50 `_decode_kernel`,
+// reached through `_run_decode` :118 in its three forms, all one template
+// `decode_tile_kernel<T, KV, kPaged>` (T the query's type, KV the cache's):
+// - paged, full precision (`paged_decode_attention` :192): <T, T, true>;
+// - paged int8 with per-(page, head) f32 scales (`kv_scales=`, the
+//   `quantized=True` grid of :177): <T, int8_t, true>;
+// - dense cache [B, Hkv, S_max, D] (`dense_decode_attention` :332, the MMHA
+//   path): <T, T, false>.
+// Same semantics in all three: GQA with g = H/Hkv query heads per KV head;
+// a page (or sequence tile) is skipped when it starts at or past the row's
+// length, or, paged, when its block-table entry is negative; the last one
+// is masked per slot; NEG_INF = -1e30; the online softmax runs in f32 with
 // alpha = exp(m_prev - m_new); the output is acc / (l == 0 ? 1 : l) in q's
-// type, so a row with no valid token writes zeros, never NaN. The int8
-// variant with per-(page, head) scales and the dense-cache variant are
-// later work.
+// type, so a row with no valid token writes zeros, never NaN. The int8 form
+// dequantizes per page: JAX multiplies K and V by the page's scale before
+// the products; here the scale is factored out of q.k and of p.v (the same
+// function, one multiply per page instead of one per element).
 //
 // Bound on an H100: memory. Decode reads every valid cached token's K and
 // V row once and does 4*D operations per (token, query head) against them:
-// bytes = 2*sum(lengths)*Hkv*D*sizeof(T) + q + out + tables + lengths, at
-// 3.35 TB/s, while the arithmetic intensity (about g operations per byte)
-// is two orders of magnitude under the card's ridge point.
+// bytes = 2*sum(lengths)*Hkv*D*sizeof(KV) (+ 8 bytes of scales per int8
+// page and head read) + q + out + tables + lengths, at 3.35 TB/s, while
+// the arithmetic intensity (about g operations per byte, 2g for int8) is
+// two orders of magnitude under the card's ridge point.
 //
 // Design against that bound: one CTA per (batch row, KV head). The TPU
 // kernel's sequential page grid axis, which carried m/l/acc in VMEM
-// scratch, becomes a loop over the row's pages inside the CTA, with m, l and
-// acc in shared memory. The CTA reads its own block-table entries and
-// length (Hopper has no scalar prefetch) and stops at the first page past
-// the length, so a page is read from HBM only if it holds valid tokens, and
-// only its valid slots are read. Scores: one warp per cached token, lanes
-// across D (coalesced row reads, a shuffle reduction), all g query heads of
-// the group against the row while it sits in L1. P.V: threads across
-// (head, D), so each V row is read by neighbouring threads. Making it fast
-// (cp.async/TMA double buffering, split-K over pages for small batches) is
-// later work.
+// scratch, becomes a loop over the row's pages (or tiles) inside the CTA,
+// with m, l and acc in shared memory. The CTA reads its own block-table
+// entries and length (Hopper has no scalar prefetch) and stops at the first
+// page past the length, so a page is read from HBM only if it holds valid
+// tokens, and only its valid slots are read. It first stages the tile's
+// valid K and V rows (they are contiguous in both layouts) in shared
+// memory, 16 bytes a thread, then works from there. Scores: one warp per cached token, lanes across D (a
+// shuffle reduction), all g query heads of the group against the row. P.V:
+// threads across (head, D), so neighbouring threads read neighbouring
+// elements of a V row. Making them fast (cp.async/TMA double buffering,
+// split-K over pages for small batches) is later work.
 #include "common.cuh"
 
 namespace {
@@ -36,28 +46,41 @@ namespace {
 constexpr float kNegInf = -1e30f;  // paddle_tpu/ops/pallas/flash_attention.py NEG_INF
 constexpr int kThreads = 128;
 
-template <typename T>
-__global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                                    const T* __restrict__ vc,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ lengths,
-                                    T* __restrict__ out, int Hkv, int g, int D,
-                                    int ps, int P, float scale) {
-  extern __shared__ float smem[];
+// Paged (kPaged): tile = ps, the loop runs over the P = n_tiles
+// block-table entries of row b, page `page` of KV head h is the contiguous
+// [ps, D] block at element (page * Hkv + h) * ps * D, and for int8 pages
+// k_scale/v_scale [n_pages, Hkv] hold its dequant scales (payload * scale;
+// null for full-precision pages). Dense: the cache is
+// [B, Hkv, s_max, D], tile p of row b is rows [p * tile, (p + 1) * tile) of
+// the contiguous [s_max, D] block of (b, h), the length is clamped to
+// s_max, and there are no scales. D * sizeof(KV) must be a multiple of 16
+// and the caches 16-byte aligned (the wrapper checks both).
+template <typename T, typename KV, bool kPaged>
+__global__ void decode_tile_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
+                                   const KV* __restrict__ vc,
+                                   const float* __restrict__ k_scale,
+                                   const float* __restrict__ v_scale,
+                                   const int* __restrict__ tables,
+                                   const int* __restrict__ lengths,
+                                   T* __restrict__ out, int Hkv, int g, int D, int tile,
+                                   int n_tiles, int s_max, float scale) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int tD = tile * D;
   const int gD = g * D;
-  float* q_s = smem;          // [g, D] query heads of this group, f32
+  KV* k_s = reinterpret_cast<KV*>(tile_smem);  // [tile, D] this tile's K rows
+  KV* v_s = k_s + tD;                           // [tile, D] its V rows
+  float* q_s = reinterpret_cast<float*>(v_s + tD);  // [g, D] query heads, f32
   float* acc = q_s + gD;      // [g, D] running P.V
-  float* sc = acc + gD;       // [g, ps] scores, then probabilities
-  float* m_s = sc + g * ps;   // [g] running max
+  float* sc = acc + gD;       // [g, tile] scores, then probabilities
+  float* m_s = sc + g * tile; // [g] running max
   float* l_s = m_s + g;       // [g] running denominator
-  float* alpha_s = l_s + g;   // [g] this page's rescale factor
+  float* alpha_s = l_s + g;   // [g] this tile's rescale factor
 
   const int b = blockIdx.x / Hkv;
   const int h = blockIdx.x - b * Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_warps = blockDim.x >> 5;
 
-  // q is [B, Hkv * g, D]: the g heads of KV head h are contiguous
   const long long qo = (static_cast<long long>(b) * Hkv + h) * gD;
   for (int i = tid; i < gD; i += blockDim.x) {
     q_s[i] = ptt::to_f32(q[qo + i]);
@@ -67,42 +90,65 @@ __global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict
     m_s[j] = kNegInf;
     l_s[j] = 0.f;
   }
-  const int length = lengths[b];
+  int length = lengths[b];
+  if (!kPaged) length = min(length, s_max);
   __syncthreads();
 
-  for (int p = 0; p < P; ++p) {
-    const int base = p * ps;
-    if (base >= length) break;  // this page and every later one is empty
-    const int page = tables[static_cast<long long>(b) * P + p];
-    if (page < 0) continue;     // unused block-table entry
-    const int nv = min(ps, length - base);  // valid slots of this page
-    const long long po = (static_cast<long long>(page) * Hkv + h) * ps * D;
-    const T* kp = kc + po;
-    const T* vp = vc + po;
+  for (int p = 0; p < n_tiles; ++p) {
+    const int base = p * tile;
+    if (base >= length) break;  // this tile and every later one is empty
+    long long off;              // element offset of the tile's first row
+    float ks = 1.f, vs = 1.f;   // dequant scales (int8 pages only)
+    if (kPaged) {
+      const int page = tables[static_cast<long long>(b) * n_tiles + p];
+      if (page < 0) continue;   // unused block-table entry
+      const long long ph = static_cast<long long>(page) * Hkv + h;
+      off = ph * tD;
+      if (k_scale != nullptr) {
+        ks = k_scale[ph];
+        vs = v_scale[ph];
+      }
+    } else {
+      off = ((static_cast<long long>(b) * Hkv + h) * s_max + base) * D;
+    }
+    const int nv = min(tile, length - base);  // valid rows of this tile
 
-    // scores s[j, t] = q_j . k_t * scale, one warp per slot t
+    // stage the nv valid rows of K and V, 16 bytes a thread
+    const int n_vec = static_cast<int>(static_cast<long long>(nv) * D * sizeof(KV) / 16);
+    const uint4* kg = reinterpret_cast<const uint4*>(kc + off);
+    const uint4* vg = reinterpret_cast<const uint4*>(vc + off);
+    uint4* k4 = reinterpret_cast<uint4*>(k_s);
+    uint4* v4 = reinterpret_cast<uint4*>(v_s);
+    for (int i = tid; i < n_vec; i += blockDim.x) {
+      k4[i] = kg[i];
+      v4[i] = vg[i];
+    }
+    __syncthreads();
+
+    // scores s[j, t] = (q_j . k_t) * ks * scale, one warp per row t
+    const float s_scale = ks * scale;
     for (int t = warp; t < nv; t += n_warps) {
-      const T* kt = kp + static_cast<long long>(t) * D;
+      const KV* kt = k_s + t * D;
       for (int j = 0; j < g; ++j) {
         float part = 0.f;
         for (int d = lane; d < D; d += 32) part += q_s[j * D + d] * ptt::to_f32(kt[d]);
         part = ptt::warp_sum(part);
-        if (lane == 0) sc[j * ps + t] = part * scale;
+        if (lane == 0) sc[j * tile + t] = part * s_scale;
       }
     }
     __syncthreads();
 
-    // online softmax over this page, one warp per query head
+    // online softmax over this tile, one warp per query head
     for (int j = warp; j < g; j += n_warps) {
       float mx = kNegInf;
-      for (int t = lane; t < nv; t += 32) mx = fmaxf(mx, sc[j * ps + t]);
+      for (int t = lane; t < nv; t += 32) mx = fmaxf(mx, sc[j * tile + t]);
       mx = ptt::warp_max(mx);
       const float m_prev = m_s[j];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
       for (int t = lane; t < nv; t += 32) {
-        const float pr = expf(sc[j * ps + t] - m_new);
-        sc[j * ps + t] = pr;
+        const float pr = expf(sc[j * tile + t] - m_new);
+        sc[j * tile + t] = pr;
         sum += pr;
       }
       sum = ptt::warp_sum(sum);
@@ -115,17 +161,15 @@ __global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict
     }
     __syncthreads();
 
-    // acc[j, d] = acc[j, d] * alpha_j + sum_t p[j, t] * v[t, d]
+    // acc[j, d] = acc[j, d] * alpha_j + vs * sum_t p[j, t] * v[t, d]
     for (int i = tid; i < gD; i += blockDim.x) {
       const int j = i / D;
       const int d = i - j * D;
-      float a = acc[i] * alpha_s[j];
-      for (int t = 0; t < nv; ++t) {
-        a += sc[j * ps + t] * ptt::to_f32(vp[static_cast<long long>(t) * D + d]);
-      }
-      acc[i] = a;
+      float pv = 0.f;
+      for (int t = 0; t < nv; ++t) pv += sc[j * tile + t] * ptt::to_f32(v_s[t * D + d]);
+      acc[i] = acc[i] * alpha_s[j] + vs * pv;
     }
-    __syncthreads();
+    __syncthreads();  // the next tile overwrites k_s, v_s and sc
   }
 
   for (int i = tid; i < gD; i += blockDim.x) {
@@ -134,38 +178,115 @@ __global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* kc, const void* vc, const void* tables,
-                   const void* lengths, void* out, int B, int Hkv, int g, int D,
-                   int ps, int P, float scale, cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(g) * D + static_cast<size_t>(g) * ps + 3 * g)
-                      * sizeof(float);
+template <typename T, typename KV, bool kPaged>
+cudaError_t launch_tile(const void* q, const void* kc, const void* vc, const void* k_scale,
+                        const void* v_scale, const void* tables, const void* lengths,
+                        void* out, int B, int Hkv, int g, int D, int tile, int n_tiles,
+                        int s_max, float scale, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(tile) * D * sizeof(KV)
+                      + (2 * static_cast<size_t>(g) * D + static_cast<size_t>(g) * tile + 3 * g)
+                        * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_tile_kernel<T, KV, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
-  paged_decode_kernel<T><<<B * Hkv, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<const int*>(tables), static_cast<const int*>(lengths),
-      static_cast<T*>(out), Hkv, g, D, ps, P, scale);
+  decode_tile_kernel<T, KV, kPaged><<<B * Hkv, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kc), static_cast<const KV*>(vc),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(tables), static_cast<const int*>(lengths), static_cast<T*>(out),
+      Hkv, g, D, tile, n_tiles, s_max, scale);
   return cudaGetLastError();
+}
+
+// Dense-cache sequence tile: the largest power of two, 8 to 128 rows, whose
+// K and V rows take at most 32 KB of shared memory together.
+int dense_tile(int D, size_t itemsize) {
+  int tile = 128;
+  while (tile > 8 && 2 * static_cast<size_t>(tile) * D * itemsize > 32 * 1024) tile /= 2;
+  return tile;
+}
+
+template <typename T>
+cudaError_t launch_dense(const void* q, const void* kc, const void* vc, const void* lengths,
+                         void* out, int B, int Hkv, int g, int D, int s_max, float scale,
+                         cudaStream_t stream) {
+  const int tile = dense_tile(D, sizeof(T));
+  return launch_tile<T, T, false>(q, kc, vc, nullptr, nullptr, nullptr, lengths, out, B, Hkv,
+                                  g, D, tile, (s_max + tile - 1) / tile, s_max, scale, stream);
 }
 
 }  // namespace
 
-// q [B, Hkv*g, D]; kc, vc [n_pages, Hkv, ps, D]; tables int32 [B, P];
-// lengths int32 [B] (valid tokens including the current one); out like q.
-// All contiguous, q/kc/vc/out of one element type. Returns
-// cudaGetLastError() after the launch.
+// Paged full-precision decode. q [B, Hkv*g, D]; kc, vc [n_pages, Hkv, ps, D]
+// of q's type (code `dtype`); tables int32 [B, P]; lengths int32 [B]
+// (valid tokens including the current one); out like q. All contiguous;
+// D * sizeof(T) a multiple of 16. Returns cudaGetLastError() after the
+// launch.
 extern "C" int ptt_paged_decode_attention(const void* q, const void* kc, const void* vc,
                                           const void* tables, const void* lengths,
                                           void* out, int B, int Hkv, int g, int D, int ps,
                                           int P, float scale, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case ptt::kF32: return launch<float>(q, kc, vc, tables, lengths, out, B, Hkv, g, D, ps, P, scale, s);
-    case ptt::kBF16: return launch<__nv_bfloat16>(q, kc, vc, tables, lengths, out, B, Hkv, g, D, ps, P, scale, s);
-    case ptt::kF16: return launch<__half>(q, kc, vc, tables, lengths, out, B, Hkv, g, D, ps, P, scale, s);
+    case ptt::kF32:
+      return launch_tile<float, float, true>(q, kc, vc, nullptr, nullptr, tables, lengths,
+                                             out, B, Hkv, g, D, ps, P, 0, scale, s);
+    case ptt::kBF16:
+      return launch_tile<__nv_bfloat16, __nv_bfloat16, true>(
+          q, kc, vc, nullptr, nullptr, tables, lengths, out, B, Hkv, g, D, ps, P, 0, scale, s);
+    case ptt::kF16:
+      return launch_tile<__half, __half, true>(q, kc, vc, nullptr, nullptr, tables, lengths,
+                                               out, B, Hkv, g, D, ps, P, 0, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Paged int8 decode. q [B, Hkv*g, D] (f32, bf16 or f16, code `dtype`);
+// kc, vc int8 [n_pages, Hkv, ps, D]; k_scale, v_scale f32 [n_pages, Hkv];
+// tables int32 [B, P]; lengths int32 [B] (valid tokens including the
+// current one); out like q. All contiguous; D a multiple of 16. Returns
+// cudaGetLastError() after the launch.
+extern "C" int ptt_paged_decode_attention_q8(const void* q, const void* kc, const void* vc,
+                                             const void* k_scale, const void* v_scale,
+                                             const void* tables, const void* lengths,
+                                             void* out, int B, int Hkv, int g, int D, int ps,
+                                             int P, float scale, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ptt::kF32:
+      return launch_tile<float, int8_t, true>(q, kc, vc, k_scale, v_scale, tables, lengths,
+                                              out, B, Hkv, g, D, ps, P, 0, scale, s);
+    case ptt::kBF16:
+      return launch_tile<__nv_bfloat16, int8_t, true>(q, kc, vc, k_scale, v_scale, tables,
+                                                      lengths, out, B, Hkv, g, D, ps, P, 0,
+                                                      scale, s);
+    case ptt::kF16:
+      return launch_tile<__half, int8_t, true>(q, kc, vc, k_scale, v_scale, tables, lengths,
+                                               out, B, Hkv, g, D, ps, P, 0, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Dense-cache decode. q [B, Hkv*g, D]; kc, vc [B, Hkv, s_max, D] of q's
+// type (code `dtype`); lengths int32 [B] (valid tokens including the
+// current one, clamped to s_max); out like q. All contiguous;
+// D * sizeof(T) a multiple of 16. Returns cudaGetLastError() after the
+// launch.
+extern "C" int ptt_dense_decode_attention(const void* q, const void* kc, const void* vc,
+                                          const void* lengths, void* out, int B, int Hkv,
+                                          int g, int D, int s_max, float scale, int dtype,
+                                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ptt::kF32:
+      return launch_dense<float>(q, kc, vc, lengths, out, B, Hkv, g, D, s_max, scale, s);
+    case ptt::kBF16:
+      return launch_dense<__nv_bfloat16>(q, kc, vc, lengths, out, B, Hkv, g, D, s_max, scale,
+                                         s);
+    case ptt::kF16:
+      return launch_dense<__half>(q, kc, vc, lengths, out, B, Hkv, g, D, s_max, scale, s);
   }
   return cudaErrorInvalidValue;
 }

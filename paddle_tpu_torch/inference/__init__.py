@@ -1,25 +1,25 @@
 """paddle_tpu_torch.inference — the serving API (↔ paddle_tpu/inference).
 
-Only the paged engine is ported: `create_serving_engine(model)` builds a
-`PagedServingEngine` on the model's device. The dense continuous-batching
-engine (`paged=False`) and the saved-program Predictor come with later
-slices (ROADMAP A8, A13).
+`create_serving_engine(model)` builds a `PagedServingEngine` on the model's
+device, `create_serving_engine(model, paged=False)` the dense
+`ContinuousBatchingEngine`. The saved-program Predictor comes with a later
+slice (ROADMAP A13).
 """
 
 from __future__ import annotations
 
-from .serving import GenerationRequest
+from .serving import ContinuousBatchingEngine, GenerationRequest
 
-__all__ = ["GenerationRequest", "create_serving_engine"]
+__all__ = ["ContinuousBatchingEngine", "GenerationRequest",
+           "create_serving_engine"]
 
 
 def create_serving_engine(model, paged=True, **kw):
-    """Generation engine factory. paged=True (the default) builds the
-    block-pool `PagedServingEngine`; keyword args pass through to it."""
+    """Generation engine factory: paged=True (the default) builds the
+    block-pool `PagedServingEngine`, paged=False the dense
+    `ContinuousBatchingEngine`; keyword args pass through to it."""
     if not paged:
-        raise NotImplementedError(
-            "the dense ContinuousBatchingEngine is ported with a later "
-            "serving slice (ROADMAP A8 dense engine)")
+        return ContinuousBatchingEngine(model, **kw)
     from .paged import PagedServingEngine
 
     return PagedServingEngine(model, **kw)

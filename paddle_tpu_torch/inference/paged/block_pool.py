@@ -26,7 +26,15 @@ Physical page 0 is the reserved NULL page: never allocated, never
 referenced by a live block table. Parked decode rows write their K/V there,
 so the fixed-shape decode step needs no conditional writes.
 
-The int8 layout (`quantized=True`) comes with the quantized-serving slice.
+Quantized layout (`quantized=True`): int8 page payloads with one f32
+dequant scale per (page, head) beside them (`scales[layer] =
+(k_scale, v_scale)`, each [n_pages, Hkv]; dequant is payload * scale).
+Prompt pages quantize with an abs-max per (page, head) (`_quantize_pages`);
+decode appends keep a running abs-max per page
+(`ops.decode_attention.paged_kv_write_q8`). Prefix sharing keeps the same
+keys: quantization is a deterministic function of page content, so two
+identical prefixes give bit-identical payloads and scales, and COW, spill
+and restore move payload and scales together, bit-exactly.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...ops.decode_attention import KV_QMAX
 from ..slo import serving_metrics
 
 __all__ = ["BlockPool", "prefix_page_key"]
@@ -52,10 +61,16 @@ def prefix_page_key(prompt: np.ndarray, page_index: int, page_size: int):
         digest_size=16).digest()
 
 
-def _no_int8():
-    raise NotImplementedError(
-        "the int8 KV page layout is ported with the quantized-serving slice "
-        "(ROADMAP A8 int8)")
+def _quantize_pages(x):
+    """[m, Hkv, ps, D] float pages -> (int8 payload, f32 [m, Hkv] scales):
+    symmetric abs-max per (page, head), as paged_kv_write_q8 quantizes
+    (±KV_QMAX, so running-max rescales never overflow)."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=(2, 3)) / KV_QMAX
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(x32 / safe[:, :, None, None]),
+                    -KV_QMAX, KV_QMAX).to(torch.int8)
+    return q, scale
 
 
 class BlockPool:
@@ -64,8 +79,6 @@ class BlockPool:
     def __init__(self, num_layers, kv_heads, head_dim, page_size, num_pages,
                  dtype=torch.float32, prefix_sharing=True, quantized=False, *,
                  device=None, metrics=None):
-        if quantized:
-            _no_int8()
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
         if page_size < 1:
@@ -76,14 +89,22 @@ class BlockPool:
         self.num_layers = int(num_layers)
         self.kv_heads = int(kv_heads)
         self.head_dim = int(head_dim)
-        self.dtype = dtype
+        self.dtype = dtype  # the unquantized payload dtype
         self.prefix_sharing = bool(prefix_sharing)
-        self.quantized = False
+        self.quantized = bool(quantized)
         self.metrics = metrics if metrics is not None else serving_metrics()
         shape = (self.num_pages, kv_heads, self.page_size, head_dim)
-        self.kv = [(torch.zeros(shape, dtype=dtype, device=self.device),
-                    torch.zeros(shape, dtype=dtype, device=self.device))
+        pay = torch.int8 if self.quantized else dtype
+        self.kv = [(torch.zeros(shape, dtype=pay, device=self.device),
+                    torch.zeros(shape, dtype=pay, device=self.device))
                    for _ in range(num_layers)]
+        # per-(page, head) f32 dequant scales beside the int8 payloads
+        self.scales = ([(torch.zeros(self.num_pages, kv_heads,
+                                     device=self.device),
+                         torch.zeros(self.num_pages, kv_heads,
+                                     device=self.device))
+                        for _ in range(num_layers)]
+                       if self.quantized else None)
         self.free: collections.deque = collections.deque(
             range(1, self.num_pages))
         self.ref = np.zeros(self.num_pages, np.int32)
@@ -97,16 +118,19 @@ class BlockPool:
     def page_nbytes(num_layers, kv_heads, head_dim, page_size,
                     dtype=torch.float32, quantized=False) -> int:
         """Device bytes one physical page costs across all layers and both
-        K/V sides."""
+        K/V sides: the payload plus, when quantized, the per-(page, head)
+        f32 scales. The unit of the equal-budget serving A/B."""
         if quantized:
-            _no_int8()
-        per_side = kv_heads * page_size * head_dim * dtype.itemsize
+            per_side = kv_heads * page_size * head_dim + kv_heads * 4
+        else:
+            per_side = kv_heads * page_size * head_dim * dtype.itemsize
         return int(num_layers) * 2 * per_side
 
     @property
     def bytes_per_page(self) -> int:
         return self.page_nbytes(self.num_layers, self.kv_heads,
-                                self.head_dim, self.page_size, self.dtype)
+                                self.head_dim, self.page_size, self.dtype,
+                                self.quantized)
 
     @property
     def bytes_per_token(self) -> float:
@@ -198,29 +222,51 @@ class BlockPool:
         pages: the request's m physical pages in logical order;
         write_mask[j] False for shared pages (content already present and
         identical by key construction). k_layers/v_layers: per layer
-        [m, Hkv, page_size, D] page-stacked prompt K/V."""
+        [m, Hkv, page_size, D] page-stacked prompt K/V. A quantized pool
+        quantizes here (abs-max per (page, head)) and writes payload and
+        scales together."""
         idx = [j for j, w in enumerate(write_mask) if w]
         if not idx:
             return
         tgt = self._index(pages[j] for j in idx)
         sel = self._index(idx)
-        for (k, v), k_new, v_new in zip(self.kv, k_layers, v_layers):
-            k[tgt] = k_new[sel].to(k.dtype)
-            v[tgt] = v_new[sel].to(v.dtype)
+        for li, ((k, v), k_new, v_new) in enumerate(zip(self.kv, k_layers,
+                                                        v_layers)):
+            if self.quantized:
+                sk, sv = self.scales[li]
+                k[tgt], sk[tgt] = _quantize_pages(k_new[sel])
+                v[tgt], sv[tgt] = _quantize_pages(v_new[sel])
+            else:
+                k[tgt] = k_new[sel].to(k.dtype)
+                v[tgt] = v_new[sel].to(v.dtype)
+        if self.quantized:
+            self.metrics["kv_quant_pages"].inc(len(idx))
+
+    def cache_layers(self):
+        """Per layer, the page tensors: (k, v), plus (k_scale, v_scale)
+        when quantized."""
+        if self.quantized:
+            return [kv + sc for kv, sc in zip(self.kv, self.scales)]
+        return self.kv
 
     def copy_page(self, src: int, dst: int):
         """Copy-on-write body: duplicate src's content into dst (all
-        layers). Caller owns refcount/table updates."""
-        for k, v in self.kv:
-            k[dst] = k[src]
-            v[dst] = v[src]
+        layers; payload and scales of a quantized pool). Caller owns
+        refcount/table updates."""
+        for layer in self.cache_layers():
+            for t in layer:
+                t[dst] = t[src]
         self.metrics["cow_copies"].inc()
 
     def read_pages(self, pages) -> list[tuple]:
         """Host copies of the given pages, per layer — the preemption spill
-        buffer: [(k, v), ...] of CPU tensors [m, Hkv, page_size, D]."""
+        buffer: [(k, v), ...] of CPU tensors [m, Hkv, page_size, D], or
+        [(k, v, k_scale, v_scale), ...] with [m, Hkv] scales when quantized
+        (int8 payloads and f32 scales round-trip the host bit-exactly). The
+        index gather copies, so the spill never aliases the pool."""
         idx = self._index(pages)
-        return [(k[idx].cpu(), v[idx].cpu()) for k, v in self.kv]
+        return [tuple(t[idx].cpu() for t in layer)
+                for layer in self.cache_layers()]
 
     def restore_pages(self, pages, kv_host, rows):
         """Write spilled host pages back: kv_host is read_pages() output for
@@ -231,6 +277,6 @@ class BlockPool:
             return
         tgt = self._index(pages)
         sel = torch.as_tensor(list(rows), dtype=torch.long)
-        for (k, v), (k_h, v_h) in zip(self.kv, kv_host):
-            k[tgt] = k_h[sel].to(self.device)
-            v[tgt] = v_h[sel].to(self.device)
+        for layer, host in zip(self.cache_layers(), kv_host):
+            for t, t_h in zip(layer, host):
+                t[tgt] = t_h[sel].to(self.device)

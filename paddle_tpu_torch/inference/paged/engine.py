@@ -16,6 +16,13 @@ On a CUDA model every LayerNorm of the step runs the fused-norm kernel and
 every attention the paged decode kernel; the prefill's LayerNorms run the
 norm kernel too.
 
+With `kv_quant=True` the pool holds int8 pages with per-(page, head) f32
+scales: the step passes each layer's cache as (k, v, k_scale, v_scale),
+appends through `paged_kv_write_q8` and attends through the int8 kernel.
+`kv_budget_bytes` sizes the pool by device bytes instead of a page count
+(the equal-budget A/B: an int8 pool fits about twice the pages of a bf16
+one, four times those of an f32 one).
+
 Preemption: when the pool runs dry mid-decode, the lowest-priority live
 request (newest arrival among equals, never the row that asked for the
 page) has its pages copied to a host spill buffer and released; it
@@ -49,7 +56,7 @@ class SpilledRequest:
         self.req = req
         self.length = int(length)
         self.last_tok = int(last_tok)
-        self.kv_host = kv_host   # per layer (k, v) CPU tensors [m, Hkv, ps, D]
+        self.kv_host = kv_host   # BlockPool.read_pages output (CPU tensors)
         self.keys = keys         # per logical page: prefix key or None
 
     @property
@@ -62,31 +69,46 @@ class PagedServingEngine(_ServingEngineBase):
 
     `add_request` / `step` / `run`, plus `page_size`, `num_pages` (default:
     `max_batch_size * max_seq_len` tokens worth of pages, plus the null
-    page), `prefix_sharing`, `watermark_pages` and `preemption`. The engine
-    runs on the model's device."""
+    page), or `kv_budget_bytes` (the pool's bytes, null page included),
+    `prefix_sharing`, `watermark_pages`, `preemption`, `kv_quant` (int8
+    pages) and `serve_w8` (int8 weights). The engine runs on the model's
+    device."""
 
     engine_label = "paged"
 
     def __init__(self, model, max_batch_size=8, max_seq_len=512, seed=0,
                  page_size=16, num_pages=None, prefix_sharing=True,
                  watermark_pages=None, preemption=True, kv_quant=False,
-                 serve_w8=False):
-        if kv_quant:
-            raise NotImplementedError(
-                "the int8 KV cache (kv_quant=True) is ported with the "
-                "quantized-serving slice (ROADMAP A8 int8)")
+                 kv_budget_bytes=None, serve_w8=False):
         super().__init__(model, max_batch_size, max_seq_len, seed,
                          serve_w8=serve_w8)
         cfg = self.cfg
         self.ps = int(page_size)
         self.P = _pages_for_prompt(self.S, self.ps)  # block-table width
-        self.kv_quant = False
-        if num_pages is None:
+        self.kv_quant = bool(kv_quant)
+        if num_pages is not None and kv_budget_bytes is not None:
+            raise ValueError(
+                "pass num_pages OR kv_budget_bytes, not both: a page count "
+                "would silently override the byte budget of an equal-budget "
+                "A/B")
+        if kv_budget_bytes is not None:
+            page_b = BlockPool.page_nbytes(cfg.num_layers, cfg.kv_heads,
+                                           cfg.head_dim, self.ps,
+                                           self.kv_dtype, self.kv_quant)
+            # the budget covers the whole pool, null page included
+            num_pages = int(kv_budget_bytes) // page_b
+            if num_pages < 2:
+                raise ValueError(
+                    f"kv_budget_bytes={int(kv_budget_bytes)} fits {num_pages} "
+                    f"pages at {page_b} bytes a page; the pool needs >= 2 "
+                    "(the reserved null page plus one allocatable)")
+        elif num_pages is None:
             num_pages = (self.B * self.S) // self.ps + 1  # +1: null page
         self.pool = BlockPool(cfg.num_layers, cfg.kv_heads, cfg.head_dim,
                               self.ps, num_pages, dtype=self.kv_dtype,
                               prefix_sharing=prefix_sharing,
-                              device=self.device, metrics=self.metrics)
+                              quantized=self.kv_quant, device=self.device,
+                              metrics=self.metrics)
         self.sched = TwoQueueScheduler(self.ps, watermark_pages,
                                        metrics=self.metrics)
         self.preemption = bool(preemption)
@@ -97,7 +119,8 @@ class PagedServingEngine(_ServingEngineBase):
         self.pool.update_gauges()
         m = self.metrics
         for name in ("preemptions", "resumes", "preempted_pages",
-                     "prefix_hits", "prefix_lookups", "cow_copies"):
+                     "prefix_hits", "prefix_lookups", "cow_copies",
+                     "kv_quant_pages"):
             m[name].inc(0)
 
     # ------------------------------------------------------------------ #
@@ -278,13 +301,14 @@ class PagedServingEngine(_ServingEngineBase):
     def _decode(self):
         """One fixed-shape [B, 1] decode step over the paged pool: writes
         every row's K/V into its next slot (parked rows: the null page) and
-        returns (greedy tokens [B] on the host, last logits [B, vocab])."""
+        returns (greedy tokens [B] on the host, last logits [B, vocab]).
+        A quantized pool passes each layer as (k, v, k_scale, v_scale)."""
         dev = self.device
         tok = torch.tensor(self.last_tok, dtype=torch.long, device=dev)[:, None]
         offs = torch.tensor(self.lengths, dtype=torch.int32, device=dev)
         tables = torch.tensor(self.tables, dtype=torch.int32, device=dev)
-        logits, _ = self.model(tok, offs[:, None], self.pool.kv, offs,
-                               block_tables=tables)
+        logits, _ = self.model(tok, offs[:, None], self.pool.cache_layers(),
+                               offs, block_tables=tables)
         last = logits[:, -1]
         return last.argmax(-1).cpu().numpy(), last
 

@@ -1,10 +1,11 @@
-"""Request type and the shared scaffolding of the serving engines
-(↔ paddle_tpu/inference/serving.py).
+"""Request type, the shared scaffolding of the serving engines, and the
+dense continuous-batching engine (↔ paddle_tpu/inference/serving.py).
 
-`_ServingEngineBase` holds what every engine shares: the batch-1 bucketed
-prefill, per-request sampling and the SLO bookkeeping. Prompts pad to
-power-of-two length buckets as in the JAX package, so prefill shapes match
-it (nothing is compiled here; the bucket only fixes the shapes).
+`_ServingEngineBase` holds what every engine shares: the optional
+weight-only int8 convert (`serve_w8`), the batch-1 bucketed prefill,
+per-request sampling and the SLO bookkeeping. Prompts pad to power-of-two
+length buckets as in the JAX package, so prefill shapes match it (nothing
+is compiled here; the bucket only fixes the shapes).
 
 Sampling: each request owns a `torch.Generator` seeded from (engine seed,
 arrival index), so its sampled tokens depend only on the seed, its arrival
@@ -12,12 +13,14 @@ order and its logits, never on slot assignment, batch composition or
 preemption timing. The generators of PyTorch and JAX differ, so sampled
 tokens do not match the JAX engine's; greedy tokens do.
 
-The paged engine (`inference.paged.PagedServingEngine`) is the one ported;
-the dense `ContinuousBatchingEngine` comes with a later slice (ROADMAP A8).
+Two engines share it: `ContinuousBatchingEngine` here, over a slotted
+dense cache that reserves `max_seq_len` rows per slot, and
+`inference.paged.PagedServingEngine`, over a block pool of pages.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import time
 
@@ -26,7 +29,7 @@ import torch
 
 from .slo import serving_metrics
 
-__all__ = ["GenerationRequest"]
+__all__ = ["ContinuousBatchingEngine", "GenerationRequest"]
 
 
 class GenerationRequest:
@@ -81,21 +84,25 @@ class _ServingEngineBase:
 
     def __init__(self, model, max_batch_size=8, max_seq_len=512, seed=0,
                  serve_w8=False):
-        if serve_w8:
-            raise NotImplementedError(
-                "weight-only int8 serving is ported with the quantized "
-                "serving slice (ROADMAP A8 int8)")
         model.eval()
+        # the engine runs where the model's parameters live, and the KV
+        # cache takes the model's floating dtype (a bf16 model gets bf16
+        # pages), read before any int8 convert
+        params = [p for p in model.parameters() if p.is_floating_point()]
+        self.device = params[0].device
+        self.kv_dtype = params[0].dtype
+        # weight-only int8 serving: the model's Linears become
+        # QuantizedLinear, in place and idempotently (build a fresh model
+        # per engine when comparing)
+        self.serve_w8 = bool(serve_w8)
+        if self.serve_w8:
+            from ..quantization import ptq_convert_for_serving
+
+            ptq_convert_for_serving(model)
         self.model = model
         self.cfg = model.config
         self.B = int(max_batch_size)
         self.S = int(max_seq_len)
-        # the engine runs where the model's parameters live, and the KV
-        # cache takes the model's floating dtype (a bf16 model gets bf16
-        # pages)
-        params = [p for p in model.parameters() if p.is_floating_point()]
-        self.device = params[0].device
-        self.kv_dtype = params[0].dtype
         self.last_logits = None  # last decode tick's [B, vocab] logits
         self.finished: list[GenerationRequest] = []
         self.seed = int(seed)
@@ -185,3 +192,121 @@ class _ServingEngineBase:
 
     def step(self) -> dict:
         raise NotImplementedError
+
+
+class ContinuousBatchingEngine(_ServingEngineBase):
+    """Admit-while-decoding over a slotted DENSE KV cache
+    (↔ JAX serving.py:255-375).
+
+    Each layer holds one [max_batch_size, max_seq_len, Hkv, D] cache per
+    side, updated in place. `step()` admits waiting requests into free
+    slots (a batch-1 prefill each, copied into the slot's rows), then
+    advances every live slot by one token in one fixed-shape [B, 1] decode
+    with per-slot offsets: each row appends at its own length and attends
+    through a [B, 1, 1, S] key-padding mask, which on the card runs the
+    flash forward kernel. Parked slots decode at offset 0 and read only
+    that column. Greedy tokens are picked on the device; a sampled row
+    draws from its own row of logits with the request's generator.
+    `run()` drains everything and returns the finished requests."""
+
+    engine_label = "dense"
+
+    def __init__(self, model, max_batch_size=8, max_seq_len=512, seed=0,
+                 serve_w8=False):
+        super().__init__(model, max_batch_size, max_seq_len, seed,
+                         serve_w8=serve_w8)
+        cfg = self.cfg
+        shape = (self.B, self.S, cfg.kv_heads, cfg.head_dim)
+        self.caches = [
+            (torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
+             torch.zeros(shape, dtype=self.kv_dtype, device=self.device))
+            for _ in range(cfg.num_layers)]
+        self.lengths = np.zeros(self.B, np.int32)   # tokens in each slot
+        self.active: list[GenerationRequest | None] = [None] * self.B
+        self.last_tok = np.zeros(self.B, np.int32)
+        self.waiting: collections.deque = collections.deque()
+
+    # ------------------------------------------------------------------ #
+
+    def add_request(self, prompt_ids, **kw):
+        req = self._make_request(prompt_ids, **kw)
+        if len(req.prompt) >= self.S:
+            raise ValueError(
+                f"prompt length {len(req.prompt)} >= max_seq_len {self.S}")
+        self.waiting.append(req)
+        return req.req_id
+
+    def has_work(self):
+        return bool(self.waiting) or any(r is not None for r in self.active)
+
+    # ------------------------------------------------------------------ #
+
+    def _admit(self):
+        free = [i for i in range(self.B) if self.active[i] is None]
+        while free and self.waiting:
+            slot = free.pop(0)
+            req = self.waiting.popleft()
+            logits, new_c, n, _ = self._run_prefill(req)
+            # the prompt's K/V into this slot's rows [0, n)
+            for (bk, bv), (k_, v_) in zip(self.caches, new_c):
+                bk[slot, :n] = k_[0, :n]
+                bv[slot, :n] = v_[0, :n]
+            first = self._pick_token(logits[0, n - 1], req)
+            self.active[slot] = req
+            self.lengths[slot] = n
+            self.last_tok[slot] = first
+            self._emit(slot, first)
+
+    def _emit(self, slot, tok):
+        req = self.active[slot]
+        req.generated.append(int(tok))
+        self._note_token(req, tok)
+        done, truncated = self._retire_decision(req, tok, self.lengths[slot])
+        if done:
+            self._note_finished(req, truncated)
+            self.active[slot] = None
+            self.lengths[slot] = 0
+
+    @torch.no_grad()
+    def _decode(self):
+        """One fixed-shape [B, 1] decode over every slot: (greedy tokens
+        [B] on the host, last logits [B, vocab])."""
+        dev = self.device
+        tok = torch.tensor(self.last_tok, dtype=torch.long, device=dev)[:, None]
+        offs = torch.tensor(self.lengths, dtype=torch.long, device=dev)
+        logits, _ = self.model(tok, offs[:, None], self.caches, offs)
+        last = logits[:, -1]
+        return last.argmax(-1).cpu().numpy(), last
+
+    # ------------------------------------------------------------------ #
+
+    def step(self):
+        """One scheduler tick: admit then decode-advance all live slots.
+        Returns {req_id: new_token} for the decode advance only — each
+        request's FIRST token is emitted at admission."""
+        t_tick = time.perf_counter()
+        self._admit()
+        m = self.metrics
+        live = [i for i in range(self.B) if self.active[i] is not None]
+        m["queue_depth"].set(len(self.waiting),
+                             engine=self.engine_label, queue="prefill")
+        m["queue_depth"].set(len(live),
+                             engine=self.engine_label, queue="decode")
+        if not live:
+            return {}
+        greedy_np, logits = self._decode()
+        self.last_logits = logits
+        out = {}
+        for i in live:
+            req = self.active[i]
+            if req.temperature == 0.0:
+                tok = int(greedy_np[i])
+            else:
+                tok = self._pick_token(logits[i], req)
+            self.lengths[i] += 1
+            self.last_tok[i] = tok
+            out[req.req_id] = tok
+            self._emit(i, tok)
+        m["step_seconds"].observe(time.perf_counter() - t_tick,
+                                  engine=self.engine_label)
+        return out

@@ -3,11 +3,11 @@
 `serving_metrics()` returns a fresh set of counters, gauges and histograms
 under the same keys and metric names as the JAX package's
 `serving_metrics()` (tokens, requests, truncations, ttft, step_seconds,
-queue depth, pages, preemptions, resumes, prefix hits and lookups, COW
-copies). Each engine owns one set and hands it to its pool and scheduler,
-so two engines in one process never mix their numbers. The port has no
-observability registry yet, and nothing compiles, so there is no
-`BoundedCompileCache`.
+queue depth, pages, int8 pages written, preemptions, resumes, prefix hits
+and lookups, COW copies). Each engine owns one set and hands it to its pool
+and scheduler, so two engines in one process never mix their numbers. The
+port has no observability registry yet, and nothing compiles, so there is
+no `BoundedCompileCache`.
 """
 
 from __future__ import annotations
@@ -91,6 +91,10 @@ def serving_metrics() -> dict:
         "kv_bytes_per_token": Gauge(
             "serving_kv_bytes_per_token",
             "KV-cache bytes per cached token across all layers and both K/V sides"),
+        "kv_quant_pages": Counter(
+            "serving_kv_quant_pages_total",
+            "KV pages written through the int8 quantized path (prefill "
+            "scatters; decode appends requantize in place)"),
         "prefix_lookups": Counter(
             "serving_prefix_lookups_total",
             "Prompt-page hash lookups against the shared-prefix map"),

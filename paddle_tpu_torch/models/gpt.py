@@ -12,13 +12,18 @@ Attention has three branches:
   `scaled_dot_product_attention`, which goes to the flash-attention kernels
   on the card; with `use_recompute` and the model in training mode each
   decoder layer runs under `fleet.recompute` (JAX `gpt.py:458-471`);
-- dense cache [B, S_max, Hkv, D] with a scalar offset (the prefill): the
-  step's K/V are written at the offset and a full bool mask feeds the exact
-  composite `scaled_dot_product_attention`;
+- dense cache [B, S_max, Hkv, D] with an offset: the step's K/V are written
+  at the offset and a bool mask feeds `scaled_dot_product_attention`. A
+  scalar offset (the prefill, `generate`) writes every row at one offset;
+  a vector offset [B] (the continuous-batching decode, one token per row)
+  writes each row at its own length, and its [B, 1, 1, S_max] mask is a
+  key-padding mask, so that decode runs the flash forward kernel;
 - paged cache [n_pages, Hkv, page_size, D] with block tables and per-row
   lengths (decode, one token per row): `paged_kv_write` appends the step's
   K/V, then `paged_decode_attention` (the CUDA kernel on the card) attends
-  over lengths + 1 tokens.
+  over lengths + 1 tokens. A 4-tuple cache (k, v, k_scale, v_scale) is the
+  int8 layout: `paged_kv_write_q8` appends under a running abs-max and the
+  int8 kernel dequantizes per page.
 
 The cached branches write the caches IN PLACE (the JAX package returns
 fresh arrays): a serving process's KV pages are its largest allocation, and
@@ -32,11 +37,11 @@ N(0, initializer_range) like the JAX package's `_init_attr`; the two
 frameworks' generators give different numbers, so cross-package tests copy
 weights with `load_paddle_tpu_state`.
 
+`GPTForCausalLM.generate` is `models.generation.generate`.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the LLaMA form (RoPE, SwiGLU, RMSNorm, A7), flashmask attention (A10), ring
-/ context and sequence parallelism (A9), dropout (A3), the int8 KV cache
-(A8 int8) and the vector-offset dense cache of the continuous-batching
-engine (A8 dense engine).
+/ context and sequence parallelism (A9) and dropout (A3).
 """
 
 from __future__ import annotations
@@ -58,7 +63,11 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
 from ..distributed.fleet.recompute import recompute
 from ..nn import Embedding, LayerNorm
 from ..nn import functional as F
-from ..ops.decode_attention import paged_decode_attention, paged_kv_write
+from ..ops.decode_attention import (
+    paged_decode_attention,
+    paged_kv_write,
+    paged_kv_write_q8,
+)
 
 __all__ = [
     "GPTConfig",
@@ -137,12 +146,14 @@ def _check_supported(cfg: GPTConfig):
 
 def _dyn_update(buf, new, off):
     """Write `new` [B, S, H, D] into the dense cache `buf` at sequence
-    offset `off` (a scalar), in place. Like lax.dynamic_update_slice, the
-    offset is clamped so the update fits."""
+    offset `off`, in place. A scalar offset writes every row there, clamped
+    so the update fits (as lax.dynamic_update_slice); a vector offset [B]
+    writes row b's single token (S == 1) at off[b], the continuous-batching
+    decode where each slot appends at its own length."""
     if torch.is_tensor(off) and off.dim() > 0:
-        raise NotImplementedError(
-            "per-row cache offsets belong to the dense continuous-batching "
-            "engine (ROADMAP A8 dense engine)")
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, off.long()] = new[:, 0].to(buf.dtype)
+        return buf
     S = new.shape[1]
     o = min(max(int(off), 0), buf.shape[1] - S)
     buf[:, o:o + S] = new.to(buf.dtype)
@@ -150,11 +161,16 @@ def _dyn_update(buf, new, off):
 
 
 def _decode_mask(s_max, off, s_new, device):
-    """Bool mask [1, 1, s_new, s_max]: position i (absolute off + i) attends
-    to j <= off + i."""
-    cols = torch.arange(s_max, device=device)[None, :]
-    rows = int(off) + torch.arange(s_new, device=device)[:, None]
-    return (cols <= rows)[None, None]
+    """Bool mask: position i (absolute off + i) attends to j <= off + i.
+    A scalar offset gives [1, 1, s_new, s_max]; a vector offset [B] gives
+    [B, 1, s_new, s_max] (per-slot lengths)."""
+    cols = torch.arange(s_max, device=device)
+    steps = torch.arange(s_new, device=device)
+    if torch.is_tensor(off) and off.dim() > 0:
+        rows = off.to(device).long()[:, None, None] + steps[None, :, None]
+        return (cols[None, None, :] <= rows)[:, None]
+    rows = int(off) + steps[:, None]
+    return (cols[None, :] <= rows)[None, None]
 
 
 def _paged_update(buf, new, tables, lengths):
@@ -163,14 +179,23 @@ def _paged_update(buf, new, tables, lengths):
     return paged_kv_write(buf, new[:, 0], tables, lengths)
 
 
-def _paged_attend(q, kc, vc, tables, lengths):
+def _paged_attend(q, kc, vc, tables, lengths, kv_scales=None):
     """q [B, 1, H, D] against the paged cache; `lengths` counts tokens
     present BEFORE this step and the step's K/V were just written, so the
-    kernel sees lengths + 1 valid tokens."""
+    kernel sees lengths + 1 valid tokens. `kv_scales` (k_scale, v_scale)
+    marks int8 pages."""
     B, S, H, D = q.shape
     o = paged_decode_attention(q.reshape(B, H, D), kc, vc, tables,
-                               (lengths + 1).to(torch.int32))
+                               (lengths + 1).to(torch.int32),
+                               kv_scales=kv_scales)
     return o.reshape(B, S, H, D)
+
+
+def _paged_update_q8(buf, scales, new, tables, lengths):
+    """The int8 append: write this step's `new` [B, 1, H, D] K/V rows into
+    the int8 paged cache, growing each target page's running abs-max scale
+    where needed. Returns (cache, scales), both updated in place."""
+    return paged_kv_write_q8(buf, scales, new[:, 0], tables, lengths)
 
 
 class GPTAttention(nn.Module):
@@ -195,11 +220,15 @@ class GPTAttention(nn.Module):
         k = self.k_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
         v = self.v_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
         new_cache = None
-        if cache is not None and block_tables is not None:
-            if len(cache) == 4:
-                raise NotImplementedError(
-                    "the int8 paged KV cache is ported with the quantized "
-                    "serving slice (ROADMAP A8 int8)")
+        if cache is not None and block_tables is not None and len(cache) == 4:
+            k_all, k_sc = _paged_update_q8(cache[0], cache[2], k,
+                                           block_tables, cache_offset)
+            v_all, v_sc = _paged_update_q8(cache[1], cache[3], v,
+                                           block_tables, cache_offset)
+            new_cache = (k_all, v_all, k_sc, v_sc)
+            out = _paged_attend(q, k_all, v_all, block_tables, cache_offset,
+                                kv_scales=(k_sc, v_sc))
+        elif cache is not None and block_tables is not None:
             k_all = _paged_update(cache[0], k, block_tables, cache_offset)
             v_all = _paged_update(cache[1], v, block_tables, cache_offset)
             new_cache = (k_all, v_all)
@@ -291,7 +320,8 @@ class GPTModel(nn.Module):
         if position_ids is None:
             start = 0
             if caches is not None and cache_offset is not None:
-                # decode default: absolute positions start at the offset
+                # decode default: absolute positions start at the (scalar)
+                # offset, as in the JAX package
                 start = int(cache_offset)
             position_ids = (start + torch.arange(S, device=dev))[None].expand(B, S)
         h = torch.add(*amp.cast_inputs("add", self.embed_tokens(input_ids),
@@ -338,6 +368,12 @@ class GPTForCausalLM(nn.Module):
         if caches is not None:
             return logits, new_caches
         return logits
+
+    def generate(self, input_ids, **kwargs):
+        """Greedy or sampled decoding (`models.generation.generate`)."""
+        from .generation import generate
+
+        return generate(self, input_ids, **kwargs)
 
     def init_kv_caches(self, batch_size, max_seq_len, dtype=None):
         """Static-capacity dense decode caches, one (k, v) pair per layer,
@@ -395,3 +431,4 @@ def gpt3_6p7b(**kw):
 
 def gpt3_13b(**kw):
     return GPTConfig(hidden_size=5120, num_layers=40, num_heads=40, **kw)
+

@@ -4,8 +4,9 @@ counters.
 
 - `fused_norm` ↔ `paddle_tpu/ops/pallas/fused_norm.py` (forward and dx,
   with `FusedNorm`, the autograd Function).
-- `decode_attention` ↔ `paddle_tpu/ops/pallas/decode_attention.py` (paged,
-  full precision; no gradient).
+- `decode_attention` ↔ `paddle_tpu/ops/pallas/decode_attention.py` (paged
+  full precision, paged int8 and dense-cache decode, the page appends; no
+  gradient).
 - `flash_attention` ↔ `paddle_tpu/ops/pallas/flash_attention.py` (forward,
   dq and dk/dv, with `FlashAttention`, the autograd Function).
 

@@ -1,25 +1,29 @@
-"""Paged-KV decode attention (↔ paddle_tpu/ops/pallas/decode_attention.py).
+"""Decode attention and the decode-step page append
+(↔ paddle_tpu/ops/pallas/decode_attention.py).
 
-`paged_decode_attention` attends one query token per row against a paged
-KV cache `[n_pages, Hkv, page_size, D]` through a block table. On CUDA
-tensors it launches the kernel of `csrc/decode_attention.cu` (one CTA per
-(row, KV head), a loop over the row's pages); on CPU tensors it runs
-`paged_decode_attention_plain`, the same semantics in plain PyTorch.
-`LAUNCHES` counts kernel launches.
+Three wrappers, one query token per row, each launching a kernel of
+`csrc/decode_attention.cu` on CUDA tensors and running its plain PyTorch
+version (same semantics) on CPU tensors:
 
-`paged_kv_write` is the decode-step page append, as torch index ops (it is
-a jnp scatter in the JAX package, not a Pallas kernel). It writes the pool
-IN PLACE: the JAX package returns a fresh array per step, but the page pool
-is the largest allocation of a serving process and a copy per layer per
-step would double it.
+- `paged_decode_attention` over a paged cache `[n_pages, Hkv, page_size, D]`
+  through a block table: full precision → `decode_tile_kernel<T, T>`
+  (`paged_decode_attention_plain`, counter `LAUNCHES`); int8 pages with
+  per-(page, head) f32 scales (`kv_scales=`) → `decode_tile_kernel<T, int8>`
+  (`paged_decode_attention_q8_plain`, counter `Q8_LAUNCHES`);
+- `dense_decode_attention` over a dense cache `[B, Hkv, S_max, D]` (the
+  MMHA path) → `decode_tile_kernel<T, T>` (`dense_decode_attention_plain`,
+  counter `DENSE_LAUNCHES`).
 
-Neither has a gradient (the JAX package gives the decode kernel no VJP), so
-both raise when grad mode is on and an input requires grad, rather than
-return a result cut from the graph; the serving engine runs under
+`paged_kv_write` and `paged_kv_write_q8` are the decode-step page appends,
+as torch index ops (jnp scatters in the JAX package, not Pallas kernels).
+They write the pool IN PLACE: the JAX package returns fresh arrays per
+step, but the page pool is the largest allocation of a serving process and
+a copy per layer per step would double it.
+
+None has a gradient (the JAX package gives the decode kernel no VJP), so
+each raises when grad mode is on and an input requires grad, rather than
+return a result cut from the graph; the serving engines run under
 `torch.no_grad()`.
-
-Later slices: the int8 page layout (`kv_scales=`, `paged_kv_write_q8`) and
-the dense-cache variant (`dense_decode_attention`).
 """
 
 from __future__ import annotations
@@ -28,15 +32,58 @@ import torch
 
 from . import _build
 
-__all__ = ["KV_QMAX", "LAUNCHES", "NEG_INF", "paged_decode_attention",
-           "paged_decode_attention_plain", "paged_kv_write"]
+__all__ = ["DENSE_LAUNCHES", "KV_QMAX", "LAUNCHES", "NEG_INF", "Q8_LAUNCHES",
+           "dense_decode_attention", "dense_decode_attention_plain",
+           "paged_decode_attention", "paged_decode_attention_plain",
+           "paged_decode_attention_q8_plain", "paged_kv_write",
+           "paged_kv_write_q8"]
 
-# symmetric int8 range of the quantized page layout (±127), kept for the
-# int8 slice; the full-precision path does not use it
+# symmetric int8 range of the quantized page layout: ±127 (not -128), so
+# the running-max rescale of paged_kv_write_q8 never overflows
 KV_QMAX = 127.0
 NEG_INF = -1e30  # paddle_tpu/ops/pallas/flash_attention.py NEG_INF
 
-LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset them)
+LAUNCHES = 0        # paged, full precision
+Q8_LAUNCHES = 0     # paged, int8 pages
+DENSE_LAUNCHES = 0  # dense cache
+
+
+def _attend_plain(q, k, v, valid, scale):
+    """The softmax core of the plain versions: q [B, H, D]; k, v f32
+    [B, Hkv, T, D]; valid bool [B, T]. f32 softmax over the valid tokens;
+    a row with none gives zeros. Returns [B, H, D] in q's dtype."""
+    B, H, D = q.shape
+    Hkv = k.shape[1]
+    q4 = q.reshape(B, Hkv, H // Hkv, D).float()
+    s = torch.einsum("bhgd,bhtd->bhgt", q4, k) * scale
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgt,bhtd->bhgd", p, v)
+    o = o / torch.where(l == 0, torch.ones_like(l), l)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def _gather_pages(cache, pages, scales=None):
+    """[n_pages, Hkv, ps, D] pages of `pages` [B, P] -> f32 [B, Hkv, P*ps, D],
+    multiplied by their per-(page, head) scales when given."""
+    B, P = pages.shape
+    _, Hkv, ps, D = cache.shape
+    x = cache[pages].float()                       # [B, P, Hkv, ps, D]
+    if scales is not None:
+        x = x * scales.float()[pages][..., None, None]
+    return x.permute(0, 2, 1, 3, 4).reshape(B, Hkv, P * ps, D)
+
+
+def _paged_valid(block_tables, lengths, ps):
+    """[B, P*ps] bool: slot before the length on a page with a table entry."""
+    tables = block_tables.long()
+    slot = torch.arange(tables.shape[1] * ps, device=tables.device)
+    return ((slot[None, :] < lengths.long()[:, None])
+            & (tables >= 0).repeat_interleave(ps, dim=1))
 
 
 def paged_decode_attention_plain(q, key_cache, value_cache, block_tables,
@@ -45,28 +92,34 @@ def paged_decode_attention_plain(q, key_cache, value_cache, block_tables,
     length or with a negative table entry are skipped, the last page is
     masked per slot, f32 softmax, and a row with no valid token gives
     zeros. q [B, H, D] -> [B, H, D] in q's dtype."""
-    B, H, D = q.shape
-    _, Hkv, ps, _ = key_cache.shape
-    P = block_tables.shape[1]
-    g = H // Hkv
-    tables = block_tables.long()
-    pages = tables.clamp(min=0)
-    # [B, P, Hkv, ps, D] -> [B, Hkv, P*ps, D]
-    k = key_cache[pages].permute(0, 2, 1, 3, 4).reshape(B, Hkv, P * ps, D)
-    v = value_cache[pages].permute(0, 2, 1, 3, 4).reshape(B, Hkv, P * ps, D)
-    slot = torch.arange(P * ps, device=q.device)
-    valid = ((slot[None, :] < lengths.long()[:, None])
-             & (tables >= 0).repeat_interleave(ps, dim=1))     # [B, P*ps]
-    q4 = q.reshape(B, Hkv, g, D).float()
-    s = torch.einsum("bhgd,bhtd->bhgt", q4, k.float()) * scale
-    valid = valid[:, None, None, :]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    m = s.amax(-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhgt,bhtd->bhgd", p, v.float())
-    o = o / torch.where(l == 0, torch.ones_like(l), l)
-    return o.reshape(B, H, D).to(q.dtype)
+    pages = block_tables.long().clamp(min=0)
+    return _attend_plain(q, _gather_pages(key_cache, pages),
+                         _gather_pages(value_cache, pages),
+                         _paged_valid(block_tables, lengths,
+                                      key_cache.shape[2]), scale)
+
+
+def paged_decode_attention_q8_plain(q, key_cache, value_cache, block_tables,
+                                    lengths, scale, k_scale, v_scale):
+    """Plain version of the int8 route: each int8 page is dequantized
+    (payload * its (page, head) scale, in f32, as the JAX kernel does in
+    VMEM), then attended as `paged_decode_attention_plain` does."""
+    pages = block_tables.long().clamp(min=0)
+    return _attend_plain(q, _gather_pages(key_cache, pages, k_scale),
+                         _gather_pages(value_cache, pages, v_scale),
+                         _paged_valid(block_tables, lengths,
+                                      key_cache.shape[2]), scale)
+
+
+def dense_decode_attention_plain(q, key_cache, value_cache, lengths, scale):
+    """Plain version of the dense route: q [B, H, D] against
+    [B, Hkv, S_max, D] caches, the first min(lengths[b], S_max) tokens of
+    row b valid. -> [B, H, D] in q's dtype."""
+    s_max = key_cache.shape[2]
+    valid = (torch.arange(s_max, device=q.device)[None, :]
+             < lengths.long()[:, None])
+    return _attend_plain(q, key_cache.float(), value_cache.float(), valid,
+                         scale)
 
 
 def _refuse_grad(what, *tensors):
@@ -77,7 +130,10 @@ def _refuse_grad(what, *tensors):
             "tensors that do not require grad)")
 
 
-def _check(q, key_cache, value_cache, block_tables, lengths):
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _check(q, key_cache, value_cache, block_tables, lengths, kv_scales=None):
     if q.dim() != 3 or key_cache.dim() != 4:
         raise ValueError("q must be [B, H, D] and the caches "
                          "[n_pages, Hkv, page_size, D]")
@@ -93,14 +149,41 @@ def _check(q, key_cache, value_cache, block_tables, lengths):
         raise ValueError("block_tables must be [B, P]")
     if lengths.shape != (B,):
         raise ValueError("lengths must be [B]")
-    if not (q.dtype == key_cache.dtype == value_cache.dtype):
-        raise TypeError("q and the caches must share one dtype (the int8 "
-                        "page layout is a later slice)")
-    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if q.dtype not in _FLOATS:
         raise TypeError(f"unsupported dtype {q.dtype}")
-    for t in (key_cache, value_cache, block_tables, lengths):
+    tensors = [key_cache, value_cache, block_tables, lengths]
+    if kv_scales is None:
+        if not (q.dtype == key_cache.dtype == value_cache.dtype):
+            raise TypeError("q and the caches must share one dtype")
+    else:
+        if not (key_cache.dtype == value_cache.dtype == torch.int8):
+            raise TypeError("kv_scales= takes int8 caches (the quantized "
+                            "page layout)")
+        for sc in kv_scales:
+            if sc.shape != (n_pages, Hkv) or sc.dtype != torch.float32:
+                raise ValueError("kv_scales must be two f32 [n_pages, Hkv] "
+                                 "tensors")
+        tensors += list(kv_scales)
+    for t in tensors:
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}")
+
+
+def _cuda_ready(what, q, tensors, int32s):
+    """Checks the kernel makes of its CUDA inputs: contiguous, int32 index
+    tensors, 16-byte aligned cache rows (tensors[:2] are the caches)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if any(t.dtype != torch.int32 for t in int32s):
+        raise TypeError(f"{what}: block tables and lengths must be int32")
+    if not all(t.is_contiguous() for t in (q, *tensors, *int32s)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    row = q.shape[-1] * tensors[0].element_size()
+    if row % 16 or any(t.data_ptr() % 16 for t in tensors[:2]):
+        raise ValueError(
+            f"{what}: the kernel loads cache rows 16 bytes at a time; a row "
+            f"of {row} bytes must be a multiple of 16 and the caches 16-byte "
+            "aligned")
 
 
 def paged_decode_attention(q, key_cache, value_cache, block_tables, lengths,
@@ -108,40 +191,96 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables, lengths,
     """q: [B, H, D] (one decode step); key/value_cache:
     [n_pages, Hkv, page_size, D]; block_tables: [B, P] physical page ids
     (-1 unused); lengths: [B] valid tokens including the current one (the
-    caller has already written the step's K/V). Returns [B, H, D]."""
-    global LAUNCHES
-    if kv_scales is not None:
-        raise NotImplementedError(
-            "int8 KV pages (kv_scales=) are ported with the quantized-serving "
-            "slice (ROADMAP A8 int8 / B4 int8 variant)")
-    _refuse_grad("paged_decode_attention", q, key_cache, value_cache)
-    _check(q, key_cache, value_cache, block_tables, lengths)
+    caller has already written the step's K/V). With `kv_scales`
+    (= (k_scale, v_scale), f32 [n_pages, Hkv]) the caches are int8
+    payloads, dequantized per page (payload * scale) in the kernel.
+    Returns [B, H, D] in q's dtype."""
+    global LAUNCHES, Q8_LAUNCHES
+    scales = () if kv_scales is None else tuple(kv_scales)
+    _refuse_grad("paged_decode_attention", q, key_cache, value_cache, *scales)
+    _check(q, key_cache, value_cache, block_tables, lengths, kv_scales)
     B, H, D = q.shape
     _, Hkv, ps, _ = key_cache.shape
     if scale is None:
         scale = D ** -0.5
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, key_cache, value_cache,
-                                            block_tables, lengths, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("block_tables and lengths must be int32")
-    for t in (q, key_cache, value_cache, block_tables, lengths):
-        if not t.is_contiguous():
-            raise ValueError("paged_decode_attention: inputs must be contiguous")
+        if kv_scales is None:
+            return paged_decode_attention_plain(q, key_cache, value_cache,
+                                                block_tables, lengths, scale)
+        return paged_decode_attention_q8_plain(
+            q, key_cache, value_cache, block_tables, lengths, scale, *scales)
+    quantized = kv_scales is not None
+    _cuda_ready("paged_decode_attention", q,
+                (key_cache, value_cache, *scales), (block_tables, lengths))
     out = torch.empty_like(q)
     if B == 0:
         return out
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.ptt_paged_decode_attention(
+    ptrs = (q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr())
+    dims = (B, Hkv, H // Hkv, D, ps, block_tables.shape[1], float(scale),
+            _build.DTYPE_CODES[str(q.dtype)], stream)
+    if quantized:
+        err = lib.ptt_paged_decode_attention_q8(
+            *ptrs, scales[0].data_ptr(), scales[1].data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *dims)
+        _build.check(err, "ptt_paged_decode_attention_q8")
+        Q8_LAUNCHES += 1
+    else:
+        err = lib.ptt_paged_decode_attention(
+            *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), *dims)
+        _build.check(err, "ptt_paged_decode_attention")
+        LAUNCHES += 1
+    return out
+
+
+def dense_decode_attention(q, key_cache, value_cache, lengths, scale=None):
+    """MMHA-style decode over a dense cache: q [B, H, D];
+    key/value_cache [B, Hkv, S_max, D]; lengths [B] valid tokens including
+    the current one (clamped to S_max). Returns [B, H, D] in q's dtype."""
+    global DENSE_LAUNCHES
+    _refuse_grad("dense_decode_attention", q, key_cache, value_cache)
+    if q.dim() != 3 or key_cache.dim() != 4:
+        raise ValueError("q must be [B, H, D] and the caches "
+                         "[B, Hkv, S_max, D]")
+    B, H, D = q.shape
+    _, Hkv, s_max, _ = key_cache.shape
+    if value_cache.shape != key_cache.shape:
+        raise ValueError("key and value caches differ in shape")
+    if key_cache.shape[0] != B or key_cache.shape[3] != D:
+        raise ValueError(f"caches {tuple(key_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if H % Hkv:
+        raise ValueError(f"{H} query heads do not group over {Hkv} KV heads")
+    if lengths.shape != (B,):
+        raise ValueError("lengths must be [B]")
+    if q.dtype not in _FLOATS:
+        raise TypeError(f"unsupported dtype {q.dtype}")
+    for t in (key_cache, value_cache, lengths):
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}")
+    if scale is None:
+        scale = D ** -0.5
+    if q.device.type == "cpu":
+        return dense_decode_attention_plain(q, key_cache, value_cache,
+                                            lengths, scale)
+    if not (q.dtype == key_cache.dtype == value_cache.dtype):
+        raise TypeError("dense_decode_attention: the kernel takes q and the "
+                        "caches in one dtype")
+    _cuda_ready("dense_decode_attention", q, (key_cache, value_cache),
+                (lengths,))
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _build.load_library()
+    err = lib.ptt_dense_decode_attention(
         q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, Hkv, H // Hkv, D, ps, block_tables.shape[1], float(scale),
-        _build.DTYPE_CODES[str(q.dtype)], stream)
-    _build.check(err, "ptt_paged_decode_attention")
-    LAUNCHES += 1
+        lengths.data_ptr(), out.data_ptr(), B, Hkv, H // Hkv, D, s_max,
+        float(scale), _build.DTYPE_CODES[str(q.dtype)],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "ptt_dense_decode_attention")
+    DENSE_LAUNCHES += 1
     return out
 
 
@@ -164,3 +303,48 @@ def paged_kv_write(cache, new, block_tables, lengths):
     page = torch.where(page < 0, torch.zeros_like(page), page)
     cache[page, :, lengths % ps] = new.to(cache.dtype)
     return cache
+
+
+def paged_kv_write_q8(cache, scales, new, block_tables, lengths):
+    """The int8 form of `paged_kv_write`, in place (↔ JAX :252): write one
+    decode step's K (or V) rows `new` [B, Hkv, D] into the int8 cache
+    [n_pages, Hkv, page_size, D] with per-(page, head) f32 `scales`
+    [n_pages, Hkv] (dequant = payload * scale).
+
+    A page's scale is a running abs-max. When this step's row raises it, the
+    page's payload is requantized under the new scale in the same write
+    (round(payload * (old / new)) in f32: bit-exact when the scale does not
+    change, one rounding step when it grows). A write at slot 0 restarts
+    the running max and zeroes the rest of the page: appends are sequential,
+    so slot 0 is a page's first write, and a page recycled through the free
+    list must not inherit its last tenant's scale. Page content is then a
+    function of the page's appended history only, which the bitwise
+    preemption invariance of the quantized engine rests on. Rows whose
+    target entry is -1 write null page 0; live rows never share a write page
+    (COW), so only parked rows collide, on page 0, where the order of
+    duplicate writes does not matter. Returns (cache, scales)."""
+    _refuse_grad("paged_kv_write_q8", cache, scales, new)
+    B = new.shape[0]
+    ps = cache.shape[2]
+    lengths = lengths.long()
+    rows = torch.arange(B, device=cache.device)
+    page = block_tables.long()[rows, lengths // ps]
+    page = torch.where(page < 0, torch.zeros_like(page), page)
+    slot = lengths % ps
+
+    new32 = new.float()                                    # [B, Hkv, D]
+    row_scale = new32.abs().amax(-1) / KV_QMAX             # [B, Hkv]
+    old_scale = torch.where(slot[:, None] == 0,
+                            torch.zeros_like(row_scale), scales[page])
+    new_scale = torch.maximum(old_scale, row_scale)
+    safe = torch.where(new_scale == 0, torch.ones_like(new_scale), new_scale)
+    ratio = old_scale / safe                               # <= 1
+    pg = torch.round(cache[page].float() * ratio[:, :, None, None])
+    q_row = torch.clamp(torch.round(new32 / safe[:, :, None]),
+                        -KV_QMAX, KV_QMAX)
+    at_slot = (torch.arange(ps, device=cache.device)[None, None, :, None]
+               == slot[:, None, None, None])
+    pg = torch.where(at_slot, q_row[:, :, None, :], pg)
+    cache[page] = pg.to(torch.int8)
+    scales[page] = new_scale
+    return cache, scales

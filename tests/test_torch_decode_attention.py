@@ -138,12 +138,14 @@ def test_paged_kv_write_is_bitwise_equal_to_jax():
 
 
 def test_int8_pages_raise_and_kv_qmax_matches():
+    """kv_scales= takes the int8 page layout only: full-precision caches
+    with scales raise; KV_QMAX is the JAX package's."""
     assert port_da.KV_QMAX == jax_da.KV_QMAX
     q, kc, vc, tables, lens = _make_case(1, 2, 2, 16, 8, 2, [8])
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(TypeError, match="int8"):
         port_da.paged_decode_attention(t(q), t(kc), t(vc), t(tables), t(lens),
-                                       kv_scales=(torch.ones(3, 2),) * 2)
+                                       kv_scales=(torch.ones(4, 2),) * 2)
 
 
 def test_wrapper_checks_its_inputs():

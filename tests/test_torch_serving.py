@@ -155,15 +155,22 @@ def test_add_request_validation(models):
 
 
 def test_unported_options_raise(models):
+    """What stays unported raises: MMHA's quant, beam and rotary
+    arguments. The int8 KV pool, `kv_quant`, `serve_w8` and the dense
+    engine are ported (tests/test_torch_serving_quant.py,
+    tests/test_torch_dense_serving.py)."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        masked_multihead_attention,
+    )
+
     _, tm = models
-    with pytest.raises(NotImplementedError, match="int8"):
-        PagedServingEngine(tm, kv_quant=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        PagedServingEngine(tm, serve_w8=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        BlockPool(1, 1, 4, 4, 3, quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        create_serving_engine(tm, paged=False)
+    x, cache = torch.zeros(1, 48), torch.zeros(2, 1, 2, 4, 8)
+    with pytest.raises(NotImplementedError, match="quant"):
+        masked_multihead_attention(x, cache, out_scale=0.5)
+    with pytest.raises(NotImplementedError, match="rotary"):
+        masked_multihead_attention(x, cache, rotary_tensor=torch.zeros(1))
+    assert BlockPool(1, 1, 4, 4, 3, quantized=True, device="cpu").quantized
+    assert create_serving_engine(tm, paged=False).engine_label == "dense"
 
 
 class TestBlockPool:
