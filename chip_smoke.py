@@ -18,12 +18,21 @@ Phases; any failure raises and the script exits non-zero:
                 paged decode attention (full precision and int8 pages, with
                 g = 4, a zero-length row, -1 table entries and a page whose
                 scales are 0), dense-cache decode attention (the MMHA shape
-                and g = 4), flash attention forward, dq and dk/dv, and the
-                flash forward at the dense engine's decode shape (Sq = 1).
-2b. faults    — the flash kernels built again from copies of csrc/, each
-                with one planted fault (a kv or q tile skipped, long rows
-                normalised 1% off): at the path's shape every one must
-                fail the limits of phase 2.
+                and g = 4), flash attention forward, dq and dk/dv, the
+                flash forward at the dense engine's decode shape (Sq = 1),
+                fused RoPE (forward and backward, neox and interleaved,
+                q + k at 32/8 heads, the decode shape with a table per row,
+                a ragged S) and flashmask forward, dq and dk/dv (the LLaMA
+                step's trivial causal index at B 4 x 2048 with 32/8 heads,
+                and document masks: causal n = 1 and n = 2, non-causal
+                n = 2 and n = 4, a mask per head, GQA, S not a multiple of
+                64, rows that keep no key).
+2b. faults    — the attention kernels built again from copies of csrc/,
+                each with one planted fault (a kv or q tile skipped, long
+                rows normalised 1% off; flashmask: the end bound of n = 2
+                ignored, partly kept tiles skipped, every head reading mask
+                head 0): at its case every one must fail the limits of
+                phase 2.
 3. serve      — gpt3_1p3b at full width and depth in bf16, random weights
                 from a seed, through inference.create_serving_engine (paged,
                 16 rows, 512 tokens, page size 32) over 12 requests of the
@@ -35,7 +44,8 @@ Phases; any failure raises and the script exits non-zero:
 4. hold       — gpt3_1p3b width at 2 layers in f32 (TF32 off): the same
                 greedy requests through the engine on the card (kernels) and
                 on the CPU (plain versions); first-decode-tick logits within
-                tolerance and identical tokens.
+                tolerance and identical tokens; model.generate on the card
+                gives the card engine's tokens.
 4b. serve-quant — bench.py's serving_quant A/B on gpt3_1p3b bf16: 64
                 requests of the mix, 32 new tokens, B 16, S 512, page size
                 32, an equal KV budget of (B*S)/(2*ps) bf16 pages. Leg A bf16
@@ -69,6 +79,26 @@ Phases; any failure raises and the script exits non-zero:
                 off), recompute on: three AdamW steps on the card (kernels)
                 and on the CPU (plain versions) from the same weights; the
                 losses and the step-1 gradients within tolerance.
+7. llama serve — llama_7b at full width and depth in bf16, random weights
+                from a seed, through the paged engine (16 rows, 512 tokens,
+                page size 32) over the 12-request mix: RoPE (prefills +
+                ticks) x 32, paged decode ticks x 32, RMSNorm (prefills +
+                ticks) x 65, no flash or flashmask launch; model.generate on
+                one greedy prompt against the engine (the first decode
+                step's logits within BF16_DECODE_LOGIT_RTOL, the tokens
+                printed); a profile of five full-batch decode ticks; then
+                llama_7b in f32 at full depth, where generate must give a
+                one-row paged engine's tokens.
+8. llama hold — llama_7b width at 2 layers in f32 (TF32 off): phase 4.
+9. llama train — bench.py's llama_7bshape rung (hidden 4096, 3 layers, 32
+                query heads over 8 kv heads, ffn 11008, flashmask attention
+                with the trivial index) at batch 4 x 2048: f32 parameters
+                and AdamW moments, AMP O2 bf16, sharding stage 2 on one
+                device. As phase 5, with per step 3 flashmask forwards, 3
+                dq, 3 dk/dv, 6 RoPE launches (3 forward, 3 backward), 7
+                RMSNorm forwards and 7 dx, and no flash launch.
+10. llama train hold — phase 6 at the llama_7bshape widths (2 layers,
+                flashmask attention).
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Every number printed sits beside the
@@ -101,6 +131,24 @@ DECODE_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 # ~1 summed in other orders over K <= 8192 differ by a few 1e-6; 1e-3
 # leaves room for that while catching a wrong mask, page or layer.
 HOLD_LOGIT_TOL = 1e-3
+# llama_7b in bf16: `generate` (f32 dense caches, decode through the flash
+# kernel at Sq = 1, which rounds P to bf16 before P V) against the paged
+# engine (bf16 pages, the paged decode kernel, P in f32 as in the JAX
+# kernel) at the first decode step of one prompt: the same function
+# rounded differently. bf16 rounds each op to 2^-9 relative; over 32 layers
+# of ~8 rounded ops the hidden state drifts by ~sqrt(256) x 2^-9 ~ 3% in
+# the worst case, so the row's logits are held to 10% of their norm, which
+# a wrong layer, cache or page, or non-finite values, exceed. With random
+# weights the logits barely depend on attention (on llama_tiny in bf16 the
+# two paths differ by 0.6% and a decode query rotated at the wrong
+# position by 0.9-1.2%), so RoPE positions are held where that shows: the
+# CPU tests (f32, against the JAX package, to 1e-5) and the f32 holds.
+# Greedy tokens are compared and printed, not held: with 32000 logits of
+# spread ~1.3 rounded to bf16 (2^-5 at |x| ~ 4), the top two of a step are
+# within that rounding often enough that the two paths may pick different
+# tokens. The tokens are held in f32: at full depth in the serve phase and
+# in the holds.
+BF16_DECODE_LOGIT_RTOL = 0.1
 # The same with int8 KV pages and int8 weights: the weights quantize
 # identically on both sides (elementwise, IEEE division), but K/V rows
 # that differ by rounding can land on either side of a quantizer's rounding
@@ -140,6 +188,11 @@ FLASH_LSE_TOL = 1e-5
 # is analytically zero, like the k-projection biases).
 TRAIN_HOLD_LOSS_RTOL = 1e-4
 TRAIN_HOLD_GRAD_TOL = 1e-3
+# RoPE kernel vs plain: both compute x_a c - x_b s and x_b c + x_a s in f32
+# with one rounding per product and sum (the kernel uses no fused
+# multiply-add) and round once to the tensor's dtype, so they should agree
+# bit for bit; the limit allows one ulp at |x| < 8 (f32 5e-7, bf16 2^-5).
+ROPE_TOL = {"float32": 1e-6, "bfloat16": 2 ** -5}
 
 
 def card_line():
@@ -574,6 +627,64 @@ def check_flash_decode(card, torch):
     return row
 
 
+def check_rope(card, torch):
+    """The fused-RoPE kernel against its plain version, forward and
+    backward (sin negated): q and k in one launch at the LLaMA-7B-shape
+    training step (B 4, S 2048, 32 and 8 heads of 128, per-row tables, as
+    the model builds them from position_ids) in bf16 (the path) and f32,
+    interleaved pairs, the llama_7b decode step (B 16, one token, 32 + 32
+    heads, a table per row), and a ragged S with three tensors and one
+    shared table. No single PyTorch call computes it: library_ms is
+    null."""
+    from paddle_tpu_torch.ops import fused_rope as fr
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    # name: (B, S, heads, D, table rows, interleaved, dtype)
+    cases = {
+        "train_neox": (4, 2048, (32, 8), 128, 4, False, "bfloat16"),
+        "train_neox_f32": (4, 2048, (32, 8), 128, 4, False, "float32"),
+        "train_interleaved": (4, 2048, (32, 8), 128, 4, True, "bfloat16"),
+        "decode_per_row": (16, 1, (32, 32), 128, 16, False, "bfloat16"),
+        "ragged_s37_qkv_shared_d64": (3, 37, (8, 2, 2), 64, 1, True, "float32"),
+    }
+    worst, main = 0.0, None
+    for name, (B, S, heads, D, Bt, il, dtype) in cases.items():
+        dt = getattr(torch, dtype)
+        xs = [(2 * torch.randn(B, S, h, D, device="cuda", generator=gen)).to(dt)
+              for h in heads]
+        ang = 2048 * torch.rand(Bt, S, D // 2, device="cuda", generator=gen)
+        c, s = torch.cos(ang), torch.sin(ang)
+        err = 0.0
+        for sign in (1.0, -1.0):
+            got = fr.rope(xs, c, s, il, sin_sign=sign)
+            ref = fr.rope_plain(xs, c, s, il, sin_sign=sign)
+            torch.cuda.synchronize()
+            err = max([err] + [(a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got, ref)])
+        if not err <= ROPE_TOL[dtype]:
+            raise AssertionError(f"fused_rope {name}: max|err| {err} "
+                                 f"(tol {ROPE_TOL[dtype]})")
+        worst = max(worst, err)
+        es = xs[0].element_size()
+        pairs = sum(x.numel() for x in xs) // 2
+        nbytes = 2 * 2 * pairs * es + 2 * c.numel() * 4
+        bnd, by = bound_ms(nbytes, 6 * pairs, "float32")
+        call = lambda: fr.rope(xs, c, s, il)  # noqa: E731
+        row = dict(case=name, dtype=dtype, B=B, S=S, heads=list(heads), D=D,
+                   table_rows=Bt, interleaved=il, max_abs_err=err,
+                   tol=ROPE_TOL[dtype], ms=time_ms(call), eager_ms=eager_ms(call),
+                   plain_ms=time_ms(lambda: fr.rope_plain(xs, c, s, il),
+                                    reps=5, inner=3),
+                   bound_ms=bnd, bound_by=by, library_ms=None)
+        say(card, "fused_rope " + json.dumps(row))
+        if name == "train_neox":
+            main = row
+        del xs
+    say(card, "fused_rope library_ms: none; no single PyTorch call rotates "
+              "q and k by position tables")
+    return {"worst": worst, "main": main}
+
+
 def check_norm_dx(card, torch):
     """The dx kernel against its plain version. The main path's shape is
     f32 [8192, 2048] (under O2 LayerNorm runs in f32, batch 4 x 2048)."""
@@ -805,46 +916,239 @@ def check_flash(card, torch):
     return {"worst": worst, "main": main}
 
 
-def library_sdpa(torch, q, k, v, dout, causal):
+def library_sdpa(torch, q, k, v, dout, causal, keep=None):
     """Yardstick device times of PyTorch's own attention on the same inputs
     (never called by the port), CUDA-graph replays as for the kernels: the
     forward, and the backward through autograd as the time of forward and
-    backward captured together less the forward's. The backward is measured
-    three times; the median is the yardstick, `bwd_runs` the spread."""
-    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    backward captured together less the forward's. k and v are expanded to
+    the query heads first (not timed); `keep` [B, H, Sq, Skv], where given,
+    is the bool attn_mask, else `causal` is is_causal. The backward is
+    measured three times; the median is the yardstick, `bwd_runs` the
+    spread."""
+    g = q.shape[2] // k.shape[2]
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (
+        q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
     dh = dout.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(is_causal=causal) if keep is None else dict(attn_mask=keep)
 
     def fwd_bwd():
-        return torch.autograd.grad(sdpa(qh, kh, vh, is_causal=causal),
-                                   (qh, kh, vh), dh)
+        return torch.autograd.grad(sdpa(qh, kh, vh, **kw), (qh, kh, vh), dh)
 
-    fwd = time_ms(lambda: sdpa(qh, kh, vh, is_causal=causal), reps=5, inner=5)
+    fwd = time_ms(lambda: sdpa(qh, kh, vh, **kw), reps=5, inner=5)
     bwd = sorted(time_ms(fwd_bwd, reps=5, inner=5) - fwd for _ in range(3))
     return {"fwd": fwd, "dq": bwd[1], "dkv": bwd[1], "bwd_runs": bwd}
 
 
-# Faults planted in copies of csrc/flash_attention.cu (phase 2b), name:
-# (the kernel's signature, the text replaced in it, the replacement). They
-# follow the tensor-core kernels' code: a change there that moves the
-# replaced text must move these with it.
+def _docs(rng, S, n_docs):
+    """Column -> first row of the next document (S in the last one)."""
+    cuts = np.sort(rng.choice(np.arange(1, S), n_docs - 1, replace=False))
+    bounds = np.concatenate([cuts, [S]])
+    return bounds[np.searchsorted(bounds, np.arange(S), side="right")]
+
+
+def flashmask_index(rng, B, Hm, S, n, kind):
+    """startend_row_indices in the kernels' layout, int32 [B, Hm, n, S],
+    of a mask kind: "trivial" (nothing masked beyond causal: the LLaMA
+    step's index), "docs" (causal, 4 documents a row; with n = 2 only the
+    next S/4 rows past a document are masked), "band" (non-causal n = 2:
+    rows >= col + w1 or < col - w2), "two_holes" (non-causal n = 4) and
+    "empty_rows" (non-causal n = 2: rows >= S - 5 keep no key)."""
+    idx = np.empty((B, Hm, n, S), np.int32)
+    cols = np.arange(S)
+    for b in range(B):
+        for hm in range(Hm):
+            if kind == "trivial":
+                idx[b, hm] = S
+            elif kind == "docs":
+                idx[b, hm, 0] = _docs(rng, S, 4)
+                if n == 2:
+                    idx[b, hm, 1] = np.minimum(idx[b, hm, 0] + S // 4, S)
+            elif kind == "band":
+                idx[b, hm, 0] = np.minimum(cols + int(rng.integers(64, 200)), S)
+                idx[b, hm, 1] = np.maximum(cols - int(rng.integers(64, 200)), 0)
+            elif kind == "two_holes":
+                lts = rng.integers(0, S // 2, S)
+                uts = rng.integers(S // 2, S, S)
+                idx[b, hm] = [lts, lts + rng.integers(0, S // 4, S), uts,
+                              uts + rng.integers(0, S // 4, S)]
+            elif kind == "empty_rows":
+                idx[b, hm, 0], idx[b, hm, 1] = S - 5, 0
+    return idx
+
+
+# name: (B, S, H, Hkv, Hm, D, causal, n, mask kind, dtype)
+FLASHMASK_CASES = {
+    "path": (4, 2048, 32, 8, 1, 128, True, 1, "trivial", "bfloat16"),
+    "causal_n1_docs": (2, 1024, 8, 8, 1, 128, True, 1, "docs", "bfloat16"),
+    "causal_n2_per_head_s1000_gqa": (1, 1000, 8, 2, 8, 128, True, 2, "docs",
+                                     "bfloat16"),
+    "full_n2_band_f32_d64": (1, 517, 4, 4, 1, 64, False, 2, "band", "float32"),
+    "full_n4_gqa_32_8": (2, 300, 32, 8, 1, 128, False, 4, "two_holes",
+                         "bfloat16"),
+    "empty_rows_f32_d64": (2, 200, 4, 2, 1, 64, False, 2, "empty_rows",
+                           "float32"),
+}
+
+
+def _flashmask_inputs(torch, gen, name):
+    """(q, k, v, dO, idx [B, Hm, n, S] int32 on the card, causal, dtype)
+    of a FLASHMASK_CASES case."""
+    B, S, H, Hkv, Hm, D, causal, n, kind, dtype = FLASHMASK_CASES[name]
+    q, k, v, dout, _, _ = _flash_inputs(torch, gen, B, S, S, H, Hkv, D, False,
+                                        dtype)
+    idx = flashmask_index(np.random.default_rng(len(name)), B, Hm, S, n, kind)
+    return q, k, v, dout, torch.as_tensor(idx, device="cuda"), causal, dtype
+
+
+def _flashmask_outputs(mf, q, k, v, dout, idx, causal, scale):
+    """As `_flash_outputs`, for the flashmask kernels."""
+    out, lse = mf.flashmask_fwd(q, k, v, idx, causal, scale)
+    out_p, lse_p = mf.flashmask_fwd_plain(q, k, v, idx, causal, scale)
+    delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = mf.flashmask_bwd_dq(q, k, v, idx, dout, lse_p, delta, causal, scale)
+    dq_p = mf.flashmask_bwd_dq_plain(q, k, v, idx, dout, lse_p, delta, causal,
+                                     scale)
+    dk, dv = mf.flashmask_bwd_dkv(q, k, v, idx, dout, lse_p, delta, causal,
+                                  scale)
+    dk_p, dv_p = mf.flashmask_bwd_dkv_plain(q, k, v, idx, dout, lse_p, delta,
+                                            causal, scale)
+    return ({"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
+            {"out": out_p, "lse": lse_p, "dq": dq_p, "dk": dk_p, "dv": dv_p},
+            delta)
+
+
+def check_flashmask(card, torch):
+    """Flashmask forward, dq and dk/dv kernels against their plain versions
+    on the same inputs (the backward kernels get the plain forward's LSE and
+    delta), held with check_flash's limits: the LLaMA-7B-shape training
+    step's attention (B 4, S 2048, 32 query heads over 8 kv heads, the
+    trivial causal index, bf16), causal n = 1 with four documents a row,
+    causal n = 2 with a mask per query head at S 1000 (not a multiple of
+    the 64-row tile) and GQA, non-causal n = 2 in f32, non-causal n = 4 at
+    GQA 32/8, and rows that keep no key (zeros and a zero dq). The
+    operation bound counts the pairs this run's masks keep. Library: torch
+    scaled_dot_product_attention, is_causal for the trivial index, else the
+    keep-mask as a bool attn_mask."""
+    from paddle_tpu_torch.ops import masked_flash as mf
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    main, failures, lib_path = {}, [], None
+    for name, (B, S, H, Hkv, Hm, D, causal, n, kind, dtype) in \
+            FLASHMASK_CASES.items():
+        q, k, v, dout, idx, causal, dtype = _flashmask_inputs(torch, gen, name)
+        scale = D ** -0.5
+        got, plain, delta = _flashmask_outputs(mf, q, k, v, dout, idx, causal,
+                                               scale)
+        torch.cuda.synchronize()
+        errs = _flash_errs(got, plain)
+        failures += [f"flashmask {name}: {b}"
+                     for b in _flash_violations(errs, dtype)]
+        empty = torch.isinf(plain["lse"]).transpose(1, 2)  # [B, S, H]
+        n_empty = int(empty.sum())
+        if n_empty and (got["out"][empty].abs().max().item() != 0
+                        or got["dq"][empty].abs().max().item() != 0):
+            failures.append(f"flashmask {name}: a row that keeps no key is "
+                            "not zero")
+        keep = mf.flashmask_keep(idx, S, S, causal).repeat_interleave(
+            H // Hm, dim=1)
+        pairs = int(keep.sum())
+        es = q.element_size()
+        qo, kv = B * S * H * D * es, B * S * Hkv * D * es
+        stats, idx_bytes = B * H * S * 4, idx.numel() * 4
+        reps, inner = (5, 3) if pairs * D > 1e10 else (10, 10)
+        rows = {
+            "fwd": (lambda: mf.flashmask_fwd(q, k, v, idx, causal, scale),
+                    lambda: mf.flashmask_fwd_plain(q, k, v, idx, causal, scale),
+                    2 * qo + 2 * kv + stats + idx_bytes, 4 * pairs * D,
+                    ("out", "lse")),
+            "dq": (lambda: mf.flashmask_bwd_dq(q, k, v, idx, dout, plain["lse"],
+                                               delta, causal, scale),
+                   lambda: mf.flashmask_bwd_dq_plain(
+                       q, k, v, idx, dout, plain["lse"], delta, causal, scale),
+                   3 * qo + 2 * kv + 2 * stats + idx_bytes, 6 * pairs * D,
+                   ("dq",)),
+            "dkv": (lambda: mf.flashmask_bwd_dkv(q, k, v, idx, dout,
+                                                 plain["lse"], delta, causal,
+                                                 scale),
+                    lambda: mf.flashmask_bwd_dkv_plain(
+                        q, k, v, idx, dout, plain["lse"], delta, causal, scale),
+                    2 * qo + 2 * kv + 2 * stats + idx_bytes
+                    + 2 * B * S * H * D * 4, 8 * pairs * D, ("dk", "dv")),
+        }
+        lib = {}
+        if name == "path":
+            lib = lib_path = library_sdpa(torch, q, k, v, dout, True)
+        elif name == "causal_n1_docs":
+            lib = library_sdpa(torch, q, k, v, dout, causal, keep)
+        shapes = dict(B=B, S=S, H=H, Hkv=Hkv, Hm=Hm, n=n, D=D, causal=causal,
+                      mask=kind, dtype=dtype, pairs=pairs,
+                      rows_without_keys=n_empty)
+        for kernel, (fn_k, fn_p, nbytes, ops, outs) in rows.items():
+            bnd, by = bound_ms(nbytes, ops, dtype)
+            err = max(errs[o][0] if o != "lse" else errs[o] for o in outs)
+            row = dict(kernel=kernel, case=name, **shapes, max_abs_err=err,
+                       row_rel_err=max(errs[o][1] for o in outs if o != "lse"),
+                       frobenius_rel_err=max(errs[o][2] for o in outs
+                                             if o != "lse"),
+                       tol=FLASH_TOL[dtype], frobenius_tol=FLASH_FROB_TOL[dtype],
+                       ms=time_ms(fn_k, reps=reps, inner=inner),
+                       eager_ms=eager_ms(fn_k, reps=reps, inner=inner),
+                       plain_ms=time_ms(fn_p, reps=3, inner=2),
+                       bound_ms=bnd, bound_by=by, library_ms=lib.get(kernel))
+            say(card, "flashmask " + json.dumps(row))
+            worst[kernel] = max(worst[kernel], err)
+            if name == "path":
+                main[kernel] = row
+        del q, k, v, dout, got, plain, keep
+        torch.cuda.empty_cache()
+    say(card, "flashmask library_ms: torch scaled_dot_product_attention on "
+              "k and v expanded to the query heads, is_causal for the trivial "
+              "index and the keep-mask as a bool attn_mask for the documents; "
+              "its backward as in flash_attention, one figure for dq and "
+              "dk/dv; the path's backward measured three times: "
+              + json.dumps(lib_path["bwd_runs"]))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"worst": worst, "main": main}
+
+
+# Faults planted in copies of csrc/ (phase 2b), name: (the source file, the
+# text that anchors the fault, the text replaced at its first occurrence
+# after the anchor, the replacement, the case that must catch it: "flash
+# path" or a FLASHMASK_CASES name). They follow the kernels' code: a change
+# there that moves the replaced text must move these with it.
 KERNEL_FAULTS = {
     "fwd: q tiles past the first skip their last kv tile": (
-        "flash_fwd_tc_kernel(", "t < n_kv;", "t < n_kv - (q0 > 0);"),
+        "flash_tiles.cuh", "flash_fwd_tc_kernel(", "t < n_kv;",
+        "t < n_kv - (q0 > 0);", "flash path"),
     "fwd: rows past the first q tile normalised 1% off": (
-        "flash_fwd_tc_kernel(", "1.f / l;", "1.f / (l * (q0 > 0 ? 1.01f : 1.f));"),
+        "flash_tiles.cuh", "flash_fwd_tc_kernel(", "1.f / l;",
+        "1.f / (l * (q0 > 0 ? 1.01f : 1.f));", "flash path"),
     "dq: q tiles past the first skip their last kv tile": (
-        "flash_dq_tc_kernel(", "t < n_kv;", "t < n_kv - (q0 > 0);"),
+        "flash_tiles.cuh", "flash_dq_tc_kernel(", "t < n_kv;",
+        "t < n_kv - (q0 > 0);", "flash path"),
     "dk/dv: the last q tile skipped": (
-        "flash_dkv_tc_kernel(", "t < n_q;", "t < n_q - 1;"),
+        "flash_tiles.cuh", "flash_dkv_tc_kernel(", "t < n_q;", "t < n_q - 1;",
+        "flash path"),
+    "flashmask: the end bound of causal n = 2 ignored": (
+        "masked_flash.cu", "struct FlashMask", "(row >= k.i0 && row < k.i1)",
+        "(row >= k.i0)", "causal_n2_per_head_s1000_gqa"),
+    "flashmask: a tile whose keep-mask is partly empty skipped": (
+        "flash_tiles.cuh", "bool any_kept(", "__syncthreads_or(mine) != 0",
+        "__syncthreads_and(mine) != 0", "path"),
+    "flashmask: every query head reads mask head 0": (
+        "masked_flash.cu", "struct FlashMask", "h / (p.H / Hm)", "0 * h",
+        "causal_n2_per_head_s1000_gqa"),
 }
 
 
 def planted_kernel_faults(card, torch):
-    """The flash limits must fail faulty kernels: for each fault of
-    KERNEL_FAULTS, the kernels are built again from a copy of csrc/ (in a
-    temporary directory, all builds in parallel) with the fault planted,
-    and held at the flash path's shape against the plain versions with
+    """The flash and flashmask limits must fail faulty kernels: for each
+    fault of KERNEL_FAULTS, the kernels are built again from a copy of
+    csrc/ (in a temporary directory, all builds in parallel) with the fault
+    planted, and held at its case against the plain versions with
     check_flash's limits."""
     import pathlib
     import shutil
@@ -853,18 +1157,19 @@ def planted_kernel_faults(card, torch):
 
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import masked_flash as mf
 
-    B, S, _, H, Hkv, D, causal, bias, dtype = FLASH_CASES["path"]
     sound = _build.load_library()
     passed = []
     with tempfile.TemporaryDirectory() as tmp:
         csrcs = {}
-        for i, (fault, (kernel, old, new)) in enumerate(KERNEL_FAULTS.items()):
+        for i, (fault, (fname, anchor, old, new, _)) in enumerate(
+                KERNEL_FAULTS.items()):
             csrc = pathlib.Path(tmp) / str(i) / "csrc"
             shutil.copytree(_build.CSRC, csrc)
-            src = csrc / "flash_attention.cu"
+            src = csrc / fname
             text = src.read_text()
-            at = text.index(old, text.index(kernel))
+            at = text.index(old, text.index(anchor))
             src.write_text(text[:at] + new + text[at + len(old):])
             csrcs[fault] = csrc
         t0 = time.perf_counter()
@@ -878,21 +1183,32 @@ def planted_kernel_faults(card, torch):
             for fault, lib in libs.items():
                 # the wrappers launch from the library load_library() holds
                 _build._LIB = _build.open_library(lib)
-                gen = torch.Generator(device="cuda").manual_seed(3)
-                q, k, v, dout, kb, _ = _flash_inputs(torch, gen, B, S, S, H,
-                                                     Hkv, D, bias, dtype)
-                got, plain, _ = _flash_outputs(fa, q, k, v, dout, kb, causal,
-                                               D ** -0.5)
+                case = KERNEL_FAULTS[fault][4]
+                if case == "flash path":
+                    B, S, _, H, Hkv, D, causal, bias, dtype = FLASH_CASES["path"]
+                    gen = torch.Generator(device="cuda").manual_seed(3)
+                    q, k, v, dout, kb, _ = _flash_inputs(torch, gen, B, S, S, H,
+                                                         Hkv, D, bias, dtype)
+                    got, plain, _ = _flash_outputs(fa, q, k, v, dout, kb,
+                                                   causal, D ** -0.5)
+                else:
+                    gen = torch.Generator(device="cuda").manual_seed(9)
+                    q, k, v, dout, idx, causal, dtype = _flashmask_inputs(
+                        torch, gen, case)
+                    got, plain, _ = _flashmask_outputs(
+                        mf, q, k, v, dout, idx, causal, q.shape[-1] ** -0.5)
                 bad = _flash_violations(_flash_errs(got, plain), dtype)
                 say(card, "planted kernel fault " + json.dumps(
-                    {"fault": fault, "failed": bool(bad), "violations": bad}))
+                    {"fault": fault, "case": case, "failed": bool(bad),
+                     "violations": bad}))
                 if not bad:
                     passed.append(fault)
                 del q, k, v, dout, got, plain
+                torch.cuda.empty_cache()
         finally:
             _build._LIB = sound
     if passed:
-        raise AssertionError(f"the flash limits pass faulty kernels: {passed}")
+        raise AssertionError(f"the attention limits pass faulty kernels: {passed}")
 
 
 # --------------------------------------------------------------------------- #
@@ -915,17 +1231,31 @@ def serving_workload(vocab_size, S, n_req):
     return out
 
 
-def serve(card, torch):
+def serve(card, torch, which="gpt3_1p3b"):
+    """`which` ("gpt3_1p3b" or "llama_7b") at full width and depth in bf16,
+    random weights from seed 0, through inference.create_serving_engine
+    (paged, 16 rows, 512 tokens, page size 32) over 12 requests of the
+    serving mix, 16 new tokens each. Counters zeroed just before and read
+    just after: every norm ((prefills + ticks) x (2L + 1)), every decode
+    attention (ticks x L) and, with RoPE, every rotation ((prefills +
+    ticks) x L) went through its kernel, and no other kernel ran (prefill
+    attention is the composite). For llama_7b, model.generate on one greedy
+    prompt of the mix is held against the engine: in bf16 by the first
+    decode step's logits (`generate_against_engine`), in f32 at full depth
+    by its tokens (`generate_f32_full_depth`). A profile of five
+    full-batch decode ticks comes between the two."""
+    from paddle_tpu_torch import models
     from paddle_tpu_torch.inference import create_serving_engine
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.models import GPTForCausalLM
 
-    cfg = gpt3_1p3b()
+    cfg = getattr(models, which)()
     B, S, ps, n_req, max_new = 16, 512, 32, 12, 16
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    say(card, f"serve: gpt3_1p3b bf16, {n_params} parameters, built in "
+    say(card, f"serve: {which} bf16, {n_params} parameters, "
+              f"{_state_bytes(model)} bytes, built in "
               f"{time.perf_counter() - t0:.3f} s")
 
     # warm-up engine (cuBLAS handles, allocator): one short request
@@ -937,7 +1267,8 @@ def serve(card, torch):
 
     eng = create_serving_engine(model, max_batch_size=B, max_seq_len=S,
                                 page_size=ps, seed=0)
-    for prompt, temp in serving_workload(cfg.vocab_size, S, n_req):
+    workload = serving_workload(cfg.vocab_size, S, n_req)
+    for prompt, temp in workload:
         eng.add_request(prompt, max_new_tokens=max_new, temperature=temp)
     torch.cuda.synchronize()
     _zero_counters()
@@ -955,35 +1286,135 @@ def serve(card, torch):
     decode_ticks = m["step_seconds"].count(engine="paged")
     L = cfg.num_layers
     want = _expected(fused_norm=(n_req + decode_ticks) * (2 * L + 1),
-                     paged_decode_attention=decode_ticks * L)
+                     paged_decode_attention=decode_ticks * L,
+                     fused_rope=(n_req + decode_ticks) * L if cfg.use_rope
+                     else 0)
     if len(done) != n_req or any(len(r.generated) != max_new for r in done):
-        raise AssertionError("serve: not every request finished with "
+        raise AssertionError(f"serve {which}: not every request finished with "
                              f"{max_new} tokens")
     if not torch.isfinite(eng.last_logits.float()).all():
-        raise AssertionError("serve: non-finite logits")
+        raise AssertionError(f"serve {which}: non-finite logits")
     if launches != want:
-        raise AssertionError(f"serve: kernel launches {launches}, expected "
-                             f"{want} (every LayerNorm and decode attention)")
+        raise AssertionError(f"serve {which}: kernel launches {launches}, "
+                             f"expected {want}")
     tokens = m["tokens"].value(engine="paged")
     ttft = m["ttft"].values(engine="paged")
     steps = m["step_seconds"].values(engine="paged")
     line = {
-        "model": "gpt3_1p3b", "dtype": "bfloat16", "batch": B,
+        "model": which, "dtype": "bfloat16", "batch": B,
         "max_seq_len": S, "page_size": ps, "requests": len(done),
         "tokens": tokens, "seconds": total_s, "tokens_per_s": tokens / total_s,
         "ttft_p50_s": float(np.percentile(ttft, 50)),
         "step_p99_s": float(np.percentile(steps, 99)),
         "decode_ticks": decode_ticks, "pages_total": eng.pool.pages_total,
+        "kv_bytes_per_token": eng.pool.bytes_per_token,
         "peak_pages_used": peak_used, "page_allocs": eng.pool.allocs_total,
         "prefix_hits": m["prefix_hits"].value(),
         "preemptions": m["preemptions"].value(), "launches": launches,
     }
-    say(card, "serve (smoke run, not a benchmark) " + json.dumps(line))
+    say(card, f"serve {which} (smoke run, not a benchmark) " + json.dumps(line))
     del eng
-    profile_decode(card, torch, model, B, S, page_size=ps)
+    torch.cuda.empty_cache()
+    if cfg.use_rope:
+        by_prompt = {tuple(r.prompt): r.generated for r in done}
+        prompt = next(p for p, temp in workload if temp == 0.0)
+        generate_against_engine(card, torch, model, prompt, max_new,
+                                by_prompt[tuple(prompt)], which,
+                                create_serving_engine(model, max_batch_size=B,
+                                                      max_seq_len=S,
+                                                      page_size=ps, seed=0))
+    profile_decode(card, torch, model, B, S, label=f"paged {which}",
+                   page_size=ps)
     del model
     torch.cuda.empty_cache()
+    if cfg.use_rope:
+        generate_f32_full_depth(card, torch, cfg, prompt, max_new, which)
     return launches
+
+
+def generate_f32_full_depth(card, torch, cfg, prompt, max_new, which):
+    """`generate` against the paged engine at full width and depth in f32
+    (TF32 off), where the two paths differ by f32 rounding only: on the
+    greedy prompt of the serve phase the tokens must be identical (a
+    one-row engine: its pages are 34 MB each in f32)."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
+    ps = 32
+    S = -(-(len(prompt) + max_new + 1) // ps) * ps
+    eng = create_serving_engine(model, max_batch_size=1, max_seq_len=S,
+                                page_size=ps, seed=0)
+    rid = eng.add_request(prompt, max_new_tokens=max_new)
+    engine_tokens = {r.req_id: r.generated for r in eng.run()}[rid]
+    del eng
+    torch.cuda.empty_cache()
+    gen = model.generate(prompt[None], max_new_tokens=max_new,
+                         temperature=0.0)[0, len(prompt):].tolist()
+    same = gen == engine_tokens
+    say(card, f"generate {which} f32 " + json.dumps({
+        "layers": cfg.num_layers, "prompt_tokens": len(prompt),
+        "new_tokens": max_new, "tokens_identical_to_engine": same,
+        "tokens": gen, "engine_tokens": engine_tokens}))
+    del model
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError(f"generate {which} f32: greedy tokens differ from "
+                             "the paged engine's")
+
+
+def generate_against_engine(card, torch, model, prompt, max_new, engine_tokens,
+                            which, eng):
+    """bf16 `generate` against the paged engine on one greedy prompt:
+    the greedy tokens of both (printed: see BF16_DECODE_LOGIT_RTOL), and
+    the logits of the first decode step, held to BF16_DECODE_LOGIT_RTOL of
+    their norm: `eng` (a fresh engine; its decode step is [B, 1] whatever
+    the live rows, so the prompt's row computes what it computed in the
+    full mix) admits the prompt alone and runs one tick; generate's path
+    (a prefill into f32 caches, one decode step at the prompt's length) is
+    replayed through the model's own calls, fed the engine's first token
+    so that both decode the same input."""
+    t0 = time.perf_counter()
+    gen = model.generate(prompt[None], max_new_tokens=max_new,
+                         temperature=0.0)[0, len(prompt):].tolist()
+    gen_s = time.perf_counter() - t0
+    diverge = next((i for i, (a, b) in enumerate(zip(gen, engine_tokens))
+                    if a != b), None)
+    rid = eng.add_request(prompt, max_new_tokens=3)
+    eng.step()  # admission (the first token) and the first decode tick
+    row = next(i for i, r in enumerate(eng.active) if r is not None
+               and r.req_id == rid)
+    first = eng.active[row].generated[0]
+    with torch.no_grad():
+        ids = torch.as_tensor(prompt, device="cuda").long()[None]
+        n = ids.shape[1]
+        caches = model.init_kv_caches(1, n + max_new, dtype=torch.float32)
+        model(ids, torch.arange(n, device="cuda")[None], caches, 0)
+        logits, _ = model(torch.full((1, 1), first, device="cuda"),
+                          torch.full((1, 1), n, device="cuda"), caches, n)
+    lg, le = logits[0, -1].float(), eng.last_logits[row].float()
+    rel = ((lg - le).norm() / le.norm()).item()
+
+    def gap(x):
+        top = x.topk(2).values
+        return (top[0] - top[1]).item()
+
+    say(card, f"generate {which} " + json.dumps({
+        "prompt_tokens": len(prompt), "new_tokens": max_new,
+        "seconds": gen_s, "tokens_identical_to_engine": diverge is None,
+        "first_divergence": diverge, "tokens": gen,
+        "engine_tokens": engine_tokens,
+        "first_token_identical": gen[0] == first,
+        "first_decode_logit_rel_diff": rel,
+        "first_decode_max_abs_logit_diff": (lg - le).abs().max().item(),
+        "rtol": BF16_DECODE_LOGIT_RTOL,
+        "first_decode_top2_gap_generate": gap(lg),
+        "first_decode_top2_gap_engine": gap(le)}))
+    if not rel <= BF16_DECODE_LOGIT_RTOL:
+        raise AssertionError(f"generate {which}: the first decode step differs "
+                             "from the paged engine's beyond bf16 rounding")
 
 
 def profile_decode(card, torch, model, B, S, ticks=5, label="paged",
@@ -1037,13 +1468,20 @@ def profile_decode(card, torch, model, B, S, ticks=5, label="paged",
 # --------------------------------------------------------------------------- #
 
 
-def hold(card, torch):
+def hold(card, torch, which="gpt3_1p3b"):
+    """The paged engine on the card (kernels) and on the CPU (plain
+    versions): `which` ("gpt3_1p3b" or "llama_7b") at its full width and 2
+    layers, f32 with TF32 off, four greedy requests of the mix; identical
+    tokens and first-decode-tick logits within HOLD_LOGIT_TOL, and
+    `generate` on the card (dense f32 caches, the flash kernel at Sq = 1)
+    gives the card engine's tokens."""
+    from paddle_tpu_torch import models
     from paddle_tpu_torch.inference import create_serving_engine
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.models import GPTForCausalLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(gpt3_1p3b(), num_layers=2)
+    cfg = dataclasses.replace(getattr(models, which)(), num_layers=2)
     gpu = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=1)
     cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32, seed=1)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -1059,12 +1497,19 @@ def hold(card, torch):
         results[name] = (first, [by[i].generated for i in ids])
     diff = (results["cuda"][0] - results["cpu"][0]).abs().max().item()
     same = results["cuda"][1] == results["cpu"][1]
-    say(card, "hold " + json.dumps({
-        "model": "gpt3_1p3b width, 2 layers", "dtype": "float32",
+    # generate on the card (dense f32 caches, the flash kernel at Sq = 1)
+    # gives the card engine's tokens
+    gen = [gpu.generate(p[None], max_new_tokens=8, temperature=0.0)[
+        0, len(p):].tolist() for p in prompts]
+    gen_same = gen == results["cuda"][1]
+    say(card, f"hold {which} " + json.dumps({
+        "model": f"{which} width, 2 layers", "dtype": "float32",
         "first_tick_max_abs_logit_diff": diff, "tol": HOLD_LOGIT_TOL,
-        "tokens_identical": same, "tokens_cuda": results["cuda"][1]}))
-    if not (diff <= HOLD_LOGIT_TOL and same):
-        raise AssertionError("hold: the card's engine disagrees with the CPU's")
+        "tokens_identical": same, "generate_tokens_identical": gen_same,
+        "tokens_cuda": results["cuda"][1]}))
+    if not (diff <= HOLD_LOGIT_TOL and same and gen_same):
+        raise AssertionError(f"hold {which}: the card's engine disagrees with "
+                             "the CPU's")
 
 
 # --------------------------------------------------------------------------- #
@@ -1333,15 +1778,14 @@ PEAK_BF16 = PEAK_OPS["bfloat16"]
 def decoder_flops(cfg, batch, seq):
     """bench.py `_decoder_flops`: 6ND for forward and backward plus the
     attention term 12*L*h*seq per token, N = the non-embedding weights of
-    `GPTConfig.num_params(include_embeddings=False)` plus the tied
-    vocab x hidden table."""
-    h, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
-    d = cfg.head_dim
-    attn = h * (cfg.num_heads * d) + 2 * h * (cfg.kv_heads * d) + (cfg.num_heads * d) * h
-    mlp = 2 * h * cfg.ffn_size
-    n_params = L * (attn + mlp + 2 * h) + h + V * h
+    `GPTConfig.num_params(include_embeddings=False)` plus one
+    vocab x hidden table (bench.py counts one for the untied LLaMA head
+    too)."""
+    n_params = (cfg.num_params(include_embeddings=False)
+                + cfg.vocab_size * cfg.hidden_size)
     tokens = batch * seq
-    return 6.0 * n_params * tokens + 12.0 * L * h * seq * tokens
+    return (6.0 * n_params * tokens
+            + 12.0 * cfg.num_layers * cfg.hidden_size * seq * tokens)
 
 
 def _counters():
@@ -1349,23 +1793,32 @@ def _counters():
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import fused_rope as fr
+    from paddle_tpu_torch.ops import masked_flash as mf
 
     return {"fused_norm": fn.LAUNCHES, "fused_norm_dx": fn.DX_LAUNCHES,
             "paged_decode_attention": da.LAUNCHES,
             "paged_decode_attention_q8": da.Q8_LAUNCHES,
             "dense_decode_attention": da.DENSE_LAUNCHES,
             "flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
-            "flash_bwd_dkv": fa.DKV_LAUNCHES}
+            "flash_bwd_dkv": fa.DKV_LAUNCHES, "fused_rope": fr.LAUNCHES,
+            "flashmask_fwd": mf.FWD_LAUNCHES,
+            "flashmask_bwd_dq": mf.DQ_LAUNCHES,
+            "flashmask_bwd_dkv": mf.DKV_LAUNCHES}
 
 
 def _zero_counters():
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import fused_rope as fr
+    from paddle_tpu_torch.ops import masked_flash as mf
 
     fn.LAUNCHES = fn.DX_LAUNCHES = 0
     da.LAUNCHES = da.Q8_LAUNCHES = da.DENSE_LAUNCHES = 0
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fr.LAUNCHES = 0
+    mf.FWD_LAUNCHES = mf.DQ_LAUNCHES = mf.DKV_LAUNCHES = 0
 
 
 def _expected(**counts):
@@ -1375,44 +1828,84 @@ def _expected(**counts):
 
 
 def _train_setup(torch, cfg, device, dtype, seed, recipe):
+    """(model, criterion, step) of a training recipe: None (f32, the
+    holds), "gpt3_1p3b" (bench.py's low-memory 1.3B recipe: amp.decorate
+    O2, bf16 AdamW moments) or "llama_7bshape" (bench.py's LLaMA rung: f32
+    parameters and moments, AMP O2 bf16, sharding stage 2 on one device);
+    AdamW lr 1e-4, DistributedTrainStep without a mesh."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.distributed import DistributedTrainStep
     from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
 
     model = GPTForCausalLM(cfg, device=device, dtype=dtype, seed=seed)
-    if recipe:
+    if recipe == "gpt3_1p3b":
         amp.decorate(model, level="O2", dtype="bfloat16")
     crit = GPTPretrainingCriterion(cfg)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                moment_dtype="bfloat16" if recipe else None)
+                moment_dtype="bfloat16" if recipe == "gpt3_1p3b" else None)
     step = DistributedTrainStep(model, lambda lg, lb: crit(lg, lb), opt,
                                 mesh=None, amp_level="O2" if recipe else None,
-                                amp_dtype="bfloat16")
+                                amp_dtype="bfloat16",
+                                sharding_stage=2 if recipe == "llama_7bshape"
+                                else None)
     return model, crit, step
 
 
-def train(card, torch):
-    from paddle_tpu_torch.models import gpt3_1p3b
+def _train_config(which):
+    """(config, launches per step, parameters whose gradient must be
+    seen, recipe text) of a training path."""
+    from paddle_tpu_torch.models import LlamaConfig, gpt3_1p3b
 
-    cfg = gpt3_1p3b(max_position_embeddings=2048, use_recompute=True)
+    if which == "gpt3_1p3b":
+        cfg = gpt3_1p3b(max_position_embeddings=2048, use_recompute=True)
+        L = cfg.num_layers
+        per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                    "fused_norm": (2 * L + 1) + 2 * L,
+                    "fused_norm_dx": 2 * L + 1}
+        return (cfg, per_step, ("gpt.embed_tokens.weight",
+                                "gpt.layers.0.input_layernorm.weight"),
+                "O2 bf16 params (LayerNorm f32), AdamW bf16 moments, "
+                "per-layer recompute")
+    # bench.py:339-353, run_llama_rung: the 7B widths at depth 3
+    cfg = LlamaConfig(hidden_size=4096, num_layers=3, num_heads=32,
+                      num_kv_heads=8, intermediate_size=11008,
+                      max_position_embeddings=2048, attn_variant="flashmask")
+    L = cfg.num_layers
+    per_step = {"flashmask_fwd": L, "flashmask_bwd_dq": L,
+                "flashmask_bwd_dkv": L, "fused_rope": 2 * L,
+                "fused_norm": 2 * L + 1, "fused_norm_dx": 2 * L + 1}
+    return (cfg, per_step, ("gpt.embed_tokens.weight",
+                            "gpt.layers.0.input_layernorm.weight",
+                            "lm_head.weight"),
+            "f32 params and AdamW moments, AMP O2 bf16, sharding stage 2 on "
+            "one device, flashmask attention (trivial index)")
+
+
+def train(card, torch, which):
+    """A training path of bench.py on the card, batch 4 x 2048 (see
+    `_train_config`): a warm-up step (every parameter must change; the
+    watched gradients must be finite and non-zero), then three timed steps
+    with the launch counters zeroed just before and read just after, and a
+    profile of one step."""
+    cfg, per_step, watch, recipe_text = _train_config(which)
     B, S, timed = 4, 2048, 3
     t0 = time.perf_counter()
-    model, _, step = _train_setup(torch, cfg, "cuda", torch.float32, 0, True)
+    model, _, step = _train_setup(torch, cfg, "cuda", torch.float32, 0, which)
     named = dict(model.named_parameters())
     n_params = sum(p.numel() for p in named.values())
     rng = np.random.default_rng(0)
     ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), device="cuda")
     labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), device="cuda")
     torch.cuda.synchronize()
-    say(card, f"train: gpt3_1p3b, {n_params} parameters "
+    say(card, f"train {which}: {n_params} parameters "
               f"({sorted({str(p.dtype) for p in named.values()})}), built in "
               f"{time.perf_counter() - t0:.3f} s")
 
     # warm-up step: every parameter must change, and the gradient must
     # reach the bottom of the graph (the token embedding, layer 0's norm)
+    # and the head
     before = {k: p.detach().clone() for k, p in named.items()}
-    watch = ("gpt.embed_tokens.weight", "gpt.layers.0.input_layernorm.weight")
     seen = {}
     hooks = [named[k].register_post_accumulate_grad_hook(
         lambda t, k=k: seen.__setitem__(k, t.grad.float().norm().item()))
@@ -1426,10 +1919,11 @@ def train(card, torch):
     unchanged = [k for k, p in named.items() if torch.equal(p.detach(), before[k])]
     del before
     if unchanged:
-        raise AssertionError(f"train: parameters unchanged by step 1: {unchanged}")
+        raise AssertionError(f"train {which}: parameters unchanged by step 1: "
+                             f"{unchanged}")
     if sorted(seen) != sorted(watch) or not all(
             math.isfinite(g) and g > 0 for g in seen.values()):
-        raise AssertionError(f"train: gradient norms at the bottom {seen}")
+        raise AssertionError(f"train {which}: gradient norms {seen}")
 
     _zero_counters()
     torch.cuda.reset_peak_memory_stats()
@@ -1439,30 +1933,26 @@ def train(card, torch):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = _counters()
-    L = cfg.num_layers
-    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-                "fused_norm": (2 * L + 1) + 2 * L, "fused_norm_dx": 2 * L + 1}
     want = _expected(**{k: v * timed for k, v in per_step.items()})
     losses = [loss0] + [l.item() for l in losses]
     if not all(math.isfinite(l) for l in losses):
-        raise AssertionError(f"train: non-finite loss {losses}")
+        raise AssertionError(f"train {which}: non-finite loss {losses}")
     if launches != want:
-        raise AssertionError(f"train: kernel launches {launches} over {timed} "
-                             f"steps, expected {want}")
+        raise AssertionError(f"train {which}: kernel launches {launches} over "
+                             f"{timed} steps, expected {want}")
     step_s = total_s / timed
     flops = decoder_flops(cfg, B, S)
     line = {
-        "model": "gpt3_1p3b", "recipe": "O2 bf16 params (LayerNorm f32), "
-        "AdamW bf16 moments, per-layer recompute", "batch": B, "seq": S,
+        "model": which, "recipe": recipe_text, "batch": B, "seq": S,
         "parameters": n_params, "losses": losses, "warmup_step_s": warm_s,
         "timed_steps": timed, "step_s": step_s, "tokens_per_s": B * S / step_s,
         "flops_per_step": flops, "mfu": flops / step_s / PEAK_BF16,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "grad_norm_at_bottom": seen, "launches": launches,
+        "grad_norms_watched": seen, "launches": launches,
         "launches_per_step": per_step,
     }
-    say(card, "train (smoke run, not a benchmark) " + json.dumps(line))
-    profile_step(card, torch, lambda: step(ids, labels), "train step")
+    say(card, f"train {which} (smoke run, not a benchmark) " + json.dumps(line))
+    profile_step(card, torch, lambda: step(ids, labels), f"train {which} step")
     del step, model, named
     torch.cuda.empty_cache()
     return launches
@@ -1498,12 +1988,17 @@ def profile_step(card, torch, fn, what):
 # --------------------------------------------------------------------------- #
 
 
-def train_hold(card, torch):
-    from paddle_tpu_torch.models import gpt3_1p3b
-
+def train_hold(card, torch, which):
+    """The training step on the card (kernels) and on the CPU (plain
+    versions), f32 with TF32 off, batch 2 x 256, 2 layers at the path's
+    widths: three AdamW steps from the same weights; the losses and the
+    step-1 gradients within tolerance. "gpt3_1p3b" runs with recompute,
+    "llama_7bshape" with flashmask attention; both run the f32 CUDA-core
+    forms of the attention kernels (the bf16 tensor-core forms are held by
+    the kernel phase only)."""
+    cfg = dataclasses.replace(_train_config(which)[0], num_layers=2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(gpt3_1p3b(use_recompute=True), num_layers=2)
     B, S, steps = 2, 256, 3
     rng = np.random.default_rng(4)
     ids = rng.integers(0, cfg.vocab_size, (B, S))
@@ -1512,7 +2007,8 @@ def train_hold(card, torch):
     state = None
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        model, crit, step = _train_setup(torch, cfg, dev, torch.float32, 2, False)
+        model, crit, step = _train_setup(torch, cfg, dev, torch.float32, 2,
+                                         None)
         if state is None:
             state = {k: v.cpu() for k, v in model.state_dict().items()}
         else:
@@ -1524,6 +2020,7 @@ def train_hold(card, torch):
         model.zero_grad(set_to_none=True)
         losses = [step(ids_t, labels_t).item() for _ in range(steps)]
         results[dev] = (losses, grads, time.perf_counter() - t0)
+        del model, step
     (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = results["cuda"], results["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     gmax = max(g.abs().max().item() for g in g_cpu.values())
@@ -1531,8 +2028,8 @@ def train_hold(card, torch):
                 / max(g.abs().max().item(), 1e-3 * gmax)
                 for k, g in g_cpu.items()}
     worst = max(grad_rel, key=grad_rel.get)
-    say(card, "train hold " + json.dumps({
-        "model": "gpt3_1p3b width, 2 layers, recompute", "dtype": "float32",
+    say(card, f"train hold {which} " + json.dumps({
+        "model": f"{which} widths, 2 layers", "dtype": "float32",
         "batch": B, "seq": S, "losses_cuda": l_gpu, "losses_cpu": l_cpu,
         "max_loss_rel_diff": loss_rel, "loss_rtol": TRAIN_HOLD_LOSS_RTOL,
         "max_grad_rel_diff": grad_rel[worst], "worst_grad": worst,
@@ -1540,8 +2037,8 @@ def train_hold(card, torch):
         "seconds_cpu": s_cpu}))
     if not (loss_rel <= TRAIN_HOLD_LOSS_RTOL
             and grad_rel[worst] <= TRAIN_HOLD_GRAD_TOL):
-        raise AssertionError("train hold: the card's training step disagrees "
-                             "with the CPU's")
+        raise AssertionError(f"train hold {which}: the card's training step "
+                             "disagrees with the CPU's")
 
 
 def main():
@@ -1570,6 +2067,8 @@ def main():
     dense = check_dense_decode(card, torch)
     flash = check_flash(card, torch)
     check_flash_decode(card, torch)
+    rope = check_rope(card, torch)
+    flashmask = check_flashmask(card, torch)
     planted_kernel_faults(card, torch)
     serve_launches = serve(card, torch)
     hold(card, torch)
@@ -1577,21 +2076,24 @@ def main():
     dense_launches = serve_dense(card, torch)
     mmha_launches = mmha(card, torch)
     quant_hold(card, torch)
-    train_launches = train(card, torch)
-    train_hold(card, torch)
+    train_launches = train(card, torch, "gpt3_1p3b")
+    train_hold(card, torch, "gpt3_1p3b")
+    llama_serve_launches = serve(card, torch, "llama_7b")
+    hold(card, torch, "llama_7b")
+    llama_train_launches = train(card, torch, "llama_7bshape")
+    train_hold(card, torch, "llama_7bshape")
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
     paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
-             train_launches)
-    launches = {name: sum(p.get(name, 0) for p in paths) for name in (
-        "fused_norm", "paged_decode_attention", "paged_decode_attention_q8",
-        "dense_decode_attention", "fused_norm_dx", "flash_fwd",
-        "flash_bwd_dq", "flash_bwd_dkv")}
+             train_launches, llama_serve_launches, llama_train_launches)
+    launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
+    mf_src = "paddle_tpu_torch/csrc/masked_flash.cu"
+    mf_ref = "paddle_tpu/ops/pallas/masked_flash.py"
     kernels = []
     for name, src, replaces, main_row, err in (
             ("fused_norm", "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -1610,7 +2112,16 @@ def main():
             ("flash_bwd_dq", fa_src, fa_ref + ":332", flash["main"]["dq"],
              flash["worst"]["dq"]),
             ("flash_bwd_dkv", fa_src, fa_ref + ":406", flash["main"]["dkv"],
-             flash["worst"]["dkv"])):
+             flash["worst"]["dkv"]),
+            ("fused_rope", "paddle_tpu_torch/csrc/fused_rope.cu",
+             "paddle_tpu/ops/pallas/fused_rope.py:90", rope["main"],
+             rope["worst"]),
+            ("flashmask_fwd", mf_src, mf_ref + ":77", flashmask["main"]["fwd"],
+             flashmask["worst"]["fwd"]),
+            ("flashmask_bwd_dq", mf_src, mf_ref + ":138",
+             flashmask["main"]["dq"], flashmask["worst"]["dq"]),
+            ("flashmask_bwd_dkv", mf_src, mf_ref + ":182",
+             flashmask["main"]["dkv"], flashmask["worst"]["dkv"])):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,

@@ -23,7 +23,10 @@ dense-cache decode attention kernels, and the GPT-3 training step
 (`jit.TrainStep` / `distributed.DistributedTrainStep` with
 `optimizer.AdamW`, `amp` O1/O2 and per-layer recompute) with the
 flash-attention forward, dq and dk/dv kernels and the fused-norm dx
-kernel. See ROADMAP.md for the rest.
+kernel; the LLaMA form (`models.llama`: RMSNorm, SwiGLU, RoPE, GQA, an
+untied head) in the same engines and training step, with the fused-RoPE
+kernel and flashmask attention (forward, dq and dk/dv kernels). See
+ROADMAP.md for the rest.
 """
 
 from .device import resolve_device

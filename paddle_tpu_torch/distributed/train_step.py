@@ -1,10 +1,14 @@
 """Single-device `DistributedTrainStep` (↔ paddle_tpu/distributed/
 train_step.py:116).
 
-It takes the reference's signature and runs `jit.TrainStep`. A mesh of
-more than one device, `sharding_stage` > 0 and `offload` raise
-NotImplementedError: the sharded forms come with the distributed slice
-(ROADMAP A9).
+It takes the reference's signature and runs `jit.TrainStep`. On one device
+(no mesh, or a mesh of size 1) `sharding_stage` 1 and 2 are accepted and
+run exactly that step: the reference shards optimizer states (stage 1) and
+gradients (stage 2) over the `sharding` axis, and over an axis of size 1
+both are no-ops (`_opt_state_spec` :170 and `_update_spec` :181 keep the
+parameter's own layout). Stage 3, `offload` and a mesh of more than one
+device raise NotImplementedError: the sharded forms come with the
+distributed slice (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -23,8 +27,11 @@ class DistributedTrainStep(TrainStep):
             raise NotImplementedError(
                 "DistributedTrainStep over more than one device is ported "
                 "with the distributed slice (ROADMAP A9)")
-        if sharding_stage or offload:
+        if sharding_stage is None:
+            sharding_stage = getattr(optimizer, "_sharding_stage", 0)
+        if sharding_stage not in (0, 1, 2) or offload:
             raise NotImplementedError(
-                "sharding stages and offload are ported with the "
+                "sharding stage 3 and offload are ported with the "
                 "distributed slice (ROADMAP A9)")
+        self.sharding_stage = sharding_stage
         super().__init__(model, loss_fn, optimizer, **kw)

@@ -1,7 +1,10 @@
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel, GPTPretrainingCriterion,
                   gpt3_1p3b, gpt3_6p7b, gpt3_13b, gpt3_125m, gpt3_350m,
                   gpt3_tiny)
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, llama_7b,
+                    llama_13b, llama_tiny)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "GPTPretrainingCriterion",
            "gpt3_tiny", "gpt3_125m", "gpt3_350m", "gpt3_1p3b", "gpt3_6p7b",
-           "gpt3_13b"]
+           "gpt3_13b", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "llama_tiny", "llama_7b", "llama_13b"]

@@ -1,16 +1,28 @@
-"""GPT-3 decoder LM (↔ paddle_tpu/models/gpt.py), for serving and training.
+"""GPT-style decoder LM (↔ paddle_tpu/models/gpt.py), for serving and
+training. One config drives both forms, as in the JAX package:
 
-Pre-LN blocks: LayerNorm -> QKV -> causal attention -> out-projection ->
-LayerNorm -> exact-erf GELU MLP, learned positions, and a tied LM head
-(logits = h @ W_emb.T). Parameter names and layouts equal the JAX package's,
-so `paddle_tpu_torch.convert.load_paddle_tpu_state` moves its weights over
-as they are.
+- GPT-3: pre-LN blocks of LayerNorm -> QKV (with biases) -> causal
+  attention -> out-projection -> LayerNorm -> exact-erf GELU MLP, learned
+  positions, a tied LM head (logits = h @ W_emb.T);
+- LLaMA (`models.llama`): RMSNorm (`norm_type="rmsnorm"`), no biases,
+  RoPE on q and k right after the projections (`use_rope`, through incubate
+  `fused_rotary_position_embedding`, hence the fused-RoPE kernel on the
+  card), grouped-query attention (`num_kv_heads`), a SwiGLU MLP
+  (`gate_proj`, `up_proj`, `down_proj`), no position table, and an untied
+  `lm_head` [hidden, vocab].
+
+Parameter names and layouts equal the JAX package's, so
+`paddle_tpu_torch.convert.load_paddle_tpu_state` moves its weights over as
+they are.
 
 Attention has three branches:
 
 - no cache (the training forward and full-sequence inference): causal
   `scaled_dot_product_attention`, which goes to the flash-attention kernels
-  on the card; with `use_recompute` and the model in training mode each
+  on the card, or with `attn_variant="flashmask"` `flashmask_attention`
+  (the flashmask kernels) under `attn_startend_row_indices`, or when none
+  are given the trivial index full((B, 1, S, 1), S) that masks nothing
+  beyond causal; with `use_recompute` and the model in training mode each
   decoder layer runs under `fleet.recompute` (JAX `gpt.py:458-471`);
 - dense cache [B, S_max, Hkv, D] with an offset: the step's K/V are written
   at the offset and a bool mask feeds `scaled_dot_product_attention`. A
@@ -39,9 +51,15 @@ weights with `load_paddle_tpu_state`.
 
 `GPTForCausalLM.generate` is `models.generation.generate`.
 
+With RoPE every branch rotates q and k at the positions it is given:
+`position_ids` (the engines pass each row's cache length at decode, and
+0..Sp-1 at a bucket-padded prefill, so a prompt rotates at its true
+positions), else 0..S-1, or the scalar cache offset onwards. K is cached
+after the rotation, as in the JAX package, so cached pages (prefix-shared
+or restored after a preemption) are never rotated again.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the LLaMA form (RoPE, SwiGLU, RMSNorm, A7), flashmask attention (A10), ring
-/ context and sequence parallelism (A9) and dropout (A3).
+ring / context and sequence parallelism (A9) and dropout (A3).
 """
 
 from __future__ import annotations
@@ -61,7 +79,8 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
     VocabParallelEmbedding,
 )
 from ..distributed.fleet.recompute import recompute
-from ..nn import Embedding, LayerNorm
+from ..incubate.nn.functional import fused_rotary_position_embedding, swiglu
+from ..nn import Embedding, LayerNorm, RMSNorm
 from ..nn import functional as F
 from ..ops.decode_attention import (
     paged_decode_attention,
@@ -120,21 +139,43 @@ class GPTConfig:
         if self.intermediate_size is not None:
             return self.intermediate_size
         if self.activation == "swiglu":
+            # LLaMA sizing: 2/3 * 4h rounded up to a multiple of 256
             return int(math.ceil(8 * self.hidden_size / 3 / 256) * 256)
         return 4 * self.hidden_size
 
+    def num_params(self, include_embeddings=True):
+        """Parameters of the model as the JAX package counts them (its
+        `GPTConfig.num_params`, which the MFU reads): attention, MLP and two
+        norm weights per layer, the final norm weight, and with the
+        embeddings the token table, the position table (without RoPE) and
+        the untied head."""
+        h, L, V = self.hidden_size, self.num_layers, self.vocab_size
+        d = self.head_dim
+        attn = h * (self.num_heads * d) + 2 * h * (self.kv_heads * d) + (self.num_heads * d) * h
+        if self.activation == "swiglu":
+            mlp = 3 * h * self.ffn_size
+        else:
+            mlp = 2 * h * self.ffn_size
+        per_layer = attn + mlp + 2 * h
+        total = L * per_layer + h
+        if include_embeddings:
+            total += V * h
+            if not self.use_rope:
+                total += self.max_position_embeddings * h
+            if not self.tie_word_embeddings:
+                total += V * h
+        return total
+
 
 def _check_supported(cfg: GPTConfig):
-    """Raise on the branches of the JAX model this slice does not port."""
-    if cfg.use_rope or cfg.activation != "gelu" or cfg.norm_type != "layernorm":
-        raise NotImplementedError(
-            "the LLaMA form (RoPE, SwiGLU, RMSNorm) is ported with ROADMAP A7")
-    if not cfg.tie_word_embeddings:
-        raise NotImplementedError(
-            "the untied LM head is ported with the LLaMA form (ROADMAP A7)")
-    if cfg.attn_variant != "flash":
-        raise NotImplementedError(
-            "flashmask attention is ported with ROADMAP A10")
+    """Raise on the branches of the JAX model the port does not have yet,
+    and on unknown options."""
+    if cfg.norm_type not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"unknown norm_type {cfg.norm_type!r}")
+    if cfg.activation not in ("gelu", "swiglu"):
+        raise ValueError(f"unknown activation {cfg.activation!r}")
+    if cfg.attn_variant not in ("flash", "flashmask"):
+        raise ValueError(f"unknown attn_variant {cfg.attn_variant!r}")
     if cfg.context_parallel or cfg.sequence_parallel:
         raise NotImplementedError(
             "context/sequence parallelism is ported with ROADMAP A9")
@@ -198,6 +239,22 @@ def _paged_update_q8(buf, scales, new, tables, lengths):
     return paged_kv_write_q8(buf, scales, new[:, 0], tables, lengths)
 
 
+def _make_norm(config: GPTConfig, device, dtype):
+    if config.norm_type == "rmsnorm":
+        return RMSNorm(config.hidden_size, epsilon=config.layer_norm_epsilon,
+                       device=device, dtype=dtype)
+    return LayerNorm(config.hidden_size, epsilon=config.layer_norm_epsilon,
+                     device=device, dtype=dtype)
+
+
+def _linear_kw(config: GPTConfig, generator, device, dtype):
+    """Keyword arguments of the projections: N(0, initializer_range)
+    weights, and biases only in the GPT-3 form (LLaMA has none)."""
+    return dict(weight_std=config.initializer_range, generator=generator,
+                device=device, dtype=dtype,
+                has_bias=config.norm_type == "layernorm")
+
+
 class GPTAttention(nn.Module):
     """Multi-head / grouped-query causal self-attention."""
 
@@ -205,20 +262,24 @@ class GPTAttention(nn.Module):
         super().__init__()
         self.config = config
         h, d = config.hidden_size, config.head_dim
-        kw = dict(weight_std=config.initializer_range, generator=generator,
-                  device=device, dtype=dtype)
+        kw = _linear_kw(config, generator, device, dtype)
         self.q_proj = ColumnParallelLinear(h, config.num_heads * d, gather_output=False, **kw)
         self.k_proj = ColumnParallelLinear(h, config.kv_heads * d, gather_output=False, **kw)
         self.v_proj = ColumnParallelLinear(h, config.kv_heads * d, gather_output=False, **kw)
         self.out_proj = RowParallelLinear(config.num_heads * d, h, input_is_parallel=True, **kw)
 
     def forward(self, x, position_ids=None, cache=None, cache_offset=None,
-                block_tables=None):
+                startend_row_indices=None, block_tables=None):
         cfg = self.config
         B, S = x.shape[0], x.shape[1]
         q = self.q_proj(x).reshape(B, S, cfg.num_heads, cfg.head_dim)
         k = self.k_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
         v = self.v_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        if cfg.use_rope:
+            q, k, _ = fused_rotary_position_embedding(
+                q, k, position_ids=position_ids,
+                use_neox_rotary_style=cfg.use_neox_rotary_style,
+                rotary_emb_base=cfg.rope_theta)
         new_cache = None
         if cache is not None and block_tables is not None and len(cache) == 4:
             k_all, k_sc = _paged_update_q8(cache[0], cache[2], k,
@@ -241,6 +302,15 @@ class GPTAttention(nn.Module):
             out = F.scaled_dot_product_attention(
                 q, k_all, v_all, attn_mask=mask, is_causal=False,
                 training=self.training)
+        elif cfg.attn_variant == "flashmask":
+            idx = startend_row_indices
+            if idx is None:
+                # the trivial index (plain causal), so the flashmask kernels
+                # run even without document boundaries
+                idx = torch.full((B, 1, S, 1), S, dtype=torch.int32,
+                                 device=x.device)
+            out = F.flashmask_attention(q, k, v, startend_row_indices=idx,
+                                        causal=True)
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, training=self.training)
@@ -251,17 +321,25 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    """FFN: fc1 -> exact-erf GELU -> fc2."""
+    """FFN: fc1 -> exact-erf GELU -> fc2, or with `activation="swiglu"`
+    down_proj(swiglu(gate_proj(x), up_proj(x)))."""
 
     def __init__(self, config: GPTConfig, *, generator, device, dtype):
         super().__init__()
         h, f = config.hidden_size, config.ffn_size
-        kw = dict(weight_std=config.initializer_range, generator=generator,
-                  device=device, dtype=dtype)
-        self.fc1 = ColumnParallelLinear(h, f, gather_output=False, **kw)
-        self.fc2 = RowParallelLinear(f, h, input_is_parallel=True, **kw)
+        kw = _linear_kw(config, generator, device, dtype)
+        self.activation = config.activation
+        if config.activation == "swiglu":
+            self.gate_proj = ColumnParallelLinear(h, f, gather_output=False, **kw)
+            self.up_proj = ColumnParallelLinear(h, f, gather_output=False, **kw)
+            self.down_proj = RowParallelLinear(f, h, input_is_parallel=True, **kw)
+        else:
+            self.fc1 = ColumnParallelLinear(h, f, gather_output=False, **kw)
+            self.fc2 = RowParallelLinear(f, h, input_is_parallel=True, **kw)
 
     def forward(self, x):
+        if self.activation == "swiglu":
+            return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
         return self.fc2(F.gelu(self.fc1(x)))
 
 
@@ -272,20 +350,20 @@ class GPTDecoderLayer(nn.Module):
         super().__init__()
         self.config = config
         kw = dict(generator=generator, device=device, dtype=dtype)
-        norm_kw = dict(epsilon=config.layer_norm_epsilon, device=device, dtype=dtype)
-        self.input_layernorm = LayerNorm(config.hidden_size, **norm_kw)
+        self.input_layernorm = _make_norm(config, device, dtype)
         self.self_attn = GPTAttention(config, **kw)
-        self.post_attention_layernorm = LayerNorm(config.hidden_size, **norm_kw)
+        self.post_attention_layernorm = _make_norm(config, device, dtype)
         self.mlp = GPTMLP(config, **kw)
 
     def forward(self, x, position_ids=None, cache=None, cache_offset=None,
-                block_tables=None):
+                startend_row_indices=None, block_tables=None):
         h = self.input_layernorm(x)
         if cache is not None:
             h, new_cache = self.self_attn(h, position_ids, cache, cache_offset,
                                           block_tables=block_tables)
         else:
-            h = self.self_attn(h, position_ids)
+            h = self.self_attn(h, position_ids,
+                               startend_row_indices=startend_row_indices)
             new_cache = None
         x = torch.add(*amp.cast_inputs("add", x, h))
         h = self.mlp(self.post_attention_layernorm(x))
@@ -305,16 +383,22 @@ class GPTModel(nn.Module):
         std = config.initializer_range
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, weight_std=std, **kw)
-        self.embed_positions = Embedding(
-            config.max_position_embeddings, config.hidden_size, weight_std=std, **kw)
+        if not config.use_rope:
+            self.embed_positions = Embedding(
+                config.max_position_embeddings, config.hidden_size,
+                weight_std=std, **kw)
         self.layers = nn.ModuleList(
             [GPTDecoderLayer(config, **kw) for _ in range(config.num_layers)])
-        self.final_norm = LayerNorm(config.hidden_size,
-                                    epsilon=config.layer_norm_epsilon,
-                                    device=device, dtype=dtype)
+        self.final_norm = _make_norm(config, device, dtype)
 
     def forward(self, input_ids, position_ids=None, caches=None,
-                cache_offset=None, block_tables=None):
+                cache_offset=None, attn_startend_row_indices=None,
+                block_tables=None):
+        if caches is not None and attn_startend_row_indices is not None:
+            raise ValueError(
+                "attn_startend_row_indices is not supported together with KV "
+                "caches: the cached decode path would silently attend across "
+                "document boundaries")
         B, S = input_ids.shape[0], input_ids.shape[1]
         dev = input_ids.device
         if position_ids is None:
@@ -324,8 +408,10 @@ class GPTModel(nn.Module):
                 # offset, as in the JAX package
                 start = int(cache_offset)
             position_ids = (start + torch.arange(S, device=dev))[None].expand(B, S)
-        h = torch.add(*amp.cast_inputs("add", self.embed_tokens(input_ids),
-                                       self.embed_positions(position_ids)))
+        h = self.embed_tokens(input_ids)
+        if not self.config.use_rope:
+            h = torch.add(*amp.cast_inputs("add", h,
+                                           self.embed_positions(position_ids)))
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
@@ -333,9 +419,11 @@ class GPTModel(nn.Module):
                               block_tables=block_tables)
                 new_caches.append(nc)
             elif self.config.use_recompute and self.training:
-                h = recompute(layer, h, position_ids)
+                h = recompute(layer, h, position_ids,
+                              startend_row_indices=attn_startend_row_indices)
             else:
-                h = layer(h, position_ids)
+                h = layer(h, position_ids,
+                          startend_row_indices=attn_startend_row_indices)
         h = self.final_norm(h)
         if caches is not None:
             return h, new_caches
@@ -343,7 +431,9 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """LM head on top of GPTModel, tied to the token embedding.
+    """LM head on top of GPTModel: tied to the token embedding, or with
+    `tie_word_embeddings=False` (LLaMA) its own `lm_head` linear
+    [hidden, vocab] without bias.
 
     `device` defaults to `cuda` (raises without a GPU); pass `device="cpu"`
     for the plain PyTorch path. `dtype` is the parameter (and compute) type.
@@ -357,14 +447,25 @@ class GPTForCausalLM(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         self.config = config
         self.gpt = GPTModel(config, generator=gen, device=dev, dtype=dtype)
+        if not config.tie_word_embeddings:
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, weight_std=config.initializer_range,
+                generator=gen, device=dev, dtype=dtype)
 
     def forward(self, input_ids, position_ids=None, caches=None,
-                cache_offset=None, block_tables=None):
+                cache_offset=None, attn_startend_row_indices=None,
+                block_tables=None):
         out = self.gpt(input_ids, position_ids, caches, cache_offset,
+                       attn_startend_row_indices=attn_startend_row_indices,
                        block_tables=block_tables)
         h, new_caches = out if caches is not None else (out, None)
-        h, w = amp.cast_inputs("lm_head_tied", h, self.gpt.embed_tokens.weight)
-        logits = torch.matmul(h, w.t())
+        if self.config.tie_word_embeddings:
+            h, w = amp.cast_inputs("lm_head_tied", h,
+                                   self.gpt.embed_tokens.weight)
+            logits = torch.matmul(h, w.t())
+        else:
+            logits = self.lm_head(h)
         if caches is not None:
             return logits, new_caches
         return logits

@@ -2,9 +2,11 @@
 
 from .activation import gelu
 from .common import embedding, linear
-from .flash_attention import flash_attention, scaled_dot_product_attention
+from .flash_attention import (flash_attention, flashmask_attention,
+                              scaled_dot_product_attention)
 from .loss import cross_entropy
 from .norm import layer_norm, rms_norm
 
-__all__ = ["cross_entropy", "embedding", "flash_attention", "gelu",
-           "layer_norm", "linear", "rms_norm", "scaled_dot_product_attention"]
+__all__ = ["cross_entropy", "embedding", "flash_attention",
+           "flashmask_attention", "gelu", "layer_norm", "linear", "rms_norm",
+           "scaled_dot_product_attention"]

@@ -16,6 +16,14 @@ mean of V there, the kernel zeros (as the JAX default kernel does).
 
 Inputs are cast for AMP as the op "flash_attention" on the kernel route and
 "sdpa" on the composite one (both on the white list).
+
+`flashmask_attention` (:223) always takes the kernel route of the JAX
+package: `paddle_tpu_torch.ops.masked_flash` (the flashmask kernels on CUDA
+tensors, their plain versions on CPU tensors), with top-left causal
+masking and zeros for a row that keeps no key. The JAX package's composite
+route, taken there when Pallas is off, aligns causal bottom-right and gives
+the mean of V for such a row; the two agree when Sq == Skv and every row
+keeps a key.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ import torch
 
 from ... import amp
 from ...ops.flash_attention import NEG_INF, flash_attention_fwd
+from ...ops.masked_flash import flashmask_attention_fwd
 
-__all__ = ["flash_attention", "scaled_dot_product_attention"]
+__all__ = ["flash_attention", "flashmask_attention",
+           "scaled_dot_product_attention"]
 
 
 def _ref_attention(q, k, v, mask=None, causal=False, scale=None):
@@ -99,3 +109,36 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     out = scaled_dot_product_attention(query, key, value, None, dropout,
                                        causal, training)
     return out, None
+
+
+def flashmask_attention(query, key, value, startend_row_indices=None,
+                        dropout=0.0, causal=False, window_size=None,
+                        return_softmax_lse=False, return_seed_offset=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """paddle.nn.functional.flashmask_attention: attention under the
+    per-key masked row ranges of `startend_row_indices` [B, Hm, Skv, n]
+    (n = 1 or 2 when causal, 2 or 4 otherwise; see ops/masked_flash.py).
+    Without indices nothing is masked beyond `causal`. Casts q, k and v
+    for AMP as the op "flashmask_attention". Dropout, `window_size` and
+    `return_softmax_lse` raise: the flashmask kernels have none of them.
+    With `return_seed_offset` returns (out, None)."""
+    if dropout > 0.0:
+        raise NotImplementedError(
+            "flashmask attention dropout (Philox in the kernels) is a later "
+            "slice (ROADMAP A3)")
+    if window_size is not None or return_softmax_lse:
+        raise NotImplementedError(
+            "flashmask_attention: window_size and return_softmax_lse are not "
+            "taken by the flashmask kernels")
+    q, k, v = amp.cast_inputs("flashmask_attention", query, key, value)
+    idx = startend_row_indices
+    if idx is None:
+        # nothing masked: rows >= Skv (causal), or rows >= Skv or < 0
+        B, Skv = k.shape[0], k.shape[1]
+        idx = torch.full((B, 1, Skv, 1 if causal else 2), Skv,
+                         dtype=torch.int32, device=q.device)
+        if not causal:
+            idx[..., 1] = 0
+    out = flashmask_attention_fwd(q, k, v, idx, causal=causal)
+    return (out, None) if return_seed_offset else out

@@ -9,6 +9,13 @@ counters.
   gradient).
 - `flash_attention` ↔ `paddle_tpu/ops/pallas/flash_attention.py` (forward,
   dq and dk/dv, with `FlashAttention`, the autograd Function).
+- `masked_flash` ↔ the flashmask half of
+  `paddle_tpu/ops/pallas/masked_flash.py` (forward, dq and dk/dv under
+  per-column masked row ranges, with `FlashmaskAttention`; the same tile
+  kernels as `flash_attention` under another mask policy).
+- `fused_rope` ↔ `paddle_tpu/ops/pallas/fused_rope.py` (RoPE on 1-3
+  tensors in one launch, with `FusedRope`, whose backward is the same
+  kernel with sin negated).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.

@@ -78,6 +78,22 @@ _SIGNATURES = {
     # strides[12], scale, causal, dtype, stream
     "ptt_flash_bwd_dkv": [_c_void_p] * 9 + [_c_int] * 6
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, idx, out, lse, B, H, Hkv, Hm, n, Sq, Skv, D, strides[12],
+    # scale, causal, dtype, stream
+    "ptt_flashmask_fwd": [_c_void_p] * 6 + [_c_int] * 8
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, idx, dout, lse, delta, dq, B, H, Hkv, Hm, n, Sq, Skv, D,
+    # strides[12], scale, causal, dtype, stream
+    "ptt_flashmask_bwd_dq": [_c_void_p] * 8 + [_c_int] * 8
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, idx, dout, lse, delta, dk, dv, B, H, Hkv, Hm, n, Sq, Skv, D,
+    # strides[12], scale, causal, dtype, stream
+    "ptt_flashmask_bwd_dkv": [_c_void_p] * 9 + [_c_int] * 8
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # x0, x1, x2, out0, out1, out2, n, h0, h1, h2, B, S, D, cos, sin,
+    # table_b, interleaved, sin_sign, dtype, stream
+    "ptt_rope": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p] * 2
+    + [_c_int, _c_int, _c_float, _c_int, _c_void_p],
 }
 
 _LOCK = threading.Lock()

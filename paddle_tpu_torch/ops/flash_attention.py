@@ -82,15 +82,20 @@ def _expand_kv(x, g):
     return x if g == 1 else x.repeat_interleave(g, dim=2)
 
 
-def _logits(q, k, key_bias, causal, scale):
-    """f32 [B, H, Sq, Skv] logits with the bias added and invisible pairs at
-    -inf."""
+def _logits(q, k, scale, keep, key_bias=None):
+    """f32 [B, H, Sq, Skv] logits, the key bias [B, Skv] added, -inf where
+    `keep` (bool, broadcastable to [B, H, Sq, Skv]) is False. Shared with
+    the flashmask plain versions (ops/masked_flash.py)."""
     g = q.shape[2] // k.shape[2]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k, g)) * scale
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
-    vis = _visible(q.shape[1], k.shape[1], causal, q.device)
-    return s.masked_fill(~vis, float("-inf"))
+    return s.masked_fill(~keep, float("-inf"))
+
+
+def _flash_logits(q, k, key_bias, causal, scale):
+    return _logits(q, k, scale, _visible(q.shape[1], k.shape[1], causal,
+                                         q.device), key_bias)
 
 
 def _operand(x, like):
@@ -99,13 +104,12 @@ def _operand(x, like):
     return x.to(like.dtype).float()
 
 
-def flash_fwd_plain(q, k, v, causal, scale, key_bias=None):
-    """Plain PyTorch version of the forward kernel: the f32 softmax with the
-    row max subtracted, the zero-row rule, and LSE = m + log(l) [B, H, Sq]
-    f32 (+inf for a row that saw no key); P enters P V in q's dtype. Returns
-    (O in q's dtype, LSE)."""
-    g = q.shape[2] // k.shape[2]
-    s = _logits(q, k, key_bias, causal, scale)
+def _attend(q, v, s):
+    """(O in q's dtype, LSE [B, H, Sq] f32) of the logits s: the f32
+    softmax with the row max subtracted, P entering P V in q's dtype; a
+    row that saw no key (its max at or below EMPTY) gives zeros and
+    LSE = +inf."""
+    g = q.shape[2] // v.shape[2]
     m = s.amax(-1, keepdim=True)
     empty = ~(m > EMPTY)
     m_use = torch.where(empty, torch.zeros_like(m), m)
@@ -121,35 +125,53 @@ def flash_fwd_plain(q, k, v, causal, scale, key_bias=None):
     return o.to(q.dtype), lse[..., 0]
 
 
-def _probs_and_ds(q, k, v, key_bias, dout, lse, delta, causal, scale):
-    """The backward's recompute: P = exp(s - LSE) on visible pairs (0
-    elsewhere) and dS = P * (dO V^T - delta) * scale, both f32
+def _probs_and_ds(q, v, s, dout, lse, delta, scale):
+    """The backward's recompute from the logits s: P = exp(s - LSE) (0 at
+    masked pairs) and dS = P * (dO V^T - delta) * scale, both f32
     [B, H, Sq, Skv]."""
-    g = q.shape[2] // k.shape[2]
-    s = _logits(q, k, key_bias, causal, scale)
+    g = q.shape[2] // v.shape[2]
     p = torch.exp(s - lse.float()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), _expand_kv(v, g))
     ds = p * (dp - delta.float()[..., None]) * scale
     return p, ds
 
 
+def _dq(q, k, ds):
+    """dQ = dS K with dS in q's dtype, accumulated in f32, in q's dtype."""
+    g = q.shape[2] // k.shape[2]
+    return torch.einsum("bhqk,bkhd->bqhd", _operand(ds, q),
+                        _expand_kv(k, g)).to(q.dtype)
+
+
+def _dkv(q, dout, p, ds):
+    """dK = dS^T Q and dV = P^T dO per query head, P and dS in q's dtype,
+    f32 [B, Skv, H, D] each."""
+    dk = torch.einsum("bhqk,bqhd->bkhd", _operand(ds, q), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _operand(p, q), dout.float())
+    return dk, dv
+
+
+def flash_fwd_plain(q, k, v, causal, scale, key_bias=None):
+    """Plain PyTorch version of the forward kernel: the f32 softmax with the
+    row max subtracted, the zero-row rule, and LSE = m + log(l) [B, H, Sq]
+    f32 (+inf for a row that saw no key); P enters P V in q's dtype. Returns
+    (O in q's dtype, LSE)."""
+    return _attend(q, v, _flash_logits(q, k, key_bias, causal, scale))
+
+
 def flash_bwd_dq_plain(q, k, v, key_bias, dout, lse, delta, causal, scale):
     """Plain PyTorch version of the dq kernel: dQ = dS K with dS in q's
     dtype, accumulated in f32, returned in q's dtype [B, Sq, H, D]."""
-    g = q.shape[2] // k.shape[2]
-    _, ds = _probs_and_ds(q, k, v, key_bias, dout, lse, delta, causal, scale)
-    return torch.einsum("bhqk,bkhd->bqhd", _operand(ds, q),
-                        _expand_kv(k, g)).to(q.dtype)
+    s = _flash_logits(q, k, key_bias, causal, scale)
+    return _dq(q, k, _probs_and_ds(q, v, s, dout, lse, delta, scale)[1])
 
 
 def flash_bwd_dkv_plain(q, k, v, key_bias, dout, lse, delta, causal, scale):
     """Plain PyTorch version of the dk/dv kernel: dK = dS^T Q and
     dV = P^T dO per query head with P and dS in q's dtype, f32
     [B, Skv, H, D] each."""
-    p, ds = _probs_and_ds(q, k, v, key_bias, dout, lse, delta, causal, scale)
-    dk = torch.einsum("bhqk,bqhd->bkhd", _operand(ds, q), q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", _operand(p, q), dout.float())
-    return dk, dv
+    s = _flash_logits(q, k, key_bias, causal, scale)
+    return _dkv(q, dout, *_probs_and_ds(q, v, s, dout, lse, delta, scale))
 
 
 # --------------------------------------------------------------------------- #
@@ -328,12 +350,18 @@ class FlashAttention(torch.autograd.Function):
         dq = flash_bwd_dq(q, k, v, key_bias, dout, lse, delta, causal, scale)
         dk, dv = flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal,
                                scale)
-        B, Skv, Hkv, D = k.shape
-        g = q.shape[2] // Hkv
-        if g > 1:
-            dk = dk.reshape(B, Skv, Hkv, g, D).sum(3)
-            dv = dv.reshape(B, Skv, Hkv, g, D).sum(3)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        return (dq, *_kv_grads(dk, dv, k, v), None, None, None)
+
+
+def _kv_grads(dk, dv, k, v):
+    """Per-query-head f32 dK, dV [B, Skv, H, D] -> the kv heads' gradients
+    in k's and v's dtypes: the g query heads of a kv head summed (GQA)."""
+    B, Skv, Hkv, D = k.shape
+    g = dk.shape[2] // Hkv
+    if g > 1:
+        dk = dk.reshape(B, Skv, Hkv, g, D).sum(3)
+        dv = dv.reshape(B, Skv, Hkv, g, D).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, key_bias=None):

@@ -241,12 +241,19 @@ def test_distributed_train_step_without_a_mesh_is_train_step():
     assert runs[0][0] == runs[1][0]
     for k in runs[0][1]:
         torch.testing.assert_close(runs[1][1][k], runs[0][1][k], rtol=0, atol=0)
+    # on one device sharding stage 2 is the stage-0 step (the reference's
+    # sharding axis has size 1); stage 3, offload and two devices raise
     tm = _port_model(state)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _port_step(tm, lambda *a: DistributedTrainStep(*a, sharding_stage=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _port_step(tm, lambda *a: DistributedTrainStep(
-            *a, mesh=np.empty((2, 1))))
+    step, _ = _port_step(tm, lambda *a: DistributedTrainStep(
+        *a, sharding_stage=2))
+    assert [step(ids, labels).item() for _ in range(2)] == runs[0][0]
+    for k, v in tm.state_dict().items():
+        torch.testing.assert_close(v, runs[0][1][k], rtol=0, atol=0)
+    for kw in (dict(sharding_stage=3), dict(offload=True),
+               dict(mesh=np.empty((2, 1)))):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            _port_step(_port_model(state), lambda *a: DistributedTrainStep(
+                *a, **kw))
 
 
 def test_eager_optimizer_step_equals_train_step():
