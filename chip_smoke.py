@@ -22,17 +22,28 @@ Phases; any failure raises and the script exits non-zero:
                 flash forward at the dense engine's decode shape (Sq = 1),
                 fused RoPE (forward and backward, neox and interleaved,
                 q + k at 32/8 heads, the decode shape with a table per row,
-                a ragged S) and flashmask forward, dq and dk/dv (the LLaMA
+                a ragged S), flashmask forward, dq and dk/dv (the LLaMA
                 step's trivial causal index at B 4 x 2048 with 32/8 heads,
                 and document masks: causal n = 1 and n = 2, non-causal
                 n = 2 and n = 4, a mask per head, GQA, S not a multiple of
-                64, rows that keep no key).
-2b. faults    — the attention kernels built again from copies of csrc/,
-                each with one planted fault (a kv or q tile skipped, long
-                rows normalised 1% off; flashmask: the end bound of n = 2
+                64, rows that keep no key), the grouped GEMM (the gpt3_moe
+                rung's four products with the group sizes of a real
+                routing, bf16 and f32; groups with no and all live rows,
+                partly live tiles, strides 16 and 48, K and N off the tile,
+                dlhs against transposed weights) and varlen forward, dq
+                and dk/dv (a pack of 8192 tokens in 8 causal documents at
+                32/8 heads of 128; non-causal at T = 1000 in f32, causal
+                cross attention with q lengths != k lengths, an empty k
+                segment, a one-tile pack).
+2b. faults    — the kernels built again from copies of csrc/, each with
+                one planted fault (a kv or q tile skipped, long rows
+                normalised 1% off; flashmask: the end bound of n = 2
                 ignored, partly kept tiles skipped, every head reading mask
-                head 0): at its case every one must fail the limits of
-                phase 2.
+                head 0; varlen: each q tile's first kv tile skipped, the
+                segment test's upper bound dropped; grouped GEMM: a partly
+                live tile treated as dead): at its case every one must fail
+                the limits of phase 2. Only the sources a fault touches are
+                compiled again.
 3. serve      — gpt3_1p3b at full width and depth in bf16, random weights
                 from a seed, through inference.create_serving_engine (paged,
                 16 rows, 512 tokens, page size 32) over 12 requests of the
@@ -99,6 +110,21 @@ Phases; any failure raises and the script exits non-zero:
                 RMSNorm forwards and 7 dx, and no flash launch.
 10. llama train hold — phase 6 at the llama_7bshape widths (2 layers,
                 flashmask attention).
+11. moe train — bench.py's gpt3_moe rung (run_moe_rung: 8 experts, GShard
+                top-2 with random routing, width 1024, expert hidden 4096,
+                4 attention-free layers, vocabulary 32000) at batch 8 x
+                1024: f32 parameters and AdamW moments, AMP O2 bf16. As
+                phase 5, with per step 16 grouped GEMMs (two a block
+                forward, two dlhs), 4 LayerNorm forwards and 4 dx, and no
+                attention launch; gradients must reach the embedding,
+                every gate and every expert's w1 and w2.
+12. moe train hold — phase 6 at the rung's widths (2 layers, random
+                routing off on both sides).
+13. varlen    — nn.functional.flash_attn_unpadded forward and backward at
+                phase 2's main varlen case: one launch of each varlen
+                kernel, output and q/k/v gradients within phase 2's limits
+                of the plain path on the card; then the same tokens through
+                flash_attn_varlen_qkvpacked(varlen_padded=False).
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Every number printed sits beside the
@@ -1114,6 +1140,297 @@ def check_flashmask(card, torch):
     return {"worst": worst, "main": main}
 
 
+# Grouped GEMM kernel vs plain, every output row held to its own largest
+# |plain| (or to a thousandth of the tensor's largest, for rows that are
+# zero): f32 differs only in the order of the K-sums (K <= 4096 products of
+# magnitude ~1: a few 1e-7 of the row); bf16 multiplies the same bf16
+# operands exactly on both sides, accumulates in f32 and rounds once, so
+# the two may land on neighbouring bf16 values: one ulp, at most 2^-7 of
+# the row's largest value. The limit is two ulps. Rows past a group's
+# computed rows (dead tiles) must be exactly zero.
+GG_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+
+# name: (E, R, K, N, live rows a group or "rung", rhs read transposed, dtype).
+# K is lhs's depth and N the output's width; a transposed rhs is [E, N, K]
+# (the backward's dlhs against the weights). The rung's cases take the
+# group sizes of one routing of the gpt3_moe rung (rung_sizes).
+GG_CASES = {
+    "rung_w1": (8, 1280, 1024, 4096, "rung", False, "bfloat16"),
+    "rung_w2": (8, 1280, 4096, 1024, "rung", False, "bfloat16"),
+    "rung_w2_dlhs": (8, 1280, 1024, 4096, "rung", True, "bfloat16"),
+    "rung_w1_dlhs": (8, 1280, 4096, 1024, "rung", True, "bfloat16"),
+    "rung_w1_f32": (8, 1280, 1024, 4096, "rung", False, "float32"),
+    "rung_w2_f32": (8, 1280, 4096, 1024, "rung", False, "float32"),
+    "r16_k37_f32": (4, 16, 37, 50, [0, 16, 5, 9], False, "float32"),
+    "r48_n136": (3, 48, 72, 136, [48, 0, 17], False, "bfloat16"),
+    "r48_dlhs_k37_f32": (3, 48, 37, 70, [48, 0, 17], True, "float32"),
+    "partial_tiles": (4, 256, 64, 200, [65, 130, 0, 256], False, "bfloat16"),
+    "k100_dlhs": (2, 128, 100, 96, [100, 1], True, "bfloat16"),
+}
+
+
+def rung_sizes(torch):
+    """([8] int32 live rows a group, the capacity) of one routing of the
+    gpt3_moe rung: a GShard gate at width 1024 over 8 experts (weights and
+    random routing from seed 0, training) on 8192 tokens of N(0, 1)
+    activations, each expert's routed pairs cut at the capacity 1229."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import GShardGate
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gate = GShardGate(1024, 8, device="cuda", generator=gen)
+    x = torch.randn(8192, 1024, device="cuda", generator=gen)
+    with torch.no_grad():
+        topi, _, keep, _ = gate._route(x, gate.gate.weight, gate.gate.bias)
+    counts = torch.bincount(topi[keep], minlength=8)
+    cap = gate.capacity(8192)
+    return torch.clamp(counts, max=cap).to(torch.int32), cap
+
+
+def _gg_inputs(torch, gen, name, sizes_rung):
+    """(lhs with values in every row, dead ones included, rhs, sizes) of a
+    GG_CASES case on the card."""
+    E, R, K, N, sizes, trans, dtype = GG_CASES[name]
+    dt = getattr(torch, dtype)
+    sz = sizes_rung if sizes == "rung" else torch.tensor(
+        sizes, dtype=torch.int32, device="cuda")
+    lhs = torch.randn(E * R, K, device="cuda", generator=gen).to(dt)
+    shape = (E, N, K) if trans else (E, K, N)
+    rhs = (torch.randn(*shape, device="cuda", generator=gen) * K ** -0.5).to(dt)
+    return lhs, rhs, sz
+
+
+def _gg_violations(gg, torch, name, out, ref, sz):
+    """What breaks the limits: the row-relative error, a non-zero dead row,
+    a non-finite value."""
+    E, R, _, _, _, _, dtype = GG_CASES[name]
+    err = _flash_err(out, ref)
+    live = gg._computed_mask(sz, E, R, gg.BM, out.device).reshape(E * R)
+    bad = []
+    if not err[1] <= GG_TOL[dtype]:
+        bad.append(f"row-relative {err[1]} (tol {GG_TOL[dtype]})")
+    if bool(out[~live].any()):
+        bad.append("a dead row is not zero")
+    if not bool(torch.isfinite(out).all()):
+        bad.append("non-finite output")
+    return bad, err
+
+
+def check_grouped_gemm(card, torch):
+    """The grouped GEMM kernel against its plain version: the gpt3_moe
+    rung's four products (the two forward GEMMs of an MoE block and their
+    dlhs against the transposed weights, with the group sizes of a real
+    routing) in bf16, the two forward ones in f32, and edge cases: a group
+    with no live rows, one with all R, partly live tiles, the small strides
+    R = 16 and 48 that row_stride gives, and K and N not multiples of the
+    tile (K not a multiple of 8: the kernel's element loads). The bound counts the
+    rows this run's sizes make the kernel compute. Library: one torch.bmm
+    over [E, R, K] x [E, K, N], which computes the dead rows too."""
+    from paddle_tpu_torch.ops import grouped_gemm as gg
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sizes_rung, cap = rung_sizes(torch)
+    say(card, f"grouped_gemm rung routing: sizes {sizes_rung.tolist()}, "
+              f"capacity {cap}, row stride {gg.row_stride(cap)}")
+    worst, main, failures = 0.0, None, []
+    for name, (E, R, K, N, sizes, trans, dtype) in GG_CASES.items():
+        lhs, rhs, sz = _gg_inputs(torch, gen, name, sizes_rung)
+        out = gg.grouped_gemm(lhs, rhs, sz, trans)
+        ref = gg.grouped_matmul_plain(lhs, rhs, sz, gg.BM, trans)
+        torch.cuda.synchronize()
+        bad, err = _gg_violations(gg, torch, name, out, ref, sz)
+        failures += [f"grouped_gemm {name}: {b}" for b in bad]
+        rows = int(gg.computed_rows(sz, R).sum())
+        es = lhs.element_size()
+        nbytes = (rows * K + int((sz > 0).sum()) * K * N + E * R * N) * es + E * 4
+        ops = 2 * rows * K * N
+        bnd, by = bound_ms(nbytes, ops, dtype)
+        reps, inner = (5, 5) if ops > 1e10 else (10, 10)
+        lib = None
+        if sizes == "rung":
+            w, l3 = (rhs.transpose(1, 2) if trans else rhs), lhs.view(E, R, K)
+            lib = time_ms(lambda: torch.bmm(l3, w), reps=reps, inner=inner)
+        row = dict(case=name, E=E, R=R, K=K, N=N, trans_rhs=trans, dtype=dtype,
+                   sizes=sz.tolist(), computed_rows=rows, max_abs_err=err[0],
+                   row_rel_err=err[1], tol=GG_TOL[dtype],
+                   ms=time_ms(lambda: gg.grouped_gemm(lhs, rhs, sz, trans),
+                              reps=reps, inner=inner),
+                   eager_ms=eager_ms(lambda: gg.grouped_gemm(lhs, rhs, sz, trans),
+                                     reps=reps, inner=inner),
+                   plain_ms=time_ms(lambda: gg.grouped_matmul_plain(
+                       lhs, rhs, sz, gg.BM, trans), reps=3, inner=2),
+                   bound_ms=bnd, bound_by=by, library_ms=lib)
+        say(card, "grouped_gemm " + json.dumps(row))
+        worst = max(worst, err[0])
+        if name == "rung_w1":
+            main = row
+        del lhs, rhs, out, ref
+    torch.cuda.empty_cache()
+    say(card, "grouped_gemm library_ms: torch.bmm over [E, R, K] x [E, K, N] "
+              "(the transposed weights as a view for dlhs), dead rows "
+              "computed too")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"worst": worst, "main": main}
+
+
+# name: (q document lengths, or ("docs", T, documents) cut as `_docs` cuts
+# them; k lengths, None for the q lengths; H, Hkv, D, causal, dtype)
+VARLEN_CASES = {
+    "path": (("docs", 8192, 8), None, 32, 8, 128, True, "bfloat16"),
+    "full_docs_t1000_f32_d64": (("docs", 1000, 4), None, 4, 2, 64, False,
+                                "float32"),
+    "cross_causal_gqa": ([300, 200, 500], [100, 400, 250], 8, 2, 128, True,
+                         "bfloat16"),
+    "empty_k_segment_f32_d64": ([100, 60, 140], [120, 0, 100], 4, 4, 64,
+                                True, "float32"),
+    "single_tile_d32": ([7, 9, 11], None, 2, 1, 32, True, "bfloat16"),
+}
+
+
+def _varlen_lens(rng, spec):
+    if isinstance(spec, tuple):
+        _, T, n = spec
+        ends = np.unique(_docs(rng, T, n))
+        return np.diff(np.concatenate([[0], ends])).tolist()
+    return list(spec)
+
+
+def _varlen_inputs(torch, gen, name):
+    """(q, k, v, dO, layout, cu_q, cu_k, causal, dtype) of a VARLEN_CASES
+    case on the card."""
+    from paddle_tpu_torch.ops import masked_flash as mf
+
+    spec_q, spec_k, H, Hkv, D, causal, dtype = VARLEN_CASES[name]
+    rng = np.random.default_rng(len(name))
+    lens_q = _varlen_lens(rng, spec_q)
+    lens_k = lens_q if spec_k is None else _varlen_lens(rng, spec_k)
+    cu_q, cu_k = (torch.tensor(np.concatenate([[0], np.cumsum(l)]),
+                               dtype=torch.int32, device="cuda")
+                  for l in (lens_q, lens_k))
+    Tq, Tk = sum(lens_q), sum(lens_k)
+    dt = getattr(torch, dtype)
+    q = torch.randn(Tq, H, D, device="cuda", generator=gen).to(dt)
+    k = torch.randn(Tk, Hkv, D, device="cuda", generator=gen).to(dt)
+    v = torch.randn(Tk, Hkv, D, device="cuda", generator=gen).to(dt)
+    dout = torch.randn(Tq, H, D, device="cuda", generator=gen).to(dt)
+    layout = mf.varlen_layout(cu_q, cu_k, Tq, Tk, causal)
+    return q, k, v, dout, layout, cu_q, cu_k, causal, dtype
+
+
+def _varlen_outputs(mf, q, k, v, dout, layout, causal, scale):
+    """As `_flash_outputs`, for the varlen kernels."""
+    out, lse = mf.varlen_fwd(q, k, v, layout, causal, scale)
+    out_p, lse_p = mf.varlen_fwd_plain(q, k, v, layout, causal, scale)
+    delta = (dout.float() * out_p.float()).sum(-1).transpose(0, 1).contiguous()
+    dq = mf.varlen_bwd_dq(q, k, v, layout, dout, lse_p, delta, causal, scale)
+    dq_p = mf.varlen_bwd_dq_plain(q, k, v, layout, dout, lse_p, delta, causal,
+                                  scale)
+    dk, dv = mf.varlen_bwd_dkv(q, k, v, layout, dout, lse_p, delta, causal,
+                               scale)
+    dk_p, dv_p = mf.varlen_bwd_dkv_plain(q, k, v, layout, dout, lse_p, delta,
+                                         causal, scale)
+    return ({"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
+            {"out": out_p, "lse": lse_p, "dq": dq_p, "dk": dk_p, "dv": dv_p},
+            delta)
+
+
+def check_varlen(card, torch):
+    """Varlen forward, dq and dk/dv kernels against their plain versions on
+    the same inputs (the backward kernels get the plain forward's LSE and
+    delta), held with check_flash's limits: a pack of 8192 tokens in 8
+    documents at the LLaMA-7B head shape (32 query heads over 8 kv heads of
+    128, causal, bf16), non-causal documents at T = 1000 (not a multiple
+    of the 64-row tile) in f32, causal cross attention with q lengths !=
+    k lengths and GQA, an empty k segment (its rows: zeros, zero dq) and a
+    pack of 27 tokens (one tile). The operation bound counts the pairs the
+    segments keep. Library: torch scaled_dot_product_attention on the main
+    case with k and v expanded to the query heads and the keep-mask as a
+    bool [T, T] attn_mask (block-diagonal, causal within each block)."""
+    from paddle_tpu_torch.ops import masked_flash as mf
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    main, failures, lib_path = {}, [], None
+    for name, (_, _, H, Hkv, D, _, _) in VARLEN_CASES.items():
+        q, k, v, dout, layout, cu_q, cu_k, causal, dtype = _varlen_inputs(
+            torch, gen, name)
+        scale = D ** -0.5
+        got, plain, delta = _varlen_outputs(mf, q, k, v, dout, layout, causal,
+                                            scale)
+        torch.cuda.synchronize()
+        errs = _flash_errs(got, plain)
+        failures += [f"varlen {name}: {b}"
+                     for b in _flash_violations(errs, dtype)]
+        empty = torch.isinf(plain["lse"]).transpose(0, 1)  # [Tq, H]
+        n_empty = int(empty.sum())
+        if n_empty and (got["out"][empty].abs().max().item() != 0
+                        or got["dq"][empty].abs().max().item() != 0):
+            failures.append(f"varlen {name}: a row that keeps no key is not "
+                            "zero")
+        Tq, Tk = q.shape[0], k.shape[0]
+        keep = mf.varlen_keep(layout, Tq, causal)
+        pairs = int(keep.sum()) * H
+        es = q.element_size()
+        qo, kv = Tq * H * D * es, Tk * Hkv * D * es
+        stats = H * Tq * 4
+        lay = sum(t.numel() * 4 for t in layout)
+        reps, inner = (5, 3) if pairs * D > 1e10 else (10, 10)
+        lse_p = plain["lse"]
+        rows = {
+            "fwd": (lambda: mf.varlen_fwd(q, k, v, layout, causal, scale),
+                    lambda: mf.varlen_fwd_plain(q, k, v, layout, causal, scale),
+                    2 * qo + 2 * kv + stats + lay, 4 * pairs * D,
+                    ("out", "lse")),
+            "dq": (lambda: mf.varlen_bwd_dq(q, k, v, layout, dout, lse_p,
+                                            delta, causal, scale),
+                   lambda: mf.varlen_bwd_dq_plain(q, k, v, layout, dout, lse_p,
+                                                  delta, causal, scale),
+                   3 * qo + 2 * kv + 2 * stats + lay, 6 * pairs * D, ("dq",)),
+            "dkv": (lambda: mf.varlen_bwd_dkv(q, k, v, layout, dout, lse_p,
+                                              delta, causal, scale),
+                    lambda: mf.varlen_bwd_dkv_plain(q, k, v, layout, dout,
+                                                    lse_p, delta, causal,
+                                                    scale),
+                    2 * qo + 2 * kv + 2 * stats + lay + 2 * Tk * H * D * 4,
+                    8 * pairs * D, ("dk", "dv")),
+        }
+        lib = {}
+        if name == "path":
+            lib = lib_path = library_sdpa(torch, q[None], k[None], v[None],
+                                          dout[None], causal, keep[None, None])
+        shapes = dict(Tq=Tq, Tk=Tk, documents=cu_q.numel() - 1,
+                      lengths_q=np.diff(cu_q.tolist()).tolist()
+                      if cu_q.numel() <= 9 else None,
+                      H=H, Hkv=Hkv, D=D, causal=causal, dtype=dtype,
+                      pairs=pairs, rows_without_keys=n_empty)
+        for kernel, (fn_k, fn_p, nbytes, ops, outs) in rows.items():
+            bnd, by = bound_ms(nbytes, ops, dtype)
+            err = max(errs[o][0] if o != "lse" else errs[o] for o in outs)
+            row = dict(kernel=kernel, case=name, **shapes, max_abs_err=err,
+                       row_rel_err=max(errs[o][1] for o in outs if o != "lse"),
+                       frobenius_rel_err=max(errs[o][2] for o in outs
+                                             if o != "lse"),
+                       tol=FLASH_TOL[dtype], frobenius_tol=FLASH_FROB_TOL[dtype],
+                       ms=time_ms(fn_k, reps=reps, inner=inner),
+                       eager_ms=eager_ms(fn_k, reps=reps, inner=inner),
+                       plain_ms=time_ms(fn_p, reps=3, inner=2),
+                       bound_ms=bnd, bound_by=by, library_ms=lib.get(kernel))
+            say(card, "varlen " + json.dumps(row))
+            worst[kernel] = max(worst[kernel], err)
+            if name == "path":
+                main[kernel] = row
+        del q, k, v, dout, got, plain, keep
+        torch.cuda.empty_cache()
+    say(card, "varlen library_ms: torch scaled_dot_product_attention on k and "
+              "v expanded to the query heads with the segments' keep-mask as "
+              "a bool [T, T] attn_mask; its backward as in flash_attention, "
+              "one figure for dq and dk/dv; measured three times: "
+              + json.dumps(lib_path["bwd_runs"]))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"worst": worst, "main": main}
+
+
 # Faults planted in copies of csrc/ (phase 2b), name: (the source file, the
 # text that anchors the fault, the text replaced at its first occurrence
 # after the anchor, the replacement, the case that must catch it: "flash
@@ -1141,23 +1458,69 @@ KERNEL_FAULTS = {
     "flashmask: every query head reads mask head 0": (
         "masked_flash.cu", "struct FlashMask", "h / (p.H / Hm)", "0 * h",
         "causal_n2_per_head_s1000_gqa"),
+    "varlen: each q tile's first kv tile skipped": (
+        "varlen_flash.cu", "struct Varlen", "return qrange[q0 / kTile] / kTile;",
+        "return qrange[q0 / kTile] / kTile + 1;", "varlen path"),
+    "varlen: the segment test's upper bound dropped": (
+        "varlen_flash.cu", "struct Varlen", "row >= k.lo && row < k.hi",
+        "row >= k.lo", "varlen path"),
+    "grouped_gemm: a partly live tile treated as dead": (
+        "grouped_gemm.cu", "bool dead_tile(",
+        "if (a.sizes[t.g] > t.off) return false;",
+        "if (a.sizes[t.g] >= t.off + t.rows) return false;",
+        "grouped_gemm partial_tiles"),
 }
 
 
+def _fault_violations(torch, case):
+    """Phase 2's violations at a fault's case ("flash path", "varlen
+    <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>" or a
+    FLASHMASK_CASES name), run on the library load_library() holds."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_gemm as gg
+    from paddle_tpu_torch.ops import masked_flash as mf
+
+    kind, _, name = case.partition(" ")
+    if case == "flash path":
+        B, S, _, H, Hkv, D, causal, bias, dtype = FLASH_CASES["path"]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v, dout, kb, _ = _flash_inputs(torch, gen, B, S, S, H, Hkv, D,
+                                             bias, dtype)
+        got, plain, _ = _flash_outputs(fa, q, k, v, dout, kb, causal,
+                                       D ** -0.5)
+    elif kind == "varlen":
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        q, k, v, dout, layout, _, _, causal, dtype = _varlen_inputs(
+            torch, gen, name)
+        got, plain, _ = _varlen_outputs(mf, q, k, v, dout, layout, causal,
+                                        q.shape[-1] ** -0.5)
+    elif kind == "grouped_gemm":
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        lhs, rhs, sz = _gg_inputs(torch, gen, name, None)
+        trans = GG_CASES[name][5]
+        out = gg.grouped_gemm(lhs, rhs, sz, trans)
+        ref = gg.grouped_matmul_plain(lhs, rhs, sz, gg.BM, trans)
+        return _gg_violations(gg, torch, name, out, ref, sz)[0]
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        q, k, v, dout, idx, causal, dtype = _flashmask_inputs(torch, gen, case)
+        got, plain, _ = _flashmask_outputs(mf, q, k, v, dout, idx, causal,
+                                           q.shape[-1] ** -0.5)
+    return _flash_violations(_flash_errs(got, plain), dtype)
+
+
 def planted_kernel_faults(card, torch):
-    """The flash and flashmask limits must fail faulty kernels: for each
-    fault of KERNEL_FAULTS, the kernels are built again from a copy of
+    """The attention and grouped-GEMM limits must fail faulty kernels: for
+    each fault of KERNEL_FAULTS, the kernels are built again from a copy of
     csrc/ (in a temporary directory, all builds in parallel) with the fault
-    planted, and held at its case against the plain versions with
-    check_flash's limits."""
+    planted, and held at its case against the plain versions with phase
+    2's limits."""
     import pathlib
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import masked_flash as mf
 
     sound = _build.load_library()
     passed = []
@@ -1175,7 +1538,8 @@ def planted_kernel_faults(card, torch):
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(csrcs)) as pool:
             libs = dict(zip(csrcs, pool.map(
-                lambda c: _build.build_library(c, c.parent / "build"),
+                lambda c: _build.build_library(c, c.parent / "build",
+                                               _build.BUILD_DIR / "obj"),
                 csrcs.values())))
         say(card, f"planted kernel faults: {len(libs)} builds in "
                   f"{time.perf_counter() - t0:.2f} s")
@@ -1184,31 +1548,17 @@ def planted_kernel_faults(card, torch):
                 # the wrappers launch from the library load_library() holds
                 _build._LIB = _build.open_library(lib)
                 case = KERNEL_FAULTS[fault][4]
-                if case == "flash path":
-                    B, S, _, H, Hkv, D, causal, bias, dtype = FLASH_CASES["path"]
-                    gen = torch.Generator(device="cuda").manual_seed(3)
-                    q, k, v, dout, kb, _ = _flash_inputs(torch, gen, B, S, S, H,
-                                                         Hkv, D, bias, dtype)
-                    got, plain, _ = _flash_outputs(fa, q, k, v, dout, kb,
-                                                   causal, D ** -0.5)
-                else:
-                    gen = torch.Generator(device="cuda").manual_seed(9)
-                    q, k, v, dout, idx, causal, dtype = _flashmask_inputs(
-                        torch, gen, case)
-                    got, plain, _ = _flashmask_outputs(
-                        mf, q, k, v, dout, idx, causal, q.shape[-1] ** -0.5)
-                bad = _flash_violations(_flash_errs(got, plain), dtype)
+                bad = _fault_violations(torch, case)
                 say(card, "planted kernel fault " + json.dumps(
                     {"fault": fault, "case": case, "failed": bool(bad),
                      "violations": bad}))
                 if not bad:
                     passed.append(fault)
-                del q, k, v, dout, got, plain
                 torch.cuda.empty_cache()
         finally:
             _build._LIB = sound
     if passed:
-        raise AssertionError(f"the attention limits pass faulty kernels: {passed}")
+        raise AssertionError(f"the kernel limits pass faulty kernels: {passed}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1794,6 +2144,7 @@ def _counters():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import fused_rope as fr
+    from paddle_tpu_torch.ops import grouped_gemm as gg
     from paddle_tpu_torch.ops import masked_flash as mf
 
     return {"fused_norm": fn.LAUNCHES, "fused_norm_dx": fn.DX_LAUNCHES,
@@ -1804,7 +2155,10 @@ def _counters():
             "flash_bwd_dkv": fa.DKV_LAUNCHES, "fused_rope": fr.LAUNCHES,
             "flashmask_fwd": mf.FWD_LAUNCHES,
             "flashmask_bwd_dq": mf.DQ_LAUNCHES,
-            "flashmask_bwd_dkv": mf.DKV_LAUNCHES}
+            "flashmask_bwd_dkv": mf.DKV_LAUNCHES,
+            "grouped_gemm": gg.LAUNCHES, "varlen_fwd": mf.VL_FWD_LAUNCHES,
+            "varlen_bwd_dq": mf.VL_DQ_LAUNCHES,
+            "varlen_bwd_dkv": mf.VL_DKV_LAUNCHES}
 
 
 def _zero_counters():
@@ -1812,6 +2166,7 @@ def _zero_counters():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import fused_rope as fr
+    from paddle_tpu_torch.ops import grouped_gemm as gg
     from paddle_tpu_torch.ops import masked_flash as mf
 
     fn.LAUNCHES = fn.DX_LAUNCHES = 0
@@ -1819,6 +2174,8 @@ def _zero_counters():
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
     fr.LAUNCHES = 0
     mf.FWD_LAUNCHES = mf.DQ_LAUNCHES = mf.DKV_LAUNCHES = 0
+    mf.VL_FWD_LAUNCHES = mf.VL_DQ_LAUNCHES = mf.VL_DKV_LAUNCHES = 0
+    gg.LAUNCHES = 0
 
 
 def _expected(**counts):
@@ -2021,6 +2378,15 @@ def train_hold(card, torch, which):
         losses = [step(ids_t, labels_t).item() for _ in range(steps)]
         results[dev] = (losses, grads, time.perf_counter() - t0)
         del model, step
+    _hold_verdict(card, which, results, B, S)
+
+
+def _hold_verdict(card, which, results, B, S):
+    """Print and hold a training hold: `results` maps "cuda" and "cpu" to
+    (losses, step-1 gradients by name, seconds); the losses within
+    TRAIN_HOLD_LOSS_RTOL, each gradient's max |diff| within
+    TRAIN_HOLD_GRAD_TOL of its largest entry (or of a thousandth of the
+    largest gradient anywhere)."""
     (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = results["cuda"], results["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     gmax = max(g.abs().max().item() for g in g_cpu.values())
@@ -2039,6 +2405,268 @@ def train_hold(card, torch, which):
             and grad_rel[worst] <= TRAIN_HOLD_GRAD_TOL):
         raise AssertionError(f"train hold {which}: the card's training step "
                              "disagrees with the CPU's")
+
+
+# --------------------------------------------------------------------------- #
+# phases 11-12: bench.py's gpt3_moe rung
+# --------------------------------------------------------------------------- #
+
+# bench.py run_moe_rung (:491): experts, top-k, width, expert hidden, depth,
+# vocabulary, batch and sequence of the rung on a TPU
+MOE_RUNG = dict(E=8, topk=2, M=1024, H=4096, L=4, V=32000, batch=8, seq=1024)
+
+
+def moe_decoder(torch, device, L=MOE_RUNG["L"], gate=None, seed=0):
+    """bench.py's MoEDecoder (:533-549) at the rung's widths: a token
+    embedding, L pre-LN residual MoE blocks (ExpertFFN, a GShard top-2
+    gate; attention-free) and a Linear head. Weights from one generator
+    made from `seed` on `device`; layer i's gate routes with seed + i."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.incubate.distributed.models.moe import (ExpertFFN,
+                                                                  MoELayer)
+
+    c = MOE_RUNG
+    M, H, V, E = c["M"], c["H"], c["V"], c["E"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    class MoEDecoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = pnn.Embedding(V, M, generator=gen, device=device)
+            self.norms = pnn.LayerList([pnn.LayerNorm(M, device=device)
+                                        for _ in range(L)])
+            self.moes = pnn.LayerList([
+                MoELayer(M, ExpertFFN(E, M, H, generator=gen, device=device),
+                         gate=dict(gate or {"type": "gshard",
+                                            "top_k": c["topk"]}),
+                         seed=seed + i, generator=gen, device=device)
+                for i in range(L)])
+            self.head = pnn.Linear(M, V, generator=gen, device=device)
+
+        def forward(self, ids):
+            x = self.embed(ids)
+            for norm, moe in zip(self.norms, self.moes):
+                x = x + moe(norm(x))
+            return self.head(x)
+
+    return MoEDecoder()
+
+
+def moe_step(torch, model, amp_level):
+    """bench.py's step of the rung: AdamW lr 1e-4 (f32 moments), cross
+    entropy over the flattened logits, DistributedTrainStep with no mesh
+    (one device: ep = 1, so batch_axes changes nothing)."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    V = MOE_RUNG["V"]
+    return DistributedTrainStep(
+        model, lambda lg, lb: F.cross_entropy(lg.reshape(-1, V),
+                                              lb.reshape(-1, 1)),
+        AdamW(learning_rate=1e-4, parameters=model.parameters()), mesh=None,
+        batch_axes=("dp", "ep"), amp_level=amp_level, amp_dtype="bfloat16")
+
+
+def moe_flops():
+    """bench.py's FLOP count of a rung step (:576-582): the expert GEMMs
+    over the routed rows, the router and the head, forward x 3."""
+    c = MOE_RUNG
+    tokens = c["batch"] * c["seq"]
+    cap = math.ceil(1.2 * tokens / c["E"])
+    routed = min(c["topk"] * tokens, c["E"] * cap)
+    fwd = (c["L"] * routed * 4.0 * c["M"] * c["H"]
+           + c["L"] * tokens * 2.0 * c["M"] * c["E"]
+           + tokens * 2.0 * c["M"] * c["V"])
+    return 3.0 * fwd
+
+
+def train_moe(card, torch):
+    """bench.py's gpt3_moe rung on the card at full width and depth (8
+    experts, GShard top-2 with random routing, width 1024, expert hidden
+    4096, 4 layers, vocabulary 32000, batch 8 x 1024), AMP O2 bf16 over f32
+    parameters, AdamW lr 1e-4: a warm-up step (every parameter must change;
+    gradients must reach the embedding, every gate and every expert's w1
+    and w2), then three timed steps with the launch counters zeroed just
+    before and read just after: per step 16 grouped GEMMs (two a block
+    forward, two dlhs backward), 4 norm forwards and 4 dx, nothing else."""
+    c = MOE_RUNG
+    B, S, L, timed = c["batch"], c["seq"], c["L"], 3
+    t0 = time.perf_counter()
+    model = moe_decoder(torch, "cuda")
+    step = moe_step(torch, model, "O2")
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, c["V"], (B, S)), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, c["V"], (B, S)), device="cuda")
+    torch.cuda.synchronize()
+    say(card, f"train gpt3_moe: {n_params} parameters, built in "
+              f"{time.perf_counter() - t0:.3f} s")
+    watch = ["embed.weight"] + [f"moes.{i}.{w}" for i in range(L) for w in (
+        "gate.gate.weight", "experts.w1", "experts.w2")]
+    before = {k: p.detach().clone() for k, p in named.items()}
+    seen = {}
+    hooks = [named[k].register_post_accumulate_grad_hook(
+        lambda t, k=k: seen.__setitem__(k, t.grad.float().norm().item()))
+        for k in watch]
+    t0 = time.perf_counter()
+    loss0 = step(ids, labels).item()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    unchanged = [k for k, p in named.items() if torch.equal(p.detach(), before[k])]
+    del before
+    if unchanged:
+        raise AssertionError(f"train gpt3_moe: parameters unchanged by step 1: "
+                             f"{unchanged}")
+    if sorted(seen) != sorted(watch) or not all(
+            math.isfinite(g) and g > 0 for g in seen.values()):
+        raise AssertionError(f"train gpt3_moe: gradient norms {seen}")
+
+    per_step = {"grouped_gemm": 4 * L, "fused_norm": L, "fused_norm_dx": L}
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(ids, labels) for _ in range(timed)]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _counters()
+    want = _expected(**{k: v * timed for k, v in per_step.items()})
+    losses = [loss0] + [l.item() for l in losses]
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"train gpt3_moe: non-finite loss {losses}")
+    if launches != want:
+        raise AssertionError(f"train gpt3_moe: kernel launches {launches} over "
+                             f"{timed} steps, expected {want}")
+    step_s = total_s / timed
+    flops = moe_flops()
+    say(card, "train gpt3_moe (smoke run, not a benchmark) " + json.dumps({
+        "model": "gpt3_moe", "recipe": "f32 params and AdamW moments, AMP O2 "
+        "bf16, GShard top-2 with random routing, sorted fast path",
+        **MOE_RUNG, "parameters": n_params, "losses": losses,
+        "warmup_step_s": warm_s, "timed_steps": timed, "step_s": step_s,
+        "tokens_per_s": B * S / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_BF16,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "grad_norms_watched": seen, "launches": launches,
+        "launches_per_step": per_step}))
+    profile_step(card, torch, lambda: step(ids, labels), "train gpt3_moe step")
+    del step, model, named
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_hold(card, torch):
+    """The gpt3_moe step on the card (kernels) and on the CPU (plain
+    versions) at the rung's widths with 2 layers, batch 2 x 256, f32 (TF32
+    off): three AdamW steps from the same weights; the losses and the
+    step-1 gradients within the train hold's tolerances. Random routing is
+    off on both sides (`random_routing=False`): the two devices' generators
+    draw different uniforms, and without them the routes follow the router
+    alone, so both sides route alike."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S, steps, V = 2, 256, 3, MOE_RUNG["V"]
+    gate = {"type": "gshard", "top_k": 2, "random_routing": False}
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, V, (B, S))
+    labels = rng.integers(0, V, (B, S))
+    results, state = {}, None
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = moe_decoder(torch, dev, L=2, gate=gate, seed=2)
+        if state is None:
+            state = {k: v.cpu() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        step = moe_step(torch, model, None)
+        ids_t = torch.as_tensor(ids, device=dev)
+        labels_t = torch.as_tensor(labels, device=dev)
+        step.loss_fn(model(ids_t), labels_t).backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        losses = [step(ids_t, labels_t).item() for _ in range(steps)]
+        results[dev] = (losses, grads, time.perf_counter() - t0)
+        del model, step
+    _hold_verdict(card, "gpt3_moe", results, B, S)
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: varlen attention through its entry points
+# --------------------------------------------------------------------------- #
+
+
+def varlen_entry(card, torch):
+    """nn.functional.flash_attn_unpadded forward and backward through
+    autograd at phase 2's main varlen case (a pack of 8192 tokens in 8
+    causal documents, 32 query heads over 8 kv heads of 128, bf16): exactly
+    one forward, one dq and one dk/dv launch, the output and the q/k/v
+    gradients within phase 2's limits of the plain path on the card. Then
+    the same tokens as qkv [T, 3, 32, 128] (k and v expanded to the query
+    heads) through flash_attn_varlen_qkvpacked(varlen_padded=False)."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import masked_flash as mf
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, dout, layout, cu_q, cu_k, causal, dtype = _varlen_inputs(
+        torch, gen, "path")
+    D, g = q.shape[-1], q.shape[1] // k.shape[1]
+    scale = D ** -0.5
+    max_len = int((cu_q[1:] - cu_q[:-1]).max())
+
+    def plain_path(k, v):
+        out, lse = mf.varlen_fwd_plain(q, k, v, layout, causal, scale)
+        delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
+        dq = mf.varlen_bwd_dq_plain(q, k, v, layout, dout, lse, delta, causal,
+                                    scale)
+        dk, dv = mf.varlen_bwd_dkv_plain(q, k, v, layout, dout, lse, delta,
+                                         causal, scale)
+        dk, dv = mf._kv_grads(dk[None], dv[None], k[None], v[None])
+        return {"out": out, "dq": dq, "dk": dk[0], "dv": dv[0]}
+
+    def entry(name, fn, leaves, plain):
+        _zero_counters()
+        out, none = fn(*leaves)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        launches = _counters()
+        want = _expected(varlen_fwd=1, varlen_bwd_dq=1, varlen_bwd_dkv=1)
+        grads = [t.grad for t in leaves]
+        if len(grads) == 1:  # qkv [T, 3, H, D]
+            grads = grads[0].unbind(1)
+        got = {"out": out.detach(), "dq": grads[0], "dk": grads[1],
+               "dv": grads[2]}
+        errs = _flash_errs(got, plain)
+        bad = _flash_violations(errs, dtype)
+        say(card, f"varlen {name} " + json.dumps({
+            "Tq": q.shape[0], "documents": cu_q.numel() - 1, "H": q.shape[1],
+            "D": D, "causal": causal, "dtype": dtype, "second": none,
+            "row_rel_err": {w: e[1] for w, e in errs.items()},
+            "frobenius_rel_err": {w: e[2] for w, e in errs.items()},
+            "tol": FLASH_TOL[dtype], "launches": launches}))
+        if launches != want or bad or none is not None:
+            raise AssertionError(f"varlen {name}: launches {launches} (expected "
+                                 f"{want}), {bad}")
+        return launches
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    a = entry("flash_attn_unpadded", lambda q_, k_, v_: F.flash_attn_unpadded(
+        q_, k_, v_, cu_q, cu_k, max_len, max_len, scale, causal=causal),
+        leaves, plain_path(k, v))
+    del leaves
+    ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    qkv = torch.stack([q, ke, ve], dim=1).requires_grad_()
+    b = entry("flash_attn_varlen_qkvpacked",
+              lambda t: F.flash_attn_varlen_qkvpacked(
+                  t, cu_q, cu_k, max_len, max_len, scale, causal=causal,
+                  varlen_padded=False), [qkv], plain_path(ke, ve))
+    del qkv, q, k, v, dout
+    torch.cuda.empty_cache()
+    return {n: a[n] + b[n] for n in a}
+
 
 
 def main():
@@ -2069,6 +2697,8 @@ def main():
     check_flash_decode(card, torch)
     rope = check_rope(card, torch)
     flashmask = check_flashmask(card, torch)
+    grouped = check_grouped_gemm(card, torch)
+    varlen = check_varlen(card, torch)
     planted_kernel_faults(card, torch)
     serve_launches = serve(card, torch)
     hold(card, torch)
@@ -2082,11 +2712,15 @@ def main():
     hold(card, torch, "llama_7b")
     llama_train_launches = train(card, torch, "llama_7bshape")
     train_hold(card, torch, "llama_7bshape")
+    moe_launches = train_moe(card, torch)
+    moe_train_hold(card, torch)
+    varlen_launches = varlen_entry(card, torch)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
     paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
-             train_launches, llama_serve_launches, llama_train_launches)
+             train_launches, llama_serve_launches, llama_train_launches,
+             moe_launches, varlen_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"
@@ -2094,6 +2728,7 @@ def main():
     fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
     mf_src = "paddle_tpu_torch/csrc/masked_flash.cu"
     mf_ref = "paddle_tpu/ops/pallas/masked_flash.py"
+    vl_src = "paddle_tpu_torch/csrc/varlen_flash.cu"
     kernels = []
     for name, src, replaces, main_row, err in (
             ("fused_norm", "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -2121,7 +2756,16 @@ def main():
             ("flashmask_bwd_dq", mf_src, mf_ref + ":138",
              flashmask["main"]["dq"], flashmask["worst"]["dq"]),
             ("flashmask_bwd_dkv", mf_src, mf_ref + ":182",
-             flashmask["main"]["dkv"], flashmask["worst"]["dkv"])):
+             flashmask["main"]["dkv"], flashmask["worst"]["dkv"]),
+            ("grouped_gemm", "paddle_tpu_torch/csrc/grouped_gemm.cu",
+             "paddle_tpu/ops/pallas/grouped_gemm.py:110", grouped["main"],
+             grouped["worst"]),
+            ("varlen_fwd", vl_src, mf_ref + ":442", varlen["main"]["fwd"],
+             varlen["worst"]["fwd"]),
+            ("varlen_bwd_dq", vl_src, mf_ref + ":490", varlen["main"]["dq"],
+             varlen["worst"]["dq"]),
+            ("varlen_bwd_dkv", vl_src, mf_ref + ":529",
+             varlen["main"]["dkv"], varlen["worst"]["dkv"])):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,

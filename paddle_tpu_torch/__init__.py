@@ -25,8 +25,11 @@ dense-cache decode attention kernels, and the GPT-3 training step
 flash-attention forward, dq and dk/dv kernels and the fused-norm dx
 kernel; the LLaMA form (`models.llama`: RMSNorm, SwiGLU, RoPE, GQA, an
 untied head) in the same engines and training step, with the fused-RoPE
-kernel and flashmask attention (forward, dq and dk/dv kernels). See
-ROADMAP.md for the rest.
+kernel and flashmask attention (forward, dq and dk/dv kernels); the MoE
+layer (`incubate.distributed.models.moe`) through the grouped-GEMM kernel
+and `bench.py`'s gpt3_moe step; packed-document attention
+(`nn.functional.flash_attn_unpadded`) through the varlen forward, dq and
+dk/dv kernels. See ROADMAP.md for the rest.
 """
 
 from .device import resolve_device

@@ -51,6 +51,10 @@ struct CausalBias {
     const int first = k0 - (p.Skv - p.Sq);
     return first <= 0 ? 0 : first / kTile;
   }
+  __device__ __forceinline__ int first_kv_tile(const Problem&, int) const { return 0; }
+  __device__ __forceinline__ int q_tiles(const Problem& p, int) const {
+    return (p.Sq + kTile - 1) / kTile;
+  }
 };
 
 }  // namespace

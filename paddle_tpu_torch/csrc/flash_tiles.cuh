@@ -7,7 +7,11 @@
 //   - masked_flash.cu: paddle_tpu/ops/pallas/masked_flash.py's flashmask
 //     `_fm_fwd_kernel` :77, `_fm_bwd_dq_kernel` :138 and
 //     `_fm_bwd_dkv_kernel` :182 (per-column masked row ranges, top-left
-//     causal, empty tiles skipped).
+//     causal, empty tiles skipped);
+//   - varlen_flash.cu: the same file's varlen `_vl_fwd_kernel` :442,
+//     `_vl_bwd_dq_kernel` :490 and `_vl_bwd_dkv_kernel` :529 (packed
+//     segments, causal top-left within a segment, a tile range per
+//     segment span).
 // What they compute:
 //   - forward: O = softmax(Q K^T * scale + mask) V and the f32 row
 //     log-sum-exp, GQA by kv head h / g;
@@ -202,13 +206,17 @@ struct Problem {
 //     CTA owns the key tile), and `Key key(p, b, h, col)` that loads it;
 //   - `bool keep(p, row, col, key)`: the pair is seen;
 //   - `float bias(key)`: added to every logit of the column;
-//   - `int kv_tiles(p, q0)`: the kv tiles a q tile at q0 visits (a prefix);
-//   - `int first_q_tile(p, k0)`: the first q tile that can see key tile k0;
+//   - `int first_kv_tile(p, q0)` and `int kv_tiles(p, q0)`: the kv tiles a
+//     q tile at q0 visits, [first_kv_tile, kv_tiles) (flash and flashmask
+//     visit a prefix; varlen the range of the segments the q tile touches);
+//   - `int first_q_tile(p, k0)` and `int q_tiles(p, k0)`: the q tiles that
+//     can see key tile k0, [first_q_tile, q_tiles);
 //   - `kVote`: whether a tile whose keep-mask is empty is skipped after a
 //     CTA-wide vote (`any_kept`), for masks whose empty tiles the tile
 //     ranges above do not exclude.
 // flash_attention.cu holds the flash policy (bottom-right causal plus a
-// key bias), masked_flash.cu the flashmask column ranges.
+// key bias), masked_flash.cu the flashmask column ranges, varlen_flash.cu
+// the packed segments of varlen attention.
 
 // The CTA-wide vote of the skip: true if any thread holds a kept pair.
 __device__ __forceinline__ bool any_kept(bool mine) {
@@ -252,7 +260,7 @@ flash_fwd_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict
   }
 
   const int n_kv = mask.kv_tiles(p, q0);
-  for (int t = 0; t < n_kv; ++t) {
+  for (int t = mask.first_kv_tile(p, q0); t < n_kv; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
     load_tile<T, DT, kThreads>(Ks, kp, p.k.s, k0, p.Skv, p.D, p.vec);
@@ -366,7 +374,7 @@ flash_dq_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict_
   }
 
   const int n_kv = mask.kv_tiles(p, q0);
-  for (int t = 0; t < n_kv; ++t) {
+  for (int t = mask.first_kv_tile(p, q0); t < n_kv; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
     load_tile<T, DT, kThreads>(Ks, kp, p.k.s, k0, p.Skv, p.D, p.vec);
@@ -459,7 +467,7 @@ flash_dkv_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict
   }
 
   // the q tiles that can see this key tile
-  const int n_q = (p.Sq + kTile - 1) / kTile;
+  const int n_q = mask.q_tiles(p, k0);
   for (int t = mask.first_q_tile(p, k0); t < n_q; ++t) {
     const int q0 = t * kTile;
     __syncthreads();
@@ -629,7 +637,7 @@ flash_fwd_tc_kernel(Problem p, M mask, const bf16* __restrict__ q, const bf16* _
   float m = -INFINITY, l = 0.f;
 
   const int n_kv = mask.kv_tiles(p, q0);
-  for (int t = 0; t < n_kv; ++t) {
+  for (int t = mask.first_kv_tile(p, q0); t < n_kv; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // every warp is done with the previous Ks, Vs
     load_tile<bf16, DT, kTcThreads>(Ks, kp, p.k.s, k0, p.Skv, p.D, p.vec);
@@ -730,7 +738,7 @@ flash_dq_tc_kernel(Problem p, M mask, const bf16* __restrict__ q, const bf16* __
   for (int n = 0; n < DT / 16; ++n) wm::fill_fragment(acc[n], 0.f);
 
   const int n_kv = mask.kv_tiles(p, q0);
-  for (int t = 0; t < n_kv; ++t) {
+  for (int t = mask.first_kv_tile(p, q0); t < n_kv; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
     load_tile<bf16, DT, kTcThreads>(Ks, kp, p.k.s, k0, p.Skv, p.D, p.vec);
@@ -805,7 +813,7 @@ flash_dkv_tc_kernel(Problem p, M mask, const bf16* __restrict__ q, const bf16* _
     wm::fill_fragment(dv_acc[n], 0.f);
   }
 
-  const int n_q = (p.Sq + kTile - 1) / kTile;
+  const int n_q = mask.q_tiles(p, k0);
   for (int t = mask.first_q_tile(p, k0); t < n_q; ++t) {
     const int q0 = t * kTile;
     __syncthreads();

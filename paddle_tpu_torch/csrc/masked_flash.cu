@@ -85,6 +85,10 @@ struct FlashMask {
   __device__ __forceinline__ int first_q_tile(const Problem& p, int k0) const {
     return p.causal ? k0 / kTile : 0;
   }
+  __device__ __forceinline__ int first_kv_tile(const Problem&, int) const { return 0; }
+  __device__ __forceinline__ int q_tiles(const Problem& p, int) const {
+    return (p.Sq + kTile - 1) / kTile;
+  }
 };
 
 bool mask_ok(int Hm, int H, int n, int causal) {

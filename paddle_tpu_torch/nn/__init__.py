@@ -2,6 +2,7 @@
 with Paddle's names and layouts."""
 
 from . import functional
-from .layer import Embedding, LayerNorm, Linear, RMSNorm
+from .layer import Embedding, LayerList, LayerNorm, Linear, RMSNorm
 
-__all__ = ["Embedding", "LayerNorm", "Linear", "RMSNorm", "functional"]
+__all__ = ["Embedding", "LayerList", "LayerNorm", "Linear", "RMSNorm",
+           "functional"]

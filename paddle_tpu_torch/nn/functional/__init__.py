@@ -2,11 +2,14 @@
 
 from .activation import gelu
 from .common import embedding, linear
-from .flash_attention import (flash_attention, flashmask_attention,
+from .extras import flash_attn_varlen_qkvpacked
+from .flash_attention import (flash_attention, flash_attn_unpadded,
+                              flashmask_attention,
                               scaled_dot_product_attention)
 from .loss import cross_entropy
 from .norm import layer_norm, rms_norm
 
 __all__ = ["cross_entropy", "embedding", "flash_attention",
+           "flash_attn_unpadded", "flash_attn_varlen_qkvpacked",
            "flashmask_attention", "gelu", "layer_norm", "linear", "rms_norm",
            "scaled_dot_product_attention"]

@@ -24,6 +24,13 @@ masking and zeros for a row that keeps no key. The JAX package's composite
 route, taken there when Pallas is off, aligns causal bottom-right and gives
 the mean of V for such a row; the two agree when Sq == Skv and every row
 keeps a key.
+
+`flash_attn_unpadded` (:165) is attention over packed documents, q
+[Tq, H, D] and k/v [Tk, Hkv, D] with cu_seqlens prefix sums, through
+`paddle_tpu_torch.ops.masked_flash`'s varlen kernels (their plain versions
+on CPU tensors): the JAX package's kernel route, with causal masking
+top-left within each document and zeros for a row whose document has no
+keys (its composite route gives the mean of V there).
 """
 
 from __future__ import annotations
@@ -32,9 +39,10 @@ import torch
 
 from ... import amp
 from ...ops.flash_attention import NEG_INF, flash_attention_fwd
-from ...ops.masked_flash import flashmask_attention_fwd
+from ...ops.masked_flash import (flashmask_attention_fwd,
+                                 varlen_flash_attention_fwd)
 
-__all__ = ["flash_attention", "flashmask_attention",
+__all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
            "scaled_dot_product_attention"]
 
 
@@ -142,3 +150,26 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
             idx[..., 1] = 0
     out = flashmask_attention_fwd(q, k, v, idx, causal=causal)
     return (out, None) if return_seed_offset else out
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """paddle.nn.functional.flash_attn_unpadded: varlen attention over
+    packed documents, query [Tq, H, D], key/value [Tk, Hkv, D],
+    cu_seqlens_q / cu_seqlens_k [B + 1] prefix sums of the documents'
+    lengths. Returns (out [Tq, H, D], None), the second slot standing for
+    the softmax the reference API may return. max_seqlen_q/k are accepted
+    and not needed. Casts q, k and v for AMP as the op
+    "flash_attn_unpadded". Dropout in training raises: the varlen kernels
+    have none."""
+    if dropout > 0.0 and training:
+        raise NotImplementedError(
+            "flash_attn_unpadded dropout (Philox in the kernels) is a later "
+            "slice (ROADMAP A3)")
+    q, k, v = amp.cast_inputs("flash_attn_unpadded", query, key, value)
+    out = varlen_flash_attention_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                                     scale, causal=causal)
+    return out, None

@@ -10,7 +10,10 @@ them.
 The library is built at first use, from the sources in the checkout only,
 into `paddle_tpu_torch/_build/` (listed in .gitignore). Its file name
 carries a hash of the sources and flags, so an edited kernel never loads a
-stale build.
+stale build. Each object file is kept under a hash of the flags, its source
+and the headers that source includes, so a build of an edited copy of the
+sources (chip_smoke.py's planted faults) compiles only what the edit
+touches.
 
 Calling convention (see each .cu file): pointers and the stream are
 `c_void_p` (the stream is `torch.cuda.current_stream().cuda_stream`), sizes
@@ -25,6 +28,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -90,6 +94,20 @@ _SIGNATURES = {
     # strides[12], scale, causal, dtype, stream
     "ptt_flashmask_bwd_dkv": [_c_void_p] * 9 + [_c_int] * 8
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, kinfo, qrange, krange, out, lse, H, Hkv, Tq, Tk, D,
+    # strides[12], scale, causal, dtype, stream
+    "ptt_varlen_fwd": [_c_void_p] * 8 + [_c_int] * 5
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, kinfo, qrange, krange, dout, lse, delta, dq, H, Hkv, Tq, Tk,
+    # D, strides[12], scale, causal, dtype, stream
+    "ptt_varlen_bwd_dq": [_c_void_p] * 10 + [_c_int] * 5
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, kinfo, qrange, krange, dout, lse, delta, dk, dv, H, Hkv, Tq,
+    # Tk, D, strides[12], scale, causal, dtype, stream
+    "ptt_varlen_bwd_dkv": [_c_void_p] * 11 + [_c_int] * 5
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # lhs, rhs, sizes, out, E, R, K, N, trans, dtype, stream
+    "ptt_grouped_gemm": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
     # x0, x1, x2, out0, out1, out2, n, h0, h1, h2, B, S, D, cos, sin,
     # table_b, interleaved, sin_sign, dtype, stream
     "ptt_rope": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p] * 2
@@ -121,6 +139,26 @@ def _sources(csrc):
     return srcs
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _object_name(src) -> str:
+    """`<stem>_<hash>.o`, the hash over the nvcc flags, the source and every
+    header of its directory that it includes, directly or not."""
+    files, todo = set(), [pathlib.Path(src)]
+    while todo:
+        p = todo.pop()
+        if p in files or not p.exists():
+            continue
+        files.add(p)
+        todo += [p.parent / m for m in _INCLUDE.findall(p.read_text())]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(files, key=lambda f: f.name):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return f"{pathlib.Path(src).stem}_{h.hexdigest()[:16]}.o"
+
+
 def _library_path(csrc, build_dir) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(csrc.iterdir()):
@@ -130,28 +168,37 @@ def _library_path(csrc, build_dir) -> pathlib.Path:
     return build_dir / f"libpaddle_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build_library(csrc=CSRC, build_dir=BUILD_DIR) -> pathlib.Path:
+def build_library(csrc=CSRC, build_dir=BUILD_DIR,
+                  obj_dir=None) -> pathlib.Path:
     """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
     into one shared library in `build_dir`; returns its path. A no-op when
-    the library for these exact sources already exists. Raises RuntimeError
-    carrying nvcc's output when a step fails."""
+    the library for these exact sources already exists; a source whose
+    object is already in `obj_dir` (default `build_dir/obj`) is not
+    compiled again. Raises RuntimeError carrying nvcc's output when a step
+    fails."""
     global BUILD_LOG
     csrc, build_dir = pathlib.Path(csrc), pathlib.Path(build_dir)
     out = _library_path(csrc, build_dir)
     if out.exists():
         return out
+    obj_dir = pathlib.Path(obj_dir) if obj_dir else build_dir / "obj"
     build_dir.mkdir(parents=True, exist_ok=True)
+    obj_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        procs = []
+        objs, procs = [], []
         for src in _sources(csrc):
-            obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-            procs.append((cmd, obj, subprocess.Popen(
+            obj = obj_dir / _object_name(src)
+            objs.append(str(obj))
+            if obj.exists():
+                continue
+            part = os.path.join(tmp, obj.name)
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", part]
+            procs.append((cmd, part, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         logs, failed = [], []
-        for cmd, _, proc in procs:
+        for cmd, _, _, proc in procs:
             text, _ = proc.communicate()
             logs.append(f"$ {' '.join(cmd)}\n{text}")
             if proc.returncode != 0:
@@ -159,9 +206,11 @@ def build_library(csrc=CSRC, build_dir=BUILD_DIR) -> pathlib.Path:
         if failed:
             raise RuntimeError(
                 f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
+        for _, part, obj, _ in procs:
+            os.replace(part, obj)
         tmp_lib = os.path.join(tmp, out.name)
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-               "-o", tmp_lib, *[obj for _, obj, _ in procs]]
+               "-o", tmp_lib, *objs]
         link = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         logs.append(f"$ {' '.join(cmd)}\n{link.stdout}")

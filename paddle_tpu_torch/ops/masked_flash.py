@@ -1,5 +1,6 @@
-"""Flashmask attention (↔ the flashmask half of
-paddle_tpu/ops/pallas/masked_flash.py).
+"""Flashmask and varlen attention (↔ paddle_tpu/ops/pallas/masked_flash.py).
+
+Flashmask, the file's first half:
 
 `flashmask_attention_fwd(q, k, v, startend_row_indices, causal, scale)`
 takes Paddle's layout, q [B, Sq, H, D], k/v [B, Skv, Hkv, D] (GQA: H a
@@ -36,11 +37,37 @@ The kernels take the indices as int32 [B, Hm, n, Skv] (the JAX kernel's
 `idx` after its moveaxis), one row of n per mask head contiguous over the
 keys. The softmax, the bf16 rounding of P and dS, and LSE = +inf for a row
 that keeps no key are those of `ops.flash_attention`.
+
+Varlen, the second half: `varlen_flash_attention_fwd(q, k, v, cu_seqlens_q,
+cu_seqlens_k, scale, causal)` takes packed documents, q [Tq, H, D] and k/v
+[Tk, Hkv, D] with [B + 1] prefix sums of the documents' lengths, and
+returns [Tq, H, D], differentiably through `VarlenAttention` (the JAX
+package's custom VJP, `_varlen_vjp_bwd` :669). Each token's segment is the
+number of boundaries cu_seqlens[1:-1] at or before it, its position its
+index less cu_seqlens[segment] (the JAX entry's encoding, :765-769); row r
+keeps key c iff they share a segment and, when causal, pos_q >= pos_k
+(top-left within each segment, also when a q segment and its k segment
+differ in length). A row that keeps no key (its k segment is empty) gives
+zeros and zero gradients, as the JAX kernel does (its composite route,
+taken when Pallas is off, gives the mean of V there; this port follows the
+kernel). `varlen_layout` turns cu_seqlens into what the kernels read, with
+torch ops on the device and no host sync: per key its segment's q-row
+range and the offset cu_q - cu_k (the keep test), and per 64-row tile the
+key range of a q tile and the q-row range of a key tile (the tiles each CTA
+visits). Three kernels of `csrc/varlen_flash.cu` (the tile kernels of
+`csrc/flash_tiles.cuh` under the varlen policy), each beside its plain
+version and its launch counter:
+
+- `varlen_fwd` → (O, LSE [H, Tq]): `varlen_fwd_plain`; `VL_FWD_LAUNCHES`;
+- `varlen_bwd_dq` → dQ: `varlen_bwd_dq_plain`; `VL_DQ_LAUNCHES`;
+- `varlen_bwd_dkv` → dK, dV per query head in f32: `varlen_bwd_dkv_plain`;
+  `VL_DKV_LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -49,15 +76,23 @@ from .flash_attention import (_attend, _bwd_checks, _check, _cuda_operands,
                               _dkv, _dq, _kv_grads, _logits, _probs_and_ds)
 
 __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES",
-           "FlashmaskAttention", "flashmask_attention_fwd",
-           "flashmask_bwd_dkv", "flashmask_bwd_dkv_plain", "flashmask_bwd_dq",
+           "FlashmaskAttention", "VL_DKV_LAUNCHES", "VL_DQ_LAUNCHES",
+           "VL_FWD_LAUNCHES", "VarlenAttention", "VarlenLayout",
+           "flashmask_attention_fwd", "flashmask_bwd_dkv",
+           "flashmask_bwd_dkv_plain", "flashmask_bwd_dq",
            "flashmask_bwd_dq_plain", "flashmask_fwd", "flashmask_fwd_plain",
-           "flashmask_keep"]
+           "flashmask_keep", "varlen_bwd_dkv", "varlen_bwd_dkv_plain",
+           "varlen_bwd_dq", "varlen_bwd_dq_plain",
+           "varlen_flash_attention_fwd", "varlen_fwd", "varlen_fwd_plain",
+           "varlen_keep", "varlen_layout"]
 
 # kernel launches since import (or since a caller reset them)
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+VL_FWD_LAUNCHES = 0
+VL_DQ_LAUNCHES = 0
+VL_DKV_LAUNCHES = 0
 
 
 def flashmask_keep(idx, sq, skv, causal):
@@ -266,3 +301,290 @@ def flashmask_attention_fwd(q, k, v, startend_row_indices, causal=True,
     idx = startend_row_indices.detach().transpose(2, 3)  # [B, Hm, n, Skv]
     return FlashmaskAttention.apply(q, k.to(q.dtype), v.to(q.dtype), idx,
                                     bool(causal), float(scale))
+
+
+# --------------------------------------------------------------------------- #
+# varlen: packed documents
+# --------------------------------------------------------------------------- #
+
+TILE = 64  # the tile kernels' rows and columns (csrc/flash_tiles.cuh kTile)
+
+
+class VarlenLayout(NamedTuple):
+    """What the varlen kernels read, all int32 on the tensors' device:
+    `kinfo` [3, Tk] per key its segment's first q row, one past its last,
+    and cu_q[s] - cu_k[s]; `qrange` [2, ceil(Tq / 64)] per q tile the first
+    key and one past the last it visits; `krange` [2, ceil(Tk / 64)] per
+    key tile the first q row and one past the last."""
+    kinfo: torch.Tensor
+    qrange: torch.Tensor
+    krange: torch.Tensor
+
+
+def _segments(cu, T):
+    """[T] int64: each token's segment, the number of boundaries
+    cu[1:-1] at or before it (`jnp.cumsum(zeros.at[cu[1:-1]].add(1))`;
+    boundaries outside [0, T) are dropped, as the JAX scatter drops
+    them)."""
+    b = cu[1:-1].long()
+    marks = torch.zeros(T + 1, dtype=torch.long, device=cu.device)
+    ok = (b >= 0) & (b < T)
+    marks.index_add_(0, torch.where(ok, b, torch.full_like(b, T)),
+                     torch.ones_like(b))
+    return marks[:T].cumsum(0)
+
+
+def varlen_layout(cu_seqlens_q, cu_seqlens_k, Tq, Tk, causal):
+    """`VarlenLayout` of packed batches with prefix sums cu_seqlens [B + 1]
+    (B >= 1), by torch ops on cu's device (no host sync). The tile ranges
+    cover every kept pair: a q tile visits the keys from the first key of
+    its first segment to the last key of its last segment (causal: to the
+    last key its last row can see); a key tile the q rows of its segments
+    (causal: from the first row that can see its first key)."""
+    if cu_seqlens_q.dim() != 1 or cu_seqlens_q.shape != cu_seqlens_k.shape \
+            or cu_seqlens_q.numel() < 2:
+        raise ValueError("cu_seqlens_q and cu_seqlens_k must be [B + 1] "
+                         "prefix sums with B >= 1, of one length")
+    if cu_seqlens_q.dtype.is_floating_point or cu_seqlens_k.dtype.is_floating_point:
+        raise TypeError("cu_seqlens must be integers")
+    dev = cu_seqlens_q.device
+    cu_q, cu_k = cu_seqlens_q.long(), cu_seqlens_k.to(dev).long()
+    nseg = cu_q.numel() - 1
+    seg_q, seg_k = _segments(cu_q, Tq), _segments(cu_k, Tk)
+    s = torch.arange(nseg, device=dev)
+    q_lo = torch.searchsorted(seg_q, s)
+    q_hi = torch.searchsorted(seg_q, s, right=True)
+    k_lo = torch.searchsorted(seg_k, s)
+    k_hi = torch.searchsorted(seg_k, s, right=True)
+    off = cu_q[:nseg] - cu_k[:nseg]
+    kinfo = torch.stack([q_lo[seg_k], q_hi[seg_k], off[seg_k]])
+
+    q0 = torch.arange(0, Tq, TILE, device=dev)
+    last = torch.clamp(q0 + TILE - 1, max=max(Tq - 1, 0))
+    s0, s1 = seg_q[q0], seg_q[last]
+    kv_end = k_hi[s1]
+    if causal:
+        kv_end = torch.maximum(k_lo[s1], torch.minimum(kv_end,
+                                                       last + 1 - off[s1]))
+    qrange = torch.stack([k_lo[s0], kv_end])
+
+    k0 = torch.arange(0, Tk, TILE, device=dev)
+    last = torch.clamp(k0 + TILE - 1, max=max(Tk - 1, 0))
+    s0, s1 = seg_k[k0], seg_k[last]
+    q_start = q_lo[s0]
+    if causal:
+        q_start = torch.minimum(q_hi[s0], torch.maximum(q_start, k0 + off[s0]))
+    krange = torch.stack([q_start, q_hi[s1]])
+    return VarlenLayout(*(t.to(torch.int32).contiguous()
+                          for t in (kinfo, qrange, krange)))
+
+
+def varlen_keep(layout, Tq, causal):
+    """bool [Tq, Tk]: query row r keeps key c (`_vl_keep`), from the keys'
+    segment ranges alone."""
+    lo, hi, off = layout.kinfo.long()
+    rows = torch.arange(Tq, device=lo.device)[:, None]
+    keep = (rows >= lo) & (rows < hi)
+    if causal:
+        cols = torch.arange(lo.numel(), device=lo.device)
+        keep &= rows >= cols + off
+    return keep
+
+
+def _by_kv_head(fn, q, k, v, layout, causal, *rest):
+    """`fn(q_j, k_j, v_j, keep, *rest_j)` for each kv head j and the g
+    query heads it serves, the results joined over the heads: the plain
+    versions hold one kv head's [g, Tq, Tk] logits at a time. `rest` are
+    per-query-head tensors, [Tq, H, D] (head axis 1) or [H, Tq] (axis 0)."""
+    keep = varlen_keep(layout, q.shape[0], causal)[None, None]
+    g = q.shape[1] // k.shape[1]
+    outs = []
+    for j in range(k.shape[1]):
+        hs = slice(j * g, (j + 1) * g)
+        outs.append(fn(q[:, hs], k[:, j:j + 1], v[:, j:j + 1], keep,
+                       *(t[:, hs] if t.dim() == 3 else t[hs] for t in rest)))
+    return tuple(torch.cat([o[i] for o in outs], dim=1 if outs[0][i].dim() == 3
+                           else 0) for i in range(len(outs[0])))
+
+
+def varlen_fwd_plain(q, k, v, layout, causal, scale):
+    """Plain PyTorch version of the forward kernel: (O [Tq, H, D] in q's
+    dtype, LSE [H, Tq] f32, +inf for a row that keeps no key)."""
+
+    def fwd(qj, kj, vj, keep):
+        out, lse = _attend(qj[None], vj[None],
+                           _logits(qj[None], kj[None], scale, keep))
+        return out[0], lse[0]
+
+    return _by_kv_head(fwd, q, k, v, layout, causal)
+
+
+def varlen_bwd_dq_plain(q, k, v, layout, dout, lse, delta, causal, scale):
+    """Plain PyTorch version of the dq kernel: dQ [Tq, H, D] in q's
+    dtype."""
+
+    def dq(qj, kj, vj, keep, doj, lsej, dj):
+        s = _logits(qj[None], kj[None], scale, keep)
+        _, ds = _probs_and_ds(qj[None], vj[None], s, doj[None], lsej[None],
+                              dj[None], scale)
+        return (_dq(qj[None], kj[None], ds)[0],)
+
+    return _by_kv_head(dq, q, k, v, layout, causal, dout, lse, delta)[0]
+
+
+def varlen_bwd_dkv_plain(q, k, v, layout, dout, lse, delta, causal, scale):
+    """Plain PyTorch version of the dk/dv kernel: dK, dV f32 [Tk, H, D],
+    one slice per query head."""
+
+    def dkv(qj, kj, vj, keep, doj, lsej, dj):
+        s = _logits(qj[None], kj[None], scale, keep)
+        dk, dv = _dkv(qj[None], doj[None], *_probs_and_ds(
+            qj[None], vj[None], s, doj[None], lsej[None], dj[None], scale))
+        return dk[0], dv[0]
+
+    return _by_kv_head(dkv, q, k, v, layout, causal, dout, lse, delta)
+
+
+def _vl_check(q, k, v, layout):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("varlen attention wants q [Tq, H, D] and k/v "
+                         "[Tk, Hkv, D]")
+    _check(q[None], k[None], v[None], None)
+    nq, nk = -(-q.shape[0] // TILE), -(-k.shape[0] // TILE)
+    if (tuple(layout.kinfo.shape) != (3, k.shape[0])
+            or tuple(layout.qrange.shape) != (2, nq)
+            or tuple(layout.krange.shape) != (2, nk)):
+        raise ValueError("the varlen layout does not fit q and k: build it "
+                         "with varlen_layout(cu_q, cu_k, Tq, Tk, causal)")
+    if any(t.device != q.device or t.dtype != torch.int32 for t in layout):
+        raise ValueError(f"the varlen layout must be int32 on {q.device}")
+
+
+def _vl_operands(q, k, v, dout=None):
+    q4, k4, v4, _, d4, strides = _cuda_operands(
+        q[None], k[None], v[None], None, None if dout is None else dout[None])
+    return q4, k4, v4, d4, strides
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def varlen_fwd(q, k, v, layout, causal, scale):
+    """(O [Tq, H, D] in q's dtype, LSE [H, Tq] f32) over the packed
+    segments of `layout`. CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
+    global VL_FWD_LAUNCHES
+    _vl_check(q, k, v, layout)
+    if q.device.type == "cpu":
+        return varlen_fwd_plain(q, k, v, layout, causal, scale)
+    q4, k4, v4, _, strides = _vl_operands(q, k, v)
+    Tq, H, D = q.shape
+    Tk, Hkv = k.shape[0], k.shape[1]
+    out = torch.empty(Tq, H, D, device=q.device, dtype=q.dtype)
+    lse = torch.empty(H, Tq, device=q.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out, lse
+    err = _build.load_library().ptt_varlen_fwd(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
+        layout.qrange.data_ptr(), layout.krange.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), H, Hkv, Tq, Tk, D, strides, float(scale),
+        int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+    _build.check(err, "ptt_varlen_fwd")
+    VL_FWD_LAUNCHES += 1
+    return out, lse
+
+
+def varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale):
+    """dQ [Tq, H, D] in q's dtype from the forward's LSE and
+    delta = rowsum(dO * O) [H, Tq] f32. CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    global VL_DQ_LAUNCHES
+    _vl_check(q, k, v, layout)
+    _bwd_checks(q[None], lse[None], delta[None])
+    if q.device.type == "cpu":
+        return varlen_bwd_dq_plain(q, k, v, layout, dout, lse, delta, causal,
+                                   scale)
+    q4, k4, v4, d4, strides = _vl_operands(q, k, v, dout)
+    Tq, H, D = q.shape
+    Tk, Hkv = k.shape[0], k.shape[1]
+    dq = torch.empty(Tq, H, D, device=q.device, dtype=q.dtype)
+    if dq.numel() == 0:
+        return dq
+    lse, delta = lse.contiguous(), delta.contiguous()
+    err = _build.load_library().ptt_varlen_bwd_dq(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
+        layout.qrange.data_ptr(), layout.krange.data_ptr(), d4.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), H, Hkv, Tq, Tk, D,
+        strides, float(scale), int(bool(causal)),
+        _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+    _build.check(err, "ptt_varlen_bwd_dq")
+    VL_DQ_LAUNCHES += 1
+    return dq
+
+
+def varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal, scale):
+    """(dK, dV), each f32 [Tk, H, D]: one slice per query head, not yet
+    summed over the g heads of a kv head. CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    global VL_DKV_LAUNCHES
+    _vl_check(q, k, v, layout)
+    _bwd_checks(q[None], lse[None], delta[None])
+    if q.device.type == "cpu":
+        return varlen_bwd_dkv_plain(q, k, v, layout, dout, lse, delta, causal,
+                                    scale)
+    q4, k4, v4, d4, strides = _vl_operands(q, k, v, dout)
+    Tq, H, D = q.shape
+    Tk, Hkv = k.shape[0], k.shape[1]
+    dk = torch.empty(Tk, H, D, device=q.device, dtype=torch.float32)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0 or Tq == 0:
+        return dk.zero_(), dv.zero_()
+    lse, delta = lse.contiguous(), delta.contiguous()
+    err = _build.load_library().ptt_varlen_bwd_dkv(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
+        layout.qrange.data_ptr(), layout.krange.data_ptr(), d4.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), H,
+        Hkv, Tq, Tk, D, strides, float(scale), int(bool(causal)),
+        _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+    _build.check(err, "ptt_varlen_bwd_dkv")
+    VL_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+class VarlenAttention(torch.autograd.Function):
+    """Varlen attention with its backward (↔ `_varlen`'s custom VJP, whose
+    backward `_varlen_vjp_bwd` :669 this follows): delta = rowsum(dO * O)
+    in f32 with torch, the dq and dk/dv kernels, then the group-sum of dK
+    and dV for GQA, cast to k's dtype. The layout is data."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, causal, scale):
+        out, lse = varlen_fwd(q, k, v, layout, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, *layout)
+        ctx.causal = causal
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, *lay = ctx.saved_tensors
+        layout = VarlenLayout(*lay)
+        causal, scale = ctx.causal, ctx.scale
+        delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
+        dq = varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale)
+        dk, dv = varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal,
+                                scale)
+        dk, dv = _kv_grads(dk[None], dv[None], k[None], v[None])
+        return dq, dk[0], dv[0], None, None, None
+
+
+def varlen_flash_attention_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, scale,
+                               causal=False):
+    """Packed varlen entry: q [Tq, H, D], k/v [Tk, Hkv, D], cu_seqlens
+    [B + 1] -> [Tq, H, D], differentiable with respect to q, k and v. k and
+    v are cast to q's dtype."""
+    layout = varlen_layout(cu_seqlens_q.to(q.device), cu_seqlens_k.to(q.device),
+                           q.shape[0], k.shape[0], bool(causal))
+    return VarlenAttention.apply(q, k.to(q.dtype), v.to(q.dtype), layout,
+                                 bool(causal), float(scale))

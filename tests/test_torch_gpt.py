@@ -209,7 +209,11 @@ def test_import_loads_no_jax_and_no_jax_package():
     jax*, no paddle_tpu and no paddle_tpu.* module loaded."""
     assert {"paddle_tpu_torch.ops.fused_rope", "paddle_tpu_torch.ops.masked_flash",
             "paddle_tpu_torch.models.llama",
-            "paddle_tpu_torch.incubate.nn.functional"} <= set(_port_modules())
+            "paddle_tpu_torch.incubate.nn.functional",
+            "paddle_tpu_torch.ops.grouped_gemm",
+            "paddle_tpu_torch.incubate.distributed.models.moe.gate",
+            "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer",
+            "paddle_tpu_torch.nn.functional.extras"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
