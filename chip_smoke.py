@@ -6,7 +6,12 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. build      — compile paddle_tpu_torch/csrc/*.cu with nvcc (sm_90a, one
-                process per source, in parallel), load it.
+                process per source, in parallel), load it. The bf16
+                attention forward's four instantiations (flash and
+                flashmask at head dims 64 and 128): registers and spills
+                from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
+                instructions from `cuobjdump -sass`, none of which may be
+                zero.
 2. kernels    — each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes its path gives it and a few edge
                 shapes, in float32 and bfloat16: max error against a stated
@@ -18,15 +23,20 @@ Phases; any failure raises and the script exits non-zero:
                 paged decode attention (full precision and int8 pages, with
                 g = 4, a zero-length row, -1 table entries and a page whose
                 scales are 0), dense-cache decode attention (the MMHA shape
-                and g = 4), flash attention forward, dq and dk/dv, the
+                and g = 4), flash attention forward, dq and dk/dv (the
+                path's shape; S off the forward's 128-row tiles, D 64, 40,
+                96 and 36 (the copy route), g = 4, a key bias, Sq > Skv
+                and Skv > Sq, a fused qkv's strided views and unaligned
+                views (the copy route)), the
                 flash forward at the dense engine's decode shape (Sq = 1),
                 fused RoPE (forward and backward, neox and interleaved,
                 q + k at 32/8 heads, the decode shape with a table per row,
                 a ragged S), flashmask forward, dq and dk/dv (the LLaMA
                 step's trivial causal index at B 4 x 2048 with 32/8 heads,
                 and document masks: causal n = 1 and n = 2, non-causal
-                n = 2 and n = 4, a mask per head, GQA, S not a multiple of
-                64, rows that keep no key), the grouped GEMM (the gpt3_moe
+                n = 2 and n = 4 (n = 2 and rows that keep no key in bf16
+                and f32), a mask per head, GQA, S not a multiple of 64 or
+                128, rows that keep no key), the grouped GEMM (the gpt3_moe
                 rung's four products with the group sizes of a real
                 routing, bf16 and f32; groups with no and all live rows,
                 partly live tiles, strides 16 and 48, K and N off the tile,
@@ -37,7 +47,8 @@ Phases; any failure raises and the script exits non-zero:
                 segment, a one-tile pack).
 2b. faults    — the kernels built again from copies of csrc/, each with
                 one planted fault (a kv or q tile skipped, long rows
-                normalised 1% off; flashmask: the end bound of n = 2
+                normalised 1% off; flashmask: a partial tile of the
+                forward treated as full, the end bound of n = 2
                 ignored, partly kept tiles skipped, every head reading mask
                 head 0; varlen: each q tile's first kv tile skipped, the
                 segment test's upper bound dropped; grouped GEMM: a partly
@@ -301,6 +312,55 @@ def ptxas_summary(log):
                 spills[name or "?"] = stored
     return {"kernels": len(regs), "max_registers": max(regs, default=0),
             "spill_store_bytes": spills}
+
+
+SM90_KERNEL = re.compile(r"flash_fwd_sm90_kernelILi(\d+)E.*?(CausalBias|FlashMask)")
+
+
+def sm90_report(card, lib_path, log):
+    """The bf16 forward's instantiations (`flash_fwd_sm90_kernel<DT,
+    policy>`, csrc/flash_fwd_sm90.cuh) as built: registers and spill-store
+    bytes from nvcc's `-Xptxas -v` (`log`, empty if this process did not
+    build), and the wgmma (HGMMA) and TMA-load (UTMALDG) instructions that
+    `cuobjdump -sass` finds in each in the library. Raises if an
+    instantiation has none of either: it would not run on Hopper's tensor
+    cores fed by TMA."""
+    import shutil
+
+    report, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = SM90_KERNEL.search(ln)
+            name = f"flash_fwd_sm90_kernel<{m[1]}, {m[2]}>" if m else None
+            if name:
+                report[name] = {}
+        elif name and "bytes spill stores" in ln:
+            report[name]["spill_store_bytes"] = int(
+                ln.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in ln and "registers" in ln:
+            report[name]["registers"] = int(
+                ln.split("Used")[1].split("registers")[0])
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    name = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = SM90_KERNEL.search(ln)
+            name = f"flash_fwd_sm90_kernel<{m[1]}, {m[2]}>" if m else None
+            if name:
+                report.setdefault(name, {}).update(HGMMA=0, UTMALDG=0)
+        elif name:
+            for op in ("HGMMA", "UTMALDG"):
+                report[name][op] += op in ln
+    say(card, "sm90 forward " + json.dumps(report))
+    bare = [n for n, r in report.items()
+            if not (r.get("HGMMA") and r.get("UTMALDG"))]
+    if len(report) < 4 or bare:
+        raise AssertionError(f"the sm90 forward's instantiations lack wgmma "
+                             f"or TMA loads: {bare or report}")
+    return report
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -803,7 +863,11 @@ def _flash_violations(errs, dtype):
     return bad
 
 
-# name: (B, Sq, Skv, H, Hkv, D, causal, key bias, dtype)
+# name: (B, Sq, Skv, H, Hkv, D, causal, key bias, dtype). The bf16 forward's
+# tiles are 128 x 128: the edge cases put S off them (333, 517, 257, 200,
+# 150), D at 64, below it (40, and 36, which is not a multiple of 8: the
+# wrappers' copy route) and between the panels (96), Sq > Skv (rows that
+# see no key) and Skv > Sq, and q/k/v as views (FLASH_LAYOUTS).
 FLASH_CASES = {
     "path": (4, 2048, 2048, 16, 16, 128, True, False, "bfloat16"),
     "f32": (1, 1024, 1024, 16, 16, 128, True, False, "float32"),
@@ -811,17 +875,41 @@ FLASH_CASES = {
     "ragged_sq_lt_skv_g2_d64": (2, 333, 517, 8, 4, 64, True, False, "bfloat16"),
     "sq_gt_skv_f32_d64": (1, 300, 200, 4, 4, 64, True, False, "float32"),
     "key_bias_padded_row": (3, 257, 257, 8, 8, 128, False, True, "bfloat16"),
+    "sq_gt_skv_d64": (1, 300, 200, 4, 4, 64, True, False, "bfloat16"),
+    "d40_causal": (2, 200, 200, 8, 8, 40, True, False, "bfloat16"),
+    "d96_g2": (1, 384, 384, 8, 4, 96, True, False, "bfloat16"),
+    "d36_copy": (1, 150, 150, 4, 2, 36, False, False, "bfloat16"),
+    "fused_qkv_view": (2, 384, 384, 16, 16, 128, True, False, "bfloat16"),
+    "unaligned_view_copy": (1, 200, 200, 8, 8, 64, True, False, "bfloat16"),
 }
+# how a case's q, k and v are laid out (default: three contiguous tensors):
+# "fused_qkv" slices one [B, S, 3, H, D] tensor (strided views the TMA maps
+# take as they are); "unaligned" views one flat buffer 2 bytes past its
+# start (the wrappers copy them)
+FLASH_LAYOUTS = {"fused_qkv_view": "fused_qkv",
+                 "unaligned_view_copy": "unaligned"}
 
 
-def _flash_inputs(torch, gen, B, Sq, Skv, H, Hkv, D, bias, dtype):
+def _flash_inputs(torch, gen, B, Sq, Skv, H, Hkv, D, bias, dtype,
+                  layout="contiguous"):
     """(q, k, v, dO, key bias or None, keep [B, Skv] bool). With `bias`,
     batch row b pads its last 17 (b + 1) keys and batch row 1 all of
     them."""
     dt = getattr(torch, dtype)
-    q = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dt)
-    k = torch.randn(B, Skv, Hkv, D, device="cuda", generator=gen).to(dt)
-    v = torch.randn(B, Skv, Hkv, D, device="cuda", generator=gen).to(dt)
+    if layout == "fused_qkv":
+        qkv = torch.randn(B, Sq, 3, H, D, device="cuda", generator=gen).to(dt)
+        q, k, v = qkv.unbind(2)
+    elif layout == "unaligned":
+        nq, nkv = B * Sq * H * D, B * Skv * Hkv * D
+        flat = torch.randn(nq + 2 * nkv + 1, device="cuda",
+                           generator=gen).to(dt)[1:]
+        q = flat[:nq].view(B, Sq, H, D)
+        k = flat[nq:nq + nkv].view(B, Skv, Hkv, D)
+        v = flat[nq + nkv:].view(B, Skv, Hkv, D)
+    else:
+        q = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B, Skv, Hkv, D, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B, Skv, Hkv, D, device="cuda", generator=gen).to(dt)
     dout = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dt)
     kb = None
     keep = torch.ones(B, Skv, dtype=torch.bool, device="cuda")
@@ -864,8 +952,9 @@ def check_flash(card, torch):
     main = {}
     failures = []  # raised together once every case has printed its row
     for name, (B, Sq, Skv, H, Hkv, D, causal, bias, dtype) in FLASH_CASES.items():
-        q, k, v, dout, kb, keep = _flash_inputs(torch, gen, B, Sq, Skv, H,
-                                                Hkv, D, bias, dtype)
+        q, k, v, dout, kb, keep = _flash_inputs(
+            torch, gen, B, Sq, Skv, H, Hkv, D, bias, dtype,
+            FLASH_LAYOUTS.get(name, "contiguous"))
         scale = D ** -0.5
         got, plain, delta = _flash_outputs(fa, q, k, v, dout, kb, causal, scale)
         torch.cuda.synchronize()
@@ -1014,6 +1103,9 @@ FLASHMASK_CASES = {
                          "bfloat16"),
     "empty_rows_f32_d64": (2, 200, 4, 2, 1, 64, False, 2, "empty_rows",
                            "float32"),
+    "full_n2_band_d64": (1, 517, 4, 4, 1, 64, False, 2, "band", "bfloat16"),
+    "empty_rows_d64": (2, 200, 4, 2, 1, 64, False, 2, "empty_rows",
+                       "bfloat16"),
 }
 
 
@@ -1123,6 +1215,11 @@ def check_flashmask(card, torch):
                        eager_ms=eager_ms(fn_k, reps=reps, inner=inner),
                        plain_ms=time_ms(fn_p, reps=3, inner=2),
                        bound_ms=bnd, bound_by=by, library_ms=lib.get(kernel))
+            if kernel == "fwd" and dtype == "bfloat16":
+                # the wrapper's share of `ms`: the tile classes it derives
+                row["tile_classes_ms"] = time_ms(
+                    lambda: mf.flashmask_tile_classes(idx, S, S, causal),
+                    reps=reps, inner=inner)
             say(card, "flashmask " + json.dumps(row))
             worst[kernel] = max(worst[kernel], err)
             if name == "path":
@@ -1438,11 +1535,15 @@ def check_varlen(card, torch):
 # there that moves the replaced text must move these with it.
 KERNEL_FAULTS = {
     "fwd: q tiles past the first skip their last kv tile": (
-        "flash_tiles.cuh", "flash_fwd_tc_kernel(", "t < n_kv;",
-        "t < n_kv - (q0 > 0);", "flash path"),
+        "flash_fwd_sm90.cuh", "flash_fwd_sm90_kernel(",
+        "mask.kv_tiles(p, q0, kBM, kBN);",
+        "mask.kv_tiles(p, q0, kBM, kBN) - (q0 > 0);", "flash path"),
     "fwd: rows past the first q tile normalised 1% off": (
-        "flash_tiles.cuh", "flash_fwd_tc_kernel(", "1.f / l;",
+        "flash_fwd_sm90.cuh", "void consume(", "1.f / l;",
         "1.f / (l * (q0 > 0 ? 1.01f : 1.f));", "flash path"),
+    "flashmask fwd: a partial tile treated as full": (
+        "masked_flash.cu", "tile_class(", "return c;",
+        "return c == kPartialTile ? kFullTile : c;", "causal_n1_docs"),
     "dq: q tiles past the first skip their last kv tile": (
         "flash_tiles.cuh", "flash_dq_tc_kernel(", "t < n_kv;",
         "t < n_kv - (q0 > 0);", "flash path"),
@@ -2315,10 +2416,16 @@ def train(card, torch, which):
     return launches
 
 
+# the kernels of csrc/ by name, as torch.profiler reports them
+PORT_KERNEL = re.compile(
+    r"^void \(anonymous namespace\)::(sm90::)?(flash_|norm_|decode_tile_|rope_|gg_)")
+
+
 def profile_step(card, torch, fn, what):
     """torch.profiler over one call of `fn`: wall time, device-busy time
-    (the sum of device activity; one stream, so nothing overlaps) and the
-    kernels that take the most device time."""
+    (the sum of device activity; one stream, so nothing overlaps), the
+    kernels that take the most device time, and every kernel of the port
+    (csrc/: PORT_KERNEL in the trace's names) with its time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2331,13 +2438,18 @@ def profile_step(card, torch, fn, what):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    ranked = sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)
+
+    def rows(evs):
+        return [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                 "calls": e.count} for e in evs]
+
     say(card, f"{what} profile " + json.dumps({
         "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
-        "top_device_kernels": [
-            {"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
-             "calls": e.count} for e in top]}))
+        "top_device_kernels": rows(ranked[:10]),
+        "port_kernels": rows(e for e in ranked if PORT_KERNEL.search(e.key))}))
 
 
 # --------------------------------------------------------------------------- #
@@ -2687,6 +2799,7 @@ def main():
     _build.load_library()
     say(card, f"build: {time.perf_counter() - t0:.2f} s")
     say(card, "ptxas " + json.dumps(ptxas_summary(_build.BUILD_LOG)))
+    sm90_report(card, _build.build_library(), _build.BUILD_LOG)
 
     norm = check_norm(card, torch)
     norm_dx = check_norm_dx(card, torch)
@@ -2725,6 +2838,7 @@ def main():
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    fwd_src = "paddle_tpu_torch/csrc/flash_fwd_sm90.cuh"
     fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
     mf_src = "paddle_tpu_torch/csrc/masked_flash.cu"
     mf_ref = "paddle_tpu/ops/pallas/masked_flash.py"
@@ -2742,7 +2856,7 @@ def main():
             ("fused_norm_dx", "paddle_tpu_torch/csrc/fused_norm.cu",
              "paddle_tpu/ops/pallas/fused_norm.py:196", norm_dx["main"],
              norm_dx["worst"]),
-            ("flash_fwd", fa_src, fa_ref + ":127", flash["main"]["fwd"],
+            ("flash_fwd", fwd_src, fa_ref + ":127", flash["main"]["fwd"],
              flash["worst"]["fwd"]),
             ("flash_bwd_dq", fa_src, fa_ref + ":332", flash["main"]["dq"],
              flash["worst"]["dq"]),
@@ -2751,7 +2865,7 @@ def main():
             ("fused_rope", "paddle_tpu_torch/csrc/fused_rope.cu",
              "paddle_tpu/ops/pallas/fused_rope.py:90", rope["main"],
              rope["worst"]),
-            ("flashmask_fwd", mf_src, mf_ref + ":77", flashmask["main"]["fwd"],
+            ("flashmask_fwd", fwd_src, mf_ref + ":77", flashmask["main"]["fwd"],
              flashmask["worst"]["fwd"]),
             ("flashmask_bwd_dq", mf_src, mf_ref + ":138",
              flashmask["main"]["dq"], flashmask["worst"]["dq"]),

@@ -44,7 +44,9 @@
 // ragged edge and any head dim below 64 or 128 zero-filled: no transpose
 // and no padded copy in HBM), then reused by 64 rows. Two forms of the
 // products, chosen by the input type:
-//   - bf16 (the training path): the tensor cores, through WMMA 16x16x16
+//   - bf16 (the backward kernels and the varlen forward; the bf16 forward
+//     of flash and flashmask is flash_fwd_sm90.cuh's wgmma kernel, fed by
+//     TMA): the tensor cores, through WMMA 16x16x16
 //     bf16 fragments with f32 accumulation, 4 warps of 16 rows each. A
 //     warp's 16x64 score tile goes to shared memory in f32, two lanes per
 //     row run the softmax (or its gradient) on it, and the probabilities
@@ -59,7 +61,8 @@
 //     smem rows and no two hit the same bank) and 2 rows x D/8 columns of
 //     the output; the row softmax reduces over the 8 lanes of a row group
 //     with shuffles and rescales its own accumulator in registers.
-// TMA, wgmma and warp specialisation are the work of a later change.
+// TMA, wgmma and warp specialisation: flash_fwd_sm90.cuh, the bf16 forward
+// of flash and flashmask; these kernels keep the synchronous loads.
 #pragma once
 
 #include <math.h>
@@ -209,14 +212,24 @@ struct Problem {
 //   - `int first_kv_tile(p, q0)` and `int kv_tiles(p, q0)`: the kv tiles a
 //     q tile at q0 visits, [first_kv_tile, kv_tiles) (flash and flashmask
 //     visit a prefix; varlen the range of the segments the q tile touches);
+//     flash and flashmask take the tile sizes too, `kv_tiles(p, q0, bm,
+//     bn)`, for flash_fwd_sm90.cuh's 128 x 128 tiles (64 by default);
 //   - `int first_q_tile(p, k0)` and `int q_tiles(p, k0)`: the q tiles that
 //     can see key tile k0, [first_q_tile, q_tiles);
 //   - `kVote`: whether a tile whose keep-mask is empty is skipped after a
 //     CTA-wide vote (`any_kept`), for masks whose empty tiles the tile
 //     ranges above do not exclude.
+// The sm90 forward (flash and flashmask) also reads
+//   - `int tile_class(p, b, h, q0, k0, bm, bn)`: a `TileClass` of the
+//     (q tile, kv tile): skipped (no pair kept; never loaded), full (every
+//     pair of real rows and columns kept: no predicate) or partial (keep()
+//     on every element);
+//   - `bool has_bias()`: whether bias() is added on every tile.
 // flash_attention.cu holds the flash policy (bottom-right causal plus a
 // key bias), masked_flash.cu the flashmask column ranges, varlen_flash.cu
 // the packed segments of varlen attention.
+
+enum TileClass { kSkipTile = 0, kPartialTile = 1, kFullTile = 2 };
 
 // The CTA-wide vote of the skip: true if any thread holds a kept pair.
 __device__ __forceinline__ bool any_kept(bool mine) {
@@ -875,17 +888,24 @@ constexpr size_t kF = sizeof(float);
 constexpr size_t kPb = kTile * kLdb * sizeof(bf16);  // a bf16 P / dS tile
 constexpr size_t kSf = kTile * kLdp * kF;             // an f32 score tile
 
-// float32 runs the CUDA-core kernels, bfloat16 the tensor-core ones
+// The forward on the CUDA cores (float32)
 template <int DT, class M>
-cudaError_t launch_fwd(int dtype, const Problem& p, const M& m, const void* q, const void* k,
-                       const void* v, void* out, float* lse, cudaStream_t st) {
+cudaError_t launch_fwd_f32(const Problem& p, const M& m, const void* q, const void* k,
+                           const void* v, void* out, float* lse, cudaStream_t st) {
   const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
   constexpr size_t kKeys = kTile * sizeof(typename M::Key);
-  if (dtype == ptt::kF32)
-    return launch(flash_fwd_kernel<float, DT, M>, grid, kThreads,
-                  3 * operand_bytes<float, DT>() + kSf + kKeys, st, p, m,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<float*>(out), lse);
+  return launch(flash_fwd_kernel<float, DT, M>, grid, kThreads,
+                3 * operand_bytes<float, DT>() + kSf + kKeys, st, p, m,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(out), lse);
+}
+
+// The WMMA forward (bfloat16 varlen)
+template <int DT, class M>
+cudaError_t launch_fwd_tc(const Problem& p, const M& m, const void* q, const void* k,
+                          const void* v, void* out, float* lse, cudaStream_t st) {
+  const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
+  constexpr size_t kKeys = kTile * sizeof(typename M::Key);
   return launch(flash_fwd_tc_kernel<DT, M>, grid, kTcThreads,
                 3 * operand_bytes<bf16, DT>() + kPb + kSf + kTile * (DT + 4) * kF + kKeys,
                 st, p, m, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -959,14 +979,27 @@ Problem make_problem(int dtype, int B, int H, int Hkv, int Sq, int Skv, int D, f
 bool supported(int dtype) { return dtype == ptt::kF32 || dtype == ptt::kBF16; }
 
 // The three passes at the head dim's tile width (64 or 128), for the entry
-// points of flash_attention.cu and masked_flash.cu.
+// points of flash_attention.cu, masked_flash.cu and varlen_flash.cu. The
+// forward: `run_fwd_f32` on the CUDA cores (flash and flashmask in
+// float32; their bfloat16 forward is flash_fwd_sm90.cuh's), `run_fwd` by
+// dtype for varlen (float32 or the WMMA kernel).
+template <class M>
+cudaError_t run_fwd_f32(const Problem& p, const M& m, const void* q, const void* k,
+                        const void* v, void* out, void* lse, void* stream) {
+  float* l = static_cast<float*>(lse);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return p.D <= 64 ? launch_fwd_f32<64>(p, m, q, k, v, out, l, st)
+                   : launch_fwd_f32<128>(p, m, q, k, v, out, l, st);
+}
+
 template <class M>
 cudaError_t run_fwd(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                     const void* v, void* out, void* lse, void* stream) {
+  if (dtype == ptt::kF32) return run_fwd_f32(p, m, q, k, v, out, lse, stream);
   float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_fwd<64>(dtype, p, m, q, k, v, out, l, st)
-                   : launch_fwd<128>(dtype, p, m, q, k, v, out, l, st);
+  return p.D <= 64 ? launch_fwd_tc<64>(p, m, q, k, v, out, l, st)
+                   : launch_fwd_tc<128>(p, m, q, k, v, out, l, st);
 }
 
 template <class M>

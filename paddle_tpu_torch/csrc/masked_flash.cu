@@ -25,15 +25,19 @@
 // mask): operations, 2.69e8 visible pairs x 32 heads; forward 4 D, dQ 6 D,
 // dK/dV 8 D operations a pair at 989 TFLOP/s: 0.139, 0.209, 0.278 ms.
 //
-// Design against the TPU kernel: each CTA loads the n index rows of its kv
-// tile (coalesced, [B, Hm, n, Skv] int32) next to K and V, evaluates the
-// keep predicate per element where the TPU kernel builds a [bq, bk] mask on
-// the VPU, and skips a tile whose keep-mask is empty by a CTA-wide vote
-// (`any_kept`, __syncthreads_or) where the TPU kernel guards its matmuls
-// with `needed & jnp.any(keep)`. Tiles above the causal diagonal are never
-// visited. Reading per-tile min/max row ranges to skip without evaluating
-// the predicate is later work.
-#include "flash_tiles.cuh"
+// Design against the TPU kernel: the bf16 forward (flash_fwd_sm90.cuh)
+// reads a class per (128-row q tile, 128-key kv tile) that the wrapper
+// derives on the device from per-kv-tile min/max of each index row
+// (ops/masked_flash.py `flashmask_tile_classes`, FlashMask's block skip):
+// a skipped tile is never loaded, a full one evaluates no predicate, a
+// partial one applies keep() to its S fragment. The dQ and dK/dV kernels
+// (and the f32 forward) load the n index rows of a 64-key tile (coalesced,
+// [B, Hm, n, Skv] int32) next to K and V, evaluate the keep predicate per
+// element where the TPU kernel builds a [bq, bk] mask on the VPU, and skip
+// a tile whose keep-mask is empty by a CTA-wide vote (`any_kept`,
+// __syncthreads_or) where the TPU kernel guards its matmuls with `needed &
+// jnp.any(keep)`. Tiles above the causal diagonal are never visited.
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -41,6 +45,10 @@ struct FlashMask {
   static constexpr bool kVote = true;
   const int* idx;  // [B, Hm, n, Skv] int32
   int Hm, n;
+  // the sm90 forward's tile classes, [B, Hm, n_qt, n_kt] uint8 (null for
+  // the other kernels)
+  const uint8_t* cls;
+  int n_qt, n_kt;
 
   struct Key {  // a key column's indices; unused ones 0
     int i0, i1, i2, i3;
@@ -74,12 +82,19 @@ struct FlashMask {
     return !masked;
   }
   __device__ __forceinline__ float bias(const Key&) const { return 0.f; }
+  __device__ __forceinline__ bool has_bias() const { return false; }
   // causal: the kv tiles up to the q tile's last row (top-left diagonal)
-  __device__ __forceinline__ int kv_tiles(const Problem& p, int q0) const {
-    const int n_kv = (p.Skv + kTile - 1) / kTile;
+  __device__ __forceinline__ int kv_tiles(const Problem& p, int q0, int bm = kTile,
+                                          int bn = kTile) const {
+    const int n_kv = (p.Skv + bn - 1) / bn;
     if (!p.causal) return n_kv;
-    const int last_row = min(q0 + kTile, p.Sq) - 1;
-    return min(n_kv, last_row / kTile + 1);
+    const int last_row = min(q0 + bm, p.Sq) - 1;
+    return min(n_kv, last_row / bn + 1);
+  }
+  __device__ __forceinline__ int tile_class(const Problem& p, int b, int h, int q0, int k0,
+                                            int bm, int bn) const {
+    const int c = cls[((b * Hm + h / (p.H / Hm)) * n_qt + q0 / bm) * n_kt + k0 / bn];
+    return c;
   }
   // causal: the q tile holding row k0 on
   __device__ __forceinline__ int first_q_tile(const Problem& p, int k0) const {
@@ -101,17 +116,28 @@ bool mask_ok(int Hm, int H, int n, int causal) {
 // with unit d stride and D <= 128; `strides` holds 12 element strides:
 // (b, s, h) of q, k, v and dO (here a copy of q's). idx [B, Hm, n, Skv]
 // int32 contiguous, H a multiple of Hm, n 1 or 2 when causal, 2 or 4
-// otherwise. out [B, Sq, H, D] contiguous in q's dtype; lse [B, H, Sq] f32.
-// Returns cudaGetLastError() after the launch.
+// otherwise. bfloat16 runs the sm90 kernel (q, k, v as run_fwd_sm90 takes
+// them) and reads cls [B, Hm, ceil(Sq / 128), ceil(Skv / 128)] uint8
+// contiguous, the `TileClass` of each tile (float32 ignores it). out
+// [B, Sq, H, D] contiguous in q's dtype; lse [B, H, Sq] f32. Returns
+// cudaGetLastError() after the launch, or the error of a tensor map's
+// encode.
 extern "C" int ptt_flashmask_fwd(const void* q, const void* k, const void* v, const void* idx,
-                                 void* out, void* lse, int B, int H, int Hkv, int Hm, int n,
-                                 int Sq, int Skv, int D, const long long* strides, float scale,
-                                 int causal, int dtype, void* stream) {
+                                 const void* cls, void* out, void* lse, int B, int H, int Hkv,
+                                 int Hm, int n, int Sq, int Skv, int D,
+                                 const long long* strides, float scale, int causal, int dtype,
+                                 void* stream) {
   if (!supported(dtype) || !mask_ok(Hm, H, n, causal)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  nullptr);
+  if (dtype == ptt::kBF16) {
+    if (cls == nullptr) return cudaErrorInvalidValue;
+    const FlashMask m{static_cast<const int*>(idx), Hm, n, static_cast<const uint8_t*>(cls),
+                      (Sq + sm90::kBM - 1) / sm90::kBM, (Skv + sm90::kBN - 1) / sm90::kBN};
+    return run_fwd_sm90(p, m, q, k, v, out, lse, stream);
+  }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
-  return run_fwd(dtype, p, m, q, k, v, out, lse, stream);
+  return run_fwd_f32(p, m, q, k, v, out, lse, stream);
 }
 
 // As ptt_flashmask_fwd, plus dout (strided like q, strides 9..11), lse and

@@ -82,9 +82,9 @@ _SIGNATURES = {
     # strides[12], scale, causal, dtype, stream
     "ptt_flash_bwd_dkv": [_c_void_p] * 9 + [_c_int] * 6
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
-    # q, k, v, idx, out, lse, B, H, Hkv, Hm, n, Sq, Skv, D, strides[12],
-    # scale, causal, dtype, stream
-    "ptt_flashmask_fwd": [_c_void_p] * 6 + [_c_int] * 8
+    # q, k, v, idx, cls, out, lse, B, H, Hkv, Hm, n, Sq, Skv, D,
+    # strides[12], scale, causal, dtype, stream
+    "ptt_flashmask_fwd": [_c_void_p] * 7 + [_c_int] * 8
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
     # q, k, v, idx, dout, lse, delta, dq, B, H, Hkv, Hm, n, Sq, Skv, D,
     # strides[12], scale, causal, dtype, stream

@@ -8,8 +8,10 @@ VJP) whose forward saves the f32 row log-sum-exp and whose backward
 recomputes the probabilities from it. Three kernels, each beside its plain
 version and its launch counter:
 
-- `flash_fwd` → (O, LSE): `csrc/flash_attention.cu` `flash_fwd_kernel` on
-  CUDA tensors, `flash_fwd_plain` on CPU tensors; `FWD_LAUNCHES`;
+- `flash_fwd` → (O, LSE): on CUDA tensors `csrc/flash_attention.cu`'s
+  forward, in bf16 the wgmma kernel of `csrc/flash_fwd_sm90.cuh` (q, k and
+  v through `tma_operands`), in f32 `flash_fwd_kernel`; `flash_fwd_plain`
+  on CPU tensors; `FWD_LAUNCHES`;
 - `flash_bwd_dq` → dQ in q's dtype: `flash_dq_kernel` / `flash_bwd_dq_plain`;
   `DQ_LAUNCHES`;
 - `flash_bwd_dkv` → dK, dV per query head in f32: `flash_dkv_kernel` /
@@ -37,6 +39,10 @@ Semantics, shared by the kernels and the plain versions:
   f32, with the probabilities and dS rounded to bf16 before they enter the
   next product (as the JAX kernel casts p and ds to the operand type) and
   the softmax statistics in f32.
+- The bf16 forward reads q, k and v through TMA tensor maps, which take a
+  view whose base is 16-byte aligned, whose head dim is a multiple of 8
+  and whose strides are multiples of 16 bytes; `tma_operands` passes such
+  views as they are (a fused qkv's slices too) and copies any other.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from . import _build
 __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES", "FlashAttention",
            "flash_attention_fwd", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "flash_fwd", "flash_fwd_plain"]
+           "flash_fwd", "flash_fwd_plain", "tma_operands"]
 
 NEG_INF = -1e30  # paddle_tpu/ops/pallas/flash_attention.py NEG_INF
 EMPTY = -5e29    # a row whose largest logit is at or below this saw no key
@@ -205,15 +211,28 @@ def _check(q, k, v, key_bias):
             raise TypeError("key_bias must be float32")
 
 
-def _cuda_operands(q, k, v, key_bias, dout=None):
-    """Kernel operands: views with a unit head-dim stride (copied only if
-    the last axis is strided), the key bias contiguous, and the 12 (b, s, h)
-    element strides of q, k, v and dout."""
+def _device_checks(q):
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: unsupported device {q.device}")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernels take head dims up to "
                          f"{MAX_HEAD_DIM}, got {q.shape[-1]}")
+
+
+def _strides(q, k, v, dout):
+    """The 12 (b, s, h) element strides of q, k, v and dout (q's where
+    dout is None), as the kernels take them."""
+    strides = []
+    for t in (q, k, v, dout if dout is not None else q):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    return _build.longlongs(strides)
+
+
+def _cuda_operands(q, k, v, key_bias, dout=None):
+    """Kernel operands: views with a unit head-dim stride (copied only if
+    the last axis is strided), the key bias contiguous, and the 12 (b, s, h)
+    element strides of q, k, v and dout."""
+    _device_checks(q)
 
     def unit_d(t):
         return t if t.stride(-1) == 1 else t.contiguous()
@@ -221,10 +240,65 @@ def _cuda_operands(q, k, v, key_bias, dout=None):
     q, k, v = unit_d(q), unit_d(k), unit_d(v)
     dout = None if dout is None else unit_d(dout.to(q.dtype))
     kb = None if key_bias is None else key_bias.contiguous()
-    strides = []
-    for t in (q, k, v, dout if dout is not None else q):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
-    return q, k, v, kb, dout, _build.longlongs(strides)
+    return q, k, v, kb, dout, _strides(q, k, v, dout)
+
+
+def _tma_ready(t):
+    """Whether a TMA tensor map describes the [B, S, H, D] view as it is:
+    unit d stride, D a multiple of 8, the base 16-byte aligned and the
+    stride of every axis longer than 1 a multiple of 16 bytes."""
+    if t.shape[-1] % 8 or t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(t.stride(i) * t.element_size() % 16 == 0
+               for i in range(3) if t.shape[i] > 1)
+
+
+def tma_operands(q, k, v):
+    """(q, k, v, D) as the bf16 sm90 forward takes them. Views a TMA map
+    describes pass as they are (a slice of a fused qkv, say); any other
+    becomes a contiguous copy. When the head dim is not a multiple of 8, all
+    three become contiguous copies with D zero-padded to the next multiple
+    of 8 (returned): zero columns add nothing to Q K^T and give zero output
+    columns, which the caller drops. Pure tensor logic: it runs on any
+    device."""
+    d = q.shape[-1]
+    dp = -(-d // 8) * 8
+    if dp != d:
+        return (*(torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v)),
+                dp)
+    return (*(t if _tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+              for t in (q, k, v)), d)
+
+
+def _fwd_operands(q, k, v, key_bias):
+    """(q, k, v, key bias, strides, D) of a forward launch: bf16 through
+    `tma_operands` (D the head dim the kernel sees), f32 as
+    `_cuda_operands` gives them."""
+    if q.dtype != torch.bfloat16:
+        q, k, v, kb, _, strides = _cuda_operands(q, k, v, key_bias)
+        return q, k, v, kb, strides, q.shape[-1]
+    _device_checks(q)
+    q, k, v, d = tma_operands(q, k, v)
+    kb = None if key_bias is None else key_bias.contiguous()
+    return q, k, v, kb, _strides(q, k, v, None), d
+
+
+def _fwd_outputs(q, Sq, H, d):
+    """Empty O [B, Sq, H, d] in q's dtype and LSE [B, H, Sq] f32."""
+    out = torch.empty(q.shape[0], Sq, H, d, device=q.device, dtype=q.dtype)
+    lse = torch.empty(q.shape[0], H, Sq, device=q.device, dtype=torch.float32)
+    return out, lse
+
+
+def _fwd_result(out, lse, D, Skv):
+    """(O [B, Sq, H, D] contiguous, LSE) of a forward launch whose kernel
+    saw a head dim padded beyond D; with no key every row is empty."""
+    if Skv == 0:
+        out.zero_()
+        lse.fill_(float("inf"))
+    if out.shape[-1] != D:
+        out = out[..., :D].contiguous()
+    return out, lse
 
 
 def _ptr(t):
@@ -238,22 +312,21 @@ def flash_fwd(q, k, v, causal, scale, key_bias=None):
     _check(q, k, v, key_bias)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, scale, key_bias)
-    q, k, v, kb, _, strides = _cuda_operands(q, k, v, key_bias)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty(B, Sq, H, D, device=q.device, dtype=q.dtype)
-    lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out, lse
+    q, k, v, kb, strides, d = _fwd_operands(q, k, v, key_bias)
+    out, lse = _fwd_outputs(q, Sq, H, d)
+    if out.numel() == 0 or Skv == 0:
+        return _fwd_result(out, lse, D, Skv)
     lib = _build.load_library()
     err = lib.ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kb), out.data_ptr(),
-        lse.data_ptr(), B, H, Hkv, Sq, Skv, D, strides, float(scale),
+        lse.data_ptr(), B, H, Hkv, Sq, Skv, d, strides, float(scale),
         int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ptt_flash_fwd")
     FWD_LAUNCHES += 1
-    return out, lse
+    return _fwd_result(out, lse, D, Skv)
 
 
 def _bwd_checks(q, lse, delta):

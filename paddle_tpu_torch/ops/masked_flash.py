@@ -23,11 +23,15 @@ of V there, and aligns its causal mask bottom-right; this port follows the
 kernel).
 
 Three kernels of `csrc/masked_flash.cu` (the tile kernels of
-`csrc/flash_tiles.cuh` under the flashmask policy), each beside its plain
-version and its launch counter:
+`csrc/flash_tiles.cuh` under the flashmask policy; the bf16 forward is the
+wgmma kernel of `csrc/flash_fwd_sm90.cuh`), each beside its plain version
+and its launch counter:
 
 - `flashmask_fwd` → (O, LSE): `flashmask_fwd_plain` on CPU tensors;
-  `FWD_LAUNCHES`;
+  `FWD_LAUNCHES`. In bf16 it reads `flashmask_tile_classes`: per 128-row q
+  tile and 128-key kv tile whether no pair is kept (the tile is skipped),
+  every pair is (no predicate runs) or some are (the predicate runs on
+  the tile), from per-tile min/max of the index rows;
 - `flashmask_bwd_dq` → dQ: `flashmask_bwd_dq_plain`; `DQ_LAUNCHES`;
 - `flashmask_bwd_dkv` → dK, dV per query head in f32:
   `flashmask_bwd_dkv_plain`; `DKV_LAUNCHES`. The backward sums the g heads
@@ -73,7 +77,8 @@ import torch
 
 from . import _build
 from .flash_attention import (_attend, _bwd_checks, _check, _cuda_operands,
-                              _dkv, _dq, _kv_grads, _logits, _probs_and_ds)
+                              _dkv, _dq, _fwd_operands, _fwd_outputs,
+                              _fwd_result, _kv_grads, _logits, _probs_and_ds)
 
 __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES",
            "FlashmaskAttention", "VL_DKV_LAUNCHES", "VL_DQ_LAUNCHES",
@@ -81,7 +86,7 @@ __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES",
            "flashmask_attention_fwd", "flashmask_bwd_dkv",
            "flashmask_bwd_dkv_plain", "flashmask_bwd_dq",
            "flashmask_bwd_dq_plain", "flashmask_fwd", "flashmask_fwd_plain",
-           "flashmask_keep", "varlen_bwd_dkv", "varlen_bwd_dkv_plain",
+           "flashmask_keep", "flashmask_tile_classes", "varlen_bwd_dkv", "varlen_bwd_dkv_plain",
            "varlen_bwd_dq", "varlen_bwd_dq_plain",
            "varlen_flash_attention_fwd", "varlen_fwd", "varlen_fwd_plain",
            "varlen_keep", "varlen_layout"]
@@ -116,6 +121,51 @@ def flashmask_keep(idx, sq, skv, causal):
             masked = (((rows >= i[:, :, 0]) & (rows < i[:, :, 1]))
                       | ((rows >= i[:, :, 2]) & (rows < i[:, :, 3])))
     return keep & ~masked
+
+
+SM90_TILE = 128  # rows and keys of the sm90 forward's tiles (csrc/flash_fwd_sm90.cuh)
+SKIP_TILE, PARTIAL_TILE, FULL_TILE = 0, 1, 2  # csrc/flash_tiles.cuh TileClass
+
+
+def flashmask_tile_classes(idx, sq, skv, causal, tile=SM90_TILE):
+    """uint8 [B, Hm, ceil(Sq / tile), ceil(Skv / tile)]: the class of each
+    (q tile, kv tile) under the integer indices idx [B, Hm, n, Skv], by
+    torch ops on idx's device (no host sync), from the min and max of each
+    index row over the tile's keys: SKIP_TILE where no pair is kept,
+    FULL_TILE where every pair of real rows and keys is (and no key is
+    past Skv), PARTIAL_TILE otherwise. Both tests are sufficient
+    conditions: a tile they cannot decide is partial, where the kernel
+    applies the predicate to each pair."""
+    B, Hm, n, _ = idx.shape
+    nq, nk = -(-sq // tile), -(-skv // tile)
+    pad = nk * tile - skv
+    if pad:  # copies of the last key leave the last tile's min and max as they are
+        idx = torch.cat([idx, idx[..., -1:].expand(B, Hm, n, pad)], -1)
+    lo, hi = torch.aminmax(idx.reshape(B, Hm, n, nk, tile), dim=-1)
+    L, U = lo[:, :, :, None, :].unbind(2), hi[:, :, :, None, :].unbind(2)
+    r0 = torch.arange(0, nq * tile, tile, device=idx.device)[:, None]
+    r1 = (r0 + tile).clamp_(max=sq)  # [nq, 1]: a q tile's rows [r0, r1)
+    if causal:  # top-left: k tiles before q's lie below the diagonal
+        step = (torch.arange(nq, device=idx.device)[:, None]
+                - torch.arange(nk, device=idx.device))
+        if n == 1:  # masked rows >= i0
+            full = (step > 0) & (r1 <= L[0])
+            skip = (step < 0) | (r0 >= U[0])
+        else:  # masked rows in [i0, i1)
+            full = (step > 0) & ((r1 <= L[0]) | (r0 >= U[1]))
+            skip = (step < 0) | ((U[0] <= r0) & (L[1] >= r1))
+    elif n == 2:  # kept rows in [i1, i0)
+        full = (U[1] <= r0) & (r1 <= L[0])
+        skip = (r1 <= L[1]) | (r0 >= U[0])
+    else:  # masked rows in [i0, i1) or in [i2, i3)
+        full = (((r1 <= L[0]) | (r0 >= U[1]))
+                & ((r1 <= L[2]) | (r0 >= U[3])))
+        skip = (((U[0] <= r0) & (L[1] >= r1))
+                | ((U[2] <= r0) & (L[3] >= r1)))
+    if pad:
+        full[..., -1] = False
+    return (full.to(torch.uint8) + FULL_TILE - PARTIAL_TILE
+            ).masked_fill_(skip, SKIP_TILE)
 
 
 def _mask_logits(q, k, idx, causal, scale):
@@ -179,23 +229,26 @@ def flashmask_fwd(q, k, v, idx, causal, scale):
     _check_idx(q, k, idx, causal)
     if q.device.type == "cpu":
         return flashmask_fwd_plain(q, k, v, idx, causal, scale)
-    q, k, v, _, _, strides = _cuda_operands(q, k, v, None)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    q, k, v, _, strides, d = _fwd_operands(q, k, v, None)
+    out, lse = _fwd_outputs(q, Sq, H, d)
+    if out.numel() == 0 or Skv == 0:
+        return _fwd_result(out, lse, D, Skv)
     idx = _kernel_idx(idx)
-    out = torch.empty(B, Sq, H, D, device=q.device, dtype=q.dtype)
-    lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out, lse
+    cls = None
+    if q.dtype == torch.bfloat16:
+        cls = flashmask_tile_classes(idx, Sq, Skv, causal)
     err = _build.load_library().ptt_flashmask_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, H, Hkv, idx.shape[1], idx.shape[2],
-        Sq, Skv, D, strides, float(scale), int(bool(causal)),
+        None if cls is None else cls.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, H, Hkv, idx.shape[1], idx.shape[2], Sq, Skv, d,
+        strides, float(scale), int(bool(causal)),
         _build.DTYPE_CODES[str(q.dtype)],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ptt_flashmask_fwd")
     FWD_LAUNCHES += 1
-    return out, lse
+    return _fwd_result(out, lse, D, Skv)
 
 
 def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale):

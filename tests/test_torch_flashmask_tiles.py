@@ -1,0 +1,204 @@
+"""What the port's bf16 attention forward (csrc/flash_fwd_sm90.cuh) reads
+from Python, on the CPU:
+
+- the flashmask tile classes (ops.masked_flash.flashmask_tile_classes),
+  held to the keep-mask of the JAX package's Pallas kernel
+  (paddle_tpu.ops.pallas.masked_flash._flashmask_keep) and of the port:
+  every kept pair lies in a full or partial tile, every full tile keeps
+  all its pairs, every skipped tile keeps none; over causal n = 1 and
+  n = 2, non-causal n = 2 and n = 4, one mask head and one per query head,
+  S off the tile, and rows that keep no key. Under the trivial causal
+  index only the diagonal tiles are partial.
+- the operand preparation (ops.flash_attention.tma_operands): views a TMA
+  map describes pass as they are; an unaligned base or stride, or a head
+  dim that is not a multiple of 8, gives a contiguous copy (zero-padded to
+  a multiple of 8), and the plain forwards on the copy give the unpadded
+  result.
+
+The kernel itself runs only on the card (chip_smoke.py)."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import masked_flash as jax_mf
+from paddle_tpu_torch.ops import flash_attention as port_fa
+from paddle_tpu_torch.ops import masked_flash as port_mf
+
+
+def _docs(rng, S, n_docs):
+    """Column -> first row of the next document (S in the last one)."""
+    cuts = np.sort(rng.choice(np.arange(1, S), n_docs - 1, replace=False))
+    bounds = np.concatenate([cuts, [S]])
+    return bounds[np.searchsorted(bounds, np.arange(S), side="right")]
+
+
+def _index(rng, B, Hm, S, n, kind):
+    """Indices in the kernels' layout, int32 [B, Hm, n, S], of a mask kind:
+    "trivial" (causal, nothing masked beyond the diagonal), "docs" (causal,
+    3 documents a row; n = 2 masks only the next S/4 rows past a document),
+    "band" (non-causal n = 2: rows >= col + w1 or < col - w2), "holes"
+    (non-causal n = 4) and "empty_rows" (non-causal n = 2: the last 5 rows
+    keep no key)."""
+    idx = np.empty((B, Hm, n, S), np.int32)
+    cols = np.arange(S)
+    for b in range(B):
+        for hm in range(Hm):
+            if kind == "trivial":
+                idx[b, hm] = S
+            elif kind == "docs":
+                idx[b, hm, 0] = _docs(rng, S, 3)
+                if n == 2:
+                    idx[b, hm, 1] = np.minimum(idx[b, hm, 0] + S // 4, S)
+            elif kind == "band":
+                idx[b, hm, 0] = np.minimum(cols + int(rng.integers(20, 90)), S)
+                idx[b, hm, 1] = np.maximum(cols - int(rng.integers(20, 90)), 0)
+            elif kind == "holes":
+                lts = rng.integers(0, S // 2, S)
+                uts = rng.integers(S // 2, S, S)
+                idx[b, hm] = [lts, lts + rng.integers(0, S // 4, S), uts,
+                              uts + rng.integers(0, S // 4, S)]
+            elif kind == "empty_rows":
+                idx[b, hm, 0], idx[b, hm, 1] = S - 5, 0
+    return idx
+
+
+# name: (B, Hm, S, causal, n, kind)
+MASKS = {
+    "causal_n1_trivial": (2, 1, 256, True, 1, "trivial"),
+    "causal_n1_docs_s1000": (2, 1, 1000, True, 1, "docs"),
+    "causal_n2_docs_per_head_s300": (1, 4, 300, True, 2, "docs"),
+    "full_n2_band_s517": (2, 1, 517, False, 2, "band"),
+    "full_n4_holes_per_head_s300": (1, 2, 300, False, 4, "holes"),
+    "full_n2_empty_rows_s200": (2, 1, 200, False, 2, "empty_rows"),
+}
+
+
+def _jax_keep(idx, S, causal):
+    """bool [B, Hm, S, S] from the JAX kernel's `_flashmask_keep`."""
+    B, Hm, n, _ = idx.shape
+    rows = jnp.arange(S)[:, None]
+    cols = jnp.arange(S)[None, :]
+    return np.stack([np.stack([np.asarray(jax_mf._flashmask_keep(
+        jnp.asarray(idx[b, hm]), rows, cols, S, S, causal, n))
+        for hm in range(Hm)]) for b in range(B)])
+
+
+@pytest.mark.parametrize("tile", [128, 32])
+@pytest.mark.parametrize("name", list(MASKS))
+def test_tile_classes_hold_to_the_keep_mask(name, tile):
+    B, Hm, S, causal, n, kind = MASKS[name]
+    idx = _index(np.random.default_rng(len(name)), B, Hm, S, n, kind)
+    keep = _jax_keep(idx, S, causal)
+    np.testing.assert_array_equal(
+        port_mf.flashmask_keep(torch.from_numpy(idx), S, S, causal).numpy(),
+        keep)
+    cls = port_mf.flashmask_tile_classes(torch.from_numpy(idx), S, S, causal,
+                                         tile)
+    nt = math.ceil(S / tile)
+    assert cls.dtype == torch.uint8 and tuple(cls.shape) == (B, Hm, nt, nt)
+    cls = cls.numpy()
+    padded = np.zeros((B, Hm, nt * tile, nt * tile), bool)
+    padded[:, :, :S, :S] = keep
+    blocks = padded.reshape(B, Hm, nt, tile, nt, tile)
+    kept = blocks.sum((3, 5))
+    real = np.minimum(tile, S - np.arange(nt) * tile)  # real rows (keys) a tile
+    skip, full = cls == port_mf.SKIP_TILE, cls == port_mf.FULL_TILE
+    assert set(np.unique(cls)) <= {port_mf.SKIP_TILE, port_mf.PARTIAL_TILE,
+                                   port_mf.FULL_TILE}
+    assert not kept[skip].any(), "a skipped tile keeps a pair"
+    # a full tile keeps every pair of its real rows against a whole kv tile
+    assert (kept == real[:, None] * tile)[full].all(), \
+        "a full tile masks a pair"
+    assert not full[..., real < tile].any(), "a ragged kv tile is full"
+    if kind != "holes":  # structured masks: the classes skip or clear tiles
+        assert skip.any() or full.any()
+
+
+@pytest.mark.parametrize("S", [256, 384, 1000])
+def test_trivial_causal_index_is_partial_only_on_the_diagonal(S):
+    """The LLaMA step's index: below the diagonal full, on it partial,
+    above it skipped (never visited by the causal kernel either)."""
+    idx = torch.full((2, 1, 1, S), S, dtype=torch.int32)
+    cls = port_mf.flashmask_tile_classes(idx, S, S, True).numpy()
+    nt = math.ceil(S / port_mf.SM90_TILE)
+    qt, kt = np.meshgrid(np.arange(nt), np.arange(nt), indexing="ij")
+    want = np.where(kt < qt, port_mf.FULL_TILE,
+                    np.where(kt == qt, port_mf.PARTIAL_TILE,
+                             port_mf.SKIP_TILE))
+    np.testing.assert_array_equal(cls, np.broadcast_to(want, cls.shape))
+
+
+def _views(layout, B=2, S=40, H=4, Hkv=2, D=64):
+    """(q, k, v) bf16 views of a layout on the CPU, values from a seed."""
+    rng = np.random.default_rng(7)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).bfloat16()
+
+    if layout == "fused_qkv":  # one [B, S, 3, H, D] buffer, H == Hkv
+        qkv = tensor(B, S, 3, H, D)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if layout == "unaligned_base":  # every base 2 bytes past a 16-byte line
+        flat = tensor(3 * B * S * H * D + 1)[1:]
+        q = flat[:B * S * H * D].view(B, S, H, D)
+        k = flat[B * S * H * D:B * S * (H + Hkv) * D].view(B, S, Hkv, D)
+        v = flat[B * S * (H + Hkv) * D:B * S * (H + 2 * Hkv) * D].view(
+            B, S, Hkv, D)
+        return q, k, v
+    if layout == "strided_head":  # h stride D + 4: 136 bytes
+        return (tensor(B, S, H, D + 4)[..., :D], tensor(B, S, Hkv, D + 4)[..., :D],
+                tensor(B, S, Hkv, D + 4)[..., :D])
+    if layout == "odd_d":
+        D = 36
+    return tensor(B, S, H, D), tensor(B, S, Hkv, D), tensor(B, S, Hkv, D)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "fused_qkv",
+                                    "unaligned_base", "strided_head", "odd_d"])
+def test_tma_operands_copy_only_what_a_map_cannot_describe(layout):
+    q, k, v = _views(layout)
+    D = q.shape[-1]
+    qp, kp, vp, d = port_fa.tma_operands(q, k, v)
+    passes = layout in ("contiguous", "fused_qkv")
+    assert d == (40 if layout == "odd_d" else D)
+    for t, tp in ((q, qp), (k, kp), (v, vp)):
+        assert (tp is t) == passes
+        if not passes:
+            assert tp.is_contiguous() and tp.data_ptr() % 16 == 0
+            assert tp.shape == (*t.shape[:-1], d)
+        assert port_fa._tma_ready(tp)
+        torch.testing.assert_close(tp[..., :D], t, rtol=0, atol=0)
+        assert not tp[..., D:].any()
+    # the plain forwards (in f32, on the same bf16 values) on what the
+    # kernel would read, padding dropped, against the same forwards on the
+    # views: zero columns add nothing
+    q, k, v, qp, kp, vp = (t.float() for t in (q, k, v, qp, kp, vp))
+    scale = D ** -0.5
+    for causal, kb in ((True, None),
+                       (False, torch.zeros(q.shape[0], q.shape[1]))):
+        out, lse = port_fa.flash_fwd_plain(q, k, v, causal, scale, kb)
+        out_p, lse_p = port_fa.flash_fwd_plain(qp, kp, vp, causal, scale, kb)
+        torch.testing.assert_close(out_p[..., :D], out, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+    idx = torch.from_numpy(_index(np.random.default_rng(3), q.shape[0], 1,
+                                  q.shape[1], 1, "docs"))
+    out, lse = port_mf.flashmask_fwd_plain(q, k, v, idx, True, scale)
+    out_p, lse_p = port_mf.flashmask_fwd_plain(qp, kp, vp, idx, True, scale)
+    torch.testing.assert_close(out_p[..., :D], out, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+
+
+def test_tma_ready_reads_only_axes_longer_than_one():
+    """A decode query [B, 1, H, D] may carry any s stride (a view of a
+    longer buffer): the map never steps along an axis of length 1. A
+    stride of a longer axis that is not a multiple of 16 bytes fails."""
+    buf = torch.zeros(3 * 4 * 65, dtype=torch.bfloat16)
+    assert port_fa._tma_ready(buf.as_strided((3, 1, 4, 64), (256, 3, 64, 1)))
+    assert not port_fa._tma_ready(buf.as_strided((3, 1, 4, 64),
+                                                 (260, 3, 65, 1)))

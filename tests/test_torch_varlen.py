@@ -12,6 +12,7 @@ bf16, the tile ranges the kernels visit, and the entry points with their
 raises. On CPU tensors the port runs its plain versions, which the CUDA
 kernels are held to on the card (chip_smoke.py)."""
 
+import functools
 import os
 
 import numpy as np
@@ -75,8 +76,10 @@ def _bf16_case():
 
 @pytest.fixture(scope="module")
 def jax_refs():
-    """JAX outputs and gradients of every case and of the bf16 case, traced
-    into one jit: the interpret-mode kernels lower and compile once."""
+    """JAX outputs and gradients of every case and of the bf16 case, each
+    case in a jit of its own (one program never carries another case's
+    interpret-mode kernels), copied out of JAX's buffers into numpy arrays
+    that this module owns."""
 
     def vjp(q, k, v, do, cq, ck, causal):
         scale = 1.0 / np.sqrt(q.shape[-1])
@@ -84,20 +87,21 @@ def jax_refs():
             a, b, c, cq, ck, scale, causal=causal), q, k, v)
         return (out,) + tuple(pull(do))
 
-    args = {n: _case(n)[:6] for n in CASES}
-    bf, bcq, bck, _ = _bf16_case()
+    def bf16_vjp(q, k, v, do, cq, ck):
+        return tuple(x.astype(jnp.float32) for x in vjp(
+            *(a.astype(jnp.bfloat16) for a in (q, k, v, do)), cq, ck, True))
 
-    def run(args, bf):
-        refs = {n: vjp(*a, CASES[n][5]) for n, a in args.items()}
-        refs["bf16"] = tuple(x.astype(jnp.float32) for x in vjp(
-            *(a.astype(jnp.bfloat16) for a in bf), bcq, bck, True))
-        return refs
-
+    refs = {}
     with pytest.MonkeyPatch.context() as mp:
         if os.environ.get("PADDLE_TPU_HW") != "1":
             mp.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
-        refs = jax.jit(run)(args, bf)
-    return {n: [np.asarray(x) for x in r] for n, r in refs.items()}
+        for name in CASES:
+            *args, causal = _case(name)
+            refs[name] = jax.jit(functools.partial(vjp, causal=causal))(*args)
+        bf, bcq, bck, _ = _bf16_case()
+        refs["bf16"] = jax.jit(bf16_vjp)(*bf, bcq, bck)
+        return {n: [np.array(x, copy=True) for x in r]
+                for n, r in refs.items()}
 
 
 def _port_run(q, k, v, do, cq, ck, causal, dtype=torch.float32):
@@ -112,7 +116,10 @@ def _port_run(q, k, v, do, cq, ck, causal, dtype=torch.float32):
 
 def _assert_matches(got, want):
     assert all(np.isfinite(g).all() for g in got)
-    np.testing.assert_allclose(got[0], want[0], rtol=VAL_TOL, atol=VAL_TOL)
+    off = np.argwhere(np.abs(got[0] - want[0]) > VAL_TOL * (1 + np.abs(want[0])))
+    np.testing.assert_allclose(
+        got[0], want[0], rtol=VAL_TOL, atol=VAL_TOL,
+        err_msg=f"(token, head, d) out of tolerance: {off[:16].tolist()}")
     for g, w, what in zip(got[1:], want[1:], ("dq", "dk", "dv")):
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=GRAD_TOL * np.abs(w).max(),
