@@ -6,12 +6,13 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. build      — compile paddle_tpu_torch/csrc/*.cu with nvcc (sm_90a, one
-                process per source, in parallel), load it. The bf16
-                attention forward's four instantiations (flash and
-                flashmask at head dims 64 and 128): registers and spills
-                from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
-                instructions from `cuobjdump -sass`, none of which may be
-                zero.
+                process per source, in parallel), load it. The Hopper
+                kernels' instantiations, one line each for the bf16
+                attention forward (flash and flashmask at head dims 64
+                and 128) and the bf16 flashmask backward (dQ and dK/dV at
+                64 and 128): registers and spills from ptxas, wgmma
+                (HGMMA) and TMA-load (UTMALDG) instructions from
+                `cuobjdump -sass`; none may spill or lack either.
 2. kernels    — each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes its path gives it and a few edge
                 shapes, in float32 and bfloat16: max error against a stated
@@ -36,7 +37,11 @@ Phases; any failure raises and the script exits non-zero:
                 and document masks: causal n = 1 and n = 2, non-causal
                 n = 2 and n = 4 (n = 2 and rows that keep no key in bf16
                 and f32), a mask per head, GQA, S not a multiple of 64 or
-                128, rows that keep no key), the grouped GEMM (the gpt3_moe
+                128, rows that keep no key; the backward kernels read the
+                tile classes the forward derives), then the path's
+                flashmask_attention_fwd(...).backward(dO) through autograd
+                against the plain functions (dQ, and dK, dV of the kv
+                heads), the grouped GEMM (the gpt3_moe
                 rung's four products with the group sizes of a real
                 routing, bf16 and f32; groups with no and all live rows,
                 partly live tiles, strides 16 and 48, K and N off the tile,
@@ -49,8 +54,11 @@ Phases; any failure raises and the script exits non-zero:
                 one planted fault (a kv or q tile skipped, long rows
                 normalised 1% off; flashmask: a partial tile of the
                 forward treated as full, the end bound of n = 2
-                ignored, partly kept tiles skipped, every head reading mask
-                head 0; varlen: each q tile's first kv tile skipped, the
+                ignored, partly kept tiles of the f32 kernels skipped,
+                every head reading mask head 0, and in the bf16 backward
+                a q tile's last kv tile skipped in dQ, a partial tile
+                treated as full and a kv head's group of query heads one
+                short in dK/dV; varlen: each q tile's first kv tile skipped, the
                 segment test's upper bound dropped; grouped GEMM: a partly
                 live tile treated as dead): at its case every one must fail
                 the limits of phase 2. Only the sources a fault touches are
@@ -314,24 +322,38 @@ def ptxas_summary(log):
             "spill_store_bytes": spills}
 
 
-SM90_KERNEL = re.compile(r"flash_fwd_sm90_kernelILi(\d+)E.*?(CausalBias|FlashMask)")
+SM90_KERNEL = re.compile(
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E.*?(CausalBias|FlashMask)")
+# the Hopper kernels' instantiations chip_smoke.py expects: the bf16
+# forward of flash and flashmask (csrc/flash_fwd_sm90.cuh) and the bf16
+# flashmask dQ and dK/dV (csrc/flash_bwd_sm90.cuh), at head dims 64 and 128
+SM90_EXPECTED = {
+    "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>" for m in ("CausalBias", "FlashMask")
+                for d in (64, 128)],
+    "backward": [f"{k}<{d}, FlashMask>" for k in ("flash_bwd_dq_sm90_kernel",
+                                                 "flash_bwd_dkv_sm90_kernel")
+                 for d in (64, 128)],
+}
 
 
 def sm90_report(card, lib_path, log):
-    """The bf16 forward's instantiations (`flash_fwd_sm90_kernel<DT,
-    policy>`, csrc/flash_fwd_sm90.cuh) as built: registers and spill-store
-    bytes from nvcc's `-Xptxas -v` (`log`, empty if this process did not
-    build), and the wgmma (HGMMA) and TMA-load (UTMALDG) instructions that
-    `cuobjdump -sass` finds in each in the library. Raises if an
-    instantiation has none of either: it would not run on Hopper's tensor
-    cores fed by TMA."""
+    """The Hopper kernels' instantiations as built (SM90_EXPECTED): registers
+    and spill-store bytes from nvcc's `-Xptxas -v` (`log`, empty if this
+    process did not build), and the wgmma (HGMMA) and TMA-load (UTMALDG)
+    instructions that `cuobjdump -sass` finds in each in the library. One
+    line for the forward, one for the backward. Raises if an instantiation
+    is missing, spills, or has no wgmma or no TMA load: it would not run on
+    Hopper's tensor cores fed by TMA."""
     import shutil
+
+    def name_of(ln):
+        m = SM90_KERNEL.search(ln)
+        return f"{m[1]}<{m[2]}, {m[3]}>" if m else None
 
     report, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = SM90_KERNEL.search(ln)
-            name = f"flash_fwd_sm90_kernel<{m[1]}, {m[2]}>" if m else None
+            name = name_of(ln)
             if name:
                 report[name] = {}
         elif name and "bytes spill stores" in ln:
@@ -347,19 +369,22 @@ def sm90_report(card, lib_path, log):
     name = None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            m = SM90_KERNEL.search(ln)
-            name = f"flash_fwd_sm90_kernel<{m[1]}, {m[2]}>" if m else None
+            name = name_of(ln)
             if name:
                 report.setdefault(name, {}).update(HGMMA=0, UTMALDG=0)
         elif name:
             for op in ("HGMMA", "UTMALDG"):
                 report[name][op] += op in ln
-    say(card, "sm90 forward " + json.dumps(report))
-    bare = [n for n, r in report.items()
-            if not (r.get("HGMMA") and r.get("UTMALDG"))]
-    if len(report) < 4 or bare:
-        raise AssertionError(f"the sm90 forward's instantiations lack wgmma "
-                             f"or TMA loads: {bare or report}")
+    bad = []
+    for part, names in SM90_EXPECTED.items():
+        say(card, f"sm90 {part} " + json.dumps({n: report.get(n) for n in names}))
+        for n in names:
+            r = report.get(n) or {}
+            if not (r.get("HGMMA") and r.get("UTMALDG")) or r.get("spill_store_bytes"):
+                bad.append(n)
+    if bad:
+        raise AssertionError(f"sm90 instantiations missing, spilling, or "
+                             f"without wgmma or TMA loads: {bad}")
     return report
 
 
@@ -1119,16 +1144,26 @@ def _flashmask_inputs(torch, gen, name):
     return q, k, v, dout, torch.as_tensor(idx, device="cuda"), causal, dtype
 
 
-def _flashmask_outputs(mf, q, k, v, dout, idx, causal, scale):
-    """As `_flash_outputs`, for the flashmask kernels."""
+def _flashmask_classes(mf, torch, q, idx, causal):
+    """The tile classes the bf16 kernels read (None in f32), derived once
+    as FlashmaskAttention's forward does for its backward."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return mf.flashmask_tile_classes(idx, q.shape[1], q.shape[1], causal)
+
+
+def _flashmask_outputs(mf, q, k, v, dout, idx, causal, scale, cls):
+    """As `_flash_outputs`, for the flashmask kernels; the backward
+    kernels read the tile classes `cls`."""
     out, lse = mf.flashmask_fwd(q, k, v, idx, causal, scale)
     out_p, lse_p = mf.flashmask_fwd_plain(q, k, v, idx, causal, scale)
     delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = mf.flashmask_bwd_dq(q, k, v, idx, dout, lse_p, delta, causal, scale)
+    dq = mf.flashmask_bwd_dq(q, k, v, idx, dout, lse_p, delta, causal, scale,
+                             cls)
     dq_p = mf.flashmask_bwd_dq_plain(q, k, v, idx, dout, lse_p, delta, causal,
                                      scale)
     dk, dv = mf.flashmask_bwd_dkv(q, k, v, idx, dout, lse_p, delta, causal,
-                                  scale)
+                                  scale, cls)
     dk_p, dv_p = mf.flashmask_bwd_dkv_plain(q, k, v, idx, dout, lse_p, delta,
                                             causal, scale)
     return ({"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
@@ -1157,8 +1192,9 @@ def check_flashmask(card, torch):
             FLASHMASK_CASES.items():
         q, k, v, dout, idx, causal, dtype = _flashmask_inputs(torch, gen, name)
         scale = D ** -0.5
+        cls = _flashmask_classes(mf, torch, q, idx, causal)
         got, plain, delta = _flashmask_outputs(mf, q, k, v, dout, idx, causal,
-                                               scale)
+                                               scale, cls)
         torch.cuda.synchronize()
         errs = _flash_errs(got, plain)
         failures += [f"flashmask {name}: {b}"
@@ -1182,18 +1218,18 @@ def check_flashmask(card, torch):
                     2 * qo + 2 * kv + stats + idx_bytes, 4 * pairs * D,
                     ("out", "lse")),
             "dq": (lambda: mf.flashmask_bwd_dq(q, k, v, idx, dout, plain["lse"],
-                                               delta, causal, scale),
+                                               delta, causal, scale, cls),
                    lambda: mf.flashmask_bwd_dq_plain(
                        q, k, v, idx, dout, plain["lse"], delta, causal, scale),
                    3 * qo + 2 * kv + 2 * stats + idx_bytes, 6 * pairs * D,
                    ("dq",)),
             "dkv": (lambda: mf.flashmask_bwd_dkv(q, k, v, idx, dout,
                                                  plain["lse"], delta, causal,
-                                                 scale),
+                                                 scale, cls),
                     lambda: mf.flashmask_bwd_dkv_plain(
                         q, k, v, idx, dout, plain["lse"], delta, causal, scale),
                     2 * qo + 2 * kv + 2 * stats + idx_bytes
-                    + 2 * B * S * H * D * 4, 8 * pairs * D, ("dk", "dv")),
+                    + 2 * B * S * Hkv * D * 4, 8 * pairs * D, ("dk", "dv")),
         }
         lib = {}
         if name == "path":
@@ -1235,6 +1271,58 @@ def check_flashmask(card, torch):
     if failures:
         raise AssertionError("; ".join(failures))
     return {"worst": worst, "main": main}
+
+
+def check_flashmask_autograd(card, torch):
+    """flashmask_attention_fwd(q, k, v, idx).backward(dO) at the path shape
+    (FLASHMASK_CASES "path": bf16, B 4 x 2048, 32 query heads over 8 kv
+    heads of 128, the trivial causal index) through the kernels, against
+    the plain functions on the same inputs on the card, held with
+    check_flash's limits: O, dQ, and dK and dV of the kv heads (the plain
+    versions' group sums, rounded to k's dtype as the backward rounds the
+    kernel's). It holds what autograd adds around the kernels: the tile
+    classes the forward saves for the backward, dO as autograd hands it
+    over, and the kv heads' f32 gradients the dk/dv kernel writes. One
+    launch of each flashmask kernel."""
+    from paddle_tpu_torch.ops import masked_flash as mf
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, dout, idx, causal, dtype = _flashmask_inputs(torch, gen, "path")
+    scale = q.shape[-1] ** -0.5
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = (mf.FWD_LAUNCHES, mf.DQ_LAUNCHES, mf.DKV_LAUNCHES)
+    out = mf.flashmask_attention_fwd(*leaves, idx.transpose(2, 3),
+                                     causal=causal, scale=scale)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip(
+        (mf.FWD_LAUNCHES, mf.DQ_LAUNCHES, mf.DKV_LAUNCHES), before)]
+    out_p, lse_p = mf.flashmask_fwd_plain(q, k, v, idx, causal, scale)
+    delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_p = mf.flashmask_bwd_dq_plain(q, k, v, idx, dout, lse_p, delta, causal,
+                                     scale)
+    dk_p, dv_p = mf.flashmask_bwd_dkv_plain(q, k, v, idx, dout, lse_p, delta,
+                                            causal, scale)
+    got = {"out": out.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
+           "dv": leaves[2].grad}
+    plain = {"out": out_p, "dq": dq_p, "dk": dk_p.to(k.dtype),
+             "dv": dv_p.to(v.dtype)}
+    errs = _flash_errs(got, plain)
+    bad = _flash_violations(errs, dtype)
+    shapes = {w: list(t.shape) for w, t in got.items()}
+    say(card, "flashmask autograd " + json.dumps({
+        "case": "path", "launches_fwd_dq_dkv": launches, "shapes": shapes,
+        "errors": {w: {"max_abs": e[0], "row_rel": e[1], "frobenius_rel": e[2]}
+                   for w, e in errs.items()},
+        "tol": FLASH_TOL[dtype], "frobenius_tol": FLASH_FROB_TOL[dtype]}))
+    if launches != [1, 1, 1]:
+        bad.append(f"launches (fwd, dq, dk/dv) {launches}, not one each")
+    if shapes["dk"] != list(k.shape) or got["dk"].dtype != k.dtype:
+        bad.append(f"dk {shapes['dk']} {got['dk'].dtype}, not k's")
+    del q, k, v, dout, leaves, out, got, plain
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("flashmask autograd: " + "; ".join(bad))
 
 
 # Grouped GEMM kernel vs plain, every output row held to its own largest
@@ -1553,12 +1641,23 @@ KERNEL_FAULTS = {
     "flashmask: the end bound of causal n = 2 ignored": (
         "masked_flash.cu", "struct FlashMask", "(row >= k.i0 && row < k.i1)",
         "(row >= k.i0)", "causal_n2_per_head_s1000_gqa"),
-    "flashmask: a tile whose keep-mask is partly empty skipped": (
+    "flashmask f32: a tile whose keep-mask is partly empty skipped": (
         "flash_tiles.cuh", "bool any_kept(", "__syncthreads_or(mine) != 0",
-        "__syncthreads_and(mine) != 0", "path"),
+        "__syncthreads_and(mine) != 0", "empty_rows_f32_d64"),
     "flashmask: every query head reads mask head 0": (
         "masked_flash.cu", "struct FlashMask", "h / (p.H / Hm)", "0 * h",
         "causal_n2_per_head_s1000_gqa"),
+    "flashmask bwd dq: q tiles past the first skip their last kv tile": (
+        "flash_bwd_sm90.cuh", "flash_bwd_dq_sm90_kernel(",
+        "mask.kv_tiles(p, q0, kBM, kBN);",
+        "mask.kv_tiles(p, q0, kBM, kBN) - (q0 > 0);", "path"),
+    "flashmask bwd dk/dv: a partial tile treated as full": (
+        "flash_bwd_sm90.cuh", "void dkv_consume(",
+        "const bool partial = cls == kPartialTile;",
+        "const bool partial = false;", "causal_n1_docs"),
+    "flashmask bwd dk/dv: the group loop stops one query head short": (
+        "flash_bwd_sm90.cuh", "flash_bwd_dkv_sm90_kernel(", "h1 = h0 + p.g;",
+        "h1 = h0 + p.g - 1;", "causal_n2_per_head_s1000_gqa"),
     "varlen: each q tile's first kv tile skipped": (
         "varlen_flash.cu", "struct Varlen", "return qrange[q0 / kTile] / kTile;",
         "return qrange[q0 / kTile] / kTile + 1;", "varlen path"),
@@ -1605,8 +1704,9 @@ def _fault_violations(torch, case):
     else:
         gen = torch.Generator(device="cuda").manual_seed(9)
         q, k, v, dout, idx, causal, dtype = _flashmask_inputs(torch, gen, case)
-        got, plain, _ = _flashmask_outputs(mf, q, k, v, dout, idx, causal,
-                                           q.shape[-1] ** -0.5)
+        got, plain, _ = _flashmask_outputs(
+            mf, q, k, v, dout, idx, causal, q.shape[-1] ** -0.5,
+            _flashmask_classes(mf, torch, q, idx, causal))
     return _flash_violations(_flash_errs(got, plain), dtype)
 
 
@@ -2416,7 +2516,9 @@ def train(card, torch, which):
     return launches
 
 
-# the kernels of csrc/ by name, as torch.profiler reports them
+# the kernels of csrc/ by name, as torch.profiler reports them (the sm90
+# ones: flash_fwd_sm90_kernel, flash_bwd_dq_sm90_kernel,
+# flash_bwd_dkv_sm90_kernel)
 PORT_KERNEL = re.compile(
     r"^void \(anonymous namespace\)::(sm90::)?(flash_|norm_|decode_tile_|rope_|gg_)")
 
@@ -2810,6 +2912,7 @@ def main():
     check_flash_decode(card, torch)
     rope = check_rope(card, torch)
     flashmask = check_flashmask(card, torch)
+    check_flashmask_autograd(card, torch)
     grouped = check_grouped_gemm(card, torch)
     varlen = check_varlen(card, torch)
     planted_kernel_faults(card, torch)
@@ -2839,6 +2942,7 @@ def main():
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fwd_src = "paddle_tpu_torch/csrc/flash_fwd_sm90.cuh"
+    bwd_src = "paddle_tpu_torch/csrc/flash_bwd_sm90.cuh"
     fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
     mf_src = "paddle_tpu_torch/csrc/masked_flash.cu"
     mf_ref = "paddle_tpu/ops/pallas/masked_flash.py"
@@ -2867,9 +2971,9 @@ def main():
              rope["worst"]),
             ("flashmask_fwd", fwd_src, mf_ref + ":77", flashmask["main"]["fwd"],
              flashmask["worst"]["fwd"]),
-            ("flashmask_bwd_dq", mf_src, mf_ref + ":138",
+            ("flashmask_bwd_dq", bwd_src, mf_ref + ":138",
              flashmask["main"]["dq"], flashmask["worst"]["dq"]),
-            ("flashmask_bwd_dkv", mf_src, mf_ref + ":182",
+            ("flashmask_bwd_dkv", bwd_src, mf_ref + ":182",
              flashmask["main"]["dkv"], flashmask["worst"]["dkv"]),
             ("grouped_gemm", "paddle_tpu_torch/csrc/grouped_gemm.cu",
              "paddle_tpu/ops/pallas/grouped_gemm.py:110", grouped["main"],

@@ -44,9 +44,10 @@
 // ragged edge and any head dim below 64 or 128 zero-filled: no transpose
 // and no padded copy in HBM), then reused by 64 rows. Two forms of the
 // products, chosen by the input type:
-//   - bf16 (the backward kernels and the varlen forward; the bf16 forward
+//   - bf16 (flash's backward and varlen's three kernels; the bf16 forward
 //     of flash and flashmask is flash_fwd_sm90.cuh's wgmma kernel, fed by
-//     TMA): the tensor cores, through WMMA 16x16x16
+//     TMA, and flashmask's bf16 dQ and dK/dV are flash_bwd_sm90.cuh's):
+//     the tensor cores, through WMMA 16x16x16
 //     bf16 fragments with f32 accumulation, 4 warps of 16 rows each. A
 //     warp's 16x64 score tile goes to shared memory in f32, two lanes per
 //     row run the softmax (or its gradient) on it, and the probabilities
@@ -61,8 +62,8 @@
 //     smem rows and no two hit the same bank) and 2 rows x D/8 columns of
 //     the output; the row softmax reduces over the 8 lanes of a row group
 //     with shuffles and rescales its own accumulator in registers.
-// TMA, wgmma and warp specialisation: flash_fwd_sm90.cuh, the bf16 forward
-// of flash and flashmask; these kernels keep the synchronous loads.
+// TMA and wgmma: flash_fwd_sm90.cuh and flash_bwd_sm90.cuh; these kernels
+// keep the synchronous loads.
 #pragma once
 
 #include <math.h>
@@ -912,7 +913,10 @@ cudaError_t launch_fwd_tc(const Problem& p, const M& m, const void* q, const voi
                 static_cast<const bf16*>(v), static_cast<bf16*>(out), lse);
 }
 
-template <int DT, class M>
+// The backward passes: float32 on the CUDA cores, bfloat16 on WMMA when
+// kWmma (flashmask's bfloat16 backward is flash_bwd_sm90.cuh's, so
+// masked_flash.cu instantiates only the float32 kernels)
+template <int DT, bool kWmma, class M>
 cudaError_t launch_dq(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                       const void* v, const void* dout, const float* lse, const float* delta,
                       void* dq, cudaStream_t st) {
@@ -924,14 +928,17 @@ cudaError_t launch_dq(int dtype, const Problem& p, const M& m, const void* q, co
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dout), lse,
                   delta, static_cast<float*>(dq));
-  return launch(flash_dq_tc_kernel<DT, M>, grid, kTcThreads,
-                4 * operand_bytes<bf16, DT>() + kPb + 2 * kSf + kKeys, st, p, m,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-                static_cast<bf16*>(dq));
+  if constexpr (!kWmma)
+    return cudaErrorInvalidValue;
+  else
+    return launch(flash_dq_tc_kernel<DT, M>, grid, kTcThreads,
+                  4 * operand_bytes<bf16, DT>() + kPb + 2 * kSf + kKeys, st, p, m,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                  static_cast<bf16*>(dq));
 }
 
-template <int DT, class M>
+template <int DT, bool kWmma, class M>
 cudaError_t launch_dkv(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                        const void* v, const void* dout, const float* lse, const float* delta,
                        float* dk, float* dv, cudaStream_t st) {
@@ -942,11 +949,14 @@ cudaError_t launch_dkv(int dtype, const Problem& p, const M& m, const void* q, c
                   static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dout), lse,
                   delta, dk, dv);
-  return launch(flash_dkv_tc_kernel<DT, M>, grid, kTcThreads,
-                4 * operand_bytes<bf16, DT>() + 2 * kPb + 2 * kSf + 2 * kTile * kF, st, p, m,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-                dk, dv);
+  if constexpr (!kWmma)
+    return cudaErrorInvalidValue;
+  else
+    return launch(flash_dkv_tc_kernel<DT, M>, grid, kTcThreads,
+                  4 * operand_bytes<bf16, DT>() + 2 * kPb + 2 * kSf + 2 * kTile * kF, st, p,
+                  m, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                  dk, dv);
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
@@ -1002,18 +1012,18 @@ cudaError_t run_fwd(int dtype, const Problem& p, const M& m, const void* q, cons
                    : launch_fwd_tc<128>(p, m, q, k, v, out, l, st);
 }
 
-template <class M>
+template <bool kWmma = true, class M>
 cudaError_t run_dq(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                    const void* v, const void* dout, const void* lse, const void* delta,
                    void* dq, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dq<64>(dtype, p, m, q, k, v, dout, l, dl, dq, st)
-                   : launch_dq<128>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+  return p.D <= 64 ? launch_dq<64, kWmma>(dtype, p, m, q, k, v, dout, l, dl, dq, st)
+                   : launch_dq<128, kWmma>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
 }
 
-template <class M>
+template <bool kWmma = true, class M>
 cudaError_t run_dkv(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                     const void* v, const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, void* stream) {
@@ -1022,8 +1032,8 @@ cudaError_t run_dkv(int dtype, const Problem& p, const M& m, const void* q, cons
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dkv<64>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st)
-                   : launch_dkv<128>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+  return p.D <= 64 ? launch_dkv<64, kWmma>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st)
+                   : launch_dkv<128, kWmma>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
 }
 
 }  // namespace

@@ -5,9 +5,8 @@
 //     :408): O and the f32 row LSE of softmax(Q K^T * scale) V over the
 //     pairs that `_flashmask_keep` :46 keeps;
 //   - `_fm_bwd_dq_kernel` :138 (pallas_call :291): dQ;
-//   - `_fm_bwd_dkv_kernel` :182 (pallas_call :311): dK, dV per expanded
-//     query head in f32 (the caller group-sums them for GQA, as `_fm_bwd`
-//     does).
+//   - `_fm_bwd_dkv_kernel` :182 (pallas_call :311): dK, dV of the kv heads
+//     in f32 (the g query heads of a kv head summed, as `_fm_bwd` does).
 // The mask: per key column c, the indices idx[b, hm, :, c] (hm = h / (H /
 // Hm), n = 1, 2 or 4 of them) name the query rows that are MASKED OUT:
 //   causal n = 1: rows >= start;  causal n = 2: rows in [start, end);
@@ -18,26 +17,28 @@
 // no key gets zeros and LSE = +inf (the JAX kernel gives -1e30 there; its
 // recomputed P is 0 either way), so its gradients are exactly 0.
 //
-// The kernels are the tile kernels of flash_tiles.cuh (their bound, bf16
-// tensor-core and f32 CUDA-core forms are described there) under the mask
-// policy `FlashMask` below. Bound at the LLaMA-7B-shape training step (B 4,
-// S 2048, 32 query heads of 128 over 8 kv heads, causal, the trivial
+// bfloat16 runs the Hopper kernels under the mask policy `FlashMask`
+// below: the forward of flash_fwd_sm90.cuh, the dQ and dK/dV of
+// flash_bwd_sm90.cuh (wgmma fed by TMA). float32 runs the CUDA-core tile
+// kernels of flash_tiles.cuh. Bound at the LLaMA-7B-shape training step
+// (B 4, S 2048, 32 query heads of 128 over 8 kv heads, causal, the trivial
 // mask): operations, 2.69e8 visible pairs x 32 heads; forward 4 D, dQ 6 D,
 // dK/dV 8 D operations a pair at 989 TFLOP/s: 0.139, 0.209, 0.278 ms.
 //
-// Design against the TPU kernel: the bf16 forward (flash_fwd_sm90.cuh)
-// reads a class per (128-row q tile, 128-key kv tile) that the wrapper
-// derives on the device from per-kv-tile min/max of each index row
-// (ops/masked_flash.py `flashmask_tile_classes`, FlashMask's block skip):
-// a skipped tile is never loaded, a full one evaluates no predicate, a
-// partial one applies keep() to its S fragment. The dQ and dK/dV kernels
-// (and the f32 forward) load the n index rows of a 64-key tile (coalesced,
-// [B, Hm, n, Skv] int32) next to K and V, evaluate the keep predicate per
-// element where the TPU kernel builds a [bq, bk] mask on the VPU, and skip
-// a tile whose keep-mask is empty by a CTA-wide vote (`any_kept`,
-// __syncthreads_or) where the TPU kernel guards its matmuls with `needed &
-// jnp.any(keep)`. Tiles above the causal diagonal are never visited.
-#include "flash_fwd_sm90.cuh"
+// Design against the TPU kernel: the bf16 kernels read a class per
+// (128-row q tile, 128-key kv tile) that the wrapper derives on the device
+// from per-kv-tile min/max of each index row (ops/masked_flash.py
+// `flashmask_tile_classes`, FlashMask's block skip; the forward computes
+// it once and the backward reuses it): a skipped tile is never loaded, a
+// full one evaluates no predicate, a partial one applies keep() to its
+// score fragment. The f32 kernels load the n index rows of a 64-key tile
+// (coalesced, [B, Hm, n, Skv] int32) next to K and V, evaluate the keep
+// predicate per element where the TPU kernel builds a [bq, bk] mask on the
+// VPU, and skip a tile whose keep-mask is empty by a CTA-wide vote
+// (`any_kept`, __syncthreads_or) where the TPU kernel guards its matmuls
+// with `needed & jnp.any(keep)`. Tiles above the causal diagonal are never
+// visited.
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -45,8 +46,8 @@ struct FlashMask {
   static constexpr bool kVote = true;
   const int* idx;  // [B, Hm, n, Skv] int32
   int Hm, n;
-  // the sm90 forward's tile classes, [B, Hm, n_qt, n_kt] uint8 (null for
-  // the other kernels)
+  // the sm90 kernels' tile classes, [B, Hm, n_qt, n_kt] uint8 (null for
+  // the f32 kernels)
   const uint8_t* cls;
   int n_qt, n_kt;
 
@@ -110,6 +111,13 @@ bool mask_ok(int Hm, int H, int n, int causal) {
   return Hm >= 1 && H % Hm == 0 && (causal ? (n == 1 || n == 2) : (n == 2 || n == 4));
 }
 
+// the policy of the sm90 kernels: the indices and the tile classes
+// [B, Hm, ceil(Sq / 128), ceil(Skv / 128)]
+FlashMask sm90_mask(const void* idx, const void* cls, int Hm, int n, int Sq, int Skv) {
+  return {static_cast<const int*>(idx), Hm, n, static_cast<const uint8_t*>(cls),
+          (Sq + sm90::kBM - 1) / sm90::kBM, (Skv + sm90::kBN - 1) / sm90::kBN};
+}
+
 }  // namespace
 
 // q [B, Sq, H, D], k/v [B, Skv, Hkv, D] in one dtype (float32 or bfloat16)
@@ -132,40 +140,51 @@ extern "C" int ptt_flashmask_fwd(const void* q, const void* k, const void* v, co
                                  nullptr);
   if (dtype == ptt::kBF16) {
     if (cls == nullptr) return cudaErrorInvalidValue;
-    const FlashMask m{static_cast<const int*>(idx), Hm, n, static_cast<const uint8_t*>(cls),
-                      (Sq + sm90::kBM - 1) / sm90::kBM, (Skv + sm90::kBN - 1) / sm90::kBN};
-    return run_fwd_sm90(p, m, q, k, v, out, lse, stream);
+    return run_fwd_sm90(p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, out, lse, stream);
   }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
   return run_fwd_f32(p, m, q, k, v, out, lse, stream);
 }
 
-// As ptt_flashmask_fwd, plus dout (strided like q, strides 9..11), lse and
-// delta = rowsum(dO * O) [B, H, Sq] f32; writes dq [B, Sq, H, D] contiguous
-// in q's dtype.
+// As ptt_flashmask_fwd, plus dout (strided like q, strides 9..11; in
+// bfloat16 as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O)
+// [B, H, Sq] f32, and (bfloat16) the forward's tile classes cls; writes dq
+// [B, Sq, H, D] contiguous in q's dtype.
 extern "C" int ptt_flashmask_bwd_dq(const void* q, const void* k, const void* v,
-                                    const void* idx, const void* dout, const void* lse,
-                                    const void* delta, void* dq, int B, int H, int Hkv, int Hm,
-                                    int n, int Sq, int Skv, int D, const long long* strides,
-                                    float scale, int causal, int dtype, void* stream) {
+                                    const void* idx, const void* cls, const void* dout,
+                                    const void* lse, const void* delta, void* dq, int B, int H,
+                                    int Hkv, int Hm, int n, int Sq, int Skv, int D,
+                                    const long long* strides, float scale, int causal,
+                                    int dtype, void* stream) {
   if (!supported(dtype) || !mask_ok(Hm, H, n, causal)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
+  if (dtype == ptt::kBF16) {
+    if (cls == nullptr) return cudaErrorInvalidValue;
+    return run_bwd_sm90(p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, dout, lse, delta, dq,
+                        nullptr, nullptr, stream);
+  }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
-  return run_dq(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
+  return run_dq<false>(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
 }
 
-// As ptt_flashmask_bwd_dq; writes dk, dv [B, Skv, H, D] contiguous f32, one
-// slice per query head (the caller sums the g heads of a kv head).
+// As ptt_flashmask_bwd_dq; writes dk, dv contiguous f32: in bfloat16 the
+// kv heads' gradients [B, Skv, Hkv, D], in float32 one slice per query
+// head [B, Skv, H, D] (the caller sums the g heads of a kv head).
 extern "C" int ptt_flashmask_bwd_dkv(const void* q, const void* k, const void* v,
-                                     const void* idx, const void* dout, const void* lse,
-                                     const void* delta, void* dk, void* dv, int B, int H,
-                                     int Hkv, int Hm, int n, int Sq, int Skv, int D,
-                                     const long long* strides, float scale, int causal,
+                                     const void* idx, const void* cls, const void* dout,
+                                     const void* lse, const void* delta, void* dk, void* dv,
+                                     int B, int H, int Hkv, int Hm, int n, int Sq, int Skv,
+                                     int D, const long long* strides, float scale, int causal,
                                      int dtype, void* stream) {
   if (!supported(dtype) || !mask_ok(Hm, H, n, causal)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
+  if (dtype == ptt::kBF16) {
+    if (cls == nullptr) return cudaErrorInvalidValue;
+    return run_bwd_sm90(p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, dout, lse, delta,
+                        nullptr, dk, dv, stream);
+  }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
-  return run_dkv(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
+  return run_dkv<false>(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
 }

@@ -86,13 +86,13 @@ _SIGNATURES = {
     # strides[12], scale, causal, dtype, stream
     "ptt_flashmask_fwd": [_c_void_p] * 7 + [_c_int] * 8
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
-    # q, k, v, idx, dout, lse, delta, dq, B, H, Hkv, Hm, n, Sq, Skv, D,
-    # strides[12], scale, causal, dtype, stream
-    "ptt_flashmask_bwd_dq": [_c_void_p] * 8 + [_c_int] * 8
+    # q, k, v, idx, cls, dout, lse, delta, dq, B, H, Hkv, Hm, n, Sq, Skv,
+    # D, strides[12], scale, causal, dtype, stream
+    "ptt_flashmask_bwd_dq": [_c_void_p] * 9 + [_c_int] * 8
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
-    # q, k, v, idx, dout, lse, delta, dk, dv, B, H, Hkv, Hm, n, Sq, Skv, D,
-    # strides[12], scale, causal, dtype, stream
-    "ptt_flashmask_bwd_dkv": [_c_void_p] * 9 + [_c_int] * 8
+    # q, k, v, idx, cls, dout, lse, delta, dk, dv, B, H, Hkv, Hm, n, Sq,
+    # Skv, D, strides[12], scale, causal, dtype, stream
+    "ptt_flashmask_bwd_dkv": [_c_void_p] * 10 + [_c_int] * 8
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
     # q, k, v, kinfo, qrange, krange, out, lse, H, Hkv, Tq, Tk, D,
     # strides[12], scale, causal, dtype, stream

@@ -246,28 +246,28 @@ def _cuda_operands(q, k, v, key_bias, dout=None):
 def _tma_ready(t):
     """Whether a TMA tensor map describes the [B, S, H, D] view as it is:
     unit d stride, D a multiple of 8, the base 16-byte aligned and the
-    stride of every axis longer than 1 a multiple of 16 bytes."""
+    stride of every axis longer than 1 a non-zero multiple of 16 bytes (an
+    expanded gradient, stride 0, is copied)."""
     if t.shape[-1] % 8 or t.stride(-1) != 1 or t.data_ptr() % 16:
         return False
-    return all(t.stride(i) * t.element_size() % 16 == 0
+    return all(t.stride(i) and t.stride(i) * t.element_size() % 16 == 0
                for i in range(3) if t.shape[i] > 1)
 
 
-def tma_operands(q, k, v):
-    """(q, k, v, D) as the bf16 sm90 forward takes them. Views a TMA map
-    describes pass as they are (a slice of a fused qkv, say); any other
-    becomes a contiguous copy. When the head dim is not a multiple of 8, all
-    three become contiguous copies with D zero-padded to the next multiple
-    of 8 (returned): zero columns add nothing to Q K^T and give zero output
-    columns, which the caller drops. Pure tensor logic: it runs on any
-    device."""
-    d = q.shape[-1]
+def tma_operands(*ts):
+    """(*ts, D): the [B, S, H, D] operands (q, k, v; the backward adds dO)
+    as the bf16 sm90 kernels take them. Views a TMA map describes pass as
+    they are (a slice of a fused qkv, say); any other becomes a contiguous
+    copy. When the head dim is not a multiple of 8, all become contiguous
+    copies with D zero-padded to the next multiple of 8 (returned): zero
+    columns add nothing to Q K^T or dO V^T and give zero output columns,
+    which the caller drops. Pure tensor logic: it runs on any device."""
+    d = ts[0].shape[-1]
     dp = -(-d // 8) * 8
     if dp != d:
-        return (*(torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v)),
-                dp)
+        return (*(torch.nn.functional.pad(t, (0, dp - d)) for t in ts), dp)
     return (*(t if _tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
-              for t in (q, k, v)), d)
+              for t in ts), d)
 
 
 def _fwd_operands(q, k, v, key_bias):
@@ -426,15 +426,18 @@ class FlashAttention(torch.autograd.Function):
         return (dq, *_kv_grads(dk, dv, k, v), None, None, None)
 
 
+def _group_sum(x, hkv):
+    """[B, S, H, D], one slice per query head -> [B, S, Hkv, D]: the g
+    query heads of a kv head summed (GQA)."""
+    B, S, H, D = x.shape
+    return x if H == hkv else x.reshape(B, S, hkv, H // hkv, D).sum(3)
+
+
 def _kv_grads(dk, dv, k, v):
     """Per-query-head f32 dK, dV [B, Skv, H, D] -> the kv heads' gradients
-    in k's and v's dtypes: the g query heads of a kv head summed (GQA)."""
-    B, Skv, Hkv, D = k.shape
-    g = dk.shape[2] // Hkv
-    if g > 1:
-        dk = dk.reshape(B, Skv, Hkv, g, D).sum(3)
-        dv = dv.reshape(B, Skv, Hkv, g, D).sum(3)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    in k's and v's dtypes."""
+    return (_group_sum(dk, k.shape[2]).to(k.dtype),
+            _group_sum(dv, v.shape[2]).to(v.dtype))
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, key_bias=None):

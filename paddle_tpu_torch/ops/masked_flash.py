@@ -22,20 +22,26 @@ as the JAX kernel gives (the JAX package's composite route gives the mean
 of V there, and aligns its causal mask bottom-right; this port follows the
 kernel).
 
-Three kernels of `csrc/masked_flash.cu` (the tile kernels of
-`csrc/flash_tiles.cuh` under the flashmask policy; the bf16 forward is the
-wgmma kernel of `csrc/flash_fwd_sm90.cuh`), each beside its plain version
-and its launch counter:
+Three kernels of `csrc/masked_flash.cu` under the flashmask policy: in
+bf16 the wgmma kernels of `csrc/flash_fwd_sm90.cuh` (forward) and
+`csrc/flash_bwd_sm90.cuh` (dq, dk/dv), in f32 the CUDA-core tile kernels
+of `csrc/flash_tiles.cuh`. Each sits beside its plain version and its
+launch counter:
 
 - `flashmask_fwd` → (O, LSE): `flashmask_fwd_plain` on CPU tensors;
-  `FWD_LAUNCHES`. In bf16 it reads `flashmask_tile_classes`: per 128-row q
-  tile and 128-key kv tile whether no pair is kept (the tile is skipped),
-  every pair is (no predicate runs) or some are (the predicate runs on
-  the tile), from per-tile min/max of the index rows;
+  `FWD_LAUNCHES`;
 - `flashmask_bwd_dq` → dQ: `flashmask_bwd_dq_plain`; `DQ_LAUNCHES`;
-- `flashmask_bwd_dkv` → dK, dV per query head in f32:
-  `flashmask_bwd_dkv_plain`; `DKV_LAUNCHES`. The backward sums the g heads
-  of a kv head and casts to k's dtype, as `_fm_bwd` does.
+- `flashmask_bwd_dkv` → dK, dV of the kv heads in f32, the g query heads
+  of a kv head summed as `_fm_bwd` does: `flashmask_bwd_dkv_plain`;
+  `DKV_LAUNCHES`. The backward casts them to k's dtype.
+
+The bf16 kernels read `flashmask_tile_classes`: per 128-row q tile and
+128-key kv tile whether no pair is kept (the tile is skipped), every pair
+is (no predicate runs) or some are (the predicate runs on the tile), from
+per-tile min/max of the index rows. `FlashmaskAttention` derives them once
+in the forward and hands them to the backward; the wrappers take them as
+`cls` and derive them when it is None. q, k, v and dO reach the bf16
+kernels through `ops.flash_attention.tma_operands`.
 
 The kernels take the indices as int32 [B, Hm, n, Skv] (the JAX kernel's
 `idx` after its moveaxis), one row of n per mask head contiguous over the
@@ -77,8 +83,10 @@ import torch
 
 from . import _build
 from .flash_attention import (_attend, _bwd_checks, _check, _cuda_operands,
-                              _dkv, _dq, _fwd_operands, _fwd_outputs,
-                              _fwd_result, _kv_grads, _logits, _probs_and_ds)
+                              _device_checks, _dkv, _dq, _fwd_operands,
+                              _fwd_outputs, _fwd_result, _group_sum, _kv_grads,
+                              _logits, _probs_and_ds, _ptr, _strides,
+                              tma_operands)
 
 __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES",
            "FlashmaskAttention", "VL_DKV_LAUNCHES", "VL_DQ_LAUNCHES",
@@ -123,7 +131,7 @@ def flashmask_keep(idx, sq, skv, causal):
     return keep & ~masked
 
 
-SM90_TILE = 128  # rows and keys of the sm90 forward's tiles (csrc/flash_fwd_sm90.cuh)
+SM90_TILE = 128  # rows and keys of the sm90 kernels' tiles (csrc/flash_fwd_sm90.cuh)
 SKIP_TILE, PARTIAL_TILE, FULL_TILE = 0, 1, 2  # csrc/flash_tiles.cuh TileClass
 
 
@@ -188,10 +196,11 @@ def flashmask_bwd_dq_plain(q, k, v, idx, dout, lse, delta, causal, scale):
 
 
 def flashmask_bwd_dkv_plain(q, k, v, idx, dout, lse, delta, causal, scale):
-    """Plain PyTorch version of the dk/dv kernel: dK, dV f32
-    [B, Skv, H, D], one slice per query head."""
+    """Plain PyTorch version of the dk/dv kernel: the kv heads' dK, dV, f32
+    [B, Skv, Hkv, D] each (the g query heads of a kv head summed)."""
     s = _mask_logits(q, k, idx, causal, scale)
-    return _dkv(q, dout, *_probs_and_ds(q, v, s, dout, lse, delta, scale))
+    dk, dv = _dkv(q, dout, *_probs_and_ds(q, v, s, dout, lse, delta, scale))
+    return _group_sum(dk, k.shape[2]), _group_sum(dv, k.shape[2])
 
 
 # --------------------------------------------------------------------------- #
@@ -220,41 +229,84 @@ def _kernel_idx(idx):
     return idx.to(torch.int32).contiguous()
 
 
-def flashmask_fwd(q, k, v, idx, causal, scale):
-    """(O [B, Sq, H, D] in q's dtype, LSE [B, H, Sq] f32) under the indices
-    idx [B, Hm, n, Skv]. CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
+def _tile_classes(idx, cls, sq, skv, causal):
+    """The bf16 kernels' tile classes of the int32 indices: `cls` as given
+    (checked) or, when None, derived."""
+    if cls is None:
+        return flashmask_tile_classes(idx, sq, skv, causal)
+    want = (idx.shape[0], idx.shape[1], -(-sq // SM90_TILE),
+            -(-skv // SM90_TILE))
+    if tuple(cls.shape) != want or cls.dtype != torch.uint8 \
+            or cls.device != idx.device:
+        raise ValueError(f"flashmask tile classes must be uint8 {list(want)} "
+                         f"on {idx.device} (flashmask_tile_classes), got "
+                         f"{cls.dtype} {list(cls.shape)} on {cls.device}")
+    return cls.contiguous()
+
+
+def _tail(q, causal, scale):
+    """The arguments every flashmask entry point takes after the strides:
+    scale, causal, dtype, stream."""
+    return (float(scale), int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _flashmask_fwd(q, k, v, idx, causal, scale):
+    """(O, LSE, the tile classes the bf16 kernel read or None): the forward
+    wrapper, keeping the classes for the backward."""
     global FWD_LAUNCHES
     _check(q, k, v, None)
     _check_idx(q, k, idx, causal)
     if q.device.type == "cpu":
-        return flashmask_fwd_plain(q, k, v, idx, causal, scale)
+        return (*flashmask_fwd_plain(q, k, v, idx, causal, scale), None)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     q, k, v, _, strides, d = _fwd_operands(q, k, v, None)
     out, lse = _fwd_outputs(q, Sq, H, d)
     if out.numel() == 0 or Skv == 0:
-        return _fwd_result(out, lse, D, Skv)
+        return (*_fwd_result(out, lse, D, Skv), None)
     idx = _kernel_idx(idx)
     cls = None
     if q.dtype == torch.bfloat16:
         cls = flashmask_tile_classes(idx, Sq, Skv, causal)
     err = _build.load_library().ptt_flashmask_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-        None if cls is None else cls.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, Hkv, idx.shape[1], idx.shape[2], Sq, Skv, d,
-        strides, float(scale), int(bool(causal)),
-        _build.DTYPE_CODES[str(q.dtype)],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), _ptr(cls),
+        out.data_ptr(), lse.data_ptr(), B, H, Hkv, idx.shape[1], idx.shape[2],
+        Sq, Skv, d, strides, *_tail(q, causal, scale))
     _build.check(err, "ptt_flashmask_fwd")
     FWD_LAUNCHES += 1
-    return _fwd_result(out, lse, D, Skv)
+    return (*_fwd_result(out, lse, D, Skv), cls)
 
 
-def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale):
+def flashmask_fwd(q, k, v, idx, causal, scale):
+    """(O [B, Sq, H, D] in q's dtype, LSE [B, H, Sq] f32) under the indices
+    idx [B, Hm, n, Skv]. CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
+    return _flashmask_fwd(q, k, v, idx, causal, scale)[:2]
+
+
+def _bwd_operands(q, k, v, dout):
+    """(q, k, v, dout, strides, D) of a backward launch: bf16 through
+    `tma_operands` (D the head dim the kernels see), f32 as
+    `_cuda_operands` gives them."""
+    if q.dtype != torch.bfloat16:
+        q, k, v, _, dout, strides = _cuda_operands(q, k, v, None, dout)
+        return q, k, v, dout, strides, q.shape[-1]
+    _device_checks(q)
+    q, k, v, dout, d = tma_operands(q, k, v, dout.to(q.dtype))
+    return q, k, v, dout, _strides(q, k, v, dout), d
+
+
+def _cut(x, D):
+    """x [..., d] cut back to the head dim D (the kernels' zero padding)."""
+    return x if x.shape[-1] == D else x[..., :D].contiguous()
+
+
+def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale, cls=None):
     """dQ [B, Sq, H, D] in q's dtype from the forward's LSE and
-    delta = rowsum(dO * O) [B, H, Sq] f32. CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+    delta = rowsum(dO * O) [B, H, Sq] f32. `cls`: the bf16 kernel's tile
+    classes, `flashmask_tile_classes` of the indices (derived when None).
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
     global DQ_LAUNCHES
     _check(q, k, v, None)
     _check_idx(q, k, idx, causal)
@@ -262,29 +314,33 @@ def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale):
     if q.device.type == "cpu":
         return flashmask_bwd_dq_plain(q, k, v, idx, dout, lse, delta, causal,
                                       scale)
-    q, k, v, _, dout, strides = _cuda_operands(q, k, v, None, dout)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    q, k, v, dout, strides, d = _bwd_operands(q, k, v, dout)
+    dq = torch.empty(B, Sq, H, d, device=q.device, dtype=q.dtype)
+    if dq.numel() == 0 or Skv == 0:
+        return _cut(dq.zero_(), D)
     idx = _kernel_idx(idx)
-    dq = torch.empty(B, Sq, H, D, device=q.device, dtype=q.dtype)
-    if dq.numel() == 0:
-        return dq
+    cls = (_tile_classes(idx, cls, Sq, Skv, causal)
+           if q.dtype == torch.bfloat16 else None)
     lse, delta = lse.contiguous(), delta.contiguous()
     err = _build.load_library().ptt_flashmask_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), _ptr(cls),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H,
-        Hkv, idx.shape[1], idx.shape[2], Sq, Skv, D, strides, float(scale),
-        int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        Hkv, idx.shape[1], idx.shape[2], Sq, Skv, d, strides,
+        *_tail(q, causal, scale))
     _build.check(err, "ptt_flashmask_bwd_dq")
     DQ_LAUNCHES += 1
-    return dq
+    return _cut(dq, D)
 
 
-def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale):
-    """(dK, dV), each f32 [B, Skv, H, D]: one slice per query head, not yet
-    summed over the g heads of a kv head. CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale,
+                      cls=None):
+    """(dK, dV), each f32 [B, Skv, Hkv, D]: the kv heads' gradients, the g
+    query heads of a kv head summed. `cls` as for `flashmask_bwd_dq`. The
+    bf16 kernel writes them as they are; the f32 kernel writes one slice
+    per query head, which torch sums. CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
     global DKV_LAUNCHES
     _check(q, k, v, None)
     _check_idx(q, k, idx, causal)
@@ -292,25 +348,27 @@ def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale):
     if q.device.type == "cpu":
         return flashmask_bwd_dkv_plain(q, k, v, idx, dout, lse, delta, causal,
                                        scale)
-    q, k, v, _, dout, strides = _cuda_operands(q, k, v, None, dout)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    idx = _kernel_idx(idx)
-    dk = torch.empty(B, Skv, H, D, device=q.device, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    if B * Skv * Hkv * D == 0 or Sq == 0:
+        dk = torch.zeros(B, Skv, Hkv, D, device=q.device, dtype=torch.float32)
+        return dk, torch.zeros_like(dk)
+    q, k, v, dout, strides, d = _bwd_operands(q, k, v, dout)
+    dk = torch.empty(B, Skv, Hkv if bf16 else H, d, device=q.device,
+                     dtype=torch.float32)
     dv = torch.empty_like(dk)
-    if dk.numel() == 0:
-        return dk, dv
+    idx = _kernel_idx(idx)
+    cls = _tile_classes(idx, cls, Sq, Skv, causal) if bf16 else None
     lse, delta = lse.contiguous(), delta.contiguous()
     err = _build.load_library().ptt_flashmask_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), _ptr(cls),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, Hkv, idx.shape[1], idx.shape[2], Sq, Skv, D,
-        strides, float(scale), int(bool(causal)),
-        _build.DTYPE_CODES[str(q.dtype)],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), B, H, Hkv, idx.shape[1], idx.shape[2], Sq, Skv, d,
+        strides, *_tail(q, causal, scale))
     _build.check(err, "ptt_flashmask_bwd_dkv")
     DKV_LAUNCHES += 1
-    return dk, dv
+    return _cut(_group_sum(dk, Hkv), D), _cut(_group_sum(dv, Hkv), D)
 
 
 # --------------------------------------------------------------------------- #
@@ -320,28 +378,31 @@ def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale):
 
 class FlashmaskAttention(torch.autograd.Function):
     """Flashmask attention with its backward (↔ `_flashmask`'s custom VJP).
-    Saves q, k, v, the indices, O and the LSE; the backward computes
-    delta = rowsum(dO * O) in f32 with torch (as `_fm_bwd` does with jnp),
-    runs the dq and dk/dv kernels and group-sums dK/dV for GQA. The indices
-    are data: their gradient is None."""
+    Saves q, k, v, the indices, O, the LSE and the bf16 kernels' tile
+    classes (None elsewhere); the backward computes delta = rowsum(dO * O)
+    in f32 with torch (as `_fm_bwd` does with jnp) and runs the dq and dk/dv
+    kernels on the same classes; dk/dv come out summed over the g query
+    heads of a kv head, and are cast to k's dtype. The indices are data:
+    their gradient is None."""
 
     @staticmethod
     def forward(ctx, q, k, v, idx, causal, scale):
-        out, lse = flashmask_fwd(q, k, v, idx, causal, scale)
-        ctx.save_for_backward(q, k, v, idx, out, lse)
+        out, lse, cls = _flashmask_fwd(q, k, v, idx, causal, scale)
+        ctx.save_for_backward(q, k, v, idx, out, lse, cls)
         ctx.causal = causal
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, idx, out, lse = ctx.saved_tensors
+        q, k, v, idx, out, lse, cls = ctx.saved_tensors
         causal, scale = ctx.causal, ctx.scale
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale)
+        dq = flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale,
+                              cls)
         dk, dv = flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal,
-                                   scale)
-        return (dq, *_kv_grads(dk, dv, k, v), None, None, None)
+                                   scale, cls)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def flashmask_attention_fwd(q, k, v, startend_row_indices, causal=True,

@@ -150,6 +150,33 @@ def test_values_and_grads_match_jax(name, jax_refs):
                                    err_msg=what)
 
 
+@pytest.mark.parametrize("name", ["causal_n1_docs_gqa", "causal_n2_per_head_s37",
+                                  "full_n4_per_head_s37_gqa"])
+def test_dkv_returns_the_kv_heads_gradients(name, jax_refs):
+    """flashmask_bwd_dkv (on CPU tensors its plain version) returns the kv
+    heads' dK and dV, f32 [B, Skv, Hkv, D]: the g query heads of a kv head
+    summed, as the JAX package's `_fm_bwd` returns them (through jax.vjp
+    here), at GQA 4/2 with one mask head and with a mask per query head;
+    held to GRAD_TOL of each tensor's largest entry."""
+    q, k, v, do, idx, causal = _case(name)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    it = torch.from_numpy(idx).transpose(2, 3)  # the kernels' [B, Hm, n, Skv]
+    scale = q.shape[-1] ** -0.5
+    out, lse = port_mf.flashmask_fwd(qt, kt, vt, it, causal, scale)
+    delta = (dot * out).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = port_mf.flashmask_bwd_dkv(qt, kt, vt, it, dot, lse, delta, causal,
+                                       scale)
+    pk, pv = port_mf.flashmask_bwd_dkv_plain(qt, kt, vt, it, dot, lse, delta,
+                                             causal, scale)
+    assert dk.shape == dv.shape == kt.shape and dk.dtype == torch.float32
+    torch.testing.assert_close(dk, pk, rtol=0, atol=0)
+    torch.testing.assert_close(dv, pv, rtol=0, atol=0)
+    for g, w, what in zip((dk, dv), jax_refs[name][2:], ("dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=GRAD_TOL * np.abs(w).max(),
+                                   err_msg=what)
+
+
 def test_rows_that_keep_no_key_give_zeros_and_zero_gradient(jax_refs):
     """Rows S - 5 .. S - 1 of "full_n2_empty_rows" keep no key: zeros, as
     the JAX kernel gives (never NaN, never the mean of V), and no gradient

@@ -1,5 +1,5 @@
-"""What the port's bf16 attention forward (csrc/flash_fwd_sm90.cuh) reads
-from Python, on the CPU:
+"""What the port's bf16 attention kernels (csrc/flash_fwd_sm90.cuh,
+csrc/flash_bwd_sm90.cuh) read from Python, on the CPU:
 
 - the flashmask tile classes (ops.masked_flash.flashmask_tile_classes),
   held to the keep-mask of the JAX package's Pallas kernel
@@ -8,15 +8,19 @@ from Python, on the CPU:
   all its pairs, every skipped tile keeps none; over causal n = 1 and
   n = 2, non-causal n = 2 and n = 4, one mask head and one per query head,
   S off the tile, and rows that keep no key. Under the trivial causal
-  index only the diagonal tiles are partial.
+  index only the diagonal tiles are partial. The dK/dV kernel's 64-row q
+  steps read the class of the 128-row tile that holds them: each half of
+  a full tile keeps every pair, each half of a skipped one none. The
+  backward wrappers take the forward's classes (checked) or derive them.
 - the operand preparation (ops.flash_attention.tma_operands): views a TMA
-  map describes pass as they are; an unaligned base or stride, or a head
-  dim that is not a multiple of 8, gives a contiguous copy (zero-padded to
-  a multiple of 8), and the plain forwards on the copy give the unpadded
-  result.
+  map describes pass as they are; an unaligned base or stride, a stride of
+  0 (an expanded gradient), or a head dim that is not a multiple of 8,
+  gives a contiguous copy (zero-padded to a multiple of 8), and the plain
+  forwards on the copy give the unpadded result.
 
-The kernel itself runs only on the card (chip_smoke.py)."""
+The kernels themselves run only on the card (chip_smoke.py)."""
 
+import functools
 import math
 
 import numpy as np
@@ -88,12 +92,20 @@ def _jax_keep(idx, S, causal):
         for hm in range(Hm)]) for b in range(B)])
 
 
+@functools.lru_cache(maxsize=None)
+def _mask(name):
+    """(indices [B, Hm, n, S] int32, the JAX keep-mask) of a MASKS case,
+    made once per process."""
+    B, Hm, S, causal, n, kind = MASKS[name]
+    idx = _index(np.random.default_rng(len(name)), B, Hm, S, n, kind)
+    return idx, _jax_keep(idx, S, causal)
+
+
 @pytest.mark.parametrize("tile", [128, 32])
 @pytest.mark.parametrize("name", list(MASKS))
 def test_tile_classes_hold_to_the_keep_mask(name, tile):
     B, Hm, S, causal, n, kind = MASKS[name]
-    idx = _index(np.random.default_rng(len(name)), B, Hm, S, n, kind)
-    keep = _jax_keep(idx, S, causal)
+    idx, keep = _mask(name)
     np.testing.assert_array_equal(
         port_mf.flashmask_keep(torch.from_numpy(idx), S, S, causal).numpy(),
         keep)
@@ -117,6 +129,45 @@ def test_tile_classes_hold_to_the_keep_mask(name, tile):
     assert not full[..., real < tile].any(), "a ragged kv tile is full"
     if kind != "holes":  # structured masks: the classes skip or clear tiles
         assert skip.any() or full.any()
+
+
+@pytest.mark.parametrize("name", list(MASKS))
+def test_64_row_halves_of_full_and_skipped_tiles(name):
+    """The dK/dV kernel's 64-row q steps read the class of the 128 x 128
+    tile that holds them: every 64-row half of a full tile keeps every
+    pair of its real rows against the tile's 128 keys, every half of a
+    skipped tile keeps none."""
+    B, Hm, S, causal, n, kind = MASKS[name]
+    idx, keep = _mask(name)
+    cls = port_mf.flashmask_tile_classes(torch.from_numpy(idx), S, S,
+                                         causal).numpy()
+    tile, half = port_mf.SM90_TILE, port_mf.SM90_TILE // 2
+    nt = math.ceil(S / tile)
+    padded = np.zeros((B, Hm, nt * tile, nt * tile), bool)
+    padded[:, :, :S, :S] = keep
+    # [B, Hm, q tile, half, kv tile]: pairs kept in each 64-row half
+    kept = padded.reshape(B, Hm, nt, 2, half, nt, tile).sum((4, 6))
+    real = np.clip(S - np.arange(2 * nt) * half, 0, half).reshape(nt, 2)
+    full = np.broadcast_to((cls == port_mf.FULL_TILE)[:, :, :, None],
+                           kept.shape)
+    skip = np.broadcast_to((cls == port_mf.SKIP_TILE)[:, :, :, None],
+                           kept.shape)
+    assert (kept == real[:, :, None] * tile)[full].all(), \
+        "a half of a full tile masks a pair"
+    assert not kept[skip].any(), "a half of a skipped tile keeps a pair"
+
+
+def test_backward_takes_the_forward_tile_classes():
+    """The backward wrappers' classes: the forward's as given, checked
+    against the indices' shape, or derived when None."""
+    idx = torch.full((2, 1, 1, 300), 300, dtype=torch.int32)
+    cls = port_mf.flashmask_tile_classes(idx, 300, 300, True)
+    assert port_mf._tile_classes(idx, cls, 300, 300, True) is cls
+    torch.testing.assert_close(port_mf._tile_classes(idx, None, 300, 300, True),
+                               cls, rtol=0, atol=0)
+    for bad in (cls[:, :, :2], cls.int(), cls[:1]):
+        with pytest.raises(ValueError, match="tile classes"):
+            port_mf._tile_classes(idx, bad, 300, 300, True)
 
 
 @pytest.mark.parametrize("S", [256, 384, 1000])
@@ -192,6 +243,21 @@ def test_tma_operands_copy_only_what_a_map_cannot_describe(layout):
     out_p, lse_p = port_mf.flashmask_fwd_plain(qp, kp, vp, idx, True, scale)
     torch.testing.assert_close(out_p[..., :D], out, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
+
+
+def test_tma_operands_copy_a_gradient_no_map_describes():
+    """The backward hands dO through tma_operands beside q, k and v: an
+    expanded gradient (stride 0, as `out.sum().backward()` gives) or one
+    whose head stride is not a multiple of 16 bytes becomes a contiguous
+    copy, while q, k and v pass."""
+    q, k, v = _views("contiguous")
+    B, S, H, D = q.shape
+    for dout in (torch.ones((), dtype=torch.bfloat16).expand(q.shape),
+                 torch.randn(B, S, H, D + 4).bfloat16()[..., :D]):
+        qp, kp, vp, dp, d = port_fa.tma_operands(q, k, v, dout)
+        assert qp is q and kp is k and vp is v and d == q.shape[-1]
+        assert dp is not dout and dp.is_contiguous() and port_fa._tma_ready(dp)
+        torch.testing.assert_close(dp, dout, rtol=0, atol=0)
 
 
 def test_tma_ready_reads_only_axes_longer_than_one():
