@@ -9,8 +9,8 @@ Phases; any failure raises and the script exits non-zero:
                 process per source, in parallel), load it. The Hopper
                 kernels' instantiations, one line each for the bf16
                 attention forward (flash and flashmask at head dims 64
-                and 128) and the bf16 flashmask backward (dQ and dK/dV at
-                64 and 128): registers and spills from ptxas, wgmma
+                and 128) and the bf16 backward (dQ and dK/dV of flash and
+                flashmask at 64 and 128): registers and spills from ptxas, wgmma
                 (HGMMA) and TMA-load (UTMALDG) instructions from
                 `cuobjdump -sass`; none may spill or lack either.
 2. kernels    — each hand-written kernel against its plain PyTorch version
@@ -28,7 +28,10 @@ Phases; any failure raises and the script exits non-zero:
                 path's shape; S off the forward's 128-row tiles, D 64, 40,
                 96 and 36 (the copy route), g = 4, a key bias, Sq > Skv
                 and Skv > Sq, a fused qkv's strided views and unaligned
-                views (the copy route)), the
+                views (the copy route)), then
+                flash_attention_fwd(...).backward(dO) through autograd at
+                the path's shape and at GQA 32/8 against the plain
+                functions (dQ, and dK, dV of the kv heads), the
                 flash forward at the dense engine's decode shape (Sq = 1),
                 fused RoPE (forward and backward, neox and interleaved,
                 q + k at 32/8 heads, the decode shape with a table per row,
@@ -52,14 +55,18 @@ Phases; any failure raises and the script exits non-zero:
                 segment, a one-tile pack).
 2b. faults    — the kernels built again from copies of csrc/, each with
                 one planted fault (a kv or q tile skipped, long rows
-                normalised 1% off; flashmask: a partial tile of the
+                normalised 1% off; the flash backward's q steps without
+                the bottom-right offset, and its dK/dV adding the key bias
+                on partial tiles only; flashmask: a partial tile of the
                 forward treated as full, the end bound of n = 2
                 ignored, partly kept tiles of the f32 kernels skipped,
                 every head reading mask head 0, and in the bf16 backward
                 a q tile's last kv tile skipped in dQ, a partial tile
                 treated as full and a kv head's group of query heads one
                 short in dK/dV; varlen: each q tile's first kv tile skipped, the
-                segment test's upper bound dropped; grouped GEMM: a partly
+                segment test's upper bound dropped, and in the WMMA
+                backward a q tile's last kv tile skipped in dQ and the last
+                q tile skipped in dK/dV; grouped GEMM: a partly
                 live tile treated as dead): at its case every one must fail
                 the limits of phase 2. Only the sources a fault touches are
                 compiled again.
@@ -325,13 +332,13 @@ def ptxas_summary(log):
 SM90_KERNEL = re.compile(
     r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E.*?(CausalBias|FlashMask)")
 # the Hopper kernels' instantiations chip_smoke.py expects: the bf16
-# forward of flash and flashmask (csrc/flash_fwd_sm90.cuh) and the bf16
-# flashmask dQ and dK/dV (csrc/flash_bwd_sm90.cuh), at head dims 64 and 128
+# forward (csrc/flash_fwd_sm90.cuh) and the bf16 dQ and dK/dV
+# (csrc/flash_bwd_sm90.cuh) of flash and flashmask, at head dims 64 and 128
 SM90_EXPECTED = {
     "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>" for m in ("CausalBias", "FlashMask")
                 for d in (64, 128)],
-    "backward": [f"{k}<{d}, FlashMask>" for k in ("flash_bwd_dq_sm90_kernel",
-                                                 "flash_bwd_dkv_sm90_kernel")
+    "backward": [f"{k}<{d}, {m}>" for m in ("CausalBias", "FlashMask")
+                 for k in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
                  for d in (64, 128)],
 }
 
@@ -888,11 +895,13 @@ def _flash_violations(errs, dtype):
     return bad
 
 
-# name: (B, Sq, Skv, H, Hkv, D, causal, key bias, dtype). The bf16 forward's
+# name: (B, Sq, Skv, H, Hkv, D, causal, key bias, dtype). The bf16 kernels'
 # tiles are 128 x 128: the edge cases put S off them (333, 517, 257, 200,
 # 150), D at 64, below it (40, and 36, which is not a multiple of 8: the
 # wrappers' copy route) and between the panels (96), Sq > Skv (rows that
-# see no key) and Skv > Sq, and q/k/v as views (FLASH_LAYOUTS).
+# see no key; at 456 over 200 the first two 128-row q tiles see none, so
+# their dQ CTAs visit no kv tile) and Skv > Sq with an offset Skv - Sq off
+# the 64-row step (184), and q/k/v as views (FLASH_LAYOUTS).
 FLASH_CASES = {
     "path": (4, 2048, 2048, 16, 16, 128, True, False, "bfloat16"),
     "f32": (1, 1024, 1024, 16, 16, 128, True, False, "float32"),
@@ -901,6 +910,8 @@ FLASH_CASES = {
     "sq_gt_skv_f32_d64": (1, 300, 200, 4, 4, 64, True, False, "float32"),
     "key_bias_padded_row": (3, 257, 257, 8, 8, 128, False, True, "bfloat16"),
     "sq_gt_skv_d64": (1, 300, 200, 4, 4, 64, True, False, "bfloat16"),
+    "sq_gt_skv_by_two_tiles_d64": (1, 456, 200, 4, 4, 64, True, False,
+                                   "bfloat16"),
     "d40_causal": (2, 200, 200, 8, 8, 40, True, False, "bfloat16"),
     "d96_g2": (1, 384, 384, 8, 4, 96, True, False, "bfloat16"),
     "d36_copy": (1, 150, 150, 4, 2, 36, False, False, "bfloat16"),
@@ -949,7 +960,8 @@ def _flash_inputs(torch, gen, B, Sq, Skv, H, Hkv, D, bias, dtype,
 def _flash_outputs(fa, q, k, v, dout, kb, causal, scale):
     """(the kernels' outputs, the plain versions', delta) on the same
     inputs; the backward kernels get the plain forward's LSE and
-    delta = rowsum(dO * O)."""
+    delta = rowsum(dO * O). dK and dV are the kv heads' f32 gradients
+    [B, Skv, Hkv, D] on both sides."""
     out, lse = fa.flash_fwd(q, k, v, causal, scale, kb)
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale, kb)
     delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1021,7 +1033,7 @@ def check_flash(card, torch):
                     lambda: fa.flash_bwd_dkv_plain(q, k, v, kb, dout, lse_p,
                                                    delta, causal, scale),
                     2 * qo + 2 * kv + 2 * stats + kb_bytes
-                    + 2 * B * Skv * H * D * 4, 8 * pairs * D, ("dk", "dv")),
+                    + 2 * B * Skv * Hkv * D * 4, 8 * pairs * D, ("dk", "dv")),
         }
         lib = {}
         if name == "path":
@@ -1054,6 +1066,74 @@ def check_flash(card, torch):
     if failures:
         raise AssertionError("; ".join(failures))
     return {"worst": worst, "main": main}
+
+
+# the autograd check's shapes: (B, Sq, Skv, H, Hkv, D, causal, key bias,
+# dtype), the training path's and one GQA shape
+FLASH_AUTOGRAD_CASES = {
+    "path": FLASH_CASES["path"],
+    "gqa_32_8": (2, 1024, 1024, 32, 8, 128, True, False, "bfloat16"),
+}
+
+
+def check_flash_autograd(card, torch):
+    """flash_attention_fwd(q, k, v).backward(dO) in bf16 through the kernels,
+    at the training path's shape (B 4 x 2048, 16 heads of 128, causal) and
+    at GQA 32/8 (B 2 x 1024), against the same autograd function's plain
+    versions on the same inputs on the card (the plain forward's LSE and
+    delta, dq, and dk/dv of the kv heads rounded to k's dtype as the
+    backward rounds the kernel's), held with check_flash's limits. It holds
+    what autograd adds around the kernels: dO as autograd hands it over and
+    the kv heads' f32 gradients the dk/dv kernel writes. One launch of each
+    flash kernel a call."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bad = []
+    for name, (B, Sq, Skv, H, Hkv, D, causal, bias, dtype) in \
+            FLASH_AUTOGRAD_CASES.items():
+        q, k, v, dout, kb, _ = _flash_inputs(torch, gen, B, Sq, Skv, H, Hkv, D,
+                                             bias, dtype)
+        scale = D ** -0.5
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+        out = fa.flash_attention_fwd(*leaves, causal=causal, scale=scale,
+                                     key_bias=kb)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        launches = [a - b for a, b in zip(
+            (fa.FWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES), before)]
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale, kb)
+        delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+        dq_p = fa.flash_bwd_dq_plain(q, k, v, kb, dout, lse_p, delta, causal,
+                                     scale)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, kb, dout, lse_p, delta,
+                                            causal, scale)
+        got = {"out": out.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
+               "dv": leaves[2].grad}
+        plain = {"out": out_p, "dq": dq_p, "dk": dk_p.to(k.dtype),
+                 "dv": dv_p.to(v.dtype)}
+        errs = _flash_errs(got, plain)
+        bad += [f"{name}: {b}" for b in _flash_violations(errs, dtype)]
+        shapes = {w: list(t.shape) for w, t in got.items()}
+        say(card, "flash autograd " + json.dumps({
+            "case": name, "B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hkv": Hkv,
+            "D": D, "causal": causal, "launches_fwd_dq_dkv": launches,
+            "shapes": shapes,
+            "errors": {w: {"max_abs": e[0], "row_rel": e[1],
+                           "frobenius_rel": e[2]} for w, e in errs.items()},
+            "tol": FLASH_TOL[dtype], "frobenius_tol": FLASH_FROB_TOL[dtype]}))
+        if launches != [1, 1, 1]:
+            bad.append(f"{name}: launches (fwd, dq, dk/dv) {launches}, not "
+                       "one each")
+        for w, t in (("dk", k), ("dv", v)):
+            if shapes[w] != list(t.shape) or got[w].dtype != t.dtype:
+                bad.append(f"{name}: {w} {shapes[w]} {got[w].dtype}, not "
+                           f"{list(t.shape)} {t.dtype}")
+        del q, k, v, dout, leaves, out, got, plain, out_p, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("flash autograd: " + "; ".join(bad))
 
 
 def library_sdpa(torch, q, k, v, dout, causal, keep=None):
@@ -1619,8 +1699,11 @@ def check_varlen(card, torch):
 # Faults planted in copies of csrc/ (phase 2b), name: (the source file, the
 # text that anchors the fault, the text replaced at its first occurrence
 # after the anchor, the replacement, the case that must catch it: "flash
-# path" or a FLASHMASK_CASES name). They follow the kernels' code: a change
-# there that moves the replaced text must move these with it.
+# <FLASH_CASES name>", "varlen <VARLEN_CASES name>", "grouped_gemm
+# <GG_CASES name>" or a FLASHMASK_CASES name). They follow the kernels'
+# code: a change there that moves the replaced text must move these with
+# it. The WMMA dQ and dK/dV of flash_tiles.cuh run only varlen's bf16
+# backward.
 KERNEL_FAULTS = {
     "fwd: q tiles past the first skip their last kv tile": (
         "flash_fwd_sm90.cuh", "flash_fwd_sm90_kernel(",
@@ -1634,10 +1717,18 @@ KERNEL_FAULTS = {
         "return c == kPartialTile ? kFullTile : c;", "causal_n1_docs"),
     "dq: q tiles past the first skip their last kv tile": (
         "flash_tiles.cuh", "flash_dq_tc_kernel(", "t < n_kv;",
-        "t < n_kv - (q0 > 0);", "flash path"),
+        "t < n_kv - (q0 > 0);", "varlen path"),
     "dk/dv: the last q tile skipped": (
         "flash_tiles.cuh", "flash_dkv_tc_kernel(", "t < n_q;", "t < n_q - 1;",
-        "flash path"),
+        "varlen path"),
+    "flash bwd: first_q_tile without the bottom-right offset": (
+        "flash_attention.cu", "struct CausalBias",
+        "const int first = k0 - (p.Skv - p.Sq);", "const int first = k0;",
+        "flash ragged_sq_lt_skv_g2_d64"),
+    "flash bwd dk/dv: the key bias on partial tiles only": (
+        "flash_bwd_sm90.cuh", "void dkv_consume(",
+        "if (partial || mask.has_bias()) {", "if (partial) {",
+        "flash key_bias_padded_row"),
     "flashmask: the end bound of causal n = 2 ignored": (
         "masked_flash.cu", "struct FlashMask", "(row >= k.i0 && row < k.i1)",
         "(row >= k.i0)", "causal_n2_per_head_s1000_gqa"),
@@ -1673,19 +1764,20 @@ KERNEL_FAULTS = {
 
 
 def _fault_violations(torch, case):
-    """Phase 2's violations at a fault's case ("flash path", "varlen
-    <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>" or a
+    """Phase 2's violations at a fault's case ("flash <FLASH_CASES name>",
+    "varlen <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>" or a
     FLASHMASK_CASES name), run on the library load_library() holds."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_gemm as gg
     from paddle_tpu_torch.ops import masked_flash as mf
 
     kind, _, name = case.partition(" ")
-    if case == "flash path":
-        B, S, _, H, Hkv, D, causal, bias, dtype = FLASH_CASES["path"]
+    if kind == "flash":
+        B, Sq, Skv, H, Hkv, D, causal, bias, dtype = FLASH_CASES[name]
         gen = torch.Generator(device="cuda").manual_seed(3)
-        q, k, v, dout, kb, _ = _flash_inputs(torch, gen, B, S, S, H, Hkv, D,
-                                             bias, dtype)
+        q, k, v, dout, kb, _ = _flash_inputs(
+            torch, gen, B, Sq, Skv, H, Hkv, D, bias, dtype,
+            FLASH_LAYOUTS.get(name, "contiguous"))
         got, plain, _ = _flash_outputs(fa, q, k, v, dout, kb, causal,
                                        D ** -0.5)
     elif kind == "varlen":
@@ -2909,6 +3001,7 @@ def main():
     decode_q8 = check_decode_q8(card, torch)
     dense = check_dense_decode(card, torch)
     flash = check_flash(card, torch)
+    check_flash_autograd(card, torch)
     check_flash_decode(card, torch)
     rope = check_rope(card, torch)
     flashmask = check_flashmask(card, torch)
@@ -2940,7 +3033,6 @@ def main():
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"
-    fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fwd_src = "paddle_tpu_torch/csrc/flash_fwd_sm90.cuh"
     bwd_src = "paddle_tpu_torch/csrc/flash_bwd_sm90.cuh"
     fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -2962,9 +3054,9 @@ def main():
              norm_dx["worst"]),
             ("flash_fwd", fwd_src, fa_ref + ":127", flash["main"]["fwd"],
              flash["worst"]["fwd"]),
-            ("flash_bwd_dq", fa_src, fa_ref + ":332", flash["main"]["dq"],
+            ("flash_bwd_dq", bwd_src, fa_ref + ":332", flash["main"]["dq"],
              flash["worst"]["dq"]),
-            ("flash_bwd_dkv", fa_src, fa_ref + ":406", flash["main"]["dkv"],
+            ("flash_bwd_dkv", bwd_src, fa_ref + ":406", flash["main"]["dkv"],
              flash["worst"]["dkv"]),
             ("fused_rope", "paddle_tpu_torch/csrc/fused_rope.cu",
              "paddle_tpu/ops/pallas/fused_rope.py:90", rope["main"],

@@ -6,21 +6,35 @@
 //     log-sum-exp, causal (bottom-right aligned: key c is visible to query r
 //     iff c <= r + Skv - Sq) or full, GQA by kv head h / g;
 //   - `_bwd_dq_kernel` :332 (pallas_call :528): dQ from the LSE;
-//   - `_bwd_dkv_kernel` :406 (pallas_call :557): dV, dK per expanded query
-//     head, in f32.
-// The kernels are the tile kernels of flash_tiles.cuh (their bound and
-// design are described there) under the mask policy `CausalBias` below;
-// the bf16 forward is flash_fwd_sm90.cuh's wgmma kernel, whose partial
-// tiles are the causal diagonal and a ragged last kv tile. A row that sees
-// no key (causal with Sq > Skv, or every key biased to -1e30) gets zeros
-// and LSE = +inf.
-#include "flash_fwd_sm90.cuh"
+//   - `_bwd_dkv_kernel` :406 (pallas_call :557): dV, dK in f32 (the TPU
+//     kernel writes one slice per expanded query head, which `_bwd` sums).
+// All three run under the mask policy `CausalBias` below. bfloat16 runs the
+// Hopper kernels: the forward of flash_fwd_sm90.cuh and the dQ and dK/dV of
+// flash_bwd_sm90.cuh (wgmma fed by TMA, 128 x 128 tiles; dK/dV of a kv head
+// written once, the g query heads summed in registers). Their partial tiles
+// are the causal diagonal, a ragged last kv tile and a ragged last q tile or
+// step; the key bias is added on every tile. float32 runs the CUDA-core tile
+// kernels of flash_tiles.cuh (dK/dV one slice per query head, summed by the
+// caller). A row that sees no key (causal with Sq > Skv, or every key biased
+// to -1e30) gets zeros, LSE = +inf and exactly zero gradients.
+//
+// Bound on an H100: operations, 4 D (forward), 6 D (dQ) and 8 D (dK/dV) per
+// visible (row, key) pair at 989 TFLOP/s (bf16 dense): at the gpt3_1p3b
+// step's shape (B 4, S 2048, 16 heads of 128, causal) 0.0695, 0.104 and
+// 0.139 ms. The bytes (Q, K, V, dO once, dQ in bf16, dK/dV of the kv heads in
+// f32) take a few tens of microseconds at 3.35 TB/s.
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
 // Bottom-right causal masking and an optional additive f32 per-key bias
 // [B, Skv] (a padding mask). Causal tiles past a q tile's last visible
-// column are never visited, so no vote is needed.
+// column are never visited, so no vote is needed, and no tile is skipped.
+// `tile_class` ignores the tile's height: "full" is tested against its first
+// row q0, which holds for any height, so the sm90 dK/dV kernel's 64-row q
+// steps (q0 = t * 64, bm = 128) read their own class (FlashMask reads its
+// 128-row table there, conservative for either half). `first_q_tile` and
+// `q_tiles` count 64-row tiles (kTile), the sm90 backward's q step.
 struct CausalBias {
   static constexpr bool kVote = false;
   const float* kbias;  // [B, Skv] or null
@@ -89,9 +103,9 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v, const 
   return run_fwd_f32(p, m, q, k, v, out, lse, stream);
 }
 
-// As ptt_flash_fwd, plus dout (strided like q, strides 9..11), lse and
-// delta = rowsum(dO * O) [B, H, Sq] f32; writes dq [B, Sq, H, D] contiguous
-// in q's dtype.
+// As ptt_flash_fwd, plus dout (strided like q, strides 9..11; in bfloat16
+// as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O) [B, H, Sq] f32;
+// writes dq [B, Sq, H, D] contiguous in q's dtype.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* kbias,
                                 const void* dout, const void* lse, const void* delta, void* dq,
                                 int B, int H, int Hkv, int Sq, int Skv, int D,
@@ -101,11 +115,14 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
   const CausalBias m{static_cast<const float*>(kbias)};
-  return run_dq(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
+  if (dtype == ptt::kBF16)
+    return run_bwd_sm90(p, m, q, k, v, dout, lse, delta, dq, nullptr, nullptr, stream);
+  return run_dq<false>(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
 }
 
-// As ptt_flash_bwd_dq; writes dk, dv [B, Skv, H, D] contiguous f32, one
-// slice per query head (the caller sums the g heads of a kv head).
+// As ptt_flash_bwd_dq; writes dk, dv contiguous f32: in bfloat16 the kv
+// heads' gradients [B, Skv, Hkv, D], in float32 one slice per query head
+// [B, Skv, H, D] (the caller sums the g heads of a kv head).
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* kbias,
                                  const void* dout, const void* lse, const void* delta, void* dk,
                                  void* dv, int B, int H, int Hkv, int Sq, int Skv, int D,
@@ -115,5 +132,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
   const CausalBias m{static_cast<const float*>(kbias)};
-  return run_dkv(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
+  if (dtype == ptt::kBF16)
+    return run_bwd_sm90(p, m, q, k, v, dout, lse, delta, nullptr, dk, dv, stream);
+  return run_dkv<false>(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
 }

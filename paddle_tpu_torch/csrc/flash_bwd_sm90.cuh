@@ -3,14 +3,19 @@
 // (flash_fwd_sm90.cuh) is, and reading the forward's 128 x 128 tile
 // classes.
 //
-// Replaces, for bfloat16 inputs, two TPU kernels (float32 keeps the
+// Replaces, for bfloat16 inputs, four TPU kernels (float32 keeps the
 // CUDA-core `flash_dq_kernel` and `flash_dkv_kernel` of flash_tiles.cuh):
 //   - paddle_tpu/ops/pallas/masked_flash.py `_fm_bwd_dq_kernel` :138
 //     (pallas_call :291): dQ = dS K;
 //   - paddle_tpu/ops/pallas/masked_flash.py `_fm_bwd_dkv_kernel` :182
 //     (pallas_call :311): dV = P^T dO and dK = dS^T Q;
-// both under masked_flash.cu's `FlashMask` (top-left causal and the
-// per-column row ranges of `FlashMask::keep`). P = exp(S - LSE) is
+// under masked_flash.cu's `FlashMask` (top-left causal and the per-column
+// row ranges of `FlashMask::keep`), and
+//   - paddle_tpu/ops/pallas/flash_attention.py `_bwd_dq_kernel` :332
+//     (pallas_call :528) and `_bwd_dkv_kernel` :406 (pallas_call :557);
+// under flash_attention.cu's `CausalBias` (bottom-right causal, whose
+// offset Skv - Sq need not be a multiple of a tile, and an additive key
+// bias read on every tile). P = exp(S - LSE) is
 // recomputed from the forward's f32 LSE and dS = P (dO V^T - delta) scale,
 // delta = rowsum(dO O) in f32; P and dS are rounded to bf16 before their
 // products (as the TPU kernels cast p and ds to the operand type), every
@@ -20,7 +25,8 @@
 //
 // Bound on an H100: operations at 989 TFLOP/s (bf16 dense), dQ 6 D and
 // dK/dV 8 D per kept (row, key) pair: 0.209 and 0.278 ms at the LLaMA-7B
-// step's shape (masked_flash.cu).
+// step's shape (masked_flash.cu), 0.104 and 0.139 ms at the gpt3_1p3b
+// step's (flash_attention.cu).
 //
 // Design (against the WMMA kernels of flash_tiles.cuh this replaced):
 //   1. Products on wgmma (sm90.cuh) from 64-column 128-byte-swizzled
@@ -635,9 +641,9 @@ cudaError_t launch_bwd(const Problem& p, const M& m, const void* q, const void* 
 
 }  // namespace sm90
 
-// The bf16 backward of masked_flash.cu: q, k, v and dout (strides p.o)
-// bf16 as run_fwd_sm90 takes them; lse and delta [B, H, Sq] f32
-// contiguous. dQ: dq [B, Sq, H, D] contiguous bf16. dK/dV (dq null): dk,
+// The bf16 backward of flash_attention.cu and masked_flash.cu: q, k, v and
+// dout (strides p.o) bf16 as run_fwd_sm90 takes them; lse and delta
+// [B, H, Sq] f32 contiguous. dQ: dq [B, Sq, H, D] contiguous bf16. dK/dV (dq null): dk,
 // dv [B, Skv, H / g, D] contiguous f32, the kv heads' gradients.
 template <class M>
 cudaError_t run_bwd_sm90(const Problem& p, const M& m, const void* q, const void* k,

@@ -1,17 +1,21 @@
 // The tile kernels of flash attention for Hopper (sm_90a): forward, dQ and
 // dK/dV, each templated on a mask policy (see below) so that one set of
-// kernels serves two families of TPU kernels:
+// kernels serves three families of TPU kernels:
 //   - flash_attention.cu: paddle_tpu/ops/pallas/flash_attention.py's
 //     `_fwd_kernel` :127, `_bwd_dq_kernel` :332 and `_bwd_dkv_kernel` :406
-//     (bottom-right causal, an additive key bias);
+//     (bottom-right causal, an additive key bias), in float32 only;
 //   - masked_flash.cu: paddle_tpu/ops/pallas/masked_flash.py's flashmask
 //     `_fm_fwd_kernel` :77, `_fm_bwd_dq_kernel` :138 and
 //     `_fm_bwd_dkv_kernel` :182 (per-column masked row ranges, top-left
-//     causal, empty tiles skipped);
+//     causal, empty tiles skipped), in float32 only;
 //   - varlen_flash.cu: the same file's varlen `_vl_fwd_kernel` :442,
 //     `_vl_bwd_dq_kernel` :490 and `_vl_bwd_dkv_kernel` :529 (packed
 //     segments, causal top-left within a segment, a tile range per
-//     segment span).
+//     segment span), in float32 and bfloat16.
+// bfloat16 flash and flashmask run the Hopper kernels of
+// flash_fwd_sm90.cuh (forward) and flash_bwd_sm90.cuh (dQ, dK/dV) under the
+// same policies; varlen is the one user of this file's bfloat16 (WMMA)
+// kernels.
 // What they compute:
 //   - forward: O = softmax(Q K^T * scale + mask) V and the f32 row
 //     log-sum-exp, GQA by kv head h / g;
@@ -44,10 +48,10 @@
 // ragged edge and any head dim below 64 or 128 zero-filled: no transpose
 // and no padded copy in HBM), then reused by 64 rows. Two forms of the
 // products, chosen by the input type:
-//   - bf16 (flash's backward and varlen's three kernels; the bf16 forward
-//     of flash and flashmask is flash_fwd_sm90.cuh's wgmma kernel, fed by
-//     TMA, and flashmask's bf16 dQ and dK/dV are flash_bwd_sm90.cuh's):
-//     the tensor cores, through WMMA 16x16x16
+//   - bf16 (varlen's three kernels, `flash_fwd_tc_kernel`,
+//     `flash_dq_tc_kernel` and `flash_dkv_tc_kernel`; bf16 flash and
+//     flashmask run flash_fwd_sm90.cuh's and flash_bwd_sm90.cuh's wgmma
+//     kernels, fed by TMA): the tensor cores, through WMMA 16x16x16
 //     bf16 fragments with f32 accumulation, 4 warps of 16 rows each. A
 //     warp's 16x64 score tile goes to shared memory in f32, two lanes per
 //     row run the softmax (or its gradient) on it, and the probabilities
@@ -220,11 +224,12 @@ struct Problem {
 //   - `kVote`: whether a tile whose keep-mask is empty is skipped after a
 //     CTA-wide vote (`any_kept`), for masks whose empty tiles the tile
 //     ranges above do not exclude.
-// The sm90 forward (flash and flashmask) also reads
+// The sm90 kernels (flash and flashmask: forward, dQ and dK/dV) also read
 //   - `int tile_class(p, b, h, q0, k0, bm, bn)`: a `TileClass` of the
 //     (q tile, kv tile): skipped (no pair kept; never loaded), full (every
 //     pair of real rows and columns kept: no predicate) or partial (keep()
-//     on every element);
+//     on every element); the dK/dV kernel asks it of 64-row q steps
+//     (q0 = t * 64, bm = 128);
 //   - `bool has_bias()`: whether bias() is added on every tile.
 // flash_attention.cu holds the flash policy (bottom-right causal plus a
 // key bias), masked_flash.cu the flashmask column ranges, varlen_flash.cu
@@ -914,8 +919,9 @@ cudaError_t launch_fwd_tc(const Problem& p, const M& m, const void* q, const voi
 }
 
 // The backward passes: float32 on the CUDA cores, bfloat16 on WMMA when
-// kWmma (flashmask's bfloat16 backward is flash_bwd_sm90.cuh's, so
-// masked_flash.cu instantiates only the float32 kernels)
+// kWmma (the bfloat16 backward of flash and flashmask is
+// flash_bwd_sm90.cuh's, so flash_attention.cu and masked_flash.cu
+// instantiate only the float32 kernels; varlen_flash.cu both)
 template <int DT, bool kWmma, class M>
 cudaError_t launch_dq(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                       const void* v, const void* dout, const float* lse, const float* delta,

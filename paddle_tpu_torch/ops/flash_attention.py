@@ -12,11 +12,14 @@ version and its launch counter:
   forward, in bf16 the wgmma kernel of `csrc/flash_fwd_sm90.cuh` (q, k and
   v through `tma_operands`), in f32 `flash_fwd_kernel`; `flash_fwd_plain`
   on CPU tensors; `FWD_LAUNCHES`;
-- `flash_bwd_dq` → dQ in q's dtype: `flash_dq_kernel` / `flash_bwd_dq_plain`;
-  `DQ_LAUNCHES`;
-- `flash_bwd_dkv` → dK, dV per query head in f32: `flash_dkv_kernel` /
-  `flash_bwd_dkv_plain`; `DKV_LAUNCHES`. The backward sums the g heads of a
-  kv head and casts to k's dtype, as `_bwd` does with jnp.
+- `flash_bwd_dq` → dQ in q's dtype: in bf16 the wgmma kernel of
+  `csrc/flash_bwd_sm90.cuh`, in f32 `flash_dq_kernel`;
+  `flash_bwd_dq_plain`; `DQ_LAUNCHES`;
+- `flash_bwd_dkv` → dK, dV of the kv heads in f32, the g query heads of a
+  kv head summed as `_bwd` does with jnp: in bf16 `flash_bwd_sm90.cuh`'s
+  kernel writes them as they are, in f32 `flash_dkv_kernel` writes one
+  slice per query head, which torch sums; `flash_bwd_dkv_plain`;
+  `DKV_LAUNCHES`. The backward casts them to k's dtype.
 
 Semantics, shared by the kernels and the plain versions:
 
@@ -39,10 +42,11 @@ Semantics, shared by the kernels and the plain versions:
   f32, with the probabilities and dS rounded to bf16 before they enter the
   next product (as the JAX kernel casts p and ds to the operand type) and
   the softmax statistics in f32.
-- The bf16 forward reads q, k and v through TMA tensor maps, which take a
-  view whose base is 16-byte aligned, whose head dim is a multiple of 8
-  and whose strides are multiples of 16 bytes; `tma_operands` passes such
-  views as they are (a fused qkv's slices too) and copies any other.
+- The bf16 kernels read q, k, v (and the backward dO) through TMA tensor
+  maps, which take a view whose base is 16-byte aligned, whose head dim is
+  a multiple of 8 and whose strides are multiples of 16 bytes;
+  `tma_operands` passes such views as they are (a fused qkv's slices too)
+  and copies any other.
 """
 
 from __future__ import annotations
@@ -174,10 +178,11 @@ def flash_bwd_dq_plain(q, k, v, key_bias, dout, lse, delta, causal, scale):
 
 def flash_bwd_dkv_plain(q, k, v, key_bias, dout, lse, delta, causal, scale):
     """Plain PyTorch version of the dk/dv kernel: dK = dS^T Q and
-    dV = P^T dO per query head with P and dS in q's dtype, f32
-    [B, Skv, H, D] each."""
+    dV = P^T dO with P and dS in q's dtype, the kv heads' f32
+    [B, Skv, Hkv, D] each (the g query heads of a kv head summed)."""
     s = _flash_logits(q, k, key_bias, causal, scale)
-    return _dkv(q, dout, *_probs_and_ds(q, v, s, dout, lse, delta, scale))
+    dk, dv = _dkv(q, dout, *_probs_and_ds(q, v, s, dout, lse, delta, scale))
+    return _group_sum(dk, k.shape[2]), _group_sum(dv, k.shape[2])
 
 
 # --------------------------------------------------------------------------- #
@@ -228,17 +233,19 @@ def _strides(q, k, v, dout):
     return _build.longlongs(strides)
 
 
+def _unit_d(t):
+    """t with a unit head-dim stride (copied only if the last axis is
+    strided)."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
 def _cuda_operands(q, k, v, key_bias, dout=None):
-    """Kernel operands: views with a unit head-dim stride (copied only if
-    the last axis is strided), the key bias contiguous, and the 12 (b, s, h)
-    element strides of q, k, v and dout."""
+    """Kernel operands: views with a unit head-dim stride, the key bias
+    contiguous, and the 12 (b, s, h) element strides of q, k, v and
+    dout."""
     _device_checks(q)
-
-    def unit_d(t):
-        return t if t.stride(-1) == 1 else t.contiguous()
-
-    q, k, v = unit_d(q), unit_d(k), unit_d(v)
-    dout = None if dout is None else unit_d(dout.to(q.dtype))
+    q, k, v = _unit_d(q), _unit_d(k), _unit_d(v)
+    dout = None if dout is None else _unit_d(dout.to(q.dtype))
     kb = None if key_bias is None else key_bias.contiguous()
     return q, k, v, kb, dout, _strides(q, k, v, dout)
 
@@ -281,6 +288,24 @@ def _fwd_operands(q, k, v, key_bias):
     q, k, v, d = tma_operands(q, k, v)
     kb = None if key_bias is None else key_bias.contiguous()
     return q, k, v, kb, _strides(q, k, v, None), d
+
+
+def _bwd_operands(q, k, v, dout):
+    """(q, k, v, dout, strides, D) of a backward launch: bf16 through
+    `tma_operands` (D the head dim the kernels see), f32 with a unit
+    head-dim stride. Pure tensor logic: it runs on any device."""
+    dout = dout.to(q.dtype)
+    if q.dtype != torch.bfloat16:
+        q, k, v, dout = (_unit_d(t) for t in (q, k, v, dout))
+        d = q.shape[-1]
+    else:
+        q, k, v, dout, d = tma_operands(q, k, v, dout)
+    return q, k, v, dout, _strides(q, k, v, dout), d
+
+
+def _cut(x, D):
+    """x [..., d] cut back to the head dim D (the kernels' zero padding)."""
+    return x if x.shape[-1] == D else x[..., :D].contiguous()
 
 
 def _fwd_outputs(q, Sq, H, d):
@@ -346,53 +371,58 @@ def flash_bwd_dq(q, k, v, key_bias, dout, lse, delta, causal, scale):
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, key_bias, dout, lse, delta, causal,
                                   scale)
-    q, k, v, kb, dout, strides = _cuda_operands(q, k, v, key_bias, dout)
+    _device_checks(q)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    dq = torch.empty(B, Sq, H, D, device=q.device, dtype=q.dtype)
-    if dq.numel() == 0:
-        return dq
+    q, k, v, dout, strides, d = _bwd_operands(q, k, v, dout)
+    dq = torch.empty(B, Sq, H, d, device=q.device, dtype=q.dtype)
+    if dq.numel() == 0 or Skv == 0:
+        return _cut(dq.zero_(), D)
+    kb = None if key_bias is None else key_bias.contiguous()
     lse, delta = lse.contiguous(), delta.contiguous()
-    lib = _build.load_library()
-    err = lib.ptt_flash_bwd_dq(
+    err = _build.load_library().ptt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kb), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Sq, Skv,
-        D, strides, float(scale), int(bool(causal)),
+        d, strides, float(scale), int(bool(causal)),
         _build.DTYPE_CODES[str(q.dtype)],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ptt_flash_bwd_dq")
     DQ_LAUNCHES += 1
-    return dq
+    return _cut(dq, D)
 
 
 def flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal, scale):
-    """(dK, dV), each f32 [B, Skv, H, D]: one slice per query head, not yet
-    summed over the g heads of a kv head. CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+    """(dK, dV), each f32 [B, Skv, Hkv, D]: the kv heads' gradients, the g
+    query heads of a kv head summed. The bf16 kernel writes them as they
+    are; the f32 kernel writes one slice per query head, which torch sums.
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
     global DKV_LAUNCHES
     _check(q, k, v, key_bias)
     _bwd_checks(q, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, key_bias, dout, lse, delta,
                                    causal, scale)
-    q, k, v, kb, dout, strides = _cuda_operands(q, k, v, key_bias, dout)
+    _device_checks(q)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    dk = torch.empty(B, Skv, H, D, device=q.device, dtype=torch.float32)
+    if B * Skv * Hkv * D == 0 or Sq == 0:
+        dk = torch.zeros(B, Skv, Hkv, D, device=q.device, dtype=torch.float32)
+        return dk, torch.zeros_like(dk)
+    q, k, v, dout, strides, d = _bwd_operands(q, k, v, dout)
+    heads = Hkv if q.dtype == torch.bfloat16 else H
+    dk = torch.empty(B, Skv, heads, d, device=q.device, dtype=torch.float32)
     dv = torch.empty_like(dk)
-    if dk.numel() == 0:
-        return dk, dv
+    kb = None if key_bias is None else key_bias.contiguous()
     lse, delta = lse.contiguous(), delta.contiguous()
-    lib = _build.load_library()
-    err = lib.ptt_flash_bwd_dkv(
+    err = _build.load_library().ptt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kb), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
-        Hkv, Sq, Skv, D, strides, float(scale), int(bool(causal)),
+        Hkv, Sq, Skv, d, strides, float(scale), int(bool(causal)),
         _build.DTYPE_CODES[str(q.dtype)],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ptt_flash_bwd_dkv")
     DKV_LAUNCHES += 1
-    return dk, dv
+    return _cut(_group_sum(dk, Hkv), D), _cut(_group_sum(dv, Hkv), D)
 
 
 # --------------------------------------------------------------------------- #
@@ -403,9 +433,10 @@ def flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal, scale):
 class FlashAttention(torch.autograd.Function):
     """Attention with its flash backward (↔ `_flash` / `_flash_kb`'s custom
     VJP). Saves q, k, v, O and the LSE; the backward computes
-    delta = rowsum(dO * O) in f32 with torch (as `_bwd` does with jnp),
-    runs the dq and dk/dv kernels, and group-sums dK/dV for GQA. The key
-    bias is data: its gradient is None."""
+    delta = rowsum(dO * O) in f32 with torch (as `_bwd` does with jnp) and
+    runs the dq and dk/dv kernels; dk/dv come out summed over the g query
+    heads of a kv head, and are cast to k's dtype. The key bias is data:
+    its gradient is None."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, causal, scale):
@@ -423,21 +454,14 @@ class FlashAttention(torch.autograd.Function):
         dq = flash_bwd_dq(q, k, v, key_bias, dout, lse, delta, causal, scale)
         dk, dv = flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal,
                                scale)
-        return (dq, *_kv_grads(dk, dv, k, v), None, None, None)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def _group_sum(x, hkv):
     """[B, S, H, D], one slice per query head -> [B, S, Hkv, D]: the g
-    query heads of a kv head summed (GQA)."""
+    query heads of a kv head summed (GQA); [B, S, Hkv, D] as it is."""
     B, S, H, D = x.shape
     return x if H == hkv else x.reshape(B, S, hkv, H // hkv, D).sum(3)
-
-
-def _kv_grads(dk, dv, k, v):
-    """Per-query-head f32 dK, dV [B, Skv, H, D] -> the kv heads' gradients
-    in k's and v's dtypes."""
-    return (_group_sum(dk, k.shape[2]).to(k.dtype),
-            _group_sum(dv, v.shape[2]).to(v.dtype))
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, key_bias=None):

@@ -82,11 +82,10 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .flash_attention import (_attend, _bwd_checks, _check, _cuda_operands,
-                              _device_checks, _dkv, _dq, _fwd_operands,
-                              _fwd_outputs, _fwd_result, _group_sum, _kv_grads,
-                              _logits, _probs_and_ds, _ptr, _strides,
-                              tma_operands)
+from .flash_attention import (_attend, _bwd_checks, _bwd_operands, _check,
+                              _cuda_operands, _cut, _device_checks, _dkv, _dq,
+                              _fwd_operands, _fwd_outputs, _fwd_result,
+                              _group_sum, _logits, _probs_and_ds, _ptr)
 
 __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES",
            "FlashmaskAttention", "VL_DKV_LAUNCHES", "VL_DQ_LAUNCHES",
@@ -285,23 +284,6 @@ def flashmask_fwd(q, k, v, idx, causal, scale):
     return _flashmask_fwd(q, k, v, idx, causal, scale)[:2]
 
 
-def _bwd_operands(q, k, v, dout):
-    """(q, k, v, dout, strides, D) of a backward launch: bf16 through
-    `tma_operands` (D the head dim the kernels see), f32 as
-    `_cuda_operands` gives them."""
-    if q.dtype != torch.bfloat16:
-        q, k, v, _, dout, strides = _cuda_operands(q, k, v, None, dout)
-        return q, k, v, dout, strides, q.shape[-1]
-    _device_checks(q)
-    q, k, v, dout, d = tma_operands(q, k, v, dout.to(q.dtype))
-    return q, k, v, dout, _strides(q, k, v, dout), d
-
-
-def _cut(x, D):
-    """x [..., d] cut back to the head dim D (the kernels' zero padding)."""
-    return x if x.shape[-1] == D else x[..., :D].contiguous()
-
-
 def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale, cls=None):
     """dQ [B, Sq, H, D] in q's dtype from the forward's LSE and
     delta = rowsum(dO * O) [B, H, Sq] f32. `cls`: the bf16 kernel's tile
@@ -314,6 +296,7 @@ def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale, cls=None):
     if q.device.type == "cpu":
         return flashmask_bwd_dq_plain(q, k, v, idx, dout, lse, delta, causal,
                                       scale)
+    _device_checks(q)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     q, k, v, dout, strides, d = _bwd_operands(q, k, v, dout)
@@ -348,6 +331,7 @@ def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale,
     if q.device.type == "cpu":
         return flashmask_bwd_dkv_plain(q, k, v, idx, dout, lse, delta, causal,
                                        scale)
+    _device_checks(q)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     bf16 = q.dtype == torch.bfloat16
@@ -664,6 +648,13 @@ def varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal, scale):
     _build.check(err, "ptt_varlen_bwd_dkv")
     VL_DKV_LAUNCHES += 1
     return dk, dv
+
+
+def _kv_grads(dk, dv, k, v):
+    """Per-query-head f32 dK, dV [B, Skv, H, D] (the varlen kernel's) -> the
+    kv heads' gradients in k's and v's dtypes."""
+    return (_group_sum(dk, k.shape[2]).to(k.dtype),
+            _group_sum(dv, v.shape[2]).to(v.dtype))
 
 
 class VarlenAttention(torch.autograd.Function):

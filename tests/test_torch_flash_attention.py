@@ -146,6 +146,34 @@ def test_values_and_grads_match_jax(name, jax_refs):
         np.testing.assert_allclose(got, want, err_msg=what, **TOL)
 
 
+@pytest.mark.parametrize("name", ["bias_causal_ragged_g2",
+                                  "causal_ragged_sq_lt_skv_g2",
+                                  "full_ragged_g4_d128",
+                                  "causal_sq_gt_skv_g4_d128"])
+def test_dkv_returns_the_kv_heads_gradients(name, jax_refs):
+    """flash_bwd_dkv (on CPU tensors its plain version) returns the kv
+    heads' dK and dV, f32 [B, Skv, Hkv, D]: the g query heads of a kv head
+    summed, as the JAX package's `_bwd` returns them (through jax.vjp
+    here), at GQA 4/2 with Sq != Skv, causal and with a key bias, at g = 4
+    full, and where rows see no key (Sq > Skv); held to TOL."""
+    q, k, v, do, causal, kb = _case(name)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    kbt = None if kb is None else torch.from_numpy(kb)
+    scale = q.shape[-1] ** -0.5
+    out, lse = port_fa.flash_fwd(qt, kt, vt, causal, scale, kbt)
+    delta = (dot * out).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = port_fa.flash_bwd_dkv(qt, kt, vt, kbt, dot, lse, delta, causal,
+                                   scale)
+    pk, pv = port_fa.flash_bwd_dkv_plain(qt, kt, vt, kbt, dot, lse, delta,
+                                         causal, scale)
+    assert dk.shape == dv.shape == kt.shape
+    assert dk.dtype == dv.dtype == torch.float32
+    torch.testing.assert_close(dk, pk, rtol=0, atol=0)
+    torch.testing.assert_close(dv, pv, rtol=0, atol=0)
+    for got, want, what in zip((dk, dv), jax_refs[name][2:], ("dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), want, err_msg=what, **TOL)
+
+
 def test_bf16_values_and_grads_match_jax(jax_refs):
     """bf16 inputs: both packages round P and dS to bf16 before their second
     and third products and keep the statistics in f32; outputs and

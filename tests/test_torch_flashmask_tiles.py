@@ -245,6 +245,60 @@ def test_tma_operands_copy_only_what_a_map_cannot_describe(layout):
     torch.testing.assert_close(lse_p, lse, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "fused_qkv",
+                                    "unaligned_base", "strided_head", "odd_d"])
+def test_bwd_operands_feed_the_plain_backward_unchanged(layout):
+    """The backward's operand preparation (ops.flash_attention._bwd_operands,
+    shared by the flash and flashmask wrappers): q, k, v and dO as
+    tma_operands gives them (views a map describes as they are, others
+    copied, D 36 zero-padded to 40) with their 12 (b, s, h) strides; the
+    plain dQ and dK/dV on what the kernels would read, cut back to D
+    (`_cut`), equal the plain versions on the views: flash causal and with
+    a padding key bias, flashmask with a document index."""
+    q, k, v = _views(layout)
+    B, S, H, D = q.shape
+    dout = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (B, S, H, D)).astype(np.float32)).bfloat16()
+    qp, kp, vp, dp, strides, d = port_fa._bwd_operands(q, k, v, dout)
+    assert d == (40 if layout == "odd_d" else D)
+    assert list(strides) == [t.stride(i) for t in (qp, kp, vp, dp)
+                             for i in range(3)]
+    for t, tp in ((q, qp), (k, kp), (v, vp), (dout, dp)):
+        passes = layout in ("contiguous", "fused_qkv") or (
+            t is dout and layout != "odd_d")
+        assert (tp is t) == passes
+        assert port_fa._tma_ready(tp) and tp.shape == (*t.shape[:-1], d)
+        torch.testing.assert_close(tp[..., :D], t, rtol=0, atol=0)
+        assert not tp[..., D:].any()
+    q, k, v, dout, qp, kp, vp, dp = (t.float() for t in (
+        q, k, v, dout, qp, kp, vp, dp))
+    scale = D ** -0.5
+    kb = torch.zeros(B, S)
+    kb[:, S - 7:] = -1e30
+    idx = torch.from_numpy(_index(np.random.default_rng(3), B, 1, S, 1,
+                                  "docs"))
+    flash = (port_fa.flash_fwd_plain, port_fa.flash_bwd_dq_plain,
+             port_fa.flash_bwd_dkv_plain)
+    mask = (port_mf.flashmask_fwd_plain, port_mf.flashmask_bwd_dq_plain,
+            port_mf.flashmask_bwd_dkv_plain)
+    for (fwd, bwd_dq, bwd_dkv), extra, causal in (
+            (flash, None, True), (flash, kb, False), (mask, idx, True)):
+        if fwd is flash[0]:
+            out, lse = fwd(q, k, v, causal, scale, extra)
+        else:
+            out, lse = fwd(q, k, v, extra, causal, scale)
+        delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+        tail = (lse, delta, causal, scale)
+        dq = bwd_dq(q, k, v, extra, dout, *tail)
+        dk, dv = bwd_dkv(q, k, v, extra, dout, *tail)
+        dq_p = port_fa._cut(bwd_dq(qp, kp, vp, extra, dp, *tail), D)
+        dk_p, dv_p = (port_fa._cut(t, D)
+                      for t in bwd_dkv(qp, kp, vp, extra, dp, *tail))
+        assert dk.shape == dk_p.shape == k.shape
+        for got, want in ((dq_p, dq), (dk_p, dk), (dv_p, dv)):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 def test_tma_operands_copy_a_gradient_no_map_describes():
     """The backward hands dO through tma_operands beside q, k and v: an
     expanded gradient (stride 0, as `out.sum().backward()` gives) or one
