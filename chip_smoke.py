@@ -9,10 +9,12 @@ Phases; any failure raises and the script exits non-zero:
                 process per source, in parallel), load it. The Hopper
                 kernels' instantiations, one line each for the bf16
                 attention forward (flash and flashmask at head dims 64
-                and 128) and the bf16 backward (dQ and dK/dV of flash and
-                flashmask at 64 and 128): registers and spills from ptxas, wgmma
-                (HGMMA) and TMA-load (UTMALDG) instructions from
-                `cuobjdump -sass`; none may spill or lack either.
+                and 128), the bf16 backward (dQ and dK/dV of flash and
+                flashmask at 64 and 128) and the bf16 grouped GEMM
+                (weights read as they are and transposed): registers and
+                spills from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
+                instructions from `cuobjdump -sass`; none may spill or
+                lack either.
 2. kernels    — each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes its path gives it and a few edge
                 shapes, in float32 and bfloat16: max error against a stated
@@ -23,8 +25,9 @@ Phases; any failure raises and the script exits non-zero:
                 function where there is one. Fused norm forward and dx,
                 paged decode attention (full precision and int8 pages, with
                 g = 4, a zero-length row, -1 table entries and a page whose
-                scales are 0), dense-cache decode attention (the MMHA shape
-                and g = 4), flash attention forward, dq and dk/dv (the
+                scales are 0), dense-cache decode attention split over the
+                sequence (the MMHA shape, g = 4, a short odd cache with a
+                zero-length row), flash attention forward, dq and dk/dv (the
                 path's shape; S off the forward's 128-row tiles, D 64, 40,
                 96 and 36 (the copy route), g = 4, a key bias, Sq > Skv
                 and Skv > Sq, a fused qkv's strided views and unaligned
@@ -67,9 +70,12 @@ Phases; any failure raises and the script exits non-zero:
                 segment test's upper bound dropped, and in the WMMA
                 backward a q tile's last kv tile skipped in dQ and the last
                 q tile skipped in dK/dV; grouped GEMM: a partly
-                live tile treated as dead): at its case every one must fail
-                the limits of phase 2. Only the sources a fault touches are
-                compiled again.
+                live 64-row unit treated as dead, a tile's second unit
+                taking the first one's liveness; dense decode: the combine
+                without a chunk's rescale, a chunk's tokens counted to
+                S_max instead of the length): at its case every one must
+                fail the limits of phase 2. Only the sources a fault
+                touches are compiled again.
 3. serve      — gpt3_1p3b at full width and depth in bf16, random weights
                 from a seed, through inference.create_serving_engine (paged,
                 16 rows, 512 tokens, page size 32) over 12 requests of the
@@ -96,8 +102,9 @@ Phases; any failure raises and the script exits non-zero:
                 + ticks) x 49; model.generate on one greedy prompt gives the
                 engine's tokens; a profile of the dense decode tick.
 4d. mmha      — 32 steps of incubate masked_multihead_attention at B 16,
-                16 heads of 128, S_max 2048: the dense-cache kernel exactly
-                32 times, every step within tolerance of the plain version.
+                16 heads of 128, S_max 2048: the dense-cache kernel pair
+                (split and combine, one launch of the wrapper) exactly 32
+                times, every step within tolerance of the plain version.
 4e. quant hold — phase 4 with kv_quant and serve_w8: tokens identical,
                 logits within tolerance, int8 payloads within 1.
 5. train      — gpt3_1p3b at full width and depth, batch 4 x 2048 tokens,
@@ -331,15 +338,19 @@ def ptxas_summary(log):
 
 SM90_KERNEL = re.compile(
     r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E.*?(CausalBias|FlashMask)")
+SM90_GG_KERNEL = re.compile(r"(gg_sm90_kernel)ILb([01])E")
 # the Hopper kernels' instantiations chip_smoke.py expects: the bf16
 # forward (csrc/flash_fwd_sm90.cuh) and the bf16 dQ and dK/dV
-# (csrc/flash_bwd_sm90.cuh) of flash and flashmask, at head dims 64 and 128
+# (csrc/flash_bwd_sm90.cuh) of flash and flashmask, at head dims 64 and
+# 128, and the bf16 grouped GEMM (csrc/grouped_gemm_sm90.cuh) against
+# [E, K, N] weights (false) and transposed [E, N, K] ones (true)
 SM90_EXPECTED = {
     "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>" for m in ("CausalBias", "FlashMask")
                 for d in (64, 128)],
     "backward": [f"{k}<{d}, {m}>" for m in ("CausalBias", "FlashMask")
                  for k in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
                  for d in (64, 128)],
+    "grouped_gemm": [f"gg_sm90_kernel<{t}>" for t in ("false", "true")],
 }
 
 
@@ -348,14 +359,18 @@ def sm90_report(card, lib_path, log):
     and spill-store bytes from nvcc's `-Xptxas -v` (`log`, empty if this
     process did not build), and the wgmma (HGMMA) and TMA-load (UTMALDG)
     instructions that `cuobjdump -sass` finds in each in the library. One
-    line for the forward, one for the backward. Raises if an instantiation
-    is missing, spills, or has no wgmma or no TMA load: it would not run on
-    Hopper's tensor cores fed by TMA."""
+    line each for the attention forward, the attention backward and the
+    grouped GEMM. Raises if an instantiation is missing, spills, or has no
+    wgmma or no TMA load: it would not run on Hopper's tensor cores fed by
+    TMA."""
     import shutil
 
     def name_of(ln):
         m = SM90_KERNEL.search(ln)
-        return f"{m[1]}<{m[2]}, {m[3]}>" if m else None
+        if m:
+            return f"{m[1]}<{m[2]}, {m[3]}>"
+        m = SM90_GG_KERNEL.search(ln)
+        return f"{m[1]}<{'true' if m[2] == '1' else 'false'}>" if m else None
 
     report, name = {}, None
     for ln in log.splitlines():
@@ -633,42 +648,60 @@ def check_decode_q8(card, torch):
     return {"worst": worst, "main": main}
 
 
+# name: (B, H, Hkv, D, S_max, lengths)
+DENSE_CASES = {
+    "mmha_g1": (16, 16, 16, 128, 2048, [int(x) for x in np.linspace(1, 2048, 16)]),
+    "gqa_g4": (16, 16, 4, 128, 2048, [int(x) for x in np.linspace(1, 2048, 16)]),
+    "odd_s_max_d64": (4, 8, 8, 64, 301, [0, 1, 300, 301]),
+}
+
+
+def _dense_inputs(torch, gen, name, dtype):
+    """(q, kc, vc, lengths) of a DENSE_CASES case on the card."""
+    B, H, Hkv, D, S, lengths = DENSE_CASES[name]
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, H, D, device="cuda", generator=gen).to(dt)
+    kc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).to(dt)
+    vc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).to(dt)
+    return q, kc, vc, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def _dense_violations(torch, name, dtype, out, ref):
+    """What breaks the limits: max |err| over DECODE_TOL, a non-finite value,
+    a zero-length row not exactly zero."""
+    err = (out.float() - ref.float()).abs().max().item()
+    zero_rows = [b for b, L in enumerate(DENSE_CASES[name][5]) if L == 0]
+    bad = []
+    if not torch.isfinite(out.float()).all():
+        bad.append("non-finite output")
+    if any(out[b].abs().max().item() != 0 for b in zero_rows):
+        bad.append("a zero-length row is not zero")
+    if not err <= DECODE_TOL[dtype]:
+        bad.append(f"max|err| {err} (tol {DECODE_TOL[dtype]})")
+    return bad, err
+
+
 def check_dense_decode(card, torch):
-    """The dense-cache decode kernel against its plain version at the MMHA
-    shape (B 16, 16 heads of 128, S_max 2048, lengths from 1 to 2048), at
-    GQA g = 4 and at a short odd cache with a zero-length row; bf16 (the
+    """The dense-cache decode kernels against their plain version at the
+    MMHA shape (B 16, 16 heads of 128, S_max 2048, lengths from 1 to 2048),
+    at GQA g = 4 and at a short odd cache with a zero-length row; bf16 (the
     path) and f32. The library yardstick is F.scaled_dot_product_attention
     over the same keys with a bool key mask, at g = 1."""
     from paddle_tpu_torch.ops import decode_attention as da
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    mmha_lengths = [int(x) for x in np.linspace(1, 2048, 16)]
-    cases = {
-        "mmha_g1": (16, 16, 16, 128, 2048, mmha_lengths),
-        "gqa_g4": (16, 16, 4, 128, 2048, mmha_lengths),
-        "odd_s_max_d64": (4, 8, 8, 64, 301, [0, 1, 300, 301]),
-    }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst, main = 0.0, None
     for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        for name, (B, H, Hkv, D, S, lengths) in cases.items():
-            q = torch.randn(B, H, D, device="cuda", generator=gen).to(dt)
-            kc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).to(dt)
-            vc = torch.randn(B, Hkv, S, D, device="cuda", generator=gen).to(dt)
-            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for name, (B, H, Hkv, D, S, lengths) in DENSE_CASES.items():
+            q, kc, vc, lens = _dense_inputs(torch, gen, name, dtype)
             out = da.dense_decode_attention(q, kc, vc, lens)
             ref = da.dense_decode_attention_plain(q, kc, vc, lens, D ** -0.5)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            zero_rows = [b for b, L in enumerate(lengths) if L == 0]
-            if (not torch.isfinite(out.float()).all()
-                    or any(out[b].abs().max().item() != 0 for b in zero_rows)):
-                raise AssertionError(f"dense_decode {name} {dtype}: non-finite "
-                                     "output or a zero-length row not zero")
-            if not err <= DECODE_TOL[dtype]:
-                raise AssertionError(f"dense_decode {name} {dtype}: max|err| "
-                                     f"{err} (tol {DECODE_TOL[dtype]})")
+            bad, err = _dense_violations(torch, name, dtype, out, ref)
+            if bad:
+                raise AssertionError(f"dense_decode {name} {dtype}: "
+                                     + "; ".join(bad))
             worst = max(worst, err)
             valid = sum(min(L, S) for L in lengths)
             es = q.element_size()
@@ -682,6 +715,7 @@ def check_dense_decode(card, torch):
                 lib = time_ms(lambda: sdpa(q4, kc, vc, attn_mask=keep))
             call = lambda: da.dense_decode_attention(q, kc, vc, lens)  # noqa: E731
             row = dict(case=name, dtype=dtype, B=B, H=H, Hkv=Hkv, D=D, S_max=S,
+                       chunk=da.dense_chunk(D, es, S),
                        valid_tokens=valid, max_abs_err=err,
                        tol=DECODE_TOL[dtype], ms=time_ms(call),
                        eager_ms=eager_ms(call),
@@ -1487,8 +1521,9 @@ def check_grouped_gemm(card, torch):
     routing) in bf16, the two forward ones in f32, and edge cases: a group
     with no live rows, one with all R, partly live tiles, the small strides
     R = 16 and 48 that row_stride gives, and K and N not multiples of the
-    tile (K not a multiple of 8: the kernel's element loads). The bound counts the
-    rows this run's sizes make the kernel compute. Library: one torch.bmm
+    tile (K not a multiple of 8: the wrapper pads it for the bf16 kernel's
+    TMA maps). The bound counts the rows this run's sizes make the kernel
+    compute. Library: one torch.bmm
     over [E, R, K] x [E, K, N], which computes the dead rows too."""
     from paddle_tpu_torch.ops import grouped_gemm as gg
 
@@ -1700,7 +1735,8 @@ def check_varlen(card, torch):
 # text that anchors the fault, the text replaced at its first occurrence
 # after the anchor, the replacement, the case that must catch it: "flash
 # <FLASH_CASES name>", "varlen <VARLEN_CASES name>", "grouped_gemm
-# <GG_CASES name>" or a FLASHMASK_CASES name). They follow the kernels'
+# <GG_CASES name>", "dense_decode <DENSE_CASES name>" (bf16) or a
+# FLASHMASK_CASES name). They follow the kernels'
 # code: a change there that moves the replaced text must move these with
 # it. The WMMA dQ and dK/dV of flash_tiles.cuh run only varlen's bf16
 # backward.
@@ -1756,17 +1792,28 @@ KERNEL_FAULTS = {
         "varlen_flash.cu", "struct Varlen", "row >= k.lo && row < k.hi",
         "row >= k.lo", "varlen path"),
     "grouped_gemm: a partly live tile treated as dead": (
-        "grouped_gemm.cu", "bool dead_tile(",
-        "if (a.sizes[t.g] > t.off) return false;",
-        "if (a.sizes[t.g] >= t.off + t.rows) return false;",
+        "grouped_gemm_sm90.cuh", "bool unit_live(", "return sizes[g] > off;",
+        "return sizes[g] >= off + kGgUnit;", "grouped_gemm partial_tiles"),
+    "grouped_gemm: a tile's second 64-row unit takes the first one's liveness": (
+        "grouped_gemm_sm90.cuh", "GgTile gg_tile(",
+        "unit_live(p.sizes, x.g, x.r0 + kGgUnit)", "unit_live(p.sizes, x.g, x.r0)",
         "grouped_gemm partial_tiles"),
+    "dense decode: the combine drops a chunk's rescale exp(m_i - M)": (
+        "dense_decode.cu", "float chunk_weight(", "return expf(m - top);",
+        "return 1.f;", "dense_decode mmha_g1"),
+    "dense decode: a chunk's valid tokens counted to S_max, not the length": (
+        "dense_decode.cu", "decode_split_kernel(",
+        "const int nv = min(chunk, length - c0);",
+        "const int nv = min(chunk, s_max - c0);", "dense_decode odd_s_max_d64"),
 }
 
 
 def _fault_violations(torch, case):
     """Phase 2's violations at a fault's case ("flash <FLASH_CASES name>",
-    "varlen <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>" or a
-    FLASHMASK_CASES name), run on the library load_library() holds."""
+    "varlen <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>",
+    "dense_decode <DENSE_CASES name>" in bf16, or a FLASHMASK_CASES name),
+    run on the library load_library() holds."""
+    from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_gemm as gg
     from paddle_tpu_torch.ops import masked_flash as mf
@@ -1793,6 +1840,12 @@ def _fault_violations(torch, case):
         out = gg.grouped_gemm(lhs, rhs, sz, trans)
         ref = gg.grouped_matmul_plain(lhs, rhs, sz, gg.BM, trans)
         return _gg_violations(gg, torch, name, out, ref, sz)[0]
+    elif kind == "dense_decode":
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, kc, vc, lens = _dense_inputs(torch, gen, name, "bfloat16")
+        out = da.dense_decode_attention(q, kc, vc, lens)
+        ref = da.dense_decode_attention_plain(q, kc, vc, lens, q.shape[-1] ** -0.5)
+        return _dense_violations(torch, name, "bfloat16", out, ref)[0]
     else:
         gen = torch.Generator(device="cuda").manual_seed(9)
         q, k, v, dout, idx, causal, dtype = _flashmask_inputs(torch, gen, case)
@@ -1803,11 +1856,11 @@ def _fault_violations(torch, case):
 
 
 def planted_kernel_faults(card, torch):
-    """The attention and grouped-GEMM limits must fail faulty kernels: for
-    each fault of KERNEL_FAULTS, the kernels are built again from a copy of
-    csrc/ (in a temporary directory, all builds in parallel) with the fault
-    planted, and held at its case against the plain versions with phase
-    2's limits."""
+    """The attention, grouped-GEMM and dense-decode limits must fail faulty
+    kernels: for each fault of KERNEL_FAULTS, the kernels are built again
+    from a copy of csrc/ (in a temporary directory, all builds in parallel)
+    with the fault planted, and held at its case against the plain versions
+    with phase 2's limits."""
     import pathlib
     import shutil
     import tempfile
@@ -2320,7 +2373,7 @@ def mmha(card, torch):
     """32 decode steps of incubate masked_multihead_attention at the MMHA
     shape (B 16, 16 heads of 128, S_max 2048, bf16, start lengths spread
     over 0..2016, no src_mask): every step must launch the dense-cache
-    kernel once and agree with the plain version on the updated cache."""
+    kernel pair once and agree with the plain version on the updated cache."""
     from paddle_tpu_torch.incubate.nn.functional import (
         masked_multihead_attention,
     )
@@ -2610,9 +2663,10 @@ def train(card, torch, which):
 
 # the kernels of csrc/ by name, as torch.profiler reports them (the sm90
 # ones: flash_fwd_sm90_kernel, flash_bwd_dq_sm90_kernel,
-# flash_bwd_dkv_sm90_kernel)
+# flash_bwd_dkv_sm90_kernel, gg_sm90_kernel; the decodes: decode_tile_,
+# decode_split_ and decode_combine_kernel)
 PORT_KERNEL = re.compile(
-    r"^void \(anonymous namespace\)::(sm90::)?(flash_|norm_|decode_tile_|rope_|gg_)")
+    r"^void \(anonymous namespace\)::(sm90::)?(flash_|norm_|decode_|rope_|gg_)")
 
 
 def profile_step(card, torch, fn, what):
@@ -3047,8 +3101,8 @@ def main():
              decode["worst"]),
             ("paged_decode_attention_q8", da_src, da_ref, decode_q8["main"],
              decode_q8["worst"]),
-            ("dense_decode_attention", da_src, da_ref, dense["main"],
-             dense["worst"]),
+            ("dense_decode_attention", "paddle_tpu_torch/csrc/dense_decode.cu",
+             da_ref, dense["main"], dense["worst"]),
             ("fused_norm_dx", "paddle_tpu_torch/csrc/fused_norm.cu",
              "paddle_tpu/ops/pallas/fused_norm.py:196", norm_dx["main"],
              norm_dx["worst"]),
@@ -3067,7 +3121,7 @@ def main():
              flashmask["main"]["dq"], flashmask["worst"]["dq"]),
             ("flashmask_bwd_dkv", bwd_src, mf_ref + ":182",
              flashmask["main"]["dkv"], flashmask["worst"]["dkv"]),
-            ("grouped_gemm", "paddle_tpu_torch/csrc/grouped_gemm.cu",
+            ("grouped_gemm", "paddle_tpu_torch/csrc/grouped_gemm_sm90.cuh",
              "paddle_tpu/ops/pallas/grouped_gemm.py:110", grouped["main"],
              grouped["worst"]),
             ("varlen_fwd", vl_src, mf_ref + ":442", varlen["main"]["fwd"],

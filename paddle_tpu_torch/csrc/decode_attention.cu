@@ -1,18 +1,17 @@
-// Decode attention (one query token per row) for Hopper (sm_90a): paged
-// full precision, paged int8, and dense-cache.
+// Paged decode attention (one query token per row) for Hopper (sm_90a):
+// full precision and int8 pages.
 //
 // Replaces: paddle_tpu/ops/pallas/decode_attention.py:50 `_decode_kernel`,
-// reached through `_run_decode` :118 in its three forms, all one template
-// `decode_tile_kernel<T, KV, kPaged>` (T the query's type, KV the cache's):
-// - paged, full precision (`paged_decode_attention` :192): <T, T, true>;
-// - paged int8 with per-(page, head) f32 scales (`kv_scales=`, the
-//   `quantized=True` grid of :177): <T, int8_t, true>;
-// - dense cache [B, Hkv, S_max, D] (`dense_decode_attention` :332, the MMHA
-//   path): <T, T, false>.
-// Same semantics in all three: GQA with g = H/Hkv query heads per KV head;
-// a page (or sequence tile) is skipped when it starts at or past the row's
-// length, or, paged, when its block-table entry is negative; the last one
-// is masked per slot; NEG_INF = -1e30; the online softmax runs in f32 with
+// reached through `_run_decode` :118 in its two paged forms, one template
+// `decode_tile_kernel<T, KV>` (T the query's type, KV the cache's):
+// - full precision (`paged_decode_attention` :192): <T, T>;
+// - int8 with per-(page, head) f32 scales (`kv_scales=`, the
+//   `quantized=True` grid of :177): <T, int8_t>.
+// Its dense-cache form (`dense_decode_attention` :332, the MMHA path) is
+// dense_decode.cu's kernel pair, split over the sequence.
+// Same semantics in both: GQA with g = H/Hkv query heads per KV head;
+// a page is skipped when it starts at or past the row's length, or when
+// its block-table entry is negative; the last one is masked per slot; NEG_INF = -1e30; the online softmax runs in f32 with
 // alpha = exp(m_prev - m_new); the output is acc / (l == 0 ? 1 : l) in q's
 // type, so a row with no valid token writes zeros, never NaN. The int8 form
 // dequantizes per page: JAX multiplies K and V by the page's scale before
@@ -28,17 +27,18 @@
 //
 // Design against that bound: one CTA per (batch row, KV head). The TPU
 // kernel's sequential page grid axis, which carried m/l/acc in VMEM
-// scratch, becomes a loop over the row's pages (or tiles) inside the CTA,
-// with m, l and acc in shared memory. The CTA reads its own block-table
-// entries and length (Hopper has no scalar prefetch) and stops at the first
-// page past the length, so a page is read from HBM only if it holds valid
-// tokens, and only its valid slots are read. It first stages the tile's
-// valid K and V rows (they are contiguous in both layouts) in shared
-// memory, 16 bytes a thread, then works from there. Scores: one warp per cached token, lanes across D (a
+// scratch, becomes a loop over the row's pages inside the CTA, with m, l
+// and acc in shared memory. The CTA reads its own block-table entries and
+// length (Hopper has no scalar prefetch) and stops at the first page past
+// the length, so a page is read from HBM only if it holds valid tokens, and
+// only its valid slots are read. It first stages the page's valid K and V
+// rows (they are contiguous) in shared memory, 16 bytes a thread, then
+// works from there. Scores: one warp per cached token, lanes across D (a
 // shuffle reduction), all g query heads of the group against the row. P.V:
 // threads across (head, D), so neighbouring threads read neighbouring
 // elements of a V row. Making them fast (cp.async/TMA double buffering,
-// split-K over pages for small batches) is later work.
+// split-K over pages for small batches, as dense_decode.cu splits the
+// dense cache) is later work.
 #include "common.cuh"
 
 namespace {
@@ -46,16 +46,13 @@ namespace {
 constexpr float kNegInf = -1e30f;  // paddle_tpu/ops/pallas/flash_attention.py NEG_INF
 constexpr int kThreads = 128;
 
-// Paged (kPaged): tile = ps, the loop runs over the P = n_tiles
-// block-table entries of row b, page `page` of KV head h is the contiguous
-// [ps, D] block at element (page * Hkv + h) * ps * D, and for int8 pages
-// k_scale/v_scale [n_pages, Hkv] hold its dequant scales (payload * scale;
-// null for full-precision pages). Dense: the cache is
-// [B, Hkv, s_max, D], tile p of row b is rows [p * tile, (p + 1) * tile) of
-// the contiguous [s_max, D] block of (b, h), the length is clamped to
-// s_max, and there are no scales. D * sizeof(KV) must be a multiple of 16
-// and the caches 16-byte aligned (the wrapper checks both).
-template <typename T, typename KV, bool kPaged>
+// tile = ps, the loop runs over the P = n_tiles block-table entries of row
+// b, page `page` of KV head h is the contiguous [ps, D] block at element
+// (page * Hkv + h) * ps * D, and for int8 pages k_scale/v_scale
+// [n_pages, Hkv] hold its dequant scales (payload * scale; null for
+// full-precision pages). D * sizeof(KV) must be a multiple of 16 and the
+// caches 16-byte aligned (the wrapper checks both).
+template <typename T, typename KV>
 __global__ void decode_tile_kernel(const T* __restrict__ q, const KV* __restrict__ kc,
                                    const KV* __restrict__ vc,
                                    const float* __restrict__ k_scale,
@@ -63,7 +60,7 @@ __global__ void decode_tile_kernel(const T* __restrict__ q, const KV* __restrict
                                    const int* __restrict__ tables,
                                    const int* __restrict__ lengths,
                                    T* __restrict__ out, int Hkv, int g, int D, int tile,
-                                   int n_tiles, int s_max, float scale) {
+                                   int n_tiles, float scale) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const int tD = tile * D;
   const int gD = g * D;
@@ -90,26 +87,20 @@ __global__ void decode_tile_kernel(const T* __restrict__ q, const KV* __restrict
     m_s[j] = kNegInf;
     l_s[j] = 0.f;
   }
-  int length = lengths[b];
-  if (!kPaged) length = min(length, s_max);
+  const int length = lengths[b];
   __syncthreads();
 
   for (int p = 0; p < n_tiles; ++p) {
     const int base = p * tile;
     if (base >= length) break;  // this tile and every later one is empty
-    long long off;              // element offset of the tile's first row
     float ks = 1.f, vs = 1.f;   // dequant scales (int8 pages only)
-    if (kPaged) {
-      const int page = tables[static_cast<long long>(b) * n_tiles + p];
-      if (page < 0) continue;   // unused block-table entry
-      const long long ph = static_cast<long long>(page) * Hkv + h;
-      off = ph * tD;
-      if (k_scale != nullptr) {
-        ks = k_scale[ph];
-        vs = v_scale[ph];
-      }
-    } else {
-      off = ((static_cast<long long>(b) * Hkv + h) * s_max + base) * D;
+    const int page = tables[static_cast<long long>(b) * n_tiles + p];
+    if (page < 0) continue;     // unused block-table entry
+    const long long ph = static_cast<long long>(page) * Hkv + h;
+    const long long off = ph * tD;  // element offset of the page's first row
+    if (k_scale != nullptr) {
+      ks = k_scale[ph];
+      vs = v_scale[ph];
     }
     const int nv = min(tile, length - base);  // valid rows of this tile
 
@@ -178,43 +169,26 @@ __global__ void decode_tile_kernel(const T* __restrict__ q, const KV* __restrict
   }
 }
 
-template <typename T, typename KV, bool kPaged>
+template <typename T, typename KV>
 cudaError_t launch_tile(const void* q, const void* kc, const void* vc, const void* k_scale,
                         const void* v_scale, const void* tables, const void* lengths,
                         void* out, int B, int Hkv, int g, int D, int tile, int n_tiles,
-                        int s_max, float scale, cudaStream_t stream) {
+                        float scale, cudaStream_t stream) {
   const size_t smem = 2 * static_cast<size_t>(tile) * D * sizeof(KV)
                       + (2 * static_cast<size_t>(g) * D + static_cast<size_t>(g) * tile + 3 * g)
                         * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_tile_kernel<T, KV, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_tile_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  decode_tile_kernel<T, KV, kPaged><<<B * Hkv, kThreads, smem, stream>>>(
+  decode_tile_kernel<T, KV><<<B * Hkv, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kc), static_cast<const KV*>(vc),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(tables), static_cast<const int*>(lengths), static_cast<T*>(out),
-      Hkv, g, D, tile, n_tiles, s_max, scale);
+      Hkv, g, D, tile, n_tiles, scale);
   return cudaGetLastError();
-}
-
-// Dense-cache sequence tile: the largest power of two, 8 to 128 rows, whose
-// K and V rows take at most 32 KB of shared memory together.
-int dense_tile(int D, size_t itemsize) {
-  int tile = 128;
-  while (tile > 8 && 2 * static_cast<size_t>(tile) * D * itemsize > 32 * 1024) tile /= 2;
-  return tile;
-}
-
-template <typename T>
-cudaError_t launch_dense(const void* q, const void* kc, const void* vc, const void* lengths,
-                         void* out, int B, int Hkv, int g, int D, int s_max, float scale,
-                         cudaStream_t stream) {
-  const int tile = dense_tile(D, sizeof(T));
-  return launch_tile<T, T, false>(q, kc, vc, nullptr, nullptr, nullptr, lengths, out, B, Hkv,
-                                  g, D, tile, (s_max + tile - 1) / tile, s_max, scale, stream);
 }
 
 }  // namespace
@@ -231,14 +205,14 @@ extern "C" int ptt_paged_decode_attention(const void* q, const void* kc, const v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ptt::kF32:
-      return launch_tile<float, float, true>(q, kc, vc, nullptr, nullptr, tables, lengths,
-                                             out, B, Hkv, g, D, ps, P, 0, scale, s);
+      return launch_tile<float, float>(q, kc, vc, nullptr, nullptr, tables, lengths, out, B,
+                                       Hkv, g, D, ps, P, scale, s);
     case ptt::kBF16:
-      return launch_tile<__nv_bfloat16, __nv_bfloat16, true>(
-          q, kc, vc, nullptr, nullptr, tables, lengths, out, B, Hkv, g, D, ps, P, 0, scale, s);
+      return launch_tile<__nv_bfloat16, __nv_bfloat16>(
+          q, kc, vc, nullptr, nullptr, tables, lengths, out, B, Hkv, g, D, ps, P, scale, s);
     case ptt::kF16:
-      return launch_tile<__half, __half, true>(q, kc, vc, nullptr, nullptr, tables, lengths,
-                                               out, B, Hkv, g, D, ps, P, 0, scale, s);
+      return launch_tile<__half, __half>(q, kc, vc, nullptr, nullptr, tables, lengths, out, B,
+                                         Hkv, g, D, ps, P, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -256,37 +230,14 @@ extern "C" int ptt_paged_decode_attention_q8(const void* q, const void* kc, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ptt::kF32:
-      return launch_tile<float, int8_t, true>(q, kc, vc, k_scale, v_scale, tables, lengths,
-                                              out, B, Hkv, g, D, ps, P, 0, scale, s);
+      return launch_tile<float, int8_t>(q, kc, vc, k_scale, v_scale, tables, lengths, out, B,
+                                        Hkv, g, D, ps, P, scale, s);
     case ptt::kBF16:
-      return launch_tile<__nv_bfloat16, int8_t, true>(q, kc, vc, k_scale, v_scale, tables,
-                                                      lengths, out, B, Hkv, g, D, ps, P, 0,
-                                                      scale, s);
+      return launch_tile<__nv_bfloat16, int8_t>(q, kc, vc, k_scale, v_scale, tables, lengths,
+                                                out, B, Hkv, g, D, ps, P, scale, s);
     case ptt::kF16:
-      return launch_tile<__half, int8_t, true>(q, kc, vc, k_scale, v_scale, tables, lengths,
-                                               out, B, Hkv, g, D, ps, P, 0, scale, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// Dense-cache decode. q [B, Hkv*g, D]; kc, vc [B, Hkv, s_max, D] of q's
-// type (code `dtype`); lengths int32 [B] (valid tokens including the
-// current one, clamped to s_max); out like q. All contiguous;
-// D * sizeof(T) a multiple of 16. Returns cudaGetLastError() after the
-// launch.
-extern "C" int ptt_dense_decode_attention(const void* q, const void* kc, const void* vc,
-                                          const void* lengths, void* out, int B, int Hkv,
-                                          int g, int D, int s_max, float scale, int dtype,
-                                          void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ptt::kF32:
-      return launch_dense<float>(q, kc, vc, lengths, out, B, Hkv, g, D, s_max, scale, s);
-    case ptt::kBF16:
-      return launch_dense<__nv_bfloat16>(q, kc, vc, lengths, out, B, Hkv, g, D, s_max, scale,
-                                         s);
-    case ptt::kF16:
-      return launch_dense<__half>(q, kc, vc, lengths, out, B, Hkv, g, D, s_max, scale, s);
+      return launch_tile<__half, int8_t>(q, kc, vc, k_scale, v_scale, tables, lengths, out, B,
+                                         Hkv, g, D, ps, P, scale, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,15 +1,20 @@
 // Device primitives of the port's Hopper (sm_90a) kernels, shared by the
-// attention forward (flash_fwd_sm90.cuh) and backward (flash_bwd_sm90.cuh):
+// attention forward (flash_fwd_sm90.cuh), the attention backward
+// (flash_bwd_sm90.cuh) and the grouped GEMM (grouped_gemm_sm90.cuh):
 // mbarriers whose waits trap instead of hanging, TMA loads of 4-d tensor
 // maps and their host-side encoding, wgmma shared-memory descriptors of
 // 128-byte-swizzled tiles, and the wgmma products the kernels issue:
 //   - SS, both operands K-major in shared memory: m64n128k16
 //     (`wgmma_ss_n128`) and m64n64k16 (`wgmma_ss_n64`);
+//   - SS with B read MN-major through the transpose bit: m64n128k16
+//     (`wgmma_ss_n128_t`, the grouped GEMM's row-major weights);
 //   - RS, A in registers in an m64 accumulator's fragment layout, B read
 //     MN-major through the transpose bit: m64n64k16 (`wgmma_rs_n64_t`).
 // The tiles are 64-column (128-byte) panels of bf16 rows: a K-major
 // operand's k step moves its descriptor 32 bytes inside the swizzle atom;
-// an MN-major operand's 16-row k step moves it 2048 bytes.
+// an MN-major operand's 16-row k step moves it 2048 bytes, and its
+// descriptor's leading byte offset is the stride between its 64-column
+// panels (the N extent past one swizzle atom).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encode function comes
@@ -95,6 +100,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// until at most one committed group is still in flight
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
 // keep the compiler from moving reads or writes of wgmma registers across
 // the asynchronous instructions
@@ -117,6 +126,31 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64] (+)= A B over k = 16: A [64 x 16] a K-major and B [16 x 128] an
+// MN-major (row-major [k][n]) 128-byte-swizzled tile in shared memory
+// (descriptors a, b; b's leading byte offset steps between its two
+// 64-column panels); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&d)[64], uint64_t a, uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

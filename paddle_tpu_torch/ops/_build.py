@@ -67,8 +67,9 @@ _SIGNATURES = {
     # P, scale, dtype, stream
     "ptt_paged_decode_attention_q8": [_c_void_p] * 8 + [_c_int] * 6
     + [_c_float, _c_int, _c_void_p],
-    # q, kc, vc, lengths, out, B, Hkv, g, D, s_max, scale, dtype, stream
-    "ptt_dense_decode_attention": [_c_void_p] * 5 + [_c_int] * 5
+    # q, kc, vc, lengths, ws, out, B, Hkv, g, D, s_max, chunk, scale, dtype,
+    # stream
+    "ptt_dense_decode_attention": [_c_void_p] * 6 + [_c_int] * 6
     + [_c_float, _c_int, _c_void_p],
     # q, k, v, kbias, out, lse, B, H, Hkv, Sq, Skv, D, strides[12], scale,
     # causal, dtype, stream

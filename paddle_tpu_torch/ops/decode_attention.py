@@ -1,18 +1,23 @@
 """Decode attention and the decode-step page append
 (↔ paddle_tpu/ops/pallas/decode_attention.py).
 
-Three wrappers, one query token per row, each launching a kernel of
-`csrc/decode_attention.cu` on CUDA tensors and running its plain PyTorch
-version (same semantics) on CPU tensors:
+Three wrappers, one query token per row, each launching a kernel on CUDA
+tensors and running its plain PyTorch version (same semantics) on CPU
+tensors:
 
 - `paged_decode_attention` over a paged cache `[n_pages, Hkv, page_size, D]`
-  through a block table: full precision → `decode_tile_kernel<T, T>`
-  (`paged_decode_attention_plain`, counter `LAUNCHES`); int8 pages with
-  per-(page, head) f32 scales (`kv_scales=`) → `decode_tile_kernel<T, int8>`
-  (`paged_decode_attention_q8_plain`, counter `Q8_LAUNCHES`);
+  through a block table (`csrc/decode_attention.cu`): full precision →
+  `decode_tile_kernel<T, T>` (`paged_decode_attention_plain`, counter
+  `LAUNCHES`); int8 pages with per-(page, head) f32 scales (`kv_scales=`) →
+  `decode_tile_kernel<T, int8>` (`paged_decode_attention_q8_plain`, counter
+  `Q8_LAUNCHES`);
 - `dense_decode_attention` over a dense cache `[B, Hkv, S_max, D]` (the
-  MMHA path) → `decode_tile_kernel<T, T>` (`dense_decode_attention_plain`,
-  counter `DENSE_LAUNCHES`).
+  MMHA path) → `csrc/dense_decode.cu`, split over the sequence in chunks of
+  `dense_chunk` tokens: `decode_split_kernel<T>` writes each chunk's f32
+  partials (m, l, acc) to a workspace and `decode_combine_kernel<T>`
+  rescales and sums them (`dense_decode_attention_plain`, counter
+  `DENSE_LAUNCHES`, one a call). `dense_decode_partials_plain` and
+  `dense_decode_combine_plain` are the plain form of that split.
 
 `paged_kv_write` and `paged_kv_write_q8` are the decode-step page appends,
 as torch index ops (jnp scatters in the JAX package, not Pallas kernels).
@@ -33,7 +38,9 @@ import torch
 from . import _build
 
 __all__ = ["DENSE_LAUNCHES", "KV_QMAX", "LAUNCHES", "NEG_INF", "Q8_LAUNCHES",
-           "dense_decode_attention", "dense_decode_attention_plain",
+           "dense_chunk", "dense_decode_attention",
+           "dense_decode_attention_plain", "dense_decode_combine_plain",
+           "dense_decode_partials_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
            "paged_decode_attention_q8_plain", "paged_kv_write",
            "paged_kv_write_q8"]
@@ -120,6 +127,58 @@ def dense_decode_attention_plain(q, key_cache, value_cache, lengths, scale):
              < lengths.long()[:, None])
     return _attend_plain(q, key_cache.float(), value_cache.float(), valid,
                          scale)
+
+
+def dense_chunk(D, itemsize, s_max):
+    """Tokens of a chunk of the dense-cache kernel: the largest power of two
+    from 16 to 256 whose K and V rows take at most 64 KB of shared memory
+    together, and no more than S_max needs (S_max rounded up to a power of
+    two, at least 16)."""
+    chunk = 256
+    while chunk > 16 and (2 * chunk * D * itemsize > 64 * 1024
+                          or chunk >= 2 * max(s_max, 16)):
+        chunk //= 2
+    return chunk
+
+
+def dense_decode_partials_plain(q, key_cache, value_cache, lengths, scale,
+                                chunk):
+    """The kernel's first pass as plain PyTorch: per chunk of `chunk`
+    tokens, in f32, m = the largest score of its valid tokens, l = sum
+    exp(s - m) and acc = sum exp(s - m) v (unnormalised). A chunk with no
+    valid token has m = NEG_INF, l = 0 and acc = 0. Returns m, l
+    [B, H, C] and acc [B, H, C, D], C = ceil(S_max / chunk)."""
+    B, H, D = q.shape
+    _, Hkv, s_max, _ = key_cache.shape
+    n = -(-s_max // chunk)
+    pad = n * chunk - s_max
+    k = torch.nn.functional.pad(key_cache.float(), (0, 0, 0, pad))
+    v = torch.nn.functional.pad(value_cache.float(), (0, 0, 0, pad))
+    q4 = q.reshape(B, Hkv, H // Hkv, D).float()
+    s = torch.einsum("bhgd,bhtd->bhgt", q4, k) * scale
+    s = s.reshape(B, Hkv, H // Hkv, n, chunk)
+    length = torch.clamp(lengths.long(), max=s_max)
+    valid = (torch.arange(n * chunk, device=q.device)[None, :]
+             < length[:, None]).reshape(B, 1, 1, n, chunk)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bhgnt,bhntd->bhgnd", p,
+                       v.reshape(B, Hkv, n, chunk, D))
+    return (m.reshape(B, H, n), p.sum(-1).reshape(B, H, n),
+            acc.reshape(B, H, n, D))
+
+
+def dense_decode_combine_plain(m, l, acc, dtype):
+    """The kernel's second pass: M = max_i m_i, w_i = exp(m_i - M), out =
+    sum w_i acc_i / (sum w_i l_i, or 1 where that is 0), in `dtype`. Chunks
+    with no valid token carry l = 0 and acc = 0 and add nothing; a row with
+    none at all comes back zero."""
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    total = (w * l).sum(-1, keepdim=True)
+    out = (w[..., None] * acc).sum(-2)
+    return (out / torch.where(total == 0, torch.ones_like(total),
+                              total)).to(dtype)
 
 
 def _refuse_grad(what, *tensors):
@@ -270,14 +329,20 @@ def dense_decode_attention(q, key_cache, value_cache, lengths, scale=None):
                         "caches in one dtype")
     _cuda_ready("dense_decode_attention", q, (key_cache, value_cache),
                 (lengths,))
+    if D * q.element_size() > 2048:
+        raise ValueError("dense_decode_attention: the kernel takes rows of at "
+                         f"most 2 KB, got D = {D} in {q.dtype}")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    chunk = dense_chunk(D, q.element_size(), s_max)
+    ws = torch.empty(B, H, -(-s_max // chunk), D + 2, device=q.device,
+                     dtype=torch.float32)
     lib = _build.load_library()
     err = lib.ptt_dense_decode_attention(
         q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, Hkv, H // Hkv, D, s_max,
-        float(scale), _build.DTYPE_CODES[str(q.dtype)],
+        lengths.data_ptr(), ws.data_ptr(), out.data_ptr(), B, Hkv, H // Hkv,
+        D, s_max, chunk, float(scale), _build.DTYPE_CODES[str(q.dtype)],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ptt_dense_decode_attention")
     DENSE_LAUNCHES += 1

@@ -16,16 +16,23 @@ Unlike the TPU kernel, BM need not divide R: a group's last tile ends at
 the group's own end. Callers that scatter zeros into the dead rows (the MoE
 layer does) get the dense batched product's values on every live row.
 
-One kernel, `csrc/grouped_gemm.cu`, beside its plain version and its
-launch counter:
+One kernel entry, `csrc/grouped_gemm.cu`, beside its plain version and
+its launch counter:
 
 - `grouped_gemm(lhs, rhs, sizes, trans_rhs)` → out: the kernel on CUDA
   tensors, `grouped_matmul_plain` on CPU tensors; `LAUNCHES`. With
   `trans_rhs` it reads rhs [E, N, K] transposed through a flag, which is
   how the backward's dlhs runs against the weights without copying them.
+  bf16 runs the Hopper kernel of `csrc/grouped_gemm_sm90.cuh` (wgmma fed
+  by TMA, 128 x 128 tiles of two 64-row units, a persistent schedule);
+  f32 the CUDA-core kernel of `csrc/grouped_gemm.cu`.
 
-The kernel reads `sizes` from device memory (the TPU kernel's scalar
-prefetch), so nothing on the path syncs with the host.
+The kernels read `sizes` from device memory (the TPU kernel's scalar
+prefetch), so nothing on the path syncs with the host. The bf16 kernel
+reads its operands through TMA tensor maps, which take 16-byte aligned
+rows of a multiple of 16 bytes: `tma_operands` passes such operands as
+they are (every shape of the MoE path) and pads any other with zero
+columns, which add nothing to a product.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from . import _build
 
 __all__ = ["BM", "GroupedMatmul", "LAUNCHES", "computed_rows",
            "grouped_gemm", "grouped_matmul", "grouped_matmul_plain",
-           "row_stride"]
+           "row_stride", "tma_operands"]
 
 BM = 64  # the kernel's row tile: the unit of "computed rows"
 
@@ -104,6 +111,25 @@ def _check(lhs, rhs, sizes, trans_rhs):
         raise ValueError(f"grouped_matmul: all inputs must be on {lhs.device}")
 
 
+def tma_operands(lhs, rhs, trans_rhs=False):
+    """(lhs, rhs, N) as the bf16 kernel's tensor maps take them: contiguous,
+    16-byte aligned, K (lhs's columns and rhs's K axis) and N (rhs's N axis)
+    multiples of 8. Operands that are so pass as they are; any other is
+    copied with zero columns appended, which add nothing to a product. N is
+    the padded output width; the caller cuts the output back to rhs's."""
+    K = lhs.shape[1]
+    N = rhs.shape[1] if trans_rhs else rhs.shape[2]
+    dk, dn = _pad_to(max(K, 1), 8) - K, _pad_to(N, 8) - N
+    if dk:
+        lhs = torch.nn.functional.pad(lhs, (0, dk))
+    if dk or dn:
+        rhs = torch.nn.functional.pad(
+            rhs, (0, dk, 0, dn) if trans_rhs else (0, dn, 0, dk))
+    lhs, rhs = lhs.contiguous(), rhs.contiguous()
+    lhs, rhs = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (lhs, rhs))
+    return lhs, rhs, N + dn
+
+
 def grouped_gemm(lhs, rhs, sizes, trans_rhs=False):
     """out [E * R, N] in lhs's dtype (see the module docstring). CPU tensors
     run the plain version; CUDA tensors launch the kernel."""
@@ -115,20 +141,23 @@ def grouped_gemm(lhs, rhs, sizes, trans_rhs=False):
         raise ValueError(f"grouped_matmul: unsupported device {lhs.device}")
     E = rhs.shape[0]
     R = lhs.shape[0] // E
-    K = lhs.shape[1]
     N = rhs.shape[1] if trans_rhs else rhs.shape[2]
-    lhs, rhs = lhs.contiguous(), rhs.contiguous()
+    if lhs.shape[0] == 0 or N == 0:
+        return torch.empty(E * R, N, device=lhs.device, dtype=lhs.dtype)
+    if lhs.dtype == torch.bfloat16:
+        lhs, rhs, n_out = tma_operands(lhs, rhs, trans_rhs)
+    else:
+        lhs, rhs, n_out = lhs.contiguous(), rhs.contiguous(), N
     sizes = sizes.to(torch.int32).contiguous()
-    out = torch.empty(E * R, N, device=lhs.device, dtype=lhs.dtype)
-    if out.numel() == 0:
-        return out
+    out = torch.empty(E * R, n_out, device=lhs.device, dtype=lhs.dtype)
     err = _build.load_library().ptt_grouped_gemm(
         lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(), E,
-        R, K, N, int(bool(trans_rhs)), _build.DTYPE_CODES[str(lhs.dtype)],
+        R, lhs.shape[1], n_out, int(bool(trans_rhs)),
+        _build.DTYPE_CODES[str(lhs.dtype)],
         torch.cuda.current_stream(lhs.device).cuda_stream)
     _build.check(err, "ptt_grouped_gemm")
     LAUNCHES += 1
-    return out
+    return out if n_out == N else out[:, :N].contiguous()
 
 
 class GroupedMatmul(torch.autograd.Function):

@@ -160,3 +160,64 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(TypeError, match="dtype"):
         port_da.paged_decode_attention(t(q).double(), t(kc), t(vc), t(tables),
                                        t(lens))
+
+
+# --------------------------------------------------------------------------- #
+# the dense-cache decode split over the sequence (csrc/dense_decode.cu)
+# --------------------------------------------------------------------------- #
+
+DENSE_S_MAX = 40  # not a multiple of the chunks below: a ragged last chunk
+
+
+def _dense_split_case(chunk, g):
+    """q, caches and lengths 0, 1, chunk - 1, chunk, chunk + 1 and S_max (one
+    row each) at Hkv = 2 kv heads of 16, g query heads a kv head."""
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, DENSE_S_MAX]
+    B, Hkv, D = len(lengths), 2, 16
+    rng = np.random.default_rng(chunk + g)
+    q = rng.standard_normal((B, Hkv * g, D)).astype(np.float32)
+    kc = rng.standard_normal((B, Hkv, DENSE_S_MAX, D)).astype(np.float32)
+    vc = rng.standard_normal((B, Hkv, DENSE_S_MAX, D)).astype(np.float32)
+    return q, kc, vc, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_dense_split_and_combine_match_jax(chunk, g):
+    """The kernel pair's algorithm as plain PyTorch: per-chunk m, l and
+    unnormalised acc, then the rescaled sum over the chunks that hold
+    tokens. Held to the JAX package's dense decode (the Pallas kernel in
+    interpret mode) and to the port's one-softmax plain version, f32 to
+    1e-5; a row of length 0 is exactly zero, and a chunk past a row's
+    length carries l = 0 and acc = 0."""
+    q, kc, vc, lens = _dense_split_case(chunk, g)
+    t = torch.from_numpy
+    scale = q.shape[-1] ** -0.5
+    m, l, acc = port_da.dense_decode_partials_plain(t(q), t(kc), t(vc), t(lens),
+                                                    scale, chunk)
+    n = -(-DENSE_S_MAX // chunk)
+    assert m.shape == (len(lens), q.shape[1], n) and acc.shape[-2:] == (n, 16)
+    past = (torch.arange(n) * chunk)[None, :] >= t(lens).long()[:, None]
+    assert not l[past[:, None, :].expand_as(l)].any()
+    assert not acc[past[:, None, :].expand_as(l)].any()
+    got = port_da.dense_decode_combine_plain(m, l, acc, torch.float32)
+    want = np.asarray(jax_da.dense_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens)))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    plain = port_da.dense_decode_attention_plain(t(q), t(kc), t(vc), t(lens),
+                                                 scale)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    assert not got[0].any() and got[1:].abs().amax(-1).min() > 0
+
+
+def test_dense_chunk_sizes():
+    """The chunk of the dense kernel: K and V of a chunk within 64 KB, a
+    power of two from 16 to 256, no longer than S_max needs."""
+    assert port_da.dense_chunk(128, 2, 2048) == 128  # the MMHA shape, bf16
+    assert port_da.dense_chunk(128, 4, 2048) == 64   # f32
+    assert port_da.dense_chunk(64, 2, 301) == 256
+    assert port_da.dense_chunk(128, 2, 10) == 16
+    assert port_da.dense_chunk(1024, 2, 4096) == 16
+    for D, es, s_max in ((128, 2, 2048), (64, 4, 301), (16, 4, 40)):
+        c = port_da.dense_chunk(D, es, s_max)
+        assert 2 * c * D * es <= 64 * 1024 and c & (c - 1) == 0

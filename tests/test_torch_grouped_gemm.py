@@ -138,6 +138,46 @@ def test_dlhs_is_the_kernel_against_transposed_weights():
     assert port_gg.LAUNCHES == 0  # CPU tensors never launch the kernel
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trans", [False, True], ids=["forward", "dlhs"])
+def test_tma_padding_feeds_the_plain_version_unchanged(trans, dtype):
+    """The bf16 kernel's TMA maps take rows of a multiple of 16 bytes, so
+    `tma_operands` pads K = 100 to 104 (lhs's columns and the weights' K
+    axis) with zero columns. The padded operands through the plain version,
+    cut back to N, equal the JAX package's grouped GEMM at bm = 64 (the
+    dlhs form against the swapped weights, as `_gmm_bwd` runs it) and the
+    unpadded plain version; operands that need no padding pass as they
+    are."""
+    E, R, K, N = 2, 128, 100, 96
+    sizes = np.asarray([100, 1], np.int32)
+    rng = np.random.default_rng(17)
+    lhs = rng.standard_normal((E * R, K)).astype(np.float32)
+    rhs = rng.standard_normal((E, N, K) if trans else (E, K, N)).astype(np.float32)
+    dt = getattr(torch, dtype)
+    if dtype == "bfloat16":  # values a bf16 holds exactly on both sides
+        lhs, rhs = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                    for a in (lhs, rhs))
+    lt, rt, st = (torch.from_numpy(lhs).to(dt), torch.from_numpy(rhs).to(dt),
+                  torch.from_numpy(sizes))
+    pl, pr, n_out = port_gg.tma_operands(lt, rt, trans)
+    assert pl.shape == (E * R, 104) and n_out == N
+    assert pr.shape == ((E, N, 104) if trans else (E, 104, N))
+    assert not pl[:, K:].any() and not (pr[..., K:] if trans else pr[:, K:]).any()
+    got = port_gg.grouped_matmul_plain(pl, pr, st, 64, trans)[:, :N]
+    torch.testing.assert_close(
+        got, port_gg.grouped_matmul_plain(lt, rt, st, 64, trans), rtol=0,
+        atol=_tol(dtype, got.float().numpy()))
+    w = np.swapaxes(rhs, 1, 2) if trans else rhs
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(jax_gg.grouped_matmul(
+        jnp.asarray(lhs, jdt), jnp.asarray(w, jdt), jnp.asarray(sizes),
+        block=(64, 128)).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=_tol(dtype, want))
+    aligned = port_gg.tma_operands(pl, pr, trans)
+    assert aligned[0] is pl and aligned[1] is pr and aligned[2] == N
+
+
 def test_row_stride_and_checks():
     for rows in (1, 15, 16, 17, 64, 65, 77, 1229, 1280):
         assert port_gg.row_stride(rows) == jax_gg.row_stride(rows)
