@@ -8,8 +8,8 @@ Phases; any failure raises and the script exits non-zero:
 1. build      — compile paddle_tpu_torch/csrc/*.cu with nvcc (sm_90a, one
                 process per source, in parallel), load it. The Hopper
                 kernels' instantiations, one line each for the bf16
-                attention forward (flash and flashmask at head dims 64
-                and 128), the bf16 backward (dQ and dK/dV of flash and
+                attention forward (flash, flashmask and varlen at head dims
+                64 and 128), the bf16 backward (dQ and dK/dV of flash and
                 flashmask at 64 and 128) and the bf16 grouped GEMM
                 (weights read as they are and transposed): registers and
                 spills from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
@@ -22,7 +22,10 @@ Phases; any failure raises and the script exits non-zero:
                 events, warm L2) and eager back-to-back time, the plain
                 version's time, the least time the card could take (bound),
                 and the time of one PyTorch library call computing the same
-                function where there is one. Fused norm forward and dx,
+                function where there is one. Fused norm forward (the
+                serving rows, the three training steps' f32 rows, rows at a
+                mean of 1000, an odd width, a row past the register
+                design's 8192 elements) and dx,
                 paged decode attention (full precision and int8 pages, with
                 g = 4, a zero-length row, -1 table entries and a page whose
                 scales are 0), dense-cache decode attention split over the
@@ -55,7 +58,7 @@ Phases; any failure raises and the script exits non-zero:
                 and dk/dv (a pack of 8192 tokens in 8 causal documents at
                 32/8 heads of 128; non-causal at T = 1000 in f32, causal
                 cross attention with q lengths != k lengths, an empty k
-                segment, a one-tile pack).
+                segment in f32 and in bf16, a one-tile pack).
 2b. faults    — the kernels built again from copies of csrc/, each with
                 one planted fault (a kv or q tile skipped, long rows
                 normalised 1% off; the flash backward's q steps without
@@ -67,9 +70,13 @@ Phases; any failure raises and the script exits non-zero:
                 a q tile's last kv tile skipped in dQ, a partial tile
                 treated as full and a kv head's group of query heads one
                 short in dK/dV; varlen: each q tile's first kv tile skipped, the
-                segment test's upper bound dropped, and in the WMMA
-                backward a q tile's last kv tile skipped in dQ and the last
-                q tile skipped in dK/dV; grouped GEMM: a partly
+                segment test's upper bound dropped, in the sm90 forward a
+                partial tile read as full and the loop one kv tile short,
+                the tile classes' last kv tile full past Tk,
+                and in the WMMA backward a q tile's last kv tile skipped
+                in dQ and the last q tile skipped in dK/dV; norm forward:
+                the cross-warp sum without the group's last warp, the
+                scalar tail skipped; grouped GEMM: a partly
                 live 64-row unit treated as dead, a tile's second unit
                 taking the first one's liveness; dense decode: the combine
                 without a chunk's rescale, a chunk's tokens counted to
@@ -99,8 +106,10 @@ Phases; any failure raises and the script exits non-zero:
                 decode tick.
 4c. dense     — the 12-request mix through create_serving_engine(paged=
                 False): flash forward at Sq = 1 ticks x 24, norm (requests
-                + ticks) x 49; model.generate on one greedy prompt gives the
-                engine's tokens; a profile of the dense decode tick.
+                + ticks) x 49; model.generate on one greedy prompt, fed the
+                engine's tokens, ranks each first or within a bf16 tie
+                (BF16_TIE_ULPS) at every step; a profile of the dense
+                decode tick.
 4d. mmha      — 32 steps of incubate masked_multihead_attention at B 16,
                 16 heads of 128, S_max 2048: the dense-cache kernel pair
                 (split and combine, one launch of the wrapper) exactly 32
@@ -208,6 +217,15 @@ HOLD_LOGIT_TOL = 1e-3
 # tokens. The tokens are held in f32: at full depth in the serve phase and
 # in the holds.
 BF16_DECODE_LOGIT_RTOL = 0.1
+# gpt3_1p3b in bf16: `generate` (batch 1, the prompt unpadded, f32 caches)
+# against the dense engine (the prompt padded to a bucket, decode batched
+# over the live rows): the same kernels per row, but cuBLAS products of
+# other shapes, which round differently. generate's model is fed the
+# engine's tokens (teacher forcing, through generate's own calls) and at
+# every step the engine's token must be generate's greedy pick or lie
+# within BF16_TIE_ULPS bf16 steps of its top logit (a tie in bf16). A
+# wrong kernel moves logits by far more than a step.
+BF16_TIE_ULPS = 2
 # The same with int8 KV pages and int8 weights: the weights quantize
 # identically on both sides (elementwise, IEEE division), but K/V rows
 # that differ by rounding can land on either side of a quantizer's rounding
@@ -337,16 +355,17 @@ def ptxas_summary(log):
 
 
 SM90_KERNEL = re.compile(
-    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E.*?(CausalBias|FlashMask)")
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E.*?(CausalBias|FlashMask|Varlen)")
 SM90_GG_KERNEL = re.compile(r"(gg_sm90_kernel)ILb([01])E")
 # the Hopper kernels' instantiations chip_smoke.py expects: the bf16
-# forward (csrc/flash_fwd_sm90.cuh) and the bf16 dQ and dK/dV
-# (csrc/flash_bwd_sm90.cuh) of flash and flashmask, at head dims 64 and
-# 128, and the bf16 grouped GEMM (csrc/grouped_gemm_sm90.cuh) against
-# [E, K, N] weights (false) and transposed [E, N, K] ones (true)
+# forward (csrc/flash_fwd_sm90.cuh) of flash, flashmask and varlen and the
+# bf16 dQ and dK/dV (csrc/flash_bwd_sm90.cuh) of flash and flashmask, at
+# head dims 64 and 128, and the bf16 grouped GEMM
+# (csrc/grouped_gemm_sm90.cuh) against [E, K, N] weights (false) and
+# transposed [E, N, K] ones (true)
 SM90_EXPECTED = {
-    "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>" for m in ("CausalBias", "FlashMask")
-                for d in (64, 128)],
+    "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>"
+                for m in ("CausalBias", "FlashMask", "Varlen") for d in (64, 128)],
     "backward": [f"{k}<{d}, {m}>" for m in ("CausalBias", "FlashMask")
                  for k in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
                  for d in (64, 128)],
@@ -421,35 +440,147 @@ def bound_ms(nbytes, ops, dtype):
 # --------------------------------------------------------------------------- #
 
 
+# (R, N, kind, dtypes, offset): rows of x = offset + N(0, 1). Decode rows
+# and prefill rows at the 1.3B width, the training steps' rows under O2
+# (f32, batch 4 x 2048: gpt3_1p3b's LayerNorm at 2048, llama_7bshape's
+# RMSNorm at 4096, gpt3_moe's LayerNorm at 1024, and gpt3_1p3b's rows at
+# a mean of 1000, which the two-pass centred variance exists for), the
+# 13B width, an odd width (a scalar tail and rows off the 16-byte line),
+# the RMSNorm form of the serving row, and a row wider than the register
+# design's 8192 elements (the one-block-a-row kernel).
+BOTH = ("float32", "bfloat16")
+NORM_CASES = [(16, 2048, "ln", BOTH, 0.0), (512, 2048, "ln", BOTH, 0.0),
+              (8192, 2048, "ln", BOTH, 0.0), (16, 5120, "ln", BOTH, 0.0),
+              (37, 1031, "ln", BOTH, 0.0), (16, 2048, "rms", BOTH, 0.0),
+              (8192, 4096, "rms", ("float32",), 0.0),
+              (8192, 1024, "ln", ("float32",), 0.0),
+              (8192, 2048, "ln", ("float32",), 1000.0),
+              (64, 16384, "ln", BOTH, 0.0)]
+
+
+def _norm_inputs(torch, gen, R, N, kind, dtype, offset=0.0):
+    """(x, weight, bias or None) of a NORM_CASES case on the card."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(R, N, device="cuda", generator=gen)
+    x = (x + offset if offset else x).to(dt)
+    w = (1 + 0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
+    b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
+    return x, w, (b if kind == "ln" else None)
+
+
+def _norm_f64(torch, x, w, bias, kind, eps):
+    """(out, rstd, mean or None) of the norm in float64 with the two-pass
+    centred variance: a reference that shares no f32 sum with the kernel
+    or with its plain version."""
+    xd = x.double()
+    mean = xd.mean(-1, keepdim=True) if kind == "ln" else None
+    c = xd - mean if kind == "ln" else xd
+    rstd = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+    out = c * rstd * w.double()
+    if bias is not None:
+        out = out + bias.double()
+    return out, rstd[:, 0], None if mean is None else mean[:, 0]
+
+
+def _one_pass_f32(torch, x, w, bias, kind, eps):
+    """The norm with the one-pass variance E[x^2] - E[x]^2 in f32: the form
+    the two-pass centred variance exists to avoid, a control for rows at
+    an offset."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True) if kind == "ln" else None
+    m = mean if kind == "ln" else 0.0
+    var = ((xf * xf).mean(-1, keepdim=True) - m * m).clamp_min(0)
+    rstd = torch.rsqrt(var + eps)
+    out = (xf - m) * rstd * w.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out, rstd[:, 0], None if mean is None else mean[:, 0]
+
+
+def _f64_errors(got, ref):
+    """(max |out err|, rstd err relative to its largest value, max |mean
+    err| or 0) of a norm result against `_norm_f64`'s."""
+    out, rstd, mean = got
+    out_r, rstd_r, mean_r = ref
+    err = (out.double() - out_r).abs().max().item()
+    rstd_err = ((rstd.double() - rstd_r).abs().max()
+                / rstd_r.abs().max()).item()
+    mean_err = 0.0 if mean is None else (mean.double() - mean_r).abs().max().item()
+    return err, rstd_err, mean_err
+
+
+def _norm_errors(fn, torch, x, w, bias, kind, dtype, offset=0.0):
+    """(max |out err|, stats err, violations, what else the row reports) of
+    the forward kernel. Centred rows against its plain version: the output
+    to NORM_TOL, rstd to 1e-5 of its largest value, the mean to 1e-5. Rows
+    at an offset (a mean of 1000) against float64 (`_norm_f64`): the
+    output to NORM_TOL, rstd to 1e-5 of its largest value and the mean to
+    one f32 ulp of its largest value, the closest an f32 mean can come;
+    the plain version (an f32 sum) and a one-pass variance
+    (`_one_pass_f32`) are read beside it as controls, and the one-pass
+    control must fail those limits, or the case would not tell the two
+    variances apart."""
+    got = fn.norm_fwd(x, w, bias, kind, 1e-5)
+    out, rstd, mean = got
+    if not offset:
+        ref, rstd_ref, mean_ref = fn.norm_fwd_plain(x, w, bias, kind, 1e-5)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        err_stats = (rstd - rstd_ref).abs().max().item() / rstd_ref.abs().max().item()
+        if kind == "ln":
+            err_stats = max(err_stats, (mean - mean_ref).abs().max().item())
+        bad = []
+        if not (err <= NORM_TOL[dtype] and err_stats <= 1e-5):
+            bad.append(f"fused_norm {kind} {dtype} [{x.shape[0]},{x.shape[1]}]: "
+                       f"max|out err| {err} (tol {NORM_TOL[dtype]}), stats err "
+                       f"{err_stats} (tol 1e-5)")
+        return err, err_stats, bad, {}
+    ref = _norm_f64(torch, x, w, bias, kind, 1e-5)
+    top = ref[2].abs().max().item() if kind == "ln" else 0.0
+    mean_tol = max(1e-5, 2.0 ** (math.floor(math.log2(top)) - 23) if top else 0.0)
+
+    def held(result):
+        err, rstd_err, mean_err = _f64_errors(result, ref)
+        return {"max_abs_err": err, "rstd_err": rstd_err, "mean_err": mean_err,
+                "ok": err <= NORM_TOL[dtype] and rstd_err <= 1e-5
+                and mean_err <= mean_tol}
+
+    kernel = held(got)
+    controls = {"plain_f32": held(fn.norm_fwd_plain(x, w, bias, kind, 1e-5)),
+                "one_pass_f32": held(_one_pass_f32(torch, x, w, bias, kind,
+                                                   1e-5))}
+    name = f"fused_norm {kind} {dtype} [{x.shape[0]},{x.shape[1]}] at {offset}"
+    bad = []
+    if not kernel["ok"]:
+        bad.append(f"{name}: against float64 {kernel} (tol out "
+                   f"{NORM_TOL[dtype]}, rstd 1e-5, mean {mean_tol})")
+    if controls["one_pass_f32"]["ok"]:
+        bad.append(f"{name}: the one-pass variance passes too")
+    return (kernel["max_abs_err"], max(kernel["rstd_err"], kernel["mean_err"]),
+            bad, {"held_to": "float64", "rstd_err": kernel["rstd_err"],
+                  "mean_err": kernel["mean_err"], "mean_tol": mean_tol,
+                  "controls": controls})
+
+
 def check_norm(card, torch):
+    """The forward kernel against its plain version over NORM_CASES. Bound:
+    bytes, x read and the output written once, the weight, bias and stats.
+    Library: F.layer_norm (LayerNorm), F.rms_norm where this PyTorch has
+    it (RMSNorm)."""
     from paddle_tpu_torch.ops import fused_norm as fn
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    main = None
-    # (R, N, kind): decode rows and prefill rows at the 1.3B width, the
-    # training step's rows (batch 4 x 2048; f32 under O2), the 13B width,
-    # an odd width, and the RMSNorm form of the same kernel
-    shapes = [(16, 2048, "ln"), (512, 2048, "ln"), (8192, 2048, "ln"),
-              (16, 5120, "ln"), (37, 1031, "ln"), (16, 2048, "rms")]
-    for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        for R, N, kind in shapes:
-            x = torch.randn(R, N, device="cuda", generator=gen).to(dt)
-            w = (1 + 0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
-            b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
-            bias = b if kind == "ln" else None
-            out, rstd, mean = fn.norm_fwd(x, w, bias, kind, 1e-5)
-            ref, rstd_ref, mean_ref = fn.norm_fwd_plain(x, w, bias, kind, 1e-5)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            err_stats = (rstd - rstd_ref).abs().max().item() / rstd_ref.abs().max().item()
-            if kind == "ln":
-                err_stats = max(err_stats, (mean - mean_ref).abs().max().item())
-            if not (err <= NORM_TOL[dtype] and err_stats <= 1e-5):
-                raise AssertionError(
-                    f"fused_norm {kind} {dtype} [{R},{N}]: max|out err| {err} "
-                    f"(tol {NORM_TOL[dtype]}), stats err {err_stats} (tol 1e-5)")
+    main, training, failures = None, [], []
+    F = torch.nn.functional
+    for dtype in BOTH:
+        for R, N, kind, dtypes, offset in NORM_CASES:
+            if dtype not in dtypes:
+                continue
+            x, w, bias = _norm_inputs(torch, gen, R, N, kind, dtype, offset)
+            err, err_stats, bad, extra = _norm_errors(
+                fn, torch, x, w, bias, kind, dtype, offset)
+            failures += bad
             worst = max(worst, err)
             es = x.element_size()
             nbytes = 2 * R * N * es + (2 if bias is not None else 1) * N * es \
@@ -460,15 +591,24 @@ def check_norm(card, torch):
             p_ms = time_ms(lambda: fn.norm_fwd_plain(x, w, bias, kind, 1e-5))
             lib_ms = None
             if kind == "ln":
-                lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
-                    x, (N,), w, bias, 1e-5))
-            row = dict(kind=kind, dtype=dtype, R=R, N=N, max_abs_err=err,
+                lib_ms = time_ms(lambda: F.layer_norm(x, (N,), w, bias, 1e-5))
+            elif hasattr(F, "rms_norm"):
+                lib_ms = time_ms(lambda: F.rms_norm(x, (N,), w, 1e-5))
+            row = dict(kind=kind, dtype=dtype, R=R, N=N, offset=offset,
+                       max_abs_err=err, stats_err=err_stats,
                        tol=NORM_TOL[dtype], ms=k_ms, eager_ms=k_eager,
-                       plain_ms=p_ms,
-                       bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+                       plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+                       library_ms=lib_ms, **extra)
             say(card, "fused_norm " + json.dumps(row))
             if (R, N, kind, dtype) == (16, 2048, "ln", "bfloat16"):
                 main = row
+            if R == 8192 and dtype == "float32":
+                training.append({k: row[k] for k in (
+                    "kind", "N", "offset", "ms", "bound_ms", "library_ms")})
+    say(card, "fused_norm training rows (f32 [8192, N], the steps' shapes) "
+              + json.dumps(training))
+    if failures:
+        raise AssertionError("; ".join(failures))
     return {"worst": worst, "main": main}
 
 
@@ -1583,6 +1723,8 @@ VARLEN_CASES = {
                          "bfloat16"),
     "empty_k_segment_f32_d64": ([100, 60, 140], [120, 0, 100], 4, 4, 64,
                                 True, "float32"),
+    "empty_k_segment_bf16": ([100, 60, 140], [120, 0, 100], 8, 2, 128, True,
+                             "bfloat16"),
     "single_tile_d32": ([7, 9, 11], None, 2, 1, 32, True, "bfloat16"),
 }
 
@@ -1634,6 +1776,17 @@ def _varlen_outputs(mf, q, k, v, dout, layout, causal, scale):
             delta)
 
 
+def _varlen_class_violations(torch, mf, name, layout, Tq, Tk, causal):
+    """The tile classes the card derives (`varlen_classes_kernel`, which
+    the bf16 forward launches before it) against their plain version:
+    equal, tile for tile."""
+    got = mf.varlen_tile_classes(layout, Tq, Tk, causal)
+    ref = mf.varlen_tile_classes_plain(layout, Tq, Tk, causal)
+    wrong = int((got != ref).sum())
+    return [f"varlen {name}: {wrong} of {ref.numel()} tile classes differ "
+            "from the plain version's"] if wrong else []
+
+
 def check_varlen(card, torch):
     """Varlen forward, dq and dk/dv kernels against their plain versions on
     the same inputs (the backward kernels get the plain forward's LSE and
@@ -1641,9 +1794,14 @@ def check_varlen(card, torch):
     documents at the LLaMA-7B head shape (32 query heads over 8 kv heads of
     128, causal, bf16), non-causal documents at T = 1000 (not a multiple
     of the 64-row tile) in f32, causal cross attention with q lengths !=
-    k lengths and GQA, an empty k segment (its rows: zeros, zero dq) and a
-    pack of 27 tokens (one tile). The operation bound counts the pairs the
-    segments keep. Library: torch scaled_dot_product_attention on the main
+    k lengths and GQA, an empty k segment in f32 and in bf16 (its rows:
+    zeros, zero dq) and a pack of 27 tokens (one tile). The bf16 forward
+    runs the sm90 kernel on the tile classes its entry derives first
+    (`varlen_classes_kernel`); those classes are held equal to
+    `varlen_tile_classes_plain` in every case, and the classes kernel's
+    time alone is printed beside the forward's row (`tile_classes_ms`,
+    part of `ms`). The operation bound counts the pairs the segments
+    keep. Library: torch scaled_dot_product_attention on the main
     case with k and v expanded to the query heads and the keep-mask as a
     bool [T, T] attn_mask (block-diagonal, causal within each block)."""
     from paddle_tpu_torch.ops import masked_flash as mf
@@ -1668,6 +1826,8 @@ def check_varlen(card, torch):
             failures.append(f"varlen {name}: a row that keeps no key is not "
                             "zero")
         Tq, Tk = q.shape[0], k.shape[0]
+        failures += _varlen_class_violations(torch, mf, name, layout, Tq, Tk,
+                                             causal)
         keep = mf.varlen_keep(layout, Tq, causal)
         pairs = int(keep.sum()) * H
         es = q.element_size()
@@ -1715,6 +1875,11 @@ def check_varlen(card, torch):
                        eager_ms=eager_ms(fn_k, reps=reps, inner=inner),
                        plain_ms=time_ms(fn_p, reps=3, inner=2),
                        bound_ms=bnd, bound_by=by, library_ms=lib.get(kernel))
+            if kernel == "fwd" and dtype == "bfloat16":
+                # the classes kernel's share of `ms`
+                row["tile_classes_ms"] = time_ms(
+                    lambda: mf.varlen_tile_classes(layout, Tq, Tk, causal),
+                    reps=reps, inner=inner)
             say(card, "varlen " + json.dumps(row))
             worst[kernel] = max(worst[kernel], err)
             if name == "path":
@@ -1735,7 +1900,8 @@ def check_varlen(card, torch):
 # text that anchors the fault, the text replaced at its first occurrence
 # after the anchor, the replacement, the case that must catch it: "flash
 # <FLASH_CASES name>", "varlen <VARLEN_CASES name>", "grouped_gemm
-# <GG_CASES name>", "dense_decode <DENSE_CASES name>" (bf16) or a
+# <GG_CASES name>", "dense_decode <DENSE_CASES name>" (bf16), "norm
+# <R>x<N> <kind> <dtype>" (a NORM_CASES shape, offset 0) or a
 # FLASHMASK_CASES name). They follow the kernels'
 # code: a change there that moves the replaced text must move these with
 # it. The WMMA dQ and dK/dV of flash_tiles.cuh run only varlen's bf16
@@ -1791,6 +1957,24 @@ KERNEL_FAULTS = {
     "varlen: the segment test's upper bound dropped": (
         "varlen_flash.cu", "struct Varlen", "row >= k.lo && row < k.hi",
         "row >= k.lo", "varlen path"),
+    "varlen fwd: a partial tile read as full": (
+        "varlen_flash.cu", "int tile_class(", "return c;",
+        "return c == kPartialTile ? kFullTile : c;", "varlen path"),
+    "varlen classes: the last kv tile full past Tk": (
+        "varlen_flash.cu", "varlen_classes_kernel(",
+        "bool full = lo_max <= r0 && r1 <= hi_min && !pad;",
+        "bool full = lo_max <= r0 && r1 <= hi_min;", "varlen cross_causal_gqa"),
+    "varlen fwd: the loop ends one kv tile short": (
+        "varlen_flash.cu", "int kv_tiles(const Problem&, int q0, int bm, int bn)",
+        "return (end + bn - 1) / bn;", "return (end + bn - 1) / bn - 1;",
+        "varlen path"),
+    "norm fwd: the cross-warp sum drops the group's last warp": (
+        "fused_norm.cu", "float group_sum(", "w < gw;", "w < gw - 1;",
+        "norm 8192x2048 ln float32"),
+    "norm fwd: the scalar tail skipped": (
+        "fused_norm.cu", "the scalar tail",
+        "v[j][e] = c0 + e < n ? ptt::to_f32(xr[c0 + e]) : 0.f;",
+        "v[j][e] = 0.f;", "norm 37x1031 ln float32"),
     "grouped_gemm: a partly live tile treated as dead": (
         "grouped_gemm_sm90.cuh", "bool unit_live(", "return sizes[g] > off;",
         "return sizes[g] >= off + kGgUnit;", "grouped_gemm partial_tiles"),
@@ -1811,14 +1995,23 @@ KERNEL_FAULTS = {
 def _fault_violations(torch, case):
     """Phase 2's violations at a fault's case ("flash <FLASH_CASES name>",
     "varlen <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>",
-    "dense_decode <DENSE_CASES name>" in bf16, or a FLASHMASK_CASES name),
-    run on the library load_library() holds."""
+    "dense_decode <DENSE_CASES name>" in bf16, "norm <R>x<N> <kind>
+    <dtype>", or a FLASHMASK_CASES name), run on the library load_library()
+    holds."""
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_gemm as gg
     from paddle_tpu_torch.ops import masked_flash as mf
 
     kind, _, name = case.partition(" ")
+    if kind == "norm":
+        from paddle_tpu_torch.ops import fused_norm as fn
+
+        shape, norm_kind, dtype = name.split()
+        R, N = (int(s) for s in shape.split("x"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x, w, bias = _norm_inputs(torch, gen, R, N, norm_kind, dtype)
+        return _norm_errors(fn, torch, x, w, bias, norm_kind, dtype)[2]
     if kind == "flash":
         B, Sq, Skv, H, Hkv, D, causal, bias, dtype = FLASH_CASES[name]
         gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1833,6 +2026,9 @@ def _fault_violations(torch, case):
             torch, gen, name)
         got, plain, _ = _varlen_outputs(mf, q, k, v, dout, layout, causal,
                                         q.shape[-1] ** -0.5)
+        return _varlen_class_violations(
+            torch, mf, name, layout, q.shape[0], k.shape[0], causal
+        ) + _flash_violations(_flash_errs(got, plain), dtype)
     elif kind == "grouped_gemm":
         gen = torch.Generator(device="cuda").manual_seed(11)
         lhs, rhs, sz = _gg_inputs(torch, gen, name, None)
@@ -1856,8 +2052,8 @@ def _fault_violations(torch, case):
 
 
 def planted_kernel_faults(card, torch):
-    """The attention, grouped-GEMM and dense-decode limits must fail faulty
-    kernels: for each fault of KERNEL_FAULTS, the kernels are built again
+    """The attention, grouped-GEMM, dense-decode and norm limits must fail
+    faulty kernels: for each fault of KERNEL_FAULTS, the kernels are built again
     from a copy of csrc/ (in a temporary directory, all builds in parallel)
     with the fault planted, and held at its case against the plain versions
     with phase 2's limits."""
@@ -2323,13 +2519,46 @@ def serve_quant(card, torch):
     return total
 
 
+def _teacher_forced_margins(torch, model, prompt, tokens):
+    """`model.generate`'s greedy steps fed `tokens` instead of its own
+    picks (its calls: a prefill into f32 caches, then one decode step a
+    token): per step, how far tokens[i]'s logit lies below the top one, in
+    bf16 steps of the top logit, and whether that is within
+    BF16_TIE_ULPS."""
+    was_training = model.training
+    model.eval()
+    steps = []
+    with torch.no_grad():
+        ids = torch.as_tensor(prompt, device="cuda").long()[None]
+        n = ids.shape[1]
+        caches = model.init_kv_caches(1, n + len(tokens), dtype=torch.float32)
+        logits, _ = model(ids, torch.arange(n, device="cuda")[None], caches,
+                          0)
+        for i, tok in enumerate(tokens):
+            if i:
+                logits, _ = model(
+                    torch.full((1, 1), tokens[i - 1], device="cuda"),
+                    torch.full((1, 1), n + i - 1, device="cuda"), caches,
+                    n + i - 1)
+            row = logits[0, -1].float()
+            top = row.max().item()
+            ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+            below = (top - row[tok].item()) / ulp
+            steps.append({"token": tok, "argmax": int(row.argmax()),
+                          "bf16_steps_below_top": below,
+                          "ok": below <= BF16_TIE_ULPS})
+    model.train(was_training)
+    return steps
+
+
 def serve_dense(card, torch):
     """gpt3_1p3b bf16 through create_serving_engine(paged=False) (16 slots of
     512 tokens) over the 12-request mix of phase 3: every decode attention
     goes through the flash forward kernel at Sq = 1 (ticks x 24) and every
     LayerNorm through the norm kernel ((requests + ticks) x 49). Then
-    model.generate on one greedy prompt of the mix must give the engine's
-    tokens."""
+    model.generate runs one greedy prompt of the mix, and fed the engine's
+    tokens it must rank each of them first or within a bf16 tie of first
+    (BF16_TIE_ULPS), at every step."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
 
@@ -2354,14 +2583,20 @@ def serve_dense(card, torch):
     t0 = time.perf_counter()
     gen = model.generate(prompt[None], max_new_tokens=max_new,
                          temperature=0.0)[0, len(prompt):].tolist()
-    same = gen == by_prompt[tuple(prompt)]
+    seconds = time.perf_counter() - t0
+    engine_tokens = by_prompt[tuple(prompt)]
+    steps = _teacher_forced_margins(torch, model, prompt, engine_tokens)
     say(card, "generate " + json.dumps({
         "prompt_tokens": len(prompt), "new_tokens": max_new,
-        "seconds": time.perf_counter() - t0, "tokens_identical_to_engine": same,
-        "tokens": gen}))
-    if not same:
-        raise AssertionError("generate: greedy tokens differ from the dense "
-                             "engine's")
+        "seconds": seconds, "tokens_identical_to_engine": gen == engine_tokens,
+        "tokens": gen, "engine_tokens": engine_tokens,
+        "teacher_forced": steps}))
+    bad = [i for i, st in enumerate(steps) if not st["ok"]]
+    if len(engine_tokens) != max_new or bad:
+        raise AssertionError(
+            f"generate: fed the dense engine's {len(engine_tokens)} tokens, "
+            f"steps {bad} rank the engine's token more than {BF16_TIE_ULPS} "
+            "bf16 steps below the top logit")
     del eng
     profile_decode(card, torch, model, B, S, label="dense", paged=False)
     del model
@@ -2664,9 +2899,9 @@ def train(card, torch, which):
 # the kernels of csrc/ by name, as torch.profiler reports them (the sm90
 # ones: flash_fwd_sm90_kernel, flash_bwd_dq_sm90_kernel,
 # flash_bwd_dkv_sm90_kernel, gg_sm90_kernel; the decodes: decode_tile_,
-# decode_split_ and decode_combine_kernel)
+# decode_split_ and decode_combine_kernel; varlen_classes_kernel)
 PORT_KERNEL = re.compile(
-    r"^void \(anonymous namespace\)::(sm90::)?(flash_|norm_|decode_|rope_|gg_)")
+    r"^void \(anonymous namespace\)::(sm90::)?(flash_|norm_|decode_|rope_|gg_|varlen_)")
 
 
 def profile_step(card, torch, fn, what):
@@ -3124,7 +3359,7 @@ def main():
             ("grouped_gemm", "paddle_tpu_torch/csrc/grouped_gemm_sm90.cuh",
              "paddle_tpu/ops/pallas/grouped_gemm.py:110", grouped["main"],
              grouped["worst"]),
-            ("varlen_fwd", vl_src, mf_ref + ":442", varlen["main"]["fwd"],
+            ("varlen_fwd", fwd_src, mf_ref + ":442", varlen["main"]["fwd"],
              varlen["worst"]["fwd"]),
             ("varlen_bwd_dq", vl_src, mf_ref + ":490", varlen["main"]["dq"],
              varlen["worst"]["dq"]),

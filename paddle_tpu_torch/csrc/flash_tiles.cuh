@@ -11,10 +11,12 @@
 //   - varlen_flash.cu: the same file's varlen `_vl_fwd_kernel` :442,
 //     `_vl_bwd_dq_kernel` :490 and `_vl_bwd_dkv_kernel` :529 (packed
 //     segments, causal top-left within a segment, a tile range per
-//     segment span), in float32 and bfloat16.
+//     segment span): the forward in float32, dQ and dK/dV in float32 and
+//     bfloat16.
 // bfloat16 flash and flashmask run the Hopper kernels of
 // flash_fwd_sm90.cuh (forward) and flash_bwd_sm90.cuh (dQ, dK/dV) under the
-// same policies; varlen is the one user of this file's bfloat16 (WMMA)
+// same policies, and so does the bfloat16 varlen forward (flash_fwd_sm90.cuh);
+// varlen's bfloat16 dQ and dK/dV are the one user of this file's WMMA
 // kernels.
 // What they compute:
 //   - forward: O = softmax(Q K^T * scale + mask) V and the f32 row
@@ -48,18 +50,17 @@
 // ragged edge and any head dim below 64 or 128 zero-filled: no transpose
 // and no padded copy in HBM), then reused by 64 rows. Two forms of the
 // products, chosen by the input type:
-//   - bf16 (varlen's three kernels, `flash_fwd_tc_kernel`,
-//     `flash_dq_tc_kernel` and `flash_dkv_tc_kernel`; bf16 flash and
-//     flashmask run flash_fwd_sm90.cuh's and flash_bwd_sm90.cuh's wgmma
-//     kernels, fed by TMA): the tensor cores, through WMMA 16x16x16
+//   - bf16 (varlen's backward, `flash_dq_tc_kernel` and
+//     `flash_dkv_tc_kernel`; every bf16 forward and the bf16 backward of
+//     flash and flashmask run flash_fwd_sm90.cuh's and flash_bwd_sm90.cuh's
+//     wgmma kernels, fed by TMA): the tensor cores, through WMMA 16x16x16
 //     bf16 fragments with f32 accumulation, 4 warps of 16 rows each. A
 //     warp's 16x64 score tile goes to shared memory in f32, two lanes per
 //     row run the softmax (or its gradient) on it, and the probabilities
 //     (or dS) are rounded to bf16 for the next product, as the TPU kernel
 //     casts p and ds to the operand type before its second and third
-//     matmuls; row sums stay in f32. The forward's output accumulator lives
-//     in shared memory, so each lane can rescale its row by the running-max
-//     factor; dQ, dK and dV accumulate in registers.
+//     matmuls; row sums stay in f32. dQ, dK and dV accumulate in
+//     registers.
 //   - f32: register-tiled FMA on the CUDA cores, in full f32 (no TF32), 256
 //     threads: every thread owns 2 rows x 8 columns of the 64x64 score tile
 //     (columns cg + 8j, so the 8 threads of a row group read 8 consecutive
@@ -217,14 +218,15 @@ struct Problem {
 //   - `int first_kv_tile(p, q0)` and `int kv_tiles(p, q0)`: the kv tiles a
 //     q tile at q0 visits, [first_kv_tile, kv_tiles) (flash and flashmask
 //     visit a prefix; varlen the range of the segments the q tile touches);
-//     flash and flashmask take the tile sizes too, `kv_tiles(p, q0, bm,
-//     bn)`, for flash_fwd_sm90.cuh's 128 x 128 tiles (64 by default);
+//     the sm90 kernels take the tile sizes too, `kv_tiles(p, q0, bm, bn)`,
+//     for their 128 x 128 tiles (64 by default);
 //   - `int first_q_tile(p, k0)` and `int q_tiles(p, k0)`: the q tiles that
 //     can see key tile k0, [first_q_tile, q_tiles);
 //   - `kVote`: whether a tile whose keep-mask is empty is skipped after a
 //     CTA-wide vote (`any_kept`), for masks whose empty tiles the tile
 //     ranges above do not exclude.
-// The sm90 kernels (flash and flashmask: forward, dQ and dK/dV) also read
+// The sm90 kernels (flash and flashmask: forward, dQ and dK/dV; varlen:
+// the forward) also read
 //   - `int tile_class(p, b, h, q0, k0, bm, bn)`: a `TileClass` of the
 //     (q tile, kv tile): skipped (no pair kept; never loaded), full (every
 //     pair of real rows and columns kept: no predicate) or partial (keep()
@@ -629,101 +631,6 @@ __device__ __forceinline__ void tc_store_rows(FragC (&acc)[DT / 16], float* stag
 
 template <int DT, class M>
 __global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(Problem p, M mask, const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = Ld<bf16, DT>::value;
-  constexpr int LDO = DT + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Ps = Vs + kTile * LD;                              // [64][kLdb]
-  float* Ss = reinterpret_cast<float*>(Ps + kTile * kLdb); // [64][kLdp]
-  float* Os = Ss + kTile * kLdp;                           // [64][LDO]
-  auto* keys = reinterpret_cast<typename M::Key*>(Os + kTile * LDO);  // [64]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r = lane >> 1, half = lane & 1;  // this lane's row of the warp, half of it
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.g;
-  const bf16* kp = k + b * p.k.b + hk * p.k.h;
-  const bf16* vp = v + b * p.v.b + hk * p.v.h;
-  load_tile<bf16, DT, kTcThreads>(Qs, q + b * p.q.b + h * p.q.h, p.q.s, q0, p.Sq, p.D, p.vec);
-  const int lrow = warp * 16 + r;  // row within the tile
-  const int row = q0 + lrow;
-  float* Orow = Os + lrow * LDO;
-  for (int c = half * (DT / 2); c < (half + 1) * (DT / 2); ++c) Orow[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  const int n_kv = mask.kv_tiles(p, q0);
-  for (int t = mask.first_kv_tile(p, q0); t < n_kv; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // every warp is done with the previous Ks, Vs
-    load_tile<bf16, DT, kTcThreads>(Ks, kp, p.k.s, k0, p.Skv, p.D, p.vec);
-    load_tile<bf16, DT, kTcThreads>(Vs, vp, p.v.s, k0, p.Skv, p.D, p.vec);
-    if (tid < kTile) keys[tid] = mask.key(p, b, h, k0 + tid);
-    __syncthreads();
-
-    if constexpr (M::kVote) {
-      bool mine = false;
-      for (int i = 0; i < 32; ++i) {
-        const int c = half * 32 + i;
-        mine |= mask.keep(p, row, k0 + c, keys[c]);
-      }
-      if (!any_kept(mine)) continue;
-    }
-
-    tc_nt<DT>(Qs + warp * 16 * LD, Ks, Ss + warp * 16 * kLdp);
-    __syncwarp();
-    const float* Srow = Ss + lrow * kLdp;
-    float sv[32];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = half * 32 + i;
-      sv[i] = mask.keep(p, row, k0 + c, keys[c]) ? Srow[c] * p.scale + mask.bias(keys[c]) : -INFINITY;
-      mt = fmaxf(mt, sv[i]);
-    }
-    const float m_new = fmaxf(m, fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1)));
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // nothing seen yet: no NaN
-    const float alpha = expf(m - m_use);
-    float rs = 0.f;
-    bf16* Prow = Ps + lrow * kLdb;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float e = expf(sv[i] - m_use);
-      rs += e;
-      Prow[half * 32 + i] = __float2bfloat16(e);
-    }
-    l = l * alpha + rs + __shfl_xor_sync(0xffffffffu, rs, 1);
-    m = m_new;
-    for (int c = half * (DT / 2); c < (half + 1) * (DT / 2); ++c) Orow[c] *= alpha;
-    __syncwarp();
-
-    FragC acc[DT / 16];
-#pragma unroll
-    for (int n = 0; n < DT / 16; ++n)
-      wm::load_matrix_sync(acc[n], Os + warp * 16 * LDO + n * 16, LDO, wm::mem_row_major);
-    tc_nn<DT>(Ps + warp * 16 * kLdb, Vs, acc);
-#pragma unroll
-    for (int n = 0; n < DT / 16; ++n)
-      wm::store_matrix_sync(Os + warp * 16 * LDO + n * 16, acc[n], LDO, wm::mem_row_major);
-    __syncwarp();
-  }
-
-  if (row < p.Sq) {
-    const bool empty = !(m > kEmpty) || l == 0.f;
-    const float inv = empty ? 0.f : 1.f / l;
-    bf16* orow = out + (((long long)b * p.Sq + row) * p.H + h) * p.D;
-    for (int c = half * (DT / 2); c < (half + 1) * (DT / 2); ++c)
-      if (c < p.D) orow[c] = __float2bfloat16(Orow[c] * inv);
-    if (half == 0)
-      lse[((long long)b * p.H + h) * p.Sq + row] = empty ? INFINITY : m + logf(l);
-  }
-}
-
-template <int DT, class M>
-__global__ void __launch_bounds__(kTcThreads)
 flash_dq_tc_kernel(Problem p, M mask, const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
@@ -906,18 +813,6 @@ cudaError_t launch_fwd_f32(const Problem& p, const M& m, const void* q, const vo
                 static_cast<const float*>(v), static_cast<float*>(out), lse);
 }
 
-// The WMMA forward (bfloat16 varlen)
-template <int DT, class M>
-cudaError_t launch_fwd_tc(const Problem& p, const M& m, const void* q, const void* k,
-                          const void* v, void* out, float* lse, cudaStream_t st) {
-  const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
-  constexpr size_t kKeys = kTile * sizeof(typename M::Key);
-  return launch(flash_fwd_tc_kernel<DT, M>, grid, kTcThreads,
-                3 * operand_bytes<bf16, DT>() + kPb + kSf + kTile * (DT + 4) * kF + kKeys,
-                st, p, m, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(out), lse);
-}
-
 // The backward passes: float32 on the CUDA cores, bfloat16 on WMMA when
 // kWmma (the bfloat16 backward of flash and flashmask is
 // flash_bwd_sm90.cuh's, so flash_attention.cu and masked_flash.cu
@@ -996,9 +891,8 @@ bool supported(int dtype) { return dtype == ptt::kF32 || dtype == ptt::kBF16; }
 
 // The three passes at the head dim's tile width (64 or 128), for the entry
 // points of flash_attention.cu, masked_flash.cu and varlen_flash.cu. The
-// forward: `run_fwd_f32` on the CUDA cores (flash and flashmask in
-// float32; their bfloat16 forward is flash_fwd_sm90.cuh's), `run_fwd` by
-// dtype for varlen (float32 or the WMMA kernel).
+// forward: `run_fwd_f32` on the CUDA cores (float32; every bfloat16
+// forward is flash_fwd_sm90.cuh's).
 template <class M>
 cudaError_t run_fwd_f32(const Problem& p, const M& m, const void* q, const void* k,
                         const void* v, void* out, void* lse, void* stream) {
@@ -1006,16 +900,6 @@ cudaError_t run_fwd_f32(const Problem& p, const M& m, const void* q, const void*
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return p.D <= 64 ? launch_fwd_f32<64>(p, m, q, k, v, out, l, st)
                    : launch_fwd_f32<128>(p, m, q, k, v, out, l, st);
-}
-
-template <class M>
-cudaError_t run_fwd(int dtype, const Problem& p, const M& m, const void* q, const void* k,
-                    const void* v, void* out, void* lse, void* stream) {
-  if (dtype == ptt::kF32) return run_fwd_f32(p, m, q, k, v, out, lse, stream);
-  float* l = static_cast<float*>(lse);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_fwd_tc<64>(p, m, q, k, v, out, l, st)
-                   : launch_fwd_tc<128>(p, m, q, k, v, out, l, st);
 }
 
 template <bool kWmma = true, class M>

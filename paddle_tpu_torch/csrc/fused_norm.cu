@@ -24,18 +24,34 @@
 // costs more. At the training shape under O2 (R = 8192, N = 2048, f32) the
 // forward moves 134 MB (0.040 ms) and dx 201 MB (0.060 ms).
 //
-// Design against that bound: one block per row of the contiguous [R, N]
-// view. The forward reads the row from HBM exactly once, upcast to f32 into
-// shared memory; the two reductions (mean, then the centred sum of squares)
-// and the output pass read it back from shared memory. The dx kernel reads
-// x and dy once, keeps g and x_hat in shared memory for its two row sums
-// and the output pass. So HBM sees each element once per read and write.
-// Neighbouring threads touch neighbouring elements, so every global access
-// is coalesced. A row wider than the shared memory a block may hold (N >
-// ~58k in the forward, ~29k in dx) is read again from global memory (L2)
+// Design against that bound (the forward): a group of threads owns a row
+// and holds it in registers, 16 elements a thread, so the group is
+// ceil(N / 16) threads rounded up to a warp (128 at N = 2048, 256 at 4096,
+// 64 at 1024) and a CTA of 256 threads holds several groups at small N.
+// Each thread reads its elements once with 16-byte loads that do not
+// allocate in L1 (`ld.global.nc.L1::no_allocate`), neighbouring threads on
+// neighbouring 16 bytes; the mean (summed as x - x[0], so a row far from
+// 0 loses no bits to its offset) and then the centred sum of squares come
+// from those registers, each reduced by shuffles within a warp and one
+// exchange across the group's warps in shared memory behind a barrier of
+// the group alone (`bar.sync` with the group's thread count); the output
+// leaves with 16-byte streaming stores (`st.global.cs`). The grid holds
+// as many CTAs as fit the card at once, each looping over rows, so the
+// weight and bias are read once a CTA into registers. A row whose base is
+// not on a 16-byte line (N not a multiple of 4 f32 or 8 bf16 elements)
+// moves element by element, and a scalar tail takes its last N % 4 (or
+// % 8) elements. Rows wider than 16 x 512 elements keep one block a row
+// (`norm_fwd_kernel`): the row read from HBM once into shared memory, the
+// two reductions and the output pass reading it back. The dx kernel
+// reads x and dy once, keeps g and x_hat in shared memory for its two row
+// sums and the output pass. So HBM sees each element once per read and
+// write. A row wider than the shared memory a block may hold (N > ~58k in
+// the wide forward, ~29k in dx) is read again from global memory (L2)
 // instead of failing. The TPU kernel's lane padding to 128 and its
-// autotuned row block are TPU tiling artifacts and are not carried over: any
-// N works, odd widths included.
+// autotuned row block are TPU tiling artifacts and are not carried over:
+// any N works, odd widths included.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -92,18 +108,289 @@ __global__ void norm_fwd_kernel(const T* __restrict__ x, const TW* __restrict__ 
   }
 }
 
+// ------------------------------------------- the forward, a row in registers
+
+constexpr int kRowElems = 16;        // elements of a row a thread holds
+constexpr int kRowMaxThreads = 512;  // threads of a row group at most: N <= 8192
+constexpr int kRowCta = 256;         // threads of a CTA that holds several groups
+
+__device__ __forceinline__ uint4 load_stream(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ void store_stream(void* p, const uint4& v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// 16 bytes of T as floats and back, in registers: 4 f32, or 8 bf16 or f16
+// (rounded to nearest even on the way out, as ptt::from_f32)
+template <typename T>
+struct Pack16;
+
+template <>
+struct Pack16<float> {
+  static constexpr int kVec = 4;
+  __device__ __forceinline__ static void unpack(const uint4& r, float (&v)[kVec]) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&y)[kVec]) {
+    return make_uint4(__float_as_uint(y[0]), __float_as_uint(y[1]), __float_as_uint(y[2]),
+                      __float_as_uint(y[3]));
+  }
+};
+
+template <typename H>  // __nv_bfloat16 or __half
+struct Pack16Half {
+  static constexpr int kVec = 8;
+  __device__ __forceinline__ static void unpack(const uint4& r, float (&v)[kVec]) {
+    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = to_f32(static_cast<unsigned short>(u[i] & 0xffffu));
+      v[2 * i + 1] = to_f32(static_cast<unsigned short>(u[i] >> 16));
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&y)[kVec]) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      u[i] = static_cast<uint32_t>(bits(y[2 * i])) |
+             (static_cast<uint32_t>(bits(y[2 * i + 1])) << 16);
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+  __device__ __forceinline__ static float to_f32(unsigned short s);
+  __device__ __forceinline__ static unsigned short bits(float f);
+};
+
+template <>
+__device__ __forceinline__ float Pack16Half<__nv_bfloat16>::to_f32(unsigned short s) {
+  return __bfloat162float(__ushort_as_bfloat16(s));
+}
+template <>
+__device__ __forceinline__ unsigned short Pack16Half<__nv_bfloat16>::bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16(f));
+}
+template <>
+__device__ __forceinline__ float Pack16Half<__half>::to_f32(unsigned short s) {
+  return __half2float(__ushort_as_half(s));
+}
+template <>
+__device__ __forceinline__ unsigned short Pack16Half<__half>::bits(float f) {
+  return __half_as_ushort(__float2half(f));
+}
+
+template <>
+struct Pack16<__nv_bfloat16> : Pack16Half<__nv_bfloat16> {};
+template <>
+struct Pack16<__half> : Pack16Half<__half> {};
+
+// Sum of `v` over the row group's `gsize` threads (a multiple of 32),
+// returned to each of them: shuffles within each warp, then the group's
+// warps through red[slot] (two slots of 16 floats, used in turn, so a
+// slot is written again only after every thread of the group passed the
+// barrier of the other one) behind a barrier of the group alone.
+__device__ __forceinline__ float group_sum(float v, float* red, int gsize, int group,
+                                           int& slot) {
+  v = ptt::warp_sum(v);
+  const int gw = gsize / 32;
+  if (gw == 1) return v;
+  float* r = red + slot * 16;
+  slot ^= 1;
+  if (threadIdx.x % 32 == 0) r[threadIdx.x / 32] = v;
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(gsize) : "memory");
+  float total = 0.f;
+  for (int w = 0; w < gw; ++w) total += r[group * gw + w];
+  return total;
+}
+
+// This thread's columns of the weight or bias `p` (`none` where p is null
+// or past n), as the rows of T lay them out: access j covers kVec columns
+// from (t + j gsize) kVec. 16-byte loads where p's element is T's size and
+// its base is on a 16-byte line; element loads otherwise.
+template <typename T, typename TW, int kNv, int kVec>
+__device__ __forceinline__ void load_cols(const TW* p, int n, int gsize, int t, float none,
+                                          float (&out)[kNv][kVec]) {
+  const bool vec = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+#pragma unroll
+  for (int j = 0; j < kNv; ++j) {
+    const int c0 = (t + j * gsize) * kVec;
+    if constexpr (sizeof(TW) == sizeof(T)) {
+      if (p != nullptr && vec && c0 + kVec <= n) {
+        Pack16<TW>::unpack(load_stream(p + c0), out[j]);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      out[j][e] = p != nullptr && c0 + e < n ? ptt::to_f32(p[c0 + e]) : none;
+  }
+}
+
+// Rows of n <= 16 * gsize elements, a group of gsize threads a row,
+// blockDim.x / gsize groups a CTA, the CTAs looping over the rows.
+template <typename T, typename TW, bool kLN>
+__global__ void __launch_bounds__(kRowMaxThreads)
+norm_fwd_rows_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                     const TW* __restrict__ b, T* __restrict__ out,
+                     float* __restrict__ rstd_out, float* __restrict__ mean_out, long long rows,
+                     int n, float eps, int gsize) {
+  constexpr int kVec = Pack16<T>::kVec;    // elements of a 16-byte access
+  constexpr int kNv = kRowElems / kVec;    // 16-byte accesses a thread
+  __shared__ float red[2 * 16];
+  const int per_cta = blockDim.x / gsize;
+  const int group = threadIdx.x / gsize, t = threadIdx.x % gsize;
+  const float inv_n = 1.f / static_cast<float>(n);
+  // this thread's columns: access j covers [c0, c0 + kVec), c0 = (t + j gsize) kVec
+  float wr[kNv][kVec], br[kNv][kVec];
+  load_cols<T>(w, n, gsize, t, 1.f, wr);
+  load_cols<T>(b, n, gsize, t, 0.f, br);
+  int slot = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * per_cta;
+  for (long long r = static_cast<long long>(blockIdx.x) * per_cta + group; r < rows;
+       r += stride) {
+    const T* xr = x + r * n;
+    T* outr = out + r * n;
+    const bool vec =
+        ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(outr)) & 15) == 0;
+    float v[kNv][kVec];
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      const int c0 = (t + j * gsize) * kVec;
+      if (c0 + kVec <= n) {
+        if (vec) {
+          Pack16<T>::unpack(load_stream(xr + c0), v[j]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) v[j][e] = ptt::to_f32(xr[c0 + e]);
+        }
+      } else {  // the scalar tail: the row's last n % kVec elements, zeros past n
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          v[j][e] = c0 + e < n ? ptt::to_f32(xr[c0 + e]) : 0.f;
+      }
+    }
+    float mean = 0.f;  // RMSNorm: no centring
+    if (kLN) {
+      const float x0 = ptt::to_f32(xr[0]);
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNv; ++j)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if ((t + j * gsize) * kVec + e < n) s += v[j][e] - x0;
+      mean = x0 + group_sum(s, red, gsize, group, slot) * inv_n;
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNv; ++j)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        if ((t + j * gsize) * kVec + e < n) {
+          const float c = v[j][e] - mean;
+          ss += c * c;
+        }
+    const float rstd = rsqrtf(group_sum(ss, red, gsize, group, slot) * inv_n + eps);
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      const int c0 = (t + j * gsize) * kVec;
+      if (c0 >= n) continue;
+      float y[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        y[e] = (v[j][e] - mean) * rstd;
+        if (w != nullptr) y[e] *= wr[j][e];
+        if (b != nullptr) y[e] += br[j][e];
+      }
+      if (c0 + kVec <= n && vec) {
+        store_stream(outr + c0, Pack16<T>::pack(y));
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if (c0 + e < n) outr[c0 + e] = ptt::from_f32<T>(y[e]);
+      }
+    }
+    if (t == 0) {
+      rstd_out[r] = rstd;
+      if (kLN) mean_out[r] = mean;
+    }
+  }
+}
+
+// What a launch reads of the card, once a process (its cards are alike:
+// the library is built for sm_90a alone): SMs and the shared memory a
+// block may opt into.
+struct Card {
+  int sms = 0, max_smem = 0;
+};
+
+const Card& card() {
+  static const Card c = [] {
+    Card k;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&k.max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return k;
+  }();
+  return c;
+}
+
+// threads of the row group that holds a row of n elements in registers
+int row_group(int n) { return ((n + kRowElems - 1) / kRowElems + 31) / 32 * 32; }
+
+template <typename T, typename TW>
+cudaError_t launch_rows(const void* x, const void* w, const void* b, void* out, void* rstd,
+                        void* mean, long long rows, int n, float eps, bool ln,
+                        cudaStream_t stream) {
+  const int gsize = row_group(n);
+  // several rows a CTA, unless the rows are too few to reach every SM
+  const int per_cta =
+      gsize >= kRowCta || rows <= card().sms ? 1 : kRowCta / gsize;
+  const int threads = per_cta * gsize;
+  auto kernel = ln ? norm_fwd_rows_kernel<T, TW, true> : norm_fwd_rows_kernel<T, TW, false>;
+  // CTAs a SM holds, per layout and CTA size
+  static std::atomic<int> fit[2][kRowMaxThreads / 32 + 1];
+  std::atomic<int>& slot = fit[ln][threads / 32];
+  int per_sm = slot.load(std::memory_order_relaxed);
+  if (per_sm == 0) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (err != cudaSuccess) return err;
+    per_sm = per_sm < 1 ? 1 : per_sm;
+    slot.store(per_sm, std::memory_order_relaxed);
+  }
+  const long long groups = (rows + per_cta - 1) / per_cta;
+  const long long most = static_cast<long long>(card().sms) * per_sm;
+  const unsigned grid = static_cast<unsigned>(groups < most ? groups : most);
+  kernel<<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<const TW*>(b),
+      static_cast<T*>(out), static_cast<float*>(rstd), static_cast<float*>(mean), rows, n, eps,
+      gsize);
+  return cudaGetLastError();
+}
+
+// Rows wider than the register design: one block a row.
 template <typename T, typename TW>
 cudaError_t launch(const void* x, const void* w, const void* b, void* out,
                    void* rstd, void* mean, long long rows, int n, float eps,
                    bool ln, cudaStream_t stream) {
+  if (n > 0 && row_group(n) <= kRowMaxThreads)
+    return launch_rows<T, TW>(x, w, b, out, rstd, mean, rows, n, eps, ln, stream);
   // 1..4 elements per thread, a multiple of 32 threads, at most 1024
   int threads = ((n + 3) / 4 + 31) / 32 * 32;
   threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const size_t row_bytes = static_cast<size_t>(n) * sizeof(float);
-  const bool cache_row = row_bytes + 32 * sizeof(float) <= static_cast<size_t>(max_smem);
+  const bool cache_row =
+      row_bytes + 32 * sizeof(float) <= static_cast<size_t>(card().max_smem);
   const size_t smem = cache_row ? row_bytes : 0;
   auto kernel = ln ? norm_fwd_kernel<T, TW, true> : norm_fwd_kernel<T, TW, false>;
   if (smem > 48 * 1024) {

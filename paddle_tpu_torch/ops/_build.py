@@ -95,10 +95,12 @@ _SIGNATURES = {
     # Skv, D, strides[12], scale, causal, dtype, stream
     "ptt_flashmask_bwd_dkv": [_c_void_p] * 10 + [_c_int] * 8
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
-    # q, k, v, kinfo, qrange, krange, out, lse, H, Hkv, Tq, Tk, D,
+    # q, k, v, kinfo, qrange, krange, cls, out, lse, H, Hkv, Tq, Tk, D,
     # strides[12], scale, causal, dtype, stream
-    "ptt_varlen_fwd": [_c_void_p] * 8 + [_c_int] * 5
+    "ptt_varlen_fwd": [_c_void_p] * 9 + [_c_int] * 5
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # kinfo, cls, Tq, Tk, causal, stream
+    "ptt_varlen_tile_classes": [_c_void_p] * 2 + [_c_int] * 3 + [_c_void_p],
     # q, k, v, kinfo, qrange, krange, dout, lse, delta, dq, H, Hkv, Tq, Tk,
     # D, strides[12], scale, causal, dtype, stream
     "ptt_varlen_bwd_dq": [_c_void_p] * 10 + [_c_int] * 5

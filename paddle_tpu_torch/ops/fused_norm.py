@@ -6,9 +6,11 @@ statistics and an optional weight/bias [N], differentiably: they go through
 Its forward is `norm_fwd`, its backward `norm_bwd_dx` for dx plus torch
 reductions in f32 for dweight and dbias (jnp reductions in the JAX package,
 `fused_norm.py:288-295`). On a CUDA tensor `norm_fwd` and `norm_bwd_dx`
-launch the kernels of `csrc/fused_norm.cu` (one block per row, the row read
-from HBM once); on a CPU tensor they run `norm_fwd_plain` and
-`norm_bwd_dx_plain`, the same arithmetic in plain PyTorch. `LAUNCHES` counts
+launch the kernels of `csrc/fused_norm.cu` (the forward: a group of threads
+a row, the row read from HBM once into registers; rows wider than 8192
+elements one block a row; dx: one block a row); on a CPU tensor they run
+`norm_fwd_plain` and `norm_bwd_dx_plain`, the same arithmetic in plain
+PyTorch. `LAUNCHES` counts
 forward kernel launches and `DX_LAUNCHES` dx kernel launches.
 """
 

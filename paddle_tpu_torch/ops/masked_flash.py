@@ -64,9 +64,15 @@ kernel). `varlen_layout` turns cu_seqlens into what the kernels read, with
 torch ops on the device and no host sync: per key its segment's q-row
 range and the offset cu_q - cu_k (the keep test), and per 64-row tile the
 key range of a q tile and the q-row range of a key tile (the tiles each CTA
-visits). Three kernels of `csrc/varlen_flash.cu` (the tile kernels of
-`csrc/flash_tiles.cuh` under the varlen policy), each beside its plain
-version and its launch counter:
+visits). Three kernels of `csrc/varlen_flash.cu` under the varlen policy:
+in bf16 the forward is the wgmma kernel of `csrc/flash_fwd_sm90.cuh`,
+which takes q, k, v through `ops.flash_attention.tma_operands` and reads
+the tile classes (per 128-row q tile and 128-key kv tile: skipped, full
+or partial, from per-tile min/max of the keys' segment ranges) that the
+same entry derives just before it with `varlen_classes_kernel`
+(`varlen_tile_classes`; plain: `varlen_tile_classes_plain`); the f32
+forward and both backwards are the tile kernels of `csrc/flash_tiles.cuh`.
+Each sits beside its plain version and its launch counter:
 
 - `varlen_fwd` → (O, LSE [H, Tq]): `varlen_fwd_plain`; `VL_FWD_LAUNCHES`;
 - `varlen_bwd_dq` → dQ: `varlen_bwd_dq_plain`; `VL_DQ_LAUNCHES`;
@@ -96,7 +102,8 @@ __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES",
            "flashmask_keep", "flashmask_tile_classes", "varlen_bwd_dkv", "varlen_bwd_dkv_plain",
            "varlen_bwd_dq", "varlen_bwd_dq_plain",
            "varlen_flash_attention_fwd", "varlen_fwd", "varlen_fwd_plain",
-           "varlen_keep", "varlen_layout"]
+           "varlen_keep", "varlen_layout", "varlen_tile_classes",
+           "varlen_tile_classes_plain"]
 
 # kernel launches since import (or since a caller reset them)
 FWD_LAUNCHES = 0
@@ -489,6 +496,59 @@ def varlen_keep(layout, Tq, causal):
     return keep
 
 
+def varlen_tile_classes_plain(layout, Tq, Tk, causal, tile=SM90_TILE):
+    """uint8 [ceil(Tq / tile), ceil(Tk / tile)]: the class of each (q tile,
+    kv tile) of a pack under `layout`, by torch ops on the layout's device
+    (no host sync), from the min and max over the tile's keys of the first
+    q row of their segment (lo), one past its last (hi) and, causal, the
+    first row that sees them (c + cu_q[s] - cu_k[s]). For the q tile's rows
+    [r0, r1), r1 clamped to Tq: SKIP_TILE where r1 <= min lo, r0 >= max hi
+    or (causal) r1 - 1 < min(c + off); FULL_TILE where max lo <= r0,
+    r1 <= min hi, (causal) r0 >= max(c + off) and no key is past Tk;
+    PARTIAL_TILE otherwise. Both tests are sufficient conditions: a tile
+    they cannot decide (one that straddles a document edge, say) is
+    partial, where the kernel applies the keep test to each pair."""
+    lo, hi, off = layout.kinfo.long()
+    dev = lo.device
+    nq, nk = -(-Tq // tile), -(-Tk // tile)
+    if nk == 0:
+        return torch.zeros(nq, 0, dtype=torch.uint8, device=dev)
+    keys = torch.stack([lo, hi, torch.arange(Tk, device=dev) + off])
+    pad = nk * tile - Tk
+    if pad:  # copies of the last key leave the last tile's min and max as they are
+        keys = torch.cat([keys, keys[:, -1:].expand(3, pad)], 1)
+    (lo_min, hi_min, first_min), (lo_max, hi_max, first_max) = torch.aminmax(
+        keys.reshape(3, nk, tile), dim=-1)
+    r0 = torch.arange(0, nq * tile, tile, device=dev)[:, None]
+    r1 = (r0 + tile).clamp_(max=Tq)  # [nq, 1]: a q tile's rows [r0, r1)
+    skip = (r1 <= lo_min) | (r0 >= hi_max)
+    full = (lo_max <= r0) & (r1 <= hi_min)
+    if causal:
+        skip |= r1 - 1 < first_min
+        full &= r0 >= first_max
+    if pad:
+        full[:, -1] = False
+    return (full.to(torch.uint8) + FULL_TILE - PARTIAL_TILE
+            ).masked_fill_(skip, SKIP_TILE)
+
+
+def varlen_tile_classes(layout, Tq, Tk, causal, tile=SM90_TILE):
+    """`varlen_tile_classes_plain`'s classes. A CPU layout runs it; a CUDA
+    one launches `varlen_classes_kernel` (128-row tiles only), the kernel
+    the bf16 `varlen_fwd` runs before the forward in the same entry."""
+    if layout.kinfo.device.type == "cpu":
+        return varlen_tile_classes_plain(layout, Tq, Tk, causal, tile)
+    if tile != SM90_TILE:
+        raise ValueError(f"the tile classes kernel has {SM90_TILE}-row tiles")
+    cls = torch.empty(-(-Tq // tile), -(-Tk // tile), dtype=torch.uint8,
+                      device=layout.kinfo.device)
+    err = _build.load_library().ptt_varlen_tile_classes(
+        layout.kinfo.data_ptr(), cls.data_ptr(), Tq, Tk, int(bool(causal)),
+        _stream(layout.kinfo))
+    _build.check(err, "ptt_varlen_tile_classes")
+    return cls
+
+
 def _by_kv_head(fn, q, k, v, layout, causal, *rest):
     """`fn(q_j, k_j, v_j, keep, *rest_j)` for each kv head j and the g
     query heads it serves, the results joined over the heads: the plain
@@ -571,26 +631,32 @@ def _stream(t):
 def varlen_fwd(q, k, v, layout, causal, scale):
     """(O [Tq, H, D] in q's dtype, LSE [H, Tq] f32) over the packed
     segments of `layout`. CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernels (bf16: the tile classes of the layout, then the
+    forward on them)."""
     global VL_FWD_LAUNCHES
     _vl_check(q, k, v, layout)
     if q.device.type == "cpu":
         return varlen_fwd_plain(q, k, v, layout, causal, scale)
-    q4, k4, v4, _, strides = _vl_operands(q, k, v)
     Tq, H, D = q.shape
     Tk, Hkv = k.shape[0], k.shape[1]
-    out = torch.empty(Tq, H, D, device=q.device, dtype=q.dtype)
-    lse = torch.empty(H, Tq, device=q.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out, lse
+    q4, k4, v4, _, strides, d = _fwd_operands(q[None], k[None], v[None], None)
+    out, lse = _fwd_outputs(q4, Tq, H, d)
+    if out.numel() == 0 or Tk == 0:
+        out, lse = _fwd_result(out, lse, D, Tk)
+        return out[0], lse[0]
+    cls = (torch.empty(-(-Tq // SM90_TILE), -(-Tk // SM90_TILE),
+                       dtype=torch.uint8, device=q.device)
+           if q.dtype == torch.bfloat16 else None)  # written by the entry
     err = _build.load_library().ptt_varlen_fwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
-        layout.qrange.data_ptr(), layout.krange.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), H, Hkv, Tq, Tk, D, strides, float(scale),
-        int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+        layout.qrange.data_ptr(), layout.krange.data_ptr(), _ptr(cls),
+        out.data_ptr(), lse.data_ptr(), H, Hkv, Tq, Tk, d, strides,
+        float(scale), int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
+        _stream(q))
     _build.check(err, "ptt_varlen_fwd")
     VL_FWD_LAUNCHES += 1
-    return out, lse
+    out, lse = _fwd_result(out, lse, D, Tk)
+    return out[0], lse[0]
 
 
 def varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale):
