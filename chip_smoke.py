@@ -9,8 +9,8 @@ Phases; any failure raises and the script exits non-zero:
                 process per source, in parallel), load it. The Hopper
                 kernels' instantiations, one line each for the bf16
                 attention forward (flash, flashmask and varlen at head dims
-                64 and 128), the bf16 backward (dQ and dK/dV of flash and
-                flashmask at 64 and 128) and the bf16 grouped GEMM
+                64 and 128), the bf16 backward (dQ and dK/dV of flash,
+                flashmask and varlen at 64 and 128) and the bf16 grouped GEMM
                 (weights read as they are and transposed): registers and
                 spills from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
                 instructions from `cuobjdump -sass`; none may spill or
@@ -58,7 +58,10 @@ Phases; any failure raises and the script exits non-zero:
                 and dk/dv (a pack of 8192 tokens in 8 causal documents at
                 32/8 heads of 128; non-causal at T = 1000 in f32, causal
                 cross attention with q lengths != k lengths, an empty k
-                segment in f32 and in bf16, a one-tile pack).
+                segment in f32 and in bf16, a one-tile pack; the backward
+                kernels read the tile classes the forward derives, and the
+                keys whose document starts in the second 64 of a 128-key
+                dK/dV tile are held on their own).
 2b. faults    — the kernels built again from copies of csrc/, each with
                 one planted fault (a kv or q tile skipped, long rows
                 normalised 1% off; the flash backward's q steps without
@@ -69,12 +72,13 @@ Phases; any failure raises and the script exits non-zero:
                 every head reading mask head 0, and in the bf16 backward
                 a q tile's last kv tile skipped in dQ, a partial tile
                 treated as full and a kv head's group of query heads one
-                short in dK/dV; varlen: each q tile's first kv tile skipped, the
-                segment test's upper bound dropped, in the sm90 forward a
-                partial tile read as full and the loop one kv tile short,
-                the tile classes' last kv tile full past Tk,
-                and in the WMMA backward a q tile's last kv tile skipped
-                in dQ and the last q tile skipped in dK/dV; norm forward:
+                short in dK/dV; varlen: each q tile's first kv tile skipped
+                (f32), the segment test's upper bound dropped, in the sm90
+                kernels a partial tile read as full and the forward's and
+                dQ's loop one kv tile short, the tile classes' last kv tile
+                full past Tk, and in the sm90 dK/dV a CTA's q steps ending
+                at its first 64 keys' range and each key tile's first q
+                step one step late; norm forward:
                 the cross-warp sum without the group's last warp, the
                 scalar tail skipped; grouped GEMM: a partly
                 live 64-row unit treated as dead, a tile's second unit
@@ -83,6 +87,11 @@ Phases; any failure raises and the script exits non-zero:
                 S_max instead of the length): at its case every one must
                 fail the limits of phase 2. Only the sources a fault
                 touches are compiled again.
+2c. clocks    — the varlen dQ and dK/dV at the path's shape rebuilt with
+                a time stamp at each CTA's start and end: the SMs' busy
+                share, the idle tail, and the durations replayed in launch
+                order and longest first; dK/dV in its order by class count
+                and in key-tile order.
 3. serve      — gpt3_1p3b at full width and depth in bf16, random weights
                 from a seed, through inference.create_serving_engine (paged,
                 16 rows, 512 tokens, page size 32) over 12 requests of the
@@ -166,7 +175,8 @@ Phases; any failure raises and the script exits non-zero:
                 phase 2's main varlen case: one launch of each varlen
                 kernel, output and q/k/v gradients within phase 2's limits
                 of the plain path on the card; then the same tokens through
-                flash_attn_varlen_qkvpacked(varlen_padded=False).
+                flash_attn_varlen_qkvpacked(varlen_padded=False). Each
+                entry's forward and forward + backward are timed eagerly.
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Every number printed sits beside the
@@ -358,15 +368,15 @@ SM90_KERNEL = re.compile(
     r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E.*?(CausalBias|FlashMask|Varlen)")
 SM90_GG_KERNEL = re.compile(r"(gg_sm90_kernel)ILb([01])E")
 # the Hopper kernels' instantiations chip_smoke.py expects: the bf16
-# forward (csrc/flash_fwd_sm90.cuh) of flash, flashmask and varlen and the
-# bf16 dQ and dK/dV (csrc/flash_bwd_sm90.cuh) of flash and flashmask, at
-# head dims 64 and 128, and the bf16 grouped GEMM
+# forward (csrc/flash_fwd_sm90.cuh) and the bf16 dQ and dK/dV
+# (csrc/flash_bwd_sm90.cuh) of flash, flashmask and varlen, at head dims 64
+# and 128, and the bf16 grouped GEMM
 # (csrc/grouped_gemm_sm90.cuh) against [E, K, N] weights (false) and
 # transposed [E, N, K] ones (true)
 SM90_EXPECTED = {
     "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>"
                 for m in ("CausalBias", "FlashMask", "Varlen") for d in (64, 128)],
-    "backward": [f"{k}<{d}, {m}>" for m in ("CausalBias", "FlashMask")
+    "backward": [f"{k}<{d}, {m}>" for m in ("CausalBias", "FlashMask", "Varlen")
                  for k in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
                  for d in (64, 128)],
     "grouped_gemm": [f"gg_sm90_kernel<{t}>" for t in ("false", "true")],
@@ -1759,16 +1769,27 @@ def _varlen_inputs(torch, gen, name):
     return q, k, v, dout, layout, cu_q, cu_k, causal, dtype
 
 
-def _varlen_outputs(mf, q, k, v, dout, layout, causal, scale):
-    """As `_flash_outputs`, for the varlen kernels."""
+def _varlen_classes(mf, torch, q, k, layout, causal):
+    """The tile classes the bf16 kernels read (None in f32), derived once
+    by the kernel the forward's entry runs, as VarlenAttention keeps the
+    forward's for its backward."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return mf.varlen_tile_classes(layout, q.shape[0], k.shape[0], causal)
+
+
+def _varlen_outputs(mf, q, k, v, dout, layout, causal, scale, cls):
+    """As `_flash_outputs`, for the varlen kernels; the backward kernels
+    read the tile classes `cls`."""
     out, lse = mf.varlen_fwd(q, k, v, layout, causal, scale)
     out_p, lse_p = mf.varlen_fwd_plain(q, k, v, layout, causal, scale)
     delta = (dout.float() * out_p.float()).sum(-1).transpose(0, 1).contiguous()
-    dq = mf.varlen_bwd_dq(q, k, v, layout, dout, lse_p, delta, causal, scale)
+    dq = mf.varlen_bwd_dq(q, k, v, layout, dout, lse_p, delta, causal, scale,
+                          cls)
     dq_p = mf.varlen_bwd_dq_plain(q, k, v, layout, dout, lse_p, delta, causal,
                                   scale)
     dk, dv = mf.varlen_bwd_dkv(q, k, v, layout, dout, lse_p, delta, causal,
-                               scale)
+                               scale, cls)
     dk_p, dv_p = mf.varlen_bwd_dkv_plain(q, k, v, layout, dout, lse_p, delta,
                                          causal, scale)
     return ({"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv},
@@ -1787,6 +1808,17 @@ def _varlen_class_violations(torch, mf, name, layout, Tq, Tk, causal):
             "from the plain version's"] if wrong else []
 
 
+def _second_half_keys(torch, layout, Tk):
+    """bool [Tk]: the keys in the second 64 of a 128-key tile whose 64-key
+    tile is seen by q rows past the first 64 keys' last q step (a document
+    that starts there): the dK/dV kernel reaches those rows only through
+    the CTA-wide `q_tiles(p, k0, 128)`."""
+    end = (layout.krange[1].long() + 63) // 64  # each 64-key tile's q-step end
+    t = torch.arange(end.numel(), device=end.device)
+    late = (t % 2 == 1) & (end > end[(t - 1).clamp_min(0)])
+    return late.repeat_interleave(64)[:Tk]
+
+
 def check_varlen(card, torch):
     """Varlen forward, dq and dk/dv kernels against their plain versions on
     the same inputs (the backward kernels get the plain forward's LSE and
@@ -1803,7 +1835,11 @@ def check_varlen(card, torch):
     part of `ms`). The operation bound counts the pairs the segments
     keep. Library: torch scaled_dot_product_attention on the main
     case with k and v expanded to the query heads and the keep-mask as a
-    bool [T, T] attn_mask (block-diagonal, causal within each block)."""
+    bool [T, T] attn_mask (block-diagonal, causal within each block).
+    The bf16 dq and dk/dv run the sm90 backward on the forward's classes;
+    the keys whose document starts in the second 64 of a 128-key dK/dV
+    tile (`_second_half_keys`) are held on their own too, and
+    cross_causal_gqa must have some."""
     from paddle_tpu_torch.ops import masked_flash as mf
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -1813,8 +1849,9 @@ def check_varlen(card, torch):
         q, k, v, dout, layout, cu_q, cu_k, causal, dtype = _varlen_inputs(
             torch, gen, name)
         scale = D ** -0.5
+        cls = _varlen_classes(mf, torch, q, k, layout, causal)
         got, plain, delta = _varlen_outputs(mf, q, k, v, dout, layout, causal,
-                                            scale)
+                                            scale, cls)
         torch.cuda.synchronize()
         errs = _flash_errs(got, plain)
         failures += [f"varlen {name}: {b}"
@@ -1828,6 +1865,18 @@ def check_varlen(card, torch):
         Tq, Tk = q.shape[0], k.shape[0]
         failures += _varlen_class_violations(torch, mf, name, layout, Tq, Tk,
                                              causal)
+        late = _second_half_keys(torch, layout, Tk)
+        n_late = int(late.sum())
+        if n_late:
+            late_errs = {w: _flash_err(got[w][late], plain[w][late])
+                         for w in ("dk", "dv")}
+            say(card, f"varlen {name} second-half keys " + json.dumps(
+                {"keys": n_late, "errs": late_errs}))
+            failures += [f"varlen {name} second-half keys: {b}"
+                         for b in _flash_violations(late_errs, dtype)]
+        elif name == "cross_causal_gqa":
+            failures.append("varlen cross_causal_gqa: no document starts in "
+                            "the second half of a 128-key tile")
         keep = mf.varlen_keep(layout, Tq, causal)
         pairs = int(keep.sum()) * H
         es = q.element_size()
@@ -1842,16 +1891,16 @@ def check_varlen(card, torch):
                     2 * qo + 2 * kv + stats + lay, 4 * pairs * D,
                     ("out", "lse")),
             "dq": (lambda: mf.varlen_bwd_dq(q, k, v, layout, dout, lse_p,
-                                            delta, causal, scale),
+                                            delta, causal, scale, cls),
                    lambda: mf.varlen_bwd_dq_plain(q, k, v, layout, dout, lse_p,
                                                   delta, causal, scale),
                    3 * qo + 2 * kv + 2 * stats + lay, 6 * pairs * D, ("dq",)),
             "dkv": (lambda: mf.varlen_bwd_dkv(q, k, v, layout, dout, lse_p,
-                                              delta, causal, scale),
+                                              delta, causal, scale, cls),
                     lambda: mf.varlen_bwd_dkv_plain(q, k, v, layout, dout,
                                                     lse_p, delta, causal,
                                                     scale),
-                    2 * qo + 2 * kv + 2 * stats + lay + 2 * Tk * H * D * 4,
+                    2 * qo + 2 * kv + 2 * stats + lay + 2 * Tk * Hkv * D * 4,
                     8 * pairs * D, ("dk", "dv")),
         }
         lib = {}
@@ -1862,7 +1911,8 @@ def check_varlen(card, torch):
                       lengths_q=np.diff(cu_q.tolist()).tolist()
                       if cu_q.numel() <= 9 else None,
                       H=H, Hkv=Hkv, D=D, causal=causal, dtype=dtype,
-                      pairs=pairs, rows_without_keys=n_empty)
+                      pairs=pairs, rows_without_keys=n_empty,
+                      second_half_keys=n_late)
         for kernel, (fn_k, fn_p, nbytes, ops, outs) in rows.items():
             bnd, by = bound_ms(nbytes, ops, dtype)
             err = max(errs[o][0] if o != "lse" else errs[o] for o in outs)
@@ -1904,8 +1954,11 @@ def check_varlen(card, torch):
 # <R>x<N> <kind> <dtype>" (a NORM_CASES shape, offset 0) or a
 # FLASHMASK_CASES name). They follow the kernels'
 # code: a change there that moves the replaced text must move these with
-# it. The WMMA dQ and dK/dV of flash_tiles.cuh run only varlen's bf16
-# backward.
+# it. The `Varlen` policy's faults reach every kernel that reads what they
+# change: `first_kv_tile` only the f32 kernels (so its case is f32),
+# `keep`, `tile_class` and the 128-row `kv_tiles` the sm90 forward and
+# the sm90 dQ and dK/dV (or dQ alone), `first_q_tile` and the CTA-wide
+# `q_tiles(p, k0, bn)` the sm90 dK/dV.
 KERNEL_FAULTS = {
     "fwd: q tiles past the first skip their last kv tile": (
         "flash_fwd_sm90.cuh", "flash_fwd_sm90_kernel(",
@@ -1917,12 +1970,6 @@ KERNEL_FAULTS = {
     "flashmask fwd: a partial tile treated as full": (
         "masked_flash.cu", "tile_class(", "return c;",
         "return c == kPartialTile ? kFullTile : c;", "causal_n1_docs"),
-    "dq: q tiles past the first skip their last kv tile": (
-        "flash_tiles.cuh", "flash_dq_tc_kernel(", "t < n_kv;",
-        "t < n_kv - (q0 > 0);", "varlen path"),
-    "dk/dv: the last q tile skipped": (
-        "flash_tiles.cuh", "flash_dkv_tc_kernel(", "t < n_q;", "t < n_q - 1;",
-        "varlen path"),
     "flash bwd: first_q_tile without the bottom-right offset": (
         "flash_attention.cu", "struct CausalBias",
         "const int first = k0 - (p.Skv - p.Sq);", "const int first = k0;",
@@ -1953,7 +2000,7 @@ KERNEL_FAULTS = {
         "h1 = h0 + p.g - 1;", "causal_n2_per_head_s1000_gqa"),
     "varlen: each q tile's first kv tile skipped": (
         "varlen_flash.cu", "struct Varlen", "return qrange[q0 / kTile] / kTile;",
-        "return qrange[q0 / kTile] / kTile + 1;", "varlen path"),
+        "return qrange[q0 / kTile] / kTile + 1;", "varlen full_docs_t1000_f32_d64"),
     "varlen: the segment test's upper bound dropped": (
         "varlen_flash.cu", "struct Varlen", "row >= k.lo && row < k.hi",
         "row >= k.lo", "varlen path"),
@@ -1968,6 +2015,13 @@ KERNEL_FAULTS = {
         "varlen_flash.cu", "int kv_tiles(const Problem&, int q0, int bm, int bn)",
         "return (end + bn - 1) / bn;", "return (end + bn - 1) / bn - 1;",
         "varlen path"),
+    "varlen dk/dv: a CTA's q steps end at its first 64 keys' range": (
+        "varlen_flash.cu", "int q_tiles(const Problem&, int k0, int bn)",
+        "t < min((k0 + bn) / kTile, n_kt);", "t < min(k0 / kTile + 1, n_kt);",
+        "varlen cross_causal_gqa"),
+    "varlen dk/dv: each key tile's first q step one step late": (
+        "varlen_flash.cu", "int first_q_tile(", "return krange[k0 / kTile] / kTile;",
+        "return krange[k0 / kTile] / kTile + 1;", "varlen path"),
     "norm fwd: the cross-warp sum drops the group's last warp": (
         "fused_norm.cu", "float group_sum(", "w < gw;", "w < gw - 1;",
         "norm 8192x2048 ln float32"),
@@ -2024,8 +2078,9 @@ def _fault_violations(torch, case):
         gen = torch.Generator(device="cuda").manual_seed(13)
         q, k, v, dout, layout, _, _, causal, dtype = _varlen_inputs(
             torch, gen, name)
-        got, plain, _ = _varlen_outputs(mf, q, k, v, dout, layout, causal,
-                                        q.shape[-1] ** -0.5)
+        got, plain, _ = _varlen_outputs(
+            mf, q, k, v, dout, layout, causal, q.shape[-1] ** -0.5,
+            _varlen_classes(mf, torch, q, k, layout, causal))
         return _varlen_class_violations(
             torch, mf, name, layout, q.shape[0], k.shape[0], causal
         ) + _flash_violations(_flash_errs(got, plain), dtype)
@@ -2101,6 +2156,148 @@ def planted_kernel_faults(card, torch):
             _build._LIB = sound
     if passed:
         raise AssertionError(f"the kernel limits pass faulty kernels: {passed}")
+
+
+# Per-CTA clocks (phase 2c): the varlen dQ and dK/dV kernels rebuilt from a
+# copy of csrc/ in which thread 0 of each CTA stamps %globaltimer at its
+# start and end, with its %smid, and an entry point that copies the stamps
+# out. CTA_CLOCK_ORDERS: the dK/dV CTAs' order as built (the policy's
+# `key_tile`) and in key-tile order (`key_tile` returning z).
+CTA_CLOCK_STAMP = """
+__device__ unsigned long long g_cta_clock[4 * 8192];
+__device__ __forceinline__ void cta_clock(int slot) {
+  if (threadIdx.x != 0) return;
+  unsigned long long t;
+  unsigned sm;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  const int cta = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  g_cta_clock[4 * cta + slot] = t;
+  if (slot == 0) g_cta_clock[4 * cta + 2] = sm;
+}
+"""
+CTA_CLOCK_ORDERS = {
+    "by class count": None,
+    "by key tile": ("int key_tile(int z) const { return order[z]; }",
+                    "int key_tile(int z) const { return z; }"),
+}
+
+
+def _stamped_csrc(csrc, order):
+    """csrc/ with the sm90 backward's CTAs stamped (CTA_CLOCK_STAMP) and
+    `ptt_cta_clocks(out, n)` in varlen_flash.cu; `order` an (old, new)
+    replacement in varlen_flash.cu or None."""
+    f = csrc / "flash_bwd_sm90.cuh"
+    s = f.read_text()
+    s = s.replace("constexpr int kStep = 64;", CTA_CLOCK_STAMP + "constexpr int kStep = 64;", 1)
+    for kern, call in (("flash_bwd_dq_sm90_kernel(", "  dq_consume<DT>("),
+                       ("flash_bwd_dkv_sm90_kernel(", "  dkv_consume<DT>(")):
+        at = s.index("  using L = ", s.index(kern))
+        s = s[:at] + "  cta_clock(0);\n" + s[at:]
+        end = s.index(";\n", s.index(call, at)) + 2
+        s = s[:end] + "  __syncthreads();\n  cta_clock(1);\n" + s[end:]
+    f.write_text(s)
+    v = csrc / "varlen_flash.cu"
+    s = v.read_text()
+    if order:
+        if order[0] not in s:
+            raise RuntimeError(f"varlen_flash.cu has no {order[0]!r} to replace")
+        s = s.replace(order[0], order[1], 1)
+    v.write_text(s + """
+extern "C" int ptt_cta_clocks(void* out, int n) {
+  return cudaMemcpyFromSymbol(out, sm90::g_cta_clock, n * sizeof(unsigned long long));
+}
+""")
+
+
+def _greedy(durations, n_sm):
+    """The makespan of CTAs of these durations dispatched in this order,
+    each to the SM that frees first (one CTA an SM)."""
+    free = np.zeros(n_sm)
+    for d in durations:
+        free[free.argmin()] += d
+    return float(free.max())
+
+
+def varlen_cta_clocks(card, torch):
+    """Phase 2c: per-CTA clocks of the varlen dQ and dK/dV at the path's
+    shape, for each order of CTA_CLOCK_ORDERS: the span from the first
+    CTA's start to the last one's end, the SMs' busy share of it, the mean
+    time an SM sits idle at the end, and the measured durations replayed
+    on the card's SMs in launch order and longest first (what any order
+    could reach) beside their sum over the SMs (no idle time)."""
+    import ctypes
+    import pathlib
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import masked_flash as mf
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, dout, layout, _, _, causal, _ = _varlen_inputs(torch, gen, "path")
+    scale = q.shape[-1] ** -0.5
+    cls = _varlen_classes(mf, torch, q, k, layout, causal)
+    out, lse = mf.varlen_fwd_plain(q, k, v, layout, causal, scale)
+    delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_kt = -(-k.shape[0] // 128)
+    runs = {
+        "dkv": (lambda: mf.varlen_bwd_dkv(q, k, v, layout, dout, lse, delta,
+                                          causal, scale, cls), k.shape[1] * n_kt),
+        "dq": (lambda: mf.varlen_bwd_dq(q, k, v, layout, dout, lse, delta,
+                                        causal, scale, cls),
+               q.shape[1] * -(-q.shape[0] // 128)),
+    }
+    sound = _build.load_library()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            csrcs = {}
+            for i, (name, order) in enumerate(CTA_CLOCK_ORDERS.items()):
+                csrc = pathlib.Path(tmp) / str(i) / "csrc"
+                shutil.copytree(_build.CSRC, csrc)
+                _stamped_csrc(csrc, order)
+                csrcs[name] = csrc
+            with ThreadPoolExecutor(len(csrcs)) as pool:
+                libs = dict(zip(csrcs, pool.map(
+                    lambda c: _build.build_library(c, c.parent / "build",
+                                                   _build.BUILD_DIR / "obj"),
+                    csrcs.values())))
+            for name, lib in libs.items():
+                _build._LIB = _build.open_library(lib)
+                _build._LIB.ptt_cta_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                for kernel, (fn, n_cta) in runs.items():
+                    if kernel == "dq" and name != "by class count":
+                        continue  # the order is dK/dV's alone
+                    spans, r = [], None
+                    for _ in range(4):
+                        fn()
+                        torch.cuda.synchronize()
+                        buf = (ctypes.c_ulonglong * (4 * n_cta))()
+                        _build.check(_build._LIB.ptt_cta_clocks(buf, 4 * n_cta),
+                                     "ptt_cta_clocks")
+                        r = np.frombuffer(buf, dtype=np.uint64).reshape(
+                            n_cta, 4)[:, :3].astype(np.int64)
+                        spans.append(float(r[:, 1].max() - r[:, 0].min()) / 1e3)
+                    start, end = r[:, 0] - r[:, 0].min(), r[:, 1] - r[:, 0].min()
+                    dur, span = end - start, float(end.max())
+                    last = np.array([end[r[:, 2] == i].max()
+                                     for i in np.unique(r[:, 2])])
+                    say(card, f"cta clocks varlen {kernel} {name} " + json.dumps({
+                        "ctas": n_cta, "sms": int(len(last)),
+                        "span_us": spans, "busy_share": float(dur.sum()) / (n_sm * span),
+                        "mean_idle_tail_us": float((span - last).mean()) / 1e3,
+                        "cta_us": {"min": float(dur.min()) / 1e3,
+                                   "median": float(np.median(dur)) / 1e3,
+                                   "max": float(dur.max()) / 1e3},
+                        "replay_launch_order_us": _greedy(dur, n_sm) / 1e3,
+                        "replay_longest_first_us": _greedy(np.sort(dur)[::-1], n_sm) / 1e3,
+                        "no_idle_us": float(dur.sum()) / n_sm / 1e3}))
+    finally:
+        _build._LIB = sound
+    del q, k, v, dout, out
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -3201,7 +3398,10 @@ def varlen_entry(card, torch):
     one forward, one dq and one dk/dv launch, the output and the q/k/v
     gradients within phase 2's limits of the plain path on the card. Then
     the same tokens as qkv [T, 3, 32, 128] (k and v expanded to the query
-    heads) through flash_attn_varlen_qkvpacked(varlen_padded=False)."""
+    heads) through flash_attn_varlen_qkvpacked(varlen_padded=False). After
+    the checked run, each entry's forward alone and its forward with the
+    backward through autograd are timed eagerly back to back (CUDA
+    events); `backward_ms` is their difference."""
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import masked_flash as mf
 
@@ -3219,8 +3419,7 @@ def varlen_entry(card, torch):
                                     scale)
         dk, dv = mf.varlen_bwd_dkv_plain(q, k, v, layout, dout, lse, delta,
                                          causal, scale)
-        dk, dv = mf._kv_grads(dk[None], dv[None], k[None], v[None])
-        return {"out": out, "dq": dq, "dk": dk[0], "dv": dv[0]}
+        return {"out": out, "dq": dq, "dk": dk.to(k.dtype), "dv": dv.to(v.dtype)}
 
     def entry(name, fn, leaves, plain):
         _zero_counters()
@@ -3236,12 +3435,23 @@ def varlen_entry(card, torch):
                "dv": grads[2]}
         errs = _flash_errs(got, plain)
         bad = _flash_violations(errs, dtype)
+
+        def fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves)[0].backward(dout)
+
+        with torch.no_grad():
+            fwd_ms = eager_ms(lambda: fn(*leaves), reps=5, inner=3)
+        both_ms = eager_ms(fwd_bwd, reps=5, inner=3)
         say(card, f"varlen {name} " + json.dumps({
             "Tq": q.shape[0], "documents": cu_q.numel() - 1, "H": q.shape[1],
             "D": D, "causal": causal, "dtype": dtype, "second": none,
             "row_rel_err": {w: e[1] for w, e in errs.items()},
             "frobenius_rel_err": {w: e[2] for w, e in errs.items()},
-            "tol": FLASH_TOL[dtype], "launches": launches}))
+            "tol": FLASH_TOL[dtype], "launches": launches,
+            "forward_ms": fwd_ms, "forward_backward_ms": both_ms,
+            "backward_ms": both_ms - fwd_ms}))
         if launches != want or bad or none is not None:
             raise AssertionError(f"varlen {name}: launches {launches} (expected "
                                  f"{want}), {bad}")
@@ -3298,6 +3508,7 @@ def main():
     grouped = check_grouped_gemm(card, torch)
     varlen = check_varlen(card, torch)
     planted_kernel_faults(card, torch)
+    varlen_cta_clocks(card, torch)
     serve_launches = serve(card, torch)
     hold(card, torch)
     quant_launches = serve_quant(card, torch)
@@ -3327,7 +3538,6 @@ def main():
     fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
     mf_src = "paddle_tpu_torch/csrc/masked_flash.cu"
     mf_ref = "paddle_tpu/ops/pallas/masked_flash.py"
-    vl_src = "paddle_tpu_torch/csrc/varlen_flash.cu"
     kernels = []
     for name, src, replaces, main_row, err in (
             ("fused_norm", "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -3361,9 +3571,9 @@ def main():
              grouped["worst"]),
             ("varlen_fwd", fwd_src, mf_ref + ":442", varlen["main"]["fwd"],
              varlen["worst"]["fwd"]),
-            ("varlen_bwd_dq", vl_src, mf_ref + ":490", varlen["main"]["dq"],
+            ("varlen_bwd_dq", bwd_src, mf_ref + ":490", varlen["main"]["dq"],
              varlen["worst"]["dq"]),
-            ("varlen_bwd_dkv", vl_src, mf_ref + ":529",
+            ("varlen_bwd_dkv", bwd_src, mf_ref + ":529",
              varlen["main"]["dkv"], varlen["worst"]["dkv"])):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

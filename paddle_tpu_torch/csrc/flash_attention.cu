@@ -80,6 +80,13 @@ struct CausalBias {
   __device__ __forceinline__ int q_tiles(const Problem& p, int) const {
     return (p.Sq + kTile - 1) / kTile;
   }
+  // the sm90 dK/dV's CTA of bn keys: the same
+  __device__ __forceinline__ int q_tiles(const Problem& p, int k0, int) const {
+    return q_tiles(p, k0);
+  }
+  // the sm90 dK/dV: CTAs in key-tile order, the lowest keys (seen by the
+  // most causal q steps) first
+  __device__ __forceinline__ int key_tile(int z) const { return z; }
 };
 
 }  // namespace
@@ -117,7 +124,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   const CausalBias m{static_cast<const float*>(kbias)};
   if (dtype == ptt::kBF16)
     return run_bwd_sm90(p, m, q, k, v, dout, lse, delta, dq, nullptr, nullptr, stream);
-  return run_dq<false>(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
+  return run_dq(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
 }
 
 // As ptt_flash_bwd_dq; writes dk, dv contiguous f32: in bfloat16 the kv
@@ -134,5 +141,5 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   const CausalBias m{static_cast<const float*>(kbias)};
   if (dtype == ptt::kBF16)
     return run_bwd_sm90(p, m, q, k, v, dout, lse, delta, nullptr, dk, dv, stream);
-  return run_dkv<false>(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
+  return run_dkv(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
 }

@@ -3,32 +3,38 @@
 // (flash_fwd_sm90.cuh) is, and reading the forward's 128 x 128 tile
 // classes.
 //
-// Replaces, for bfloat16 inputs, four TPU kernels (float32 keeps the
+// Replaces, for bfloat16 inputs, six TPU kernels (float32 keeps the
 // CUDA-core `flash_dq_kernel` and `flash_dkv_kernel` of flash_tiles.cuh):
 //   - paddle_tpu/ops/pallas/masked_flash.py `_fm_bwd_dq_kernel` :138
 //     (pallas_call :291): dQ = dS K;
 //   - paddle_tpu/ops/pallas/masked_flash.py `_fm_bwd_dkv_kernel` :182
 //     (pallas_call :311): dV = P^T dO and dK = dS^T Q;
 // under masked_flash.cu's `FlashMask` (top-left causal and the per-column
-// row ranges of `FlashMask::keep`), and
+// row ranges of `FlashMask::keep`);
 //   - paddle_tpu/ops/pallas/flash_attention.py `_bwd_dq_kernel` :332
 //     (pallas_call :528) and `_bwd_dkv_kernel` :406 (pallas_call :557);
 // under flash_attention.cu's `CausalBias` (bottom-right causal, whose
 // offset Skv - Sq need not be a multiple of a tile, and an additive key
-// bias read on every tile). P = exp(S - LSE) is
+// bias read on every tile); and
+//   - paddle_tpu/ops/pallas/masked_flash.py `_vl_bwd_dq_kernel` :490
+//     (pallas_call :680) and `_vl_bwd_dkv_kernel` :529 (pallas_call :695);
+// under varlen_flash.cu's `Varlen` (packed documents, top-left causal
+// within each). P = exp(S - LSE) is
 // recomputed from the forward's f32 LSE and dS = P (dO V^T - delta) scale,
 // delta = rowsum(dO O) in f32; P and dS are rounded to bf16 before their
-// products (as the TPU kernels cast p and ds to the operand type), every
-// sum is f32. A row that keeps no key has LSE = +inf: its P, dS and dQ are
+// products (as the TPU flash kernels cast p and ds to the operand type; the
+// TPU varlen kernels keep them in f32), every sum is f32. A row that keeps no key has LSE = +inf: its P, dS and dQ are
 // exactly 0. GQA: query head h reads kv head h / g (and the policy's mask
 // head).
 //
 // Bound on an H100: operations at 989 TFLOP/s (bf16 dense), dQ 6 D and
 // dK/dV 8 D per kept (row, key) pair: 0.209 and 0.278 ms at the LLaMA-7B
 // step's shape (masked_flash.cu), 0.104 and 0.139 ms at the gpt3_1p3b
-// step's (flash_attention.cu).
+// step's (flash_attention.cu), 0.280 and 0.374 ms at the varlen pack's
+// (varlen_flash.cu).
 //
-// Design (against the WMMA kernels of flash_tiles.cuh this replaced):
+// Design (against the WMMA kernels it replaced: 64 x 64 tiles, score tiles
+// through shared memory, synchronous loads, a CTA vote to skip a tile):
 //   1. Products on wgmma (sm90.cuh) from 64-column 128-byte-swizzled
 //      panels loaded by TMA. The score products are SS from K-major panels
 //      (dQ: S = Q K^T and dP = dO V^T, m64n128k16; dK/dV: S^T = K Q^T and
@@ -52,7 +58,8 @@
 //   5. dK/dV of a kv head: a CTA owns 128 keys of one kv head (64 a
 //      warpgroup), loads K and V once and loops over the g query heads of
 //      that kv head and, for each, the 64-row q steps that can see the
-//      keys (a step reads the class of the 128-row tile that holds it,
+//      keys, up to the policy's `q_tiles(p, k0, kBN)` over all 128 keys
+//      (a step reads the class of the 128-row tile that holds it,
 //      conservative for either half; a warpgroup skips the steps whose
 //      rows all precede its keys). Each step brings Q and dO through the
 //      ring, and each lane reads two rows' LSE and delta, which the quads
@@ -60,8 +67,11 @@
 //      so P^T and dS^T are the A operands of dV += P^T dO and
 //      dK += dS^T Q. The CTA writes its kv head's f32 dK and dV once: no
 //      atomics, the same bits every run, and g times fewer bytes than a
-//      slice per query head. The lowest key tiles, which the most q steps
-//      see under causality, launch first.
+//      slice per query head. The policy orders the CTAs (`key_tile`): flash
+//      and flashmask launch the lowest key tiles first, which the most q
+//      steps see under causality; varlen the key tiles with the most q
+//      tiles not skipped, so the longest CTAs of a pack's documents do not
+//      land in the last wave.
 //   6. dQ: a CTA owns 128 q rows of a head (64 a warpgroup), loads Q and
 //      dO once and streams the visited K/V tiles (K and V on their own
 //      barriers, so S starts before V lands); dQ += dS K takes the whole
@@ -427,7 +437,7 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
   const int col_off = 2 * (lane % 4);
   const bool active = key0 < p.Skv;  // uniform over the warpgroup
   const float sl2 = p.scale * kLog2e;
-  const int t0 = mask.first_q_tile(p, k0), n_q = mask.q_tiles(p, k0);
+  const int t0 = mask.first_q_tile(p, k0), n_q = mask.q_tiles(p, k0, kBN);
   const int t_wg = mask.first_q_tile(p, key0);  // the first q step that sees these keys
 
   // the current step (h, t) and the one kStages ahead (hl, tl), the
@@ -592,7 +602,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int hk = blockIdx.x, b = blockIdx.y;
   const int h0 = hk * p.g, h1 = h0 + p.g;  // the query heads of kv head hk
-  const int k0 = blockIdx.z * kBN;  // the lowest keys, seen by the most q steps, first
+  const int k0 = mask.key_tile(blockIdx.z) * kBN;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {

@@ -1,23 +1,21 @@
-// The tile kernels of flash attention for Hopper (sm_90a): forward, dQ and
-// dK/dV, each templated on a mask policy (see below) so that one set of
-// kernels serves three families of TPU kernels:
+// The float32 tile kernels of flash attention for Hopper (sm_90a), on the
+// CUDA cores: forward, dQ and dK/dV, each templated on a mask policy (see
+// below) so that one set of kernels serves three families of TPU kernels:
 //   - flash_attention.cu: paddle_tpu/ops/pallas/flash_attention.py's
 //     `_fwd_kernel` :127, `_bwd_dq_kernel` :332 and `_bwd_dkv_kernel` :406
-//     (bottom-right causal, an additive key bias), in float32 only;
+//     (bottom-right causal, an additive key bias);
 //   - masked_flash.cu: paddle_tpu/ops/pallas/masked_flash.py's flashmask
 //     `_fm_fwd_kernel` :77, `_fm_bwd_dq_kernel` :138 and
 //     `_fm_bwd_dkv_kernel` :182 (per-column masked row ranges, top-left
-//     causal, empty tiles skipped), in float32 only;
+//     causal, empty tiles skipped);
 //   - varlen_flash.cu: the same file's varlen `_vl_fwd_kernel` :442,
 //     `_vl_bwd_dq_kernel` :490 and `_vl_bwd_dkv_kernel` :529 (packed
 //     segments, causal top-left within a segment, a tile range per
-//     segment span): the forward in float32, dQ and dK/dV in float32 and
-//     bfloat16.
-// bfloat16 flash and flashmask run the Hopper kernels of
-// flash_fwd_sm90.cuh (forward) and flash_bwd_sm90.cuh (dQ, dK/dV) under the
-// same policies, and so does the bfloat16 varlen forward (flash_fwd_sm90.cuh);
-// varlen's bfloat16 dQ and dK/dV are the one user of this file's WMMA
-// kernels.
+//     segment span).
+// Every bfloat16 pass of the three runs the Hopper kernels of
+// flash_fwd_sm90.cuh (forward) and flash_bwd_sm90.cuh (dQ, dK/dV) under
+// the same policies; this file also holds what those share: `Problem`,
+// the policies' interface, `TileClass`, `launch` and `make_problem`.
 // What they compute:
 //   - forward: O = softmax(Q K^T * scale + mask) V and the f32 row
 //     log-sum-exp, GQA by kv head h / g;
@@ -32,11 +30,8 @@
 // with it every gradient through it, is exactly 0; a running max at or
 // below -5e29 counts as "no key seen".
 //
-// Bound on an H100: operations. At the training shape (B 4, S 2048, heads
-// of 128, causal, bf16) the forward does 4*B*H*D*(visible pairs) operations
-// against a few tens of MB of Q, K, V, O, so even at the bf16 tensor-core
-// rate (989 TFLOP/s) the arithmetic and not the 3.35 TB/s of HBM sets the
-// floor; dQ does 3 products per visible pair and dK/dV 4.
+// Bound on an H100: operations, 4 D (forward), 6 D (dQ) and 8 D (dK/dV)
+// per visible pair at the f32 CUDA-core rate (67 TFLOP/s).
 //
 // Design: one CTA per (64-row tile, head, batch). The TPU kernels'
 // sequential kv (or q) grid axis, which carried m/l/acc in VMEM scratch,
@@ -48,31 +43,16 @@
 // Each tile is read from HBM once into shared memory (through the
 // [B, S, H, D] strides, 16 bytes a thread where the layout allows, with the
 // ragged edge and any head dim below 64 or 128 zero-filled: no transpose
-// and no padded copy in HBM), then reused by 64 rows. Two forms of the
-// products, chosen by the input type:
-//   - bf16 (varlen's backward, `flash_dq_tc_kernel` and
-//     `flash_dkv_tc_kernel`; every bf16 forward and the bf16 backward of
-//     flash and flashmask run flash_fwd_sm90.cuh's and flash_bwd_sm90.cuh's
-//     wgmma kernels, fed by TMA): the tensor cores, through WMMA 16x16x16
-//     bf16 fragments with f32 accumulation, 4 warps of 16 rows each. A
-//     warp's 16x64 score tile goes to shared memory in f32, two lanes per
-//     row run the softmax (or its gradient) on it, and the probabilities
-//     (or dS) are rounded to bf16 for the next product, as the TPU kernel
-//     casts p and ds to the operand type before its second and third
-//     matmuls; row sums stay in f32. dQ, dK and dV accumulate in
-//     registers.
-//   - f32: register-tiled FMA on the CUDA cores, in full f32 (no TF32), 256
-//     threads: every thread owns 2 rows x 8 columns of the 64x64 score tile
-//     (columns cg + 8j, so the 8 threads of a row group read 8 consecutive
-//     smem rows and no two hit the same bank) and 2 rows x D/8 columns of
-//     the output; the row softmax reduces over the 8 lanes of a row group
-//     with shuffles and rescales its own accumulator in registers.
-// TMA and wgmma: flash_fwd_sm90.cuh and flash_bwd_sm90.cuh; these kernels
-// keep the synchronous loads.
+// and no padded copy in HBM), then reused by 64 rows. The products are
+// register-tiled FMA in full f32 (no TF32), 256 threads: every thread owns
+// 2 rows x 8 columns of the 64x64 score tile (columns cg + 8j, so the 8
+// threads of a row group read 8 consecutive smem rows and no two hit the
+// same bank) and 2 rows x D/8 columns of the output; the row softmax
+// reduces over the 8 lanes of a row group with shuffles and rescales its
+// own accumulator in registers.
 #pragma once
 
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -85,9 +65,9 @@ constexpr int kCg = 8;                     // column groups (threads per row gro
 constexpr int kThreads = (kTile / kRpt) * kCg;  // 256
 constexpr int kCols = kTile / kCg;         // score columns per thread
 constexpr int kLdp = kTile + 4;            // f32 row stride of P / dS tiles
-constexpr int kLdb = kTile + 8;            // bf16 row stride of P / dS tiles
-constexpr int kTcThreads = 128;            // tensor-core kernels: 4 warps x 16 rows
 constexpr float kEmpty = -5e29f;           // running max at or below: no key seen
+
+using bf16 = __nv_bfloat16;  // the sm90 kernels' operand type
 
 // smem row stride of a [64, DT] operand tile in elements: 16 extra bytes
 // keep rows 16-byte aligned and put consecutive rows 4 banks apart
@@ -225,13 +205,15 @@ struct Problem {
 //   - `kVote`: whether a tile whose keep-mask is empty is skipped after a
 //     CTA-wide vote (`any_kept`), for masks whose empty tiles the tile
 //     ranges above do not exclude.
-// The sm90 kernels (flash and flashmask: forward, dQ and dK/dV; varlen:
-// the forward) also read
+// The sm90 kernels (the forward, dQ and dK/dV of all three) also read
 //   - `int tile_class(p, b, h, q0, k0, bm, bn)`: a `TileClass` of the
 //     (q tile, kv tile): skipped (no pair kept; never loaded), full (every
 //     pair of real rows and columns kept: no predicate) or partial (keep()
 //     on every element); the dK/dV kernel asks it of 64-row q steps
 //     (q0 = t * 64, bm = 128);
+//   - `int q_tiles(p, k0, bn)`: the end of the 64-row q tiles that can
+//     see any key of [k0, k0 + bn), the dK/dV kernel's CTA;
+//   - `int key_tile(z)`: the 128-key tile of the dK/dV CTA launched z-th;
 //   - `bool has_bias()`: whether bias() is added on every tile.
 // flash_attention.cu holds the flash policy (bottom-right causal plus a
 // key bias), masked_flash.cu the flashmask column ranges, varlen_flash.cu
@@ -553,236 +535,6 @@ flash_dkv_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict
   }
 }
 
-// ------------------------------------------- bf16 on the tensor cores
-
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragBt = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragB = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-// S[16][64] (f32, row stride kLdp) = A[16][DT] . B[64][DT]^T, A and B
-// bf16 tiles with row stride Ld: the 16 rows of one warp against a tile
-template <int DT>
-__device__ __forceinline__ void tc_nt(const bf16* A, const bf16* B, float* S) {
-  constexpr int LD = Ld<bf16, DT>::value;
-  FragA a[DT / 16];
-#pragma unroll
-  for (int kk = 0; kk < DT / 16; ++kk) wm::load_matrix_sync(a[kk], A + kk * 16, LD);
-#pragma unroll
-  for (int j = 0; j < kTile / 16; ++j) {
-    FragC c;
-    wm::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DT / 16; ++kk) {
-      FragBt b;
-      wm::load_matrix_sync(b, B + j * 16 * LD + kk * 16, LD);
-      wm::mma_sync(c, a[kk], b, c);
-    }
-    wm::store_matrix_sync(S + j * 16, c, kLdp, wm::mem_row_major);
-  }
-}
-
-// acc[n] += P[16][64] . B[64][DT] (columns 16n..16n+15), P bf16 with row
-// stride kLdb, B a bf16 tile with row stride Ld
-template <int DT>
-__device__ __forceinline__ void tc_nn(const bf16* P, const bf16* B, FragC (&acc)[DT / 16]) {
-  constexpr int LD = Ld<bf16, DT>::value;
-  FragA a[kTile / 16];
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) wm::load_matrix_sync(a[kk], P + kk * 16, kLdb);
-#pragma unroll
-  for (int n = 0; n < DT / 16; ++n)
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragB b;
-      wm::load_matrix_sync(b, B + kk * 16 * LD + n * 16, LD);
-      wm::mma_sync(acc[n], a[kk], b, acc[n]);
-    }
-}
-
-// Write a warp's 16 rows of accumulators out as rows [row0, row0 + 16) of
-// a [rows, H, D] slab (row stride H*D, `out` at head h's column 0),
-// skipping rows >= n_rows and columns >= D; `stage` is this warp's 16 x
-// kLdp f32 scratch.
-template <int DT, typename TO>
-__device__ __forceinline__ void tc_store_rows(FragC (&acc)[DT / 16], float* stage, TO* out,
-                                              long long row_stride, int row0, int n_rows,
-                                              int D) {
-  const int lane = threadIdx.x & 31, r = lane >> 1, half = lane & 1;
-#pragma unroll
-  for (int n0 = 0; n0 < DT / 16; n0 += kTile / 16) {
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n)
-      wm::store_matrix_sync(stage + n * 16, acc[n0 + n], kLdp, wm::mem_row_major);
-    __syncwarp();
-    if (row0 + r < n_rows) {
-      TO* orow = out + (row0 + r) * row_stride;
-#pragma unroll 4
-      for (int i = 0; i < 32; ++i) {
-        const int c = half * 32 + i, d = n0 * 16 + c;
-        if (d < D) orow[d] = ptt::from_f32<TO>(stage[r * kLdp + c]);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-template <int DT, class M>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dq_tc_kernel(Problem p, M mask, const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dq) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = Ld<bf16, DT>::value;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Ks = dOs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
-  bf16* dSs = Vs + kTile * LD;                               // [64][kLdb]
-  float* Ss = reinterpret_cast<float*>(dSs + kTile * kLdb);  // [64][kLdp]
-  float* dPs = Ss + kTile * kLdp;                            // [64][kLdp]
-  auto* keys = reinterpret_cast<typename M::Key*>(dPs + kTile * kLdp);  // [64]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r = lane >> 1, half = lane & 1;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.g;
-  const bf16* kp = k + b * p.k.b + hk * p.k.h;
-  const bf16* vp = v + b * p.v.b + hk * p.v.h;
-  load_tile<bf16, DT, kTcThreads>(Qs, q + b * p.q.b + h * p.q.h, p.q.s, q0, p.Sq, p.D, p.vec);
-  load_tile<bf16, DT, kTcThreads>(dOs, dout + b * p.o.b + h * p.o.h, p.o.s, q0, p.Sq, p.D, p.vec);
-  const int lrow = warp * 16 + r;
-  const int row = q0 + lrow;
-  const long long at = ((long long)b * p.H + h) * p.Sq + row;
-  const float lse_r = row < p.Sq ? lse[at] : INFINITY;
-  const float delta_r = row < p.Sq ? delta[at] : 0.f;
-  FragC acc[DT / 16];
-#pragma unroll
-  for (int n = 0; n < DT / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-
-  const int n_kv = mask.kv_tiles(p, q0);
-  for (int t = mask.first_kv_tile(p, q0); t < n_kv; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile<bf16, DT, kTcThreads>(Ks, kp, p.k.s, k0, p.Skv, p.D, p.vec);
-    load_tile<bf16, DT, kTcThreads>(Vs, vp, p.v.s, k0, p.Skv, p.D, p.vec);
-    if (tid < kTile) keys[tid] = mask.key(p, b, h, k0 + tid);
-    __syncthreads();
-
-    if constexpr (M::kVote) {
-      bool mine = false;
-      for (int i = 0; i < 32; ++i) {
-        const int c = half * 32 + i;
-        mine |= mask.keep(p, row, k0 + c, keys[c]);
-      }
-      if (!any_kept(mine)) continue;
-    }
-
-    tc_nt<DT>(Qs + warp * 16 * LD, Ks, Ss + warp * 16 * kLdp);
-    tc_nt<DT>(dOs + warp * 16 * LD, Vs, dPs + warp * 16 * kLdp);
-    __syncwarp();
-    const float* Srow = Ss + lrow * kLdp;
-    const float* dProw = dPs + lrow * kLdp;
-    bf16* dSrow = dSs + lrow * kLdb;
-#pragma unroll 8
-    for (int i = 0; i < 32; ++i) {
-      const int c = half * 32 + i;
-      const float pr = mask.keep(p, row, k0 + c, keys[c]) ? expf(Srow[c] * p.scale + mask.bias(keys[c]) - lse_r) : 0.f;
-      dSrow[c] = __float2bfloat16(pr * (dProw[c] - delta_r) * p.scale);
-    }
-    __syncwarp();
-    tc_nn<DT>(dSs + warp * 16 * kLdb, Ks, acc);
-  }
-  tc_store_rows<DT>(acc, Ss + warp * 16 * kLdp,
-                    dq + ((long long)b * p.Sq * p.H + h) * p.D, (long long)p.H * p.D,
-                    q0 + warp * 16, p.Sq, p.D);
-}
-
-template <int DT, class M>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dkv_tc_kernel(Problem p, M mask, const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = Ld<bf16, DT>::value;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Qs = Vs + kTile * LD;
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Pt = dOs + kTile * LD;                             // [64 keys][kLdb]
-  bf16* dSt = Pt + kTile * kLdb;                           // [64 keys][kLdb]
-  float* St = reinterpret_cast<float*>(dSt + kTile * kLdb);  // [64 keys][kLdp]
-  float* dPt = St + kTile * kLdp;                          // [64 keys][kLdp]
-  float* lse_s = dPt + kTile * kLdp;                       // [64]
-  float* delta_s = lse_s + kTile;                          // [64]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r = lane >> 1, half = lane & 1;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.g;
-  load_tile<bf16, DT, kTcThreads>(Ks, k + b * p.k.b + hk * p.k.h, p.k.s, k0, p.Skv, p.D, p.vec);
-  load_tile<bf16, DT, kTcThreads>(Vs, v + b * p.v.b + hk * p.v.h, p.v.s, k0, p.Skv, p.D, p.vec);
-  const bf16* qp = q + b * p.q.b + h * p.q.h;
-  const bf16* op = dout + b * p.o.b + h * p.o.h;
-  const int lkey = warp * 16 + r;
-  const int key = k0 + lkey;
-  const typename M::Key kk = mask.key(p, b, h, key);
-  FragC dk_acc[DT / 16], dv_acc[DT / 16];
-#pragma unroll
-  for (int n = 0; n < DT / 16; ++n) {
-    wm::fill_fragment(dk_acc[n], 0.f);
-    wm::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  const int n_q = mask.q_tiles(p, k0);
-  for (int t = mask.first_q_tile(p, k0); t < n_q; ++t) {
-    const int q0 = t * kTile;
-    __syncthreads();
-    load_tile<bf16, DT, kTcThreads>(Qs, qp, p.q.s, q0, p.Sq, p.D, p.vec);
-    load_tile<bf16, DT, kTcThreads>(dOs, op, p.o.s, q0, p.Sq, p.D, p.vec);
-    if (tid < kTile) {
-      const int qrow = q0 + tid;
-      const long long at = ((long long)b * p.H + h) * p.Sq + qrow;
-      lse_s[tid] = qrow < p.Sq ? lse[at] : INFINITY;
-      delta_s[tid] = qrow < p.Sq ? delta[at] : 0.f;
-    }
-    __syncthreads();
-
-    if constexpr (M::kVote) {
-      bool mine = false;
-      for (int i = 0; i < 32; ++i) mine |= mask.keep(p, q0 + half * 32 + i, key, kk);
-      if (!any_kept(mine)) continue;
-    }
-
-    tc_nt<DT>(Ks + warp * 16 * LD, Qs, St + warp * 16 * kLdp);    // S^T: keys x q rows
-    tc_nt<DT>(Vs + warp * 16 * LD, dOs, dPt + warp * 16 * kLdp);  // dP^T
-    __syncwarp();
-    const float* Srow = St + lkey * kLdp;
-    const float* dProw = dPt + lkey * kLdp;
-    bf16* Prow = Pt + lkey * kLdb;
-    bf16* dSrow = dSt + lkey * kLdb;
-#pragma unroll 8
-    for (int i = 0; i < 32; ++i) {
-      const int c = half * 32 + i;
-      const float pr = mask.keep(p, q0 + c, key, kk) ? expf(Srow[c] * p.scale + mask.bias(kk) - lse_s[c]) : 0.f;
-      Prow[c] = __float2bfloat16(pr);
-      dSrow[c] = __float2bfloat16(pr * (dProw[c] - delta_s[c]) * p.scale);
-    }
-    __syncwarp();
-    tc_nn<DT>(Pt + warp * 16 * kLdb, dOs, dv_acc);
-    tc_nn<DT>(dSt + warp * 16 * kLdb, Qs, dk_acc);
-  }
-  const long long base = ((long long)b * p.Skv * p.H + h) * p.D;
-  const long long stride = (long long)p.H * p.D;
-  tc_store_rows<DT>(dk_acc, St + warp * 16 * kLdp, dk + base, stride, k0 + warp * 16, p.Skv, p.D);
-  tc_store_rows<DT>(dv_acc, St + warp * 16 * kLdp, dv + base, stride, k0 + warp * 16, p.Skv, p.D);
-}
-
 // ---------------------------------------------------------------- launch
 
 template <typename K, typename... Args>
@@ -798,8 +550,7 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s
 }
 
 constexpr size_t kF = sizeof(float);
-constexpr size_t kPb = kTile * kLdb * sizeof(bf16);  // a bf16 P / dS tile
-constexpr size_t kSf = kTile * kLdp * kF;             // an f32 score tile
+constexpr size_t kSf = kTile * kLdp * kF;  // an f32 score tile
 
 // The forward on the CUDA cores (float32)
 template <int DT, class M>
@@ -813,51 +564,33 @@ cudaError_t launch_fwd_f32(const Problem& p, const M& m, const void* q, const vo
                 static_cast<const float*>(v), static_cast<float*>(out), lse);
 }
 
-// The backward passes: float32 on the CUDA cores, bfloat16 on WMMA when
-// kWmma (the bfloat16 backward of flash and flashmask is
-// flash_bwd_sm90.cuh's, so flash_attention.cu and masked_flash.cu
-// instantiate only the float32 kernels; varlen_flash.cu both)
-template <int DT, bool kWmma, class M>
+// The backward passes on the CUDA cores (float32; every bfloat16 backward
+// is flash_bwd_sm90.cuh's)
+template <int DT, class M>
 cudaError_t launch_dq(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                       const void* v, const void* dout, const float* lse, const float* delta,
                       void* dq, cudaStream_t st) {
+  if (dtype != ptt::kF32) return cudaErrorInvalidValue;
   const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
   constexpr size_t kKeys = kTile * sizeof(typename M::Key);
-  if (dtype == ptt::kF32)
-    return launch(flash_dq_kernel<float, DT, M>, grid, kThreads,
-                  4 * operand_bytes<float, DT>() + kSf + kKeys, st, p, m,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-                  delta, static_cast<float*>(dq));
-  if constexpr (!kWmma)
-    return cudaErrorInvalidValue;
-  else
-    return launch(flash_dq_tc_kernel<DT, M>, grid, kTcThreads,
-                  4 * operand_bytes<bf16, DT>() + kPb + 2 * kSf + kKeys, st, p, m,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-                  static_cast<bf16*>(dq));
+  return launch(flash_dq_kernel<float, DT, M>, grid, kThreads,
+                4 * operand_bytes<float, DT>() + kSf + kKeys, st, p, m,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+                static_cast<float*>(dq));
 }
 
-template <int DT, bool kWmma, class M>
+template <int DT, class M>
 cudaError_t launch_dkv(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                        const void* v, const void* dout, const float* lse, const float* delta,
                        float* dk, float* dv, cudaStream_t st) {
+  if (dtype != ptt::kF32) return cudaErrorInvalidValue;
   const dim3 grid((p.Skv + kTile - 1) / kTile, p.H, p.B);
-  if (dtype == ptt::kF32)
-    return launch(flash_dkv_kernel<float, DT, M>, grid, kThreads,
-                  4 * operand_bytes<float, DT>() + 2 * kSf + 2 * kTile * kF, st, p, m,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-                  delta, dk, dv);
-  if constexpr (!kWmma)
-    return cudaErrorInvalidValue;
-  else
-    return launch(flash_dkv_tc_kernel<DT, M>, grid, kTcThreads,
-                  4 * operand_bytes<bf16, DT>() + 2 * kPb + 2 * kSf + 2 * kTile * kF, st, p,
-                  m, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-                  dk, dv);
+  return launch(flash_dkv_kernel<float, DT, M>, grid, kThreads,
+                4 * operand_bytes<float, DT>() + 2 * kSf + 2 * kTile * kF, st, p, m,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, dk,
+                dv);
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
@@ -889,10 +622,9 @@ Problem make_problem(int dtype, int B, int H, int Hkv, int Sq, int Skv, int D, f
 
 bool supported(int dtype) { return dtype == ptt::kF32 || dtype == ptt::kBF16; }
 
-// The three passes at the head dim's tile width (64 or 128), for the entry
-// points of flash_attention.cu, masked_flash.cu and varlen_flash.cu. The
-// forward: `run_fwd_f32` on the CUDA cores (float32; every bfloat16
-// forward is flash_fwd_sm90.cuh's).
+// The three float32 passes at the head dim's tile width (64 or 128), for
+// the entry points of flash_attention.cu, masked_flash.cu and
+// varlen_flash.cu.
 template <class M>
 cudaError_t run_fwd_f32(const Problem& p, const M& m, const void* q, const void* k,
                         const void* v, void* out, void* lse, void* stream) {
@@ -902,18 +634,18 @@ cudaError_t run_fwd_f32(const Problem& p, const M& m, const void* q, const void*
                    : launch_fwd_f32<128>(p, m, q, k, v, out, l, st);
 }
 
-template <bool kWmma = true, class M>
+template <class M>
 cudaError_t run_dq(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                    const void* v, const void* dout, const void* lse, const void* delta,
                    void* dq, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dq<64, kWmma>(dtype, p, m, q, k, v, dout, l, dl, dq, st)
-                   : launch_dq<128, kWmma>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+  return p.D <= 64 ? launch_dq<64>(dtype, p, m, q, k, v, dout, l, dl, dq, st)
+                   : launch_dq<128>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
 }
 
-template <bool kWmma = true, class M>
+template <class M>
 cudaError_t run_dkv(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                     const void* v, const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, void* stream) {
@@ -922,8 +654,8 @@ cudaError_t run_dkv(int dtype, const Problem& p, const M& m, const void* q, cons
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dkv<64, kWmma>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st)
-                   : launch_dkv<128, kWmma>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+  return p.D <= 64 ? launch_dkv<64>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st)
+                   : launch_dkv<128>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
 }
 
 }  // namespace

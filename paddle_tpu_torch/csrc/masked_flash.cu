@@ -105,6 +105,13 @@ struct FlashMask {
   __device__ __forceinline__ int q_tiles(const Problem& p, int) const {
     return (p.Sq + kTile - 1) / kTile;
   }
+  // the sm90 dK/dV's CTA of bn keys: the same
+  __device__ __forceinline__ int q_tiles(const Problem& p, int k0, int) const {
+    return q_tiles(p, k0);
+  }
+  // the sm90 dK/dV: CTAs in key-tile order, the lowest keys (seen by the
+  // most causal q steps) first
+  __device__ __forceinline__ int key_tile(int z) const { return z; }
 };
 
 bool mask_ok(int Hm, int H, int n, int causal) {
@@ -165,7 +172,7 @@ extern "C" int ptt_flashmask_bwd_dq(const void* q, const void* k, const void* v,
                         nullptr, nullptr, stream);
   }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
-  return run_dq<false>(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
+  return run_dq(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
 }
 
 // As ptt_flashmask_bwd_dq; writes dk, dv contiguous f32: in bfloat16 the
@@ -186,5 +193,5 @@ extern "C" int ptt_flashmask_bwd_dkv(const void* q, const void* k, const void* v
                         nullptr, dk, dv, stream);
   }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
-  return run_dkv<false>(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
+  return run_dkv(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
 }

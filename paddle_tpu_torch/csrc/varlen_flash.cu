@@ -5,9 +5,10 @@
 //   - `_vl_fwd_kernel` :442 (pallas_call :616, entry
 //     `varlen_flash_attention_fwd` :758): O and the f32 row LSE of
 //     softmax(Q K^T * scale) V over the pairs `_vl_keep` :428 keeps;
-//   - `_vl_bwd_dq_kernel` :490 (pallas_call :680): dQ;
-//   - `_vl_bwd_dkv_kernel` :529 (pallas_call :695): dK, dV per query head
-//     in f32 (the caller group-sums them for GQA, :719-721).
+//   - `_vl_bwd_dq_kernel` :490 (pallas_call :680): dQ = dS K;
+//   - `_vl_bwd_dkv_kernel` :529 (pallas_call :695): dV = P^T dO and
+//     dK = dS^T Q, of the kv heads (the g query heads of a kv head summed,
+//     as `_varlen_vjp_bwd` does at :719-721).
 // q [Tq, H, D] and k/v [Tk, Hkv, D] hold packed documents; the wrapper
 // (ops/masked_flash.py) derives each token's segment from cu_seqlens as the
 // JAX entry does (:765-769). Query row r keeps key c iff both lie in the
@@ -19,35 +20,51 @@
 //
 // Packed [T, H, D] is the B = 1 case of the kernels' [B, S, H, D]
 // strides, so the kernels are the port's shared attention kernels under
-// the policy `Varlen` below: the bfloat16 forward is flash_fwd_sm90.cuh's
-// (wgmma fed by TMA, 128 x 128 tiles: the [1, T, H, D] view is a 4-d
-// tensor map, so nothing is copied), the float32 forward and both
-// backwards flash_tiles.cuh's (CUDA cores in float32, WMMA in bfloat16).
+// the policy `Varlen` below. Which kernel runs which dtype:
+//   - bfloat16: the forward of flash_fwd_sm90.cuh and the dQ and dK/dV of
+//     flash_bwd_sm90.cuh (wgmma fed by TMA, 128 x 128 tiles; the [1, T, H,
+//     D] view is a 4-d tensor map, so nothing is copied); dK/dV come out
+//     as the kv heads' f32 [Tk, Hkv, D];
+//   - float32: the CUDA-core tile kernels of flash_tiles.cuh; dK/dV one
+//     f32 slice per query head [Tk, H, D], which the caller sums.
+// Numerics: the bf16 backward rounds P and dS to bf16 before its second
+// and third products (dV = P^T dO, dK = dS^T Q, dQ = dS K); every sum is
+// f32. The JAX varlen kernels keep P and dS in f32 (masked_flash.py
+// :506-521, :546-566), while JAX's flashmask kernel casts dS to k's dtype
+// (:172): the port's bf16 varlen gradients differ from the JAX varlen
+// kernel's by that rounding.
 // Bound at the main path (a pack of 8192 tokens in LLaMA-7B heads, 32 query
 // heads over 8 kv heads of 128, causal): operations, counted over the
 // pairs the segments keep; forward 4 D, dQ 6 D, dK/dV 8 D operations a
-// pair at 989 TFLOP/s (bf16): 0.187 ms for the forward.
+// pair at 989 TFLOP/s (bf16): 0.187, 0.280 and 0.374 ms.
 //
-// Design against the TPU kernel: the TPU kernel walks every (q block, kv
-// block) of the pack and guards its matmuls with `jnp.any(keep)`, so a q
-// block of an 8192-token pack visits all 128 kv blocks. Here the bf16
-// forward reads a class per (128-row q tile, 128-key kv tile) that
-// `varlen_classes_kernel`, launched just before it by the same entry,
-// derives from per-kv-tile min/max of the keys' segment ranges (the same
-// rule in torch ops is ops/masked_flash.py `varlen_tile_classes_plain`):
-// a tile no row of the q tile can see is skipped (never loaded), a tile
+// Design against the TPU kernels: they walk every (q block, kv block) of
+// the pack and guard their matmuls with `jnp.any(keep)`, so a q block of an
+// 8192-token pack visits all 128 kv blocks, and dK/dV is written per query
+// head. Here every bf16 kernel reads a class per (128-row q tile, 128-key
+// kv tile) that `varlen_classes_kernel`, launched by the forward's entry
+// just before it, derives from per-kv-tile min/max of the keys' segment
+// ranges (the same rule in torch ops is ops/masked_flash.py
+// `varlen_tile_classes_plain`); the backward reuses the forward's table.
+// A tile no row of the q tile can see is skipped (never loaded), a tile
 // every row sees whole runs no predicate, a tile across a document edge or
-// on a causal diagonal applies keep() to its score fragment. Its loop ends at
-// the last key of the q tile's 64-row `qrange`s. The float32 forward and
-// the WMMA backward give each 64-row q tile the key range of the segments
-// it touches (from the first key of its first segment to, causal, the last
-// key its last row can see) and each key tile the q-row range of its
-// segments, loop over that range only, and inside it skip a tile with no
-// kept pair by a CTA-wide vote. Each key carries its segment's q-row range
-// and the offset cu_q - cu_k, so the keep test needs no per-row data.
+// on a causal diagonal applies keep() to its score fragment. The forward
+// and dQ loops end at the last key of the q tile's 64-row `qrange`s; a
+// dK/dV CTA (128 keys of one kv head) walks the 64-row q steps from its
+// first key's first q row to the largest `krange` end of its two 64-key
+// halves, for each of the g query heads, and writes the kv head's dK and
+// dV once, with no atomics; the dK/dV CTAs launch in the order
+// `varlen_dkv_order_kernel` derives from the classes, the key tiles with
+// the most q tiles not skipped first. The float32 kernels give each 64-row q tile
+// the key range of the segments it touches (from the first key of its
+// first segment to, causal, the last key its last row can see) and each
+// key tile the q-row range of its segments, loop over that range only,
+// and inside it skip a tile with no kept pair by a CTA-wide vote. Each key
+// carries its segment's q-row range and the offset cu_q - cu_k, so the
+// keep test needs no per-row data.
 #include <climits>
 
-#include "flash_fwd_sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -58,10 +75,13 @@ struct Varlen {
   const int* qrange;  // [2, n q tiles]: per q tile, first key, one past last
   const int* krange;  // [2, n k tiles]: per key tile, first q row, one past last
   int n_qt, n_kt;     // 64-row q tiles, 64-key k tiles
-  // the sm90 forward's tile classes, [ceil(Tq / 128), ceil(Tk / 128)]
-  // uint8 (null for the float32 and backward kernels)
+  // the sm90 kernels' tile classes, [ceil(Tq / 128), ceil(Tk / 128)]
+  // uint8 (null for the float32 kernels)
   const uint8_t* cls;
   int n_ct;           // 128-key kv tiles
+  // the sm90 dK/dV's CTA order, [n_ct] int32 (`varlen_dkv_order_kernel`;
+  // null elsewhere)
+  const int* order;
 
   struct Key {
     int lo, hi, off;
@@ -82,9 +102,9 @@ struct Varlen {
   __device__ __forceinline__ int kv_tiles(const Problem&, int q0) const {
     return (qrange[n_qt + q0 / kTile] + kTile - 1) / kTile;
   }
-  // the sm90 forward: the kv tiles of bn keys up to the last key that the
-  // 64-row tiles of the q tile [q0, q0 + bm) visit; those before their
-  // first key are skipped by their class
+  // the sm90 forward and dQ: the kv tiles of bn keys up to the last key
+  // that the 64-row tiles of the q tile [q0, q0 + bm) visit; those before
+  // their first key are skipped by their class
   __device__ __forceinline__ int kv_tiles(const Problem&, int q0, int bm, int bn) const {
     int end = 0;
     for (int t = q0 / kTile; t < min((q0 + bm) / kTile, n_qt); ++t)
@@ -96,20 +116,35 @@ struct Varlen {
     const int c = cls[(q0 / bm) * n_ct + k0 / bn];
     return c;
   }
+  // The first 64-row q tile that sees the 64-key tile at k0. The sm90
+  // dK/dV reads it for a CTA of 128 keys (k0) and for each warpgroup's 64
+  // (key0 = k0 + 64): segments are in order, so a later key's first row
+  // is never earlier, and the first 64 keys' first row is the CTA's.
   __device__ __forceinline__ int first_q_tile(const Problem&, int k0) const {
     return krange[k0 / kTile] / kTile;
   }
   __device__ __forceinline__ int q_tiles(const Problem&, int k0) const {
     return (krange[n_kt + k0 / kTile] + kTile - 1) / kTile;
   }
+  // the sm90 dK/dV: the 64-row q tiles up to the last row that sees any
+  // key of [k0, k0 + bn), the largest `krange` end of its 64-key tiles (a
+  // document that starts in the second half is seen by rows past the
+  // first half's end)
+  __device__ __forceinline__ int q_tiles(const Problem&, int k0, int bn) const {
+    int end = 0;
+    for (int t = k0 / kTile; t < min((k0 + bn) / kTile, n_kt); ++t)
+      end = max(end, krange[n_kt + t]);
+    return (end + kTile - 1) / kTile;
+  }
+  __device__ __forceinline__ int key_tile(int z) const { return order[z]; }
 };
 
 Varlen make_varlen(const void* kinfo, const void* qrange, const void* krange, int Tq, int Tk,
-                   const void* cls = nullptr) {
+                   const void* cls = nullptr, const void* order = nullptr) {
   return Varlen{static_cast<const int*>(kinfo), static_cast<const int*>(qrange),
                 static_cast<const int*>(krange), (Tq + kTile - 1) / kTile,
                 (Tk + kTile - 1) / kTile, static_cast<const uint8_t*>(cls),
-                (Tk + sm90::kBN - 1) / sm90::kBN};
+                (Tk + sm90::kBN - 1) / sm90::kBN, static_cast<const int*>(order)};
 }
 
 // The class of each (kBM-row q tile, kBN-key kv tile) of a pack, one
@@ -157,6 +192,29 @@ varlen_classes_kernel(const int* __restrict__ kinfo, uint8_t* __restrict__ cls, 
     }
     cls[static_cast<long long>(t) * gridDim.x + blockIdx.x] =
         skip ? kSkipTile : (full ? kFullTile : kPartialTile);
+  }
+}
+
+// The order of the sm90 dK/dV's CTAs: the kv tiles by their count of q
+// tiles that the classes cls [n_qt, n_ct] do not skip, most first, ties by
+// index. A CTA's time grows with that count (the first key tiles of a long
+// document see all its rows), so the longest CTAs start first and the
+// short ones fill the last wave. One block; work in shared memory.
+constexpr int kOrderThreads = 1024;
+__global__ void __launch_bounds__(kOrderThreads)
+varlen_dkv_order_kernel(const uint8_t* __restrict__ cls, int* __restrict__ order, int n_qt,
+                        int n_ct) {
+  extern __shared__ int work[];  // [n_ct]
+  for (int t = threadIdx.x; t < n_ct; t += blockDim.x) {
+    int n = 0;
+    for (int i = 0; i < n_qt; ++i) n += cls[static_cast<long long>(i) * n_ct + t] != kSkipTile;
+    work[t] = n;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < n_ct; t += blockDim.x) {
+    int rank = 0;
+    for (int u = 0; u < n_ct; ++u) rank += work[u] > work[t] || (work[u] == work[t] && u < t);
+    order[rank] = t;
   }
 }
 
@@ -210,33 +268,55 @@ extern "C" int ptt_varlen_fwd(const void* q, const void* k, const void* v, const
   return run_fwd_f32(p, make_varlen(kinfo, qrange, krange, Tq, Tk), q, k, v, out, lse, stream);
 }
 
-// As ptt_varlen_fwd, plus dout (strided like q, strides 9..11), lse and
-// delta = rowsum(dO * O) [H, Tq] f32; writes dq [Tq, H, D] contiguous in
-// q's dtype.
+// As ptt_varlen_fwd, plus dout (strided like q, strides 9..11; in
+// bfloat16 as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O)
+// [H, Tq] f32, and (bfloat16) the forward's tile classes cls
+// [ceil(Tq / 128), ceil(Tk / 128)] uint8 contiguous; writes dq
+// [Tq, H, D] contiguous in q's dtype.
 extern "C" int ptt_varlen_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* kinfo, const void* qrange, const void* krange,
-                                 const void* dout, const void* lse, const void* delta, void* dq,
-                                 int H, int Hkv, int Tq, int Tk, int D,
-                                 const long long* strides, float scale, int causal, int dtype,
-                                 void* stream) {
+                                 const void* cls, const void* dout, const void* lse,
+                                 const void* delta, void* dq, int H, int Hkv, int Tq, int Tk,
+                                 int D, const long long* strides, float scale, int causal,
+                                 int dtype, void* stream) {
   if (!supported(dtype)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, 1, H, Hkv, Tq, Tk, D, scale, causal, strides, q, k, v,
                                  dout);
+  if (dtype == ptt::kBF16) {
+    if (cls == nullptr) return cudaErrorInvalidValue;
+    return run_bwd_sm90(p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls), q, k, v, dout, lse,
+                        delta, dq, nullptr, nullptr, stream);
+  }
   return run_dq(dtype, p, make_varlen(kinfo, qrange, krange, Tq, Tk), q, k, v, dout, lse,
                 delta, dq, stream);
 }
 
-// As ptt_varlen_bwd_dq; writes dk, dv [Tk, H, D] contiguous f32, one slice
-// per query head (the caller sums the g heads of a kv head).
+// As ptt_varlen_bwd_dq, plus (bfloat16) order, an int32 [ceil(Tk / 128)]
+// workspace the entry fills with the dK/dV CTAs' order
+// (`varlen_dkv_order_kernel`) before the dK/dV kernel reads it; writes dk,
+// dv contiguous f32: in bfloat16 the kv heads' gradients [Tk, Hkv, D], in
+// float32 one slice per query head [Tk, H, D] (the caller sums the g heads
+// of a kv head).
 extern "C" int ptt_varlen_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* kinfo, const void* qrange, const void* krange,
-                                  const void* dout, const void* lse, const void* delta,
-                                  void* dk, void* dv, int H, int Hkv, int Tq, int Tk, int D,
-                                  const long long* strides, float scale, int causal,
-                                  int dtype, void* stream) {
+                                  const void* cls, void* order, const void* dout,
+                                  const void* lse, const void* delta, void* dk, void* dv, int H,
+                                  int Hkv, int Tq, int Tk, int D, const long long* strides,
+                                  float scale, int causal, int dtype, void* stream) {
   if (!supported(dtype)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, 1, H, Hkv, Tq, Tk, D, scale, causal, strides, q, k, v,
                                  dout);
+  if (dtype == ptt::kBF16) {
+    if (cls == nullptr || order == nullptr) return cudaErrorInvalidValue;
+    const int n_qt = (Tq + sm90::kBM - 1) / sm90::kBM, n_ct = (Tk + sm90::kBN - 1) / sm90::kBN;
+    const cudaError_t err = launch(varlen_dkv_order_kernel, dim3(1), kOrderThreads,
+                                   n_ct * sizeof(int), static_cast<cudaStream_t>(stream),
+                                   static_cast<const uint8_t*>(cls), static_cast<int*>(order),
+                                   n_qt, n_ct);
+    if (err != cudaSuccess) return err;
+    return run_bwd_sm90(p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls, order), q, k, v,
+                        dout, lse, delta, nullptr, dk, dv, stream);
+  }
   return run_dkv(dtype, p, make_varlen(kinfo, qrange, krange, Tq, Tk), q, k, v, dout, lse,
                  delta, dk, dv, stream);
 }

@@ -101,13 +101,13 @@ _SIGNATURES = {
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
     # kinfo, cls, Tq, Tk, causal, stream
     "ptt_varlen_tile_classes": [_c_void_p] * 2 + [_c_int] * 3 + [_c_void_p],
-    # q, k, v, kinfo, qrange, krange, dout, lse, delta, dq, H, Hkv, Tq, Tk,
-    # D, strides[12], scale, causal, dtype, stream
-    "ptt_varlen_bwd_dq": [_c_void_p] * 10 + [_c_int] * 5
-    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
-    # q, k, v, kinfo, qrange, krange, dout, lse, delta, dk, dv, H, Hkv, Tq,
+    # q, k, v, kinfo, qrange, krange, cls, dout, lse, delta, dq, H, Hkv, Tq,
     # Tk, D, strides[12], scale, causal, dtype, stream
-    "ptt_varlen_bwd_dkv": [_c_void_p] * 11 + [_c_int] * 5
+    "ptt_varlen_bwd_dq": [_c_void_p] * 11 + [_c_int] * 5
+    + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
+    # q, k, v, kinfo, qrange, krange, cls, order, dout, lse, delta, dk, dv,
+    # H, Hkv, Tq, Tk, D, strides[12], scale, causal, dtype, stream
+    "ptt_varlen_bwd_dkv": [_c_void_p] * 13 + [_c_int] * 5
     + [_c_ll_p, _c_float, _c_int, _c_int, _c_void_p],
     # lhs, rhs, sizes, out, E, R, K, N, trans, dtype, stream
     "ptt_grouped_gemm": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],

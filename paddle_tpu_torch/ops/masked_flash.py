@@ -65,19 +65,23 @@ torch ops on the device and no host sync: per key its segment's q-row
 range and the offset cu_q - cu_k (the keep test), and per 64-row tile the
 key range of a q tile and the q-row range of a key tile (the tiles each CTA
 visits). Three kernels of `csrc/varlen_flash.cu` under the varlen policy:
-in bf16 the forward is the wgmma kernel of `csrc/flash_fwd_sm90.cuh`,
-which takes q, k, v through `ops.flash_attention.tma_operands` and reads
-the tile classes (per 128-row q tile and 128-key kv tile: skipped, full
-or partial, from per-tile min/max of the keys' segment ranges) that the
-same entry derives just before it with `varlen_classes_kernel`
-(`varlen_tile_classes`; plain: `varlen_tile_classes_plain`); the f32
-forward and both backwards are the tile kernels of `csrc/flash_tiles.cuh`.
-Each sits beside its plain version and its launch counter:
+in bf16 the wgmma kernels of `csrc/flash_fwd_sm90.cuh` (forward) and
+`csrc/flash_bwd_sm90.cuh` (dq, dk/dv), which take q, k, v (and dO)
+through `ops.flash_attention.tma_operands` and read the tile classes (per
+128-row q tile and 128-key kv tile: skipped, full or partial, from
+per-tile min/max of the keys' segment ranges) that the forward's entry
+derives just before it with `varlen_classes_kernel` (`varlen_tile_classes`;
+plain: `varlen_tile_classes_plain`); in f32 the CUDA-core tile kernels of
+`csrc/flash_tiles.cuh`. `VarlenAttention` keeps the forward's classes for
+the backward; the backward wrappers take them as `cls` and derive them
+when it is None. Each kernel sits beside its plain version and its launch
+counter:
 
 - `varlen_fwd` → (O, LSE [H, Tq]): `varlen_fwd_plain`; `VL_FWD_LAUNCHES`;
 - `varlen_bwd_dq` → dQ: `varlen_bwd_dq_plain`; `VL_DQ_LAUNCHES`;
-- `varlen_bwd_dkv` → dK, dV per query head in f32: `varlen_bwd_dkv_plain`;
-  `VL_DKV_LAUNCHES`.
+- `varlen_bwd_dkv` → dK, dV of the kv heads in f32, the g query heads of
+  a kv head summed as `_varlen_vjp_bwd` does: `varlen_bwd_dkv_plain`;
+  `VL_DKV_LAUNCHES`. The backward casts them to k's dtype.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ import torch
 
 from . import _build
 from .flash_attention import (_attend, _bwd_checks, _bwd_operands, _check,
-                              _cuda_operands, _cut, _device_checks, _dkv, _dq,
+                              _cut, _device_checks, _dkv, _dq,
                               _fwd_operands, _fwd_outputs, _fwd_result,
                               _group_sum, _logits, _probs_and_ds, _ptr)
 
@@ -591,14 +595,14 @@ def varlen_bwd_dq_plain(q, k, v, layout, dout, lse, delta, causal, scale):
 
 
 def varlen_bwd_dkv_plain(q, k, v, layout, dout, lse, delta, causal, scale):
-    """Plain PyTorch version of the dk/dv kernel: dK, dV f32 [Tk, H, D],
-    one slice per query head."""
+    """Plain PyTorch version of the dk/dv kernel: the kv heads' dK, dV, f32
+    [Tk, Hkv, D] each (the g query heads of a kv head summed)."""
 
     def dkv(qj, kj, vj, keep, doj, lsej, dj):
         s = _logits(qj[None], kj[None], scale, keep)
         dk, dv = _dkv(qj[None], doj[None], *_probs_and_ds(
             qj[None], vj[None], s, doj[None], lsej[None], dj[None], scale))
-        return dk[0], dv[0]
+        return _group_sum(dk, 1)[0], _group_sum(dv, 1)[0]
 
     return _by_kv_head(dkv, q, k, v, layout, causal, dout, lse, delta)
 
@@ -618,32 +622,24 @@ def _vl_check(q, k, v, layout):
         raise ValueError(f"the varlen layout must be int32 on {q.device}")
 
 
-def _vl_operands(q, k, v, dout=None):
-    q4, k4, v4, _, d4, strides = _cuda_operands(
-        q[None], k[None], v[None], None, None if dout is None else dout[None])
-    return q4, k4, v4, d4, strides
-
-
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def varlen_fwd(q, k, v, layout, causal, scale):
-    """(O [Tq, H, D] in q's dtype, LSE [H, Tq] f32) over the packed
-    segments of `layout`. CPU tensors run the plain version; CUDA tensors
-    launch the kernels (bf16: the tile classes of the layout, then the
-    forward on them)."""
+def _varlen_fwd(q, k, v, layout, causal, scale):
+    """(O, LSE, the tile classes the bf16 kernel read or None): the forward
+    wrapper, keeping the classes for the backward."""
     global VL_FWD_LAUNCHES
     _vl_check(q, k, v, layout)
     if q.device.type == "cpu":
-        return varlen_fwd_plain(q, k, v, layout, causal, scale)
+        return (*varlen_fwd_plain(q, k, v, layout, causal, scale), None)
     Tq, H, D = q.shape
     Tk, Hkv = k.shape[0], k.shape[1]
     q4, k4, v4, _, strides, d = _fwd_operands(q[None], k[None], v[None], None)
     out, lse = _fwd_outputs(q4, Tq, H, d)
     if out.numel() == 0 or Tk == 0:
         out, lse = _fwd_result(out, lse, D, Tk)
-        return out[0], lse[0]
+        return out[0], lse[0], None
     cls = (torch.empty(-(-Tq // SM90_TILE), -(-Tk // SM90_TILE),
                        dtype=torch.uint8, device=q.device)
            if q.dtype == torch.bfloat16 else None)  # written by the entry
@@ -656,98 +652,143 @@ def varlen_fwd(q, k, v, layout, causal, scale):
     _build.check(err, "ptt_varlen_fwd")
     VL_FWD_LAUNCHES += 1
     out, lse = _fwd_result(out, lse, D, Tk)
-    return out[0], lse[0]
+    return out[0], lse[0], cls
 
 
-def varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale):
-    """dQ [Tq, H, D] in q's dtype from the forward's LSE and
-    delta = rowsum(dO * O) [H, Tq] f32. CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
-    global VL_DQ_LAUNCHES
+def varlen_fwd(q, k, v, layout, causal, scale):
+    """(O [Tq, H, D] in q's dtype, LSE [H, Tq] f32) over the packed
+    segments of `layout`. CPU tensors run the plain version; CUDA tensors
+    launch the kernels (bf16: the tile classes of the layout, then the
+    forward on them)."""
+    return _varlen_fwd(q, k, v, layout, causal, scale)[:2]
+
+
+def _vl_bwd_checks(q, k, v, layout, lse, delta, cls):
+    """The checks of both backward wrappers; `cls`, when given, on any
+    device."""
     _vl_check(q, k, v, layout)
     _bwd_checks(q[None], lse[None], delta[None])
+    if cls is None:
+        return
+    want = (-(-q.shape[0] // SM90_TILE), -(-k.shape[0] // SM90_TILE))
+    if tuple(cls.shape) != want or cls.dtype != torch.uint8 \
+            or cls.device != q.device:
+        raise ValueError(f"varlen tile classes must be uint8 {list(want)} on "
+                         f"{q.device} (varlen_tile_classes), got {cls.dtype} "
+                         f"{list(cls.shape)} on {cls.device}")
+
+
+def _vl_classes(q, layout, cls, Tk, causal):
+    """The tile classes a bf16 backward kernel reads: `cls` as given or,
+    when None, derived; None in f32."""
+    if q.dtype != torch.bfloat16:
+        return None
+    if cls is None:
+        return varlen_tile_classes(layout, q.shape[0], Tk, causal)
+    return cls.contiguous()
+
+
+def varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale,
+                  cls=None):
+    """dQ [Tq, H, D] in q's dtype from the forward's LSE and
+    delta = rowsum(dO * O) [H, Tq] f32. `cls`: the bf16 kernel's tile
+    classes, `varlen_tile_classes` of the layout (derived when None).
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    global VL_DQ_LAUNCHES
+    _vl_bwd_checks(q, k, v, layout, lse, delta, cls)
     if q.device.type == "cpu":
         return varlen_bwd_dq_plain(q, k, v, layout, dout, lse, delta, causal,
                                    scale)
-    q4, k4, v4, d4, strides = _vl_operands(q, k, v, dout)
+    _device_checks(q)
     Tq, H, D = q.shape
-    Tk, Hkv = k.shape[0], k.shape[1]
-    dq = torch.empty(Tq, H, D, device=q.device, dtype=q.dtype)
-    if dq.numel() == 0:
-        return dq
+    Tk = k.shape[0]
+    q4, k4, v4, d4, strides, d = _bwd_operands(q[None], k[None], v[None],
+                                               dout[None])
+    dq = torch.empty(1, Tq, H, d, device=q.device, dtype=q.dtype)
+    if dq.numel() == 0 or Tk == 0:
+        return _cut(dq.zero_(), D)[0]
+    cls = _vl_classes(q, layout, cls, Tk, causal)
     lse, delta = lse.contiguous(), delta.contiguous()
     err = _build.load_library().ptt_varlen_bwd_dq(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
-        layout.qrange.data_ptr(), layout.krange.data_ptr(), d4.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), H, Hkv, Tq, Tk, D,
-        strides, float(scale), int(bool(causal)),
+        layout.qrange.data_ptr(), layout.krange.data_ptr(), _ptr(cls),
+        d4.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), H,
+        k.shape[1], Tq, Tk, d, strides, float(scale), int(bool(causal)),
         _build.DTYPE_CODES[str(q.dtype)], _stream(q))
     _build.check(err, "ptt_varlen_bwd_dq")
     VL_DQ_LAUNCHES += 1
-    return dq
+    return _cut(dq, D)[0]
 
 
-def varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal, scale):
-    """(dK, dV), each f32 [Tk, H, D]: one slice per query head, not yet
-    summed over the g heads of a kv head. CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+def varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal, scale,
+                   cls=None):
+    """(dK, dV), each f32 [Tk, Hkv, D]: the kv heads' gradients, the g query
+    heads of a kv head summed. `cls` as for `varlen_bwd_dq`. The bf16
+    kernel writes them as they are; the f32 kernel writes one slice per
+    query head, which torch sums. CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
     global VL_DKV_LAUNCHES
-    _vl_check(q, k, v, layout)
-    _bwd_checks(q[None], lse[None], delta[None])
+    _vl_bwd_checks(q, k, v, layout, lse, delta, cls)
     if q.device.type == "cpu":
         return varlen_bwd_dkv_plain(q, k, v, layout, dout, lse, delta, causal,
                                     scale)
-    q4, k4, v4, d4, strides = _vl_operands(q, k, v, dout)
+    _device_checks(q)
     Tq, H, D = q.shape
     Tk, Hkv = k.shape[0], k.shape[1]
-    dk = torch.empty(Tk, H, D, device=q.device, dtype=torch.float32)
+    if Tk * Hkv * D == 0 or Tq == 0:
+        dk = torch.zeros(Tk, Hkv, D, device=q.device, dtype=torch.float32)
+        return dk, torch.zeros_like(dk)
+    bf16 = q.dtype == torch.bfloat16
+    q4, k4, v4, d4, strides, d = _bwd_operands(q[None], k[None], v[None],
+                                               dout[None])
+    dk = torch.empty(1, Tk, Hkv if bf16 else H, d, device=q.device,
+                     dtype=torch.float32)
     dv = torch.empty_like(dk)
-    if dk.numel() == 0 or Tq == 0:
-        return dk.zero_(), dv.zero_()
+    cls = _vl_classes(q, layout, cls, Tk, causal)
+    # the CTAs' order, written by the entry (bf16)
+    order = (torch.empty(-(-Tk // SM90_TILE), dtype=torch.int32,
+                         device=q.device) if bf16 else None)
     lse, delta = lse.contiguous(), delta.contiguous()
     err = _build.load_library().ptt_varlen_bwd_dkv(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
-        layout.qrange.data_ptr(), layout.krange.data_ptr(), d4.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), H,
-        Hkv, Tq, Tk, D, strides, float(scale), int(bool(causal)),
-        _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+        layout.qrange.data_ptr(), layout.krange.data_ptr(), _ptr(cls),
+        _ptr(order), d4.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), H, Hkv, Tq, Tk, d, strides,
+        float(scale), int(bool(causal)), _build.DTYPE_CODES[str(q.dtype)],
+        _stream(q))
     _build.check(err, "ptt_varlen_bwd_dkv")
     VL_DKV_LAUNCHES += 1
-    return dk, dv
-
-
-def _kv_grads(dk, dv, k, v):
-    """Per-query-head f32 dK, dV [B, Skv, H, D] (the varlen kernel's) -> the
-    kv heads' gradients in k's and v's dtypes."""
-    return (_group_sum(dk, k.shape[2]).to(k.dtype),
-            _group_sum(dv, v.shape[2]).to(v.dtype))
+    return (_cut(_group_sum(dk, Hkv), D)[0], _cut(_group_sum(dv, Hkv), D)[0])
 
 
 class VarlenAttention(torch.autograd.Function):
     """Varlen attention with its backward (↔ `_varlen`'s custom VJP, whose
-    backward `_varlen_vjp_bwd` :669 this follows): delta = rowsum(dO * O)
-    in f32 with torch, the dq and dk/dv kernels, then the group-sum of dK
-    and dV for GQA, cast to k's dtype. The layout is data."""
+    backward `_varlen_vjp_bwd` :669 this follows). Saves q, k, v, O, the
+    LSE, the bf16 kernels' tile classes (None elsewhere) and the layout;
+    the backward computes delta = rowsum(dO * O) in f32 with torch and runs
+    the dq and dk/dv kernels on the same classes; dk/dv come out summed
+    over the g query heads of a kv head, and are cast to k's dtype. The
+    layout is data."""
 
     @staticmethod
     def forward(ctx, q, k, v, layout, causal, scale):
-        out, lse = varlen_fwd(q, k, v, layout, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse, *layout)
+        out, lse, cls = _varlen_fwd(q, k, v, layout, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, cls, *layout)
         ctx.causal = causal
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, *lay = ctx.saved_tensors
+        q, k, v, out, lse, cls, *lay = ctx.saved_tensors
         layout = VarlenLayout(*lay)
         causal, scale = ctx.causal, ctx.scale
         delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
-        dq = varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale)
+        dq = varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale,
+                           cls)
         dk, dv = varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal,
-                                scale)
-        dk, dv = _kv_grads(dk[None], dv[None], k[None], v[None])
-        return dq, dk[0], dv[0], None, None, None
+                                scale, cls)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def varlen_flash_attention_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, scale,

@@ -155,10 +155,11 @@ def test_empty_k_segment_gives_zeros_and_zero_gradient(jax_refs):
 
 
 def test_bf16_values_and_grads_match_jax(jax_refs):
-    """bf16 inputs: both round P and dS to bf16 before their second and
-    third products and keep the statistics in f32; outputs and gradients
-    round once to bf16, so they agree to a few bf16 ulps (2^-8 relative
-    each) of the largest value."""
+    """bf16 inputs: the port rounds P and dS to bf16 before its second and
+    third products, the JAX varlen kernel keeps them in f32 (it computes
+    in f32 from bf16 operands); both keep the statistics in f32, and
+    outputs and gradients round once to bf16, so they agree to a few bf16
+    ulps (2^-8 relative each) of the largest value."""
     bf, cq, ck, causal = _bf16_case()
     got = _port_run(*bf, cq, ck, causal, dtype=torch.bfloat16)
     for g, w, what in zip(got, jax_refs["bf16"], ("out", "dq", "dk", "dv")):
