@@ -19,7 +19,9 @@ Phases; any failure raises and the script exits non-zero:
                 on the card, at the shapes its path gives it and a few edge
                 shapes, in float32 and bfloat16: max error against a stated
                 tolerance, device time (CUDA graph replays timed by CUDA
-                events, warm L2) and eager back-to-back time, the plain
+                events, warm L2; the paged decodes also on a cold L2,
+                round-robin over copies of the case) and eager
+                back-to-back time, the plain
                 version's time, the least time the card could take (bound),
                 and the time of one PyTorch library call computing the same
                 function where there is one. Fused norm forward (the
@@ -27,8 +29,12 @@ Phases; any failure raises and the script exits non-zero:
                 mean of 1000, an odd width, a row past the register
                 design's 8192 elements) and dx,
                 paged decode attention (full precision and int8 pages, with
-                g = 4, a zero-length row, -1 table entries and a page whose
-                scales are 0), dense-cache decode attention split over the
+                g = 4, a zero-length row, -1 table entries, a live chunk of
+                -1 pages, a page whose scales are 0, a serving tick's
+                one-page rows at gpt3_1p3b's and llama_7b's heads, one
+                512-token row; each case called twice, bit for bit, the
+                arrival counters left at zero), dense-cache decode
+                attention split over the
                 sequence (the MMHA shape, g = 4, a short odd cache with a
                 zero-length row), flash attention forward, dq and dk/dv (the
                 path's shape; S off the forward's 128-row tiles, D 64, 40,
@@ -84,7 +90,11 @@ Phases; any failure raises and the script exits non-zero:
                 live 64-row unit treated as dead, a tile's second unit
                 taking the first one's liveness; dense decode: the combine
                 without a chunk's rescale, a chunk's tokens counted to
-                S_max instead of the length): at its case every one must
+                S_max instead of the length; paged decode: the combine
+                without a chunk's rescale, a live chunk of -1 pages exiting
+                without arriving, the last chunk leaving its arrival
+                counter set, int8 probabilities taking the chunk's first
+                page's v_scale): at its case every one must
                 fail the limits of phase 2. Only the sources a fault
                 touches are compiled again.
 2c. clocks    — the varlen dQ and dK/dV at the path's shape rebuilt with
@@ -293,21 +303,21 @@ def say(card, msg):
     print(f"[{card}] {msg}", flush=True)
 
 
-def time_ms(fn, reps=15, inner=20):
-    """Device time of one call: `inner` calls captured into a CUDA graph,
-    the graph replayed `reps` times between CUDA events; the median replay
-    over `inner`. The graph takes the host (Python, ctypes, launch
-    latency) out of the number."""
+def _graph_ms(calls, reps):
+    """Device time of one call: `calls` captured into a CUDA graph in
+    order, the graph replayed `reps` times between CUDA events; the median
+    replay over the number of calls. The graph takes the host (Python,
+    ctypes, launch latency) out of the number."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()  # warm-up outside the capture
+        calls[0]()  # warm-up outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(inner):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -319,8 +329,40 @@ def time_ms(fn, reps=15, inner=20):
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end) / len(calls))
     return float(np.median(times))
+
+
+def time_ms(fn, reps=15, inner=20):
+    """Device time of one call on a warm L2: `inner` calls of `fn` in a
+    CUDA graph (`_graph_ms`)."""
+    return _graph_ms([fn] * inner, reps)
+
+
+# bytes read between two reads of one copy of a case's inputs in
+# `time_ms_cold`: twice the H100's 50 MB L2
+COLD_GAP_BYTES = 100e6
+
+
+def time_ms_cold(fn, args, nbytes, reps=15, max_copies=256):
+    """Device time of one call `fn(*args)` on a cold L2, as a serving tick
+    finds a layer's pages (the weights stream through the L2 between two
+    layers): the calls in a CUDA graph (`_graph_ms`) round-robin over n
+    copies of `args` (tensors, tuples of tensors or None), n such that the
+    other copies' calls move more than COLD_GAP_BYTES (`nbytes` a call)
+    before a copy is read again. None if that needs more than `max_copies`
+    copies."""
+    n = int(COLD_GAP_BYTES // nbytes) + 2
+    if n > max_copies:
+        return None
+
+    def clone(a):
+        return a if a is None else (tuple(map(clone, a)) if isinstance(a, tuple)
+                                    else a.clone())
+
+    copies = [args] + [clone(args) for _ in range(n - 1)]
+    calls = [lambda c=c: fn(*c) for c in copies]
+    return _graph_ms(calls * max(1, -(-20 // n)), reps)
 
 
 def eager_ms(fn, reps=15, inner=20):
@@ -362,6 +404,25 @@ def ptxas_summary(log):
                 spills[name or "?"] = stored
     return {"kernels": len(regs), "max_registers": max(regs, default=0),
             "spill_store_bytes": spills}
+
+
+def ptxas_kernels(log, prefix):
+    """Registers and spill-store bytes of each instantiation (its mangled
+    template arguments kept) of the kernel named `prefix`, from nvcc's
+    `-Xptxas -v` report (`log`, empty if this process did not build)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(rf"\d({prefix})(I\w*?E)?", ln)
+            name = "".join(m.groups("")) if m else None
+            if name:
+                out[name] = {}
+        elif name and "bytes spill stores" in ln:
+            out[name]["spill_store_bytes"] = int(
+                ln.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used")[1].split("registers")[0])
+    return out
 
 
 SM90_KERNEL = re.compile(
@@ -622,180 +683,180 @@ def check_norm(card, torch):
     return {"worst": worst, "main": main}
 
 
-def _decode_case(torch, gen, B, H, Hkv, D, ps, P, lengths, holes, dtype):
+# name: (B, H, Hkv, D, ps, P, lengths, holes, zero-scale page). The
+# serving path: 16 rows, 16 heads of 128, page size 32, 512 tokens, ragged
+# lengths with a zero-length row, a parked row (length 1, table all -1, by
+# the holes) and -1 holes in the middle of rows' tables; GQA g = 4; D 64
+# at page size 13; a page whose int8 scales are 0 (zero_scale_page_d64,
+# the int8 route only); hole_chunk: a 300-token row whose pages 4-7 are all
+# -1 (a whole bf16 chunk of holes) beside a parked row; tick_g1 and
+# llama_tick_g1: a serving tick's rows (16-23 tokens, one page a row, and
+# a zero-length row) at gpt3_1p3b's and llama_7b's heads; b1_512: one
+# 512-token row; llama_path_g1: the path's rows at llama_7b's 32 heads,
+# with a chunk of -1 pages in the 512-token row (the kernel's CTAs then
+# take several chunks each).
+DECODE_PATH_LENGTHS = [512, 1, 0, 33, 100, 255, 256, 257, 300, 31, 32, 64,
+                       480, 129, 17, 200]
+TICK_LENGTHS = [16, 17, 18, 19, 20, 21, 22, 23, 16, 17, 18, 19, 20, 21, 22, 0]
+PAGED_CASES = {
+    "path_g1": (16, 16, 16, 128, 32, 16, DECODE_PATH_LENGTHS,
+                [(1, 0), (3, 0), (8, 4)], None),
+    "gqa_g4": (16, 16, 4, 128, 32, 16, DECODE_PATH_LENGTHS, [(12, 7)], None),
+    "gqa_g2_d64_ps13": (5, 8, 4, 64, 13, 10, [130, 1, 0, 77, 14], [(3, 2)],
+                        None),
+    "zero_scale_page_d64": (5, 8, 4, 64, 16, 10, [130, 1, 0, 77, 14], [(3, 2)],
+                            (0, 3)),
+    "hole_chunk": (4, 16, 16, 128, 32, 16, [300, 1, 0, 77],
+                   [(0, 4), (0, 5), (0, 6), (0, 7), (1, 0)], None),
+    "tick_g1": (16, 16, 16, 128, 32, 16, TICK_LENGTHS, [], None),
+    "llama_tick_g1": (16, 32, 32, 128, 32, 16, TICK_LENGTHS, [], None),
+    "b1_512": (1, 16, 16, 128, 32, 16, [512], [], None),
+    "llama_path_g1": (16, 32, 32, 128, 32, 16, DECODE_PATH_LENGTHS,
+                      [(1, 0), (3, 0), (8, 4), (0, 4), (0, 5)], None),
+}
+PAGED_FULL = ["path_g1", "gqa_g4", "gqa_g2_d64_ps13", "hole_chunk", "tick_g1",
+              "llama_tick_g1", "b1_512", "llama_path_g1"]
+PAGED_Q8 = ["path_g1", "gqa_g4", "zero_scale_page_d64", "hole_chunk",
+            "tick_g1", "llama_tick_g1", "b1_512", "llama_path_g1"]
+
+
+def _paged_inputs(torch, name, dtype, q8):
+    """A PAGED_CASES case on the card, from a seed of its own: q, caches
+    (int8: payloads in [-127, 127] and scales that put |K|, |V| up to ~3,
+    the zero-scale page's set to 0), `scales` ((k_scale, v_scale) or
+    None), block tables over the pages in a random order with the holes
+    punched to -1, lengths; then the bytes the call must move (every valid
+    token's K and V row, the int8 scales of each (page, head) read, q, out,
+    tables, lengths) and the valid tokens."""
+    B, H, Hkv, D, ps, P, lengths, holes, zero = PAGED_CASES[name]
+    seed = 100 * list(PAGED_CASES).index(name) + 10 * (dtype == "bfloat16") + q8
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     n_pages = B * P + 1
-    q = torch.randn(B, H, D, device="cuda", generator=gen).to(dtype)
-    kc = torch.randn(n_pages, Hkv, ps, D, device="cuda", generator=gen).to(dtype)
-    vc = torch.randn(n_pages, Hkv, ps, D, device="cuda", generator=gen).to(dtype)
-    perm = np.random.default_rng(1).permutation(np.arange(1, n_pages))
+    q = torch.randn(B, H, D, device="cuda", generator=gen).to(getattr(torch, dtype))
+    scales = None
+    if q8:
+        kc, vc = (torch.randint(-127, 128, (n_pages, Hkv, ps, D), device="cuda",
+                                generator=gen, dtype=torch.int8) for _ in range(2))
+        scales = tuple(0.005 + 0.02 * torch.rand(n_pages, Hkv, device="cuda",
+                                                 generator=gen) for _ in range(2))
+    else:
+        kc, vc = (torch.randn(n_pages, Hkv, ps, D, device="cuda",
+                              generator=gen).to(q.dtype) for _ in range(2))
+    perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
     tables = np.full((B, P), -1, np.int32)
     nxt = 0
     for b, L in enumerate(lengths):
-        for j in range(-(-L // ps)):
+        for j in range(min(P, -(-L // ps))):
             tables[b, j] = perm[nxt]
             nxt += 1
     for b, j in holes:
         tables[b, j] = -1
-    lens = np.asarray(lengths, np.int32)
-    valid = 0  # tokens whose K/V the function must read
-    for b, L in enumerate(lengths):
-        for j in range(P):
-            if tables[b, j] >= 0:
-                valid += max(0, min(ps, L - j * ps))
-    return (q, kc, vc, torch.tensor(tables, device="cuda"),
-            torch.tensor(lens, device="cuda"), valid)
+    if q8 and zero is not None:
+        for sc in scales:
+            sc[int(tables[zero])] = 0.0
+    read = [(b, j) for b, L in enumerate(lengths) for j in range(P)
+            if tables[b, j] >= 0 and j * ps < L]
+    valid = sum(min(ps, lengths[b] - j * ps) for b, j in read)
+    nbytes = (2 * valid * Hkv * D * kc.element_size()
+              + (2 * 4 * len(read) * Hkv if q8 else 0)
+              + 2 * q.numel() * q.element_size() + tables.size * 4 + B * 4)
+    return ((q, kc, vc, torch.tensor(tables, device="cuda"),
+             torch.tensor(lengths, dtype=torch.int32, device="cuda"), scales),
+            nbytes, valid)
 
 
-# serving path: B=16 rows, 16 heads of 128, page size 32, 512 tokens;
-# ragged lengths, a zero-length row, a parked row (length 1, table all -1,
-# by the holes of the cases) and a -1 hole in the middle of a row's table
-DECODE_PATH_LENGTHS = [512, 1, 0, 33, 100, 255, 256, 257, 300, 31, 32, 64,
-                       480, 129, 17, 200]
+def _paged_call(da, q, kc, vc, tables, lens, scales):
+    return da.paged_decode_attention(q, kc, vc, tables, lens, kv_scales=scales)
+
+
+def _paged_plain(da, q, kc, vc, tables, lens, scales):
+    if scales is None:
+        return da.paged_decode_attention_plain(q, kc, vc, tables, lens,
+                                               q.shape[-1] ** -0.5)
+    return da.paged_decode_attention_q8_plain(q, kc, vc, tables, lens,
+                                              q.shape[-1] ** -0.5, *scales)
+
+
+def _paged_violations(torch, da, args, dtype):
+    """What breaks the limits of a paged case `args`: two back-to-back
+    calls, then the plain version. A non-finite value, a row without a
+    readable token (length 0, or every page -1) not exactly zero, max |err|
+    over DECODE_TOL, the second call not bit for bit the first (the
+    arrival counters not reset), counters left non-zero."""
+    out, again = _paged_call(da, *args), _paged_call(da, *args)
+    ref = _paged_plain(da, *args)
+    torch.cuda.synchronize()
+    tables = args[3]
+    err = (out.float() - ref.float()).abs().max().item()
+    bad = []
+    if not torch.isfinite(out.float()).all():
+        bad.append("non-finite output")
+    zero_rows = [b for b in range(tables.shape[0]) if (tables[b] < 0).all()]
+    if any(out[b].abs().max().item() != 0 for b in zero_rows):
+        bad.append("a row without valid tokens is not zero")
+    if not err <= DECODE_TOL[dtype]:
+        bad.append(f"max|err| {err} (tol {DECODE_TOL[dtype]})")
+    if not torch.equal(out.view(torch.uint8), again.view(torch.uint8)):
+        bad.append("a second call is not bit for bit the first")
+    if any(bool(c.any()) for c in da._ARRIVALS.values()):
+        bad.append("arrival counters left non-zero")
+    return bad, err
+
+
+def _check_paged(card, torch, q8):
+    """The paged decode kernel (q8: int8 pages, `kv_scales=`) against its
+    plain version over its PAGED_CASES, q in bf16 (the path) and f32: the
+    limits of `_paged_violations`, then times warm (graph replays) and on a
+    cold L2 (`time_ms_cold`), eager, plain, and the bound. A time under
+    the bound is printed as a finding: the L2 held the pages."""
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    kind = "paged_decode_q8" if q8 else "paged_decode"
+    worst, main = 0.0, None
+    for dtype in ("bfloat16", "float32"):
+        for name in PAGED_Q8 if q8 else PAGED_FULL:
+            B, H, Hkv, D, ps, P = PAGED_CASES[name][:6]
+            args, nbytes, valid = _paged_inputs(torch, name, dtype, q8)
+            bad, err = _paged_violations(torch, da, args, dtype)
+            if bad:
+                raise AssertionError(f"{kind} {name} {dtype}: " + "; ".join(bad))
+            worst = max(worst, err)
+            bnd, by = bound_ms(nbytes, 4 * valid * H * D, dtype)
+            row = dict(case=name, dtype=dtype, B=B, H=H, Hkv=Hkv, D=D, ps=ps,
+                       pages_a_chunk=min(P, da.paged_chunk_pages(
+                           ps, D, args[1].element_size())),
+                       valid_tokens=valid, max_abs_err=err,
+                       tol=DECODE_TOL[dtype],
+                       ms=time_ms(lambda: _paged_call(da, *args)),
+                       cold_ms=time_ms_cold(lambda *a: _paged_call(da, *a), args,
+                                            nbytes),
+                       eager_ms=eager_ms(lambda: _paged_call(da, *args)),
+                       plain_ms=time_ms(lambda: _paged_plain(da, *args),
+                                        reps=5, inner=3),
+                       bound_ms=bnd, bound_by=by, library_ms=None)
+            say(card, f"{kind} " + json.dumps(row))
+            for t in ("ms", "cold_ms"):
+                if row[t] is not None and row[t] < bnd:
+                    say(card, f"{kind} finding: {name} {dtype} {t} {row[t]} "
+                              f"under its bound {bnd} ms: the L2 held pages")
+            if (name, dtype) == ("path_g1", "bfloat16"):
+                main = row
+            del args
+    torch.cuda.empty_cache()
+    say(card, f"{kind} library_ms: none; no single PyTorch call attends "
+              + ("over int8 pages " if q8 else "") + "through a block table "
+              "over a paged cache")
+    return {"worst": worst, "main": main}
 
 
 def check_decode(card, torch):
-    from paddle_tpu_torch.ops import decode_attention as da
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = {
-        "path_g1": (16, 16, 16, 128, 32, 16, DECODE_PATH_LENGTHS,
-                    [(1, 0), (3, 0), (8, 4)]),
-        "gqa_g4": (16, 16, 4, 128, 32, 16, DECODE_PATH_LENGTHS, [(12, 7)]),
-        "gqa_g2_d64_ps13": (5, 8, 4, 64, 13, 10, [130, 1, 0, 77, 14], [(3, 2)]),
-    }
-    worst = 0.0
-    main = None
-    for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        for name, (B, H, Hkv, D, ps, P, lengths, holes) in cases.items():
-            q, kc, vc, tables, lens, valid = _decode_case(
-                torch, gen, B, H, Hkv, D, ps, P, lengths, holes, dt)
-            out = da.paged_decode_attention(q, kc, vc, tables, lens)
-            ref = da.paged_decode_attention_plain(q, kc, vc, tables, lens,
-                                                  D ** -0.5)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out.float()).all():
-                raise AssertionError(f"paged_decode {name} {dtype}: non-finite output")
-            # rows with no readable token: zero length, or every page -1
-            # (row 1 of path_g1 is a parked row: length 1, table all -1)
-            zero_rows = [b for b in range(B) if (tables[b] < 0).all()]
-            if any(out[b].abs().max().item() != 0 for b in zero_rows):
-                raise AssertionError(f"paged_decode {name} {dtype}: a row "
-                                     "without valid tokens is not zero")
-            err = (out.float() - ref.float()).abs().max().item()
-            if not err <= DECODE_TOL[dtype]:
-                raise AssertionError(
-                    f"paged_decode {name} {dtype}: max|err| {err} "
-                    f"(tol {DECODE_TOL[dtype]})")
-            worst = max(worst, err)
-            es = q.element_size()
-            nbytes = (2 * valid * Hkv * D * es + 2 * q.numel() * es
-                      + tables.numel() * 4 + lens.numel() * 4)
-            ops = 4 * valid * (H // Hkv) * Hkv * D
-            bnd, by = bound_ms(nbytes, ops, dtype)
-            k_ms = time_ms(lambda: da.paged_decode_attention(q, kc, vc, tables, lens))
-            k_eager = eager_ms(lambda: da.paged_decode_attention(q, kc, vc, tables, lens))
-            p_ms = time_ms(lambda: da.paged_decode_attention_plain(
-                q, kc, vc, tables, lens, D ** -0.5), reps=5, inner=3)
-            row = dict(case=name, dtype=dtype, B=B, H=H, Hkv=Hkv, D=D, ps=ps,
-                       valid_tokens=valid, max_abs_err=err,
-                       tol=DECODE_TOL[dtype], ms=k_ms, eager_ms=k_eager,
-                       plain_ms=p_ms,
-                       bound_ms=bnd, bound_by=by, library_ms=None)
-            say(card, "paged_decode " + json.dumps(row))
-            if (name, dtype) == ("path_g1", "bfloat16"):
-                main = row
-    say(card, "paged_decode library_ms: none; no single PyTorch call attends "
-              "through a block table over a paged cache")
-    return {"worst": worst, "main": main}
-
-
-def _q8_case(torch, gen, B, H, Hkv, D, ps, P, lengths, holes, zero_scale,
-             dtype):
-    """An int8 paged case: random payloads in [-127, 127] and scales
-    (|K|, |V| up to ~3), block tables as `_decode_case` builds them, the
-    scales of the page at `zero_scale` (row, logical page) set to 0. Also
-    returns the valid tokens and the (page, head) scale pairs read."""
-    q, _, _, tables, lens, valid = _decode_case(torch, gen, B, H, Hkv, D, ps,
-                                                P, lengths, holes, dtype)
-    n_pages = B * P + 1
-    kc = torch.randint(-127, 128, (n_pages, Hkv, ps, D), device="cuda",
-                       generator=gen, dtype=torch.int8)
-    vc = torch.randint(-127, 128, (n_pages, Hkv, ps, D), device="cuda",
-                       generator=gen, dtype=torch.int8)
-    ks = 0.005 + 0.02 * torch.rand(n_pages, Hkv, device="cuda", generator=gen)
-    vs = 0.005 + 0.02 * torch.rand(n_pages, Hkv, device="cuda", generator=gen)
-    if zero_scale is not None:
-        page = int(tables[zero_scale])
-        ks[page] = 0.0
-        vs[page] = 0.0
-    tab = tables.cpu().numpy()
-    pages_read = sum(1 for b, L in enumerate(lengths) for j in range(P)
-                     if tab[b, j] >= 0 and j * ps < L)
-    return q, kc, vc, ks, vs, tables, lens, valid, pages_read
+    """The full-precision paged decode kernel: `_check_paged`."""
+    return _check_paged(card, torch, q8=False)
 
 
 def check_decode_q8(card, torch):
-    """The int8 paged decode kernel (`kv_scales=`) against its plain
-    version: the serving path's shape (B 16, 16 heads of 128, page size 32,
-    the ragged lengths of check_decode with a zero-length row, a parked row
-    and -1 holes), GQA g = 4, and a page whose scales are 0; q in bf16 (the
-    path) and f32."""
-    from paddle_tpu_torch.ops import decode_attention as da
-
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = {
-        "path_g1": (16, 16, 16, 128, 32, 16, DECODE_PATH_LENGTHS,
-                    [(1, 0), (3, 0), (8, 4)], None),
-        "gqa_g4": (16, 16, 4, 128, 32, 16, DECODE_PATH_LENGTHS, [(12, 7)],
-                   None),
-        "zero_scale_page_d64": (5, 8, 4, 64, 16, 10, [130, 1, 0, 77, 14],
-                                [(3, 2)], (0, 3)),
-    }
-    worst, main = 0.0, None
-    for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        for name, (B, H, Hkv, D, ps, P, lengths, holes, zero) in cases.items():
-            q, kc, vc, ks, vs, tables, lens, valid, pages_read = _q8_case(
-                torch, gen, B, H, Hkv, D, ps, P, lengths, holes, zero, dt)
-            out = da.paged_decode_attention(q, kc, vc, tables, lens,
-                                            kv_scales=(ks, vs))
-            ref = da.paged_decode_attention_q8_plain(q, kc, vc, tables, lens,
-                                                     D ** -0.5, ks, vs)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out.float()).all():
-                raise AssertionError(f"paged_decode_q8 {name} {dtype}: "
-                                     "non-finite output")
-            zero_rows = [b for b in range(B) if (tables[b] < 0).all()]
-            if any(out[b].abs().max().item() != 0 for b in zero_rows):
-                raise AssertionError(f"paged_decode_q8 {name} {dtype}: a row "
-                                     "without valid tokens is not zero")
-            err = (out.float() - ref.float()).abs().max().item()
-            if not err <= DECODE_TOL[dtype]:
-                raise AssertionError(f"paged_decode_q8 {name} {dtype}: "
-                                     f"max|err| {err} (tol {DECODE_TOL[dtype]})")
-            worst = max(worst, err)
-            es = q.element_size()
-            nbytes = (2 * valid * Hkv * D + 2 * 4 * pages_read * Hkv
-                      + 2 * q.numel() * es + tables.numel() * 4
-                      + lens.numel() * 4)
-            bnd, by = bound_ms(nbytes, 4 * valid * H * D, dtype)
-            call = lambda: da.paged_decode_attention(  # noqa: E731
-                q, kc, vc, tables, lens, kv_scales=(ks, vs))
-            row = dict(case=name, dtype=dtype, B=B, H=H, Hkv=Hkv, D=D, ps=ps,
-                       valid_tokens=valid, max_abs_err=err,
-                       tol=DECODE_TOL[dtype], ms=time_ms(call),
-                       eager_ms=eager_ms(call),
-                       plain_ms=time_ms(lambda: da.paged_decode_attention_q8_plain(
-                           q, kc, vc, tables, lens, D ** -0.5, ks, vs),
-                           reps=5, inner=3),
-                       bound_ms=bnd, bound_by=by, library_ms=None)
-            say(card, "paged_decode_q8 " + json.dumps(row))
-            if (name, dtype) == ("path_g1", "bfloat16"):
-                main = row
-    say(card, "paged_decode_q8 library_ms: none; no single PyTorch call "
-              "attends over int8 pages through a block table")
-    return {"worst": worst, "main": main}
+    """The int8 paged decode kernel: `_check_paged`."""
+    return _check_paged(card, torch, q8=True)
 
 
 # name: (B, H, Hkv, D, S_max, lengths)
@@ -2043,13 +2104,29 @@ KERNEL_FAULTS = {
         "dense_decode.cu", "decode_split_kernel(",
         "const int nv = min(chunk, length - c0);",
         "const int nv = min(chunk, s_max - c0);", "dense_decode odd_s_max_d64"),
+    "paged decode: the combine drops a chunk's rescale exp(m_i - M)": (
+        "decode_attention.cu", "float chunk_weight(", "return expf(m - top);",
+        "return 1.f;", "paged_decode path_g1"),
+    "paged decode: a live chunk of -1 pages exits without arriving": (
+        "decode_attention.cu", "paged_split_kernel(",
+        "if (loaded) sm90::mbar_wait(&bars[0], phase);",
+        "if (!loaded) return;\n    sm90::mbar_wait(&bars[0], phase);",
+        "paged_decode hole_chunk"),
+    "paged decode: the last chunk to arrive leaves its counter set": (
+        "decode_attention.cu", "paged_split_kernel(",
+        "if (tid == 0) *arrived = 0;", "", "paged_decode path_g1"),
+    "paged decode int8: probabilities take the chunk's first page's v_scale": (
+        "decode_attention.cu", "paged_split_kernel(",
+        "const float vsc = kQ8 ? vs_s[s] : 1.f;",
+        "const float vsc = kQ8 ? vs_s[0] : 1.f;", "paged_decode_q8 path_g1"),
 }
 
 
 def _fault_violations(torch, case):
     """Phase 2's violations at a fault's case ("flash <FLASH_CASES name>",
     "varlen <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>",
-    "dense_decode <DENSE_CASES name>" in bf16, "norm <R>x<N> <kind>
+    "dense_decode <DENSE_CASES name>", "paged_decode <PAGED_FULL name>" or
+    "paged_decode_q8 <PAGED_Q8 name>" in bf16, "norm <R>x<N> <kind>
     <dtype>", or a FLASHMASK_CASES name), run on the library load_library()
     holds."""
     from paddle_tpu_torch.ops import decode_attention as da
@@ -2058,6 +2135,12 @@ def _fault_violations(torch, case):
     from paddle_tpu_torch.ops import masked_flash as mf
 
     kind, _, name = case.partition(" ")
+    if kind in ("paged_decode", "paged_decode_q8"):
+        da._ARRIVALS.clear()  # counters a fault left set go with it
+        args = _paged_inputs(torch, name, "bfloat16", kind == "paged_decode_q8")[0]
+        bad = _paged_violations(torch, da, args, "bfloat16")[0]
+        da._ARRIVALS.clear()
+        return bad
     if kind == "norm":
         from paddle_tpu_torch.ops import fused_norm as fn
 
@@ -2118,6 +2201,7 @@ def planted_kernel_faults(card, torch):
     from concurrent.futures import ThreadPoolExecutor
 
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import decode_attention as da
 
     sound = _build.load_library()
     passed = []
@@ -2154,6 +2238,7 @@ def planted_kernel_faults(card, torch):
                 torch.cuda.empty_cache()
         finally:
             _build._LIB = sound
+            da._ARRIVALS.clear()
     if passed:
         raise AssertionError(f"the kernel limits pass faulty kernels: {passed}")
 
@@ -3095,10 +3180,11 @@ def train(card, torch, which):
 
 # the kernels of csrc/ by name, as torch.profiler reports them (the sm90
 # ones: flash_fwd_sm90_kernel, flash_bwd_dq_sm90_kernel,
-# flash_bwd_dkv_sm90_kernel, gg_sm90_kernel; the decodes: decode_tile_,
+# flash_bwd_dkv_sm90_kernel, gg_sm90_kernel; the decodes: paged_split_,
 # decode_split_ and decode_combine_kernel; varlen_classes_kernel)
 PORT_KERNEL = re.compile(
-    r"^void \(anonymous namespace\)::(sm90::)?(flash_|norm_|decode_|rope_|gg_|varlen_)")
+    r"^void \(anonymous namespace\)::(sm90::)?"
+    r"(flash_|norm_|decode_|paged_|rope_|gg_|varlen_)")
 
 
 def profile_step(card, torch, fn, what):
@@ -3493,6 +3579,8 @@ def main():
     say(card, f"build: {time.perf_counter() - t0:.2f} s")
     say(card, "ptxas " + json.dumps(ptxas_summary(_build.BUILD_LOG)))
     sm90_report(card, _build.build_library(), _build.BUILD_LOG)
+    say(card, "paged_split_kernel ptxas " + json.dumps(
+        ptxas_kernels(_build.BUILD_LOG, "paged_split_kernel")))
 
     norm = check_norm(card, torch)
     norm_dx = check_norm_dx(card, torch)
@@ -3581,6 +3669,8 @@ def main():
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+        if "cold_ms" in main_row:
+            kernels[-1]["cold_ms"] = main_row["cold_ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 // Device primitives of the port's Hopper (sm_90a) kernels, shared by the
 // attention forward (flash_fwd_sm90.cuh), the attention backward
-// (flash_bwd_sm90.cuh) and the grouped GEMM (grouped_gemm_sm90.cuh):
+// (flash_bwd_sm90.cuh), the grouped GEMM (grouped_gemm_sm90.cuh) and the
+// paged decode (decode_attention.cu):
 // mbarriers whose waits trap instead of hanging, TMA loads of 4-d tensor
-// maps and their host-side encoding, wgmma shared-memory descriptors of
+// maps and their host-side encoding, bulk copies of contiguous bytes
+// (no tensor map), wgmma shared-memory descriptors of
 // 128-byte-swizzled tiles, and the wgmma products the kernels issue:
 //   - SS, both operands K-major in shared memory: m64n128k16
 //     (`wgmma_ss_n128`) and m64n64k16 (`wgmma_ss_n64`);
@@ -76,6 +78,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory into shared memory, the bulk
+// copy without a tensor map (both addresses 16-byte aligned, `bytes` a
+// multiple of 16); completes `bytes` on the barrier
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

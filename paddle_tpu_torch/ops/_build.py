@@ -56,16 +56,16 @@ _SIGNATURES = {
     # x, w, b, out, rstd, mean, rows, n, eps, x_dtype, w_dtype, kind, stream
     "ptt_norm_fwd": [_c_void_p] * 6 + [_c_ll, _c_int, _c_float, _c_int,
                                        _c_int, _c_int, _c_void_p],
-    # q, kc, vc, tables, lengths, out, B, Hkv, g, D, ps, P, scale, dtype,
-    # stream
-    "ptt_paged_decode_attention": [_c_void_p] * 6 + [_c_int] * 6
+    # q, kc, vc, tables, lengths, ws, arrivals, out, B, Hkv, g, D, ps, P,
+    # ppc, scale, dtype, stream
+    "ptt_paged_decode_attention": [_c_void_p] * 8 + [_c_int] * 7
     + [_c_float, _c_int, _c_void_p],
     # x, w, dy, rstd, mean, dx, rows, n, x_dtype, w_dtype, kind, stream
     "ptt_norm_bwd_dx": [_c_void_p] * 6 + [_c_ll, _c_int, _c_int, _c_int,
                                           _c_int, _c_void_p],
-    # q, kc, vc, k_scale, v_scale, tables, lengths, out, B, Hkv, g, D, ps,
-    # P, scale, dtype, stream
-    "ptt_paged_decode_attention_q8": [_c_void_p] * 8 + [_c_int] * 6
+    # q, kc, vc, k_scale, v_scale, tables, lengths, ws, arrivals, out, B,
+    # Hkv, g, D, ps, P, ppc, scale, dtype, stream
+    "ptt_paged_decode_attention_q8": [_c_void_p] * 10 + [_c_int] * 7
     + [_c_float, _c_int, _c_void_p],
     # q, kc, vc, lengths, ws, out, B, Hkv, g, D, s_max, chunk, scale, dtype,
     # stream

@@ -6,11 +6,16 @@ tensors and running its plain PyTorch version (same semantics) on CPU
 tensors:
 
 - `paged_decode_attention` over a paged cache `[n_pages, Hkv, page_size, D]`
-  through a block table (`csrc/decode_attention.cu`): full precision →
-  `decode_tile_kernel<T, T>` (`paged_decode_attention_plain`, counter
-  `LAUNCHES`); int8 pages with per-(page, head) f32 scales (`kv_scales=`) →
-  `decode_tile_kernel<T, int8>` (`paged_decode_attention_q8_plain`, counter
-  `Q8_LAUNCHES`);
+  through a block table (`csrc/decode_attention.cu`): one kernel template
+  `paged_split_kernel<T, KV>`, split over chunks of `paged_chunk_pages`
+  pages and combined in the same launch (the last chunk of a row to arrive
+  sums the others' f32 partials from a workspace, counted by per-device
+  arrival counters that each call leaves at zero). Full precision →
+  `<T, T>` (`paged_decode_attention_plain`, counter `LAUNCHES`); int8 pages
+  with per-(page, head) f32 scales (`kv_scales=`) → `<T, int8>`
+  (`paged_decode_attention_q8_plain`, counter `Q8_LAUNCHES`).
+  `paged_decode_partials_plain`, `paged_live_chunks_plain` and
+  `dense_decode_combine_plain` are the plain form of that split;
 - `dense_decode_attention` over a dense cache `[B, Hkv, S_max, D]` (the
   MMHA path) → `csrc/dense_decode.cu`, split over the sequence in chunks of
   `dense_chunk` tokens: `decode_split_kernel<T>` writes each chunk's f32
@@ -40,10 +45,10 @@ from . import _build
 __all__ = ["DENSE_LAUNCHES", "KV_QMAX", "LAUNCHES", "NEG_INF", "Q8_LAUNCHES",
            "dense_chunk", "dense_decode_attention",
            "dense_decode_attention_plain", "dense_decode_combine_plain",
-           "dense_decode_partials_plain",
+           "dense_decode_partials_plain", "paged_chunk_pages",
            "paged_decode_attention", "paged_decode_attention_plain",
-           "paged_decode_attention_q8_plain", "paged_kv_write",
-           "paged_kv_write_q8"]
+           "paged_decode_attention_q8_plain", "paged_decode_partials_plain",
+           "paged_kv_write", "paged_kv_write_q8", "paged_live_chunks_plain"]
 
 # symmetric int8 range of the quantized page layout: ±127 (not -128), so
 # the running-max rescale of paged_kv_write_q8 never overflows
@@ -54,6 +59,33 @@ NEG_INF = -1e30  # paddle_tpu/ops/pallas/flash_attention.py NEG_INF
 LAUNCHES = 0        # paged, full precision
 Q8_LAUNCHES = 0     # paged, int8 pages
 DENSE_LAUNCHES = 0  # dense cache
+
+
+# shared memory one CTA may use on an H100 (232,448 bytes)
+_SMEM_PER_BLOCK = 227 * 1024
+
+# The paged kernel's scratch, per device, grown when a call needs more:
+# the f32 workspace of its chunks' partials, and the int32 arrival
+# counters of its in-launch combine, one per (row, kv head), zeroed once
+# when allocated and left at zero by every call (the last chunk of a row to
+# arrive resets its counter). So no call allocates or pays a memset, and a
+# CUDA graph may capture the call. Calls on one device share them: they
+# must not overlap on two streams.
+_WORKSPACE = {}
+_ARRIVALS = {}
+
+
+def _scratch(store, device, n, dtype):
+    buf = store.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode_attention: call it once at this batch size "
+                "outside CUDA graph capture first (it allocates its scratch "
+                "then)")
+        buf = torch.zeros(n, dtype=dtype, device=device)
+        store[device] = buf
+    return buf
 
 
 def _attend_plain(q, k, v, valid, scale):
@@ -116,6 +148,57 @@ def paged_decode_attention_q8_plain(q, key_cache, value_cache, block_tables,
                          _gather_pages(value_cache, pages, v_scale),
                          _paged_valid(block_tables, lengths,
                                       key_cache.shape[2]), scale)
+
+
+def paged_chunk_pages(ps, D, kv_itemsize):
+    """Pages of a chunk of the paged kernel: the most whose K and V rows
+    take at most 32 KB of shared memory together, and at least one.
+    Counted in pages, never tokens: any page size works. 32 KB, not 64:
+    on an H100 the serving path's rows and ticks ran faster with twice the
+    CTAs of half the size (PERF.md)."""
+    return max(1, (32 * 1024) // (2 * ps * D * kv_itemsize))
+
+
+def paged_live_chunks_plain(lengths, P, ps, ppc):
+    """Chunks of `ppc` pages that hold tokens of each row: ceil(min(length,
+    P * ps) / (ppc * ps)), 0 for a row of length 0. -> int64 [B]."""
+    span = ppc * ps
+    return (lengths.long().clamp(0, P * ps) + span - 1) // span
+
+
+def paged_decode_partials_plain(q, key_cache, value_cache, block_tables,
+                                lengths, scale, ppc, kv_scales=None):
+    """The paged kernel's split as plain PyTorch: per chunk of `ppc` pages
+    of the block table, in f32, m = the largest score of its valid tokens
+    (before the length, on a page with an entry >= 0), l = sum exp(s - m)
+    and acc = sum exp(s - m) v (unnormalised). With `kv_scales` the int8
+    pages are dequantized per (page, head) first. A chunk with no valid
+    token (past the length, or all -1 pages) has m = NEG_INF, l = 0 and
+    acc = 0. `dense_decode_combine_plain` sums them into the output.
+    Returns m, l [B, H, C] and acc [B, H, C, D], C = max(1, ceil(P / ppc))."""
+    B, H, D = q.shape
+    _, Hkv, ps, _ = key_cache.shape
+    P = block_tables.shape[1]
+    n = max(1, -(-P // ppc))
+    span = ppc * ps
+    pages = block_tables.long().clamp(min=0)
+    ks, vs = kv_scales if kv_scales is not None else (None, None)
+    pad = n * span - P * ps
+    k = torch.nn.functional.pad(_gather_pages(key_cache, pages, ks),
+                                (0, 0, 0, pad))
+    v = torch.nn.functional.pad(_gather_pages(value_cache, pages, vs),
+                                (0, 0, 0, pad))
+    valid = torch.nn.functional.pad(_paged_valid(block_tables, lengths, ps),
+                                    (0, pad)).reshape(B, 1, 1, n, span)
+    q4 = q.reshape(B, Hkv, H // Hkv, D).float()
+    s = (torch.einsum("bhgd,bhtd->bhgt", q4, k) * scale).reshape(
+        B, Hkv, H // Hkv, n, span)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bhgnt,bhntd->bhgnd", p, v.reshape(B, Hkv, n, span, D))
+    return (m.reshape(B, H, n), p.sum(-1).reshape(B, H, n),
+            acc.reshape(B, H, n, D))
 
 
 def dense_decode_attention_plain(q, key_cache, value_cache, lengths, scale):
@@ -271,24 +354,34 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables, lengths,
     quantized = kv_scales is not None
     _cuda_ready("paged_decode_attention", q,
                 (key_cache, value_cache, *scales), (block_tables, lengths))
+    es = key_cache.element_size()
+    if D * es > 2048 or 2 * ps * D * es > _SMEM_PER_BLOCK:
+        raise ValueError(
+            f"paged_decode_attention: the kernel takes rows of at most 2 KB "
+            f"and pages whose K and V fit {_SMEM_PER_BLOCK} bytes of shared "
+            f"memory, got {ps} rows of D = {D} in {key_cache.dtype}")
+    P = block_tables.shape[1]
+    ppc = min(paged_chunk_pages(ps, D, es), max(P, 1))
+    n_chunks = max(1, -(-P // ppc))
     out = torch.empty_like(q)
     if B == 0:
         return out
+    ws = _scratch(_WORKSPACE, q.device, B * H * n_chunks * (D + 2),
+                  torch.float32)
+    arrivals = _scratch(_ARRIVALS, q.device, B * Hkv, torch.int32)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr())
-    dims = (B, Hkv, H // Hkv, D, ps, block_tables.shape[1], float(scale),
-            _build.DTYPE_CODES[str(q.dtype)], stream)
+    tail = (block_tables.data_ptr(), lengths.data_ptr(), ws.data_ptr(),
+            arrivals.data_ptr(), out.data_ptr(), B, Hkv, H // Hkv, D, ps, P,
+            ppc, float(scale), _build.DTYPE_CODES[str(q.dtype)], stream)
     if quantized:
         err = lib.ptt_paged_decode_attention_q8(
-            *ptrs, scales[0].data_ptr(), scales[1].data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *dims)
+            *ptrs, scales[0].data_ptr(), scales[1].data_ptr(), *tail)
         _build.check(err, "ptt_paged_decode_attention_q8")
         Q8_LAUNCHES += 1
     else:
-        err = lib.ptt_paged_decode_attention(
-            *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), *dims)
+        err = lib.ptt_paged_decode_attention(*ptrs, *tail)
         _build.check(err, "ptt_paged_decode_attention")
         LAUNCHES += 1
     return out
