@@ -14,7 +14,8 @@ Phases; any failure raises and the script exits non-zero:
                 (weights read as they are and transposed): registers and
                 spills from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
                 instructions from `cuobjdump -sass`; none may spill or
-                lack either.
+                lack either. The fused RoPE's twelve instantiations
+                (`fused_rope ptxas`): registers and spills; none may spill.
 2. kernels    — each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes its path gives it and a few edge
                 shapes, in float32 and bfloat16: max error against a stated
@@ -27,7 +28,8 @@ Phases; any failure raises and the script exits non-zero:
                 function where there is one. Fused norm forward (the
                 serving rows, the three training steps' f32 rows, rows at a
                 mean of 1000, an odd width, a row past the register
-                design's 8192 elements) and dx,
+                design's 8192 elements) and dx (also at the three training
+                steps' f32 rows),
                 paged decode attention (full precision and int8 pages, with
                 g = 4, a zero-length row, -1 table entries, a live chunk of
                 -1 pages, a page whose scales are 0, a serving tick's
@@ -46,8 +48,11 @@ Phases; any failure raises and the script exits non-zero:
                 functions (dQ, and dK, dV of the kv heads), the
                 flash forward at the dense engine's decode shape (Sq = 1),
                 fused RoPE (forward and backward, neox and interleaved,
-                q + k at 32/8 heads, the decode shape with a table per row,
-                a ragged S), flashmask forward, dq and dk/dv (the LLaMA
+                q + k at 32/8 heads in bf16, f32 and f16, the decode and
+                prefill shapes with a table per row, a ragged S, and the
+                scalar route at D 36 and on a view at an odd 2-byte
+                offset; each case's route, grid and share of its bound
+                printed), flashmask forward, dq and dk/dv (the LLaMA
                 step's trivial causal index at B 4 x 2048 with 32/8 heads,
                 and document masks: causal n = 1 and n = 2, non-causal
                 n = 2 and n = 4 (n = 2 and rows that keep no key in bf16
@@ -94,7 +99,10 @@ Phases; any failure raises and the script exits non-zero:
                 without a chunk's rescale, a live chunk of -1 pages exiting
                 without arriving, the last chunk leaving its arrival
                 counter set, int8 probabilities taking the chunk's first
-                page's v_scale): at its case every one must
+                page's v_scale; RoPE: the neox second half read one vector
+                late, the table row taken as 0 with a table per row, the
+                head chunk's start off by one where it crosses from q into
+                k): at its case every one must
                 fail the limits of phase 2. Only the sources a fault
                 touches are compiled again.
 2c. clocks    — the varlen dQ and dK/dV at the path's shape rebuilt with
@@ -288,8 +296,9 @@ TRAIN_HOLD_GRAD_TOL = 1e-3
 # RoPE kernel vs plain: both compute x_a c - x_b s and x_b c + x_a s in f32
 # with one rounding per product and sum (the kernel uses no fused
 # multiply-add) and round once to the tensor's dtype, so they should agree
-# bit for bit; the limit allows one ulp at |x| < 8 (f32 5e-7, bf16 2^-5).
-ROPE_TOL = {"float32": 1e-6, "bfloat16": 2 ** -5}
+# bit for bit; the limit allows one ulp at |x| < 8 (f32 5e-7, bf16 2^-5,
+# f16 2^-8).
+ROPE_TOL = {"float32": 1e-6, "bfloat16": 2 ** -5, "float16": 2 ** -8}
 
 
 def card_line():
@@ -406,15 +415,17 @@ def ptxas_summary(log):
             "spill_store_bytes": spills}
 
 
-def ptxas_kernels(log, prefix):
+def ptxas_kernels(log, prefix, name_of=None):
     """Registers and spill-store bytes of each instantiation (its mangled
     template arguments kept) of the kernel named `prefix`, from nvcc's
-    `-Xptxas -v` report (`log`, empty if this process did not build)."""
+    `-Xptxas -v` report (`log`, empty if this process did not build).
+    `name_of`, if given, names an instantiation from its "Compiling entry
+    function" line instead (None: not one of these kernels)."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(rf"\d({prefix})(I\w*?E)?", ln)
-            name = "".join(m.groups("")) if m else None
+            m = None if name_of else re.search(rf"\d({prefix})(I\w*?E)?", ln)
+            name = name_of(ln) if name_of else ("".join(m.groups("")) if m else None)
             if name:
                 out[name] = {}
         elif name and "bytes spill stores" in ln:
@@ -990,62 +1001,138 @@ def check_flash_decode(card, torch):
     return row
 
 
+# name: (B, S, heads, D, table rows, interleaved, dtype, offset): q and k
+# at the LLaMA-7B-shape training step (B 4, S 2048, 32 and 8 heads of 128,
+# per-row tables, as the model builds them from position_ids) in bf16 (the
+# path), f32 and f16, interleaved pairs, the llama_7b decode tick (B 16,
+# one token, 32 + 32 heads, a table per row) and prefill (B 1, S 192, as
+# the engine calls it), a ragged S with three tensors and one shared
+# table, and the scalar route: D 36 (D/2 not a multiple of a vector) and
+# every tensor a contiguous view `offset` elements (2 bytes) off the
+# 16-byte line.
+ROPE_CASES = {
+    "train_neox": (4, 2048, (32, 8), 128, 4, False, "bfloat16", 0),
+    "train_neox_f32": (4, 2048, (32, 8), 128, 4, False, "float32", 0),
+    "train_interleaved": (4, 2048, (32, 8), 128, 4, True, "bfloat16", 0),
+    "decode_per_row": (16, 1, (32, 32), 128, 16, False, "bfloat16", 0),
+    "ragged_s37_qkv_shared_d64": (3, 37, (8, 2, 2), 64, 1, True, "float32", 0),
+    "prefill_per_row": (1, 192, (32, 32), 128, 1, False, "bfloat16", 0),
+    "train_neox_f16": (4, 2048, (32, 8), 128, 4, False, "float16", 0),
+    "d36_scalar": (2, 512, (16, 4), 36, 2, False, "bfloat16", 0),
+    "odd_offset_scalar": (4, 512, (32, 8), 128, 4, False, "bfloat16", 1),
+}
+# elements past each tensor's end in `_rope_inputs`: a planted fault that
+# reads one vector past a head reads memory of its case
+ROPE_SPARE = 64
+
+
+def _rope_inputs(torch, gen, name):
+    """The case's tensors (each cut from a buffer `offset` elements in,
+    ROPE_SPARE elements longer) and its tables."""
+    B, S, heads, D, Bt, _, dtype, off = ROPE_CASES[name]
+    dt = getattr(torch, dtype)
+    xs = []
+    for h in heads:
+        n = B * S * h * D
+        buf = (2 * torch.randn(n + off + ROPE_SPARE, device="cuda",
+                               generator=gen)).to(dt)
+        xs.append(buf[off:off + n].view(B, S, h, D))
+    ang = 2048 * torch.rand(Bt, S, D // 2, device="cuda", generator=gen)
+    return xs, torch.cos(ang), torch.sin(ang)
+
+
+def _rope_errors(torch, fr, name, xs, c, s):
+    """max |kernel - plain| over the forward and the backward (sin
+    negated), NaN where the kernel wrote a non-finite value."""
+    il = ROPE_CASES[name][5]
+    err = 0.0
+    for sign in (1.0, -1.0):
+        got = fr.rope(xs, c, s, il, sin_sign=sign)
+        ref = fr.rope_plain(xs, c, s, il, sin_sign=sign)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            d = (a.float() - b.float()).abs()
+            err = max(err, d.max().item()) if torch.isfinite(d).all() else math.nan
+    return err
+
+
+def _rope_violations(torch, fr, name, xs, c, s):
+    dtype = ROPE_CASES[name][6]
+    err = _rope_errors(torch, fr, name, xs, c, s)
+    return err, ([] if err <= ROPE_TOL[dtype] else
+                 [f"fused_rope {name}: max|err| {err} (tol {ROPE_TOL[dtype]})"])
+
+
 def check_rope(card, torch):
     """The fused-RoPE kernel against its plain version, forward and
-    backward (sin negated): q and k in one launch at the LLaMA-7B-shape
-    training step (B 4, S 2048, 32 and 8 heads of 128, per-row tables, as
-    the model builds them from position_ids) in bf16 (the path) and f32,
-    interleaved pairs, the llama_7b decode step (B 16, one token, 32 + 32
-    heads, a table per row), and a ragged S with three tensors and one
-    shared table. No single PyTorch call computes it: library_ms is
-    null."""
+    backward (sin negated), at ROPE_CASES; each case's route (16-byte
+    vectors or scalar), its grid (`ops.fused_rope.rope_plan`), its bound
+    and its share of it. The kernel and the plain version round alike, so
+    max|err| should be 0 (`bit_exact`); ROPE_TOL is the limit. No single
+    PyTorch call computes it: library_ms is null."""
     from paddle_tpu_torch.ops import fused_rope as fr
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    # name: (B, S, heads, D, table rows, interleaved, dtype)
-    cases = {
-        "train_neox": (4, 2048, (32, 8), 128, 4, False, "bfloat16"),
-        "train_neox_f32": (4, 2048, (32, 8), 128, 4, False, "float32"),
-        "train_interleaved": (4, 2048, (32, 8), 128, 4, True, "bfloat16"),
-        "decode_per_row": (16, 1, (32, 32), 128, 16, False, "bfloat16"),
-        "ragged_s37_qkv_shared_d64": (3, 37, (8, 2, 2), 64, 1, True, "float32"),
-    }
-    worst, main = 0.0, None
-    for name, (B, S, heads, D, Bt, il, dtype) in cases.items():
-        dt = getattr(torch, dtype)
-        xs = [(2 * torch.randn(B, S, h, D, device="cuda", generator=gen)).to(dt)
-              for h in heads]
-        ang = 2048 * torch.rand(Bt, S, D // 2, device="cuda", generator=gen)
-        c, s = torch.cos(ang), torch.sin(ang)
-        err = 0.0
-        for sign in (1.0, -1.0):
-            got = fr.rope(xs, c, s, il, sin_sign=sign)
-            ref = fr.rope_plain(xs, c, s, il, sin_sign=sign)
-            torch.cuda.synchronize()
-            err = max([err] + [(a.float() - b.float()).abs().max().item()
-                               for a, b in zip(got, ref)])
-        if not err <= ROPE_TOL[dtype]:
-            raise AssertionError(f"fused_rope {name}: max|err| {err} "
-                                 f"(tol {ROPE_TOL[dtype]})")
+    worst, main, bad = 0.0, None, []
+    for name, (B, S, heads, D, Bt, il, dtype, _) in ROPE_CASES.items():
+        xs, c, s = _rope_inputs(torch, gen, name)
+        err, why = _rope_violations(torch, fr, name, xs, c, s)
+        bad += why
         worst = max(worst, err)
         es = xs[0].element_size()
+        aligned = all(t.data_ptr() % 16 == 0 for t in (*xs, c, s))
+        plan = fr.rope_plan(B, S, heads, D, es, aligned)
         pairs = sum(x.numel() for x in xs) // 2
         nbytes = 2 * 2 * pairs * es + 2 * c.numel() * 4
         bnd, by = bound_ms(nbytes, 6 * pairs, "float32")
         call = lambda: fr.rope(xs, c, s, il)  # noqa: E731
+        ms = time_ms(call)
         row = dict(case=name, dtype=dtype, B=B, S=S, heads=list(heads), D=D,
-                   table_rows=Bt, interleaved=il, max_abs_err=err,
-                   tol=ROPE_TOL[dtype], ms=time_ms(call), eager_ms=eager_ms(call),
+                   table_rows=Bt, interleaved=il,
+                   route="vector" if plan.vector > 1 else "scalar",
+                   grid=list(plan.grid), block=list(plan.block),
+                   heads_per_thread=plan.heads_per_thread,
+                   max_abs_err=err, bit_exact=err == 0.0, tol=ROPE_TOL[dtype],
+                   ms=ms, eager_ms=eager_ms(call),
                    plain_ms=time_ms(lambda: fr.rope_plain(xs, c, s, il),
                                     reps=5, inner=3),
-                   bound_ms=bnd, bound_by=by, library_ms=None)
+                   bound_ms=bnd, bound_by=by, bound_share=bnd / ms,
+                   library_ms=None)
         say(card, "fused_rope " + json.dumps(row))
         if name == "train_neox":
             main = row
         del xs
     say(card, "fused_rope library_ms: none; no single PyTorch call rotates "
               "q and k by position tables")
+    if bad:
+        raise AssertionError("; ".join(bad))
     return {"worst": worst, "main": main}
+
+
+ROPE_KERNEL = re.compile(r"rope_kernelI(f|6__half|13__nv_bfloat16)Li(\d+)ELb([01])E")
+ROPE_TYPES = {"f": "float", "6__half": "half", "13__nv_bfloat16": "bf16"}
+
+
+def _rope_name(ln):
+    m = ROPE_KERNEL.search(ln)
+    return m and (f"rope_kernel<{ROPE_TYPES[m[1]]}, {m[2]}, "
+                  f"{'interleaved' if m[3] == '1' else 'neox'}>")
+
+
+def rope_ptxas(card, log):
+    """Registers and spill-store bytes of each `rope_kernel<T, V,
+    interleaved>` instantiation, from nvcc's `-Xptxas -v` report (`log`,
+    empty if this process did not build). Raises on a spill, or on a
+    missing instantiation when the log holds the build."""
+    report = ptxas_kernels(log, None, _rope_name)
+    say(card, "fused_rope ptxas " + json.dumps(report))
+    spills = [n for n, r in report.items() if r.get("spill_store_bytes")]
+    if spills:
+        raise AssertionError(f"fused_rope instantiations spill: {spills}")
+    if log and len(report) != 12:
+        raise AssertionError(f"fused_rope: {len(report)} instantiations "
+                             f"built, 12 expected")
+    return report
 
 
 def check_norm_dx(card, torch):
@@ -1056,9 +1143,14 @@ def check_norm_dx(card, torch):
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
     main = None
+    # the steps' shapes under O2 (f32, batch 4 x 2048 or 8 x 1024):
+    # gpt3_1p3b's LayerNorm at 2048, then llama_7bshape's RMSNorm at 4096
+    # and gpt3_moe's LayerNorm at 1024, last so the other rows keep their
+    # inputs
     shapes = [(8192, 2048, "ln", "float32"), (8192, 2048, "ln", "bfloat16"),
               (37, 1031, "ln", "float32"), (37, 1031, "ln", "bfloat16"),
-              (512, 2048, "rms", "bfloat16"), (16, 5120, "rms", "float32")]
+              (512, 2048, "rms", "bfloat16"), (16, 5120, "rms", "float32"),
+              (8192, 4096, "rms", "float32"), (8192, 1024, "ln", "float32")]
     for R, N, kind, dtype in shapes:
         dt = getattr(torch, dtype)
         x = (torch.randn(R, N, device="cuda", generator=gen) + 0.5).to(dt)
@@ -1082,11 +1174,13 @@ def check_norm_dx(card, torch):
         k_eager = eager_ms(lambda: fn.norm_bwd_dx(x, w, dy, rstd, mean, kind))
         p_ms = time_ms(lambda: fn.norm_bwd_dx_plain(x, w, dy, rstd, mean, kind),
                        reps=5, inner=5)
-        lib_ms = None
+        rstd2 = rstd[:, None]
         if kind == "ln":
-            mean2, rstd2 = mean[:, None], rstd[:, None]
             lib_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, x, [N], mean2, rstd2, w, b, [True, False, False]))
+                dy, x, [N], mean[:, None], rstd2, w, b, [True, False, False]))
+        else:
+            lib_ms = time_ms(lambda: torch.ops.aten._fused_rms_norm_backward(
+                dy, x, [N], rstd2, w, [True, False]))
         row = dict(kind=kind, dtype=dtype, R=R, N=N, max_abs_err=err,
                    tol=NORM_DX_TOL[dtype], ms=k_ms, eager_ms=k_eager,
                    plain_ms=p_ms, bound_ms=bnd, bound_by=by,
@@ -1095,7 +1189,7 @@ def check_norm_dx(card, torch):
         if (R, N, kind, dtype) == (8192, 2048, "ln", "float32"):
             main = row
     say(card, "fused_norm_dx library_ms: torch.ops.aten.native_layer_norm_"
-              "backward (dx only); none for RMSNorm")
+              "backward / _fused_rms_norm_backward (dx only)")
     return {"worst": worst, "main": main}
 
 
@@ -2119,6 +2213,15 @@ KERNEL_FAULTS = {
         "decode_attention.cu", "paged_split_kernel(",
         "const float vsc = kQ8 ? vs_s[s] : 1.f;",
         "const float vsc = kQ8 ? vs_s[0] : 1.f;", "paged_decode_q8 path_g1"),
+    "rope: the neox second half read one vector late": (
+        "fused_rope.cu", "void load_head(", "(kIL ? V : a.half)",
+        "(kIL ? V : a.half + V)", "rope train_neox"),
+    "rope: the table row taken as 0 with a table per row": (
+        "fused_rope.cu", "rope_kernel(const RopeArgs a)",
+        "a.table_b > 1 ? r : r % a.S", "r % a.S", "rope decode_per_row"),
+    "rope: the head chunk's start off by one where it crosses from q into k": (
+        "fused_rope.cu", "the chunk crosses into the next tensor", "h = 0;",
+        "h = 1;", "rope train_neox"),
 }
 
 
@@ -2127,14 +2230,20 @@ def _fault_violations(torch, case):
     "varlen <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>",
     "dense_decode <DENSE_CASES name>", "paged_decode <PAGED_FULL name>" or
     "paged_decode_q8 <PAGED_Q8 name>" in bf16, "norm <R>x<N> <kind>
-    <dtype>", or a FLASHMASK_CASES name), run on the library load_library()
-    holds."""
+    <dtype>", "rope <ROPE_CASES name>", or a FLASHMASK_CASES name), run on
+    the library load_library() holds."""
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_gemm as gg
     from paddle_tpu_torch.ops import masked_flash as mf
 
     kind, _, name = case.partition(" ")
+    if kind == "rope":
+        from paddle_tpu_torch.ops import fused_rope as fr
+
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        return _rope_violations(torch, fr, name,
+                                *_rope_inputs(torch, gen, name))[1]
     if kind in ("paged_decode", "paged_decode_q8"):
         da._ARRIVALS.clear()  # counters a fault left set go with it
         args = _paged_inputs(torch, name, "bfloat16", kind == "paged_decode_q8")[0]
@@ -2598,7 +2707,8 @@ def profile_decode(card, torch, model, B, S, ticks=5, label="paged",
     tick is left out) of the engine `create_serving_engine(model,
     **engine_kw)` builds. Prints the wall time per tick, the device-busy
     time per tick (the sum of device activity; one stream, so nothing
-    overlaps) and the kernels that take the most device time."""
+    overlaps), the kernels that take the most device time, and every
+    kernel of the port (PORT_KERNEL) with its time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2627,14 +2737,18 @@ def profile_decode(card, torch, model, B, S, ticks=5, label="paged",
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_us = sum(dev_us(e) for e in events)
-    top = sorted(events, key=dev_us, reverse=True)[:8]
+    ranked = sorted(events, key=dev_us, reverse=True)
+
+    def rows(evs):
+        return [{"name": e.key[:80], "ms_per_tick": dev_us(e) / 1e3 / ticks,
+                 "calls_per_tick": e.count / ticks} for e in evs]
+
     say(card, "decode tick profile " + json.dumps({
         "engine": label, "rows": B, "ticks": ticks, "wall_ms_per_tick": wall * 1e3 / ticks,
         "device_busy_ms_per_tick": busy_us / 1e3 / ticks,
         "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
-        "top_device_kernels": [
-            {"name": e.key[:80], "ms_per_tick": dev_us(e) / 1e3 / ticks,
-             "calls_per_tick": e.count / ticks} for e in top]}))
+        "top_device_kernels": rows(ranked[:8]),
+        "port_kernels": rows(e for e in ranked if PORT_KERNEL.search(e.key))}))
 
 
 # --------------------------------------------------------------------------- #
@@ -3581,6 +3695,7 @@ def main():
     sm90_report(card, _build.build_library(), _build.BUILD_LOG)
     say(card, "paged_split_kernel ptxas " + json.dumps(
         ptxas_kernels(_build.BUILD_LOG, "paged_split_kernel")))
+    rope_ptxas(card, _build.BUILD_LOG)
 
     norm = check_norm(card, torch)
     norm_dx = check_norm_dx(card, torch)

@@ -112,9 +112,10 @@ _SIGNATURES = {
     # lhs, rhs, sizes, out, E, R, K, N, trans, dtype, stream
     "ptt_grouped_gemm": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
     # x0, x1, x2, out0, out1, out2, n, h0, h1, h2, B, S, D, cos, sin,
-    # table_b, interleaved, sin_sign, dtype, stream
+    # table_b, interleaved, sin_sign, dtype, vec, hpt, chunks, bx, by, bz,
+    # gx, gy, stream
     "ptt_rope": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p] * 2
-    + [_c_int, _c_int, _c_float, _c_int, _c_void_p],
+    + [_c_int, _c_int, _c_float, _c_int] + [_c_int] * 8 + [_c_void_p],
 }
 
 _LOCK = threading.Lock()

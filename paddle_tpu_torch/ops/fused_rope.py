@@ -11,21 +11,93 @@ JAX package's custom VJP): the backward is the same rotation with the sin
 table negated, the tables get no gradient and no activation is saved.
 
 `rope` runs `csrc/fused_rope.cu` on CUDA tensors (one launch for every
-tensor of the call; `LAUNCHES` counts them) and `rope_plain`, the same
-arithmetic in plain PyTorch, on CPU tensors.
+tensor of the call; `LAUNCHES` counts them) over the grid `rope_plan`
+gives, and `rope_plain`, the same arithmetic in plain PyTorch, on CPU
+tensors.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-__all__ = ["FusedRope", "LAUNCHES", "apply_fused_rope", "rope", "rope_plain"]
+__all__ = ["FusedRope", "LAUNCHES", "RopePlan", "apply_fused_rope", "rope",
+           "rope_plain", "rope_plan"]
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset them)
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+# The plan's sizes, for an H100 (132 SMs of 2,048 resident threads each).
+BLOCK = 256                  # threads a CTA, unless a few tokens want it smaller
+MIN_BLOCK = 64               # the smallest CTA the few-token plan makes
+FILL_CTAS = 128              # the few-token plan's grid: about one CTA an SM
+STREAM_THREADS = 132 * 2048  # a wave of resident threads
+MAX_TOKENS_A_CTA = 64        # blockDim.z's limit
+
+_PLANS = {}  # the wrapper's plans by call shape: the host path of a decode tick
+
+
+class RopePlan(NamedTuple):
+    """The kernel's launch: `vector` pairs a thread (16 // itemsize, or 1
+    on the scalar route); the heads axis (every tensor's heads, q's then
+    k's then v's) in `chunks` chunks of `heads_per_thread` heads a token;
+    `block` (lanes = D/2 // vector, chunks a CTA, tokens a CTA); `grid`
+    (over the tokens, over the chunks)."""
+    vector: int
+    block: tuple
+    heads_per_thread: int
+    chunks: int
+    grid: tuple
+
+
+def rope_plan(B, S, heads, D, itemsize, vector=True):
+    """The launch of the kernel on tensors [B, S, heads[i], D] of one dtype
+    of `itemsize` bytes; `vector` says that every pointer of the call lies
+    on the 16-byte line. A thread owns `vector` consecutive pairs (V = 16 //
+    itemsize when `vector` and D/2 is a multiple of V, else 1) of each head
+    of its chunk at one token.
+
+    - Many tokens (a wave of resident threads or more at about four heads
+      a thread: training, long prefills): `chunks` is the power of two
+      nearest H / 4 (H the heads of the call), `heads_per_thread`
+      ceil(H / chunks), and a CTA holds every chunk of a few tokens, so
+      the chunks of a token read its tables from L1.
+    - Few tokens (decode, short prefills): one head a thread, and CTAs
+      shrink from BLOCK toward MIN_BLOCK threads (fewer tokens a CTA
+      first, then fewer chunks) until the grid holds FILL_CTAS CTAs. It
+      then holds at least min(FILL_CTAS, ceil(B S H lanes / max(MIN_BLOCK,
+      lanes))) CTAs: 128 at the llama_7b decode tick (16 rows, 32 + 32
+      heads of 128)."""
+    T, H, half = B * S, sum(heads), D // 2
+    V = 16 // itemsize
+    if not vector or half % V:
+        V = 1
+    lanes = half // V
+    chunks = 2 ** round(math.log2(max(H / 4, 1)))
+    hpt = -(-H // chunks)
+    chunks = -(-H // hpt)
+    stream = T * chunks * lanes >= STREAM_THREADS
+    if not stream:
+        hpt, chunks = 1, H
+    cy = min(chunks, max(1, BLOCK // lanes))
+    tb = max(1, min(T, MAX_TOKENS_A_CTA, BLOCK // (lanes * cy)))
+
+    def ctas():
+        return -(-T // tb) * -(-chunks // cy)
+
+    while not stream and ctas() < FILL_CTAS and lanes * cy * tb > MIN_BLOCK \
+            and (tb > 1 or cy > 1):
+        if tb > 1:
+            tb = -(-tb // 2)
+        else:
+            cy = -(-cy // 2)
+    return RopePlan(V, (lanes, cy, tb), hpt, chunks,
+                    (-(-T // tb), -(-chunks // cy)))
 
 
 def _halves(x, interleaved):
@@ -107,14 +179,24 @@ def rope(tensors, cos, sin, interleaved=False, sin_sign=1.0):
         return tuple(outs)
     c = cos.float().contiguous()
     s = sin.float().contiguous()
-    pad = [None] * (3 - len(xs))
-    heads = [t.shape[2] for t in xs] + [0] * len(pad)
+    # tensors without heads take no part in the launch
+    live = [i for i, t in enumerate(xs) if t.numel()]
+    ptrs = [xs[i].data_ptr() for i in live] + [outs[i].data_ptr() for i in live]
+    aligned = all(p % 16 == 0 for p in ptrs + [c.data_ptr(), s.data_ptr()])
+    heads = [xs[i].shape[2] for i in live]
+    key = (B, S, tuple(heads), D, x0.element_size(), aligned)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = rope_plan(*key)
+    pad = [None] * (3 - len(live))
     lib = _build.load_library()
-    err = lib.ptt_rope(*[t.data_ptr() for t in xs], *pad,
-                       *[t.data_ptr() for t in outs], *pad,
-                       len(xs), *heads, B, S, D, c.data_ptr(), s.data_ptr(),
-                       c.shape[0], int(bool(interleaved)), float(sin_sign),
-                       _build.DTYPE_CODES[str(x0.dtype)],
+    err = lib.ptt_rope(*ptrs[:len(live)], *pad, *ptrs[len(live):], *pad,
+                       len(live), *heads, *[0] * len(pad), B, S, D,
+                       c.data_ptr(), s.data_ptr(), c.shape[0],
+                       int(bool(interleaved)), float(sin_sign),
+                       _build.DTYPE_CODES[str(x0.dtype)], plan.vector,
+                       plan.heads_per_thread, plan.chunks, *plan.block,
+                       *plan.grid,
                        torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check(err, "ptt_rope")
     LAUNCHES += 1
