@@ -15,7 +15,9 @@ Phases; any failure raises and the script exits non-zero:
                 spills from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
                 instructions from `cuobjdump -sass`; none may spill or
                 lack either. The fused RoPE's twelve instantiations
-                (`fused_rope ptxas`): registers and spills; none may spill.
+                (`fused_rope ptxas`) and the norm dx's eighteen
+                (`fused_norm_dx ptxas`): registers and spills; none may
+                spill.
 2. kernels    — each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes its path gives it and a few edge
                 shapes, in float32 and bfloat16: max error against a stated
@@ -29,7 +31,9 @@ Phases; any failure raises and the script exits non-zero:
                 serving rows, the three training steps' f32 rows, rows at a
                 mean of 1000, an odd width, a row past the register
                 design's 8192 elements) and dx (also at the three training
-                steps' f32 rows),
+                steps' f32 rows, with the dweight/dbias reductions beside
+                them timed, rows at a mean of 1000, a view off the 16-byte
+                line and a row past 8192 elements; each case's route),
                 paged decode attention (full precision and int8 pages, with
                 g = 4, a zero-length row, -1 table entries, a live chunk of
                 -1 pages, a page whose scales are 0, a serving tick's
@@ -91,7 +95,10 @@ Phases; any failure raises and the script exits non-zero:
                 at its first 64 keys' range and each key tile's first q
                 step one step late; norm forward:
                 the cross-warp sum without the group's last warp, the
-                scalar tail skipped; grouped GEMM: a partly
+                scalar tail skipped; norm dx: the paired exchange without
+                the group's last warp, the prefetched row's dy taken from
+                the current row, the scalar tail skipped; grouped GEMM: a
+                partly
                 live 64-row unit treated as dead, a tile's second unit
                 taking the first one's liveness; dense decode: the combine
                 without a chunk's rescale, a chunk's tokens counted to
@@ -1135,62 +1142,150 @@ def rope_ptxas(card, log):
     return report
 
 
+# The dx kernel's cases (R, N, kind, dtype, mean of x, shift). The steps'
+# shapes under O2 (f32, batch 4 x 2048 or 8 x 1024): gpt3_1p3b's LayerNorm
+# at 2048, then llama_7bshape's RMSNorm at 4096 and gpt3_moe's LayerNorm at
+# 1024, after the smaller cases so those keep their inputs; then rows at a
+# mean of 1000 (x - mean stays exact in f32: x and the mean lie within a
+# factor of 2), x and dy as [R, N] views one element into their buffers
+# (off the 16-byte line: the scalar route), and rows past 8192 elements
+# (the wide route).
+NORM_DX_CASES = [
+    (8192, 2048, "ln", "float32", 0.5, 0), (8192, 2048, "ln", "bfloat16", 0.5, 0),
+    (37, 1031, "ln", "float32", 0.5, 0), (37, 1031, "ln", "bfloat16", 0.5, 0),
+    (512, 2048, "rms", "bfloat16", 0.5, 0), (16, 5120, "rms", "float32", 0.5, 0),
+    (8192, 4096, "rms", "float32", 0.5, 0), (8192, 1024, "ln", "float32", 0.5, 0),
+    (8192, 1024, "ln", "float32", 1000.0, 0), (8192, 2048, "ln", "float32", 0.5, 1),
+    (64, 12288, "ln", "float32", 0.5, 0)]
+# the three steps' shapes, where FusedNorm.backward's dweight/dbias
+# reductions are timed beside dx (`wdb_ms`)
+NORM_DX_STEPS = [(8192, 2048, "ln"), (8192, 4096, "rms"), (8192, 1024, "ln")]
+
+
+def _norm_dx_inputs(torch, fn, gen, R, N, kind, dtype, mean=0.5, shift=0):
+    """x (mean `mean`), w, b, dy of a dx case on the card, x and dy [R, N]
+    views `shift` elements into their buffers; rstd and mean from the plain
+    forward."""
+    dt = getattr(torch, dtype)
+    x = (torch.randn(R, N, device="cuda", generator=gen) + mean).to(dt)
+    w = (1 + 0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
+    b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
+    dy = torch.randn(R, N, device="cuda", generator=gen).to(dt)
+    if shift:
+        def shifted(t):
+            buf = torch.empty(R * N + shift, device="cuda", dtype=dt)
+            return buf[shift:].view(R, N).copy_(t)
+
+        x, dy = shifted(x), shifted(dy)
+    _, rstd, mu = fn.norm_fwd_plain(x, w, b if kind == "ln" else None, kind,
+                                    1e-5)
+    return x, w, b, dy, rstd, mu
+
+
+def _norm_dx_violations(fn, torch, x, w, dy, rstd, mu, kind, dtype):
+    """(max |kernel - plain| of dx, the violations of NORM_DX_TOL), NaN
+    where the kernel wrote a non-finite value."""
+    dx = fn.norm_bwd_dx(x, w, dy, rstd, mu, kind)
+    ref = fn.norm_bwd_dx_plain(x, w, dy, rstd, mu, kind)
+    torch.cuda.synchronize()
+    d = (dx.float() - ref.float()).abs()
+    err = d.max().item() if torch.isfinite(d).all() else math.nan
+    R, N = x.shape
+    return err, ([] if err <= NORM_DX_TOL[dtype] else
+                 [f"fused_norm_dx {kind} {dtype} [{R},{N}]: max|err| {err} "
+                  f"(tol {NORM_DX_TOL[dtype]})"])
+
+
 def check_norm_dx(card, torch):
-    """The dx kernel against its plain version. The main path's shape is
-    f32 [8192, 2048] (under O2 LayerNorm runs in f32, batch 4 x 2048)."""
+    """The dx kernel against its plain version over NORM_DX_CASES, each
+    with its route (`ops.fused_norm.dx_plan`). The main path's shape is f32
+    [8192, 2048] (under O2 LayerNorm runs in f32, batch 4 x 2048). At the
+    steps' shapes also `wdb_ms`: the dweight and dbias torch reductions of
+    FusedNorm.backward, which run beside dx."""
     from paddle_tpu_torch.ops import fused_norm as fn
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
-    main = None
-    # the steps' shapes under O2 (f32, batch 4 x 2048 or 8 x 1024):
-    # gpt3_1p3b's LayerNorm at 2048, then llama_7bshape's RMSNorm at 4096
-    # and gpt3_moe's LayerNorm at 1024, last so the other rows keep their
-    # inputs
-    shapes = [(8192, 2048, "ln", "float32"), (8192, 2048, "ln", "bfloat16"),
-              (37, 1031, "ln", "float32"), (37, 1031, "ln", "bfloat16"),
-              (512, 2048, "rms", "bfloat16"), (16, 5120, "rms", "float32"),
-              (8192, 4096, "rms", "float32"), (8192, 1024, "ln", "float32")]
-    for R, N, kind, dtype in shapes:
-        dt = getattr(torch, dtype)
-        x = (torch.randn(R, N, device="cuda", generator=gen) + 0.5).to(dt)
-        w = (1 + 0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
-        b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dt)
-        dy = torch.randn(R, N, device="cuda", generator=gen).to(dt)
-        _, rstd, mean = fn.norm_fwd_plain(x, w, b if kind == "ln" else None,
-                                          kind, 1e-5)
-        dx = fn.norm_bwd_dx(x, w, dy, rstd, mean, kind)
-        ref = fn.norm_bwd_dx_plain(x, w, dy, rstd, mean, kind)
-        torch.cuda.synchronize()
-        err = (dx.float() - ref.float()).abs().max().item()
-        if not err <= NORM_DX_TOL[dtype]:
-            raise AssertionError(f"fused_norm_dx {kind} {dtype} [{R},{N}]: "
-                                 f"max|err| {err} (tol {NORM_DX_TOL[dtype]})")
+    main, bad = None, []
+    for R, N, kind, dtype, mean, shift in NORM_DX_CASES:
+        x, w, b, dy, rstd, mu = _norm_dx_inputs(torch, fn, gen, R, N, kind,
+                                                dtype, mean, shift)
+        err, why = _norm_dx_violations(fn, torch, x, w, dy, rstd, mu, kind,
+                                       dtype)
+        bad += why
         worst = max(worst, err)
         es = x.element_size()
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy))
         nbytes = 3 * R * N * es + N * es + R * 4 * (2 if kind == "ln" else 1)
         bnd, by = bound_ms(nbytes, 10 * R * N, "float32")
-        k_ms = time_ms(lambda: fn.norm_bwd_dx(x, w, dy, rstd, mean, kind))
-        k_eager = eager_ms(lambda: fn.norm_bwd_dx(x, w, dy, rstd, mean, kind))
-        p_ms = time_ms(lambda: fn.norm_bwd_dx_plain(x, w, dy, rstd, mean, kind),
+        k_ms = time_ms(lambda: fn.norm_bwd_dx(x, w, dy, rstd, mu, kind))
+        k_eager = eager_ms(lambda: fn.norm_bwd_dx(x, w, dy, rstd, mu, kind))
+        p_ms = time_ms(lambda: fn.norm_bwd_dx_plain(x, w, dy, rstd, mu, kind),
                        reps=5, inner=5)
         rstd2 = rstd[:, None]
         if kind == "ln":
             lib_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, x, [N], mean[:, None], rstd2, w, b, [True, False, False]))
+                dy, x, [N], mu[:, None], rstd2, w, b, [True, False, False]))
         else:
             lib_ms = time_ms(lambda: torch.ops.aten._fused_rms_norm_backward(
                 dy, x, [N], rstd2, w, [True, False]))
-        row = dict(kind=kind, dtype=dtype, R=R, N=N, max_abs_err=err,
-                   tol=NORM_DX_TOL[dtype], ms=k_ms, eager_ms=k_eager,
-                   plain_ms=p_ms, bound_ms=bnd, bound_by=by,
-                   library_ms=lib_ms)
+        row = dict(kind=kind, dtype=dtype, R=R, N=N, mean=mean, shift=shift,
+                   route=fn.dx_plan(R, N, es, aligned).route,
+                   max_abs_err=err, tol=NORM_DX_TOL[dtype], ms=k_ms,
+                   eager_ms=k_eager, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+                   bound_share=bnd / k_ms, library_ms=lib_ms)
+        if (R, N, kind) in NORM_DX_STEPS and mean == 0.5 and not shift:
+            def wdb():  # FusedNorm.backward's dweight and dbias lines
+                x32 = x.float()
+                if kind == "ln":
+                    x32 = x32 - mu[:, None]
+                (dy.float() * (x32 * rstd[:, None])).sum(0).to(w.dtype)
+                if kind == "ln":
+                    dy.float().sum(0).to(b.dtype)
+
+            row["wdb_ms"] = time_ms(wdb, reps=5, inner=5)
         say(card, "fused_norm_dx " + json.dumps(row))
-        if (R, N, kind, dtype) == (8192, 2048, "ln", "float32"):
+        if (R, N, kind, dtype, mean, shift) == NORM_DX_CASES[0]:
             main = row
+        del x, dy
     say(card, "fused_norm_dx library_ms: torch.ops.aten.native_layer_norm_"
-              "backward / _fused_rms_norm_backward (dx only)")
+              "backward / _fused_rms_norm_backward (dx only); wdb_ms: the "
+              "dweight (and LayerNorm's dbias) reductions beside dx")
+    if bad:
+        raise AssertionError("; ".join(bad))
     return {"worst": worst, "main": main}
+
+
+NORM_DX_KERNEL = re.compile(
+    r"norm_bwd_dx_rows_kernelI(f|6__half|13__nv_bfloat16)"
+    r"(f|6__half|13__nv_bfloat16|S\d*_)Lb([01])E")
+
+
+def _norm_dx_name(ln):
+    m = NORM_DX_KERNEL.search(ln)
+    if not m:
+        return None
+    t = ROPE_TYPES[m[1]]
+    return (f"norm_bwd_dx_rows_kernel<{t}, {ROPE_TYPES.get(m[2], t)}, "
+            f"{'ln' if m[3] == '1' else 'rms'}>")
+
+
+def norm_dx_ptxas(card, log):
+    """Registers and spill-store bytes of each `norm_bwd_dx_rows_kernel<T,
+    TW, kind>` instantiation (x, weight and kind: 18), from nvcc's
+    `-Xptxas -v` report (`log`, empty if this process did not build).
+    Raises on a spill, or on a missing instantiation when the log holds the
+    build."""
+    report = ptxas_kernels(log, None, _norm_dx_name)
+    say(card, "fused_norm_dx ptxas " + json.dumps(report))
+    spills = [n for n, r in report.items() if r.get("spill_store_bytes")]
+    if spills:
+        raise AssertionError(f"norm_bwd_dx_rows_kernel instantiations spill: "
+                             f"{spills}")
+    if log and len(report) != 18:
+        raise AssertionError(f"norm_bwd_dx_rows_kernel: {len(report)} "
+                             f"instantiations built, 18 expected")
+    return report
 
 
 def _flash_err(got, ref):
@@ -2106,8 +2201,9 @@ def check_varlen(card, torch):
 # after the anchor, the replacement, the case that must catch it: "flash
 # <FLASH_CASES name>", "varlen <VARLEN_CASES name>", "grouped_gemm
 # <GG_CASES name>", "dense_decode <DENSE_CASES name>" (bf16), "norm
-# <R>x<N> <kind> <dtype>" (a NORM_CASES shape, offset 0) or a
-# FLASHMASK_CASES name). They follow the kernels'
+# <R>x<N> <kind> <dtype>" (a NORM_CASES shape, offset 0), "norm_dx <R>x<N>
+# <kind> <dtype>" (a NORM_DX_CASES shape, mean 0.5, on the 16-byte line)
+# or a FLASHMASK_CASES name). They follow the kernels'
 # code: a change there that moves the replaced text must move these with
 # it. The `Varlen` policy's faults reach every kernel that reads what they
 # change: `first_kv_tile` only the f32 kernels (so its case is f32),
@@ -2184,6 +2280,17 @@ KERNEL_FAULTS = {
         "fused_norm.cu", "the scalar tail",
         "v[j][e] = c0 + e < n ? ptt::to_f32(xr[c0 + e]) : 0.f;",
         "v[j][e] = 0.f;", "norm 37x1031 ln float32"),
+    "norm dx: the paired exchange drops the group's last warp": (
+        "fused_norm.cu", "float2 group_sum2(", "w < gw;", "w < gw - 1;",
+        "norm_dx 8192x2048 ln float32"),
+    "norm dx: the prefetched row's dy taken from the current row": (
+        "fused_norm.cu", "the next row's loads go out before",
+        "load_dx_row<T, kLN>(x, dy, rstd_in, mean_in, r + stride",
+        "load_dx_row<T, kLN>(x, dy - stride * n, rstd_in, mean_in, r + stride",
+        "norm_dx 8192x4096 rms float32"),
+    "norm dx: the scalar tail skipped": (
+        "fused_norm.cu", "void load_dx_row(", "const bool in = c0 + e < n;",
+        "const bool in = false;", "norm_dx 37x1031 ln float32"),
     "grouped_gemm: a partly live tile treated as dead": (
         "grouped_gemm_sm90.cuh", "bool unit_live(", "return sizes[g] > off;",
         "return sizes[g] >= off + kGgUnit;", "grouped_gemm partial_tiles"),
@@ -2230,7 +2337,8 @@ def _fault_violations(torch, case):
     "varlen <VARLEN_CASES name>", "grouped_gemm <GG_CASES name>",
     "dense_decode <DENSE_CASES name>", "paged_decode <PAGED_FULL name>" or
     "paged_decode_q8 <PAGED_Q8 name>" in bf16, "norm <R>x<N> <kind>
-    <dtype>", "rope <ROPE_CASES name>", or a FLASHMASK_CASES name), run on
+    <dtype>", "norm_dx <R>x<N> <kind> <dtype>", "rope <ROPE_CASES name>",
+    or a FLASHMASK_CASES name), run on
     the library load_library() holds."""
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -2258,6 +2366,16 @@ def _fault_violations(torch, case):
         gen = torch.Generator(device="cuda").manual_seed(0)
         x, w, bias = _norm_inputs(torch, gen, R, N, norm_kind, dtype)
         return _norm_errors(fn, torch, x, w, bias, norm_kind, dtype)[2]
+    if kind == "norm_dx":
+        from paddle_tpu_torch.ops import fused_norm as fn
+
+        shape, norm_kind, dtype = name.split()
+        R, N = (int(s) for s in shape.split("x"))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        x, w, _, dy, rstd, mu = _norm_dx_inputs(torch, fn, gen, R, N,
+                                                norm_kind, dtype)
+        return _norm_dx_violations(fn, torch, x, w, dy, rstd, mu, norm_kind,
+                                   dtype)[1]
     if kind == "flash":
         B, Sq, Skv, H, Hkv, D, causal, bias, dtype = FLASH_CASES[name]
         gen = torch.Generator(device="cuda").manual_seed(3)
@@ -3696,6 +3814,7 @@ def main():
     say(card, "paged_split_kernel ptxas " + json.dumps(
         ptxas_kernels(_build.BUILD_LOG, "paged_split_kernel")))
     rope_ptxas(card, _build.BUILD_LOG)
+    norm_dx_ptxas(card, _build.BUILD_LOG)
 
     norm = check_norm(card, torch)
     norm_dx = check_norm_dx(card, torch)

@@ -42,14 +42,29 @@
 // moves element by element, and a scalar tail takes its last N % 4 (or
 // % 8) elements. Rows wider than 16 x 512 elements keep one block a row
 // (`norm_fwd_kernel`): the row read from HBM once into shared memory, the
-// two reductions and the output pass reading it back. The dx kernel
-// reads x and dy once, keeps g and x_hat in shared memory for its two row
-// sums and the output pass. So HBM sees each element once per read and
-// write. A row wider than the shared memory a block may hold (N > ~58k in
-// the wide forward, ~29k in dx) is read again from global memory (L2)
-// instead of failing. The TPU kernel's lane padding to 128 and its
-// autotuned row block are TPU tiling artifacts and are not carried over:
-// any N works, odd widths included.
+// two reductions and the output pass reading it back.
+//
+// The dx kernel (`norm_bwd_dx_rows_kernel`) has the forward's layout, from
+// a launch plan the wrapper computes (`ops.fused_norm.dx_plan`: the route,
+// the group's threads, 16 elements a thread, the rows a CTA): a thread
+// loads its columns of x and dy with 16-byte non-allocating loads, forms
+// g = dy * w and x_hat in registers (the weight read once a CTA), and
+// sums both sum(g) and sum(g * x_hat) in one pass; the pair is reduced
+// together, shuffles within each warp and ONE exchange across the group's
+// warps behind the group's barrier, so a row costs one barrier. Before
+// that exchange each thread issues the loads of its next row (the CTA
+// loop's next) into a second register set, with the row's rstd and mean,
+// so bytes stay in flight across the barrier and the stores. dx leaves by
+// 16-byte streaming stores. The scalar route (a pointer off the 16-byte
+// line, or N % (16 / itemsize) != 0) runs the same kernel with element
+// loads and stores, the row's last N % V elements as its scalar tail.
+// Rows wider than 8192 elements keep `norm_bwd_dx_kernel`, one block a
+// row, g and x_hat kept in shared memory for its two block sums and the
+// output pass. A row wider than the shared memory a block may hold (N >
+// ~58k in the wide forward, ~29k in the wide dx) is read again from
+// global memory (L2) instead of failing. The TPU kernel's lane padding to
+// 128 and its autotuned row block are TPU tiling artifacts and are not
+// carried over: any N works, odd widths included.
 #include <atomic>
 
 #include "common.cuh"
@@ -113,6 +128,7 @@ __global__ void norm_fwd_kernel(const T* __restrict__ x, const TW* __restrict__ 
 constexpr int kRowElems = 16;        // elements of a row a thread holds
 constexpr int kRowMaxThreads = 512;  // threads of a row group at most: N <= 8192
 constexpr int kRowCta = 256;         // threads of a CTA that holds several groups
+constexpr int kDxElems = 16;         // elements of a row a dx thread holds
 
 __device__ __forceinline__ uint4 load_stream(const void* p) {
   uint4 r;
@@ -344,6 +360,22 @@ const Card& card() {
   return c;
 }
 
+// The CTAs of `threads` threads of `kernel` that the card holds at once,
+// into `ctas`; the CTAs an SM holds are read once a process into `fit`.
+template <typename Kernel>
+cudaError_t resident_ctas(Kernel kernel, int threads, std::atomic<int>& fit, long long& ctas) {
+  int per_sm = fit.load(std::memory_order_relaxed);
+  if (per_sm == 0) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (err != cudaSuccess) return err;
+    per_sm = per_sm < 1 ? 1 : per_sm;
+    fit.store(per_sm, std::memory_order_relaxed);
+  }
+  ctas = static_cast<long long>(card().sms) * per_sm;
+  return cudaSuccess;
+}
+
 // threads of the row group that holds a row of n elements in registers
 int row_group(int n) { return ((n + kRowElems - 1) / kRowElems + 31) / 32 * 32; }
 
@@ -357,19 +389,11 @@ cudaError_t launch_rows(const void* x, const void* w, const void* b, void* out, 
       gsize >= kRowCta || rows <= card().sms ? 1 : kRowCta / gsize;
   const int threads = per_cta * gsize;
   auto kernel = ln ? norm_fwd_rows_kernel<T, TW, true> : norm_fwd_rows_kernel<T, TW, false>;
-  // CTAs a SM holds, per layout and CTA size
-  static std::atomic<int> fit[2][kRowMaxThreads / 32 + 1];
-  std::atomic<int>& slot = fit[ln][threads / 32];
-  int per_sm = slot.load(std::memory_order_relaxed);
-  if (per_sm == 0) {
-    const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-    if (err != cudaSuccess) return err;
-    per_sm = per_sm < 1 ? 1 : per_sm;
-    slot.store(per_sm, std::memory_order_relaxed);
-  }
+  static std::atomic<int> fit[2][kRowMaxThreads / 32 + 1];  // per layout and CTA size
+  long long most = 0;
+  const cudaError_t err = resident_ctas(kernel, threads, fit[ln][threads / 32], most);
+  if (err != cudaSuccess) return err;
   const long long groups = (rows + per_cta - 1) / per_cta;
-  const long long most = static_cast<long long>(card().sms) * per_sm;
   const unsigned grid = static_cast<unsigned>(groups < most ? groups : most);
   kernel<<<grid, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<const TW*>(b),
@@ -462,42 +486,216 @@ __global__ void norm_bwd_dx_kernel(const T* __restrict__ x, const TW* __restrict
   }
 }
 
+// ----------------------------------------------------- dx, a row in registers
+
+// Sums of `a` and `b` over the row group's `gsize` threads (a multiple of
+// 32), returned to each of them: shuffles of the pair within each warp,
+// then ONE exchange of the group's warps' pairs through red[slot] (two
+// slots of 16 pairs, used in turn, as in group_sum) behind a barrier of
+// the group alone.
+__device__ __forceinline__ float2 group_sum2(float a, float b, float2* red, int gsize,
+                                             int group, int& slot) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  const int gw = gsize / 32;
+  if (gw == 1) return make_float2(a, b);
+  float2* r = red + slot * 16;
+  slot ^= 1;
+  if (threadIdx.x % 32 == 0) r[threadIdx.x / 32] = make_float2(a, b);
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(gsize) : "memory");
+  float2 total = make_float2(0.f, 0.f);
+  for (int w = 0; w < gw; ++w) {
+    const float2 p = r[group * gw + w];
+    total.x += p.x;
+    total.y += p.y;
+  }
+  return total;
+}
+
+// A row's x and dy in one thread's columns, as raw 16-byte words (access
+// j covers kVec columns from (t + j gsize) kVec), with the row's rstd and
+// mean: what the dx kernel holds of its current row and prefetches of the
+// next one.
+template <int kNv>
+struct DxRow {
+  uint4 x[kNv], dy[kNv];
+  float rstd, mean;
+};
+
+// Issues the loads of row r into `row`: 16-byte loads on the rows route
+// (`vec`), element loads packed into the words (exactly) on the scalar
+// one; past n, zeros.
+template <typename T, bool kLN, int kNv>
+__device__ __forceinline__ void load_dx_row(const T* x, const T* dy, const float* rstd,
+                                            const float* mean, long long r, int n, int gsize,
+                                            int t, bool vec, DxRow<kNv>& row) {
+  constexpr int kVec = Pack16<T>::kVec;
+  const T* xr = x + r * n;
+  const T* dyr = dy + r * n;
+#pragma unroll
+  for (int j = 0; j < kNv; ++j) {
+    const int c0 = (t + j * gsize) * kVec;
+    if (vec && c0 + kVec <= n) {
+      row.x[j] = load_stream(xr + c0);
+      row.dy[j] = load_stream(dyr + c0);
+      continue;
+    }
+    float a[kVec], b[kVec];
+    if (c0 + kVec <= n) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        a[e] = ptt::to_f32(xr[c0 + e]);
+        b[e] = ptt::to_f32(dyr[c0 + e]);
+      }
+    } else {  // the scalar tail: the row's last n % kVec elements, zeros past n
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const bool in = c0 + e < n;
+        a[e] = in ? ptt::to_f32(xr[c0 + e]) : 0.f;
+        b[e] = in ? ptt::to_f32(dyr[c0 + e]) : 0.f;
+      }
+    }
+    row.x[j] = Pack16<T>::pack(a);
+    row.dy[j] = Pack16<T>::pack(b);
+  }
+  row.rstd = rstd[r];
+  row.mean = kLN ? mean[r] : 0.f;
+}
+
+// Rows of n <= kDxElems * gsize elements, a group of gsize threads a row,
+// blockDim.x / gsize groups a CTA, the CTAs looping over the rows; `vec`:
+// the rows route (every row on the 16-byte line, n % kVec == 0), else the
+// scalar one.
+template <typename T, typename TW, bool kLN>
+__global__ void __launch_bounds__(kRowMaxThreads)
+norm_bwd_dx_rows_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                        const T* __restrict__ dy, const float* __restrict__ rstd_in,
+                        const float* __restrict__ mean_in, T* __restrict__ dx, long long rows,
+                        int n, int gsize, bool vec) {
+  constexpr int kVec = Pack16<T>::kVec;   // elements of a 16-byte access
+  constexpr int kNv = kDxElems / kVec;    // 16-byte accesses a thread
+  __shared__ float2 red[2 * 16];
+  const int per_cta = blockDim.x / gsize;
+  const int group = threadIdx.x / gsize, t = threadIdx.x % gsize;
+  const float inv_n = 1.f / static_cast<float>(n);
+  float wr[kNv][kVec];
+  load_cols<T>(w, n, gsize, t, 1.f, wr);
+  int slot = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * per_cta;
+  long long r = static_cast<long long>(blockIdx.x) * per_cta + group;
+  DxRow<kNv> cur, next;
+  if (r < rows) load_dx_row<T, kLN>(x, dy, rstd_in, mean_in, r, n, gsize, t, vec, cur);
+  for (; r < rows; r += stride) {
+    // the next row's loads go out before this row's exchange and stores
+    if (r + stride < rows)
+      load_dx_row<T, kLN>(x, dy, rstd_in, mean_in, r + stride, n, gsize, t, vec, next);
+    const float rstd = cur.rstd, mean = cur.mean;
+    // sum(g) and sum(g * x_hat) in one pass; columns past n hold g = 0
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      float xv[kVec], dv[kVec];
+      Pack16<T>::unpack(cur.x[j], xv);
+      Pack16<T>::unpack(cur.dy[j], dv);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float g = dv[e] * wr[j][e];
+        s1 += g;
+        s2 += g * ((xv[e] - mean) * rstd);
+      }
+    }
+    const float2 s = group_sum2(s1, s2, red, gsize, group, slot);
+    const float c1 = kLN ? s.x * inv_n : 0.f, c2 = s.y * inv_n;
+    T* dxr = dx + r * n;
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      const int c0 = (t + j * gsize) * kVec;
+      if (c0 >= n) continue;
+      float xv[kVec], dv[kVec], y[kVec];
+      Pack16<T>::unpack(cur.x[j], xv);
+      Pack16<T>::unpack(cur.dy[j], dv);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float g = dv[e] * wr[j][e];
+        const float xh = (xv[e] - mean) * rstd;
+        y[e] = rstd * (g - c1 - xh * c2);
+      }
+      if (vec && c0 + kVec <= n) {
+        store_stream(dxr + c0, Pack16<T>::pack(y));
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if (c0 + e < n) dxr[c0 + e] = ptt::from_f32<T>(y[e]);
+      }
+    }
+    cur = next;
+  }
+}
+
+// The dx routes of `ops.fused_norm.dx_plan`.
+enum DxRoute { kDxRows = 0, kDxScalar = 1, kDxWide = 2 };
+
 template <typename T, typename TW>
 cudaError_t launch_dx(const void* x, const void* w, const void* dy, const void* rstd,
-                      const void* mean, void* dx, long long rows, int n, bool ln,
-                      cudaStream_t stream) {
-  int threads = ((n + 3) / 4 + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t row_bytes = 2 * static_cast<size_t>(n) * sizeof(float);
-  const bool cache_row = row_bytes + 32 * sizeof(float) <= static_cast<size_t>(max_smem);
-  const size_t smem = cache_row ? row_bytes : 0;
-  auto kernel = ln ? norm_bwd_dx_kernel<T, TW, true> : norm_bwd_dx_kernel<T, TW, false>;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+                      const void* mean, void* dx, long long rows, int n, bool ln, int route,
+                      int gsize, int elems, int per_cta, cudaStream_t stream) {
+  if (route == kDxWide) {  // one block of gsize threads a row
+    if (gsize < 32 || gsize > 1024 || gsize % 32 != 0) return cudaErrorInvalidValue;
+    const size_t row_bytes = 2 * static_cast<size_t>(n) * sizeof(float);
+    const bool cache_row =
+        row_bytes + 32 * sizeof(float) <= static_cast<size_t>(card().max_smem);
+    const size_t smem = cache_row ? row_bytes : 0;
+    auto kernel = ln ? norm_bwd_dx_kernel<T, TW, true> : norm_bwd_dx_kernel<T, TW, false>;
+    if (smem > 48 * 1024) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    }
+    kernel<<<static_cast<unsigned>(rows), gsize, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<const T*>(dy),
+        static_cast<const float*>(rstd), static_cast<const float*>(mean), static_cast<T*>(dx),
+        n, cache_row);
+    return cudaGetLastError();
   }
-  kernel<<<static_cast<unsigned>(rows), threads, smem, stream>>>(
+  const int threads = per_cta * gsize;
+  if ((route != kDxRows && route != kDxScalar) || elems != kDxElems || gsize % 32 != 0 ||
+      gsize < 32 || static_cast<long long>(gsize) * kDxElems < n || per_cta < 1 ||
+      threads > kRowMaxThreads)
+    return cudaErrorInvalidValue;
+  auto kernel = ln ? norm_bwd_dx_rows_kernel<T, TW, true> : norm_bwd_dx_rows_kernel<T, TW, false>;
+  static std::atomic<int> fit[2][kRowMaxThreads / 32 + 1];  // per layout and CTA size
+  long long most = 0;
+  const cudaError_t err = resident_ctas(kernel, threads, fit[ln][threads / 32], most);
+  if (err != cudaSuccess) return err;
+  const long long groups = (rows + per_cta - 1) / per_cta;
+  const unsigned grid = static_cast<unsigned>(groups < most ? groups : most);
+  kernel<<<grid, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<const T*>(dy),
-      static_cast<const float*>(rstd), static_cast<const float*>(mean), static_cast<T*>(dx), n,
-      cache_row);
+      static_cast<const float*>(rstd), static_cast<const float*>(mean), static_cast<T*>(dx), rows,
+      n, gsize, route == kDxRows);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dx_w(int w_dtype, const void* x, const void* w, const void* dy,
                           const void* rstd, const void* mean, void* dx, long long rows, int n,
-                          bool ln, cudaStream_t stream) {
+                          bool ln, int route, int gsize, int elems, int per_cta,
+                          cudaStream_t stream) {
   switch (w_dtype) {
-    case ptt::kF32: return launch_dx<T, float>(x, w, dy, rstd, mean, dx, rows, n, ln, stream);
-    case ptt::kBF16: return launch_dx<T, __nv_bfloat16>(x, w, dy, rstd, mean, dx, rows, n, ln, stream);
-    case ptt::kF16: return launch_dx<T, __half>(x, w, dy, rstd, mean, dx, rows, n, ln, stream);
+    case ptt::kF32:
+      return launch_dx<T, float>(x, w, dy, rstd, mean, dx, rows, n, ln, route, gsize, elems,
+                                 per_cta, stream);
+    case ptt::kBF16:
+      return launch_dx<T, __nv_bfloat16>(x, w, dy, rstd, mean, dx, rows, n, ln, route, gsize,
+                                         elems, per_cta, stream);
+    case ptt::kF16:
+      return launch_dx<T, __half>(x, w, dy, rstd, mean, dx, rows, n, ln, route, gsize, elems,
+                                  per_cta, stream);
   }
   return cudaErrorInvalidValue;
 }
-
 
 }  // namespace
 
@@ -520,16 +718,27 @@ extern "C" int ptt_norm_fwd(const void* x, const void* w, const void* b, void* o
 
 // x, dy [rows, n] contiguous in one dtype; w [n] or null; rstd [rows] f32;
 // mean [rows] f32 (LayerNorm only); dx [rows, n] in x's dtype. kind: 1 =
-// LayerNorm, 0 = RMSNorm. Returns cudaGetLastError() after the launch.
+// LayerNorm, 0 = RMSNorm. route, gsize, elems, per_cta: the launch of
+// `ops.fused_norm.dx_plan` (route 0 rows, 1 scalar: gsize threads a row,
+// elems (16) elements a thread, per_cta rows a CTA; 2 wide: one block of
+// gsize threads a row); this side only sizes the grid, from occupancy.
+// Returns cudaGetLastError() after the launch.
 extern "C" int ptt_norm_bwd_dx(const void* x, const void* w, const void* dy, const void* rstd,
                                const void* mean, void* dx, long long rows, int n, int x_dtype,
-                               int w_dtype, int kind, void* stream) {
+                               int w_dtype, int kind, int route, int gsize, int elems,
+                               int per_cta, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ln = kind == 1;
   switch (x_dtype) {
-    case ptt::kF32: return dispatch_dx_w<float>(w_dtype, x, w, dy, rstd, mean, dx, rows, n, ln, s);
-    case ptt::kBF16: return dispatch_dx_w<__nv_bfloat16>(w_dtype, x, w, dy, rstd, mean, dx, rows, n, ln, s);
-    case ptt::kF16: return dispatch_dx_w<__half>(w_dtype, x, w, dy, rstd, mean, dx, rows, n, ln, s);
+    case ptt::kF32:
+      return dispatch_dx_w<float>(w_dtype, x, w, dy, rstd, mean, dx, rows, n, ln, route, gsize,
+                                  elems, per_cta, s);
+    case ptt::kBF16:
+      return dispatch_dx_w<__nv_bfloat16>(w_dtype, x, w, dy, rstd, mean, dx, rows, n, ln, route,
+                                          gsize, elems, per_cta, s);
+    case ptt::kF16:
+      return dispatch_dx_w<__half>(w_dtype, x, w, dy, rstd, mean, dx, rows, n, ln, route, gsize,
+                                   elems, per_cta, s);
   }
   return cudaErrorInvalidValue;
 }

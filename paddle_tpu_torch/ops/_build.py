@@ -60,9 +60,10 @@ _SIGNATURES = {
     # ppc, scale, dtype, stream
     "ptt_paged_decode_attention": [_c_void_p] * 8 + [_c_int] * 7
     + [_c_float, _c_int, _c_void_p],
-    # x, w, dy, rstd, mean, dx, rows, n, x_dtype, w_dtype, kind, stream
-    "ptt_norm_bwd_dx": [_c_void_p] * 6 + [_c_ll, _c_int, _c_int, _c_int,
-                                          _c_int, _c_void_p],
+    # x, w, dy, rstd, mean, dx, rows, n, x_dtype, w_dtype, kind, route,
+    # gsize, elems, per_cta, stream
+    "ptt_norm_bwd_dx": [_c_void_p] * 6 + [_c_ll] + [_c_int] * 8
+    + [_c_void_p],
     # q, kc, vc, k_scale, v_scale, tables, lengths, ws, arrivals, out, B,
     # Hkv, g, D, ps, P, ppc, scale, dtype, stream
     "ptt_paged_decode_attention_q8": [_c_void_p] * 10 + [_c_int] * 7

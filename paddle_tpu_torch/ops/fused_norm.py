@@ -6,29 +6,71 @@ statistics and an optional weight/bias [N], differentiably: they go through
 Its forward is `norm_fwd`, its backward `norm_bwd_dx` for dx plus torch
 reductions in f32 for dweight and dbias (jnp reductions in the JAX package,
 `fused_norm.py:288-295`). On a CUDA tensor `norm_fwd` and `norm_bwd_dx`
-launch the kernels of `csrc/fused_norm.cu` (the forward: a group of threads
-a row, the row read from HBM once into registers; rows wider than 8192
-elements one block a row; dx: one block a row); on a CPU tensor they run
+launch the kernels of `csrc/fused_norm.cu`; on a CPU tensor they run
 `norm_fwd_plain` and `norm_bwd_dx_plain`, the same arithmetic in plain
-PyTorch. `LAUNCHES` counts
-forward kernel launches and `DX_LAUNCHES` dx kernel launches.
+PyTorch. Both kernels hold a row in registers in a group of threads, 16
+elements a thread, the row read from HBM once by 16-byte loads; rows wider
+than 8192 elements take one block a row. dx runs the launch `dx_plan`
+gives: the route (`rows`, `scalar` where a pointer is off the 16-byte line
+or N is not a multiple of 16 // itemsize, `wide` past 8192), the group's
+threads and the rows a CTA; a row's two sums are reduced in one exchange
+and the next row's loads are issued before it. `LAUNCHES` counts forward
+kernel launches and `DX_LAUNCHES` dx kernel launches.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-__all__ = ["DX_LAUNCHES", "FusedNorm", "LAUNCHES", "layer_norm_fwd",
-           "norm_bwd_dx", "norm_bwd_dx_plain", "norm_fwd", "norm_fwd_plain",
-           "rms_norm_fwd"]
+__all__ = ["DX_LAUNCHES", "DxPlan", "FusedNorm", "LAUNCHES", "dx_plan",
+           "layer_norm_fwd", "norm_bwd_dx", "norm_bwd_dx_plain", "norm_fwd",
+           "norm_fwd_plain", "rms_norm_fwd"]
 
 # kernel launches since import (or since a caller reset them)
 LAUNCHES = 0     # forward
 DX_LAUNCHES = 0  # dx
 
 _KINDS = ("ln", "rms")
+
+# The dx plan's sizes (csrc/fused_norm.cu), for an H100 (132 SMs).
+ROW_ELEMS = 16         # elements of a row a thread holds (kDxElems)
+ROW_MAX_THREADS = 512  # threads of a row group at most: N <= 8192
+ROW_CTA = 256          # threads of a CTA that holds several row groups
+SMS = 132              # fewer rows than SMs: one row a CTA
+_ROUTES = {"rows": 0, "scalar": 1, "wide": 2}
+
+
+class DxPlan(NamedTuple):
+    """The dx kernel's launch: `route` "rows" (16-byte loads and stores),
+    "scalar" (element by element, the same kernel) or "wide" (one block a
+    row); `gsize` threads a row (the block's threads when wide); `elems`
+    elements of a row a thread holds (wide: visits); `rows_per_cta`."""
+    route: str
+    gsize: int
+    elems: int
+    rows_per_cta: int
+
+
+def dx_plan(rows, n, itemsize, aligned=True):
+    """The launch of the dx kernel on [rows, n] rows of `itemsize` bytes;
+    `aligned` says that x, dy and dx lie on the 16-byte line. A group of
+    `gsize` threads (ceil(n / 16) rounded up to a warp) holds a row, thread
+    t the columns [(t + j gsize) V, (t + j gsize) V + V) for j < 16 / V, V =
+    16 // itemsize; a CTA of 256 threads holds several groups unless a group
+    fills it or the rows are no more than the SMs. Rows wider than 512
+    threads can hold (n > 8192) take one block of ceil(n / 4) threads (a warp
+    at least, 1024 at most) a row."""
+    gsize = (-(-n // ROW_ELEMS) + 31) // 32 * 32
+    if gsize > ROW_MAX_THREADS:
+        threads = min(1024, max(32, (-(-n // 4) + 31) // 32 * 32))
+        return DxPlan("wide", threads, -(-n // threads), 1)
+    route = "rows" if aligned and n % (16 // itemsize) == 0 else "scalar"
+    per_cta = 1 if gsize >= ROW_CTA or rows <= SMS else ROW_CTA // gsize
+    return DxPlan(route, gsize, ROW_ELEMS, per_cta)
 
 
 def norm_fwd_plain(x2, weight, bias, kind, eps):
@@ -154,8 +196,10 @@ def norm_bwd_dx(x2, weight, dy2, rstd, mean, kind):
             raise ValueError("fused norm dx: inputs must be contiguous")
     r, n = x2.shape
     dx = torch.empty_like(x2)
-    if r == 0:
+    if r == 0 or n == 0:
         return dx
+    plan = dx_plan(r, n, x2.element_size(),
+                   all(t.data_ptr() % 16 == 0 for t in (x2, dy2, dx)))
     lib = _build.load_library()
     w_code = _build.DTYPE_CODES[str(weight.dtype)] if weight is not None else 0
     stream = torch.cuda.current_stream(x2.device).cuda_stream
@@ -164,6 +208,7 @@ def norm_bwd_dx(x2, weight, dy2, rstd, mean, kind):
         dy2.data_ptr(), rstd.data_ptr(),
         None if mean is None else mean.data_ptr(), dx.data_ptr(), r, n,
         _build.DTYPE_CODES[str(x2.dtype)], w_code, 1 if kind == "ln" else 0,
+        _ROUTES[plan.route], plan.gsize, plan.elems, plan.rows_per_cta,
         stream)
     _build.check(err, "ptt_norm_bwd_dx")
     DX_LAUNCHES += 1
