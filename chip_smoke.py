@@ -166,6 +166,21 @@ Phases; any failure raises and the script exits non-zero:
                 off), recompute on: three AdamW steps on the card (kernels)
                 and on the CPU (plain versions) from the same weights; the
                 losses and the step-1 gradients within tolerance.
+6b. train sharded — phase 5's step through distributed.DistributedTrainStep
+                on a 1-rank NCCL group (init_parallel_env, rendezvous at
+                127.0.0.1 on a free port; build_mesh(sharding=1)), sharding
+                stage 3 with offload: parameters gathered by each block for
+                the forward and again for the backward, gradients
+                reduce-scattered into the shards, the AdamW states in
+                pinned host memory between steps. The same weights and
+                tokens as phase 5; each loss within TRAIN_SHARDED_RTOL of
+                phase 5's, phase 5's launches per step, all-gathers and
+                reduce-scatters counted in every step, every state pinned
+                on the host after every step, and the peak device memory
+                below phase 5's by at least OFFLOAD_PEAK_SHARE of the
+                host-held bytes. Step time, tokens/s, MFU, the collective
+                counts and torch.profiler over one step; the process group
+                is destroyed at the end.
 7. llama serve — llama_7b at full width and depth in bf16, random weights
                 from a seed, through the paged engine (16 rows, 512 tokens,
                 page size 32) over the 12-request mix: RoPE (prefills +
@@ -299,6 +314,11 @@ FLASH_LSE_TOL = 1e-5
 # thousandth of the largest gradient anywhere, for tensors whose gradient
 # is analytically zero, like the k-projection biases).
 TRAIN_HOLD_LOSS_RTOL = 1e-4
+# the sharded step (stage 3, offload, world size 1) against phase 5's step:
+# the same bf16 arithmetic, its losses within a bf16 step's reach
+TRAIN_SHARDED_RTOL = 2e-3
+# the offloaded states must come off the card's peak, nearly all of them
+OFFLOAD_PEAK_SHARE = 0.9
 TRAIN_HOLD_GRAD_TOL = 1e-3
 # RoPE kernel vs plain: both compute x_a c - x_b s and x_b c + x_a s in f32
 # with one rounding per product and sum (the kernel uses no fused
@@ -3279,12 +3299,13 @@ def _expected(**counts):
     return {**dict.fromkeys(_counters(), 0), **counts}
 
 
-def _train_setup(torch, cfg, device, dtype, seed, recipe):
+def _train_setup(torch, cfg, device, dtype, seed, recipe, **step_kw):
     """(model, criterion, step) of a training recipe: None (f32, the
     holds), "gpt3_1p3b" (bench.py's low-memory 1.3B recipe: amp.decorate
     O2, bf16 AdamW moments) or "llama_7bshape" (bench.py's LLaMA rung: f32
     parameters and moments, AMP O2 bf16, sharding stage 2 on one device);
-    AdamW lr 1e-4, DistributedTrainStep without a mesh."""
+    AdamW lr 1e-4, DistributedTrainStep without a mesh unless `step_kw`
+    gives one (and its sharding stage and offload)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.distributed import DistributedTrainStep
     from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
@@ -3296,11 +3317,12 @@ def _train_setup(torch, cfg, device, dtype, seed, recipe):
     crit = GPTPretrainingCriterion(cfg)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 moment_dtype="bfloat16" if recipe == "gpt3_1p3b" else None)
+    kw = dict(mesh=None, sharding_stage=2 if recipe == "llama_7bshape"
+              else None)
+    kw.update(step_kw)
     step = DistributedTrainStep(model, lambda lg, lb: crit(lg, lb), opt,
-                                mesh=None, amp_level="O2" if recipe else None,
-                                amp_dtype="bfloat16",
-                                sharding_stage=2 if recipe == "llama_7bshape"
-                                else None)
+                                amp_level="O2" if recipe else None,
+                                amp_dtype="bfloat16", **kw)
     return model, crit, step
 
 
@@ -3400,6 +3422,7 @@ def train(card, torch, which):
         "timed_steps": timed, "step_s": step_s, "tokens_per_s": B * S / step_s,
         "flops_per_step": flops, "mfu": flops / step_s / PEAK_BF16,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "grad_norms_watched": seen, "launches": launches,
         "launches_per_step": per_step,
     }
@@ -3407,7 +3430,7 @@ def train(card, torch, which):
     profile_step(card, torch, lambda: step(ids, labels), f"train {which} step")
     del step, model, named
     torch.cuda.empty_cache()
-    return launches
+    return launches, line
 
 
 # the kernels of csrc/ by name, as torch.profiler reports them (the sm90
@@ -3515,6 +3538,136 @@ def _hold_verdict(card, which, results, B, S):
             and grad_rel[worst] <= TRAIN_HOLD_GRAD_TOL):
         raise AssertionError(f"train hold {which}: the card's training step "
                              "disagrees with the CPU's")
+
+
+# --------------------------------------------------------------------------- #
+# phase 6b: the sharded step (ZeRO stage 3 with offload) at world size 1
+# --------------------------------------------------------------------------- #
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_sharded(card, torch, train_line):
+    """Phase 5's gpt3_1p3b step through the sharded code of
+    `DistributedTrainStep` on a 1-rank NCCL group (rendezvous at 127.0.0.1
+    on a free port; `build_mesh(sharding=1)`, as bench.py:270 builds its
+    one-device mesh): sharding stage 3 (every parameter gathered by its
+    block for the forward and again for the backward, each gradient
+    reduce-scattered into its shard) with offload (the AdamW states in
+    pinned host memory between steps). The same weights and tokens as
+    phase 5: a warm-up step, then three timed steps with the kernel and
+    collective counters zeroed just before and read just after. Each loss
+    within TRAIN_SHARDED_RTOL of phase 5's at the same step, the flash and
+    norm launches phase 5's per step x 3, all-gathers and reduce-scatters
+    in every step, every state tensor on the CPU and pinned after every
+    step, and the peak device memory below phase 5's by at least
+    OFFLOAD_PEAK_SHARE of the bytes the states hold on the host."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed import collective as coll
+
+    cfg, per_step, _, recipe_text = _train_config("gpt3_1p3b")
+    B, S, timed = 4, 2048, 3
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1")
+    pdist.init_parallel_env()
+    try:
+        mesh = pdist.build_mesh(sharding=1)
+        t0 = time.perf_counter()
+        model, _, step = _train_setup(torch, cfg, "cuda", torch.float32, 0,
+                                      "gpt3_1p3b", mesh=mesh,
+                                      sharding_stage=3, offload=True)
+        opt = step.optimizer
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              device="cuda")
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+
+        def states_pinned():
+            bad = [k for k, p in step.params.items()
+                   for v in opt._states[id(p)].values()
+                   if v.device.type != "cpu" or not v.is_pinned()]
+            if bad:
+                raise AssertionError(f"train_sharded: states not pinned on "
+                                     f"the host: {bad[:4]}")
+
+        t0 = time.perf_counter()
+        losses = [step(ids, labels).item()]
+        warm_s = time.perf_counter() - t0
+        states_pinned()
+        host_bytes = sum(v.numel() * v.element_size()
+                         for st in opt._states.values() for v in st.values())
+
+        _zero_counters()
+        coll.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls = []
+        for _ in range(timed):
+            before = dict(coll.CALLS)
+            losses.append(step(ids, labels).item())
+            states_pinned()
+            calls.append({op: coll.CALLS.get(op, 0) - before.get(op, 0)
+                          for op in ("all_gather", "reduce_scatter",
+                                     "all_reduce")})
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = total_s / timed
+        flops = decoder_flops(cfg, B, S)
+        ref = train_line["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        want = _expected(**{k: v * timed for k, v in per_step.items()})
+        drop = train_line["peak_memory_bytes"] - peak
+        line = {
+            "model": "gpt3_1p3b", "recipe": recipe_text,
+            "mesh": pdist.env.mesh_shape(mesh), "sharding_stage": 3,
+            "offload": True, "comm_overlap": step.comm_overlap,
+            "batch": B, "seq": S, "built_s": built_s, "warmup_step_s": warm_s,
+            "losses": losses, "train_losses": ref, "max_loss_rel_diff": rel,
+            "loss_rtol": TRAIN_SHARDED_RTOL, "timed_steps": timed,
+            "step_s": step_s, "tokens_per_s": B * S / step_s,
+            "mfu": flops / step_s / PEAK_BF16,
+            "collectives_per_step": calls,
+            "collective_bytes": dict(coll.BYTES),
+            "host_state_bytes": host_bytes, "peak_memory_bytes": peak,
+            "train_peak_memory_bytes": train_line["peak_memory_bytes"],
+            "peak_drop_bytes": drop,
+            "peak_drop_share_of_host_bytes": drop / host_bytes,
+            "launches": launches, "launches_per_step": per_step}
+        say(card, "train_sharded gpt3_1p3b (smoke run, not a benchmark) "
+            + json.dumps(line))
+        if rel > TRAIN_SHARDED_RTOL:
+            raise AssertionError(f"train_sharded: losses {losses} against "
+                                 f"phase 5's {ref}")
+        if launches != want:
+            raise AssertionError(f"train_sharded: kernel launches {launches}, "
+                                 f"expected {want}")
+        if not all(c["all_gather"] > 0 and c["reduce_scatter"] > 0
+                   for c in calls):
+            raise AssertionError(f"train_sharded: collectives {calls}")
+        if drop < OFFLOAD_PEAK_SHARE * host_bytes:
+            raise AssertionError(
+                f"train_sharded: peak {peak} B against phase 5's "
+                f"{train_line['peak_memory_bytes']} B, a drop of {drop} B; "
+                f"the states hold {host_bytes} B on the host")
+        profile_step(card, torch, lambda: step(ids, labels),
+                     "train_sharded gpt3_1p3b step")
+        del step, model, opt
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        pdist.destroy_process_group()
 
 
 # --------------------------------------------------------------------------- #
@@ -3661,6 +3814,7 @@ def train_moe(card, torch):
         "tokens_per_s": B * S / step_s, "flops_per_step": flops,
         "mfu": flops / step_s / PEAK_BF16,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "grad_norms_watched": seen, "launches": launches,
         "launches_per_step": per_step}))
     profile_step(card, torch, lambda: step(ids, labels), "train gpt3_moe step")
@@ -3837,11 +3991,12 @@ def main():
     dense_launches = serve_dense(card, torch)
     mmha_launches = mmha(card, torch)
     quant_hold(card, torch)
-    train_launches = train(card, torch, "gpt3_1p3b")
+    train_launches, train_line = train(card, torch, "gpt3_1p3b")
     train_hold(card, torch, "gpt3_1p3b")
+    sharded_launches = train_sharded(card, torch, train_line)
     llama_serve_launches = serve(card, torch, "llama_7b")
     hold(card, torch, "llama_7b")
-    llama_train_launches = train(card, torch, "llama_7bshape")
+    llama_train_launches, _ = train(card, torch, "llama_7bshape")
     train_hold(card, torch, "llama_7bshape")
     moe_launches = train_moe(card, torch)
     moe_train_hold(card, torch)
@@ -3850,8 +4005,8 @@ def main():
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
     paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
-             train_launches, llama_serve_launches, llama_train_launches,
-             moe_launches, varlen_launches)
+             train_launches, sharded_launches, llama_serve_launches,
+             llama_train_launches, moe_launches, varlen_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"

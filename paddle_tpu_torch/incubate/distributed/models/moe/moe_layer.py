@@ -24,11 +24,11 @@ Where JAX writes a scatter with `mode="drop"` and a gather with
 dropped pairs land there, and it is cut off) and gathers from the expert
 outputs with one zero row appended.
 
-Not ported: expert parallelism. The port has no device mesh yet (ROADMAP
-A9): on one device `ep` is 1, the JAX package runs exactly this path and
-`ep_axis` changes nothing; a process group (`moe_group`, `mp_group`)
-raises NotImplementedError, and the all-to-all accounting of
-`distributed/moe_comm.py` comes with A9. The `PADDLE_TPU_MOE_FAST` and
+Not ported: expert parallelism (ROADMAP queue A item 1e): on one device
+`ep` is 1, the JAX package runs exactly this path and `ep_axis` changes
+nothing; a process group (`moe_group`, `mp_group`) raises
+NotImplementedError, and the all-to-all accounting of
+`distributed/moe_comm.py` comes with item 1e. The `PADDLE_TPU_MOE_FAST` and
 `PADDLE_TPU_MOE_A2A_CHUNKS` switches are not ported: the form follows the
 experts and the gate.
 """
@@ -115,7 +115,7 @@ class MoELayer(nn.Module):
         if moe_group is not None or mp_group is not None:
             raise NotImplementedError(
                 "MoE over process groups (expert parallelism) is ported with "
-                "the distributed slice (ROADMAP A9)")
+                "ROADMAP queue A item 1e")
         self.d_model = d_model
         self.ep_axis = ep_axis
         if isinstance(experts, ExpertFFN):

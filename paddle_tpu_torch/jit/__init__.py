@@ -3,12 +3,26 @@
 The JAX package compiles forward, backward and the optimizer update into
 one XLA program. PyTorch runs eagerly, so a `TrainStep` call runs them in
 turn: the forward under `amp.auto_cast(level, dtype)` when an AMP level is
-given, the loss in f32, `loss.backward()`, then the optimizer's rule on
-every parameter with the step counter t and the optimizer's weight decay
-applied to every parameter (as `_build` does, :299-300 and :373-390), on
-the f32 master copy under multi-precision. Each gradient is freed as soon
-as its parameter is updated. The parameters are updated in place (the
-JAX package's `sync_weights` write-back has nothing to do here).
+given, the loss in f32, `loss.backward()`, the optimizer's global-norm
+clip when it has one (in f32 over every gradient, :364-371), then the
+optimizer's rule on every parameter with the step counter t and the
+optimizer's weight decay applied to every parameter (as `_build` does,
+:299-300 and :373-390), on the f32 master copy under multi-precision. Each
+gradient is freed as soon as its parameter is updated. The parameters are
+updated in place (the JAX package's `sync_weights` write-back has nothing
+to do here).
+
+As in the reference, the clip in the step is the global-norm one: an
+optimizer clip with a `clip_norm` (`ClipGradByGlobalNorm`, and
+`ClipGradByNorm` too, whose norm the reference's step also takes over
+every gradient) scales every gradient by clip_norm / max(norm, clip_norm);
+`ClipGradByValue` is not applied by the step, as in the reference.
+
+The update runs through the reference's sharding hooks, identities here,
+which `DistributedTrainStep` overrides: `_shard_grad` (the gradient this
+rank updates with), `_shard_param_for_update` (the tensor it updates: the
+parameter or its shard), `_restore_param` (after the update: all-gather the
+parameter from its shards), and `_grad_sq_sum` (the clip's squared sum).
 """
 
 from __future__ import annotations
@@ -19,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import amp
+from ..nn.clip import global_norm_scale, scale_grad
 
 __all__ = ["TrainStep"]
 
@@ -45,12 +60,13 @@ class TrainStep:
                  amp_dtype="bfloat16"):
         self.model = model
         self.loss_fn = loss_fn
-        self.optimizer = optimizer
+        # a fleet wrapper (HybridParallelOptimizer) holds the optimizer
+        self.optimizer = getattr(optimizer, "_inner_opt", optimizer)
         self.amp_level = amp_level
         self.amp_dtype = amp_dtype
         self.params = {k: p for k, p in model.named_parameters()
                        if p.requires_grad}
-        optimizer._names = dict(self.params)
+        self.optimizer._names = dict(self.params)
 
     @property
     def opt_states(self):
@@ -76,18 +92,49 @@ class TrainStep:
 
     def __call__(self, inputs, labels):
         inputs, labels = self._batch(inputs), self._batch(labels)
-        opt = self.optimizer
         for p in self.params.values():
             p.grad = None
         loss = self._loss(inputs, labels)
         loss.backward()
+        self._update()
+        return loss.detach()
+
+    @torch.no_grad()
+    def _update(self):
+        opt = self.optimizer
         opt._step_count += 1
         ctx = {"step": opt._step_count, "weight_decay": opt._decay_coeff()}
         lr = opt.get_lr()
-        for p in self.params.values():
-            opt.apply_update(p, p.grad, lr, ctx)
+        grads = {k: self._shard_grad(k, p.grad) for k, p in self.params.items()}
+        clip_norm = getattr(opt._grad_clip, "clip_norm", None)
+        if clip_norm is not None:
+            scale = global_norm_scale(self._grad_sq_sum(grads), clip_norm)
+            grads = {k: None if g is None else scale_grad(g, scale)
+                     for k, g in grads.items()}
+        for k, p in self.params.items():
+            self._apply(k, p, grads.pop(k), lr, ctx)
             p.grad = None
-        return loss.detach()
+            self._restore_param(k, p)
+
+    def _apply(self, name, p, g, lr, ctx):
+        self.optimizer.apply_update(p, g, lr, ctx,
+                                    target=self._shard_param_for_update(name, p))
+
+    # the reference's sharding hooks (jit/__init__.py:379-390); identities
+    # here, overridden by DistributedTrainStep
+    def _shard_grad(self, name, g):
+        return g
+
+    def _shard_param_for_update(self, name, p):
+        return p
+
+    def _restore_param(self, name, p):
+        pass
+
+    def _grad_sq_sum(self, grads):
+        """The squared sum of every gradient, in f32."""
+        return sum(g.float().square().sum() for g in grads.values()
+                   if g is not None)
 
     @torch.no_grad()
     def evaluate(self, inputs, labels):

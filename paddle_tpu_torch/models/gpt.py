@@ -58,8 +58,9 @@ positions), else 0..S-1, or the scalar cache offset onwards. K is cached
 after the rotation, as in the JAX package, so cached pages (prefix-shared
 or restored after a preemption) are never rotated again.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-ring / context and sequence parallelism (A9) and dropout (A3).
+Not ported yet (each raises NotImplementedError naming its ROADMAP queue A
+item): ring / context parallelism (1d), sequence parallelism (1b) and
+dropout (4).
 """
 
 from __future__ import annotations
@@ -176,13 +177,17 @@ def _check_supported(cfg: GPTConfig):
         raise ValueError(f"unknown activation {cfg.activation!r}")
     if cfg.attn_variant not in ("flash", "flashmask"):
         raise ValueError(f"unknown attn_variant {cfg.attn_variant!r}")
-    if cfg.context_parallel or cfg.sequence_parallel:
+    if cfg.context_parallel:
         raise NotImplementedError(
-            "context/sequence parallelism is ported with ROADMAP A9")
+            "context parallelism (ring attention) is ported with ROADMAP "
+            "queue A item 1d")
+    if cfg.sequence_parallel:
+        raise NotImplementedError(
+            "sequence parallelism is ported with ROADMAP queue A item 1b")
     if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
         raise NotImplementedError(
             "dropout (explicit generators, Philox in the attention kernels) "
-            "is a later slice (ROADMAP A3)")
+            "is ported with ROADMAP queue A item 4")
 
 
 def _dyn_update(buf, new, off):

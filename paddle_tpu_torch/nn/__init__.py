@@ -2,7 +2,10 @@
 with Paddle's names and layouts."""
 
 from . import functional
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_, clip_grad_value_)
 from .layer import Embedding, LayerList, LayerNorm, Linear, RMSNorm
 
-__all__ = ["Embedding", "LayerList", "LayerNorm", "Linear", "RMSNorm",
-           "functional"]
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Embedding", "LayerList", "LayerNorm", "Linear", "RMSNorm",
+           "clip_grad_norm_", "clip_grad_value_", "functional"]

@@ -17,8 +17,15 @@ package; a `TrainStep` also records the parameters by name (`_names`),
 which is how `convert.load_paddle_tpu_opt_state` finds the state of a
 named parameter.
 
-Not ported yet: `grad_clip` (nn/clip.py) and learning-rate schedulers
-(optimizer/lr.py), both ROADMAP A6, raise NotImplementedError.
+`grad_clip` takes the clip classes of `nn.clip`: `step()` applies it to
+the (parameter, gradient) pairs it updates, and `jit.TrainStep` applies the
+global-norm clip over every gradient, as the JAX step does. Not ported
+yet: learning-rate schedulers (optimizer/lr.py) raise NotImplementedError
+(ROADMAP queue A item 4).
+
+A rank of a sharded `DistributedTrainStep` keeps state only for its shard
+of a parameter: `apply_update(p, g, lr, ctx, target)` updates `target` (a
+shard of p, or p itself) and keys the state, shaped like `target`, by p.
 """
 
 from __future__ import annotations
@@ -35,18 +42,19 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, multi_precision=False, name=None):
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "gradient clipping (nn/clip.py) is ported with ROADMAP A6")
+        if grad_clip is not None and not callable(grad_clip):
+            raise TypeError("grad_clip takes a clip of nn.clip (e.g. "
+                            "ClipGradByGlobalNorm)")
         if not isinstance(learning_rate, (int, float)):
             raise NotImplementedError(
                 "learning-rate schedulers (optimizer/lr.py) are ported with "
-                "ROADMAP A6; pass a float")
+                "ROADMAP queue A item 4; pass a float")
         self._lr = float(learning_rate)
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
         self._weight_decay = 0.0 if weight_decay is None else float(weight_decay)
         self._multi_precision = multi_precision
+        self._grad_clip = grad_clip
         self._states: dict = {}   # id(parameter) -> state dict
         self._names: dict = {}    # name -> parameter, recorded by TrainStep
         self._step_count = 0
@@ -68,40 +76,51 @@ class Optimizer:
             raise ValueError("optimizer constructed without parameters")
         return self._parameter_list
 
-    def _get_state(self, p):
+    def _get_state(self, p, target=None):
         st = self._states.get(id(p))
         if st is None:
-            st = self.init_state(p)
-            if self._multi_precision and p.dtype in _LOW:
-                st["master"] = p.detach().float()
+            t = p if target is None else target
+            st = self.init_state(t)
+            if self._multi_precision and t.dtype in _LOW:
+                st["master"] = t.detach().float()
             self._states[id(p)] = st
         return st
 
     @torch.no_grad()
-    def apply_update(self, p, g, lr, ctx):
-        """One step of the rule on parameter p with gradient g (None reads
-        as zeros), in place; the master copy takes the f32 result."""
-        st = self._get_state(p)
+    def apply_update(self, p, g, lr, ctx, target=None):
+        """One step of the rule on parameter p (or on `target`, the shard of
+        p this rank updates) with gradient g (None reads as zeros), in
+        place; the master copy takes the f32 result."""
+        t = p if target is None else target
+        self.apply_rule(t, g, self._get_state(p, t), lr, ctx)
+
+    @torch.no_grad()
+    def apply_rule(self, t, g, st, lr, ctx):
+        """The rule on tensor t with state st (tensors shaped like t, all
+        written in place): a whole parameter, a shard or a slice of one."""
         master = st.get("master")
-        pv = master if master is not None else p.detach()
+        pv = master if master is not None else t.detach()
         gv = torch.zeros_like(pv) if g is None else g.to(pv.dtype)
         rule_state = {k: v for k, v in st.items() if k != "master"}
         new_p, new_st = self.update(pv, gv, rule_state, lr, ctx)
         if master is not None:
-            st["master"] = new_p
-            p.copy_(new_p.to(p.dtype))
-        else:
-            p.copy_(new_p)
-        st.update(new_st)
+            master.copy_(new_p)
+        t.copy_(new_p)
+        for k, v in new_st.items():
+            st[k].copy_(v)
 
     @torch.no_grad()
     def step(self):
-        """Update every parameter that has a gradient (eager Paddle step)."""
+        """Update every parameter that has a gradient (eager Paddle step),
+        the gradients clipped by `grad_clip` first."""
         self._step_count += 1
         ctx = {"step": self._step_count, "weight_decay": self._decay_coeff()}
-        for p in self._params():
-            if p.requires_grad and p.grad is not None:
-                self.apply_update(p, p.grad, self._lr, ctx)
+        pairs = [(p, p.grad) for p in self._params()
+                 if p.requires_grad and p.grad is not None]
+        if self._grad_clip is not None:
+            pairs = self._grad_clip(pairs)
+        for p, g in pairs:
+            self.apply_update(p, g, self._lr, ctx)
 
     def clear_grad(self, set_to_zero=True):
         for p in self._params():
@@ -167,7 +186,7 @@ class AdamW(Adam):
         if lr_ratio is not None or apply_decay_param_fun is not None:
             raise NotImplementedError(
                 "AdamW lr_ratio / apply_decay_param_fun are ported with "
-                "ROADMAP A6")
+                "ROADMAP queue A item 4")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          moment_dtype=moment_dtype, name=name)

@@ -239,7 +239,7 @@ def test_list_experts_take_the_dense_path():
     x = torch.from_numpy(_x(2, 12))
     torch.testing.assert_close(listed(x), stacked(x), rtol=1e-5, atol=1e-5)
     assert isinstance(listed.experts, tnn.LayerList)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="queue A item 1e"):
         tmoe.MoELayer(M, tmoe.ExpertFFN(E, M, H, device="cpu"),
                       moe_group=object(), device="cpu")
 

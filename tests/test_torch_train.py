@@ -5,8 +5,9 @@
 both packages); a 3-step bf16 O2 run with bf16 moments and per-layer
 recompute; resuming from the JAX optimizer state after step 2. Also the
 port's own rules: recompute changes no gradient, the single-device
-`DistributedTrainStep` is `TrainStep`, the decode kernels refuse
-gradients, and the unported modes raise. The JAX side runs its Pallas
+`DistributedTrainStep` is `TrainStep`, stage 3 and offload on a 1-rank
+group are stage 0, the decode kernels refuse gradients, and the unported
+modes raise. The JAX side runs its Pallas
 kernels in interpret mode."""
 
 import os
@@ -25,6 +26,7 @@ from paddle_tpu.models import gpt3_tiny as jax_tiny
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.convert import (load_paddle_tpu_opt_state,
                                       load_paddle_tpu_state)
+from paddle_tpu_torch import distributed as pdist
 from paddle_tpu_torch.distributed import DistributedTrainStep
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
@@ -242,18 +244,53 @@ def test_distributed_train_step_without_a_mesh_is_train_step():
     for k in runs[0][1]:
         torch.testing.assert_close(runs[1][1][k], runs[0][1][k], rtol=0, atol=0)
     # on one device sharding stage 2 is the stage-0 step (the reference's
-    # sharding axis has size 1); stage 3, offload and two devices raise
+    # sharding axis has size 1)
     tm = _port_model(state)
     step, _ = _port_step(tm, lambda *a: DistributedTrainStep(
         *a, sharding_stage=2))
     assert [step(ids, labels).item() for _ in range(2)] == runs[0][0]
     for k, v in tm.state_dict().items():
         torch.testing.assert_close(v, runs[0][1][k], rtol=0, atol=0)
-    for kw in (dict(sharding_stage=3), dict(offload=True),
-               dict(mesh=np.empty((2, 1)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            _port_step(_port_model(state), lambda *a: DistributedTrainStep(
-                *a, **kw))
+    # stage 3 and offload shard over a mesh, and a mesh needs the process
+    # group: without init_parallel_env both raise, saying so
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
+        _port_step(_port_model(state), lambda *a: DistributedTrainStep(
+            *a, sharding_stage=3))
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
+        pdist.build_mesh(sharding=2)
+
+
+def test_stage3_and_offload_on_one_rank_equal_stage0(tmp_path):
+    """On a 1-rank gloo group, stage 3 (gpt3_tiny's tied head gathered once
+    for both uses, every layer gathered again in its recomputed forward)
+    and stage 2 and 3 with offload follow the stage-0 step bit for bit:
+    the gathers and reduce-scatters over a group of one change nothing."""
+    state = _state(_jax_model())
+    ids, labels = _batch(2)
+    pdist.init_parallel_env(device="cpu", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = pdist.build_mesh(sharding=1)
+        runs = {}
+        for kw in (dict(sharding_stage=0), dict(sharding_stage=3),
+                   dict(sharding_stage=2, offload=True),
+                   dict(sharding_stage=3, offload=True)):
+            tm = _port_model(state, use_recompute=True)
+            step, opt = _port_step(tm, lambda *a: DistributedTrainStep(
+                *a, mesh=mesh, **kw))
+            losses = [step(ids, labels).item() for _ in range(2)]
+            runs[tuple(kw.items())] = (losses, pdist.full_state_dict(tm))
+            if kw.get("offload"):
+                assert all(v.device.type == "cpu" for st in opt._states.values()
+                           for v in st.values())
+    finally:
+        pdist.destroy_process_group()
+    (ref_l, ref_p), *others = runs.values()
+    for losses, params in others:
+        assert losses == ref_l
+        for k in ref_p:
+            torch.testing.assert_close(params[k], ref_p[k], rtol=0, atol=0,
+                                       msg=k)
 
 
 def test_eager_optimizer_step_equals_train_step():
@@ -293,14 +330,18 @@ def test_decode_wrappers_raise_under_grad():
 
 
 def test_unported_training_modes_raise():
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.nn import functional as TF
 
     params = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        AdamW(parameters=params, grad_clip=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    clip = ClipGradByGlobalNorm(1.0)
+    opt = AdamW(parameters=params, grad_clip=clip)
+    assert opt._grad_clip is clip
+    (_, g), = clip([(params[0], torch.tensor([3.0, 4.0]))])
+    torch.testing.assert_close(g, torch.tensor([0.6, 0.8]))
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
         AdamW(learning_rate=lambda: 1.0, parameters=params)
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         TF.cross_entropy(torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
         GPTForCausalLM(gpt3_tiny(attention_dropout_prob=0.1), device="cpu")
