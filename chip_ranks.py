@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The port's data-parallel and ZeRO step over several GPUs of one host
-(NCCL, one process per card).
+"""The port's data-parallel, ZeRO and tensor-parallel step over several
+GPUs of one host (NCCL, one process per card).
 
     python3 chip_ranks.py --ranks 4          # four cards
     python3 chip_ranks.py --ranks 4 --cpu    # four gloo processes, tiny sizes
@@ -22,6 +22,13 @@ Each rank runs, in order:
    the same weights and tokens), step time, tokens/s, peak memory of
    each rank, the collectives of a step and the bytes each rank's states
    hold on the host.
+3. tp — the same gpt3_1p3b recipe with sequence_parallel, cut over mp:
+   at 2 ranks a mesh of mp=2, at 4 ranks dp=2 x mp=2 (sharding stage 1).
+   Each rank first runs the uncut model on its own card with
+   `jit.TrainStep` on the whole batch (no mesh: the one-card reference),
+   then the mp step: a warm-up step and three timed steps, each loss
+   within TRAIN_SHARDED_RTOL of the one-card losses, step time, tokens/s,
+   peak memory of each rank and the collectives of a step.
 
 Rank 0 prints one JSON line per part and a last line {"ok": ...}; the
 process exits non-zero when a rank fails or a parity check does not hold.
@@ -43,6 +50,7 @@ import time
 GROUP_TIMEOUT_S = 300
 RUN_TIMEOUT_S = 1500
 LOSS_RTOL = 2e-4
+TRAIN_SHARDED_RTOL = 2e-3   # chip_smoke.py's: bf16 steps of one recipe
 PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 H, B = 256, 32
 
@@ -179,6 +187,85 @@ def gpt_step(torch, dist, world, device, cpu):
             "finite": all(math.isfinite(v) for v in losses)}
 
 
+def tp_step(torch, dist, world, device, cpu):
+    """Part 3: gpt3_1p3b with sequence parallelism cut over mp."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_paddle_tpu_state
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt3_1p3b,
+                                         gpt3_tiny)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    kw = dict(use_recompute=True, sequence_parallel=True)
+    if cpu:
+        cfg, batch, seq = gpt3_tiny(**kw), 4, 64
+    else:
+        cfg = gpt3_1p3b(max_position_embeddings=2048, **kw)
+        batch, seq = 4, 2048
+    sync = torch.cuda.synchronize if not cpu else (lambda: None)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                          device=device)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                             device=device)
+    state = {k: v.cpu().numpy() for k, v in GPTForCausalLM(
+        cfg, device=device, dtype=torch.float32, seed=0).state_dict().items()}
+
+    def build():
+        model = GPTForCausalLM(cfg, device=device, dtype=torch.float32, seed=1)
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        crit = GPTPretrainingCriterion(cfg)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    moment_dtype="bfloat16")
+        return model, (lambda lg, lb: crit(lg, lb)), opt
+
+    def run(step):
+        losses = [step(ids, labels).item()]
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        coll.reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        losses += [step(ids, labels).item() for _ in range(3)]
+        sync()
+        return losses, (time.perf_counter() - t0) / 3
+
+    dist.env.set_global_mesh(None)   # the one-card reference: no mesh
+    model, loss_fn, opt = build()
+    ref, ref_s = run(TrainStep(load_paddle_tpu_state(model, state), loss_fn,
+                               opt, amp_level="O2", amp_dtype="bfloat16"))
+    del model, opt
+    if not cpu:
+        torch.cuda.empty_cache()
+    shape = dict(mp=2) if world == 2 else dict(dp=world // 2, mp=2)
+    model, loss_fn, opt = build()
+    step = dist.DistributedTrainStep(
+        model, loss_fn, opt, mesh=dist.build_mesh(**shape), sharding_stage=1,
+        amp_level="O2", amp_dtype="bfloat16")
+    load_paddle_tpu_state(model, state)
+    del state
+    losses, step_s = run(step)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    return {"part": "tp", "model": "gpt3_1p3b" if not cpu else "gpt3_tiny",
+            "mesh": dist.env.mesh_shape(step.mesh), "sequence_parallel": True,
+            "sharding_stage": 1, "batch": batch, "seq": seq,
+            "losses": losses, "one_card_losses": ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "step_s": step_s, "one_card_step_s": ref_s,
+            "tokens_per_s": batch * seq / step_s,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if not cpu else None),
+            "collective_calls_per_step": {k: v / 3 for k, v in coll.CALLS.items()},
+            "collective_bytes_per_step": {k: v / 3 for k, v in coll.BYTES.items()},
+            "failed": [] if rel <= TRAIN_SHARDED_RTOL else
+            [f"tp losses {losses} against one card's {ref}"],
+            "finite": all(math.isfinite(v) for v in losses)}
+
+
 def rank_main(rank, world, port, cpu, out_dir):
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
@@ -199,6 +286,7 @@ def rank_main(rank, world, port, cpu, out_dir):
         parts = [parity(torch, dist, world, device)]
         torch.backends.cuda.matmul.allow_tf32 = True
         parts.append(gpt_step(torch, dist, world, device, cpu))
+        parts.append(tp_step(torch, dist, world, device, cpu))
         gathered = []
         dist.all_gather_object(gathered, parts)
         if rank == 0:
@@ -261,11 +349,13 @@ def main():
         for part in parts:
             print(f"[{card}] rank {r} " + json.dumps(part), flush=True)
             failed += [f"rank {r}: {x}" for x in part.get("failed", [])]
-            if part["part"] == "step" and not part["finite"]:
+            if part["part"] in ("step", "tp") and not part["finite"]:
                 failed.append(f"rank {r}: non-finite loss")
-    losses = {tuple(parts[1]["losses"]) for parts in ranks}
-    if len(losses) != 1:
-        failed.append(f"the ranks report different losses {losses}")
+    for i in (1, 2):
+        losses = {tuple(parts[i]["losses"]) for parts in ranks}
+        if len(losses) != 1:
+            failed.append(f"the ranks report different {ranks[0][i]['part']} "
+                          f"losses {losses}")
     print(card, flush=True)
     print(json.dumps({"ok": not failed, "failed": failed,
                       "ranks": args.ranks}), flush=True)

@@ -181,6 +181,20 @@ Phases; any failure raises and the script exits non-zero:
                 host-held bytes. Step time, tokens/s, MFU, the collective
                 counts and torch.profiler over one step; the process group
                 is destroyed at the end.
+6c. train tensor-parallel — phase 5's step with sequence_parallel through
+                the mp code of DistributedTrainStep on a 1-rank NCCL group
+                (build_mesh(mp=1)) at sharding stage 1: the model cut over
+                the one-rank mp group, its column- and row-parallel layers,
+                vocab-parallel embedding and parallel cross entropy
+                calling their collectives, the activations between blocks
+                the sequence shard. Phase 5's weights, carried into the cut
+                model by convert.load_paddle_tpu_state, and tokens; each
+                loss within TRAIN_SHARDED_RTOL of phase 5's, phase 5's
+                launches per step, and each step's all-gathers,
+                reduce-scatters and all-reduces exactly the ones
+                tp_collectives predicts from the code. Step time,
+                tokens/s, MFU, peak memory, the collective counts and
+                torch.profiler over one step.
 7. llama serve — llama_7b at full width and depth in bf16, random weights
                 from a seed, through the paged engine (16 rows, 512 tokens,
                 page size 32) over the 12-request mix: RoPE (prefills +
@@ -3445,8 +3459,9 @@ PORT_KERNEL = re.compile(
 def profile_step(card, torch, fn, what):
     """torch.profiler over one call of `fn`: wall time, device-busy time
     (the sum of device activity; one stream, so nothing overlaps), the
-    kernels that take the most device time, and every kernel of the port
-    (csrc/: PORT_KERNEL in the trace's names) with its time."""
+    kernels that take the most device time, every kernel of the port
+    (csrc/: PORT_KERNEL in the trace's names) with its time, and the host
+    operations that take the most host time of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3470,7 +3485,14 @@ def profile_step(card, torch, fn, what):
         "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
         "top_device_kernels": rows(ranked[:10]),
-        "port_kernels": rows(e for e in ranked if PORT_KERNEL.search(e.key))}))
+        "port_kernels": rows(e for e in ranked if PORT_KERNEL.search(e.key)),
+        "top_host_ops": [
+            {"name": e.key[:80], "self_host_ms": e.self_cpu_time_total / 1e3,
+             "calls": e.count}
+            for e in sorted((e for e in prof.key_averages()
+                             if e.self_cpu_time_total > 0),
+                            key=lambda e: e.self_cpu_time_total,
+                            reverse=True)[:12]]}))
 
 
 # --------------------------------------------------------------------------- #
@@ -3664,6 +3686,145 @@ def train_sharded(card, torch, train_line):
         profile_step(card, torch, lambda: step(ids, labels),
                      "train_sharded gpt3_1p3b step")
         del step, model, opt
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        pdist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------- #
+# phase 6c: the tensor- and sequence-parallel step at world size 1
+# --------------------------------------------------------------------------- #
+
+
+def tp_collectives(cfg, step):
+    """The collectives that one step of `DistributedTrainStep` on a GPT
+    cut over mp makes, by op, as the code places them (sharding stage 0
+    or 1, no clip; sequence parallelism on):
+
+    - each block's column-parallel inputs (q, k, v, fc1; gate and up with
+      SwiGLU) all-gather the sequence in the forward, and again in the
+      recomputed forward, and reduce-scatter in the backward; its two
+      row-parallel outputs (out_proj, fc2 / down) reduce-scatter in both
+      forwards and all-gather in the backward;
+    - the model all-gathers the sequence twice more: the embedding's cut
+      (ScatterOp) in the backward, the final norm's output (GatherOp) in
+      the forward;
+    - all-reduces: the embedding's output, the head's input gradient
+      (c_identity), the cross entropy's row max and its sums (two);
+    - the step: the loss's count and the reported loss (all-reduces),
+      one all-reduce per gradient bucket, one more over mp per bucket of
+      sequence-parallel gradients, and at stage 1 one all-gather per
+      parameter cut into sharding shards (the update's restore)."""
+    L = cfg.num_layers
+    col = 5 if cfg.activation == "swiglu" else 4
+    row, fwd = 2, 2 if cfg.use_recompute else 1
+    cut = sum(step._cut(k) is not None for k in step.params)
+    return {
+        "all_gather": L * (col * fwd + row) + 2
+        + (cut if step.sharding_stage == 1 else 0),
+        "reduce_scatter": L * (row * fwd + col),
+        "all_reduce": 4 + 2 + len(step._buckets)
+        + sum(b.sp for b in step._buckets)}
+
+
+def train_tensor_parallel(card, torch, train_line):
+    """Phase 5's gpt3_1p3b step with sequence parallelism through the mp
+    code of `DistributedTrainStep` on a 1-rank NCCL group
+    (`build_mesh(mp=1)`, sharding stage 1): the model cut over the mp
+    group of one rank, its tensor-parallel layers calling their
+    all-reduces, all-gathers and reduce-scatters, the activations between
+    blocks the sequence shard (all of it at mp=1). The weights are phase
+    5's (seed 0, f32, then O2), carried into the cut model by
+    `convert.load_paddle_tpu_state` from a model built with another seed;
+    the tokens are phase 5's. A warm-up step, then three timed steps with
+    the kernel and collective counters zeroed just before and read just
+    after: each loss within TRAIN_SHARDED_RTOL of phase 5's at the same
+    step, the flash and norm launches phase 5's per step x 3, and each
+    step's collectives the ones `tp_collectives` predicts."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.convert import load_paddle_tpu_state
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    cfg, per_step, _, recipe_text = _train_config("gpt3_1p3b")
+    cfg = dataclasses.replace(cfg, sequence_parallel=True)
+    B, S, timed = 4, 2048, 3
+    t0 = time.perf_counter()
+    state = {k: v.cpu().numpy() for k, v in GPTForCausalLM(
+        cfg, device="cuda", seed=0).state_dict().items()}
+    torch.cuda.empty_cache()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1")
+    pdist.init_parallel_env()
+    try:
+        mesh = pdist.build_mesh(mp=1)
+        model, _, step = _train_setup(torch, cfg, "cuda", torch.float32, 1,
+                                      "gpt3_1p3b", mesh=mesh,
+                                      sharding_stage=1)
+        load_paddle_tpu_state(model, state)
+        del state
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              device="cuda")
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses = [step(ids, labels).item()]
+        warm_s = time.perf_counter() - t0
+        predicted = tp_collectives(cfg, step)
+
+        _zero_counters()
+        coll.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls = []
+        for _ in range(timed):
+            before = dict(coll.CALLS)
+            losses.append(step(ids, labels).item())
+            calls.append({op: coll.CALLS.get(op, 0) - before.get(op, 0)
+                          for op in sorted(set(coll.CALLS) | set(before))})
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = total_s / timed
+        flops = decoder_flops(cfg, B, S)
+        ref = train_line["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        want = _expected(**{k: v * timed for k, v in per_step.items()})
+        line = {
+            "model": "gpt3_1p3b", "recipe": recipe_text,
+            "mesh": pdist.env.mesh_shape(mesh), "sequence_parallel": True,
+            "sharding_stage": 1, "batch": B, "seq": S, "built_s": built_s,
+            "warmup_step_s": warm_s, "losses": losses, "train_losses": ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "timed_steps": timed, "step_s": step_s,
+            "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_BF16,
+            "peak_memory_bytes": peak,
+            "train_peak_memory_bytes": train_line["peak_memory_bytes"],
+            "collectives_per_step": calls,
+            "collectives_predicted": predicted,
+            "collective_bytes": dict(coll.BYTES),
+            "gradient_buckets": len(step._buckets),
+            "launches": launches, "launches_per_step": per_step}
+        say(card, "train_tensor_parallel gpt3_1p3b (smoke run, not a "
+            "benchmark) " + json.dumps(line))
+        if rel > TRAIN_SHARDED_RTOL:
+            raise AssertionError(f"train_tensor_parallel: losses {losses} "
+                                 f"against phase 5's {ref}")
+        if launches != want:
+            raise AssertionError(f"train_tensor_parallel: kernel launches "
+                                 f"{launches}, expected {want}")
+        if any(c != predicted for c in calls):
+            raise AssertionError(f"train_tensor_parallel: collectives {calls}"
+                                 f", predicted {predicted} a step")
+        profile_step(card, torch, lambda: step(ids, labels),
+                     "train_tensor_parallel gpt3_1p3b step")
+        del step, model
         torch.cuda.empty_cache()
         return launches
     finally:
@@ -3994,6 +4155,7 @@ def main():
     train_launches, train_line = train(card, torch, "gpt3_1p3b")
     train_hold(card, torch, "gpt3_1p3b")
     sharded_launches = train_sharded(card, torch, train_line)
+    tp_launches = train_tensor_parallel(card, torch, train_line)
     llama_serve_launches = serve(card, torch, "llama_7b")
     hold(card, torch, "llama_7b")
     llama_train_launches, _ = train(card, torch, "llama_7bshape")
@@ -4005,7 +4167,8 @@ def main():
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
     paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
-             train_launches, sharded_launches, llama_serve_launches,
+             train_launches, sharded_launches, tp_launches,
+             llama_serve_launches,
              llama_train_launches, moe_launches, varlen_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"

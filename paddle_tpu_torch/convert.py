@@ -10,6 +10,12 @@ device, and `load_paddle_tpu_opt_state` carries a JAX
 parameter name) and step count into the port's optimizer, so both packages
 can resume from one mid-training state. Both raise on a missing or extra
 key and on a shape mismatch, never silently skipping one.
+
+Into a model cut for tensor parallelism (`fleet.layers.mpu.shard_model`,
+which a `DistributedTrainStep` over a mesh calls) each full array of an
+mp-cut parameter is sliced to this rank's part (`p.mp_part`: dim, rank,
+ranks) first, and into a stage-3 model to this rank's sharding shard
+after that, so a full state loads on every rank as it stands.
 """
 
 from __future__ import annotations
@@ -27,11 +33,32 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.tensor(a)  # a copy: the port never aliases the caller's arrays
 
 
+def _mp_part(t, p):
+    """This rank's part of a full tensor `t` of the mp-cut parameter p."""
+    part = getattr(p, "mp_part", None)
+    if part is None:
+        return t
+    dim, rank, n = part
+    k = t.shape[dim] // n
+    return t.narrow(dim, rank * k, k)
+
+
+def _local(model, name, t, p):
+    """What this rank holds of the full tensor `t` of model's `name`."""
+    t = _mp_part(t, p)
+    step = getattr(model, "_distributed_step", None)
+    if step is not None and step.sharding_stage == 3 and name in step.params:
+        lay = step._cut(name)
+        if lay is not None:
+            t = lay.shard(t)
+    return t
+
+
 def load_paddle_tpu_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
     """Copy `{name: np.ndarray}` (a `paddle_tpu` model's state_dict as
     numpy arrays: parameters and buffers) into `model` in place; returns
     `model`."""
-    own = model.state_dict()
+    own = model.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
@@ -39,11 +66,11 @@ def load_paddle_tpu_state(model: torch.nn.Module, state: dict) -> torch.nn.Modul
                        f"unexpected {extra}")
     with torch.no_grad():
         for name, dst in own.items():
-            src = _to_tensor(state[name])
+            src = _local(model, name, _to_tensor(state[name]), dst)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                                  f"{tuple(dst.shape)}")
-            dst.copy_(src.to(dst.dtype))
+            dst.detach().copy_(src.to(dst.dtype))
     return model
 
 
@@ -71,7 +98,7 @@ def load_paddle_tpu_opt_state(optimizer, opt_states: dict, step: int):
                                f"optimizer wants {sorted(fresh)}")
             st = {}
             for key, arr in src.items():
-                t = _to_tensor(arr)
+                t = _mp_part(_to_tensor(arr), p)
                 if tuple(t.shape) != tuple(p.shape):
                     raise ValueError(f"{name}.{key}: shape {tuple(t.shape)} "
                                      f"!= {tuple(p.shape)}")

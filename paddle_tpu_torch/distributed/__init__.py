@@ -1,7 +1,9 @@
 """paddle_tpu_torch.distributed (↔ paddle_tpu/distributed/__init__.py):
 the process group and mesh (`env`), Paddle's collectives on
-`torch.distributed` (`collective`), the fleet facade, `DataParallel`, the
-group-sharded API and `DistributedTrainStep` (data parallelism and ZeRO
+`torch.distributed` (`collective`, with the autograd functions of the
+model-parallel region), the fleet facade with the tensor- and
+sequence-parallel layers, `DataParallel`, the group-sharded API and
+`DistributedTrainStep` (data, tensor and sequence parallelism and ZeRO
 stages 1-3 with offload). One process per rank: `spawn` starts `nprocs`
 of them."""
 

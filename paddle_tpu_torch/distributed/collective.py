@@ -16,8 +16,27 @@ counts its launches in `LAUNCHES`; the training step's own all-gathers,
 reduce-scatters and all-reduces go through `_all_gather_flat`,
 `_reduce_scatter_flat` and `_all_reduce` and are counted the same way. The
 counters stay module objects until the observability module is ported
-(ROADMAP queue A item 7). The compiled-form `primitives` of the reference
-(:652) are shard_map bodies and come with items 1b-1d.
+(ROADMAP queue A item 7).
+
+The compiled-form `primitives` of the reference (:652-700) are shard_map
+bodies. Their eager counterparts for the model-parallel region are the
+autograd functions at the end of this module, each over a torch process
+group (the mesh's mp group, `env.mesh_group(mesh, "mp")`), on the current
+stream, counted like the rest:
+
+- `c_identity`: identity forward, all-reduce backward (Paddle's
+  `_c_identity`, the input of a column-parallel layer);
+- `mp_allreduce`: all-reduce forward, identity backward (the output of a
+  row-parallel layer);
+- `c_split` / `c_concat`: this rank's part of a dim forward and the
+  all-gather backward, and the dual (a row-parallel input that is not yet
+  parallel, a column-parallel output that is gathered);
+- `all_gather_seq` / `reduce_scatter_seq`: along the sequence dim, the
+  all-gather forward and reduce-scatter backward, and the reverse (the
+  entry and exit of a sequence-parallel block).
+
+They call their collective whatever the group's size, so a one-rank group
+runs the code that a larger one does.
 """
 
 from __future__ import annotations
@@ -31,10 +50,12 @@ from . import env as _env
 
 __all__ = ["CALLS", "BYTES", "Group", "P2POp", "ReduceOp", "all_gather",
            "all_gather_object", "all_reduce", "alltoall", "alltoall_single",
-           "barrier", "batch_isend_irecv", "broadcast",
-           "broadcast_object_list", "destroy_process_group", "get_group",
-           "irecv", "isend", "new_group", "record_collective_traffic",
-           "recv", "reduce", "reduce_scatter", "reset_counters", "scatter",
+           "all_gather_seq", "barrier", "batch_isend_irecv", "broadcast",
+           "broadcast_object_list", "c_concat", "c_identity", "c_split",
+           "destroy_process_group", "gather_along", "get_group",
+           "irecv", "isend", "mp_allreduce", "new_group",
+           "record_collective_traffic", "recv", "reduce", "reduce_scatter",
+           "reduce_scatter_seq", "reset_counters", "scatter",
            "scatter_object_list", "send", "wait"]
 
 CALLS: dict = {}   # op -> calls
@@ -352,6 +373,151 @@ def _reduce_scatter_flat(out, inp, pg, async_op=False):
     return _reduce_scatter_single(out, inp, group=pg, async_op=async_op)
 
 
-def _all_reduce(t, pg, async_op=False):
+def _all_reduce(t, pg, async_op=False, op=dist.ReduceOp.SUM):
     _record("all_reduce", t)
-    return dist.all_reduce(t, group=pg, async_op=async_op)
+    return dist.all_reduce(t, op=op, group=pg, async_op=async_op)
+
+
+# -- the model-parallel region: autograd functions over a process group ----- #
+
+def _dim(x, dim):
+    return dim % x.dim()
+
+
+def _parts(x, dim, pg):
+    """(group size, this rank's index, x's size along dim / group size)."""
+    n, dim = dist.get_world_size(pg), _dim(x, dim)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"over the {n} ranks of the model-parallel group")
+    return n, dist.get_rank(pg), x.shape[dim] // n
+
+
+def split_along(x, dim, pg):
+    """This rank's part of x along dim (a view: no collective)."""
+    n, r, k = _parts(x, dim, pg)
+    return x.narrow(_dim(x, dim), r * k, k)
+
+
+def gather_along(x, dim, pg):
+    """Every rank's x concatenated along dim, in group order."""
+    dim, n = _dim(x, dim), dist.get_world_size(pg)
+    flat = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    _all_gather_flat(flat, x.contiguous().reshape(-1), pg)
+    out = flat.view(n, *x.shape)
+    if dim == 0:
+        return out.reshape(n * x.shape[0], *x.shape[1:])
+    return out.movedim(0, dim).reshape(
+        *x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
+
+
+def reduce_scatter_along(x, dim, pg):
+    """The sum over the ranks of their x, of which this rank keeps its
+    part along dim."""
+    n, _, k = _parts(x, dim, pg)
+    dim = _dim(x, dim)
+    rows = x.unflatten(dim, (n, k)).movedim(dim, 0).contiguous()
+    out = torch.empty(rows.shape[1:], dtype=x.dtype, device=x.device)
+    _reduce_scatter_flat(out.view(-1), rows.view(-1), pg)
+    return out
+
+
+def all_reduce_sum(x, pg):
+    out = x.contiguous().clone()
+    _all_reduce(out, pg)
+    return out
+
+
+class _CIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.pg), None
+
+
+class _MPAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        return all_reduce_sum(x, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, dim):
+        ctx.pg, ctx.dim = pg, dim
+        return split_along(x, dim, pg).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_along(g, ctx.dim, ctx.pg), None, None
+
+
+class _Concat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, dim):
+        ctx.pg, ctx.dim = pg, dim
+        return gather_along(x, dim, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_along(g, ctx.dim, ctx.pg).contiguous(), None, None
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, dim):
+        ctx.pg, ctx.dim = pg, dim
+        return gather_along(x, dim, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_along(g, ctx.dim, ctx.pg), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, dim):
+        ctx.pg, ctx.dim = pg, dim
+        return reduce_scatter_along(x, dim, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_along(g, ctx.dim, ctx.pg), None, None
+
+
+def c_identity(x, pg):
+    """Identity forward, all-reduce of the gradient over pg backward."""
+    return _CIdentity.apply(x, pg)
+
+
+def mp_allreduce(x, pg):
+    """All-reduce (sum) over pg forward, identity backward."""
+    return _MPAllReduce.apply(x, pg)
+
+
+def c_split(x, pg, dim=-1):
+    """This rank's part of x along dim forward, all-gather backward."""
+    return _Split.apply(x, pg, dim)
+
+
+def c_concat(x, pg, dim=-1):
+    """All-gather along dim forward, this rank's part backward."""
+    return _Concat.apply(x, pg, dim)
+
+
+def all_gather_seq(x, pg, dim=1):
+    """All-gather along the sequence dim forward, reduce-scatter backward."""
+    return _AllGatherSeq.apply(x, pg, dim)
+
+
+def reduce_scatter_seq(x, pg, dim=1):
+    """Reduce-scatter along the sequence dim forward, all-gather backward."""
+    return _ReduceScatterSeq.apply(x, pg, dim)

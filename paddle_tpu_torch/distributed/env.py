@@ -18,7 +18,12 @@ and gloo when the caller asks for the CPU. A rank on `cuda` binds
 
 `build_mesh` also builds the groups over two dims that the step and the
 topology read: (dp, sharding), the batch axes, and (dp, sep). Every rank
-must call it, in the same order, as it must every `new_group`.
+must call it, in the same order, as it must every `new_group`. The mp
+group of a mesh is `mesh_group(mesh, "mp")`.
+
+`PartitionSpec` stands for the reference's `jax.sharding.PartitionSpec`
+in `DistributedTrainStep`'s `input_specs` / `label_specs`: a tuple with
+one entry per leading dim, None or an axis name or a tuple of axis names.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["AXIS_ORDER", "ParallelEnv", "build_mesh", "default_mesh",
+__all__ = ["AXIS_ORDER", "ParallelEnv", "PartitionSpec", "build_mesh",
+           "default_mesh",
            "get_global_mesh", "get_rank", "get_world_size",
            "init_parallel_env", "is_initialized", "mesh_group", "mesh_shape",
            "set_global_mesh"]
@@ -43,6 +49,14 @@ FUSED_AXES = (("dp", "sharding"), ("dp", "sep"))
 _device = None           # this rank's torch.device, set by init_parallel_env
 _global_mesh = None
 _fused: dict = {}        # (id(mesh), axes) -> torch ProcessGroup
+
+
+class PartitionSpec(tuple):
+    """PartitionSpec("dp", None) == ("dp", None): how an input is cut over
+    the mesh's axes, dim by dim."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
 
 
 def is_initialized() -> bool:

@@ -4,11 +4,13 @@
 `distributed_model` wraps the model by parallel mode, and
 `distributed_optimizer` wraps the optimizer in `HybridParallelOptimizer`.
 
-Data and sharding parallelism are ported: both wrap the model in
-`DataParallel`, over the dp group and over the (dp, sharding) group, whose
-ranks each take a part of the batch. Tensor, pipeline and segment
-parallelism raise NotImplementedError naming their ROADMAP queue A items
-(1b, 1c, 1d).
+Data, sharding and tensor parallelism are ported. The first two wrap the
+model in `DataParallel`, over the dp group and over the (dp, sharding)
+group, whose ranks each take a part of the batch; tensor parallelism (a
+topology whose mp degree is above 1) wraps it in
+`meta_parallel.TensorParallel`, which cuts it over the mp group. Pipeline
+and segment parallelism raise NotImplementedError naming their ROADMAP
+queue A items (1c, 1d).
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ __all__ = ["CommunicateTopology", "DistributedStrategy",
            "is_initialized", "worker_index", "worker_num"]
 
 _UNPORTED_MODES = {
-    "tensor_parallel": "tensor parallelism is ported with ROADMAP queue A item 1b",
     "pipeline_parallel": "pipeline parallelism is ported with ROADMAP queue A item 1c",
     "segment_parallel": "segment parallelism is ported with ROADMAP queue A item 1d",
 }
@@ -63,6 +64,7 @@ def worker_num():
 def distributed_model(model):
     """reference :61 (fleet/model.py:135-185)."""
     from ..parallel import DataParallel
+    from .meta_parallel import TensorParallel
 
     hcg = _fleet_state["hcg"]
     if hcg is None:
@@ -70,6 +72,8 @@ def distributed_model(model):
     mode = hcg.get_parallel_mode()
     if mode in _UNPORTED_MODES:
         raise NotImplementedError(_UNPORTED_MODES[mode])
+    if mode == "tensor_parallel":
+        return TensorParallel(model, hcg, _fleet_state["strategy"])
     if mode == "data_parallel":
         return DataParallel(model, group=hcg.get_data_parallel_group())
     if mode == "sharding_parallel":

@@ -1,5 +1,7 @@
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
-                        RowParallelLinear, VocabParallelEmbedding)
+                        RowParallelLinear, VocabParallelEmbedding,
+                        mark_as_sequence_parallel, shard_model)
 
 __all__ = ["ColumnParallelLinear", "ParallelCrossEntropy",
-           "RowParallelLinear", "VocabParallelEmbedding"]
+           "RowParallelLinear", "VocabParallelEmbedding",
+           "mark_as_sequence_parallel", "shard_model"]

@@ -18,6 +18,7 @@ import torch
 
 from ...nn.clip import ClipGradByGlobalNorm, global_norm_scale, scale_grad
 from .. import collective as coll
+from .layers.mpu.mp_layers import is_distributed
 
 __all__ = ["DygraphShardingOptimizer", "HybridParallelOptimizer"]
 
@@ -39,10 +40,10 @@ class _HybridParallelClipGrad:
                 and getattr(p, "is_firstly_shared", True)]
         dev = params_grads[0][1].device if params_grads else "cpu"
         dist_sq = sum((g.float().square().sum() for p, g in kept
-                       if getattr(p, "is_distributed", False)),
+                       if is_distributed(p)),
                       torch.zeros((), device=dev))
         rep_sq = sum((g.float().square().sum() for p, g in kept
-                      if not getattr(p, "is_distributed", False)),
+                      if not is_distributed(p)),
                      torch.zeros((), device=dev))
         hcg = self._hcg
         if hcg is not None and hcg.get_model_parallel_world_size() > 1:

@@ -1,0 +1,35 @@
+"""The tensor-parallel model wrapper (↔ paddle_tpu/distributed/fleet/meta_parallel,
+`TensorParallel`; reference fleet/__init__.py:84-85).
+
+`TensorParallel(model, hcg)` cuts the model's tensor-parallel layers over
+the topology's mp group (`fleet.layers.mpu.shard_model`), broadcasts every
+parameter that is not cut, and every buffer, from the mp group's first
+rank, and is then the `DataParallel` of the batch ranks (dp x sharding):
+the parameters broadcast over them and each gradient averaged over them in
+the backward. An eager loop (`loss.backward(); opt.step()`) so trains over
+the mesh; a sequence-parallel model's loop also calls
+`register_sequence_parallel_allreduce_hooks`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import collective as C
+from ..parallel import DataParallel
+from .layers.mpu.mp_layers import is_distributed, shard_model
+
+__all__ = ["TensorParallel"]
+
+
+class TensorParallel(DataParallel):
+    def __init__(self, layers, hcg, strategy=None):
+        group = hcg.get_model_parallel_group()
+        shard_model(layers, group)
+        with torch.no_grad():
+            for t in list(layers.parameters()) + list(layers.buffers()):
+                if not is_distributed(t):
+                    C.broadcast(t.data, group.ranks[0], group=group)
+        super().__init__(layers, strategy,
+                         group=hcg.get_dp_sharding_parallel_group())
+        self._hcg = hcg

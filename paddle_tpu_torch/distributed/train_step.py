@@ -12,12 +12,38 @@ that must see plain tensors, and the shards follow the reference's
 `fsdp_spec`, so that shards and state line up name for name.
 
 - **Batch.** Each input is split along its first dim over the (dp,
-  sharding) ranks (`_batch_spec` :328-335); an input that does not divide
-  is taken whole by every rank. The returned loss is the mean over those
-  ranks.
+  sharding) ranks (`_batch_spec` :328-335) and replicated over mp; an
+  input that does not divide is taken whole by every rank.
+  `input_specs` / `label_specs` give, per input, how it is cut instead:
+  the reference passes `PartitionSpec`s, which the port cannot import, so
+  a spec here is a tuple with one entry per leading dim, each None
+  (whole), an axis name or a tuple of axis names (cut over their product,
+  the first the slowest), as `env.PartitionSpec` builds it; None or ()
+  replicates the input. A cut must divide.
+- **Loss.** The step's loss and gradients are those of `loss_fn` over the
+  global batch, as the reference's (one `loss_fn` over the global arrays,
+  `jit/__init__.py:322`). Each batch rank r runs `loss_fn` on its rows,
+  giving loss_r, while `nn.functional.loss.record_reductions` collects how
+  the port's reducing losses reduced (`cross_entropy`,
+  `GPTPretrainingCriterion`): a mean over c_r terms, or a sum. With C the
+  sum of c_r over the batch ranks (an all-reduce) and n the number of
+  batch ranks, the step back-propagates loss_r * n * c_r / C for a mean
+  and loss_r * n for a sum, and the gradients' reduction divides by n; the
+  returned loss is the all-reduce of those weighted losses over n. A
+  `loss_fn` that notes no reduction (or more than one), or a batch that no
+  rank cuts, keeps the equal-count mean (loss_r * 1), which is exact for
+  the even splits of the batch rule.
+- **Tensor and sequence parallelism.** Over the mesh's mp group the model
+  is cut in place (`fleet.layers.mpu.shard_model`) before anything else:
+  its tensor-parallel layers keep their shards and run their collectives,
+  over a group of one too. The gradients of sequence-parallel parameters
+  (norms and row-parallel biases under `sequence_parallel`) differ from
+  rank to rank: their buckets are all-reduced over mp first. A recomputed
+  block runs to its end, so that every rank issues the same collectives.
 - **Layout.** A parameter is cut along the dim `fsdp_spec` picks (the
-  largest dim divisible by the `sharding` size) into one shard per
-  sharding rank; one with no such dim stays whole (:76-77). Unlike the
+  largest dim divisible by the `sharding` size, other than the dim of its
+  mp cut) into one shard per sharding rank; one with no such dim stays
+  whole (:76-77). Unlike the
   reference, a sharding axis of size 1 is cut too (into one shard), so a
   one-rank mesh runs the same gathers and reduce-scatters, over a group of
   one, as a sharded one.
@@ -51,19 +77,20 @@ that must see plain tensors, and the shards follow the reference's
   parameter's state through the device in slices along its first dim: in,
   the rule, and back out, on a side stream when `comm_overlap` is on.
 - **Clip.** The global-norm clip's squared sum adds this rank's shards'
-  sums over the sharding group, and counts a parameter that is not cut
-  once.
+  sums over the sharding group and an mp-cut parameter's over the mp group
+  (as the reference's `meta_optimizers.py:55-75`), and counts a
+  replicated parameter once.
 
 `mesh=None` with no process group (or a reference mesh of one device) is
 `jit.TrainStep` on one device, as before: stages 1 and 2 are the stage-0 step there (over an axis of size 1
 the reference's shardings are no-ops), and stage 3 and offload ask for a
-mesh. Tensor, pipeline, segment and expert parallelism (a mesh whose mp,
-pp, sep or ep is above 1) raise NotImplementedError naming their ROADMAP
-queue A items.
+mesh. Pipeline, segment and expert parallelism (a mesh whose pp, sep or ep
+is above 1) raise NotImplementedError naming their ROADMAP queue A items.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 
 import torch
@@ -71,8 +98,10 @@ import torch.utils.checkpoint
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..jit import TrainStep
+from ..nn.functional.loss import record_reductions
 from . import collective as C
 from . import env as _env
+from .fleet.layers.mpu.mp_layers import is_distributed, shard_model
 
 __all__ = ["DistributedTrainStep", "fsdp_spec", "full_state_dict",
            "host_memory_kind", "shard_dim", "shard_params_for_stage3"]
@@ -80,8 +109,7 @@ __all__ = ["DistributedTrainStep", "fsdp_spec", "full_state_dict",
 BUCKET_BYTES = 25e6        # the reference's reduce-scatter bucket (25 MB)
 OFFLOAD_SLICE = 1 << 23    # elements of a state slice streamed at a time
 
-_UNPORTED_AXES = {"mp": "tensor parallelism (ROADMAP queue A item 1b)",
-                  "pp": "pipeline parallelism (ROADMAP queue A item 1c)",
+_UNPORTED_AXES = {"pp": "pipeline parallelism (ROADMAP queue A item 1c)",
                   "sep": "segment parallelism (ROADMAP queue A item 1d)",
                   "ep": "expert parallelism (ROADMAP queue A item 1e)"}
 
@@ -93,10 +121,11 @@ def host_memory_kind(mesh):
     return "pinned_host" if mesh.device_type == "cuda" else "unpinned_host"
 
 
-def shard_dim(shape, n):
+def shard_dim(shape, n, exclude=None):
     """The dim `fsdp_spec` cuts over n ranks: the largest dim divisible by
-    n (the later one on a tie), or None."""
-    cands = [(s, i) for i, s in enumerate(shape) if s % n == 0 and s >= n]
+    n (the later one on a tie) other than `exclude`, or None."""
+    cands = [(s, i) for i, s in enumerate(shape)
+             if i != exclude and s % n == 0 and s >= n]
     return max(cands)[1] if cands else None
 
 
@@ -128,11 +157,12 @@ def shard_params_for_stage3(model, axis="sharding", mesh=None):
 
 class _Layout:
     """How one parameter lies over the sharding group: cut along `dim`
-    into n shards of `size` (this rank's is `rank`), or whole (dim None)."""
+    into n shards of `size` (this rank's is `rank`), or whole (dim None);
+    an mp-cut parameter is not cut again along its mp dim (`exclude`)."""
 
-    def __init__(self, shape, n, rank):
+    def __init__(self, shape, n, rank, exclude=None):
         self.shape = torch.Size(shape)
-        self.dim = shard_dim(self.shape, n)
+        self.dim = shard_dim(self.shape, n, exclude)
         self.n, self.rank = n, rank
         self.size = None if self.dim is None else self.shape[self.dim] // n
         self.shard_shape = None
@@ -158,10 +188,11 @@ class _Layout:
 class _Bucket:
     """Gradients that go through one collective: "scatter" (reduce-scatter
     over the sharding group to each rank's shard, then all-reduce over dp)
-    or "reduce" (all-reduce over the (dp, sharding) group)."""
+    or "reduce" (all-reduce over the (dp, sharding) group); with `sp`
+    (sequence-parallel parameters) all-reduced over mp first."""
 
-    def __init__(self, kind, dtype):
-        self.kind, self.dtype = kind, dtype
+    def __init__(self, kind, dtype, sp=False):
+        self.kind, self.dtype, self.sp = kind, dtype, sp
         self.names, self.offsets, self.total, self.nbytes = [], [], 0, 0
         self.reset()
 
@@ -213,10 +244,8 @@ class DistributedTrainStep(TrainStep):
         if sharding_stage not in (0, 1, 2, 3):
             raise ValueError(f"sharding_stage must be 0-3, got {sharding_stage}")
         offload = bool(offload or getattr(optimizer, "_sharding_offload", False))
-        if input_specs is not None or label_specs is not None:
-            raise NotImplementedError(
-                "input_specs / label_specs (tensor and sequence parallel "
-                "layouts) are ported with ROADMAP queue A item 1b")
+        self._specs = (_check_specs(input_specs), _check_specs(label_specs))
+        self._split_rows = False
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             # the reference's meshes are JAX ones: one of a single device is
             # the one-device step here, a larger one needs the process group
@@ -249,15 +278,22 @@ class DistributedTrainStep(TrainStep):
             raise NotImplementedError(
                 f"batch axes {tuple(batch_axes)} leave out a dp or sharding "
                 "axis of the mesh: the step splits the batch over both "
-                "(other layouts come with ROADMAP queue A items 1b-1e)")
+                "(other layouts come with ROADMAP queue A items 1c-1e)")
         self._batch_pg = _env.mesh_group(mesh, ("dp", "sharding"))
         self._shard_pg = _env.mesh_group(mesh, "sharding")
         self._dp_pg = _env.mesh_group(mesh, "dp")
+        self._mp_pg = _env.mesh_group(mesh, "mp")
         self._n_batch = sizes["dp"] * sizes["sharding"]
         self._batch_rank = torch.distributed.get_rank(self._batch_pg)
+        shard_model(model, self._mp_pg)
+        self._mp_dim = {k: p.split_axis if is_distributed(p)
+                        else None for k, p in self.params.items()}
+        self._sp = {k for k, p in self.params.items()
+                    if getattr(p, "sequence_parallel", False)}
         n = sizes["sharding"]
         r = torch.distributed.get_rank(self._shard_pg)
-        self._layouts = {k: _Layout(p.shape, n, r) if sharding_stage else None
+        self._layouts = {k: _Layout(p.shape, n, r, self._mp_dim[k])
+                         if sharding_stage else None
                          for k, p in self.params.items()}
         self._buckets, self._bucket_of = self._plan()
         self._reducing = self._in_forward = False
@@ -284,20 +320,21 @@ class DistributedTrainStep(TrainStep):
 
     def _plan(self):
         """Buckets of at most BUCKET_BYTES in reverse parameter order, one
-        (kind, dtype) to a bucket."""
+        (kind, dtype, sequence-parallel or not) to a bucket."""
         buckets, open_, of = [], {}, {}
         for name in reversed(list(self.params)):
             p = self.params[name]
             kind = "scatter" if self._scatter(name) else "reduce"
-            b = open_.get((kind, p.dtype))
+            key = (kind, p.dtype, name in self._sp)
+            b = open_.get(key)
             if b is None:
-                b = open_[(kind, p.dtype)] = _Bucket(kind, p.dtype)
+                b = open_[key] = _Bucket(*key)
                 buckets.append(b)
             n = self._layouts[name].n if kind == "scatter" else 1
             b.add(name, p.numel() // n, p.numel() * p.element_size())
             of[name] = b
             if b.nbytes >= BUCKET_BYTES:
-                del open_[(kind, p.dtype)]
+                del open_[key]
         return buckets, of
 
     # -- stage 3: shards, gathers ---------------------------------------- #
@@ -407,6 +444,9 @@ class DistributedTrainStep(TrainStep):
 
     def _launch(self, b):
         buf = self._buffer(b)
+        if b.sp:
+            # each mp rank's gradient comes from its own sequence rows
+            C._all_reduce(buf, self._mp_pg)
         if b.kind == "scatter":
             b.out = torch.empty(b.total, dtype=b.dtype, device=buf.device)
             b.work = C._reduce_scatter_flat(b.out, buf.view(-1),
@@ -447,28 +487,80 @@ class DistributedTrainStep(TrainStep):
 
     # -- the step -------------------------------------------------------- #
 
-    def _batch(self, xs):
-        xs = super()._batch(xs)
+    def _batches(self, inputs, labels):
+        xs, ys = super()._batches(inputs, labels)
         if self.mesh is None:
-            return xs
-        n, r = self._n_batch, self._batch_rank
-        return [x.chunk(n)[r] if x.dim() and x.shape[0] % n == 0 else x
-                for x in xs]
+            return xs, ys
+        self._split_rows = False
+        return (self._cut_batch(xs, self._specs[0]),
+                self._cut_batch(ys, self._specs[1]))
+
+    def _cut_batch(self, xs, specs):
+        if specs is None:
+            n, r = self._n_batch, self._batch_rank
+            cut = [x.dim() > 0 and x.shape[0] % n == 0 for x in xs]
+            self._split_rows |= any(cut)
+            return [x.chunk(n)[r] if c else x for x, c in zip(xs, cut)]
+        if len(specs) != len(xs):
+            raise ValueError(f"{len(specs)} specs for {len(xs)} inputs")
+        return [self._cut_input(x, spec) for x, spec in zip(xs, specs)]
+
+    def _cut_input(self, x, spec):
+        sizes = _env.mesh_shape(self.mesh)
+        for d, axes in enumerate(spec or ()):
+            if axes is None:
+                continue
+            names = (axes,) if isinstance(axes, str) else tuple(axes)
+            n, r = 1, 0
+            for a in names:   # the first axis is the slowest
+                r = r * sizes[a] + self.mesh.get_local_rank(a)
+                n *= sizes[a]
+            if x.shape[d] % n:
+                raise ValueError(f"dim {d} of an input {tuple(x.shape)} "
+                                 f"does not divide over {names} ({n} ranks)")
+            k = x.shape[d] // n
+            x = x.narrow(d, r * k, k)
+            self._split_rows |= bool({"dp", "sharding"} & set(names))
+        return x
 
     def _loss(self, inputs, labels):
-        if self.sharding_stage != 3 or not self._reducing:
+        if self.mesh is None:
             return super()._loss(inputs, labels)
-        self._in_forward = True
-        try:
-            # a recomputed block must run to its end, where it lets go of
-            # its gathered parameters (torch stops a recomputation early
-            # by default, once it has what the backward needs)
-            with torch.autograd.graph.saved_tensors_hooks(self._pack,
-                                                          self._unpack), \
-                    torch.utils.checkpoint.set_checkpoint_early_stop(False):
-                return super()._loss(inputs, labels)
-        finally:
-            self._in_forward = False
+        with contextlib.ExitStack() as stack:
+            # a recomputed block runs to its end (torch stops a
+            # recomputation early by default, once it has what the
+            # backward needs): every rank issues the block's collectives,
+            # and a stage-3 block lets go of its gathered parameters there
+            stack.enter_context(
+                torch.utils.checkpoint.set_checkpoint_early_stop(False))
+            if self.sharding_stage == 3 and self._reducing:
+                self._in_forward = True
+                stack.callback(setattr, self, "_in_forward", False)
+                stack.enter_context(torch.autograd.graph.saved_tensors_hooks(
+                    self._pack, self._unpack))
+            return super()._loss(inputs, labels)
+
+    def _loss_fn(self, outs, labels):
+        if self.mesh is None:
+            return super()._loss_fn(outs, labels)
+        with record_reductions() as notes:
+            loss = super()._loss_fn(outs, labels)
+        return loss * self._loss_weight(notes, loss)
+
+    def _loss_weight(self, notes, loss):
+        """This rank's weight in the global loss (module docstring,
+        "Loss"): n * c_r / C for a mean, n for a sum, 1 otherwise."""
+        if len(notes) != 1 or not self._split_rows:
+            return 1.0
+        kind, count, denom = notes[0]
+        n = self._n_batch
+        if kind == "sum":
+            return float(n)
+        total = torch.as_tensor(count, dtype=torch.float32,
+                                device=loss.device).detach().clone()
+        C._all_reduce(total, self._batch_pg)
+        denom = torch.as_tensor(denom, dtype=torch.float32, device=loss.device)
+        return n * denom / total.clamp(min=1.0)
 
     def _mean_loss(self, loss):
         loss = loss.detach().clone()
@@ -528,10 +620,17 @@ class DistributedTrainStep(TrainStep):
         zero = torch.zeros((), device=self._device())
         sq = {k: g.float().square().sum() for k, g in grads.items()
               if g is not None}
-        cut = sum((v for k, v in sq.items() if self._cut(k) is not None), zero)
-        whole = sum((v for k, v in sq.items() if self._cut(k) is None), zero)
-        C._all_reduce(cut, self._shard_pg)
-        return cut + whole
+
+        def part(cut, mp):
+            return sum((v for k, v in sq.items()
+                        if (self._cut(k) is not None) == cut
+                        and (self._mp_dim[k] is not None) == mp), zero)
+
+        shards = torch.stack([part(True, True), part(True, False)])
+        C._all_reduce(shards, self._shard_pg)
+        mp = shards[0] + part(False, True)
+        C._all_reduce(mp, self._mp_pg)
+        return mp + shards[1] + part(False, False)
 
     def _apply(self, name, p, g, lr, ctx):
         if not self.offload:
@@ -579,10 +678,16 @@ class DistributedTrainStep(TrainStep):
 
     def _gather_state(self, name, v):
         """A state tensor of `name` as the whole parameter's (a shard's
-        gathered; host-resident ones through the device)."""
-        if self.mesh is None or not self.sharding_stage or self._cut(name) is None:
+        gathered over sharding and mp; host-resident ones through the
+        device)."""
+        if self.mesh is None:
             return v.detach().clone()
-        return self._gather_full(name, v.to(self._device()).contiguous())
+        if self.sharding_stage and self._cut(name) is not None:
+            v = self._gather_full(name, v.to(self._device()).contiguous())
+        if self._mp_dim[name] is not None:
+            return C.gather_along(v.to(self._device()), self._mp_dim[name],
+                                  self._mp_pg)
+        return v.detach().clone()
 
     def state_dict(self):
         """The model's full parameters and buffers under the reference's
@@ -592,17 +697,36 @@ class DistributedTrainStep(TrainStep):
 
 def full_state_dict(model):
     """`model.state_dict()` with every stage-3 parameter gathered from its
-    shards (a collective: every rank of the mesh calls it); a model that no
-    DistributedTrainStep shards gives its own tensors."""
+    shards and every mp-cut one from the mp ranks (a collective: every rank
+    of the mesh calls it); a model that is not cut gives its own
+    tensors."""
     step = getattr(model, "_distributed_step", None)
+    mp_pg = getattr(model, "_mp_group", None)
     out = {}
     names = {id(p): k for k, p in model.named_parameters()}
     for k, v in model.state_dict(keep_vars=True).items():
         name = names.get(id(v))
+        t, fresh = v.detach(), False
         if (step is not None and step.sharding_stage == 3 and name is not None
                 and step._cut(name) is not None):
-            out[k] = step._gather_full(name, v)
-        else:
-            out[k] = v.detach().clone()
+            t, fresh = step._gather_full(name, v), True
+        if mp_pg is not None and is_distributed(v):
+            t, fresh = C.gather_along(t, v.split_axis, mp_pg), True
+        out[k] = t if fresh else t.clone()
     return out
+
+
+def _check_specs(specs):
+    """`input_specs` / `label_specs`: None, or one spec per input (None or
+    a tuple of None / axis name / tuple of axis names per dim)."""
+    if specs is None:
+        return None
+    for spec in specs:
+        for axes in spec or ():
+            names = (axes,) if isinstance(axes, str) else tuple(axes or ())
+            bad = [a for a in names if a not in _env.AXIS_ORDER]
+            if bad:
+                raise ValueError(f"spec {spec!r} names axes {bad} that the "
+                                 f"mesh lacks {_env.AXIS_ORDER}")
+    return [tuple(s) if s is not None else None for s in specs]
 

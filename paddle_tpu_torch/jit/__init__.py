@@ -83,15 +83,20 @@ class TrainStep:
                 else torch.as_tensor(np.asarray(x), device=dev)
                 for x in _as_list(xs)]
 
+    def _batches(self, inputs, labels):
+        return self._batch(inputs), self._batch(labels)
+
+    def _loss_fn(self, outs, labels):
+        return self.loss_fn(*outs, *labels).float()
+
     def _loss(self, inputs, labels):
         with _amp_ctx(self.amp_level, self.amp_dtype):
             out = self.model(*inputs)
             outs = out if isinstance(out, (list, tuple)) else [out]
-            loss = self.loss_fn(*outs, *labels)
-        return loss.float()
+            return self._loss_fn(outs, labels)
 
     def __call__(self, inputs, labels):
-        inputs, labels = self._batch(inputs), self._batch(labels)
+        inputs, labels = self._batches(inputs, labels)
         for p in self.params.values():
             p.grad = None
         loss = self._loss(inputs, labels)
@@ -142,7 +147,7 @@ class TrainStep:
         was_training = self.model.training
         self.model.eval()
         try:
-            return self._loss(self._batch(inputs), self._batch(labels))
+            return self._loss(*self._batches(inputs, labels))
         finally:
             if was_training:
                 self.model.train()

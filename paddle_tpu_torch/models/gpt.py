@@ -58,9 +58,26 @@ positions), else 0..S-1, or the scalar cache offset onwards. K is cached
 after the rotation, as in the JAX package, so cached pages (prefix-shared
 or restored after a preemption) are never rotated again.
 
+Tensor parallelism: the projections, the token table and the untied head
+are the layers of `distributed.fleet.layers.mpu`, built whole and cut over
+a mesh's mp group by `DistributedTrainStep` (or fleet's `TensorParallel`)
+through `shard_model`. A cut attention runs on its num_heads / mp query
+heads and kv_heads / mp kv heads (both must divide), and the head gives
+vocab-sharded logits for `ParallelCrossEntropy`: the tied head multiplies
+by the local table rows, its input through `c_identity`. With
+`sequence_parallel` the activations between the blocks of a cut model are
+[B, S / mp, H] (reference `gpt.py:392-393`, `:441-442`): the embedding's
+output is cut to this rank's rows (`ScatterOp`), the norms and residual
+adds run on them, the q/k/v and fc1 (gate/up) inputs are all-gathered
+along the sequence (`ColumnSequenceParallelLinear`), out_proj and fc2
+(down) reduce-scatter in place of the all-reduce
+(`RowSequenceParallelLinear`), and the final norm's output is all-gathered
+before the head (`GatherOp`). The norms' parameters and the row-parallel
+biases are then sequence-parallel parameters, whose gradients the step
+sums over mp. An uncut model ignores `sequence_parallel`.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue A
-item): ring / context parallelism (1d), sequence parallelism (1b) and
-dropout (4).
+item): ring / context parallelism (1d) and dropout (4).
 """
 
 from __future__ import annotations
@@ -73,6 +90,7 @@ from torch import nn
 
 from .. import amp
 from ..device import resolve_device
+from ..distributed.collective import c_identity
 from ..distributed.fleet.layers.mpu.mp_layers import (
     ColumnParallelLinear,
     ParallelCrossEntropy,
@@ -80,9 +98,17 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
     VocabParallelEmbedding,
 )
 from ..distributed.fleet.recompute import recompute
+from ..distributed.fleet.utils.sequence_parallel_utils import (
+    ColumnSequenceParallelLinear,
+    GatherOp,
+    RowSequenceParallelLinear,
+    ScatterOp,
+    mark_as_sequence_parallel_parameter,
+)
 from ..incubate.nn.functional import fused_rotary_position_embedding, swiglu
 from ..nn import Embedding, LayerNorm, RMSNorm
 from ..nn import functional as F
+from ..nn.functional.loss import note_reduction
 from ..ops.decode_attention import (
     paged_decode_attention,
     paged_kv_write,
@@ -181,9 +207,6 @@ def _check_supported(cfg: GPTConfig):
         raise NotImplementedError(
             "context parallelism (ring attention) is ported with ROADMAP "
             "queue A item 1d")
-    if cfg.sequence_parallel:
-        raise NotImplementedError(
-            "sequence parallelism is ported with ROADMAP queue A item 1b")
     if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
         raise NotImplementedError(
             "dropout (explicit generators, Philox in the attention kernels) "
@@ -245,11 +268,26 @@ def _paged_update_q8(buf, scales, new, tables, lengths):
 
 
 def _make_norm(config: GPTConfig, device, dtype):
+    """A block's norm; under sequence parallelism it runs on the sequence
+    shard, so its parameters are sequence-parallel ones."""
     if config.norm_type == "rmsnorm":
-        return RMSNorm(config.hidden_size, epsilon=config.layer_norm_epsilon,
+        norm = RMSNorm(config.hidden_size, epsilon=config.layer_norm_epsilon,
                        device=device, dtype=dtype)
-    return LayerNorm(config.hidden_size, epsilon=config.layer_norm_epsilon,
-                     device=device, dtype=dtype)
+    else:
+        norm = LayerNorm(config.hidden_size, epsilon=config.layer_norm_epsilon,
+                         device=device, dtype=dtype)
+    if config.sequence_parallel:
+        for p in norm.parameters():
+            mark_as_sequence_parallel_parameter(p)
+    return norm
+
+
+def _parallel_linears(config: GPTConfig):
+    """(column, row) layer classes: the sequence-parallel forms under
+    `sequence_parallel`."""
+    if config.sequence_parallel:
+        return ColumnSequenceParallelLinear, RowSequenceParallelLinear
+    return ColumnParallelLinear, RowParallelLinear
 
 
 def _linear_kw(config: GPTConfig, generator, device, dtype):
@@ -261,25 +299,42 @@ def _linear_kw(config: GPTConfig, generator, device, dtype):
 
 
 class GPTAttention(nn.Module):
-    """Multi-head / grouped-query causal self-attention."""
+    """Multi-head / grouped-query causal self-attention, over this rank's
+    heads once cut over mp (`num_heads`, `num_kv_heads`)."""
 
     def __init__(self, config: GPTConfig, *, generator, device, dtype):
         super().__init__()
         self.config = config
+        self.num_heads, self.num_kv_heads = config.num_heads, config.kv_heads
         h, d = config.hidden_size, config.head_dim
         kw = _linear_kw(config, generator, device, dtype)
-        self.q_proj = ColumnParallelLinear(h, config.num_heads * d, gather_output=False, **kw)
-        self.k_proj = ColumnParallelLinear(h, config.kv_heads * d, gather_output=False, **kw)
-        self.v_proj = ColumnParallelLinear(h, config.kv_heads * d, gather_output=False, **kw)
-        self.out_proj = RowParallelLinear(config.num_heads * d, h, input_is_parallel=True, **kw)
+        col, row = _parallel_linears(config)
+        self.q_proj = col(h, config.num_heads * d, gather_output=False, **kw)
+        self.k_proj = col(h, config.kv_heads * d, gather_output=False, **kw)
+        self.v_proj = col(h, config.kv_heads * d, gather_output=False, **kw)
+        self.out_proj = row(config.num_heads * d, h, input_is_parallel=True, **kw)
+
+    def _mp_check(self, n):
+        cfg = self.config
+        if cfg.num_heads % n or cfg.kv_heads % n:
+            raise ValueError(f"{cfg.num_heads} query and {cfg.kv_heads} kv "
+                             f"heads do not divide over {n} model-parallel "
+                             "ranks")
+
+    def _mp_shard(self, pg, rank, n):
+        self.num_heads = self.config.num_heads // n
+        self.num_kv_heads = self.config.kv_heads // n
 
     def forward(self, x, position_ids=None, cache=None, cache_offset=None,
                 startend_row_indices=None, block_tables=None):
         cfg = self.config
-        B, S = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(B, S, cfg.kv_heads, cfg.head_dim)
+        d = cfg.head_dim
+        q = self.q_proj(x)
+        # the whole sequence: a sequence-parallel projection gathers it
+        B, S = q.shape[0], q.shape[1]
+        q = q.reshape(B, S, self.num_heads, d)
+        k = self.k_proj(x).reshape(B, S, self.num_kv_heads, d)
+        v = self.v_proj(x).reshape(B, S, self.num_kv_heads, d)
         if cfg.use_rope:
             q, k, _ = fused_rotary_position_embedding(
                 q, k, position_ids=position_ids,
@@ -319,7 +374,7 @@ class GPTAttention(nn.Module):
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, training=self.training)
-        out = self.out_proj(out.reshape(B, S, cfg.num_heads * cfg.head_dim))
+        out = self.out_proj(out.reshape(B, S, self.num_heads * d))
         if cache is not None:
             return out, new_cache
         return out
@@ -333,14 +388,15 @@ class GPTMLP(nn.Module):
         super().__init__()
         h, f = config.hidden_size, config.ffn_size
         kw = _linear_kw(config, generator, device, dtype)
+        col, row = _parallel_linears(config)
         self.activation = config.activation
         if config.activation == "swiglu":
-            self.gate_proj = ColumnParallelLinear(h, f, gather_output=False, **kw)
-            self.up_proj = ColumnParallelLinear(h, f, gather_output=False, **kw)
-            self.down_proj = RowParallelLinear(f, h, input_is_parallel=True, **kw)
+            self.gate_proj = col(h, f, gather_output=False, **kw)
+            self.up_proj = col(h, f, gather_output=False, **kw)
+            self.down_proj = row(f, h, input_is_parallel=True, **kw)
         else:
-            self.fc1 = ColumnParallelLinear(h, f, gather_output=False, **kw)
-            self.fc2 = RowParallelLinear(f, h, input_is_parallel=True, **kw)
+            self.fc1 = col(h, f, gather_output=False, **kw)
+            self.fc2 = row(f, h, input_is_parallel=True, **kw)
 
     def forward(self, x):
         if self.activation == "swiglu":
@@ -381,6 +437,8 @@ class GPTDecoderLayer(nn.Module):
 class GPTModel(nn.Module):
     """Embeddings + decoder stack + final norm."""
 
+    mp_group = None
+
     def __init__(self, config: GPTConfig, *, generator, device, dtype):
         super().__init__()
         self.config = config
@@ -395,6 +453,9 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList(
             [GPTDecoderLayer(config, **kw) for _ in range(config.num_layers)])
         self.final_norm = _make_norm(config, device, dtype)
+
+    def _mp_shard(self, pg, rank, n):
+        self.mp_group = pg
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_offset=None, attn_startend_row_indices=None,
@@ -417,6 +478,9 @@ class GPTModel(nn.Module):
         if not self.config.use_rope:
             h = torch.add(*amp.cast_inputs("add", h,
                                            self.embed_positions(position_ids)))
+        sp = self.config.sequence_parallel and self.mp_group is not None
+        if sp:
+            h = ScatterOp.apply(h, 1, self.mp_group)
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
@@ -430,6 +494,8 @@ class GPTModel(nn.Module):
                 h = layer(h, position_ids,
                           startend_row_indices=attn_startend_row_indices)
         h = self.final_norm(h)
+        if sp:
+            h = GatherOp.apply(h, 1, self.mp_group)
         if caches is not None:
             return h, new_caches
         return h
@@ -466,8 +532,10 @@ class GPTForCausalLM(nn.Module):
                        block_tables=block_tables)
         h, new_caches = out if caches is not None else (out, None)
         if self.config.tie_word_embeddings:
-            h, w = amp.cast_inputs("lm_head_tied", h,
-                                   self.gpt.embed_tokens.weight)
+            emb = self.gpt.embed_tokens
+            if emb.mp_group is not None:
+                h = c_identity(h, emb.mp_group)
+            h, w = amp.cast_inputs("lm_head_tied", h, emb.weight)
             logits = torch.matmul(h, w.t())
         else:
             logits = self.lm_head(h)
@@ -494,8 +562,10 @@ class GPTForCausalLM(nn.Module):
 
 
 class GPTPretrainingCriterion(nn.Module):
-    """Masked next-token cross entropy (↔ gpt.py:525-537): the mean of the
-    per-token losses, or their mean over `loss_mask` when one is given."""
+    """Masked next-token cross entropy (↔ gpt.py:525-537) over logits whose
+    vocabulary may be cut over mp: the mean of the per-token losses, or
+    their mean over `loss_mask` when one is given. It notes the mean's
+    count (`nn.functional.loss.note_reduction`) for a sharded step."""
 
     def __init__(self, config: GPTConfig = None):
         super().__init__()
@@ -505,7 +575,10 @@ class GPTPretrainingCriterion(nn.Module):
         losses = self.ce(logits, labels)  # [B, S]
         if loss_mask is not None:
             m = loss_mask.reshape(losses.shape).float()
-            return (losses.float() * m).sum() / m.sum().clamp(min=1.0)
+            count = m.sum()
+            note_reduction("mean", count, count.clamp(min=1.0))
+            return (losses.float() * m).sum() / count.clamp(min=1.0)
+        note_reduction("mean", losses.numel(), losses.numel())
         return losses.mean()
 
 

@@ -8,15 +8,50 @@ last axis, softmax on, no class weights, no label smoothing, with
 log-sum-exp and recomputes the softmax in the backward, so the f32
 log-probs of a [B, S, vocab] logits tensor are never kept. The other modes
 raise NotImplementedError naming their ROADMAP item.
+
+A reducing loss notes how it reduced (`note_reduction`): a mean over how
+many terms, or a sum. `DistributedTrainStep` reads the notes taken while
+its `loss_fn` runs (`record_reductions`) to turn each rank's loss into its
+share of the loss over the global batch; `cross_entropy` and
+`models.GPTPretrainingCriterion` note theirs.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
 from ... import amp
 
-__all__ = ["SparseCrossEntropy", "cross_entropy"]
+__all__ = ["SparseCrossEntropy", "cross_entropy", "note_reduction",
+           "record_reductions"]
+
+# the list that the innermost record_reductions opened, else None
+_NOTES = contextvars.ContextVar("loss_reductions", default=None)
+
+
+@contextlib.contextmanager
+def record_reductions():
+    """Collect the `note_reduction` calls made inside the block into the
+    list it yields."""
+    notes = []
+    token = _NOTES.set(notes)
+    try:
+        yield notes
+    finally:
+        _NOTES.reset(token)
+
+
+def note_reduction(kind, count=None, denom=None):
+    """Note, for a recording step, that a loss was reduced: kind "mean"
+    (divided by `denom`, which stands for `count` terms: a global mean
+    divides the global sum by the larger of 1 and the sum of the counts)
+    or "sum"."""
+    notes = _NOTES.get()
+    if notes is not None:
+        notes.append((kind, count, denom))
 
 
 class SparseCrossEntropy(torch.autograd.Function):
@@ -65,7 +100,10 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     loss = torch.where(valid, SparseCrossEntropy.apply(logits, safe),
                        torch.zeros((), device=logits.device))
     if reduction == "mean":
-        return loss.sum() / valid.float().sum().clamp(min=1.0)
+        count = valid.float().sum()
+        note_reduction("mean", count, count.clamp(min=1.0))
+        return loss.sum() / count.clamp(min=1.0)
     if reduction == "sum":
+        note_reduction("sum")
         return loss.sum()
     return loss

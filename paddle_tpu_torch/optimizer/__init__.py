@@ -1,5 +1,5 @@
 """paddle_tpu_torch.optimizer (↔ paddle_tpu/optimizer)."""
 
-from .optimizer import Adam, AdamW, Optimizer
+from .optimizer import SGD, Adam, AdamW, Optimizer
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adam", "AdamW", "Optimizer", "SGD"]

@@ -1,5 +1,5 @@
-"""Optimizers (↔ paddle_tpu/optimizer/optimizer.py): `Optimizer`, `Adam`,
-`AdamW`.
+"""Optimizers (↔ paddle_tpu/optimizer/optimizer.py): `Optimizer`, `SGD`,
+`Adam`, `AdamW`.
 
 As in the JAX package, each optimizer defines a pure update rule,
 `init_state(p)` and `update(p, g, state, lr, ctx) -> (new_p, new_state)`,
@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adam", "AdamW", "Optimizer", "SGD"]
 
 _LOW = (torch.bfloat16, torch.float16)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -125,6 +125,16 @@ class Optimizer:
     def clear_grad(self, set_to_zero=True):
         for p in self._params():
             p.grad = None
+
+
+class SGD(Optimizer):
+    """p <- p - lr * (g + weight_decay * p) (reference :194)."""
+
+    def update(self, p, g, state, lr, ctx):
+        wd = ctx["weight_decay"]
+        if wd:
+            g = g + wd * p
+        return p - lr * g, state
 
 
 class Adam(Optimizer):

@@ -172,12 +172,14 @@ def test_load_paddle_tpu_state_rejects_mismatches(models):
 
 
 def test_unported_branches_raise():
-    """Context parallelism and dropout are still to port; the LLaMA form
-    and flashmask attention now build (tests/test_torch_llama.py)."""
+    """Context parallelism and dropout are still to port; the LLaMA form,
+    flashmask attention and sequence parallelism now build
+    (tests/test_torch_llama.py, tests/test_torch_tensor_parallel.py)."""
     for kw in (dict(context_parallel=True), dict(hidden_dropout_prob=0.1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTForCausalLM(gpt3_tiny(**kw), device="cpu")
-    for kw in (dict(use_rope=True), dict(attn_variant="flashmask")):
+    for kw in (dict(use_rope=True), dict(attn_variant="flashmask"),
+               dict(sequence_parallel=True)):
         GPTForCausalLM(gpt3_tiny(**kw), device="cpu")
 
 
@@ -222,7 +224,11 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.distributed.fleet",
             "paddle_tpu_torch.distributed.fleet.base.topology",
             "paddle_tpu_torch.distributed.fleet.base.distributed_strategy",
-            "paddle_tpu_torch.distributed.fleet.meta_optimizers"} <= set(
+            "paddle_tpu_torch.distributed.fleet.meta_optimizers",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel",
+            "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers",
+            "paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils",
+            } <= set(
                 _port_modules())
     code = (
         "import importlib, sys\n"
@@ -239,7 +245,8 @@ def test_import_loads_no_jax_and_no_jax_package():
 def test_no_port_file_names_jax_in_an_import():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "chip_ranks.py",
-        ROOT / "tests" / "torch_dist_worker.py"]
+        ROOT / "tests" / "torch_dist_worker.py",
+        ROOT / "tests" / "torch_tp_cases.py"]
     offenders = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

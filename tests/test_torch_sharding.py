@@ -391,7 +391,10 @@ def test_fleet_init_distributed_model_and_optimizer_run_a_dp_step(runs):
 
 
 def test_unported_parallelisms_raise_naming_their_items(runs):
+    """Pipeline, segment and expert parallelism raise naming their ROADMAP
+    items; tensor parallelism (an mp mesh, fleet's tensor_parallel mode)
+    builds (tests/test_torch_tensor_parallel.py holds what it does)."""
     for got in _case(runs, "unported"):
-        assert got == {"mp": "1b", "pp": "1c", "sep": "1d", "ep": "1e",
-                       "tensor_parallel": "1b", "pipeline_parallel": "1c",
-                       "segment_parallel": "1d"}
+        assert got == {"mp": "DistributedTrainStep", "pp": "1c", "sep": "1d",
+                       "ep": "1e", "tensor_parallel": "TensorParallel",
+                       "pipeline_parallel": "1c", "segment_parallel": "1d"}

@@ -1,5 +1,6 @@
 """One rank of the port's multi-rank CPU tests (`tests/test_torch_collective.py`,
-`tests/test_torch_sharding.py`).
+`tests/test_torch_sharding.py`, `tests/test_torch_tensor_parallel.py`,
+whose cases are in `tests/torch_tp_cases.py`).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -377,10 +378,10 @@ def sharding_cases(rank, world, inp):
 
         def item(fn):
             try:
-                fn()
+                built = fn()
             except NotImplementedError as e:
                 return re.search(r"item (1[a-e])", str(e)).group(1)
-            return "no raise"
+            return type(built).__name__
 
         res = {}
         for axis in ("mp", "pp", "sep", "ep"):
@@ -401,7 +402,14 @@ def sharding_cases(rank, world, inp):
     return out
 
 
-SUITES = {"collective": collective_cases, "sharding": sharding_cases}
+def tensor_parallel_cases(rank, world, inp):
+    from torch_tp_cases import tensor_parallel_cases as cases
+
+    return cases(rank, world, inp)
+
+
+SUITES = {"collective": collective_cases, "sharding": sharding_cases,
+          "tensor_parallel": tensor_parallel_cases}
 
 
 def main():
