@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The port's data-parallel, ZeRO and tensor-parallel step over several
-GPUs of one host (NCCL, one process per card).
+"""The port's data-parallel, ZeRO, tensor-parallel and pipelined step over
+several GPUs of one host (NCCL, one process per card).
 
-    python3 chip_ranks.py --ranks 4          # four cards
-    python3 chip_ranks.py --ranks 4 --cpu    # four gloo processes, tiny sizes
+    python3 chip_ranks.py --ranks 4                # four cards
+    python3 chip_ranks.py --ranks 4 --cpu          # four gloo processes, tiny sizes
 
 Each rank runs, in order:
 
@@ -29,6 +29,16 @@ Each rank runs, in order:
    then the mp step: a warm-up step and three timed steps, each loss
    within TRAIN_SHARDED_RTOL of the one-card losses, step time, tokens/s,
    peak memory of each rank and the collectives of a step.
+4. pp — the same gpt3_1p3b recipe as a 1F1B `GPTForCausalLMPipe` of 4
+   microbatches: at 2 ranks a mesh of pp=2, at 4 ranks pp=2 x mp=2 with
+   sequence_parallel. The one-card reference is as in part 3 (the layered
+   model, whole batch, on this rank's card); the pipe takes its weights
+   through `stack_layered_state_dict`. A warm-up step and three timed
+   steps, each loss within TRAIN_SHARDED_RTOL of the one-card losses, step
+   time, tokens/s, peak memory of each rank, the sends, receives and
+   other pp collectives of a step (`parallel.pipeline.PP_CALLS`) and the
+   most microbatches each stage held in flight. This is where NCCL's
+   matching of the schedule's sends and receives is tested.
 
 Rank 0 prints one JSON line per part and a last line {"ok": ...}; the
 process exits non-zero when a rank fails or a parity check does not hold.
@@ -266,6 +276,96 @@ def tp_step(torch, dist, world, device, cpu):
             "finite": all(math.isfinite(v) for v in losses)}
 
 
+def pp_step(torch, dist, world, device, cpu):
+    """Part 4: gpt3_1p3b as a 1F1B pipe over pp (and mp at 4 ranks)."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_paddle_tpu_state
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM, GPTForCausalLMPipe,
+                                         GPTPretrainingCriterion, gpt3_1p3b,
+                                         gpt3_tiny, stack_layered_state_dict)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import pipeline as pp
+
+    kw = dict(use_recompute=True, sequence_parallel=world == 4)
+    if cpu:
+        cfg, batch, seq = gpt3_tiny(**kw), 4, 64
+    else:
+        cfg = gpt3_1p3b(max_position_embeddings=2048, **kw)
+        batch, seq = 4, 2048
+    sync = torch.cuda.synchronize if not cpu else (lambda: None)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                          device=device)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                             device=device)
+    layered = GPTForCausalLM(cfg, device=device, dtype=torch.float32, seed=0)
+    state = {k: v.cpu() for k, v in stack_layered_state_dict(
+        layered.state_dict(), cfg.num_layers).items()}
+
+    def optimizer(model):
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        crit = GPTPretrainingCriterion(cfg)
+        return (lambda lg, lb: crit(lg, lb)), AdamW(
+            learning_rate=1e-4, parameters=model.parameters(),
+            moment_dtype="bfloat16")
+
+    def run(step):
+        losses = [step(ids, labels).item()]
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        coll.reset_counters()
+        calls = []
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            before = dict(pp.PP_CALLS)
+            losses.append(step(ids, labels).item())
+            calls.append({k: v - before.get(k, 0)
+                          for k, v in pp.PP_CALLS.items()
+                          if v != before.get(k, 0)})
+        sync()
+        return losses, (time.perf_counter() - t0) / 3, calls
+
+    dist.env.set_global_mesh(None)   # the one-card reference: no mesh
+    ref, ref_s, _ = run(TrainStep(layered, *optimizer(layered),
+                                  amp_level="O2", amp_dtype="bfloat16"))
+    del layered
+    if not cpu:
+        torch.cuda.empty_cache()
+    shape = dict(pp=2) if world == 2 else dict(pp=2, mp=world // 2)
+    model = GPTForCausalLMPipe(cfg, num_microbatches=4, pp_schedule="1f1b",
+                               device=device, dtype=torch.float32, seed=1)
+    loss_fn, opt = optimizer(model)
+    step = dist.DistributedTrainStep(
+        model, loss_fn, opt, mesh=dist.build_mesh(**shape), amp_level="O2",
+        amp_dtype="bfloat16")
+    load_paddle_tpu_state(model, state)
+    del state
+    losses, step_s, calls = run(step)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    return {"part": "pp", "model": "gpt3_1p3b" if not cpu else "gpt3_tiny",
+            "mesh": dist.env.mesh_shape(step.mesh), "pp_schedule": "1f1b",
+            "num_microbatches": 4, "stage": model._stage,
+            "sequence_parallel": cfg.sequence_parallel, "batch": batch,
+            "seq": seq, "losses": losses, "one_card_losses": ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "step_s": step_s, "one_card_step_s": ref_s,
+            "tokens_per_s": batch * seq / step_s,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if not cpu else None),
+            "in_flight_most": pp.IN_FLIGHT.get("1f1b"),
+            "pp_collectives_per_step": calls,
+            "collective_calls_per_step": {k: v / 3 for k, v in coll.CALLS.items()},
+            "collective_bytes_per_step": {k: v / 3 for k, v in coll.BYTES.items()},
+            "failed": [] if rel <= TRAIN_SHARDED_RTOL else
+            [f"pp losses {losses} against one card's {ref}"],
+            "finite": all(math.isfinite(v) for v in losses)}
+
+
 def rank_main(rank, world, port, cpu, out_dir):
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
@@ -285,8 +385,8 @@ def rank_main(rank, world, port, cpu, out_dir):
     try:
         parts = [parity(torch, dist, world, device)]
         torch.backends.cuda.matmul.allow_tf32 = True
-        parts.append(gpt_step(torch, dist, world, device, cpu))
-        parts.append(tp_step(torch, dist, world, device, cpu))
+        for fn in (gpt_step, tp_step, pp_step):
+            parts.append(fn(torch, dist, world, device, cpu))
         gathered = []
         dist.all_gather_object(gathered, parts)
         if rank == 0:
@@ -349,12 +449,14 @@ def main():
         for part in parts:
             print(f"[{card}] rank {r} " + json.dumps(part), flush=True)
             failed += [f"rank {r}: {x}" for x in part.get("failed", [])]
-            if part["part"] in ("step", "tp") and not part["finite"]:
+            if part["part"] in ("step", "tp", "pp") and not part["finite"]:
                 failed.append(f"rank {r}: non-finite loss")
-    for i in (1, 2):
+    for i, part in enumerate(ranks[0]):
+        if part["part"] == "parity":
+            continue
         losses = {tuple(parts[i]["losses"]) for parts in ranks}
         if len(losses) != 1:
-            failed.append(f"the ranks report different {ranks[0][i]['part']} "
+            failed.append(f"the ranks report different {part['part']} "
                           f"losses {losses}")
     print(card, flush=True)
     print(json.dumps({"ok": not failed, "failed": failed,

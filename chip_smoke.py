@@ -195,6 +195,27 @@ Phases; any failure raises and the script exits non-zero:
                 tp_collectives predicts from the code. Step time,
                 tokens/s, MFU, peak memory, the collective counts and
                 torch.profiler over one step.
+6d. train pipeline — phase 5's step as a 1F1B GPTForCausalLMPipe
+                (num_microbatches 4: microbatches of 1 x 2048) through
+                DistributedTrainStep on a 1-rank NCCL group
+                (build_mesh(pp=1)): the schedule of
+                parallel.pipeline_1f1b with one stage (no sends), each
+                microbatch's forward without a graph and its backward
+                running the stage again from the kept input, the final
+                norm, head and loss on the stage's output, the shared
+                parameters' gradients summed over the one-rank pp group
+                and the loss broadcast over it. Phase 5's weights, carried
+                in by models.stack_layered_state_dict and
+                convert.load_paddle_tpu_state, and tokens; each loss
+                within TRAIN_SHARDED_RTOL of phase 5's, per step phase 5's
+                flash and norm launches times 4 (192 flash forwards, 96 dq,
+                96 dk/dv, 388 norm forwards, 196 norm dx), and each step's
+                pp collectives (parallel.pipeline.PP_CALLS) exactly the
+                ones the code places: no send or receive, one broadcast,
+                one all-reduce a bucket of shared gradients. Step time,
+                tokens/s, MFU, peak memory, the most microbatches held in
+                flight, the collective counts and torch.profiler over one
+                step.
 7. llama serve — llama_7b at full width and depth in bf16, random weights
                 from a seed, through the paged engine (16 rows, 512 tokens,
                 page size 32) over the 12-request mix: RoPE (prefills +
@@ -3832,6 +3853,132 @@ def train_tensor_parallel(card, torch, train_line):
 
 
 # --------------------------------------------------------------------------- #
+# phase 6d: the pipelined step (1F1B) at world size 1
+# --------------------------------------------------------------------------- #
+
+PIPE_MICROBATCHES = 4
+
+
+def train_pipeline(card, torch, train_line):
+    """Phase 5's gpt3_1p3b step as a 1F1B `GPTForCausalLMPipe` through the
+    pp code of `DistributedTrainStep` on a 1-rank NCCL group
+    (`build_mesh(pp=1)`): PIPE_MICROBATCHES microbatches of one row, each
+    run forward without a graph and backward from its kept input, the
+    stage the only one. Phase 5's weights (seed 0, f32, stacked by
+    `stack_layered_state_dict`, then O2) and tokens. A warm-up step, then
+    three timed steps with the kernel and pp counters zeroed just before
+    and read just after: each loss within TRAIN_SHARDED_RTOL of phase 5's,
+    phase 5's flash and norm launches per step times the microbatches, and
+    each step's pp collectives the ones the code places."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.convert import load_paddle_tpu_state
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.models import (GPTForCausalLM, GPTForCausalLMPipe,
+                                         GPTPretrainingCriterion,
+                                         stack_layered_state_dict)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import pipeline as pp
+
+    cfg, per_mb, _, recipe_text = _train_config("gpt3_1p3b")
+    M = PIPE_MICROBATCHES
+    per_step = {k: v * M for k, v in per_mb.items()}
+    B, S, timed = 4, 2048, 3
+    t0 = time.perf_counter()
+    state = stack_layered_state_dict(GPTForCausalLM(
+        cfg, device="cuda", seed=0).state_dict(), cfg.num_layers)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1")
+    pdist.init_parallel_env()
+    try:
+        mesh = pdist.build_mesh(pp=1)
+        model = GPTForCausalLMPipe(cfg, num_microbatches=M,
+                                   pp_schedule="1f1b", device="cuda", seed=1)
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        crit = GPTPretrainingCriterion(cfg)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    moment_dtype="bfloat16")
+        step = pdist.DistributedTrainStep(
+            model, lambda lg, lb: crit(lg, lb), opt, mesh=mesh,
+            amp_level="O2", amp_dtype="bfloat16")
+        load_paddle_tpu_state(model, state)
+        del state
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              device="cuda")
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses = [step(ids, labels).item()]
+        warm_s = time.perf_counter() - t0
+        predicted = {"broadcast": 1,
+                     "all_reduce": sum(b.pp for b in step._buckets)}
+
+        _zero_counters()
+        coll.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls = []
+        for _ in range(timed):
+            before = dict(pp.PP_CALLS)
+            losses.append(step(ids, labels).item())
+            calls.append({op: n - before.get(op, 0)
+                          for op, n in pp.PP_CALLS.items()
+                          if n != before.get(op, 0)})
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = total_s / timed
+        flops = decoder_flops(cfg, B, S)
+        ref = train_line["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        want = _expected(**{k: v * timed for k, v in per_step.items()})
+        line = {
+            "model": "gpt3_1p3b", "recipe": recipe_text,
+            "mesh": pdist.env.mesh_shape(mesh), "pp_schedule": "1f1b",
+            "num_microbatches": M, "stages": model.num_stages(),
+            "batch": B, "seq": S, "built_s": built_s,
+            "warmup_step_s": warm_s, "losses": losses, "train_losses": ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "timed_steps": timed, "step_s": step_s,
+            "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_BF16,
+            "peak_memory_bytes": peak,
+            "train_peak_memory_bytes": train_line["peak_memory_bytes"],
+            "in_flight_most": pp.IN_FLIGHT.get("1f1b"),
+            "pp_collectives_per_step": calls,
+            "pp_collectives_predicted": predicted,
+            "collective_calls": dict(coll.CALLS),
+            "collective_bytes": dict(coll.BYTES),
+            "launches": launches, "launches_per_step": per_step}
+        say(card, "train_pipeline gpt3_1p3b (smoke run, not a benchmark) "
+            + json.dumps(line))
+        if rel > TRAIN_SHARDED_RTOL:
+            raise AssertionError(f"train_pipeline: losses {losses} against "
+                                 f"phase 5's {ref}")
+        if launches != want:
+            raise AssertionError(f"train_pipeline: kernel launches "
+                                 f"{launches}, expected {want}")
+        if any(c != predicted for c in calls):
+            raise AssertionError(f"train_pipeline: pp collectives {calls}, "
+                                 f"predicted {predicted} a step")
+        if pp.IN_FLIGHT.get("1f1b") != 1:
+            raise AssertionError(f"train_pipeline: {pp.IN_FLIGHT} "
+                                 "microbatches in flight at one stage")
+        profile_step(card, torch, lambda: step(ids, labels),
+                     "train_pipeline gpt3_1p3b step")
+        del step, model, opt
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        pdist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------- #
 # phases 11-12: bench.py's gpt3_moe rung
 # --------------------------------------------------------------------------- #
 
@@ -4156,6 +4303,7 @@ def main():
     train_hold(card, torch, "gpt3_1p3b")
     sharded_launches = train_sharded(card, torch, train_line)
     tp_launches = train_tensor_parallel(card, torch, train_line)
+    pipe_launches = train_pipeline(card, torch, train_line)
     llama_serve_launches = serve(card, torch, "llama_7b")
     hold(card, torch, "llama_7b")
     llama_train_launches, _ = train(card, torch, "llama_7bshape")
@@ -4167,7 +4315,7 @@ def main():
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
     paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
-             train_launches, sharded_launches, tp_launches,
+             train_launches, sharded_launches, tp_launches, pipe_launches,
              llama_serve_launches,
              llama_train_launches, moe_launches, varlen_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}

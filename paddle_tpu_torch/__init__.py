@@ -29,7 +29,9 @@ kernel and flashmask attention (forward, dq and dk/dv kernels); the MoE
 layer (`incubate.distributed.models.moe`) through the grouped-GEMM kernel
 and `bench.py`'s gpt3_moe step; packed-document attention
 (`nn.functional.flash_attn_unpadded`) through the varlen forward, dq and
-dk/dv kernels. See ROADMAP.md for the rest.
+dk/dv kernels; the hybrid-parallel step over ranks (`distributed`: data,
+ZeRO, tensor, sequence and pipeline parallelism, the schedules in
+`parallel`). See ROADMAP.md for the rest.
 """
 
 from .device import resolve_device

@@ -3,7 +3,8 @@
 `auto_cast(level="O1"|"O2", dtype=...)` is a context manager that sets the
 port's AMP state; `decorate(model, level="O2", dtype="bfloat16")` casts
 every float32 parameter to the AMP dtype in place, except those of
-`LayerNorm` layers.
+`LayerNorm` layers and those marked `keep_fp32` (the pipelined GPT's
+stacked LayerNorm parameters).
 
 The JAX package applies AMP in one place, an interceptor on every `run_op`.
 PyTorch has no such hook, so each functional of the port calls
@@ -99,7 +100,8 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None, master_grad=False,
              excluded_layers=None):
     """paddle.amp.decorate: under O2, cast every float32 parameter of the
-    models to `dtype` in place, keeping `LayerNorm` layers in float32.
+    models to `dtype` in place, keeping `LayerNorm` layers (and parameters
+    marked `keep_fp32`) in float32.
     Optimizers passed along switch to multi-precision (an f32 master
     copy of each low-precision parameter)."""
     from ..nn.layer.norm import LayerNorm
@@ -114,7 +116,8 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
                 if isinstance(layer, keep):
                     continue
                 for p in layer._parameters.values():
-                    if p is not None and p.dtype == torch.float32:
+                    if (p is not None and p.dtype == torch.float32
+                            and not getattr(p, "keep_fp32", False)):
                         p.data = p.data.to(target)
     if optimizers is None:
         return models if single else model_list

@@ -14,8 +14,12 @@ key and on a shape mismatch, never silently skipping one.
 Into a model cut for tensor parallelism (`fleet.layers.mpu.shard_model`,
 which a `DistributedTrainStep` over a mesh calls) each full array of an
 mp-cut parameter is sliced to this rank's part (`p.mp_part`: dim, rank,
-ranks) first, and into a stage-3 model to this rank's sharding shard
-after that, so a full state loads on every rank as it stands.
+ranks), into a pipelined model cut over pp each full [L, ...] stack to
+this rank's stage rows (`p.pp_part`: stages, stage, chunks) before that,
+and into a stage-3 model to this rank's sharding shard after both, so a
+full state loads on every rank as it stands. A layered GPT state goes into
+the pipelined model through `models.stack_layered_state_dict`. The arrays
+may be torch tensors too.
 """
 
 from __future__ import annotations
@@ -23,10 +27,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .parallel.pipeline import stage_rows
+
 __all__ = ["load_paddle_tpu_opt_state", "load_paddle_tpu_state"]
 
 
 def _to_tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.detach()
     a = np.asarray(arr)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: no torch.from_numpy
         a = a.astype(np.float32)
@@ -34,7 +42,11 @@ def _to_tensor(arr) -> torch.Tensor:
 
 
 def _mp_part(t, p):
-    """This rank's part of a full tensor `t` of the mp-cut parameter p."""
+    """This rank's part of a full tensor `t` of parameter p: its stage's
+    rows of a pipelined model's stack, then its mp part."""
+    stage = getattr(p, "pp_part", None)
+    if stage is not None:
+        t = stage_rows(t, *stage)
     part = getattr(p, "mp_part", None)
     if part is None:
         return t

@@ -3,9 +3,10 @@ the process group and mesh (`env`), Paddle's collectives on
 `torch.distributed` (`collective`, with the autograd functions of the
 model-parallel region), the fleet facade with the tensor- and
 sequence-parallel layers, `DataParallel`, the group-sharded API and
-`DistributedTrainStep` (data, tensor and sequence parallelism and ZeRO
-stages 1-3 with offload). One process per rank: `spawn` starts `nprocs`
-of them."""
+`DistributedTrainStep` (data, tensor, sequence and pipeline parallelism
+and ZeRO stages 1-3 with offload; the pipeline schedules are in
+`paddle_tpu_torch.parallel`). One process per rank: `spawn` starts
+`nprocs` of them."""
 
 from . import collective, env, fleet, parallel, sharding
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,

@@ -4,13 +4,17 @@
 `distributed_model` wraps the model by parallel mode, and
 `distributed_optimizer` wraps the optimizer in `HybridParallelOptimizer`.
 
-Data, sharding and tensor parallelism are ported. The first two wrap the
-model in `DataParallel`, over the dp group and over the (dp, sharding)
-group, whose ranks each take a part of the batch; tensor parallelism (a
-topology whose mp degree is above 1) wraps it in
-`meta_parallel.TensorParallel`, which cuts it over the mp group. Pipeline
-and segment parallelism raise NotImplementedError naming their ROADMAP
-queue A items (1c, 1d).
+Data, sharding, tensor and pipeline parallelism are ported. The first two
+wrap the model in `DataParallel`, over the dp group and over the (dp,
+sharding) group, whose ranks each take a part of the batch; tensor
+parallelism (a topology whose mp degree is above 1) wraps it in
+`meta_parallel.TensorParallel`, which cuts it over the mp group; pipeline
+parallelism (pp degree above 1) wraps a `meta_parallel.PipelineLayer` in
+`meta_parallel.PipelineParallel`, which cuts it over the mp group as
+`TensorParallel` does and whose `train_batch` reads the strategy's
+`pp_configs` and averages over the batch ranks, and any other model in
+`TensorParallel`, as the reference (:78-82). Segment parallelism raises
+NotImplementedError naming its ROADMAP queue A item (1d).
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ __all__ = ["CommunicateTopology", "DistributedStrategy",
            "is_initialized", "worker_index", "worker_num"]
 
 _UNPORTED_MODES = {
-    "pipeline_parallel": "pipeline parallelism is ported with ROADMAP queue A item 1c",
     "segment_parallel": "segment parallelism is ported with ROADMAP queue A item 1d",
 }
 
@@ -64,16 +67,19 @@ def worker_num():
 def distributed_model(model):
     """reference :61 (fleet/model.py:135-185)."""
     from ..parallel import DataParallel
-    from .meta_parallel import TensorParallel
+    from .meta_parallel import PipelineLayer, PipelineParallel, TensorParallel
 
     hcg = _fleet_state["hcg"]
     if hcg is None:
         raise RuntimeError("call fleet.init() first")
     mode = hcg.get_parallel_mode()
+    strategy = _fleet_state["strategy"]
     if mode in _UNPORTED_MODES:
         raise NotImplementedError(_UNPORTED_MODES[mode])
-    if mode == "tensor_parallel":
-        return TensorParallel(model, hcg, _fleet_state["strategy"])
+    if mode == "pipeline_parallel" and isinstance(model, PipelineLayer):
+        return PipelineParallel(model, hcg, strategy)
+    if mode in ("tensor_parallel", "pipeline_parallel"):
+        return TensorParallel(model, hcg, strategy)
     if mode == "data_parallel":
         return DataParallel(model, group=hcg.get_data_parallel_group())
     if mode == "sharding_parallel":

@@ -1,7 +1,10 @@
 """The hybrid topology (↔ paddle_tpu/distributed/fleet/base/topology.py):
 `CommunicateTopology`, the rank grid over [data, pipe, sharding, sep,
 model], and `HybridCommunicateGroup`, this rank's groups along each of its
-dims, cut from the mesh that `env.build_mesh` makes of the same dims."""
+dims, cut from the mesh that `env.build_mesh` makes of the same dims, and
+its place on the pipeline: the stage id, `is_first_stage` /
+`is_last_stage`, and the global ranks of the stages beside it
+(`_get_p2p_prev_rank` / `_get_p2p_next_rank`)."""
 
 from __future__ import annotations
 
@@ -163,6 +166,16 @@ class HybridCommunicateGroup:
 
     def is_last_stage(self):
         return self.get_stage_id() == self._pp_degree - 1
+
+    def _get_p2p_next_rank(self):
+        """The global rank of the next stage on the pp ring (the last
+        stage's is the first's), as the pipeline schedules send to it."""
+        peers = self._groups["pipe"].ranks
+        return peers[(self.get_stage_id() + 1) % len(peers)]
+
+    def _get_p2p_prev_rank(self):
+        peers = self._groups["pipe"].ranks
+        return peers[(self.get_stage_id() - 1) % len(peers)]
 
     def get_sharding_parallel_rank(self):
         return self._coord["sharding"]

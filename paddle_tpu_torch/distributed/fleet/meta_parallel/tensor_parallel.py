@@ -1,5 +1,6 @@
-"""The tensor-parallel model wrapper (↔ paddle_tpu/distributed/fleet/meta_parallel,
-`TensorParallel`; reference fleet/__init__.py:84-85).
+"""The tensor-parallel model wrapper `TensorParallel`
+(↔ paddle_tpu/distributed/fleet/meta_parallel/__init__.py; reference
+fleet/__init__.py:84-85).
 
 `TensorParallel(model, hcg)` cuts the model's tensor-parallel layers over
 the topology's mp group (`fleet.layers.mpu.shard_model`), broadcasts every
@@ -15,21 +16,28 @@ from __future__ import annotations
 
 import torch
 
-from .. import collective as C
-from ..parallel import DataParallel
-from .layers.mpu.mp_layers import is_distributed, shard_model
+from ... import collective as C
+from ...parallel import DataParallel
+from ..layers.mpu.mp_layers import is_distributed, shard_model
 
 __all__ = ["TensorParallel"]
 
 
+def cut_over_mp(layers, hcg):
+    """Cut `layers`' tensor-parallel layers over the topology's mp group,
+    and broadcast every parameter that is not cut, and every buffer, from
+    the group's first rank."""
+    group = hcg.get_model_parallel_group()
+    shard_model(layers, group)
+    with torch.no_grad():
+        for t in list(layers.parameters()) + list(layers.buffers()):
+            if not is_distributed(t):
+                C.broadcast(t.data, group.ranks[0], group=group)
+
+
 class TensorParallel(DataParallel):
     def __init__(self, layers, hcg, strategy=None):
-        group = hcg.get_model_parallel_group()
-        shard_model(layers, group)
-        with torch.no_grad():
-            for t in list(layers.parameters()) + list(layers.buffers()):
-                if not is_distributed(t):
-                    C.broadcast(t.data, group.ranks[0], group=group)
+        cut_over_mp(layers, hcg)
         super().__init__(layers, strategy,
                          group=hcg.get_dp_sharding_parallel_group())
         self._hcg = hcg

@@ -40,6 +40,17 @@ that must see plain tensors, and the shards follow the reference's
   (norms and row-parallel biases under `sequence_parallel`) differ from
   rank to rank: their buckets are all-reduced over mp first. A recomputed
   block runs to its end, so that every rank issues the same collectives.
+- **Pipeline parallelism.** A pipelined model (`models.GPTForCausalLMPipe`)
+  keeps its stage's layers over the mesh's pp group (its `_pp_shard`); its
+  1F1B `forward_loss` route (jit.TrainStep) runs a backward a microbatch,
+  so the step reduces the accumulated gradients once, after the last
+  (`_finish`), and stage 3's gathered gradients too. The parameters it
+  shares over pp (tables, final norm, head) are summed over pp first; its
+  stacks are not, and the clip's squared sum adds theirs over pp. A batch
+  is cut so that microbatch m of a rank's rows is its part of the global
+  microbatch m. Every rank returns the loss (the schedule broadcasts it
+  from the last stage). Any other model is whole on every pp rank, which
+  computes the whole step, as the reference replicates it over pp.
 - **Layout.** A parameter is cut along the dim `fsdp_spec` picks (the
   largest dim divisible by the `sharding` size, other than the dim of its
   mp cut) into one shard per sharding rank; one with no such dim stays
@@ -78,14 +89,14 @@ that must see plain tensors, and the shards follow the reference's
   the rule, and back out, on a side stream when `comm_overlap` is on.
 - **Clip.** The global-norm clip's squared sum adds this rank's shards'
   sums over the sharding group and an mp-cut parameter's over the mp group
-  (as the reference's `meta_optimizers.py:55-75`), and counts a
-  replicated parameter once.
+  (as the reference's `meta_optimizers.py:55-75`), a pipelined model's
+  stacks' over the pp group, and counts a replicated parameter once.
 
 `mesh=None` with no process group (or a reference mesh of one device) is
 `jit.TrainStep` on one device, as before: stages 1 and 2 are the stage-0 step there (over an axis of size 1
 the reference's shardings are no-ops), and stage 3 and offload ask for a
-mesh. Pipeline, segment and expert parallelism (a mesh whose pp, sep or ep
-is above 1) raise NotImplementedError naming their ROADMAP queue A items.
+mesh. Segment and expert parallelism (a mesh whose sep or ep is above 1)
+raise NotImplementedError naming their ROADMAP queue A items.
 """
 
 from __future__ import annotations
@@ -98,7 +109,7 @@ import torch.utils.checkpoint
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..jit import TrainStep
-from ..nn.functional.loss import record_reductions
+from ..parallel import pipeline as _pipeline
 from . import collective as C
 from . import env as _env
 from .fleet.layers.mpu.mp_layers import is_distributed, shard_model
@@ -109,8 +120,7 @@ __all__ = ["DistributedTrainStep", "fsdp_spec", "full_state_dict",
 BUCKET_BYTES = 25e6        # the reference's reduce-scatter bucket (25 MB)
 OFFLOAD_SLICE = 1 << 23    # elements of a state slice streamed at a time
 
-_UNPORTED_AXES = {"pp": "pipeline parallelism (ROADMAP queue A item 1c)",
-                  "sep": "segment parallelism (ROADMAP queue A item 1d)",
+_UNPORTED_AXES = {"sep": "segment parallelism (ROADMAP queue A item 1d)",
                   "ep": "expert parallelism (ROADMAP queue A item 1e)"}
 
 
@@ -188,11 +198,12 @@ class _Layout:
 class _Bucket:
     """Gradients that go through one collective: "scatter" (reduce-scatter
     over the sharding group to each rank's shard, then all-reduce over dp)
-    or "reduce" (all-reduce over the (dp, sharding) group); with `sp`
-    (sequence-parallel parameters) all-reduced over mp first."""
+    or "reduce" (all-reduce over the (dp, sharding) group); with `pp`
+    (a pipelined model's parameters shared by its stages) summed over pp
+    first, with `sp` (sequence-parallel parameters) over mp."""
 
-    def __init__(self, kind, dtype, sp=False):
-        self.kind, self.dtype, self.sp = kind, dtype, sp
+    def __init__(self, kind, dtype, sp=False, pp=False):
+        self.kind, self.dtype, self.sp, self.pp = kind, dtype, sp, pp
         self.names, self.offsets, self.total, self.nbytes = [], [], 0, 0
         self.reset()
 
@@ -278,14 +289,22 @@ class DistributedTrainStep(TrainStep):
             raise NotImplementedError(
                 f"batch axes {tuple(batch_axes)} leave out a dp or sharding "
                 "axis of the mesh: the step splits the batch over both "
-                "(other layouts come with ROADMAP queue A items 1c-1e)")
+                "(other layouts come with ROADMAP queue A items 1d-1e)")
         self._batch_pg = _env.mesh_group(mesh, ("dp", "sharding"))
         self._shard_pg = _env.mesh_group(mesh, "sharding")
         self._dp_pg = _env.mesh_group(mesh, "dp")
         self._mp_pg = _env.mesh_group(mesh, "mp")
+        self._pp_pg = _env.mesh_group(mesh, "pp")
         self._n_batch = sizes["dp"] * sizes["sharding"]
         self._batch_rank = torch.distributed.get_rank(self._batch_pg)
         shard_model(model, self._mp_pg)
+        # a pipelined model keeps its stage's layers; any other is whole on
+        # every pp rank, which computes the whole step
+        self._pipe = hasattr(model, "_pp_shard")
+        if self._pipe:
+            model._pp_shard(self._pp_pg)
+        self._pp_shared = {k for k, p in self.params.items() if self._pipe
+                           and not getattr(p, "pp_stage", False)}
         self._mp_dim = {k: p.split_axis if is_distributed(p)
                         else None for k, p in self.params.items()}
         self._sp = {k for k, p in self.params.items()
@@ -320,12 +339,13 @@ class DistributedTrainStep(TrainStep):
 
     def _plan(self):
         """Buckets of at most BUCKET_BYTES in reverse parameter order, one
-        (kind, dtype, sequence-parallel or not) to a bucket."""
+        (kind, dtype, sequence-parallel or not, shared over pp or not) to a
+        bucket."""
         buckets, open_, of = [], {}, {}
         for name in reversed(list(self.params)):
             p = self.params[name]
             kind = "scatter" if self._scatter(name) else "reduce"
-            key = (kind, p.dtype, name in self._sp)
+            key = (kind, p.dtype, name in self._sp, name in self._pp_shared)
             b = open_.get(key)
             if b is None:
                 b = open_[key] = _Bucket(*key)
@@ -397,6 +417,8 @@ class DistributedTrainStep(TrainStep):
                                "DistributedTrainStep")
         acc = self._acc.get(name)
         self._acc[name] = g if acc is None else acc + g
+        if self._pipe:
+            return   # one backward a microbatch: reduced after the last
         self._uses[name] -= 1
         if self._uses[name] == 0:
             self._ready(name, self._acc.pop(name))
@@ -418,8 +440,10 @@ class DistributedTrainStep(TrainStep):
 
     def _grad_hook(self, name, p):
         # (a stage-3 shard's accumulator runs too, with no gradient: the
-        # gather's backward hands the gradient over itself)
-        if self._reducing and p.grad is not None:
+        # gather's backward hands the gradient over itself). A pipelined
+        # model runs a backward a microbatch: its gradients accumulate
+        # until `_finish`
+        if self._reducing and not self._pipe and p.grad is not None:
             self._ready(name, p.grad)
             p.grad = None
 
@@ -439,11 +463,17 @@ class DistributedTrainStep(TrainStep):
                else g.reshape(1, -1))
         self._buffer(b)[:, lo:lo + src.shape[1]].copy_(src)
         b.arrived.add(name)
-        if self.comm_overlap and len(b.arrived) == len(b.names):
+        # (a pipelined model's buckets start in `_finish`, in plan order:
+        # a stage holds gradients of only some of the shared parameters)
+        if self.comm_overlap and not self._pipe and \
+                len(b.arrived) == len(b.names):
             self._launch(b)
 
     def _launch(self, b):
         buf = self._buffer(b)
+        if b.pp:
+            # each stage's gradient of a shared parameter from its own use
+            _pipeline.pp_all_reduce(buf, self._pp_pg)
         if b.sp:
             # each mp rank's gradient comes from its own sequence rows
             C._all_reduce(buf, self._mp_pg)
@@ -467,6 +497,11 @@ class DistributedTrainStep(TrainStep):
         """Start what the backward did not, wait for every bucket, and
         leave each parameter's averaged gradient (its shard's, for a
         scattered one) in `_reduced`."""
+        if self._pipe:   # what the microbatches' backwards accumulated
+            for name, p in self.params.items():
+                if p.grad is not None:
+                    self._ready(name, p.grad)
+                    p.grad = None
         for name, acc in list(self._acc.items()):  # a gather left unused
             self._ready(name, acc)
         self._acc.clear()
@@ -497,13 +532,24 @@ class DistributedTrainStep(TrainStep):
 
     def _cut_batch(self, xs, specs):
         if specs is None:
-            n, r = self._n_batch, self._batch_rank
-            cut = [x.dim() > 0 and x.shape[0] % n == 0 for x in xs]
+            n, r, M = self._n_batch, self._batch_rank, self._microbatches()
+            cut = [x.dim() > 0 and x.shape[0] % (n * M) == 0 for x in xs]
             self._split_rows |= any(cut)
-            return [x.chunk(n)[r] if c else x for x, c in zip(xs, cut)]
+            return [self._rows(x, n, r) if c else x
+                    for x, c in zip(xs, cut)]
         if len(specs) != len(xs):
             raise ValueError(f"{len(specs)} specs for {len(xs)} inputs")
         return [self._cut_input(x, spec) for x, spec in zip(xs, specs)]
+
+    def _microbatches(self):
+        return self.model.num_microbatches if self._pipe else 1
+
+    def _rows(self, x, n, r):
+        """Rank r of n's rows of x: a pipelined model's microbatch m of
+        them is its part of the global microbatch m (contiguous rows
+        otherwise)."""
+        M = self._microbatches()
+        return x.unflatten(0, (M, n, -1))[:, r].flatten(0, 1)
 
     def _cut_input(self, x, spec):
         sizes = _env.mesh_shape(self.mesh)
@@ -518,8 +564,15 @@ class DistributedTrainStep(TrainStep):
             if x.shape[d] % n:
                 raise ValueError(f"dim {d} of an input {tuple(x.shape)} "
                                  f"does not divide over {names} ({n} ranks)")
-            k = x.shape[d] // n
-            x = x.narrow(d, r * k, k)
+            if d == 0:
+                M = self._microbatches()
+                if x.shape[0] % (n * M):
+                    raise ValueError(f"{x.shape[0]} rows do not divide "
+                                     f"into {M} microbatches over {n} ranks")
+                x = self._rows(x, n, r)
+            else:
+                k = x.shape[d] // n
+                x = x.narrow(d, r * k, k)
             self._split_rows |= bool({"dp", "sharding"} & set(names))
         return x
 
@@ -540,27 +593,33 @@ class DistributedTrainStep(TrainStep):
                     self._pack, self._unpack))
             return super()._loss(inputs, labels)
 
-    def _loss_fn(self, outs, labels):
-        if self.mesh is None:
-            return super()._loss_fn(outs, labels)
-        with record_reductions() as notes:
-            loss = super()._loss_fn(outs, labels)
-        return loss * self._loss_weight(notes, loss)
-
-    def _loss_weight(self, notes, loss):
+    def _loss_weight(self, notes, loss, whole_of=0):
         """This rank's weight in the global loss (module docstring,
-        "Loss"): n * c_r / C for a mean, n for a sum, 1 otherwise."""
-        if len(notes) != 1 or not self._split_rows:
+        "Loss"): n * c_r / C for a mean, n for a sum, 1 otherwise; a
+        one-stage pipeline's microbatch (`whole_of` = M) as jit.TrainStep
+        weighs it, times n."""
+        if self.mesh is None:
+            return super()._loss_weight(notes, loss, whole_of)
+        if len(notes) != 1:
             return 1.0
+        n = self._n_batch if self._split_rows else 1
         kind, count, denom = notes[0]
-        n = self._n_batch
         if kind == "sum":
-            return float(n)
-        total = torch.as_tensor(count, dtype=torch.float32,
-                                device=loss.device).detach().clone()
-        C._all_reduce(total, self._batch_pg)
+            return float(n * max(whole_of, 1))
+        if whole_of:
+            self._counts.append(count)
+            return n * whole_of * denom
+        if not self._split_rows:
+            return 1.0
+        total = self._sum_counts(count)
         denom = torch.as_tensor(denom, dtype=torch.float32, device=loss.device)
         return n * denom / total.clamp(min=1.0)
+
+    def _sum_counts(self, count):
+        total = super()._sum_counts(count)
+        if self.mesh is not None and self._split_rows:
+            C._all_reduce(total, self._batch_pg)
+        return total
 
     def _mean_loss(self, loss):
         loss = loss.detach().clone()
@@ -621,16 +680,26 @@ class DistributedTrainStep(TrainStep):
         sq = {k: g.float().square().sum() for k, g in grads.items()
               if g is not None}
 
-        def part(cut, mp):
+        def part(cut, mp, stage):
             return sum((v for k, v in sq.items()
                         if (self._cut(k) is not None) == cut
-                        and (self._mp_dim[k] is not None) == mp), zero)
+                        and (self._mp_dim[k] is not None) == mp
+                        and (self._pipe and k not in self._pp_shared) == stage),
+                       zero)
 
-        shards = torch.stack([part(True, True), part(True, False)])
+        # [stage, shared] x [cut over mp, not]: shards over sharding, then
+        # mp-cut parts over mp, then a pipelined model's stage parts over pp
+        shards = torch.stack([part(True, True, True), part(True, False, True),
+                              part(True, True, False),
+                              part(True, False, False)])
         C._all_reduce(shards, self._shard_pg)
-        mp = shards[0] + part(False, True)
+        mp = torch.stack([shards[0] + part(False, True, True),
+                          shards[2] + part(False, True, False)])
         C._all_reduce(mp, self._mp_pg)
-        return mp + shards[1] + part(False, False)
+        stage = mp[0] + shards[1] + part(False, False, True)
+        if self._pipe:
+            _pipeline.pp_all_reduce(stage, self._pp_pg)
+        return stage + (mp[1] + shards[3] + part(False, False, False))
 
     def _apply(self, name, p, g, lr, ctx):
         if not self.offload:
@@ -697,11 +766,12 @@ class DistributedTrainStep(TrainStep):
 
 def full_state_dict(model):
     """`model.state_dict()` with every stage-3 parameter gathered from its
-    shards and every mp-cut one from the mp ranks (a collective: every rank
-    of the mesh calls it); a model that is not cut gives its own
-    tensors."""
+    shards, every mp-cut one from the mp ranks and a pipelined model's
+    stacks from its stages (a collective: every rank of the mesh calls it);
+    a model that is not cut gives its own tensors."""
     step = getattr(model, "_distributed_step", None)
     mp_pg = getattr(model, "_mp_group", None)
+    pp_pg = getattr(model, "_pp_group", None)
     out = {}
     names = {id(p): k for k, p in model.named_parameters()}
     for k, v in model.state_dict(keep_vars=True).items():
@@ -712,6 +782,8 @@ def full_state_dict(model):
             t, fresh = step._gather_full(name, v), True
         if mp_pg is not None and is_distributed(v):
             t, fresh = C.gather_along(t, v.split_axis, mp_pg), True
+        if pp_pg is not None and getattr(v, "pp_part", None) is not None:
+            t, fresh = _pipeline.gather_stages(t, pp_pg, v.pp_part[2]), True
         out[k] = t if fresh else t.clone()
     return out
 

@@ -18,6 +18,20 @@ optimizer clip with a `clip_norm` (`ClipGradByGlobalNorm`, and
 every gradient) scales every gradient by clip_norm / max(norm, clip_norm);
 `ClipGradByValue` is not applied by the step, as in the reference.
 
+A model with `pp_schedule == "1f1b"` (`models.GPTForCausalLMPipe`) takes
+the reference's `forward_loss` route (:315-320, :336-340): the step calls
+`model.forward_loss(input_ids, labels, criterion, *more_labels)` (the
+token ids are its one input, as the reference's; another raises), which
+runs each microbatch's forward and backward itself, and the step then
+updates. The
+criterion is `loss_fn` on a microbatch, weighted as the loss must come out:
+at more than one stage the mean over the microbatches of `loss_fn` on each
+(global) microbatch, as the reference; at one stage `loss_fn` over the
+whole batch, as the reference's pp = 1 path (:323-324): a mean that notes
+its count (`nn.functional.loss.note_reduction`) is weighted by its count,
+and the loss and the gradients are divided by the total count after the
+schedule. Without a gradient (`evaluate`) the model's `forward` serves.
+
 The update runs through the reference's sharding hooks, identities here,
 which `DistributedTrainStep` overrides: `_shard_grad` (the gradient this
 rank updates with), `_shard_param_for_update` (the tensor it updates: the
@@ -34,6 +48,7 @@ import torch
 
 from .. import amp
 from ..nn.clip import global_norm_scale, scale_grad
+from ..nn.functional.loss import record_reductions
 
 __all__ = ["TrainStep"]
 
@@ -67,6 +82,8 @@ class TrainStep:
         self.params = {k: p for k, p in model.named_parameters()
                        if p.requires_grad}
         self.optimizer._names = dict(self.params)
+        self._grad_factor = None   # the 1F1B whole-batch scale of one step
+        self._counts = []
 
     @property
     def opt_states(self):
@@ -86,11 +103,58 @@ class TrainStep:
     def _batches(self, inputs, labels):
         return self._batch(inputs), self._batch(labels)
 
-    def _loss_fn(self, outs, labels):
-        return self.loss_fn(*outs, *labels).float()
+    def _loss_fn(self, outs, labels, whole_of=0):
+        with record_reductions() as notes:
+            loss = self.loss_fn(*outs, *labels).float()
+        return loss * self._loss_weight(notes, loss, whole_of)
+
+    def _loss_weight(self, notes, loss, whole_of=0):
+        """This rank's weight of its loss: 1 here, where one rank holds the
+        whole batch. `whole_of` = M: a microbatch of M whose loss adds up to
+        the whole batch's (module docstring); a mean's count is kept in
+        `_counts`."""
+        if len(notes) != 1 or not whole_of:
+            return 1.0
+        kind, count, denom = notes[0]
+        if kind == "sum":
+            return float(whole_of)
+        self._counts.append(count)
+        return whole_of * denom
+
+    def _sum_counts(self, count):
+        return torch.as_tensor(count, dtype=torch.float32,
+                               device=self._device()).detach().clone()
+
+    def _pipelined(self):
+        return (getattr(self.model, "pp_schedule", None) == "1f1b"
+                and torch.is_grad_enabled())
+
+    def _pipeline_loss(self, inputs, labels):
+        """The forward_loss route (module docstring)."""
+        model = self.model
+        if len(inputs) != 1:
+            # the reference's forward_loss takes the token ids alone, and
+            # fails on another input
+            raise ValueError(f"the 1f1b route takes input_ids alone, got "
+                             f"{len(inputs)} inputs")
+        whole_of = model.num_microbatches if model.num_stages() == 1 else 0
+        self._counts = []
+
+        def criterion(logits, *labs):
+            return self._loss_fn([logits], labs, whole_of)
+
+        loss = model.forward_loss(inputs[0], labels[0], criterion,
+                                  *labels[1:])
+        if self._counts:
+            total = self._sum_counts(sum(self._counts))
+            self._grad_factor = 1.0 / total.clamp(min=1.0)
+            loss = loss * self._grad_factor
+        return loss
 
     def _loss(self, inputs, labels):
         with _amp_ctx(self.amp_level, self.amp_dtype):
+            if self._pipelined():
+                return self._pipeline_loss(inputs, labels)
             out = self.model(*inputs)
             outs = out if isinstance(out, (list, tuple)) else [out]
             return self._loss_fn(outs, labels)
@@ -99,8 +163,10 @@ class TrainStep:
         inputs, labels = self._batches(inputs, labels)
         for p in self.params.values():
             p.grad = None
+        self._grad_factor = None
         loss = self._loss(inputs, labels)
-        loss.backward()
+        if not self._pipelined():
+            loss.backward()
         self._update()
         return loss.detach()
 
@@ -111,6 +177,9 @@ class TrainStep:
         ctx = {"step": opt._step_count, "weight_decay": opt._decay_coeff()}
         lr = opt.get_lr()
         grads = {k: self._shard_grad(k, p.grad) for k, p in self.params.items()}
+        if self._grad_factor is not None:
+            grads = {k: None if g is None else scale_grad(g, self._grad_factor)
+                     for k, g in grads.items()}
         clip_norm = getattr(opt._grad_clip, "clip_norm", None)
         if clip_norm is not None:
             scale = global_norm_scale(self._grad_sq_sum(grads), clip_norm)

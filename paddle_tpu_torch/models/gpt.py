@@ -404,6 +404,31 @@ class GPTMLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def _embed(model, input_ids, position_ids):
+    """The decoder's input: `model.embed_tokens(ids)` plus the learned
+    positions (without RoPE), cut to this rank's sequence rows under
+    sequence parallelism (`model.mp_group` set)."""
+    h = model.embed_tokens(input_ids)
+    if not model.config.use_rope:
+        h = torch.add(*amp.cast_inputs("add", h,
+                                       model.embed_positions(position_ids)))
+    if model.config.sequence_parallel and model.mp_group is not None:
+        h = ScatterOp.apply(h, 1, model.mp_group)
+    return h
+
+
+def _lm_logits(config, h, embed_tokens, lm_head):
+    """The LM head on the final hidden state: tied to the token table
+    (its vocab rows on this rank, the input through `c_identity` when cut),
+    or the untied `lm_head`."""
+    if not config.tie_word_embeddings:
+        return lm_head(h)
+    if embed_tokens.mp_group is not None:
+        h = c_identity(h, embed_tokens.mp_group)
+    h, w = amp.cast_inputs("lm_head_tied", h, embed_tokens.weight)
+    return torch.matmul(h, w.t())
+
+
 class GPTDecoderLayer(nn.Module):
     """Pre-norm decoder block."""
 
@@ -474,13 +499,8 @@ class GPTModel(nn.Module):
                 # offset, as in the JAX package
                 start = int(cache_offset)
             position_ids = (start + torch.arange(S, device=dev))[None].expand(B, S)
-        h = self.embed_tokens(input_ids)
-        if not self.config.use_rope:
-            h = torch.add(*amp.cast_inputs("add", h,
-                                           self.embed_positions(position_ids)))
+        h = _embed(self, input_ids, position_ids)
         sp = self.config.sequence_parallel and self.mp_group is not None
-        if sp:
-            h = ScatterOp.apply(h, 1, self.mp_group)
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             if caches is not None:
@@ -531,14 +551,8 @@ class GPTForCausalLM(nn.Module):
                        attn_startend_row_indices=attn_startend_row_indices,
                        block_tables=block_tables)
         h, new_caches = out if caches is not None else (out, None)
-        if self.config.tie_word_embeddings:
-            emb = self.gpt.embed_tokens
-            if emb.mp_group is not None:
-                h = c_identity(h, emb.mp_group)
-            h, w = amp.cast_inputs("lm_head_tied", h, emb.weight)
-            logits = torch.matmul(h, w.t())
-        else:
-            logits = self.lm_head(h)
+        logits = _lm_logits(self.config, h, self.gpt.embed_tokens,
+                            getattr(self, "lm_head", None))
         if caches is not None:
             return logits, new_caches
         return logits

@@ -228,6 +228,11 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.distributed.fleet.meta_parallel",
             "paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers",
             "paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils",
+            "paddle_tpu_torch.parallel.pipeline",
+            "paddle_tpu_torch.models.gpt_pipe",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel.pipeline_parallel",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel.tensor_parallel",
             } <= set(
                 _port_modules())
     code = (
@@ -246,7 +251,8 @@ def test_no_port_file_names_jax_in_an_import():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "chip_ranks.py",
         ROOT / "tests" / "torch_dist_worker.py",
-        ROOT / "tests" / "torch_tp_cases.py"]
+        ROOT / "tests" / "torch_tp_cases.py",
+        ROOT / "tests" / "torch_pp_cases.py"]
     offenders = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

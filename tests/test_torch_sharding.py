@@ -391,10 +391,16 @@ def test_fleet_init_distributed_model_and_optimizer_run_a_dp_step(runs):
 
 
 def test_unported_parallelisms_raise_naming_their_items(runs):
-    """Pipeline, segment and expert parallelism raise naming their ROADMAP
-    items; tensor parallelism (an mp mesh, fleet's tensor_parallel mode)
-    builds (tests/test_torch_tensor_parallel.py holds what it does)."""
+    """Segment and expert parallelism raise naming their ROADMAP items;
+    tensor and pipeline parallelism build: an mp or a pp mesh gives a
+    DistributedTrainStep (a model with no stages is whole on every pp
+    rank), fleet's tensor_parallel mode and its pipeline_parallel mode on a
+    model that is not a PipelineLayer give TensorParallel, as the
+    reference's (tests/test_torch_tensor_parallel.py and
+    tests/test_torch_pipeline.py hold what they do)."""
     for got in _case(runs, "unported"):
-        assert got == {"mp": "DistributedTrainStep", "pp": "1c", "sep": "1d",
+        assert got == {"mp": "DistributedTrainStep",
+                       "pp": "DistributedTrainStep", "sep": "1d",
                        "ep": "1e", "tensor_parallel": "TensorParallel",
-                       "pipeline_parallel": "1c", "segment_parallel": "1d"}
+                       "pipeline_parallel": "TensorParallel",
+                       "segment_parallel": "1d"}

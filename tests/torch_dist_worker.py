@@ -1,6 +1,8 @@
 """One rank of the port's multi-rank CPU tests (`tests/test_torch_collective.py`,
 `tests/test_torch_sharding.py`, `tests/test_torch_tensor_parallel.py`,
-whose cases are in `tests/torch_tp_cases.py`).
+whose cases are in `tests/torch_tp_cases.py`, and
+`tests/test_torch_pipeline.py`, whose cases are in
+`tests/torch_pp_cases.py`).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -408,8 +410,21 @@ def tensor_parallel_cases(rank, world, inp):
     return cases(rank, world, inp)
 
 
+def pipeline_cases(rank, world, inp):
+    from torch_pp_cases import pipeline_cases as cases
+
+    return cases(rank, world, inp)
+
+
+def pipeline_gate_cases(rank, world, inp):
+    from torch_pp_cases import gate_cases
+
+    return gate_cases(rank, world, inp)
+
+
 SUITES = {"collective": collective_cases, "sharding": sharding_cases,
-          "tensor_parallel": tensor_parallel_cases}
+          "tensor_parallel": tensor_parallel_cases,
+          "pipeline": pipeline_cases, "pipeline_gate": pipeline_gate_cases}
 
 
 def main():
