@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The port's data-parallel, ZeRO, tensor-parallel and pipelined step over
-several GPUs of one host (NCCL, one process per card).
+"""The port's data-parallel, ZeRO, tensor-parallel, pipelined,
+context-parallel and expert-parallel step over several GPUs of one host
+(NCCL, one process per card).
 
     python3 chip_ranks.py --ranks 4                # four cards
     python3 chip_ranks.py --ranks 4 --cpu          # four gloo processes, tiny sizes
@@ -39,8 +40,26 @@ Each rank runs, in order:
    other pp collectives of a step (`parallel.pipeline.PP_CALLS`) and the
    most microbatches each stage held in flight. This is where NCCL's
    matching of the schedule's sends and receives is tested.
+5. sep — the same gpt3_1p3b recipe with context_parallel: at 2 ranks a
+   mesh of sep=2, at 4 ranks sep=2 x mp=2 with sequence_parallel; each
+   rank's chunk of the sequence goes through the ring of parallel.ring.
+   The one-card reference is as in part 3. A warm-up step and three timed
+   steps, each loss within TRAIN_SHARDED_RTOL of the one-card losses, step
+   time, tokens/s, peak memory of each rank and the ring's hops and bytes
+   a step (parallel.ring.RING_CALLS). This is where NCCL's matching of the
+   ring's paired sends and receives is tested.
+6. ep — chip_smoke.py's gpt3_moe rung (8 experts, GShard top-2, width
+   1024, expert hidden 4096, 4 layers, vocabulary 32000, batch 8 x 1024)
+   with ep_axis="ep" on a mesh of ep=N, the batch over ("dp", "ep"), random
+   routing off (the ranks' generators would draw other uniforms than the
+   one card's). The one-card reference is the same rung without a mesh on
+   this rank's card. A warm-up step and three timed steps, each loss
+   within TRAIN_SHARDED_RTOL of the one-card losses, step time, tokens/s,
+   peak memory of each rank, and the all-to-all calls and bytes a step.
 
-Rank 0 prints one JSON line per part and a last line {"ok": ...}; the
+A part's peak memory is its own (`reset_peak` collects what the earlier
+parts left in reference cycles first). Rank 0 prints one JSON line per
+part and a last line {"ok": ...}; the
 process exits non-zero when a rank fails or a parity check does not hold.
 Each process group has a timeout of GROUP_TIMEOUT_S, and the launcher
 kills its ranks after RUN_TIMEOUT_S.
@@ -50,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import gc
 import json
 import math
 import os
@@ -63,6 +83,14 @@ LOSS_RTOL = 2e-4
 TRAIN_SHARDED_RTOL = 2e-3   # chip_smoke.py's: bf16 steps of one recipe
 PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 H, B = 256, 32
+
+
+def reset_peak(torch):
+    """Start a peak-memory window: first collect what earlier phases left
+    in reference cycles (a DistributedTrainStep and its model refer to each
+    other), so that the peak is this phase's own."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def _mlp(torch, device):
@@ -175,7 +203,7 @@ def gpt_step(torch, dist, world, device, cpu):
     losses = [step(ids, labels).item()]
     warm_s = time.perf_counter() - t0
     if not cpu:
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(torch)
     coll.reset_counters()
     sync()
     t0 = time.perf_counter()
@@ -236,7 +264,7 @@ def tp_step(torch, dist, world, device, cpu):
     def run(step):
         losses = [step(ids, labels).item()]
         if not cpu:
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak(torch)
         coll.reset_counters()
         sync()
         t0 = time.perf_counter()
@@ -316,7 +344,7 @@ def pp_step(torch, dist, world, device, cpu):
     def run(step):
         losses = [step(ids, labels).item()]
         if not cpu:
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak(torch)
         coll.reset_counters()
         calls = []
         sync()
@@ -366,6 +394,166 @@ def pp_step(torch, dist, world, device, cpu):
             "finite": all(math.isfinite(v) for v in losses)}
 
 
+def sep_step(torch, dist, world, device, cpu):
+    """Part 5: gpt3_1p3b with context_parallel over sep (and mp at 4)."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_paddle_tpu_state
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt3_1p3b,
+                                         gpt3_tiny)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ring
+
+    kw = dict(use_recompute=True, sequence_parallel=world == 4)
+    if cpu:
+        cfg, batch, seq = gpt3_tiny(**kw), 4, 64
+    else:
+        cfg = gpt3_1p3b(max_position_embeddings=2048, **kw)
+        batch, seq = 4, 2048
+    sync = torch.cuda.synchronize if not cpu else (lambda: None)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                          device=device)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                             device=device)
+    state = {k: v.cpu() for k, v in GPTForCausalLM(
+        cfg, device=device, dtype=torch.float32, seed=0).state_dict().items()}
+
+    def build(config):
+        model = GPTForCausalLM(config, device=device, dtype=torch.float32,
+                               seed=1)
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        crit = GPTPretrainingCriterion(config)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    moment_dtype="bfloat16")
+        return model, (lambda lg, lb: crit(lg, lb)), opt
+
+    def run(step):
+        losses = [step(ids, labels).item()]
+        if not cpu:
+            reset_peak(torch)
+        coll.reset_counters()
+        ring.RING_CALLS.clear()
+        sync()
+        t0 = time.perf_counter()
+        losses += [step(ids, labels).item() for _ in range(3)]
+        sync()
+        return losses, (time.perf_counter() - t0) / 3
+
+    dist.env.set_global_mesh(None)   # the one-card reference: no mesh
+    model, loss_fn, opt = build(cfg)
+    ref, ref_s = run(TrainStep(load_paddle_tpu_state(model, state), loss_fn,
+                               opt, amp_level="O2", amp_dtype="bfloat16"))
+    del model, opt
+    if not cpu:
+        torch.cuda.empty_cache()
+    cfg.context_parallel = True
+    shape = dict(sep=2) if world == 2 else dict(sep=2, mp=world // 2)
+    model, loss_fn, opt = build(cfg)
+    step = dist.DistributedTrainStep(
+        model, loss_fn, opt, mesh=dist.build_mesh(**shape), amp_level="O2",
+        amp_dtype="bfloat16")
+    load_paddle_tpu_state(model, state)
+    del state
+    losses, step_s = run(step)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    return {"part": "sep", "model": "gpt3_1p3b" if not cpu else "gpt3_tiny",
+            "mesh": dist.env.mesh_shape(step.mesh), "context_parallel": True,
+            "sequence_parallel": cfg.sequence_parallel, "batch": batch,
+            "seq": seq, "losses": losses, "one_card_losses": ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "step_s": step_s, "one_card_step_s": ref_s,
+            "tokens_per_s": batch * seq / step_s,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if not cpu else None),
+            "ring_calls_per_step": {k: v / 3 for k, v in
+                                    ring.RING_CALLS.items()},
+            "collective_calls_per_step": {k: v / 3 for k, v in coll.CALLS.items()},
+            "collective_bytes_per_step": {k: v / 3 for k, v in coll.BYTES.items()},
+            "failed": [] if rel <= TRAIN_SHARDED_RTOL else
+            [f"sep losses {losses} against one card's {ref}"],
+            "finite": all(math.isfinite(v) for v in losses)}
+
+
+def ep_step(torch, dist, world, device, cpu):
+    """Part 6: the gpt3_moe rung with its experts over ep = N."""
+    import numpy as np
+
+    import chip_smoke as smoke
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import moe_comm
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = dict(smoke.MOE_RUNG)
+    if cpu:
+        c.update(E=4, M=32, H=64, V=128, batch=4, seq=32)
+    tokens = c["batch"] * c["seq"]
+    gate = {"type": "gshard", "top_k": c["topk"], "random_routing": False}
+    sync = torch.cuda.synchronize if not cpu else (lambda: None)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, c["V"], (c["batch"], c["seq"])),
+                          device=device)
+    labels = torch.as_tensor(rng.integers(0, c["V"], (c["batch"], c["seq"])),
+                             device=device)
+
+    def run(step):
+        losses = [step(ids, labels).item()]
+        if not cpu:
+            reset_peak(torch)
+        coll.reset_counters()
+        moe_comm.reset()
+        sync()
+        t0 = time.perf_counter()
+        losses += [step(ids, labels).item() for _ in range(3)]
+        sync()
+        return losses, (time.perf_counter() - t0) / 3
+
+    rung = dict(smoke.MOE_RUNG)
+    smoke.MOE_RUNG.update(c)   # moe_decoder and moe_step read the rung
+    try:
+        dist.env.set_global_mesh(None)   # the one-card reference: no mesh
+        model = smoke.moe_decoder(torch, device, L=c["L"], gate=gate)
+        ref, ref_s = run(TrainStep(
+            model, lambda lg, lb: F.cross_entropy(lg.reshape(-1, c["V"]),
+                                                  lb.reshape(-1, 1)),
+            AdamW(learning_rate=1e-4, parameters=model.parameters()),
+            amp_level="O2", amp_dtype="bfloat16"))
+        del model
+        if not cpu:
+            torch.cuda.empty_cache()
+        model = smoke.moe_decoder(torch, device, L=c["L"], gate=gate,
+                                  ep_axis="ep")
+        step = smoke.moe_step(torch, model, "O2",
+                              mesh=dist.build_mesh(ep=world))
+        losses, step_s = run(step)
+    finally:
+        smoke.MOE_RUNG.update(rung)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    return {"part": "ep", "model": "gpt3_moe", "random_routing": False,
+            "mesh": dist.env.mesh_shape(step.mesh),
+            "a2a_chunks": model.moes[0].a2a_chunks,
+            "experts_a_rank": model.moes[0].experts.w1.shape[0],
+            "losses": losses, "one_card_losses": ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "step_s": step_s, "one_card_step_s": ref_s,
+            "tokens_per_s": tokens / step_s,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if not cpu else None),
+            "moe_comm_per_step": {k: {f: v[f] / 3 for f in ("bytes", "calls")}
+                                  for k, v in moe_comm.a2a_totals().items()},
+            "collective_calls_per_step": {k: v / 3 for k, v in coll.CALLS.items()},
+            "collective_bytes_per_step": {k: v / 3 for k, v in coll.BYTES.items()},
+            "failed": [] if rel <= TRAIN_SHARDED_RTOL else
+            [f"ep losses {losses} against one card's {ref}"],
+            "finite": all(math.isfinite(v) for v in losses)}
+
+
 def rank_main(rank, world, port, cpu, out_dir):
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
@@ -385,7 +573,7 @@ def rank_main(rank, world, port, cpu, out_dir):
     try:
         parts = [parity(torch, dist, world, device)]
         torch.backends.cuda.matmul.allow_tf32 = True
-        for fn in (gpt_step, tp_step, pp_step):
+        for fn in (gpt_step, tp_step, pp_step, sep_step, ep_step):
             parts.append(fn(torch, dist, world, device, cpu))
         gathered = []
         dist.all_gather_object(gathered, parts)
@@ -449,7 +637,7 @@ def main():
         for part in parts:
             print(f"[{card}] rank {r} " + json.dumps(part), flush=True)
             failed += [f"rank {r}: {x}" for x in part.get("failed", [])]
-            if part["part"] in ("step", "tp", "pp") and not part["finite"]:
+            if part["part"] != "parity" and not part["finite"]:
                 failed.append(f"rank {r}: non-finite loss")
     for i, part in enumerate(ranks[0]):
         if part["part"] == "parity":

@@ -216,6 +216,21 @@ Phases; any failure raises and the script exits non-zero:
                 tokens/s, MFU, peak memory, the most microbatches held in
                 flight, the collective counts and torch.profiler over one
                 step.
+6e. train context-parallel — phase 5's step with context_parallel through
+                the sep code of DistributedTrainStep on a 1-rank NCCL group
+                (build_mesh(sep=1)): the inputs and labels cut over the one
+                sep rank, the positions global, every attention through
+                the ring of parallel.ring (its block update is plain
+                torch in f32, as the reference's is jnp; the ring makes no
+                hop at sep 1). Phase 5's weights and tokens; each loss
+                within TRAIN_SHARDED_RTOL of phase 5's, per step phase 5's
+                norm launches and no flash launch. Step time, tokens/s,
+                MFU, peak memory, the ring's hops and torch.profiler over
+                one step. Then ring_attention alone at [4, 2048, 16, 128]
+                bf16, causal, forward and backward through autograd,
+                against the dense attention in f32 on the same inputs
+                (RING_TOL of each tensor's largest entry), its time beside
+                the same attention through the flash kernels.
 7. llama serve — llama_7b at full width and depth in bf16, random weights
                 from a seed, through the paged engine (16 rows, 512 tokens,
                 page size 32) over the 12-request mix: RoPE (prefills +
@@ -244,6 +259,20 @@ Phases; any failure raises and the script exits non-zero:
                 forward, two dlhs), 4 LayerNorm forwards and 4 dx, and no
                 attention launch; gradients must reach the embedding,
                 every gate and every expert's w1 and w2.
+11b. moe train expert-parallel — phase 11's rung with ep_axis="ep" and
+                batch_axes ("dp", "ep") through DistributedTrainStep on a
+                1-rank NCCL group (build_mesh(ep=1)): each MoE layer routed
+                over the one token rank, its experts cut over the one ep
+                rank, the buffer exchanged in 2 row chunks by all-to-all
+                (dispatch and combine, and their backward) around the
+                grouped GEMMs. Phase 11's weights, routing seeds and
+                tokens; the losses against phase 11's (equal bit for bit,
+                or each within TRAIN_SHARDED_RTOL), per step 32 grouped
+                GEMMs (two a chunk forward, two dlhs, 2 chunks, 4 layers),
+                4 norm forwards and 4 dx, and each step's all-to-alls
+                exactly 4 x 2 chunks x 4 layers. Step time, tokens/s, peak
+                memory, the all-to-all calls and bytes of a step and
+                torch.profiler over one step.
 12. moe train hold — phase 6 at the rung's widths (2 layers, random
                 routing off on both sides).
 13. varlen    — nn.functional.flash_attn_unpadded forward and backward at
@@ -253,6 +282,9 @@ Phases; any failure raises and the script exits non-zero:
                 flash_attn_varlen_qkvpacked(varlen_padded=False). Each
                 entry's forward and forward + backward are timed eagerly.
 
+A phase's peak device memory is its own: `reset_peak` collects what the
+earlier phases left in reference cycles before the window opens.
+
 The second-to-last line is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Every number printed sits beside the
 card's name and power limit as nvidia-smi reports them.
@@ -261,6 +293,7 @@ card's name and power limit as nvidia-smi reports them.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -352,6 +385,11 @@ TRAIN_HOLD_LOSS_RTOL = 1e-4
 # the sharded step (stage 3, offload, world size 1) against phase 5's step:
 # the same bf16 arithmetic, its losses within a bf16 step's reach
 TRAIN_SHARDED_RTOL = 2e-3
+# The ring's bf16 outputs and gradients against the dense attention in f32
+# on the same bf16 inputs: both compute in f32, and the ring rounds each
+# output once to bf16 (2^-8 relative, at most 2^-7 of the tensor's largest
+# entry for entries below it).
+RING_TOL = 2 ** -7
 # the offloaded states must come off the card's peak, nearly all of them
 OFFLOAD_PEAK_SHARE = 0.9
 TRAIN_HOLD_GRAD_TOL = 1e-3
@@ -402,6 +440,14 @@ def _graph_ms(calls, reps):
         end.synchronize()
         times.append(start.elapsed_time(end) / len(calls))
     return float(np.median(times))
+
+
+def reset_peak(torch):
+    """Start a peak-memory window: first collect what earlier phases left
+    in reference cycles (a DistributedTrainStep and its model refer to each
+    other), so that the peak is this phase's own."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def time_ms(fn, reps=15, inner=20):
@@ -3435,7 +3481,7 @@ def train(card, torch, which):
         raise AssertionError(f"train {which}: gradient norms {seen}")
 
     _zero_counters()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [step(ids, labels) for _ in range(timed)]
@@ -3651,7 +3697,7 @@ def train_sharded(card, torch, train_line):
 
         _zero_counters()
         coll.reset_counters()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(torch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         calls = []
@@ -3799,7 +3845,7 @@ def train_tensor_parallel(card, torch, train_line):
 
         _zero_counters()
         coll.reset_counters()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(torch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         calls = []
@@ -3919,7 +3965,7 @@ def train_pipeline(card, torch, train_line):
 
         _zero_counters()
         coll.reset_counters()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(torch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         calls = []
@@ -3979,6 +4025,149 @@ def train_pipeline(card, torch, train_line):
 
 
 # --------------------------------------------------------------------------- #
+# phase 6e: the context-parallel step (ring attention) at world size 1
+# --------------------------------------------------------------------------- #
+
+
+def train_context_parallel(card, torch, train_line):
+    """Phase 5's gpt3_1p3b step with `context_parallel` through the sep
+    code of `DistributedTrainStep` on a 1-rank NCCL group
+    (`build_mesh(sep=1)`): every attention through `parallel.ring`, the
+    sequence cut over the one sep rank. Phase 5's weights (seed 0) and
+    tokens: a warm-up step, then three timed steps with the kernel and
+    ring counters zeroed just before and read just after. Each loss within
+    TRAIN_SHARDED_RTOL of phase 5's, phase 5's norm launches per step and
+    no flash launch. Then `ring_attention_alone`."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.parallel import ring
+
+    cfg, per_mb, _, recipe_text = _train_config("gpt3_1p3b")
+    cfg.context_parallel = True
+    per_step = {k: v for k, v in per_mb.items() if k.startswith("fused_norm")}
+    B, S, timed = 4, 2048, 3
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1")
+    pdist.init_parallel_env()
+    try:
+        mesh = pdist.build_mesh(sep=1)
+        t0 = time.perf_counter()
+        model, _, step = _train_setup(torch, cfg, "cuda", torch.float32, 0,
+                                      "gpt3_1p3b", mesh=mesh)
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              device="cuda")
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses = [step(ids, labels).item()]
+        warm_s = time.perf_counter() - t0
+
+        _zero_counters()
+        ring.RING_CALLS.clear()
+        reset_peak(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(ids, labels).item() for _ in range(timed)]
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = total_s / timed
+        flops = decoder_flops(cfg, B, S)
+        ref = train_line["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        want = _expected(**{k: v * timed for k, v in per_step.items()})
+        line = {
+            "model": "gpt3_1p3b", "recipe": recipe_text,
+            "context_parallel": True, "mesh": pdist.env.mesh_shape(mesh),
+            "batch": B, "seq": S, "built_s": built_s,
+            "warmup_step_s": warm_s, "losses": losses, "train_losses": ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "timed_steps": timed, "step_s": step_s,
+            "train_step_s": train_line["step_s"],
+            "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_BF16,
+            "peak_memory_bytes": peak,
+            "train_peak_memory_bytes": train_line["peak_memory_bytes"],
+            "ring_calls": dict(ring.RING_CALLS),
+            "launches": launches, "launches_per_step": per_step}
+        say(card, "train_context_parallel gpt3_1p3b (smoke run, not a "
+            "benchmark) " + json.dumps(line))
+        if rel > TRAIN_SHARDED_RTOL:
+            raise AssertionError(f"train_context_parallel: losses {losses} "
+                                 f"against phase 5's {ref}")
+        if launches != want:
+            raise AssertionError(f"train_context_parallel: kernel launches "
+                                 f"{launches}, expected {want}")
+        if ring.RING_CALLS:
+            raise AssertionError(f"train_context_parallel: a ring of one "
+                                 f"hopped {ring.RING_CALLS}")
+        profile_step(card, torch, lambda: step(ids, labels),
+                     "train_context_parallel gpt3_1p3b step")
+        del step, model
+        torch.cuda.empty_cache()
+        ring_attention_alone(card, torch, pdist.env.mesh_group(mesh, "sep"))
+        return launches
+    finally:
+        pdist.destroy_process_group()
+
+
+def ring_attention_alone(card, torch, group):
+    """`ring_attention` over `group` (sep 1) at the step's shape, [4, 2048,
+    16, 128] bf16, causal: the output and dQ, dK, dV through autograd
+    against the dense attention in f32 on the same inputs (RING_TOL of
+    each tensor's largest entry), and the forward and forward + backward
+    times (eager, CUDA events) beside those of the same attention through
+    the flash kernels (rows 1-3 of PERF.md's table)."""
+    from paddle_tpu_torch.nn.functional.flash_attention import _ref_attention
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.parallel import ring
+
+    B, S, H, D = 4, 2048, 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+
+    def grads(fn, dtype):
+        xs = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        out = fn(*xs)
+        return (out, *torch.autograd.grad(out, xs, do.to(dtype)))
+
+    got = grads(lambda a, b, c: ring.ring_attention(a, b, c, group), q.dtype)
+    ref = grads(lambda a, b, c: _ref_attention(a, b, c, causal=True),
+                torch.float32)
+    errs = {}
+    for name, g, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        errs[name] = ((g.float() - r).abs().max() / r.abs().max()).item()
+    del got, ref
+    torch.cuda.empty_cache()
+
+    def fwd_bwd(fn):
+        def run():
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fn(*xs), xs, do)
+        return run
+
+    ring_fn = lambda a, b, c: ring.ring_attention(a, b, c, group)  # noqa: E731
+    flash_fn = lambda a, b, c: flash_attention_fwd(a, b, c, causal=True)  # noqa: E731
+    times = {
+        "ring_fwd_ms": eager_ms(lambda: ring_fn(q, k, v), reps=5, inner=3),
+        "ring_fwd_bwd_ms": eager_ms(fwd_bwd(ring_fn), reps=5, inner=3),
+        "flash_fwd_ms": eager_ms(lambda: flash_fn(q, k, v), reps=5, inner=3),
+        "flash_fwd_bwd_ms": eager_ms(fwd_bwd(flash_fn), reps=5, inner=3)}
+    line = {"shape": [B, S, H, D], "dtype": "bfloat16", "causal": True,
+            "sep": 1, "max_err_share_of_max": errs, "tol": RING_TOL, **times,
+            "ring_over_flash_fwd_bwd": times["ring_fwd_bwd_ms"]
+            / times["flash_fwd_bwd_ms"]}
+    say(card, "ring_attention " + json.dumps(line))
+    bad = {k: e for k, e in errs.items() if not e <= RING_TOL}
+    if bad:
+        raise AssertionError(f"ring_attention: errors {bad} above {RING_TOL} "
+                             "of the dense attention's largest entry")
+
+
+# --------------------------------------------------------------------------- #
 # phases 11-12: bench.py's gpt3_moe rung
 # --------------------------------------------------------------------------- #
 
@@ -3987,11 +4176,13 @@ def train_pipeline(card, torch, train_line):
 MOE_RUNG = dict(E=8, topk=2, M=1024, H=4096, L=4, V=32000, batch=8, seq=1024)
 
 
-def moe_decoder(torch, device, L=MOE_RUNG["L"], gate=None, seed=0):
+def moe_decoder(torch, device, L=MOE_RUNG["L"], gate=None, seed=0,
+                ep_axis=None):
     """bench.py's MoEDecoder (:533-549) at the rung's widths: a token
     embedding, L pre-LN residual MoE blocks (ExpertFFN, a GShard top-2
     gate; attention-free) and a Linear head. Weights from one generator
-    made from `seed` on `device`; layer i's gate routes with seed + i."""
+    made from `seed` on `device`; layer i's gate routes with seed + i; the
+    experts cut over `ep_axis` under a mesh."""
     from paddle_tpu_torch import nn as pnn
     from paddle_tpu_torch.incubate.distributed.models.moe import (ExpertFFN,
                                                                   MoELayer)
@@ -4007,10 +4198,12 @@ def moe_decoder(torch, device, L=MOE_RUNG["L"], gate=None, seed=0):
             self.norms = pnn.LayerList([pnn.LayerNorm(M, device=device)
                                         for _ in range(L)])
             self.moes = pnn.LayerList([
-                MoELayer(M, ExpertFFN(E, M, H, generator=gen, device=device),
+                MoELayer(M, ExpertFFN(E, M, H, ep_axis=ep_axis, generator=gen,
+                                      device=device),
                          gate=dict(gate or {"type": "gshard",
                                             "top_k": c["topk"]}),
-                         seed=seed + i, generator=gen, device=device)
+                         ep_axis=ep_axis, seed=seed + i, generator=gen,
+                         device=device)
                 for i in range(L)])
             self.head = pnn.Linear(M, V, generator=gen, device=device)
 
@@ -4023,10 +4216,11 @@ def moe_decoder(torch, device, L=MOE_RUNG["L"], gate=None, seed=0):
     return MoEDecoder()
 
 
-def moe_step(torch, model, amp_level):
+def moe_step(torch, model, amp_level, mesh=None):
     """bench.py's step of the rung: AdamW lr 1e-4 (f32 moments), cross
-    entropy over the flattened logits, DistributedTrainStep with no mesh
-    (one device: ep = 1, so batch_axes changes nothing)."""
+    entropy over the flattened logits, DistributedTrainStep with the batch
+    over ("dp", "ep"): with no mesh one device, where batch_axes changes
+    nothing."""
     from paddle_tpu_torch.distributed import DistributedTrainStep
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import AdamW
@@ -4035,7 +4229,7 @@ def moe_step(torch, model, amp_level):
     return DistributedTrainStep(
         model, lambda lg, lb: F.cross_entropy(lg.reshape(-1, V),
                                               lb.reshape(-1, 1)),
-        AdamW(learning_rate=1e-4, parameters=model.parameters()), mesh=None,
+        AdamW(learning_rate=1e-4, parameters=model.parameters()), mesh=mesh,
         batch_axes=("dp", "ep"), amp_level=amp_level, amp_dtype="bfloat16")
 
 
@@ -4098,7 +4292,7 @@ def train_moe(card, torch):
 
     per_step = {"grouped_gemm": 4 * L, "fused_norm": L, "fused_norm_dx": L}
     _zero_counters()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [step(ids, labels) for _ in range(timed)]
@@ -4114,21 +4308,115 @@ def train_moe(card, torch):
                              f"{timed} steps, expected {want}")
     step_s = total_s / timed
     flops = moe_flops()
+    peak = torch.cuda.max_memory_allocated()
     say(card, "train gpt3_moe (smoke run, not a benchmark) " + json.dumps({
         "model": "gpt3_moe", "recipe": "f32 params and AdamW moments, AMP O2 "
         "bf16, GShard top-2 with random routing, sorted fast path",
         **MOE_RUNG, "parameters": n_params, "losses": losses,
         "warmup_step_s": warm_s, "timed_steps": timed, "step_s": step_s,
         "tokens_per_s": B * S / step_s, "flops_per_step": flops,
-        "mfu": flops / step_s / PEAK_BF16,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "grad_norms_watched": seen, "launches": launches,
-        "launches_per_step": per_step}))
+        "mfu": flops / step_s / PEAK_BF16, "peak_memory_gb": peak / 1e9,
+        "peak_memory_bytes": peak, "grad_norms_watched": seen,
+        "launches": launches, "launches_per_step": per_step}))
     profile_step(card, torch, lambda: step(ids, labels), "train gpt3_moe step")
     del step, model, named
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"losses": losses, "step_s": step_s,
+                      "peak_memory_bytes": peak}
+
+
+def train_moe_expert_parallel(card, torch, moe_line):
+    """Phase 11's rung with `ep_axis="ep"` through `DistributedTrainStep`
+    over a 1-rank NCCL mesh (`build_mesh(ep=1)`, batch_axes ("dp", "ep")):
+    each MoE layer routed over the one token rank and its experts cut over
+    the one ep rank, the expert buffer exchanged by all-to-all in the
+    layers' `a2a_chunks` row chunks (2, the default). Phase 11's weights, routing seeds and tokens
+    (the same warm-up step first, so that random routing draws alike): the
+    losses against phase 11's, bit for bit or within TRAIN_SHARDED_RTOL;
+    per step 4 x chunks grouped GEMMs a layer (two forward, two dlhs), the
+    norm launches of phase 11, and 4 x chunks all-to-alls a layer."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed import moe_comm
+
+    c = MOE_RUNG
+    B, S, L, timed = c["batch"], c["seq"], c["L"], 3
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1")
+    pdist.init_parallel_env()
+    try:
+        mesh = pdist.build_mesh(ep=1)
+        t0 = time.perf_counter()
+        model = moe_decoder(torch, "cuda", ep_axis="ep")
+        ch = model.moes[0].a2a_chunks
+        step = moe_step(torch, model, "O2", mesh=mesh)
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, c["V"], (B, S)), device="cuda")
+        labels = torch.as_tensor(rng.integers(0, c["V"], (B, S)),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses = [step(ids, labels).item()]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+
+        per_step = {"grouped_gemm": 4 * ch * L, "fused_norm": L,
+                    "fused_norm_dx": L}
+        _zero_counters()
+        moe_comm.reset()
+        coll.reset_counters()
+        reset_peak(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls = []
+        for _ in range(timed):
+            before = coll.CALLS.get("all_to_all", 0)
+            losses.append(step(ids, labels).item())
+            calls.append(coll.CALLS.get("all_to_all", 0) - before)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = total_s / timed
+        want = _expected(**{k: v * timed for k, v in per_step.items()})
+        ref = moe_line["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        line = {
+            "model": "gpt3_moe", "ep_axis": "ep", "a2a_chunks": ch,
+            "mesh": pdist.env.mesh_shape(mesh), **MOE_RUNG,
+            "built_s": built_s, "warmup_step_s": warm_s, "losses": losses,
+            "moe_losses": ref, "bit_identical": losses == ref,
+            "max_loss_rel_diff": rel, "loss_rtol": TRAIN_SHARDED_RTOL,
+            "timed_steps": timed, "step_s": step_s,
+            "moe_step_s": moe_line["step_s"], "tokens_per_s": B * S / step_s,
+            "mfu": moe_flops() / step_s / PEAK_BF16,
+            "peak_memory_bytes": peak,
+            "moe_peak_memory_bytes": moe_line["peak_memory_bytes"],
+            "all_to_all_per_step": calls,
+            "all_to_all_bytes_per_step": coll.BYTES.get("all_to_all", 0)
+            / timed,
+            "moe_comm": moe_comm.a2a_totals(),
+            "collective_calls": dict(coll.CALLS),
+            "launches": launches, "launches_per_step": per_step}
+        say(card, "train_moe_expert_parallel gpt3_moe (smoke run, not a "
+            "benchmark) " + json.dumps(line))
+        if rel > TRAIN_SHARDED_RTOL:
+            raise AssertionError(f"train_moe_expert_parallel: losses {losses} "
+                                 f"against phase 11's {ref}")
+        if launches != want:
+            raise AssertionError(f"train_moe_expert_parallel: kernel launches "
+                                 f"{launches}, expected {want}")
+        if any(n != 4 * ch * L for n in calls):
+            raise AssertionError(f"train_moe_expert_parallel: all-to-alls "
+                                 f"{calls} a step, expected {4 * ch * L}")
+        profile_step(card, torch, lambda: step(ids, labels),
+                     "train_moe_expert_parallel gpt3_moe step")
+        del step, model
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        pdist.destroy_process_group()
 
 
 def moe_train_hold(card, torch):
@@ -4304,11 +4592,13 @@ def main():
     sharded_launches = train_sharded(card, torch, train_line)
     tp_launches = train_tensor_parallel(card, torch, train_line)
     pipe_launches = train_pipeline(card, torch, train_line)
+    cp_launches = train_context_parallel(card, torch, train_line)
     llama_serve_launches = serve(card, torch, "llama_7b")
     hold(card, torch, "llama_7b")
     llama_train_launches, _ = train(card, torch, "llama_7bshape")
     train_hold(card, torch, "llama_7bshape")
-    moe_launches = train_moe(card, torch)
+    moe_launches, moe_line = train_moe(card, torch)
+    ep_launches = train_moe_expert_parallel(card, torch, moe_line)
     moe_train_hold(card, torch)
     varlen_launches = varlen_entry(card, torch)
 
@@ -4316,8 +4606,8 @@ def main():
     # driven with the counters zeroed just before and read just after
     paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
              train_launches, sharded_launches, tp_launches, pipe_launches,
-             llama_serve_launches,
-             llama_train_launches, moe_launches, varlen_launches)
+             cp_launches, llama_serve_launches,
+             llama_train_launches, moe_launches, ep_launches, varlen_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"

@@ -14,7 +14,8 @@ key and on a shape mismatch, never silently skipping one.
 Into a model cut for tensor parallelism (`fleet.layers.mpu.shard_model`,
 which a `DistributedTrainStep` over a mesh calls) each full array of an
 mp-cut parameter is sliced to this rank's part (`p.mp_part`: dim, rank,
-ranks), into a pipelined model cut over pp each full [L, ...] stack to
+ranks), of an expert shard to this rank's E / n experts (`p.ep_part`, the
+same triple, set when the step cuts a `MoELayer` over ep), into a pipelined model cut over pp each full [L, ...] stack to
 this rank's stage rows (`p.pp_part`: stages, stage, chunks) before that,
 and into a stage-3 model to this rank's sharding shard after both, so a
 full state loads on every rank as it stands. A layered GPT state goes into
@@ -43,16 +44,17 @@ def _to_tensor(arr) -> torch.Tensor:
 
 def _mp_part(t, p):
     """This rank's part of a full tensor `t` of parameter p: its stage's
-    rows of a pipelined model's stack, then its mp part."""
+    rows of a pipelined model's stack, then its mp or ep part."""
     stage = getattr(p, "pp_part", None)
     if stage is not None:
         t = stage_rows(t, *stage)
-    part = getattr(p, "mp_part", None)
-    if part is None:
-        return t
-    dim, rank, n = part
-    k = t.shape[dim] // n
-    return t.narrow(dim, rank * k, k)
+    for attr in ("mp_part", "ep_part"):
+        part = getattr(p, attr, None)
+        if part is not None:
+            dim, rank, n = part
+            k = t.shape[dim] // n
+            t = t.narrow(dim, rank * k, k)
+    return t
 
 
 def _local(model, name, t, p):

@@ -3,12 +3,14 @@ the process group and mesh (`env`), Paddle's collectives on
 `torch.distributed` (`collective`, with the autograd functions of the
 model-parallel region), the fleet facade with the tensor- and
 sequence-parallel layers, `DataParallel`, the group-sharded API and
-`DistributedTrainStep` (data, tensor, sequence and pipeline parallelism
-and ZeRO stages 1-3 with offload; the pipeline schedules are in
-`paddle_tpu_torch.parallel`). One process per rank: `spawn` starts
+`DistributedTrainStep` (data, tensor, sequence, pipeline, segment and
+expert parallelism and ZeRO stages 1-3 with offload; the pipeline schedules
+and ring attention are in `paddle_tpu_torch.parallel`), the MoE exchanges
+`utils.global_scatter` / `global_gather` and the all-to-all record
+`moe_comm`. One process per rank: `spawn` starts
 `nprocs` of them."""
 
-from . import collective, env, fleet, parallel, sharding
+from . import collective, env, fleet, moe_comm, parallel, sharding, utils
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
                          all_reduce, alltoall, alltoall_single, barrier,
                          batch_isend_irecv, broadcast, broadcast_object_list,
@@ -28,10 +30,10 @@ __all__ = [
     "broadcast_object_list", "build_mesh", "collective",
     "destroy_process_group", "env", "fleet", "full_state_dict", "get_group",
     "get_rank", "get_world_size", "group_sharded_parallel",
-    "init_parallel_env", "irecv", "is_initialized", "isend", "new_group",
-    "parallel", "recv", "reduce", "reduce_scatter",
+    "init_parallel_env", "irecv", "is_initialized", "isend", "moe_comm",
+    "new_group", "parallel", "recv", "reduce", "reduce_scatter",
     "save_group_sharded_model", "scatter", "scatter_object_list", "send",
-    "sharding", "spawn", "wait",
+    "sharding", "spawn", "utils", "wait",
 ]
 
 

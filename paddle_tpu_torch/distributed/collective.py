@@ -378,6 +378,13 @@ def _all_reduce(t, pg, async_op=False, op=dist.ReduceOp.SUM):
     return dist.all_reduce(t, op=op, group=pg, async_op=async_op)
 
 
+def _all_to_all(out, inp, pg, async_op=False):
+    """out [n * k] <- block r of every rank r's inp [n * k] (equal
+    splits), in group order."""
+    _record("all_to_all", inp)
+    return dist.all_to_all_single(out, inp, group=pg, async_op=async_op)
+
+
 # -- the model-parallel region: autograd functions over a process group ----- #
 
 def _dim(x, dim):

@@ -19,7 +19,10 @@ and gloo when the caller asks for the CPU. A rank on `cuda` binds
 `build_mesh` also builds the groups over two dims that the step and the
 topology read: (dp, sharding), the batch axes, and (dp, sep). Every rank
 must call it, in the same order, as it must every `new_group`. The mp
-group of a mesh is `mesh_group(mesh, "mp")`.
+group of a mesh is `mesh_group(mesh, "mp")`; the group over any other set
+of dims (the step's token axes, e.g. (dp, sharding, sep) or (dp, ep)) is
+made on first use by `mesh_group(mesh, axes)`, which every rank must then
+call at the same point, as the step's constructor does.
 
 `PartitionSpec` stands for the reference's `jax.sharding.PartitionSpec`
 in `DistributedTrainStep`'s `input_specs` / `label_specs`: a tuple with
@@ -180,6 +183,8 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, ep=1):
         raise ValueError(f"mesh {'x'.join(map(str, shape))} = {total} ranks, "
                          f"the world has {dist.get_world_size()}")
     mesh = init_device_mesh(device().type, shape, mesh_dim_names=AXIS_ORDER)
+    for key in [k for k in _fused if k[0] == id(mesh)]:
+        del _fused[key]   # a freed mesh's groups, its id reused
     for axes in FUSED_AXES:
         _fused[(id(mesh), axes)] = _fuse(mesh, axes)
     set_global_mesh(mesh)
@@ -203,11 +208,18 @@ def _fuse(mesh, axes):
 
 
 def mesh_group(mesh, axes):
-    """The torch ProcessGroup of this rank over one dim (a name) or the
-    fused dims of FUSED_AXES (a tuple)."""
+    """The torch ProcessGroup of this rank over one dim (a name) or over
+    several (a tuple, in AXIS_ORDER: one of FUSED_AXES, or made here on
+    first use, a collective call of every rank)."""
     if isinstance(axes, str):
         return mesh.get_group(axes)
-    return _fused[(id(mesh), tuple(axes))]
+    axes = tuple(a for a in AXIS_ORDER if a in axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _fused:
+        _fused[key] = _fuse(mesh, axes)
+    return _fused[key]
 
 
 def mesh_shape(mesh=None) -> dict:

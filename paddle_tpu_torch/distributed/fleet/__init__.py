@@ -4,17 +4,20 @@
 `distributed_model` wraps the model by parallel mode, and
 `distributed_optimizer` wraps the optimizer in `HybridParallelOptimizer`.
 
-Data, sharding, tensor and pipeline parallelism are ported. The first two
-wrap the model in `DataParallel`, over the dp group and over the (dp,
-sharding) group, whose ranks each take a part of the batch; tensor
+Data, sharding, segment, tensor and pipeline parallelism are ported. The
+first two wrap the model in `DataParallel`, over the dp group and over the
+(dp, sharding) group, whose ranks each take a part of the batch; segment
+parallelism (a sep degree above 1 with mp 1) wraps it in
+`meta_parallel.SegmentParallel`, the `DataParallel` of the (dp, sep)
+group, whose ranks each take their rows and their chunk of the sequence;
+tensor
 parallelism (a topology whose mp degree is above 1) wraps it in
 `meta_parallel.TensorParallel`, which cuts it over the mp group; pipeline
 parallelism (pp degree above 1) wraps a `meta_parallel.PipelineLayer` in
 `meta_parallel.PipelineParallel`, which cuts it over the mp group as
 `TensorParallel` does and whose `train_batch` reads the strategy's
 `pp_configs` and averages over the batch ranks, and any other model in
-`TensorParallel`, as the reference (:78-82). Segment parallelism raises
-NotImplementedError naming its ROADMAP queue A item (1d).
+`TensorParallel`, as the reference (:78-82).
 """
 
 from __future__ import annotations
@@ -27,10 +30,6 @@ __all__ = ["CommunicateTopology", "DistributedStrategy",
            "HybridCommunicateGroup", "distributed_model",
            "distributed_optimizer", "get_hybrid_communicate_group", "init",
            "is_initialized", "worker_index", "worker_num"]
-
-_UNPORTED_MODES = {
-    "segment_parallel": "segment parallelism is ported with ROADMAP queue A item 1d",
-}
 
 _fleet_state = {"initialized": False, "strategy": None, "hcg": None}
 
@@ -67,15 +66,16 @@ def worker_num():
 def distributed_model(model):
     """reference :61 (fleet/model.py:135-185)."""
     from ..parallel import DataParallel
-    from .meta_parallel import PipelineLayer, PipelineParallel, TensorParallel
+    from .meta_parallel import (PipelineLayer, PipelineParallel,
+                                SegmentParallel, TensorParallel)
 
     hcg = _fleet_state["hcg"]
     if hcg is None:
         raise RuntimeError("call fleet.init() first")
     mode = hcg.get_parallel_mode()
     strategy = _fleet_state["strategy"]
-    if mode in _UNPORTED_MODES:
-        raise NotImplementedError(_UNPORTED_MODES[mode])
+    if mode == "segment_parallel":
+        return SegmentParallel(model, hcg, strategy)
     if mode == "pipeline_parallel" and isinstance(model, PipelineLayer):
         return PipelineParallel(model, hcg, strategy)
     if mode in ("tensor_parallel", "pipeline_parallel"):

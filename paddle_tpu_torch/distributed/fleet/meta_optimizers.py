@@ -6,7 +6,11 @@ hybrid-parallel loop: a `ClipGradByGlobalNorm` becomes
 `_HybridParallelClipGrad` (:28), whose squared sum is reduced over the
 ranks that hold distinct parts of the parameters (the mp group for a
 parameter marked `is_distributed`, the pp group for the stages' disjoint
-parameters), and `step()` updates a parameter listed twice once.
+parameters), and `step()` updates a parameter listed twice once. Over sep
+nothing is added: no parameter is cut over it, and the wrappers
+(`SegmentParallel`, `TensorParallel`) have averaged every gradient over
+the (dp, sep) ranks in the backward, so none is partial when the clip
+reads it.
 `DygraphShardingOptimizer` (:178) marks the optimizer for sharding stage 1,
 which `DistributedTrainStep` runs. A step builds on the inner optimizer
 (`_inner_opt`), whose clip is the wrapped one.

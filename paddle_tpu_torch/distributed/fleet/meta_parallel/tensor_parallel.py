@@ -5,9 +5,10 @@ fleet/__init__.py:84-85).
 `TensorParallel(model, hcg)` cuts the model's tensor-parallel layers over
 the topology's mp group (`fleet.layers.mpu.shard_model`), broadcasts every
 parameter that is not cut, and every buffer, from the mp group's first
-rank, and is then the `DataParallel` of the batch ranks (dp x sharding):
-the parameters broadcast over them and each gradient averaged over them in
-the backward. An eager loop (`loss.backward(); opt.step()`) so trains over
+rank, and is then the `DataParallel` of the batch ranks (dp x sharding,
+and sep for a `context_parallel` model, whose ranks feed their chunks of
+the sequence): the parameters broadcast over them and each gradient
+averaged over them in the backward. An eager loop (`loss.backward(); opt.step()`) so trains over
 the mesh; a sequence-parallel model's loop also calls
 `register_sequence_parallel_allreduce_hooks`.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ... import collective as C
+from ... import env as _env
 from ...parallel import DataParallel
 from ..layers.mpu.mp_layers import is_distributed, shard_model
 
@@ -38,6 +40,9 @@ def cut_over_mp(layers, hcg):
 class TensorParallel(DataParallel):
     def __init__(self, layers, hcg, strategy=None):
         cut_over_mp(layers, hcg)
-        super().__init__(layers, strategy,
-                         group=hcg.get_dp_sharding_parallel_group())
+        group = hcg.get_dp_sharding_parallel_group()
+        if getattr(getattr(layers, "config", None), "context_parallel", False):
+            axes = ("dp", "sharding", "sep")
+            group = C.Group(_env.mesh_group(hcg.mesh, axes), axis_names=axes)
+        super().__init__(layers, strategy, group=group)
         self._hcg = hcg

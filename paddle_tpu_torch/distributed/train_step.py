@@ -11,23 +11,33 @@ wrap the model in DDP or FSDP: the port's kernels are autograd Functions
 that must see plain tensors, and the shards follow the reference's
 `fsdp_spec`, so that shards and state line up name for name.
 
-- **Batch.** Each input is split along its first dim over the (dp,
-  sharding) ranks (`_batch_spec` :328-335) and replicated over mp; an
-  input that does not divide is taken whole by every rank.
+- **Batch.** Each input is split along its first dim over the batch ranks
+  (`_batch_spec` :328-335): the ranks of `batch_axes`, any of dp,
+  sharding and ep (the first the slowest, as a PartitionSpec of them
+  orders them; dp and sharding must be among them when above 1), and
+  replicated over the others; an input that does not divide is taken
+  whole by every rank.
   `input_specs` / `label_specs` give, per input, how it is cut instead:
   the reference passes `PartitionSpec`s, which the port cannot import, so
   a spec here is a tuple with one entry per leading dim, each None
   (whole), an axis name or a tuple of axis names (cut over their product,
   the first the slowest), as `env.PartitionSpec` builds it; None or ()
   replicates the input. A cut must divide.
+- **Segment parallelism.** For a model whose config has `context_parallel`
+  the step also cuts dim 1 (the sequence) of every input of two or more
+  dims contiguously over the mesh's sep ranks (where a spec leaves dim 1
+  whole), and such an input must divide over both; the model's attention runs the ring over sep
+  (`parallel.ring`). Any other model is whole on every sep rank, as the
+  reference replicates it over sep. The token axes are the batch axes, and
+  sep when the sequence is cut: the ranks whose tokens differ.
 - **Loss.** The step's loss and gradients are those of `loss_fn` over the
   global batch, as the reference's (one `loss_fn` over the global arrays,
   `jit/__init__.py:322`). Each batch rank r runs `loss_fn` on its rows,
   giving loss_r, while `nn.functional.loss.record_reductions` collects how
   the port's reducing losses reduced (`cross_entropy`,
   `GPTPretrainingCriterion`): a mean over c_r terms, or a sum. With C the
-  sum of c_r over the batch ranks (an all-reduce) and n the number of
-  batch ranks, the step back-propagates loss_r * n * c_r / C for a mean
+  sum of c_r over the token ranks (an all-reduce) and n the number of
+  token ranks, the step back-propagates loss_r * n * c_r / C for a mean
   and loss_r * n for a sum, and the gradients' reduction divides by n; the
   returned loss is the all-reduce of those weighted losses over n. A
   `loss_fn` that notes no reduction (or more than one), or a batch that no
@@ -51,21 +61,28 @@ that must see plain tensors, and the shards follow the reference's
   microbatch m. Every rank returns the loss (the schedule broadcasts it
   from the last stage). Any other model is whole on every pp rank, which
   computes the whole step, as the reference replicates it over pp.
+- **Expert parallelism.** Every `MoELayer` routes over the token ranks
+  as one set of tokens, the reference's global routing (its capacity, the
+  slots of its tokens and its aux loss; `_token_shard`), and one whose
+  `ep_axis` names a token axis runs its experts cut over that axis's
+  group (`_ep_shard`: each rank keeps E / n of the stacked experts and the
+  tokens go to them and back by all-to-all). A parameter cut over ep has
+  its gradient summed over the token axes other than its ep axis; every
+  other parameter's over all of them.
 - **Layout.** A parameter is cut along the dim `fsdp_spec` picks (the
   largest dim divisible by the `sharding` size, other than the dim of its
-  mp cut) into one shard per sharding rank; one with no such dim stays
+  mp or ep cut) into one shard per sharding rank; one with no such dim stays
   whole (:76-77). Unlike the
   reference, a sharding axis of size 1 is cut too (into one shard), so a
   one-rank mesh runs the same gathers and reduce-scatters, over a group of
   one, as a sharded one.
-- **Stage 0.** Gradients are averaged over the (dp, sharding) group
-  (all-reduce).
+- **Stage 0.** Gradients are averaged over the token group (all-reduce).
 - **Stage 1.** As stage 0, and the optimizer state (the f32 master copy
   too) is kept for this rank's shard only; the rank updates its shard and
   all-gathers the parameter.
 - **Stage 2.** As stage 1, but a cut parameter's gradient is
   reduce-scattered over the sharding group to its owner shard (and
-  all-reduced over dp) (`_update_spec` :176).
+  all-reduced over the other token axes) (`_update_spec` :176).
 - **Stage 3.** Parameters live as shards between steps: `p.data` is the
   shard. Each block of the model (a child of an `nn.ModuleList`, e.g. a
   decoder layer) all-gathers its cut parameters when it is called and
@@ -88,20 +105,23 @@ that must see plain tensors, and the shards follow the reference's
   parameter's state through the device in slices along its first dim: in,
   the rule, and back out, on a side stream when `comm_overlap` is on.
 - **Clip.** The global-norm clip's squared sum adds this rank's shards'
-  sums over the sharding group and an mp-cut parameter's over the mp group
-  (as the reference's `meta_optimizers.py:55-75`), a pipelined model's
-  stacks' over the pp group, and counts a replicated parameter once.
+  sums over the sharding group, an mp-cut parameter's over the mp group
+  (as the reference's `meta_optimizers.py:55-75`), an expert shard's over
+  its ep group, a pipelined model's stacks' over the pp group, and counts
+  a replicated parameter once.
 
 `mesh=None` with no process group (or a reference mesh of one device) is
 `jit.TrainStep` on one device, as before: stages 1 and 2 are the stage-0 step there (over an axis of size 1
 the reference's shardings are no-ops), and stage 3 and offload ask for a
-mesh. Segment and expert parallelism (a mesh whose sep or ep is above 1)
-raise NotImplementedError naming their ROADMAP queue A items.
+mesh. Not ported (NotImplementedError naming ROADMAP queue A item 1f): an
+expert axis that is not a token axis, experts of one model over two ep
+axes, and expert layers in a model whose sequence is cut over sep.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import weakref
 
 import torch
@@ -120,8 +140,7 @@ __all__ = ["DistributedTrainStep", "fsdp_spec", "full_state_dict",
 BUCKET_BYTES = 25e6        # the reference's reduce-scatter bucket (25 MB)
 OFFLOAD_SLICE = 1 << 23    # elements of a state slice streamed at a time
 
-_UNPORTED_AXES = {"sep": "segment parallelism (ROADMAP queue A item 1d)",
-                  "ep": "expert parallelism (ROADMAP queue A item 1e)"}
+_BATCH_AXES = ("dp", "sharding", "ep")
 
 
 def host_memory_kind(mesh):
@@ -197,13 +216,15 @@ class _Layout:
 
 class _Bucket:
     """Gradients that go through one collective: "scatter" (reduce-scatter
-    over the sharding group to each rank's shard, then all-reduce over dp)
-    or "reduce" (all-reduce over the (dp, sharding) group); with `pp`
-    (a pipelined model's parameters shared by its stages) summed over pp
-    first, with `sp` (sequence-parallel parameters) over mp."""
+    over the sharding group to each rank's shard, then all-reduce over the
+    other token axes) or "reduce" (all-reduce over the token axes); with
+    `ep` (expert shards) not over their ep axis, with `pp` (a pipelined
+    model's parameters shared by its stages) summed over pp first, with
+    `sp` (sequence-parallel parameters) over mp."""
 
-    def __init__(self, kind, dtype, sp=False, pp=False):
+    def __init__(self, kind, dtype, sp=False, pp=False, ep=None):
         self.kind, self.dtype, self.sp, self.pp = kind, dtype, sp, pp
+        self.ep = ep
         self.names, self.offsets, self.total, self.nbytes = [], [], 0, 0
         self.reset()
 
@@ -256,7 +277,7 @@ class DistributedTrainStep(TrainStep):
             raise ValueError(f"sharding_stage must be 0-3, got {sharding_stage}")
         offload = bool(offload or getattr(optimizer, "_sharding_offload", False))
         self._specs = (_check_specs(input_specs), _check_specs(label_specs))
-        self._split_rows = False
+        self._split = False
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             # the reference's meshes are JAX ones: one of a single device is
             # the one-device step here, a larger one needs the process group
@@ -281,22 +302,32 @@ class DistributedTrainStep(TrainStep):
                     "init_parallel_env() and build_mesh() on every rank first")
             return
         sizes = _env.mesh_shape(mesh)
-        for axis, what in _UNPORTED_AXES.items():
-            if sizes[axis] > 1:
-                raise NotImplementedError(
-                    f"a mesh with {axis}={sizes[axis]}: {what}")
+        batch_axes = tuple(batch_axes)
+        bad = [a for a in batch_axes if a not in _BATCH_AXES]
+        if bad:
+            raise ValueError(f"batch axes {bad}: the step cuts the batch "
+                             f"over {_BATCH_AXES}")
         if any(sizes[a] > 1 and a not in batch_axes for a in ("dp", "sharding")):
             raise NotImplementedError(
-                f"batch axes {tuple(batch_axes)} leave out a dp or sharding "
-                "axis of the mesh: the step splits the batch over both "
-                "(other layouts come with ROADMAP queue A items 1d-1e)")
-        self._batch_pg = _env.mesh_group(mesh, ("dp", "sharding"))
+                f"batch axes {batch_axes} leave out a dp or sharding axis of "
+                "the mesh: the step splits the batch over both (other "
+                "layouts come with ROADMAP queue A item 1f)")
+        # the model's ring attention and cross entropy read the global mesh
+        _env.set_global_mesh(mesh)
+        self._seq_cut = bool(getattr(getattr(model, "config", None),
+                                     "context_parallel", False))
+        self._token_axes = batch_axes + ("sep",) * self._seq_cut
+        self._token_pg = _env.mesh_group(mesh, self._token_axes)
         self._shard_pg = _env.mesh_group(mesh, "sharding")
-        self._dp_pg = _env.mesh_group(mesh, "dp")
         self._mp_pg = _env.mesh_group(mesh, "mp")
         self._pp_pg = _env.mesh_group(mesh, "pp")
-        self._n_batch = sizes["dp"] * sizes["sharding"]
-        self._batch_rank = torch.distributed.get_rank(self._batch_pg)
+        self._n_batch = 1
+        self._batch_rank = 0   # in batch_axes' order, the first the slowest
+        for a in batch_axes:
+            self._n_batch *= sizes[a]
+            self._batch_rank = self._batch_rank * sizes[a] + \
+                mesh.get_local_rank(a)
+        self._n_tokens = self._n_batch * (sizes["sep"] if self._seq_cut else 1)
         shard_model(model, self._mp_pg)
         # a pipelined model keeps its stage's layers; any other is whole on
         # every pp rank, which computes the whole step
@@ -307,11 +338,22 @@ class DistributedTrainStep(TrainStep):
                            and not getattr(p, "pp_stage", False)}
         self._mp_dim = {k: p.split_axis if is_distributed(p)
                         else None for k, p in self.params.items()}
+        self._ep_axes = self._shard_experts(model)
+        # (ep axis or None, scatter) -> the group a bucket's all-reduce
+        # runs over: the token axes, less the bucket's ep axis, less
+        # sharding after a reduce-scatter
+        self._reduce_pgs = {
+            (ep, scatter): _env.mesh_group(mesh, tuple(
+                a for a in self._token_axes
+                if a != ep and not (scatter and a == "sharding")))
+            for ep in [None, *sorted(set(self._ep_axes.values()))]
+            for scatter in (False, True)}
         self._sp = {k for k, p in self.params.items()
                     if getattr(p, "sequence_parallel", False)}
         n = sizes["sharding"]
         r = torch.distributed.get_rank(self._shard_pg)
-        self._layouts = {k: _Layout(p.shape, n, r, self._mp_dim[k])
+        self._layouts = {k: _Layout(p.shape, n, r, 0 if k in self._ep_axes
+                                    else self._mp_dim[k])
                          if sharding_stage else None
                          for k, p in self.params.items()}
         self._buckets, self._bucket_of = self._plan()
@@ -320,12 +362,54 @@ class DistributedTrainStep(TrainStep):
         self._scattering = []   # scatter buckets whose input is still held
         if offload and self.comm_overlap and self._device().type == "cuda":
             self._side = torch.cuda.Stream(device=self._device())
+        # the hooks hold the step weakly: a tensor's hooks are kept on the
+        # C++ side, out of the cycle collector's sight, so a strong
+        # reference there would keep the step, its model and its states
+        # alive for good
+        ref = weakref.ref(self)
+
+        def hook(p, k):
+            step = ref()
+            if step is not None:
+                step._grad_hook(k, p)
+
         for k, p in self.params.items():
             p.register_post_accumulate_grad_hook(
-                lambda p, k=k: self._grad_hook(k, p))
+                lambda p, k=k: hook(p, k))
         if sharding_stage == 3:
             self._shard_model()
         model._distributed_step = self
+
+    def _shard_experts(self, model):
+        """Give every MoE layer the token ranks to route over, and cut the
+        experts of each whose `ep_axis` names a token axis over that axis's
+        group (module docstring). Returns {parameter name: ep axis} of the
+        parameters cut so."""
+        layers = [m for m in model.modules() if hasattr(m, "_token_shard")]
+        if layers and self._seq_cut:
+            raise NotImplementedError(
+                "MoE layers in a model whose sequence is cut over sep are "
+                "ported with ROADMAP queue A item 1f")
+        axes = set()
+        for m in layers:
+            m._token_shard(self._token_pg, self._batch_rank,
+                           lambda: self._split)
+            if m.ep_axis and m._fast():
+                if m.ep_axis not in self._token_axes:
+                    raise NotImplementedError(
+                        f"experts cut over {m.ep_axis!r}, which the batch "
+                        f"is not ({self._token_axes}): ROADMAP queue A item "
+                        "1f")
+                axes.add(m.ep_axis)
+                m._ep_shard(_env.mesh_group(self.mesh, m.ep_axis))
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"experts over the axes {sorted(axes)}: one ep axis a model "
+                "(ROADMAP queue A item 1f)")
+        self._ep_pg = (_env.mesh_group(self.mesh, axes.pop()) if axes
+                       else None)
+        return {k: p.ep_axis for k, p in self.params.items()
+                if getattr(p, "ep_axis", None)}
 
     # -- layout -------------------------------------------------------- #
 
@@ -339,13 +423,14 @@ class DistributedTrainStep(TrainStep):
 
     def _plan(self):
         """Buckets of at most BUCKET_BYTES in reverse parameter order, one
-        (kind, dtype, sequence-parallel or not, shared over pp or not) to a
-        bucket."""
+        (kind, dtype, sequence-parallel or not, shared over pp or not, ep
+        axis) to a bucket."""
         buckets, open_, of = [], {}, {}
         for name in reversed(list(self.params)):
             p = self.params[name]
             kind = "scatter" if self._scatter(name) else "reduce"
-            key = (kind, p.dtype, name in self._sp, name in self._pp_shared)
+            key = (kind, p.dtype, name in self._sp, name in self._pp_shared,
+                   self._ep_axes.get(name))
             b = open_.get(key)
             if b is None:
                 b = open_[key] = _Bucket(*key)
@@ -491,7 +576,8 @@ class DistributedTrainStep(TrainStep):
             self._scattering = [b]
         else:
             b.out = buf.view(-1)
-            b.work = C._all_reduce(b.out, self._batch_pg, async_op=True)
+            b.work = C._all_reduce(b.out, self._reduce_pgs[(b.ep, False)],
+                                   async_op=True)
 
     def _finish(self):
         """Start what the backward did not, wait for every bucket, and
@@ -512,8 +598,8 @@ class DistributedTrainStep(TrainStep):
             b.work.wait()
             b.buf = None
             if b.kind == "scatter":
-                C._all_reduce(b.out, self._dp_pg)
-            b.out.div_(self._n_batch)
+                C._all_reduce(b.out, self._reduce_pgs[(b.ep, True)])
+            b.out.div_(self._n_tokens)
             for name, lo in zip(b.names, b.offsets):
                 shape = (self._layouts[name].shard_shape if b.kind == "scatter"
                          else self.params[name].shape)
@@ -526,20 +612,45 @@ class DistributedTrainStep(TrainStep):
         xs, ys = super()._batches(inputs, labels)
         if self.mesh is None:
             return xs, ys
-        self._split_rows = False
+        self._split = False
         return (self._cut_batch(xs, self._specs[0]),
                 self._cut_batch(ys, self._specs[1]))
 
     def _cut_batch(self, xs, specs):
         if specs is None:
             n, r, M = self._n_batch, self._batch_rank, self._microbatches()
-            cut = [x.dim() > 0 and x.shape[0] % (n * M) == 0 for x in xs]
-            self._split_rows |= any(cut)
-            return [self._rows(x, n, r) if c else x
-                    for x, c in zip(xs, cut)]
+            out = []
+            for x in xs:
+                if x.dim() > 0 and x.shape[0] % (n * M) == 0:
+                    x = self._rows(x, n, r)
+                    self._split = True
+                elif self._seq_cut and x.dim() > 1:
+                    raise ValueError(f"{x.shape[0]} rows of an input "
+                                     f"{tuple(x.shape)} do not divide over "
+                                     f"{n} batch ranks")
+                if self._seq_cut and x.dim() > 1:
+                    x = self._sequence(x)
+                out.append(x)
+            return out
         if len(specs) != len(xs):
             raise ValueError(f"{len(specs)} specs for {len(xs)} inputs")
-        return [self._cut_input(x, spec) for x, spec in zip(xs, specs)]
+        out = []
+        for x, spec in zip(xs, specs):
+            x = self._cut_input(x, spec)
+            whole = spec is None or len(spec) < 2 or spec[1] is None
+            if self._seq_cut and x.dim() > 1 and whole:
+                x = self._sequence(x)
+            out.append(x)
+        return out
+
+    def _sequence(self, x):
+        """This sep rank's contiguous chunk of dim 1."""
+        n = _env.mesh_shape(self.mesh)["sep"]
+        if x.shape[1] % n:
+            raise ValueError(f"the sequence of an input {tuple(x.shape)} "
+                             f"does not divide over {n} sep ranks")
+        k = x.shape[1] // n
+        return x.narrow(1, self.mesh.get_local_rank("sep") * k, k)
 
     def _microbatches(self):
         return self.model.num_microbatches if self._pipe else 1
@@ -573,7 +684,7 @@ class DistributedTrainStep(TrainStep):
             else:
                 k = x.shape[d] // n
                 x = x.narrow(d, r * k, k)
-            self._split_rows |= bool({"dp", "sharding"} & set(names))
+            self._split |= bool(set(self._token_axes) & set(names))
         return x
 
     def _loss(self, inputs, labels):
@@ -602,14 +713,14 @@ class DistributedTrainStep(TrainStep):
             return super()._loss_weight(notes, loss, whole_of)
         if len(notes) != 1:
             return 1.0
-        n = self._n_batch if self._split_rows else 1
+        n = self._n_tokens if self._split else 1
         kind, count, denom = notes[0]
         if kind == "sum":
             return float(n * max(whole_of, 1))
         if whole_of:
             self._counts.append(count)
             return n * whole_of * denom
-        if not self._split_rows:
+        if not self._split:
             return 1.0
         total = self._sum_counts(count)
         denom = torch.as_tensor(denom, dtype=torch.float32, device=loss.device)
@@ -617,14 +728,14 @@ class DistributedTrainStep(TrainStep):
 
     def _sum_counts(self, count):
         total = super()._sum_counts(count)
-        if self.mesh is not None and self._split_rows:
-            C._all_reduce(total, self._batch_pg)
+        if self.mesh is not None and self._split:
+            C._all_reduce(total, self._token_pg)
         return total
 
     def _mean_loss(self, loss):
         loss = loss.detach().clone()
-        C._all_reduce(loss, self._batch_pg)
-        return loss.div_(self._n_batch)
+        C._all_reduce(loss, self._token_pg)
+        return loss.div_(self._n_tokens)
 
     def __call__(self, inputs, labels):
         if self.mesh is None:
@@ -637,14 +748,19 @@ class DistributedTrainStep(TrainStep):
         try:
             loss = super().__call__(inputs, labels)
         finally:
-            self._reducing = False
+            self._reducing = self._split = False
             self._live = {}
         return self._mean_loss(loss)
 
     @torch.no_grad()
     def evaluate(self, inputs, labels):
-        loss = super().evaluate(inputs, labels)
-        return loss if self.mesh is None else self._mean_loss(loss)
+        if self.mesh is None:
+            return super().evaluate(inputs, labels)
+        try:
+            loss = super().evaluate(inputs, labels)
+        finally:
+            self._split = False
+        return self._mean_loss(loss)
 
     # -- the update ------------------------------------------------------ #
 
@@ -676,30 +792,40 @@ class DistributedTrainStep(TrainStep):
     def _grad_sq_sum(self, grads):
         if self.mesh is None:
             return super()._grad_sq_sum(grads)
-        zero = torch.zeros((), device=self._device())
-        sq = {k: g.float().square().sum() for k, g in grads.items()
-              if g is not None}
-
-        def part(cut, mp, stage):
-            return sum((v for k, v in sq.items()
-                        if (self._cut(k) is not None) == cut
-                        and (self._mp_dim[k] is not None) == mp
-                        and (self._pipe and k not in self._pp_shared) == stage),
-                       zero)
-
-        # [stage, shared] x [cut over mp, not]: shards over sharding, then
-        # mp-cut parts over mp, then a pipelined model's stage parts over pp
-        shards = torch.stack([part(True, True, True), part(True, False, True),
-                              part(True, True, False),
-                              part(True, False, False)])
-        C._all_reduce(shards, self._shard_pg)
-        mp = torch.stack([shards[0] + part(False, True, True),
-                          shards[2] + part(False, True, False)])
-        C._all_reduce(mp, self._mp_pg)
-        stage = mp[0] + shards[1] + part(False, False, True)
+        # the groups a parameter's squared sum adds up over, in this order:
+        # its sharding shards, its mp parts, its expert shards, a pipelined
+        # model's stages; one all-reduce a group, of every sum that still
+        # needs it (the same list on every rank)
+        levels = [("sharding", self._shard_pg), ("mp", self._mp_pg)]
+        if self._ep_pg is not None:
+            levels.append(("ep", self._ep_pg))
         if self._pipe:
-            _pipeline.pp_all_reduce(stage, self._pp_pg)
-        return stage + (mp[1] + shards[3] + part(False, False, False))
+            levels.append(("pp", self._pp_pg))
+
+        def needs(k):
+            return frozenset(a for a, cut in (
+                ("sharding", self._cut(k) is not None),
+                ("mp", self._mp_dim[k] is not None),
+                ("ep", k in self._ep_axes),
+                ("pp", self._pipe and k not in self._pp_shared)) if cut)
+
+        zero = torch.zeros((), device=self._device())
+        names = [a for a, _ in levels]
+        parts = {frozenset(c): zero for i in range(len(names) + 1)
+                 for c in itertools.combinations(names, i)}
+        for k, g in grads.items():
+            if g is not None:
+                parts[needs(k)] = parts[needs(k)] + g.float().square().sum()
+        for a, pg in levels:
+            keys = sorted((c for c in parts if a in c), key=sorted)
+            vec = torch.stack([parts.pop(c) for c in keys])
+            if a == "pp":
+                _pipeline.pp_all_reduce(vec, pg)
+            else:
+                C._all_reduce(vec, pg)
+            for c, v in zip(keys, vec):
+                parts[c - {a}] = parts[c - {a}] + v
+        return parts[frozenset()]
 
     def _apply(self, name, p, g, lr, ctx):
         if not self.offload:
@@ -756,6 +882,8 @@ class DistributedTrainStep(TrainStep):
         if self._mp_dim[name] is not None:
             return C.gather_along(v.to(self._device()), self._mp_dim[name],
                                   self._mp_pg)
+        if name in self._ep_axes:
+            return C.gather_along(v.to(self._device()), 0, self._ep_pg)
         return v.detach().clone()
 
     def state_dict(self):
@@ -766,9 +894,10 @@ class DistributedTrainStep(TrainStep):
 
 def full_state_dict(model):
     """`model.state_dict()` with every stage-3 parameter gathered from its
-    shards, every mp-cut one from the mp ranks and a pipelined model's
-    stacks from its stages (a collective: every rank of the mesh calls it);
-    a model that is not cut gives its own tensors."""
+    shards, every mp-cut one from the mp ranks, every expert shard from its
+    ep ranks and a pipelined model's stacks from its stages (a collective:
+    every rank of the mesh calls it); a model that is not cut gives its own
+    tensors."""
     step = getattr(model, "_distributed_step", None)
     mp_pg = getattr(model, "_mp_group", None)
     pp_pg = getattr(model, "_pp_group", None)
@@ -782,6 +911,8 @@ def full_state_dict(model):
             t, fresh = step._gather_full(name, v), True
         if mp_pg is not None and is_distributed(v):
             t, fresh = C.gather_along(t, v.split_axis, mp_pg), True
+        if getattr(v, "ep_group", None) is not None:
+            t, fresh = C.gather_along(t, v.ep_part[0], v.ep_group), True
         if pp_pg is not None and getattr(v, "pp_part", None) is not None:
             t, fresh = _pipeline.gather_stages(t, pp_pg, v.pp_part[2]), True
         out[k] = t if fresh else t.clone()

@@ -23,6 +23,25 @@ Differences from the JAX package, none of them in the numbers:
 - Each gate casts its inputs for AMP under the JAX package's op name (the
   gate class's lower-case name) in its dense form; the fast path casts
   once for the whole layer ("moe_fast").
+
+**Routing over ranks.** The reference routes the global token set: its
+arrays hold every batch rank's tokens, so the capacity is the gate's
+capacity of the global count S_g, a (choice, token) pair's slot in its
+expert follows the flat order j S_g + s over global token indices, and
+the aux loss averages over all of them. A `DistributedTrainStep` that cuts
+the batch gives the gate its token ranks (`Tokens`: a process group and
+this rank's index in the token order, rank after rank; every rank holds as
+many tokens), and then:
+
+- the aux loss's sums over tokens are all-reduced (`Tokens.total`, whose
+  backward all-reduces the gradient: every rank's loss holds the sum);
+- each rank counts its valid pairs by (choice, expert) and one all-gather
+  of those [k, E] counts gives every rank the global counts and the counts
+  of the ranks before it, whence `global_offsets`: what to add to a pair's
+  slot among this rank's pairs of its expert to get its global slot.
+
+The capacity drops then fall as the reference's, whatever rank a token is
+on.
 """
 
 from __future__ import annotations
@@ -34,9 +53,64 @@ from torch import nn
 
 from ..... import amp
 from .....device import resolve_device
+from .....distributed import collective as C
 from .....nn.layer.common import Linear
 
-__all__ = ["BaseGate", "GShardGate", "NaiveGate", "SwitchGate"]
+__all__ = ["BaseGate", "GShardGate", "NaiveGate", "SwitchGate", "Tokens",
+           "global_offsets"]
+
+
+class _Total(torch.autograd.Function):
+    """Sum over the ranks of pg; the backward sums the gradient over them
+    too (each rank's loss holds the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return C.all_reduce_sum(x, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.all_reduce_sum(g, ctx.pg), None
+
+
+class Tokens:
+    """The ranks whose tokens one routing covers: process group `pg`, this
+    rank's `index` in the token order, and `active()`, whether the tokens
+    are cut over them right now (when a step takes a batch whole on every
+    rank, or outside a step's call, every rank holds the same tokens and
+    routes them alone)."""
+
+    def __init__(self, pg, index, active=lambda: True):
+        self.pg, self.index, self.active = pg, int(index), active
+        self.n = torch.distributed.get_world_size(pg)
+
+    def total(self, x):
+        return _Total.apply(x, self.pg)
+
+    def counts(self, cnt):
+        """(the sum over the ranks of cnt, the sum over the ranks before
+        this one), from one all-gather of (index, cnt) rows."""
+        row = torch.cat([torch.full((1,), self.index, dtype=torch.long,
+                                    device=cnt.device),
+                         cnt.reshape(-1).long()])
+        flat = torch.empty(self.n * row.numel(), dtype=torch.long,
+                           device=cnt.device)
+        C._all_gather_flat(flat, row, self.pg)
+        rows = flat.view(self.n, -1)
+        rows = rows[rows[:, 0].argsort()][:, 1:].view(self.n, *cnt.shape)
+        return rows.sum(0), rows[:self.index].sum(0)
+
+
+def global_offsets(tokens, cnt):
+    """(offsets [k, E], global counts [k, E]) for this rank's valid-pair
+    counts cnt [k, E] by (choice, expert): a pair (j, e) whose slot among
+    this rank's pairs of expert e (in the flat order j S + s) is p has the
+    global slot p + offsets[j, e], i.e. the pairs of e of the earlier
+    choices on the other ranks and of choice j on the earlier ranks."""
+    total, before = tokens.counts(cnt)
+    other = total - cnt
+    return other.cumsum(0) - other + before, total
 
 
 def _topk(probs, k):
@@ -46,18 +120,22 @@ def _topk(probs, k):
     return vals[:, :k], idx[:, :k]
 
 
-def _topk_route(probs, k, normalize_topk, choice_keep=None):
+def _topk_route(probs, k, normalize_topk, choice_keep=None, tokens=None):
     """Raw top-k routing of probs [S, E] (↔ `_topk_route` :29): (topi [S, k]
     expert ids, topv [S, k] combine weights, zeroed for dropped choices,
     keep [S, k] bool, l_aux). The aux loss, E * sum_e mean_prob_e *
     frac_top1_e, comes from the raw probabilities and first choices, before
-    any drop."""
+    any drop, over every rank of `tokens` (module docstring)."""
     S, E = probs.shape
     topv, topi = _topk(probs, k)
     if normalize_topk:
         topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
-    me = probs.mean(0)
-    ce = nn.functional.one_hot(topi[:, 0], E).to(probs.dtype).mean(0)
+    first = nn.functional.one_hot(topi[:, 0], E).to(probs.dtype)
+    if tokens is None:
+        me, ce = probs.mean(0), first.mean(0)
+    else:
+        sums = tokens.total(torch.cat([probs.sum(0), first.sum(0)]))
+        me, ce = (sums / (S * tokens.n)).split(E)
     l_aux = (me * ce).sum() * E
     if choice_keep is not None:
         keep = choice_keep
@@ -67,18 +145,26 @@ def _topk_route(probs, k, normalize_topk, choice_keep=None):
     return topi, topv, keep, l_aux
 
 
-def _topk_dispatch(probs, k, capacity, normalize_topk, choice_keep=None):
-    """Dense top-k routing with a capacity (↔ `_topk_dispatch` :65):
-    (combine [S, E, C], dispatch [S, E, C] 0/1, l_aux). All first choices
-    rank before any second choice; a (token, choice) past its expert's
-    capacity is dropped (a zero row)."""
+def _topk_dispatch(probs, k, capacity, normalize_topk, choice_keep=None,
+                   tokens=None):
+    """Dense top-k routing with capacity(token count) slots an expert (↔
+    `_topk_dispatch` :65): (combine [S, E, C], dispatch [S, E, C] 0/1,
+    l_aux). All first choices rank before any second choice; a (token,
+    choice) past its expert's capacity is dropped (a zero row). Over the
+    ranks of `tokens` the count, the slots and the aux loss are global."""
     S, E = probs.shape
     topi, topv, keepc, l_aux = _topk_route(probs, k, normalize_topk,
-                                           choice_keep)
+                                           choice_keep, tokens)
     onehot = (nn.functional.one_hot(topi, E).to(probs.dtype)
               * keepc.to(probs.dtype)[..., None])             # [S, k, E]
     m = onehot.transpose(0, 1).reshape(k * S, E)
     pos = ((m.cumsum(0) - m) * m).sum(-1)                     # slot per (choice, token)
+    if tokens is None:
+        capacity = capacity(S)
+    else:
+        capacity = capacity(S * tokens.n)
+        off, _ = global_offsets(tokens, onehot.sum(0).round().long())
+        pos = pos + (m * off.to(m.dtype).repeat_interleave(S, 0)).sum(-1)
     keep = (pos < capacity) & (m.sum(-1) > 0)
     slot = (nn.functional.one_hot(pos.long().clamp(max=capacity - 1),
                                   capacity).to(probs.dtype)
@@ -101,6 +187,7 @@ class BaseGate(nn.Module):
         self.num_expert = num_expert
         self.tot_expert = world_size * num_expert
         self.loss = None
+        self.tokens = None   # the ranks it routes over (module docstring)
         self.generator = torch.Generator(device=resolve_device(device))
         self.generator.manual_seed(seed)
 
@@ -120,6 +207,12 @@ class BaseGate(nn.Module):
     def capacity(self, num_tokens):
         raise NotImplementedError
 
+    def live_tokens(self):
+        """The token ranks when the tokens are cut over them now, else
+        None."""
+        t = self.tokens
+        return t if t is not None and t.active() else None
+
     def _probs_and_keep(self, x, w, b):
         """(probs [S, E] f32, choice_keep [S, k] bool or None): the one place
         each gate's router math lives."""
@@ -130,15 +223,16 @@ class BaseGate(nn.Module):
         in x's dtype, keep [S, k] bool, l_aux)."""
         probs, keep = self._probs_and_keep(x, w, b)
         topi, topv, keepc, l_aux = _topk_route(probs, self.top_k,
-                                               self._normalize_topk, keep)
+                                               self._normalize_topk, keep,
+                                               self.live_tokens())
         return topi, topv.to(x.dtype), keepc, l_aux
 
     def _routing(self, x, w, b):
         """(combine, dispatch, l_aux) of the dense path."""
         probs, keep = self._probs_and_keep(x, w, b)
-        c, d, l_aux = _topk_dispatch(probs, self.top_k,
-                                     self.capacity(x.shape[0]),
-                                     self._normalize_topk, choice_keep=keep)
+        c, d, l_aux = _topk_dispatch(probs, self.top_k, self.capacity,
+                                     self._normalize_topk, choice_keep=keep,
+                                     tokens=self.live_tokens())
         return c.to(x.dtype), d.to(x.dtype), l_aux
 
     def forward(self, x):

@@ -24,26 +24,61 @@ Where JAX writes a scatter with `mode="drop"` and a gather with
 dropped pairs land there, and it is cut off) and gathers from the expert
 outputs with one zero row appended.
 
-Not ported: expert parallelism (ROADMAP queue A item 1e): on one device
-`ep` is 1, the JAX package runs exactly this path and `ep_axis` changes
-nothing; a process group (`moe_group`, `mp_group`) raises
-NotImplementedError, and the all-to-all accounting of
-`distributed/moe_comm.py` comes with item 1e. The `PADDLE_TPU_MOE_FAST` and
-`PADDLE_TPU_MOE_A2A_CHUNKS` switches are not ported: the form follows the
-experts and the gate.
+**Over ranks.** A `DistributedTrainStep` that cuts the batch gives each
+layer its token ranks (`_token_shard`), and the gate routes them as the
+reference routes its global token set (gate.py, "Routing over ranks"):
+the capacity of the global token count, global slots, a global aux loss.
+A rank fills the slots of its own tokens in the [E, R, M] buffer; the
+rest stay zero.
+
+**Expert parallelism** (↔ :104-107, :247-279). A fast-path layer whose
+`ep_axis` names one of the step's token axes is cut over that axis's
+group of n ranks (`_ep_shard`): its `ExpertFFN` keeps experts
+[r E / n, (r + 1) E / n) on rank r (E must divide by n), and the buffer
+travels in `a2a_chunks` row chunks of Rc = row_stride(ceil(capacity /
+chunks)) rows an expert (R = chunks * Rc): for each chunk, an all-to-all
+over the ep group (`_Dispatch`) gives each rank its experts' rows from
+every rank, summed (each slot is one rank's), the grouped GEMMs run on the
+rank's E / n experts, and a second all-to-all (`_Combine`) sends the
+outputs back to every rank, which gathers its own slots. Each exchange is
+an autograd Function whose backward is the reverse exchange, so the
+grouped GEMM's dlhs kernel runs in the backward as on one device. The
+same code runs on a group of one. Where every rank holds the same
+tokens (a step that takes a batch whole on every rank, as it does when
+the batch does not divide, or a call outside a step's), each rank's
+experts take their rows from its own buffer and only the combine runs.
+Each forward notes its exchange in
+`distributed.moe_comm` (desc `moe/a2a/<axis>x<n>`, 2 x chunks calls, the
+bytes this rank sent); every all-to-all, the backward's too, is counted in
+`distributed.collective.CALLS` / `BYTES["all_to_all"]`. The exchange
+moves the whole capacity buffer (E x R rows each way, as the reference's
+dense oracle leg does), not only the live rows. A layer on the dense path
+keeps its experts whole on every rank (the values are the same).
+
+`moe_group` and `mp_group` are accepted and unused, as in the reference
+(:133): `ep_axis` decides. The `PADDLE_TPU_MOE_FAST` switch is not ported
+(the form follows the experts and the gate), and
+`PADDLE_TPU_MOE_A2A_CHUNKS` is the constructor's `a2a_chunks` (default
+2, clamped to [1, 8]).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..... import amp
 from .....device import resolve_device
+from .....distributed import collective as C
+from .....distributed import moe_comm
 from .....nn.layer.common import init_weight
 from .....nn.layer.container import LayerList
 from .....ops.grouped_gemm import grouped_matmul, row_stride
-from .gate import BaseGate, GShardGate, NaiveGate, SwitchGate
+from .gate import (BaseGate, GShardGate, NaiveGate, SwitchGate, Tokens,
+                   global_offsets)
 
 __all__ = ["ExpertFFN", "MoELayer"]
 
@@ -62,7 +97,9 @@ class ExpertFFN(nn.Module):
     """Stacked expert FFN (↔ moe_layer.py:89): every expert's weights in one
     [E, ...] tensor, w1 [E, M, H], b1 [E, 1, H], w2 [E, H, M], b2 [E, 1, M];
     weights Xavier-uniform from `generator`, biases zero (the reference's
-    `create_parameter` defaults)."""
+    `create_parameter` defaults). The `MoELayer` that holds it cuts it
+    over the layer's `ep_axis` (`_ep_shard`); its own `ep_axis` is taken
+    for the reference's signature."""
 
     def __init__(self, num_experts, d_model, d_hidden, activation="gelu",
                  ep_axis=None, *, generator=None, device=None,
@@ -85,6 +122,22 @@ class ExpertFFN(nn.Module):
         self.b1 = bias(num_experts, 1, d_hidden)
         self.w2 = weight(num_experts, d_hidden, d_model)
         self.b2 = bias(num_experts, 1, d_model)
+        self.local_experts = num_experts   # E / n once cut over n ranks
+
+    def _ep_shard(self, pg, axis):
+        """Keep this rank's E / n experts of each stacked weight, marked
+        with `ep_axis`, `ep_part` (dim 0, rank, n) and `ep_group`."""
+        n, r = dist.get_world_size(pg), dist.get_rank(pg)
+        if self.num_experts % n:
+            raise ValueError(f"expert count {self.num_experts} not divisible "
+                             f"by the {axis!r} mesh axis size {n}")
+        k = self.num_experts // n
+        with torch.no_grad():
+            for p in (self.w1, self.b1, self.w2, self.b2):
+                p.data = p.data.narrow(0, r * k, k).contiguous()
+                p.ep_axis, p.ep_part, p.ep_group = axis, (0, r, n), pg
+                p.dist_attr = (axis,) + (None,) * (p.dim() - 1)
+        self.local_experts = k
 
     def forward(self, xe):
         """xe [E, C, M] -> [E, C, M] (the dense path's batched GEMMs)."""
@@ -96,6 +149,46 @@ class ExpertFFN(nn.Module):
 
 
 _GATES = {"gshard": GShardGate, "switch": SwitchGate, "naive": NaiveGate}
+
+
+def _exchange(x, pg, n):
+    """x [n * k, ...]: block r goes to rank r of pg; returns what every
+    rank sent this one, [n, k, ...] in group order."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    C._all_to_all(out, x, pg)
+    return out.view(n, -1, *x.shape[1:])
+
+
+class _Dispatch(torch.autograd.Function):
+    """[E, Rc, M], this rank's slots filled -> [E / n, Rc, M], this rank's
+    experts' slots from every rank (summed: a slot is one rank's)."""
+
+    @staticmethod
+    def forward(ctx, x, pg, n):
+        ctx.pg, ctx.n = pg, n
+        return _exchange(x, pg, n).sum(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.n
+        back = g.unsqueeze(0).expand(n, *g.shape).reshape(-1, *g.shape[1:])
+        return _exchange(back, ctx.pg, n).flatten(0, 1), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """[E / n, Rc, M], this rank's experts' outputs -> [E, Rc, M], every
+    expert's, sent to every rank."""
+
+    @staticmethod
+    def forward(ctx, y, pg, n):
+        ctx.pg, ctx.n = pg, n
+        out = y.unsqueeze(0).expand(n, *y.shape).reshape(-1, *y.shape[1:])
+        return _exchange(out, pg, n).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.pg, ctx.n).sum(0), None, None
 
 
 class MoELayer(nn.Module):
@@ -110,14 +203,13 @@ class MoELayer(nn.Module):
 
     def __init__(self, d_model, experts, gate=None, moe_group=None,
                  mp_group=None, recompute_interval=0, ep_axis=None, name=None,
-                 *, seed=0, generator=None, device=None, dtype=torch.float32):
+                 a2a_chunks=2, *, seed=0, generator=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        if moe_group is not None or mp_group is not None:
-            raise NotImplementedError(
-                "MoE over process groups (expert parallelism) is ported with "
-                "ROADMAP queue A item 1e")
         self.d_model = d_model
         self.ep_axis = ep_axis
+        self.a2a_chunks = max(1, min(int(a2a_chunks), 8))
+        self._ep_group = None   # set by _ep_shard
         if isinstance(experts, ExpertFFN):
             self.experts = experts
             self.num_expert = experts.num_experts
@@ -140,25 +232,42 @@ class MoELayer(nn.Module):
     def l_aux(self):
         return self.gate.l_aux
 
-    def forward(self, inp):
-        shape = inp.shape
-        x = inp.reshape(-1, self.d_model)
+    def _fast(self):
+        """Whether the layer takes the sorted fast path: a gate that only
+        defines the dense routing, or overrides it, stays on the dense
+        path (moe_layer.py:303-310)."""
         gate_cls = type(self.gate)
-        # a gate that only defines the dense routing, or overrides it,
-        # stays on the dense path (moe_layer.py:303-310)
-        fast = (self._stacked
+        return (self._stacked
                 and gate_cls._probs_and_keep is not BaseGate._probs_and_keep
                 and gate_cls._routing is BaseGate._routing
                 and getattr(self.gate, "gate", None) is not None)
-        out = self._forward_fast(x) if fast else self._forward_dense(x)
+
+    def _token_shard(self, pg, index, active=lambda: True):
+        """Route over the token ranks of pg, this rank's tokens `index`-th
+        in the token order (module docstring)."""
+        self.gate.tokens = Tokens(pg, index, active)
+
+    def _ep_shard(self, pg):
+        """Cut the experts over the ep group pg (module docstring)."""
+        self.experts._ep_shard(pg, self.ep_axis)
+        self._ep_group = pg
+
+    def forward(self, inp):
+        shape = inp.shape
+        x = inp.reshape(-1, self.d_model)
+        out = self._forward_fast(x) if self._fast() else self._forward_dense(x)
         return out.reshape(*shape[:-1], self.d_model)
 
     def _forward_fast(self, x):
         gate, e = self.gate, self.experts
         S, M = x.shape
         E, k = self.num_expert, gate.top_k
-        cap = gate.capacity(S)
-        R = row_stride(cap)
+        tokens = gate.live_tokens()
+        cap = gate.capacity(S if tokens is None else S * tokens.n)
+        pg = self._ep_group
+        chunks = 1 if pg is None else self.a2a_chunks
+        Rc = row_stride(math.ceil(cap / chunks))
+        R = Rc * chunks
         act = _activation(e.activation)
         x, gw, gb, w1, b1, w2, b2 = amp.cast_inputs(
             "moe_fast", x, gate.gate.weight, gate.gate.bias, e.w1, e.b1,
@@ -181,6 +290,14 @@ class MoELayer(nn.Module):
         pos_sorted = (torch.arange(k * S, device=x.device)
                       - start[srt.clamp(max=E - 1)])
         pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+        if tokens is not None:
+            # this rank's slots among every rank's pairs (gate.py)
+            choice = torch.arange(k * S, device=x.device) // S
+            per = torch.bincount((choice * (E + 1) + key),
+                                 minlength=k * (E + 1)).view(k, E + 1)[:, :E]
+            off, per = global_offsets(tokens, per)
+            pos = pos + off[choice, eid]
+            counts = per.sum(0)
 
         # capacity overflow drops the pair into the sentinel row E * R
         kept = valid & (pos < cap)
@@ -188,13 +305,46 @@ class MoELayer(nn.Module):
         xs = x.new_zeros(E * R + 1, M).index_copy(0, slot, x[tok])[:E * R]
         sizes = torch.clamp(counts, max=cap).to(torch.int32)  # live rows a group
 
-        h = act(grouped_matmul(xs, w1, sizes).reshape(E, R, -1) + b1)
-        y = grouped_matmul(h.reshape(E * R, -1), w2, sizes).reshape(E, R, M) + b2
+        if pg is None:
+            h = act(grouped_matmul(xs, w1, sizes).reshape(E, R, -1) + b1)
+            y = grouped_matmul(h.reshape(E * R, -1), w2, sizes).reshape(
+                E, R, M) + b2
+        else:
+            y = self._experts_over_ranks(xs.view(E, R, M), sizes, Rc, w1, b1,
+                                         w2, b2, act, tokens is None)
         y = torch.cat([y.reshape(E * R, M), y.new_zeros(1, M)])
         g = y.index_select(0, slot)
         out = (wts[:, None].to(x.dtype) * g).reshape(k, S, M).sum(0)
         gate.set_loss(l_aux)
         return out
+
+    def _experts_over_ranks(self, xs, sizes, Rc, w1, b1, w2, b2, act,
+                            same_tokens):
+        """xs [E, R, M] through the experts cut over the ep group, chunk
+        by chunk (module docstring); returns [E, R, M]. With `same_tokens`
+        (the tokens not cut over the ranks: every rank holds them all) a
+        rank's experts take their rows from its own buffer, no dispatch."""
+        pg = self._ep_group
+        n, r = dist.get_world_size(pg), dist.get_rank(pg)
+        El = self.experts.local_experts
+        mine = sizes[r * El:(r + 1) * El]
+        chunks = xs.shape[1] // Rc
+        ys = []
+        for c in range(chunks):
+            xc = xs[:, c * Rc:(c + 1) * Rc]
+            xl = (xc[r * El:(r + 1) * El] if same_tokens
+                  else _Dispatch.apply(xc, pg, n))
+            sc = torch.clamp(mine - c * Rc, 0, Rc).to(torch.int32)
+            h = act(grouped_matmul(xl.reshape(El * Rc, -1), w1, sc).reshape(
+                El, Rc, -1) + b1)
+            yl = grouped_matmul(h.reshape(El * Rc, -1), w2, sc).reshape(
+                El, Rc, -1) + b2
+            ys.append(_Combine.apply(yl, pg, n))
+        ways = 1 if same_tokens else 2
+        moe_comm.note_a2a(f"moe/a2a/{self.ep_axis}x{n}",
+                          ways * xs.numel() * xs.element_size(),
+                          calls=ways * chunks)
+        return torch.cat(ys, dim=1)
 
     def _forward_dense(self, x):
         combine, dispatch, _ = self.gate(x)

@@ -15,8 +15,20 @@ Parameter names and layouts equal the JAX package's, so
 `paddle_tpu_torch.convert.load_paddle_tpu_state` moves its weights over as
 they are.
 
-Attention has three branches:
+Attention has four branches:
 
+- context parallelism (`context_parallel`, no cache; reference
+  `gpt.py:226-233`): q/k/v of this rank's chunk of the sequence, on its
+  local heads when cut over mp, go through `ring_flash_attention`, the
+  ring over the global mesh's sep group (`parallel.ring`; the dense
+  attention when there is no mesh). The sequence is cut contiguously over
+  sep (`DistributedTrainStep` cuts the inputs and labels so), and the
+  default positions are global: `arange(r L, (r + 1) L)` on sep rank r of
+  a chunk of L tokens, so the position table and RoPE see the reference's
+  positions. With `sequence_parallel` the sep chunk is cut first and the
+  mp split of the sequence works inside it: the activations between the
+  blocks are [B, L / mp, H], rows [r L + t L / mp, r L + (t + 1) L / mp)
+  of the global sequence on sep rank r and mp rank t;
 - no cache (the training forward and full-sequence inference): causal
   `scaled_dot_product_attention`, which goes to the flash-attention kernels
   on the card, or with `attn_variant="flashmask"` `flashmask_attention`
@@ -76,8 +88,8 @@ before the head (`GatherOp`). The norms' parameters and the row-parallel
 biases are then sequence-parallel parameters, whose gradients the step
 sums over mp. An uncut model ignores `sequence_parallel`.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP queue A
-item): ring / context parallelism (1d) and dropout (4).
+Not ported yet (raises NotImplementedError naming its ROADMAP queue A
+item): dropout (4).
 """
 
 from __future__ import annotations
@@ -90,6 +102,7 @@ from torch import nn
 
 from .. import amp
 from ..device import resolve_device
+from ..distributed import env as _env
 from ..distributed.collective import c_identity
 from ..distributed.fleet.layers.mpu.mp_layers import (
     ColumnParallelLinear,
@@ -203,10 +216,6 @@ def _check_supported(cfg: GPTConfig):
         raise ValueError(f"unknown activation {cfg.activation!r}")
     if cfg.attn_variant not in ("flash", "flashmask"):
         raise ValueError(f"unknown attn_variant {cfg.attn_variant!r}")
-    if cfg.context_parallel:
-        raise NotImplementedError(
-            "context parallelism (ring attention) is ported with ROADMAP "
-            "queue A item 1d")
     if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
         raise NotImplementedError(
             "dropout (explicit generators, Philox in the attention kernels) "
@@ -362,6 +371,8 @@ class GPTAttention(nn.Module):
             out = F.scaled_dot_product_attention(
                 q, k_all, v_all, attn_mask=mask, is_causal=False,
                 training=self.training)
+        elif cfg.context_parallel:
+            out = F.ring_flash_attention(q, k, v, causal=True)
         elif cfg.attn_variant == "flashmask":
             idx = startend_row_indices
             if idx is None:
@@ -402,6 +413,15 @@ class GPTMLP(nn.Module):
         if self.activation == "swiglu":
             return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
         return self.fc2(F.gelu(self.fc1(x)))
+
+
+def _sep_offset(config, S):
+    """The global position of this rank's first token: r * S on sep rank r
+    of the global mesh under context parallelism, else 0."""
+    mesh = _env.get_global_mesh()
+    if not config.context_parallel or mesh is None:
+        return 0
+    return mesh.get_local_rank("sep") * S
 
 
 def _embed(model, input_ids, position_ids):
@@ -493,7 +513,7 @@ class GPTModel(nn.Module):
         B, S = input_ids.shape[0], input_ids.shape[1]
         dev = input_ids.device
         if position_ids is None:
-            start = 0
+            start = _sep_offset(self.config, S) if caches is None else 0
             if caches is not None and cache_offset is not None:
                 # decode default: absolute positions start at the (scalar)
                 # offset, as in the JAX package

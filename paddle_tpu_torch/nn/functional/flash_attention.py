@@ -31,6 +31,12 @@ keeps a key.
 on CPU tensors): the JAX package's kernel route, with causal masking
 top-left within each document and zeros for a row whose document has no
 keys (its composite route gives the mean of V there).
+
+`ring_flash_attention` (:340) is context-parallel attention: with a global
+mesh, q/k/v are this rank's chunk of a sequence cut over the mesh's `sep`
+group and go around its ring (`parallel.ring.ring_attention`) at any sep
+degree, one included; with no mesh they are the whole sequence and take
+the dense `_ref_attention`, as in the reference (:353-359).
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from ...ops.masked_flash import (flashmask_attention_fwd,
                                  varlen_flash_attention_fwd)
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
-           "scaled_dot_product_attention"]
+           "ring_flash_attention", "scaled_dot_product_attention"]
 
 
 def _ref_attention(q, k, v, mask=None, causal=False, scale=None):
@@ -107,6 +113,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return flash_attention_fwd(q, k, v, causal=is_causal, key_bias=kb)
     q, k, v, m = amp.cast_inputs("sdpa", query, key, value, attn_mask)
     return _ref_attention(q, k, v, mask=m, causal=is_causal)
+
+
+def ring_flash_attention(query, key, value, causal=True, axis="sep",
+                         name=None):
+    """Context-parallel exact attention (↔ :340, module docstring); its
+    inputs are cast for AMP as the op "ring_flash_attention"."""
+    from ...distributed import env as _env
+    from ...parallel.ring import ring_attention_spmd
+
+    q, k, v = amp.cast_inputs("ring_flash_attention", query, key, value)
+    mesh = _env.get_global_mesh()
+    if mesh is None:
+        return _ref_attention(q, k, v, causal=causal)
+    return ring_attention_spmd(q, k, v, mesh, axis=axis, causal=causal)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

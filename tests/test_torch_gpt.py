@@ -172,15 +172,26 @@ def test_load_paddle_tpu_state_rejects_mismatches(models):
 
 
 def test_unported_branches_raise():
-    """Context parallelism and dropout are still to port; the LLaMA form,
-    flashmask attention and sequence parallelism now build
-    (tests/test_torch_llama.py, tests/test_torch_tensor_parallel.py)."""
-    for kw in (dict(context_parallel=True), dict(hidden_dropout_prob=0.1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GPTForCausalLM(gpt3_tiny(**kw), device="cpu")
+    """Dropout and a pipelined model under context parallelism are still
+    to port; the LLaMA form, flashmask attention, sequence parallelism and
+    context parallelism now build (tests/test_torch_llama.py,
+    tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py);
+    without a mesh a context-parallel model's attention is the dense one,
+    so its logits are the plain model's."""
+    from paddle_tpu_torch.models import GPTForCausalLMPipe
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GPTForCausalLM(gpt3_tiny(hidden_dropout_prob=0.1), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GPTForCausalLMPipe(gpt3_tiny(context_parallel=True), device="cpu")
     for kw in (dict(use_rope=True), dict(attn_variant="flashmask"),
                dict(sequence_parallel=True)):
         GPTForCausalLM(gpt3_tiny(**kw), device="cpu")
+    ids = torch.randint(0, 1024, (2, 16), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cp = GPTForCausalLM(gpt3_tiny(context_parallel=True), device="cpu")(ids)
+        plain = GPTForCausalLM(gpt3_tiny(), device="cpu")(ids)
+    torch.testing.assert_close(cp, plain, rtol=1e-5, atol=1e-5)
 
 
 def test_entry_points_without_device_raise_without_a_gpu(monkeypatch):
@@ -233,6 +244,11 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers",
             "paddle_tpu_torch.distributed.fleet.meta_parallel.pipeline_parallel",
             "paddle_tpu_torch.distributed.fleet.meta_parallel.tensor_parallel",
+            "paddle_tpu_torch.parallel.ring",
+            "paddle_tpu_torch.distributed.fleet.meta_parallel.segment_parallel",
+            "paddle_tpu_torch.distributed.moe_comm",
+            "paddle_tpu_torch.distributed.utils",
+            "paddle_tpu_torch.distributed.utils.moe_utils",
             } <= set(
                 _port_modules())
     code = (
@@ -252,7 +268,9 @@ def test_no_port_file_names_jax_in_an_import():
         ROOT / "chip_smoke.py", ROOT / "chip_ranks.py",
         ROOT / "tests" / "torch_dist_worker.py",
         ROOT / "tests" / "torch_tp_cases.py",
-        ROOT / "tests" / "torch_pp_cases.py"]
+        ROOT / "tests" / "torch_pp_cases.py",
+        ROOT / "tests" / "torch_sep_cases.py",
+        ROOT / "tests" / "torch_ep_cases.py"]
     offenders = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

@@ -215,7 +215,10 @@ def test_state_dict_names_equal_the_reference(jax_layers):
 
 def test_list_experts_take_the_dense_path():
     """A list of expert modules runs the dense path, each expert on its
-    [C, M] slice: equal to the stacked layer with the same weights."""
+    [C, M] slice: equal to the stacked layer with the same weights. A
+    layer given `moe_group` and `mp_group` takes them and computes what
+    the layer without them does (`ep_axis` decides, as in the
+    reference)."""
     stacked = tmoe.MoELayer(M, tmoe.ExpertFFN(E, M, H, device="cpu"),
                             gate={"type": "naive", "top_k": 2}, device="cpu")
     stacked.eval()
@@ -239,9 +242,9 @@ def test_list_experts_take_the_dense_path():
     x = torch.from_numpy(_x(2, 12))
     torch.testing.assert_close(listed(x), stacked(x), rtol=1e-5, atol=1e-5)
     assert isinstance(listed.experts, tnn.LayerList)
-    with pytest.raises(NotImplementedError, match="queue A item 1e"):
-        tmoe.MoELayer(M, tmoe.ExpertFFN(E, M, H, device="cpu"),
-                      moe_group=object(), device="cpu")
+    grouped = tmoe.MoELayer(M, e, gate=stacked.gate, moe_group=object(),
+                            mp_group=object(), device="cpu")
+    torch.testing.assert_close(grouped(x), stacked(x), rtol=0, atol=0)
 
 
 def test_gshard_random_routing_follows_the_gate_generator():

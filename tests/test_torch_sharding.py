@@ -351,6 +351,14 @@ def test_save_group_sharded_model_saves_full_tensors(runs):
             "m": v.shape, "v": v.shape}
 
 
+def test_a_dropped_step_releases_its_model(runs):
+    """A DistributedTrainStep that nothing refers to any more lets go of
+    its model (and with it the parameters and states): its gradient hooks
+    hold it weakly."""
+    for got in _case(runs, "released"):
+        assert got == [True, True]
+
+
 def test_group_sharded_parallel_bad_level_raises():
     net = mlp(_state(_MLP()))
     opt = AdamW(learning_rate=0.1, parameters=net.parameters())
@@ -391,16 +399,20 @@ def test_fleet_init_distributed_model_and_optimizer_run_a_dp_step(runs):
 
 
 def test_unported_parallelisms_raise_naming_their_items(runs):
-    """Segment and expert parallelism raise naming their ROADMAP items;
-    tensor and pipeline parallelism build: an mp or a pp mesh gives a
+    """Every parallelism builds: an mp, pp, sep or ep mesh gives a
     DistributedTrainStep (a model with no stages is whole on every pp
-    rank), fleet's tensor_parallel mode and its pipeline_parallel mode on a
-    model that is not a PipelineLayer give TensorParallel, as the
-    reference's (tests/test_torch_tensor_parallel.py and
-    tests/test_torch_pipeline.py hold what they do)."""
+    rank, one without context parallelism on every sep rank, one without
+    expert layers on every ep rank), fleet's tensor_parallel mode and its
+    pipeline_parallel mode on a model that is not a PipelineLayer give
+    TensorParallel, its segment_parallel mode SegmentParallel, as the
+    reference's (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_pipeline.py, tests/test_torch_ring_attention.py and
+    tests/test_torch_expert_parallel.py hold what they do)."""
     for got in _case(runs, "unported"):
         assert got == {"mp": "DistributedTrainStep",
-                       "pp": "DistributedTrainStep", "sep": "1d",
-                       "ep": "1e", "tensor_parallel": "TensorParallel",
+                       "pp": "DistributedTrainStep",
+                       "sep": "DistributedTrainStep",
+                       "ep": "DistributedTrainStep",
+                       "tensor_parallel": "TensorParallel",
                        "pipeline_parallel": "TensorParallel",
-                       "segment_parallel": "1d"}
+                       "segment_parallel": "SegmentParallel"}

@@ -2,7 +2,10 @@
 `tests/test_torch_sharding.py`, `tests/test_torch_tensor_parallel.py`,
 whose cases are in `tests/torch_tp_cases.py`, and
 `tests/test_torch_pipeline.py`, whose cases are in
-`tests/torch_pp_cases.py`).
+`tests/torch_pp_cases.py`, `tests/test_torch_ring_attention.py`, whose
+cases are in `tests/torch_sep_cases.py`, and
+`tests/test_torch_expert_parallel.py`, whose cases are in
+`tests/torch_ep_cases.py`).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -338,6 +341,22 @@ def sharding_cases(rank, world, inp):
 
     case("save_group_sharded_model", save)
 
+    def released():
+        import gc
+        import weakref
+
+        net = mlp(inp["mlp"])
+        step = dist.DistributedTrainStep(
+            net, mse, AdamW(parameters=net.parameters()),
+            mesh=dist.build_mesh(sharding=4), sharding_stage=2)
+        step(x, y)
+        refs = [weakref.ref(net), weakref.ref(step)]
+        del net, step
+        gc.collect()
+        return [r() is None for r in refs]
+
+    case("released", released)
+
     def eager(model, opt, xs, ys, steps=3):
         for _ in range(steps):
             mse(model(torch.as_tensor(xs)), torch.as_tensor(ys)).backward()
@@ -422,9 +441,30 @@ def pipeline_gate_cases(rank, world, inp):
     return gate_cases(rank, world, inp)
 
 
+def segment_parallel_cases(rank, world, inp):
+    from torch_sep_cases import segment_cases
+
+    return segment_cases(rank, world, inp)
+
+
+def segment_gate_cases(rank, world, inp):
+    from torch_sep_cases import gate_cases
+
+    return gate_cases(rank, world, inp)
+
+
+def expert_parallel_cases(rank, world, inp):
+    from torch_ep_cases import expert_parallel_cases as cases
+
+    return cases(rank, world, inp)
+
+
 SUITES = {"collective": collective_cases, "sharding": sharding_cases,
           "tensor_parallel": tensor_parallel_cases,
-          "pipeline": pipeline_cases, "pipeline_gate": pipeline_gate_cases}
+          "pipeline": pipeline_cases, "pipeline_gate": pipeline_gate_cases,
+          "segment_parallel": segment_parallel_cases,
+          "segment_gate": segment_gate_cases,
+          "expert_parallel": expert_parallel_cases}
 
 
 def main():
