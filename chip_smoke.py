@@ -76,7 +76,12 @@ Phases; any failure raises and the script exits non-zero:
                 segment in f32 and in bf16, a one-tile pack; the backward
                 kernels read the tile classes the forward derives, and the
                 keys whose document starts in the second 64 of a 128-key
-                dK/dV tile are held on their own).
+                dK/dV tile are held on their own); and
+                bert_base's shapes: the flash forward, dq and dk/dv in bf16
+                at [32, 512, 12, 64], not causal, with BERT's f32 key bias
+                (-1e4 on a few padded keys a row, row 0 none; the library
+                call with it as SDPA's additive mask), and the norm forward
+                and dx in f32 at [16384, 768].
 2b. faults    — the kernels built again from copies of csrc/, each with
                 one planted fault (a kv or q tile skipped, long rows
                 normalised 1% off; the flash backward's q steps without
@@ -281,6 +286,29 @@ Phases; any failure raises and the script exits non-zero:
                 of the plain path on the card; then the same tokens through
                 flash_attn_varlen_qkvpacked(varlen_padded=False). Each
                 entry's forward and forward + backward are timed eagerly.
+
+14. bert train — bench.py's bert_base rung (run_bert_rung) at full
+                size: bert_base, batch 32 x 512, 80 masked positions,
+                dropouts 0, AdamW lr 1e-4, AMP O2 bf16 (f32 parameters)
+                through DistributedTrainStep. As phase 5, with per step 12
+                flash forwards, 12 dq and 12 dk/dv (all with the key bias)
+                and 26 norm forwards and 26 dx, and nothing else;
+                gradients must reach the word embedding and layer 0's
+                norm1. Then one step on a padded attention mask: the same
+                launches and a finite loss.
+15. bert train hold — phase 6 at bert_base's widths (2 layers, batch
+                2 x 128, a padded mask).
+16. resnet train — bench.py's resnet50 rung (run_resnet_rung): resnet50,
+                batch 128 x 3 x 224 x 224, Momentum lr 0.1 / 0.9, AMP O2
+                bf16 through DistributedTrainStep: no hand-written kernel
+                launches (cuDNN convs, plain batch norms), every conv
+                weight changes and every batch norm's running statistics
+                move, batch norms stay f32. Step time, images/s, MFU at
+                3 x 4.1e9 FLOPs an image, peak memory, a profile.
+17. resnet train hold — resnet18, batch 4 x 3 x 64 x 64, three Momentum
+                steps on the card in f32 (TF32 off) against the CPU in
+                float64 (RESNET_RUNG's note): losses, step-1 gradients and
+                the running statistics within tolerance.
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -645,7 +673,7 @@ NORM_CASES = [(16, 2048, "ln", BOTH, 0.0), (512, 2048, "ln", BOTH, 0.0),
               (8192, 4096, "rms", ("float32",), 0.0),
               (8192, 1024, "ln", ("float32",), 0.0),
               (8192, 2048, "ln", ("float32",), 1000.0),
-              (64, 16384, "ln", BOTH, 0.0)]
+              (64, 16384, "ln", BOTH, 0.0), (16384, 768, "ln", ("float32",), 0.0)]
 
 
 def _norm_inputs(torch, gen, R, N, kind, dtype, offset=0.0):
@@ -1257,7 +1285,7 @@ NORM_DX_CASES = [
     (512, 2048, "rms", "bfloat16", 0.5, 0), (16, 5120, "rms", "float32", 0.5, 0),
     (8192, 4096, "rms", "float32", 0.5, 0), (8192, 1024, "ln", "float32", 0.5, 0),
     (8192, 1024, "ln", "float32", 1000.0, 0), (8192, 2048, "ln", "float32", 0.5, 1),
-    (64, 12288, "ln", "float32", 0.5, 0)]
+    (64, 12288, "ln", "float32", 0.5, 0), (16384, 768, "ln", "float32", 0.5, 0)]
 # the three steps' shapes, where FusedNorm.backward's dweight/dbias
 # reductions are timed beside dx (`wdb_ms`)
 NORM_DX_STEPS = [(8192, 2048, "ln"), (8192, 4096, "rms"), (8192, 1024, "ln")]
@@ -1452,6 +1480,8 @@ FLASH_CASES = {
     "d36_copy": (1, 150, 150, 4, 2, 36, False, False, "bfloat16"),
     "fused_qkv_view": (2, 384, 384, 16, 16, 128, True, False, "bfloat16"),
     "unaligned_view_copy": (1, 200, 200, 8, 8, 64, True, False, "bfloat16"),
+    # bert_base's attention at bench.py's rung: BERT's additive key bias
+    "bert_key_bias": (32, 512, 512, 12, 12, 64, False, "bert", "bfloat16"),
 }
 # how a case's q, k and v are laid out (default: three contiguous tensors):
 # "fused_qkv" slices one [B, S, 3, H, D] tensor (strided views the TMA maps
@@ -1465,7 +1495,8 @@ def _flash_inputs(torch, gen, B, Sq, Skv, H, Hkv, D, bias, dtype,
                   layout="contiguous"):
     """(q, k, v, dO, key bias or None, keep [B, Skv] bool). With `bias`,
     batch row b pads its last 17 (b + 1) keys and batch row 1 all of
-    them."""
+    them; with `bias == "bert"` BERT's mask, (1 - m) * -1e4: row b pads
+    its last (7 b) % 61 keys (a few a row; row 0 none)."""
     dt = getattr(torch, dtype)
     if layout == "fused_qkv":
         qkv = torch.randn(B, Sq, 3, H, D, device="cuda", generator=gen).to(dt)
@@ -1484,7 +1515,11 @@ def _flash_inputs(torch, gen, B, Sq, Skv, H, Hkv, D, bias, dtype,
     dout = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dt)
     kb = None
     keep = torch.ones(B, Skv, dtype=torch.bool, device="cuda")
-    if bias:
+    if bias == "bert":
+        for bi in range(1, B):
+            keep[bi, Skv - (7 * bi) % 61:] = False
+        kb = torch.where(keep, 0.0, -1e4).float()
+    elif bias:
         for bi in range(B):
             keep[bi, Skv - 17 * (bi + 1):] = False
         keep[1] = False
@@ -1573,6 +1608,10 @@ def check_flash(card, torch):
         lib = {}
         if name == "path":
             lib = lib_path = library_sdpa(torch, q, k, v, dout, causal)
+        elif name == "bert_key_bias":
+            # the same additive key bias as SDPA's attn_mask
+            lib = library_sdpa(torch, q, k, v, dout, causal,
+                               keep=kb.to(q.dtype)[:, None, None, :])
         for kernel, (fn_k, fn_p, nbytes, ops, outs) in rows.items():
             bnd, by = bound_ms(nbytes, ops, dtype)
             err = max(errs[o][0] if o != "lse" else errs[o] for o in outs)
@@ -1593,7 +1632,8 @@ def check_flash(card, torch):
         del q, k, v, dout, got, plain, out, dq
         torch.cuda.empty_cache()
     say(card, "flash_attention library_ms: torch scaled_dot_product_attention"
-              "(is_causal=True) forward; its backward through autograd (device "
+              "(is_causal=True) forward (bert_key_bias: with the key bias as "
+              "its additive attn_mask); its backward through autograd (device "
               "time, forward and backward in one CUDA graph less the forward), "
               "one figure for dq and dk/dv together, listed under both; the "
               "path's backward measured three times: "
@@ -1676,8 +1716,9 @@ def library_sdpa(torch, q, k, v, dout, causal, keep=None):
     (never called by the port), CUDA-graph replays as for the kernels: the
     forward, and the backward through autograd as the time of forward and
     backward captured together less the forward's. k and v are expanded to
-    the query heads first (not timed); `keep` [B, H, Sq, Skv], where given,
-    is the bool attn_mask, else `causal` is is_causal. The backward is
+    the query heads first (not timed); `keep`, where given, is the
+    attn_mask (bool [B, H, Sq, Skv], or additive and broadcasting to it),
+    else `causal` is is_causal. The backward is
     measured three times; the median is the yardstick, `bwd_runs` the
     spread."""
     g = q.shape[2] // k.shape[2]
@@ -3603,7 +3644,7 @@ def train_hold(card, torch, which):
     _hold_verdict(card, which, results, B, S)
 
 
-def _hold_verdict(card, which, results, B, S):
+def _hold_verdict(card, which, results, B, S, model=None):
     """Print and hold a training hold: `results` maps "cuda" and "cpu" to
     (losses, step-1 gradients by name, seconds); the losses within
     TRAIN_HOLD_LOSS_RTOL, each gradient's max |diff| within
@@ -3617,7 +3658,7 @@ def _hold_verdict(card, which, results, B, S):
                 for k, g in g_cpu.items()}
     worst = max(grad_rel, key=grad_rel.get)
     say(card, f"train hold {which} " + json.dumps({
-        "model": f"{which} widths, 2 layers", "dtype": "float32",
+        "model": model or f"{which} widths, 2 layers", "dtype": "float32",
         "batch": B, "seq": S, "losses_cuda": l_gpu, "losses_cpu": l_cpu,
         "max_loss_rel_diff": loss_rel, "loss_rtol": TRAIN_HOLD_LOSS_RTOL,
         "max_grad_rel_diff": grad_rel[worst], "worst_grad": worst,
@@ -4542,6 +4583,355 @@ def varlen_entry(card, torch):
 
 
 
+# --------------------------------------------------------------------------- #
+# phases 14-15: bench.py's bert_base rung
+# --------------------------------------------------------------------------- #
+
+BERT_RUNG = dict(batch=32, seq=512, n_mask=80)
+# the flash forward, dQ and dK/dV once a layer and the norms (the
+# embedding's, two a layer, the MLM head's transform_norm) a step
+BERT_PER_STEP = dict(flash_fwd=12, flash_bwd_dq=12, flash_bwd_dkv=12,
+                     fused_norm=26, fused_norm_dx=26)
+
+
+def bert_flops(cfg, batch, seq, n_mask):
+    """bench.py:397-402: 6 x the encoder's 12 h^2 a layer per token, the
+    attention's 12 L h seq per token, and the MLM decode on the masked
+    slots."""
+    h, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    return (6.0 * 12 * L * h * h * batch * seq + 12.0 * L * h * seq * batch * seq
+            + 6.0 * batch * n_mask * h * V)
+
+
+def bert_inputs(torch, cfg, device, batch, seq, n_mask, seed=0, padded=False):
+    """bench.py:388-393's step inputs ([ids, token types, attention mask,
+    masked positions], [MLM labels, NSP labels]); `padded` pads the last
+    37 (b + 1) % seq keys of row b."""
+    rng = np.random.default_rng(seed)
+    am = np.ones((batch, seq), np.float32)
+    if padded:
+        for b in range(batch):
+            am[b, seq - (37 * (b + 1)) % seq:] = 0
+    xs = [rng.integers(0, cfg.vocab_size, (batch, seq)),
+          np.zeros((batch, seq), np.int32), am,
+          rng.integers(0, seq, (batch, n_mask))]
+    ys = [rng.integers(0, cfg.vocab_size, (batch, n_mask)),
+          rng.integers(0, 2, (batch,))]
+    return ([torch.as_tensor(x, device=device) for x in xs],
+            [torch.as_tensor(y, device=device) for y in ys])
+
+
+def bert_setup(torch, cfg, device, recipe, seed=0):
+    """(model, criterion, step) of bench.py's run_bert_rung recipe
+    (recipe "O2": AMP O2 bf16, f32 parameters and AdamW moments, lr 1e-4;
+    None: f32) through DistributedTrainStep without a mesh (bench.py's
+    one-device mesh)."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.models import BertForPretraining, BertPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = BertForPretraining(cfg, device=device, seed=seed)
+    crit = BertPretrainingCriterion(cfg)
+    step = DistributedTrainStep(
+        model, lambda mlm, nsp, ml, nl: crit(mlm, nsp, ml, nl),
+        AdamW(learning_rate=1e-4, parameters=model.parameters()),
+        amp_level=recipe, amp_dtype="bfloat16")
+    return model, crit, step
+
+
+def _changed_and_grads(torch, model, step, xs, ys, watch):
+    """One step: the parameters it left unchanged, and the gradient norms
+    of `watch` it saw."""
+    named = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in named.items()}
+    seen = {}
+    hooks = [named[k].register_post_accumulate_grad_hook(
+        lambda t, k=k: seen.__setitem__(k, t.grad.float().norm().item()))
+        for k in watch]
+    loss = step(xs, ys).item()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    unchanged = [k for k, p in named.items() if torch.equal(p.detach(), before[k])]
+    return loss, unchanged, seen
+
+
+def train_bert(card, torch):
+    """bench.py's run_bert_rung at full size on the card: bert_base,
+    batch 32 x 512, 80 masked positions, dropouts 0, AdamW lr 1e-4, AMP O2
+    bf16, through DistributedTrainStep. A warm-up step (every parameter
+    must change; gradients must reach the word embedding and layer 0's
+    norm1), three timed steps with the launch counters zeroed just before
+    and read just after (BERT_PER_STEP a step, every attention through the
+    flash kernels with the key bias), a profile of one step, then one step
+    on a padded attention mask: the same launches, a finite loss."""
+    from paddle_tpu_torch.models import bert_base
+
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    B, S, M = BERT_RUNG["batch"], BERT_RUNG["seq"], BERT_RUNG["n_mask"]
+    timed = 3
+    t0 = time.perf_counter()
+    model, _, step = bert_setup(torch, cfg, "cuda", "O2")
+    xs, ys = bert_inputs(torch, cfg, "cuda", B, S, M)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    say(card, f"train bert_base: {n_params} parameters, built in "
+              f"{time.perf_counter() - t0:.3f} s")
+    watch = ("bert.embeddings.word_embeddings.weight",
+             "bert.encoder.layers.0.norm1.weight")
+    t0 = time.perf_counter()
+    loss0, unchanged, seen = _changed_and_grads(torch, model, step, xs, ys,
+                                                watch)
+    warm_s = time.perf_counter() - t0
+    if unchanged:
+        raise AssertionError(f"train bert_base: parameters unchanged by step "
+                             f"1: {unchanged}")
+    if sorted(seen) != sorted(watch) or not all(
+            math.isfinite(g) and g > 0 for g in seen.values()):
+        raise AssertionError(f"train bert_base: gradient norms {seen}")
+
+    _zero_counters()
+    reset_peak(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(xs, ys) for _ in range(timed)]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _counters()
+    want = _expected(**{k: v * timed for k, v in BERT_PER_STEP.items()})
+    losses = [loss0] + [l.item() for l in losses]
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"train bert_base: non-finite loss {losses}")
+    if launches != want:
+        raise AssertionError(f"train bert_base: kernel launches {launches} "
+                             f"over {timed} steps, expected {want}")
+    step_s = total_s / timed
+    flops = bert_flops(cfg, B, S, M)
+    line = {
+        "model": "bert_base", "recipe": "AMP O2 bf16, f32 parameters and "
+        "AdamW moments, lr 1e-4, dropouts 0", "batch": B, "seq": S,
+        "n_mask": M, "parameters": n_params, "losses": losses,
+        "warmup_step_s": warm_s, "timed_steps": timed, "step_s": step_s,
+        "tokens_per_s": B * S / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_BF16,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "grad_norms_watched": seen, "launches": launches,
+        "launches_per_step": BERT_PER_STEP}
+    say(card, "train bert_base (smoke run, not a benchmark) " + json.dumps(line))
+    profile_step(card, torch, lambda: step(xs, ys), "train bert_base step")
+
+    xs_p, ys_p = bert_inputs(torch, cfg, "cuda", B, S, M, seed=1, padded=True)
+    _zero_counters()
+    loss_p = step(xs_p, ys_p).item()
+    torch.cuda.synchronize()
+    padded = _counters()
+    say(card, "train bert_base padded mask " + json.dumps({
+        "padded_keys": int((xs_p[2] == 0).sum()), "loss": loss_p,
+        "launches": padded}))
+    if padded != _expected(**BERT_PER_STEP) or not math.isfinite(loss_p):
+        raise AssertionError(f"train bert_base padded: launches {padded}, "
+                             f"loss {loss_p}")
+    del step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_train_hold(card, torch):
+    """The bert step on the card (kernels: the f32 flash kernels with the
+    key bias, the f32 norm kernels) and on the CPU (plain versions) at
+    bert_base's widths with 2 layers, batch 2 x 128, 20 masked positions,
+    a padded attention mask, f32 (TF32 off): three AdamW steps from the
+    same weights; the losses and the step-1 gradients within the train
+    hold's tolerances."""
+    from paddle_tpu_torch.models import bert_base
+
+    cfg = bert_base(num_layers=2, hidden_dropout_prob=0.0,
+                    attention_dropout_prob=0.0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S, M, steps = 2, 128, 20, 3
+    results, state = {}, None
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model, crit, step = bert_setup(torch, cfg, dev, None, seed=2)
+        if state is None:
+            state = {k: v.cpu() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        xs, ys = bert_inputs(torch, cfg, dev, B, S, M, seed=4, padded=True)
+        crit(*model(*xs), *ys).backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        losses = [step(xs, ys).item() for _ in range(steps)]
+        results[dev] = (losses, grads, time.perf_counter() - t0)
+        del model, step
+    _hold_verdict(card, "bert_base", results, B, S)
+
+
+# --------------------------------------------------------------------------- #
+# phases 16-17: bench.py's resnet50 rung
+# --------------------------------------------------------------------------- #
+
+RESNET_RUNG = dict(batch=128, hw=224, fwd_flops=4.1e9)
+# cuDNN picks each conv's algorithm by its heuristics for the shape (no
+# benchmark mode), and the card's choice (implicit GEMM, Winograd, FFT)
+# rounds otherwise than the CPU's: with TF32 off every one computes in
+# f32, and its step-1 gradients came within 1.3e-5 of the float64 ones
+# (of each tensor's largest entry, resnet18 at this hold's weights and
+# images), which three steps through 20 batch norms carry to the losses
+# and the running statistics within RESNET_STATS_TOL of each tensor's
+# largest entry. TF32 (cuDNN's default for f32 convs) rounds each product
+# to 10 bits and would not hold them. The CPU side runs in float64: on the
+# same weights the CPU's own f32 convs (oneDNN) missed its float64
+# gradients by 10.6% of layer2.1.conv1's largest entry (the card's f32:
+# 1.3e-5), so an f32 CPU run is no oracle for the card's.
+RESNET_STATS_TOL = 1e-4
+
+
+def resnet_setup(torch, model, recipe, lr):
+    """bench.py:466-473's step: Momentum(lr, 0.9), cross entropy, AMP
+    `recipe` (O2 bf16, or None: f32) through DistributedTrainStep without
+    a mesh."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    return DistributedTrainStep(
+        model, lambda lg, lb: F.cross_entropy(lg, lb),
+        Momentum(learning_rate=lr, momentum=0.9, parameters=model.parameters()),
+        amp_level=recipe, amp_dtype="bfloat16")
+
+
+def _batch_norms(model):
+    from paddle_tpu_torch.nn import BatchNorm2D
+
+    return {n: m for n, m in model.named_modules() if isinstance(m, BatchNorm2D)}
+
+
+def train_resnet(card, torch):
+    """bench.py's run_resnet_rung at full size on the card: resnet50,
+    batch 128 x 3 x 224 x 224, Momentum lr 0.1 / 0.9, AMP O2 bf16 (f32
+    parameters: bench.py decorates nothing, and batch_norm runs in f32 as a
+    black-list op) through DistributedTrainStep. A warm-up step (every
+    conv weight must change, the running statistics must move), three
+    timed steps with the launch counters zeroed just before and read just
+    after (no hand-written kernel: the convs are cuDNN's, the batch norms
+    plain torch ops), every batch norm's parameters and statistics still
+    f32, and a profile of one step."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    B, HW = RESNET_RUNG["batch"], RESNET_RUNG["hw"]
+    timed = 3
+    t0 = time.perf_counter()
+    model = resnet50(device="cuda")
+    step = resnet_setup(torch, model, "O2", 0.1)
+    rng = np.random.default_rng(0)
+    img = torch.as_tensor(rng.normal(size=(B, 3, HW, HW)).astype(np.float32),
+                          device="cuda")
+    lab = torch.as_tensor(rng.integers(0, 1000, (B, 1)), device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    bns = _batch_norms(model)
+    torch.cuda.synchronize()
+    say(card, f"train resnet50: {n_params} parameters, {len(bns)} batch "
+              f"norms, built in {time.perf_counter() - t0:.3f} s")
+    convs = [k for k in dict(model.named_parameters())
+             if k.endswith("weight") and model.get_parameter(k).dim() == 4]
+    stats = {n: (m._mean.clone(), m._variance.clone()) for n, m in bns.items()}
+    t0 = time.perf_counter()
+    loss0, unchanged, _ = _changed_and_grads(torch, model, step, img, lab, ())
+    warm_s = time.perf_counter() - t0
+    still = [n for n, m in bns.items()
+             if torch.equal(m._mean, stats[n][0]) or torch.equal(m._variance, stats[n][1])]
+    if [k for k in unchanged if k in convs] or still:
+        raise AssertionError(f"train resnet50: unchanged conv weights "
+                             f"{unchanged}, batch norms whose statistics did "
+                             f"not move {still}")
+
+    _zero_counters()
+    reset_peak(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(img, lab) for _ in range(timed)]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _counters()
+    losses = [loss0] + [l.item() for l in losses]
+    dtypes = sorted({str(t.dtype) for m in bns.values()
+                     for t in (m.weight, m.bias, m._mean, m._variance)})
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"train resnet50: non-finite loss {losses}")
+    if launches != _expected():
+        raise AssertionError(f"train resnet50: kernel launches {launches}, "
+                             "expected none")
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"train resnet50: batch norm dtypes {dtypes}")
+    step_s = total_s / timed
+    flops = 3.0 * RESNET_RUNG["fwd_flops"] * B
+    line = {
+        "model": "resnet50", "recipe": "AMP O2 bf16, f32 parameters, "
+        "Momentum lr 0.1 momentum 0.9", "batch": B, "image": [3, HW, HW],
+        "parameters": n_params, "losses": losses, "warmup_step_s": warm_s,
+        "timed_steps": timed, "step_s": step_s, "images_per_s": B / step_s,
+        "flops_per_step": flops, "mfu": flops / step_s / PEAK_BF16,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "batch_norm_dtypes": dtypes, "launches": launches}
+    say(card, "train resnet50 (smoke run, not a benchmark) " + json.dumps(line))
+    profile_step(card, torch, lambda: step(img, lab), "train resnet50 step")
+    del step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_train_hold(card, torch):
+    """The resnet step on the card in f32 (TF32 off) and on the CPU in
+    float64 (RESNET_RUNG's note): resnet18, batch 4 x 3 x 64 x 64, three
+    Momentum steps (lr 1e-3, 0.9) from the same weights; the losses and
+    the step-1 gradients within the train hold's tolerances, the running
+    statistics within RESNET_STATS_TOL."""
+    from paddle_tpu_torch.vision.models import resnet18
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, HW, steps = 4, 64, 3
+    rng = np.random.default_rng(4)
+    img = rng.normal(size=(B, 3, HW, HW)).astype(np.float32)
+    lab = rng.integers(0, 1000, (B, 1))
+    results, state, stats = {}, None, {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        t0 = time.perf_counter()
+        model = resnet18(device=dev, seed=2)
+        if state is None:
+            state = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        model.to(dt)
+        step = resnet_setup(torch, model, None, 1e-3)
+        x = torch.as_tensor(img, device=dev).to(dt)
+        y = torch.as_tensor(lab, device=dev)
+        step.loss_fn(model(x), y).backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        model.load_state_dict(state)   # the backward's forward moved the statistics
+        losses = [step(x, y).item() for _ in range(steps)]
+        stats[dev] = {k: v.cpu().double() for k, v in model.state_dict().items()
+                      if "._" in k}
+        results[dev] = (losses, grads, time.perf_counter() - t0)
+        del model, step
+    stats_err = max(((stats["cuda"][k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in stats["cpu"].items())
+    say(card, "train hold resnet18 running statistics " + json.dumps({
+        "max_rel_diff": stats_err, "tol": RESNET_STATS_TOL,
+        "batch_norms": len(stats["cpu"]) // 2}))
+    _hold_verdict(card, "resnet18", results, B, HW,
+                  model=f"resnet18, images {HW} x {HW} (seq: the side); the "
+                  "CPU side in float64")
+    if not stats_err <= RESNET_STATS_TOL:
+        raise AssertionError("train hold resnet18: the running statistics "
+                             "disagree")
+
+
 def main():
     import torch
 
@@ -4601,13 +4991,18 @@ def main():
     ep_launches = train_moe_expert_parallel(card, torch, moe_line)
     moe_train_hold(card, torch)
     varlen_launches = varlen_entry(card, torch)
+    bert_launches = train_bert(card, torch)
+    bert_train_hold(card, torch)
+    resnet_launches = train_resnet(card, torch)
+    resnet_train_hold(card, torch)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
     paths = (serve_launches, quant_launches, dense_launches, mmha_launches,
              train_launches, sharded_launches, tp_launches, pipe_launches,
              cp_launches, llama_serve_launches,
-             llama_train_launches, moe_launches, ep_launches, varlen_launches)
+             llama_train_launches, moe_launches, ep_launches, varlen_launches,
+             bert_launches, resnet_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"

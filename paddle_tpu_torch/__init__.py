@@ -31,7 +31,10 @@ and `bench.py`'s gpt3_moe step; packed-document attention
 (`nn.functional.flash_attn_unpadded`) through the varlen forward, dq and
 dk/dv kernels; the hybrid-parallel step over ranks (`distributed`: data,
 ZeRO, tensor, sequence and pipeline parallelism, the schedules in
-`parallel`). See ROADMAP.md for the rest.
+`parallel`); BERT (`models.bert`, on `nn.TransformerEncoder`, its
+key-padding mask through the flash kernels' key bias) and the ResNet
+family (`vision.models`: conv, pooling, batch norm with Paddle's running
+statistics) with `optimizer.Momentum`. See ROADMAP.md for the rest.
 """
 
 from .device import resolve_device

@@ -3,8 +3,9 @@
 `auto_cast(level="O1"|"O2", dtype=...)` is a context manager that sets the
 port's AMP state; `decorate(model, level="O2", dtype="bfloat16")` casts
 every float32 parameter to the AMP dtype in place, except those of
-`LayerNorm` layers and those marked `keep_fp32` (the pipelined GPT's
-stacked LayerNorm parameters).
+`LayerNorm` and batch-norm layers (`_BatchNormBase`: BatchNorm*,
+SyncBatchNorm), as the reference (:93-101), and those marked `keep_fp32`
+(the pipelined GPT's stacked LayerNorm parameters).
 
 The JAX package applies AMP in one place, an interceptor on every `run_op`.
 PyTorch has no such hook, so each functional of the port calls
@@ -100,17 +101,17 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None, master_grad=False,
              excluded_layers=None):
     """paddle.amp.decorate: under O2, cast every float32 parameter of the
-    models to `dtype` in place, keeping `LayerNorm` layers (and parameters
-    marked `keep_fp32`) in float32.
+    models to `dtype` in place, keeping `LayerNorm` and batch-norm layers
+    (and parameters marked `keep_fp32`) in float32.
     Optimizers passed along switch to multi-precision (an f32 master
     copy of each low-precision parameter)."""
-    from ..nn.layer.norm import LayerNorm
+    from ..nn.layer.norm import LayerNorm, _BatchNormBase
 
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)
     if level == "O2":
         target = _DTYPES[dtype]
-        keep = (LayerNorm,) + tuple(excluded_layers or ())
+        keep = (LayerNorm, _BatchNormBase) + tuple(excluded_layers or ())
         for m in model_list:
             for layer in m.modules():
                 if isinstance(layer, keep):

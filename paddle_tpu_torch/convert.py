@@ -1,10 +1,12 @@
 """Move weights and optimizer state from the JAX package into the port.
 
 Both packages use the same parameter and buffer names and layouts
-(Paddle's: a Linear weight is [in, out]; after `ptq_convert_for_serving` a
-projection holds an int8 `weight_quant`, an f32 `weight_scale` [1, out] and
-its `bias`), so `load_paddle_tpu_state` copies each array into the port
-tensor of the same name, cast to that tensor's dtype and placed on its
+(Paddle's: a Linear weight is [in, out], a conv weight [out, in / groups,
+*k]; a batch norm's running statistics are the f32 buffers `_mean` and
+`_variance`; after `ptq_convert_for_serving` a projection holds an int8
+`weight_quant`, an f32 `weight_scale` [1, out] and its `bias`), so
+`load_paddle_tpu_state` copies each array into the port tensor of the same
+name, cast to that tensor's dtype and placed on its
 device, and `load_paddle_tpu_opt_state` carries a JAX
 `TrainStep`'s optimizer state (m, v and an optional f32 master per
 parameter name) and step count into the port's optimizer, so both packages

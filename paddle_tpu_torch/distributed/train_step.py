@@ -43,6 +43,13 @@ that must see plain tensors, and the shards follow the reference's
   `loss_fn` that notes no reduction (or more than one), or a batch that no
   rank cuts, keeps the equal-count mean (loss_r * 1), which is exact for
   the even splits of the batch rule.
+- **Batch norm.** Its batch statistics are those of the global batch, as
+  the reference's over its global arrays: the forward runs inside
+  `nn.functional.batch_stats_over` the batch ranks' group, so each batch
+  norm all-reduces its per-channel count, sum and centred sum of squares
+  over it (and the sums of its backward), over one rank too. The running
+  statistics (buffers) then move alike on every rank, once a step; they
+  are not cut by any stage, and `evaluate` leaves them alone.
 - **Tensor and sequence parallelism.** Over the mesh's mp group the model
   is cut in place (`fleet.layers.mpu.shard_model`) before anything else:
   its tensor-parallel layers keep their shards and run their collectives,
@@ -129,6 +136,7 @@ import torch.utils.checkpoint
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..jit import TrainStep
+from ..nn.functional.norm import batch_stats_over
 from ..parallel import pipeline as _pipeline
 from . import collective as C
 from . import env as _env
@@ -318,6 +326,7 @@ class DistributedTrainStep(TrainStep):
                                      "context_parallel", False))
         self._token_axes = batch_axes + ("sep",) * self._seq_cut
         self._token_pg = _env.mesh_group(mesh, self._token_axes)
+        self._batch_pg = _env.mesh_group(mesh, batch_axes)
         self._shard_pg = _env.mesh_group(mesh, "sharding")
         self._mp_pg = _env.mesh_group(mesh, "mp")
         self._pp_pg = _env.mesh_group(mesh, "pp")
@@ -697,6 +706,7 @@ class DistributedTrainStep(TrainStep):
             # and a stage-3 block lets go of its gathered parameters there
             stack.enter_context(
                 torch.utils.checkpoint.set_checkpoint_early_stop(False))
+            stack.enter_context(batch_stats_over(self._batch_pg))
             if self.sharding_stage == 3 and self._reducing:
                 self._in_forward = True
                 stack.callback(setattr, self, "_in_forward", False)

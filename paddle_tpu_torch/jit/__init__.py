@@ -18,6 +18,12 @@ optimizer clip with a `clip_norm` (`ClipGradByGlobalNorm`, and
 every gradient) scales every gradient by clip_norm / max(norm, clip_norm);
 `ClipGradByValue` is not applied by the step, as in the reference.
 
+Buffers (a batch norm's running statistics) are the model's own tensors,
+which its forward updates in place in training: once a step, as the
+reference threads them through its program and returns their new values
+(:58-112, :464-465); `evaluate` runs the model in eval mode and leaves
+them alone.
+
 A model with `pp_schedule == "1f1b"` (`models.GPTForCausalLMPipe`) takes
 the reference's `forward_loss` route (:315-320, :336-340): the step calls
 `model.forward_loss(input_ids, labels, criterion, *more_labels)` (the

@@ -1,3 +1,6 @@
+from .bert import (BertConfig, BertForPretraining,
+                   BertForSequenceClassification, BertModel,
+                   BertPretrainingCriterion, bert_base, bert_tiny)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel, GPTPretrainingCriterion,
                   gpt3_1p3b, gpt3_6p7b, gpt3_13b, gpt3_125m, gpt3_350m,
                   gpt3_tiny)
@@ -6,7 +9,9 @@ from .gpt_pipe import (GPTForCausalLMPipe, stack_layered_state_dict,
 from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, llama_7b,
                     llama_13b, llama_tiny)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "GPTPretrainingCriterion",
+__all__ = ["BertConfig", "BertForPretraining", "BertForSequenceClassification",
+           "BertModel", "BertPretrainingCriterion", "bert_base", "bert_tiny",
+           "GPTConfig", "GPTForCausalLM", "GPTModel", "GPTPretrainingCriterion",
            "gpt3_tiny", "gpt3_125m", "gpt3_350m", "gpt3_1p3b", "gpt3_6p7b",
            "gpt3_13b", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "llama_tiny", "llama_7b", "llama_13b", "GPTForCausalLMPipe",

@@ -1,6 +1,6 @@
-"""Common functionals (↔ paddle_tpu/nn/functional/common.py): `linear` and
-`embedding`, each casting its inputs for AMP at the op boundary under the
-JAX package's op name."""
+"""Common functionals (↔ paddle_tpu/nn/functional/common.py): `linear`,
+`embedding` and `dropout`, each casting its inputs for AMP at the op
+boundary under the JAX package's op name."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 
 from ... import amp
 
-__all__ = ["embedding", "linear"]
+__all__ = ["dropout", "embedding", "linear"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -26,3 +26,19 @@ def embedding(x, weight, name=None):
     gradients come with the rest of the nn surface, ROADMAP A3)."""
     (weight,) = amp.cast_inputs("embedding", weight)
     return weight[x.long()]
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Dropout (↔ :63): the identity at p = 0 or outside training, where
+    mode "downscale_in_infer" scales by 1 - p. Dropping at p > 0 in
+    training raises: the mask needs an explicit generator (ROADMAP queue A
+    item 4)."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            (x,) = amp.cast_inputs("dropout_scale", x)
+            return x * (1.0 - p)
+        return x
+    raise NotImplementedError(
+        f"dropout at p = {p} in training needs an explicit generator "
+        "(ROADMAP queue A item 4); set the dropout probabilities to 0")

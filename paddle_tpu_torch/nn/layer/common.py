@@ -1,4 +1,5 @@
-"""Linear and Embedding (↔ paddle_tpu/nn/layer/common.py).
+"""Linear, Embedding, Identity, Flatten and Dropout (↔
+paddle_tpu/nn/layer/common.py).
 
 Paddle's layout: `Linear.weight` is [in_features, out_features] and the
 layer computes x @ W + b (`nn.functional.linear`, which casts for AMP).
@@ -17,7 +18,8 @@ from torch import nn
 from ...device import resolve_device
 from .. import functional as F
 
-__all__ = ["Embedding", "Linear", "init_weight"]
+__all__ = ["Dropout", "Embedding", "Flatten", "Identity", "Linear",
+           "init_weight"]
 
 
 def init_weight(w, std, default, generator):
@@ -83,3 +85,41 @@ class Embedding(nn.Module):
 
     def extra_repr(self):
         return f"num_embeddings={self._num_embeddings}, embedding_dim={self._embedding_dim}"
+
+
+class Identity(nn.Module):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Flatten(nn.Module):
+    """Dims start_axis..stop_axis flattened into one (Paddle's defaults
+    1 and -1)."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        if x.dim() == 0:
+            return x.reshape(1)
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Dropout(nn.Module):
+    """`nn.functional.dropout` in the layer's mode: the identity at p = 0
+    or in eval mode; p > 0 in training raises (ROADMAP queue A item 4)."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}, mode={self.mode}"

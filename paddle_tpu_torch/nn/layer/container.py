@@ -2,12 +2,31 @@
 
 from __future__ import annotations
 
+import collections
+
 from torch import nn
 
-__all__ = ["LayerList"]
+__all__ = ["LayerList", "Sequential"]
 
 
 class LayerList(nn.ModuleList):
     """paddle.nn.LayerList (↔ container.py:44): torch's ModuleList under
     Paddle's name; sublayers are named "0", "1", ... in both packages, so
     state_dict keys agree."""
+
+
+class Sequential(nn.Sequential):
+    """paddle.nn.Sequential (↔ container.py:13): layers named "0", "1", ...,
+    or by the keys of one OrderedDict, or by the names of (name, layer)
+    pairs; called in order."""
+
+    def __init__(self, *layers):
+        if len(layers) == 1 and isinstance(layers[0], collections.OrderedDict):
+            super().__init__(layers[0])
+            return
+        super().__init__()
+        for i, layer in enumerate(layers):
+            if isinstance(layer, tuple):
+                self.add_module(layer[0], layer[1])
+            else:
+                self.add_module(str(i), layer)

@@ -1,6 +1,16 @@
-"""LayerNorm and RMSNorm (↔ paddle_tpu/nn/layer/norm.py): weight starts at
-one and bias at zero; forward goes through `nn.functional`, hence through the
-fused norm kernel on CUDA tensors."""
+"""LayerNorm, RMSNorm and the batch norms (↔ paddle_tpu/nn/layer/norm.py):
+weight starts at one and bias at zero; LayerNorm and RMSNorm go through
+`nn.functional`, hence through the fused norm kernel on CUDA tensors.
+
+The batch norms keep f32 running statistics in the buffers `_mean` (zeros)
+and `_variance` (ones), the reference's names (:47-48), which
+`nn.functional.batch_norm` updates in place in training (Paddle's momentum
+0.9, the biased batch variance; see there). `SyncBatchNorm` takes its
+batch statistics over a process group: the step's batch ranks inside a
+`DistributedTrainStep` (as every batch norm there does), else the world
+group when one is initialised, else this process's batch, where it equals
+`BatchNorm` as the reference's does in one process.
+"""
 
 from __future__ import annotations
 
@@ -10,7 +20,8 @@ from torch import nn
 from ...device import resolve_device
 from .. import functional as F
 
-__all__ = ["LayerNorm", "RMSNorm"]
+__all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "LayerNorm",
+           "RMSNorm", "SyncBatchNorm"]
 
 
 class LayerNorm(nn.Module):
@@ -51,3 +62,87 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)
+
+
+class _BatchNormBase(nn.Module):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = (None if weight_attr is False else nn.Parameter(
+            torch.ones(num_features, device=dev, dtype=dtype)))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(num_features, device=dev, dtype=dtype)))
+        self.register_buffer("_mean", torch.zeros(num_features, device=dev))
+        self.register_buffer("_variance", torch.ones(num_features, device=dev))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return (f"num_features={self._num_features}, momentum={self._momentum}, "
+                f"epsilon={self._epsilon}")
+
+
+class BatchNorm(_BatchNormBase):
+    pass
+
+
+class BatchNorm1D(_BatchNormBase):
+    pass
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, name=None, **kw):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, "NCHW" if data_format == "NCDHW"
+                         else data_format, use_global_stats, name, **kw)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """A batch norm over the batches of a process group (module
+    docstring)."""
+
+    def forward(self, x):
+        group = F.batch_stats_group()
+        if group is None and torch.distributed.is_initialized():
+            group = torch.distributed.group.WORLD
+        with F.batch_stats_over(group):
+            return super().forward(x)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """`layer` with every batch norm in it (itself included) replaced by
+        a SyncBatchNorm holding its parameters and statistics."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(layer, SyncBatchNorm):
+            ref = layer._mean
+            new = SyncBatchNorm(layer._num_features, layer._momentum,
+                                layer._epsilon, data_format=layer._data_format,
+                                device=ref.device)
+            with torch.no_grad():
+                for name in ("weight", "bias"):
+                    if getattr(layer, name) is not None:
+                        getattr(new, name).data = getattr(layer, name).detach().clone()
+                new._mean.copy_(layer._mean)
+                new._variance.copy_(layer._variance)
+            return new
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer

@@ -1,5 +1,5 @@
 """paddle_tpu_torch.optimizer (↔ paddle_tpu/optimizer)."""
 
-from .optimizer import SGD, Adam, AdamW, Optimizer
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Adam", "AdamW", "Optimizer", "SGD"]
+__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "SGD"]

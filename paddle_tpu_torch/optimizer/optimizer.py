@@ -1,5 +1,5 @@
 """Optimizers (↔ paddle_tpu/optimizer/optimizer.py): `Optimizer`, `SGD`,
-`Adam`, `AdamW`.
+`Momentum`, `Adam`, `AdamW`.
 
 As in the JAX package, each optimizer defines a pure update rule,
 `init_state(p)` and `update(p, g, state, lr, ctx) -> (new_p, new_state)`,
@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Adam", "AdamW", "Optimizer", "SGD"]
+__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "SGD"]
 
 _LOW = (torch.bfloat16, torch.float16)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -135,6 +135,41 @@ class SGD(Optimizer):
         if wd:
             g = g + wd * p
         return p - lr * g, state
+
+
+class Momentum(Optimizer):
+    """v <- momentum * v + g (g with L2 `weight_decay` * p added), then
+    p <- p - lr * v, or p - lr * (g + momentum * v) with `use_nesterov`
+    (reference :206-226). The velocity is stored in f32 for a bf16/f16
+    parameter; the rule computes in the gradient's dtype, its scalars
+    rounded to it, as the reference's, and stores the result into the
+    velocity's."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def init_state(self, p):
+        dt = torch.float32 if p.dtype in _LOW else p.dtype
+        return {"velocity": torch.zeros_like(
+            p, dtype=dt, memory_format=torch.contiguous_format)}
+
+    def update(self, p, g, state, lr, ctx):
+        # the reference's Python scalars enter its jnp arithmetic in the
+        # gradient's dtype (weak typing): round them so here too
+        def s(x):
+            return torch.tensor(x, dtype=g.dtype).item()
+
+        wd, mu = ctx["weight_decay"], s(self._momentum)
+        if wd:
+            g = g + s(wd) * p
+        v = mu * state["velocity"].to(g.dtype) + g
+        upd = g + mu * v if self._nesterov else v
+        return p - s(lr) * upd, {"velocity": v}
 
 
 class Adam(Optimizer):

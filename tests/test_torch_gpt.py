@@ -249,6 +249,14 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.distributed.moe_comm",
             "paddle_tpu_torch.distributed.utils",
             "paddle_tpu_torch.distributed.utils.moe_utils",
+            "paddle_tpu_torch.nn.layer.transformer",
+            "paddle_tpu_torch.nn.layer.conv",
+            "paddle_tpu_torch.nn.layer.pooling",
+            "paddle_tpu_torch.nn.functional.conv",
+            "paddle_tpu_torch.nn.functional.pooling",
+            "paddle_tpu_torch.models.bert",
+            "paddle_tpu_torch.vision.models.resnet",
+            "paddle_tpu_torch.vision.models._blocks",
             } <= set(
                 _port_modules())
     code = (
@@ -270,7 +278,8 @@ def test_no_port_file_names_jax_in_an_import():
         ROOT / "tests" / "torch_tp_cases.py",
         ROOT / "tests" / "torch_pp_cases.py",
         ROOT / "tests" / "torch_sep_cases.py",
-        ROOT / "tests" / "torch_ep_cases.py"]
+        ROOT / "tests" / "torch_ep_cases.py",
+        ROOT / "tests" / "torch_model_dp_cases.py"]
     offenders = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

@@ -5,7 +5,9 @@ whose cases are in `tests/torch_tp_cases.py`, and
 `tests/torch_pp_cases.py`, `tests/test_torch_ring_attention.py`, whose
 cases are in `tests/torch_sep_cases.py`, and
 `tests/test_torch_expert_parallel.py`, whose cases are in
-`tests/torch_ep_cases.py`).
+`tests/torch_ep_cases.py`, and `tests/test_torch_bert.py` and
+`tests/test_torch_resnet.py`, whose cases are in
+`tests/torch_model_dp_cases.py`).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -459,12 +461,25 @@ def expert_parallel_cases(rank, world, inp):
     return cases(rank, world, inp)
 
 
+def bert_dp_cases(rank, world, inp):
+    from torch_model_dp_cases import bert_cases
+
+    return bert_cases(rank, world, inp)
+
+
+def resnet_dp_cases(rank, world, inp):
+    from torch_model_dp_cases import resnet_cases
+
+    return resnet_cases(rank, world, inp)
+
+
 SUITES = {"collective": collective_cases, "sharding": sharding_cases,
           "tensor_parallel": tensor_parallel_cases,
           "pipeline": pipeline_cases, "pipeline_gate": pipeline_gate_cases,
           "segment_parallel": segment_parallel_cases,
           "segment_gate": segment_gate_cases,
-          "expert_parallel": expert_parallel_cases}
+          "expert_parallel": expert_parallel_cases,
+          "bert_dp": bert_dp_cases, "resnet_dp": resnet_dp_cases}
 
 
 def main():
