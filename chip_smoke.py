@@ -9,15 +9,16 @@ Phases; any failure raises and the script exits non-zero:
                 process per source, in parallel), load it. The Hopper
                 kernels' instantiations, one line each for the bf16
                 attention forward (flash, flashmask and varlen at head dims
-                64 and 128), the bf16 backward (dQ and dK/dV of flash,
-                flashmask and varlen at 64 and 128) and the bf16 grouped GEMM
+                64, 128 and 192), the bf16 backward (dQ and dK/dV of flash,
+                flashmask and varlen at 64, 128 and 192) and the bf16 grouped GEMM
                 (weights read as they are and transposed): registers and
                 spills from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
                 instructions from `cuobjdump -sass`; none may spill or
                 lack either. The fused RoPE's twelve instantiations
                 (`fused_rope ptxas`) and the norm dx's eighteen
-                (`fused_norm_dx ptxas`): registers and spills; none may
-                spill.
+                (`fused_norm_dx ptxas`) and the f32 attention tile kernels'
+                nine at the 192 width (`flash_tiles 192 ptxas`): registers
+                and spills; none may spill.
 2. kernels    — each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes its path gives it and a few edge
                 shapes, in float32 and bfloat16: max error against a stated
@@ -81,7 +82,16 @@ Phases; any failure raises and the script exits non-zero:
                 at [32, 512, 12, 64], not causal, with BERT's f32 key bias
                 (-1e4 on a few padded keys a row, row 0 none; the library
                 call with it as SDPA's additive mask), and the norm forward
-                and dx in f32 at [16384, 768].
+                and dx in f32 at [16384, 768]; and unet_sd's shapes: the
+                flash forward, dq and dk/dv in bf16 at heads of 80
+                ([8, 1024, 8, 80], self-attention and cross-attention over
+                77 keys) and 160 ([8, 256, 8, 160], both; the 192-wide
+                tiles), at 160 in f32, the 192 width's edges (causal with
+                the offset off the tiles and GQA, a padded key bias, D 192
+                with Sq > Skv, f32 GQA), SDPA's time beside the four unet
+                rows; the norm forward and dx in f32 at its [8192, 640]
+                and [2048, 1280]; a flashmask and a varlen case at D 160;
+                a head of 193 raising.
 2b. faults    — the kernels built again from copies of csrc/, each with
                 one planted fault (a kv or q tile skipped, long rows
                 normalised 1% off; the flash backward's q steps without
@@ -114,9 +124,14 @@ Phases; any failure raises and the script exits non-zero:
                 page's v_scale; RoPE: the neox second half read one vector
                 late, the table row taken as 0 with a table per row, the
                 head chunk's start off by one where it crosses from q into
-                k): at its case every one must
+                k; at the 192 width: P V without the third 64-column panel,
+                the forward's and dQ's second 64-key half of each kv tile
+                skipped, the dK half of the split dK/dV computing dV
+                alone): at its case every one must
                 fail the limits of phase 2. Only the sources a fault
-                touches are compiled again.
+                touches are compiled again; a fault in a header that the
+                flash, flashmask and varlen sources share reaches only the
+                source its case runs (the others keep their objects).
 2c. clocks    — the varlen dQ and dK/dV at the path's shape rebuilt with
                 a time stamp at each CTA's start and end: the SMs' busy
                 share, the idle tail, and the durations replayed in launch
@@ -309,6 +324,23 @@ Phases; any failure raises and the script exits non-zero:
                 steps on the card in f32 (TF32 off) against the CPU in
                 float64 (RESNET_RUNG's note): losses, step-1 gradients and
                 the running statistics within tolerance.
+18. unet train — bench.py's unet_sd rung (run_unet_rung) at full size:
+                the UNet at base 320, channels x (1, 2, 4), 2 res blocks a
+                level, 8 heads (D 80 and 160), context 768, batch 8 of a
+                64 x 64 x 4 latent, a context of 77, AdamW lr 1e-4 with
+                bf16 moments, AMP O2 bf16 through DistributedTrainStep
+                (parameters f32, as bench.py leaves them). Per step 22
+                flash forwards, 22 dq, 22 dk/dv and 11 norm forwards and
+                11 dx, nothing else; every conv weight changes; finite
+                losses; the 46 group norms return f32. Step time,
+                latents/s, peak memory, a profile, and the group norms'
+                device time and share; then a GroupNorm that amp.decorate
+                cast: bf16 parameters, an f32 output.
+19. unet train hold — phase 18's widths at 1 res block a level, batch 2
+                of a 16 x 16 latent, a context of 8, three AdamW steps in
+                f32 (TF32 off) on the card (the f32 flash kernels at the
+                128 and 192 widths) against the CPU (oneDNN off): losses
+                and step-1 gradients within the train hold's tolerances.
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -577,16 +609,16 @@ SM90_KERNEL = re.compile(
 SM90_GG_KERNEL = re.compile(r"(gg_sm90_kernel)ILb([01])E")
 # the Hopper kernels' instantiations chip_smoke.py expects: the bf16
 # forward (csrc/flash_fwd_sm90.cuh) and the bf16 dQ and dK/dV
-# (csrc/flash_bwd_sm90.cuh) of flash, flashmask and varlen, at head dims 64
-# and 128, and the bf16 grouped GEMM
+# (csrc/flash_bwd_sm90.cuh) of flash, flashmask and varlen, at head dims 64,
+# 128 and 192, and the bf16 grouped GEMM
 # (csrc/grouped_gemm_sm90.cuh) against [E, K, N] weights (false) and
 # transposed [E, N, K] ones (true)
 SM90_EXPECTED = {
     "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>"
-                for m in ("CausalBias", "FlashMask", "Varlen") for d in (64, 128)],
+                for m in ("CausalBias", "FlashMask", "Varlen") for d in (64, 128, 192)],
     "backward": [f"{k}<{d}, {m}>" for m in ("CausalBias", "FlashMask", "Varlen")
                  for k in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
-                 for d in (64, 128)],
+                 for d in (64, 128, 192)],
     "grouped_gemm": [f"gg_sm90_kernel<{t}>" for t in ("false", "true")],
 }
 
@@ -647,6 +679,28 @@ def sm90_report(card, lib_path, log):
     return report
 
 
+TILE_KERNEL = re.compile(
+    r"(flash_(?:fwd|dq|dkv)_kernel)IfLi(\d+)E.*?(CausalBias|FlashMask|Varlen)")
+
+
+def tiles_ptxas(card, log):
+    """The f32 CUDA-core attention kernels' instantiations at the 192 width
+    (csrc/flash_tiles.cuh: forward, dQ and dK/dV under the three policies):
+    registers and spill-store bytes from nvcc's `-Xptxas -v`. Raises if one
+    is missing or spills (empty `log`: this process did not build)."""
+    def name_of(ln):
+        m = TILE_KERNEL.search(ln)
+        return f"{m[1]}<float, {m[2]}, {m[3]}>" if m and m[2] == "192" else None
+
+    got = ptxas_kernels(log, "", name_of)
+    say(card, "flash_tiles 192 ptxas " + json.dumps(got))
+    want = [f"{k}<float, 192, {m}>" for m in ("CausalBias", "FlashMask", "Varlen")
+            for k in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")]
+    bad = [n for n in want if log and (n not in got or got[n].get("spill_store_bytes"))]
+    if bad:
+        raise AssertionError(f"f32 tile instantiations at 192 missing or spilling: {bad}")
+
+
 def bound_ms(nbytes, ops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype]
@@ -673,7 +727,10 @@ NORM_CASES = [(16, 2048, "ln", BOTH, 0.0), (512, 2048, "ln", BOTH, 0.0),
               (8192, 4096, "rms", ("float32",), 0.0),
               (8192, 1024, "ln", ("float32",), 0.0),
               (8192, 2048, "ln", ("float32",), 1000.0),
-              (64, 16384, "ln", BOTH, 0.0), (16384, 768, "ln", ("float32",), 0.0)]
+              (64, 16384, "ln", BOTH, 0.0), (16384, 768, "ln", ("float32",), 0.0),
+              # unet_sd's norm2 at level 1 and level 2 / the mid block
+              (8192, 640, "ln", ("float32",), 0.0),
+              (2048, 1280, "ln", ("float32",), 0.0)]
 
 
 def _norm_inputs(torch, gen, R, N, kind, dtype, offset=0.0):
@@ -1285,7 +1342,8 @@ NORM_DX_CASES = [
     (512, 2048, "rms", "bfloat16", 0.5, 0), (16, 5120, "rms", "float32", 0.5, 0),
     (8192, 4096, "rms", "float32", 0.5, 0), (8192, 1024, "ln", "float32", 0.5, 0),
     (8192, 1024, "ln", "float32", 1000.0, 0), (8192, 2048, "ln", "float32", 0.5, 1),
-    (64, 12288, "ln", "float32", 0.5, 0), (16384, 768, "ln", "float32", 0.5, 0)]
+    (64, 12288, "ln", "float32", 0.5, 0), (16384, 768, "ln", "float32", 0.5, 0),
+    (8192, 640, "ln", "float32", 0.5, 0), (2048, 1280, "ln", "float32", 0.5, 0)]
 # the three steps' shapes, where FusedNorm.backward's dweight/dbias
 # reductions are timed beside dx (`wdb_ms`)
 NORM_DX_STEPS = [(8192, 2048, "ln"), (8192, 4096, "rms"), (8192, 1024, "ln")]
@@ -1482,7 +1540,26 @@ FLASH_CASES = {
     "unaligned_view_copy": (1, 200, 200, 8, 8, 64, True, False, "bfloat16"),
     # bert_base's attention at bench.py's rung: BERT's additive key bias
     "bert_key_bias": (32, 512, 512, 12, 12, 64, False, "bert", "bfloat16"),
+    # unet_sd's attention at bench.py's rung (batch 8, a 64 x 64 latent, 8
+    # heads, a context of 77): level 1 at 32 x 32 positions, heads of 80;
+    # level 2 and the mid block at 16 x 16, heads of 160 (the 192 width)
+    "unet_self_d80": (8, 1024, 1024, 8, 8, 80, False, False, "bfloat16"),
+    "unet_cross_d80": (8, 1024, 77, 8, 8, 80, False, False, "bfloat16"),
+    "unet_self_d160": (8, 256, 256, 8, 8, 160, False, False, "bfloat16"),
+    "unet_cross_d160": (8, 256, 77, 8, 8, 160, False, False, "bfloat16"),
+    "unet_self_d160_f32": (8, 256, 256, 8, 8, 160, False, False, "float32"),
+    # the 192 width's edges: causal with the offset off the tiles, GQA, a
+    # padded key bias, the full width, f32
+    "d160_causal_ragged_g2": (1, 333, 517, 8, 4, 160, True, False, "bfloat16"),
+    "d160_key_bias_padded_row": (3, 257, 257, 8, 8, 160, False, True,
+                                 "bfloat16"),
+    "d192_causal_sq_gt_skv": (1, 300, 200, 4, 4, 192, True, False, "bfloat16"),
+    "d192_causal_f32_g2": (1, 200, 300, 4, 2, 192, True, False, "float32"),
 }
+# the unet_sd rung's rows of the kernel table (PERF.md rows 1b-3e), each
+# timed beside SDPA's forward and backward on the same inputs
+FLASH_UNET = ("unet_self_d80", "unet_cross_d80", "unet_self_d160",
+              "unet_cross_d160")
 # how a case's q, k and v are laid out (default: three contiguous tensors):
 # "fused_qkv" slices one [B, S, 3, H, D] tensor (strided views the TMA maps
 # take as they are); "unaligned" views one flat buffer 2 bytes past its
@@ -1608,6 +1685,8 @@ def check_flash(card, torch):
         lib = {}
         if name == "path":
             lib = lib_path = library_sdpa(torch, q, k, v, dout, causal)
+        elif name in FLASH_UNET:
+            lib = library_sdpa(torch, q, k, v, dout, causal)
         elif name == "bert_key_bias":
             # the same additive key bias as SDPA's attn_mask
             lib = library_sdpa(torch, q, k, v, dout, causal,
@@ -1631,6 +1710,16 @@ def check_flash(card, torch):
                 main[kernel] = row
         del q, k, v, dout, got, plain, out, dq
         torch.cuda.empty_cache()
+    # past the widest tiles the wrappers raise: no plain version on the card
+    q = torch.zeros(1, 8, 1, fa.MAX_HEAD_DIM + 1, device="cuda",
+                    dtype=torch.bfloat16)
+    for fn in (lambda: fa.flash_fwd(q, q, q, False, 1.0),
+               lambda: fa.flash_attention_fwd(q.float(), q.float(), q.float())):
+        try:
+            fn()
+            failures.append(f"flash: head dim {q.shape[-1]} did not raise")
+        except ValueError:
+            pass
     say(card, "flash_attention library_ms: torch scaled_dot_product_attention"
               "(is_causal=True) forward (bert_key_bias: with the key bias as "
               "its additive attn_mask); its backward through autograd (device "
@@ -1777,6 +1866,8 @@ def flashmask_index(rng, B, Hm, S, n, kind):
 FLASHMASK_CASES = {
     "path": (4, 2048, 32, 8, 1, 128, True, 1, "trivial", "bfloat16"),
     "causal_n1_docs": (2, 1024, 8, 8, 1, 128, True, 1, "docs", "bfloat16"),
+    "causal_n1_docs_d160": (2, 1024, 8, 8, 1, 160, True, 1, "docs",
+                            "bfloat16"),
     "causal_n2_per_head_s1000_gqa": (1, 1000, 8, 2, 8, 128, True, 2, "docs",
                                      "bfloat16"),
     "full_n2_band_f32_d64": (1, 517, 4, 4, 1, 64, False, 2, "band", "float32"),
@@ -2123,6 +2214,8 @@ VARLEN_CASES = {
                                 "float32"),
     "cross_causal_gqa": ([300, 200, 500], [100, 400, 250], 8, 2, 128, True,
                          "bfloat16"),
+    "cross_causal_gqa_d160": ([300, 200, 500], [100, 400, 250], 8, 2, 160,
+                              True, "bfloat16"),
     "empty_k_segment_f32_d64": ([100, 60, 140], [120, 0, 100], 4, 4, 64,
                                 True, "float32"),
     "empty_k_segment_bf16": ([100, 60, 140], [120, 0, 100], 8, 2, 128, True,
@@ -2471,6 +2564,18 @@ KERNEL_FAULTS = {
     "rope: the head chunk's start off by one where it crosses from q into k": (
         "fused_rope.cu", "the chunk crosses into the next tensor", "h = 0;",
         "h = 1;", "rope train_neox"),
+    "fwd 192: P V drops the third 64-column panel": (
+        "flash_fwd_sm90.cuh", "// 16 keys: 2048 bytes of V rows",
+        "c < L::kPanels;", "c < (L::kPanels > 2 ? 2 : L::kPanels);",
+        "flash unet_self_d160"),
+    "fwd and dq 192: the second 64-key half of each kv tile skipped": (
+        "flash_fwd_sm90.cuh", "int sub_class(", "return kSkipTile;",
+        "return kSkipTile;\n  if (u % L::kHalves) return kSkipTile;",
+        "flash unet_cross_d160"),
+    "dk/dv 192: the dK half's CTAs compute dV alone": (
+        "flash_bwd_sm90.cuh", "flash_bwd_dkv_sm90_kernel(",
+        "kParts == 2 && blockIdx.x % 2 == 1;", "kParts == 2;",
+        "flash unet_self_d160"),
 }
 
 
@@ -2558,12 +2663,54 @@ def _fault_violations(torch, case):
     return _flash_violations(_flash_errs(got, plain), dtype)
 
 
+def _fault_source(case):
+    """The source whose kernels a fault's case launches, where a header is
+    shared by several: flash, varlen or flashmask attention's."""
+    kind = case.partition(" ")[0]
+    if kind in ("flash", "varlen"):
+        return {"flash": "flash_attention.cu", "varlen": "varlen_flash.cu"}[kind]
+    return "masked_flash.cu" if case in FLASHMASK_CASES else None
+
+
+def _route_fault(csrc, fname, source):
+    """Let only `source` see the fault planted in the header `fname` of the
+    copy csrc/: the faulty text moves to `fault_<fname>`, every header
+    that includes it (directly or not) gets a `fault_` copy including the
+    faulty ones, `source` includes those, and `fname` is restored. The
+    other sources hash as before, so their cached objects are reused
+    instead of compiled again with a fault their cases never run."""
+    import shutil
+
+    from paddle_tpu_torch.ops import _build
+
+    heads = {p.name: set(_build._INCLUDE.findall(p.read_text()))
+             for p in csrc.glob("*.cuh")}
+    reach, grew = {fname}, True
+    while grew:
+        grew = False
+        for h, deps in heads.items():
+            if h not in reach and deps & reach:
+                reach.add(h)
+                grew = True
+
+    def rerouted(text):
+        for h in reach:
+            text = text.replace(f'#include "{h}"', f'#include "fault_{h}"')
+        return text
+
+    for h in reach:
+        (csrc / f"fault_{h}").write_text(rerouted((csrc / h).read_text()))
+    shutil.copyfile(_build.CSRC / fname, csrc / fname)
+    (csrc / source).write_text(rerouted((csrc / source).read_text()))
+
+
 def planted_kernel_faults(card, torch):
     """The attention, grouped-GEMM, dense-decode and norm limits must fail
     faulty kernels: for each fault of KERNEL_FAULTS, the kernels are built again
     from a copy of csrc/ (in a temporary directory, all builds in parallel)
     with the fault planted, and held at its case against the plain versions
-    with phase 2's limits."""
+    with phase 2's limits. A fault in a header that several attention
+    sources share is seen by its case's source alone (`_route_fault`)."""
     import pathlib
     import shutil
     import tempfile
@@ -2584,6 +2731,9 @@ def planted_kernel_faults(card, torch):
             text = src.read_text()
             at = text.index(old, text.index(anchor))
             src.write_text(text[:at] + new + text[at + len(old):])
+            source = _fault_source(KERNEL_FAULTS[fault][4])
+            if fname.endswith(".cuh") and source:
+                _route_fault(csrc, fname, source)
             csrcs[fault] = csrc
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(csrcs)) as pool:
@@ -2644,11 +2794,10 @@ def _stamped_csrc(csrc, order):
     f = csrc / "flash_bwd_sm90.cuh"
     s = f.read_text()
     s = s.replace("constexpr int kStep = 64;", CTA_CLOCK_STAMP + "constexpr int kStep = 64;", 1)
-    for kern, call in (("flash_bwd_dq_sm90_kernel(", "  dq_consume<DT>("),
-                       ("flash_bwd_dkv_sm90_kernel(", "  dkv_consume<DT>(")):
+    for kern in ("flash_bwd_dq_sm90_kernel(", "flash_bwd_dkv_sm90_kernel("):
         at = s.index("  using L = ", s.index(kern))
         s = s[:at] + "  cta_clock(0);\n" + s[at:]
-        end = s.index(";\n", s.index(call, at)) + 2
+        end = s.index("\n}\n", at) + 1  # the kernel's closing brace
         s = s[:end] + "  __syncthreads();\n  cta_clock(1);\n" + s[end:]
     f.write_text(s)
     v = csrc / "varlen_flash.cu"
@@ -4932,6 +5081,219 @@ def resnet_train_hold(card, torch):
                              "disagree")
 
 
+# --------------------------------------------------------------------------- #
+# phases 18-19: bench.py's unet_sd rung
+# --------------------------------------------------------------------------- #
+
+UNET_RUNG = dict(batch=8, hw=64, ctx=77)
+# 11 attention blocks (2 down and 3 up at level 1, 2 down, the mid and 3 up
+# at level 2), each a self- and a cross-attention: 22 flash forwards, dQ
+# and dK/dV a step, 10 of each at head dim 80 and 12 at 160; each block's
+# norm2 LayerNorm (f32 under O2) the norm forward and dx. The 46 group
+# norms (17 ResBlocks x 2, 11 attention blocks, norm_out) are torch ops.
+UNET_PER_STEP = dict(flash_fwd=22, flash_bwd_dq=22, flash_bwd_dkv=22,
+                     fused_norm=11, fused_norm_dx=11)
+# the rung's widths (bench.py:420-423): heads of 640 / 8 = 80 and
+# 1280 / 8 = 160, a context of 768
+UNET_WIDTHS = dict(in_channels=4, out_channels=4, base_channels=320,
+                   channel_mult=(1, 2, 4), attention_levels=(1, 2),
+                   num_heads=8, context_dim=768)
+# the aten ops of a group norm and its backward (torch's CUDA kernels)
+GROUP_NORM_OPS = ("aten::native_group_norm", "aten::native_group_norm_backward")
+
+
+def unet_setup(torch, cfg, device, recipe, seed=0):
+    """(model, step) of bench.py's run_unet_rung recipe (:428-444):
+    MSELoss, AdamW(lr 1e-4, bf16 moments), AMP `recipe` ("O2" bf16 or None:
+    f32) through DistributedTrainStep without a mesh (bench.py's one-device
+    mesh); like bench.py, nothing is decorated: the parameters stay f32."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.models import UNetModel
+    from paddle_tpu_torch.nn import MSELoss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = UNetModel(cfg, device=device, seed=seed)
+    mse = MSELoss()
+    step = DistributedTrainStep(
+        model, lambda pred, target: mse(pred, target),
+        AdamW(learning_rate=1e-4, moment_dtype="bfloat16",
+              parameters=model.parameters()),
+        amp_level=recipe, amp_dtype="bfloat16")
+    return model, step
+
+
+def unet_inputs(torch, cfg, device, batch, hw, ctx_len, seed=0):
+    """bench.py:434-442's [noisy, t (int64), context] and noise target."""
+    rng = np.random.default_rng(seed)
+    noisy = rng.normal(size=(batch, cfg.in_channels, hw, hw)).astype(np.float32)
+    t = rng.integers(0, 1000, (batch,))
+    ctx = rng.normal(size=(batch, ctx_len, cfg.context_dim)).astype(np.float32)
+    noise = rng.normal(size=(batch, cfg.out_channels, hw, hw)).astype(np.float32)
+    return ([torch.as_tensor(a, device=device) for a in (noisy, t, ctx)],
+            torch.as_tensor(noise, device=device))
+
+
+def _group_norm_share(torch, fn):
+    """Device milliseconds of one call of `fn` in all, and in the group
+    norms' aten ops (GROUP_NORM_OPS, forward and backward, the kernels each
+    launched) by op, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    ops = {e.key: {"device_ms": e.device_time_total / 1e3, "calls": e.count}
+           for e in events if e.key in GROUP_NORM_OPS}
+    return busy, ops
+
+
+def train_unet(card, torch):
+    """bench.py's run_unet_rung at full size on the card: the UNet at
+    UNET_WIDTHS with 2 res blocks a level (453 M parameters), batch 8 of a
+    64 x 64 x 4 latent, a context of 77 x 768, t int64, AdamW lr 1e-4 with
+    bf16 moments, AMP O2 bf16 through DistributedTrainStep. A warm-up step
+    (every conv weight must change), three timed steps with the launch
+    counters zeroed just before and read just after (UNET_PER_STEP a step
+    and nothing else), finite losses, the group norms' parameters as the
+    recipe leaves them (f32) with f32 outputs, a profile of one step and the
+    group norms' share of its device time. Then a GroupNorm that
+    `amp.decorate` cast: bf16 parameters, f32 output under O2."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import UNetConfig
+    from paddle_tpu_torch.nn import GroupNorm
+
+    cfg = UNetConfig(num_res_blocks=2, **UNET_WIDTHS)
+    B, HW, L = UNET_RUNG["batch"], UNET_RUNG["hw"], UNET_RUNG["ctx"]
+    timed = 3
+    t0 = time.perf_counter()
+    model, step = unet_setup(torch, cfg, "cuda", "O2")
+    xs, noise = unet_inputs(torch, cfg, "cuda", B, HW, L)
+    n_params = sum(p.numel() for p in model.parameters())
+    norms = [m for m in model.modules() if isinstance(m, GroupNorm)]
+    torch.cuda.synchronize()
+    say(card, f"train unet_sd: {n_params} parameters, {len(norms)} group "
+              f"norms, built in {time.perf_counter() - t0:.3f} s")
+    convs = [k for k, p in model.named_parameters() if p.dim() == 4]
+    t0 = time.perf_counter()
+    loss0, unchanged, _ = _changed_and_grads(torch, model, step, xs, noise, ())
+    warm_s = time.perf_counter() - t0
+    if [k for k in unchanged if k in convs]:
+        raise AssertionError(f"train unet_sd: conv weights unchanged by step "
+                             f"1: {[k for k in unchanged if k in convs]}")
+
+    out_dtypes = set()
+    hooks = [m.register_forward_hook(lambda m, i, o: out_dtypes.add(str(o.dtype)))
+             for m in norms]
+    _zero_counters()
+    reset_peak(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(xs, noise) for _ in range(timed)]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _counters()
+    for h in hooks:
+        h.remove()
+    want = _expected(**{k: v * timed for k, v in UNET_PER_STEP.items()})
+    losses = [loss0] + [l.item() for l in losses]
+    param_dtypes = sorted({str(t.dtype) for m in norms for t in (m.weight, m.bias)})
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"train unet_sd: non-finite loss {losses}")
+    if launches != want:
+        raise AssertionError(f"train unet_sd: kernel launches {launches} over "
+                             f"{timed} steps, expected {want}")
+    if len(norms) != 46 or out_dtypes != {"torch.float32"}:
+        raise AssertionError(f"train unet_sd: {len(norms)} group norms with "
+                             f"outputs {out_dtypes}")
+    step_s = total_s / timed
+    line = {
+        "model": "unet_sd", "recipe": "AMP O2 bf16, f32 parameters, AdamW lr "
+        "1e-4 with bf16 moments", "batch": B, "latent": [4, HW, HW],
+        "context": [L, cfg.context_dim], "parameters": n_params,
+        "losses": losses, "warmup_step_s": warm_s, "timed_steps": timed,
+        "step_s": step_s, "latents_per_s": B / step_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "group_norms": len(norms), "group_norm_param_dtypes": param_dtypes,
+        "group_norm_output_dtypes": sorted(out_dtypes), "launches": launches,
+        "launches_per_step": UNET_PER_STEP}
+    say(card, "train unet_sd (smoke run, not a benchmark) " + json.dumps(line))
+    profile_step(card, torch, lambda: step(xs, noise), "train unet_sd step")
+    busy, ops = _group_norm_share(torch, lambda: step(xs, noise))
+    gn_ms = sum(o["device_ms"] for o in ops.values())
+    say(card, "train unet_sd group norms " + json.dumps({
+        "device_busy_ms": busy, "group_norm_device_ms": gn_ms,
+        "group_norm_share": gn_ms / busy if busy else None, "ops": ops}))
+    if not ops:
+        raise AssertionError("train unet_sd: no group norm in the profile")
+
+    gn = GroupNorm(32, 640, device="cuda")
+    amp.decorate(gn, level="O2", dtype="bfloat16")
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        y = gn(torch.randn(2, 640, 8, 8, device="cuda", dtype=torch.bfloat16))
+    say(card, "train unet_sd decorated group norm " + json.dumps({
+        "param_dtype": str(gn.weight.dtype), "output_dtype": str(y.dtype)}))
+    if gn.weight.dtype != torch.bfloat16 or y.dtype != torch.float32:
+        raise AssertionError(f"unet_sd: a decorated GroupNorm holds "
+                             f"{gn.weight.dtype} and returns {y.dtype}")
+    del step, model, xs, noise
+    torch.cuda.empty_cache()
+    return launches
+
+
+def unet_train_hold(card, torch):
+    """The unet step on the card (the f32 flash kernels at the 128 and 192
+    widths: heads of 80 and 160; the f32 norm kernels) and on the CPU
+    (plain versions) at the rung's widths with one res block a level,
+    batch 2 of a 16 x 16 latent, a context of 8, f32 (TF32 off): three
+    AdamW steps from the same weights; the losses and the step-1
+    gradients within the train hold's tolerances. The CPU's convs run
+    without oneDNN (torch.backends.mkldnn off), whose f32 convs missed
+    their own float64 gradients on this machine (RESNET_RUNG's note)."""
+    from paddle_tpu_torch.models import UNetConfig
+    from paddle_tpu_torch.nn import MSELoss
+
+    cfg = UNetConfig(num_res_blocks=1, **UNET_WIDTHS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, HW, L, steps = 2, 16, 8, 3
+    results, state = {}, None
+    mkldnn = torch.backends.mkldnn.enabled
+    try:
+        for dev in ("cuda", "cpu"):
+            torch.backends.mkldnn.enabled = dev == "cuda" and mkldnn
+            t0 = time.perf_counter()
+            model, step = unet_setup(torch, cfg, dev, None, seed=2)
+            if state is None:
+                state = {k: v.cpu() for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(state)
+            xs, noise = unet_inputs(torch, cfg, dev, B, HW, L, seed=4)
+            _zero_counters()
+            MSELoss()(model(*xs), noise).backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                fwd_bwd = _counters()
+            grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            losses = [step(xs, noise).item() for _ in range(steps)]
+            results[dev] = (losses, grads, time.perf_counter() - t0)
+            del model, step
+    finally:
+        torch.backends.mkldnn.enabled = mkldnn
+    # 7 attention blocks of 2 attentions at one res block a level
+    if fwd_bwd != _expected(flash_fwd=14, flash_bwd_dq=14, flash_bwd_dkv=14,
+                            fused_norm=7, fused_norm_dx=7):
+        raise AssertionError(f"unet hold: the card's f32 step launched {fwd_bwd}")
+    _hold_verdict(card, "unet_sd", results, B, HW * HW,
+                  model="unet_sd widths, 1 res block a level")
+
+
 def main():
     import torch
 
@@ -4955,46 +5317,59 @@ def main():
         ptxas_kernels(_build.BUILD_LOG, "paged_split_kernel")))
     rope_ptxas(card, _build.BUILD_LOG)
     norm_dx_ptxas(card, _build.BUILD_LOG)
+    tiles_ptxas(card, _build.BUILD_LOG)
 
-    norm = check_norm(card, torch)
-    norm_dx = check_norm_dx(card, torch)
-    decode = check_decode(card, torch)
-    decode_q8 = check_decode_q8(card, torch)
-    dense = check_dense_decode(card, torch)
-    flash = check_flash(card, torch)
-    check_flash_autograd(card, torch)
-    check_flash_decode(card, torch)
-    rope = check_rope(card, torch)
-    flashmask = check_flashmask(card, torch)
-    check_flashmask_autograd(card, torch)
-    grouped = check_grouped_gemm(card, torch)
-    varlen = check_varlen(card, torch)
-    planted_kernel_faults(card, torch)
-    varlen_cta_clocks(card, torch)
-    serve_launches = serve(card, torch)
-    hold(card, torch)
-    quant_launches = serve_quant(card, torch)
-    dense_launches = serve_dense(card, torch)
-    mmha_launches = mmha(card, torch)
-    quant_hold(card, torch)
-    train_launches, train_line = train(card, torch, "gpt3_1p3b")
-    train_hold(card, torch, "gpt3_1p3b")
-    sharded_launches = train_sharded(card, torch, train_line)
-    tp_launches = train_tensor_parallel(card, torch, train_line)
-    pipe_launches = train_pipeline(card, torch, train_line)
-    cp_launches = train_context_parallel(card, torch, train_line)
-    llama_serve_launches = serve(card, torch, "llama_7b")
-    hold(card, torch, "llama_7b")
-    llama_train_launches, _ = train(card, torch, "llama_7bshape")
-    train_hold(card, torch, "llama_7bshape")
-    moe_launches, moe_line = train_moe(card, torch)
-    ep_launches = train_moe_expert_parallel(card, torch, moe_line)
-    moe_train_hold(card, torch)
-    varlen_launches = varlen_entry(card, torch)
-    bert_launches = train_bert(card, torch)
-    bert_train_hold(card, torch)
-    resnet_launches = train_resnet(card, torch)
-    resnet_train_hold(card, torch)
+    t_run = time.perf_counter()
+
+    def phase(fn, *args):
+        """fn(*args), its time and the run's so far printed after it."""
+        t = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        say(card, f"phase {fn.__name__}: {now - t:.1f} s (run {now - t_run:.1f} s)")
+        return out
+
+    norm = phase(check_norm, card, torch)
+    norm_dx = phase(check_norm_dx, card, torch)
+    decode = phase(check_decode, card, torch)
+    decode_q8 = phase(check_decode_q8, card, torch)
+    dense = phase(check_dense_decode, card, torch)
+    flash = phase(check_flash, card, torch)
+    phase(check_flash_autograd, card, torch)
+    phase(check_flash_decode, card, torch)
+    rope = phase(check_rope, card, torch)
+    flashmask = phase(check_flashmask, card, torch)
+    phase(check_flashmask_autograd, card, torch)
+    grouped = phase(check_grouped_gemm, card, torch)
+    varlen = phase(check_varlen, card, torch)
+    phase(planted_kernel_faults, card, torch)
+    phase(varlen_cta_clocks, card, torch)
+    serve_launches = phase(serve, card, torch)
+    phase(hold, card, torch)
+    quant_launches = phase(serve_quant, card, torch)
+    dense_launches = phase(serve_dense, card, torch)
+    mmha_launches = phase(mmha, card, torch)
+    phase(quant_hold, card, torch)
+    train_launches, train_line = phase(train, card, torch, "gpt3_1p3b")
+    phase(train_hold, card, torch, "gpt3_1p3b")
+    sharded_launches = phase(train_sharded, card, torch, train_line)
+    tp_launches = phase(train_tensor_parallel, card, torch, train_line)
+    pipe_launches = phase(train_pipeline, card, torch, train_line)
+    cp_launches = phase(train_context_parallel, card, torch, train_line)
+    llama_serve_launches = phase(serve, card, torch, "llama_7b")
+    phase(hold, card, torch, "llama_7b")
+    llama_train_launches, _ = phase(train, card, torch, "llama_7bshape")
+    phase(train_hold, card, torch, "llama_7bshape")
+    moe_launches, moe_line = phase(train_moe, card, torch)
+    ep_launches = phase(train_moe_expert_parallel, card, torch, moe_line)
+    phase(moe_train_hold, card, torch)
+    varlen_launches = phase(varlen_entry, card, torch)
+    bert_launches = phase(train_bert, card, torch)
+    phase(bert_train_hold, card, torch)
+    resnet_launches = phase(train_resnet, card, torch)
+    phase(resnet_train_hold, card, torch)
+    unet_launches = phase(train_unet, card, torch)
+    phase(unet_train_hold, card, torch)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -5002,7 +5377,7 @@ def main():
              train_launches, sharded_launches, tp_launches, pipe_launches,
              cp_launches, llama_serve_launches,
              llama_train_launches, moe_launches, ep_launches, varlen_launches,
-             bert_launches, resnet_launches)
+             bert_launches, resnet_launches, unet_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"

@@ -92,7 +92,7 @@ struct CausalBias {
 }  // namespace
 
 // q [B, Sq, H, D], k/v [B, Skv, Hkv, D] in one dtype (float32 or bfloat16)
-// with unit d stride and D <= 128; `strides` holds 12 element strides:
+// with unit d stride and D <= 192; `strides` holds 12 element strides:
 // (b, s, h) of q, k, v and dO (here a copy of q's). bfloat16 runs the sm90
 // kernel, which takes only what a TMA map describes (see run_fwd_sm90).
 // kbias [B, Skv] f32 or null. out [B, Sq, H, D] contiguous in q's dtype;

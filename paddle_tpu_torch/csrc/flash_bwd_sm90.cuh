@@ -81,6 +81,17 @@
 //      (the longest causal rows) launch first.
 // Shared memory: dQ 192 KB at D = 128 (Q, dO, two K/V stages), dK/dV
 // 128 KB (K, V, two Q/dO stages); half that at D <= 64. One CTA an SM.
+//
+// The 192 width (three panels, D in 129..192):
+//   - dQ walks each 128-key tile in two 64-key halves, each a ring stage
+//     (the forward's `kSub`): S 32 + dP 32 + dQ 96 registers, 192 KB;
+//   - dK/dV would hold dK 96 + dV 96 + S^T 32 + dP^T 32 registers a thread,
+//     above the 255 a thread may have. So two CTAs share a (kv head, key
+//     tile), blockIdx.x = 2 hk + part: part 0 computes S^T and dP^T and
+//     writes dK (176 registers of products), part 1 computes S^T alone and
+//     writes dV and loads no V. That is 6 D + 4 D = 10 D operations a pair
+//     against 8 D: 1.25 times the products of one pass, and Q and dO read
+//     twice. Shared memory stays 192 KB (K, V, two Q/dO stages).
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -96,23 +107,6 @@ constexpr int kStep = 64;  // q rows of a dK/dV step
 // may use 255.
 constexpr int kBwdThreads = 256;
 static_assert(kStep == kTile, "a dK/dV q step is the policies' q tile (first_q_tile)");
-
-// d (+)= A B^T over DT columns, N = 64 or 128: A the 64 rows at a_addr of
-// [panel][a_rows][64] tiles, B the N rows at b_addr of [panel][b_rows][64]
-// tiles, both K-major
-template <int DT, int N>
-__device__ __forceinline__ void ss_rows(float (&d)[N / 2], uint32_t a_addr, int a_rows,
-                                        uint32_t b_addr, int b_rows) {
-#pragma unroll
-  for (int ks = 0; ks < DT / 16; ++ks) {  // panel ks / 4, 32 bytes a k step inside it
-    const uint64_t a = smem_desc(a_addr + (ks / 4) * a_rows * 128 + (ks % 4) * 32, 16, 1024);
-    const uint64_t b = smem_desc(b_addr + (ks / 4) * b_rows * 128 + (ks % 4) * 32, 16, 1024);
-    if constexpr (N == 128)
-      wgmma_ss_n128(d, a, b, ks > 0);
-    else
-      wgmma_ss_n64(d, a, b, ks > 0);
-  }
-}
 
 // acc[c] += A B over K rows of B: A bf16 fragments, K / 16 k steps; B the
 // rows at b_addr of [panel][b_rows][64] tiles, read MN-major (panel c:
@@ -146,33 +140,35 @@ struct DqLayout {  // Q, dO, the K ring, the V ring, barriers (the forward's til
   static constexpr size_t kSmem = kBars + (1 + 2 * kStages) * 8 + kStages * 4 + 1024;
 };
 
-// The kv tiles of a dQ CTA, in order: advances t to the next tile of
-// [t, n_kv) that the classes do not skip; false past the last.
-template <class M>
+// The ring steps of a dQ CTA (kv tiles, or their 64-key halves at the 192
+// width), in order: advances t to the next step of [t, n) that the classes
+// do not skip; false past the last.
+template <int DT, class M>
 __device__ __forceinline__ bool seek_tile(const Problem& p, const M& mask, int b, int h, int q0,
-                                          int n_kv, int& t) {
-  for (; t < n_kv; ++t)
-    if (mask.tile_class(p, b, h, q0, t * kBN, kBM, kBN) != kSkipTile) return true;
+                                          int n, int& t) {
+  for (; t < n; ++t)
+    if (sub_class<DT>(p, mask, b, h, q0, t) != kSkipTile) return true;
   return false;
 }
 
-// K and V of kv tile t into ring stage st by TMA, each on its own barrier
-// (S starts before V lands); one thread
+// K and V of ring step t (keys [t kSub, + kSub)) into ring stage st by TMA,
+// each on its own barrier (S starts before V lands); one thread
 template <int DT>
 __device__ __forceinline__ void load_kv(const CUtensorMap* kmap, const CUtensorMap* vmap,
                                         unsigned char* smem, uint64_t* k_full, uint64_t* v_full,
                                         int st, int b, int hk, int t) {
   using L = DqLayout<DT>;
+  constexpr int kN = Layout<DT>::kSub;
   mbar_expect_tx(&k_full[st], L::kKV);
 #pragma unroll
   for (int c = 0; c < DT / kPanel; ++c)
-    tma_load(smem + L::kK + st * L::kKV + c * kBN * 128, kmap, &k_full[st], c * kPanel, hk,
-             t * kBN, b);
+    tma_load(smem + L::kK + st * L::kKV + c * kN * 128, kmap, &k_full[st], c * kPanel, hk,
+             t * kN, b);
   mbar_expect_tx(&v_full[st], L::kKV);
 #pragma unroll
   for (int c = 0; c < DT / kPanel; ++c)
-    tma_load(smem + L::kV + st * L::kKV + c * kBN * 128, vmap, &v_full[st], c * kPanel, hk,
-             t * kBN, b);
+    tma_load(smem + L::kV + st * L::kKV + c * kN * 128, vmap, &v_full[st], c * kPanel, hk,
+             t * kN, b);
 }
 
 // One warpgroup (threads 128 cw ..) of the dQ kernel: rows [q0 + 64 cw,
@@ -189,6 +185,7 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
                                            bf16* __restrict__ dq) {
   using L = DqLayout<DT>;
   constexpr int kPanels = DT / kPanel;
+  constexpr int kN = Layout<DT>::kSub;  // keys of a step
   const int tid = threadIdx.x - 128 * cw, warp = tid / 32, lane = tid % 32;
   const int r_a = 16 * warp + lane / 4;  // row within the warpgroup's 64; r_a + 8 the other
   const int row0 = q0 + 64 * cw, row_a = row0 + r_a, row_b = row_a + 8;
@@ -196,16 +193,17 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
   const bool active = row0 < p.Sq;  // uniform over the warpgroup
   const int hk = h / p.g;
 
-  // the current kv tile t and the one kStages ahead tl, the prologue's
-  // loads by thread 0
+  // the current step t and the one kStages ahead tl, the prologue's loads
+  // by thread 0
+  const int n = n_kv * Layout<DT>::kHalves;
   int t = 0;
-  bool more = seek_tile(p, mask, b, h, q0, n_kv, t);
+  bool more = seek_tile<DT>(p, mask, b, h, q0, n, t);
   int tl = t;
   bool ahead = more;
   for (int s = 0; s < kStages && ahead; ++s) {
     if (threadIdx.x == 0) load_kv<DT>(kmap, vmap, smem, k_full, v_full, s, b, hk, tl);
     ++tl;
-    ahead = seek_tile(p, mask, b, h, q0, n_kv, tl);
+    ahead = seek_tile<DT>(p, mask, b, h, q0, n, tl);
   }
 
   const float sl2 = p.scale * kLog2e;
@@ -222,8 +220,8 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
   mbar_wait(q_full, 0);
 
   for (int it = 0; more; ++it) {
-    const int k0 = t * kBN;
-    const int cls = mask.tile_class(p, b, h, q0, k0, kBM, kBN);
+    const int k0 = t * kN;
+    const int cls = sub_class<DT>(p, mask, b, h, q0, t);
     const bool partial = cls == kPartialTile;
     const int st = it % kStages;
     const uint32_t phase = (it / kStages) & 1;
@@ -231,17 +229,17 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
     const uint32_t v_addr = smem_u32(smem) + L::kV + st * L::kKV;
     mbar_wait(&k_full[st], phase);
     if (active) {
-      float s[kBN / 2], dp[kBN / 2];
+      float s[kN / 2], dp[kN / 2];
       zero(s);
       fence_regs(s);
       wgmma_fence();
-      ss_rows<DT, kBN>(s, q_addr, kBM, k_addr, kBN);  // S = Q K^T, while V lands
+      ss_rows<DT, kN>(s, q_addr, kBM, k_addr, kN);  // S = Q K^T, while V lands
       wgmma_commit();
       mbar_wait(&v_full[st], phase);
       zero(dp);
       fence_regs(dp);
       wgmma_fence();
-      ss_rows<DT, kBN>(dp, o_addr, kBM, v_addr, kBN);  // dP = dO V^T
+      ss_rows<DT, kN>(dp, o_addr, kBM, v_addr, kN);  // dP = dO V^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -249,9 +247,9 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
 
       // dS, packed k step by k step as it is formed; the predicate on
       // partial tiles only
-      uint32_t ds[kBN / 16][4];
+      uint32_t ds[kN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
+      for (int kk = 0; kk < kN / 16; ++kk) {
 #pragma unroll
         for (int j = 2 * kk; j < 2 * kk + 2; ++j)
 #pragma unroll
@@ -281,7 +279,7 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
 #pragma unroll
       for (int c = 0; c < kPanels; ++c) fence_regs(acc[c]);
       wgmma_fence();
-      rs_rows<DT, kBN>(acc, ds, k_addr, kBN);  // dQ += dS K
+      rs_rows<DT, kN>(acc, ds, k_addr, kN);  // dQ += dS K
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -298,10 +296,10 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
     }
     if (ahead) {
       ++tl;
-      ahead = seek_tile(p, mask, b, h, q0, n_kv, tl);
+      ahead = seek_tile<DT>(p, mask, b, h, q0, n, tl);
     }
     ++t;
-    more = seek_tile(p, mask, b, h, q0, n_kv, t);
+    more = seek_tile<DT>(p, mask, b, h, q0, n, t);
   }
 
   if (!active) return;
@@ -378,6 +376,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int DT>
 struct DkvLayout {  // bytes of the dynamic shared memory, from a 1024-aligned base
   static constexpr int kPanels = DT / kPanel;
+  static constexpr int kParts = DT > 128 ? 2 : 1;     // CTAs of a (kv head, key tile)
   static constexpr int kKV = kPanels * kBN * 128;     // K or V: [panel][kBN][64]
   static constexpr int kQ = kPanels * kStep * 128;    // one Q or dO stage: [panel][kStep][64]
   static constexpr int kQs = 2 * kKV;                 // Q stages, after K and V
@@ -420,8 +419,12 @@ __device__ __forceinline__ void load_step(const CUtensorMap* qmap, const CUtenso
 // and +1. The loads need no producer: the last of the 8 warps to finish a
 // step refills its stage with the step kStages ahead, so a warpgroup
 // never waits for the other to load. Each lane reads two rows' LSE and
-// delta of a step, which the quads fetch by shuffles.
-template <int DT, class M>
+// delta of a step, which the quads fetch by shuffles. `Part` says what
+// the CTA writes: both (kDkDv), or at the 192 width dK alone (kDkOnly) or
+// dV alone (kDvOnly, which needs neither V nor dP^T).
+enum DkvPart { kDkDv = 0, kDkOnly = 1, kDvOnly = 2 };
+
+template <int DT, class M, int Part>
 __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUtensorMap* omap,
                                             const Problem& p, const M& mask, int b, int hk,
                                             int h0, int h1, int k0, int cw, unsigned char* smem,
@@ -431,6 +434,7 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
                                             float* __restrict__ dk, float* __restrict__ dv) {
   using L = DkvLayout<DT>;
   constexpr int kPanels = L::kPanels;
+  constexpr bool kDk = Part != kDvOnly, kDv = Part != kDkOnly;
   const int tid = threadIdx.x - 128 * cw, warp = tid / 32, lane = tid % 32;
   const int r_a = 16 * warp + lane / 4;
   const int key0 = k0 + 64 * cw, key_a = key0 + r_a, key_b = key_a + 8;
@@ -455,8 +459,8 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
   float dka[kPanels][32], dva[kPanels][32];
 #pragma unroll
   for (int c = 0; c < kPanels; ++c) {
-    zero(dka[c]);
-    zero(dva[c]);
+    if constexpr (kDk) zero(dka[c]);
+    if constexpr (kDv) zero(dva[c]);
   }
   const uint32_t base = smem_u32(smem);
   const uint32_t k_addr = base + 64 * cw * 128, v_addr = base + L::kKV + 64 * cw * 128;
@@ -479,16 +483,18 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
       const uint32_t q_addr = base + L::kQs + st * L::kQ, o_addr = base + L::kOs + st * L::kQ;
       float s[32], dp[32];
       zero(s);
-      zero(dp);
       fence_regs(s);
-      fence_regs(dp);
+      if constexpr (kDk) {
+        zero(dp);
+        fence_regs(dp);
+      }
       wgmma_fence();
-      ss_rows<DT, kStep>(s, k_addr, kBN, q_addr, kStep);   // S^T = K Q^T
-      ss_rows<DT, kStep>(dp, v_addr, kBN, o_addr, kStep);  // dP^T = V dO^T
+      ss_rows<DT, kStep>(s, k_addr, kBN, q_addr, kStep);  // S^T = K Q^T
+      if constexpr (kDk) ss_rows<DT, kStep>(dp, v_addr, kBN, o_addr, kStep);  // dP^T = V dO^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
-      fence_regs(dp);
+      if constexpr (kDk) fence_regs(dp);
 
       // P^T and dS^T, packed k step by k step as they are formed; the
       // keys' indices (and the predicate) on partial tiles only
@@ -509,40 +515,46 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
           for (int e = 0; e < 2; ++e) {
             const int c = 8 * j + col_off + e, row = q0 + c;
             const float l2 = __shfl_sync(0xffffffffu, j < 4 ? l_lo : l_hi, c % 32);
-            const float dl = __shfl_sync(0xffffffffu, j < 4 ? d_lo : d_hi, c % 32);
+            const float dl = kDk ? __shfl_sync(0xffffffffu, j < 4 ? d_lo : d_hi, c % 32) : 0.f;
             const bool keep_a = !partial || mask.keep(p, row, key_a, ka);
             const bool keep_b = !partial || mask.keep(p, row, key_b, kb);
             const float pa = keep_a ? exp2f(fmaf(s[4 * j + e], sl2, bias_a - l2)) : 0.f;
             const float pb = keep_b ? exp2f(fmaf(s[4 * j + 2 + e], sl2, bias_b - l2)) : 0.f;
             s[4 * j + e] = pa;
             s[4 * j + 2 + e] = pb;
-            dp[4 * j + e] = pa * (dp[4 * j + e] - dl) * p.scale;
-            dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl) * p.scale;
+            if constexpr (kDk) {
+              dp[4 * j + e] = pa * (dp[4 * j + e] - dl) * p.scale;
+              dp[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl) * p.scale;
+            }
           }
-        pt[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pt[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pt[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pt[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-        dst[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
-        dst[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
-        dst[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
-        dst[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+        if constexpr (kDv) {
+          pt[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          pt[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pt[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pt[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        if constexpr (kDk) {
+          dst[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+          dst[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+          dst[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+          dst[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+        }
       }
 
 #pragma unroll
       for (int c = 0; c < kPanels; ++c) {
-        fence_regs(dka[c]);
-        fence_regs(dva[c]);
+        if constexpr (kDk) fence_regs(dka[c]);
+        if constexpr (kDv) fence_regs(dva[c]);
       }
       wgmma_fence();
-      rs_rows<DT, kStep>(dva, pt, o_addr, kStep);   // dV += P^T dO
-      rs_rows<DT, kStep>(dka, dst, q_addr, kStep);  // dK += dS^T Q
+      if constexpr (kDv) rs_rows<DT, kStep>(dva, pt, o_addr, kStep);   // dV += P^T dO
+      if constexpr (kDk) rs_rows<DT, kStep>(dka, dst, q_addr, kStep);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
       for (int c = 0; c < kPanels; ++c) {
-        fence_regs(dka[c]);
-        fence_regs(dva[c]);
+        if constexpr (kDk) fence_regs(dka[c]);
+        if constexpr (kDv) fence_regs(dva[c]);
       }
     }
     // the last of the 8 warps done with the stage refills it
@@ -572,14 +584,18 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
       const int col = c * kPanel + 8 * j + col_off;
       if (col >= p.D) continue;
       if (key_a < p.Skv) {
-        *reinterpret_cast<float2*>(dk + row_a + col) = make_float2(dka[c][4 * j], dka[c][4 * j + 1]);
-        *reinterpret_cast<float2*>(dv + row_a + col) = make_float2(dva[c][4 * j], dva[c][4 * j + 1]);
+        if constexpr (kDk)
+          *reinterpret_cast<float2*>(dk + row_a + col) = make_float2(dka[c][4 * j], dka[c][4 * j + 1]);
+        if constexpr (kDv)
+          *reinterpret_cast<float2*>(dv + row_a + col) = make_float2(dva[c][4 * j], dva[c][4 * j + 1]);
       }
       if (key_b < p.Skv) {
-        *reinterpret_cast<float2*>(dk + row_b + col) =
-            make_float2(dka[c][4 * j + 2], dka[c][4 * j + 3]);
-        *reinterpret_cast<float2*>(dv + row_b + col) =
-            make_float2(dva[c][4 * j + 2], dva[c][4 * j + 3]);
+        if constexpr (kDk)
+          *reinterpret_cast<float2*>(dk + row_b + col) =
+              make_float2(dka[c][4 * j + 2], dka[c][4 * j + 3]);
+        if constexpr (kDv)
+          *reinterpret_cast<float2*>(dv + row_b + col) =
+              make_float2(dva[c][4 * j + 2], dva[c][4 * j + 3]);
       }
     }
 }
@@ -600,7 +616,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* full = kv_full + 1;
   unsigned* done = reinterpret_cast<unsigned*>(full + kStages);  // warps done, cumulative
 
-  const int hk = blockIdx.x, b = blockIdx.y;
+  constexpr int kParts = DkvLayout<DT>::kParts;
+  const int hk = blockIdx.x / kParts, b = blockIdx.y;
+  const bool dv_only = kParts == 2 && blockIdx.x % 2 == 1;  // needs no V
   const int h0 = hk * p.g, h1 = h0 + p.g;  // the query heads of kv head hk
   const int k0 = mask.key_tile(blockIdx.z) * kBN;
   if (threadIdx.x == 0) {
@@ -614,16 +632,25 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     prefetch_map(&kmap);
     prefetch_map(&vmap);
     prefetch_map(&omap);
-    mbar_expect_tx(kv_full, 2 * L::kKV);
+    mbar_expect_tx(kv_full, (dv_only ? 1 : 2) * L::kKV);
 #pragma unroll
     for (int c = 0; c < L::kPanels; ++c) {
       tma_load(smem + c * kBN * 128, &kmap, kv_full, c * kPanel, hk, k0, b);
-      tma_load(smem + L::kKV + c * kBN * 128, &vmap, kv_full, c * kPanel, hk, k0, b);
+      if (!dv_only)
+        tma_load(smem + L::kKV + c * kBN * 128, &vmap, kv_full, c * kPanel, hk, k0, b);
     }
   }
   __syncthreads();
-  dkv_consume<DT>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, threadIdx.x / 128, smem, kv_full,
-                  full, done, lse, delta, dk, dv);
+  const int cw = threadIdx.x / 128;
+  if constexpr (kParts == 1)
+    dkv_consume<DT, M, kDkDv>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full, full,
+                              done, lse, delta, dk, dv);
+  else if (dv_only)
+    dkv_consume<DT, M, kDvOnly>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full,
+                                full, done, lse, delta, dk, dv);
+  else
+    dkv_consume<DT, M, kDkOnly>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full,
+                                full, done, lse, delta, dk, dv);
 }
 
 // ---------------------------------------------------------------- host
@@ -635,16 +662,18 @@ cudaError_t launch_bwd(const Problem& p, const M& m, const void* q, const void* 
   CUtensorMap qmap, kmap, vmap, omap;
   const int Hkv = p.H / p.g;
   const int rows = dq != nullptr ? kBM : kStep;  // a dQ CTA's rows or a dK/dV step's
+  const int keys = dq != nullptr ? Layout<DT>::kSub : kBN;  // a dQ ring step's or a dK/dV CTA's
   cudaError_t err = encode(&qmap, q, p.B, p.Sq, p.H, p.D, p.q, rows);
-  if (err == cudaSuccess) err = encode(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, kBN);
-  if (err == cudaSuccess) err = encode(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, kBN);
+  if (err == cudaSuccess) err = encode(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, keys);
+  if (err == cudaSuccess) err = encode(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, keys);
   if (err == cudaSuccess) err = encode(&omap, dout, p.B, p.Sq, p.H, p.D, p.o, rows);
   if (err != cudaSuccess) return err;
   if (dq != nullptr)
     return launch(flash_bwd_dq_sm90_kernel<DT, M>, dim3(p.H, p.B, (p.Sq + kBM - 1) / kBM),
                   kBwdThreads, DqLayout<DT>::kSmem, st, qmap, kmap, vmap, omap, p, m, lse, delta,
                   static_cast<bf16*>(dq));
-  return launch(flash_bwd_dkv_sm90_kernel<DT, M>, dim3(Hkv, p.B, (p.Skv + kBN - 1) / kBN),
+  return launch(flash_bwd_dkv_sm90_kernel<DT, M>,
+                dim3(Hkv * DkvLayout<DT>::kParts, p.B, (p.Skv + kBN - 1) / kBN),
                 kBwdThreads, DkvLayout<DT>::kSmem, st, qmap, kmap, vmap, omap, p, m, lse, delta,
                 dk, dv);
 }
@@ -659,14 +688,15 @@ template <class M>
 cudaError_t run_bwd_sm90(const Problem& p, const M& m, const void* q, const void* k,
                          const void* v, const void* dout, const void* lse, const void* delta,
                          void* dq, void* dk, void* dv, void* stream) {
-  if (p.D % 8 != 0 || p.D > 128) return cudaErrorInvalidValue;
+  if (p.D % 8 != 0 || p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? sm90::launch_bwd<64>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st)
-                   : sm90::launch_bwd<128>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
+  if (p.D <= 64) return sm90::launch_bwd<64>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
+  if (p.D <= 128) return sm90::launch_bwd<128>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
+  return sm90::launch_bwd<192>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
 }
 
 }  // namespace

@@ -41,7 +41,8 @@
 //      loads Q once and keeps kStages = 2 K/V stages in flight on
 //      mbarriers (K and V on separate barriers, so S starts before V
 //      lands); consumers free a stage with one arrival a warp.
-//   4. Occupancy. 160 KB of shared memory at D = 128 (80 KB at D <= 64),
+//   4. Occupancy. 160 KB of shared memory at D = 128 (80 KB at D <= 64,
+//      144 KB at the 192 width),
 //      one CTA of 384 threads an SM, 128 rows in flight; setmaxnreg gives
 //      the consumers 232 registers and the producer 40.
 //   5. Tiles are classified before any predicate runs: skipped (never
@@ -56,10 +57,18 @@
 // with 16-byte stores; output layout [B, Sq, H, D] contiguous, as before.
 //
 // Tiles: 128 query rows (two m64 warpgroups) by 128 keys (S is one
-// m64n128 product a k step) at both head-dim widths (64 and 128 columns,
-// zero-filled past D); a consumer thread holds 64 S, 64 O (D = 128) and 32
-// packed P registers, within ptxas's budget without spills. Q and two K/V
-// stages take 160 KB at D = 128, so one CTA runs an SM.
+// m64n128 product a k step) at the head-dim widths 64 and 128 (zero-filled
+// past D); a consumer thread holds 64 S, 64 O (D = 128) and 32 packed P
+// registers, within ptxas's budget without spills. Q and two K/V stages
+// take 160 KB at D = 128, so one CTA runs an SM.
+// The third width, 192 (three panels, D in 129..192: the diffusion UNet's
+// heads of 160), keeps the 128-key tiles of the policies and their classes
+// but walks each in two 64-key halves, each a stage of the ring (`kSub`):
+// 128 keys would need 48 + 2 x 96 = 240 KB and 64 S + 96 O + 32 P
+// registers, above the SM's 227 KB and the 168 registers ptxas gives a
+// 384-thread kernel; 64-key halves (S an m64n64 product) take 48 + 2 x 48
+// = 144 KB and 32 S + 96 O + 16 P. A half that starts past Skv is never
+// loaded.
 #pragma once
 
 #include "sm90.cuh"
@@ -78,8 +87,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int DT>
 struct Layout {  // bytes of the dynamic shared memory, from a 1024-aligned base
   static constexpr int kPanels = DT / kPanel;
-  static constexpr int kQ = kPanels * kBM * 128;   // [panel][kBM][64]
-  static constexpr int kKV = kPanels * kBN * 128;  // one K or V stage: [panel][kBN][64]
+  static constexpr int kSub = DT > 128 ? 64 : kBN;  // keys of a ring stage
+  static constexpr int kHalves = kBN / kSub;        // stages of a kv tile
+  static constexpr int kQ = kPanels * kBM * 128;    // [panel][kBM][64]
+  static constexpr int kKV = kPanels * kSub * 128;  // one K or V stage: [panel][kSub][64]
   static constexpr int kBars = kQ + 2 * kStages * kKV;
   static constexpr size_t kSmem = kBars + (1 + 3 * kStages) * 8 + 1024;
 };
@@ -92,6 +103,33 @@ __device__ __forceinline__ float quad_max(float v) {  // over the 4 lanes holdin
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// d (+)= A B^T over DT columns, N = 64 or 128: A the 64 rows at a_addr of
+// [panel][a_rows][64] tiles, B the N rows at b_addr of [panel][b_rows][64]
+// tiles, both K-major
+template <int DT, int N>
+__device__ __forceinline__ void ss_rows(float (&d)[N / 2], uint32_t a_addr, int a_rows,
+                                        uint32_t b_addr, int b_rows) {
+#pragma unroll
+  for (int ks = 0; ks < DT / 16; ++ks) {  // panel ks / 4, 32 bytes a k step inside it
+    const uint64_t a = smem_desc(a_addr + (ks / 4) * a_rows * 128 + (ks % 4) * 32, 16, 1024);
+    const uint64_t b = smem_desc(b_addr + (ks / 4) * b_rows * 128 + (ks % 4) * 32, 16, 1024);
+    if constexpr (N == 128)
+      wgmma_ss_n128(d, a, b, ks > 0);
+    else
+      wgmma_ss_n64(d, a, b, ks > 0);
+  }
+}
+
+// The class of ring step u, keys [u kSub, (u + 1) kSub): its kv tile's,
+// skipped where it starts past Skv
+template <int DT, class M>
+__device__ __forceinline__ int sub_class(const Problem& p, const M& mask, int b, int h, int q0,
+                                         int u) {
+  using L = Layout<DT>;
+  if (u * L::kSub >= p.Skv) return kSkipTile;
+  return mask.tile_class(p, b, h, q0, (u / L::kHalves) * kBN, kBM, kBN);
 }
 
 // The loads: Q once, then the K and V boxes of every visited kv tile into
@@ -112,19 +150,21 @@ __device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorM
   for (int c = 0; c < L::kPanels; ++c)
     tma_load(q_s + c * kBM * 128, qmap, q_full, c * kPanel, h, q0, b);
   int it = 0;
-  for (int t = 0; t < n_kv; ++t) {
-    if (mask.tile_class(p, b, h, q0, t * kBN, kBM, kBN) == kSkipTile) continue;
+  for (int u = 0; u < n_kv * L::kHalves; ++u) {
+    if (sub_class<DT>(p, mask, b, h, q0, u) == kSkipTile) continue;
     const int st = it % kStages, round = it / kStages;
     ++it;
     if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
     mbar_expect_tx(&k_full[st], L::kKV);
 #pragma unroll
     for (int c = 0; c < L::kPanels; ++c)
-      tma_load(k_s + st * L::kKV + c * kBN * 128, kmap, &k_full[st], c * kPanel, hk, t * kBN, b);
+      tma_load(k_s + st * L::kKV + c * L::kSub * 128, kmap, &k_full[st], c * kPanel, hk,
+               u * L::kSub, b);
     mbar_expect_tx(&v_full[st], L::kKV);
 #pragma unroll
     for (int c = 0; c < L::kPanels; ++c)
-      tma_load(v_s + st * L::kKV + c * kBN * 128, vmap, &v_full[st], c * kPanel, hk, t * kBN, b);
+      tma_load(v_s + st * L::kKV + c * L::kSub * 128, vmap, &v_full[st], c * kPanel, hk,
+               u * L::kSub, b);
   }
 }
 
@@ -140,6 +180,7 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
                                         uint64_t* empty, bf16* __restrict__ out,
                                         float* __restrict__ lse) {
   using L = Layout<DT>;
+  constexpr int kN = L::kSub;  // keys of a step
   const int tid = threadIdx.x - 128 * (cw + 1), warp = tid / 32, lane = tid % 32;
   const int r_a = 16 * warp + lane / 4;  // row within the warpgroup's 64; r_a + 8 the other
   const int row_a = q0 + 64 * cw + r_a, row_b = row_a + 8;
@@ -158,27 +199,21 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
   mbar_wait(q_full, 0);
 
   int it = 0;
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kBN;
-    const int cls = mask.tile_class(p, b, h, q0, k0, kBM, kBN);
+  for (int u = 0; u < n_kv * L::kHalves; ++u) {
+    const int k0 = u * kN;
+    const int cls = sub_class<DT>(p, mask, b, h, q0, u);
     if (cls == kSkipTile) continue;
     const int st = it % kStages;
     const uint32_t phase = (it / kStages) & 1;
     ++it;
     mbar_wait(&k_full[st], phase);
     if (active) {
-      float s[kBN / 2];
+      float s[kN / 2];
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+      for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
       fence_regs(s);
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < DT / 16; ++ks) {  // panel ks / 4, 32 bytes a k step inside it
-        const uint32_t off = (ks / 4) * kBM * 128 + (ks % 4) * 32;
-        const uint32_t koff = st * L::kKV + (ks / 4) * kBN * 128 + (ks % 4) * 32;
-        wgmma_ss_n128(s, smem_desc(q_addr + off, 16, 1024), smem_desc(k_addr + koff, 16, 1024),
-                      ks > 0);
-      }
+      ss_rows<DT, kN>(s, q_addr, kBM, k_addr + st * L::kKV, kN);  // S = Q K^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -186,7 +221,7 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
       // logits in log2 units; the predicate on partial tiles only
       if (cls == kPartialTile || mask.has_bias()) {
 #pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
+        for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = k0 + 8 * j + col_off + e;
@@ -202,11 +237,11 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
           }
       } else {
 #pragma unroll
-        for (int i = 0; i < kBN / 2; ++i) s[i] *= sl2;
+        for (int i = 0; i < kN / 2; ++i) s[i] *= sl2;
       }
       float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < kN / 8; ++j) {
         mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
         mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
@@ -218,7 +253,7 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
       m_b = mn_b;
       float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < kN / 8; ++j) {
         s[4 * j] = exp2f(s[4 * j] - mu_a);
         s[4 * j + 1] = exp2f(s[4 * j + 1] - mu_a);
         s[4 * j + 2] = exp2f(s[4 * j + 2] - mu_b);
@@ -237,9 +272,9 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
           o[c][4 * j + 2] *= al_b;
           o[c][4 * j + 3] *= al_b;
         }
-      uint32_t pa[kBN / 16][4];  // P in bf16: the A fragment of k step kk
+      uint32_t pa[kN / 16][4];  // P in bf16: the A fragment of k step kk
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
+      for (int kk = 0; kk < kN / 16; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -251,11 +286,11 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
       for (int c = 0; c < L::kPanels; ++c) fence_regs(o[c]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)  // 16 keys: 2048 bytes of V rows
+      for (int kk = 0; kk < kN / 16; ++kk)  // 16 keys: 2048 bytes of V rows
 #pragma unroll
         for (int c = 0; c < L::kPanels; ++c)
           wgmma_rs_n64_t(o[c], pa[kk],
-                         smem_desc(v_addr + st * L::kKV + c * kBN * 128 + kk * 2048, 1024, 1024));
+                         smem_desc(v_addr + st * L::kKV + c * kN * 128 + kk * 2048, 1024, 1024));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -315,7 +350,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   unsigned char* q_s = smem;
-  unsigned char* k_s = smem + L::kQ;  // [stage][panel][kBN][64]
+  unsigned char* k_s = smem + L::kQ;  // [stage][panel][kSub][64]
   unsigned char* v_s = k_s + kStages * L::kKV;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* k_full = q_full + 1;
@@ -354,9 +389,10 @@ cudaError_t launch_fwd(const Problem& p, const M& m, const void* q, const void* 
                        void* out, float* lse, cudaStream_t st) {
   CUtensorMap qmap, kmap, vmap;
   const int Hkv = p.H / p.g;
+  constexpr int kSub = Layout<DT>::kSub;
   cudaError_t err = encode(&qmap, q, p.B, p.Sq, p.H, p.D, p.q, kBM);
-  if (err == cudaSuccess) err = encode(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, kBN);
-  if (err == cudaSuccess) err = encode(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, kBN);
+  if (err == cudaSuccess) err = encode(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, kSub);
+  if (err == cudaSuccess) err = encode(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, kSub);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBM - 1) / kBM, p.H, p.B);
   return launch(flash_fwd_sm90_kernel<DT, M>, grid, kThreads, Layout<DT>::kSmem, st, qmap, kmap,
@@ -365,19 +401,21 @@ cudaError_t launch_fwd(const Problem& p, const M& m, const void* q, const void* 
 
 }  // namespace sm90
 
-// The bf16 forward of flash_attention.cu and masked_flash.cu: q, k, v
-// bf16 with a unit d stride, D a multiple of 8 and at most 128, every base
+// The bf16 forward of flash_attention.cu, masked_flash.cu and
+// varlen_flash.cu: q, k, v bf16 with a unit d stride, D a multiple of 8
+// and at most kMaxHeadDim (192), every base
 // pointer 16-byte aligned and every stride of a dim longer than 1 a
 // multiple of 8 elements (what a TMA map takes; the wrappers copy other
 // views). out [B, Sq, H, D] contiguous bf16, lse [B, H, Sq] f32.
 template <class M>
 cudaError_t run_fwd_sm90(const Problem& p, const M& m, const void* q, const void* k,
                          const void* v, void* out, void* lse, void* stream) {
-  if (p.D % 8 != 0 || p.D > 128) return cudaErrorInvalidValue;
+  if (p.D % 8 != 0 || p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? sm90::launch_fwd<64>(p, m, q, k, v, out, l, st)
-                   : sm90::launch_fwd<128>(p, m, q, k, v, out, l, st);
+  if (p.D <= 64) return sm90::launch_fwd<64>(p, m, q, k, v, out, l, st);
+  if (p.D <= 128) return sm90::launch_fwd<128>(p, m, q, k, v, out, l, st);
+  return sm90::launch_fwd<192>(p, m, q, k, v, out, l, st);
 }
 
 }  // namespace

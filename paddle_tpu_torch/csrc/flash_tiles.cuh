@@ -33,6 +33,16 @@
 // Bound on an H100: operations, 4 D (forward), 6 D (dQ) and 8 D (dK/dV)
 // per visible pair at the f32 CUDA-core rate (67 TFLOP/s).
 //
+// Tile widths: 64, 128 and 192 columns (a head dim up to kMaxHeadDim,
+// zero-filled past D). At 192 a [64, 192] f32 operand tile takes 49 KB:
+// the forward holds three (165 KB with the score tile), dQ four (214 KB);
+// dK/dV's four and two score tiles would take 231 KB, above the 227 KB a
+// block may have, so at that width its P^T and dS^T share one tile, dS^T
+// kept in registers until dV's product has read P^T. The kernels' launch
+// bounds name one block an SM (what their shared memory allows at 128 and
+// 192): without it ptxas held the f32 varlen forward at 192 to 128
+// registers and spilled.
+//
 // Design: one CTA per (64-row tile, head, batch). The TPU kernels'
 // sequential kv (or q) grid axis, which carried m/l/acc in VMEM scratch,
 // becomes a loop over tiles inside the CTA; tiles that no row of the CTA
@@ -66,6 +76,7 @@ constexpr int kThreads = (kTile / kRpt) * kCg;  // 256
 constexpr int kCols = kTile / kCg;         // score columns per thread
 constexpr int kLdp = kTile + 4;            // f32 row stride of P / dS tiles
 constexpr float kEmpty = -5e29f;           // running max at or below: no key seen
+constexpr int kMaxHeadDim = 192;           // the widest tile width (three 64-column panels)
 
 using bf16 = __nv_bfloat16;  // the sm90 kernels' operand type
 
@@ -234,7 +245,7 @@ constexpr size_t operand_bytes() {
 // ---------------------------------------------------------------- forward
 
 template <typename T, int DT, class M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -344,7 +355,7 @@ flash_fwd_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict
 // ---------------------------------------------------------------- dQ
 
 template <typename T, int DT, class M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dq_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq) {
@@ -436,7 +447,7 @@ flash_dq_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict_
 // ---------------------------------------------------------------- dK, dV
 
 template <typename T, int DT, class M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
@@ -447,8 +458,10 @@ flash_dkv_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict
   T* Vs = Ks + kTile * LD;
   T* Qs = Vs + kTile * LD;
   T* dOs = Qs + kTile * LD;
+  // at the widest tiles P^T and dS^T share one tile (see the note above)
+  constexpr bool kOneScoreTile = DT > 128;
   float* Pt = reinterpret_cast<float*>(dOs + kTile * LD);  // [64 keys][kLdp] P^T
-  float* dSt = Pt + kTile * kLdp;                           // [64 keys][kLdp] dS^T
+  float* dSt = Pt + (kOneScoreTile ? 0 : kTile * kLdp);     // [64 keys][kLdp] dS^T
   float* lse_s = dSt + kTile * kLdp;                        // [64]
   float* delta_s = lse_s + kTile;                           // [64]
 
@@ -509,11 +522,23 @@ flash_dkv_kernel(Problem p, M mask, const T* __restrict__ q, const T* __restrict
         const int c = cg + kCg * j;
         const float pr = mask.keep(p, q0 + c, key, kk[i]) ? expf(s[i][j] * p.scale + mask.bias(kk[i]) - lse_s[c]) : 0.f;
         Pt[(rg * kRpt + i) * kLdp + c] = pr;
-        dSt[(rg * kRpt + i) * kLdp + c] = pr * (dp[i][j] - delta_s[c]) * p.scale;
+        const float ds = pr * (dp[i][j] - delta_s[c]) * p.scale;
+        if constexpr (kOneScoreTile)
+          dp[i][j] = ds;
+        else
+          dSt[(rg * kRpt + i) * kLdp + c] = ds;
       }
     }
     __syncthreads();
     mm_nn<T, DT>(Pt, dOs, dv_acc, rg, cg);
+    if constexpr (kOneScoreTile) {
+      __syncthreads();  // every thread's reads of P^T are done
+#pragma unroll
+      for (int i = 0; i < kRpt; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) dSt[(rg * kRpt + i) * kLdp + cg + kCg * j] = dp[i][j];
+      __syncthreads();
+    }
     mm_nn<T, DT>(dSt, Qs, dk_acc, rg, cg);
   }
 
@@ -586,8 +611,9 @@ cudaError_t launch_dkv(int dtype, const Problem& p, const M& m, const void* q, c
                        float* dk, float* dv, cudaStream_t st) {
   if (dtype != ptt::kF32) return cudaErrorInvalidValue;
   const dim3 grid((p.Skv + kTile - 1) / kTile, p.H, p.B);
+  constexpr size_t kScores = (DT > 128 ? 1 : 2) * kSf;  // P^T and dS^T (flash_dkv_kernel)
   return launch(flash_dkv_kernel<float, DT, M>, grid, kThreads,
-                4 * operand_bytes<float, DT>() + 2 * kSf + 2 * kTile * kF, st, p, m,
+                4 * operand_bytes<float, DT>() + kScores + 2 * kTile * kF, st, p, m,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta, dk,
                 dv);
@@ -622,27 +648,31 @@ Problem make_problem(int dtype, int B, int H, int Hkv, int Sq, int Skv, int D, f
 
 bool supported(int dtype) { return dtype == ptt::kF32 || dtype == ptt::kBF16; }
 
-// The three float32 passes at the head dim's tile width (64 or 128), for
+// The three float32 passes at the head dim's tile width (64, 128 or 192), for
 // the entry points of flash_attention.cu, masked_flash.cu and
 // varlen_flash.cu.
 template <class M>
 cudaError_t run_fwd_f32(const Problem& p, const M& m, const void* q, const void* k,
                         const void* v, void* out, void* lse, void* stream) {
+  if (p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_fwd_f32<64>(p, m, q, k, v, out, l, st)
-                   : launch_fwd_f32<128>(p, m, q, k, v, out, l, st);
+  if (p.D <= 64) return launch_fwd_f32<64>(p, m, q, k, v, out, l, st);
+  if (p.D <= 128) return launch_fwd_f32<128>(p, m, q, k, v, out, l, st);
+  return launch_fwd_f32<192>(p, m, q, k, v, out, l, st);
 }
 
 template <class M>
 cudaError_t run_dq(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                    const void* v, const void* dout, const void* lse, const void* delta,
                    void* dq, void* stream) {
+  if (p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dq<64>(dtype, p, m, q, k, v, dout, l, dl, dq, st)
-                   : launch_dq<128>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+  if (p.D <= 64) return launch_dq<64>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+  if (p.D <= 128) return launch_dq<128>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+  return launch_dq<192>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
 }
 
 template <class M>
@@ -653,9 +683,11 @@ cudaError_t run_dkv(int dtype, const Problem& p, const M& m, const void* q, cons
   const float* dl = static_cast<const float*>(delta);
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
+  if (p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dkv<64>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st)
-                   : launch_dkv<128>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+  if (p.D <= 64) return launch_dkv<64>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+  if (p.D <= 128) return launch_dkv<128>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+  return launch_dkv<192>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
 }
 
 }  // namespace

@@ -128,7 +128,7 @@ FlashMask sm90_mask(const void* idx, const void* cls, int Hm, int n, int Sq, int
 }  // namespace
 
 // q [B, Sq, H, D], k/v [B, Skv, Hkv, D] in one dtype (float32 or bfloat16)
-// with unit d stride and D <= 128; `strides` holds 12 element strides:
+// with unit d stride and D <= 192; `strides` holds 12 element strides:
 // (b, s, h) of q, k, v and dO (here a copy of q's). idx [B, Hm, n, Skv]
 // int32 contiguous, H a multiple of Hm, n 1 or 2 when causal, 2 or 4
 // otherwise. bfloat16 runs the sm90 kernel (q, k, v as run_fwd_sm90 takes

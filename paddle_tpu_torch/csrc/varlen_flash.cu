@@ -239,7 +239,7 @@ extern "C" int ptt_varlen_tile_classes(const void* kinfo, void* cls, int Tq, int
 }
 
 // q [Tq, H, D], k/v [Tk, Hkv, D] in one dtype (float32 or bfloat16) with
-// unit d stride and D <= 128; `strides` holds 12 element strides: (b, s, h)
+// unit d stride and D <= 192; `strides` holds 12 element strides: (b, s, h)
 // of q, k, v and dO (here a copy of q's), b unused (B = 1). kinfo [3, Tk],
 // qrange [2, ceil(Tq / 64)] and krange [2, ceil(Tk / 64)] int32 contiguous
 // (see `Varlen`). bfloat16 writes the tile classes into cls

@@ -8,9 +8,13 @@ from .extras import flash_attn_varlen_qkvpacked
 from .flash_attention import (flash_attention, flash_attn_unpadded,
                               flashmask_attention, ring_flash_attention,
                               scaled_dot_product_attention)
-from .loss import cross_entropy
+from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
+                   cosine_embedding_loss, cross_entropy, ctc_loss,
+                   hinge_embedding_loss, kl_div, l1_loss, log_loss,
+                   margin_ranking_loss, mse_loss, nll_loss, smooth_l1_loss,
+                   square_error_cost, triplet_margin_loss)
 from .norm import (batch_norm, batch_stats_group, batch_stats_over,
-                   layer_norm, rms_norm)
+                   group_norm, instance_norm, layer_norm, rms_norm)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
@@ -20,11 +24,15 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
 __all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
            "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
            "avg_pool1d", "avg_pool2d", "avg_pool3d", "batch_norm",
-           "batch_stats_group", "batch_stats_over", "conv1d",
-           "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
-           "conv3d_transpose", "cross_entropy", "dropout", "embedding",
-           "flash_attention", "flash_attn_unpadded",
+           "batch_stats_group", "batch_stats_over", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "conv1d", "conv1d_transpose",
+           "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
+           "cosine_embedding_loss", "cross_entropy", "ctc_loss", "dropout",
+           "embedding", "flash_attention", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked", "flashmask_attention", "gelu",
-           "layer_norm", "linear", "max_pool1d", "max_pool2d", "max_pool3d",
-           "relu", "ring_flash_attention", "rms_norm",
-           "scaled_dot_product_attention", "silu", "tanh"]
+           "group_norm", "hinge_embedding_loss", "instance_norm", "kl_div",
+           "l1_loss", "layer_norm", "linear", "log_loss",
+           "margin_ranking_loss", "max_pool1d", "max_pool2d", "max_pool3d",
+           "mse_loss", "nll_loss", "relu", "ring_flash_attention", "rms_norm",
+           "scaled_dot_product_attention", "silu", "smooth_l1_loss",
+           "square_error_cost", "tanh", "triplet_margin_loss"]

@@ -31,6 +31,15 @@ norm over the global batch, which the reference's global arrays give it.
 The group is never skipped for its size: over one rank the all-reduces
 are over one rank. Its inputs are cast for AMP as the op "batch_norm"
 (black list: float32).
+
+`group_norm` (:217) and `instance_norm` (:190) are jnp in the reference,
+with no Pallas kernel, so they are plain torch ops here: statistics in f32
+(the biased variance), the output in the dtype of the input as AMP cast
+it. Both are on the black list, so under O2 they compute in f32 and return
+f32 even where `amp.decorate` left their parameters in bf16 (it keeps only
+LayerNorm and the batch norms in f32). `group_norm` takes "NC*" or "N*C";
+`instance_norm` normalises over every dim past the first two whatever
+`data_format` says, as the reference's does.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from ... import amp
 from ...ops.fused_norm import layer_norm_fwd, rms_norm_fwd
 
 __all__ = ["batch_norm", "batch_stats_group", "batch_stats_over",
-           "layer_norm", "rms_norm"]
+           "group_norm", "instance_norm", "layer_norm", "rms_norm"]
 
 # the process group whose ranks' batches one batch norm spans, else None
 _STATS_GROUP = contextvars.ContextVar("batch_stats_group", default=None)
@@ -171,6 +180,41 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     shape[ch] = x.shape[ch]
     out = (x.float() - running_mean.float().view(shape)) * torch.rsqrt(
         running_var.float().view(shape) + epsilon)
+    if weight is not None:
+        out = out * weight.float().view(shape)
+    if bias is not None:
+        out = out + bias.float().view(shape)
+    return out.to(x.dtype)
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Normalise each of `num_groups` groups of channels of each sample
+    over its channels and positions (f32 statistics, the biased variance),
+    then scale and shift per channel; "NC*" or "N*C"."""
+    x, weight, bias = amp.cast_inputs("group_norm", x, weight, bias)
+    channels_last = not data_format.startswith("NC")
+    a = x.movedim(-1, 1) if channels_last else x
+    out = torch.nn.functional.group_norm(
+        a.float(), int(num_groups), None if weight is None else weight.float(),
+        None if bias is None else bias.float(), epsilon).to(x.dtype)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None):
+    """Normalise each (sample, channel) over dims 2.. with f32 statistics
+    (the biased variance), then scale and shift per channel along dim 1.
+    As in the reference, the running statistics, `use_input_stats`,
+    `momentum` and `data_format` are not read."""
+    x, weight, bias = amp.cast_inputs("instance_norm", x, weight, bias)
+    axes = tuple(range(2, x.dim()))
+    x32 = x.float()
+    mean = x32.mean(axes, keepdim=True)
+    var = (x32 - mean).square().mean(axes, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
     if weight is not None:
         out = out * weight.float().view(shape)
     if bias is not None:

@@ -1,9 +1,14 @@
 from .activation import GELU, ReLU, Silu, Tanh
 from .common import Dropout, Embedding, Flatten, Identity, Linear
 from .container import LayerList, Sequential
+from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
+                   CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, KLDivLoss,
+                   L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+                   TripletMarginLoss)
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
                    Conv3DTranspose)
-from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm,
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+                   InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
                    RMSNorm, SyncBatchNorm, _BatchNormBase)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
                       AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D,
@@ -15,12 +20,17 @@ from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-           "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D", "BatchNorm3D", "Conv1D", "Conv1DTranspose", "Conv2D",
-           "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "Dropout",
-           "Embedding", "Flatten", "GELU", "Identity", "LayerList",
-           "LayerNorm", "Linear", "MaxPool1D", "MaxPool2D", "MaxPool3D",
-           "MultiHeadAttention", "RMSNorm", "ReLU", "Sequential", "Silu",
-           "SyncBatchNorm", "Tanh", "Transformer", "TransformerDecoder",
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "BCELoss",
+           "BCEWithLogitsLoss", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "CTCLoss", "Conv1D", "Conv1DTranspose", "Conv2D",
+           "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
+           "CosineEmbeddingLoss", "CrossEntropyLoss", "Dropout", "Embedding",
+           "Flatten", "GELU", "GroupNorm", "HingeEmbeddingLoss", "Identity",
+           "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "KLDivLoss",
+           "L1Loss", "LayerList", "LayerNorm", "Linear", "MSELoss",
+           "MarginRankingLoss", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "MultiHeadAttention", "NLLLoss", "RMSNorm", "ReLU", "Sequential",
+           "Silu", "SmoothL1Loss", "SyncBatchNorm", "Tanh",
+           "TripletMarginLoss", "Transformer", "TransformerDecoder",
            "TransformerDecoderLayer", "TransformerEncoder",
            "TransformerEncoderLayer"]

@@ -10,6 +10,13 @@ batch statistics over a process group: the step's batch ranks inside a
 `DistributedTrainStep` (as every batch norm there does), else the world
 group when one is initialised, else this process's batch, where it equals
 `BatchNorm` as the reference's does in one process.
+
+`GroupNorm` and `InstanceNorm1D/2D/3D` (:146-189) start with the weight
+at one and the bias at zero and call `nn.functional.group_norm` /
+`instance_norm` (f32 statistics; plain torch ops, as the reference's are
+jnp). `amp.decorate` casts their parameters under O2 as the reference's
+does (it keeps only LayerNorm and the batch norms in f32); their outputs
+stay f32, the ops being on AMP's black list.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ from torch import nn
 from ...device import resolve_device
 from .. import functional as F
 
-__all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "LayerNorm",
+__all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "GroupNorm",
+           "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "LayerNorm",
            "RMSNorm", "SyncBatchNorm"]
 
 
@@ -146,3 +154,65 @@ class SyncBatchNorm(_BatchNormBase):
         for name, sub in list(layer.named_children()):
             setattr(layer, name, cls.convert_sync_batchnorm(sub))
         return layer
+
+
+def _unit_and_zero(n, weight_attr, bias_attr, dev, dtype):
+    """(weight of ones, bias of zeros) as Parameters, None where the attr
+    is False."""
+    w = (None if weight_attr is False else nn.Parameter(
+        torch.ones(n, device=dev, dtype=dtype)))
+    b = (None if bias_attr is False else nn.Parameter(
+        torch.zeros(n, device=dev, dtype=dtype)))
+    return w, b
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, num_groups, num_channels, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels do not split into "
+                             f"{num_groups} groups")
+        self._num_groups = num_groups
+        self._num_channels = num_channels
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight, self.bias = _unit_and_zero(
+            num_channels, weight_attr, bias_attr, resolve_device(device), dtype)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+    def extra_repr(self):
+        return (f"num_groups={self._num_groups}, "
+                f"num_channels={self._num_channels}, epsilon={self._epsilon}")
+
+
+class _InstanceNormBase(nn.Module):
+    def __init__(self, num_features, epsilon=1e-05, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self._epsilon = epsilon
+        # weight_attr=False drops both, as in the reference (:173)
+        self.weight, self.bias = _unit_and_zero(
+            num_features, weight_attr, False if weight_attr is False else
+            bias_attr, resolve_device(device), dtype)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass

@@ -42,6 +42,9 @@ Semantics, shared by the kernels and the plain versions:
   f32, with the probabilities and dS rounded to bf16 before they enter the
   next product (as the JAX kernel casts p and ds to the operand type) and
   the softmax statistics in f32.
+- Head dims up to MAX_HEAD_DIM = 192: the kernels' tiles are 64, 128 or
+  192 columns wide (one, two or three 64-column panels, zero-filled past
+  D); a wider head raises on the card. The plain versions take any D.
 - The bf16 kernels read q, k, v (and the backward dO) through TMA tensor
   maps, which take a view whose base is 16-byte aligned, whose head dim is
   a multiple of 8 and whose strides are multiples of 16 bytes;
@@ -64,7 +67,7 @@ __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES", "FlashAttention",
 
 NEG_INF = -1e30  # paddle_tpu/ops/pallas/flash_attention.py NEG_INF
 EMPTY = -5e29    # a row whose largest logit is at or below this saw no key
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192  # three 64-column panels (csrc kMaxHeadDim)
 
 # kernel launches since import (or since a caller reset them)
 FWD_LAUNCHES = 0
@@ -217,11 +220,11 @@ def _check(q, k, v, key_bias):
 
 
 def _device_checks(q):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: unsupported device {q.device}")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}, got {q.shape[-1]}")
+                         f"{MAX_HEAD_DIM}, got {q.shape[-1]} (ROADMAP queue B)")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: unsupported device {q.device}")
 
 
 def _strides(q, k, v, dout):

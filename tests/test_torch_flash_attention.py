@@ -2,8 +2,9 @@
 against the JAX package's Pallas kernel (paddle_tpu.ops.pallas.flash_attention,
 run in interpret mode on the CPU): values and dq/dk/dv against `jax.vjp`, in
 f32, over causal and full attention, Sq = Skv and Sq != Skv (bottom-right
-alignment), ragged lengths, D 64 and 128, GQA with g = 1, 2 and 4, and a key
-bias with a fully padded batch row. On CPU tensors the port runs its plain
+alignment), ragged lengths, D 64 and 128, the diffusion UNet's D 80 and
+160 (self-attention, and cross-attention over 13 keys, off every tile),
+GQA with g = 1, 2 and 4, and a key bias with a fully padded batch row. On CPU tensors the port runs its plain
 versions, which the CUDA kernels are held to on the card (chip_smoke.py).
 Also the sdpa dispatch: which calls reach the kernel."""
 
@@ -84,6 +85,12 @@ CASES = {
     "causal_sq_gt_skv_g4_d128": (1, 61, 37, 4, 1, 128, True, None),
     "bias_padded_row_g4_d128": (2, 24, 24, 8, 2, 128, False, "padded_row"),
     "bias_causal_ragged_g2": (2, 20, 33, 4, 2, 64, True, "tail"),
+    # the unet_sd rung's heads: 80 (the 128 tile, zero-filled) and 160 (the
+    # 192 tile), self-attention and cross-attention over a short context
+    "full_self_d80": (2, 24, 24, 4, 4, 80, False, None),
+    "full_cross_skv13_d80": (2, 24, 13, 4, 4, 80, False, None),
+    "full_self_d160": (1, 20, 20, 2, 2, 160, False, None),
+    "full_cross_skv13_d160": (1, 20, 13, 2, 2, 160, False, None),
 }
 
 
@@ -280,3 +287,14 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(TypeError, match="dtype"):
         port_fa.flash_fwd(q, q.double(), q, True, 1.0)
     assert port_fa.FWD_LAUNCHES == port_fa.DQ_LAUNCHES == port_fa.DKV_LAUNCHES == 0
+
+
+def test_head_dims_past_192_raise_before_any_launch():
+    """The kernels' widest tiles are 192 columns: a wider head raises
+    naming the limit, whatever the device; up to 192 the CPU tensor gets
+    as far as the device check (on the card: the launch)."""
+    assert port_fa.MAX_HEAD_DIM == 192
+    for d, match in ((193, "head dims up to 192"), (192, "unsupported device"),
+                     (160, "unsupported device")):
+        with pytest.raises(ValueError, match=match):
+            port_fa._device_checks(torch.zeros(1, 2, 1, d))

@@ -257,6 +257,8 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.models.bert",
             "paddle_tpu_torch.vision.models.resnet",
             "paddle_tpu_torch.vision.models._blocks",
+            "paddle_tpu_torch.models.unet",
+            "paddle_tpu_torch.nn.layer.loss",
             } <= set(
                 _port_modules())
     code = (
