@@ -341,6 +341,43 @@ Phases; any failure raises and the script exits non-zero:
                 f32 (TF32 off) on the card (the f32 flash kernels at the
                 128 and 192 widths) against the CPU (oneDNN off): losses
                 and step-1 gradients within the train hold's tolerances.
+20. random    — the port's draws on the card (framework.random's CUDA
+                generator): dropout at p 0.1 and 0.5 on 2^26 f32 and bf16
+                elements (the keep rate within 5 sigma, the kept values
+                exactly x / (1 - p), the same mask from the same seed and
+                another from the next draw, the draw's time), the mask
+                shapes of dropout2d and `axis`, alpha_dropout's mean 0 and
+                variance 1 within 5 sigma; then one gpt3_1p3b block in
+                bf16 with hidden and attention dropout 0.1, batch 2 x 1024,
+                whose gradients under per-layer recompute must equal bit
+                for bit those without it from the same generator state.
+21. bert dropout train — bert_base at its own config (hidden and
+                attention dropout 0.1), batch 32 x 512, 80 masked
+                positions a row of which a seeded ~15% of the row's
+                tokens keep a label (the rest -100), AdamW on
+                LinearWarmup(PolynomialDecay) with bf16 moments and the
+                decay filter that leaves biases and norms alone, AMP O2
+                bf16 through DistributedTrainStep: five steps with the
+                scheduler stepped after each (the rate each step used
+                printed and held to the scheduler's), the launch counters
+                zeroed just before and read just after (26 norm forwards
+                and 26 dx a step; attention with dropout is the composite,
+                no flash launch), finite losses, the step time, peak
+                memory and busy share of a profiled step. Then one eval
+                forward: 12 flash forwards through the key-bias route and
+                26 norm forwards.
+22. optimizers hold — each of the ten optimizers of optimizer.py, and
+                AdamW with the decay filter on a scheduler, three f32 steps
+                (TF32 off) on a small MLP on the card and on the CPU from
+                the same weights, each tensor's gap within OPT_HOLD_RTOL
+                of its norm (the largest entry's gap printed beside it);
+                Lamb and Lars at
+                sharding stage 2 with offload (slices of 4096 elements) on
+                a 1-rank NCCL group against the same step without
+                offload; LBFGS (strong Wolfe) five closure steps of 4
+                iterations on a quadratic of condition 100 on both,
+                reaching the CPU's iterate (which must lie within 20%
+                of the solution's norm from it, starting at 100%).
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -3738,7 +3775,7 @@ def profile_step(card, torch, fn, what):
         return [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                  "calls": e.count} for e in evs]
 
-    say(card, f"{what} profile " + json.dumps({
+    line = {
         "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall if wall > 0 else None,
         "top_device_kernels": rows(ranked[:10]),
@@ -3749,7 +3786,9 @@ def profile_step(card, torch, fn, what):
             for e in sorted((e for e in prof.key_averages()
                              if e.self_cpu_time_total > 0),
                             key=lambda e: e.self_cpu_time_total,
-                            reverse=True)[:12]]}))
+                            reverse=True)[:12]]}
+    say(card, f"{what} profile " + json.dumps(line))
+    return line
 
 
 # --------------------------------------------------------------------------- #
@@ -5294,6 +5333,415 @@ def unet_train_hold(card, torch):
                   model="unet_sd widths, 1 res block a level")
 
 
+# --------------------------------------------------------------------------- #
+# phases 20-22: the port's draws, dropout at bert_base's own config, the
+# schedulers and the other optimizers
+# --------------------------------------------------------------------------- #
+
+RANDOM_N = 1 << 26
+RANDOM_SIGMAS = 5.0
+
+
+def check_random(card, torch):
+    """Phase 20 (module docstring)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt3_1p3b)
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, bad = [], []
+    n = RANDOM_N
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(n, device="cuda", generator=gen).to(dtype)
+        for p in (0.1, 0.5):
+            ptt.seed(1)
+            out = F.dropout(x, p)
+            ptt.seed(1)
+            same = torch.equal(F.dropout(x, p), out)
+            other = not torch.equal(F.dropout(x, p), out)
+            keep = out != 0
+            kept = int(keep.sum())
+            z = (kept - n * (1 - p)) / math.sqrt(n * p * (1 - p))
+            exact = torch.equal(out[keep], (x / (1 - p))[keep])
+            ms = eager_ms(lambda: F.dropout(x, p), reps=5, inner=5)
+            row = {"dtype": str(dtype).split(".")[-1], "p": p, "n": n,
+                   "kept": kept, "z": z, "kept_exact": exact,
+                   "same_seed_same_mask": same, "next_draw_differs": other,
+                   "dtype_kept": out.dtype == dtype, "ms": ms,
+                   "hbm_bound_ms": 2 * n * x.element_size()
+                   / HBM_BYTES_PER_S * 1e3}
+            rows.append(row)
+            if not (abs(z) <= RANDOM_SIGMAS and exact and same and other
+                    and row["dtype_kept"]):
+                bad.append(row)
+    x4 = torch.randn(8, 16, 12, 12, device="cuda", generator=gen) + 5
+    shapes = {}
+    for name, fn, cut in (
+            ("dropout2d", lambda t: pnn.Dropout2D(0.5)(t), (2, 3)),
+            ("axis_1", lambda t: F.dropout(t, 0.5, axis=1), (0, 2, 3)),
+            ("axis_0_2", lambda t: F.dropout(t, 0.5, axis=[0, 2]), (1, 3))):
+        r = fn(x4) / x4
+        ok = all(torch.equal(r, r.narrow(d, 0, 1).expand_as(r)) for d in cut)
+        shapes[name] = ok
+        if not ok:
+            bad.append({name: "mask not broadcast over the other dims"})
+    xa = torch.randn(n, device="cuda", generator=gen, dtype=torch.float64)
+    alpha = _alpha_moments(F.alpha_dropout(xa, 0.2))
+    if abs(alpha["mean_z"]) > RANDOM_SIGMAS or \
+            abs(alpha["var_z"]) > RANDOM_SIGMAS:
+        bad.append({"alpha_dropout": alpha})
+    say(card, "random dropout " + json.dumps({
+        "rows": rows, "broadcast": shapes, "alpha_dropout": alpha}))
+    del x, out, keep, xa
+
+    # one gpt3_1p3b block with dropout, with and without recompute
+    cfg = gpt3_1p3b(max_position_embeddings=2048, hidden_dropout_prob=0.1,
+                    attention_dropout_prob=0.1)
+    cfg.num_layers = 1
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=3)
+    crit = GPTPretrainingCriterion(cfg)
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 1024)), device="cuda")
+    grads, launches, losses = {}, {}, {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for rc in (False, True):
+            cfg.use_recompute = rc
+            ptt.seed(5)
+            _zero_counters()
+            loss = crit(model(ids), ids)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches[rc] = {k: v for k, v in _counters().items() if v}
+            losses[rc] = loss.item()
+            grads[rc] = {k: p.grad.clone() for k, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    differ = [k for k in grads[False]
+              if not torch.equal(grads[False][k], grads[True][k])]
+    line = {"block": "gpt3_1p3b, 1 layer, bf16, batch 2 x 1024, hidden and "
+            "attention dropout 0.1", "losses": [losses[False], losses[True]],
+            "launches_plain": launches[False],
+            "launches_recompute": launches[True],
+            "grads_bitwise_equal": not differ, "differing": differ[:8]}
+    say(card, "random recompute " + json.dumps(line))
+    want_norm = 2 * cfg.num_layers + 1
+    if launches[False].get("fused_norm") != want_norm or \
+            launches[True].get("fused_norm") != want_norm + 2 * cfg.num_layers:
+        bad.append({"recompute launches": launches})
+    if differ or losses[False] != losses[True]:
+        bad.append({"recompute": differ[:8]})
+    del model, grads
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"random: {bad}")
+
+
+def _alpha_moments(y):
+    """The sample mean and variance of y with their distances from 0 and 1
+    in standard errors: sqrt(var / n) for the mean, sqrt((m4 - var^2) / n)
+    for the variance (m4 the fourth central moment, which alpha dropout's
+    two-valued dropped share sets)."""
+    n = y.numel()
+    mean = y.mean().item()
+    c = y - mean
+    var = c.square().mean().item()
+    m4 = c.pow(4).mean().item()
+    return {"mean": mean, "var": var,
+            "mean_z": mean / math.sqrt(var / n),
+            "var_z": (var - 1) / math.sqrt((m4 - var * var) / n)}
+
+
+def _mlm_labels_kept(rng, batch, seq, n_mask, vocab):
+    """Masked-LM labels [batch, n_mask]: a row keeps min(n_mask,
+    Binomial(seq, 0.15)) labels (a seeded ~15% of its tokens), the rest of
+    its slots -100, so the kept count varies by row."""
+    kept = np.minimum(n_mask, rng.binomial(seq, 0.15, batch))
+    labels = rng.integers(0, vocab, (batch, n_mask))
+    labels[np.arange(n_mask)[None, :] >= kept[:, None]] = -100
+    return labels, kept
+
+
+def _bert_schedule(plr):
+    return plr.LinearWarmup(plr.PolynomialDecay(1e-4, decay_steps=8,
+                                                end_lr=1e-5),
+                            warmup_steps=2, start_lr=0.0, end_lr=1e-4)
+
+
+def _no_decay_on_bias_or_norm(name):
+    return not any(s in name for s in ("bias", "norm"))
+
+
+# norm forward and dx a step; attention with dropout is the composite
+BERT_DROPOUT_PER_STEP = dict(fused_norm=26, fused_norm_dx=26)
+BERT_EVAL_LAUNCHES = dict(flash_fwd=12, fused_norm=26)
+
+
+def train_bert_dropout(card, torch):
+    """Phase 21 (module docstring). Returns the launches of the five
+    training steps and those of the eval forward."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.models import (BertForPretraining,
+                                         BertPretrainingCriterion, bert_base)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as plr
+
+    cfg = bert_base()
+    B, S, M = BERT_RUNG["batch"], BERT_RUNG["seq"], BERT_RUNG["n_mask"]
+    steps = 5
+    t0 = time.perf_counter()
+    model = BertForPretraining(cfg, device="cuda", seed=0)
+    crit = BertPretrainingCriterion(cfg)
+    sched = _bert_schedule(plr)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                apply_decay_param_fun=_no_decay_on_bias_or_norm,
+                moment_dtype="bfloat16")
+    step = DistributedTrainStep(
+        model, lambda mlm, nsp, ml, nl: crit(mlm, nsp, ml, nl), opt,
+        amp_level="O2", amp_dtype="bfloat16")
+    xs, ys = bert_inputs(torch, cfg, "cuda", B, S, M)
+    labels, kept = _mlm_labels_kept(np.random.default_rng(7), B, S, M,
+                                    cfg.vocab_size)
+    ys[0] = torch.as_tensor(labels, device="cuda")
+    decayed = sum(_no_decay_on_bias_or_norm(k) for k in step.params)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+
+    ref = _bert_schedule(plr)
+    want_lr = []
+    for _ in range(steps):
+        want_lr.append(ref())
+        ref.step()
+    _zero_counters()
+    reset_peak(torch)
+    used_lr, losses, times, prof = [], [], [], None
+    for i in range(steps):
+        used_lr.append(opt.get_lr())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == steps - 1:
+            prof = profile_step(card, torch,
+                                lambda: losses.append(step(xs, ys).item()),
+                                "train bert_base dropout step")
+        else:
+            losses.append(step(xs, ys).item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        sched.step()
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = _expected(**{k: v * steps for k, v in BERT_DROPOUT_PER_STEP.items()})
+
+    _zero_counters()
+    eval_loss = step.evaluate(xs, ys).item()
+    torch.cuda.synchronize()
+    eval_launches = _counters()
+    step_s = sum(times[1:steps - 1]) / (steps - 2)
+    flops = bert_flops(cfg, B, S, M)
+    line = {
+        "model": "bert_base", "recipe": "its own config (hidden and "
+        "attention dropout 0.1), AMP O2 bf16, f32 parameters, AdamW bf16 "
+        "moments on LinearWarmup(PolynomialDecay(1e-4, 8, 1e-5), 2, 0, "
+        "1e-4), no decay on biases and norms",
+        "batch": B, "seq": S, "n_mask": M,
+        "kept_slots_per_row": [int(k) for k in kept],
+        "decayed_parameters": decayed, "parameters": len(step.params),
+        "built_s": built_s, "losses": losses, "lr_used": used_lr,
+        "lr_scheduler": want_lr, "first_step_s": times[0],
+        "timed_steps": steps - 2, "step_s": step_s,
+        "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_BF16,
+        "profiled_step_s": times[-1],
+        "device_busy_share": prof["device_busy_share"],
+        "peak_memory_gb": peak / 1e9, "peak_memory_bytes": peak,
+        "launches": launches, "launches_per_step": BERT_DROPOUT_PER_STEP,
+        "eval_loss": eval_loss, "eval_launches": eval_launches}
+    say(card, "train bert_base dropout (smoke run, not a benchmark) "
+        + json.dumps(line))
+    bad = []
+    if not all(math.isfinite(l) for l in losses + [eval_loss]):
+        bad.append(f"non-finite loss {losses}, eval {eval_loss}")
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if eval_launches != _expected(**BERT_EVAL_LAUNCHES):
+        bad.append(f"eval launches {eval_launches}")
+    if used_lr != want_lr or len(set(used_lr)) < 4:
+        bad.append(f"rates {used_lr} against the scheduler's {want_lr}")
+    if len(set(int(k) for k in kept)) < 2:
+        bad.append(f"kept slots {kept} do not vary by row")
+    del step, model, opt
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"train bert_base dropout: {bad}")
+    return launches, eval_launches
+
+
+OPT_HOLD_RTOL = 1e-5
+# optimizer name -> (class, keyword arguments); the AdamW case takes a
+# fresh scheduler and the decay filter
+OPT_HOLD_CASES = {
+    "Adamax": ("Adamax", dict(learning_rate=0.01, weight_decay=0.01)),
+    "Adagrad": ("Adagrad", dict(learning_rate=0.05, weight_decay=0.01,
+                                initial_accumulator_value=0.1)),
+    "Adadelta": ("Adadelta", dict(learning_rate=1.0, weight_decay=0.01)),
+    "RMSProp": ("RMSProp", dict(learning_rate=0.01, momentum=0.9,
+                                centered=True, weight_decay=0.01)),
+    "Lamb": ("Lamb", dict(learning_rate=0.01, lamb_weight_decay=0.01)),
+    "Lars": ("Lars", dict(learning_rate=0.5, lars_coeff=0.01)),
+    "NAdam": ("NAdam", dict(learning_rate=0.01, weight_decay=0.01)),
+    "RAdam": ("RAdam", dict(learning_rate=0.01, weight_decay=0.01)),
+    "Rprop": ("Rprop", dict(learning_rate=0.01)),
+    "ASGD": ("ASGD", dict(learning_rate=0.05, batch_num=2,
+                          weight_decay=0.01)),
+    "AdamW_filter_scheduler": ("AdamW", dict(weight_decay=0.1)),
+}
+
+
+def _hold_mlp(torch, device, state=None):
+    from paddle_tpu_torch import nn as pnn
+
+    g = torch.Generator(device=device).manual_seed(0)
+    net = torch.nn.Sequential(
+        pnn.Linear(64, 128, generator=g, device=device), torch.nn.Tanh(),
+        pnn.Linear(128, 128, generator=g, device=device), torch.nn.Tanh(),
+        pnn.Linear(128, 16, generator=g, device=device))
+    if state is not None:
+        net.load_state_dict(state)
+    return net
+
+
+def _rel_gap(got, want):
+    """The largest over the tensors of ||got - want|| / ||want|| (the
+    norm of the gap over the CPU tensor's norm). Adam-like rules divide
+    by the root of g^2, so an entry whose gradient is near 0 moves by a
+    share of lr set by its rounding: such entries give the largest
+    |got - want| (`_max_gap`, printed beside it) and not the norm."""
+    return max(float((got[k].cpu() - v).norm() / v.norm().clamp(min=1e-30))
+               for k, v in want.items())
+
+
+def _max_gap(got, want):
+    """(the largest |got - want| of each tensor over its largest |want|,
+    that tensor's name)."""
+    return max((float((got[k].cpu() - v).abs().max()
+                      / v.abs().max().clamp(min=1e-30)), k)
+               for k, v in want.items())
+
+
+def optimizers_hold(card, torch):
+    """Phase 22 (module docstring)."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.distributed import train_step as ts
+    from paddle_tpu_torch.optimizer import lr as plr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(32, 64)).astype(np.float32)
+    y = rng.normal(size=(32, 16)).astype(np.float32)
+    state = {k: v.cpu() for k, v in _hold_mlp(torch, "cpu").state_dict().items()}
+
+    def mse(o, t):
+        return ((o - t) ** 2).mean()
+
+    def eager(device, cls, kw):
+        net = _hold_mlp(torch, device, state)
+        sched = None
+        if cls == "AdamW":
+            sched = plr.CosineAnnealingDecay(0.02, T_max=4)
+            kw = dict(kw, learning_rate=sched,
+                      apply_decay_param_fun=_no_decay_on_bias_or_norm)
+        opt = getattr(popt, cls)(parameters=net.named_parameters(), **kw)
+        xt, yt = (torch.as_tensor(a, device=device) for a in (x, y))
+        for _ in range(3):
+            mse(net(xt), yt).backward()
+            opt.step()
+            opt.clear_grad()
+            if sched is not None:
+                sched.step()
+        return {k: v.detach().cpu() for k, v in net.state_dict().items()}
+
+    rows, bad = {}, []
+    for name, (cls, kw) in OPT_HOLD_CASES.items():
+        want = eager("cpu", cls, kw)
+        got = eager("cuda", cls, kw)
+        moved = max(float((want[k] - state[k]).abs().max()) for k in state)
+        rows[name] = {"rel_gap": _rel_gap(got, want),
+                      "max_gap": _max_gap(got, want), "moved": moved}
+        if not rows[name]["rel_gap"] <= OPT_HOLD_RTOL or moved <= 1e-5:
+            bad.append((name, rows[name]))
+
+    # Lamb and Lars: whole-parameter norms over offload slices
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1")
+    pdist.init_parallel_env()
+    sharded = {}
+    saved = ts.OFFLOAD_SLICE
+    try:
+        mesh = pdist.build_mesh(sharding=1)
+        ts.OFFLOAD_SLICE = 4096
+        for name in ("Lamb", "Lars"):
+            out = {}
+            for offload in (False, True):
+                net = _hold_mlp(torch, "cuda", state)
+                step = pdist.DistributedTrainStep(
+                    net, mse, getattr(popt, name)(
+                        parameters=net.parameters(), **OPT_HOLD_CASES[name][1]),
+                    mesh=mesh, sharding_stage=2, offload=offload)
+                losses = [step(x, y).item() for _ in range(3)]
+                out[offload] = (losses, {k: v.detach().cpu()
+                                         for k, v in net.state_dict().items()})
+            sharded[name] = {"losses": out[True][0],
+                             "rel_gap": _rel_gap(out[True][1], out[False][1])}
+            if not sharded[name]["rel_gap"] <= OPT_HOLD_RTOL:
+                bad.append((name + " offload", sharded[name]))
+    finally:
+        ts.OFFLOAD_SLICE = saved
+        pdist.destroy_process_group()
+
+    # LBFGS on a quadratic 0.5 x^T A x - b^T x, A of condition 100: five
+    # steps of 4 iterations leave the iterate on its way (a converged one
+    # sits at f32's noise floor, where the two devices' roundings alone
+    # set the gap)
+    q, _ = np.linalg.qr(rng.normal(size=(256, 256)))
+    a = (q * np.linspace(1.0, 100.0, 256)) @ q.T
+    b = rng.normal(size=256)
+    solution = np.linalg.solve(a, b)
+
+    def lbfgs(device):
+        A = torch.as_tensor(a, dtype=torch.float32, device=device)
+        bv = torch.as_tensor(b, dtype=torch.float32, device=device)
+        xv = torch.nn.Parameter(torch.zeros(256, device=device))
+        opt = popt.LBFGS(learning_rate=1.0, max_iter=4, history_size=10,
+                         line_search_fn="strong_wolfe", parameters=[xv])
+
+        def closure():
+            opt.clear_grad()
+            loss = 0.5 * xv @ (A @ xv) - bv @ xv
+            loss.backward()
+            return loss
+
+        for _ in range(5):
+            opt.step(closure)
+        return xv.detach().cpu().double().numpy()
+
+    want, got = lbfgs("cpu"), lbfgs("cuda")
+    lb = {"rel_gap": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+          "max_gap": float(np.abs(got - want).max() / np.abs(want).max()),
+          "from_solution": float(np.linalg.norm(want - solution)
+                                 / np.linalg.norm(solution))}
+    if not (lb["rel_gap"] <= OPT_HOLD_RTOL and lb["from_solution"] <= 0.2):
+        bad.append(("LBFGS", lb))
+    say(card, "optimizers hold " + json.dumps({
+        "rtol": OPT_HOLD_RTOL, "eager_f32_3_steps": rows,
+        "stage2_offload_vs_not": sharded, "lbfgs_5_steps": lb}))
+    if bad:
+        raise AssertionError(f"optimizers hold: {bad}")
+
+
 def main():
     import torch
 
@@ -5370,6 +5818,10 @@ def main():
     phase(resnet_train_hold, card, torch)
     unet_launches = phase(train_unet, card, torch)
     phase(unet_train_hold, card, torch)
+    phase(check_random, card, torch)
+    bert_dropout_launches, bert_eval_launches = phase(train_bert_dropout,
+                                                      card, torch)
+    phase(optimizers_hold, card, torch)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -5377,7 +5829,8 @@ def main():
              train_launches, sharded_launches, tp_launches, pipe_launches,
              cp_launches, llama_serve_launches,
              llama_train_launches, moe_launches, ep_launches, varlen_launches,
-             bert_launches, resnet_launches, unet_launches)
+             bert_launches, resnet_launches, unet_launches,
+             bert_dropout_launches, bert_eval_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"

@@ -34,9 +34,13 @@ ZeRO, tensor, sequence and pipeline parallelism, the schedules in
 `parallel`); BERT (`models.bert`, on `nn.TransformerEncoder`, its
 key-padding mask through the flash kernels' key bias) and the ResNet
 family (`vision.models`: conv, pooling, batch norm with Paddle's running
-statistics) with `optimizer.Momentum`. See ROADMAP.md for the rest.
+statistics) with `optimizer.Momentum`; dropout and the other random
+draws from explicit generators (`seed`, `framework.random`), the
+learning-rate schedulers (`optimizer.lr`) and the rest of the optimizers.
+See ROADMAP.md for the rest.
 """
 
 from .device import resolve_device
+from .framework.random import get_rng_state, seed, set_rng_state
 
-__all__ = ["resolve_device"]
+__all__ = ["get_rng_state", "resolve_device", "seed", "set_rng_state"]

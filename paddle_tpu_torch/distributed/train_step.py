@@ -39,10 +39,17 @@ that must see plain tensors, and the shards follow the reference's
   sum of c_r over the token ranks (an all-reduce) and n the number of
   token ranks, the step back-propagates loss_r * n * c_r / C for a mean
   and loss_r * n for a sum, and the gradients' reduction divides by n; the
-  returned loss is the all-reduce of those weighted losses over n. A
-  `loss_fn` that notes no reduction (or more than one), or a batch that no
-  rank cuts, keeps the equal-count mean (loss_r * 1), which is exact for
-  the even splits of the batch rule.
+  returned loss is the all-reduce of those weighted losses over n. A loss
+  that sums several reductions (`BertPretrainingCriterion`: a masked-LM
+  mean over the kept slots plus an NSP mean over the rows) notes each with
+  its term, and each term t is weighed so by its own count w_t, one
+  all-reduce of the counts a term: the step back-propagates loss_r +
+  sum(t * (w_t - 1)), so whatever else the loss adds to the terms (an
+  auxiliary loss) keeps weight 1; the terms are taken as added to the
+  loss once each. A `loss_fn` that notes no reduction, or several of
+  which one lacks its term (two `cross_entropy` calls), or a batch that
+  no rank cuts, keeps the equal-count mean (loss_r * 1), which is exact
+  for the even splits of the batch rule.
 - **Batch norm.** Its batch statistics are those of the global batch, as
   the reference's over its global arrays: the forward runs inside
   `nn.functional.batch_stats_over` the batch ranks' group, so each batch
@@ -111,6 +118,21 @@ that must see plain tensors, and the shards follow the reference's
   pinned memory on `cuda` (`host_memory_kind`). The update streams each
   parameter's state through the device in slices along its first dim: in,
   the rule, and back out, on a side stream when `comm_overlap` is on.
+- **Whole-parameter norms.** Lamb's trust ratio and Lars's local rate
+  read norms of the whole parameter, as the reference's over its global
+  arrays: the rule's squared sums over this rank's piece are all-reduced
+  over the groups that hold the parameter's other pieces (sharding for a
+  ZeRO shard, mp for a cut parameter, ep for an expert shard, pp for a
+  pipelined stack), over a group of one too. Without offload the rule
+  hands its sums to the step as it updates (`ctx["sum_norms"]`); under
+  offload a first pass sums them over this rank's slices
+  (`Optimizer.norm_parts`, streaming the state in and writing nothing
+  back) and the rule reads the total (`ctx["sq_norms"]`).
+- **Dropout.** A step's forward and backward run inside the rank rule of
+  `framework.random` (`rank_scope`): each rank draws from generators
+  seeded from the seed and its index over the token axes, with its mp
+  coordinate for draws on tensors cut over mp. Outside a step's call the
+  rank is (0, 0) again; building a step touches no generator.
 - **Clip.** The global-norm clip's squared sum adds this rank's shards'
   sums over the sharding group, an mp-cut parameter's over the mp group
   (as the reference's `meta_optimizers.py:55-75`), an expert shard's over
@@ -128,6 +150,7 @@ axes, and expert layers in a model whose sequence is cut over sep.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import weakref
 
@@ -135,6 +158,7 @@ import torch
 import torch.utils.checkpoint
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..framework import random
 from ..jit import TrainStep
 from ..nn.functional.norm import batch_stats_over
 from ..parallel import pipeline as _pipeline
@@ -337,6 +361,10 @@ class DistributedTrainStep(TrainStep):
             self._batch_rank = self._batch_rank * sizes[a] + \
                 mesh.get_local_rank(a)
         self._n_tokens = self._n_batch * (sizes["sep"] if self._seq_cut else 1)
+        token = 0
+        for a in self._token_axes:
+            token = token * sizes[a] + mesh.get_local_rank(a)
+        self._rng_rank = (token, mesh.get_local_rank("mp"))
         shard_model(model, self._mp_pg)
         # a pipelined model keeps its stage's layers; any other is whole on
         # every pp rank, which computes the whole step
@@ -715,16 +743,16 @@ class DistributedTrainStep(TrainStep):
             return super()._loss(inputs, labels)
 
     def _loss_weight(self, notes, loss, whole_of=0):
-        """This rank's weight in the global loss (module docstring,
-        "Loss"): n * c_r / C for a mean, n for a sum, 1 otherwise; a
-        one-stage pipeline's microbatch (`whole_of` = M) as jit.TrainStep
-        weighs it, times n."""
+        """This rank's weight of its loss, or of one noted term, in the
+        global loss (module docstring, "Loss"): n * c_r / C for a mean, n
+        for a sum, 1 otherwise; a one-stage pipeline's microbatch
+        (`whole_of` = M) as jit.TrainStep weighs it, times n."""
         if self.mesh is None:
             return super()._loss_weight(notes, loss, whole_of)
         if len(notes) != 1:
             return 1.0
         n = self._n_tokens if self._split else 1
-        kind, count, denom = notes[0]
+        kind, count, denom, _ = notes[0]
         if kind == "sum":
             return float(n * max(whole_of, 1))
         if whole_of:
@@ -756,7 +784,8 @@ class DistributedTrainStep(TrainStep):
         self._scattering = []
         self._reducing = True
         try:
-            loss = super().__call__(inputs, labels)
+            with random.rank_scope(*self._rng_rank):
+                loss = super().__call__(inputs, labels)
         finally:
             self._reducing = self._split = False
             self._live = {}
@@ -767,7 +796,8 @@ class DistributedTrainStep(TrainStep):
         if self.mesh is None:
             return super().evaluate(inputs, labels)
         try:
-            loss = super().evaluate(inputs, labels)
+            with random.rank_scope(*self._rng_rank):
+                loss = super().evaluate(inputs, labels)
         finally:
             self._split = False
         return self._mean_loss(loss)
@@ -838,21 +868,78 @@ class DistributedTrainStep(TrainStep):
         return parts[frozenset()]
 
     def _apply(self, name, p, g, lr, ctx):
+        if self.mesh is not None and self.optimizer.whole_norms:
+            if self.offload:
+                ctx = dict(ctx, sq_norms=self._whole_sq_norms(
+                    name, self._offload_norm_parts(name, p, g, ctx)))
+            else:
+                ctx = dict(ctx, sum_norms=functools.partial(
+                    self._whole_sq_norms, name))
         if not self.offload:
             return super()._apply(name, p, g, lr, ctx)
         t = self._shard_param_for_update(name, p)
         st = self._host_state(p, t)
-        n = t.shape[0] if t.dim() else 1
-        rows = max(1, OFFLOAD_SLICE // max(1, t[0].numel())) if t.dim() else 1
-        for i in range(0, n, rows):
-            def part(x):
-                return x.narrow(0, i, min(rows, x.shape[0] - i)) if x.dim() else x
-            dev = {k: part(v).to(t.device, non_blocking=True)
+        # a 0-d state (NAdam's mu_prod, ASGD's idx) is the whole
+        # parameter's: every slice steps its own copy of the value before
+        # the step, and the last slice's is written back once
+        whole = {k for k, v in st.items() if v.dim() == 0}
+        for part in self._offload_parts(t):
+            dev = {k: v.to(t.device, copy=True) if k in whole
+                   else part(v).to(t.device, non_blocking=True)
                    for k, v in st.items()}
             self.optimizer.apply_rule(part(t), None if g is None else part(g),
                                       dev, lr, ctx)
             if t.device.type == "cuda":
-                self._to_host(dev, {k: part(v) for k, v in st.items()})
+                self._to_host({k: v for k, v in dev.items() if k not in whole},
+                              {k: part(v) for k, v in st.items()
+                               if k not in whole})
+        for k in whole:
+            st[k].copy_(dev[k])
+
+    @staticmethod
+    def _offload_parts(t):
+        """One function a slice of OFFLOAD_SLICE elements along t's first
+        dim, cutting t, its gradient or a state tensor to the slice (a
+        state [n, *t.shape], ASGD's ring, along its second dim)."""
+        n = t.shape[0] if t.dim() else 1
+        rows = max(1, OFFLOAD_SLICE // max(1, t[0].numel())) if t.dim() else 1
+        for i in range(0, n, rows):
+            def part(x, i=i):
+                if not t.dim() or not x.dim():
+                    return x
+                d = 0 if x.shape == t.shape else 1
+                return x.narrow(d, i, min(rows, x.shape[d] - i))
+            yield part
+
+    def _offload_norm_parts(self, name, p, g, ctx):
+        """This rank's piece's squared sums of a `whole_norms` rule (Lamb,
+        Lars), summed over its offload slices: a first pass that streams
+        the state in and writes nothing back."""
+        opt = self.optimizer
+        t = self._shard_param_for_update(name, p)
+        st = self._host_state(p, t)
+        parts = 0
+        for part in self._offload_parts(t):
+            dev = {k: part(v).to(t.device, non_blocking=True)
+                   for k, v in st.items()}
+            parts = parts + opt.norm_parts(
+                part(t), None if g is None else part(g), dev, ctx)
+        return parts
+
+    def _whole_sq_norms(self, name, parts):
+        """The whole parameter's squared sums from this rank's piece's
+        `parts`: all-reduced over the groups that hold the other pieces,
+        over groups of one too."""
+        parts = parts.float().contiguous()
+        if self._cut(name) is not None:
+            C._all_reduce(parts, self._shard_pg)
+        if self._mp_dim[name] is not None:
+            C._all_reduce(parts, self._mp_pg)
+        if name in self._ep_axes:
+            C._all_reduce(parts, self._ep_pg)
+        if self._pipe and name not in self._pp_shared:
+            _pipeline.pp_all_reduce(parts, self._pp_pg)
+        return parts
 
     def _host_state(self, p, t):
         """p's optimizer state on the host (pinned on cuda), made on first

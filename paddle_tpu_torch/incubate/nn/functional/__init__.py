@@ -18,7 +18,7 @@ Each casts its inputs for AMP under the JAX package's op name ("swiglu",
 "fused_rope", "fused_rms_norm", "fused_layer_norm",
 "masked_multihead_attention"). The rest of the module
 (`block_multihead_attention`, `fused_bias_act` and the other fused
-functionals, MoE) is ROADMAP A8b and A11 work.
+functionals, `fused_moe`) is ROADMAP queue A item 5.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def _fused_norm(op, kind, x, norm_weight, norm_bias, epsilon, begin_norm_axis,
                 bias, residual, alpha, quant_scale):
     if quant_scale != -1:
         raise NotImplementedError(
-            f"{op}: the quantized output is not ported (ROADMAP A8b)")
+            f"{op}: the quantized output is not ported (ROADMAP queue A item 5)")
     a, w, nb, b, r = amp.cast_inputs(op, x, norm_weight, norm_bias, bias,
                                      residual)
     ax = begin_norm_axis % a.dim()

@@ -3,7 +3,7 @@
 `create_serving_engine(model)` builds a `PagedServingEngine` on the model's
 device, `create_serving_engine(model, paged=False)` the dense
 `ContinuousBatchingEngine`. The saved-program Predictor comes with a later
-slice (ROADMAP A13).
+slice (ROADMAP queue A item 8).
 """
 
 from __future__ import annotations

@@ -5,9 +5,13 @@ one XLA program. PyTorch runs eagerly, so a `TrainStep` call runs them in
 turn: the forward under `amp.auto_cast(level, dtype)` when an AMP level is
 given, the loss in f32, `loss.backward()`, the optimizer's global-norm
 clip when it has one (in f32 over every gradient, :364-371), then the
-optimizer's rule on every parameter with the step counter t and the
-optimizer's weight decay applied to every parameter (as `_build` does,
-:299-300 and :373-390), on the f32 master copy under multi-precision. Each
+optimizer's rule on every parameter with the step counter t, the
+learning rate `optimizer.get_lr()` read anew on each call (a scheduler's
+current rate) and the parameter's weight decay (`_param_decay`: the
+optimizer's coefficient, as `_build` applies it, :299-300 and :373-390,
+but for the parameters an `AdamW.apply_decay_param_fun` refuses, which
+the reference's compiled step decays too and its eager `step()` does
+not), on the f32 master copy under multi-precision. Each
 gradient is freed as soon as its parameter is updated. The parameters are
 updated in place (the JAX package's `sync_weights` write-back has nothing
 to do here).
@@ -110,18 +114,30 @@ class TrainStep:
         return self._batch(inputs), self._batch(labels)
 
     def _loss_fn(self, outs, labels, whole_of=0):
+        """The loss to back-propagate: the loss times its weight. A loss
+        that noted several reductions, each with its term, keeps the rest
+        of itself (an auxiliary loss, a regulariser) at weight 1 and
+        re-weighs each term by its own weight: loss + sum(term * (w - 1)),
+        the terms taken as added to the loss once each. Several notes of
+        which one lacks its term, or several in a one-stage 1F1B pipeline,
+        keep the loss at weight 1."""
         with record_reductions() as notes:
             loss = self.loss_fn(*outs, *labels).float()
+        if (len(notes) > 1 and not whole_of
+                and all(note[3] is not None for note in notes)):
+            return loss + sum(
+                note[3].float() * (self._loss_weight([note], note[3]) - 1.0)
+                for note in notes)
         return loss * self._loss_weight(notes, loss, whole_of)
 
     def _loss_weight(self, notes, loss, whole_of=0):
-        """This rank's weight of its loss: 1 here, where one rank holds the
-        whole batch. `whole_of` = M: a microbatch of M whose loss adds up to
-        the whole batch's (module docstring); a mean's count is kept in
-        `_counts`."""
+        """This rank's weight of its loss (or of one noted term): 1 here,
+        where one rank holds the whole batch. `whole_of` = M: a microbatch
+        of M whose loss adds up to the whole batch's (module docstring); a
+        mean's count is kept in `_counts`."""
         if len(notes) != 1 or not whole_of:
             return 1.0
-        kind, count, denom = notes[0]
+        kind, count, denom, _ = notes[0]
         if kind == "sum":
             return float(whole_of)
         self._counts.append(count)
@@ -180,7 +196,7 @@ class TrainStep:
     def _update(self):
         opt = self.optimizer
         opt._step_count += 1
-        ctx = {"step": opt._step_count, "weight_decay": opt._decay_coeff()}
+        ctx = {"step": opt._step_count}
         lr = opt.get_lr()
         grads = {k: self._shard_grad(k, p.grad) for k, p in self.params.items()}
         if self._grad_factor is not None:
@@ -192,7 +208,8 @@ class TrainStep:
             grads = {k: None if g is None else scale_grad(g, scale)
                      for k, g in grads.items()}
         for k, p in self.params.items():
-            self._apply(k, p, grads.pop(k), lr, ctx)
+            pctx = dict(ctx, weight_decay=opt._param_decay(k, p))
+            self._apply(k, p, grads.pop(k), lr, pctx)
             p.grad = None
             self._restore_param(k, p)
 

@@ -20,8 +20,10 @@ Each op casts its inputs for AMP under the JAX package's op name
 "bert_pretraining_loss", "add"). Weights come from an explicit
 `torch.Generator` seeded by `seed` with Paddle's default initializers;
 cross-package tests copy the JAX weights with `convert.load_paddle_tpu_state`.
-Dropout at p > 0 in training raises (ROADMAP queue A item 4):
-`bench.py`'s rung sets both probabilities to 0.
+The hidden and attention dropouts (0.1 in `bert_base()`) draw from the
+port's generators in training (`framework.random`); with attention
+dropout the attention takes the composite route, in eval the flash
+kernels' key-bias route.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..device import resolve_device
 from ..nn import (Dropout, Embedding, LayerNorm, Linear, TransformerEncoder,
                   TransformerEncoderLayer)
 from ..nn import functional as F
+from ..nn.functional.loss import note_reduction
 
 __all__ = ["BertConfig", "BertModel", "BertForPretraining",
            "BertForSequenceClassification", "BertPretrainingCriterion",
@@ -182,9 +185,12 @@ class BertForPretraining(nn.Module):
 class BertPretrainingCriterion(nn.Module):
     """Masked-LM cross entropy over the slots whose label is >= 0 (a mean
     over them; -100 pads a slot) plus the NSP cross entropy (a mean over
-    the batch). It notes no reduction of its own (two means of different
-    counts), so a batch cut over ranks weighs each rank's loss equally:
-    the global batch's loss when every rank holds as many kept slots."""
+    the batch). It notes both reductions with their terms
+    (`nn.functional.loss.note_reduction`): the masked-LM mean over
+    sum(keep) slots and the NSP mean over B rows, so a step over a cut
+    batch weighs each by its own global count and the loss is the global
+    batch's, as the reference computes it over its global arrays
+    (:154-165), whatever each rank's count of kept slots."""
 
     def __init__(self, cfg: BertConfig = None):
         super().__init__()
@@ -196,9 +202,14 @@ class BertPretrainingCriterion(nn.Module):
         logp = torch.log_softmax(lg, dim=-1).gather(
             -1, ml.clamp(min=0)[..., None])[..., 0]
         keep = (ml >= 0).float()
-        mlm = -(logp * keep).sum() / keep.sum().clamp(min=1.0)
+        count = keep.sum()
+        mlm = -(logp * keep).sum() / count.clamp(min=1.0)
+        note_reduction("mean", count, count.clamp(min=1.0), mlm)
         nlogp = torch.log_softmax(ng, dim=-1).gather(-1, nl[..., None])[..., 0]
-        return mlm - nlogp.mean()
+        nsp = -nlogp.mean()
+        note_reduction("mean", float(nlogp.numel()),
+                       float(max(nlogp.numel(), 1)), nsp)
+        return mlm + nsp
 
 
 class BertForSequenceClassification(nn.Module):

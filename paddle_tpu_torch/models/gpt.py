@@ -88,11 +88,22 @@ before the head (`GatherOp`). The norms' parameters and the row-parallel
 biases are then sequence-parallel parameters, whose gradients the step
 sums over mp. An uncut model ignores `sequence_parallel`.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP queue A
-item): dropout (4).
+Dropout (`hidden_dropout_prob`: the embedding's and both residual
+dropouts of each block; `attention_dropout_prob`: on the attention
+probabilities of the `flash` variant, which then takes the composite
+attention) draws from the port's generators (`framework.random`). The
+embedding's dropout runs before a sequence-parallel cut (one mask, each
+mp rank keeping its rows of it); under sequence parallelism the residual
+dropouts run on this rank's rows and the attention dropout on this
+rank's heads, so those draw inside `framework.random.cut_over_mp()`, as
+does the attention dropout of any model cut over mp. As in the reference
+(:226-238), attention dropout raises under `context_parallel` and on the
+flashmask variant, whose kernels have no dropout path.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import dataclasses
 import math
@@ -111,6 +122,7 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
     VocabParallelEmbedding,
 )
 from ..distributed.fleet.recompute import recompute
+from ..framework import random
 from ..distributed.fleet.utils.sequence_parallel_utils import (
     ColumnSequenceParallelLinear,
     GatherOp,
@@ -119,7 +131,7 @@ from ..distributed.fleet.utils.sequence_parallel_utils import (
     mark_as_sequence_parallel_parameter,
 )
 from ..incubate.nn.functional import fused_rotary_position_embedding, swiglu
-from ..nn import Embedding, LayerNorm, RMSNorm
+from ..nn import Dropout, Embedding, LayerNorm, RMSNorm
 from ..nn import functional as F
 from ..nn.functional.loss import note_reduction
 from ..ops.decode_attention import (
@@ -216,10 +228,15 @@ def _check_supported(cfg: GPTConfig):
         raise ValueError(f"unknown activation {cfg.activation!r}")
     if cfg.attn_variant not in ("flash", "flashmask"):
         raise ValueError(f"unknown attn_variant {cfg.attn_variant!r}")
-    if cfg.hidden_dropout_prob or cfg.attention_dropout_prob:
-        raise NotImplementedError(
-            "dropout (explicit generators, Philox in the attention kernels) "
-            "is ported with ROADMAP queue A item 4")
+    if cfg.attention_dropout_prob and cfg.context_parallel:
+        raise ValueError(
+            "context_parallel ring attention does not support attention "
+            "dropout; set attention_dropout_prob=0")
+    if cfg.attention_dropout_prob and cfg.attn_variant == "flashmask":
+        raise ValueError(
+            "attn_variant='flashmask' does not support attention dropout "
+            "(the flashmask kernels have no dropout path); set "
+            "attention_dropout_prob=0")
 
 
 def _dyn_update(buf, new, off):
@@ -333,6 +350,9 @@ class GPTAttention(nn.Module):
     def _mp_shard(self, pg, rank, n):
         self.num_heads = self.config.num_heads // n
         self.num_kv_heads = self.config.kv_heads // n
+        self._cut = True
+
+    _cut = False   # this rank's heads only (cut over mp)
 
     def forward(self, x, position_ids=None, cache=None, cache_offset=None,
                 startend_row_indices=None, block_tables=None):
@@ -370,7 +390,7 @@ class GPTAttention(nn.Module):
             mask = _decode_mask(k_all.shape[1], cache_offset, S, x.device)
             out = F.scaled_dot_product_attention(
                 q, k_all, v_all, attn_mask=mask, is_causal=False,
-                training=self.training)
+                dropout_p=cfg.attention_dropout_prob, training=self.training)
         elif cfg.context_parallel:
             out = F.ring_flash_attention(q, k, v, causal=True)
         elif cfg.attn_variant == "flashmask":
@@ -383,8 +403,11 @@ class GPTAttention(nn.Module):
             out = F.flashmask_attention(q, k, v, startend_row_indices=idx,
                                         causal=True)
         else:
-            out = F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, training=self.training)
+            with _cut_draws(self._cut):
+                out = F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True,
+                    dropout_p=cfg.attention_dropout_prob,
+                    training=self.training)
         out = self.out_proj(out.reshape(B, S, self.num_heads * d))
         if cache is not None:
             return out, new_cache
@@ -415,6 +438,11 @@ class GPTMLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def _cut_draws(cut):
+    """The draws of a tensor cut over mp come from the mp-cut generator."""
+    return random.cut_over_mp() if cut else contextlib.nullcontext()
+
+
 def _sep_offset(config, S):
     """The global position of this rank's first token: r * S on sep rank r
     of the global mesh under context parallelism, else 0."""
@@ -432,6 +460,7 @@ def _embed(model, input_ids, position_ids):
     if not model.config.use_rope:
         h = torch.add(*amp.cast_inputs("add", h,
                                        model.embed_positions(position_ids)))
+    h = model.embed_dropout(h)
     if model.config.sequence_parallel and model.mp_group is not None:
         h = ScatterOp.apply(h, 1, model.mp_group)
     return h
@@ -460,6 +489,18 @@ class GPTDecoderLayer(nn.Module):
         self.self_attn = GPTAttention(config, **kw)
         self.post_attention_layernorm = _make_norm(config, device, dtype)
         self.mlp = GPTMLP(config, **kw)
+        self.dropout = Dropout(config.hidden_dropout_prob)
+
+    def _mp_shard(self, pg, rank, n):
+        # under sequence parallelism the residual stream is this rank's rows
+        self._seq_cut = self.config.sequence_parallel
+
+    _seq_cut = False
+
+    def _residual(self, x, h):
+        with _cut_draws(self._seq_cut):
+            h = self.dropout(h)
+        return torch.add(*amp.cast_inputs("add", x, h))
 
     def forward(self, x, position_ids=None, cache=None, cache_offset=None,
                 startend_row_indices=None, block_tables=None):
@@ -471,9 +512,8 @@ class GPTDecoderLayer(nn.Module):
             h = self.self_attn(h, position_ids,
                                startend_row_indices=startend_row_indices)
             new_cache = None
-        x = torch.add(*amp.cast_inputs("add", x, h))
-        h = self.mlp(self.post_attention_layernorm(x))
-        x = torch.add(*amp.cast_inputs("add", x, h))
+        x = self._residual(x, h)
+        x = self._residual(x, self.mlp(self.post_attention_layernorm(x)))
         if cache is not None:
             return x, new_cache
         return x
@@ -495,6 +535,7 @@ class GPTModel(nn.Module):
             self.embed_positions = Embedding(
                 config.max_position_embeddings, config.hidden_size,
                 weight_std=std, **kw)
+        self.embed_dropout = Dropout(config.hidden_dropout_prob)
         self.layers = nn.ModuleList(
             [GPTDecoderLayer(config, **kw) for _ in range(config.num_layers)])
         self.final_norm = _make_norm(config, device, dtype)

@@ -59,7 +59,7 @@ from ..distributed.fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
                                                       _cut, shard_model)
 from ..distributed.fleet.recompute import recompute
 from ..distributed.fleet.utils.sequence_parallel_utils import GatherOp
-from ..nn import Embedding, LayerNorm
+from ..nn import Dropout, Embedding, LayerNorm
 from ..parallel.pipeline import (microbatch, pipeline_1f1b,
                                  pipeline_interleaved, pipeline_spmd,
                                  stage_rows, unmicrobatch)
@@ -112,6 +112,7 @@ class GPTForCausalLMPipe(nn.Module):
             self.embed_positions = Embedding(
                 config.max_position_embeddings, config.hidden_size,
                 weight_std=std, **kw)
+        self.embed_dropout = Dropout(config.hidden_dropout_prob)
         L = config.num_layers
         bufs = {}
         for i in range(L):
@@ -147,6 +148,12 @@ class GPTForCausalLMPipe(nn.Module):
         object.__setattr__(self, "_template", template)
         self._pp_cut = False
         self._pp_group, self._stages, self._stage = None, 1, 0
+
+    def train(self, mode=True):
+        # the template is no submodule: its dropouts follow the model's mode
+        super().train(mode)
+        self._template.train(mode)
+        return self
 
     # -- the cuts ------------------------------------------------------------ #
 

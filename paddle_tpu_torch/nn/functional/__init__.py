@@ -1,7 +1,8 @@
 """paddle_tpu_torch.nn.functional — the functionals the ported paths use."""
 
-from .activation import gelu, relu, silu, tanh
-from .common import dropout, embedding, linear
+from .activation import gelu, gumbel_softmax, relu, rrelu, silu, tanh
+from .common import (alpha_dropout, dropout, dropout2d, dropout3d, embedding,
+                     linear)
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose, conv3d,
                    conv3d_transpose)
 from .extras import flash_attn_varlen_qkvpacked
@@ -21,7 +22,8 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       avg_pool2d, avg_pool3d, max_pool1d, max_pool2d,
                       max_pool3d)
 
-__all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+__all__ = ["alpha_dropout", "dropout2d", "dropout3d", "gumbel_softmax",
+           "rrelu", "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
            "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
            "avg_pool1d", "avg_pool2d", "avg_pool3d", "batch_norm",
            "batch_stats_group", "batch_stats_over", "binary_cross_entropy",

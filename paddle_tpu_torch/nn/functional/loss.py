@@ -21,10 +21,12 @@ under O2 as the reference's do. `ctc_loss` raises NotImplementedError
 (ROADMAP queue A item 8).
 
 A reducing loss notes how it reduced (`note_reduction`): a mean over how
-many terms, or a sum. `DistributedTrainStep` reads the notes taken while
+many terms, or a sum; a loss that adds several reductions up notes each
+with the term it gave. `DistributedTrainStep` reads the notes taken while
 its `loss_fn` runs (`record_reductions`) to turn each rank's loss into its
-share of the loss over the global batch; `cross_entropy` and
-`models.GPTPretrainingCriterion` note theirs.
+share of the loss over the global batch; `cross_entropy`,
+`models.GPTPretrainingCriterion` and `models.BertPretrainingCriterion`
+(two terms) note theirs.
 """
 
 from __future__ import annotations
@@ -59,14 +61,15 @@ def record_reductions():
         _NOTES.reset(token)
 
 
-def note_reduction(kind, count=None, denom=None):
+def note_reduction(kind, count=None, denom=None, term=None):
     """Note, for a recording step, that a loss was reduced: kind "mean"
     (divided by `denom`, which stands for `count` terms: a global mean
     divides the global sum by the larger of 1 and the sum of the counts)
-    or "sum"."""
+    or "sum". A loss that sums several reductions notes each with its
+    `term`, the tensor it gave; the terms add up to the loss."""
     notes = _NOTES.get()
     if notes is not None:
-        notes.append((kind, count, denom))
+        notes.append((kind, count, denom, term))
 
 
 class SparseCrossEntropy(torch.autograd.Function):
@@ -103,7 +106,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
         raise NotImplementedError(
             "cross_entropy with class weights, soft labels, label smoothing, "
             "use_softmax=False or a class axis other than the last is ported "
-            "with the rest of the nn surface (ROADMAP A3)")
+            "with ROADMAP queue A item 4")
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
     (logits,) = amp.cast_inputs("cross_entropy", input)

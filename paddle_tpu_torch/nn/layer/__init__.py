@@ -1,5 +1,6 @@
 from .activation import GELU, ReLU, Silu, Tanh
-from .common import Dropout, Embedding, Flatten, Identity, Linear
+from .common import (AlphaDropout, Dropout, Dropout2D, Dropout3D, Embedding,
+                     Flatten, Identity, Linear)
 from .container import LayerList, Sequential
 from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                    CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, KLDivLoss,
@@ -18,7 +19,7 @@ from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
                           TransformerDecoderLayer, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
+__all__ = ["AdaptiveAvgPool1D", "AlphaDropout", "Dropout2D", "Dropout3D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
            "AvgPool1D", "AvgPool2D", "AvgPool3D", "BCELoss",
            "BCEWithLogitsLoss", "BatchNorm", "BatchNorm1D", "BatchNorm2D",

@@ -18,8 +18,8 @@ from torch import nn
 from ...device import resolve_device
 from .. import functional as F
 
-__all__ = ["Dropout", "Embedding", "Flatten", "Identity", "Linear",
-           "init_weight"]
+__all__ = ["AlphaDropout", "Dropout", "Dropout2D", "Dropout3D", "Embedding",
+           "Flatten", "Identity", "Linear", "init_weight"]
 
 
 def init_weight(w, std, default, generator):
@@ -111,7 +111,7 @@ class Flatten(nn.Module):
 
 class Dropout(nn.Module):
     """`nn.functional.dropout` in the layer's mode: the identity at p = 0
-    or in eval mode; p > 0 in training raises (ROADMAP queue A item 4)."""
+    or in eval mode, a mask from the port's generators in training."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
@@ -123,3 +123,40 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}, mode={self.mode}"
+
+
+class Dropout2D(nn.Module):
+    """`nn.functional.dropout2d`: whole channels of an NCHW (or NHWC)
+    input dropped in training."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(nn.Module):
+    """`nn.functional.dropout3d`: whole channels of an NCDHW (or NDHWC)
+    input dropped in training."""
+
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(nn.Module):
+    """`nn.functional.alpha_dropout` in training, the identity in eval."""
+
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)

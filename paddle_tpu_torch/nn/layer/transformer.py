@@ -10,8 +10,12 @@ split [B, S, E] -> [B, S, H, E / H] and the output joined back before
 `out_proj`. `cache` is the reference's: a `MultiHeadAttention.Cache`
 (k, v [B, S, H, D]) gets this call's k and v appended along S and is
 returned beside the output; a `StaticCache` (the decoder's projected
-memory) is read as it is. `gen_cache` makes either. Dropout at p > 0 in
-training raises (ROADMAP queue A item 4).
+memory) is read as it is. `gen_cache` makes either. In training the
+attention's dropout (on the probabilities) takes the composite route and
+the layers' dropouts draw from the port's generators (`framework.random`);
+in eval mode no dropout applies and the attention takes the kernel route
+whatever its dropout, where the JAX package's takes its composite at a
+dropout above 0 (the two agree but on a row that sees no key).
 
 Every Linear draws its weight from the `generator` given (Paddle's
 Xavier-uniform), on `device`. A `weight_attr` (ParamAttr initializers)

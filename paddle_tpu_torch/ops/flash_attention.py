@@ -222,7 +222,7 @@ def _check(q, k, v, key_bias):
 def _device_checks(q):
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}, got {q.shape[-1]} (ROADMAP queue B)")
+                         f"{MAX_HEAD_DIM}, got {q.shape[-1]} (ROADMAP queue A item 8)")
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: unsupported device {q.device}")
 

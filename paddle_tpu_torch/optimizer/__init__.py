@@ -1,5 +1,12 @@
-"""paddle_tpu_torch.optimizer (↔ paddle_tpu/optimizer)."""
+"""paddle_tpu_torch.optimizer (↔ paddle_tpu/optimizer): the optimizers,
+`LBFGS` and the learning-rate schedulers (`optimizer.lr`)."""
 
-from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
+from . import lr
+from .lbfgs import LBFGS
+from .optimizer import (ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                        Lamb, Lars, Momentum, NAdam, Optimizer, RAdam, RMSProp,
+                        Rprop)
 
-__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "SGD"]
+__all__ = ["ASGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "LBFGS",
+           "Lamb", "Lars", "Momentum", "NAdam", "Optimizer", "RAdam",
+           "RMSProp", "Rprop", "SGD", "lr"]

@@ -6,7 +6,7 @@ scales, and `ptq_convert_for_serving` the convert pass the serving engines
 run under `serve_w8=True`. Buffer names (`weight_quant`, `weight_scale`) and
 shapes equal the JAX package's, so `convert.load_paddle_tpu_state` moves a
 converted JAX model over as it is. PTQ calibration, QAT and `fake_quant`
-are not ported yet (ROADMAP A8b).
+are not ported yet (ROADMAP queue A item 5).
 """
 
 from __future__ import annotations

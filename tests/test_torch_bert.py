@@ -217,32 +217,118 @@ def _classifier_inputs():
     return ids, tt, am, y
 
 
+PT_LR = 0.1
+
+
+def _pretraining_inputs():
+    """_inputs with 8 masked slots a row, rank 0's rows (0 and 1) keeping
+    12 of their 16 and rank 1's 2 of 16 at dp 2."""
+    ids, tt, am, _, _, nlab = _inputs(5)
+    rng = np.random.default_rng(6)
+    mpos = rng.integers(0, S, (B, 8))
+    mlab = np.full((B, 8), -100)
+    kept = np.zeros((B, 8), bool)
+    kept[:2].flat[rng.choice(16, 12, replace=False)] = True
+    kept[2:].flat[rng.choice(16, 2, replace=False)] = True
+    mlab[kept] = rng.integers(0, 1024, int(kept.sum()))
+    return [ids, tt, am, mpos], [mlab, nlab]
+
+
+def _pretraining_losses():
+    """The pretraining losses the dp 2 cases train on, by case: the
+    criterion, the criterion plus an auxiliary mean, and two cross
+    entropies (on labels that keep every slot)."""
+    crit = JaxCriterion()
+    return {"pretrain": lambda a, b, c, d: crit(a, b, c, d),
+            "pretrain_aux": lambda a, b, c, d:
+                crit(a, b, c, d) + 0.1 * (b * b).mean(),
+            "two_cross_entropy": lambda a, b, c, d:
+                JF.cross_entropy(a, c) + JF.cross_entropy(b, d)}
+
+
 @pytest.fixture(scope="module")
 def dp2(tmp_path_factory):
-    """The sequence classifier at dp 2: the port's 2 gloo ranks (started
-    first) and the JAX DistributedTrainStep on a 2-device mesh."""
+    """The sequence classifier and the pretraining heads (unequal kept
+    slots, SGD) at dp 2: the port's 2 gloo ranks (started first) and the
+    JAX DistributedTrainStep on a 2-device mesh, which takes the criterion
+    over the global batch."""
     paddle.seed(0)
     jm = JaxClassifier(jax_tiny(**NO_DROPOUT), num_classes=2)
     init = _state(jm)
     ids, tt, am, y = _classifier_inputs()
+    jp, _ = _pretraining_pair()
+    pt_state = _state(jp)
+    pt_inputs, pt_labels = _pretraining_inputs()
+    pt_full = [np.random.default_rng(7).integers(0, 1024, pt_labels[0].shape),
+               pt_labels[1]]
     ranks = Ranks("bert_dp", 2, tmp_path_factory.mktemp("bert_dp"),
                   dict(state=init, ids=ids, tt=tt, am=am, y=y, lr=5e-4,
-                       steps=STEPS))
+                       steps=STEPS, pt_state=pt_state, pt_inputs=pt_inputs,
+                       pt_labels=pt_labels, pt_labels_full=pt_full,
+                       pt_lr=PT_LR))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+        mesh = jdist.build_mesh(dp=2, devices=jax.devices()[:2])
         step = jdist.DistributedTrainStep(
             jm, lambda lg, lb: JF.cross_entropy(lg, lb),
             jopt.AdamW(learning_rate=5e-4, parameters=jm.parameters()),
-            mesh=jdist.build_mesh(dp=2, devices=jax.devices()[:2]))
+            mesh=mesh)
         losses = [float(step(_jt(ids, tt, am), paddle.to_tensor(y)))
                   for _ in range(STEPS)]
         step.sync_weights()
+        pt = {}
+        for case, loss in _pretraining_losses().items():
+            jp, _ = _pretraining_pair()
+            pstep = jdist.DistributedTrainStep(
+                jp, loss,
+                jopt.SGD(learning_rate=PT_LR, parameters=jp.parameters()),
+                mesh=mesh)
+            labels = pt_full if case == "two_cross_entropy" else pt_labels
+            pt_losses = [float(pstep(_jt(*pt_inputs), _jt(*labels)))
+                         for _ in range(STEPS)]
+            pstep.sync_weights()
+            pt[case] = (pt_losses, _state(jp))
         jdist.env.set_global_mesh(None)
-    return losses, _state(jm), ranks.results()
+    return losses, _state(jm), ranks.results(), pt
+
+
+def test_pretraining_criterion_over_the_global_batch_dp2(dp2):
+    """The criterion notes its two means, so each rank's masked-LM term is
+    weighed by its kept slots: losses and parameters as the reference's
+    criterion over the global batch; the criterion that notes nothing
+    (each rank's loss weighed equally) is the control that must miss."""
+    _held_pretraining(dp2, "pretrain")
+    want_losses, want_state = dp2[3]["pretrain"]
+    ctl = check(dp2[2]["pretrain_unnoted"][0])
+    miss = max(max(abs(a - b) for a, b in zip(ctl["losses"], want_losses)),
+               max(np.abs(v - want_state[k]).max()
+                   for k, v in ctl["state"].items()))
+    assert miss > 1e-2, miss
+
+
+def _held_pretraining(dp2, case):
+    want_losses, want_state = dp2[3][case]
+    for rank, res in enumerate(dp2[2][case]):
+        res = check(res)
+        np.testing.assert_allclose(res["losses"], want_losses, rtol=1e-4,
+                                   err_msg=f"rank {rank}")
+        for k, v in res["state"].items():
+            np.testing.assert_allclose(v, want_state[k], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"rank {rank}: {k}")
+
+
+@pytest.mark.parametrize("case", ["pretrain_aux", "two_cross_entropy"])
+def test_composite_losses_over_the_global_batch_dp2(dp2, case):
+    """A loss that adds an un-noted auxiliary mean to the noted criterion
+    keeps the auxiliary term in its gradient at weight 1, and a loss of
+    two cross entropies (two notes without terms) keeps the equal weight,
+    exact here where every rank keeps all its slots: both as the
+    reference's loss over the global batch."""
+    _held_pretraining(dp2, case)
 
 
 def test_sequence_classification_dp2_matches_jax(dp2):
-    losses, state, ranks = dp2
+    losses, state, ranks, _ = dp2
     for rank, res in enumerate(ranks["seq_cls"]):
         res = check(res)
         np.testing.assert_allclose(res["losses"], losses, rtol=1e-5,

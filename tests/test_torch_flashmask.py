@@ -14,6 +14,7 @@ card (chip_smoke.py)."""
 import os
 
 import numpy as np
+from paddle_tpu_torch.framework import random as port_random
 import pytest
 import torch
 
@@ -262,8 +263,21 @@ def test_functional_dispatch_matches_jax_and_raises():
                                        return_seed_offset=True)
     assert seed is None and out.shape == q.shape
     idx = torch.from_numpy(idxv)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TF.flashmask_attention(q, k, v, idx, dropout=0.1, causal=True)
+    # dropout in training: the composite under the kernels' masking; at a
+    # rate that keeps every entry it is the kernel route's output, and at
+    # 0.5 a drawn mask (the same one again from the same generator state)
+    kernel = TF.flashmask_attention(q, k, v, idx, causal=True)
+    kept = TF.flashmask_attention(q, k, v, idx, dropout=1e-12, causal=True)
+    torch.testing.assert_close(kept, kernel, rtol=1e-5, atol=1e-6)
+    state = port_random.get_rng_state()
+    d1 = TF.flashmask_attention(q, k, v, idx, dropout=0.5, causal=True)
+    port_random.set_rng_state(state)
+    d2 = TF.flashmask_attention(q, k, v, idx, dropout=0.5, causal=True)
+    torch.testing.assert_close(d1, d2, rtol=0, atol=0)
+    assert (d1 - kernel).abs().max() > 1e-2
+    torch.testing.assert_close(
+        TF.flashmask_attention(q, k, v, idx, dropout=0.5, causal=True,
+                               training=False), kernel, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="window_size"):
         TF.flashmask_attention(q, k, v, idx, causal=True, window_size=(8, 0))
     with pytest.raises(NotImplementedError, match="return_softmax_lse"):

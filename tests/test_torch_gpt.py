@@ -172,16 +172,19 @@ def test_load_paddle_tpu_state_rejects_mismatches(models):
 
 
 def test_unported_branches_raise():
-    """Dropout and a pipelined model under context parallelism are still
-    to port; the LLaMA form, flashmask attention, sequence parallelism and
-    context parallelism now build (tests/test_torch_llama.py,
-    tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py);
-    without a mesh a context-parallel model's attention is the dense one,
-    so its logits are the plain model's."""
+    """A pipelined model under context parallelism is still to port, and
+    attention dropout on the flashmask variant raises as the reference
+    asserts; the LLaMA form, flashmask attention, sequence parallelism,
+    context parallelism and dropout now build (tests/test_torch_llama.py,
+    tests/test_torch_tensor_parallel.py, tests/test_torch_ring_attention.py,
+    tests/test_torch_random.py); without a mesh a context-parallel model's
+    attention is the dense one, so its logits are the plain model's, and
+    in eval mode a model with dropout gives the plain model's too."""
     from paddle_tpu_torch.models import GPTForCausalLMPipe
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTForCausalLM(gpt3_tiny(hidden_dropout_prob=0.1), device="cpu")
+    with pytest.raises(ValueError, match="attention dropout"):
+        GPTForCausalLM(gpt3_tiny(attention_dropout_prob=0.1,
+                                 attn_variant="flashmask"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTForCausalLMPipe(gpt3_tiny(context_parallel=True), device="cpu")
     for kw in (dict(use_rope=True), dict(attn_variant="flashmask"),
@@ -191,7 +194,11 @@ def test_unported_branches_raise():
     with torch.no_grad():
         cp = GPTForCausalLM(gpt3_tiny(context_parallel=True), device="cpu")(ids)
         plain = GPTForCausalLM(gpt3_tiny(), device="cpu")(ids)
+        dropped = GPTForCausalLM(gpt3_tiny(hidden_dropout_prob=0.1,
+                                           attention_dropout_prob=0.1),
+                                 device="cpu").eval()(ids)
     torch.testing.assert_close(cp, plain, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dropped, plain, rtol=0, atol=0)
 
 
 def test_entry_points_without_device_raise_without_a_gpu(monkeypatch):
@@ -259,6 +266,9 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.vision.models._blocks",
             "paddle_tpu_torch.models.unet",
             "paddle_tpu_torch.nn.layer.loss",
+            "paddle_tpu_torch.framework.random",
+            "paddle_tpu_torch.optimizer.lr",
+            "paddle_tpu_torch.optimizer.lbfgs",
             } <= set(
                 _port_modules())
     code = (
@@ -281,7 +291,8 @@ def test_no_port_file_names_jax_in_an_import():
         ROOT / "tests" / "torch_pp_cases.py",
         ROOT / "tests" / "torch_sep_cases.py",
         ROOT / "tests" / "torch_ep_cases.py",
-        ROOT / "tests" / "torch_model_dp_cases.py"]
+        ROOT / "tests" / "torch_model_dp_cases.py",
+        ROOT / "tests" / "torch_random_cases.py"]
     offenders = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

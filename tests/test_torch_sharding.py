@@ -111,14 +111,79 @@ def _jax_gpt(mesh_kw, stage):
     return loss
 
 
+# Lamb and Lars, which read norms of the whole parameter
+NORM_OPTS = {"lamb": ("Lamb", dict(learning_rate=0.02,
+                                   lamb_weight_decay=0.01)),
+             "lars": ("Lars", dict(learning_rate=0.5, lars_coeff=0.02,
+                                   lars_weight_decay=0.001))}
+ZERO_D_OPTS = {"nadam": ("NAdam", dict(learning_rate=0.02)),
+               "asgd": ("ASGD", dict(learning_rate=0.05, batch_num=3))}
+NORM_CASES = {"dp2_sharding2_stage2": ("mlp", dict(dp=2, sharding=2), 2),
+              "sharding4_stage2_offload": ("mlp", dict(sharding=4), 2),
+              "dp2_mp2": ("tp_mlp", dict(dp=2, mp=2), 0)}
+
+
+class _JaxTPMLP(jnn.Layer):
+    """tests/torch_tp_cases.py's TPMLP in the JAX package."""
+
+    def __init__(self):
+        super().__init__()
+        from paddle_tpu.distributed.fleet.layers import mpu
+
+        self.fc1 = mpu.ColumnParallelLinear(8, 32, gather_output=False)
+        self.fc2 = mpu.RowParallelLinear(32, 8, input_is_parallel=True)
+
+    def forward(self, x):
+        return self.fc2(jnn.functional.relu(self.fc1(x)))
+
+
+def _tp_inputs():
+    rng = np.random.default_rng(1)
+    paddle.seed(7)
+    return (_state(_JaxTPMLP()), rng.random((8, 8)).astype(np.float32),
+            rng.random((8, 8)).astype(np.float32))
+
+
+def _jax_whole_norms(opt_name, case):
+    """The JAX DistributedTrainStep with Lamb or Lars (norms over its
+    global arrays) on the case's model and mesh, 3 steps; offload runs the
+    same values, so the reference is the step without it."""
+    import jax
+
+    model_kind, mesh_kw, stage = NORM_CASES[case]
+    if model_kind == "mlp":
+        paddle.seed(0)
+        model = _MLP()
+        x, y = _data()
+    else:
+        state, x, y = _tp_inputs()
+        model = _JaxTPMLP()
+        model.set_state_dict({k: paddle.to_tensor(v) for k, v in state.items()})
+    crit = jnn.MSELoss()
+    cls, kw = NORM_OPTS[opt_name]
+    n = int(np.prod(list(mesh_kw.values())))
+    step = jdist.DistributedTrainStep(
+        model, lambda o, t: crit(o, t),
+        getattr(jopt, cls)(parameters=model.parameters(), **kw),
+        mesh=jdist.build_mesh(**mesh_kw, devices=jax.devices()[:n]),
+        sharding_stage=stage)
+    losses = [float(step(paddle.to_tensor(x), paddle.to_tensor(y)))
+              for _ in range(3)]
+    step.sync_weights()
+    jdist.env.set_global_mesh(None)
+    return losses, _state(model)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     paddle.seed(0)
     init = _state(_MLP())
     x, y = _data()
     gpt, ids, labels = _gpt_inputs()
+    tp_mlp, tp_x, tp_y = _tp_inputs()
     inputs = dict(mlp=init, x=x, y=y, clip_norm=CLIP_NORM, gpt=gpt,
-                  gpt_ids=ids, gpt_labels=labels)
+                  gpt_ids=ids, gpt_labels=labels, tp_mlp=tp_mlp, tp_x=tp_x,
+                  tp_y=tp_y, norm_opts=NORM_OPTS, zero_d_opts=ZERO_D_OPTS)
     four = Ranks("sharding", 4, tmp_path_factory.mktemp("shard4"), inputs)
     one = Ranks("sharding", 1, tmp_path_factory.mktemp("shard1"), inputs)
     jax_ref = {(m, s): _jax_mlp(kw, s) for m, kw in MESHES.items()
@@ -126,7 +191,9 @@ def runs(tmp_path_factory):
     gpt_ref = {"single": _jax_gpt({}, 0)}
     for s in (2, 3):
         gpt_ref[s] = _jax_gpt(dict(dp=2, sharding=2), s)
-    out = {"init": init, "jax": jax_ref, "gpt": gpt_ref}
+    norm_ref = {(o, c): _jax_whole_norms(o, c) for o in NORM_OPTS
+                for c in NORM_CASES}
+    out = {"init": init, "jax": jax_ref, "gpt": gpt_ref, "norms": norm_ref}
     for name, g in (("four", four), ("one", one)):
         try:
             out[name] = g.results(timeout=180)
@@ -416,3 +483,32 @@ def test_unported_parallelisms_raise_naming_their_items(runs):
                        "tensor_parallel": "TensorParallel",
                        "pipeline_parallel": "TensorParallel",
                        "segment_parallel": "SegmentParallel"}
+
+
+@pytest.mark.parametrize("case", list(NORM_CASES))
+@pytest.mark.parametrize("opt_name", list(NORM_OPTS))
+def test_whole_parameter_norms_under_a_cut_match_jax(runs, opt_name, case):
+    """Lamb's trust ratio and Lars's local rate take the norms of the whole
+    parameter, as the JAX step's over its global arrays: under a ZeRO
+    shard, offload slices of a shard, and an mp-cut ColumnParallelLinear;
+    each piece's own norms are the control that must miss."""
+    losses, params = runs["norms"][(opt_name, case)]
+    for rank, got in enumerate(_case(runs, f"{opt_name}_{case}")):
+        np.testing.assert_allclose(got["losses"], losses, **LOSS_TOL)
+        _assert_params(got["params"], params, PARAM_TOL, f"rank {rank}")
+    local = _case(runs, f"{opt_name}_{case}_local")[0]["params"]
+    miss = max(np.abs(local[k] - params[k]).max()
+               / (1e-5 + 1e-4 * np.abs(params[k]).max()) for k in params)
+    assert miss > 10, miss
+
+
+@pytest.mark.parametrize("opt_name", list(ZERO_D_OPTS))
+def test_offload_slices_step_a_zero_d_state_once(runs, opt_name):
+    """NAdam's mu_prod and ASGD's ring index are the whole parameter's:
+    under offload every slice of a shard steps from the value before the
+    step and the value moves once a step, so the run follows the one
+    without offload."""
+    ref = _case(runs, f"{opt_name}_sharding4_stage2")
+    for r, got in enumerate(_case(runs, f"{opt_name}_sharding4_stage2_offload")):
+        np.testing.assert_allclose(got["losses"], ref[r]["losses"], **LOSS_TOL)
+        _assert_params(got["params"], ref[r]["params"], LOSS_TOL, "offload")

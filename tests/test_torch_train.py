@@ -339,9 +339,24 @@ def test_unported_training_modes_raise():
     assert opt._grad_clip is clip
     (_, g), = clip([(params[0], torch.tensor([3.0, 4.0]))])
     torch.testing.assert_close(g, torch.tensor([0.6, 0.8]))
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    # a scheduler is taken (optimizer.lr), a callable is not; lr_ratio,
+    # which the reference accepts and ignores, raises (ROADMAP queue C)
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
+    sched = StepDecay(0.5, step_size=1, gamma=0.1)
+    assert AdamW(learning_rate=sched, parameters=params).get_lr() == 0.5
+    with pytest.raises(TypeError, match="scheduler"):
         AdamW(learning_rate=lambda: 1.0, parameters=params)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TF.cross_entropy(torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True)
+    with pytest.raises(NotImplementedError, match="queue C"):
+        AdamW(parameters=params, lr_ratio=lambda p: 1.0)
     with pytest.raises(NotImplementedError, match="queue A item 4"):
-        GPTForCausalLM(gpt3_tiny(attention_dropout_prob=0.1), device="cpu")
+        TF.cross_entropy(torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True)
+    # attention dropout on the variants whose kernels have no dropout path
+    # raises, as the reference asserts; the flash variant takes it
+    with pytest.raises(ValueError, match="flashmask"):
+        GPTForCausalLM(gpt3_tiny(attention_dropout_prob=0.1,
+                                 attn_variant="flashmask"), device="cpu")
+    with pytest.raises(ValueError, match="context_parallel"):
+        GPTForCausalLM(gpt3_tiny(attention_dropout_prob=0.1,
+                                 context_parallel=True), device="cpu")
+    GPTForCausalLM(gpt3_tiny(attention_dropout_prob=0.1), device="cpu")

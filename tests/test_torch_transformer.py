@@ -172,12 +172,22 @@ def test_transformer_under_a_square_causal_mask():
 
 
 def test_dropout_above_zero_in_training_raises_and_weight_attr_raises():
+    """Dropout above 0 in training now runs (it raised before the port's
+    generators): eval mode drops nothing, training draws from the port's
+    generator (the same output again from the same seed, another from the
+    next draw); a weight_attr still raises."""
+    from paddle_tpu_torch import seed
+
     tm = pnn.TransformerEncoderLayer(E, H, 64, dropout=0.1, device="cpu")
     x = torch.from_numpy(_x(15, B, S, E))
     tm.eval()
-    tm(x)
+    plain = tm(x)
     tm.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tm(x)
+    seed(7)
+    a = tm(x)
+    b = tm(x)
+    seed(7)
+    torch.testing.assert_close(tm(x), a, rtol=0, atol=0)
+    assert (a - plain).abs().max() > 1e-3 and (a - b).abs().max() > 1e-3
     with pytest.raises(NotImplementedError, match="item 6"):
         pnn.MultiHeadAttention(E, H, weight_attr=object(), device="cpu")

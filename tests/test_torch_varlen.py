@@ -250,9 +250,14 @@ def test_entry_points_match_jax_and_raise():
                                atol=GRAD_TOL * np.abs(g).max())
 
     cqt, ckt = torch.from_numpy(cq), torch.from_numpy(ck)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TF.flash_attn_unpadded(tq, tk, tv, cqt, ckt, 50, 50, scale,
-                               dropout=0.1)
+    # dropout in training: the composite under the kernels' masking, which
+    # at a rate that keeps every entry gives the kernel route's output
+    kept, _ = TF.flash_attn_unpadded(tq, tk, tv, cqt, ckt, 50, 50, scale,
+                                     dropout=1e-12, causal=True)
+    torch.testing.assert_close(kept, tout, rtol=1e-5, atol=1e-6)
+    dropped, _ = TF.flash_attn_unpadded(tq, tk, tv, cqt, ckt, 50, 50, scale,
+                                        dropout=0.5, causal=True)
+    assert dropped.shape == tout.shape and (dropped - tout).abs().max() > 1e-2
     out_eval, _ = TF.flash_attn_unpadded(tq, tk, tv, cqt, ckt, 50, 50, scale,
                                          dropout=0.1, causal=True,
                                          training=False)

@@ -7,7 +7,8 @@ cases are in `tests/torch_sep_cases.py`, and
 `tests/test_torch_expert_parallel.py`, whose cases are in
 `tests/torch_ep_cases.py`, and `tests/test_torch_bert.py` and
 `tests/test_torch_resnet.py`, whose cases are in
-`tests/torch_model_dp_cases.py`).
+`tests/torch_model_dp_cases.py`, and `tests/test_torch_random.py`, whose
+cases are in `tests/torch_random_cases.py`).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -296,6 +297,79 @@ def sharding_cases(rank, world, inp):
         case(f"sharding4_stage{stage}_clip",
              lambda: run(mesh, stage, steps=3, clip=inp["clip_norm"]))
 
+    def whole_norms(opt_name, shape, stage=0, offload=False, tp=False,
+                    local=False):
+        """Lamb or Lars (`inp["norm_opts"]`) over the mesh `shape`: on the
+        MLP at a ZeRO stage (with offload in slices of 4096 elements, so
+        that a shard spans several), or on the tensor-parallel MLP (its
+        ColumnParallelLinear cut over mp). `local`: the rule takes this
+        rank's piece's own norms (the control)."""
+        from paddle_tpu_torch import optimizer as popt
+        from paddle_tpu_torch.distributed import train_step
+        from torch_tp_cases import TPMLP
+
+        net = load_paddle_tpu_state(TPMLP(), inp["tp_mlp"]) if tp \
+            else mlp(inp["mlp"])
+        cls, kw = inp["norm_opts"][opt_name]
+        step = dist.DistributedTrainStep(
+            net, mse, getattr(popt, cls)(parameters=net.parameters(), **kw),
+            mesh=dist.build_mesh(**shape), sharding_stage=stage,
+            offload=offload)
+        saved = train_step.OFFLOAD_SLICE, train_step.DistributedTrainStep.\
+            _whole_sq_norms
+        train_step.OFFLOAD_SLICE = 4096
+        if local:
+            train_step.DistributedTrainStep._whole_sq_norms = \
+                lambda self, name, parts: parts
+        xs, ys = (inp["tp_x"], inp["tp_y"]) if tp else (x, y)
+        try:
+            losses = [step(xs, ys).item() for _ in range(3)]
+        finally:
+            (train_step.OFFLOAD_SLICE,
+             train_step.DistributedTrainStep._whole_sq_norms) = saved
+        return dict(losses=losses, params={
+            k: v.numpy() for k, v in step.state_dict().items()})
+
+    for opt_name in ("lamb", "lars"):
+        for where, kw in (
+                ("dp2_sharding2_stage2", dict(shape=dict(dp=2, sharding=2),
+                                              stage=2)),
+                ("sharding4_stage2_offload", dict(shape=dict(sharding=4),
+                                                  stage=2, offload=True)),
+                ("dp2_mp2", dict(shape=dict(dp=2, mp=2), tp=True))):
+            case(f"{opt_name}_{where}",
+                 lambda: whole_norms(opt_name, **kw))
+            case(f"{opt_name}_{where}_local",
+                 lambda: whole_norms(opt_name, local=True, **kw))
+
+    def zero_d_state(opt_name, offload):
+        """NAdam or ASGD (`inp["zero_d_opts"]`), whose state holds a 0-d
+        value of the whole parameter (mu_prod, the ring's index), at
+        sharding 4 stage 2, with offload in slices of 4096 elements (a
+        shard spans several) or without."""
+        from paddle_tpu_torch import optimizer as popt
+        from paddle_tpu_torch.distributed import train_step
+
+        net = mlp(inp["mlp"])
+        cls, kw = inp["zero_d_opts"][opt_name]
+        step = dist.DistributedTrainStep(
+            net, mse, getattr(popt, cls)(parameters=net.parameters(), **kw),
+            mesh=dist.build_mesh(sharding=4), sharding_stage=2,
+            offload=offload)
+        saved = train_step.OFFLOAD_SLICE
+        train_step.OFFLOAD_SLICE = 4096
+        try:
+            losses = [step(x, y).item() for _ in range(4)]
+        finally:
+            train_step.OFFLOAD_SLICE = saved
+        return dict(losses=losses, params={
+            k: v.numpy() for k, v in step.state_dict().items()})
+
+    for opt_name in inp["zero_d_opts"]:
+        for offload in (False, True):
+            case(f"{opt_name}_sharding4_stage2" + "_offload" * offload,
+                 lambda: zero_d_state(opt_name, offload))
+
     def gpt(stage):
         from paddle_tpu_torch.models import (GPTForCausalLM,
                                              GPTPretrainingCriterion, gpt3_tiny)
@@ -473,13 +547,20 @@ def resnet_dp_cases(rank, world, inp):
     return resnet_cases(rank, world, inp)
 
 
+def random_cases(rank, world, inp):
+    from torch_random_cases import random_cases as cases
+
+    return cases(rank, world, inp)
+
+
 SUITES = {"collective": collective_cases, "sharding": sharding_cases,
           "tensor_parallel": tensor_parallel_cases,
           "pipeline": pipeline_cases, "pipeline_gate": pipeline_gate_cases,
           "segment_parallel": segment_parallel_cases,
           "segment_gate": segment_gate_cases,
           "expert_parallel": expert_parallel_cases,
-          "bert_dp": bert_dp_cases, "resnet_dp": resnet_dp_cases}
+          "bert_dp": bert_dp_cases, "resnet_dp": resnet_dp_cases,
+          "random": random_cases}
 
 
 def main():

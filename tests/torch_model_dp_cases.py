@@ -43,7 +43,54 @@ def bert_cases(rank, world, inp):
         losses = [step(xs, inp["y"]).item() for _ in range(inp["steps"])]
         return dict(losses=losses, state=_state(model))
 
+    def pretrain(noted=True, loss=None, labels="pt_labels"):
+        """bert_tiny's pretraining heads at dp = WORLD, three SGD steps, the
+        ranks' kept masked-LM slots unequal, on `loss` (the criterion by
+        default) against `inp[labels]`. Without `noted` the criterion
+        notes nothing (the control: each rank's loss weighed equally)."""
+        from paddle_tpu_torch.models import (BertForPretraining,
+                                             BertPretrainingCriterion)
+        from paddle_tpu_torch.models import bert as bert_mod
+        from paddle_tpu_torch.optimizer import SGD
+
+        cfg = bert_tiny(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+        model = BertForPretraining(cfg, device="cpu")
+        load_paddle_tpu_state(model, inp["pt_state"])
+        crit = BertPretrainingCriterion()
+        step = dist.DistributedTrainStep(
+            model, loss or (lambda a, b, c, d: crit(a, b, c, d)),
+            SGD(learning_rate=inp["pt_lr"], parameters=model.parameters()),
+            mesh=dist.build_mesh(dp=world))
+        saved = bert_mod.note_reduction
+        if not noted:
+            bert_mod.note_reduction = lambda *a, **k: None
+        try:
+            losses = [step(inp["pt_inputs"], inp[labels]).item()
+                      for _ in range(inp["steps"])]
+        finally:
+            bert_mod.note_reduction = saved
+        return dict(losses=losses, state=_state(model))
+
+    def pretrain_aux():
+        """The criterion plus an auxiliary mean that notes nothing."""
+        from paddle_tpu_torch.models import BertPretrainingCriterion
+
+        crit = BertPretrainingCriterion()
+        return pretrain(loss=lambda a, b, c, d:
+                        crit(a, b, c, d) + 0.1 * (b * b).mean())
+
+    def two_cross_entropy():
+        """A loss of two cross entropies (two notes without terms), every
+        masked-LM slot kept: each rank's loss weighed equally."""
+        return pretrain(loss=lambda a, b, c, d:
+                        F.cross_entropy(a, c) + F.cross_entropy(b, d),
+                        labels="pt_labels_full")
+
     _run(out, "seq_cls", seq_cls)
+    _run(out, "pretrain", pretrain)
+    _run(out, "pretrain_unnoted", lambda: pretrain(noted=False))
+    _run(out, "pretrain_aux", pretrain_aux)
+    _run(out, "two_cross_entropy", two_cross_entropy)
     return out
 
 
