@@ -7,11 +7,11 @@ Phases; any failure raises and the script exits non-zero:
 
 1. build      — compile paddle_tpu_torch/csrc/*.cu with nvcc (sm_90a, one
                 process per source, in parallel), load it. The Hopper
-                kernels' instantiations, one line each for the bf16
-                attention forward (flash, flashmask and varlen at head dims
-                64, 128 and 192), the bf16 backward (dQ and dK/dV of flash,
-                flashmask and varlen at 64, 128 and 192) and the bf16 grouped GEMM
-                (weights read as they are and transposed): registers and
+                kernels' instantiations, each in bf16 and in f16, one line
+                each for the attention forward (flash, flashmask and varlen
+                at head dims 64, 128 and 192), the backward (dQ and dK/dV
+                of flash, flashmask and varlen at 64, 128 and 192) and the
+                grouped GEMM (weights read as they are and transposed): registers and
                 spills from ptxas, wgmma (HGMMA) and TMA-load (UTMALDG)
                 instructions from `cuobjdump -sass`; none may spill or
                 lack either. The fused RoPE's twelve instantiations
@@ -21,7 +21,12 @@ Phases; any failure raises and the script exits non-zero:
                 and spills; none may spill.
 2. kernels    — each hand-written kernel against its plain PyTorch version
                 on the card, at the shapes its path gives it and a few edge
-                shapes, in float32 and bfloat16: max error against a stated
+                shapes, in float32 and bfloat16 (and the sm90 kernels' f16
+                instantiations in float16: the flash path's shape and one
+                edge at each tile width, flashmask's path and documents with
+                a mask per head, varlen's pack and cross attention, the
+                grouped GEMM's rung product, its dlhs, partial tiles and K
+                off the TMA line): max error against a stated
                 tolerance, device time (CUDA graph replays timed by CUDA
                 events, warm L2; the paged decodes also on a cold L2,
                 round-robin over copies of the case) and eager
@@ -127,11 +132,16 @@ Phases; any failure raises and the script exits non-zero:
                 k; at the 192 width: P V without the third 64-column panel,
                 the forward's and dQ's second 64-key half of each kv tile
                 skipped, the dK half of the split dK/dV computing dV
-                alone): at its case every one must
+                alone; in the f16 instantiations: S = Q K^T and the
+                register-A products on the bf16 wgmma, P packed to bf16,
+                the grouped GEMM's transposed B on the bf16 wgmma): at its
+                case every one must
                 fail the limits of phase 2. Only the sources a fault
-                touches are compiled again; a fault in a header that the
-                flash, flashmask and varlen sources share reaches only the
-                source its case runs (the others keep their objects).
+                touches are compiled again, and without their f16
+                instantiations where the case is not f16; a fault in a
+                header that the flash, flashmask, varlen and grouped-GEMM
+                sources share reaches only the source its case runs (the
+                others keep their objects).
 2c. clocks    — the varlen dQ and dK/dV at the path's shape rebuilt with
                 a time stamp at each CTA's start and end: the SMs' busy
                 share, the idle tail, and the durations replayed in launch
@@ -299,8 +309,10 @@ Phases; any failure raises and the script exits non-zero:
                 phase 2's main varlen case: one launch of each varlen
                 kernel, output and q/k/v gradients within phase 2's limits
                 of the plain path on the card; then the same tokens through
-                flash_attn_varlen_qkvpacked(varlen_padded=False). Each
-                entry's forward and forward + backward are timed eagerly.
+                flash_attn_varlen_qkvpacked(varlen_padded=False); then
+                flash_attn_unpadded once in fp16 on phase 2's fp16 pack.
+                Each entry's forward and forward + backward are timed
+                eagerly.
 
 14. bert train — bench.py's bert_base rung (run_bert_rung) at full
                 size: bert_base, batch 32 x 512, 80 masked positions,
@@ -378,6 +390,31 @@ Phases; any failure raises and the script exits non-zero:
                 iterations on a quadratic of condition 100 on both,
                 reaching the CPU's iterate (which must lie within 20%
                 of the solution's norm from it, starting at 100%).
+23. train fp16 — gpt3_1p3b at full width and depth, batch 4 x 2048, under
+                amp.decorate(level="O2", dtype="float16") with AdamW's f32
+                master weights and per-layer recompute, in the reference's
+                eager fp16 loop (auto_cast O2 fp16, amp.GradScaler,
+                scale(loss).backward(), step, update): phase 5's launches a
+                step, the scale printed at each step, step time against
+                phase 5's, tokens/s, MFU, peak, a profile; a step forced to
+                overflow (scale 2^40) skips with the parameters and masters
+                bit for bit and halves the scale, and the next steps train.
+                Then 3 steps of the gpt3_moe rung in fp16 with a
+                GradScaler: 16 fp16 grouped GEMMs a step.
+24. serve fp16 — llama_7b at full width and depth in fp16 through the
+                paged engine (fp16 pages; RoPE, RMSNorm and the paged
+                decode in fp16) and gpt3_1p3b in fp16 through the dense
+                engine (the flash forward at Sq = 1 in fp16), the 12-request
+                mix; generate fed each engine's tokens: the first equal,
+                the others within FP16_TIE_ULPS of its top logit.
+25. half holds — 2 layers at gpt3_1p3b's and llama_7bshape's widths,
+                batch 1 x 256: one training step on the card in bf16
+                and in fp16 (under a GradScaler) on the tensor-core flash
+                and flashmask kernels, AdamW on f32 master weights (decorate
+                O2), each held to the CPU's f32 step from the same weights
+                (exact in both types): the loss, every gradient and every
+                update, at limits in units of the type's roundoff
+                (HALF_HOLD_*).
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -402,7 +439,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense tensor
+# f32 CUDA cores; bf16 and f16 dense tensor cores (one rate for both)
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # Kernel vs plain version, max |err| of outputs of magnitude <= ~4:
 # f32 differs only in the order of the row/softmax sums (a few ulps);
 # bf16 computes in f32 on identical inputs and rounds once, so the two may
@@ -441,6 +479,17 @@ BF16_DECODE_LOGIT_RTOL = 0.1
 # within BF16_TIE_ULPS bf16 steps of its top logit (a tie in bf16). A
 # wrong kernel moves logits by far more than a step.
 BF16_TIE_ULPS = 2
+# The same hold in fp16 (phase 24): fp16's steps are 8 times finer than
+# bf16's, and at llama_7b's depth the two paths (the paged decode with P
+# in f32 against the flash forward at Sq = 1 with P in fp16, batch 16
+# against batch 1 GEMMs) drift by about sqrt(32 layers x 8 rounded ops) x
+# 2^-12 ~ 0.4% of the logit vector's norm, ~0.005 a logit at top logits
+# of ~4, where a step is 2^-8: a token the engine picks may lie up to
+# ~2.6 steps below generate's top. The limit is 8 fp16 steps, half the
+# bf16 hold's reach in absolute terms (2 bf16 steps = 16 fp16 steps); a
+# wrong kernel moves logits by far more. The first token comes from the
+# same prefill computation on both sides and must be equal.
+FP16_TIE_ULPS = 8
 # The same with int8 KV pages and int8 weights: the weights quantize
 # identically on both sides (elementwise, IEEE division), but K/V rows
 # that differ by rounding can land on either side of a quantizer's rounding
@@ -469,9 +518,12 @@ NORM_DX_TOL = {"float32": 1e-4, "bfloat16": 3.2e-2}
 # Measured on an H100 80GB HBM3 over the cases below: row-relative 2^-7
 # (O), 0.005 (dQ), 0.0042 (dK/dV); Frobenius at most 2.0e-3 (O) and
 # 1.1e-4 (gradients), where a forward kernel that normalises its long rows
-# 1% off gives 7.5e-3 (phase 2b); LSE 9.5e-7.
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
-FLASH_FROB_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+# 1% off gives 7.5e-3 (phase 2b); LSE 9.5e-7. f16 runs the same kernels
+# with the same roundings on a grid 8 times finer (an ulp is 2^-10
+# relative): the same two ulps, 2^-9, and the Frobenius limit scaled as
+# bf16's is to its ulp (half an ulp, 2^-11).
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6, "float16": 2 ** -9}
+FLASH_FROB_TOL = {"float32": 1e-5, "bfloat16": 4e-3, "float16": 2 ** -11}
 FLASH_LSE_TOL = 1e-5
 # Training step on the card vs on the CPU, f32 with TF32 off, 2 layers at
 # the 1.3B width: the losses (~10.8) agree to a few 1e-6 relative; each
@@ -641,22 +693,25 @@ def ptxas_kernels(log, prefix, name_of=None):
     return out
 
 
+SM90_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
 SM90_KERNEL = re.compile(
-    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E.*?(CausalBias|FlashMask|Varlen)")
-SM90_GG_KERNEL = re.compile(r"(gg_sm90_kernel)ILb([01])E")
-# the Hopper kernels' instantiations chip_smoke.py expects: the bf16
-# forward (csrc/flash_fwd_sm90.cuh) and the bf16 dQ and dK/dV
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E"
+    r".*?(CausalBias|FlashMask|Varlen)")
+SM90_GG_KERNEL = re.compile(r"(gg_sm90_kernel)I(13__nv_bfloat16|6__half)Lb([01])E")
+# the Hopper kernels' instantiations chip_smoke.py expects, each in bf16 and
+# f16: the forward (csrc/flash_fwd_sm90.cuh) and the dQ and dK/dV
 # (csrc/flash_bwd_sm90.cuh) of flash, flashmask and varlen, at head dims 64,
-# 128 and 192, and the bf16 grouped GEMM
-# (csrc/grouped_gemm_sm90.cuh) against [E, K, N] weights (false) and
-# transposed [E, N, K] ones (true)
+# 128 and 192, and the grouped GEMM (csrc/grouped_gemm_sm90.cuh) against
+# [E, K, N] weights (false) and transposed [E, N, K] ones (true)
 SM90_EXPECTED = {
-    "forward": [f"flash_fwd_sm90_kernel<{d}, {m}>"
+    "forward": [f"flash_fwd_sm90_kernel<{t}, {d}, {m}>" for t in ("bf16", "f16")
                 for m in ("CausalBias", "FlashMask", "Varlen") for d in (64, 128, 192)],
-    "backward": [f"{k}<{d}, {m}>" for m in ("CausalBias", "FlashMask", "Varlen")
+    "backward": [f"{k}<{t}, {d}, {m}>" for t in ("bf16", "f16")
+                 for m in ("CausalBias", "FlashMask", "Varlen")
                  for k in ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
                  for d in (64, 128, 192)],
-    "grouped_gemm": [f"gg_sm90_kernel<{t}>" for t in ("false", "true")],
+    "grouped_gemm": [f"gg_sm90_kernel<{t}, {b}>" for t in ("bf16", "f16")
+                     for b in ("false", "true")],
 }
 
 
@@ -674,9 +729,10 @@ def sm90_report(card, lib_path, log):
     def name_of(ln):
         m = SM90_KERNEL.search(ln)
         if m:
-            return f"{m[1]}<{m[2]}, {m[3]}>"
+            return f"{m[1]}<{SM90_TYPES[m[2]]}, {m[3]}, {m[4]}>"
         m = SM90_GG_KERNEL.search(ln)
-        return f"{m[1]}<{'true' if m[2] == '1' else 'false'}>" if m else None
+        return (f"{m[1]}<{SM90_TYPES[m[2]]}, {'true' if m[3] == '1' else 'false'}>"
+                if m else None)
 
     report, name = {}, None
     for ln in log.splitlines():
@@ -1592,6 +1648,15 @@ FLASH_CASES = {
                                  "bfloat16"),
     "d192_causal_sq_gt_skv": (1, 300, 200, 4, 4, 192, True, False, "bfloat16"),
     "d192_causal_f32_g2": (1, 200, 300, 4, 2, 192, True, False, "float32"),
+    # float16, the same kernels' f16 instantiations: the path's shape (the
+    # kernel table's f16 rows) and one edge at each tile width (64: ragged
+    # Sq < Skv with GQA; 128: GQA 4; 192: a padded key bias)
+    "path_f16": (4, 2048, 2048, 16, 16, 128, True, False, "float16"),
+    "ragged_sq_lt_skv_g2_d64_f16": (2, 333, 517, 8, 4, 64, True, False,
+                                    "float16"),
+    "gqa_g4_f16": (2, 512, 512, 16, 4, 128, True, False, "float16"),
+    "d160_key_bias_padded_row_f16": (3, 257, 257, 8, 8, 160, False, True,
+                                     "float16"),
 }
 # the unet_sd rung's rows of the kernel table (PERF.md rows 1b-3e), each
 # timed beside SDPA's forward and backward on the same inputs
@@ -1669,8 +1734,8 @@ def check_flash(card, torch):
     from paddle_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    main = {}
+    worst = {d: {"fwd": 0.0, "dq": 0.0, "dkv": 0.0} for d in (False, True)}
+    main = {}  # the path's rows, bf16 ("path") and f16 ("path_f16")
     failures = []  # raised together once every case has printed its row
     for name, (B, Sq, Skv, H, Hkv, D, causal, bias, dtype) in FLASH_CASES.items():
         q, k, v, dout, kb, keep = _flash_inputs(
@@ -1722,7 +1787,7 @@ def check_flash(card, torch):
         lib = {}
         if name == "path":
             lib = lib_path = library_sdpa(torch, q, k, v, dout, causal)
-        elif name in FLASH_UNET:
+        elif name in FLASH_UNET or name == "path_f16":
             lib = library_sdpa(torch, q, k, v, dout, causal)
         elif name == "bert_key_bias":
             # the same additive key bias as SDPA's attn_mask
@@ -1742,9 +1807,10 @@ def check_flash(card, torch):
                        bound_ms=bnd, bound_by=by,
                        library_ms=lib.get(kernel))
             say(card, "flash_attention " + json.dumps(row))
-            worst[kernel] = max(worst[kernel], err)
-            if name == "path":
-                main[kernel] = row
+            w = worst[dtype == "float16"]
+            w[kernel] = max(w[kernel], err)
+            if name in ("path", "path_f16"):
+                main.setdefault(name, {})[kernel] = row
         del q, k, v, dout, got, plain, out, dq
         torch.cuda.empty_cache()
     # past the widest tiles the wrappers raise: no plain version on the card
@@ -1766,7 +1832,8 @@ def check_flash(card, torch):
               + json.dumps(lib_path["bwd_runs"]))
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"worst": worst, "main": main}
+    return {"worst": worst[False], "main": main["path"],
+            "worst_f16": worst[True], "main_f16": main["path_f16"]}
 
 
 # the autograd check's shapes: (B, Sq, Skv, H, Hkv, D, causal, key bias,
@@ -1915,6 +1982,11 @@ FLASHMASK_CASES = {
     "full_n2_band_d64": (1, 517, 4, 4, 1, 64, False, 2, "band", "bfloat16"),
     "empty_rows_d64": (2, 200, 4, 2, 1, 64, False, 2, "empty_rows",
                        "bfloat16"),
+    # float16: the path's shape (the kernel table's f16 rows) and documents
+    # with a mask per head at S 1000 and GQA
+    "path_f16": (4, 2048, 32, 8, 1, 128, True, 1, "trivial", "float16"),
+    "causal_n2_per_head_s1000_gqa_f16": (1, 1000, 8, 2, 8, 128, True, 2,
+                                         "docs", "float16"),
 }
 
 
@@ -1929,9 +2001,9 @@ def _flashmask_inputs(torch, gen, name):
 
 
 def _flashmask_classes(mf, torch, q, idx, causal):
-    """The tile classes the bf16 kernels read (None in f32), derived once
+    """The tile classes the 16-bit kernels read (None in f32), derived once
     as FlashmaskAttention's forward does for its backward."""
-    if q.dtype != torch.bfloat16:
+    if q.dtype == torch.float32:
         return None
     return mf.flashmask_tile_classes(idx, q.shape[1], q.shape[1], causal)
 
@@ -1970,7 +2042,7 @@ def check_flashmask(card, torch):
     from paddle_tpu_torch.ops import masked_flash as mf
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst = {d: {"fwd": 0.0, "dq": 0.0, "dkv": 0.0} for d in (False, True)}
     main, failures, lib_path = {}, [], None
     for name, (B, S, H, Hkv, Hm, D, causal, n, kind, dtype) in \
             FLASHMASK_CASES.items():
@@ -2018,6 +2090,8 @@ def check_flashmask(card, torch):
         lib = {}
         if name == "path":
             lib = lib_path = library_sdpa(torch, q, k, v, dout, True)
+        elif name == "path_f16":
+            lib = library_sdpa(torch, q, k, v, dout, True)
         elif name == "causal_n1_docs":
             lib = library_sdpa(torch, q, k, v, dout, causal, keep)
         shapes = dict(B=B, S=S, H=H, Hkv=Hkv, Hm=Hm, n=n, D=D, causal=causal,
@@ -2035,15 +2109,16 @@ def check_flashmask(card, torch):
                        eager_ms=eager_ms(fn_k, reps=reps, inner=inner),
                        plain_ms=time_ms(fn_p, reps=3, inner=2),
                        bound_ms=bnd, bound_by=by, library_ms=lib.get(kernel))
-            if kernel == "fwd" and dtype == "bfloat16":
+            if kernel == "fwd" and dtype != "float32":
                 # the wrapper's share of `ms`: the tile classes it derives
                 row["tile_classes_ms"] = time_ms(
                     lambda: mf.flashmask_tile_classes(idx, S, S, causal),
                     reps=reps, inner=inner)
             say(card, "flashmask " + json.dumps(row))
-            worst[kernel] = max(worst[kernel], err)
-            if name == "path":
-                main[kernel] = row
+            w = worst[dtype == "float16"]
+            w[kernel] = max(w[kernel], err)
+            if name in ("path", "path_f16"):
+                main.setdefault(name, {})[kernel] = row
         del q, k, v, dout, got, plain, keep
         torch.cuda.empty_cache()
     say(card, "flashmask library_ms: torch scaled_dot_product_attention on "
@@ -2054,7 +2129,8 @@ def check_flashmask(card, torch):
               + json.dumps(lib_path["bwd_runs"]))
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"worst": worst, "main": main}
+    return {"worst": worst[False], "main": main["path"],
+            "worst_f16": worst[True], "main_f16": main["path_f16"]}
 
 
 def check_flashmask_autograd(card, torch):
@@ -2117,7 +2193,8 @@ def check_flashmask_autograd(card, torch):
 # the two may land on neighbouring bf16 values: one ulp, at most 2^-7 of
 # the row's largest value. The limit is two ulps. Rows past a group's
 # computed rows (dead tiles) must be exactly zero.
-GG_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+# two ulps of the output type (bf16 2^-7 relative, f16 2^-10)
+GG_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6, "float16": 2 ** -9}
 
 # name: (E, R, K, N, live rows a group or "rung", rhs read transposed, dtype).
 # K is lhs's depth and N the output's width; a transposed rhs is [E, N, K]
@@ -2135,6 +2212,13 @@ GG_CASES = {
     "r48_dlhs_k37_f32": (3, 48, 37, 70, [48, 0, 17], True, "float32"),
     "partial_tiles": (4, 256, 64, 200, [65, 130, 0, 256], False, "bfloat16"),
     "k100_dlhs": (2, 128, 100, 96, [100, 1], True, "bfloat16"),
+    # float16: the rung's first forward product (the kernel table's f16
+    # row) and its dlhs, partly live tiles, K off the TMA line
+    "rung_w1_f16": (8, 1280, 1024, 4096, "rung", False, "float16"),
+    "rung_w2_dlhs_f16": (8, 1280, 1024, 4096, "rung", True, "float16"),
+    "partial_tiles_f16": (4, 256, 64, 200, [65, 130, 0, 256], False,
+                          "float16"),
+    "k100_dlhs_f16": (2, 128, 100, 96, [100, 1], True, "float16"),
 }
 
 
@@ -2201,7 +2285,7 @@ def check_grouped_gemm(card, torch):
     sizes_rung, cap = rung_sizes(torch)
     say(card, f"grouped_gemm rung routing: sizes {sizes_rung.tolist()}, "
               f"capacity {cap}, row stride {gg.row_stride(cap)}")
-    worst, main, failures = 0.0, None, []
+    worst, main, failures = {False: 0.0, True: 0.0}, {}, []
     for name, (E, R, K, N, sizes, trans, dtype) in GG_CASES.items():
         lhs, rhs, sz = _gg_inputs(torch, gen, name, sizes_rung)
         out = gg.grouped_gemm(lhs, rhs, sz, trans)
@@ -2230,9 +2314,9 @@ def check_grouped_gemm(card, torch):
                        lhs, rhs, sz, gg.BM, trans), reps=3, inner=2),
                    bound_ms=bnd, bound_by=by, library_ms=lib)
         say(card, "grouped_gemm " + json.dumps(row))
-        worst = max(worst, err[0])
-        if name == "rung_w1":
-            main = row
+        worst[dtype == "float16"] = max(worst[dtype == "float16"], err[0])
+        if name in ("rung_w1", "rung_w1_f16"):
+            main[name] = row
         del lhs, rhs, out, ref
     torch.cuda.empty_cache()
     say(card, "grouped_gemm library_ms: torch.bmm over [E, R, K] x [E, K, N] "
@@ -2240,7 +2324,8 @@ def check_grouped_gemm(card, torch):
               "computed too")
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"worst": worst, "main": main}
+    return {"worst": worst[False], "main": main["rung_w1"],
+            "worst_f16": worst[True], "main_f16": main["rung_w1_f16"]}
 
 
 # name: (q document lengths, or ("docs", T, documents) cut as `_docs` cuts
@@ -2258,6 +2343,11 @@ VARLEN_CASES = {
     "empty_k_segment_bf16": ([100, 60, 140], [120, 0, 100], 8, 2, 128, True,
                              "bfloat16"),
     "single_tile_d32": ([7, 9, 11], None, 2, 1, 32, True, "bfloat16"),
+    # float16: the path's pack (the kernel table's f16 rows) and causal
+    # cross attention with GQA
+    "path_f16": (("docs", 8192, 8), None, 32, 8, 128, True, "float16"),
+    "cross_causal_gqa_f16": ([300, 200, 500], [100, 400, 250], 8, 2, 128,
+                             True, "float16"),
 }
 
 
@@ -2275,7 +2365,8 @@ def _varlen_inputs(torch, gen, name):
     from paddle_tpu_torch.ops import masked_flash as mf
 
     spec_q, spec_k, H, Hkv, D, causal, dtype = VARLEN_CASES[name]
-    rng = np.random.default_rng(len(name))
+    # an f16 case cuts its documents as its bf16 twin does
+    rng = np.random.default_rng(len(name.removesuffix("_f16")))
     lens_q = _varlen_lens(rng, spec_q)
     lens_k = lens_q if spec_k is None else _varlen_lens(rng, spec_k)
     cu_q, cu_k = (torch.tensor(np.concatenate([[0], np.cumsum(l)]),
@@ -2292,10 +2383,10 @@ def _varlen_inputs(torch, gen, name):
 
 
 def _varlen_classes(mf, torch, q, k, layout, causal):
-    """The tile classes the bf16 kernels read (None in f32), derived once
+    """The tile classes the 16-bit kernels read (None in f32), derived once
     by the kernel the forward's entry runs, as VarlenAttention keeps the
     forward's for its backward."""
-    if q.dtype != torch.bfloat16:
+    if q.dtype == torch.float32:
         return None
     return mf.varlen_tile_classes(layout, q.shape[0], k.shape[0], causal)
 
@@ -2365,7 +2456,7 @@ def check_varlen(card, torch):
     from paddle_tpu_torch.ops import masked_flash as mf
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst = {d: {"fwd": 0.0, "dq": 0.0, "dkv": 0.0} for d in (False, True)}
     main, failures, lib_path = {}, [], None
     for name, (_, _, H, Hkv, D, _, _) in VARLEN_CASES.items():
         q, k, v, dout, layout, cu_q, cu_k, causal, dtype = _varlen_inputs(
@@ -2396,8 +2487,8 @@ def check_varlen(card, torch):
                 {"keys": n_late, "errs": late_errs}))
             failures += [f"varlen {name} second-half keys: {b}"
                          for b in _flash_violations(late_errs, dtype)]
-        elif name == "cross_causal_gqa":
-            failures.append("varlen cross_causal_gqa: no document starts in "
+        elif name.startswith("cross_causal_gqa"):
+            failures.append(f"varlen {name}: no document starts in "
                             "the second half of a 128-key tile")
         keep = mf.varlen_keep(layout, Tq, causal)
         pairs = int(keep.sum()) * H
@@ -2426,9 +2517,10 @@ def check_varlen(card, torch):
                     8 * pairs * D, ("dk", "dv")),
         }
         lib = {}
-        if name == "path":
-            lib = lib_path = library_sdpa(torch, q[None], k[None], v[None],
-                                          dout[None], causal, keep[None, None])
+        if name in ("path", "path_f16"):
+            lib = library_sdpa(torch, q[None], k[None], v[None], dout[None],
+                               causal, keep[None, None])
+            lib_path = lib_path or lib
         shapes = dict(Tq=Tq, Tk=Tk, documents=cu_q.numel() - 1,
                       lengths_q=np.diff(cu_q.tolist()).tolist()
                       if cu_q.numel() <= 9 else None,
@@ -2447,15 +2539,16 @@ def check_varlen(card, torch):
                        eager_ms=eager_ms(fn_k, reps=reps, inner=inner),
                        plain_ms=time_ms(fn_p, reps=3, inner=2),
                        bound_ms=bnd, bound_by=by, library_ms=lib.get(kernel))
-            if kernel == "fwd" and dtype == "bfloat16":
+            if kernel == "fwd" and dtype != "float32":
                 # the classes kernel's share of `ms`
                 row["tile_classes_ms"] = time_ms(
                     lambda: mf.varlen_tile_classes(layout, Tq, Tk, causal),
                     reps=reps, inner=inner)
             say(card, "varlen " + json.dumps(row))
-            worst[kernel] = max(worst[kernel], err)
-            if name == "path":
-                main[kernel] = row
+            w = worst[dtype == "float16"]
+            w[kernel] = max(w[kernel], err)
+            if name in ("path", "path_f16"):
+                main.setdefault(name, {})[kernel] = row
         del q, k, v, dout, got, plain, keep
         torch.cuda.empty_cache()
     say(card, "varlen library_ms: torch scaled_dot_product_attention on k and "
@@ -2465,7 +2558,8 @@ def check_varlen(card, torch):
               + json.dumps(lib_path["bwd_runs"]))
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"worst": worst, "main": main}
+    return {"worst": worst[False], "main": main["path"],
+            "worst_f16": worst[True], "main_f16": main["path_f16"]}
 
 
 # Faults planted in copies of csrc/ (phase 2b), name: (the source file, the
@@ -2613,6 +2707,20 @@ KERNEL_FAULTS = {
         "flash_bwd_sm90.cuh", "flash_bwd_dkv_sm90_kernel(",
         "kParts == 2 && blockIdx.x % 2 == 1;", "kParts == 2;",
         "flash unet_self_d160"),
+    # the f16 instantiations: an f16 operand read by a bf16 instruction,
+    # and P packed to the other 16-bit type (both compile and run)
+    "f16: S = Q K^T of f16 operands on the bf16 wgmma": (
+        "sm90.cuh", "void wgmma_ss_n128(", 'PTT_SS_N128("f16", "0");',
+        'PTT_SS_N128("bf16", "0");', "flash path_f16"),
+    "f16: the register-A products (P V, dS K) on the bf16 wgmma": (
+        "sm90.cuh", "void wgmma_rs_n64_t(", 'PTT_RS_N64_T("f16");',
+        'PTT_RS_N64_T("bf16");', "flash gqa_g4_f16"),
+    "f16 fwd: P packed to bf16": (
+        "flash_fwd_sm90.cuh", "void consume(", "pa[kk][0] = pack2<T>(",
+        "pa[kk][0] = pack2<bf16>(", "flash path_f16"),
+    "f16 grouped_gemm: the forward's transposed B on the bf16 wgmma": (
+        "sm90.cuh", "void wgmma_ss_n128_t(", 'PTT_SS_N128("f16", "1");',
+        'PTT_SS_N128("bf16", "1");', "grouped_gemm partial_tiles_f16"),
 }
 
 
@@ -2702,10 +2810,13 @@ def _fault_violations(torch, case):
 
 def _fault_source(case):
     """The source whose kernels a fault's case launches, where a header is
-    shared by several: flash, varlen or flashmask attention's."""
+    shared by several: flash, varlen or flashmask attention's, or the
+    grouped GEMM's (sm90.cuh reaches all four)."""
     kind = case.partition(" ")[0]
-    if kind in ("flash", "varlen"):
-        return {"flash": "flash_attention.cu", "varlen": "varlen_flash.cu"}[kind]
+    sources = {"flash": "flash_attention.cu", "varlen": "varlen_flash.cu",
+               "grouped_gemm": "grouped_gemm.cu"}
+    if kind in sources:
+        return sources[kind]
     return "masked_flash.cu" if case in FLASHMASK_CASES else None
 
 
@@ -2768,7 +2879,8 @@ def planted_kernel_faults(card, torch):
             text = src.read_text()
             at = text.index(old, text.index(anchor))
             src.write_text(text[:at] + new + text[at + len(old):])
-            source = _fault_source(KERNEL_FAULTS[fault][4])
+            case = KERNEL_FAULTS[fault][4]
+            source = _fault_source(case)
             if fname.endswith(".cuh") and source:
                 _route_fault(csrc, fname, source)
             csrcs[fault] = csrc
@@ -3361,12 +3473,15 @@ def serve_quant(card, torch):
     return total
 
 
-def _teacher_forced_margins(torch, model, prompt, tokens):
+def _teacher_forced_margins(torch, model, prompt, tokens, dtype="bfloat16"):
     """`model.generate`'s greedy steps fed `tokens` instead of its own
     picks (its calls: a prefill into f32 caches, then one decode step a
     token): per step, how far tokens[i]'s logit lies below the top one, in
-    bf16 steps of the top logit, and whether that is within
-    BF16_TIE_ULPS."""
+    steps of `dtype` at the top logit, and whether that is within
+    BF16_TIE_ULPS (bf16) or FP16_TIE_ULPS (f16)."""
+    bits, tie, key = ((7, BF16_TIE_ULPS, "bf16_steps_below_top")
+                      if dtype == "bfloat16" else
+                      (10, FP16_TIE_ULPS, "fp16_steps_below_top"))
     was_training = model.training
     model.eval()
     steps = []
@@ -3384,11 +3499,10 @@ def _teacher_forced_margins(torch, model, prompt, tokens):
                     n + i - 1)
             row = logits[0, -1].float()
             top = row.max().item()
-            ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+            ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - bits)
             below = (top - row[tok].item()) / ulp
             steps.append({"token": tok, "argmax": int(row.argmax()),
-                          "bf16_steps_below_top": below,
-                          "ok": below <= BF16_TIE_ULPS})
+                          key: below, "ok": below <= tie})
     model.train(was_training)
     return steps
 
@@ -4695,21 +4809,27 @@ def varlen_entry(card, torch):
     one forward, one dq and one dk/dv launch, the output and the q/k/v
     gradients within phase 2's limits of the plain path on the card. Then
     the same tokens as qkv [T, 3, 32, 128] (k and v expanded to the query
-    heads) through flash_attn_varlen_qkvpacked(varlen_padded=False). After
-    the checked run, each entry's forward alone and its forward with the
-    backward through autograd are timed eagerly back to back (CUDA
-    events); `backward_ms` is their difference."""
+    heads) through flash_attn_varlen_qkvpacked(varlen_padded=False). Then
+    flash_attn_unpadded once more in fp16, on phase 2's fp16 pack
+    ("path_f16"), held the same way. After each checked run, the entry's
+    forward alone and its forward with the backward through autograd are
+    timed eagerly back to back (CUDA events); `backward_ms` is their
+    difference. Returns (the bf16 calls' launches, the fp16 call's)."""
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import masked_flash as mf
 
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    q, k, v, dout, layout, cu_q, cu_k, causal, dtype = _varlen_inputs(
-        torch, gen, "path")
-    D, g = q.shape[-1], q.shape[1] // k.shape[1]
-    scale = D ** -0.5
-    max_len = int((cu_q[1:] - cu_q[:-1]).max())
+    def inputs(case):
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        q, k, v, dout, layout, cu_q, cu_k, causal, dtype = _varlen_inputs(
+            torch, gen, case)
+        return dict(q=q, k=k, v=v, dout=dout, layout=layout, cu_q=cu_q,
+                    cu_k=cu_k, causal=causal, dtype=dtype,
+                    scale=q.shape[-1] ** -0.5,
+                    max_len=int((cu_q[1:] - cu_q[:-1]).max()))
 
-    def plain_path(k, v):
+    def plain_path(c, k, v):
+        q, dout, layout, causal, scale = (c[n] for n in (
+            "q", "dout", "layout", "causal", "scale"))
         out, lse = mf.varlen_fwd_plain(q, k, v, layout, causal, scale)
         delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
         dq = mf.varlen_bwd_dq_plain(q, k, v, layout, dout, lse, delta, causal,
@@ -4718,7 +4838,8 @@ def varlen_entry(card, torch):
                                          causal, scale)
         return {"out": out, "dq": dq, "dk": dk.to(k.dtype), "dv": dv.to(v.dtype)}
 
-    def entry(name, fn, leaves, plain):
+    def entry(name, c, fn, leaves, plain):
+        dout, dtype, q = c["dout"], c["dtype"], c["q"]
         _zero_counters()
         out, none = fn(*leaves)
         out.backward(dout)
@@ -4742,8 +4863,9 @@ def varlen_entry(card, torch):
             fwd_ms = eager_ms(lambda: fn(*leaves), reps=5, inner=3)
         both_ms = eager_ms(fwd_bwd, reps=5, inner=3)
         say(card, f"varlen {name} " + json.dumps({
-            "Tq": q.shape[0], "documents": cu_q.numel() - 1, "H": q.shape[1],
-            "D": D, "causal": causal, "dtype": dtype, "second": none,
+            "Tq": q.shape[0], "documents": c["cu_q"].numel() - 1,
+            "H": q.shape[1], "D": q.shape[-1], "causal": c["causal"],
+            "dtype": dtype, "second": none,
             "row_rel_err": {w: e[1] for w, e in errs.items()},
             "frobenius_rel_err": {w: e[2] for w, e in errs.items()},
             "tol": FLASH_TOL[dtype], "launches": launches,
@@ -4754,21 +4876,33 @@ def varlen_entry(card, torch):
                                  f"{want}), {bad}")
         return launches
 
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    a = entry("flash_attn_unpadded", lambda q_, k_, v_: F.flash_attn_unpadded(
-        q_, k_, v_, cu_q, cu_k, max_len, max_len, scale, causal=causal),
-        leaves, plain_path(k, v))
+    def unpadded(c):
+        return lambda q_, k_, v_: F.flash_attn_unpadded(
+            q_, k_, v_, c["cu_q"], c["cu_k"], c["max_len"], c["max_len"],
+            c["scale"], causal=c["causal"])
+
+    c = inputs("path")
+    k, v = c["k"], c["v"]
+    g = c["q"].shape[1] // k.shape[1]
+    leaves = [t.detach().requires_grad_() for t in (c["q"], k, v)]
+    a = entry("flash_attn_unpadded", c, unpadded(c), leaves,
+              plain_path(c, k, v))
     del leaves
     ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-    qkv = torch.stack([q, ke, ve], dim=1).requires_grad_()
-    b = entry("flash_attn_varlen_qkvpacked",
+    qkv = torch.stack([c["q"], ke, ve], dim=1).requires_grad_()
+    b = entry("flash_attn_varlen_qkvpacked", c,
               lambda t: F.flash_attn_varlen_qkvpacked(
-                  t, cu_q, cu_k, max_len, max_len, scale, causal=causal,
-                  varlen_padded=False), [qkv], plain_path(ke, ve))
-    del qkv, q, k, v, dout
+                  t, c["cu_q"], c["cu_k"], c["max_len"], c["max_len"],
+                  c["scale"], causal=c["causal"], varlen_padded=False),
+              [qkv], plain_path(c, ke, ve))
+    del qkv, c, k, v
+    c = inputs("path_f16")
+    leaves = [t.detach().requires_grad_() for t in (c["q"], c["k"], c["v"])]
+    f16 = entry("flash_attn_unpadded fp16", c, unpadded(c), leaves,
+                plain_path(c, c["k"], c["v"]))
+    del leaves, c
     torch.cuda.empty_cache()
-    return {n: a[n] + b[n] for n in a}
-
+    return {n: a[n] + b[n] for n in a}, f16
 
 
 # --------------------------------------------------------------------------- #
@@ -5742,6 +5876,431 @@ def optimizers_hold(card, torch):
         raise AssertionError(f"optimizers hold: {bad}")
 
 
+# --------------------------------------------------------------------------- #
+# phases 23-25: float16 mixed precision (PR 22)
+# --------------------------------------------------------------------------- #
+
+FP16_STEPS = 3
+FP16_OVERFLOW_SCALE = 2.0 ** 40
+
+
+def _fp16_eager_step(torch, model, loss_fn, opt, scaler, ids, labels):
+    """One step of the reference's fp16 pattern: the forward under
+    auto_cast(O2, float16), scaler.scale(loss).backward(),
+    scaler.step(opt), scaler.update(), opt.clear_grad(). Returns the loss
+    (a device tensor)."""
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level="O2", dtype="float16"):
+        loss = loss_fn(model(ids), labels)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def train_fp16(card, torch, train_line):
+    """Phase 23. gpt3_1p3b at full width and depth, batch 4 x 2048, under
+    amp.decorate(level="O2", dtype="float16") with AdamW's f32 master
+    weights (decorate given the optimizer) and per-layer recompute, in the
+    reference's eager fp16 loop (`_fp16_eager_step`, an
+    amp.GradScaler at its default 2^16): a warm-up step, FP16_STEPS timed
+    steps with the counters zeroed just before and read just after (phase
+    5's flash and norm launches a step), a profile of one step. Then one
+    step at a scale of 2^40 overflows fp16 in the backward (the inf
+    reaches the scaler through the kernels, nothing clamps it): the
+    parameters and their masters must stay bit for bit, the scale must
+    halve; the scale is set back and two more steps must train (finite
+    losses, parameters moved). Printed: the scale at every step, step time
+    against phase 5's bf16 step, tokens/s, MFU, peak, busy share. Then 3
+    steps of bench.py's gpt3_moe rung (`run_moe_rung`'s sizes, f32
+    parameters) under auto_cast O2 fp16 with a GradScaler, so that the
+    fp16 grouped GEMM runs forward and dlhs on a path: 16 grouped GEMMs,
+    4 norm forwards and 4 dx a step. Returns (the gpt3 steps' launches,
+    the moe steps')."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg, per_step, _, _ = _train_config("gpt3_1p3b")
+    B, S = 4, 2048
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    amp.decorate(model, opt, level="O2", dtype="float16")
+    crit = GPTPretrainingCriterion(cfg)
+    scaler = amp.GradScaler()
+    named = dict(model.named_parameters())
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+    torch.cuda.synchronize()
+    say(card, f"train_fp16 gpt3_1p3b: {sum(p.numel() for p in named.values())} "
+              f"parameters ({sorted({str(p.dtype) for p in named.values()})}), "
+              f"built in {time.perf_counter() - t0:.3f} s")
+
+    def step():
+        return _fp16_eager_step(torch, model, lambda lg, lb: crit(lg, lb), opt,
+                                scaler, ids, labels)
+
+    scales = [scaler._scale]
+    t0 = time.perf_counter()
+    losses = [step().item()]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    scales.append(scaler._scale)
+    skipped = [bool(scaler._found_inf)]
+    _zero_counters()
+    reset_peak(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = []
+    for _ in range(FP16_STEPS):
+        timed.append(step())
+        skipped.append(bool(scaler._found_inf))
+        scales.append(scaler._scale)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses += [l.item() for l in timed]
+    want = _expected(**{k: v * FP16_STEPS for k, v in per_step.items()})
+    step_s = total_s / FP16_STEPS
+    flops = decoder_flops(cfg, B, S)
+    line = {
+        "model": "gpt3_1p3b", "recipe": "amp.decorate O2 float16 with AdamW "
+        "f32 masters and f32 moments, auto_cast O2 float16, GradScaler, "
+        "per-layer recompute, eager loop", "batch": B, "seq": S,
+        "losses": losses, "scales": scales, "skipped": skipped,
+        "warmup_step_s": warm_s, "timed_steps": FP16_STEPS, "step_s": step_s,
+        "bf16_step_s_phase5": train_line["step_s"],
+        "step_ratio_to_bf16": step_s / train_line["step_s"],
+        "tokens_per_s": B * S / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_BF16, "peak_memory_gb": peak / 1e9,
+        "launches": launches, "launches_per_step": per_step}
+    say(card, "train_fp16 gpt3_1p3b (smoke run, not a benchmark) "
+        + json.dumps(line))
+    if launches != want:
+        raise AssertionError(f"train_fp16: kernel launches {launches} over "
+                             f"{FP16_STEPS} steps, expected {want}")
+    if not all(math.isfinite(l) for l in losses) or all(skipped):
+        raise AssertionError(f"train_fp16: losses {losses}, skipped {skipped}")
+    profile_step(card, torch, step, "train_fp16 gpt3_1p3b step")
+
+    # a forced overflow: fp16 gradients past 65504 become inf in the
+    # backward's kernels and products, and the scaler must skip the step
+    before = {k: p.detach().clone() for k, p in named.items()}
+    masters = {k: opt._states[id(p)]["master"].clone() for k, p in named.items()
+               if "master" in opt._states.get(id(p), {})}
+    kept = scaler._scale
+    scaler._scale = FP16_OVERFLOW_SCALE
+    step()
+    torch.cuda.synchronize()
+    overflow = {"found_inf": bool(scaler._found_inf),
+                "scale_after": scaler._scale,
+                "parameters_unchanged": all(torch.equal(p.detach(), before[k])
+                                            for k, p in named.items()),
+                "masters_unchanged": all(
+                    torch.equal(opt._states[id(named[k])]["master"], m)
+                    for k, m in masters.items()),
+                "masters": len(masters)}
+    del masters
+    scaler._scale = kept
+    after = [step().item() for _ in range(2)]
+    torch.cuda.synchronize()
+    overflow.update(losses_after=after, scale_restored=kept,
+                    scales_after=scaler._scale,
+                    parameters_moved_after=not all(
+                        torch.equal(p.detach(), before[k])
+                        for k, p in named.items()))
+    say(card, "train_fp16 forced overflow " + json.dumps(overflow))
+    if not (overflow["found_inf"]
+            and overflow["scale_after"] == FP16_OVERFLOW_SCALE / 2
+            and overflow["parameters_unchanged"]
+            and overflow["masters_unchanged"] and overflow["masters"]
+            and all(math.isfinite(l) for l in after)
+            and overflow["parameters_moved_after"]):
+        raise AssertionError(f"train_fp16: the forced overflow {overflow}")
+    del before, model, opt, named, scaler
+    torch.cuda.empty_cache()
+
+    # gpt3_moe in fp16: the fp16 grouped GEMM forward and dlhs on a path
+    c = MOE_RUNG
+    model = moe_decoder(torch, "cuda")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler()
+    V = c["V"]
+    ids = torch.as_tensor(rng.integers(0, V, (c["batch"], c["seq"])),
+                          device="cuda")
+    labels = torch.as_tensor(rng.integers(0, V, (c["batch"], c["seq"])),
+                             device="cuda")
+
+    def moe_loss(lg, lb):
+        return F.cross_entropy(lg.reshape(-1, V), lb.reshape(-1, 1))
+
+    losses = [_fp16_eager_step(torch, model, moe_loss, opt, scaler, ids,
+                               labels).item()]  # warm-up
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [_fp16_eager_step(torch, model, moe_loss, opt, scaler, ids, labels)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    moe_s = (time.perf_counter() - t0) / 3
+    moe_launches = _counters()
+    losses += [l.item() for l in timed]
+    L = c["L"]
+    moe_want = _expected(grouped_gemm=3 * 4 * L, fused_norm=3 * L,
+                         fused_norm_dx=3 * L)
+    say(card, "train_fp16 gpt3_moe (smoke run, not a benchmark) " + json.dumps({
+        "model": "gpt3_moe", "recipe": "f32 parameters and AdamW moments, "
+        "auto_cast O2 float16, GradScaler, eager loop", **MOE_RUNG,
+        "losses": losses, "scale": scaler._scale, "step_s": moe_s,
+        "tokens_per_s": c["batch"] * c["seq"] / moe_s,
+        "mfu": moe_flops() / moe_s / PEAK_BF16, "launches": moe_launches}))
+    if moe_launches != moe_want or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"train_fp16 gpt3_moe: launches {moe_launches} "
+                             f"(expected {moe_want}), losses {losses}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches, moe_launches
+
+
+def serve_fp16(card, torch):
+    """Phase 24. fp16 serving. llama_7b at full width and depth in fp16
+    (seed 0) through the paged engine over the 12-request mix of the bf16
+    serve phases (16 rows, 512 tokens, page size 32): every RMSNorm,
+    rotation and decode attention through its kernel in fp16 (the counts
+    of phase 7), fp16 pages; then gpt3_1p3b in fp16 through the dense
+    engine (the flash forward at Sq = 1 in fp16, ticks x 24). For each,
+    `generate` on one greedy prompt of the mix, fed the engine's tokens:
+    the first token equal and every later one within FP16_TIE_ULPS fp16
+    steps of generate's top logit. Returns (the paged run's launches, the
+    dense run's)."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    B, S, ps, n_req, max_new = 16, 512, 32, 12, 16
+    out = []
+    for which, paged in (("llama_7b", True), ("gpt3_1p3b", False)):
+        cfg = getattr(models, which)()
+        L = cfg.num_layers
+        t0 = time.perf_counter()
+        model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float16, seed=0)
+        model.eval()
+        kw = dict(page_size=ps) if paged else dict(paged=False)
+        warm = create_serving_engine(model, max_batch_size=B, max_seq_len=S,
+                                     **kw)
+        warm.add_request(np.arange(1, 9, dtype=np.int32), max_new_tokens=2)
+        warm.run()
+        del warm
+        eng = create_serving_engine(model, max_batch_size=B, max_seq_len=S,
+                                    seed=0, **kw)
+        kv = eng.pool.kv[0][0].dtype if paged else eng.kv_dtype
+        workload = serving_workload(cfg.vocab_size, S, n_req)
+        done, seconds, peak, launches = _drain(torch, eng, workload, max_new)
+        line = _serve_line(eng, done, seconds, peak, launches)
+        ticks = line["decode_ticks"]
+        if paged:
+            want = _expected(fused_norm=(n_req + ticks) * (2 * L + 1),
+                             paged_decode_attention=ticks * L,
+                             fused_rope=(n_req + ticks) * L)
+        else:
+            want = _expected(fused_norm=(n_req + ticks) * (2 * L + 1),
+                             flash_fwd=ticks * L)
+        by_prompt = {tuple(r.prompt): r.generated for r in done}
+        prompt = next(p for p, temp in workload if temp == 0.0)
+        engine_tokens = by_prompt[tuple(prompt)]
+        steps = _teacher_forced_margins(torch, model, prompt, engine_tokens,
+                                        "float16")
+        bad = [i for i, st in enumerate(steps) if not st["ok"]]
+        first_equal = steps[0]["argmax"] == engine_tokens[0]
+        say(card, f"serve_fp16 {which} (smoke run, not a benchmark) "
+            + json.dumps({"engine": "paged" if paged else "dense",
+                          "dtype": "float16", "kv_dtype": str(kv),
+                          "seconds_with_build": time.perf_counter() - t0,
+                          **line, "generate_teacher_forced": steps,
+                          "first_token_equal": first_equal}))
+        if launches != want or kv != torch.float16:
+            raise AssertionError(f"serve_fp16 {which}: launches {launches} "
+                                 f"(expected {want}), kv {kv}")
+        if not first_equal or bad:
+            raise AssertionError(
+                f"serve_fp16 {which}: generate fed the engine's tokens ranks "
+                f"steps {bad} more than {FP16_TIE_ULPS} fp16 steps below its "
+                f"top logit (first token equal: {first_equal})")
+        out.append(launches)
+        del eng, model
+        torch.cuda.empty_cache()
+    return tuple(out)
+
+
+# unit roundoff of the half types (half the relative spacing at 1)
+HALF_UNIT = {"bfloat16": 2 ** -8, "float16": 2 ** -11}
+# Phase 25's limits, in units of the type's roundoff u: the card computes
+# each op in the half type with f32 sums and rounds its output once (u
+# relative), some 10 rounded ops deep through 2 layers and the head, so the
+# loss (~10.8, a sum of lse - target over 256 tokens) moves by a few u of
+# its terms and each gradient, through the same ops backwards, by some
+# sqrt(20) to 20 u of its norm. Held: the losses within 8 u, each
+# gradient's ||card - cpu|| within 32 u of the larger of its norm and 1e-3
+# of the largest gradient's (a gradient that is analytically zero, the k
+# biases', is rounding noise on both sides), and each parameter's AdamW
+# update the same way within 64 u. A wrong mask, tile or rounding moves the
+# gradients by O(1); the gradient limit is the one that catches a wrong
+# kernel: at random init the loss sits near log V whatever the attention
+# computes. The update's limit: AdamW's first step moves an entry by
+# lr * g / (|g| + eps') (weight decay aside, the same on both sides), and
+# with eps' at least the largest |g| that map is within a factor 2 of
+# linear, so it at most doubles the gradient's relative error.
+HALF_HOLD_LOSS_U = 8
+HALF_HOLD_GRAD_U = 32
+HALF_HOLD_STEP_U = 64
+HALF_HOLD_LR = 1e-3
+
+
+def train_half_holds(card, torch):
+    """Phase 25. The bf16 and fp16 training steps on the card held against
+    the CPU: 2 layers at gpt3_1p3b's widths (flash attention, recompute)
+    and at llama_7bshape's (flashmask attention), batch 1 x 256, weights
+    made on the CPU (seed 2) and rounded to values both half types hold
+    exactly (to bf16, magnitudes below fp16's normal range flushed to 0).
+    The card trains as phase 23 does: amp.decorate(level="O2") with the
+    optimizer, so AdamW steps f32 master weights, in bf16, then in fp16
+    under an amp.GradScaler (activations and gradients in the half type:
+    the sm90 tensor-core kernels), one step each; the CPU takes the same
+    step from the same weights and tokens in f32, once. AdamW's epsilon is
+    the CPU's largest gradient entry, so that the first step's update
+    follows each gradient's value and not only its sign, and a gradient
+    left scaled (or unscaled twice) moves it. Held: the loss, each
+    parameter's gradient and each parameter's update (the f32 master's
+    move) (HALF_HOLD_*: limits in the type's unit roundoff). Prints each
+    run's errors against its limits and its kernel launches, which must
+    include the path's flash (or flashmask) forward, dq and dk/dv. Returns
+    the fp16 runs' launches (the fp16 flashmask kernels' only path)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    B, S = 1, 256
+    f16_launches = {}
+    for which in ("gpt3_1p3b", "llama_7bshape"):
+        cfg = dataclasses.replace(_train_config(which)[0], num_layers=2)
+        attn = "flash" if which == "gpt3_1p3b" else "flashmask"
+        rng = np.random.default_rng(4)
+        ids = rng.integers(0, cfg.vocab_size, (B, S))
+        labels = rng.integers(0, cfg.vocab_size, (B, S))
+        t0 = time.perf_counter()
+        cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32, seed=2)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                r = p.to(torch.bfloat16).float()
+                p.copy_(torch.where(r.abs() < 2.0 ** -14, 0.0, r))
+        state = {k: v.clone() for k, v in cpu.state_dict().items()}
+        crit = GPTPretrainingCriterion(cfg)
+
+        def rel(got, want):
+            """Each tensor's ||got - want|| over the larger of its norm and
+            1e-3 of the largest norm of `want`."""
+            top = max(w.norm().item() for w in want.values())
+            return {k: (got[k] - w).norm().item()
+                    / max(w.norm().item(), 1e-3 * top)
+                    for k, w in want.items()}
+
+        loss = crit(cpu(torch.as_tensor(ids)), torch.as_tensor(labels))
+        loss.backward()
+        want_losses = [loss.item()]
+        want_grads = {k: p.grad.clone() for k, p in cpu.named_parameters()}
+        eps = max(g.abs().max().item() for g in want_grads.values())
+        AdamW(learning_rate=HALF_HOLD_LR, epsilon=eps,
+              parameters=cpu.parameters()).step()
+        want_steps = {k: p.detach() - state[k]
+                      for k, p in cpu.named_parameters()}
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        for dtype in ("bfloat16", "float16"):
+            u = HALF_UNIT[dtype]
+            model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                                   seed=2)
+            model.load_state_dict(state)
+            opt = AdamW(learning_rate=HALF_HOLD_LR, epsilon=eps,
+                        parameters=model.parameters())
+            amp.decorate(model, opt, level="O2", dtype=dtype)
+            if not all(torch.equal(p.detach().float().cpu(), state[k])
+                       for k, p in model.named_parameters()):
+                raise AssertionError(f"half hold {which}: the weights are not "
+                                     f"exact in {dtype}")
+            _zero_counters()
+            t0 = time.perf_counter()
+            loss = crit(model(torch.as_tensor(ids, device="cuda")),
+                        torch.as_tensor(labels, device="cuda"))
+            if dtype == "float16":
+                # fp16 runs as the reference's fp16 pattern does, under a
+                # loss scale (GradScaler's 2^16): unscaled, many gradients of
+                # these weights lie below fp16's normal range (6.1e-5) and
+                # lose their low bits; a power-of-two scale changes nothing
+                # else. scaler.step unscales the gradients in place.
+                scaler = amp.GradScaler()
+                scaler.scale(loss).backward()
+                scaler.step(opt)
+                if scaler._found_inf:
+                    raise AssertionError(f"half hold {which}: an fp16 "
+                                         "gradient overflowed at scale "
+                                         f"{scaler._scale}")
+                scaler.update()
+            else:
+                loss.backward()
+                opt.step()
+            torch.cuda.synchronize()
+            launches = _counters()
+            losses = [loss.item()]
+            grads = {k: p.grad.float().cpu()
+                     for k, p in model.named_parameters()}
+            steps = {k: opt._states.get(id(p), {}).get("master", p).float().cpu()
+                     - state[k] for k, p in model.named_parameters()}
+            loss_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, want_losses))
+            grad_rel, step_rel = rel(grads, want_grads), rel(steps, want_steps)
+            worst = max(grad_rel, key=grad_rel.get)
+            worst_step = max(step_rel, key=step_rel.get)
+            masters = sum("master" in st for st in opt._states.values())
+            say(card, f"half hold {which} " + json.dumps({
+                "model": f"{which} widths, 2 layers", "dtype": dtype,
+                "batch": B, "seq": S, "optimizer": "AdamW, f32 masters",
+                "lr": HALF_HOLD_LR, "epsilon": eps,
+                "params_with_master": masters, "losses_cuda": losses,
+                "losses_cpu_f32": want_losses,
+                "max_loss_rel_diff": loss_rel,
+                "loss_tol": HALF_HOLD_LOSS_U * u,
+                "max_grad_rel_diff": grad_rel[worst], "worst_grad": worst,
+                "grad_tol": HALF_HOLD_GRAD_U * u,
+                "max_step_rel_diff": step_rel[worst_step],
+                "worst_step": worst_step, "step_tol": HALF_HOLD_STEP_U * u,
+                "seconds_cuda": time.perf_counter() - t0,
+                "seconds_cpu": cpu_s, "launches": {
+                    k: v for k, v in launches.items() if v}}))
+            ran = all(launches[f"{attn}_{k}"] >= cfg.num_layers
+                      for k in ("fwd", "bwd_dq", "bwd_dkv"))
+            if dtype == "float16":
+                f16_launches = {k: f16_launches.get(k, 0) + v
+                                for k, v in launches.items()}
+            if not (ran and masters and loss_rel <= HALF_HOLD_LOSS_U * u
+                    and grad_rel[worst] <= HALF_HOLD_GRAD_U * u
+                    and step_rel[worst_step] <= HALF_HOLD_STEP_U * u):
+                raise AssertionError(f"half hold {which} {dtype}: the card's "
+                                     "step disagrees with the CPU's (or did "
+                                     f"not run {attn}'s kernels)")
+            del model, opt
+            torch.cuda.empty_cache()
+    return f16_launches
+
+
+
 def main():
     import torch
 
@@ -5811,7 +6370,7 @@ def main():
     moe_launches, moe_line = phase(train_moe, card, torch)
     ep_launches = phase(train_moe_expert_parallel, card, torch, moe_line)
     phase(moe_train_hold, card, torch)
-    varlen_launches = phase(varlen_entry, card, torch)
+    varlen_launches, varlen16_launches = phase(varlen_entry, card, torch)
     bert_launches = phase(train_bert, card, torch)
     phase(bert_train_hold, card, torch)
     resnet_launches = phase(train_resnet, card, torch)
@@ -5822,6 +6381,10 @@ def main():
     bert_dropout_launches, bert_eval_launches = phase(train_bert_dropout,
                                                       card, torch)
     phase(optimizers_hold, card, torch)
+    fp16_launches, fp16_moe_launches = phase(train_fp16, card, torch,
+                                             train_line)
+    fp16_paged_launches, fp16_dense_launches = phase(serve_fp16, card, torch)
+    half_hold_launches = phase(train_half_holds, card, torch)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -5832,6 +6395,12 @@ def main():
              bert_launches, resnet_launches, unet_launches,
              bert_dropout_launches, bert_eval_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
+    # the fp16 paths (phases 23-25 and varlen_entry's fp16 call) launch the
+    # same wrappers' f16 instantiations: counted apart, for the f16 rows
+    f16_paths = (fp16_launches, fp16_moe_launches, fp16_paged_launches,
+                 fp16_dense_launches, varlen16_launches, half_hold_launches)
+    launches16 = {name: sum(p.get(name, 0) for p in f16_paths)
+                  for name in _counters()}
     da_src = "paddle_tpu_torch/csrc/decode_attention.cu"
     da_ref = "paddle_tpu/ops/pallas/decode_attention.py:50"
     fwd_src = "paddle_tpu_torch/csrc/flash_fwd_sm90.cuh"
@@ -5884,6 +6453,25 @@ def main():
             "library_ms": main_row["library_ms"]})
         if "cold_ms" in main_row:
             kernels[-1]["cold_ms"] = main_row["cold_ms"]
+    # the f16 instantiations of the sm90 kernels, at the same main shapes
+    for check, names in ((flash, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                         (flashmask, ("flashmask_fwd", "flashmask_bwd_dq",
+                                      "flashmask_bwd_dkv")),
+                         (varlen, ("varlen_fwd", "varlen_bwd_dq",
+                                   "varlen_bwd_dkv")),
+                         (grouped, ("grouped_gemm",))):
+        for name in names:
+            row = next(k for k in kernels if k["name"] == name)
+            part = name.rsplit("_", 1)[-1] if name != "grouped_gemm" else None
+            main_row = check["main_f16"][part] if part else check["main_f16"]
+            err = check["worst_f16"][part] if part else check["worst_f16"]
+            kernels.append({
+                **row, "name": name + "_f16", "launches": launches16[name],
+                "max_abs_err": err, "ms": main_row["ms"],
+                "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"],
+                "bound_by": main_row["bound_by"],
+                "library_ms": main_row["library_ms"]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,11 @@ this rank's stage rows (`p.pp_part`: stages, stage, chunks) before that,
 and into a stage-3 model to this rank's sharding shard after both, so a
 full state loads on every rank as it stands. A layered GPT state goes into
 the pipelined model through `models.stack_layered_state_dict`. The arrays
-may be torch tensors too.
+may be torch tensors too. fp16 and bf16 arrays keep their values (an
+O2-decorated model's fp16 parameters, fp16 or bf16 moments); a
+`GradScaler`'s `state_dict` is a plain dict of Python numbers in both
+packages, so `amp.GradScaler.load_state_dict` takes the reference's as it
+is.
 """
 
 from __future__ import annotations

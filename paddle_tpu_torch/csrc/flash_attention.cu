@@ -8,7 +8,7 @@
 //   - `_bwd_dq_kernel` :332 (pallas_call :528): dQ from the LSE;
 //   - `_bwd_dkv_kernel` :406 (pallas_call :557): dV, dK in f32 (the TPU
 //     kernel writes one slice per expanded query head, which `_bwd` sums).
-// All three run under the mask policy `CausalBias` below. bfloat16 runs the
+// All three run under the mask policy `CausalBias` below. bfloat16 and float16 run the
 // Hopper kernels: the forward of flash_fwd_sm90.cuh and the dQ and dK/dV of
 // flash_bwd_sm90.cuh (wgmma fed by TMA, 128 x 128 tiles; dK/dV of a kv head
 // written once, the g query heads summed in registers). Their partial tiles
@@ -91,9 +91,9 @@ struct CausalBias {
 
 }  // namespace
 
-// q [B, Sq, H, D], k/v [B, Skv, Hkv, D] in one dtype (float32 or bfloat16)
+// q [B, Sq, H, D], k/v [B, Skv, Hkv, D] in one dtype (float32, bfloat16 or float16)
 // with unit d stride and D <= 192; `strides` holds 12 element strides:
-// (b, s, h) of q, k, v and dO (here a copy of q's). bfloat16 runs the sm90
+// (b, s, h) of q, k, v and dO (here a copy of q's). bfloat16 and float16 run the sm90
 // kernel, which takes only what a TMA map describes (see run_fwd_sm90).
 // kbias [B, Skv] f32 or null. out [B, Sq, H, D] contiguous in q's dtype;
 // lse [B, H, Sq] f32. Returns cudaGetLastError() after the launch, or the
@@ -106,11 +106,11 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v, const 
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  nullptr);
   const CausalBias m{static_cast<const float*>(kbias)};
-  if (dtype == ptt::kBF16) return run_fwd_sm90(p, m, q, k, v, out, lse, stream);
+  if (dtype != ptt::kF32) return run_fwd_sm90(dtype, p, m, q, k, v, out, lse, stream);
   return run_fwd_f32(p, m, q, k, v, out, lse, stream);
 }
 
-// As ptt_flash_fwd, plus dout (strided like q, strides 9..11; in bfloat16
+// As ptt_flash_fwd, plus dout (strided like q, strides 9..11; in 16 bits
 // as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O) [B, H, Sq] f32;
 // writes dq [B, Sq, H, D] contiguous in q's dtype.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* kbias,
@@ -122,12 +122,12 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
   const CausalBias m{static_cast<const float*>(kbias)};
-  if (dtype == ptt::kBF16)
-    return run_bwd_sm90(p, m, q, k, v, dout, lse, delta, dq, nullptr, nullptr, stream);
+  if (dtype != ptt::kF32)
+    return run_bwd_sm90(dtype, p, m, q, k, v, dout, lse, delta, dq, nullptr, nullptr, stream);
   return run_dq(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
 }
 
-// As ptt_flash_bwd_dq; writes dk, dv contiguous f32: in bfloat16 the kv
+// As ptt_flash_bwd_dq; writes dk, dv contiguous f32: in 16 bits the kv
 // heads' gradients [B, Skv, Hkv, D], in float32 one slice per query head
 // [B, Skv, H, D] (the caller sums the g heads of a kv head).
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* kbias,
@@ -139,7 +139,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
   const CausalBias m{static_cast<const float*>(kbias)};
-  if (dtype == ptt::kBF16)
-    return run_bwd_sm90(p, m, q, k, v, dout, lse, delta, nullptr, dk, dv, stream);
+  if (dtype != ptt::kF32)
+    return run_bwd_sm90(dtype, p, m, q, k, v, dout, lse, delta, nullptr, dk, dv, stream);
   return run_dkv(dtype, p, m, q, k, v, dout, lse, delta, dk, dv, stream);
 }

@@ -1,9 +1,9 @@
-// The bf16 attention backward for Hopper (sm_90a): dQ and dK/dV on wgmma
-// fed by TMA, templated on the mask policy as the forward
-// (flash_fwd_sm90.cuh) is, and reading the forward's 128 x 128 tile
-// classes.
+// The 16-bit attention backward for Hopper (sm_90a): dQ and dK/dV on wgmma
+// fed by TMA, templated on the element type T (bf16 or f16) and the mask
+// policy as the forward (flash_fwd_sm90.cuh) is, and reading the forward's
+// 128 x 128 tile classes.
 //
-// Replaces, for bfloat16 inputs, six TPU kernels (float32 keeps the
+// Replaces, for bfloat16 and float16 inputs, six TPU kernels (float32 keeps the
 // CUDA-core `flash_dq_kernel` and `flash_dkv_kernel` of flash_tiles.cuh):
 //   - paddle_tpu/ops/pallas/masked_flash.py `_fm_bwd_dq_kernel` :138
 //     (pallas_call :291): dQ = dS K;
@@ -21,13 +21,13 @@
 // under varlen_flash.cu's `Varlen` (packed documents, top-left causal
 // within each). P = exp(S - LSE) is
 // recomputed from the forward's f32 LSE and dS = P (dO V^T - delta) scale,
-// delta = rowsum(dO O) in f32; P and dS are rounded to bf16 before their
+// delta = rowsum(dO O) in f32; P and dS are rounded to T before their
 // products (as the TPU flash kernels cast p and ds to the operand type; the
 // TPU varlen kernels keep them in f32), every sum is f32. A row that keeps no key has LSE = +inf: its P, dS and dQ are
 // exactly 0. GQA: query head h reads kv head h / g (and the policy's mask
 // head).
 //
-// Bound on an H100: operations at 989 TFLOP/s (bf16 dense), dQ 6 D and
+// Bound on an H100: operations at 989 TFLOP/s (bf16 and f16 dense), dQ 6 D and
 // dK/dV 8 D per kept (row, key) pair: 0.209 and 0.278 ms at the LLaMA-7B
 // step's shape (masked_flash.cu), 0.104 and 0.139 ms at the gpt3_1p3b
 // step's (flash_attention.cu), 0.280 and 0.374 ms at the varlen pack's
@@ -39,12 +39,12 @@
 //      panels loaded by TMA. The score products are SS from K-major panels
 //      (dQ: S = Q K^T and dP = dO V^T, m64n128k16; dK/dV: S^T = K Q^T and
 //      dP^T = V dO^T, m64n64k16); the gradient products are RS m64n64k16
-//      with bf16 dS or P as the register A operand and the row-major tile
+//      with T dS or P as the register A operand and the row-major tile
 //      (K, dO, Q) read MN-major through the transpose bit. No operand is
 //      transposed in HBM.
 //   2. Scores stay in registers: P and dS are formed on the accumulator
 //      fragments (exp2f, log2(e) folded into the scale and the LSE) and
-//      packed to bf16 pairs in the A-fragment layout, an m64 accumulator's
+//      packed to T pairs in the A-fragment layout, an m64 accumulator's
 //      own, k step by k step. No score tile goes through shared memory.
 //   3. Two warpgroups of 64 rows (keys) each compute; a two-stage ring of
 //      TMA loads on mbarriers feeds them. There is no producer warp: the
@@ -76,7 +76,7 @@
 //      dO once and streams the visited K/V tiles (K and V on their own
 //      barriers, so S starts before V lands); dQ += dS K takes the whole
 //      128-key tile (S and dP 64 registers each beside 64 of dQ at
-//      D = 128). dQ leaves in bf16 through the warpgroup's Q rows with
+//      D = 128). dQ leaves in T through the warpgroup's Q rows with
 //      16-byte stores, as the forward's epilogue does. The last q tiles
 //      (the longest causal rows) launch first.
 // Shared memory: dQ 192 KB at D = 128 (Q, dO, two K/V stages), dK/dV
@@ -108,10 +108,10 @@ constexpr int kStep = 64;  // q rows of a dK/dV step
 constexpr int kBwdThreads = 256;
 static_assert(kStep == kTile, "a dK/dV q step is the policies' q tile (first_q_tile)");
 
-// acc[c] += A B over K rows of B: A bf16 fragments, K / 16 k steps; B the
+// acc[c] += A B over K rows of B: A fragments of T, K / 16 k steps; B the
 // rows at b_addr of [panel][b_rows][64] tiles, read MN-major (panel c:
 // columns 64 c ..)
-template <int DT, int K>
+template <class T, int DT, int K>
 __device__ __forceinline__ void rs_rows(float (&acc)[DT / kPanel][32],
                                         const uint32_t (&a)[K / 16][4], uint32_t b_addr,
                                         int b_rows) {
@@ -119,7 +119,7 @@ __device__ __forceinline__ void rs_rows(float (&acc)[DT / kPanel][32],
   for (int kk = 0; kk < K / 16; ++kk)  // 16 rows of B: 2048 bytes
 #pragma unroll
     for (int c = 0; c < DT / kPanel; ++c)
-      wgmma_rs_n64_t(acc[c], a[kk], smem_desc(b_addr + c * b_rows * 128 + kk * 2048, 1024, 1024));
+      wgmma_rs_n64_t<T>(acc[c], a[kk], smem_desc(b_addr + c * b_rows * 128 + kk * 2048, 1024, 1024));
 }
 
 template <int N>
@@ -175,14 +175,14 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* kmap, const CUtensorM
 // + 64), in the forward's fragment layout (flash_fwd_sm90.cuh `consume`).
 // The loads as in dK/dV: the last of the 8 warps to finish a kv tile
 // refills its stage with the tile kStages ahead.
-template <int DT, class M>
+template <class T, int DT, class M>
 __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtensorMap* vmap,
                                            const Problem& p, const M& mask, int b, int h, int q0,
                                            int n_kv, int cw, unsigned char* smem,
                                            uint64_t* q_full, uint64_t* k_full, uint64_t* v_full,
                                            unsigned* done, const float* __restrict__ lse,
                                            const float* __restrict__ delta,
-                                           bf16* __restrict__ dq) {
+                                           T* __restrict__ dq) {
   using L = DqLayout<DT>;
   constexpr int kPanels = DT / kPanel;
   constexpr int kN = Layout<DT>::kSub;  // keys of a step
@@ -233,13 +233,13 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
       zero(s);
       fence_regs(s);
       wgmma_fence();
-      ss_rows<DT, kN>(s, q_addr, kBM, k_addr, kN);  // S = Q K^T, while V lands
+      ss_rows<T, DT, kN>(s, q_addr, kBM, k_addr, kN);  // S = Q K^T, while V lands
       wgmma_commit();
       mbar_wait(&v_full[st], phase);
       zero(dp);
       fence_regs(dp);
       wgmma_fence();
-      ss_rows<DT, kN>(dp, o_addr, kBM, v_addr, kN);  // dP = dO V^T
+      ss_rows<T, DT, kN>(dp, o_addr, kBM, v_addr, kN);  // dP = dO V^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -270,16 +270,16 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
             s[4 * j + e] = pa * (dp[4 * j + e] - dl_a) * p.scale;
             s[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b) * p.scale;
           }
-        ds[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        ds[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        ds[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        ds[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        ds[kk][0] = pack2<T>(s[8 * kk], s[8 * kk + 1]);
+        ds[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+        ds[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+        ds[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
       }
 
 #pragma unroll
       for (int c = 0; c < kPanels; ++c) fence_regs(acc[c]);
       wgmma_fence();
-      rs_rows<DT, kN>(acc, ds, k_addr, kN);  // dQ += dS K
+      rs_rows<T, DT, kN>(acc, ds, k_addr, kN);  // dQ += dS K
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -312,9 +312,9 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       unsigned char* to = stage + c * kBM * 128 + ((j ^ swz) * 16) + 2 * col_off;
-      *reinterpret_cast<uint32_t*>(to + r_a * 128) = pack_bf16(acc[c][4 * j], acc[c][4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(to + r_a * 128) = pack2<T>(acc[c][4 * j], acc[c][4 * j + 1]);
       *reinterpret_cast<uint32_t*>(to + (r_a + 8) * 128) =
-          pack_bf16(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+          pack2<T>(acc[c][4 * j + 2], acc[c][4 * j + 3]);
     }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
   constexpr int kChunks = DT / 8;  // 16-byte chunks of a row
@@ -327,14 +327,14 @@ __device__ __forceinline__ void dq_consume(const CUtensorMap* kmap, const CUtens
   }
 }
 
-template <int DT, class M>
+template <class T, int DT, class M>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const __grid_constant__ CUtensorMap omap, Problem p, M mask,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq) {
+                         T* __restrict__ dq) {
   using L = DqLayout<DT>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -367,7 +367,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
   __syncthreads();
-  dq_consume<DT>(&kmap, &vmap, p, mask, b, h, q0, n_kv, threadIdx.x / 128, smem, q_full, k_full,
+  dq_consume<T, DT>(&kmap, &vmap, p, mask, b, h, q0, n_kv, threadIdx.x / 128, smem, q_full, k_full,
                  v_full, done, lse, delta, dq);
 }
 
@@ -424,7 +424,7 @@ __device__ __forceinline__ void load_step(const CUtensorMap* qmap, const CUtenso
 // dV alone (kDvOnly, which needs neither V nor dP^T).
 enum DkvPart { kDkDv = 0, kDkOnly = 1, kDvOnly = 2 };
 
-template <int DT, class M, int Part>
+template <class T, int DT, class M, int Part>
 __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUtensorMap* omap,
                                             const Problem& p, const M& mask, int b, int hk,
                                             int h0, int h1, int k0, int cw, unsigned char* smem,
@@ -489,8 +489,8 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
         fence_regs(dp);
       }
       wgmma_fence();
-      ss_rows<DT, kStep>(s, k_addr, kBN, q_addr, kStep);  // S^T = K Q^T
-      if constexpr (kDk) ss_rows<DT, kStep>(dp, v_addr, kBN, o_addr, kStep);  // dP^T = V dO^T
+      ss_rows<T, DT, kStep>(s, k_addr, kBN, q_addr, kStep);  // S^T = K Q^T
+      if constexpr (kDk) ss_rows<T, DT, kStep>(dp, v_addr, kBN, o_addr, kStep);  // dP^T = V dO^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -528,16 +528,16 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
             }
           }
         if constexpr (kDv) {
-          pt[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-          pt[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-          pt[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-          pt[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+          pt[kk][0] = pack2<T>(s[8 * kk], s[8 * kk + 1]);
+          pt[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+          pt[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+          pt[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
         }
         if constexpr (kDk) {
-          dst[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
-          dst[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
-          dst[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
-          dst[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+          dst[kk][0] = pack2<T>(dp[8 * kk], dp[8 * kk + 1]);
+          dst[kk][1] = pack2<T>(dp[8 * kk + 2], dp[8 * kk + 3]);
+          dst[kk][2] = pack2<T>(dp[8 * kk + 4], dp[8 * kk + 5]);
+          dst[kk][3] = pack2<T>(dp[8 * kk + 6], dp[8 * kk + 7]);
         }
       }
 
@@ -547,8 +547,8 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
         if constexpr (kDv) fence_regs(dva[c]);
       }
       wgmma_fence();
-      if constexpr (kDv) rs_rows<DT, kStep>(dva, pt, o_addr, kStep);   // dV += P^T dO
-      if constexpr (kDk) rs_rows<DT, kStep>(dka, dst, q_addr, kStep);  // dK += dS^T Q
+      if constexpr (kDv) rs_rows<T, DT, kStep>(dva, pt, o_addr, kStep);   // dV += P^T dO
+      if constexpr (kDk) rs_rows<T, DT, kStep>(dka, dst, q_addr, kStep);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -600,7 +600,7 @@ __device__ __forceinline__ void dkv_consume(const CUtensorMap* qmap, const CUten
     }
 }
 
-template <int DT, class M>
+template <class T, int DT, class M>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -643,19 +643,19 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
   const int cw = threadIdx.x / 128;
   if constexpr (kParts == 1)
-    dkv_consume<DT, M, kDkDv>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full, full,
+    dkv_consume<T, DT, M, kDkDv>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full, full,
                               done, lse, delta, dk, dv);
   else if (dv_only)
-    dkv_consume<DT, M, kDvOnly>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full,
+    dkv_consume<T, DT, M, kDvOnly>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full,
                                 full, done, lse, delta, dk, dv);
   else
-    dkv_consume<DT, M, kDkOnly>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full,
+    dkv_consume<T, DT, M, kDkOnly>(&qmap, &omap, p, mask, b, hk, h0, h1, k0, cw, smem, kv_full,
                                 full, done, lse, delta, dk, dv);
 }
 
 // ---------------------------------------------------------------- host
 
-template <int DT, class M>
+template <class T, int DT, class M>
 cudaError_t launch_bwd(const Problem& p, const M& m, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta, void* dq,
                        float* dk, float* dv, cudaStream_t st) {
@@ -663,29 +663,39 @@ cudaError_t launch_bwd(const Problem& p, const M& m, const void* q, const void* 
   const int Hkv = p.H / p.g;
   const int rows = dq != nullptr ? kBM : kStep;  // a dQ CTA's rows or a dK/dV step's
   const int keys = dq != nullptr ? Layout<DT>::kSub : kBN;  // a dQ ring step's or a dK/dV CTA's
-  cudaError_t err = encode(&qmap, q, p.B, p.Sq, p.H, p.D, p.q, rows);
-  if (err == cudaSuccess) err = encode(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, keys);
-  if (err == cudaSuccess) err = encode(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, keys);
-  if (err == cudaSuccess) err = encode(&omap, dout, p.B, p.Sq, p.H, p.D, p.o, rows);
+  cudaError_t err = encode<T>(&qmap, q, p.B, p.Sq, p.H, p.D, p.q, rows);
+  if (err == cudaSuccess) err = encode<T>(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, keys);
+  if (err == cudaSuccess) err = encode<T>(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, keys);
+  if (err == cudaSuccess) err = encode<T>(&omap, dout, p.B, p.Sq, p.H, p.D, p.o, rows);
   if (err != cudaSuccess) return err;
   if (dq != nullptr)
-    return launch(flash_bwd_dq_sm90_kernel<DT, M>, dim3(p.H, p.B, (p.Sq + kBM - 1) / kBM),
+    return launch(flash_bwd_dq_sm90_kernel<T, DT, M>, dim3(p.H, p.B, (p.Sq + kBM - 1) / kBM),
                   kBwdThreads, DqLayout<DT>::kSmem, st, qmap, kmap, vmap, omap, p, m, lse, delta,
-                  static_cast<bf16*>(dq));
-  return launch(flash_bwd_dkv_sm90_kernel<DT, M>,
+                  static_cast<T*>(dq));
+  return launch(flash_bwd_dkv_sm90_kernel<T, DT, M>,
                 dim3(Hkv * DkvLayout<DT>::kParts, p.B, (p.Skv + kBN - 1) / kBN),
                 kBwdThreads, DkvLayout<DT>::kSmem, st, qmap, kmap, vmap, omap, p, m, lse, delta,
                 dk, dv);
 }
 
+template <class T, class M>
+cudaError_t run_bwd(const Problem& p, const M& m, const void* q, const void* k, const void* v,
+                    const void* dout, const float* l, const float* dl, void* dq, float* dk,
+                    float* dv, cudaStream_t st) {
+  if (p.D <= 64) return launch_bwd<T, 64>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
+  if (p.D <= 128) return launch_bwd<T, 128>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
+  return launch_bwd<T, 192>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
+}
+
 }  // namespace sm90
 
-// The bf16 backward of flash_attention.cu and masked_flash.cu: q, k, v and
-// dout (strides p.o) bf16 as run_fwd_sm90 takes them; lse and delta
-// [B, H, Sq] f32 contiguous. dQ: dq [B, Sq, H, D] contiguous bf16. dK/dV (dq null): dk,
-// dv [B, Skv, H / g, D] contiguous f32, the kv heads' gradients.
+// The 16-bit backward of flash_attention.cu, masked_flash.cu and
+// varlen_flash.cu: q, k, v and dout (strides p.o) of `dtype` as
+// run_fwd_sm90 takes them; lse and delta [B, H, Sq] f32 contiguous. dQ: dq
+// [B, Sq, H, D] contiguous in `dtype`. dK/dV (dq null): dk, dv
+// [B, Skv, H / g, D] contiguous f32, the kv heads' gradients.
 template <class M>
-cudaError_t run_bwd_sm90(const Problem& p, const M& m, const void* q, const void* k,
+cudaError_t run_bwd_sm90(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                          const void* v, const void* dout, const void* lse, const void* delta,
                          void* dq, void* dk, void* dv, void* stream) {
   if (p.D % 8 != 0 || p.D > kMaxHeadDim) return cudaErrorInvalidValue;
@@ -694,9 +704,11 @@ cudaError_t run_bwd_sm90(const Problem& p, const M& m, const void* q, const void
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.D <= 64) return sm90::launch_bwd<64>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
-  if (p.D <= 128) return sm90::launch_bwd<128>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
-  return sm90::launch_bwd<192>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
+  if (dtype == ptt::kBF16)
+    return sm90::run_bwd<bf16>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
+  if (dtype == ptt::kF16)
+    return sm90::run_bwd<sm90::f16>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

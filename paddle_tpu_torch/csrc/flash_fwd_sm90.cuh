@@ -1,7 +1,8 @@
-// The bf16 attention forward for Hopper (sm_90a): one mainloop on wgmma fed
-// by TMA, instantiated under two mask policies.
+// The 16-bit attention forward for Hopper (sm_90a): one mainloop on wgmma
+// fed by TMA, instantiated under three mask policies and for both 16-bit
+// element types T (bf16 and f16, `sm90.cuh`'s `Elem<T>`).
 //
-// Replaces, for bfloat16 inputs, two TPU kernels (float32 keeps the
+// Replaces, for bfloat16 and float16 inputs, two TPU kernels (float32 keeps the
 // CUDA-core `flash_fwd_kernel` of flash_tiles.cuh):
 //   - paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` :127
 //     (pallas_call :282), under flash_attention.cu's `CausalBias`
@@ -9,14 +10,14 @@
 //   - paddle_tpu/ops/pallas/masked_flash.py `_fm_fwd_kernel` :77
 //     (pallas_call :253), under masked_flash.cu's `FlashMask` (top-left
 //     causal and the per-column row ranges of `FlashMask::keep`).
-// O = softmax(Q K^T * scale + mask) V in bf16 and the f32 row LSE, the
+// O = softmax(Q K^T * scale + mask) V in T and the f32 row LSE, the
 // exact running-max softmax, GQA by kv head h / g; a row that keeps no key
 // gets O = 0 and LSE = +inf (running max at or below kEmpty, or l == 0).
-// P is rounded to bf16 before P V, as the TPU kernel casts p to the operand
+// P is rounded to T before P V, as the TPU kernel casts p to the operand
 // type; m and l stay in f32.
 //
 // Bound on an H100: operations, 4 D per kept (row, key) pair at 989 TFLOP/s
-// (bf16 dense). At the training shapes (B 4, S 2048, heads of 128, causal)
+// (bf16 and f16 dense). At the training shapes (B 4, S 2048, heads of 128, causal)
 // that is 0.0695 ms for flash's 16 heads and 0.139 ms for the LLaMA step's
 // 32; at the dense engine's decode (Sq = 1) the K/V stream sets it: bytes
 // at 3.35 TB/s.
@@ -30,7 +31,7 @@
 //   2. No shared-memory round trips in the loop. The softmax runs on the S
 //      accumulator fragments: a thread holds 2 rows x 32 keys, the row max
 //      is reduced over the 4 lanes of a quad by shuffles, each thread keeps
-//      its partial row sums (reduced once, at the end). P is packed to bf16
+//      its partial row sums (reduced once, at the end). P is packed to T
 //      pairs in registers in the A-fragment layout (an m64 accumulator's
 //      layout is the A operand's). O stays in registers; its rescale is one
 //      multiply a fragment.
@@ -52,7 +53,7 @@
 //      that the wrapper derives on the device from per-tile min/max of the
 //      index rows (ops/masked_flash.py `flashmask_tile_classes`), so under
 //      the LLaMA step's trivial index only the diagonal evaluates it.
-// The epilogue normalises O by 1/l in registers, stages the bf16 rows in
+// The epilogue normalises O by 1/l in registers, stages the T rows in
 // the warpgroup's own rows of the Q tile (same swizzle) and writes them
 // with 16-byte stores; output layout [B, Sq, H, D] contiguous, as before.
 //
@@ -108,7 +109,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // d (+)= A B^T over DT columns, N = 64 or 128: A the 64 rows at a_addr of
 // [panel][a_rows][64] tiles, B the N rows at b_addr of [panel][b_rows][64]
 // tiles, both K-major
-template <int DT, int N>
+template <class T, int DT, int N>
 __device__ __forceinline__ void ss_rows(float (&d)[N / 2], uint32_t a_addr, int a_rows,
                                         uint32_t b_addr, int b_rows) {
 #pragma unroll
@@ -116,9 +117,9 @@ __device__ __forceinline__ void ss_rows(float (&d)[N / 2], uint32_t a_addr, int 
     const uint64_t a = smem_desc(a_addr + (ks / 4) * a_rows * 128 + (ks % 4) * 32, 16, 1024);
     const uint64_t b = smem_desc(b_addr + (ks / 4) * b_rows * 128 + (ks % 4) * 32, 16, 1024);
     if constexpr (N == 128)
-      wgmma_ss_n128(d, a, b, ks > 0);
+      wgmma_ss_n128<T>(d, a, b, ks > 0);
     else
-      wgmma_ss_n64(d, a, b, ks > 0);
+      wgmma_ss_n64<T>(d, a, b, ks > 0);
   }
 }
 
@@ -172,12 +173,12 @@ __device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorM
 // (warp w, lane) holds rows 16 w + lane / 4 (+8) and, of each 8 columns of
 // an accumulator, columns 2 (lane % 4) and +1: element 4 j + e of an
 // accumulator is row +8 * (e / 2), column 8 j + 2 (lane % 4) + e % 2.
-template <int DT, class M>
+template <class T, int DT, class M>
 __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, int h, int q0,
                                         int n_kv, int cw, unsigned char* q_s,
                                         const unsigned char* k_s, const unsigned char* v_s,
                                         uint64_t* q_full, uint64_t* k_full, uint64_t* v_full,
-                                        uint64_t* empty, bf16* __restrict__ out,
+                                        uint64_t* empty, T* __restrict__ out,
                                         float* __restrict__ lse) {
   using L = Layout<DT>;
   constexpr int kN = L::kSub;  // keys of a step
@@ -213,7 +214,7 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
       for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
       fence_regs(s);
       wgmma_fence();
-      ss_rows<DT, kN>(s, q_addr, kBM, k_addr + st * L::kKV, kN);  // S = Q K^T
+      ss_rows<T, DT, kN>(s, q_addr, kBM, k_addr + st * L::kKV, kN);  // S = Q K^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
@@ -272,13 +273,13 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
           o[c][4 * j + 2] *= al_b;
           o[c][4 * j + 3] *= al_b;
         }
-      uint32_t pa[kN / 16][4];  // P in bf16: the A fragment of k step kk
+      uint32_t pa[kN / 16][4];  // P in T: the A fragment of k step kk
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        pa[kk][0] = pack2<T>(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
       }
 
       mbar_wait(&v_full[st], phase);
@@ -289,7 +290,7 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
       for (int kk = 0; kk < kN / 16; ++kk)  // 16 keys: 2048 bytes of V rows
 #pragma unroll
         for (int c = 0; c < L::kPanels; ++c)
-          wgmma_rs_n64_t(o[c], pa[kk],
+          wgmma_rs_n64_t<T>(o[c], pa[kk],
                          smem_desc(v_addr + st * L::kKV + c * kN * 128 + kk * 2048, 1024, 1024));
       wgmma_commit();
       wgmma_wait_all();
@@ -319,9 +320,9 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
     for (int j = 0; j < 8; ++j) {
       unsigned char* at = stage + c * kBM * 128 + ((j ^ swz) * 16) + 2 * col_off;
       *reinterpret_cast<uint32_t*>(at + r_a * 128) =
-          pack_bf16(o[c][4 * j] * inv_a, o[c][4 * j + 1] * inv_a);
+          pack2<T>(o[c][4 * j] * inv_a, o[c][4 * j + 1] * inv_a);
       *reinterpret_cast<uint32_t*>(at + (r_a + 8) * 128) =
-          pack_bf16(o[c][4 * j + 2] * inv_b, o[c][4 * j + 3] * inv_b);
+          pack2<T>(o[c][4 * j + 2] * inv_b, o[c][4 * j + 3] * inv_b);
     }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
   constexpr int kChunks = DT / 8;  // 16-byte chunks of a row
@@ -339,12 +340,12 @@ __device__ __forceinline__ void consume(const Problem& p, const M& mask, int b, 
   }
 }
 
-template <int DT, class M>
+template <class T, int DT, class M>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, Problem p, M mask,
-                      bf16* __restrict__ out, float* __restrict__ lse) {
+                      T* __restrict__ out, float* __restrict__ lse) {
   using L = Layout<DT>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -379,43 +380,52 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                   v_full, empty);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<DT>(p, mask, b, h, q0, n_kv, threadIdx.x / 128 - 1, q_s, k_s, v_s, q_full, k_full,
+    consume<T, DT>(p, mask, b, h, q0, n_kv, threadIdx.x / 128 - 1, q_s, k_s, v_s, q_full, k_full,
                 v_full, empty, out, lse);
   }
 }
 
-template <int DT, class M>
+template <class T, int DT, class M>
 cudaError_t launch_fwd(const Problem& p, const M& m, const void* q, const void* k, const void* v,
                        void* out, float* lse, cudaStream_t st) {
   CUtensorMap qmap, kmap, vmap;
   const int Hkv = p.H / p.g;
   constexpr int kSub = Layout<DT>::kSub;
-  cudaError_t err = encode(&qmap, q, p.B, p.Sq, p.H, p.D, p.q, kBM);
-  if (err == cudaSuccess) err = encode(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, kSub);
-  if (err == cudaSuccess) err = encode(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, kSub);
+  cudaError_t err = encode<T>(&qmap, q, p.B, p.Sq, p.H, p.D, p.q, kBM);
+  if (err == cudaSuccess) err = encode<T>(&kmap, k, p.B, p.Skv, Hkv, p.D, p.k, kSub);
+  if (err == cudaSuccess) err = encode<T>(&vmap, v, p.B, p.Skv, Hkv, p.D, p.v, kSub);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBM - 1) / kBM, p.H, p.B);
-  return launch(flash_fwd_sm90_kernel<DT, M>, grid, kThreads, Layout<DT>::kSmem, st, qmap, kmap,
-                vmap, p, m, static_cast<bf16*>(out), lse);
+  return launch(flash_fwd_sm90_kernel<T, DT, M>, grid, kThreads, Layout<DT>::kSmem, st, qmap,
+                kmap, vmap, p, m, static_cast<T*>(out), lse);
+}
+
+template <class T, class M>
+cudaError_t run_fwd(const Problem& p, const M& m, const void* q, const void* k, const void* v,
+                    void* out, float* lse, cudaStream_t st) {
+  if (p.D <= 64) return launch_fwd<T, 64>(p, m, q, k, v, out, lse, st);
+  if (p.D <= 128) return launch_fwd<T, 128>(p, m, q, k, v, out, lse, st);
+  return launch_fwd<T, 192>(p, m, q, k, v, out, lse, st);
 }
 
 }  // namespace sm90
 
-// The bf16 forward of flash_attention.cu, masked_flash.cu and
-// varlen_flash.cu: q, k, v bf16 with a unit d stride, D a multiple of 8
+// The 16-bit forward of flash_attention.cu, masked_flash.cu and
+// varlen_flash.cu: q, k, v of `dtype` (ptt::kBF16 or ptt::kF16, one for
+// all three) with a unit d stride, D a multiple of 8
 // and at most kMaxHeadDim (192), every base
 // pointer 16-byte aligned and every stride of a dim longer than 1 a
 // multiple of 8 elements (what a TMA map takes; the wrappers copy other
-// views). out [B, Sq, H, D] contiguous bf16, lse [B, H, Sq] f32.
+// views). out [B, Sq, H, D] contiguous in `dtype`, lse [B, H, Sq] f32.
 template <class M>
-cudaError_t run_fwd_sm90(const Problem& p, const M& m, const void* q, const void* k,
+cudaError_t run_fwd_sm90(int dtype, const Problem& p, const M& m, const void* q, const void* k,
                          const void* v, void* out, void* lse, void* stream) {
   if (p.D % 8 != 0 || p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.D <= 64) return sm90::launch_fwd<64>(p, m, q, k, v, out, l, st);
-  if (p.D <= 128) return sm90::launch_fwd<128>(p, m, q, k, v, out, l, st);
-  return sm90::launch_fwd<192>(p, m, q, k, v, out, l, st);
+  if (dtype == ptt::kBF16) return sm90::run_fwd<bf16>(p, m, q, k, v, out, l, st);
+  if (dtype == ptt::kF16) return sm90::run_fwd<sm90::f16>(p, m, q, k, v, out, l, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

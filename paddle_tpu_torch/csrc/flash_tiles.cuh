@@ -78,7 +78,7 @@ constexpr int kLdp = kTile + 4;            // f32 row stride of P / dS tiles
 constexpr float kEmpty = -5e29f;           // running max at or below: no key seen
 constexpr int kMaxHeadDim = 192;           // the widest tile width (three 64-column panels)
 
-using bf16 = __nv_bfloat16;  // the sm90 kernels' operand type
+using bf16 = __nv_bfloat16;  // an sm90 kernel operand type (sm90.cuh adds f16)
 
 // smem row stride of a [64, DT] operand tile in elements: 16 extra bytes
 // keep rows 16-byte aligned and put consecutive rows 4 banks apart
@@ -646,7 +646,9 @@ Problem make_problem(int dtype, int B, int H, int Hkv, int Sq, int Skv, int D, f
   return p;
 }
 
-bool supported(int dtype) { return dtype == ptt::kF32 || dtype == ptt::kBF16; }
+bool supported(int dtype) {
+  return dtype == ptt::kF32 || dtype == ptt::kBF16 || dtype == ptt::kF16;
+}
 
 // The three float32 passes at the head dim's tile width (64, 128 or 192), for
 // the entry points of flash_attention.cu, masked_flash.cu and

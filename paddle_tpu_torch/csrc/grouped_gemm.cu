@@ -20,7 +20,7 @@
 // at 989 TFLOP/s in bf16 against 0.03 ms at 3.35 TB/s.
 //
 // Two forms, chosen by the dtype:
-//   - bf16 (the training path): grouped_gemm_sm90.cuh's persistent
+//   - bf16 and f16 (the training path): grouped_gemm_sm90.cuh's persistent
 //     wgmma kernel fed by TMA, 128 x 128 tiles (its own notes);
 //   - f32: register-tiled FMA on the CUDA cores in full f32 (no TF32), one
 //     CTA per (64-row tile, 64-column tile), 256 threads of 4 x 4 outputs,
@@ -135,17 +135,21 @@ __global__ void __launch_bounds__(kF32Threads) gg_f32_kernel(Args a) {
 
 // out [E*R, N] = the grouped product of lhs [E*R, K] and rhs [E, K, N]
 // (trans = 0) or rhs [E, N, K] read transposed (trans = 1), all contiguous
-// in one dtype (float32 or bfloat16; bfloat16 16-byte aligned with K and N
-// multiples of 8); sizes [E] int32 on the device, the live rows of each
+// in one dtype (float32, bfloat16 or float16; the 16-bit types 16-byte
+// aligned with K and N multiples of 8); sizes [E] int32 on the device, the live rows of each
 // group. Returns cudaGetLastError() after the launch.
 extern "C" int ptt_grouped_gemm(const void* lhs, const void* rhs, const void* sizes, void* out,
                                 int E, int R, int K, int N, int trans, int dtype,
                                 void* stream) {
-  if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || E < 1 || R < 1 || K < 0 || N < 1)
+  if ((dtype != ptt::kF32 && dtype != ptt::kBF16 && dtype != ptt::kF16) || E < 1 || R < 1 ||
+      K < 0 || N < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sz = static_cast<const int*>(sizes);
-  if (dtype == ptt::kBF16) return sm90::launch_gg(lhs, rhs, sz, out, E, R, K, N, trans, st);
+  if (dtype == ptt::kBF16)
+    return sm90::launch_gg<bf16>(lhs, rhs, sz, out, E, R, K, N, trans, st);
+  if (dtype == ptt::kF16)
+    return sm90::launch_gg<sm90::f16>(lhs, rhs, sz, out, E, R, K, N, trans, st);
   const int tiles = (R + BM - 1) / BM;
   if ((long long)E * tiles > 65535) return cudaErrorInvalidValue;
   const Args a{lhs, rhs, sz, out, R, K, N, tiles};

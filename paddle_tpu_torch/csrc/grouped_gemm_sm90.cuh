@@ -1,17 +1,19 @@
-// The bf16 grouped GEMM of the MoE experts for Hopper (sm_90a): wgmma fed
-// by TMA over a persistent list of 128 x 128 output tiles.
+// The 16-bit grouped GEMM of the MoE experts for Hopper (sm_90a): wgmma fed
+// by TMA over a persistent list of 128 x 128 output tiles, one source for
+// both element types T (bf16 and f16, `sm90.cuh`'s `Elem<T>`).
 //
-// Replaces, for bfloat16 inputs, paddle_tpu/ops/pallas/grouped_gemm.py
+// Replaces, for bfloat16 and float16 inputs, paddle_tpu/ops/pallas/grouped_gemm.py
 // `_gg_kernel` :110 (pallas_call :149): out[r] = lhs[r] @ rhs[r / R] over
 // the uniform-stride layout, lhs [E*R, K], rhs [E, K, N] (the forward) or
 // [E, N, K] read transposed (the backward's dlhs, `_gmm_bwd` :182), f32
-// accumulation, the output in bf16. Float32 keeps grouped_gemm.cu's
+// accumulation, the output in T. Float32 keeps grouped_gemm.cu's
 // CUDA-core kernel. The semantics are pinned to 64-row units (BM of
 // ops/grouped_gemm.py): a unit whose first row is at or past its group's
 // live count is zero and multiplies nothing; every row of a unit that holds
 // a live row is computed; nothing is ever written past a group's R rows.
 //
 // Bound on an H100: operations, 2 * (computed rows) * K * N at 989 TFLOP/s
+// (bf16 and f16 dense)
 // (0.0869 ms at the gpt3_moe rung's [10240, 1024] x [8, 1024, 4096]),
 // against ~100 MB of operands (0.03 ms at 3.35 TB/s).
 //
@@ -37,7 +39,7 @@
 //      whose two units are dead loads nothing and writes zeros; a dead
 //      unit of a live tile writes zeros and issues no product. The
 //      producer runs ahead into the next tile while the consumers store.
-//   4. The epilogue rounds the accumulator to bf16 into the warpgroup's own
+//   4. The epilogue rounds the accumulator to T into the warpgroup's own
 //      32 KB staging tile (same swizzle) and writes 16-byte pieces of its
 //      rows, up to the group's R and the output's N.
 // Shared memory: 4 stages of 32 KB and the 32 KB staging tile, 160 KB; one
@@ -60,13 +62,14 @@ constexpr int kGgA = kGgRows * 128;               // [128 rows][64 k]
 constexpr int kGgB = kGgCols * 128;               // [n][64 k], or [n / 64][64 k][64 n]
 constexpr int kGgPanel = kGgDepth * 128;          // one [64 k][64 n] panel of B
 constexpr int kGgStage = kGgA + kGgB;
-constexpr int kGgOut = kGgRows * kGgCols * 2;     // the bf16 staging tile
+constexpr int kGgOut = kGgRows * kGgCols * 2;     // the 16-bit staging tile
 constexpr int kGgBars = kGgStages * kGgStage + kGgOut;
 constexpr size_t kGgSmem = kGgBars + 2 * kGgStages * 8 + 1024;
 
+template <class T>
 struct GgProblem {
   const int* sizes;  // [E] live rows of each group, on the device
-  bf16* out;         // [E * R, N]
+  T* out;            // [E * R, N]
   int R, K, N;
   int row_tiles, col_tiles, tiles;  // 128-row tiles a group, column tiles, all
 };
@@ -81,7 +84,8 @@ struct GgTile {
   bool live0, live1;  // the two 64-row units
 };
 
-__device__ __forceinline__ GgTile gg_tile(const GgProblem& p, int t) {
+template <class T>
+__device__ __forceinline__ GgTile gg_tile(const GgProblem<T>& p, int t) {
   GgTile x;
   const int per_group = p.row_tiles * p.col_tiles;
   x.g = t / per_group;
@@ -95,9 +99,9 @@ __device__ __forceinline__ GgTile gg_tile(const GgProblem& p, int t) {
 
 // The loads of every live tile of this CTA, K slice by K slice, into the
 // ring; one thread.
-template <bool kTrans>
+template <class T, bool kTrans>
 __device__ __forceinline__ void gg_produce(const CUtensorMap* amap, const CUtensorMap* bmap,
-                                           const GgProblem& p, unsigned char* smem,
+                                           const GgProblem<T>& p, unsigned char* smem,
                                            uint64_t* full, uint64_t* empty) {
   prefetch_map(amap);
   prefetch_map(bmap);
@@ -126,20 +130,20 @@ __device__ __forceinline__ void gg_produce(const CUtensorMap* amap, const CUtens
 }
 
 // acc (+)= the k step kk (16 deep) of A at a (a descriptor) and B at b
-template <bool kTrans>
+template <class T, bool kTrans>
 __device__ __forceinline__ void gg_mma(float (&acc)[kGgCols / 2], uint64_t a, uint32_t b, int kk) {
   if (kTrans)
-    wgmma_ss_n128(acc, a, smem_desc(b + kk * 32, 16, 1024), 1);
+    wgmma_ss_n128<T>(acc, a, smem_desc(b + kk * 32, 16, 1024), 1);
   else  // 16 rows of k: 2048 bytes; the panels kGgPanel apart
-    wgmma_ss_n128_t(acc, a, smem_desc(b + kk * 2048, kGgPanel, 1024), 1);
+    wgmma_ss_n128_t<T>(acc, a, smem_desc(b + kk * 2048, kGgPanel, 1024), 1);
 }
 
 // One consumer warpgroup: unit cw (rows [r0 + 64 cw, + 64)) of every tile
 // of this CTA. Thread (warp w, lane) holds rows 16 w + lane / 4 (+8) and,
 // of each 8 columns, columns 2 (lane % 4) and +1 (flash_fwd_sm90.cuh's
 // fragment layout).
-template <bool kTrans>
-__device__ __forceinline__ void gg_consume(const GgProblem& p, int cw, unsigned char* smem,
+template <class T, bool kTrans>
+__device__ __forceinline__ void gg_consume(const GgProblem<T>& p, int cw, unsigned char* smem,
                                            uint64_t* full, uint64_t* empty) {
   const int tid = threadIdx.x - 128 * (cw + 1), warp = tid / 32, lane = tid % 32;
   const int r_a = 16 * warp + lane / 4;  // row within the unit; r_a + 8 the other
@@ -168,7 +172,7 @@ __device__ __forceinline__ void gg_consume(const GgProblem& p, int cw, unsigned 
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kGgDepth / 16; ++kk)
-            gg_mma<kTrans>(acc, smem_desc(a + kk * 32, 16, 1024), b, kk);
+            gg_mma<T, kTrans>(acc, smem_desc(a + kk * 32, 16, 1024), b, kk);
           wgmma_commit();
           wgmma_wait_1();  // the previous k step's products are done
           fence_regs(acc);
@@ -187,15 +191,15 @@ __device__ __forceinline__ void gg_consume(const GgProblem& p, int cw, unsigned 
       if (lane == 0) mbar_arrive(&empty[prev]);
     }
 
-    bf16* out = p.out + ((long long)x.g * p.R + row0) * p.N + x.n0;
-    if (live) {  // bf16 rows into the staging tile, then 16-byte pieces out
+    T* out = p.out + ((long long)x.g * p.R + row0) * p.N + x.n0;
+    if (live) {  // T rows into the staging tile, then 16-byte pieces out
       const int swz = r_a & 7;  // r_a and r_a + 8 share it
 #pragma unroll
       for (int j = 0; j < kGgCols / 8; ++j) {
         unsigned char* at = stage + (j / 8) * kGgUnit * 128 + (((j % 8) ^ swz) * 16) + 2 * col_off;
-        *reinterpret_cast<uint32_t*>(at + r_a * 128) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(at + r_a * 128) = pack2<T>(acc[4 * j], acc[4 * j + 1]);
         *reinterpret_cast<uint32_t*>(at + (r_a + 8) * 128) =
-            pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+            pack2<T>(acc[4 * j + 2], acc[4 * j + 3]);
       }
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
       for (int i = tid; i < kGgUnit * kGgCols / 8; i += 128) {
@@ -216,10 +220,10 @@ __device__ __forceinline__ void gg_consume(const GgProblem& p, int cw, unsigned 
   }
 }
 
-template <bool kTrans>
+template <class T, bool kTrans>
 __global__ void __launch_bounds__(kGgThreads, 1)
 gg_sm90_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
-               GgProblem p) {
+               GgProblem<T> p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -237,24 +241,25 @@ gg_sm90_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
   // one branch per role, never rejoined (setmaxnreg needs it)
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(40));
-    if (threadIdx.x == 0) gg_produce<kTrans>(&amap, &bmap, p, smem, full, empty);
+    if (threadIdx.x == 0) gg_produce<T, kTrans>(&amap, &bmap, p, smem, full, empty);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(232));
-    gg_consume<kTrans>(p, threadIdx.x / 128 - 1, smem, full, empty);
+    gg_consume<T, kTrans>(p, threadIdx.x / 128 - 1, smem, full, empty);
   }
 }
 
-// lhs [E * R, K] and rhs [E, K, N] (trans = false) or [E, N, K] (true), bf16,
+// lhs [E * R, K] and rhs [E, K, N] (trans = false) or [E, N, K] (true), of T,
 // contiguous, 16-byte aligned, K and N multiples of 8 (the wrapper pads);
-// out [E * R, N] bf16; sizes [E] int32 on the device.
+// out [E * R, N] of T; sizes [E] int32 on the device.
+template <class T>
 cudaError_t launch_gg(const void* lhs, const void* rhs, const int* sizes, void* out, int E, int R,
                       int K, int N, bool trans, cudaStream_t st) {
   if (K % 8 || N % 8) return cudaErrorInvalidValue;
   CUtensorMap amap, bmap;
-  cudaError_t err = encode(&amap, lhs, E, R, 1, K, Strides{(long long)R * K, K, K}, kGgRows);
+  cudaError_t err = encode<T>(&amap, lhs, E, R, 1, K, Strides{(long long)R * K, K, K}, kGgRows);
   if (err == cudaSuccess)
-    err = trans ? encode(&bmap, rhs, E, N, 1, K, Strides{(long long)N * K, K, K}, kGgCols)
-                : encode(&bmap, rhs, E, K, 1, N, Strides{(long long)K * N, N, N}, kGgDepth);
+    err = trans ? encode<T>(&bmap, rhs, E, N, 1, K, Strides{(long long)N * K, K, K}, kGgCols)
+                : encode<T>(&bmap, rhs, E, K, 1, N, Strides{(long long)K * N, N, N}, kGgDepth);
   if (err != cudaSuccess) return err;
   const int row_tiles = (R + kGgRows - 1) / kGgRows, col_tiles = (N + kGgCols - 1) / kGgCols;
   const long long tiles = (long long)E * row_tiles * col_tiles;
@@ -263,10 +268,10 @@ cudaError_t launch_gg(const void* lhs, const void* rhs, const int* sizes, void* 
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const GgProblem p{sizes, static_cast<bf16*>(out), R, K, N, row_tiles, col_tiles, (int)tiles};
+  const GgProblem<T> p{sizes, static_cast<T*>(out), R, K, N, row_tiles, col_tiles, (int)tiles};
   const dim3 grid(static_cast<unsigned>(tiles < sms ? tiles : sms));
-  return trans ? launch(gg_sm90_kernel<true>, grid, kGgThreads, kGgSmem, st, amap, bmap, p)
-               : launch(gg_sm90_kernel<false>, grid, kGgThreads, kGgSmem, st, amap, bmap, p);
+  return trans ? launch(gg_sm90_kernel<T, true>, grid, kGgThreads, kGgSmem, st, amap, bmap, p)
+               : launch(gg_sm90_kernel<T, false>, grid, kGgThreads, kGgSmem, st, amap, bmap, p);
 }
 
 }  // namespace sm90

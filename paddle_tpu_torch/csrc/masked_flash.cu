@@ -17,7 +17,7 @@
 // no key gets zeros and LSE = +inf (the JAX kernel gives -1e30 there; its
 // recomputed P is 0 either way), so its gradients are exactly 0.
 //
-// bfloat16 runs the Hopper kernels under the mask policy `FlashMask`
+// bfloat16 and float16 run the Hopper kernels under the mask policy `FlashMask`
 // below: the forward of flash_fwd_sm90.cuh, the dQ and dK/dV of
 // flash_bwd_sm90.cuh (wgmma fed by TMA). float32 runs the CUDA-core tile
 // kernels of flash_tiles.cuh. Bound at the LLaMA-7B-shape training step
@@ -127,11 +127,11 @@ FlashMask sm90_mask(const void* idx, const void* cls, int Hm, int n, int Sq, int
 
 }  // namespace
 
-// q [B, Sq, H, D], k/v [B, Skv, Hkv, D] in one dtype (float32 or bfloat16)
+// q [B, Sq, H, D], k/v [B, Skv, Hkv, D] in one dtype (float32, bfloat16 or float16)
 // with unit d stride and D <= 192; `strides` holds 12 element strides:
 // (b, s, h) of q, k, v and dO (here a copy of q's). idx [B, Hm, n, Skv]
 // int32 contiguous, H a multiple of Hm, n 1 or 2 when causal, 2 or 4
-// otherwise. bfloat16 runs the sm90 kernel (q, k, v as run_fwd_sm90 takes
+// otherwise. bfloat16 and float16 run the sm90 kernel (q, k, v as run_fwd_sm90 takes
 // them) and reads cls [B, Hm, ceil(Sq / 128), ceil(Skv / 128)] uint8
 // contiguous, the `TileClass` of each tile (float32 ignores it). out
 // [B, Sq, H, D] contiguous in q's dtype; lse [B, H, Sq] f32. Returns
@@ -145,17 +145,17 @@ extern "C" int ptt_flashmask_fwd(const void* q, const void* k, const void* v, co
   if (!supported(dtype) || !mask_ok(Hm, H, n, causal)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  nullptr);
-  if (dtype == ptt::kBF16) {
+  if (dtype != ptt::kF32) {
     if (cls == nullptr) return cudaErrorInvalidValue;
-    return run_fwd_sm90(p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, out, lse, stream);
+    return run_fwd_sm90(dtype, p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, out, lse, stream);
   }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
   return run_fwd_f32(p, m, q, k, v, out, lse, stream);
 }
 
 // As ptt_flashmask_fwd, plus dout (strided like q, strides 9..11; in
-// bfloat16 as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O)
-// [B, H, Sq] f32, and (bfloat16) the forward's tile classes cls; writes dq
+// 16 bits as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O)
+// [B, H, Sq] f32, and (16-bit) the forward's tile classes cls; writes dq
 // [B, Sq, H, D] contiguous in q's dtype.
 extern "C" int ptt_flashmask_bwd_dq(const void* q, const void* k, const void* v,
                                     const void* idx, const void* cls, const void* dout,
@@ -166,16 +166,16 @@ extern "C" int ptt_flashmask_bwd_dq(const void* q, const void* k, const void* v,
   if (!supported(dtype) || !mask_ok(Hm, H, n, causal)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
-  if (dtype == ptt::kBF16) {
+  if (dtype != ptt::kF32) {
     if (cls == nullptr) return cudaErrorInvalidValue;
-    return run_bwd_sm90(p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, dout, lse, delta, dq,
+    return run_bwd_sm90(dtype, p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, dout, lse, delta, dq,
                         nullptr, nullptr, stream);
   }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};
   return run_dq(dtype, p, m, q, k, v, dout, lse, delta, dq, stream);
 }
 
-// As ptt_flashmask_bwd_dq; writes dk, dv contiguous f32: in bfloat16 the
+// As ptt_flashmask_bwd_dq; writes dk, dv contiguous f32: in 16 bits the
 // kv heads' gradients [B, Skv, Hkv, D], in float32 one slice per query
 // head [B, Skv, H, D] (the caller sums the g heads of a kv head).
 extern "C" int ptt_flashmask_bwd_dkv(const void* q, const void* k, const void* v,
@@ -187,9 +187,9 @@ extern "C" int ptt_flashmask_bwd_dkv(const void* q, const void* k, const void* v
   if (!supported(dtype) || !mask_ok(Hm, H, n, causal)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, B, H, Hkv, Sq, Skv, D, scale, causal, strides, q, k, v,
                                  dout);
-  if (dtype == ptt::kBF16) {
+  if (dtype != ptt::kF32) {
     if (cls == nullptr) return cudaErrorInvalidValue;
-    return run_bwd_sm90(p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, dout, lse, delta,
+    return run_bwd_sm90(dtype, p, sm90_mask(idx, cls, Hm, n, Sq, Skv), q, k, v, dout, lse, delta,
                         nullptr, dk, dv, stream);
   }
   const FlashMask m{static_cast<const int*>(idx), Hm, n};

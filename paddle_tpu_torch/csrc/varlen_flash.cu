@@ -21,7 +21,7 @@
 // Packed [T, H, D] is the B = 1 case of the kernels' [B, S, H, D]
 // strides, so the kernels are the port's shared attention kernels under
 // the policy `Varlen` below. Which kernel runs which dtype:
-//   - bfloat16: the forward of flash_fwd_sm90.cuh and the dQ and dK/dV of
+//   - bfloat16 and float16: the forward of flash_fwd_sm90.cuh and the dQ and dK/dV of
 //     flash_bwd_sm90.cuh (wgmma fed by TMA, 128 x 128 tiles; the [1, T, H,
 //     D] view is a 4-d tensor map, so nothing is copied); dK/dV come out
 //     as the kv heads' f32 [Tk, Hkv, D];
@@ -238,11 +238,11 @@ extern "C" int ptt_varlen_tile_classes(const void* kinfo, void* cls, int Tq, int
   return launch_classes(kinfo, cls, Tq, Tk, causal, static_cast<cudaStream_t>(stream));
 }
 
-// q [Tq, H, D], k/v [Tk, Hkv, D] in one dtype (float32 or bfloat16) with
+// q [Tq, H, D], k/v [Tk, Hkv, D] in one dtype (float32, bfloat16 or float16) with
 // unit d stride and D <= 192; `strides` holds 12 element strides: (b, s, h)
 // of q, k, v and dO (here a copy of q's), b unused (B = 1). kinfo [3, Tk],
 // qrange [2, ceil(Tq / 64)] and krange [2, ceil(Tk / 64)] int32 contiguous
-// (see `Varlen`). bfloat16 writes the tile classes into cls
+// (see `Varlen`). bfloat16 and float16 write the tile classes into cls
 // [ceil(Tq / 128), ceil(Tk / 128)] uint8 contiguous (as
 // ptt_varlen_tile_classes) and runs the sm90 forward on them (q, k, v as
 // run_fwd_sm90 takes them); float32 ignores cls. out
@@ -257,20 +257,20 @@ extern "C" int ptt_varlen_fwd(const void* q, const void* k, const void* v, const
   if (!supported(dtype)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, 1, H, Hkv, Tq, Tk, D, scale, causal, strides, q, k, v,
                                  nullptr);
-  if (dtype == ptt::kBF16) {
+  if (dtype != ptt::kF32) {
     if (cls == nullptr) return cudaErrorInvalidValue;
     const cudaError_t err = launch_classes(kinfo, cls, Tq, Tk, causal,
                                            static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
-    return run_fwd_sm90(p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls), q, k, v, out, lse,
+    return run_fwd_sm90(dtype, p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls), q, k, v, out, lse,
                         stream);
   }
   return run_fwd_f32(p, make_varlen(kinfo, qrange, krange, Tq, Tk), q, k, v, out, lse, stream);
 }
 
 // As ptt_varlen_fwd, plus dout (strided like q, strides 9..11; in
-// bfloat16 as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O)
-// [H, Tq] f32, and (bfloat16) the forward's tile classes cls
+// 16 bits as run_fwd_sm90 takes q), lse and delta = rowsum(dO * O)
+// [H, Tq] f32, and (16-bit) the forward's tile classes cls
 // [ceil(Tq / 128), ceil(Tk / 128)] uint8 contiguous; writes dq
 // [Tq, H, D] contiguous in q's dtype.
 extern "C" int ptt_varlen_bwd_dq(const void* q, const void* k, const void* v,
@@ -282,19 +282,19 @@ extern "C" int ptt_varlen_bwd_dq(const void* q, const void* k, const void* v,
   if (!supported(dtype)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, 1, H, Hkv, Tq, Tk, D, scale, causal, strides, q, k, v,
                                  dout);
-  if (dtype == ptt::kBF16) {
+  if (dtype != ptt::kF32) {
     if (cls == nullptr) return cudaErrorInvalidValue;
-    return run_bwd_sm90(p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls), q, k, v, dout, lse,
+    return run_bwd_sm90(dtype, p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls), q, k, v, dout, lse,
                         delta, dq, nullptr, nullptr, stream);
   }
   return run_dq(dtype, p, make_varlen(kinfo, qrange, krange, Tq, Tk), q, k, v, dout, lse,
                 delta, dq, stream);
 }
 
-// As ptt_varlen_bwd_dq, plus (bfloat16) order, an int32 [ceil(Tk / 128)]
+// As ptt_varlen_bwd_dq, plus (16-bit) order, an int32 [ceil(Tk / 128)]
 // workspace the entry fills with the dK/dV CTAs' order
 // (`varlen_dkv_order_kernel`) before the dK/dV kernel reads it; writes dk,
-// dv contiguous f32: in bfloat16 the kv heads' gradients [Tk, Hkv, D], in
+// dv contiguous f32: in 16 bits the kv heads' gradients [Tk, Hkv, D], in
 // float32 one slice per query head [Tk, H, D] (the caller sums the g heads
 // of a kv head).
 extern "C" int ptt_varlen_bwd_dkv(const void* q, const void* k, const void* v,
@@ -306,7 +306,7 @@ extern "C" int ptt_varlen_bwd_dkv(const void* q, const void* k, const void* v,
   if (!supported(dtype)) return cudaErrorInvalidValue;
   const Problem p = make_problem(dtype, 1, H, Hkv, Tq, Tk, D, scale, causal, strides, q, k, v,
                                  dout);
-  if (dtype == ptt::kBF16) {
+  if (dtype != ptt::kF32) {
     if (cls == nullptr || order == nullptr) return cudaErrorInvalidValue;
     const int n_qt = (Tq + sm90::kBM - 1) / sm90::kBM, n_ct = (Tk + sm90::kBN - 1) / sm90::kBN;
     const cudaError_t err = launch(varlen_dkv_order_kernel, dim3(1), kOrderThreads,
@@ -314,7 +314,7 @@ extern "C" int ptt_varlen_bwd_dkv(const void* q, const void* k, const void* v,
                                    static_cast<const uint8_t*>(cls), static_cast<int*>(order),
                                    n_qt, n_ct);
     if (err != cudaSuccess) return err;
-    return run_bwd_sm90(p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls, order), q, k, v,
+    return run_bwd_sm90(dtype, p, make_varlen(kinfo, qrange, krange, Tq, Tk, cls, order), q, k, v,
                         dout, lse, delta, nullptr, dk, dv, stream);
   }
   return run_dkv(dtype, p, make_varlen(kinfo, qrange, krange, Tq, Tk), q, k, v, dout, lse,

@@ -13,8 +13,14 @@ compiled 1F1B schedule and falls back to a sequential loop over the
 microbatches for any other (:61-208); the port's schedules pass what a
 stage sends with its shapes, so every model takes them, uniform or not,
 and the result is the sequential loop's. `accumulate_steps` is read and,
-as in the reference, not used. A loss scaler is not ported (the port has
-no `amp.GradScaler`).
+as in the reference, not used. With a `scaler` (`amp.GradScaler`) each
+microbatch's loss is scaled before its backward, as the reference's
+sequential loop does (:251-258), and `scaler.step` / `scaler.update`
+take the optimizer's step; the returned loss is unscaled. Each rank's
+scaler checks only the gradients it holds (its stage's, and of a layer cut
+over mp its own shard's), so the inf flag is summed first over every rank
+of the hybrid group (pp, mp and batch ranks; the pp group alone without a
+topology): every rank skips, or every rank steps.
 
 Given the topology (`fleet.distributed_model` passes it), the wrapper
 also does what `TensorParallel` does beside it: it cuts the layer's
@@ -60,6 +66,10 @@ class PipelineParallel(nn.Module):
         self.accumulate_steps = pp_cfg.get("accumulate_steps", 1)
         self.schedule_mode = pp_cfg.get("schedule_mode", "1F1B")
         self._batch = None
+        # where the scaler's inf flag is summed: the world is the topology's
+        self._inf_groups = ([None] if hcg is not None else
+                            [layers._pp_group] if layers._pp_group is not None
+                            else [])
         if hcg is not None:
             cut_over_mp(layers, hcg)
             self._batch = g = hcg.get_dp_sharding_parallel_group()
@@ -78,16 +88,14 @@ class PipelineParallel(nn.Module):
         return microbatch(x, max(total // mbs, 1))
 
     def train_batch(self, data, optimizer, lr_scheduler=None, scaler=None):
-        if scaler is not None:
-            raise NotImplementedError("a loss scaler: the port has no "
-                                      "amp.GradScaler")
         pl = self._layers
         x, y = (_tensor(a) for a in data)
         xs, ys = self._microbatches(x), self._microbatches(y)
         group = pl._pp_group
 
         def loss_fn(out, m):
-            return pl._loss_fn(out, ys[m])
+            loss = pl._loss_fn(out, ys[m])
+            return loss if scaler is None else scaler.scale(loss)
 
         if self.schedule_mode.upper() == "1F1B":
             loss = pipeline_1f1b(lambda xm, m: pl(xm), loss_fn, xs,
@@ -100,11 +108,24 @@ class PipelineParallel(nn.Module):
             loss = loss.detach()
         self._reduce_shared()
         loss = self._average(loss, grads=True)
-        optimizer.step()
+        if scaler is None:
+            optimizer.step()
+        else:
+            if scaler.is_enable():
+                loss = loss / scaler.get_init_loss_scaling()
+            self._scaler_step(scaler, optimizer)
         optimizer.clear_grad()
         if lr_scheduler is not None:
             lr_scheduler.step()
         return loss
+
+    def _scaler_step(self, scaler, optimizer):
+        """scaler.step and scaler.update with the inf flag of every rank
+        that holds a piece of the model."""
+        scaler.unscale_(optimizer)
+        scaler._reduce_found_inf(optimizer, self._inf_groups)
+        scaler.step(optimizer)
+        scaler.update()
 
     def _reduce_shared(self):
         """Each shared layer's gradient summed over the stages (a stage that

@@ -9,7 +9,8 @@ import torch
 from ... import amp
 from ...framework import random
 
-__all__ = ["gelu", "gumbel_softmax", "relu", "rrelu", "silu", "tanh"]
+__all__ = ["gelu", "gumbel_softmax", "log_softmax", "relu", "rrelu", "silu",
+           "softmax", "tanh"]
 
 
 def gelu(x, approximate=False, name=None):
@@ -17,6 +18,19 @@ def gelu(x, approximate=False, name=None):
     Casts for AMP as the op "gelu"."""
     (x,) = amp.cast_inputs("gelu", x)
     return torch.nn.functional.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    """The softmax over `axis` (of x cast to `dtype` first, where given).
+    Casts for AMP as the op "softmax" (black list: float32)."""
+    (x,) = amp.cast_inputs("softmax", x)
+    return torch.softmax(x if dtype is None else x.to(dtype), dim=axis)
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    """log(softmax(x)) over `axis`, as `softmax`; the op "log_softmax"."""
+    (x,) = amp.cast_inputs("log_softmax", x)
+    return torch.log_softmax(x if dtype is None else x.to(dtype), dim=axis)
 
 
 def relu(x, name=None):

@@ -1,13 +1,31 @@
 """Loss functionals (↔ paddle_tpu/nn/functional/loss.py).
 
-Of `cross_entropy` the hot path is ported: hard integer labels over the
-last axis, softmax on, no class weights, no label smoothing, with
-`ignore_index` rows contributing 0 and the mean taken over the valid rows
-(JAX `loss.py:175-190`). Its gradient is `SparseCrossEntropy` (↔
+`cross_entropy` (JAX `loss.py:136-215`) has two routes. The hot path, hard
+integer labels over the last axis with the softmax on, no class weights
+and no label smoothing, with `ignore_index` rows contributing 0 and the
+mean taken over the valid rows (:175-190), runs `SparseCrossEntropy` (↔
 `_sparse_ce` :96-133), which saves only the logits and the f32 row
 log-sum-exp and recomputes the softmax in the backward, so the f32
-log-probs of a [B, S, vocab] logits tensor are never kept. The other modes
-raise NotImplementedError naming their ROADMAP item.
+log-probs of a [B, S, vocab] logits tensor are never kept. Every other mode
+is the reference's composite in f32 torch ops: class `weight` (the mean
+divides by the valid rows' weights, which is also the count it notes for
+a sharded step), `soft_label` (a distribution over the classes; its weight
+is sum(label * weight); a plain mean), `label_smoothing`,
+`use_softmax=False` (the input is taken as probabilities: log of it
+clipped at 1e-30) and any class `axis`. `softmax_with_cross_entropy`
+(:216) is its reduction "none" with the class axis kept, and the softmax
+with `return_softmax`.
+
+`sigmoid_focal_loss` (:449, an optional `normalizer` dividing every term),
+`hsigmoid_loss` (:468: the default heap tree, or a custom `path_table` /
+`path_code`, -1 padded), `margin_cross_entropy` (:527: the ArcFace-family
+margins; over an mp `group` the logits are this rank's class shard and the
+row max, the exp sum and the target logit reduce over the group, the sum
+and the target through `collective.mp_allreduce` so the gradient flows)
+and `class_center_sample` (:35: host-side, a data-dependent set; over a
+group the ranks' labels are gathered so every rank keeps the positives of
+its shard, and the negatives are drawn from the port's generator,
+`framework.random`) are the reference's.
 
 The elementwise losses (:229-395: `mse_loss`, `l1_loss`, `nll_loss`,
 `binary_cross_entropy(_with_logits)`, `smooth_l1_loss`, `kl_div`,
@@ -33,17 +51,21 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 
 import torch
 
 from ... import amp
 
 __all__ = ["SparseCrossEntropy", "binary_cross_entropy",
-           "binary_cross_entropy_with_logits", "cosine_embedding_loss",
-           "cross_entropy", "ctc_loss", "hinge_embedding_loss", "kl_div",
-           "l1_loss", "log_loss", "margin_ranking_loss", "mse_loss",
-           "nll_loss", "note_reduction", "record_reductions",
-           "smooth_l1_loss", "square_error_cost", "triplet_margin_loss"]
+           "binary_cross_entropy_with_logits", "class_center_sample",
+           "cosine_embedding_loss", "cross_entropy", "ctc_loss",
+           "hinge_embedding_loss", "hsigmoid_loss", "kl_div", "l1_loss",
+           "log_loss", "margin_cross_entropy", "margin_ranking_loss",
+           "mse_loss", "nll_loss", "note_reduction", "record_reductions",
+           "sigmoid_focal_loss", "smooth_l1_loss",
+           "softmax_with_cross_entropy", "square_error_cost",
+           "triplet_margin_loss"]
 
 # the list that the innermost record_reductions opened, else None
 _NOTES = contextvars.ContextVar("loss_reductions", default=None)
@@ -97,18 +119,21 @@ class SparseCrossEntropy(torch.autograd.Function):
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
-    """Softmax cross entropy of logits `input` [..., C] against integer
-    labels [...] (or [..., 1]). reduction: "mean" (over rows whose label is
-    not `ignore_index`), "sum" or "none". Casts for AMP as the op
-    "cross_entropy" (black list: float32)."""
-    if (weight is not None or soft_label or not use_softmax or label_smoothing
-            or axis not in (-1, input.dim() - 1)):
-        raise NotImplementedError(
-            "cross_entropy with class weights, soft labels, label smoothing, "
-            "use_softmax=False or a class axis other than the last is ported "
-            "with ROADMAP queue A item 4")
+    """Softmax cross entropy of logits `input` [..., C, ...] (classes on
+    `axis`) against integer labels (the input's shape without the class
+    axis, or with it of size 1) or, with `soft_label`, a distribution like
+    the input. reduction: "mean" (over rows whose label is not
+    `ignore_index`; with `weight`, divided by their weights' sum), "sum"
+    or "none". Casts for AMP as the op "cross_entropy" (black list:
+    float32)."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
+    hot = (weight is None and not soft_label and use_softmax
+           and not label_smoothing and axis in (-1, input.dim() - 1))
+    if not hot:
+        return _cross_entropy_composite(input, label, weight, ignore_index,
+                                        reduction, soft_label, axis,
+                                        use_softmax, label_smoothing)
     (logits,) = amp.cast_inputs("cross_entropy", input)
     ids = label.long()
     if ids.dim() == logits.dim() and ids.shape[-1] == 1:
@@ -124,6 +149,68 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     if reduction == "sum":
         note_reduction("sum")
         return loss.sum()
+    return loss
+
+
+def _cross_entropy_composite(input, label, weight, ignore_index, reduction,  # noqa: A002
+                             soft_label, axis, use_softmax, label_smoothing):
+    """The reference's composite route of `cross_entropy` (:155-215), in
+    f32."""
+    logits, label, weight = amp.cast_inputs("cross_entropy", input, label,
+                                            weight)
+    axis = axis % logits.dim()
+    lf = logits.float()
+    logp = (torch.log_softmax(lf, dim=axis) if use_softmax
+            else torch.log(lf.clamp(min=1e-30)))
+    k = logits.shape[axis]
+    if soft_label:
+        tgt = label.float()
+        if label_smoothing > 0:
+            tgt = (1 - label_smoothing) * tgt + label_smoothing / k
+        loss = -(tgt * logp).sum(axis)
+        if weight is not None:
+            w = weight.float().reshape([-1 if d == axis else 1
+                                        for d in range(logp.dim())])
+            loss = loss * (tgt * w).sum(axis)
+        return _reduce(loss, reduction)
+    ids = label.long()
+    if ids.dim() == logits.dim() and ids.shape[axis] == 1:
+        ids = ids.squeeze(axis)
+    valid = ids != ignore_index
+    safe = torch.where(valid, ids, torch.zeros_like(ids))
+    picked = logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    if label_smoothing > 0:
+        loss = -((1 - label_smoothing) * picked
+                 + label_smoothing * logp.mean(axis))
+    else:
+        loss = -picked
+    if weight is not None:
+        sample_w = weight.float()[safe] * valid.float()
+        loss = loss * sample_w
+        if reduction == "mean":
+            total = sample_w.sum()
+            note_reduction("mean", total, total.clamp(min=1e-12))
+            return loss.sum() / total.clamp(min=1e-12)
+    loss = torch.where(valid, loss, torch.zeros((), device=loss.device))
+    if reduction == "mean":
+        count = valid.float().sum()
+        note_reduction("mean", count, count.clamp(min=1.0))
+        return loss.sum() / count.clamp(min=1.0)
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """`cross_entropy` with reduction "none", the class axis kept (size 1);
+    with `return_softmax` also the softmax of the logits over `axis` (the
+    reference :216)."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis).unsqueeze(axis)
+    if return_softmax:
+        from .activation import softmax
+        return loss, softmax(logits, axis=axis)
     return loss
 
 
@@ -272,3 +359,162 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
     raise NotImplementedError(
         "ctc_loss (the reference's lax.scan forward algorithm) is ported with "
         "ROADMAP queue A item 8")
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    """alpha_t (1 - p_t)^gamma BCE(logit, label) (the reference :449), each
+    term divided by `normalizer` where given."""
+    z, y, n = amp.cast_inputs("sigmoid_focal_loss", logit, label, normalizer)
+    p = torch.sigmoid(z)
+    ce = (torch.nn.functional.softplus(-z) * y
+          + torch.nn.functional.softplus(z) * (1 - y))
+    p_t = p * y + (1 - p) * (1 - y)
+    a_t = alpha * y + (1 - alpha) * (1 - y)
+    loss = a_t * torch.pow(1 - p_t, gamma) * ce
+    if n is not None:
+        loss = loss / n
+    return _reduce(loss, reduction)
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,  # noqa: A002
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid loss [N, 1] (the reference :468): the sum over
+    a path of internal nodes of softplus(logit) - code * logit, logit =
+    x . w[node] (+ b[node]). The default tree is the complete binary tree
+    in heap order: class l is leaf l + C, its path the ancestors
+    (l + C) >> d down from the root, node n reading row n - 1, the code the
+    next bit of l + C. A custom tree gives the rows `path_table` [N, L] and
+    the codes `path_code` [N, L], -1 padded."""
+    x, w, b = amp.cast_inputs("hsigmoid_loss", input, weight, bias)
+    if path_table is not None:
+        pt = path_table.long()
+        valid = (pt >= 0).to(x.dtype)
+        rows = pt.clamp(0, w.shape[0] - 1)
+        code = path_code.to(x.dtype)
+    else:
+        C = int(num_classes)
+        depth = max(int(math.ceil(math.log2(max(C, 2)))), 1)
+        heap = label.reshape(-1).long() + C
+        ks = torch.arange(depth, 0, -1, device=heap.device)
+        anc = heap[:, None] >> ks[None, :]  # ancestors, root first
+        valid = (anc >= 1).to(x.dtype)
+        code = ((heap[:, None] >> (ks[None, :] - 1)) & 1).to(x.dtype)
+        rows = (anc - 1).clamp(0, w.shape[0] - 1)
+    logit = torch.einsum("nd,nld->nl", x, w[rows])
+    if b is not None:
+        logit = logit + b[rows].reshape(logit.shape)
+    per = (torch.nn.functional.softplus(logit) - code * logit) * valid
+    return per.sum(-1, keepdim=True)
+
+
+def _group_place(group):
+    """(ranks, this rank's index) of an mp `group` (a `collective.Group`),
+    or (1, 0) without one."""
+    if group is None or group is False or isinstance(group, bool):
+        return 1, 0
+    from ...distributed import env
+
+    return group.nranks, group.ranks.index(env.get_rank())
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """The ArcFace-family margin softmax cross entropy (the reference
+    :527): the true class's cosine cos(theta) becomes
+    cos(m1 theta + m2) - m3, every logit is scaled by `scale`, and the loss
+    is [N, 1] of lse - the target logit (reduced by `reduction`: "mean",
+    "sum" or None). Over an mp `group` `logits` is this rank's class shard
+    [N, C / n] (classes [rank C / n, ...)): the softmax's row max, exp sum
+    and the target logit reduce over the group, the reference's three
+    collectives; the softmax returned is this rank's shard."""
+    from ...distributed import collective as C
+
+    nranks, rank = _group_place(group)
+    c_local = logits.shape[1]
+    offset = rank * c_local
+    lab = label.reshape(-1).long()
+    local = (lab >= offset) & (lab < offset + c_local)
+    idx = (lab - offset).clamp(0, c_local - 1)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    target = logits[rows, idx]
+    theta = torch.acos(target.clamp(-1.0, 1.0))
+    modified = torch.cos(margin1 * theta + margin2) - margin3
+    onehot = torch.zeros_like(logits, dtype=torch.bool)
+    onehot[rows, idx] = local
+    scaled = torch.where(onehot, modified[:, None], logits) * scale
+    if nranks > 1:
+        pg = group.process_group
+        mx = scaled.detach().amax(1, keepdim=True)
+        C._all_reduce(mx, pg, op=torch.distributed.ReduceOp.MAX)
+        e = torch.exp(scaled - mx)
+        ssum = C.mp_allreduce(e.sum(1, keepdim=True), pg)
+        softmax = e / ssum
+        tlogit = C.mp_allreduce(
+            torch.where(local, scaled[rows, idx],
+                        torch.zeros((), dtype=scaled.dtype,
+                                    device=scaled.device)), pg)
+        loss = (torch.log(ssum).reshape(-1) + mx.reshape(-1)
+                - tlogit).reshape(-1, 1)
+    else:
+        loss = (torch.logsumexp(scaled, 1)
+                - scaled[rows, lab]).reshape(-1, 1)
+        softmax = torch.softmax(scaled, 1)
+    if reduction == "mean":
+        note_reduction("mean", float(loss.numel()), float(max(loss.numel(), 1)))
+        loss = loss.mean()
+    elif reduction == "sum":
+        note_reduction("sum")
+        loss = loss.sum()
+    elif reduction is not None:
+        raise ValueError(f"unknown reduction {reduction!r}")
+    if return_softmax:
+        return loss, softmax
+    return loss
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    """PartialFC class-center sampling (the reference :35): (the labels
+    remapped into the sampled centers' index space, the sampled centers of
+    this rank's shard of `num_classes`). Every positive center of the shard
+    is kept; negatives drawn uniformly from the rest (the port's generator,
+    `framework.random.generator`) fill the set up to `num_samples`.
+    Host-side: the set's size depends on the data. Over an mp `group` the
+    ranks' labels are gathered first, so each rank keeps the positives of
+    its own shard of every rank's labels, and a label outside this rank's
+    shard is kept as it is."""
+    import numpy as np
+
+    from ...framework import random as _random
+
+    lab = label.detach().reshape(-1).long().cpu().numpy()
+    nranks, rank = _group_place(group)
+    all_lab = lab
+    if nranks > 1:
+        from ...distributed import collective as C
+
+        gathered = []
+        C.all_gather_object(gathered, lab.tolist(), group)
+        all_lab = np.asarray(sorted({v for part in gathered for v in part}),
+                             np.int64)
+    per = num_classes
+    offset = rank * per if nranks > 1 else 0
+    in_shard = (all_lab >= offset) & (all_lab < offset + per)
+    pos = np.unique(all_lab[in_shard] - offset)
+    if len(pos) >= num_samples:
+        sampled = pos
+    else:
+        pool = torch.as_tensor(np.setdiff1d(np.arange(per), pos,
+                                            assume_unique=True))
+        draw = torch.randperm(len(pool), generator=_random.generator("cpu"))
+        extra = pool[draw[:num_samples - len(pos)]].numpy()
+        sampled = np.concatenate([pos, np.sort(extra)])
+    remap = np.full(per, -1, np.int64)
+    remap[sampled] = np.arange(len(sampled))
+    own = (lab >= offset) & (lab < offset + per)
+    new_label = np.where(own, remap[np.clip(lab - offset, 0, per - 1)], lab)
+    dev = label.device
+    return (torch.as_tensor(new_label, dtype=torch.int64, device=dev),
+            torch.as_tensor(sampled.astype(np.int64), device=dev))

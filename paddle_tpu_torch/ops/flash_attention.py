@@ -9,14 +9,14 @@ recomputes the probabilities from it. Three kernels, each beside its plain
 version and its launch counter:
 
 - `flash_fwd` → (O, LSE): on CUDA tensors `csrc/flash_attention.cu`'s
-  forward, in bf16 the wgmma kernel of `csrc/flash_fwd_sm90.cuh` (q, k and
+  forward, in bf16 and f16 the wgmma kernel of `csrc/flash_fwd_sm90.cuh` (q, k and
   v through `tma_operands`), in f32 `flash_fwd_kernel`; `flash_fwd_plain`
   on CPU tensors; `FWD_LAUNCHES`;
-- `flash_bwd_dq` → dQ in q's dtype: in bf16 the wgmma kernel of
+- `flash_bwd_dq` → dQ in q's dtype: in bf16 and f16 the wgmma kernel of
   `csrc/flash_bwd_sm90.cuh`, in f32 `flash_dq_kernel`;
   `flash_bwd_dq_plain`; `DQ_LAUNCHES`;
 - `flash_bwd_dkv` → dK, dV of the kv heads in f32, the g query heads of a
-  kv head summed as `_bwd` does with jnp: in bf16 `flash_bwd_sm90.cuh`'s
+  kv head summed as `_bwd` does with jnp: in 16 bits `flash_bwd_sm90.cuh`'s
   kernel writes them as they are, in f32 `flash_dkv_kernel` writes one
   slice per query head, which torch sums; `flash_bwd_dkv_plain`;
   `DKV_LAUNCHES`. The backward casts them to k's dtype.
@@ -37,15 +37,18 @@ Semantics, shared by the kernels and the plain versions:
   -1e30, i.e. a running max at or below -5e29) gives zeros, never NaN and
   never the mean of V, and LSE = +inf, so the backward gives it exactly
   zero gradient: what the JAX default's l == 0 guard gives.
-- f32 inputs compute in full f32 (the CUDA-core kernels). bf16 inputs
-  run the tensor-core kernels: products of bf16 operands accumulated in
-  f32, with the probabilities and dS rounded to bf16 before they enter the
-  next product (as the JAX kernel casts p and ds to the operand type) and
-  the softmax statistics in f32.
+- f32 inputs compute in full f32 (the CUDA-core kernels). bf16 and f16
+  inputs (`HALF`) run the tensor-core kernels, one source for both types:
+  products of 16-bit operands accumulated in f32, with the probabilities
+  and dS rounded to the input's type before they enter the next product
+  (as the JAX kernel casts p and ds to the operand type) and the softmax
+  statistics in f32. In f16 a value past 65504 (dS or dQ under a large
+  loss scale) becomes inf, as in the JAX kernel, and reaches the
+  GradScaler: nothing is clamped.
 - Head dims up to MAX_HEAD_DIM = 192: the kernels' tiles are 64, 128 or
   192 columns wide (one, two or three 64-column panels, zero-filled past
   D); a wider head raises on the card. The plain versions take any D.
-- The bf16 kernels read q, k, v (and the backward dO) through TMA tensor
+- The 16-bit kernels read q, k, v (and the backward dO) through TMA tensor
   maps, which take a view whose base is 16-byte aligned, whose head dim is
   a multiple of 8 and whose strides are multiples of 16 bytes;
   `tma_operands` passes such views as they are (a fused qkv's slices too)
@@ -68,6 +71,7 @@ __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES", "FlashAttention",
 NEG_INF = -1e30  # paddle_tpu/ops/pallas/flash_attention.py NEG_INF
 EMPTY = -5e29    # a row whose largest logit is at or below this saw no key
 MAX_HEAD_DIM = 192  # three 64-column panels (csrc kMaxHeadDim)
+HALF = (torch.bfloat16, torch.float16)  # the sm90 kernels' operand types
 
 # kernel launches since import (or since a caller reset them)
 FWD_LAUNCHES = 0
@@ -206,7 +210,7 @@ def _check(q, k, v, key_bias):
                          "kv heads")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash attention: q, k and v must share one dtype")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype != torch.float32 and q.dtype not in HALF:
         raise TypeError(f"flash attention: unsupported dtype {q.dtype}")
     for t in (k, v, key_bias):
         if t is not None and t.device != q.device:
@@ -266,7 +270,7 @@ def _tma_ready(t):
 
 def tma_operands(*ts):
     """(*ts, D): the [B, S, H, D] operands (q, k, v; the backward adds dO)
-    as the bf16 sm90 kernels take them. Views a TMA map describes pass as
+    as the 16-bit sm90 kernels take them. Views a TMA map describes pass as
     they are (a slice of a fused qkv, say); any other becomes a contiguous
     copy. When the head dim is not a multiple of 8, all become contiguous
     copies with D zero-padded to the next multiple of 8 (returned): zero
@@ -281,10 +285,10 @@ def tma_operands(*ts):
 
 
 def _fwd_operands(q, k, v, key_bias):
-    """(q, k, v, key bias, strides, D) of a forward launch: bf16 through
+    """(q, k, v, key bias, strides, D) of a forward launch: 16 bits through
     `tma_operands` (D the head dim the kernel sees), f32 as
     `_cuda_operands` gives them."""
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in HALF:
         q, k, v, kb, _, strides = _cuda_operands(q, k, v, key_bias)
         return q, k, v, kb, strides, q.shape[-1]
     _device_checks(q)
@@ -294,11 +298,11 @@ def _fwd_operands(q, k, v, key_bias):
 
 
 def _bwd_operands(q, k, v, dout):
-    """(q, k, v, dout, strides, D) of a backward launch: bf16 through
+    """(q, k, v, dout, strides, D) of a backward launch: 16 bits through
     `tma_operands` (D the head dim the kernels see), f32 with a unit
     head-dim stride. Pure tensor logic: it runs on any device."""
     dout = dout.to(q.dtype)
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in HALF:
         q, k, v, dout = (_unit_d(t) for t in (q, k, v, dout))
         d = q.shape[-1]
     else:
@@ -412,7 +416,7 @@ def flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal, scale):
         dk = torch.zeros(B, Skv, Hkv, D, device=q.device, dtype=torch.float32)
         return dk, torch.zeros_like(dk)
     q, k, v, dout, strides, d = _bwd_operands(q, k, v, dout)
-    heads = Hkv if q.dtype == torch.bfloat16 else H
+    heads = Hkv if q.dtype in HALF else H
     dk = torch.empty(B, Skv, heads, d, device=q.device, dtype=torch.float32)
     dv = torch.empty_like(dk)
     kb = None if key_bias is None else key_bias.contiguous()

@@ -23,12 +23,12 @@ its launch counter:
   tensors, `grouped_matmul_plain` on CPU tensors; `LAUNCHES`. With
   `trans_rhs` it reads rhs [E, N, K] transposed through a flag, which is
   how the backward's dlhs runs against the weights without copying them.
-  bf16 runs the Hopper kernel of `csrc/grouped_gemm_sm90.cuh` (wgmma fed
+  bf16 and f16 run the Hopper kernel of `csrc/grouped_gemm_sm90.cuh` (wgmma fed
   by TMA, 128 x 128 tiles of two 64-row units, a persistent schedule);
   f32 the CUDA-core kernel of `csrc/grouped_gemm.cu`.
 
 The kernels read `sizes` from device memory (the TPU kernel's scalar
-prefetch), so nothing on the path syncs with the host. The bf16 kernel
+prefetch), so nothing on the path syncs with the host. The 16-bit kernel
 reads its operands through TMA tensor maps, which take 16-byte aligned
 rows of a multiple of 16 bytes: `tma_operands` passes such operands as
 they are (every shape of the MoE path) and pads any other with zero
@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .flash_attention import HALF
 
 __all__ = ["BM", "GroupedMatmul", "LAUNCHES", "computed_rows",
            "grouped_gemm", "grouped_matmul", "grouped_matmul_plain",
@@ -100,10 +101,9 @@ def _check(lhs, rhs, sizes, trans_rhs):
     K = rhs.shape[2] if trans_rhs else rhs.shape[1]
     if lhs.shape[1] != K:
         raise ValueError(f"lhs depth {lhs.shape[1]} != the weights' {K}")
-    if lhs.dtype != rhs.dtype or lhs.dtype not in (torch.float32,
-                                                   torch.bfloat16):
-        raise TypeError(f"grouped_matmul takes float32 or bfloat16 in one "
-                        f"dtype, got {lhs.dtype} and {rhs.dtype}")
+    if lhs.dtype != rhs.dtype or lhs.dtype not in (torch.float32, *HALF):
+        raise TypeError(f"grouped_matmul takes float32, bfloat16 or float16 "
+                        f"in one dtype, got {lhs.dtype} and {rhs.dtype}")
     if tuple(sizes.shape) != (E,) or sizes.dtype.is_floating_point:
         raise ValueError(f"group_sizes must be integers [E] = [{E}], got "
                          f"{sizes.dtype} {tuple(sizes.shape)}")
@@ -112,7 +112,7 @@ def _check(lhs, rhs, sizes, trans_rhs):
 
 
 def tma_operands(lhs, rhs, trans_rhs=False):
-    """(lhs, rhs, N) as the bf16 kernel's tensor maps take them: contiguous,
+    """(lhs, rhs, N) as the 16-bit kernel's tensor maps take them: contiguous,
     16-byte aligned, K (lhs's columns and rhs's K axis) and N (rhs's N axis)
     multiples of 8. Operands that are so pass as they are; any other is
     copied with zero columns appended, which add nothing to a product. N is
@@ -144,7 +144,7 @@ def grouped_gemm(lhs, rhs, sizes, trans_rhs=False):
     N = rhs.shape[1] if trans_rhs else rhs.shape[2]
     if lhs.shape[0] == 0 or N == 0:
         return torch.empty(E * R, N, device=lhs.device, dtype=lhs.dtype)
-    if lhs.dtype == torch.bfloat16:
+    if lhs.dtype in HALF:
         lhs, rhs, n_out = tma_operands(lhs, rhs, trans_rhs)
     else:
         lhs, rhs, n_out = lhs.contiguous(), rhs.contiguous(), N

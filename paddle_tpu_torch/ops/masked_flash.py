@@ -23,7 +23,7 @@ of V there, and aligns its causal mask bottom-right; this port follows the
 kernel).
 
 Three kernels of `csrc/masked_flash.cu` under the flashmask policy: in
-bf16 the wgmma kernels of `csrc/flash_fwd_sm90.cuh` (forward) and
+bf16 and f16 the wgmma kernels of `csrc/flash_fwd_sm90.cuh` (forward) and
 `csrc/flash_bwd_sm90.cuh` (dq, dk/dv), in f32 the CUDA-core tile kernels
 of `csrc/flash_tiles.cuh`. Each sits beside its plain version and its
 launch counter:
@@ -35,17 +35,17 @@ launch counter:
   of a kv head summed as `_fm_bwd` does: `flashmask_bwd_dkv_plain`;
   `DKV_LAUNCHES`. The backward casts them to k's dtype.
 
-The bf16 kernels read `flashmask_tile_classes`: per 128-row q tile and
+The 16-bit kernels read `flashmask_tile_classes`: per 128-row q tile and
 128-key kv tile whether no pair is kept (the tile is skipped), every pair
 is (no predicate runs) or some are (the predicate runs on the tile), from
 per-tile min/max of the index rows. `FlashmaskAttention` derives them once
 in the forward and hands them to the backward; the wrappers take them as
-`cls` and derive them when it is None. q, k, v and dO reach the bf16
+`cls` and derive them when it is None. q, k, v and dO reach the 16-bit
 kernels through `ops.flash_attention.tma_operands`.
 
 The kernels take the indices as int32 [B, Hm, n, Skv] (the JAX kernel's
 `idx` after its moveaxis), one row of n per mask head contiguous over the
-keys. The softmax, the bf16 rounding of P and dS, and LSE = +inf for a row
+keys. The softmax, the 16-bit rounding of P and dS, and LSE = +inf for a row
 that keeps no key are those of `ops.flash_attention`.
 
 Varlen, the second half: `varlen_flash_attention_fwd(q, k, v, cu_seqlens_q,
@@ -65,8 +65,8 @@ torch ops on the device and no host sync: per key its segment's q-row
 range and the offset cu_q - cu_k (the keep test), and per 64-row tile the
 key range of a q tile and the q-row range of a key tile (the tiles each CTA
 visits). Three kernels of `csrc/varlen_flash.cu` under the varlen policy:
-in bf16 the wgmma kernels of `csrc/flash_fwd_sm90.cuh` (forward) and
-`csrc/flash_bwd_sm90.cuh` (dq, dk/dv), which take q, k, v (and dO)
+in bf16 and f16 the wgmma kernels of `csrc/flash_fwd_sm90.cuh` (forward)
+and `csrc/flash_bwd_sm90.cuh` (dq, dk/dv), which take q, k, v (and dO)
 through `ops.flash_attention.tma_operands` and read the tile classes (per
 128-row q tile and 128-key kv tile: skipped, full or partial, from
 per-tile min/max of the keys' segment ranges) that the forward's entry
@@ -92,8 +92,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .flash_attention import (_attend, _bwd_checks, _bwd_operands, _check,
-                              _cut, _device_checks, _dkv, _dq,
+from .flash_attention import (HALF, _attend, _bwd_checks, _bwd_operands,
+                              _check, _cut, _device_checks, _dkv, _dq,
                               _fwd_operands, _fwd_outputs, _fwd_result,
                               _group_sum, _logits, _probs_and_ds, _ptr)
 
@@ -240,7 +240,7 @@ def _kernel_idx(idx):
 
 
 def _tile_classes(idx, cls, sq, skv, causal):
-    """The bf16 kernels' tile classes of the int32 indices: `cls` as given
+    """The 16-bit kernels' tile classes of the int32 indices: `cls` as given
     (checked) or, when None, derived."""
     if cls is None:
         return flashmask_tile_classes(idx, sq, skv, causal)
@@ -262,7 +262,7 @@ def _tail(q, causal, scale):
 
 
 def _flashmask_fwd(q, k, v, idx, causal, scale):
-    """(O, LSE, the tile classes the bf16 kernel read or None): the forward
+    """(O, LSE, the tile classes the 16-bit kernel read or None): the forward
     wrapper, keeping the classes for the backward."""
     global FWD_LAUNCHES
     _check(q, k, v, None)
@@ -277,7 +277,7 @@ def _flashmask_fwd(q, k, v, idx, causal, scale):
         return (*_fwd_result(out, lse, D, Skv), None)
     idx = _kernel_idx(idx)
     cls = None
-    if q.dtype == torch.bfloat16:
+    if q.dtype in HALF:
         cls = flashmask_tile_classes(idx, Sq, Skv, causal)
     err = _build.load_library().ptt_flashmask_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), _ptr(cls),
@@ -297,7 +297,7 @@ def flashmask_fwd(q, k, v, idx, causal, scale):
 
 def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale, cls=None):
     """dQ [B, Sq, H, D] in q's dtype from the forward's LSE and
-    delta = rowsum(dO * O) [B, H, Sq] f32. `cls`: the bf16 kernel's tile
+    delta = rowsum(dO * O) [B, H, Sq] f32. `cls`: the 16-bit kernel's tile
     classes, `flashmask_tile_classes` of the indices (derived when None).
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     global DQ_LAUNCHES
@@ -316,7 +316,7 @@ def flashmask_bwd_dq(q, k, v, idx, dout, lse, delta, causal, scale, cls=None):
         return _cut(dq.zero_(), D)
     idx = _kernel_idx(idx)
     cls = (_tile_classes(idx, cls, Sq, Skv, causal)
-           if q.dtype == torch.bfloat16 else None)
+           if q.dtype in HALF else None)
     lse, delta = lse.contiguous(), delta.contiguous()
     err = _build.load_library().ptt_flashmask_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), _ptr(cls),
@@ -332,7 +332,7 @@ def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale,
                       cls=None):
     """(dK, dV), each f32 [B, Skv, Hkv, D]: the kv heads' gradients, the g
     query heads of a kv head summed. `cls` as for `flashmask_bwd_dq`. The
-    bf16 kernel writes them as they are; the f32 kernel writes one slice
+    16-bit kernel writes them as they are; the f32 kernel writes one slice
     per query head, which torch sums. CPU tensors run the plain version;
     CUDA tensors launch the kernel."""
     global DKV_LAUNCHES
@@ -345,16 +345,16 @@ def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale,
     _device_checks(q)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    bf16 = q.dtype == torch.bfloat16
+    half = q.dtype in HALF
     if B * Skv * Hkv * D == 0 or Sq == 0:
         dk = torch.zeros(B, Skv, Hkv, D, device=q.device, dtype=torch.float32)
         return dk, torch.zeros_like(dk)
     q, k, v, dout, strides, d = _bwd_operands(q, k, v, dout)
-    dk = torch.empty(B, Skv, Hkv if bf16 else H, d, device=q.device,
+    dk = torch.empty(B, Skv, Hkv if half else H, d, device=q.device,
                      dtype=torch.float32)
     dv = torch.empty_like(dk)
     idx = _kernel_idx(idx)
-    cls = _tile_classes(idx, cls, Sq, Skv, causal) if bf16 else None
+    cls = _tile_classes(idx, cls, Sq, Skv, causal) if half else None
     lse, delta = lse.contiguous(), delta.contiguous()
     err = _build.load_library().ptt_flashmask_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), _ptr(cls),
@@ -373,7 +373,7 @@ def flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal, scale,
 
 class FlashmaskAttention(torch.autograd.Function):
     """Flashmask attention with its backward (↔ `_flashmask`'s custom VJP).
-    Saves q, k, v, the indices, O, the LSE and the bf16 kernels' tile
+    Saves q, k, v, the indices, O, the LSE and the 16-bit kernels' tile
     classes (None elsewhere); the backward computes delta = rowsum(dO * O)
     in f32 with torch (as `_fm_bwd` does with jnp) and runs the dq and dk/dv
     kernels on the same classes; dk/dv come out summed over the g query
@@ -539,7 +539,7 @@ def varlen_tile_classes_plain(layout, Tq, Tk, causal, tile=SM90_TILE):
 def varlen_tile_classes(layout, Tq, Tk, causal, tile=SM90_TILE):
     """`varlen_tile_classes_plain`'s classes. A CPU layout runs it; a CUDA
     one launches `varlen_classes_kernel` (128-row tiles only), the kernel
-    the bf16 `varlen_fwd` runs before the forward in the same entry."""
+    the 16-bit `varlen_fwd` runs before the forward in the same entry."""
     if layout.kinfo.device.type == "cpu":
         return varlen_tile_classes_plain(layout, Tq, Tk, causal, tile)
     if tile != SM90_TILE:
@@ -627,7 +627,7 @@ def _stream(t):
 
 
 def _varlen_fwd(q, k, v, layout, causal, scale):
-    """(O, LSE, the tile classes the bf16 kernel read or None): the forward
+    """(O, LSE, the tile classes the 16-bit kernel read or None): the forward
     wrapper, keeping the classes for the backward."""
     global VL_FWD_LAUNCHES
     _vl_check(q, k, v, layout)
@@ -642,7 +642,7 @@ def _varlen_fwd(q, k, v, layout, causal, scale):
         return out[0], lse[0], None
     cls = (torch.empty(-(-Tq // SM90_TILE), -(-Tk // SM90_TILE),
                        dtype=torch.uint8, device=q.device)
-           if q.dtype == torch.bfloat16 else None)  # written by the entry
+           if q.dtype in HALF else None)  # written by the entry
     err = _build.load_library().ptt_varlen_fwd(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
         layout.qrange.data_ptr(), layout.krange.data_ptr(), _ptr(cls),
@@ -658,7 +658,7 @@ def _varlen_fwd(q, k, v, layout, causal, scale):
 def varlen_fwd(q, k, v, layout, causal, scale):
     """(O [Tq, H, D] in q's dtype, LSE [H, Tq] f32) over the packed
     segments of `layout`. CPU tensors run the plain version; CUDA tensors
-    launch the kernels (bf16: the tile classes of the layout, then the
+    launch the kernels (16 bits: the tile classes of the layout, then the
     forward on them)."""
     return _varlen_fwd(q, k, v, layout, causal, scale)[:2]
 
@@ -679,9 +679,9 @@ def _vl_bwd_checks(q, k, v, layout, lse, delta, cls):
 
 
 def _vl_classes(q, layout, cls, Tk, causal):
-    """The tile classes a bf16 backward kernel reads: `cls` as given or,
+    """The tile classes a 16-bit backward kernel reads: `cls` as given or,
     when None, derived; None in f32."""
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in HALF:
         return None
     if cls is None:
         return varlen_tile_classes(layout, q.shape[0], Tk, causal)
@@ -691,7 +691,7 @@ def _vl_classes(q, layout, cls, Tk, causal):
 def varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale,
                   cls=None):
     """dQ [Tq, H, D] in q's dtype from the forward's LSE and
-    delta = rowsum(dO * O) [H, Tq] f32. `cls`: the bf16 kernel's tile
+    delta = rowsum(dO * O) [H, Tq] f32. `cls`: the 16-bit kernel's tile
     classes, `varlen_tile_classes` of the layout (derived when None).
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     global VL_DQ_LAUNCHES
@@ -723,7 +723,7 @@ def varlen_bwd_dq(q, k, v, layout, dout, lse, delta, causal, scale,
 def varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal, scale,
                    cls=None):
     """(dK, dV), each f32 [Tk, Hkv, D]: the kv heads' gradients, the g query
-    heads of a kv head summed. `cls` as for `varlen_bwd_dq`. The bf16
+    heads of a kv head summed. `cls` as for `varlen_bwd_dq`. The 16-bit
     kernel writes them as they are; the f32 kernel writes one slice per
     query head, which torch sums. CPU tensors run the plain version; CUDA
     tensors launch the kernel."""
@@ -738,16 +738,16 @@ def varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal, scale,
     if Tk * Hkv * D == 0 or Tq == 0:
         dk = torch.zeros(Tk, Hkv, D, device=q.device, dtype=torch.float32)
         return dk, torch.zeros_like(dk)
-    bf16 = q.dtype == torch.bfloat16
+    half = q.dtype in HALF
     q4, k4, v4, d4, strides, d = _bwd_operands(q[None], k[None], v[None],
                                                dout[None])
-    dk = torch.empty(1, Tk, Hkv if bf16 else H, d, device=q.device,
+    dk = torch.empty(1, Tk, Hkv if half else H, d, device=q.device,
                      dtype=torch.float32)
     dv = torch.empty_like(dk)
     cls = _vl_classes(q, layout, cls, Tk, causal)
-    # the CTAs' order, written by the entry (bf16)
+    # the CTAs' order, written by the entry (16 bits)
     order = (torch.empty(-(-Tk // SM90_TILE), dtype=torch.int32,
-                         device=q.device) if bf16 else None)
+                         device=q.device) if half else None)
     lse, delta = lse.contiguous(), delta.contiguous()
     err = _build.load_library().ptt_varlen_bwd_dkv(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), layout.kinfo.data_ptr(),
@@ -764,7 +764,7 @@ def varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal, scale,
 class VarlenAttention(torch.autograd.Function):
     """Varlen attention with its backward (↔ `_varlen`'s custom VJP, whose
     backward `_varlen_vjp_bwd` :669 this follows). Saves q, k, v, O, the
-    LSE, the bf16 kernels' tile classes (None elsewhere) and the layout;
+    LSE, the 16-bit kernels' tile classes (None elsewhere) and the layout;
     the backward computes delta = rowsum(dO * O) in f32 with torch and runs
     the dq and dk/dv kernels on the same classes; dk/dv come out summed
     over the g query heads of a kv head, and are cast to k's dtype. The

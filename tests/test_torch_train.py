@@ -349,8 +349,12 @@ def test_unported_training_modes_raise():
         AdamW(learning_rate=lambda: 1.0, parameters=params)
     with pytest.raises(NotImplementedError, match="queue C"):
         AdamW(parameters=params, lr_ratio=lambda p: 1.0)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        TF.cross_entropy(torch.zeros(2, 3), torch.zeros(2, 3), soft_label=True)
+    # soft labels are ported (PR 22; tests/test_torch_loss_modes.py holds
+    # every cross_entropy mode to the reference): a uniform target over 3
+    # classes of equal logits costs log 3
+    soft = TF.cross_entropy(torch.zeros(2, 3), torch.full((2, 3), 1 / 3),
+                            soft_label=True)
+    torch.testing.assert_close(soft, torch.tensor(np.log(3.0), dtype=torch.float32))
     # attention dropout on the variants whose kernels have no dropout path
     # raises, as the reference asserts; the flash variant takes it
     with pytest.raises(ValueError, match="flashmask"):

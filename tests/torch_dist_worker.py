@@ -8,7 +8,9 @@ cases are in `tests/torch_sep_cases.py`, and
 `tests/torch_ep_cases.py`, and `tests/test_torch_bert.py` and
 `tests/test_torch_resnet.py`, whose cases are in
 `tests/torch_model_dp_cases.py`, and `tests/test_torch_random.py`, whose
-cases are in `tests/torch_random_cases.py`).
+cases are in `tests/torch_random_cases.py`, and
+`tests/test_torch_loss_modes.py`, whose cases are in
+`tests/torch_amp_loss_cases.py`).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -553,6 +555,12 @@ def random_cases(rank, world, inp):
     return cases(rank, world, inp)
 
 
+def amp_loss_cases(rank, world, inp):
+    from torch_amp_loss_cases import amp_loss_cases as cases
+
+    return cases(rank, world, inp)
+
+
 SUITES = {"collective": collective_cases, "sharding": sharding_cases,
           "tensor_parallel": tensor_parallel_cases,
           "pipeline": pipeline_cases, "pipeline_gate": pipeline_gate_cases,
@@ -560,7 +568,7 @@ SUITES = {"collective": collective_cases, "sharding": sharding_cases,
           "segment_gate": segment_gate_cases,
           "expert_parallel": expert_parallel_cases,
           "bert_dp": bert_dp_cases, "resnet_dp": resnet_dp_cases,
-          "random": random_cases}
+          "random": random_cases, "amp_loss": amp_loss_cases}
 
 
 def main():
