@@ -415,6 +415,29 @@ Phases; any failure raises and the script exits non-zero:
                 (exact in both types): the loss, every gradient and every
                 update, at limits in units of the type's roundoff
                 (HALF_HOLD_*).
+26. serve block attention — llama_7b at full width and depth in bf16
+                through BlockAttentionDecoder (the model's weights through
+                the incubate functionals: fused_rms_norm, fused_linear,
+                block_multihead_attention over pages of 64 with rope_emb,
+                fused_bias_act swiglu): the serving mix's 12 prompts in one
+                padded prefill call a layer, then 16 decode ticks; exactly
+                16 x 32 paged decodes and 17 x 65 norm forwards; the first
+                tokens equal the paged engine's, the later ones within
+                BLHA_TIE_ULPS of generate's top logit fed them; the same
+                decoder in f32 gives generate's tokens, every one; one
+                tick with int8 pages and one with a prefix cache (the
+                composite) against the CPU.
+27. train fused encoder — 12 post-LN FusedTransformerEncoderLayers at
+                bert_base's widths, batch 32 x 512, AMP O2 bf16, AdamW: 48
+                launches of each flash kernel over a warm-up and 3 steps,
+                nothing else; a 2-layer f32 step against the CPU.
+28. incubate calls — fused_moe (and weight-only int8) at the gpt3_moe
+                rung's widths, variable_length_memory_efficient_attention,
+                fused_gate_attention, the softmax-mask fusions and PTQ /
+                QAT on gpt3_tiny, each against its CPU run in f32;
+                fused_dot_product_attention in bf16 (one flash forward);
+                FusedMultiTransformer at gpt3_1p3b's widths, 2 layers,
+                bf16, its cached decode against its uncached forward.
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -995,6 +1018,7 @@ def check_norm(card, torch):
 DECODE_PATH_LENGTHS = [512, 1, 0, 33, 100, 255, 256, 257, 300, 31, 32, 64,
                        480, 129, 17, 200]
 TICK_LENGTHS = [16, 17, 18, 19, 20, 21, 22, 23, 16, 17, 18, 19, 20, 21, 22, 0]
+BLHA_TICK_LENGTHS = [138, 13, 14, 141, 16, 17, 144, 19, 20, 147, 22, 23]
 PAGED_CASES = {
     "path_g1": (16, 16, 16, 128, 32, 16, DECODE_PATH_LENGTHS,
                 [(1, 0), (3, 0), (8, 4)], None),
@@ -1010,9 +1034,12 @@ PAGED_CASES = {
     "b1_512": (1, 16, 16, 128, 32, 16, [512], [], None),
     "llama_path_g1": (16, 32, 32, 128, 32, 16, DECODE_PATH_LENGTHS,
                       [(1, 0), (3, 0), (8, 4), (0, 4), (0, 5)], None),
+    # block_multihead_attention's decode tick at llama_7b (phase 26): the
+    # 12 prompts of the serving mix 8 ticks in, pages of 64
+    "blha_llama_ps64": (12, 32, 32, 128, 64, 4, BLHA_TICK_LENGTHS, [], None),
 }
 PAGED_FULL = ["path_g1", "gqa_g4", "gqa_g2_d64_ps13", "hole_chunk", "tick_g1",
-              "llama_tick_g1", "b1_512", "llama_path_g1"]
+              "llama_tick_g1", "b1_512", "llama_path_g1", "blha_llama_ps64"]
 PAGED_Q8 = ["path_g1", "gqa_g4", "zero_scale_page_d64", "hole_chunk",
             "tick_g1", "llama_tick_g1", "b1_512", "llama_path_g1"]
 
@@ -1633,6 +1660,9 @@ FLASH_CASES = {
     "unaligned_view_copy": (1, 200, 200, 8, 8, 64, True, False, "bfloat16"),
     # bert_base's attention at bench.py's rung: BERT's additive key bias
     "bert_key_bias": (32, 512, 512, 12, 12, 64, False, "bert", "bfloat16"),
+    # bert_base's widths without a key bias: the fused encoder's attention
+    # (fused_multi_head_attention, phase 27)
+    "fused_encoder_d64": (32, 512, 512, 12, 12, 64, False, False, "bfloat16"),
     # unet_sd's attention at bench.py's rung (batch 8, a 64 x 64 latent, 8
     # heads, a context of 77): level 1 at 32 x 32 positions, heads of 80;
     # level 2 and the mid block at 16 x 16, heads of 160 (the 192 width)
@@ -1787,7 +1817,7 @@ def check_flash(card, torch):
         lib = {}
         if name == "path":
             lib = lib_path = library_sdpa(torch, q, k, v, dout, causal)
-        elif name in FLASH_UNET or name == "path_f16":
+        elif name in FLASH_UNET or name in ("path_f16", "fused_encoder_d64"):
             lib = library_sdpa(torch, q, k, v, dout, causal)
         elif name == "bert_key_bias":
             # the same additive key bias as SDPA's attn_mask
@@ -6301,6 +6331,666 @@ def train_half_holds(card, torch):
 
 
 
+# --------------------------------------------------------------------------- #
+# phases 26-28: block-attention serving, the fused encoder, incubate calls
+# --------------------------------------------------------------------------- #
+
+BLHA_BLOCK = 64
+
+
+class BlockAttentionDecoder:
+    """A LLaMA-form GPTForCausalLM run as Paddle's block-attention inference
+    runs a layer, from the model's own weights and the incubate
+    functionals: fused_rms_norm; one fused_linear for q, k and v;
+    block_multihead_attention over paged caches with rope_emb from the
+    model's theta and rotary style; fused_linear for the output
+    projection; fused_rms_norm with the residual; one fused_linear for gate
+    and up; fused_bias_act("swiglu"); fused_linear for the down
+    projection. Then the final fused_rms_norm and the untied head. `batch`
+    rows of up to `max_len` tokens, each row its own ceil(max_len /
+    block_size) pages of the layer's [n_pages, Hkv, block_size, D] caches.
+    `prefill` runs every row's prompt in one padded call a layer, `tick`
+    one decode step of every row; both return the next token's logits
+    [B, V] in the model's dtype."""
+
+    def __init__(self, torch, model, batch, max_len, block_size=BLHA_BLOCK):
+        from paddle_tpu_torch.incubate.nn.functional import _rope_tables
+
+        cfg = model.config
+        if not (cfg.norm_type == "rmsnorm" and cfg.activation == "swiglu"
+                and cfg.use_rope and not cfg.tie_word_embeddings):
+            raise ValueError("BlockAttentionDecoder runs the LLaMA form")
+        self.torch, self.cfg = torch, cfg
+
+        def cat(*ws):
+            return torch.cat([w.detach() for w in ws], dim=1)
+
+        self.layers = [dict(
+            ln1=ly.input_layernorm.weight.detach(),
+            wqkv=cat(ly.self_attn.q_proj.weight, ly.self_attn.k_proj.weight,
+                     ly.self_attn.v_proj.weight),
+            wo=ly.self_attn.out_proj.weight.detach(),
+            ln2=ly.post_attention_layernorm.weight.detach(),
+            wgu=cat(ly.mlp.gate_proj.weight, ly.mlp.up_proj.weight),
+            wd=ly.mlp.down_proj.weight.detach()) for ly in model.gpt.layers]
+        self.embed = model.gpt.embed_tokens.weight.detach()
+        self.final = model.gpt.final_norm.weight.detach()
+        self.head = model.lm_head.weight.detach()
+        dev, dt = self.embed.device, self.embed.dtype
+        D, P = cfg.head_dim, -(-max_len // block_size)
+        self.block_size = block_size
+        self.tables = torch.arange(batch * P, dtype=torch.int32,
+                                   device=dev).reshape(batch, P)
+        self.caches = [tuple(torch.zeros(batch * P, cfg.kv_heads, block_size,
+                                         D, dtype=dt, device=dev)
+                             for _ in range(2)) for _ in self.layers]
+        cos, sin = _rope_tables(P * block_size, D, cfg.rope_theta, device=dev)
+        self.rope = torch.stack([cos, sin])[:, :, :, None, :]
+        self.lens = torch.zeros(batch, dtype=torch.int32, device=dev)
+
+    def _hidden(self, ids, enc, dec):
+        from paddle_tpu_torch.incubate.nn import functional as IF
+
+        eps = self.cfg.layer_norm_epsilon
+        h = self.embed[ids]
+        this = self.torch.where(enc > 0, enc, self.torch.ones_like(enc))
+        for w, (kc, vc) in zip(self.layers, self.caches):
+            y, _ = IF.fused_rms_norm(h, w["ln1"], epsilon=eps)
+            att = IF.block_multihead_attention(
+                IF.fused_linear(y, w["wqkv"]), kc, vc, enc, dec, this,
+                block_tables=self.tables, rope_emb=self.rope,
+                block_size=self.block_size,
+                use_neox_style=self.cfg.use_neox_rotary_style)[0]
+            y, h = IF.fused_rms_norm(IF.fused_linear(att, w["wo"]), w["ln2"],
+                                     epsilon=eps, residual=h)
+            a = IF.fused_bias_act(IF.fused_linear(y, w["wgu"]),
+                                  act_method="swiglu")
+            h = h + IF.fused_linear(a, w["wd"])
+        return IF.fused_rms_norm(h, self.final, epsilon=eps)[0]
+
+    def prefill(self, prompts):
+        from paddle_tpu_torch.incubate.nn import functional as IF
+
+        torch = self.torch
+        dev = self.embed.device
+        S = max(len(p) for p in prompts)
+        ids = np.zeros((len(prompts), S), np.int64)
+        for b, p in enumerate(prompts):
+            ids[b, :len(p)] = p
+        enc = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=dev)
+        h = self._hidden(torch.as_tensor(ids, device=dev), enc,
+                         torch.zeros_like(enc))
+        self.lens = enc.clone()
+        last = h[torch.arange(len(prompts), device=dev), (enc - 1).long()]
+        return IF.fused_linear(last, self.head)
+
+    def tick(self, tokens):
+        from paddle_tpu_torch.incubate.nn import functional as IF
+
+        h = self._hidden(tokens.reshape(-1, 1).long(),
+                         self.torch.zeros_like(self.lens), self.lens)
+        self.lens = self.lens + 1
+        return IF.fused_linear(h[:, 0], self.head)
+
+
+BLHA_TICKS = 16
+# Phase 26's later bf16 tokens against `generate` fed them
+# (`_teacher_forced_margins`), in bf16 steps at the top logit. The two
+# paths compute one function in different shapes and orders (one qkv and
+# one gate/up product against three and two, the norm of the f32 residual
+# sum against the rounded one, SwiGLU rounded once against twice, bf16
+# pages against f32 caches), so each of 32 layers x ~8 rounded ops moves
+# the logits by its own 2^-9: ~sqrt(256) x 2^-9 ~ 3% of their spread
+# (~1.3), 0.04 a logit, ~1.3 steps of 2^-5 at top logits of 4-8, and
+# ~1.8 steps on the gap between two logits. BF16_TIE_ULPS (2 steps, set
+# for gpt3_1p3b's 24 layers, where the products differ by batch shape
+# only) is ~1.1 sigma of that and missed 9 of 192 steps in a run on the
+# card; the limit here is 8 steps, ~4.4 sigma. It is a smoke bound:
+# with random weights a wrong attention moves the logits by ~1% only
+# (BF16_DECODE_LOGIT_RTOL's note), under one step, so the decoder's
+# correctness at full depth is held in f32 (`blha_f32_full_depth`), where
+# its tokens must be generate's, every one.
+BLHA_TIE_ULPS = 8
+# the int8-page tick against the f32-page tick on the same values (the CPU
+# test's bound: the payloads round K and V to 1/2 of a step of amax / 127)
+BLHA_Q8_REL, BLHA_Q8_ABS = 0.05, 1e-2
+# the composite ticks on the card against the CPU in f32 (TF32 off)
+BLHA_HOLD_TOL = 1e-5
+
+
+def _blha_side_inputs(torch, device, B, H, D, lengths, P, seed=5):
+    """A decode tick's inputs at llama_7b's attention shape from a seed:
+    qkv [B, 1, 3 H D] f32, f32 pages holding each row's first
+    lengths[b] tokens (the rest 0) under a block table of P pages a row,
+    the per-head int8 scales sized to the data, and a prefix of 16
+    tokens."""
+    rng = np.random.default_rng(seed)
+    bs = BLHA_BLOCK
+    n = B * P
+    kc = np.zeros((n, H, bs, D), np.float32)
+    vc = np.zeros((n, H, bs, D), np.float32)
+    for b, L in enumerate(lengths):
+        for t in range(L):
+            kc[b * P + t // bs, :, t % bs] = rng.standard_normal((H, D))
+            vc[b * P + t // bs, :, t % bs] = rng.standard_normal((H, D))
+    qkv = rng.standard_normal((B, 1, 3 * H * D)).astype(np.float32)
+    amax = max(np.abs(kc).max(), np.abs(qkv).max())
+    qs = np.full((H,), 127.0 / amax, np.float32)
+    pre = rng.standard_normal((2, B, H, 16, D)).astype(np.float32)
+    t = {k: torch.as_tensor(v, device=device) for k, v in dict(
+        qkv=qkv, kc=kc, vc=vc, qs=qs, dqs=(1.0 / qs).astype(np.float32),
+        pre=pre, tables=np.arange(n, dtype=np.int32).reshape(B, P),
+        dec=np.asarray(lengths, np.int32)).items()}
+    t["kc8"] = torch.clamp(torch.round(t["kc"] * t["qs"].reshape(1, H, 1, 1)),
+                           -128, 127).to(torch.int8)
+    t["vc8"] = torch.clamp(torch.round(t["vc"] * t["qs"].reshape(1, H, 1, 1)),
+                           -128, 127).to(torch.int8)
+    return t
+
+
+def _blha_side_tick(torch, t, kind):
+    """One decode tick of block_multihead_attention on `t`'s tensors:
+    "f32" (f32 pages), "int8" (the int8 pages and scales) or "prefix"
+    (f32 pages and the 16-token prefix). Returns (out, key pages)."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    B = t["dec"].shape[0]
+    kw = dict(block_tables=t["tables"], block_size=BLHA_BLOCK)
+    kc, vc = t["kc"].clone(), t["vc"].clone()
+    if kind == "int8":
+        kc, vc = t["kc8"].clone(), t["vc8"].clone()
+        kw.update(cache_k_quant_scales=t["qs"], cache_v_quant_scales=t["qs"],
+                  cache_k_dequant_scales=t["dqs"],
+                  cache_v_dequant_scales=t["dqs"])
+    elif kind == "prefix":
+        kw.update(pre_key_cache=t["pre"][0], pre_value_cache=t["pre"][1])
+    zeros = torch.zeros_like(t["dec"])
+    out, _, kc, _ = IF.block_multihead_attention(
+        t["qkv"], kc, vc, zeros, t["dec"], torch.ones_like(zeros), **kw)
+    return out, kc
+
+
+def blha_side_ticks(card, torch, lengths):
+    """Phase 26's int8-page tick and prefix tick: at llama_7b's attention
+    shape (B 12, 32 heads of 128, pages of BLHA_BLOCK, each row's cached
+    tokens `lengths`), f32 inputs, on the card (the composite: no paged
+    decode launch) and on the CPU. Held: the card's outputs within
+    BLHA_HOLD_TOL of the CPU's, the int8 pages the CPU's bit for bit, and
+    the int8 tick within the CPU test's bound (BLHA_Q8_*) of the f32-page
+    tick."""
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, D = len(lengths), 32, 128
+    P = -(-(max(lengths) + 1) // BLHA_BLOCK)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = _blha_side_inputs(torch, dev, B, H, D, lengths, P)
+        res[dev] = {"f32": _blha_side_tick(torch, t, "f32")}
+        before = da.LAUNCHES, da.Q8_LAUNCHES
+        res[dev].update({k: _blha_side_tick(torch, t, k)
+                         for k in ("int8", "prefix")})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            composite = (da.LAUNCHES, da.Q8_LAUNCHES) == before
+    err = {k: (res["cuda"][k][0].cpu() - res["cpu"][k][0]).abs().max().item()
+           for k in ("int8", "prefix")}
+    pages_equal = torch.equal(res["cuda"]["int8"][1].cpu(),
+                              res["cpu"]["int8"][1])
+    ref = res["cuda"]["f32"][0]
+    q8_gap = (res["cuda"]["int8"][0] - ref).abs().max().item()
+    q8_bound = BLHA_Q8_REL * ref.abs().max().item() + BLHA_Q8_ABS
+    line = {"B": B, "heads": H, "D": D, "block_size": BLHA_BLOCK,
+            "cached_tokens": lengths, "card_vs_cpu_max_abs_err": err,
+            "tol": BLHA_HOLD_TOL, "int8_pages_equal": pages_equal,
+            "int8_vs_f32_pages_max_abs": q8_gap, "int8_bound": q8_bound,
+            "no_paged_decode_launch": composite}
+    say(card, "serve_block_attention side ticks " + json.dumps(line))
+    if not (composite and pages_equal and q8_gap <= q8_bound
+            and max(err.values()) <= BLHA_HOLD_TOL):
+        raise AssertionError("serve_block_attention: the int8 or prefix tick "
+                             "disagrees (or launched the paged kernel)")
+
+
+def serve_block_attention(card, torch):
+    """Phase 26. llama_7b at full width and depth in bf16, seed 0, as phase
+    `serve` builds it, served through `BlockAttentionDecoder` (pages of
+    BLHA_BLOCK): the 12 prompts of the serving mix in one padded prefill
+    call a layer, then BLHA_TICKS decode ticks of all 12 rows, greedy.
+    Counters zeroed just before and read just after: the paged decode
+    BLHA_TICKS x 32 times, the fused norm (1 + BLHA_TICKS) x 65 times,
+    nothing else (the prefill attention is the composite). Each row's
+    first token must equal the port's PagedServingEngine's on the same
+    model, and each later one lie within BLHA_TIE_ULPS of generate's top
+    logit fed the decoder's tokens (`_teacher_forced_margins`). Prints
+    tokens/s, tick ms, peak memory and the busy share of 5 more ticks;
+    then the same decoder in f32 (`blha_f32_full_depth`: every token
+    generate's) and the int8-page and prefix ticks (`blha_side_ticks`)."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    cfg = models.llama_7b()
+    L, ticks = cfg.num_layers, BLHA_TICKS
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    prompts = [p for p, _ in serving_workload(cfg.vocab_size, 512, 12)]
+    dec = BlockAttentionDecoder(torch, model, len(prompts),
+                                max(map(len, prompts)) + ticks + 8)
+    torch.cuda.synchronize()
+    say(card, f"serve_block_attention: llama_7b bf16 built in "
+              f"{time.perf_counter() - t0:.3f} s")
+    reset_peak(torch)
+    _zero_counters()
+    tick_s = []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        tok = dec.prefill(prompts).argmax(-1)
+        toks = [tok]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for _ in range(ticks):
+            t1 = time.perf_counter()
+            tok = dec.tick(tok).argmax(-1)
+            toks.append(tok)
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t1)
+        total_s = time.perf_counter() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = _expected(paged_decode_attention=ticks * L,
+                     fused_norm=(1 + ticks) * (2 * L + 1))
+    tokens = torch.stack(toks, 1).cpu().tolist()
+
+    eng = create_serving_engine(model, max_batch_size=16, max_seq_len=512,
+                                page_size=32, seed=0)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=1, temperature=0.0)
+    first = {tuple(r.prompt): r.generated[0] for r in eng.run()}
+    del eng
+    mismatch = [b for b, p in enumerate(prompts)
+                if first[tuple(p)] != tokens[b][0]]
+    margins = [_teacher_forced_margins(torch, model, p, tokens[b])
+               for b, p in enumerate(prompts)]
+    steps = {(b, i): s["bf16_steps_below_top"] for b, m in enumerate(margins)
+             for i, s in enumerate(m) if i}
+    off_tie = [k for k, v in steps.items() if v > BLHA_TIE_ULPS]
+    with torch.no_grad():
+        prof = profile_step(card, torch, lambda: [dec.tick(tok)
+                                                  for _ in range(5)],
+                            "serve_block_attention 5 ticks")
+    n_tok = len(prompts) * (1 + ticks)
+    line = {"model": "llama_7b", "dtype": "bfloat16", "requests":
+            len(prompts), "block_size": BLHA_BLOCK, "prompt_lens":
+            [len(p) for p in prompts], "decode_ticks": ticks,
+            "tokens": n_tok, "seconds": total_s, "tokens_per_s":
+            n_tok / total_s, "prefill_s": prefill_s,
+            "tick_ms_median": float(np.median(tick_s)) * 1e3,
+            "tick_ms_max": max(tick_s) * 1e3, "peak_memory_gb": peak / 1e9,
+            "busy_share_5_ticks": prof["device_busy_share"],
+            "first_tokens_equal_engine": not mismatch,
+            "later_tokens_off_the_tie": off_tie, "tie_steps": BLHA_TIE_ULPS,
+            "later_tokens_over_BF16_TIE_ULPS": {
+                f"{b},{i}": v for (b, i), v in steps.items()
+                if v > BF16_TIE_ULPS},
+            "later_tokens_not_generates_pick": sum(v > 0 for v in
+                                                   steps.values()),
+            "later_tokens": len(steps), "launches": launches}
+    say(card, "serve_block_attention (smoke run, not a benchmark) "
+              + json.dumps(line))
+    if launches != want:
+        raise AssertionError(f"serve_block_attention: launches {launches}, "
+                             f"expected {want}")
+    if mismatch or off_tie:
+        raise AssertionError(f"serve_block_attention: first tokens differ "
+                             f"from the engine's in rows {mismatch}, or "
+                             f"later tokens off the tie at {off_tie}")
+    del dec, model
+    torch.cuda.empty_cache()
+    blha_f32_full_depth(card, torch, prompts)
+    blha_side_ticks(card, torch, [len(p) + 8 for p in prompts])
+    return launches
+
+
+def blha_f32_full_depth(card, torch, prompts):
+    """`BlockAttentionDecoder` on llama_7b at full width and depth in f32
+    (TF32 off; the paged decode kernel's f32 instantiation): its greedy
+    tokens over the prefill and BLHA_TICKS ticks must equal, every one,
+    those of `generate` (dense f32 caches, its own calls) on each
+    prompt, where the two paths differ by f32 rounding only."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(models.llama_7b(), device="cuda",
+                           dtype=torch.float32, seed=0)
+    dec = BlockAttentionDecoder(torch, model, len(prompts),
+                                max(map(len, prompts)) + BLHA_TICKS + 2)
+    with torch.no_grad():
+        tok = dec.prefill(prompts).argmax(-1)
+        toks = [tok]
+        for _ in range(BLHA_TICKS):
+            tok = dec.tick(tok).argmax(-1)
+            toks.append(tok)
+        tokens = torch.stack(toks, 1).cpu().tolist()
+    del dec
+    torch.cuda.empty_cache()
+    gen = [model.generate(np.asarray(p)[None], max_new_tokens=BLHA_TICKS + 1,
+                          temperature=0.0)[0, len(p):].tolist()
+           for p in prompts]
+    differ = [b for b in range(len(prompts)) if tokens[b] != gen[b]]
+    say(card, "serve_block_attention f32 " + json.dumps({
+        "model": "llama_7b", "layers": models.llama_7b().num_layers,
+        "requests": len(prompts), "new_tokens": BLHA_TICKS + 1,
+        "rows_whose_tokens_differ_from_generate": differ,
+        "seconds": time.perf_counter() - t0}))
+    del model
+    torch.cuda.empty_cache()
+    if differ:
+        raise AssertionError("serve_block_attention f32: the decoder's "
+                             f"tokens differ from generate's in rows {differ}")
+
+
+# bench.py's bert rung's widths and sizes, as FusedTransformerEncoderLayers
+FUSED_ENCODER = dict(layers=12, d=768, heads=12, ffn=3072, batch=32, seq=512)
+# the f32 hold: the loss, and each gradient's ||card - cpu|| over the
+# larger of its norm and 1e-3 of the largest one's (phase 25's measure)
+FUSED_HOLD_LOSS_RTOL = 1e-5
+
+
+def fused_encoder(torch, layers, device, seed=0):
+    """A Sequential of `layers` post-LN FusedTransformerEncoderLayers at
+    FUSED_ENCODER's widths, gelu, dropouts 0, weights from `seed`."""
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.nn import Sequential
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = FUSED_ENCODER
+    return Sequential(*[FusedTransformerEncoderLayer(
+        c["d"], c["heads"], c["ffn"], dropout_rate=0.0, activation="gelu",
+        generator=gen, device=device) for _ in range(layers)])
+
+
+def train_fused_encoder(card, torch):
+    """Phase 27. A stack of 12 FusedTransformerEncoderLayers at bert_base's
+    widths (d 768, 12 heads, FFN 3072, gelu, post-LN, dropouts 0), batch
+    32 x 512 of random f32 activations regressed onto a random target
+    (mse_loss), AdamW lr 1e-4, AMP O2 bf16 (f32 parameters) through
+    DistributedTrainStep: the counters zeroed just before a warm-up step
+    and three timed steps and read just after them: 4 x 12 flash
+    forwards, dQ and dK/dV (the kernel route of fused_multi_head_attention,
+    D 64, no key bias) and nothing else. Prints the step time, peak and
+    busy share. Then the f32 hold: 2 layers, batch 2 x 128, TF32 off, one
+    forward and backward on the card (the f32 flash kernels) and on the
+    CPU from the same weights: the loss within FUSED_HOLD_LOSS_RTOL, each
+    gradient within TRAIN_HOLD_GRAD_TOL by phase 25's measure."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = FUSED_ENCODER
+    B, S, timed = c["batch"], c["seq"], 3
+    model = fused_encoder(torch, c["layers"], "cuda")
+    step = DistributedTrainStep(
+        model, lambda out, y: F.mse_loss(out, y),
+        AdamW(learning_rate=1e-4, parameters=model.parameters()),
+        amp_level="O2", amp_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(B, S, c["d"], device="cuda", generator=gen)
+    y = torch.randn(B, S, c["d"], device="cuda", generator=gen)
+    _zero_counters()
+    reset_peak(torch)
+    t0 = time.perf_counter()
+    losses = [step(x, y).item()]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses[:1] + [v.item() for v in losses[1:]]
+    n = (1 + timed) * c["layers"]
+    want = _expected(flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    prof = profile_step(card, torch, lambda: step(x, y),
+                        "train_fused_encoder step")
+    say(card, "train_fused_encoder (smoke run, not a benchmark) " + json.dumps({
+        "layers": c["layers"], "d": c["d"], "heads": c["heads"],
+        "ffn": c["ffn"], "batch": B, "seq": S, "recipe": "AMP O2 bf16, "
+        "f32 parameters and AdamW moments, lr 1e-4, dropouts 0, post-LN",
+        "losses": losses, "warmup_step_s": warm_s, "step_s": step_s,
+        "tokens_per_s": B * S / step_s, "peak_memory_gb": peak / 1e9,
+        "busy_share": prof["device_busy_share"], "launches": launches}))
+    if launches != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_fused_encoder: launches {launches} "
+                             f"(expected {want}), losses {losses}")
+    del step, model
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    xh = rng.standard_normal((2, 128, c["d"])).astype(np.float32)
+    yh = rng.standard_normal((2, 128, c["d"])).astype(np.float32)
+    got, state = {}, None
+    for dev in ("cuda", "cpu"):
+        m = fused_encoder(torch, 2, dev, seed=2)
+        if state is None:
+            state = {k: v.cpu() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(state)
+        loss = F.mse_loss(m(torch.as_tensor(xh, device=dev)),
+                          torch.as_tensor(yh, device=dev))
+        loss.backward()
+        got[dev] = (loss.item(), {k: p.grad.cpu()
+                                  for k, p in m.named_parameters()})
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = got["cuda"], got["cpu"]
+    top = max(g.norm().item() for g in g_cpu.values())
+    rel = {k: (g_gpu[k] - g).norm().item() / max(g.norm().item(), 1e-3 * top)
+           for k, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    say(card, "train_fused_encoder hold " + json.dumps({
+        "layers": 2, "batch": 2, "seq": 128, "dtype": "float32",
+        "loss_cuda": l_gpu, "loss_cpu": l_cpu, "loss_rel_diff": loss_rel,
+        "loss_rtol": FUSED_HOLD_LOSS_RTOL, "max_grad_rel_diff": rel[worst],
+        "worst_grad": worst, "grad_tol": TRAIN_HOLD_GRAD_TOL}))
+    if not (loss_rel <= FUSED_HOLD_LOSS_RTOL
+            and rel[worst] <= TRAIN_HOLD_GRAD_TOL):
+        raise AssertionError("train_fused_encoder hold: the card's step "
+                             "disagrees with the CPU's")
+    return launches
+
+
+# phase 28: each call's card run against its CPU run in f32 (TF32 off),
+# max |diff| over the reference's largest entry
+INCUBATE_RTOL = 1e-4
+# FusedMultiTransformer's cached decode against its uncached forward in
+# bf16, over the uncached output's largest entry: a few bf16 steps
+FMT_BF16_RTOL = 2 ** -5
+
+
+def _rel_err(got, want):
+    return ((got.float().cpu() - want.float().cpu()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-30))
+
+
+def incubate_calls(card, torch):
+    """Phase 28. One call each on the card, at a model's width, held
+    against its CPU run in f32 (INCUBATE_RTOL) unless said: fused_moe at
+    MOE_RUNG's widths (512 tokens; also weight_only_int8);
+    variable_length_memory_efficient_attention at bert_base's (causal,
+    ragged lengths, an additive mask); fused_gate_attention at an
+    Evoformer row attention (256 x 256, 8 heads of 32, gating, a
+    nonbatched bias); softmax_mask_fuse and its upper-triangle form on
+    [4, 12, 512, 512] scores; fused_dot_product_attention at [32, 512, 12,
+    64] in bf16 with a custom scale, exactly one flash forward and nothing
+    else, held to the f32 composite within FLASH_TOL; FusedMultiTransformer
+    at gpt3_1p3b's widths, depth 2, bf16: a 16-token prefill and one
+    cached step against the uncached 17-token forward (FMT_BF16_RTOL);
+    PTQ (calibrate, convert) and a QAT AdamW step on gpt3_tiny, card
+    against CPU. Returns the launches of fused_dot_product_attention."""
+    from paddle_tpu_torch import incubate, quantization
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt3_1p3b,
+                                         gpt3_tiny)
+    from paddle_tpu_torch.nn.functional._attn_math import masked_attention
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+
+    def arr(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def both(fn, *arrays):
+        """fn on the card and on the CPU: (card result, cpu result, s)."""
+        t0 = time.perf_counter()
+        outs = [fn(*[torch.as_tensor(a, device=d) for a in arrays])
+                for d in ("cuda", "cpu")]
+        torch.cuda.synchronize()
+        return outs[0], outs[1], time.perf_counter() - t0
+
+    rows, bad = {}, []
+
+    def hold(name, got, want, tol=INCUBATE_RTOL, **extra):
+        err = _rel_err(got, want)
+        rows[name] = {"rel_err": err, "tol": tol, **extra}
+        if not err <= tol:
+            bad.append(name)
+
+    E, K, M, H = (MOE_RUNG[k] for k in ("E", "topk", "M", "H"))
+    moe = [arr(512, M), arr(M, E, scale=0.05), arr(E, M, 2 * H, scale=0.03),
+           arr(E, H, M, scale=0.03)]
+    g, c, s = both(lambda *t: IF.fused_moe(*t, moe_topk=K), *moe)
+    hold("fused_moe", g, c, seconds=s)
+    # int8 expert weights, one scale an (expert, output channel)
+    s1, s2 = (np.abs(w).max(axis=1) / 127 for w in moe[2:])
+    q1, q2 = (np.clip(np.round(w / sc[:, None]), -128, 127).astype(np.int8)
+              for w, sc in zip(moe[2:], (s1, s2)))
+    g, c, s = both(lambda x, gw, a, b, sa, sb: IF.fused_moe(
+        x, gw, a, b, ffn1_scale=sa, ffn2_scale=sb,
+        quant_method="weight_only_int8", moe_topk=K),
+        moe[0], moe[1], q1, q2, s1, s2)
+    hold("fused_moe_weight_only_int8", g, c, seconds=s)
+
+    lens = np.asarray([512, 300, 77, 1], np.int32)
+    g, c, s = both(lambda q, k, v, m, ql: IF.variable_length_memory_efficient_attention(
+        q, k, v, ql, ql, mask=m, causal=True),
+        arr(4, 12, 512, 64), arr(4, 12, 512, 64), arr(4, 12, 512, 64),
+        arr(4, 1, 512, 512), lens)
+    hold("variable_length_memory_efficient_attention", g, c, seconds=s)
+
+    gate = [arr(1, 64, 256, 256), arr(3, 8, 32, 256, scale=0.06),
+            arr(256, 8, 32, scale=0.06), arr(8, 32), arr(8, 32, 256,
+                                                          scale=0.06),
+            arr(256), arr(1, 8, 256, 256), arr(1, 64, 1, 1, 256)]
+    g, c, s = both(lambda q, w, gw, gb, ow, ob, nb, m: IF.fused_gate_attention(
+        q, qkv_weight=w, gate_linear_weight=gw, gate_linear_bias=gb,
+        out_linear_weight=ow, out_linear_bias=ob, nonbatched_bias=nb,
+        attn_mask=m), *gate)
+    hold("fused_gate_attention", g, c, seconds=s)
+
+    sc = [arr(4, 12, 512, 512), arr(4, 1, 512, 512)]
+    g, c, s = both(incubate.softmax_mask_fuse, *sc)
+    hold("softmax_mask_fuse", g, c, seconds=s)
+    g, c, s = both(incubate.softmax_mask_fuse_upper_triangle, sc[0])
+    hold("softmax_mask_fuse_upper_triangle", g, c, seconds=s)
+
+    q, k, v = (torch.as_tensor(arr(32, 512, 12, 64), device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    _zero_counters()
+    out = IF.fused_dot_product_attention(q, k, v, scaling_factor=0.1)
+    torch.cuda.synchronize()
+    launches = _counters()
+    ref = masked_attention(q.float(), k.float(), v.float(), scale=0.1)
+    err = (out.float() - ref).abs().max().item()
+    rows["fused_dot_product_attention"] = {
+        "max_abs_err": err, "tol": FLASH_TOL["bfloat16"], "launches": launches}
+    if err > FLASH_TOL["bfloat16"] or launches != _expected(flash_fwd=1):
+        bad.append("fused_dot_product_attention")
+
+    cfg = gpt3_1p3b()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fmt = FusedMultiTransformer(cfg.hidden_size, cfg.num_heads,
+                                cfg.ffn_size, num_layers=2, generator=gen,
+                                device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():   # GPT's N(0, 0.02) in place of the stacked fans
+        for name, p in fmt.named_parameters():
+            if name.endswith("weight"):
+                p.normal_(0.0, cfg.initializer_range, generator=gen)
+    src = torch.as_tensor(arr(4, 17, cfg.hidden_size), device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        full = fmt(src)
+        caches = fmt.init_caches(4, 32, dtype=torch.bfloat16)
+        fmt(src[:, :16], caches=caches)
+        step_out, _ = fmt(src[:, 16:], caches=caches, time_step=16)
+    hold("fused_multi_transformer_cached_decode", step_out[:, 0],
+         full[:, 16], tol=FMT_BF16_RTOL, widths="gpt3_1p3b, 2 layers")
+    del fmt, caches
+
+    tiny = gpt3_tiny()
+    ids = rng.integers(0, tiny.vocab_size, (2, 32))
+    # one set of weights for both devices (the generators of the two
+    # devices draw different numbers from one seed)
+    state = GPTForCausalLM(tiny, device="cpu", seed=0).state_dict()
+
+    def tiny_model(dev):
+        m = GPTForCausalLM(tiny, device=dev)
+        m.load_state_dict(state)
+        return m
+
+    ptq_out = {}
+    for dev in ("cuda", "cpu"):
+        m = tiny_model(dev)
+        x = torch.as_tensor(ids, device=dev)
+        with torch.no_grad():
+            f32 = m(x)
+            ptq = quantization.PTQ()
+            ptq.quantize(m)
+            m(x)
+            ptq.convert(m)
+            n_q = sum(isinstance(s, quantization.QuantizedLinear)
+                      for s in m.modules())
+            ptq_out[dev] = (m(x), f32, n_q, ptq.activation_scales(),
+                            {k: b.cpu() for k, b in m.named_buffers()
+                             if k.endswith("weight_quant")})
+        qm = tiny_model(dev)
+        quantization.QAT().quantize(qm)
+        opt = AdamW(learning_rate=1e-3, parameters=qm.parameters())
+        w0 = qm.gpt.layers[0].self_attn.q_proj.weight.detach().clone()
+        loss = GPTPretrainingCriterion(tiny)(qm(x), x)
+        loss.backward()
+        untouched = torch.equal(qm.gpt.layers[0].self_attn.q_proj.weight, w0)
+        opt.step()
+        moved = not torch.equal(qm.gpt.layers[0].self_attn.q_proj.weight, w0)
+        ptq_out[dev] += (loss.item(), untouched and moved)
+    (gq, gf, gn, gs, gw, gl, gok), (cq, cf, cn, cs, cw, cl, cok) = (
+        ptq_out["cuda"], ptq_out["cpu"])
+    hold("ptq_logits", gq, cq, n_quantized=gn)
+    int8_err = _rel_err(gq, gf)
+    scale_err = max(abs(gs[k] - cs[k]) / cs[k] for k in cs)
+    rows["ptq"] = {"layers_converted": gn, "int8_vs_f32_rel": int8_err,
+                   "payloads_equal": all(torch.equal(gw[k], cw[k]) for k in cw),
+                   "activation_scale_rel_diff": scale_err,
+                   "qat_loss_cuda": gl, "qat_loss_cpu": cl,
+                   "qat_weight_kept_then_stepped": gok and cok}
+    if not (gn == cn == 12 and rows["ptq"]["payloads_equal"]
+            and int8_err < 0.15 and scale_err <= INCUBATE_RTOL
+            and abs(gl - cl) <= INCUBATE_RTOL * abs(cl) and gok and cok):
+        bad.append("ptq/qat")
+    say(card, "incubate_calls " + json.dumps(rows))
+    if bad:
+        raise AssertionError(f"incubate_calls: {bad} disagree")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -6385,6 +7075,9 @@ def main():
                                              train_line)
     fp16_paged_launches, fp16_dense_launches = phase(serve_fp16, card, torch)
     half_hold_launches = phase(train_half_holds, card, torch)
+    blha_launches = phase(serve_block_attention, card, torch)
+    fused_enc_launches = phase(train_fused_encoder, card, torch)
+    incubate_launches = phase(incubate_calls, card, torch)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -6393,7 +7086,8 @@ def main():
              cp_launches, llama_serve_launches,
              llama_train_launches, moe_launches, ep_launches, varlen_launches,
              bert_launches, resnet_launches, unet_launches,
-             bert_dropout_launches, bert_eval_launches)
+             bert_dropout_launches, bert_eval_launches, blha_launches,
+             fused_enc_launches, incubate_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     # the fp16 paths (phases 23-25 and varlen_entry's fp16 call) launch the
     # same wrappers' f16 instantiations: counted apart, for the f16 rows

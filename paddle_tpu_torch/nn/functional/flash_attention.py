@@ -62,6 +62,7 @@ from ...ops.flash_attention import NEG_INF, flash_attention_fwd
 from ...ops.masked_flash import (flashmask_attention_fwd, flashmask_keep,
                                  varlen_flash_attention_fwd, varlen_keep,
                                  varlen_layout)
+from ._attn_math import repeat_kv
 from .common import _keep
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
@@ -76,14 +77,6 @@ def _drop(p, rate):
     return torch.where(keep, p / (1.0 - rate), 0.0)
 
 
-def _repeat_kv(k, v, H):
-    if k.shape[2] != H:
-        rep = H // k.shape[2]
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
-    return k, v
-
-
 def _ref_attention(q, k, v, mask=None, causal=False, scale=None,
                    dropout=0.0, zero_empty=False):
     """q/k/v [B, S, H, D] -> [B, S, H, D]; f32 softmax, then dropout on
@@ -92,7 +85,7 @@ def _ref_attention(q, k, v, mask=None, causal=False, scale=None,
     zeros, as the kernels', where it otherwise gives the mean of V."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    k, v = _repeat_kv(k, v, H)
+    k, v = repeat_kv(k, v, H)
     s = scale if scale is not None else 1.0 / (D ** 0.5)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * s
     if causal:

@@ -1,12 +1,22 @@
-"""Weight-only int8 quantization for serving (↔ paddle_tpu/quantization).
+"""Quantization (↔ paddle_tpu/quantization).
 
 `quantize_weight` is the per-channel symmetric abs-max quantizer,
 `QuantizedLinear` a Linear holding int8 weights and f32 per-output-channel
 scales, and `ptq_convert_for_serving` the convert pass the serving engines
 run under `serve_w8=True`. Buffer names (`weight_quant`, `weight_scale`) and
 shapes equal the JAX package's, so `convert.load_paddle_tpu_state` moves a
-converted JAX model over as it is. PTQ calibration, QAT and `fake_quant`
-are not ported yet (ROADMAP queue A item 5).
+converted JAX model over as it is.
+
+`PTQ` hooks an `AbsMaxObserver` on the forward of each layer of the
+`QuantConfig`'s types, calibration forwards feed it, and `convert` swaps
+each observed layer for a `QuantizedLinear` that carries the calibrated
+`activation_scale`. `QAT` fake-quantizes each such layer's weight for
+every forward (`fake_quant`: the straight-through estimator), leaving the
+stored weight as it is. The types default to `nn.Linear`, whose subclasses
+here include the single-device `ColumnParallelLinear` and
+`RowParallelLinear` of the decoder stacks; the JAX package's parallel
+layers are no `nn.Linear`, so its PTQ and QAT leave a GPT's projections
+alone (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -17,7 +27,8 @@ from torch import nn
 from .. import amp
 from ..nn import Linear
 
-__all__ = ["QuantizedLinear", "ptq_convert_for_serving", "quantize_weight"]
+__all__ = ["AbsMaxObserver", "PTQ", "QAT", "QuantConfig", "QuantizedLinear",
+           "fake_quant", "ptq_convert_for_serving", "quantize_weight"]
 
 
 def quantize_weight(w, bits=8, axis=0):
@@ -86,3 +97,134 @@ def ptq_convert_for_serving(model, bits=8):
         _swap_sublayer(model, name, QuantizedLinear(sub, bits=bits))
         n += 1
     return n
+
+
+def fake_quant(x, scale=None, bits=8):
+    """Quantize and dequantize x (↔ :48) at `scale` (abs-max / qmax of x
+    when None; 1 where it is 0), rounding half to even and clipping to
+    [-qmax - 1, qmax]: the forward sees the rounded value, the gradient
+    is the identity (x + (q - x).detach())."""
+    (x,) = amp.cast_inputs("fake_quant", x)
+    qmax = 2 ** (bits - 1) - 1
+    s = x.detach().abs().max() / qmax if scale is None else \
+        torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(x.detach() / s), -qmax - 1, qmax) * s
+    return x + (q - x).detach()
+
+
+class AbsMaxObserver:
+    """The largest |x| seen over the calibration forwards (↔ :64); its
+    scale is that / qmax, or 1 before anything nonzero was seen."""
+
+    def __init__(self, quant_bits=8):
+        self.quant_bits = quant_bits
+        self._absmax = 0.0
+
+    def observe(self, x):
+        self._absmax = max(self._absmax, float(x.detach().abs().max()))
+
+    def scale(self):
+        qmax = 2 ** (self.quant_bits - 1) - 1
+        return (self._absmax / qmax) if self._absmax else 1.0
+
+
+class QuantConfig:
+    """Which layer types quantize, and with which observers (↔ :80)."""
+
+    def __init__(self, activation=None, weight=None):
+        self.activation = activation
+        self.weight = weight or AbsMaxObserver
+        self._types = [Linear]
+
+    def add_type_config(self, layer_types, activation=None, weight=None):
+        types = (layer_types if isinstance(layer_types, (list, tuple))
+                 else [layer_types])
+        self._types.extend(t for t in types if t not in self._types)
+        if weight is not None:
+            self.weight = weight
+        if activation is not None:
+            self.activation = activation
+        return self
+
+
+def _targets(model, types):
+    """(name, layer) of each sublayer of `model` (not `model` itself) that
+    is an instance of one of `types`."""
+    return [(name, sub) for name, sub in model.named_modules()
+            if name and isinstance(sub, tuple(types))]
+
+
+class PTQ:
+    """Post-training quantization (↔ :138): `quantize` hooks an activation
+    observer on each target layer's forward, calibration forwards feed
+    them, `convert` swaps in the QuantizedLinears."""
+
+    def __init__(self, q_config: QuantConfig | None = None):
+        self.config = q_config or QuantConfig()
+        self._observed = []
+
+    def quantize(self, model, inplace=False):
+        self._observed = []
+        for name, sub in _targets(model, self.config._types):
+            if getattr(sub, "_ptq_observed", False):
+                continue
+            obs = (self.config.activation or AbsMaxObserver)()
+            orig = sub.forward
+
+            def fwd(x, _orig=orig, _obs=obs):
+                _obs.observe(x)
+                return _orig(x)
+
+            sub.forward = fwd
+            sub._ptq_observed = True
+            sub._ptq_orig_forward = orig
+            self._observed.append((model, name, sub, obs))
+        return model
+
+    def activation_scales(self):
+        return {name: obs.scale() for _, name, _, obs in self._observed}
+
+    def convert(self, model, inplace=False, bits=8):
+        """Swap each observed layer for its QuantizedLinear, which carries
+        the calibrated `activation_scale`. `model` must be the one that
+        `quantize` instrumented."""
+        if self._observed and self._observed[0][0] is not model:
+            raise ValueError("convert() must receive the same model instance "
+                             "that quantize() instrumented")
+        for owner, name, sub, obs in self._observed:
+            sub.forward = sub._ptq_orig_forward
+            del sub._ptq_observed, sub._ptq_orig_forward
+            ql = QuantizedLinear(sub, bits=bits)
+            ql.activation_scale = obs.scale()
+            _swap_sublayer(owner, name, ql)
+        return model
+
+
+class QAT:
+    """Quantization-aware training (↔ :227): each target layer's forward
+    runs on `fake_quant` of its weight; the stored weight is untouched and
+    takes the gradient straight through."""
+
+    def __init__(self, q_config: QuantConfig | None = None):
+        self.config = q_config or QuantConfig()
+
+    def quantize(self, model, inplace=False):
+        for _, sub in _targets(model, self.config._types):
+            if getattr(sub, "_qat_wrapped", False):
+                continue
+            orig = sub.forward
+
+            def fwd(x, _orig=orig, _sub=sub):
+                # the forward reads the fake-quantized weight in place of the
+                # parameter, which comes back afterwards
+                w = _sub._parameters["weight"]
+                _sub._parameters["weight"] = fake_quant(w)
+                try:
+                    return _orig(x)
+                finally:
+                    _sub._parameters["weight"] = w
+
+            sub.forward = fwd
+            sub._qat_wrapped = True
+        return model
