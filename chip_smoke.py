@@ -438,6 +438,18 @@ Phases; any failure raises and the script exits non-zero:
                 fused_dot_product_attention in bf16 (one flash forward);
                 FusedMultiTransformer at gpt3_1p3b's widths, 2 layers,
                 bf16, its cached decode against its uncached forward.
+29. paddle idiom — bench.py's gpt3_1p3b recipe written as a Paddle
+                script against the port (`import paddle_tpu_torch as
+                paddle`, `paddle.seed(0)`, `paddle.to_tensor` batches on
+                the card): the compiled DistributedTrainStep for a warm-up
+                and 3 timed steps beside phase 5's time, then the eager
+                loop (`crit(model(ids), labels)`, `backward()`,
+                `opt.step()`, `opt.clear_grad()`) for 2 steps, one under
+                `amp.debugging.collect_operator_stats()` (the kernels under
+                the reference's op names, one report a launch), each with
+                phase 5's exact launches; 2 layers in f32 on the card
+                against the CPU from one state (3 AdamW steps); save/load
+                bit for bit; the tensor checker on a planted inf weight.
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -449,6 +461,7 @@ card's name and power limit as nvidia-smi reports them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -6991,6 +7004,261 @@ def incubate_calls(card, torch):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 29: bench.py's gpt3_1p3b recipe in Paddle's own idiom
+# --------------------------------------------------------------------------- #
+
+def _idiom_model(paddle, cfg, dev, seed=0):
+    """gpt3 under the Paddle idiom: the device set with paddle.set_device,
+    the model, criterion and AdamW (lr 1e-4) made as a Paddle script makes
+    them."""
+    from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
+
+    paddle.set_device(dev)
+    paddle.seed(seed)
+    model = GPTForCausalLM(cfg, seed=seed)
+    return model, GPTPretrainingCriterion(cfg)
+
+
+def _idiom_step(paddle, model, crit, opt, ids, labels, amp_on):
+    """One eager step in Paddle's idiom; returns the loss as a float."""
+    from paddle_tpu_torch import amp
+
+    ctx = amp.auto_cast(True, level="O2", dtype="bfloat16") if amp_on else \
+        contextlib.nullcontext()
+    with ctx:
+        loss = crit(model(ids), labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return float(loss)
+
+
+def paddle_idiom(card, torch, train_line):
+    """Phase 29. bench.py's gpt3_1p3b recipe (`_decoder_step`,
+    `run_gpt_rung`) written against the port as a Paddle user writes it:
+    `import paddle_tpu_torch as paddle`, `paddle.seed(0)`,
+    `paddle.to_tensor` batches on the card.
+
+    a. the compiled step, DistributedTrainStep(...)(ids, labels) with
+       `float(loss)`: a warm-up, 3 timed steps; step time beside phase 5's,
+       peak memory, the five kernels' launches (as phase 5's, exactly);
+    b. the eager loop at the same size: crit(model(ids), labels),
+       backward, opt.step(), opt.clear_grad() under auto_cast O2, 2 steps
+       with the same launches; one inside collect_operator_stats(), whose
+       op list must hold the kernels under the reference's names, one
+       report per launch;
+    c. 2 layers at the width in f32 (TF32 off): the eager loop on the card
+       against the same loop on the CPU from the same weights
+       (set_state_dict), 3 AdamW steps; the losses and step-1 gradients
+       within phase 6's limits, the parameters within lr a step;
+    e. paddle.save of the 2-layer model's state_dict (after amp.decorate
+       O2: bf16 and f32 tensors), paddle.load, set_state_dict into a fresh
+       model: every tensor equal bit for bit;
+    d. the tensor checker: one eager 2-layer step with one fc1 weight set
+       to inf under enable_tensor_checker(CHECK_NAN_INF_AND_ABORT) raises
+       NumericError naming `linear`; after disable_tensor_checker() the
+       same step runs through with no hook."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.framework import core
+
+    cfg, per_step, _, _ = _train_config("gpt3_1p3b")
+    B, S, timed, eager = 4, 2048, 3, 2
+    t_phase = time.perf_counter()
+
+    # a. the compiled step, as bench.py calls it
+    t0 = time.perf_counter()
+    model, crit = _idiom_model(paddle, cfg, "gpu")
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = optimizer.AdamW(learning_rate=1e-4, moment_dtype="bfloat16",
+                          parameters=model.parameters())
+    step = DistributedTrainStep(model, lambda lg, lb: crit(lg, lb), opt,
+                                amp_level="O2", amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
+    labels = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
+    if ids.place != paddle.CUDAPlace(0) or ids.dtype != paddle.int64:
+        raise AssertionError(f"paddle idiom: ids on {ids.place} {ids.dtype}")
+    build_s = time.perf_counter() - t0
+    warm = float(step(ids, labels))
+    _zero_counters()
+    reset_peak(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(ids, labels)) for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    compiled = _counters()
+    want = _expected(**{k: v * timed for k, v in per_step.items()})
+    if compiled != want:
+        raise AssertionError(f"paddle idiom compiled step: launches "
+                             f"{compiled}, expected {want}")
+    line_a = {"build_s": build_s, "warmup_loss": warm, "losses": losses,
+              "step_s": step_s, "phase5_step_s": train_line["step_s"],
+              "ratio_to_phase5": step_s / train_line["step_s"],
+              "tokens_per_s": B * S / step_s,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "launches": compiled, "launches_per_step": per_step}
+    say(card, "paddle idiom compiled step " + json.dumps(line_a))
+
+    # b. the eager loop at the same size, one step under the op statistics
+    _zero_counters()
+    reset_peak(torch)
+    times, eager_losses = [], []
+    for i in range(eager):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == eager - 1:
+            before = _counters()
+            with debugging.collect_operator_stats():
+                eager_losses.append(_idiom_step(paddle, model, crit, opt, ids,
+                                                labels, True))
+                stats = debugging.operator_stats()
+            in_stats = {k: v - before[k] for k, v in _counters().items()}
+        else:
+            eager_losses.append(_idiom_step(paddle, model, crit, opt, ids,
+                                            labels, True))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    eager_launches = _counters()
+    want = _expected(**{k: v * eager for k, v in per_step.items()})
+    if eager_launches != want:
+        raise AssertionError(f"paddle idiom eager loop: launches "
+                             f"{eager_launches}, expected {want}")
+    if core.op_check_hook() is not None:
+        raise AssertionError("paddle idiom: a hook left installed")
+    # each kernel under the reference's op name, one report per launch
+    names = {"flash_attention": "flash_fwd",
+             "flash_attention_grad": "flash_bwd_dq",
+             "layer_norm": "fused_norm", "layer_norm_grad": "fused_norm_dx"}
+    # (a call counts once under each dtype among its outputs)
+    counts = {op: max(stats.get(op, {}).values(), default=0) for op in names}
+    if (any(counts[op] != in_stats[k] for op, k in names.items())
+            or in_stats["flash_bwd_dkv"] != counts["flash_attention_grad"]):
+        raise AssertionError(f"paddle idiom: op list {counts} against the "
+                             f"launches {in_stats}")
+    if not all(math.isfinite(x) for x in losses + eager_losses):
+        raise AssertionError(f"paddle idiom: losses {losses} {eager_losses}")
+    line_b = {"losses": eager_losses, "step_s": times,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "launches": eager_launches,
+              "op_count": sum(sum(v.values()) for v in stats.values()),
+              "ops": {k: v for k, v in sorted(stats.items())}}
+    say(card, "paddle idiom eager loop " + json.dumps(line_b))
+    paths = {k: compiled[k] + eager_launches[k] for k in compiled}
+    del step, model, opt, crit, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. the 2-layer f32 hold, card against CPU
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B2, S2, steps, lr = 2, 256, 3, 1e-4
+    rng = np.random.default_rng(4)
+    ids_np = rng.integers(0, cfg2.vocab_size, (B2, S2))
+    labels_np = rng.integers(0, cfg2.vocab_size, (B2, S2))
+    results, params, state, models = {}, {}, None, {}
+    for dev in ("gpu", "cpu"):
+        t0 = time.perf_counter()
+        model, crit = _idiom_model(paddle, cfg2, dev, seed=2)
+        if state is None:
+            state = {k: v.cpu() for k, v in model.state_dict().items()}
+        elif model.set_state_dict(state) != ([], []):
+            raise AssertionError("paddle idiom: the state did not load")
+        opt = optimizer.AdamW(learning_rate=lr, parameters=model.parameters())
+        x, y = paddle.to_tensor(ids_np), paddle.to_tensor(labels_np)
+        grads, losses2 = {}, []
+        for i in range(steps):
+            loss = crit(model(x), y)
+            loss.backward()
+            if i == 0:
+                grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses2.append(float(loss))
+        key = "cuda" if dev == "gpu" else "cpu"
+        results[key] = (losses2, grads, time.perf_counter() - t0)
+        params[key] = {k: p.detach().cpu() for k, p in model.named_parameters()}
+        models[key] = (model, crit, x, y)
+    paddle.set_device("gpu")
+    _hold_verdict(card, "gpt3_1p3b paddle idiom", results, B2, S2)
+    # each AdamW step moves an element by about lr, so two runs from one
+    # state that disagree only by rounding (the k-projection biases, whose
+    # gradient is analytically zero, are rounding noise on either side)
+    # differ by at most lr a step
+    gaps = {k: (params["cuda"][k] - p).abs().max().item()
+            for k, p in params["cpu"].items()}
+    worst = max(gaps, key=gaps.get)
+    say(card, "paddle idiom hold parameters " + json.dumps({
+        "steps": steps, "lr": lr, "max_abs_diff": gaps[worst],
+        "worst": worst, "limit": lr * steps}))
+    if gaps[worst] > lr * steps:
+        raise AssertionError(f"paddle idiom: parameters part by {gaps[worst]} "
+                             f"at {worst}")
+    del models["cpu"], params
+
+    # e. save and load, bit for bit, bf16 and f32 tensors
+    model, crit, x, y = models["cuda"]
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpt.pdparams")
+        t0 = time.perf_counter()
+        paddle.save(model.state_dict(), path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = paddle.load(path)
+        load_s = time.perf_counter() - t0
+    fresh, _ = _idiom_model(paddle, cfg2, "gpu", seed=7)
+    amp.decorate(fresh, level="O2", dtype="bfloat16")
+    if fresh.set_state_dict(loaded) != ([], []):
+        raise AssertionError("paddle idiom: the saved state did not load")
+    mine, back = model.state_dict(), fresh.state_dict()
+    unequal = [k for k, v in mine.items()
+               if v.dtype != back[k].dtype or not torch.equal(v, back[k])]
+    dtypes = sorted({str(v.dtype) for v in back.values()})
+    say(card, "paddle idiom save/load " + json.dumps({
+        "tensors": len(mine), "dtypes": dtypes, "file_bytes": nbytes,
+        "save_s": save_s, "load_s": load_s, "unequal": unequal}))
+    if unequal or "torch.bfloat16" not in dtypes:
+        raise AssertionError(f"paddle idiom: save/load changed {unequal}")
+    del fresh, loaded, back, mine
+
+    # d. the tensor checker on a planted inf (f32 weights again)
+    model.float()
+    opt = optimizer.AdamW(learning_rate=lr, parameters=model.parameters())
+    with torch.no_grad():
+        model.gpt.layers[0].mlp.fc1.weight[0, 0] = float("inf")
+    debugging.enable_tensor_checker(debugging.TensorCheckerConfig(
+        True, debug_mode=debugging.DebugMode.CHECK_NAN_INF_AND_ABORT))
+    try:
+        _idiom_step(paddle, model, crit, opt, x, y, False)
+    except debugging.NumericError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("paddle idiom: the tensor checker let an inf "
+                             "weight through")
+    finally:
+        debugging.disable_tensor_checker()
+    if "`linear`" not in raised or core.op_check_hook() is not None:
+        raise AssertionError(f"paddle idiom: checker said {raised!r}")
+    unchecked = _idiom_step(paddle, model, crit, opt, x, y, False)
+    say(card, "paddle idiom tensor checker " + json.dumps({
+        "raised": raised, "hook_after_disable": core.op_check_hook(),
+        "unchecked_loss": unchecked}))
+    del models, model, opt, crit
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(card, f"paddle idiom: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     import torch
 
@@ -7078,6 +7346,7 @@ def main():
     blha_launches = phase(serve_block_attention, card, torch)
     fused_enc_launches = phase(train_fused_encoder, card, torch)
     incubate_launches = phase(incubate_calls, card, torch)
+    idiom_launches = phase(paddle_idiom, card, torch, train_line)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -7087,7 +7356,7 @@ def main():
              llama_train_launches, moe_launches, ep_launches, varlen_launches,
              bert_launches, resnet_launches, unet_launches,
              bert_dropout_launches, bert_eval_launches, blha_launches,
-             fused_enc_launches, incubate_launches)
+             fused_enc_launches, incubate_launches, idiom_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     # the fp16 paths (phases 23-25 and varlen_entry's fp16 call) launch the
     # same wrappers' f16 instantiations: counted apart, for the f16 rows

@@ -36,11 +36,70 @@ key-padding mask through the flash kernels' key bias) and the ResNet
 family (`vision.models`: conv, pooling, batch norm with Paddle's running
 statistics) with `optimizer.Momentum`; dropout and the other random
 draws from explicit generators (`seed`, `framework.random`), the
-learning-rate schedulers (`optimizer.lr`) and the rest of the optimizers.
-See ROADMAP.md for the rest.
+learning-rate schedulers (`optimizer.lr`) and the rest of the optimizers;
+the framework core and the tensor op surface (`framework`: `Tensor` over one
+torch tensor, `Parameter`, `to_tensor`, the grad modes, dtypes, flags,
+`save` / `load`; `autograd`; the ten `tensor/` modules with their `Tensor`
+methods and in-place variants; `amp.debugging`; `nn.Layer`, the base of
+every layer, whose `__call__` is the boundary between Paddle `Tensor`s and
+the plain torch tensors of the models and kernels), so a script written as
+Paddle users write it (`import paddle_tpu_torch as paddle`) runs on the
+card. See ROADMAP.md for the rest.
 """
 
-from .device import resolve_device
+from . import autograd, framework, tensor
+from .autograd import PyLayer, grad
+from .device import (CPUPlace, CUDAPlace, device_count, get_device,
+                     resolve_device, set_device)
+from .framework import (Parameter, Tensor, enable_grad, get_default_dtype,
+                        get_flags, is_grad_enabled, load, no_grad, save,
+                        set_default_dtype, set_flags, set_grad_enabled,
+                        to_tensor)
+from .framework.dtype import (  # noqa: F401
+    bfloat16,
+    bool_ as bool,  # noqa: A001
+    complex64,
+    complex128,
+    float16,
+    float32,
+    float64,
+    int8,
+    int16,
+    int32,
+    int64,
+    uint8,
+)
 from .framework.random import get_rng_state, seed, set_rng_state
+from .tensor import *  # noqa: F401,F403
+from .tensor import linalg  # namespace: paddle.linalg.*
+from .tensor.logic import is_tensor
+from . import (amp, device, distributed, incubate, inference, jit, nn,  # noqa: E402
+               optimizer, quantization, vision)
 
-__all__ = ["get_rng_state", "resolve_device", "seed", "set_rng_state"]
+__all__ = ["CPUPlace", "CUDAPlace", "Parameter", "PyLayer",
+           "Tensor", "autograd", "device_count", "enable_grad",
+           "get_default_dtype", "get_device", "get_flags", "get_rng_state",
+           "grad", "is_compiled_with_cuda", "is_compiled_with_custom_device",
+           "is_compiled_with_rocm", "is_compiled_with_xpu", "is_grad_enabled",
+           "is_tensor", "linalg", "load", "no_grad", "resolve_device", "save",
+           "seed", "set_default_dtype", "set_device", "set_flags",
+           "set_grad_enabled", "set_rng_state", "to_tensor",
+           *tensor.__all__]
+
+
+def is_compiled_with_cuda() -> bool:
+    """The port is built for CUDA: True (the reference, built for the TPU,
+    answers False)."""
+    return True
+
+
+def is_compiled_with_rocm() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def is_compiled_with_custom_device(name: str) -> bool:
+    return False

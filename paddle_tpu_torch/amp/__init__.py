@@ -303,3 +303,4 @@ class GradScaler:
         self._scale = float(state.get("scale", self._scale))
         self._good_steps = int(state.get("incr_count", 0))
         self._bad_steps = int(state.get("decr_count", 0))
+from . import debugging  # noqa: E402,F401  (paddle.amp.debugging)

@@ -44,6 +44,7 @@ from .....nn import functional as F
 from .....nn.layer.common import Embedding, Linear
 from .... import collective as C
 from .... import env as _env
+from .....nn.layer.layers import Layer
 
 __all__ = ["ColumnParallelLinear", "ParallelCrossEntropy",
            "RowParallelLinear", "VocabParallelEmbedding", "is_distributed",
@@ -244,7 +245,7 @@ def _mesh_mp_group():
     return None if mesh is None else _env.mesh_group(mesh, "mp")
 
 
-class ParallelCrossEntropy(torch.nn.Module):
+class ParallelCrossEntropy(Layer):
     """Per-token cross entropy (reduction "none") over logits whose
     vocabulary is cut over mp (reference :143); rows labelled
     `ignore_index` give 0. Over `mp_group`, else the global mesh's mp

@@ -36,13 +36,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from ... import collective as C
 from ....parallel.pipeline import (microbatch, pipeline_1f1b, pipeline_spmd,
                                    pp_all_reduce, unmicrobatch)
 from .pp_layers import PipelineLayer
 from .tensor_parallel import cut_over_mp
+from ....nn.layer.layers import Layer
 
 __all__ = ["PipelineParallel"]
 
@@ -51,7 +51,7 @@ def _tensor(a):
     return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
 
 
-class PipelineParallel(nn.Module):
+class PipelineParallel(Layer):
     def __init__(self, layers, hcg=None, strategy=None):
         super().__init__()
         if not isinstance(layers, PipelineLayer):

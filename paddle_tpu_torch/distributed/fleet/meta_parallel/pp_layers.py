@@ -27,6 +27,8 @@ from torch import nn
 
 from ... import collective as C
 from ... import env as _env
+from ....nn.layer.container import LayerList
+from ....nn.layer.layers import Layer
 
 __all__ = ["LayerDesc", "PipelineLayer", "SharedLayerDesc"]
 
@@ -72,7 +74,7 @@ def _pp_place():
     return dist.get_rank(pg), pg
 
 
-class PipelineLayer(nn.Module):
+class PipelineLayer(Layer):
     def __init__(self, layers, num_stages=None, topology=None, loss_fn=None,
                  seg_method="uniform", recompute_interval=0,
                  num_virtual_pipeline_stages=None):
@@ -108,7 +110,7 @@ class PipelineLayer(nn.Module):
             else:
                 raise TypeError(f"unsupported pipeline entry {d!r}")
         shared = {id(m) for m in self.shared_layers.values()}
-        self._layer_list = nn.ModuleList(
+        self._layer_list = LayerList(
             [f for _, f, _ in self.run_funcs
              if isinstance(f, nn.Module) and id(f) not in shared])
         self._share()

@@ -19,6 +19,7 @@ import torch
 from . import collective as C
 from . import env as _env
 from .train_step import full_state_dict, shard_params_for_stage3
+from ..nn.layer.layers import Layer
 
 __all__ = ["DataParallel", "group_sharded_parallel", "save_group_sharded_model"]
 
@@ -31,7 +32,7 @@ def _dp_group(group):
             if mesh is not None else C.get_group(0))
 
 
-class DataParallel(torch.nn.Module):
+class DataParallel(Layer):
     """paddle.DataParallel (reference parallel.py:23) over `group` (default:
     the global mesh's dp group, else every rank)."""
 

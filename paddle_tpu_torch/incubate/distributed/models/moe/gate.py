@@ -55,6 +55,7 @@ from ..... import amp
 from .....device import resolve_device
 from .....distributed import collective as C
 from .....nn.layer.common import Linear
+from .....nn.layer.layers import Layer
 
 __all__ = ["BaseGate", "GShardGate", "NaiveGate", "SwitchGate", "Tokens",
            "global_offsets"]
@@ -174,7 +175,7 @@ def _topk_dispatch(probs, k, capacity, normalize_topk, choice_keep=None,
     return combine, disp.sum(0), l_aux
 
 
-class BaseGate(nn.Module):
+class BaseGate(Layer):
     """↔ gate.py:104 (reference gate/base_gate.py): the expert counts, the
     aux loss, and the routing generator made from `seed` on `device`."""
 

@@ -79,6 +79,9 @@ from .....nn.layer.container import LayerList
 from .....ops.grouped_gemm import grouped_matmul, row_stride
 from .gate import (BaseGate, GShardGate, NaiveGate, SwitchGate, Tokens,
                    global_offsets)
+from .....nn.layer.layers import Layer
+from .....framework.core import report_op
+from .....framework.core import Parameter
 
 __all__ = ["ExpertFFN", "MoELayer"]
 
@@ -93,7 +96,7 @@ def _activation(name):
     return _ACTIVATIONS[name]
 
 
-class ExpertFFN(nn.Module):
+class ExpertFFN(Layer):
     """Stacked expert FFN (↔ moe_layer.py:89): every expert's weights in one
     [E, ...] tensor, w1 [E, M, H], b1 [E, 1, H], w2 [E, H, M], b2 [E, 1, M];
     weights Xavier-uniform from `generator`, biases zero (the reference's
@@ -111,12 +114,12 @@ class ExpertFFN(nn.Module):
         _activation(activation)
 
         def weight(*shape):
-            return nn.Parameter(init_weight(
+            return Parameter(init_weight(
                 torch.empty(*shape, device=dev, dtype=dtype), None,
                 "xavier_uniform", generator))
 
         def bias(*shape):
-            return nn.Parameter(torch.zeros(*shape, device=dev, dtype=dtype))
+            return Parameter(torch.zeros(*shape, device=dev, dtype=dtype))
 
         self.w1 = weight(num_experts, d_model, d_hidden)
         self.b1 = bias(num_experts, 1, d_hidden)
@@ -191,7 +194,7 @@ class _Combine(torch.autograd.Function):
         return _exchange(g, ctx.pg, ctx.n).sum(0), None, None
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """↔ moe_layer.py:130 — MoELayer(d_model, experts, gate, ...).
 
     `experts` is an `ExpertFFN` (the sorted fast path) or a list of modules,
@@ -307,8 +310,8 @@ class MoELayer(nn.Module):
 
         if pg is None:
             h = act(grouped_matmul(xs, w1, sizes).reshape(E, R, -1) + b1)
-            y = grouped_matmul(h.reshape(E * R, -1), w2, sizes).reshape(
-                E, R, M) + b2
+            y = report_op("expert_ffn", grouped_matmul(
+                h.reshape(E * R, -1), w2, sizes).reshape(E, R, M) + b2)
         else:
             y = self._experts_over_ranks(xs.view(E, R, M), sizes, Rc, w1, b1,
                                          w2, b2, act, tokens is None)
@@ -337,8 +340,8 @@ class MoELayer(nn.Module):
             sc = torch.clamp(mine - c * Rc, 0, Rc).to(torch.int32)
             h = act(grouped_matmul(xl.reshape(El * Rc, -1), w1, sc).reshape(
                 El, Rc, -1) + b1)
-            yl = grouped_matmul(h.reshape(El * Rc, -1), w2, sc).reshape(
-                El, Rc, -1) + b2
+            yl = report_op("expert_ffn", grouped_matmul(
+                h.reshape(El * Rc, -1), w2, sc).reshape(El, Rc, -1) + b2)
             ys.append(_Combine.apply(yl, pg, n))
         ways = 1 if same_tokens else 2
         moe_comm.note_a2a(f"moe/a2a/{self.ep_axis}x{n}",

@@ -25,6 +25,8 @@ from ....device import resolve_device
 from ..functional.fused_attention_ops import (
     fused_bias_dropout_residual_layer_norm, fused_feedforward,
     fused_multi_head_attention)
+from ....nn.layer.layers import Layer
+from ....framework.core import Parameter
 
 __all__ = ["FusedBiasDropoutResidualLayerNorm", "FusedFeedForward",
            "FusedMultiHeadAttention", "FusedTransformerEncoderLayer"]
@@ -67,7 +69,7 @@ class _Params:
                 fi, fo = _fans(tuple(shape))
                 lim = math.sqrt(6.0 / (fi + fo))
                 t.uniform_(-lim, lim, generator=self.gen)
-        return nn.Parameter(t)
+        return Parameter(t)
 
 
 def _one_rank(nranks):
@@ -77,7 +79,7 @@ def _one_rank(nranks):
             "ROADMAP item 1f")
 
 
-class FusedMultiHeadAttention(nn.Module):
+class FusedMultiHeadAttention(Layer):
     """↔ :35: qkv_weight [3, H, D, E] (or [E, 3E] under
     `transpose_qkv_wb`), qkv_bias, linear_weight [E, E], linear_bias, and
     the pre-LN (`normalize_before`) or post-LN scale and bias."""
@@ -146,7 +148,7 @@ class FusedMultiHeadAttention(nn.Module):
                 f"epsilon={self._epsilon}")
 
 
-class FusedFeedForward(nn.Module):
+class FusedFeedForward(Layer):
     """↔ :128: _linear1_weight [d, F], _linear2_weight [F, d], their
     biases, and the pre-LN (ln1) or post-LN (ln2) scale and bias."""
 
@@ -200,7 +202,7 @@ class FusedFeedForward(nn.Module):
                 f"normalize_before={self._normalize_before}")
 
 
-class FusedTransformerEncoderLayer(nn.Module):
+class FusedTransformerEncoderLayer(Layer):
     """↔ :204: `fused_attn` (FusedMultiHeadAttention) then `ffn`
     (FusedFeedForward); the attention and activation dropouts default to
     `dropout_rate`."""
@@ -239,7 +241,7 @@ class FusedTransformerEncoderLayer(nn.Module):
         return self.ffn(self.fused_attn(src, attn_mask=src_mask))
 
 
-class FusedBiasDropoutResidualLayerNorm(nn.Module):
+class FusedBiasDropoutResidualLayerNorm(Layer):
     """↔ :239: linear_bias, ln_scale and ln_bias [embed_dim]."""
 
     def __init__(self, embed_dim, dropout_rate=0.5, weight_attr=None,

@@ -38,11 +38,12 @@ from .... import amp
 from ....nn.functional._attn_math import masked_attention
 from ..functional import _apply_rope_one, _rope_tables
 from .fused_attention_layers import _Params
+from ....nn.layer.layers import Layer
 
 __all__ = ["FusedMultiTransformer"]
 
 
-class FusedMultiTransformer(nn.Module):
+class FusedMultiTransformer(Layer):
     """The stack of `num_layers` decoder layers (↔ :28): pre-norm only,
     "layernorm" or "rmsnorm", "gelu" or "relu", grouped-query attention
     with `gqa_group_size` query heads a kv head."""

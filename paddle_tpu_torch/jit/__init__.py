@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import amp
+from ..framework.core import Tensor
 from ..nn.clip import global_norm_scale, scale_grad
 from ..nn.functional.loss import record_reductions
 
@@ -105,10 +106,13 @@ class TrainStep:
         return next(iter(self.params.values())).device
 
     def _batch(self, xs):
+        """The step's inputs as tensors on the model's device: a Paddle
+        `Tensor` by its held tensor (never through the host), a torch
+        tensor as it is, host data through numpy."""
         dev = self._device()
+        xs = [x._value if isinstance(x, Tensor) else x for x in _as_list(xs)]
         return [x.to(dev) if isinstance(x, torch.Tensor)
-                else torch.as_tensor(np.asarray(x), device=dev)
-                for x in _as_list(xs)]
+                else torch.as_tensor(np.asarray(x), device=dev) for x in xs]
 
     def _batches(self, inputs, labels):
         return self._batch(inputs), self._batch(labels)

@@ -37,6 +37,7 @@ from ..nn import (Dropout, Embedding, LayerNorm, Linear, TransformerEncoder,
                   TransformerEncoderLayer)
 from ..nn import functional as F
 from ..nn.functional.loss import note_reduction
+from ..nn.layer.layers import Layer
 
 __all__ = ["BertConfig", "BertModel", "BertForPretraining",
            "BertForSequenceClassification", "BertPretrainingCriterion",
@@ -75,7 +76,7 @@ def _add(a, b):
     return torch.add(*amp.cast_inputs("add", a, b))
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, cfg: BertConfig, *, generator, device, dtype):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
@@ -100,7 +101,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(h))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, cfg: BertConfig, *, generator, device, dtype):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size,
@@ -111,7 +112,7 @@ class BertPooler(nn.Module):
         return F.tanh(self.dense(hidden[:, 0]))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Encoder trunk; returns (sequence_output, pooled_output). `seed`
     seeds the generator the weights are drawn from (a model built inside a
     head shares the head's generator)."""
@@ -151,7 +152,7 @@ def _device_kw(device, dtype, seed):
                 generator=torch.Generator(device=dev).manual_seed(int(seed)))
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """Masked-LM and NSP heads; forward returns (mlm_logits [B, M, V] at
     the masked positions, or [B, S, V] without them, nsp_logits [B, 2])."""
 
@@ -182,7 +183,7 @@ class BertForPretraining(nn.Module):
         return mlm_logits, self.nsp_head(pooled)
 
 
-class BertPretrainingCriterion(nn.Module):
+class BertPretrainingCriterion(Layer):
     """Masked-LM cross entropy over the slots whose label is >= 0 (a mean
     over them; -100 pads a slot) plus the NSP cross entropy (a mean over
     the batch). It notes both reductions with their terms
@@ -212,7 +213,7 @@ class BertPretrainingCriterion(nn.Module):
         return mlm + nsp
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     def __init__(self, cfg: BertConfig, num_classes=2, *, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()

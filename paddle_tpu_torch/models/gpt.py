@@ -131,7 +131,7 @@ from ..distributed.fleet.utils.sequence_parallel_utils import (
     mark_as_sequence_parallel_parameter,
 )
 from ..incubate.nn.functional import fused_rotary_position_embedding, swiglu
-from ..nn import Dropout, Embedding, LayerNorm, RMSNorm
+from ..nn import Dropout, Embedding, LayerList, LayerNorm, RMSNorm
 from ..nn import functional as F
 from ..nn.functional.loss import note_reduction
 from ..ops.decode_attention import (
@@ -139,6 +139,8 @@ from ..ops.decode_attention import (
     paged_kv_write,
     paged_kv_write_q8,
 )
+from ..nn.layer.layers import Layer
+from ..framework.core import report_op
 
 __all__ = [
     "GPTConfig",
@@ -324,7 +326,7 @@ def _linear_kw(config: GPTConfig, generator, device, dtype):
                 has_bias=config.norm_type == "layernorm")
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     """Multi-head / grouped-query causal self-attention, over this rank's
     heads once cut over mp (`num_heads`, `num_kv_heads`)."""
 
@@ -414,7 +416,7 @@ class GPTAttention(nn.Module):
         return out
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     """FFN: fc1 -> exact-erf GELU -> fc2, or with `activation="swiglu"`
     down_proj(swiglu(gate_proj(x), up_proj(x)))."""
 
@@ -475,10 +477,10 @@ def _lm_logits(config, h, embed_tokens, lm_head):
     if embed_tokens.mp_group is not None:
         h = c_identity(h, embed_tokens.mp_group)
     h, w = amp.cast_inputs("lm_head_tied", h, embed_tokens.weight)
-    return torch.matmul(h, w.t())
+    return report_op("lm_head_tied", torch.matmul(h, w.t()))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-norm decoder block."""
 
     def __init__(self, config: GPTConfig, *, generator, device, dtype):
@@ -519,7 +521,7 @@ class GPTDecoderLayer(nn.Module):
         return x
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Embeddings + decoder stack + final norm."""
 
     mp_group = None
@@ -536,7 +538,7 @@ class GPTModel(nn.Module):
                 config.max_position_embeddings, config.hidden_size,
                 weight_std=std, **kw)
         self.embed_dropout = Dropout(config.hidden_dropout_prob)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [GPTDecoderLayer(config, **kw) for _ in range(config.num_layers)])
         self.final_norm = _make_norm(config, device, dtype)
 
@@ -582,7 +584,7 @@ class GPTModel(nn.Module):
         return h
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """LM head on top of GPTModel: tied to the token embedding, or with
     `tie_word_embeddings=False` (LLaMA) its own `lm_head` linear
     [hidden, vocab] without bias.
@@ -636,7 +638,7 @@ class GPTForCausalLM(nn.Module):
                 for _ in range(cfg.num_layers)]
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Masked next-token cross entropy (↔ gpt.py:525-537) over logits whose
     vocabulary may be cut over mp: the mean of the per-token losses, or
     their mean over `loss_mask` when one is given. It notes the mean's

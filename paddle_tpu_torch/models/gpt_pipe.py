@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..distributed import env as _env
@@ -65,6 +64,8 @@ from ..parallel.pipeline import (microbatch, pipeline_1f1b,
                                  stage_rows, unmicrobatch)
 from .gpt import (GPTConfig, GPTDecoderLayer, _check_supported, _embed,
                   _lm_logits, _make_norm)
+from ..nn.layer.layers import Layer
+from ..framework.core import Parameter
 
 __all__ = ["GPTForCausalLMPipe", "stack_layered_state_dict",
            "unstack_to_layered_state_dict"]
@@ -74,7 +75,7 @@ def _stacked_name(template_name: str) -> str:
     return "stack__" + template_name.replace(".", "__")
 
 
-class GPTForCausalLMPipe(nn.Module):
+class GPTForCausalLMPipe(Layer):
     """GPT/LLaMA causal LM with stacked decoder parameters and a pipeline
     schedule over the mesh's pp group (see the module docstring).
 
@@ -134,7 +135,7 @@ class GPTForCausalLMPipe(nn.Module):
                  for n, _ in mod.named_parameters(recurse=False)}
         self._param_names = list(bufs)
         for name, p in template.named_parameters():
-            stacked = nn.Parameter(bufs.pop(name))
+            stacked = Parameter(bufs.pop(name))
             spec = getattr(p, "dist_attr", None) or (None,) * p.dim()
             stacked.dist_attr = ("pp", *spec)
             stacked.pp_stage = True

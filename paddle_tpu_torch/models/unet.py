@@ -34,6 +34,7 @@ from .. import amp
 from ..device import resolve_device
 from ..nn import (Conv2D, GroupNorm, LayerList, LayerNorm, Linear,
                   MultiHeadAttention, Silu)
+from ..nn.layer.layers import Layer
 
 __all__ = ["AttnBlock", "ResBlock", "UNetConfig", "UNetModel",
            "timestep_embedding", "unet_tiny"]
@@ -77,7 +78,7 @@ def timestep_embedding(t, dim, max_period=10000.0):
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-class ResBlock(nn.Module):
+class ResBlock(Layer):
     def __init__(self, in_c, out_c, emb_dim, groups, *, generator, device,
                  dtype):
         super().__init__()
@@ -99,7 +100,7 @@ class ResBlock(nn.Module):
         return _add(h, self.skip(x) if self.skip is not None else x)
 
 
-class AttnBlock(nn.Module):
+class AttnBlock(Layer):
     """Self-attention and cross-attention over the flattened positions."""
 
     def __init__(self, channels, num_heads, context_dim, groups, *, generator,
@@ -125,7 +126,7 @@ class AttnBlock(nn.Module):
         return _add(x, h.transpose(1, 2).reshape(B, C, H, W))
 
 
-class UNetModel(nn.Module):
+class UNetModel(Layer):
     """forward(x [B, C, H, W], timesteps [B], context [B, L, D]) ->
     [B, C, H, W]."""
 

@@ -7,12 +7,14 @@ from __future__ import annotations
 import torch
 
 from ... import amp
+from ...framework.core import reported
 from ...framework import random
 
 __all__ = ["gelu", "gumbel_softmax", "log_softmax", "relu", "rrelu", "silu",
            "softmax", "tanh"]
 
 
+@reported("gelu")
 def gelu(x, approximate=False, name=None):
     """GELU; exact erf form unless `approximate` (tanh form), as Paddle's.
     Casts for AMP as the op "gelu"."""
@@ -20,6 +22,7 @@ def gelu(x, approximate=False, name=None):
     return torch.nn.functional.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@reported("softmax")
 def softmax(x, axis=-1, dtype=None, name=None):
     """The softmax over `axis` (of x cast to `dtype` first, where given).
     Casts for AMP as the op "softmax" (black list: float32)."""
@@ -27,22 +30,26 @@ def softmax(x, axis=-1, dtype=None, name=None):
     return torch.softmax(x if dtype is None else x.to(dtype), dim=axis)
 
 
+@reported("log_softmax")
 def log_softmax(x, axis=-1, dtype=None, name=None):
     """log(softmax(x)) over `axis`, as `softmax`; the op "log_softmax"."""
     (x,) = amp.cast_inputs("log_softmax", x)
     return torch.log_softmax(x if dtype is None else x.to(dtype), dim=axis)
 
 
+@reported("relu")
 def relu(x, name=None):
     (x,) = amp.cast_inputs("relu", x)
     return torch.relu(x)
 
 
+@reported("tanh")
 def tanh(x, name=None):
     (x,) = amp.cast_inputs("tanh", x)
     return torch.tanh(x)
 
 
+@reported("silu")
 def silu(x, name=None):
     (x,) = amp.cast_inputs("silu", x)
     return torch.nn.functional.silu(x)

@@ -10,12 +10,14 @@ from __future__ import annotations
 import torch
 
 from ... import amp
+from ...framework.core import reported
 from ...framework import random
 
 __all__ = ["alpha_dropout", "dropout", "dropout2d", "dropout3d", "embedding",
            "linear"]
 
 
+@reported("linear")
 def linear(x, weight, bias=None, name=None):
     """y = x @ W (+ b), W stored [in, out] (Paddle's layout). Mixed input
     dtypes promote, as `jnp.matmul` does; a bf16 product accumulates in
@@ -26,6 +28,7 @@ def linear(x, weight, bias=None, name=None):
     return out if bias is None else out + bias
 
 
+@reported("embedding")
 def embedding(x, weight, name=None):
     """Row lookup `weight[x]` for integer ids x (padding_idx and sparse
     gradients come with the rest of the nn surface, ROADMAP queue A item 8)."""
@@ -40,6 +43,7 @@ def _keep(x, p, shape):
     return torch.rand(shape, generator=g, device=x.device) >= p
 
 
+@reported("dropout")
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
     """Dropout (↔ :63): the identity at p = 0 or outside training, where

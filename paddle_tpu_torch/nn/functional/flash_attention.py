@@ -58,6 +58,7 @@ from __future__ import annotations
 import torch
 
 from ... import amp
+from ...framework.core import report_op
 from ...ops.flash_attention import NEG_INF, flash_attention_fwd
 from ...ops.masked_flash import (flashmask_attention_fwd, flashmask_keep,
                                  varlen_flash_attention_fwd, varlen_keep,
@@ -138,8 +139,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         kb = _key_bias(m, q.shape[0]) if has_mask else None
         return flash_attention_fwd(q, k, v, causal=is_causal, key_bias=kb)
     q, k, v, m = amp.cast_inputs("sdpa", query, key, value, attn_mask)
-    return _ref_attention(q, k, v, mask=m, causal=is_causal,
-                          dropout=dropout_p if training else 0.0)
+    return report_op("sdpa", _ref_attention(
+        q, k, v, mask=m, causal=is_causal,
+        dropout=dropout_p if training else 0.0))
 
 
 def ring_flash_attention(query, key, value, causal=True, axis="sep",

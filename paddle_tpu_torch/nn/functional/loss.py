@@ -56,6 +56,7 @@ import math
 import torch
 
 from ... import amp
+from ...framework.core import reported
 
 __all__ = ["SparseCrossEntropy", "binary_cross_entropy",
            "binary_cross_entropy_with_logits", "class_center_sample",
@@ -116,6 +117,7 @@ class SparseCrossEntropy(torch.autograd.Function):
         return d.to(logits.dtype), None
 
 
+@reported("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):

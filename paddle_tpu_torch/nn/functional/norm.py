@@ -50,6 +50,7 @@ import contextvars
 import torch
 
 from ... import amp
+from ...framework.core import report_op
 from ...ops.fused_norm import layer_norm_fwd, rms_norm_fwd
 
 __all__ = ["batch_norm", "batch_stats_group", "batch_stats_over",
@@ -76,7 +77,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
         out = out * weight.float()
     if bias is not None:
         out = out + bias.float()
-    return out.to(x.dtype)
+    return report_op("layer_norm", out.to(x.dtype))
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, name=None):

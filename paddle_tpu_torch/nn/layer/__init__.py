@@ -2,6 +2,7 @@ from .activation import GELU, ReLU, Silu, Tanh
 from .common import (AlphaDropout, Dropout, Dropout2D, Dropout3D, Embedding,
                      Flatten, Identity, Linear)
 from .container import LayerList, Sequential
+from .layers import Layer
 from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                    CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, KLDivLoss,
                    L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
@@ -28,7 +29,7 @@ __all__ = ["AdaptiveAvgPool1D", "AlphaDropout", "Dropout2D", "Dropout3D", "Adapt
            "CosineEmbeddingLoss", "CrossEntropyLoss", "Dropout", "Embedding",
            "Flatten", "GELU", "GroupNorm", "HingeEmbeddingLoss", "Identity",
            "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "KLDivLoss",
-           "L1Loss", "LayerList", "LayerNorm", "Linear", "MSELoss",
+           "L1Loss", "Layer", "LayerList", "LayerNorm", "Linear", "MSELoss",
            "MarginRankingLoss", "MaxPool1D", "MaxPool2D", "MaxPool3D",
            "MultiHeadAttention", "NLLLoss", "RMSNorm", "ReLU", "Sequential",
            "Silu", "SmoothL1Loss", "SyncBatchNorm", "Tanh",

@@ -2,14 +2,14 @@
 
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["GELU", "ReLU", "Silu", "Tanh"]
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -17,7 +17,7 @@ class ReLU(nn.Module):
         return F.relu(x)
 
 
-class GELU(nn.Module):
+class GELU(Layer):
     def __init__(self, approximate=False, name=None):
         super().__init__()
         self.approximate = approximate
@@ -26,7 +26,7 @@ class GELU(nn.Module):
         return F.gelu(x, self.approximate)
 
 
-class Tanh(nn.Module):
+class Tanh(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -34,7 +34,7 @@ class Tanh(nn.Module):
         return F.tanh(x)
 
 
-class Silu(nn.Module):
+class Silu(Layer):
     def __init__(self, name=None):
         super().__init__()
 

@@ -17,6 +17,8 @@ from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
+from .layers import Layer
+from ...framework.core import Parameter
 
 __all__ = ["AlphaDropout", "Dropout", "Dropout2D", "Dropout3D", "Embedding",
            "Flatten", "Identity", "Linear", "init_weight"]
@@ -40,7 +42,7 @@ def init_weight(w, std, default, generator):
     return w
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = xW + b, weight stored [in_features, out_features]."""
 
     def __init__(self, in_features, out_features, bias_attr=None, *,
@@ -50,13 +52,13 @@ class Linear(nn.Module):
         dev = resolve_device(device)
         self._in_features = in_features
         self._out_features = out_features
-        self.weight = nn.Parameter(init_weight(
+        self.weight = Parameter(init_weight(
             torch.empty(in_features, out_features, device=dev, dtype=dtype),
             weight_std, "xavier_uniform", generator))
         if bias_attr is False:
             self.bias = None
         else:
-            self.bias = nn.Parameter(
+            self.bias = Parameter(
                 torch.zeros(out_features, device=dev, dtype=dtype))
 
     def forward(self, x):
@@ -66,7 +68,7 @@ class Linear(nn.Module):
         return f"in_features={self._in_features}, out_features={self._out_features}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Token lookup table [num_embeddings, embedding_dim]."""
 
     def __init__(self, num_embeddings, embedding_dim, *, weight_std=None,
@@ -76,7 +78,7 @@ class Embedding(nn.Module):
         dev = resolve_device(device)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
-        self.weight = nn.Parameter(init_weight(
+        self.weight = Parameter(init_weight(
             torch.empty(num_embeddings, embedding_dim, device=dev, dtype=dtype),
             weight_std, default_init, generator))
 
@@ -87,7 +89,7 @@ class Embedding(nn.Module):
         return f"num_embeddings={self._num_embeddings}, embedding_dim={self._embedding_dim}"
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def __init__(self, *args, **kwargs):
         super().__init__()
 
@@ -95,7 +97,7 @@ class Identity(nn.Module):
         return x
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Dims start_axis..stop_axis flattened into one (Paddle's defaults
     1 and -1)."""
 
@@ -109,7 +111,7 @@ class Flatten(nn.Module):
         return torch.flatten(x, self.start_axis, self.stop_axis)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """`nn.functional.dropout` in the layer's mode: the identity at p = 0
     or in eval mode, a mask from the port's generators in training."""
 
@@ -125,7 +127,7 @@ class Dropout(nn.Module):
         return f"p={self.p}, mode={self.mode}"
 
 
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     """`nn.functional.dropout2d`: whole channels of an NCHW (or NHWC)
     input dropped in training."""
 
@@ -138,7 +140,7 @@ class Dropout2D(nn.Module):
                            data_format=self.data_format)
 
 
-class Dropout3D(nn.Module):
+class Dropout3D(Layer):
     """`nn.functional.dropout3d`: whole channels of an NCDHW (or NDHWC)
     input dropped in training."""
 
@@ -151,7 +153,7 @@ class Dropout3D(nn.Module):
                            data_format=self.data_format)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     """`nn.functional.alpha_dropout` in training, the identity in eval."""
 
     def __init__(self, p=0.5, name=None):

@@ -5,17 +5,18 @@ from __future__ import annotations
 import collections
 
 from torch import nn
+from .layers import Layer
 
 __all__ = ["LayerList", "Sequential"]
 
 
-class LayerList(nn.ModuleList):
+class LayerList(nn.ModuleList, Layer):
     """paddle.nn.LayerList (↔ container.py:44): torch's ModuleList under
     Paddle's name; sublayers are named "0", "1", ... in both packages, so
     state_dict keys agree."""
 
 
-class Sequential(nn.Sequential):
+class Sequential(nn.Sequential, Layer):
     """paddle.nn.Sequential (↔ container.py:13): layers named "0", "1", ...,
     or by the keys of one OrderedDict, or by the names of (name, layer)
     pairs; called in order."""

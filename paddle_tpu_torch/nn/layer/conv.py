@@ -16,12 +16,14 @@ from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
+from .layers import Layer
+from ...framework.core import Parameter
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose"]
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _n = None
     _fn = None
 
@@ -50,8 +52,8 @@ class _ConvNd(nn.Module):
                         dtype=dtype)
         with torch.no_grad():
             nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=generator)
-        self.weight = nn.Parameter(w)
-        self.bias = (None if bias_attr is False else nn.Parameter(
+        self.weight = Parameter(w)
+        self.bias = (None if bias_attr is False else Parameter(
             torch.zeros(out_channels, device=dev, dtype=dtype)))
 
     def forward(self, x):
@@ -100,7 +102,7 @@ class Conv3D(_ConvNd):
                          bias_attr, data_format, **kw)
 
 
-class _ConvTransposeUnported(nn.Module):
+class _ConvTransposeUnported(Layer):
     def __init__(self, *args, **kwargs):
         super().__init__()
         raise NotImplementedError(

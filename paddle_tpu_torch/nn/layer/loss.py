@@ -7,6 +7,7 @@ from __future__ import annotations
 from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["BCELoss", "BCEWithLogitsLoss", "CTCLoss", "CosineEmbeddingLoss",
            "CrossEntropyLoss", "HingeEmbeddingLoss", "KLDivLoss", "L1Loss",
@@ -14,7 +15,7 @@ __all__ = ["BCELoss", "BCEWithLogitsLoss", "CTCLoss", "CosineEmbeddingLoss",
            "TripletMarginLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -35,7 +36,7 @@ class CrossEntropyLoss(nn.Module):
             label_smoothing=self.label_smoothing)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -44,7 +45,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -53,7 +54,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, self.reduction)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  name=None):
         super().__init__()
@@ -66,7 +67,7 @@ class NLLLoss(nn.Module):
                           self.reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -76,7 +77,7 @@ class BCELoss(nn.Module):
         return F.binary_cross_entropy(input, label, self.weight, self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -89,7 +90,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self.weight, self.reduction, self.pos_weight)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self.reduction = reduction
@@ -99,7 +100,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean", log_target=False):
         super().__init__()
         self.reduction = reduction
@@ -109,7 +110,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, self.reduction, self.log_target)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -120,7 +121,7 @@ class MarginRankingLoss(nn.Module):
                                      self.reduction)
 
 
-class CosineEmbeddingLoss(nn.Module):
+class CosineEmbeddingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -131,7 +132,7 @@ class CosineEmbeddingLoss(nn.Module):
                                        self.reduction)
 
 
-class TripletMarginLoss(nn.Module):
+class TripletMarginLoss(Layer):
     def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
                  reduction="mean", name=None):
         super().__init__()
@@ -141,7 +142,7 @@ class TripletMarginLoss(nn.Module):
         return F.triplet_margin_loss(input, positive, negative, *self.args)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin=1.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -151,7 +152,7 @@ class HingeEmbeddingLoss(nn.Module):
         return F.hinge_embedding_loss(input, label, self.margin, self.reduction)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         super().__init__()
         raise NotImplementedError(

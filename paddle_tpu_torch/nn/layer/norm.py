@@ -26,13 +26,15 @@ from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
+from .layers import Layer
+from ...framework.core import Parameter
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "GroupNorm",
            "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "LayerNorm",
            "RMSNorm", "SyncBatchNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
                  bias_attr=None, *, device=None, dtype=torch.float32):
         super().__init__()
@@ -41,9 +43,9 @@ class LayerNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = (None if weight_attr is False else nn.Parameter(
+        self.weight = (None if weight_attr is False else Parameter(
             torch.ones(self._normalized_shape, device=dev, dtype=dtype)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
+        self.bias = (None if bias_attr is False else Parameter(
             torch.zeros(self._normalized_shape, device=dev, dtype=dtype)))
 
     def forward(self, x):
@@ -54,7 +56,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self._normalized_shape}, epsilon={self._epsilon}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-6, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -65,14 +67,14 @@ class RMSNorm(nn.Module):
             raise ValueError("RMSNorm normalizes over the last axis only")
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = nn.Parameter(
+        self.weight = Parameter(
             torch.ones(self._normalized_shape, device=dev, dtype=dtype))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None,
@@ -84,9 +86,9 @@ class _BatchNormBase(nn.Module):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        self.weight = (None if weight_attr is False else nn.Parameter(
+        self.weight = (None if weight_attr is False else Parameter(
             torch.ones(num_features, device=dev, dtype=dtype)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
+        self.bias = (None if bias_attr is False else Parameter(
             torch.zeros(num_features, device=dev, dtype=dtype)))
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("_variance", torch.ones(num_features, device=dev))
@@ -159,14 +161,14 @@ class SyncBatchNorm(_BatchNormBase):
 def _unit_and_zero(n, weight_attr, bias_attr, dev, dtype):
     """(weight of ones, bias of zeros) as Parameters, None where the attr
     is False."""
-    w = (None if weight_attr is False else nn.Parameter(
+    w = (None if weight_attr is False else Parameter(
         torch.ones(n, device=dev, dtype=dtype)))
-    b = (None if bias_attr is False else nn.Parameter(
+    b = (None if bias_attr is False else Parameter(
         torch.zeros(n, device=dev, dtype=dtype)))
     return w, b
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  name=None, *, device=None, dtype=torch.float32):
@@ -190,7 +192,7 @@ class GroupNorm(nn.Module):
                 f"num_channels={self._num_channels}, epsilon={self._epsilon}")
 
 
-class _InstanceNormBase(nn.Module):
+class _InstanceNormBase(Layer):
     def __init__(self, num_features, epsilon=1e-05, momentum=0.9,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  name=None, *, device=None, dtype=torch.float32):

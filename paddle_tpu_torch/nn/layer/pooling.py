@@ -3,9 +3,9 @@ functional with the arguments it was built with, as the reference's."""
 
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
@@ -13,7 +13,7 @@ __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "MaxPool3D"]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     _fn = None
 
     def __init__(self, kernel_size, stride=None, padding=0, **kw):
@@ -52,7 +52,7 @@ class MaxPool3D(_Pool):
     _fn = "max_pool3d"
 
 
-class _AdaptivePool(nn.Module):
+class _AdaptivePool(Layer):
     _fn = None
 
     def __init__(self, output_size, **kw):

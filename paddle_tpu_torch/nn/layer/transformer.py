@@ -39,6 +39,7 @@ from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
+from .layers import Layer
 
 __all__ = ["MultiHeadAttention", "Transformer", "TransformerDecoder",
            "TransformerDecoderLayer", "TransformerEncoder",
@@ -58,7 +59,7 @@ def _add(a, b):
     return torch.add(*amp.cast_inputs("add", a, b))
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
@@ -126,7 +127,7 @@ class MultiHeadAttention(nn.Module):
         return out if len(outs) == 1 else tuple(outs)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -175,7 +176,7 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_cache(src)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList([encoder_layer] + [
@@ -200,7 +201,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -267,7 +268,7 @@ class TransformerDecoderLayer(nn.Module):
         return incremental, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList([decoder_layer] + [
@@ -296,7 +297,7 @@ class TransformerDecoder(nn.Module):
         return cache
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,

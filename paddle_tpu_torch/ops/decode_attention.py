@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..framework.core import report_op
 
 __all__ = ["DENSE_LAUNCHES", "KV_QMAX", "LAUNCHES", "NEG_INF", "Q8_LAUNCHES",
            "dense_chunk", "dense_decode_attention",
@@ -345,13 +346,14 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables, lengths,
     _, Hkv, ps, _ = key_cache.shape
     if scale is None:
         scale = D ** -0.5
+    quantized = kv_scales is not None
+    op = "paged_decode_attention_q8" if quantized else "paged_decode_attention"
     if q.device.type == "cpu":
         if kv_scales is None:
-            return paged_decode_attention_plain(q, key_cache, value_cache,
-                                                block_tables, lengths, scale)
-        return paged_decode_attention_q8_plain(
-            q, key_cache, value_cache, block_tables, lengths, scale, *scales)
-    quantized = kv_scales is not None
+            return report_op(op, paged_decode_attention_plain(
+                q, key_cache, value_cache, block_tables, lengths, scale))
+        return report_op(op, paged_decode_attention_q8_plain(
+            q, key_cache, value_cache, block_tables, lengths, scale, *scales))
     _cuda_ready("paged_decode_attention", q,
                 (key_cache, value_cache, *scales), (block_tables, lengths))
     es = key_cache.element_size()
@@ -384,7 +386,7 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables, lengths,
         err = lib.ptt_paged_decode_attention(*ptrs, *tail)
         _build.check(err, "ptt_paged_decode_attention")
         LAUNCHES += 1
-    return out
+    return report_op(op, out)
 
 
 def dense_decode_attention(q, key_cache, value_cache, lengths, scale=None):
@@ -415,8 +417,9 @@ def dense_decode_attention(q, key_cache, value_cache, lengths, scale=None):
     if scale is None:
         scale = D ** -0.5
     if q.device.type == "cpu":
-        return dense_decode_attention_plain(q, key_cache, value_cache,
-                                            lengths, scale)
+        return report_op("masked_multihead_attention",
+                         dense_decode_attention_plain(q, key_cache, value_cache,
+                                                      lengths, scale))
     if not (q.dtype == key_cache.dtype == value_cache.dtype):
         raise TypeError("dense_decode_attention: the kernel takes q and the "
                         "caches in one dtype")
@@ -439,7 +442,7 @@ def dense_decode_attention(q, key_cache, value_cache, lengths, scale=None):
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ptt_dense_decode_attention")
     DENSE_LAUNCHES += 1
-    return out
+    return report_op("masked_multihead_attention", out)
 
 
 def paged_kv_write(cache, new, block_tables, lengths):

@@ -62,6 +62,7 @@ import math
 import torch
 
 from . import _build
+from ..framework.core import report_op
 
 __all__ = ["DKV_LAUNCHES", "DQ_LAUNCHES", "FWD_LAUNCHES", "FlashAttention",
            "flash_attention_fwd", "flash_bwd_dkv",
@@ -451,7 +452,7 @@ class FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, key_bias, out, lse)
         ctx.causal = causal
         ctx.scale = scale
-        return out
+        return report_op("flash_attention", out)
 
     @staticmethod
     def backward(ctx, dout):
@@ -461,7 +462,9 @@ class FlashAttention(torch.autograd.Function):
         dq = flash_bwd_dq(q, k, v, key_bias, dout, lse, delta, causal, scale)
         dk, dv = flash_bwd_dkv(q, k, v, key_bias, dout, lse, delta, causal,
                                scale)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+        report_op("flash_attention_grad", (dq, dk, dv))
+        return dq, dk, dv, None, None, None
 
 
 def _group_sum(x, hkv):

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..framework.core import report_op
 
 __all__ = ["DX_LAUNCHES", "DxPlan", "FusedNorm", "LAUNCHES", "dx_plan",
            "layer_norm_fwd", "norm_bwd_dx", "norm_bwd_dx_plain", "norm_fwd",
@@ -215,6 +216,10 @@ def norm_bwd_dx(x2, weight, dy2, rstd, mean, kind):
     return dx
 
 
+# the reference's op names of the two norms (amp.debugging reads them)
+_OP_NAMES = {"ln": "layer_norm", "rms": "rms_norm"}
+
+
 class FusedNorm(torch.autograd.Function):
     """The norm over the last axis with its gradient (↔ `_fused_norm`'s
     custom VJP). Saves x, weight, rstd and mean; the backward runs the dx
@@ -229,7 +234,7 @@ class FusedNorm(torch.autograd.Function):
         ctx.kind = kind
         ctx.shape = x.shape
         ctx.bias_dtype = None if bias is None else bias.dtype
-        return out.reshape(x.shape)
+        return report_op(_OP_NAMES[kind], out.reshape(x.shape))
 
     @staticmethod
     def backward(ctx, dout):
@@ -247,6 +252,7 @@ class FusedNorm(torch.autograd.Function):
             dw = (dy2.float() * (x32 * rstd[:, None])).sum(0).to(weight.dtype)
         if need_b:
             db = dy2.float().sum(0).to(ctx.bias_dtype)
+        report_op(_OP_NAMES[ctx.kind] + "_grad", (dx, dw, db))
         return dx, dw, db, None, None
 
 

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..framework.core import report_op
 
 __all__ = ["FusedRope", "LAUNCHES", "RopePlan", "apply_fused_rope", "rope",
            "rope_plain", "rope_plan"]
@@ -212,14 +213,15 @@ class FusedRope(torch.autograd.Function):
     def forward(ctx, cos, sin, interleaved, *tensors):
         ctx.save_for_backward(cos, sin)
         ctx.interleaved = interleaved
-        return rope(tensors, cos, sin, interleaved)
+        return report_op("fused_rope", rope(tensors, cos, sin, interleaved))
 
     @staticmethod
     def backward(ctx, *douts):
         cos, sin = ctx.saved_tensors
         # (an unused output's gradient arrives as zeros: autograd
         # materializes it)
-        grads = rope(douts, cos, sin, ctx.interleaved, sin_sign=-1.0)
+        grads = report_op("fused_rope_grad", rope(
+            douts, cos, sin, ctx.interleaved, sin_sign=-1.0))
         return (None, None, None, *grads)
 
 

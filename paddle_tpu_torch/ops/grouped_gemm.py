@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..framework.core import report_op
 from .flash_attention import HALF
 
 __all__ = ["BM", "GroupedMatmul", "LAUNCHES", "computed_rows",
@@ -185,6 +186,7 @@ class GroupedMatmul(torch.autograd.Function):
         l3 = torch.where(live, lhs.reshape(E, R, -1), zero)
         d3 = torch.where(live, dout.reshape(E, R, -1), zero)
         drhs = torch.bmm(l3.transpose(1, 2), d3)
+        report_op("expert_ffn_grad", (dlhs, drhs))
         return dlhs, drhs.to(rhs.dtype), None
 
 

@@ -92,6 +92,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..framework.core import report_op
 from .flash_attention import (HALF, _attend, _bwd_checks, _bwd_operands,
                               _check, _cut, _device_checks, _dkv, _dq,
                               _fwd_operands, _fwd_outputs, _fwd_result,
@@ -386,7 +387,7 @@ class FlashmaskAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, idx, out, lse, cls)
         ctx.causal = causal
         ctx.scale = scale
-        return out
+        return report_op("flashmask_attention", out)
 
     @staticmethod
     def backward(ctx, dout):
@@ -397,7 +398,9 @@ class FlashmaskAttention(torch.autograd.Function):
                               cls)
         dk, dv = flashmask_bwd_dkv(q, k, v, idx, dout, lse, delta, causal,
                                    scale, cls)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+        report_op("flashmask_attention_grad", (dq, dk, dv))
+        return dq, dk, dv, None, None, None
 
 
 def flashmask_attention_fwd(q, k, v, startend_row_indices, causal=True,
@@ -776,7 +779,7 @@ class VarlenAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, out, lse, cls, *layout)
         ctx.causal = causal
         ctx.scale = scale
-        return out
+        return report_op("flash_attn_unpadded", out)
 
     @staticmethod
     def backward(ctx, dout):
@@ -788,7 +791,9 @@ class VarlenAttention(torch.autograd.Function):
                            cls)
         dk, dv = varlen_bwd_dkv(q, k, v, layout, dout, lse, delta, causal,
                                 scale, cls)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+        report_op("flash_attn_unpadded_grad", (dq, dk, dv))
+        return dq, dk, dv, None, None, None
 
 
 def varlen_flash_attention_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, scale,

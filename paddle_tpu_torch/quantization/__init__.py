@@ -26,6 +26,7 @@ from torch import nn
 
 from .. import amp
 from ..nn import Linear
+from ..nn.layer.layers import Layer
 
 __all__ = ["AbsMaxObserver", "PTQ", "QAT", "QuantConfig", "QuantizedLinear",
            "fake_quant", "ptq_convert_for_serving", "quantize_weight"]
@@ -45,7 +46,7 @@ def quantize_weight(w, bits=8, axis=0):
     return q, scale.float()
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Layer):
     """An int8-weight Linear (↔ JAX :99): the [in, out] weight as int8
     `weight_quant` with one f32 `weight_scale` per output column, and the
     Linear's bias. forward computes x @ (w_q * scale) + bias in x's dtype,

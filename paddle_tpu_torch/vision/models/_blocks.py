@@ -4,14 +4,14 @@ paddle_tpu/vision/models/_blocks.py)."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ... import nn as pnn
+from ...nn.layer.layers import Layer
 
 __all__ = ["ConvBNReLU"]
 
 
-class ConvBNReLU(nn.Module):
+class ConvBNReLU(Layer):
     """Conv2D (no bias) + BatchNorm2D + ReLU."""
 
     def __init__(self, in_ch, out_ch, k, stride=1, padding=0, *,

@@ -20,6 +20,7 @@ from torch import nn
 from ... import amp
 from ... import nn as pnn
 from ...device import resolve_device
+from ...nn.layer.layers import Layer
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
            "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
@@ -30,7 +31,7 @@ def _add(a, b):
     return torch.add(*amp.cast_inputs("add", a, b))
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -58,7 +59,7 @@ class BasicBlock(nn.Module):
         return self.relu(_add(out, identity))
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -91,7 +92,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(_add(out, identity))
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     _LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
                101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
