@@ -136,17 +136,14 @@ Phases; any failure raises and the script exits non-zero:
                 register-A products on the bf16 wgmma, P packed to bf16,
                 the grouped GEMM's transposed B on the bf16 wgmma): at its
                 case every one must
-                fail the limits of phase 2. Only the sources a fault
-                touches are compiled again, and without their f16
-                instantiations where the case is not f16; a fault in a
-                header that the flash, flashmask, varlen and grouped-GEMM
-                sources share reaches only the source its case runs (the
-                others keep their objects).
-2c. clocks    — the varlen dQ and dK/dV at the path's shape rebuilt with
-                a time stamp at each CTA's start and end: the SMs' busy
-                share, the idle tail, and the durations replayed in launch
-                order and longest first; dK/dV in its order by class count
-                and in key-tile order.
+                fail the limits of phase 2. Only the source a fault
+                touches is compiled again, and only for what its case
+                launches: an attention source at the case's dtype and
+                head-dim tile width, the grouped GEMM at its dtype
+                (csrc/common.cuh PTT_ONLY_DTYPE / PTT_ONLY_WIDTH); a fault
+                in a header that the flash, flashmask, varlen and
+                grouped-GEMM sources share reaches only the source its case
+                runs (the others keep their objects).
 3. serve      — gpt3_1p3b at full width and depth in bf16, random weights
                 from a seed, through inference.create_serving_engine (paged,
                 16 rows, 512 tokens, page size 32) over 12 requests of the
@@ -450,6 +447,34 @@ Phases; any failure raises and the script exits non-zero:
                 phase 5's exact launches; 2 layers in f32 on the card
                 against the CPU from one state (3 AdamW steps); save/load
                 bit for bit; the tensor checker on a planted inf weight.
+30. observed train and resume — the train cell's recipe (phase 5's
+                gpt3_1p3b, 24 layers, 4 x 2048, O2 bf16, bf16 moments,
+                recompute) under the port's telemetry: (a) bench.py's
+                --emit-metrics, a StepTimeline writing
+                chiprun_out/phase30/steps.jsonl around a warm-up and 3
+                timed steps (each record's dur_s, host syncs, spans,
+                overlap fraction; phase 5's launches a step); (b)
+                paddle_tpu_torch.profiler with the GPU target over two
+                steps (make_scheduler(closed=0, ready=1, record=1)): its
+                device trace (Kineto's, chiprun_out/phase30/device/, kept
+                gzipped) holds the spans and the kernels, and the device
+                Kernel Summary's calls of the hand-written kernels equal
+                the launch counters over the recorded step; (c) a
+                CheckpointManager(async_save=True) save of the whole
+                training state (7.9 GB), two steps while it writes, a
+                fresh model and step restored with restore_latest (every
+                parameter and moment bit for bit) and its next two steps
+                against the uninterrupted run's losses (bit for bit or
+                within 1e-4 relative); the free disk space first, the
+                bytes, the snapshot stall and the write, crc and load
+                seconds; (d) the paged gpt3_1p3b engine over phase 3's mix
+                with a timeline record a tick and the registry exported to
+                chiprun_out/phase30/serve.jsonl a tick: the registry's
+                window holds serving_tokens_total{engine="paged"} = the
+                tokens made and the TTFT count = the requests, and phase
+                3's paged decode launches; (e) the comm watchdog's host
+                library built on the card's host with g++, enabled across
+                (a)-(d): 0 timeouts and nothing in flight at the end.
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -2895,13 +2920,41 @@ def _route_fault(csrc, fname, source):
     (csrc / source).write_text(rerouted((csrc / source).read_text()))
 
 
+_DTYPE_CODE = {"float32": 0, "bfloat16": 1, "float16": 2}
+
+
+def _fault_flags(case):
+    """nvcc flags that keep, in a fault's faulty source, only what its case
+    launches (csrc/common.cuh's PTT_ONLY_DTYPE / PTT_ONLY_WIDTH): the
+    attention kernels at the case's dtype and head-dim tile width, the
+    grouped GEMM at its dtype; none for the other kernels, which build in
+    seconds."""
+    kind, _, name = case.partition(" ")
+    if kind == "grouped_gemm":
+        return [f"-DPTT_ONLY_DTYPE={_DTYPE_CODE[GG_CASES[name][6]]}"]
+    if kind == "flash":
+        D, dtype = FLASH_CASES[name][5], FLASH_CASES[name][8]
+    elif kind == "varlen":
+        D, dtype = VARLEN_CASES[name][4], VARLEN_CASES[name][6]
+    elif case in FLASHMASK_CASES:
+        D, dtype = FLASHMASK_CASES[case][5], FLASHMASK_CASES[case][9]
+    else:
+        return []
+    width = 64 if D <= 64 else 128 if D <= 128 else 192
+    return [f"-DPTT_ONLY_DTYPE={_DTYPE_CODE[dtype]}",
+            f"-DPTT_ONLY_WIDTH={width}"]
+
+
 def planted_kernel_faults(card, torch):
     """The attention, grouped-GEMM, dense-decode and norm limits must fail
     faulty kernels: for each fault of KERNEL_FAULTS, the kernels are built again
     from a copy of csrc/ (in a temporary directory, all builds in parallel)
     with the fault planted, and held at its case against the plain versions
     with phase 2's limits. A fault in a header that several attention
-    sources share is seen by its case's source alone (`_route_fault`)."""
+    sources share is seen by its case's source alone (`_route_fault`), and
+    the faulty source is built only for the instantiations its case
+    launches (`_fault_flags`); the other sources reuse the sound build's
+    objects."""
     import pathlib
     import shutil
     import tempfile
@@ -2913,7 +2966,7 @@ def planted_kernel_faults(card, torch):
     sound = _build.load_library()
     passed = []
     with tempfile.TemporaryDirectory() as tmp:
-        csrcs = {}
+        csrcs, flags = {}, {}
         for i, (fault, (fname, anchor, old, new, _)) in enumerate(
                 KERNEL_FAULTS.items()):
             csrc = pathlib.Path(tmp) / str(i) / "csrc"
@@ -2926,13 +2979,16 @@ def planted_kernel_faults(card, torch):
             source = _fault_source(case)
             if fname.endswith(".cuh") and source:
                 _route_fault(csrc, fname, source)
+            faulty = source if fname.endswith(".cuh") else fname
             csrcs[fault] = csrc
+            flags[fault] = {faulty: _fault_flags(case)} if faulty else {}
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(csrcs)) as pool:
             libs = dict(zip(csrcs, pool.map(
-                lambda c: _build.build_library(c, c.parent / "build",
-                                               _build.BUILD_DIR / "obj"),
-                csrcs.values())))
+                lambda f: _build.build_library(
+                    csrcs[f], csrcs[f].parent / "build",
+                    _build.BUILD_DIR / "obj", source_flags=flags[f]),
+                csrcs)))
         say(card, f"planted kernel faults: {len(libs)} builds in "
                   f"{time.perf_counter() - t0:.2f} s")
         try:
@@ -2952,147 +3008,6 @@ def planted_kernel_faults(card, torch):
             da._ARRIVALS.clear()
     if passed:
         raise AssertionError(f"the kernel limits pass faulty kernels: {passed}")
-
-
-# Per-CTA clocks (phase 2c): the varlen dQ and dK/dV kernels rebuilt from a
-# copy of csrc/ in which thread 0 of each CTA stamps %globaltimer at its
-# start and end, with its %smid, and an entry point that copies the stamps
-# out. CTA_CLOCK_ORDERS: the dK/dV CTAs' order as built (the policy's
-# `key_tile`) and in key-tile order (`key_tile` returning z).
-CTA_CLOCK_STAMP = """
-__device__ unsigned long long g_cta_clock[4 * 8192];
-__device__ __forceinline__ void cta_clock(int slot) {
-  if (threadIdx.x != 0) return;
-  unsigned long long t;
-  unsigned sm;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-  const int cta = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-  g_cta_clock[4 * cta + slot] = t;
-  if (slot == 0) g_cta_clock[4 * cta + 2] = sm;
-}
-"""
-CTA_CLOCK_ORDERS = {
-    "by class count": None,
-    "by key tile": ("int key_tile(int z) const { return order[z]; }",
-                    "int key_tile(int z) const { return z; }"),
-}
-
-
-def _stamped_csrc(csrc, order):
-    """csrc/ with the sm90 backward's CTAs stamped (CTA_CLOCK_STAMP) and
-    `ptt_cta_clocks(out, n)` in varlen_flash.cu; `order` an (old, new)
-    replacement in varlen_flash.cu or None."""
-    f = csrc / "flash_bwd_sm90.cuh"
-    s = f.read_text()
-    s = s.replace("constexpr int kStep = 64;", CTA_CLOCK_STAMP + "constexpr int kStep = 64;", 1)
-    for kern in ("flash_bwd_dq_sm90_kernel(", "flash_bwd_dkv_sm90_kernel("):
-        at = s.index("  using L = ", s.index(kern))
-        s = s[:at] + "  cta_clock(0);\n" + s[at:]
-        end = s.index("\n}\n", at) + 1  # the kernel's closing brace
-        s = s[:end] + "  __syncthreads();\n  cta_clock(1);\n" + s[end:]
-    f.write_text(s)
-    v = csrc / "varlen_flash.cu"
-    s = v.read_text()
-    if order:
-        if order[0] not in s:
-            raise RuntimeError(f"varlen_flash.cu has no {order[0]!r} to replace")
-        s = s.replace(order[0], order[1], 1)
-    v.write_text(s + """
-extern "C" int ptt_cta_clocks(void* out, int n) {
-  return cudaMemcpyFromSymbol(out, sm90::g_cta_clock, n * sizeof(unsigned long long));
-}
-""")
-
-
-def _greedy(durations, n_sm):
-    """The makespan of CTAs of these durations dispatched in this order,
-    each to the SM that frees first (one CTA an SM)."""
-    free = np.zeros(n_sm)
-    for d in durations:
-        free[free.argmin()] += d
-    return float(free.max())
-
-
-def varlen_cta_clocks(card, torch):
-    """Phase 2c: per-CTA clocks of the varlen dQ and dK/dV at the path's
-    shape, for each order of CTA_CLOCK_ORDERS: the span from the first
-    CTA's start to the last one's end, the SMs' busy share of it, the mean
-    time an SM sits idle at the end, and the measured durations replayed
-    on the card's SMs in launch order and longest first (what any order
-    could reach) beside their sum over the SMs (no idle time)."""
-    import ctypes
-    import pathlib
-    import shutil
-    import tempfile
-    from concurrent.futures import ThreadPoolExecutor
-
-    from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import masked_flash as mf
-
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    q, k, v, dout, layout, _, _, causal, _ = _varlen_inputs(torch, gen, "path")
-    scale = q.shape[-1] ** -0.5
-    cls = _varlen_classes(mf, torch, q, k, layout, causal)
-    out, lse = mf.varlen_fwd_plain(q, k, v, layout, causal, scale)
-    delta = (dout.float() * out.float()).sum(-1).transpose(0, 1).contiguous()
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    n_kt = -(-k.shape[0] // 128)
-    runs = {
-        "dkv": (lambda: mf.varlen_bwd_dkv(q, k, v, layout, dout, lse, delta,
-                                          causal, scale, cls), k.shape[1] * n_kt),
-        "dq": (lambda: mf.varlen_bwd_dq(q, k, v, layout, dout, lse, delta,
-                                        causal, scale, cls),
-               q.shape[1] * -(-q.shape[0] // 128)),
-    }
-    sound = _build.load_library()
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            csrcs = {}
-            for i, (name, order) in enumerate(CTA_CLOCK_ORDERS.items()):
-                csrc = pathlib.Path(tmp) / str(i) / "csrc"
-                shutil.copytree(_build.CSRC, csrc)
-                _stamped_csrc(csrc, order)
-                csrcs[name] = csrc
-            with ThreadPoolExecutor(len(csrcs)) as pool:
-                libs = dict(zip(csrcs, pool.map(
-                    lambda c: _build.build_library(c, c.parent / "build",
-                                                   _build.BUILD_DIR / "obj"),
-                    csrcs.values())))
-            for name, lib in libs.items():
-                _build._LIB = _build.open_library(lib)
-                _build._LIB.ptt_cta_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-                for kernel, (fn, n_cta) in runs.items():
-                    if kernel == "dq" and name != "by class count":
-                        continue  # the order is dK/dV's alone
-                    spans, r = [], None
-                    for _ in range(4):
-                        fn()
-                        torch.cuda.synchronize()
-                        buf = (ctypes.c_ulonglong * (4 * n_cta))()
-                        _build.check(_build._LIB.ptt_cta_clocks(buf, 4 * n_cta),
-                                     "ptt_cta_clocks")
-                        r = np.frombuffer(buf, dtype=np.uint64).reshape(
-                            n_cta, 4)[:, :3].astype(np.int64)
-                        spans.append(float(r[:, 1].max() - r[:, 0].min()) / 1e3)
-                    start, end = r[:, 0] - r[:, 0].min(), r[:, 1] - r[:, 0].min()
-                    dur, span = end - start, float(end.max())
-                    last = np.array([end[r[:, 2] == i].max()
-                                     for i in np.unique(r[:, 2])])
-                    say(card, f"cta clocks varlen {kernel} {name} " + json.dumps({
-                        "ctas": n_cta, "sms": int(len(last)),
-                        "span_us": spans, "busy_share": float(dur.sum()) / (n_sm * span),
-                        "mean_idle_tail_us": float((span - last).mean()) / 1e3,
-                        "cta_us": {"min": float(dur.min()) / 1e3,
-                                   "median": float(np.median(dur)) / 1e3,
-                                   "max": float(dur.max()) / 1e3},
-                        "replay_launch_order_us": _greedy(dur, n_sm) / 1e3,
-                        "replay_longest_first_us": _greedy(np.sort(dur)[::-1], n_sm) / 1e3,
-                        "no_idle_us": float(dur.sum()) / n_sm / 1e3}))
-    finally:
-        _build._LIB = sound
-    del q, k, v, dout, out
-    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -3156,18 +3071,22 @@ def serve(card, torch, which="gpt3_1p3b"):
         eng.add_request(prompt, max_new_tokens=max_new, temperature=temp)
     torch.cuda.synchronize()
     _zero_counters()
+    since = _registry().snapshot()
     t_start = time.perf_counter()
     peak_used = 0
+    steps = []
     while eng.has_work():
+        t = time.perf_counter()
         eng.step()
+        steps.append(time.perf_counter() - t)
         peak_used = max(peak_used, eng.pool.pages_total - eng.pool.pages_free)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t_start
     launches = _counters()
 
     done = eng.finished
-    m = eng.metrics
-    decode_ticks = m["step_seconds"].count(engine="paged")
+    slo = _serving_delta(since, "paged")
+    decode_ticks = slo["decode_ticks"]
     L = cfg.num_layers
     want = _expected(fused_norm=(n_req + decode_ticks) * (2 * L + 1),
                      paged_decode_attention=decode_ticks * L,
@@ -3181,9 +3100,8 @@ def serve(card, torch, which="gpt3_1p3b"):
     if launches != want:
         raise AssertionError(f"serve {which}: kernel launches {launches}, "
                              f"expected {want}")
-    tokens = m["tokens"].value(engine="paged")
-    ttft = m["ttft"].values(engine="paged")
-    steps = m["step_seconds"].values(engine="paged")
+    tokens = slo["tokens"]
+    ttft = [r._t_first - r._t_arrival for r in done]
     line = {
         "model": which, "dtype": "bfloat16", "batch": B,
         "max_seq_len": S, "page_size": ps, "requests": len(done),
@@ -3193,8 +3111,8 @@ def serve(card, torch, which="gpt3_1p3b"):
         "decode_ticks": decode_ticks, "pages_total": eng.pool.pages_total,
         "kv_bytes_per_token": eng.pool.bytes_per_token,
         "peak_pages_used": peak_used, "page_allocs": eng.pool.allocs_total,
-        "prefix_hits": m["prefix_hits"].value(),
-        "preemptions": m["preemptions"].value(), "launches": launches,
+        "prefix_hits": slo["prefix_hits"],
+        "preemptions": slo["preemptions"], "launches": launches,
     }
     say(card, f"serve {which} (smoke run, not a benchmark) " + json.dumps(line))
     del eng
@@ -3418,14 +3336,19 @@ def _drain(torch, eng, workload, max_new):
         eng.add_request(prompt, max_new_tokens=max_new, temperature=temp)
     torch.cuda.synchronize()
     _zero_counters()
+    since = _registry().snapshot()
     t0 = time.perf_counter()
     peak = 0
+    steps = []
     while eng.has_work():
+        t = time.perf_counter()
         eng.step()
+        steps.append(time.perf_counter() - t)
         peak = max(peak, sum(r is not None for r in eng.active))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _counters()
+    eng._smoke_window = (_serving_delta(since, eng.engine_label), steps)
     done = eng.finished
     if len(done) != len(workload) or any(len(r.generated) != max_new
                                          for r in done):
@@ -3436,16 +3359,42 @@ def _drain(torch, eng, workload, max_new):
     return done, seconds, peak, launches
 
 
+def _registry():
+    from paddle_tpu_torch.observability.metrics import default_registry
+
+    return default_registry()
+
+
+def _serving_delta(since, lab):
+    """The serving families' change since `since` (a registry snapshot) for
+    engine label `lab`: the families are process-wide, so a phase reads its
+    own window (tokens, requests, TTFT observations, decode ticks = the
+    step-seconds observations, prefix hits, preemptions)."""
+    d = _registry().delta(since)
+
+    def get(name, engine=True):
+        return int(d.get(f"{name}{{engine={lab}}}" if engine else name, 0))
+
+    return {"tokens": get("serving_tokens_total"),
+            "requests": get("serving_requests_total"),
+            "ttft_count": get("serving_ttft_seconds"),
+            "decode_ticks": get("serving_step_seconds"),
+            "prefix_hits": get("serving_prefix_hits_total", False),
+            "preemptions": get("serving_preemptions_total", False)}
+
+
 def _serve_line(eng, done, seconds, peak, launches):
-    m = eng.metrics
-    lab = eng.engine_label
-    tokens = m["tokens"].value(engine=lab)
+    """The phase's serving line: the registry's window of `_drain` and the
+    per-tick host times it measured (the p99 is of those; the TTFT p50 of
+    the requests' own first-token times)."""
+    slo, steps = eng._smoke_window
+    tokens = slo["tokens"]
     return {"requests": len(done), "tokens": tokens, "seconds": seconds,
             "tokens_per_s": tokens / seconds,
-            "ttft_p50_s": float(np.percentile(m["ttft"].values(engine=lab), 50)),
-            "step_p99_s": float(np.percentile(
-                m["step_seconds"].values(engine=lab), 99)),
-            "decode_ticks": m["step_seconds"].count(engine=lab),
+            "ttft_p50_s": float(np.percentile(
+                [r._t_first - r._t_arrival for r in done], 50)),
+            "step_p99_s": float(np.percentile(steps, 99)),
+            "decode_ticks": slo["decode_ticks"],
             "peak_concurrency": peak, "launches": launches}
 
 
@@ -3486,7 +3435,7 @@ def serve_quant(card, torch):
             "kv_budget_bytes": budget, "pages_total": eng.pool.pages_total,
             "bytes_per_page": eng.pool.bytes_per_page,
             "kv_bytes_per_token": eng.pool.bytes_per_token,
-            "preemptions": eng.metrics["preemptions"].value(),
+            "preemptions": eng._smoke_window[0]["preemptions"],
             "weight_bytes_before": w_before, "weight_bytes_after": w_after,
             "kv_dtype": str(eng.pool.kv[0][0].dtype)})
         say(card, f"serve_quant leg {leg} (smoke run, not a benchmark) "
@@ -4045,6 +3994,7 @@ def train_sharded(card, torch, train_line):
     OFFLOAD_PEAK_SHARE of the bytes the states hold on the host."""
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.observability.metrics import default_registry
 
     cfg, per_step, _, recipe_text = _train_config("gpt3_1p3b")
     B, S, timed = 4, 2048, 3
@@ -4082,16 +4032,17 @@ def train_sharded(card, torch, train_line):
                          for st in opt._states.values() for v in st.values())
 
         _zero_counters()
-        coll.reset_counters()
+        since = default_registry().snapshot()
         reset_peak(torch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         calls = []
         for _ in range(timed):
-            before = dict(coll.CALLS)
+            before = coll.traffic(since)["calls"]
             losses.append(step(ids, labels).item())
             states_pinned()
-            calls.append({op: coll.CALLS.get(op, 0) - before.get(op, 0)
+            now = coll.traffic(since)["calls"]
+            calls.append({op: now.get(op, 0) - before.get(op, 0)
                           for op in ("all_gather", "reduce_scatter",
                                      "all_reduce")})
         torch.cuda.synchronize()
@@ -4114,7 +4065,7 @@ def train_sharded(card, torch, train_line):
             "step_s": step_s, "tokens_per_s": B * S / step_s,
             "mfu": flops / step_s / PEAK_BF16,
             "collectives_per_step": calls,
-            "collective_bytes": dict(coll.BYTES),
+            "collective_bytes": coll.traffic(since)["bytes"],
             "host_state_bytes": host_bytes, "peak_memory_bytes": peak,
             "train_peak_memory_bytes": train_line["peak_memory_bytes"],
             "peak_drop_bytes": drop,
@@ -4198,6 +4149,7 @@ def train_tensor_parallel(card, torch, train_line):
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch.convert import load_paddle_tpu_state
     from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.observability.metrics import default_registry
     from paddle_tpu_torch.models import GPTForCausalLM
 
     cfg, per_step, _, recipe_text = _train_config("gpt3_1p3b")
@@ -4230,16 +4182,17 @@ def train_tensor_parallel(card, torch, train_line):
         predicted = tp_collectives(cfg, step)
 
         _zero_counters()
-        coll.reset_counters()
+        since = default_registry().snapshot()
         reset_peak(torch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         calls = []
         for _ in range(timed):
-            before = dict(coll.CALLS)
+            before = coll.traffic(since)["calls"]
             losses.append(step(ids, labels).item())
-            calls.append({op: coll.CALLS.get(op, 0) - before.get(op, 0)
-                          for op in sorted(set(coll.CALLS) | set(before))})
+            now = coll.traffic(since)["calls"]
+            calls.append({op: now.get(op, 0) - before.get(op, 0)
+                          for op in sorted(set(now) | set(before))})
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = _counters()
@@ -4261,7 +4214,7 @@ def train_tensor_parallel(card, torch, train_line):
             "train_peak_memory_bytes": train_line["peak_memory_bytes"],
             "collectives_per_step": calls,
             "collectives_predicted": predicted,
-            "collective_bytes": dict(coll.BYTES),
+            "collective_bytes": coll.traffic(since)["bytes"],
             "gradient_buckets": len(step._buckets),
             "launches": launches, "launches_per_step": per_step}
         say(card, "train_tensor_parallel gpt3_1p3b (smoke run, not a "
@@ -4306,6 +4259,7 @@ def train_pipeline(card, torch, train_line):
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch.convert import load_paddle_tpu_state
     from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.observability.metrics import default_registry
     from paddle_tpu_torch.models import (GPTForCausalLM, GPTForCausalLMPipe,
                                          GPTPretrainingCriterion,
                                          stack_layered_state_dict)
@@ -4350,7 +4304,7 @@ def train_pipeline(card, torch, train_line):
                      "all_reduce": sum(b.pp for b in step._buckets)}
 
         _zero_counters()
-        coll.reset_counters()
+        since = default_registry().snapshot()
         reset_peak(torch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4384,8 +4338,7 @@ def train_pipeline(card, torch, train_line):
             "in_flight_most": pp.IN_FLIGHT.get("1f1b"),
             "pp_collectives_per_step": calls,
             "pp_collectives_predicted": predicted,
-            "collective_calls": dict(coll.CALLS),
-            "collective_bytes": dict(coll.BYTES),
+            **{f"collective_{k}": v for k, v in coll.traffic(since).items()},
             "launches": launches, "launches_per_step": per_step}
         say(card, "train_pipeline gpt3_1p3b (smoke run, not a benchmark) "
             + json.dumps(line))
@@ -4723,6 +4676,7 @@ def train_moe_expert_parallel(card, torch, moe_line):
     norm launches of phase 11, and 4 x chunks all-to-alls a layer."""
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.observability.metrics import default_registry
     from paddle_tpu_torch.distributed import moe_comm
 
     c = MOE_RUNG
@@ -4751,15 +4705,16 @@ def train_moe_expert_parallel(card, torch, moe_line):
                     "fused_norm_dx": L}
         _zero_counters()
         moe_comm.reset()
-        coll.reset_counters()
+        since = default_registry().snapshot()
         reset_peak(torch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         calls = []
         for _ in range(timed):
-            before = coll.CALLS.get("all_to_all", 0)
+            before = coll.traffic(since)["calls"].get("all_to_all", 0)
             losses.append(step(ids, labels).item())
-            calls.append(coll.CALLS.get("all_to_all", 0) - before)
+            calls.append(coll.traffic(since)["calls"].get("all_to_all", 0)
+                         - before)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = _counters()
@@ -4780,10 +4735,10 @@ def train_moe_expert_parallel(card, torch, moe_line):
             "peak_memory_bytes": peak,
             "moe_peak_memory_bytes": moe_line["peak_memory_bytes"],
             "all_to_all_per_step": calls,
-            "all_to_all_bytes_per_step": coll.BYTES.get("all_to_all", 0)
-            / timed,
+            "all_to_all_bytes_per_step":
+            coll.traffic(since)["bytes"].get("all_to_all", 0) / timed,
             "moe_comm": moe_comm.a2a_totals(),
-            "collective_calls": dict(coll.CALLS),
+            "collective_calls": coll.traffic(since)["calls"],
             "launches": launches, "launches_per_step": per_step}
         say(card, "train_moe_expert_parallel gpt3_moe (smoke run, not a "
             "benchmark) " + json.dumps(line))
@@ -7259,6 +7214,341 @@ def paddle_idiom(card, torch, train_line):
     return paths
 
 
+# --------------------------------------------------------------------------- #
+# phase 30: the train cell under the telemetry, and a save and resume
+# --------------------------------------------------------------------------- #
+
+# the kernels of a training step by their C++ names in the device trace
+# (the names phase 1's ptxas lines print), for the device Kernel Summary
+TRAIN_KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_sm90_kernel",
+                        "flash_bwd_dq": "flash_bwd_dq_sm90_kernel",
+                        "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
+                        "fused_norm": "norm_fwd_", "fused_norm_dx": "norm_bwd_dx_"}
+RESUME_RTOL = 1e-4   # phase 6's limit for the continued losses
+
+
+def _checkpoint_root(torch, need):
+    """A directory with at least `need` bytes free for the checkpoint: the
+    temporary directory, else the gitignored build directory of the
+    checkout. Raises naming the shortfall."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.ops import _build
+
+    cands = [tempfile.gettempdir(), str(_build.BUILD_DIR)]
+    free = {}
+    for d in cands:
+        os.makedirs(d, exist_ok=True)
+        free[d] = shutil.disk_usage(d).free
+        if free[d] >= need:
+            return tempfile.mkdtemp(prefix="phase30_ckpt_", dir=d), free
+    raise AssertionError(f"observed_train_and_resume: the checkpoint needs "
+                         f"twice the state, {need} bytes free; free: {free}")
+
+
+def _seconds(reg, since, family):
+    """{label value: seconds} of a `..._seconds_total{part=}` family's
+    window."""
+    d = reg.delta(since)
+    pre = family + "{part="
+    return {k[len(pre):-1]: v for k, v in d.items() if k.startswith(pre)}
+
+
+def observed_train_and_resume(card, torch, train_line):
+    """Phase 30 (see the module docstring): the train cell under the
+    StepTimeline, the profiler's device trace and Kernel Summary, a save
+    and resume of its full training state, the paged engine under the
+    timeline, and the comm watchdog on the card's host. Returns the launch
+    counts of its counted windows, summed."""
+    import gzip
+    import shutil
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import comm_watchdog
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.framework import native
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.profiler import statistic
+
+    cfg, per_step, _, recipe_text = _train_config("gpt3_1p3b")
+    B, S, timed = 4, 2048, 3
+    L = cfg.num_layers
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "phase30")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    reg = _registry()
+    paths = []   # the launch counts of every counted window
+
+    # (e) the watchdog's host library, built here with the host compiler
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    comm_watchdog.disable()
+    comm_watchdog.enable(timeout_seconds=600)
+    say(card, "observed watchdog " + json.dumps({
+        "library": os.path.relpath(str(lib), os.path.dirname(out_dir)),
+        "build_s": build_s, "timeout_s": 600}))
+
+    t0 = time.perf_counter()
+    model, _, step = _train_setup(torch, cfg, "cuda", torch.float32, 0,
+                                  "gpt3_1p3b")
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+
+    # (a) bench.py --emit-metrics: a warm-up, then timed steps, each between
+    # step_begin and step_end (bench.py _timed_steps)
+    jsonl = os.path.join(out_dir, "steps.jsonl")
+    tl = obs.enable_step_timeline(jsonl_path=jsonl)
+    try:
+        losses = [step(ids, labels).item()]
+        _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records, last = [], None
+        for i in range(timed):
+            tl.step_begin(i)
+            last = step(ids, labels)
+            records.append(tl.step_end())
+        losses.append(float(last))
+        total_s = time.perf_counter() - t0
+        launches = _counters()
+    finally:
+        tl.uninstall()
+    paths.append(launches)
+    want = _expected(**{k: v * timed for k, v in per_step.items()})
+    on_disk = [json.loads(ln) for ln in open(jsonl)]
+    step_s = total_s / timed
+    keys = sorted(records[0])
+    line = {"recipe": recipe_text, "built_s": built_s, "step_s": step_s,
+            "phase5_step_s": train_line["step_s"],
+            "ratio_to_phase5": step_s / train_line["step_s"],
+            "record_keys": keys, "jsonl_records": len(on_disk),
+            "records": [{"step": r["step"], "dur_s": r["dur_s"],
+                         "host_syncs": r["host_syncs"],
+                         "spans": [sp["name"] for sp in r["spans"]],
+                         "comm_tasks": [t["desc"] for t in r["comm_tasks"]],
+                         "overlap_fraction": r["overlap_fraction"]}
+                        for r in records],
+            "interstep_syncs": tl.interstep_syncs, "launches": launches}
+    say(card, "observed emit_metrics gpt3_1p3b " + json.dumps(line))
+    if launches != want:
+        raise AssertionError(f"observed emit_metrics: launches {launches}, "
+                             f"expected {want}")
+    if [r["step"] for r in on_disk] != list(range(timed)) or any(
+            "train_step/compiled" not in [sp["name"] for sp in r["spans"]]
+            for r in on_disk) or "dispatch" in keys:
+        raise AssertionError(f"observed emit_metrics: records {line['records']}")
+
+    # (b) the profiler with the GPU target over two steps, the second
+    # recorded; the recorded step's kernel calls against the counters
+    dev_dir, host_dir = (os.path.join(out_dir, d) for d in ("device", "host"))
+    prof = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=profiler.make_scheduler(closed=0, ready=1, record=1),
+        on_trace_ready=profiler.export_chrome_tracing(host_dir),
+        device_trace_dir=dev_dir)
+    prof.start()
+    losses.append(step(ids, labels).item())
+    torch.cuda.synchronize()   # the window opens on an idle device
+    prof.step()
+    _zero_counters()
+    t0 = time.perf_counter()
+    last = step(ids, labels)
+    torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t0
+    recorded = _counters()
+    prof.step()
+    prof.stop()
+    losses.append(float(last))
+    paths.append(recorded)
+    trace = prof.device_trace_path
+    agg = statistic.parse_device_trace(trace)
+    events = json.load(open(trace))["traceEvents"]
+    names = {e.get("name") for e in events}
+    summary_calls = {k: sum(d["calls"] for n, d in agg.items() if sym in n)
+                     for k, sym in TRAIN_KERNEL_SYMBOLS.items()}
+    device_ms = sum(d["total"] for d in agg.values()) / 1e6
+    top = sorted(agg.items(), key=lambda kv: -kv[1]["total"])[:10]
+    with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as g:
+        shutil.copyfileobj(f, g)
+    raw_bytes = os.path.getsize(trace)
+    os.remove(trace)
+    summary = prof.summary().splitlines()
+    line = {"profiled_step_s": profiled_s, "device_kernel_ms": device_ms,
+            "kernel_names": len(agg), "trace_bytes": raw_bytes,
+            "trace_gz": os.path.relpath(trace + ".gz", os.path.dirname(out_dir)),
+            "spans_in_trace": sorted(n for n in names if isinstance(n, str)
+                                     and n.startswith("train_step/")),
+            "summary_calls": summary_calls,
+            "launches": {k: recorded[k] for k in per_step},
+            "top10": [{"kernel": n[:120], "calls": d["calls"],
+                       "total_ms": d["total"] / 1e6} for n, d in top],
+            "summary_head": summary[:4]}
+    say(card, "observed profiler gpt3_1p3b " + json.dumps(line))
+    if summary_calls != per_step or recorded != _expected(**per_step):
+        raise AssertionError(f"observed profiler: the Kernel Summary's calls "
+                             f"{summary_calls} against the launch counters "
+                             f"{recorded} over the recorded step ({per_step})")
+    if "train_step/compiled" not in names:
+        raise AssertionError("observed profiler: the device trace lacks the "
+                             "observability spans")
+
+    # (c) checkpoint after step k, two steps while it writes, a fresh step
+    # restored; every tensor bit for bit, the next two losses against these
+    k = step.optimizer._step_count   # the steps taken so far
+    state = step.train_state()
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    root, free = _checkpoint_root(torch, 2 * nbytes)
+    say(card, "observed checkpoint disk " + json.dumps({
+        "root": root, "free_bytes": free, "state_bytes": nbytes}))
+    try:
+        saved = {n: t.detach().clone() for n, t in state.items()}
+        mgr = CheckpointManager(root, keep_last_n=1, async_save=True)
+        since = reg.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state, k)
+        stall_s = time.perf_counter() - t0
+        _zero_counters()
+        cont = [step(ids, labels).item() for _ in range(2)]
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        paths.append(_counters())
+        save_parts = _seconds(reg, since, "checkpoint_save_seconds_total")
+        file_bytes = int(reg.delta(since).get(
+            'checkpoint_bytes_total{op=save}', 0))
+        del step, model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        model, _, fresh = _train_setup(torch, cfg, "cuda", torch.float32, 1,
+                                       "gpt3_1p3b")
+        torch.cuda.synchronize()
+        rebuilt_s = time.perf_counter() - t0
+        since = reg.snapshot()
+        t0 = time.perf_counter()
+        got_step = mgr.restore_latest(fresh.train_state())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_parts = _seconds(reg, since, "checkpoint_load_seconds_total")
+        restored = fresh.train_state()
+        diff = [n for n, t in saved.items()
+                if not torch.equal(t.view(torch.int16) if t.dtype in
+                                   (torch.bfloat16, torch.float16) else t,
+                                   restored[n].view(torch.int16) if t.dtype in
+                                   (torch.bfloat16, torch.float16)
+                                   else restored[n])]
+        del saved, restored
+        _zero_counters()
+        resumed = [fresh(ids, labels).item() for _ in range(2)]
+        paths.append(_counters())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, cont))
+        gb = nbytes / 1e9
+        line = {
+            "saved_after_step": k, "restored_step": got_step,
+            "state_bytes": nbytes, "file_bytes": file_bytes,
+            "snapshot_stall_s": stall_s,
+            "snapshot_gb_per_s": gb / stall_s, "wait_after_2_steps_s": wait_s,
+            "save_parts_s": save_parts,
+            "write_gb_per_s": gb / save_parts.get("write", float("nan")),
+            "shard_crc_gb_per_s": gb / save_parts.get("shard_crc", float("nan")),
+            "file_crc_gb_per_s": gb / save_parts.get("file_crc", float("nan")),
+            "rebuilt_s": rebuilt_s, "load_s": load_s, "load_parts_s": load_parts,
+            "load_gb_per_s": gb / load_s,
+            "mismatched_tensors": diff[:5], "n_mismatched": len(diff),
+            "uninterrupted_losses": cont, "resumed_losses": resumed,
+            "bit_identical": resumed == cont, "max_loss_rel_diff": rel,
+            "loss_rtol": RESUME_RTOL, "losses": losses}
+        say(card, "observed checkpoint gpt3_1p3b " + json.dumps(line))
+        if got_step != k or diff:
+            raise AssertionError(f"observed checkpoint: restored step "
+                                 f"{got_step} (saved {k}), {len(diff)} "
+                                 f"tensors differ: {diff[:5]}")
+        if rel > RESUME_RTOL:
+            raise AssertionError(f"observed checkpoint: resumed losses "
+                                 f"{resumed} against {cont}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del fresh, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the paged engine over phase 3's mix, a timeline record and a
+    # registry export a tick (bench.py _drain_serving_engine)
+    scfg = gpt3_1p3b()
+    Bs, Ss, ps, n_req, max_new = 16, 512, 32, 12, 16
+    smodel = GPTForCausalLM(scfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    warm = create_serving_engine(smodel, max_batch_size=Bs, max_seq_len=Ss,
+                                 page_size=ps)
+    warm.add_request(np.arange(1, 9, dtype=np.int32), max_new_tokens=2)
+    warm.run()
+    del warm
+    eng = create_serving_engine(smodel, max_batch_size=Bs, max_seq_len=Ss,
+                                page_size=ps, seed=0)
+    for prompt, temp in serving_workload(scfg.vocab_size, Ss, n_req):
+        eng.add_request(prompt, max_new_tokens=max_new, temperature=temp)
+    serve_jsonl = os.path.join(out_dir, "serve.jsonl")
+    torch.cuda.synchronize()
+    _zero_counters()
+    since = reg.snapshot()
+    tl = obs.enable_step_timeline(jsonl_path=os.path.join(out_dir,
+                                                          "serve_ticks.jsonl"))
+    tick, t0 = 0, time.perf_counter()
+    try:
+        while eng.has_work():
+            tl.step_begin(tick)
+            eng.step()
+            tl.step_end(extra={"rung": "serving"})
+            reg.export_jsonl(serve_jsonl)
+            tick += 1
+    finally:
+        tl.uninstall()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _counters()
+    paths.append(launches)
+    slo = _serving_delta(since, "paged")
+    made = sum(len(r.generated) for r in eng.finished)
+    ticks = slo["decode_ticks"]
+    want = _expected(fused_norm=(n_req + ticks) * (2 * L + 1),
+                     paged_decode_attention=ticks * L)
+    exported = sum(1 for _ in open(serve_jsonl))
+    line = {"ticks": tick, "decode_ticks": ticks, "seconds": serve_s,
+            "tokens_made": made, "registry": slo,
+            "jsonl_lines": exported, "timeline_records": len(tl.records),
+            "launches": launches}
+    say(card, "observed serving gpt3_1p3b " + json.dumps(line))
+    if slo["tokens"] != made or slo["ttft_count"] != n_req or \
+            made != n_req * max_new:
+        raise AssertionError(f"observed serving: registry window {slo}, "
+                             f"{made} tokens made by {n_req} requests")
+    if launches != want or len(tl.records) != tick:
+        raise AssertionError(f"observed serving: launches {launches}, "
+                             f"expected {want}")
+    del eng, smodel
+    torch.cuda.empty_cache()
+
+    # (e) the watchdog across (a)-(d)
+    wd = {"timeouts": comm_watchdog.timeout_count(),
+          "inflight": comm_watchdog.inflight(),
+          "report": comm_watchdog.peek_report()}
+    comm_watchdog.disable()
+    say(card, "observed watchdog end " + json.dumps(wd))
+    if wd["timeouts"] or wd["inflight"]:
+        raise AssertionError(f"observed watchdog: {wd}")
+    return {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
+
+
 def main():
     import torch
 
@@ -7308,7 +7598,6 @@ def main():
     grouped = phase(check_grouped_gemm, card, torch)
     varlen = phase(check_varlen, card, torch)
     phase(planted_kernel_faults, card, torch)
-    phase(varlen_cta_clocks, card, torch)
     serve_launches = phase(serve, card, torch)
     phase(hold, card, torch)
     quant_launches = phase(serve_quant, card, torch)
@@ -7347,6 +7636,8 @@ def main():
     fused_enc_launches = phase(train_fused_encoder, card, torch)
     incubate_launches = phase(incubate_calls, card, torch)
     idiom_launches = phase(paddle_idiom, card, torch, train_line)
+    observed_launches = phase(observed_train_and_resume, card, torch,
+                              train_line)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -7356,7 +7647,8 @@ def main():
              llama_train_launches, moe_launches, ep_launches, varlen_launches,
              bert_launches, resnet_launches, unet_launches,
              bert_dropout_launches, bert_eval_launches, blha_launches,
-             fused_enc_launches, incubate_launches, idiom_launches)
+             fused_enc_launches, incubate_launches, idiom_launches,
+             observed_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     # the fp16 paths (phases 23-25 and varlen_entry's fp16 call) launch the
     # same wrappers' f16 instantiations: counted apart, for the f16 rows

@@ -44,7 +44,10 @@ methods and in-place variants; `amp.debugging`; `nn.Layer`, the base of
 every layer, whose `__call__` is the boundary between Paddle `Tensor`s and
 the plain torch tensors of the models and kernels), so a script written as
 Paddle users write it (`import paddle_tpu_torch as paddle`) runs on the
-card. See ROADMAP.md for the rest.
+card; the telemetry (`observability`: the metrics registry, spans, the
+step timeline, the flight recorder; `profiler`, its device trace from
+`torch.profiler`), the comm watchdog and the crash-safe sharded
+checkpoint (`distributed.checkpoint`). See ROADMAP.md for the rest.
 """
 
 from . import autograd, framework, tensor
@@ -74,14 +77,15 @@ from .tensor import *  # noqa: F401,F403
 from .tensor import linalg  # namespace: paddle.linalg.*
 from .tensor.logic import is_tensor
 from . import (amp, device, distributed, incubate, inference, jit, nn,  # noqa: E402
-               optimizer, quantization, vision)
+               observability, optimizer, profiler, quantization, vision)
 
 __all__ = ["CPUPlace", "CUDAPlace", "Parameter", "PyLayer",
            "Tensor", "autograd", "device_count", "enable_grad",
            "get_default_dtype", "get_device", "get_flags", "get_rng_state",
            "grad", "is_compiled_with_cuda", "is_compiled_with_custom_device",
            "is_compiled_with_rocm", "is_compiled_with_xpu", "is_grad_enabled",
-           "is_tensor", "linalg", "load", "no_grad", "resolve_device", "save",
+           "is_tensor", "linalg", "load", "no_grad", "observability",
+           "profiler", "resolve_device", "save",
            "seed", "set_default_dtype", "set_device", "set_flags",
            "set_grad_enabled", "set_rng_state", "to_tensor",
            *tensor.__all__]

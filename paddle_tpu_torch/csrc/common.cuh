@@ -12,6 +12,22 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+// A build for one case (chip_smoke.py's planted faults) may keep only the
+// instantiations that case launches: -DPTT_ONLY_DTYPE=<code> one element
+// type, -DPTT_ONLY_WIDTH=<64|128|192> one head-dim tile width of the
+// attention kernels. The dispatch of what is left out returns
+// cudaErrorNotSupported. A build without them has every instantiation.
+#if defined(PTT_ONLY_DTYPE)
+#define PTT_BUILT_DTYPE(code) ((code) == PTT_ONLY_DTYPE)
+#else
+#define PTT_BUILT_DTYPE(code) 1
+#endif
+#if defined(PTT_ONLY_WIDTH)
+#define PTT_BUILT_WIDTH(w) ((w) == PTT_ONLY_WIDTH)
+#else
+#define PTT_BUILT_WIDTH(w) 1
+#endif
+
 namespace ptt {
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };

@@ -682,9 +682,20 @@ template <class T, class M>
 cudaError_t run_bwd(const Problem& p, const M& m, const void* q, const void* k, const void* v,
                     const void* dout, const float* l, const float* dl, void* dq, float* dk,
                     float* dv, cudaStream_t st) {
-  if (p.D <= 64) return launch_bwd<T, 64>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
-  if (p.D <= 128) return launch_bwd<T, 128>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
-  return launch_bwd<T, 192>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
+  if (p.D <= 64) {
+#if PTT_BUILT_WIDTH(64)
+    return launch_bwd<T, 64>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
+#endif
+  } else if (p.D <= 128) {
+#if PTT_BUILT_WIDTH(128)
+    return launch_bwd<T, 128>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
+#endif
+  } else {
+#if PTT_BUILT_WIDTH(192)
+    return launch_bwd<T, 192>(p, m, q, k, v, dout, l, dl, dq, dk, dv, st);
+#endif
+  }
+  return cudaErrorNotSupported;
 }
 
 }  // namespace sm90
@@ -704,11 +715,16 @@ cudaError_t run_bwd_sm90(int dtype, const Problem& p, const M& m, const void* q,
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#if PTT_BUILT_DTYPE(1)
   if (dtype == ptt::kBF16)
     return sm90::run_bwd<bf16>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
+#endif
+#if PTT_BUILT_DTYPE(2)
   if (dtype == ptt::kF16)
     return sm90::run_bwd<sm90::f16>(p, m, q, k, v, dout, l, dl, dq, k_out, v_out, st);
-  return cudaErrorInvalidValue;
+#endif
+  return dtype == ptt::kBF16 || dtype == ptt::kF16 ? cudaErrorNotSupported
+                                                   : cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -403,9 +403,20 @@ cudaError_t launch_fwd(const Problem& p, const M& m, const void* q, const void* 
 template <class T, class M>
 cudaError_t run_fwd(const Problem& p, const M& m, const void* q, const void* k, const void* v,
                     void* out, float* lse, cudaStream_t st) {
-  if (p.D <= 64) return launch_fwd<T, 64>(p, m, q, k, v, out, lse, st);
-  if (p.D <= 128) return launch_fwd<T, 128>(p, m, q, k, v, out, lse, st);
-  return launch_fwd<T, 192>(p, m, q, k, v, out, lse, st);
+  if (p.D <= 64) {
+#if PTT_BUILT_WIDTH(64)
+    return launch_fwd<T, 64>(p, m, q, k, v, out, lse, st);
+#endif
+  } else if (p.D <= 128) {
+#if PTT_BUILT_WIDTH(128)
+    return launch_fwd<T, 128>(p, m, q, k, v, out, lse, st);
+#endif
+  } else {
+#if PTT_BUILT_WIDTH(192)
+    return launch_fwd<T, 192>(p, m, q, k, v, out, lse, st);
+#endif
+  }
+  return cudaErrorNotSupported;
 }
 
 }  // namespace sm90
@@ -423,9 +434,14 @@ cudaError_t run_fwd_sm90(int dtype, const Problem& p, const M& m, const void* q,
   if (p.D % 8 != 0 || p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#if PTT_BUILT_DTYPE(1)
   if (dtype == ptt::kBF16) return sm90::run_fwd<bf16>(p, m, q, k, v, out, l, st);
+#endif
+#if PTT_BUILT_DTYPE(2)
   if (dtype == ptt::kF16) return sm90::run_fwd<sm90::f16>(p, m, q, k, v, out, l, st);
-  return cudaErrorInvalidValue;
+#endif
+  return dtype == ptt::kBF16 || dtype == ptt::kF16 ? cudaErrorNotSupported
+                                                   : cudaErrorInvalidValue;
 }
 
 }  // namespace

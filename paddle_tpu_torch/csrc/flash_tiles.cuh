@@ -657,11 +657,24 @@ template <class M>
 cudaError_t run_fwd_f32(const Problem& p, const M& m, const void* q, const void* k,
                         const void* v, void* out, void* lse, void* stream) {
   if (p.D > kMaxHeadDim) return cudaErrorInvalidValue;
+#if PTT_BUILT_DTYPE(0)
   float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.D <= 64) return launch_fwd_f32<64>(p, m, q, k, v, out, l, st);
-  if (p.D <= 128) return launch_fwd_f32<128>(p, m, q, k, v, out, l, st);
-  return launch_fwd_f32<192>(p, m, q, k, v, out, l, st);
+  if (p.D <= 64) {
+#if PTT_BUILT_WIDTH(64)
+    return launch_fwd_f32<64>(p, m, q, k, v, out, l, st);
+#endif
+  } else if (p.D <= 128) {
+#if PTT_BUILT_WIDTH(128)
+    return launch_fwd_f32<128>(p, m, q, k, v, out, l, st);
+#endif
+  } else {
+#if PTT_BUILT_WIDTH(192)
+    return launch_fwd_f32<192>(p, m, q, k, v, out, l, st);
+#endif
+  }
+#endif
+  return cudaErrorNotSupported;
 }
 
 template <class M>
@@ -672,9 +685,22 @@ cudaError_t run_dq(int dtype, const Problem& p, const M& m, const void* q, const
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.D <= 64) return launch_dq<64>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
-  if (p.D <= 128) return launch_dq<128>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
-  return launch_dq<192>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+#if PTT_BUILT_DTYPE(0)
+  if (p.D <= 64) {
+#if PTT_BUILT_WIDTH(64)
+    return launch_dq<64>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+#endif
+  } else if (p.D <= 128) {
+#if PTT_BUILT_WIDTH(128)
+    return launch_dq<128>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+#endif
+  } else {
+#if PTT_BUILT_WIDTH(192)
+    return launch_dq<192>(dtype, p, m, q, k, v, dout, l, dl, dq, st);
+#endif
+  }
+#endif
+  return cudaErrorNotSupported;
 }
 
 template <class M>
@@ -687,9 +713,22 @@ cudaError_t run_dkv(int dtype, const Problem& p, const M& m, const void* q, cons
   float* v_out = static_cast<float*>(dv);
   if (p.D > kMaxHeadDim) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.D <= 64) return launch_dkv<64>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
-  if (p.D <= 128) return launch_dkv<128>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
-  return launch_dkv<192>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+#if PTT_BUILT_DTYPE(0)
+  if (p.D <= 64) {
+#if PTT_BUILT_WIDTH(64)
+    return launch_dkv<64>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+#endif
+  } else if (p.D <= 128) {
+#if PTT_BUILT_WIDTH(128)
+    return launch_dkv<128>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+#endif
+  } else {
+#if PTT_BUILT_WIDTH(192)
+    return launch_dkv<192>(dtype, p, m, q, k, v, dout, l, dl, k_out, v_out, st);
+#endif
+  }
+#endif
+  return cudaErrorNotSupported;
 }
 
 }  // namespace

@@ -146,10 +146,23 @@ extern "C" int ptt_grouped_gemm(const void* lhs, const void* rhs, const void* si
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sz = static_cast<const int*>(sizes);
-  if (dtype == ptt::kBF16)
+  if (dtype == ptt::kBF16) {
+#if PTT_BUILT_DTYPE(1)
     return sm90::launch_gg<bf16>(lhs, rhs, sz, out, E, R, K, N, trans, st);
-  if (dtype == ptt::kF16)
+#else
+    return cudaErrorNotSupported;
+#endif
+  }
+  if (dtype == ptt::kF16) {
+#if PTT_BUILT_DTYPE(2)
     return sm90::launch_gg<sm90::f16>(lhs, rhs, sz, out, E, R, K, N, trans, st);
+#else
+    return cudaErrorNotSupported;
+#endif
+  }
+#if !PTT_BUILT_DTYPE(0)
+  return cudaErrorNotSupported;
+#endif
   const int tiles = (R + BM - 1) / BM;
   if ((long long)E * tiles > 65535) return cudaErrorInvalidValue;
   const Args a{lhs, rhs, sz, out, R, K, N, tiles};

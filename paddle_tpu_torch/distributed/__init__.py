@@ -7,10 +7,12 @@ sequence-parallel layers, `DataParallel`, the group-sharded API and
 expert parallelism and ZeRO stages 1-3 with offload; the pipeline schedules
 and ring attention are in `paddle_tpu_torch.parallel`), the MoE exchanges
 `utils.global_scatter` / `global_gather` and the all-to-all record
-`moe_comm`. One process per rank: `spawn` starts
-`nprocs` of them."""
+`moe_comm`, the comm watchdog (`comm_watchdog`), the crash-test fault
+points (`faults`) and the sharded checkpoint (`checkpoint`). One process
+per rank: `spawn` starts `nprocs` of them."""
 
-from . import collective, env, fleet, moe_comm, parallel, sharding, utils
+from . import (checkpoint, collective, comm_watchdog, env, faults, fleet,
+               moe_comm, parallel, sharding, utils)
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
                          all_reduce, alltoall, alltoall_single, barrier,
                          batch_isend_irecv, broadcast, broadcast_object_list,
@@ -27,8 +29,10 @@ __all__ = [
     "DataParallel", "DistributedTrainStep", "P2POp", "ParallelEnv",
     "ReduceOp", "all_gather", "all_gather_object", "all_reduce", "alltoall",
     "alltoall_single", "barrier", "batch_isend_irecv", "broadcast",
-    "broadcast_object_list", "build_mesh", "collective",
-    "destroy_process_group", "env", "fleet", "full_state_dict", "get_group",
+    "broadcast_object_list", "build_mesh", "checkpoint", "collective",
+    "comm_watchdog",
+    "destroy_process_group", "env", "faults", "fleet", "full_state_dict",
+    "get_group",
     "get_rank", "get_world_size", "group_sharded_parallel",
     "init_parallel_env", "irecv", "is_initialized", "isend", "moe_comm",
     "new_group", "parallel", "recv", "reduce", "reduce_scatter",

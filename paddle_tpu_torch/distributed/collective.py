@@ -10,13 +10,16 @@ tensor, in place where Paddle's is: `all_reduce(t)` leaves the reduction in
 `lst[rank]`, and so on. Ranks given as `src`/`dst` are global ranks, as in
 Paddle. With `sync_op=False` a call returns the work handle to `wait()` on.
 
-Every call adds one to `CALLS[op]` and its payload to `BYTES[op]`
-(reference `record_collective_traffic`, :73-108), as each kernel wrapper
-counts its launches in `LAUNCHES`; the training step's own all-gathers,
-reduce-scatters and all-reduces go through `_all_gather_flat`,
-`_reduce_scatter_flat` and `_all_reduce` and are counted the same way. The
-counters stay module objects until the observability module is ported
-(ROADMAP queue A item 7).
+Every call adds one to the registry family `collective_calls_total{op=}`
+and its payload to `collective_bytes_total{op=}` of
+`observability.metrics.default_registry()` (reference
+`record_collective_traffic`, :66-108); `traffic(since)` reads them as
+{"calls": {op: n}, "bytes": {op: n}} over a window. The training step's
+own all-gathers, reduce-scatters and all-reduces go through
+`_all_gather_flat`, `_reduce_scatter_flat` and `_all_reduce`, are counted
+the same way and run under a `comm_watchdog.comm_task` named by the op,
+so the `StepTimeline` sees their (host) intervals; the MoE layer's
+all-to-alls go through `moe_comm.all_to_all`, under kind "a2a".
 
 The compiled-form `primitives` of the reference (:652-700) are shard_map
 bodies. Their eager counterparts for the model-parallel region are the
@@ -46,30 +49,49 @@ import itertools
 import torch
 import torch.distributed as dist
 
+from ..observability.metrics import HandleCache, default_registry
 from . import env as _env
+from .comm_watchdog import comm_task
 
-__all__ = ["CALLS", "BYTES", "Group", "P2POp", "ReduceOp", "all_gather",
+__all__ = ["Group", "P2POp", "ReduceOp", "all_gather",
            "all_gather_object", "all_reduce", "alltoall", "alltoall_single",
            "all_gather_seq", "barrier", "batch_isend_irecv", "broadcast",
            "broadcast_object_list", "c_concat", "c_identity", "c_split",
            "destroy_process_group", "gather_along", "get_group",
            "irecv", "isend", "mp_allreduce", "new_group",
            "record_collective_traffic", "recv", "reduce", "reduce_scatter",
-           "reduce_scatter_seq", "reset_counters", "scatter",
-           "scatter_object_list", "send", "wait"]
+           "reduce_scatter_seq", "scatter", "scatter_object_list", "send",
+           "traffic", "wait"]
 
-CALLS: dict = {}   # op -> calls
-BYTES: dict = {}   # op -> payload bytes
+_HANDLES = HandleCache(lambda reg: (
+    reg.counter("collective_calls_total", "eager collective invocations",
+                ("op",)),
+    reg.counter("collective_bytes_total",
+                "payload bytes through eager collectives", ("op",)),
+))
 
 
 def record_collective_traffic(op: str, nbytes: int, calls: int = 1):
-    CALLS[op] = CALLS.get(op, 0) + calls
-    BYTES[op] = BYTES.get(op, 0) + int(nbytes)
+    """Bump collective_{calls,bytes}_total{op=} (reference :73-93)."""
+    calls_, bytes_ = _HANDLES.get()
+    calls_.inc(calls, op=op)
+    if nbytes:
+        bytes_.inc(int(nbytes), op=op)
 
 
-def reset_counters():
-    CALLS.clear()
-    BYTES.clear()
+def traffic(since=None) -> dict:
+    """{"calls": {op: n}, "bytes": {op: n}} of the collectives counted since
+    `since` (a `default_registry().snapshot()`; None: since the start),
+    each count an int."""
+    reg = default_registry()
+    d = reg.delta(since) if since is not None else reg.snapshot()
+    out = {"calls": {}, "bytes": {}}
+    for key, v in d.items():
+        for fam, part in (("collective_calls_total{op=", "calls"),
+                          ("collective_bytes_total{op=", "bytes")):
+            if key.startswith(fam):
+                out[part][key[len(fam):-1]] = int(v)
+    return out
 
 
 def _record(op, *tensors):
@@ -364,18 +386,21 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
 def _all_gather_flat(out, inp, pg, async_op=False):
     """out [n * k] <- every rank's inp [k], in group order."""
     _record("all_gather", inp)
-    return _all_gather_single(out, inp, group=pg, async_op=async_op)
+    with comm_task("all_gather"):
+        return _all_gather_single(out, inp, group=pg, async_op=async_op)
 
 
 def _reduce_scatter_flat(out, inp, pg, async_op=False):
     """out [k] <- the sum over the ranks of their inp[r * k:(r + 1) * k]."""
     _record("reduce_scatter", inp)
-    return _reduce_scatter_single(out, inp, group=pg, async_op=async_op)
+    with comm_task("reduce_scatter"):
+        return _reduce_scatter_single(out, inp, group=pg, async_op=async_op)
 
 
 def _all_reduce(t, pg, async_op=False, op=dist.ReduceOp.SUM):
     _record("all_reduce", t)
-    return dist.all_reduce(t, op=op, group=pg, async_op=async_op)
+    with comm_task("all_reduce"):
+        return dist.all_reduce(t, op=op, group=pg, async_op=async_op)
 
 
 def _all_to_all(out, inp, pg, async_op=False):

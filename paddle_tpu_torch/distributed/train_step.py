@@ -6,7 +6,9 @@ placed by `NamedSharding` specs. Here each process is one rank of a
 `DeviceMesh` (`env.build_mesh`), and the step runs `jit.TrainStep`'s
 forward, backward and update on this rank's tensors with explicit
 collectives (`collective._all_gather_flat`, `_reduce_scatter_flat`,
-`_all_reduce`, all counted in `collective.CALLS` / `BYTES`). It does not
+`_all_reduce`, all counted in the registry's `collective_calls_total` /
+`collective_bytes_total` and each run under a `comm_watchdog.comm_task`
+named by its op and group). It does not
 wrap the model in DDP or FSDP: the port's kernels are autograd Functions
 that must see plain tensors, and the shards follow the reference's
 `fsdp_spec`, so that shards and state line up name for name.
@@ -139,6 +141,15 @@ that must see plain tensors, and the shards follow the reference's
   its ep group, a pipelined model's stacks' over the pp group, and counts
   a replicated parameter once.
 
+- **Inputs.** The batch goes to the device under
+  `comm_task("h2d/inputs")` (the reference's, :374-382).
+- **Checkpoint.** `train_state()` (jit.TrainStep's) gives each parameter
+  and optimizer state as this rank's shards (`checkpoint.LocalShard`): a
+  ZeRO shard, an mp cut, an expert shard or a pipeline stage's rows at its
+  offset in the global tensor, never gathered; a replica is written by the
+  one rank whose coordinate is 0 on every mesh axis that does not cut it.
+  `state_dict()` still gathers the whole parameters.
+
 `mesh=None` with no process group (or a reference mesh of one device) is
 `jit.TrainStep` on one device, as before: stages 1 and 2 are the stage-0 step there (over an axis of size 1
 the reference's shardings are no-ops), and stage 3 and offload ask for a
@@ -154,6 +165,7 @@ import functools
 import itertools
 import weakref
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch.distributed.device_mesh import DeviceMesh
@@ -164,6 +176,8 @@ from ..nn.functional.norm import batch_stats_over
 from ..parallel import pipeline as _pipeline
 from . import collective as C
 from . import env as _env
+from .checkpoint.metadata import LocalShard
+from .comm_watchdog import comm_task
 from .fleet.layers.mpu.mp_layers import is_distributed, shard_model
 
 __all__ = ["DistributedTrainStep", "fsdp_spec", "full_state_dict",
@@ -646,7 +660,8 @@ class DistributedTrainStep(TrainStep):
     # -- the step -------------------------------------------------------- #
 
     def _batches(self, inputs, labels):
-        xs, ys = super()._batches(inputs, labels)
+        with comm_task("h2d/inputs"):
+            xs, ys = super()._batches(inputs, labels)
         if self.mesh is None:
             return xs, ys
         self._split = False
@@ -987,6 +1002,70 @@ class DistributedTrainStep(TrainStep):
         """The model's full parameters and buffers under the reference's
         names (stage-3 shards gathered); every rank must call it."""
         return full_state_dict(self.model)
+
+    # -- the training state as this rank's shards (module docstring) ----- #
+
+    def _init_states(self):
+        if not self.offload:
+            return super()._init_states()
+        for k, p in self.params.items():
+            self._host_state(p, self._shard_param_for_update(k, p))
+
+    def _placement(self, name, t, state):
+        if self.mesh is None or name is None or t.dim() == 0:
+            return t
+        p = self.params[name]
+        lay = self._layouts[name]
+        local = list(lay.shape if lay is not None else p.shape)
+        gshape = list(local)
+        idx = [np.arange(n) for n in local]   # local -> global index a dim
+        cut = set()
+        if self._mp_dim[name] is not None:
+            d = self._mp_dim[name]
+            n = torch.distributed.get_world_size(self._mp_pg)
+            r = torch.distributed.get_rank(self._mp_pg)
+            gshape[d] = local[d] * n
+            idx[d] = idx[d] + r * local[d]
+            cut.add("mp")
+        ep = getattr(p, "ep_part", None)
+        if name in self._ep_axes and ep is not None:
+            d, r, n = ep
+            gshape[d] = local[d] * n
+            idx[d] = idx[d] + r * local[d]
+            cut.add(self._ep_axes[name])
+        pp = getattr(p, "pp_part", None)
+        if self._pipe and name not in self._pp_shared and pp is not None:
+            S, s, V = pp
+            k = local[0] // V
+            gshape[0] = S * local[0]
+            j = np.arange(local[0])
+            idx[0] = (j // k) * S * k + s * k + j % k
+            cut.add("pp")
+        zero = self._cut(name)
+        if zero is not None and (state or self.sharding_stage == 3) and \
+                tuple(t.shape) == tuple(zero.shard_shape):
+            z = zero.dim
+            idx[z] = idx[z][zero.rank * zero.size:(zero.rank + 1) * zero.size]
+            cut.add("sharding")
+        sizes = _env.mesh_shape(self.mesh)
+        write = all(self.mesh.get_local_rank(a) == 0
+                    for a in _env.AXIS_ORDER if sizes[a] > 1 and a not in cut)
+        # runs of consecutive global indices a dim; a block a combination
+        runs = []
+        for ix in idx:
+            cuts = np.flatnonzero(np.diff(ix) != 1) + 1
+            starts = np.concatenate([[0], cuts])
+            ends = np.concatenate([cuts, [len(ix)]])
+            runs.append([(int(a), int(ix[a]), int(b - a))
+                         for a, b in zip(starts, ends)])
+        shards = []
+        for combo in itertools.product(*runs):
+            view = t
+            for d, (lo, _, n) in enumerate(combo):
+                view = view.narrow(d, lo, n)
+            shards.append(LocalShard(view, tuple(g for _, g, _ in combo),
+                                     tuple(gshape), write))
+        return shards
 
 
 def full_state_dict(model):

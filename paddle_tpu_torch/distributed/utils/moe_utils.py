@@ -13,7 +13,8 @@ The reference pads every (rank, expert) block to the largest count, sends
 one equal-split all-to-all and compacts on the receive side. Here the rows
 ride one uneven-split `all_to_all_single` whose splits are the per-rank
 sums of the counts: the same values, and only the rows themselves on the
-wire (its bytes are what `collective.BYTES["all_to_all"]` counts). The
+wire (its bytes are what `collective_bytes_total{op="all_to_all"}`
+counts), under a `comm_task` of kind "a2a" (reference :90-100). The
 counts are read on the host (tensors, arrays or lists). Both functions are
 differentiable: the backward of each is the other with the same counts.
 """
@@ -25,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from .. import collective as C
+from ..comm_watchdog import comm_task
 
 __all__ = ["global_gather", "global_scatter"]
 
@@ -41,8 +43,9 @@ def _exchange(x, send, recv, pg):
     x = x.contiguous()
     out = x.new_empty((int(recv.sum()),) + tuple(x.shape[1:]))
     C.record_collective_traffic("all_to_all", x.numel() * x.element_size())
-    dist.all_to_all_single(out, x, output_split_sizes=recv.tolist(),
-                           input_split_sizes=send.tolist(), group=pg)
+    with comm_task("moe/global_exchange", kind="a2a"):
+        dist.all_to_all_single(out, x, output_split_sizes=recv.tolist(),
+                               input_split_sizes=send.tolist(), group=pg)
     return out
 
 

@@ -42,8 +42,18 @@ hook (`set_op_check_hook`, :934; `amp.debugging` installs it) sees the
 name and the outputs. The kernel wrappers in `ops/` and the functionals of
 `nn.functional` report their outputs to the same hook with `report_op`
 under the names the reference gives the same work. The port has no
-dispatch cache to port (PyTorch runs each op eagerly): with no hook
-installed the cost is one `None` check per call.
+dispatch cache to port (PyTorch runs each op eagerly).
+
+**Two more hooks, for the telemetry** (reference :921-1010). The op event
+hook (`set_op_event_hook`; the profiler installs it) sees
+`(op_name, start_ns, end_ns)` around every `run_op` and every `reported`
+functional; `report_op` gives it an instant at the moment a kernel wrapper
+reports, since the launch is asynchronous and its device time is in the
+profiler's trace. The sync observer chain (`set_sync_observer`,
+`add_sync_observer`, `remove_sync_observer`; the `StepTimeline` adds
+itself) sees `(kind, tensor)` whenever Python reads a `Tensor`'s value on
+the host: `item`, `numpy`, `tolist`, `bool`, `int` and `float`. With
+nothing installed each hook costs one `None` check per call.
 """
 
 from __future__ import annotations
@@ -51,15 +61,18 @@ from __future__ import annotations
 import copy
 import functools
 import numbers
+import time
 
 import numpy as np
 import torch
 
 from . import dtype as dtype_mod
 
-__all__ = ["Parameter", "Tensor", "enable_grad", "is_grad_enabled",
-           "no_grad", "register_tensor_method", "report_op", "run_op",
-           "set_grad_enabled", "set_op_check_hook", "to_tensor"]
+__all__ = ["Parameter", "Tensor", "add_sync_observer", "enable_grad",
+           "is_grad_enabled", "no_grad", "register_tensor_method",
+           "remove_sync_observer", "report_op", "run_op",
+           "set_grad_enabled", "set_op_check_hook", "set_op_event_hook",
+           "set_sync_observer", "to_tensor"]
 
 
 # --------------------------------------------------------------------------- #
@@ -100,9 +113,85 @@ def op_check_hook():
     return _op_check_hook
 
 
+# --------------------------------------------------------------------------- #
+# the op event hook and the sync observer chain (reference :921-1010)
+# --------------------------------------------------------------------------- #
+
+# fn(op_name, start_ns, end_ns) around every op (the profiler's host events)
+_op_event_hook = None
+
+
+def set_op_event_hook(fn):
+    """Install `fn(op_name, start_ns, end_ns)` (None removes it)."""
+    global _op_event_hook
+    _op_event_hook = fn
+
+
+# fn(kind, tensor) when Python reads a Tensor's value on the host. A base
+# slot (set_*) plus an additive chain (add_* / remove_*: the StepTimeline);
+# `_sync_observer` is the composed slot the Tensor methods call. A chained
+# observer returning non-None proposes a replacement value for `item()`
+# (the last non-None wins, the base first).
+_sync_observer = None
+_base_sync_observer = None
+_sync_observer_chain: list = []
+
+
+def _compose_sync_observer():
+    global _sync_observer
+    base, chain = _base_sync_observer, tuple(_sync_observer_chain)
+    if not chain:
+        _sync_observer = base
+        return
+    if base is None and len(chain) == 1:
+        _sync_observer = chain[0]
+        return
+
+    def _dispatch(kind, tensor, _base=base, _chain=chain):
+        rep = _base(kind, tensor) if _base is not None else None
+        for fn in _chain:
+            out = fn(kind, tensor)
+            if out is not None:
+                rep = out
+        return rep
+
+    _sync_observer = _dispatch
+
+
+def set_sync_observer(fn):
+    """Install or replace the base observer; returns the previous base.
+    Never save `core._sync_observer` itself: it is the composed slot, and
+    setting it back as a base would fire the chain twice."""
+    global _base_sync_observer
+    prev = _base_sync_observer
+    _base_sync_observer = fn
+    _compose_sync_observer()
+    return prev
+
+
+def add_sync_observer(fn):
+    """Append `fn` to the sync-observer chain; returns `fn` for remove_*."""
+    _sync_observer_chain.append(fn)
+    _compose_sync_observer()
+    return fn
+
+
+def remove_sync_observer(fn):
+    try:
+        _sync_observer_chain.remove(fn)
+    except ValueError:
+        pass
+    _compose_sync_observer()
+
+
 def report_op(name, out):
     """Hand `out` (a tensor, a `Tensor` or a tuple of them) to the op
-    check hook under the op name `name`; returns `out`."""
+    check hook under the op name `name`, and an instant to the op event
+    hook; returns `out`."""
+    ev = _op_event_hook
+    if ev is not None:
+        t = time.perf_counter_ns()
+        ev(name, t, t)
     hook = _op_check_hook
     if hook is not None:
         hook(name, out)
@@ -111,11 +200,19 @@ def report_op(name, out):
 
 def reported(name):
     """Decorate a functional so that its outputs go to the op check hook
-    under the op name `name`."""
+    under the op name `name`, and its call to the op event hook."""
     def deco(fn):
         @functools.wraps(fn)
         def op(*args, **kwargs):
-            out = fn(*args, **kwargs)
+            ev = _op_event_hook
+            if ev is None:
+                out = fn(*args, **kwargs)
+            else:
+                t0 = time.perf_counter_ns()
+                try:
+                    out = fn(*args, **kwargs)
+                finally:
+                    ev(name, t0, time.perf_counter_ns())
             hook = _op_check_hook
             if hook is not None:
                 hook(name, out)
@@ -252,12 +349,18 @@ class Tensor:
         return id(self)
 
     def __bool__(self):
+        if _sync_observer is not None:
+            _sync_observer("bool", self)
         return bool(self._value.detach())
 
     def __int__(self):
+        if _sync_observer is not None:
+            _sync_observer("int", self)
         return int(self._value.detach())
 
     def __float__(self):
+        if _sync_observer is not None:
+            _sync_observer("float", self)
         return float(self._value.detach())
 
     def __format__(self, spec):
@@ -271,6 +374,8 @@ class Tensor:
         """The values on the host as a numpy array (a copy). A bfloat16
         tensor comes back as float32: numpy has no bfloat16 without
         ml_dtypes, and every bfloat16 value is exact in float32."""
+        if _sync_observer is not None:
+            _sync_observer("array", self)
         return _to_numpy(self._value)
 
     def __array__(self, dtype=None, copy=None):
@@ -278,8 +383,12 @@ class Tensor:
         return arr.astype(dtype) if dtype is not None else arr
 
     def item(self, *args):
+        if _sync_observer is not None:
+            rep = _sync_observer("item" if not args else "array", self)
+            if rep is not None:
+                return rep
         if args:
-            return self.numpy().item(*args)
+            return _to_numpy(self._value).item(*args)
         return self._value.detach().item()
 
     def tolist(self):
@@ -564,6 +673,8 @@ class Parameter(torch.nn.Parameter):
         return self.__dict__.setdefault("_optimize_attr", {"learning_rate": 1.0})
 
     def numpy(self):
+        if _sync_observer is not None:
+            _sync_observer("array", self)
         return _to_numpy(self)
 
     def clear_grad(self):
@@ -668,7 +779,15 @@ def run_op(name, fn, inputs):
     vals = [_as_value(x, like) for x in inputs]
     if _amp._state["enable"]:
         vals = _amp.cast_inputs(name, *vals)
-    out = _wrap(fn(*vals))
+    ev = _op_event_hook
+    if ev is None:
+        out = _wrap(fn(*vals))
+    else:
+        t0 = time.perf_counter_ns()
+        try:
+            out = _wrap(fn(*vals))
+        finally:
+            ev(name, t0, time.perf_counter_ns())
     hook = _op_check_hook
     if hook is not None:
         hook(name, out)

@@ -49,8 +49,10 @@ the batch does not divide, or a call outside a step's), each rank's
 experts take their rows from its own buffer and only the combine runs.
 Each forward notes its exchange in
 `distributed.moe_comm` (desc `moe/a2a/<axis>x<n>`, 2 x chunks calls, the
-bytes this rank sent); every all-to-all, the backward's too, is counted in
-`distributed.collective.CALLS` / `BYTES["all_to_all"]`. The exchange
+bytes this rank sent); every all-to-all, the backward's too, goes through
+`moe_comm.all_to_all` (counted in the registry's
+`collective_calls_total` / `collective_bytes_total{op="all_to_all"}`,
+under a `comm_task` of kind "a2a"). The exchange
 moves the whole capacity buffer (E x R rows each way, as the reference's
 dense oracle leg does), not only the live rows. A layer on the dense path
 keeps its experts whole on every rank (the values are the same).
@@ -72,7 +74,6 @@ from torch import nn
 
 from ..... import amp
 from .....device import resolve_device
-from .....distributed import collective as C
 from .....distributed import moe_comm
 from .....nn.layer.common import init_weight
 from .....nn.layer.container import LayerList
@@ -159,7 +160,7 @@ def _exchange(x, pg, n):
     rank sent this one, [n, k, ...] in group order."""
     x = x.contiguous()
     out = torch.empty_like(x)
-    C._all_to_all(out, x, pg)
+    moe_comm.all_to_all(out, x, pg)
     return out.view(n, -1, *x.shape[1:])
 
 

@@ -1,115 +1,94 @@
-"""Serving SLO instrumentation (↔ paddle_tpu/inference/slo.py).
+"""Serving SLO instrumentation shared by both engines
+(↔ paddle_tpu/inference/slo.py).
 
-`serving_metrics()` returns a fresh set of counters, gauges and histograms
-under the same keys and metric names as the JAX package's
-`serving_metrics()` (tokens, requests, truncations, ttft, step_seconds,
-queue depth, pages, int8 pages written, preemptions, resumes, prefix hits
-and lookups, COW copies). Each engine owns one set and hands it to its pool
-and scheduler, so two engines in one process never mix their numbers. The
-port has no observability registry yet, and nothing compiles, so there is
-no `BoundedCompileCache`.
+`serving_metrics()` returns the serving metric families of the
+process-wide observability registry (`observability.metrics.
+default_registry()`), declared through a `HandleCache` so handles survive
+`reset_default_registry()`, under the reference's names, buckets and
+`engine` label (`engine="dense"` for `ContinuousBatchingEngine`,
+`"paged"` for `PagedServingEngine`). Like the reference's they are
+process-wide: engines with one label add to the same series, so a caller
+that wants one engine's or one run's numbers reads a
+`default_registry().delta(snapshot)` around it. The reference's
+`serving_prefill_compiles_total` and `BoundedCompileCache` have no
+counterpart: the port compiles no prefill program.
 """
 
 from __future__ import annotations
 
-__all__ = ["Counter", "Gauge", "Histogram", "serving_metrics"]
+from ..observability.metrics import DEFAULT_BUCKETS, HandleCache
+
+__all__ = ["serving_metrics"]
+
+# tokens/s per finished request: 0.5 .. 4096, x2 per bucket
+_TPS_BUCKETS = tuple(0.5 * 2 ** i for i in range(14))
 
 
-class _Family:
-    """One metric name with per-label-set series."""
-
-    def __init__(self, name, doc, labelnames=()):
-        self.name = name
-        self.doc = doc
-        self.labelnames = tuple(labelnames)
-        self._series = {}
-
-    def _key(self, labels):
-        if set(labels) != set(self.labelnames):
-            raise ValueError(f"{self.name} takes labels {self.labelnames}, "
-                             f"got {tuple(labels)}")
-        return tuple(labels[k] for k in self.labelnames)
-
-
-class Counter(_Family):
-    def inc(self, amount=1, **labels):
-        k = self._key(labels)
-        self._series[k] = self._series.get(k, 0) + amount
-
-    def value(self, **labels):
-        return self._series.get(self._key(labels), 0)
-
-
-class Gauge(_Family):
-    def set(self, value, **labels):
-        self._series[self._key(labels)] = value
-
-    def value(self, **labels):
-        return self._series.get(self._key(labels), 0)
-
-
-class Histogram(_Family):
-    """Keeps every observation (a serving run observes a few per tick)."""
-
-    def observe(self, value, **labels):
-        self._series.setdefault(self._key(labels), []).append(float(value))
-
-    def values(self, **labels):
-        return list(self._series.get(self._key(labels), []))
-
-    def count(self, **labels):
-        return len(self._series.get(self._key(labels), []))
-
-
-def serving_metrics() -> dict:
-    """A new, empty set of the serving metric handles."""
-    eng = ("engine",)
+def _build(reg):
     return {
-        "ttft": Histogram(
+        "ttft": reg.histogram(
             "serving_ttft_seconds",
-            "Time from add_request to the request's first generated token", eng),
-        "request_tps": Histogram(
+            "Time from add_request to the request's first generated token",
+            labelnames=("engine",)),
+        "request_tps": reg.histogram(
             "serving_request_tokens_per_second",
-            "Per finished request: generated tokens / (finish - first token)", eng),
-        "step_seconds": Histogram(
+            "Per finished request: generated tokens / (finish - first token)",
+            labelnames=("engine",), buckets=_TPS_BUCKETS),
+        "step_seconds": reg.histogram(
             "serving_step_seconds",
-            "Wall time of one scheduler tick (admit + decode advance)", eng),
-        "tokens": Counter("serving_tokens_total", "Generated tokens", eng),
-        "requests": Counter("serving_requests_total", "Finished requests", eng),
-        "truncations": Counter(
+            "Wall time of one scheduler tick (admit + decode advance)",
+            labelnames=("engine",), buckets=DEFAULT_BUCKETS),
+        "tokens": reg.counter(
+            "serving_tokens_total", "Generated tokens", ("engine",)),
+        "requests": reg.counter(
+            "serving_requests_total", "Finished requests", ("engine",)),
+        "truncations": reg.counter(
             "serving_truncations_total",
-            "Requests retired by KV-cache capacity before max_new_tokens/EOS", eng),
-        "queue_depth": Gauge(
+            "Requests retired by KV-cache capacity before max_new_tokens/EOS",
+            ("engine",)),
+        "queue_depth": reg.gauge(
             "serving_queue_depth",
             "Requests waiting (queue=prefill|resume) or live (queue=decode)",
             ("engine", "queue")),
-        "pages_free": Gauge(
+        "pages_free": reg.gauge(
             "serving_pages_free", "Free physical KV pages in the block pool"),
-        "pages_total": Gauge(
+        "pages_total": reg.gauge(
             "serving_pages_total",
             "Allocatable physical KV pages (excludes the reserved null page)"),
-        "kv_bytes_per_token": Gauge(
+        "kv_bytes_per_token": reg.gauge(
             "serving_kv_bytes_per_token",
-            "KV-cache bytes per cached token across all layers and both K/V sides"),
-        "kv_quant_pages": Counter(
+            "KV-cache HBM bytes per cached token across all layers and both "
+            "K/V sides (int8 payload + amortized per-page scales when the "
+            "pool is quantized)"),
+        "kv_quant_pages": reg.counter(
             "serving_kv_quant_pages_total",
             "KV pages written through the int8 quantized path (prefill "
             "scatters; decode appends requantize in place)"),
-        "prefix_lookups": Counter(
+        "prefix_lookups": reg.counter(
             "serving_prefix_lookups_total",
             "Prompt-page hash lookups against the shared-prefix map"),
-        "prefix_hits": Counter(
+        "prefix_hits": reg.counter(
             "serving_prefix_hits_total",
             "Prompt pages served by an existing shared page (no new page)"),
-        "cow_copies": Counter(
+        "cow_copies": reg.counter(
             "serving_cow_copies_total",
             "Copy-on-write page copies on first divergent write"),
-        "preemptions": Counter(
+        "preemptions": reg.counter(
             "serving_preemptions_total",
             "Requests evicted to the host spill buffer when the pool ran dry"),
-        "preempted_pages": Counter(
-            "serving_preempted_pages_total", "Pages released by preemption"),
-        "resumes": Counter(
+        "preempted_pages": reg.counter(
+            "serving_preempted_pages_total",
+            "Pages released by preemption"),
+        "resumes": reg.counter(
             "serving_resumes_total",
             "Spilled requests re-admitted from the host buffer"),
     }
+
+
+_HANDLES = HandleCache(_build)
+
+
+def serving_metrics() -> dict:
+    """Current-registry serving metric handles (rebuilt after registry
+    resets; a two-attribute read steady-state)."""
+    return _HANDLES.get()

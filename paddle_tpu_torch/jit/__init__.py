@@ -47,6 +47,19 @@ which `DistributedTrainStep` overrides: `_shard_grad` (the gradient this
 rank updates with), `_shard_param_for_update` (the tensor it updates: the
 parameter or its shard), `_restore_param` (after the update: all-gather the
 parameter from its shards), and `_grad_sq_sum` (the clip's squared sum).
+
+`train_state()` is the step's whole training state as one flat dict for
+`distributed.checkpoint` (`CheckpointManager.save(step.train_state(), n)`,
+`restore_latest(step.train_state())`): the model's parameters and buffers
+under their `state_dict` names, the optimizer's state under the names of
+the reference's `Optimizer.state_dict()` (`paddle_tpu/optimizer/
+optimizer.py:159-190`) flattened with dots, `optimizer.param_{i}.{key}`
+for the i-th parameter of the optimizer's list, and
+`optimizer._step_count`. The entries are the live tensors, so a load
+writes them in place; the states are made first if no step has run yet.
+The step holds no loss scaler and no learning-rate scheduler state of its
+own, so neither is among them. A step's call runs under a span
+`train_step/compiled` of kind "compute" (the reference's, :457-463).
 """
 
 from __future__ import annotations
@@ -60,8 +73,9 @@ from .. import amp
 from ..framework.core import Tensor
 from ..nn.clip import global_norm_scale, scale_grad
 from ..nn.functional.loss import record_reductions
+from ..observability.spans import span
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainState", "TrainStep"]
 
 
 def _as_list(x):
@@ -72,6 +86,22 @@ def _amp_ctx(level, dtype):
     if level in ("O1", "O2"):
         return amp.auto_cast(True, level=level, dtype=dtype)
     return contextlib.nullcontext()
+
+
+class TrainState(dict):
+    """A step's training state as one flat dict of its live tensors (the
+    module docstring); `after_load()` (which `distributed.checkpoint`'s
+    load calls) writes the loaded step count back to the optimizer."""
+
+    def __init__(self, optimizer):
+        super().__init__()
+        self._optimizer = optimizer
+        self._step_count = torch.tensor(optimizer._step_count,
+                                        dtype=torch.int64)
+        self["optimizer._step_count"] = self._step_count
+
+    def after_load(self):
+        self._optimizer._step_count = int(self._step_count)
 
 
 class TrainStep:
@@ -186,15 +216,50 @@ class TrainStep:
             return self._loss_fn(outs, labels)
 
     def __call__(self, inputs, labels):
-        inputs, labels = self._batches(inputs, labels)
-        for p in self.params.values():
-            p.grad = None
-        self._grad_factor = None
-        loss = self._loss(inputs, labels)
-        if not self._pipelined():
-            loss.backward()
-        self._update()
-        return loss.detach()
+        # kind="compute": the step's compute interval for the overlap
+        # accounting (observability.spans.overlap_stats); host time, as the
+        # kernels run asynchronously
+        with span("train_step/compiled", kind="compute"):
+            inputs, labels = self._batches(inputs, labels)
+            for p in self.params.values():
+                p.grad = None
+            self._grad_factor = None
+            loss = self._loss(inputs, labels)
+            if not self._pipelined():
+                loss.backward()
+            self._update()
+            return loss.detach()
+
+    # -- the training state (module docstring) ----------------------------- #
+
+    def _init_states(self):
+        """Make every parameter's optimizer state that no step has made."""
+        for k, p in self.params.items():
+            if id(p) not in self.optimizer._states:
+                self.optimizer._get_state(p, self._shard_param_for_update(k, p))
+
+    def _placement(self, name, t, state):
+        """The checkpoint entry of tensor t: a parameter `name` (state
+        False), one of its optimizer states (state True) or a buffer (name
+        None). Whole here; `DistributedTrainStep` gives this rank's
+        shards."""
+        return t
+
+    def train_state(self):
+        """{name: live tensor} of the parameters, buffers and optimizer
+        state (module docstring)."""
+        opt = self.optimizer
+        self._init_states()
+        names = {id(p): k for k, p in self.params.items()}
+        out = TrainState(opt)
+        for k, v in self.model.state_dict(keep_vars=True).items():
+            out[k] = self._placement(names.get(id(v)), v.detach(), False)
+        for i, p in enumerate(opt._params()):
+            st = opt._states.get(id(p))
+            for key, v in (st or {}).items():
+                out[f"optimizer.param_{i}.{key}"] = self._placement(
+                    names.get(id(p)), v, True)
+        return out
 
     @torch.no_grad()
     def _update(self):

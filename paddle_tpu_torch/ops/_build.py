@@ -13,7 +13,9 @@ carries a hash of the sources and flags, so an edited kernel never loads a
 stale build. Each object file is kept under a hash of the flags, its source
 and the headers that source includes, so a build of an edited copy of the
 sources (chip_smoke.py's planted faults) compiles only what the edit
-touches.
+touches, and `source_flags` may compile one source with flags of its own
+(`-DPTT_ONLY_DTYPE` / `-DPTT_ONLY_WIDTH` of csrc/common.cuh: only the
+instantiations one case launches).
 
 Calling convention (see each .cu file): pointers and the stream are
 `c_void_p` (the stream is `torch.cuda.current_stream().cuda_stream`), sizes
@@ -147,9 +149,10 @@ def _sources(csrc):
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def _object_name(src) -> str:
-    """`<stem>_<hash>.o`, the hash over the nvcc flags, the source and every
-    header of its directory that it includes, directly or not."""
+def _object_name(src, extra=()) -> str:
+    """`<stem>_<hash>.o`, the hash over the nvcc flags (with the source's
+    `extra` ones), the source and every header of its directory that it
+    includes, directly or not."""
     files, todo = set(), [pathlib.Path(src)]
     while todo:
         p = todo.pop()
@@ -157,33 +160,36 @@ def _object_name(src) -> str:
             continue
         files.add(p)
         todo += [p.parent / m for m in _INCLUDE.findall(p.read_text())]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra]).encode())
     for p in sorted(files, key=lambda f: f.name):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return f"{pathlib.Path(src).stem}_{h.hexdigest()[:16]}.o"
 
 
-def _library_path(csrc, build_dir) -> pathlib.Path:
+def _library_path(csrc, build_dir, source_flags=None) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(csrc.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
+            h.update(" ".join((source_flags or {}).get(p.name, ())).encode())
     return build_dir / f"libpaddle_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
 def build_library(csrc=CSRC, build_dir=BUILD_DIR,
-                  obj_dir=None) -> pathlib.Path:
+                  obj_dir=None, source_flags=None) -> pathlib.Path:
     """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
     into one shared library in `build_dir`; returns its path. A no-op when
     the library for these exact sources already exists; a source whose
     object is already in `obj_dir` (default `build_dir/obj`) is not
-    compiled again. Raises RuntimeError carrying nvcc's output when a step
-    fails."""
+    compiled again. `source_flags` {source file name: [nvcc flags]} adds
+    flags to one source's compile. Raises RuntimeError carrying nvcc's
+    output when a step fails."""
     global BUILD_LOG
     csrc, build_dir = pathlib.Path(csrc), pathlib.Path(build_dir)
-    out = _library_path(csrc, build_dir)
+    source_flags = source_flags or {}
+    out = _library_path(csrc, build_dir, source_flags)
     if out.exists():
         return out
     obj_dir = pathlib.Path(obj_dir) if obj_dir else build_dir / "obj"
@@ -193,12 +199,13 @@ def build_library(csrc=CSRC, build_dir=BUILD_DIR,
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs, procs = [], []
         for src in _sources(csrc):
-            obj = obj_dir / _object_name(src)
+            extra = list(source_flags.get(src.name, ()))
+            obj = obj_dir / _object_name(src, extra)
             objs.append(str(obj))
             if obj.exists():
                 continue
             part = os.path.join(tmp, obj.name)
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", part]
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", part]
             procs.append((cmd, part, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

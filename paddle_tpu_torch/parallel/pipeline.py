@@ -54,7 +54,7 @@ its last call of that schedule, and `PP_CALLS` counts what went over a pp
 group: "send" and "recv" (tensors, headers included), "broadcast" and
 "all_reduce" (a group's first use, and the training step's sums of the
 parameters shared over pp). Sends, receives and broadcasts are counted in
-`distributed.collective.CALLS` / `BYTES` too.
+the registry's `collective_calls_total` / `collective_bytes_total` too.
 """
 
 from __future__ import annotations

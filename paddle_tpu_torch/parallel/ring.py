@@ -41,7 +41,8 @@ oneself. The same code runs at every n.
 
 `RING_CALLS` counts what went around a ring: "hops" (one
 `batch_isend_irecv` each) and "bytes" (what this rank sent); the sends
-and receives are counted in `distributed.collective.CALLS` / `BYTES` too.
+and receives are counted in the registry's `collective_calls_total` /
+`collective_bytes_total` too.
 `ring_attention_spmd` is the reference's spelling over a mesh's sep group.
 """
 

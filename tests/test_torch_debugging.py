@@ -118,13 +118,22 @@ def _ref_ops():
     from paddle_tpu.amp.debugging import operator_stats as ref_stats
     from paddle_tpu.models import GPTForCausalLM, GPTPretrainingCriterion, gpt3_tiny
 
+    from paddle_tpu.distributed import env as ref_env
+
     ref.seed(0)
     m = GPTForCausalLM(gpt3_tiny())
     crit = GPTPretrainingCriterion()
     ids = ref.to_tensor(np.random.default_rng(0).integers(0, 1024, (2, 16)))
-    with ref_collect():
-        crit(m(ids), ids).backward()
-        return set(ref_stats())
+    # one device, whatever global mesh an earlier test of this process left
+    # set (the reference's model adds sharding_constraint ops under one)
+    prev = ref_env.get_global_mesh()
+    ref_env.set_global_mesh(None)
+    try:
+        with ref_collect():
+            crit(m(ids), ids).backward()
+            return set(ref_stats())
+    finally:
+        ref_env.set_global_mesh(prev)
 
 
 def _port_ops():

@@ -24,8 +24,18 @@ from paddle_tpu_torch.convert import load_paddle_tpu_state
 from paddle_tpu_torch.inference import ContinuousBatchingEngine, create_serving_engine
 from paddle_tpu_torch.models import GPTForCausalLM, gpt3_tiny
 from paddle_tpu_torch.ops import flash_attention as port_fa
+from paddle_tpu_torch.observability import metrics
 
 PROMPT = np.array([5, 7, 11, 13], np.int32)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_registry():
+    """The serving families are process-wide (the observability registry,
+    as the reference's): each test reads its own engines' counts from a
+    fresh registry."""
+    metrics.reset_default_registry()
+    yield
 
 
 def _staggered():

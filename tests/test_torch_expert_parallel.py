@@ -25,8 +25,8 @@ are dropped, and which depends on every rank's tokens.
   rank holds E / n experts.
 - a2a_chunks 1 and 2 give the same losses and parameters (`:552-558`).
 - The all-to-alls: 2 x chunks a forward in `distributed.moe_comm` under
-  `moe/a2a/ep x n`, and in `collective.CALLS["all_to_all"]` with the
-  backward's.
+  `moe/a2a/ep x n`, and in the registry's
+  `collective_calls_total{op="all_to_all"}` with the backward's.
 - `convert` into an ep-cut model and `full_state_dict` back, bit for bit.
 - `global_scatter` / `global_gather` (TestGlobalScatterGather): uniform
   counts against the JAX package's exchange, ragged counts against the
@@ -283,7 +283,7 @@ def test_chunks_one_and_two_agree(runs):
 @pytest.mark.parametrize("name", ["gshard_ep2", "gshard_ep4"])
 def test_all_to_all_counts(runs, name):
     """Per forward 2 x chunks all-to-alls in moe_comm, each sending this
-    rank's whole [E, Rc, M] chunk; collective.CALLS counts the backward's
+    rank's whole [E, Rc, M] chunk; collective_calls_total counts the backward's
     too (the combine's always, the dispatch's since the input Linear needs
     its gradient): 4 x chunks a step."""
     world = CASES[name][-1]

@@ -269,11 +269,52 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.framework.random",
             "paddle_tpu_torch.optimizer.lr",
             "paddle_tpu_torch.optimizer.lbfgs",
+            "paddle_tpu_torch.observability",
+            "paddle_tpu_torch.observability.metrics",
+            "paddle_tpu_torch.observability.spans",
+            "paddle_tpu_torch.observability.flight",
+            "paddle_tpu_torch.profiler",
+            "paddle_tpu_torch.profiler.profiler",
+            "paddle_tpu_torch.profiler.statistic",
+            "paddle_tpu_torch.profiler.timer",
+            "paddle_tpu_torch.framework.native",
+            "paddle_tpu_torch.distributed.comm_watchdog",
+            "paddle_tpu_torch.distributed.faults",
+            "paddle_tpu_torch.distributed.checkpoint",
+            "paddle_tpu_torch.distributed.checkpoint.metadata",
+            "paddle_tpu_torch.distributed.checkpoint.save_state_dict",
+            "paddle_tpu_torch.distributed.checkpoint.load_state_dict",
+            "paddle_tpu_torch.distributed.checkpoint.manager",
             } <= set(
                 _port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib') or n == 'paddle_tpu' or n.startswith('paddle_tpu.'))\n"
+        "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_telemetry_and_checkpoint_import_alone_without_jax():
+    """The telemetry, the profiler, the watchdog and the checkpoint, each
+    imported first in a fresh interpreter, load no jax and nothing of the
+    JAX package (its pure-Python observability, faults, checkpoint
+    metadata and native loader included: the port keeps its own copies),
+    and the watchdog's host library builds from the port's own source."""
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.observability\n"
+        "import paddle_tpu_torch.profiler\n"
+        "import paddle_tpu_torch.distributed.comm_watchdog as wd\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "from paddle_tpu_torch.framework import native\n"
+        "assert str(native.HOST_SRC).endswith('paddle_tpu_torch/csrc/host')\n"
+        "assert wd.enable(60.0) and wd.timeout_count() == 0\n"
+        "wd.disable()\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib') or n == 'paddle_tpu' or n.startswith('paddle_tpu.'))\n"
         "print(repr(bad))\n")

@@ -26,9 +26,19 @@ from paddle_tpu_torch.inference.serving import GenerationRequest
 from paddle_tpu_torch.models import GPTForCausalLM, gpt3_tiny
 from paddle_tpu_torch.ops import decode_attention as port_da
 from paddle_tpu_torch.ops import fused_norm as port_norm
+from paddle_tpu_torch.observability import metrics
 
 MAX_NEW = 6
 PS = 8  # page size: 14-token prompts span two pages
+
+
+@pytest.fixture(autouse=True)
+def _fresh_registry():
+    """The serving families are process-wide (the observability registry,
+    as the reference's): each test reads its own engines' counts from a
+    fresh registry."""
+    metrics.reset_default_registry()
+    yield
 
 
 def _prompts():

@@ -24,6 +24,7 @@ from paddle_tpu_torch.inference.paged import BlockPool, PagedServingEngine
 from paddle_tpu_torch.models import GPTForCausalLM, gpt3_tiny
 from paddle_tpu_torch.ops import decode_attention as port_da
 from paddle_tpu_torch.quantization import QuantizedLinear, ptq_convert_for_serving
+from paddle_tpu_torch.observability import metrics
 
 PS = 16
 MAX_NEW = 5
@@ -31,6 +32,15 @@ MAX_NEW = 5
 # quantizer on the same f32 K/V up to a few ulps) and the f32 logit path;
 # their products sum in other orders
 LOGIT_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _fresh_registry():
+    """The serving families are process-wide (the observability registry,
+    as the reference's): each test reads its own engines' counts from a
+    fresh registry."""
+    metrics.reset_default_registry()
+    yield
 
 
 def _prompts():

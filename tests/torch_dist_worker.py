@@ -10,7 +10,8 @@ cases are in `tests/torch_sep_cases.py`, and
 `tests/torch_model_dp_cases.py`, and `tests/test_torch_random.py`, whose
 cases are in `tests/torch_random_cases.py`, and
 `tests/test_torch_loss_modes.py`, whose cases are in
-`tests/torch_amp_loss_cases.py`).
+`tests/torch_amp_loss_cases.py`, and `tests/test_torch_checkpoint.py`,
+suite "checkpoint").
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -28,6 +29,7 @@ import os
 import sys
 import traceback
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -39,6 +41,7 @@ from paddle_tpu_torch.distributed import fleet  # noqa: E402
 from paddle_tpu_torch.distributed.fleet.base.topology import (  # noqa: E402
     CommunicateTopology, HybridCommunicateGroup)
 from paddle_tpu_torch.distributed.train_step import host_memory_kind  # noqa: E402
+from paddle_tpu_torch.observability.metrics import default_registry  # noqa: E402
 from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
 
 GROUP_TIMEOUT_S = 120
@@ -179,15 +182,14 @@ def collective_cases(rank, world, inp):
 
     @case("counters")
     def _():
-        dist.collective.reset_counters()
+        since = default_registry().snapshot()
         dist.all_reduce(torch.ones(3))
         dist.all_gather([], torch.ones(2))
         dist.broadcast(torch.ones(4), src=0)
         dist.reduce_scatter(torch.zeros(1), [torch.ones(1)] * world)
         dist.alltoall_single(torch.zeros(world), torch.ones(world))
         dist.barrier()
-        return dict(calls=dict(dist.collective.CALLS),
-                    bytes=dict(dist.collective.BYTES))
+        return dist.collective.traffic(since)
 
     @case("topology")
     def _():
@@ -561,6 +563,109 @@ def amp_loss_cases(rank, world, inp):
     return cases(rank, world, inp)
 
 
+def checkpoint_cases(rank, world, inp):
+    """A gpt3_tiny step at ZeRO-3 over `world` sharding ranks saves its
+    training state after 2 AdamW steps (each rank its own shards), then a
+    fresh step at mp `world` restores it: both return the whole parameters
+    and moments (gathered) for the test to hold to each other, to one rank
+    and to the JAX package."""
+    from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
+                                                         Metadata)
+    from paddle_tpu_torch.distributed.checkpoint.metadata import metadata_path
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt3_tiny)
+
+    out = {}
+    root = os.path.join(inp["dir"], "ck")
+
+    def case(name, fn):
+        try:
+            out[name] = fn()
+        except Exception:  # the case's test reports the traceback
+            out[name] = "ERROR " + traceback.format_exc()
+
+    def build(shape, stage, seed):
+        mesh = dist.build_mesh(**shape)
+        model = GPTForCausalLM(gpt3_tiny(), device="cpu", seed=seed)
+        crit = GPTPretrainingCriterion()
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        return dist.DistributedTrainStep(model, lambda lg, lb: crit(lg, lb),
+                                         opt, mesh=mesh, sharding_stage=stage)
+
+    def whole(step):
+        """Every parameter and moment whole (a collective)."""
+        from paddle_tpu_torch.parallel.pipeline import gather_stages
+
+        opt = step.optimizer
+        names = {id(p): k for k, p in step.params.items()}
+        state = {k: v.numpy() for k, v in step.state_dict().items()}
+        for i, p in enumerate(opt._params()):
+            for key, v in opt._states[id(p)].items():
+                v = step._gather_state(names[id(p)], v)
+                if getattr(p, "pp_part", None) is not None:
+                    v = gather_stages(v, step._pp_pg, p.pp_part[2])
+                state[f"optimizer.param_{i}.{key}"] = v.numpy()
+        state["optimizer._step_count"] = np.asarray(opt._step_count)
+        return state
+
+    def zero3_save():
+        step = build(dict(sharding=world), 3, seed=3)
+        for ids in inp["ids"][:2]:
+            step(ids, ids)
+        st = step.train_state()
+        mgr = CheckpointManager(root)
+        mgr.save(st, 2)
+        meta = Metadata.load(metadata_path(mgr.path_for(2)))
+        files = sorted({m.file_name for v in meta.state_dict_metadata.values()
+                        for m in v})
+        shards = {k: [tuple(m.global_offset) for m in v]
+                  for k, v in meta.state_dict_metadata.items()}
+        state = whole(step)
+        losses = [step(ids, ids).item() for ids in inp["ids"][2:]]
+        return dict(state=state, files=files, shards=shards, losses=losses,
+                    local={k: tuple(t.shape) for k, t in
+                           step.model.state_dict().items()})
+
+    def mp_restore():
+        step = build(dict(mp=world), 0, seed=11)
+        got = CheckpointManager(root).restore_latest(step.train_state())
+        state = whole(step)
+        losses = [step(ids, ids).item() for ids in inp["ids"][2:]]
+        return dict(step=got, state=state, losses=losses)
+
+    def vpp_save():
+        """gpt3_tiny at 4 layers over pp 2 with VPP (2 chunks a stage):
+        each rank writes its stage's rows of every stack, two runs."""
+        import dataclasses
+
+        from paddle_tpu_torch.models import GPTForCausalLMPipe
+
+        mesh = dist.build_mesh(pp=world)
+        cfg = dataclasses.replace(gpt3_tiny(), num_layers=4)
+        model = GPTForCausalLMPipe(cfg, num_microbatches=2, pp_schedule="vpp",
+                                   vpp_degree=2, device="cpu", seed=7)
+        crit = GPTPretrainingCriterion()
+        step = dist.DistributedTrainStep(
+            model, lambda lg, lb: crit(lg, lb),
+            AdamW(learning_rate=1e-3, parameters=model.parameters()),
+            mesh=mesh)
+        for ids in inp["ids"][:2]:
+            step(ids, ids)
+        mgr = CheckpointManager(os.path.join(inp["dir"], "ck_vpp"))
+        mgr.save(step.train_state(), 2)
+        meta = Metadata.load(metadata_path(mgr.path_for(2)))
+        return dict(state=whole(step), shards={
+            k: sorted(tuple(m.global_offset) for m in v)
+            for k, v in meta.state_dict_metadata.items()})
+
+    case("zero3_save", zero3_save)
+    dist.barrier()
+    case("mp_restore", mp_restore)
+    dist.barrier()
+    case("vpp_save", vpp_save)
+    return out
+
+
 SUITES = {"collective": collective_cases, "sharding": sharding_cases,
           "tensor_parallel": tensor_parallel_cases,
           "pipeline": pipeline_cases, "pipeline_gate": pipeline_gate_cases,
@@ -568,7 +673,8 @@ SUITES = {"collective": collective_cases, "sharding": sharding_cases,
           "segment_gate": segment_gate_cases,
           "expert_parallel": expert_parallel_cases,
           "bert_dp": bert_dp_cases, "resnet_dp": resnet_dp_cases,
-          "random": random_cases, "amp_loss": amp_loss_cases}
+          "random": random_cases, "amp_loss": amp_loss_cases,
+          "checkpoint": checkpoint_cases}
 
 
 def main():

@@ -18,6 +18,7 @@ from paddle_tpu_torch.distributed import moe_comm
 from paddle_tpu_torch.distributed.utils import global_gather, global_scatter
 from paddle_tpu_torch.incubate.distributed.models.moe import (ExpertFFN,
                                                               MoELayer)
+from paddle_tpu_torch.observability.metrics import default_registry
 from paddle_tpu_torch.optimizer import AdamW
 
 M, E, H = 8, 4, 16
@@ -64,13 +65,14 @@ def ep_step(inp, gate, shape, axes, ep_axis="ep", stage=0, chunks=2,
     x, y = inp["x"], inp["y"]
     step.evaluate(x, y)
     l_aux = [net.moe.l_aux.item()]
-    coll.reset_counters()
+    since = default_registry().snapshot()
     moe_comm.reset()
     losses = []
     for _ in range(steps):
         losses.append(step(x, y).item())
         l_aux.append(net.moe.l_aux.item())
-    return dict(losses=losses, l_aux=l_aux, calls=dict(coll.CALLS),
+    return dict(losses=losses, l_aux=l_aux,
+                calls=coll.traffic(since)["calls"],
                 a2a=moe_comm.a2a_totals(),
                 shapes={k: tuple(p.shape) for k, p in net.named_parameters()},
                 params={k: _np(v) for k, v in step.state_dict().items()})
@@ -126,13 +128,12 @@ def expert_parallel_cases(rank, world, inp):
         for name in ("uniform", "ragged"):
             lc, gc = g[name]["local"][rank], g[name]["global"][rank]
             x = torch.tensor(g[name]["x"][rank], requires_grad=True)
-            coll.reset_counters()
+            since = default_registry().snapshot()
             s = global_scatter(x, torch.tensor(lc), torch.tensor(gc))
             back = global_gather(s * 2, torch.tensor(lc), torch.tensor(gc))
             back.sum().backward()
             res[name] = dict(scattered=_np(s), back=_np(back),
-                             dx=_np(x.grad), calls=dict(coll.CALLS),
-                             bytes=dict(coll.BYTES))
+                             dx=_np(x.grad), **coll.traffic(since))
         return res
 
     case("exchange", exchange)

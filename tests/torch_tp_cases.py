@@ -26,6 +26,7 @@ from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import SGD, AdamW
+from paddle_tpu_torch.observability.metrics import default_registry
 
 
 def _np(t):
@@ -194,11 +195,11 @@ def tensor_parallel_cases(rank, world, inp):
                                          mesh=mesh, sharding_stage=stage,
                                          **step_kw)
         _load(model, state)
-        coll.reset_counters()
+        since = default_registry().snapshot()
         losses = [step(inp["gpt_ids"], inp["gpt_labels"]).item()
                   for _ in range(steps)]
         return dict(losses=losses, params=_full(step),
-                    calls=dict(coll.CALLS))
+                    calls=coll.traffic(since)["calls"])
 
     if world == 4:
         for stage in (1, 2, 3):
