@@ -277,7 +277,7 @@ Phases; any failure raises and the script exits non-zero:
                 dq, 3 dk/dv, 6 RoPE launches (3 forward, 3 backward), 7
                 RMSNorm forwards and 7 dx, and no flash launch.
 10. llama train hold — phase 6 at the llama_7bshape widths (2 layers,
-                flashmask attention).
+                flashmask attention, two AdamW steps).
 11. moe train — bench.py's gpt3_moe rung (run_moe_rung: 8 experts, GShard
                 top-2 with random routing, width 1024, expert hidden 4096,
                 4 attention-free layers, vocabulary 32000) at batch 8 x
@@ -346,7 +346,7 @@ Phases; any failure raises and the script exits non-zero:
                 device time and share; then a GroupNorm that amp.decorate
                 cast: bf16 parameters, an f32 output.
 19. unet train hold — phase 18's widths at 1 res block a level, batch 2
-                of a 16 x 16 latent, a context of 8, three AdamW steps in
+                of a 16 x 16 latent, a context of 8, two AdamW steps in
                 f32 (TF32 off) on the card (the f32 flash kernels at the
                 128 and 192 widths) against the CPU (oneDNN off): losses
                 and step-1 gradients within the train hold's tolerances.
@@ -475,6 +475,36 @@ Phases; any failure raises and the script exits non-zero:
                 3's paged decode launches; (e) the comm watchdog's host
                 library built on the card's host with g++, enabled across
                 (a)-(d): 0 timeouts and nothing in flight at the end.
+31. resilient train under the launcher — phase 5's step (gpt3_1p3b's
+                full width, O2 bf16, bf16 moments, recompute, phase 5's
+                weights and tokens) under a ResilientTrainer (save_every 2,
+                keep_last_n 2, synchronous saves, an ElasticManager over
+                the native store) in a worker of this script
+                (`--phase31-worker`) started by `python -m
+                paddle_tpu_torch.distributed.launch --max_restart=2`; the
+                worker takes its rendezvous from the launcher
+                (init_parallel_env: NCCL, world size 1;
+                create_or_get_global_tcp_store at the master port + 1).
+                Two launches side by side: (a) 16 layers (P31_LAYERS: at
+                24 the run neared its limit), 6 steps: the first life
+                commits step 1 and is killed while committing step 3
+                (`ckpt.before_commit:kill@2`); the launcher respawns it,
+                the second life resumes from step 1 and trains steps 2-5.
+                (b) 2 layers, a 30 s step deadline: the first life hangs
+                90 s in step 2 (`trainer.before_step:sleep:90@3`); the
+                watchdog's FatalError line reaches the launcher's
+                LogWatcher, the pod is torn down (its watchdog report
+                folded into the worker log) and respawned, and the second
+                life resumes from step 1. Each: every step's loss against
+                the same 6 steps run uninterrupted in this process (bit for
+                bit or within 1e-4 relative), every step phase 5's
+                launches at its depth, the heartbeat's age under twice its
+                interval, no torn `.tmp` left, the newest checkpoint step
+                5; printed: the free disk space first (three copies of both
+                states must fit), each life's start step, the restore and
+                save seconds, the seconds from the first life's death to
+                the second life's first step, the step time beside phase
+                5's. The checkpoints are deleted at the end.
 
 A phase's peak device memory is its own: `reset_peak` collects what the
 earlier phases left in reference cycles before the window opens.
@@ -3905,15 +3935,16 @@ def profile_step(card, torch, fn, what):
 def train_hold(card, torch, which):
     """The training step on the card (kernels) and on the CPU (plain
     versions), f32 with TF32 off, batch 2 x 256, 2 layers at the path's
-    widths: three AdamW steps from the same weights; the losses and the
-    step-1 gradients within tolerance. "gpt3_1p3b" runs with recompute,
+    widths: three AdamW steps from the same weights (llama_7bshape two:
+    its CPU side, AdamW over 616M f32 parameters, is the run's longest
+    hold); the losses and the step-1 gradients within tolerance. "gpt3_1p3b" runs with recompute,
     "llama_7bshape" with flashmask attention; both run the f32 CUDA-core
     forms of the attention kernels (the bf16 tensor-core forms are held by
     the kernel phase only)."""
     cfg = dataclasses.replace(_train_config(which)[0], num_layers=2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    B, S, steps = 2, 256, 3
+    B, S, steps = 2, 256, 2 if which == "llama_7bshape" else 3
     rng = np.random.default_rng(4)
     ids = rng.integers(0, cfg.vocab_size, (B, S))
     labels = rng.integers(0, cfg.vocab_size, (B, S))
@@ -5421,7 +5452,7 @@ def unet_train_hold(card, torch):
     """The unet step on the card (the f32 flash kernels at the 128 and 192
     widths: heads of 80 and 160; the f32 norm kernels) and on the CPU
     (plain versions) at the rung's widths with one res block a level,
-    batch 2 of a 16 x 16 latent, a context of 8, f32 (TF32 off): three
+    batch 2 of a 16 x 16 latent, a context of 8, f32 (TF32 off): two
     AdamW steps from the same weights; the losses and the step-1
     gradients within the train hold's tolerances. The CPU's convs run
     without oneDNN (torch.backends.mkldnn off), whose f32 convs missed
@@ -5432,7 +5463,7 @@ def unet_train_hold(card, torch):
     cfg = UNetConfig(num_res_blocks=1, **UNET_WIDTHS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    B, HW, L, steps = 2, 16, 8, 3
+    B, HW, L, steps = 2, 16, 8, 2
     results, state = {}, None
     mkldnn = torch.backends.mkldnn.enabled
     try:
@@ -7227,7 +7258,7 @@ TRAIN_KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_sm90_kernel",
 RESUME_RTOL = 1e-4   # phase 6's limit for the continued losses
 
 
-def _checkpoint_root(torch, need):
+def _checkpoint_root(torch, need, prefix="phase30_ckpt_"):
     """A directory with at least `need` bytes free for the checkpoint: the
     temporary directory, else the gitignored build directory of the
     checkout. Raises naming the shortfall."""
@@ -7242,9 +7273,9 @@ def _checkpoint_root(torch, need):
         os.makedirs(d, exist_ok=True)
         free[d] = shutil.disk_usage(d).free
         if free[d] >= need:
-            return tempfile.mkdtemp(prefix="phase30_ckpt_", dir=d), free
-    raise AssertionError(f"observed_train_and_resume: the checkpoint needs "
-                         f"twice the state, {need} bytes free; free: {free}")
+            return tempfile.mkdtemp(prefix=prefix, dir=d), free
+    raise AssertionError(f"{prefix}: the checkpoints need {need} bytes "
+                         f"free; free: {free}")
 
 
 def _seconds(reg, since, family):
@@ -7549,6 +7580,414 @@ def observed_train_and_resume(card, torch, train_line):
     return {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
 
 
+# --------------------------------------------------------------------------- #
+# phase 31: the train cell under ResilientTrainer and the port's launcher
+# --------------------------------------------------------------------------- #
+
+P31_STEPS = 6
+P31_SAVE_EVERY = 2
+P31_HB_INTERVAL_S = 2.0      # the elastic manager's heartbeat interval
+# (a) at 16 of gpt3_1p3b's 24 layers, at full width: at 24 its four
+# synchronous saves of 7.9 GB and a restore took 137 s of its 216 s, and the
+# run came to 1,191 s of its 1,200 s limit (PERF.md, the resilient runtime)
+P31_LAYERS = {"kill": 16, "hang": 2}
+# a fresh process's first step takes 11-16 s on the card's host (torch's
+# lazy imports), so no step nears (a)'s deadline and (b)'s is twice that
+P31_STEP_TIMEOUT_S = {"kill": 600.0, "hang": 30.0}
+P31_FAULTS = {"kill": "ckpt.before_commit:kill@2",
+              "hang": "trainer.before_step:sleep:90@3"}
+P31_LAUNCH_LIMIT_S = 600
+
+
+def _p31_per_step(L):
+    """phase 5's launches a step at depth L (`_train_config`)."""
+    return {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "fused_norm": (2 * L + 1) + 2 * L, "fused_norm_dx": 2 * L + 1}
+
+
+def _p31_setup(torch, layers):
+    """Phase 5's gpt3_1p3b step at full width and `layers` deep (its
+    weights from seed 0, its 4 x 2048 tokens) on the 1-rank NCCL group that
+    must exist: DistributedTrainStep then runs over its one-rank mesh, in
+    the worker and in the uninterrupted run alike."""
+    cfg, _, _, _ = _train_config("gpt3_1p3b")
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    model, _, step = _train_setup(torch, cfg, "cuda", torch.float32, 0,
+                                  "gpt3_1p3b")
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2048)),
+                          device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2048)),
+                             device="cuda")
+    return model, step, ids, labels
+
+
+def _p31_death_time(part, ckpt):
+    """Wall time at which the previous life died: the newest file of the
+    torn save it left (kill: its metadata, the last thing written before
+    the fault point), or its flight recorder's SIGTERM dump (hang)."""
+    if part == "kill":
+        files = [os.path.join(dp, f) for dp, _, fs in os.walk(ckpt)
+                 if dp.endswith(".tmp") for f in fs]
+    else:
+        fl = os.environ["PADDLE_FLIGHT_FILE"]
+        files = [fl[: fl.rindex(".r")] + ".r0.flight"]
+    times = [os.path.getmtime(f) for f in files if os.path.exists(f)]
+    return max(times) if times else None
+
+
+def _process_start_time():
+    """This process's start, wall clock (/proc; to the kernel's boot-time
+    second)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(ln.split()[1]) for ln in f if ln.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def phase31_worker(part, ckpt, layers):
+    """One life of phase 31's worker, started by the launcher: the
+    rendezvous from its environment (init_parallel_env: NCCL, world size
+    1; create_or_get_global_tcp_store; an ElasticManager over that store),
+    phase 5's step at `layers` deep under a ResilientTrainer. Each step
+    prints a `P31 {...}` line (its loss, its launches with the counters
+    zeroed just before it and read just after, the heartbeat's age, the
+    saves committed since the last line); the life ends with a `P31_LIFE
+    {...}` line. The first life arms P31_FAULTS[part]."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.fleet.elastic import ElasticManager
+    from paddle_tpu_torch.distributed.resilience import ResilientTrainer
+    from paddle_tpu_torch.distributed.store import create_or_get_global_tcp_store
+    from paddle_tpu_torch.observability import flight
+
+    t_life = time.time()
+    restart = int(os.environ["PADDLE_RESTART_COUNT"])
+    died_at = _p31_death_time(part, ckpt) if restart else None
+    if restart == 0:
+        os.environ["PADDLE_FAULT_INJECT"] = P31_FAULTS[part]
+    pdist.init_parallel_env()
+    store = create_or_get_global_tcp_store()
+    elastic = ElasticManager(store=store, np_range="1",
+                             heartbeat_interval=P31_HB_INTERVAL_S)
+    t0 = time.perf_counter()
+    model, step, ids, labels = _p31_setup(torch, layers)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    reg = _registry()
+    since = reg.snapshot()
+    rec = flight.get_recorder()
+    seen = [0]
+    t_run = [None, None]    # run() entered, first step entered
+
+    def saves():
+        ev = [e for e in rec.events if e["kind"] == "checkpoint_save"]
+        new, seen[0] = ev[seen[0]:], len(ev)
+        return [{"step": e["step"], "s": e["latency_s"]} for e in new]
+
+    def step_fn(i):
+        if t_run[1] is None:
+            t_run[1] = time.perf_counter()
+        age = reg.get("trainer_heartbeat_age_seconds")
+        line = {"step": i, "t_wall": time.time(), "saves": saves(),
+                "hb_age_s": age.value() if age else None}
+        _zero_counters()
+        t = time.perf_counter()
+        loss = step(ids, labels).item()
+        line.update(loss=loss, s=time.perf_counter() - t,
+                    launches=_counters())
+        print("P31 " + json.dumps(line), flush=True)
+        return loss
+
+    trainer = ResilientTrainer(
+        step_fn, step.train_state, ckpt, save_every=P31_SAVE_EVERY,
+        keep_last_n=2, async_save=False, elastic=elastic,
+        step_timeout=P31_STEP_TIMEOUT_S[part])
+    t_run[0] = time.perf_counter()
+    out = trainer.run(P31_STEPS)
+    d = reg.delta(since)
+    pre = "checkpoint_load_seconds_total{part="
+    print("P31_LIFE " + json.dumps({
+        "restart": restart, "start_step": out["start_step"],
+        "resumed_from": out["resumed_from"], "built_s": built_s,
+        "died_at": died_at, "t_life": t_life,
+        "imports_s": t_life - _process_start_time(),
+        "run_to_first_step_s": t_run[1] - t_run[0],
+        "load_parts_s": {k[len(pre):-1]: v for k, v in d.items()
+                         if k.startswith(pre)},
+        "saves": saves(),
+        "hb_age_final_s": reg.get("trainer_heartbeat_age_seconds").value(),
+        "completed": store.tryget("default/completed") == b"1",
+        "last_loss": out["last_loss"]}), flush=True)
+    pdist.destroy_process_group()
+    return 0
+
+
+def _state_nbytes(state):
+    """The bytes of a training state's tensors (a `train_state()` over a
+    mesh gives each entry as a list of its `LocalShard`s)."""
+    from paddle_tpu_torch.distributed.checkpoint import LocalShard
+
+    parts = [p for v in state.values()
+             for p in (v if isinstance(v, (list, tuple)) else [v])]
+    return sum(t.numel() * t.element_size() for t in
+               (p.tensor if isinstance(p, LocalShard) else p for p in parts))
+
+
+def _p31_uninterrupted(torch, layers):
+    """The same steps in this process, uninterrupted, on a 1-rank NCCL group
+    of its own: (losses, launches a step, training-state bytes, seconds)."""
+    from paddle_tpu_torch import distributed as pdist
+
+    t0 = time.perf_counter()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1")
+    pdist.init_parallel_env()
+    try:
+        model, step, ids, labels = _p31_setup(torch, layers)
+        nbytes = _state_nbytes(step.train_state())
+        losses, launches = [], []
+        for _ in range(P31_STEPS):
+            _zero_counters()
+            losses.append(step(ids, labels).item())
+            launches.append(_counters())
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, launches, nbytes, time.perf_counter() - t0
+    finally:
+        pdist.destroy_process_group()
+
+
+def _p31_start(part, root, log_dir):
+    """`python -m paddle_tpu_torch.distributed.launch --max_restart=2` of
+    this script's worker, in a session of its own, its output in
+    `log_dir/launcher.log`; (process, start time)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(log_dir, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PADDLE_", "MASTER_"))
+           and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--max_restart=2", "--log_dir", log_dir,
+           os.path.abspath(__file__), "--phase31-worker", part, root,
+           str(P31_LAYERS[part])]
+    with open(os.path.join(log_dir, "launcher.log"), "wb") as out:
+        return subprocess.Popen(cmd, env=env, cwd=here, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True), time.perf_counter()
+
+
+def _p31_wait(started):
+    """{part: wall seconds} of launches `started` ({part: (process, start
+    time)}), each read when its launcher exits. Raises when one runs past
+    P31_LAUNCH_LIMIT_S (the caller stops what is left)."""
+    walls = {}
+    while len(walls) < len(started):
+        for part, (proc, t0) in started.items():
+            if part in walls:
+                continue
+            if proc.poll() is not None:
+                walls[part] = time.perf_counter() - t0
+            elif time.perf_counter() - t0 > P31_LAUNCH_LIMIT_S:
+                raise AssertionError(f"resilient train ({part}): the launch "
+                                     f"ran past {P31_LAUNCH_LIMIT_S} s")
+        time.sleep(0.2)
+    return walls
+
+
+def _p31_lives(log_dir):
+    """The launcher's output and each life's P31 lines and log."""
+    with open(os.path.join(log_dir, "launcher.log"), errors="replace") as f:
+        err = f.read()
+    lives = []
+    for life in range(3):
+        path = os.path.join(log_dir, f"workerlog.0.r{life}")
+        if not os.path.exists(path):
+            break
+        text = open(path, errors="replace").read()
+        steps = [json.loads(ln[4:]) for ln in text.splitlines()
+                 if ln.startswith("P31 ")]
+        end = [json.loads(ln[9:]) for ln in text.splitlines()
+               if ln.startswith("P31_LIFE ")]
+        lives.append({"steps": steps, "end": end[0] if end else None,
+                      "log": text})
+    return err, lives
+
+
+def _p31_check(part, rc, err, lives, want_losses, per_step):
+    """The holds of phase 31 (a) and (b) on one launch; returns the launch
+    counts of every step the lives took, summed, the largest relative loss
+    gap and the losses by step."""
+    from paddle_tpu_torch.distributed.faults import FAULT_EXIT_CODE
+
+    tail = err[-3000:]
+    if rc != 0:
+        raise AssertionError(f"resilient train ({part}): the launcher exited "
+                             f"{rc}: {tail}")
+    if len(lives) != 2 or lives[1]["end"] is None:
+        raise AssertionError(f"resilient train ({part}): {len(lives)} lives, "
+                             f"the last unfinished: {tail}")
+    first, second = lives
+    ran = [[s["step"] for s in life["steps"]] for life in lives]
+    last_first = 3 if part == "kill" else 1
+    if ran != [list(range(last_first + 1)), list(range(2, P31_STEPS))] or \
+            second["end"]["resumed_from"] != 1 or second["end"]["died_at"] \
+            is None:
+        raise AssertionError(f"resilient train ({part}): steps by life {ran}, "
+                             f"the second life's end {second['end']}")
+    if part == "kill" and f"pod failed (exit {FAULT_EXIT_CODE})" not in err:
+        raise AssertionError(f"resilient train (kill): no death by the "
+                             f"injected fault: {tail}")
+    if part == "hang" and ("fatal log" not in err
+                           or "comm-watchdog post-mortem" not in first["log"]):
+        raise AssertionError("resilient train (hang): the watchdog's "
+                             "FatalError did not reach the launcher, or its "
+                             f"report was not folded into the log: {tail}")
+    want = _expected(**per_step)
+    got = {s["step"]: s["loss"] for life in lives for s in life["steps"]}
+    rel = max(abs(got[i] - want_losses[i]) / abs(want_losses[i])
+              for i in range(P31_STEPS))
+    bad = [(s["step"], s["launches"]) for life in lives
+           for s in life["steps"] if s["launches"] != want]
+    if rel > RESUME_RTOL or bad:
+        raise AssertionError(f"resilient train ({part}): losses {got} "
+                             f"against {want_losses} (max rel {rel}); steps "
+                             f"with other launches than {per_step}: {bad}")
+    ages = [s["hb_age_s"] for life in lives for s in life["steps"]
+            if s["hb_age_s"] is not None] + [second["end"]["hb_age_final_s"]]
+    if max(ages) >= 2 * P31_HB_INTERVAL_S or not second["end"]["completed"]:
+        raise AssertionError(f"resilient train ({part}): heartbeat ages "
+                             f"{ages}, completed {second['end']['completed']}")
+    return {name: sum(s["launches"][name] for life in lives
+                      for s in life["steps"]) for name in want}, rel, got
+
+
+def _p31_line(part, ref, wall, lives, counts, rel, got, train_line):
+    """Phase 31's printed figures of one launch."""
+    first, second = lives
+    end = second["end"]
+    saves = [sv for life in lives for s in life["steps"]
+             for sv in s["saves"]] + end["saves"]
+    first_step, last_dead = second["steps"][0], first["steps"][-1]
+    want_losses, _, nbytes, uninterrupted_s = ref
+    return {
+        "part": part, "layers": P31_LAYERS[part], "launch_wall_s": wall,
+        "uninterrupted_s": uninterrupted_s,
+        "start_steps": [0, end["start_step"]],
+        "resumed_from": end["resumed_from"],
+        "restore_s": sum(end["load_parts_s"].values()),
+        "restore_parts_s": end["load_parts_s"],
+        "run_to_first_step_s": end["run_to_first_step_s"],
+        "saves_s": saves, "state_bytes": nbytes,
+        # from the first life's death (its torn save's last file, or its
+        # SIGTERM dump) to the second life's first step's start and end
+        "death_to_first_step_s": first_step["t_wall"] - end["died_at"],
+        "death_to_first_step_end_s":
+            first_step["t_wall"] + first_step["s"] - end["died_at"],
+        # the first life's last step ended, then it saved (kill) or hung
+        # (hang) until it died
+        "last_step_to_death_s":
+            end["died_at"] - (last_dead["t_wall"] + last_dead["s"]),
+        "worker_main_to_first_step_s": first_step["t_wall"] - end["t_life"],
+        "imports_s": end["imports_s"], "built_s": end["built_s"],
+        "first_step_s": first_step["s"],
+        "step_s": [s["s"] for s in second["steps"][1:]],
+        "phase5_step_s": train_line["step_s"],
+        "losses": [got[i] for i in range(P31_STEPS)],
+        "uninterrupted_losses": want_losses,
+        "bit_identical": [got[i] for i in range(P31_STEPS)] == want_losses,
+        "max_loss_rel_diff": rel, "loss_rtol": RESUME_RTOL,
+        "heartbeat_interval_s": P31_HB_INTERVAL_S,
+        "hb_age_max_s": max([s["hb_age_s"] or 0.0 for life in lives
+                             for s in life["steps"]]
+                            + [end["hb_age_final_s"]]),
+        "launches": counts}
+
+
+def resilient_train(card, torch, train_line):
+    """Phase 31 (see the module docstring): phase 5's step under a
+    ResilientTrainer started by `python -m
+    paddle_tpu_torch.distributed.launch`, (a) killed while committing its
+    second checkpoint and resumed, (b) hung past its step deadline, torn
+    down and respawned; the two launches run side by side. Returns the
+    launch counts of every step their workers took, summed."""
+    import shutil
+    import signal
+
+    from paddle_tpu_torch.distributed.checkpoint import latest_checkpoint
+    from paddle_tpu_torch.framework import native
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "phase31")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    native.build()   # the store's and the watchdog's host library
+    refs = {part: _p31_uninterrupted(torch, layers)
+            for part, layers in P31_LAYERS.items()}
+    for part, (_, plain, _, _) in refs.items():
+        want = _expected(**_p31_per_step(P31_LAYERS[part]))
+        if any(l != want for l in plain):
+            raise AssertionError(f"resilient train ({part}): the uninterrupted "
+                                 f"run's launches {plain}")
+    need = 3 * sum(r[2] for r in refs.values())
+    root, free = _checkpoint_root(torch, need, "phase31_ckpt_")
+    say(card, "resilient train disk " + json.dumps({
+        "root": root, "free_bytes": free, "needs_bytes": need,
+        "state_bytes": {part: r[2] for part, r in refs.items()}}))
+    launches, started = [], {}
+    try:
+        for part in P31_LAYERS:
+            os.makedirs(os.path.join(root, part))
+            started[part] = _p31_start(part, os.path.join(root, part),
+                                       os.path.join(out_dir, part))
+        walls = _p31_wait(started)
+        for part, wall in walls.items():
+            rc = started[part][0].returncode
+            err, lives = _p31_lives(os.path.join(out_dir, part))
+            for life in lives:
+                say(card, f"resilient train {part} life " + json.dumps({
+                    "steps": [{k: s[k] for k in ("step", "loss", "s",
+                                                 "hb_age_s", "saves")}
+                              for s in life["steps"]],
+                    "end": life["end"]}))
+            counts, rel, got = _p31_check(part, rc, err, lives,
+                                          refs[part][0],
+                                          _p31_per_step(P31_LAYERS[part]))
+            ckpt = os.path.join(root, part)
+            left = sorted(os.listdir(ckpt))
+            info = latest_checkpoint(ckpt)
+            if any(d.endswith(".tmp") for d in left) or info is None or \
+                    info.step != P31_STEPS - 1:
+                raise AssertionError(f"resilient train ({part}): the "
+                                     f"checkpoints left {left}, latest "
+                                     f"{info and info.step}")
+            say(card, f"resilient train {part} gpt3_1p3b " + json.dumps(
+                _p31_line(part, refs[part], wall, lives, counts, rel, got,
+                          train_line)))
+            launches.append(counts)
+    finally:
+        # a launch left by a failure is torn down; nothing of a launch
+        # outlives the phase
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        shutil.rmtree(root, ignore_errors=True)
+    return {name: sum(c.get(name, 0) for c in launches)
+            for name in _counters()}
+
+
 def main():
     import torch
 
@@ -7556,6 +7995,9 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--phase31-worker"]:
+        part, ckpt, layers = sys.argv[2:5]
+        return phase31_worker(part, ckpt, int(layers))
     from paddle_tpu_torch.ops import _build
 
     card = card_line()
@@ -7638,6 +8080,7 @@ def main():
     idiom_launches = phase(paddle_idiom, card, torch, train_line)
     observed_launches = phase(observed_train_and_resume, card, torch,
                               train_line)
+    resilient_launches = phase(resilient_train, card, torch, train_line)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -7648,7 +8091,7 @@ def main():
              bert_launches, resnet_launches, unet_launches,
              bert_dropout_launches, bert_eval_launches, blha_launches,
              fused_enc_launches, incubate_launches, idiom_launches,
-             observed_launches)
+             observed_launches, resilient_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     # the fp16 paths (phases 23-25 and varlen_entry's fp16 call) launch the
     # same wrappers' f16 instantiations: counted apart, for the f16 rows

@@ -8,11 +8,17 @@ expert parallelism and ZeRO stages 1-3 with offload; the pipeline schedules
 and ring attention are in `paddle_tpu_torch.parallel`), the MoE exchanges
 `utils.global_scatter` / `global_gather` and the all-to-all record
 `moe_comm`, the comm watchdog (`comm_watchdog`), the crash-test fault
-points (`faults`) and the sharded checkpoint (`checkpoint`). One process
-per rank: `spawn` starts `nprocs` of them."""
+points (`faults`), the sharded checkpoint (`checkpoint`), and the resilient
+runtime: the native rendezvous store (`store`), `fleet.elastic`'s
+`ElasticManager`, `resilience`'s `ResilientTrainer`, `rpc`, the eager
+host-value collectives (`eager_multiproc`) and the launcher
+(`python -m paddle_tpu_torch.distributed.launch`). One process per rank:
+`spawn` starts `nprocs` of them, the launcher one per card with a restart
+loop."""
 
-from . import (checkpoint, collective, comm_watchdog, env, faults, fleet,
-               moe_comm, parallel, sharding, utils)
+from . import (checkpoint, collective, comm_watchdog, eager_multiproc, env,
+               faults, fleet, moe_comm, parallel, resilience, rpc, sharding,
+               store, utils)
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
                          all_reduce, alltoall, alltoall_single, barrier,
                          batch_isend_irecv, broadcast, broadcast_object_list,
@@ -23,6 +29,7 @@ from .env import (ParallelEnv, build_mesh, get_rank, get_world_size,
                   init_parallel_env, is_initialized)
 from .parallel import (DataParallel, group_sharded_parallel,
                        save_group_sharded_model)
+from .resilience import ResilientTrainer, run_with_recovery
 from .train_step import DistributedTrainStep, full_state_dict
 
 __all__ = [
@@ -31,13 +38,15 @@ __all__ = [
     "alltoall_single", "barrier", "batch_isend_irecv", "broadcast",
     "broadcast_object_list", "build_mesh", "checkpoint", "collective",
     "comm_watchdog",
-    "destroy_process_group", "env", "faults", "fleet", "full_state_dict",
+    "destroy_process_group", "eager_multiproc", "env", "faults", "fleet",
+    "full_state_dict",
     "get_group",
     "get_rank", "get_world_size", "group_sharded_parallel",
     "init_parallel_env", "irecv", "is_initialized", "isend", "moe_comm",
     "new_group", "parallel", "recv", "reduce", "reduce_scatter",
+    "resilience", "ResilientTrainer", "rpc", "run_with_recovery",
     "save_group_sharded_model", "scatter", "scatter_object_list", "send",
-    "sharding", "spawn", "utils", "wait",
+    "sharding", "spawn", "store", "utils", "wait",
 ]
 
 

@@ -17,8 +17,10 @@ replica writes it (:57-112).
 
 The on-disk format is the reference's. A bfloat16 tensor is written as an
 ml_dtypes bfloat16 array where ml_dtypes is installed (the reference's
-bytes), else as its int16 bits, which `load_state_dict` reads back bit for
-bit; both carry the dtype "bfloat16" in the metadata and the same crcs.
+bytes), else as its bits in 2-byte voids (`framework.dtype.BF16_BITS`),
+which `load_state_dict` reads back bit for bit and the JAX package's loader
+refuses to cast, as it refuses its own bfloat16 npz; both routes carry the
+dtype "bfloat16" in the metadata and the same crcs, over the same bytes.
 
 Commit protocol (crash safety): nothing is ever written into `path` itself.
 All files land in `path + ".tmp"`; after shards and metadata are written and
@@ -53,7 +55,7 @@ import numpy as np
 import torch
 
 from ...framework.core import Tensor
-from ...framework.dtype import _numpy_bf16
+from ...framework.dtype import BF16_BITS, _numpy_bf16
 from ...observability.metrics import HandleCache
 from .. import faults
 from .metadata import (
@@ -99,7 +101,8 @@ def _host_array(t):
     """A host numpy copy of t (a torch tensor, a `Tensor`, host data): the
     copy is load-bearing, since the step updates its tensors in place while
     an async save writes. bfloat16 as ml_dtypes' type where installed, else
-    its int16 bits; the second value is the metadata's dtype string."""
+    its bits as 2-byte voids (BF16_BITS); the second value is the
+    metadata's dtype string."""
     if isinstance(t, Tensor):
         t = t._value
     if not isinstance(t, torch.Tensor):
@@ -110,7 +113,7 @@ def _host_array(t):
     if host.dtype is torch.bfloat16:
         bits = host.contiguous().view(torch.int16).numpy()
         nd = _numpy_bf16()
-        return (bits.view(nd) if nd is not None else bits), "bfloat16"
+        return bits.view(nd if nd is not None else BF16_BITS), "bfloat16"
     arr = host.contiguous().numpy()
     return arr, str(arr.dtype)
 

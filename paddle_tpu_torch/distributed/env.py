@@ -12,9 +12,12 @@ mp lands on neighbouring ranks, as `build_mesh` (:128-137) places it.
 MASTER_ADDR / MASTER_PORT, from PADDLE_MASTER ("host:port", with
 PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM) as `tests/test_multiproc.py` sets
 it, or from an explicit `init_method` (a `file://` store, as the CPU tests
-use). The backend is NCCL when the rank's device is `cuda` (the default)
-and gloo when the caller asks for the CPU. A rank on `cuda` binds
-`cuda:{local_rank}`.
+use). torch's c10d store of that rendezvous takes the master port itself;
+the native store of `distributed.store` (`create_or_get_global_tcp_store`)
+takes the master port + 1, so one master address serves both, as
+`distributed.launch` sets it. The backend is NCCL when the rank's device
+is `cuda` (the default) and gloo when the caller asks for the CPU. A rank
+on `cuda` binds `cuda:{local_rank}`.
 
 `build_mesh` also builds the groups over two dims that the step and the
 topology read: (dp, sharding), the batch axes, and (dp, sep). Every rank

@@ -70,6 +70,13 @@ complex128 = torch.complex128
 _default_dtype = torch.float32
 
 
+# bfloat16 bits on disk where ml_dtypes is not installed (the card's
+# installation): 2-byte voids, which the port's loaders read back as bits
+# and the JAX package refuses to cast (numpy has no cast from a void to a
+# number), where int16 bits would be read as the numbers they spell
+BF16_BITS = np.dtype("V2")
+
+
 def _numpy_bf16():
     """numpy's bfloat16 from ml_dtypes, or None where it is not installed."""
     try:

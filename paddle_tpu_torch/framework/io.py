@@ -6,9 +6,12 @@ wire form (:18-38), so a file written by either package loads in the other:
 nested dicts, lists and tuples of tensors and plain values, a `state_dict`
 among them. A bfloat16 tensor is written as an ml_dtypes bfloat16 array
 where ml_dtypes is installed (the form the reference writes and reads);
-where it is not (the card's installation), as its int16 bits under
-`"dtype": "bfloat16"`, which this `load` reads back bit for bit. `load`
-returns `Tensor`s on the default device (`get_device()`).
+where it is not (the card's installation), as its bits in 2-byte voids
+(`dtype.BF16_BITS`) under `"dtype": "bfloat16"`, which this `load` reads
+back bit for bit and the reference's `load` refuses (jnp.asarray takes no
+void array) rather than misreading. `load` also reads the int16 bits that
+earlier versions wrote under the same key. It returns `Tensor`s on the
+default device (`get_device()`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from .core import Tensor, _from_numpy
-from .dtype import _numpy_bf16
+from .dtype import BF16_BITS, _numpy_bf16
 
 __all__ = ["load", "save"]
 
@@ -33,7 +36,8 @@ def _bits(v):
         nd = _numpy_bf16()
         if nd is not None:
             return {"__tensor__": True, "data": bits.view(nd)}
-        return {"__tensor__": True, "data": bits, "dtype": "bfloat16"}
+        return {"__tensor__": True, "data": bits.view(BF16_BITS),
+                "dtype": "bfloat16"}
     return {"__tensor__": True, "data": v.numpy().copy()}
 
 
@@ -55,7 +59,8 @@ def _from_serializable(obj):
         if obj.get("__tensor__") is True:
             arr = np.asarray(obj["data"])
             if obj.get("dtype") == "bfloat16":
-                v = torch.from_numpy(arr.astype(np.int16)).view(torch.bfloat16)
+                bits = np.ascontiguousarray(arr).view(np.int16)
+                v = torch.from_numpy(bits.copy()).view(torch.bfloat16)
             else:
                 v = _from_numpy(arr)
             from ..device import resolve_device

@@ -1,8 +1,11 @@
 """Loader of the port's host runtime (↔ paddle_tpu/framework/native.py).
 
 The runtime pieces that must be native live in C++ with a plain C
-interface, bound with ctypes: so far the collective watchdog's monitor
-thread (`csrc/host/watchdog.cc`, used by `distributed.comm_watchdog`).
+interface, bound with ctypes: the collective watchdog's monitor thread
+(`csrc/host/watchdog.cc`, used by `distributed.comm_watchdog`) and the
+rendezvous store's server and client (`csrc/host/tcp_store.cc`, used by
+`distributed.store`). Both are copies of the JAX package's `native/`
+sources.
 
 At first use the host C++ compiler (`$CXX`, else `g++`) builds the sources
 into `paddle_tpu_torch/_build/host/` (gitignored), under a file name that
@@ -85,6 +88,33 @@ def build() -> pathlib.Path:
 
 
 def _declare(lib):
+    # the rendezvous store (tcp_store.cc)
+    lib.tcp_store_server_start.restype = ctypes.c_void_p
+    lib.tcp_store_server_start.argtypes = [ctypes.c_int]
+    lib.tcp_store_server_port.restype = ctypes.c_int
+    lib.tcp_store_server_port.argtypes = [ctypes.c_void_p]
+    lib.tcp_store_server_stop.argtypes = [ctypes.c_void_p]
+    lib.tcp_store_connect.restype = ctypes.c_ssize_t
+    lib.tcp_store_connect.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int]
+    lib.tcp_store_set.restype = ctypes.c_int
+    lib.tcp_store_set.argtypes = [ctypes.c_ssize_t, ctypes.c_char_p,
+                                  ctypes.c_char_p, ctypes.c_long]
+    for name in ("tcp_store_get", "tcp_store_tryget"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_long
+        fn.argtypes = [ctypes.c_ssize_t, ctypes.c_char_p, ctypes.c_char_p,
+                       ctypes.c_long]
+    lib.tcp_store_add.restype = ctypes.c_int
+    lib.tcp_store_add.argtypes = [ctypes.c_ssize_t, ctypes.c_char_p,
+                                  ctypes.c_longlong,
+                                  ctypes.POINTER(ctypes.c_longlong)]
+    lib.tcp_store_wait.restype = ctypes.c_int
+    lib.tcp_store_wait.argtypes = [ctypes.c_ssize_t, ctypes.c_char_p]
+    lib.tcp_store_delete.restype = ctypes.c_int
+    lib.tcp_store_delete.argtypes = [ctypes.c_ssize_t, ctypes.c_char_p]
+    lib.tcp_store_close.argtypes = [ctypes.c_ssize_t]
+    # the collective watchdog (watchdog.cc)
     lib.watchdog_create.restype = ctypes.c_void_p
     lib.watchdog_create.argtypes = [ctypes.c_long]
     lib.watchdog_destroy.argtypes = [ctypes.c_void_p]

@@ -418,10 +418,12 @@ def test_port_bf16_checkpoint_routes(tmp_path, monkeypatch, ml_dtypes):
     """The port's bfloat16 checkpoint, through each route: the port reads
     its own bit for bit; the JAX package fails on the ml_dtypes route as it
     fails on a bfloat16 checkpoint of its own (np.load gives it 2-byte
-    voids, which it cannot cast), and on the bits route it reads int16
-    numbers where bfloat16 values were (its loader casts what it reads:
-    `paddle_tpu/distributed/checkpoint/load_state_dict.py:96-127`, :174-177).
-    ROADMAP queue C records both."""
+    voids, which it cannot cast), and on the bits route (no ml_dtypes, as
+    on the card) the port writes the bits as 2-byte voids, which it fails
+    on the same way, where int16 bits would be cast to the numbers they
+    spell (its loader casts what it reads:
+    `paddle_tpu/distributed/checkpoint/load_state_dict.py:96-127`,
+    :174-177)."""
     import ml_dtypes as mld
 
     import paddle_tpu as ref
@@ -459,13 +461,33 @@ def test_port_bf16_checkpoint_routes(tmp_path, monkeypatch, ml_dtypes):
         with pytest.raises(ValueError, match="No cast function"):
             ref_load(ref_target(), str(tmp_path / "ref"))
     else:
-        tgt = ref_target()
-        ref_load(tgt, str(tmp_path / "port"))
-        got = np.asarray(tgt[name]._value)
-        bits = _bits(want)
-        np.testing.assert_array_equal(got, bits.astype(np.float32).astype(
-            mld.bfloat16))
-        assert not np.array_equal(_bits(got), bits)
+        npz = np.load(str(tmp_path / "port" / "0_0.distcp"))
+        assert {npz[k].dtype.str for k in npz.files} == {"|V2", "<i8"}
+        with pytest.raises(ValueError, match="No cast function"):
+            ref_load(ref_target(), str(tmp_path / "port"))
+
+
+def test_port_reads_the_int16_bits_route_of_earlier_versions(tmp_path,
+                                                             monkeypatch):
+    """Checkpoints that earlier versions of the port wrote without
+    ml_dtypes hold bfloat16 as int16 bits; the port reads them bit for
+    bit (the crcs are over the same bytes as the void route's)."""
+    monkeypatch.setattr(save_mod, "_numpy_bf16", lambda: None)
+    st = {"w": torch.randn(6, 5).to(torch.bfloat16),
+          "b": torch.randn(7).to(torch.bfloat16)}
+    save_state_dict(st, str(tmp_path / "void"))
+    monkeypatch.setattr(save_mod, "BF16_BITS", np.dtype(np.int16))
+    save_state_dict(st, str(tmp_path / "int16"))
+    crcs = [{k: [e.checksum for e in v] for k, v in Metadata.load(
+        metadata_path(str(tmp_path / d))).state_dict_metadata.items()}
+        for d in ("void", "int16")]
+    assert crcs[0] == crcs[1]
+    npz = np.load(str(tmp_path / "int16" / "0_0.distcp"))
+    assert {npz[k].dtype.str for k in npz.files} == {"<i2"}
+    back = {k: torch.zeros_like(v) for k, v in st.items()}
+    load_state_dict(back, str(tmp_path / "int16"))
+    for k, v in st.items():
+        assert torch.equal(back[k].view(torch.int16), v.view(torch.int16)), k
 
 
 # --------------------------------------------------------------------------- #

@@ -12,6 +12,8 @@ to rank 1, barrier), the regressions of `tests/test_distributed.py:308-357`
 reduce_scatter MAX, the dp x sep group), the other collectives of the
 port, and the per-op counters. `CommunicateTopology` and
 `HybridCommunicateGroup` are held to the JAX package's on the same dims.
+The 2-rank group also runs `eager_multiproc`'s cases
+(`tests/torch_eager_cases.py`), held to the JAX package's reductions.
 """
 
 import numpy as np
@@ -36,8 +38,11 @@ def _rs_vals(world):
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
+    # the 2-rank group also runs the eager_multiproc cases
+    extra = {2: {"eager_multiproc": True}}
     groups = {w: Ranks("collective", w, tmp_path_factory.mktemp(f"coll{w}"),
-                       {"rs_vals": _rs_vals(w), "hcg_dims": HCG_DIMS[w]})
+                       {"rs_vals": _rs_vals(w), "hcg_dims": HCG_DIMS[w],
+                        **extra.get(w, {})})
               for w in WORLDS}
     out = {}
     for w, g in groups.items():
@@ -167,3 +172,62 @@ def test_hybrid_communicate_group_matches_jax(results, world):
         assert r0["dp_sep"] == ref.get_dp_sep_parallel_group().ranks
         assert r0["data"] == ref.get_data_parallel_group().ranks
         assert r0["model"] == ref.get_model_parallel_group().ranks
+
+
+# --------------------------------------------------------------------------- #
+# eager_multiproc at 2 ranks (tests/torch_eager_cases.py), against the JAX
+# package's reductions over the same stacked values
+# --------------------------------------------------------------------------- #
+
+
+def _rows(world=2):
+    return np.stack([np.asarray([r + 1.5, -2.0 * r, 3.0], np.float32)
+                     for r in range(world)])
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod", "avg"])
+def test_eager_allreduce_value_matches_the_reference(results, op):
+    from paddle_tpu.distributed.eager_multiproc import _reduce_rows
+
+    want = _reduce_rows(_rows(), op)
+    for got in _case(results, 2, f"em_allreduce_{op}"):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_eager_gathers_broadcasts_and_alltoall(results):
+    from paddle_tpu.distributed.eager_multiproc import _reduce_rows
+
+    assert _case(results, 2, "em_world") == [(2, 0), (2, 1)]
+    for got in _case(results, 2, "em_allgather"):
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, [[0, 0], [1, 10]])
+    for got in _case(results, 2, "em_allgather_bool"):
+        assert got.dtype == np.bool_
+        np.testing.assert_array_equal(got, [[True, True], [False, True]])
+    want = _reduce_rows(np.asarray([[0, 3], [1, 3]], np.int32), "avg")
+    for got in _case(results, 2, "em_allreduce_int_avg"):
+        np.testing.assert_array_equal(got, want)
+    assert _case(results, 2, "em_allgather_objects") == [
+        [{"r": 0, "s": "xxx"}, {"r": 1, "s": "xxxx"}]] * 2
+    for got in _case(results, 2, "em_broadcast"):
+        np.testing.assert_array_equal(got, [7.0] * 3)
+    assert _case(results, 2, "em_broadcast_objects") == [{"from": 1}] * 2
+    assert _case(results, 2, "em_barrier") == [True, True]
+    # the reference's rule: row chunk j of every rank's input lands on j
+    g = np.stack([np.arange(8, dtype=np.float32).reshape(4, 2) + 100 * r
+                  for r in range(2)])
+    for r, got in enumerate(_case(results, 2, "em_alltoall")):
+        np.testing.assert_array_equal(
+            got, np.concatenate([g[j, 2 * r:2 * r + 2] for j in range(2)]))
+
+
+def test_eager_store_group_reduce_and_p2p(results):
+    got = _case(results, 2, "em_store")
+    for r, res in enumerate(got):
+        assert res["rounds"] == [[1.0 + 2 * k, 2.0] for k in range(3)]
+        # the rolling cleanup kept the last two rounds, the sweep none
+        assert res["live_before"] == [False, True, True]
+        assert res["live_after"] == [False, False, False]
+    assert got[1]["recv"] == [[0, 2, 4], [1.0, 1.0]]
+    assert got[1]["consumed"] is None

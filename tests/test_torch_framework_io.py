@@ -75,22 +75,29 @@ def test_nested_objects(tmp_path):
 
 def test_bfloat16_round_trips_bit_for_bit(tmp_path, monkeypatch):
     """bf16 is written as ml_dtypes' bfloat16 where that is installed (the
-    reference reads it as bf16) and as its int16 bits otherwise (as on the
-    card); both load back bit for bit."""
+    reference reads it as bf16) and otherwise (as on the card) as its bits
+    in 2-byte voids, which the reference refuses rather than misreads;
+    both load back bit for bit, and so do the int16 bits of earlier
+    versions of the port."""
     v = torch.randn(5, 7).to(torch.bfloat16)
-    for with_ml in (True, False):
-        if not with_ml:
+    for route in ("ml_dtypes", "bits", "int16_bits"):
+        if route == "bits":
             monkeypatch.setattr(port_io, "_numpy_bf16", lambda: None)
-        path = str(tmp_path / f"bf16_{with_ml}.pd")
+        if route == "int16_bits":
+            monkeypatch.setattr(port_io, "BF16_BITS", np.dtype(np.int16))
+        path = str(tmp_path / f"bf16_{route}.pd")
         port.save({"w": v}, path)
         back = port.load(path)["w"]
         assert back.dtype == port.bfloat16
         assert torch.equal(back._value.view(torch.int16), v.view(torch.int16))
-        if with_ml:
+        if route == "ml_dtypes":
             r = ref.load(path)["w"]
             assert str(r.dtype) == "bfloat16"
             np.testing.assert_array_equal(np.asarray(r.numpy(), np.float32),
                                           v.float().numpy())
+        elif route == "bits":
+            with pytest.raises(TypeError, match="V2"):
+                ref.load(path)
 
 
 def test_bfloat16_numpy_is_float32():

@@ -285,6 +285,15 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.distributed.checkpoint.save_state_dict",
             "paddle_tpu_torch.distributed.checkpoint.load_state_dict",
             "paddle_tpu_torch.distributed.checkpoint.manager",
+            "paddle_tpu_torch.distributed.store",
+            "paddle_tpu_torch.distributed.launch",
+            "paddle_tpu_torch.distributed.launch.main",
+            "paddle_tpu_torch.distributed.launch.__main__",
+            "paddle_tpu_torch.distributed.fleet.elastic",
+            "paddle_tpu_torch.distributed.fleet.elastic.manager",
+            "paddle_tpu_torch.distributed.resilience",
+            "paddle_tpu_torch.distributed.rpc",
+            "paddle_tpu_torch.distributed.eager_multiproc",
             } <= set(
                 _port_modules())
     code = (
@@ -300,21 +309,34 @@ def test_import_loads_no_jax_and_no_jax_package():
 
 
 def test_telemetry_and_checkpoint_import_alone_without_jax():
-    """The telemetry, the profiler, the watchdog and the checkpoint, each
-    imported first in a fresh interpreter, load no jax and nothing of the
-    JAX package (its pure-Python observability, faults, checkpoint
-    metadata and native loader included: the port keeps its own copies),
-    and the watchdog's host library builds from the port's own source."""
+    """The telemetry, the profiler, the watchdog, the checkpoint and the
+    resilient runtime (the launcher, the store, the elastic manager,
+    resilience, rpc, eager_multiproc), each imported first in a fresh
+    interpreter, load no jax and nothing of the JAX package (its
+    pure-Python observability, faults, checkpoint metadata, store, rpc and
+    native loader included: the port keeps its own copies), and the
+    watchdog's and the store's host library builds from the port's own
+    sources."""
     code = (
         "import sys\n"
         "import paddle_tpu_torch.observability\n"
         "import paddle_tpu_torch.profiler\n"
         "import paddle_tpu_torch.distributed.comm_watchdog as wd\n"
         "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.distributed.launch.main\n"
+        "import paddle_tpu_torch.distributed.fleet.elastic\n"
+        "import paddle_tpu_torch.distributed.resilience\n"
+        "import paddle_tpu_torch.distributed.rpc\n"
+        "import paddle_tpu_torch.distributed.eager_multiproc\n"
+        "from paddle_tpu_torch.distributed.store import TCPStore\n"
         "from paddle_tpu_torch.framework import native\n"
         "assert str(native.HOST_SRC).endswith('paddle_tpu_torch/csrc/host')\n"
         "assert wd.enable(60.0) and wd.timeout_count() == 0\n"
         "wd.disable()\n"
+        "st = TCPStore('127.0.0.1', 0, is_master=True)\n"
+        "st.set('k', b'v')\n"
+        "assert st.get('k') == b'v'\n"
+        "st.close()\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib') or n == 'paddle_tpu' or n.startswith('paddle_tpu.'))\n"
         "print(repr(bad))\n")
@@ -333,7 +355,8 @@ def test_no_port_file_names_jax_in_an_import():
         ROOT / "tests" / "torch_sep_cases.py",
         ROOT / "tests" / "torch_ep_cases.py",
         ROOT / "tests" / "torch_model_dp_cases.py",
-        ROOT / "tests" / "torch_random_cases.py"]
+        ROOT / "tests" / "torch_random_cases.py",
+        ROOT / "tests" / "torch_eager_cases.py"]
     offenders = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

@@ -11,7 +11,8 @@ cases are in `tests/torch_sep_cases.py`, and
 cases are in `tests/torch_random_cases.py`, and
 `tests/test_torch_loss_modes.py`, whose cases are in
 `tests/torch_amp_loss_cases.py`, and `tests/test_torch_checkpoint.py`,
-suite "checkpoint").
+suite "checkpoint"; the 2-rank "collective" suite also runs the
+`eager_multiproc` cases of `tests/torch_eager_cases.py`).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD DIR
 
@@ -211,6 +212,10 @@ def collective_cases(rank, world, inp):
                 mesh=dist.env.mesh_shape(hcg.mesh))
         return res
 
+    if inp.get("eager_multiproc"):
+        from torch_eager_cases import eager_multiproc_cases
+
+        out.update(eager_multiproc_cases(rank, world, inp))
     return out
 
 
