@@ -7988,6 +7988,550 @@ def resilient_train(card, torch, train_line):
             for name in _counters()}
 
 
+# --------------------------------------------------------------------------- #
+# phase 32: the nn surface (ParamAttr, initializers, weight-only serving,
+# flash_attn_qkvpacked, the quant ops)
+# --------------------------------------------------------------------------- #
+
+# the compiled and the eager route's bf16 weights after one step, each
+# element: two bf16 steps of the larger magnitude (the routes run the same
+# ops; the global norm's sum may add in another order, which moves the
+# clip's scale by an ulp and an update by at most one rounding)
+NN_ROUTE_TOL_ULPS = 2
+# a [4096, 4096] draw's mean and std against the distribution's, in units
+# of their standard errors (sigma / sqrt(n), sigma / sqrt(2 n))
+INIT_SIGMAS = 6.0
+# Orthogonal's Q^T Q against the identity, f32 QR of 4096 x 4096
+ORTHO_TOL = 1e-4
+# the quant ops on the card against the same calls on CPU tensors, f32
+# (TF32 off): sums of 4096 products in another order
+QUANT_RTOL = 1e-4
+# the quantized models' greedy tokens against the bf16 model's: the
+# reference's own bar (tests/test_serving.py:175)
+QUANT_AGREE = 0.7
+
+
+def _nn_attrs(torch, model):
+    """Phase 32a's attributes on gpt3_1p3b's parameters, as ParamAttr sets
+    them (`set_param_attr`): L2Decay(1e-4) on the projection weights,
+    L1Decay(1e-5) on the embeddings, need_clip False on the norms, rate
+    0.0 on embed_positions and 0.5 on the head (the tied embed_tokens).
+    Returns the names of the rate-0 parameters."""
+    from paddle_tpu_torch import ParamAttr
+    from paddle_tpu_torch.nn.layer.layers import set_param_attr
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+
+    frozen = []
+    for name, p in model.named_parameters():
+        attr = ParamAttr()
+        if name.endswith(("_proj.weight", "fc1.weight", "fc2.weight")):
+            attr.regularizer = L2Decay(1e-4)
+        if "embed_" in name:
+            attr.regularizer = L1Decay(1e-5)
+        if "norm" in name:
+            attr.need_clip = False
+        if "embed_positions" in name:
+            attr.learning_rate = 0.0
+            frozen.append(name)
+        if "embed_tokens" in name:
+            attr.learning_rate = 0.5
+        set_param_attr(p, attr)
+    return frozen
+
+
+def _nn_train_model(torch, cfg):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    frozen = _nn_attrs(torch, model)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-4, moment_dtype="bfloat16",
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return model, GPTPretrainingCriterion(cfg), opt, frozen
+
+
+def _bf16_gap(torch, a, b):
+    """max over elements of |a - b| in bf16 steps of max(|a|, |b|)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def nn_train_attrs(card, torch, train_line):
+    """32a: gpt3_1p3b at full width and depth (24 layers, hidden 2048),
+    batch 4 x 2048, O2 bf16, recompute, AdamW with ClipGradByGlobalNorm(1)
+    and the attributes of `_nn_attrs`: 3 steps through DistributedTrainStep
+    (A) and 2 through the eager loop (B, a second model holding A's
+    starting weights). Holds: the rate-0 parameters bit for bit after both
+    routes; A's weights after step 1 against B's within
+    NN_ROUTE_TOL_ULPS bf16 steps; the five kernels' launches a step equal
+    phase 5's on both routes. Returns (launches, model A)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import DistributedTrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    cfg, per_step, _, _ = _train_config("gpt3_1p3b")
+    B, S = 4, 2048
+    t0 = time.perf_counter()
+    model, crit, opt, frozen = _nn_train_model(torch, cfg)
+    twin, crit_b, opt_b, _ = _nn_train_model(torch, cfg)
+    twin.load_state_dict(model.state_dict())
+    build_s = time.perf_counter() - t0
+    start = {k: p.detach().clone() for k, p in model.named_parameters()
+             if k in frozen}
+    step = DistributedTrainStep(model, lambda lg, lb: crit(lg, lb), opt,
+                                amp_level="O2", amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+
+    _zero_counters()
+    reset_peak(torch)
+    torch.cuda.synchronize()
+    losses = [step(ids, labels).item()]
+    after1 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(ids, labels).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    compiled = _counters()
+    peak = torch.cuda.max_memory_allocated()
+
+    _zero_counters()
+    eager_losses, times = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp.auto_cast(True, level="O2", dtype="bfloat16"):
+            loss = crit_b(twin(ids), labels)
+        loss.backward()
+        opt_b.step()
+        opt_b.clear_grad()
+        eager_losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(times) == 1:
+            gaps = {k: _bf16_gap(torch, p.detach(), after1[k])
+                    for k, p in twin.named_parameters()}
+    eager = _counters()
+    del after1
+    unchanged = {k: all(torch.equal(m[k].detach(), start[k])
+                        for m in (dict(model.named_parameters()),
+                                  dict(twin.named_parameters())))
+                 for k in frozen}
+    worst = max(gaps, key=gaps.get)
+    line = {
+        "model": "gpt3_1p3b", "layers": cfg.num_layers,
+        "hidden": cfg.hidden_size, "batch": B, "seq": S, "build_s": build_s,
+        "compiled_losses": losses, "eager_losses": eager_losses,
+        "step_s": step_s, "phase5_step_s": train_line["step_s"],
+        "ratio_to_phase5": step_s / train_line["step_s"],
+        "eager_step_s": times, "peak_memory_bytes": peak,
+        "rate0_bit_identical": unchanged,
+        "route_gap_bf16_steps_max": gaps[worst], "route_gap_worst": worst,
+        "route_params_differing": sum(g > 0 for g in gaps.values()),
+        "route_tol_bf16_steps": NN_ROUTE_TOL_ULPS,
+        "launches_compiled": compiled, "launches_eager": eager,
+        "launches_per_step": per_step}
+    say(card, "nn_surface train attrs (smoke run, not a benchmark) "
+        + json.dumps(line))
+    bad = []
+    if not all(unchanged.values()):
+        bad.append(f"rate-0 parameters moved: {unchanged}")
+    if gaps[worst] > NN_ROUTE_TOL_ULPS:
+        bad.append(f"compiled vs eager after step 1: {worst} {gaps[worst]} "
+                   "bf16 steps")
+    if compiled != _expected(**{k: 3 * v for k, v in per_step.items()}):
+        bad.append(f"compiled launches {compiled}")
+    if eager != _expected(**{k: 2 * v for k, v in per_step.items()}):
+        bad.append(f"eager launches {eager}")
+    if not all(math.isfinite(x) for x in losses + eager_losses):
+        bad.append(f"non-finite losses {losses} {eager_losses}")
+    if bad:
+        raise AssertionError("nn_surface train attrs: " + "; ".join(bad))
+    launches = {k: compiled[k] + eager[k] for k in compiled}
+    del step, twin, opt, opt_b, start
+    torch.cuda.empty_cache()
+    return launches, model
+
+
+def _init_cases(I, np_value):
+    """name: (initializer, checks) of 32b; checks: ("moments", mean, std),
+    ("bounds", lo, hi) or ("equal", value)."""
+    n = 4096
+    xs, ks = math.sqrt(6.0 / (2 * n)), math.sqrt(2.0) * math.sqrt(3.0 / n)
+    tn = 0.8796256610342398   # std of N(0, 1) cut to [-2, 2]
+    return {
+        "Constant": (I.Constant(0.5), [("equal", 0.5)]),
+        "Normal": (I.Normal(0.1, 0.02), [("moments", 0.1, 0.02)]),
+        "TruncatedNormal": (I.TruncatedNormal(0.0, 1.0),
+                            [("moments", 0.0, tn), ("bounds", -2.0, 2.0)]),
+        "Uniform": (I.Uniform(-0.3, 0.7), [("moments", 0.2, 1 / math.sqrt(12)),
+                                           ("bounds", -0.3, 0.7)]),
+        "XavierNormal": (I.XavierNormal(),
+                         [("moments", 0.0, math.sqrt(2.0 / (2 * n)))]),
+        "XavierUniform": (I.XavierUniform(), [("moments", 0.0, xs / math.sqrt(3)),
+                                              ("bounds", -xs, xs)]),
+        "KaimingNormal": (I.KaimingNormal(),
+                          [("moments", 0.0, math.sqrt(2.0) / math.sqrt(n))]),
+        "KaimingUniform": (I.KaimingUniform(),
+                           [("moments", 0.0, ks / math.sqrt(3)),
+                            ("bounds", -ks, ks)]),
+        "Assign": (I.Assign(np_value), [("assigned",)]),
+        "Orthogonal": (I.Orthogonal(), [("orthogonal",)]),
+        "Dirac": (I.Dirac(), [("identity",)]),
+    }
+
+
+def nn_initializers(card, torch):
+    """32b: each initializer of nn.initializer fills a [4096, 4096] f32
+    parameter on the card from a cuda generator, in place: the draws'
+    mean and std within INIT_SIGMAS standard errors of the
+    distribution's, the bounds held, Orthogonal's Q^T Q within ORTHO_TOL
+    of I, Assign and Dirac exact; the same seed gives the same tensor
+    twice."""
+    from paddle_tpu_torch.framework.core import Parameter
+    from paddle_tpu_torch.nn import initializer as I
+
+    n = 4096
+    value = np.random.default_rng(3).standard_normal((n, n)).astype(np.float32)
+    p = Parameter(torch.empty(n, n, device="cuda"))
+    gen = torch.Generator(device="cuda")
+    rows, bad = {}, []
+    for name, (init, checks) in _init_cases(I, value).items():
+        ptr = p.data_ptr()
+        gen.manual_seed(11)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        init(p, generator=gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        first = p.detach().clone()
+        gen.manual_seed(11)
+        init(p, generator=gen)
+        row = {"ms": ms, "same_seed_equal": torch.equal(first, p.detach()),
+               "in_place": p.data_ptr() == ptr, "device": str(p.device)}
+        x = p.detach().double()
+        for chk in checks:
+            if chk[0] == "moments":
+                mean, std = float(x.mean()), float(x.std())
+                row.update(mean=mean, std=std, want_mean=chk[1], want_std=chk[2])
+                se = chk[2] / math.sqrt(x.numel())
+                if (abs(mean - chk[1]) > INIT_SIGMAS * se
+                        or abs(std - chk[2]) > INIT_SIGMAS * se * math.sqrt(2)):
+                    bad.append(f"{name}: mean {mean} std {std}")
+            elif chk[0] == "bounds":
+                lo, hi = float(x.min()), float(x.max())
+                row.update(min=lo, max=hi)
+                if lo < chk[1] - 1e-6 or hi > chk[2] + 1e-6:
+                    bad.append(f"{name}: range [{lo}, {hi}]")
+            elif chk[0] == "equal":
+                if not bool((p == chk[1]).all()):
+                    bad.append(f"{name}: not all {chk[1]}")
+            elif chk[0] == "assigned":
+                if not torch.equal(p.detach().cpu(), torch.from_numpy(value)):
+                    bad.append(f"{name}: not the array")
+            elif chk[0] == "identity":
+                if not torch.equal(p.detach(), torch.eye(n, device="cuda")):
+                    bad.append(f"{name}: not the identity")
+            else:
+                pt = p.detach()
+                err = float((pt.T @ pt - torch.eye(n, device="cuda")).abs().max())
+                row["qtq_max_abs_err"] = err
+                if err > ORTHO_TOL:
+                    bad.append(f"{name}: Q^T Q off I by {err}")
+        if not (row["same_seed_equal"] and row["in_place"]
+                and p.device.type == "cuda"):
+            bad.append(f"{name}: {row}")
+        rows[name] = row
+    say(card, "nn_surface initializers " + json.dumps(
+        {"shape": [n, n], "sigmas": INIT_SIGMAS, "ortho_tol": ORTHO_TOL,
+         "rows": rows}))
+    del p, first, x
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("nn_surface initializers: " + "; ".join(bad))
+
+
+def _weight_bytes(model):
+    """Bytes of the model's parameters and quantized weight buffers."""
+    ts = list(model.parameters()) + [b for n, b in model.named_buffers()
+                                     if n.endswith(("weight_quant",
+                                                    "weight_scale"))]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _nn_serve(torch, model, workload, max_new, L):
+    """The model through the paged engine (B 16, S 512, page size 32) on
+    `workload` greedy: (tokens by request, line); the launches held to
+    phase serve's per tick."""
+    from paddle_tpu_torch.inference import create_serving_engine
+
+    eng = create_serving_engine(model, max_batch_size=16, max_seq_len=512,
+                                page_size=32, seed=0)
+    done, seconds, peak, launches = _drain(torch, eng, workload, max_new)
+    line = _serve_line(eng, done, seconds, peak, launches)
+    slo, steps = eng._smoke_window
+    ticks = line["decode_ticks"]
+    want = _expected(fused_norm=(len(workload) + ticks) * (2 * L + 1),
+                     paged_decode_attention=ticks * L)
+    line["tick_ms_mean"] = float(np.mean(steps)) * 1e3
+    line["weight_bytes"] = _weight_bytes(model)
+    if launches != want:
+        raise AssertionError(f"nn_surface serve: launches {launches}, "
+                             f"expected {want}")
+    by_prompt = {tuple(r.prompt): r.generated for r in done}
+    del eng
+    return [by_prompt[tuple(p)] for p, _ in workload], line
+
+
+def _dense_against_generate(torch, model, prompt, max_new):
+    """The dense engine's greedy tokens for `prompt` against the model's
+    own generate: identical, or parted only where generate's top two
+    logits lie within BF16_TIE_ULPS (`_teacher_forced_margins`)."""
+    from paddle_tpu_torch.inference import create_serving_engine
+
+    eng = create_serving_engine(model, paged=False, max_batch_size=4,
+                                max_seq_len=512, seed=0)
+    eng.add_request(prompt, max_new_tokens=max_new, temperature=0.0)
+    dense = eng.run()[0].generated
+    gen = model.generate(prompt[None], max_new_tokens=max_new,
+                         temperature=0.0)[0, len(prompt):].tolist()
+    steps = _teacher_forced_margins(torch, model, prompt, dense)
+    return {"identical": dense == gen, "dense": dense, "generate": gen,
+            "tie_ok": all(s["ok"] for s in steps)}
+
+
+def _dequantized_twin(torch, model, fresh):
+    """A bf16 model (`fresh()`) whose projections hold the dequantized
+    weights of the converted `model`: the same function without the
+    weight-only route, so the quantization noise is its own."""
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.quant import weight_dequantize
+
+    twin = fresh()
+    subs = dict(twin.named_modules())
+    with torch.no_grad():
+        for name, sub in model.named_modules():
+            if isinstance(sub, Linear) and sub._weight_only is not None:
+                subs[name].weight.copy_(weight_dequantize(
+                    sub.weight_quant, sub.weight_scale, sub._weight_only,
+                    "bfloat16"))
+    return twin
+
+
+def nn_weight_only_serving(card, torch, trained):
+    """32c: gpt3_1p3b in bf16 (24 layers, full width) with 32a's trained
+    weights through the paged engine on 12 requests of the serving mix,
+    greedy, 16 new tokens; then `quantize_for_inference(model,
+    "weight_only_int8")` and, on a fresh model with the same weights,
+    "weight_only_int4" at group size 128, each also beside a bf16 model
+    holding its dequantized weights (`_dequantized_twin`). Holds: the
+    int8 model's tokens agree with the bf16 model's on QUANT_AGREE of
+    positions (the reference's bar, whose test is int8); each quantized
+    model's tokens agree with its dequantized twin's on QUANT_AGREE (the
+    serving route against the same function in plain bf16: int4's
+    quantization noise alone moves random weights' greedy tokens, so its
+    agreement with the bf16 model is printed, not held); its dense
+    engine's tokens equal its own generate's (or part only at a bf16
+    tie); each engine's launches are phase serve's per tick; the converted
+    models hold no float projection weight. Returns the launches."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    cfg = gpt3_1p3b()
+    L, n_req, max_new = cfg.num_layers, 12, 16
+    state = trained.state_dict()
+
+    def fresh():
+        m = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+        m.load_state_dict(state)
+        return m.eval()
+
+    def agreement(a, b):
+        return float(np.mean([x == y for r, t in zip(a, b)
+                              for x, y in zip(r, t)]))
+
+    workload = [(p, 0.0) for p, _ in serving_workload(cfg.vocab_size, 512,
+                                                      n_req)]
+    launches = dict.fromkeys(_counters(), 0)
+    model = fresh()
+    ref, line_bf16 = _nn_serve(torch, model, workload, max_new, L)
+    for k, v in line_bf16["launches"].items():
+        launches[k] += v
+    lines, bad = {"bf16": line_bf16}, []
+    for algo, gs in (("weight_only_int8", -1), ("weight_only_int4", 128)):
+        if algo == "weight_only_int4":
+            del model
+            torch.cuda.empty_cache()
+            model = fresh()
+        t0 = time.perf_counter()
+        n = quantize_for_inference(model, algo, group_size=gs)
+        convert_s = time.perf_counter() - t0
+        floats = [k for k, p in model.named_parameters()
+                  if k.endswith(("_proj.weight", "fc1.weight", "fc2.weight"))]
+        toks, line = _nn_serve(torch, model, workload, max_new, L)
+        for k, v in line["launches"].items():
+            launches[k] += v
+        twin = _dequantized_twin(torch, model, fresh)
+        twin_toks, twin_line = _nn_serve(torch, twin, workload, max_new, L)
+        for k, v in twin_line["launches"].items():
+            launches[k] += v
+        del twin
+        torch.cuda.empty_cache()
+        dense = _dense_against_generate(torch, model, workload[0][0], max_new)
+        line.update(algo=algo, group_size=gs, converted_layers=n,
+                    convert_s=convert_s,
+                    agreement_with_bf16=agreement(ref, toks),
+                    agreement_with_dequantized_bf16=agreement(twin_toks, toks),
+                    dequantized_twin_tick_ms_mean=twin_line["tick_ms_mean"],
+                    dense_vs_generate=dense, float_projection_weights=len(floats))
+        lines[algo] = line
+        if algo == "weight_only_int8" and line["agreement_with_bf16"] < QUANT_AGREE:
+            bad.append(f"{algo}: agreement {line['agreement_with_bf16']} "
+                       "with the bf16 tokens")
+        if line["agreement_with_dequantized_bf16"] < QUANT_AGREE:
+            bad.append(f"{algo}: agreement "
+                       f"{line['agreement_with_dequantized_bf16']} with the "
+                       "dequantized bf16 model's tokens")
+        if not (dense["identical"] or dense["tie_ok"]):
+            bad.append(f"{algo}: dense engine {dense['dense']} vs generate "
+                       f"{dense['generate']}")
+        if n != 6 * L or floats:
+            bad.append(f"{algo}: {n} layers converted, float weights {floats}")
+    say(card, "nn_surface weight-only serving (smoke run, not a benchmark) "
+        + json.dumps({"lines": lines, "agree_min": QUANT_AGREE}))
+    del model
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("nn_surface serving: " + "; ".join(bad))
+    return launches
+
+
+def nn_qkvpacked(card, torch):
+    """32d: nn.functional.flash_attn_qkvpacked on qkv [4, 2048, 3, 16, 128]
+    bf16, causal, forward and backward: one launch of each flash kernel,
+    the output and the three gradients held to the plain versions at
+    check_flash's limits. Returns the launches."""
+    from paddle_tpu_torch.nn.functional import flash_attn_qkvpacked
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = 4, 2048, 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn(B, S, 3, H, D, device="cuda", generator=gen).to(
+        torch.bfloat16).requires_grad_()
+    dout = torch.randn(B, S, H, D, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    _zero_counters()
+    out, _ = flash_attn_qkvpacked(qkv, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launches = _counters()
+    q, k, v = (qkv.detach()[:, :, i].contiguous() for i in range(3))
+    scale = D ** -0.5
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale, None)
+    delta = (dout.float() * out_p.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, None, dout, lse_p, delta, True, scale)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, None, dout, lse_p, delta,
+                                        True, scale)
+    got = {"out": out.detach(), "dq": qkv.grad[:, :, 0],
+           "dk": qkv.grad[:, :, 1], "dv": qkv.grad[:, :, 2]}
+    plain = {"out": out_p, "dq": dq_p, "dk": dk_p.to(k.dtype),
+             "dv": dv_p.to(v.dtype)}
+    errs = _flash_errs(got, plain)
+    bad = _flash_violations(errs, "bfloat16")
+    want = _expected(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    say(card, "nn_surface flash_attn_qkvpacked " + json.dumps({
+        "qkv": [B, S, 3, H, D], "causal": True, "launches": launches,
+        "errors": {w: {"max_abs": e[0], "row_rel": e[1], "frobenius_rel": e[2]}
+                   for w, e in errs.items()},
+        "tol": FLASH_TOL["bfloat16"], "frobenius_tol": FLASH_FROB_TOL["bfloat16"]}))
+    if launches != want:
+        bad.append(f"launches {launches}")
+    del qkv, dout, out, got, plain
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("nn_surface qkvpacked: " + "; ".join(bad))
+    return launches
+
+
+def nn_quant_ops(card, torch):
+    """32e: weight_only_linear (int8, int4 at group 128) and llm_int8_linear
+    at x [16, 4096] x W [4096, 11008] on the card: f32 against the same
+    calls on CPU tensors within QUANT_RTOL of the output's largest |y|,
+    then timed in bf16 beside torch.matmul on the dequantized bf16
+    weight (eager, CUDA events)."""
+    from paddle_tpu_torch.nn import quant
+
+    M, K, N = 16, 4096, 11008
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32) * 0.02)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    x[:, 7] *= 20.0   # an outlier column for llm.int8
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    rows, bad = {}, []
+    for name, algo, gs in (("weight_only_int8", "weight_only_int8", -1),
+                           ("weight_only_int4", "weight_only_int4", 128),
+                           ("llm_int8", "llm.int8", -1)):
+        q, s = quant.weight_quantize(w, algo, group_size=gs)
+        qc, sc = q.cuda(), s.cuda()
+        q2, s2 = quant.weight_quantize(w.cuda(), algo, group_size=gs)
+        same_q = torch.equal(q2.cpu(), q) and torch.equal(s2.cpu(), s)
+
+        def call(xx, qq, ss, bb, name=name):
+            if name == "llm_int8":
+                return quant.llm_int8_linear(xx, qq, bb, ss, threshold=6.0)
+            return quant.weight_only_linear(
+                xx, qq, bb, ss, "int4" if "int4" in name else "int8")
+
+        cpu = call(x, q, s, bias)
+        dev = call(x.cuda(), qc, sc, bias.cuda()).cpu()
+        err = float((dev - cpu).abs().max() / cpu.abs().max())
+        xb, bb = x.cuda().to(torch.bfloat16), bias.cuda().to(torch.bfloat16)
+        wd = quant.weight_dequantize(qc, sc, "weight_only_int4" if "int4" in
+                                     name else "weight_only_int8", "bfloat16")
+        ms = eager_ms(lambda: call(xb, qc, sc, bb))
+        mm_ms = eager_ms(lambda: torch.matmul(xb, wd) + bb)
+        rows[name] = {"rel_err_vs_cpu": err, "quantize_bit_equal_cpu": same_q,
+                      "ms_bf16": ms, "matmul_dequantized_bf16_ms": mm_ms,
+                      "weight_bytes": q.numel() + 4 * s.numel()}
+        if err > QUANT_RTOL or not same_q:
+            bad.append(f"{name}: {rows[name]}")
+    say(card, "nn_surface quant ops " + json.dumps({
+        "x": [M, K], "w": [K, N], "rtol": QUANT_RTOL, "rows": rows}))
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("nn_surface quant ops: " + "; ".join(bad))
+
+
+def nn_surface(card, torch, train_line):
+    """Phase 32, the nn surface: 32a `nn_train_attrs`, 32c
+    `nn_weight_only_serving` (on 32a's weights), 32d `nn_qkvpacked`, then
+    with TF32 off 32b `nn_initializers` and 32e `nn_quant_ops`. Returns
+    the launches of the paths (32a, 32c, 32d)."""
+    launches_a, trained = nn_train_attrs(card, torch, train_line)
+    launches_c = nn_weight_only_serving(card, torch, trained)
+    del trained
+    torch.cuda.empty_cache()
+    launches_d = nn_qkvpacked(card, torch)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        nn_initializers(card, torch)
+        nn_quant_ops(card, torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {k: launches_a[k] + launches_c[k] + launches_d[k]
+            for k in launches_a}
+
+
 def main():
     import torch
 
@@ -8081,6 +8625,7 @@ def main():
     observed_launches = phase(observed_train_and_resume, card, torch,
                               train_line)
     resilient_launches = phase(resilient_train, card, torch, train_line)
+    nn_launches = phase(nn_surface, card, torch, train_line)
 
     # launches: each kernel's count over the paths that run it, each path
     # driven with the counters zeroed just before and read just after
@@ -8091,7 +8636,7 @@ def main():
              bert_launches, resnet_launches, unet_launches,
              bert_dropout_launches, bert_eval_launches, blha_launches,
              fused_enc_launches, incubate_launches, idiom_launches,
-             observed_launches, resilient_launches)
+             observed_launches, resilient_launches, nn_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in _counters()}
     # the fp16 paths (phases 23-25 and varlen_entry's fp16 call) launch the
     # same wrappers' f16 instantiations: counted apart, for the f16 rows

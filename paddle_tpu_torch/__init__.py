@@ -47,7 +47,10 @@ Paddle users write it (`import paddle_tpu_torch as paddle`) runs on the
 card; the telemetry (`observability`: the metrics registry, spans, the
 step timeline, the flight recorder; `profiler`, its device trace from
 `torch.profiler`), the comm watchdog and the crash-safe sharded
-checkpoint (`distributed.checkpoint`). See ROADMAP.md for the rest.
+checkpoint (`distributed.checkpoint`); the rest of the nn surface
+(`ParamAttr`, `nn.initializer`, `regularizer`, every functional and layer
+name of the reference but ROADMAP's item 8, `nn.utils`, `nn.quant`). See
+ROADMAP.md for the rest.
 """
 
 from . import autograd, framework, tensor
@@ -77,15 +80,17 @@ from .tensor import *  # noqa: F401,F403
 from .tensor import linalg  # namespace: paddle.linalg.*
 from .tensor.logic import is_tensor
 from . import (amp, device, distributed, incubate, inference, jit, nn,  # noqa: E402
-               observability, optimizer, profiler, quantization, vision)
+               observability, optimizer, profiler, quantization, regularizer,
+               vision)
+from .nn.layer.layers import ParamAttr  # noqa: E402
 
-__all__ = ["CPUPlace", "CUDAPlace", "Parameter", "PyLayer",
+__all__ = ["CPUPlace", "CUDAPlace", "ParamAttr", "Parameter", "PyLayer",
            "Tensor", "autograd", "device_count", "enable_grad",
            "get_default_dtype", "get_device", "get_flags", "get_rng_state",
            "grad", "is_compiled_with_cuda", "is_compiled_with_custom_device",
            "is_compiled_with_rocm", "is_compiled_with_xpu", "is_grad_enabled",
            "is_tensor", "linalg", "load", "no_grad", "observability",
-           "profiler", "resolve_device", "save",
+           "profiler", "regularizer", "resolve_device", "save",
            "seed", "set_default_dtype", "set_device", "set_flags",
            "set_grad_enabled", "set_rng_state", "to_tensor",
            *tensor.__all__]

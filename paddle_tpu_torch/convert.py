@@ -4,10 +4,15 @@ Both packages use the same parameter and buffer names and layouts
 (Paddle's: a Linear weight is [in, out], a conv weight [out, in / groups,
 *k]; a batch norm's running statistics are the f32 buffers `_mean` and
 `_variance`; after `ptq_convert_for_serving` a projection holds an int8
-`weight_quant`, an f32 `weight_scale` [1, out] and its `bias`), so
-`load_paddle_tpu_state` copies each array into the port tensor of the same
-name, cast to that tensor's dtype and placed on its
-device, and `load_paddle_tpu_opt_state` carries a JAX
+`weight_quant`, an f32 `weight_scale` [1, out] and its `bias`; after
+`nn.quant.quantize_for_inference` an int8 `weight_quant` [out, in] (int4:
+two nibbles a byte, [out, in / 2]) and an f32 `weight_scale` [out] or
+[out, groups]; `nn.utils.weight_norm` gives `weight_g` / `weight_v`,
+`spectral_norm` `weight_orig` and the buffers `weight_u` / `weight_v`; a
+`PReLU` holds `weight`), so `load_paddle_tpu_state` copies each array
+into the port tensor of the same name, cast to that tensor's dtype (int8
+arrays, packed int4 among them, bit for bit) and placed on its device,
+and `load_paddle_tpu_opt_state` carries a JAX
 `TrainStep`'s optimizer state (m, v and an optional f32 master per
 parameter name) and step count into the port's optimizer, so both packages
 can resume from one mid-training state. Both raise on a missing or extra

@@ -19,7 +19,11 @@ shard and calls the collectives of `distributed.collective` itself:
   backward is softmax minus one-hot on the local shard. `ignore_index`
   rows give 0.
 
-Every layer is built at full size from the model's generator, so a seed
+The constructors take the reference's positional parameters (`weight_attr`
+third, a `ParamAttr` applied by `Layer.create_parameter`); the port's own
+(`weight_std`, `generator`, `device`, `dtype`) are keyword-only. As in the
+reference, a bias takes no attribute and the vocab embedding's default
+initializer is Xavier-normal (:74). Every layer is built at full size from the model's generator, so a seed
 gives the single-device weights, and stays a single-device layer (the full
 weight, no collective: serving and the one-device step run it so) until
 `shard_model(model, group)` cuts it: `DistributedTrainStep` and fleet's
@@ -41,6 +45,7 @@ import torch.distributed as dist
 
 from ..... import amp
 from .....nn import functional as F
+from .....nn import initializer as I
 from .....nn.layer.common import Embedding, Linear
 from .... import collective as C
 from .... import env as _env
@@ -105,13 +110,14 @@ class VocabParallelEmbedding(Embedding):
     Xavier-normal default init, as the JAX package's)."""
 
     mp_group = None
+    _default_init = I.XavierNormal()
 
-    def __init__(self, num_embeddings, embedding_dim, *, weight_std=None,
-                 generator=None, device=None, dtype=torch.float32,
-                 mp_group=None, name=None):
-        super().__init__(num_embeddings, embedding_dim, weight_std=weight_std,
-                         generator=generator, device=device, dtype=dtype,
-                         default_init="xavier_normal")
+    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
+                 mp_group=None, name=None, *, weight_std=None, generator=None,
+                 device=None, dtype=torch.float32):
+        super().__init__(num_embeddings, embedding_dim,
+                         weight_attr=weight_attr, weight_std=weight_std,
+                         generator=generator, device=device, dtype=dtype)
         self.weight.dist_attr = ("mp", None)
 
     def _mp_shard(self, pg, rank, n):
@@ -136,10 +142,11 @@ class ColumnParallelLinear(Linear):
 
     mp_group = None
 
-    def __init__(self, in_features, out_features, has_bias=True,
-                 gather_output=True, *, weight_std=None, generator=None,
-                 device=None, dtype=torch.float32, mp_group=None, name=None):
-        super().__init__(in_features, out_features,
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, gather_output=True, fuse_matmul_bias=False,
+                 mp_group=None, name=None, *, weight_std=None, generator=None,
+                 device=None, dtype=torch.float32):
+        super().__init__(in_features, out_features, weight_attr,
                          bias_attr=None if has_bias else False,
                          weight_std=weight_std, generator=generator,
                          device=device, dtype=dtype)
@@ -172,10 +179,12 @@ class RowParallelLinear(Linear):
 
     mp_group = None
 
-    def __init__(self, in_features, out_features, has_bias=True,
-                 input_is_parallel=False, *, weight_std=None, generator=None,
-                 device=None, dtype=torch.float32, mp_group=None, name=None):
-        super().__init__(in_features, out_features,
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=False,
+                 fuse_matmul_bias=False, mp_group=None, name=None, *,
+                 weight_std=None, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__(in_features, out_features, weight_attr,
                          bias_attr=None if has_bias else False,
                          weight_std=weight_std, generator=generator,
                          device=device, dtype=dtype)

@@ -75,7 +75,7 @@ from torch import nn
 from ..... import amp
 from .....device import resolve_device
 from .....distributed import moe_comm
-from .....nn.layer.common import init_weight
+from .....nn import initializer as I
 from .....nn.layer.container import LayerList
 from .....ops.grouped_gemm import grouped_matmul, row_stride
 from .gate import (BaseGate, GShardGate, NaiveGate, SwitchGate, Tokens,
@@ -115,9 +115,9 @@ class ExpertFFN(Layer):
         _activation(activation)
 
         def weight(*shape):
-            return Parameter(init_weight(
-                torch.empty(*shape, device=dev, dtype=dtype), None,
-                "xavier_uniform", generator))
+            return I.XavierUniform()(Parameter(
+                torch.empty(*shape, device=dev, dtype=dtype)),
+                generator=generator)
 
         def bias(*shape):
             return Parameter(torch.zeros(*shape, device=dev, dtype=dtype))

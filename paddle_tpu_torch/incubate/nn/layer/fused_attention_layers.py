@@ -5,71 +5,42 @@ of `incubate.nn.functional.fused_attention_ops`.
 
 Parameter names and shapes are the JAX package's, so
 `convert.load_paddle_tpu_state` carries its weights over. Weights start
-Xavier-uniform by the reference's fan rule (`_fans`), drawn from the
-`generator` given, on `device`; biases at zero, LayerNorm scales at one.
-A `*_attr` other than None (create the parameter) or False (no parameter)
-raises, naming ROADMAP queue A item 6 (ParamAttr), as
-`nn/layer/transformer.py` does. The JAX package marks the projections'
-tensor-parallel layout (dist_attr), inert on one rank; cutting these
-layers over mp is ROADMAP item 1f, so `nranks` other than 1 raises.
+Xavier-uniform by the reference's fan rule (`nn.initializer._fans`), drawn
+from the `generator` given, on `device`; biases at zero, LayerNorm scales
+at one. Each goes through `nn.layer.layers.make_parameter`, so its
+`*_attr` (a `ParamAttr`) applies and False drops it. The JAX package
+marks the projections' tensor-parallel layout (dist_attr), inert on one
+rank; cutting these layers over mp is ROADMAP item 1f, so `nranks` other
+than 1 raises.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
-from torch import nn
 
-from ....device import resolve_device
 from ..functional.fused_attention_ops import (
     fused_bias_dropout_residual_layer_norm, fused_feedforward,
     fused_multi_head_attention)
-from ....nn.layer.layers import Layer
-from ....framework.core import Parameter
+from ....nn import initializer as I
+from ....nn.layer.layers import Layer, make_parameter
 
 __all__ = ["FusedBiasDropoutResidualLayerNorm", "FusedFeedForward",
            "FusedMultiHeadAttention", "FusedTransformerEncoderLayer"]
 
 
-def _fans(shape):
-    """(fan_in, fan_out) by the JAX package's rule (nn/initializer.py:78):
-    [in, out] for 2-d, conv-style [out, in, *k] above."""
-    if len(shape) == 1:
-        return shape[0], shape[0]
-    if len(shape) == 2:
-        return shape[0], shape[1]
-    rf = math.prod(shape[2:])
-    return shape[1] * rf, shape[0] * rf
-
-
 class _Params:
     """Creates a layer's parameters: Xavier-uniform weights, zero biases,
-    constant-one scales, each honouring its `*_attr`."""
+    constant-one scales, each with its `*_attr` applied."""
 
     def __init__(self, generator, device, dtype):
-        self.gen = generator
-        self.dev = resolve_device(device)
+        self.kw = dict(generator=generator, device=device)
         self.dtype = dtype
 
     def __call__(self, shape, attr=None, kind="weight"):
-        if attr is False:
-            return None
-        if attr is not None:
-            raise NotImplementedError(
-                "a ParamAttr (*_attr other than None or False) is ported "
-                "with ROADMAP queue A item 6")
-        t = torch.empty(tuple(shape), device=self.dev, dtype=self.dtype)
-        with torch.no_grad():
-            if kind == "bias":
-                t.zero_()
-            elif kind == "one":
-                t.fill_(1.0)
-            else:
-                fi, fo = _fans(tuple(shape))
-                lim = math.sqrt(6.0 / (fi + fo))
-                t.uniform_(-lim, lim, generator=self.gen)
-        return Parameter(t)
+        return make_parameter(
+            shape, attr, self.dtype, is_bias=kind == "bias",
+            default_initializer=I.Constant(1.0) if kind == "one" else None,
+            **self.kw)
 
 
 def _one_rank(nranks):

@@ -2,7 +2,10 @@
 (↔ paddle_tpu/incubate/nn/layer/fused_transformer.py).
 
 Each layer's weights are stacked into [L, ...] parameters under the JAX
-package's names. The JAX package runs the stack as one `lax.scan` over
+package's names. A `*_attrs` is one `ParamAttr` for its stacked
+parameter, or a list of one a layer whose entries must agree (one tensor
+takes one attribute; the JAX package reads the lists only for their
+length, which gives `num_layers` when that is not given). The JAX package runs the stack as one `lax.scan` over
 the layers; here it is a loop, each layer: the norm (LayerNorm or RMSNorm,
 f32 statistics, scale and bias), the qkv product against a [qkv_out, M]
 weight, the rotation at the absolute positions (θ = 10000, the tables of
@@ -38,9 +41,35 @@ from .... import amp
 from ....nn.functional._attn_math import masked_attention
 from ..functional import _apply_rope_one, _rope_tables
 from .fused_attention_layers import _Params
-from ....nn.layer.layers import Layer
+from ....nn.layer.layers import Layer, ParamAttr
 
 __all__ = ["FusedMultiTransformer"]
+
+
+def _attr_key(attr):
+    if attr is None or attr is False:
+        return attr
+    a = ParamAttr._to_attr(attr)
+    return (a.name, id(a.initializer), a.learning_rate, id(a.regularizer),
+            a.trainable, a.need_clip)
+
+
+def _stacked_attr(what, attrs, num_layers):
+    """The one attribute of a parameter stacked over the layers: `attrs`
+    itself, or the entry of a list of one a layer, which must all be the
+    same (one [L, ...] tensor holds one initializer, rate and
+    regularizer; the JAX package reads these lists only for their
+    length)."""
+    if not isinstance(attrs, (list, tuple)):
+        return attrs
+    if len(attrs) != num_layers:
+        raise ValueError(f"{what}_attrs holds {len(attrs)} attributes for "
+                         f"{num_layers} layers")
+    if len({_attr_key(a) for a in attrs}) > 1:
+        raise ValueError(
+            f"{what}_attrs differ between layers; the layers' {what} is one "
+            "stacked parameter, which takes one attribute")
+    return attrs[0]
 
 
 class FusedMultiTransformer(Layer):
@@ -67,16 +96,20 @@ class FusedMultiTransformer(Layer):
             raise ValueError(f"unknown norm_type {norm_type!r}")
         if activation not in ("gelu", "relu"):
             raise ValueError(f"unsupported activation {activation!r}")
-        attrs = (ln_scale_attrs, ln_bias_attrs, qkv_weight_attrs,
-                 qkv_bias_attrs, linear_weight_attrs, linear_bias_attrs,
-                 ffn_ln_scale_attrs, ffn_ln_bias_attrs, ffn1_weight_attrs,
-                 ffn1_bias_attrs, ffn2_weight_attrs, ffn2_bias_attrs)
-        if any(a is not None for a in attrs):
-            raise NotImplementedError(
-                "per-layer ParamAttrs are ported with ROADMAP queue A item 6; "
-                "give num_layers")
+        attrs = dict(
+            ln_scale=ln_scale_attrs, ln_bias=ln_bias_attrs,
+            qkv_weight=qkv_weight_attrs, qkv_bias=qkv_bias_attrs,
+            linear_weight=linear_weight_attrs,
+            linear_bias=linear_bias_attrs, ffn_ln_scale=ffn_ln_scale_attrs,
+            ffn_ln_bias=ffn_ln_bias_attrs, ffn1_weight=ffn1_weight_attrs,
+            ffn1_bias=ffn1_bias_attrs, ffn2_weight=ffn2_weight_attrs,
+            ffn2_bias=ffn2_bias_attrs)
+        if num_layers <= 0 and isinstance(qkv_weight_attrs, (list, tuple)):
+            num_layers = len(qkv_weight_attrs)
         if num_layers <= 0:
-            raise ValueError("num_layers must be given")
+            raise ValueError("num_layers must be given (or a list of "
+                             "qkv_weight_attrs, one a layer)")
+        attrs = {k: _stacked_attr(k, a, num_layers) for k, a in attrs.items()}
         if (dropout_rate != 0.0 or not trans_qkvw or nranks != 1
                 or ring_id != -1):
             raise NotImplementedError(
@@ -99,18 +132,19 @@ class FusedMultiTransformer(Layer):
         H, Hkv, D = self.num_heads, self.kv_heads, self.head_dim
         qkv_out = (H + 2 * Hkv) * D
         mk = _Params(generator, device, dtype)
-        self.ln_scale = mk([L, M], kind="one")
-        self.ln_bias = mk([L, M], kind="bias")
-        self.qkv_weight = mk([L, qkv_out, M])
-        self.qkv_bias = mk([L, qkv_out], kind="bias")
-        self.linear_weight = mk([L, H * D, M])
-        self.linear_bias = mk([L, M], kind="bias")
-        self.ffn_ln_scale = mk([L, M], kind="one")
-        self.ffn_ln_bias = mk([L, M], kind="bias")
-        self.ffn1_weight = mk([L, M, F])
-        self.ffn1_bias = mk([L, F], kind="bias")
-        self.ffn2_weight = mk([L, F, M])
-        self.ffn2_bias = mk([L, M], kind="bias")
+        a = attrs
+        self.ln_scale = mk([L, M], a["ln_scale"], kind="one")
+        self.ln_bias = mk([L, M], a["ln_bias"], kind="bias")
+        self.qkv_weight = mk([L, qkv_out, M], a["qkv_weight"])
+        self.qkv_bias = mk([L, qkv_out], a["qkv_bias"], kind="bias")
+        self.linear_weight = mk([L, H * D, M], a["linear_weight"])
+        self.linear_bias = mk([L, M], a["linear_bias"], kind="bias")
+        self.ffn_ln_scale = mk([L, M], a["ffn_ln_scale"], kind="one")
+        self.ffn_ln_bias = mk([L, M], a["ffn_ln_bias"], kind="bias")
+        self.ffn1_weight = mk([L, M, F], a["ffn1_weight"])
+        self.ffn1_bias = mk([L, F], a["ffn1_bias"], kind="bias")
+        self.ffn2_weight = mk([L, F, M], a["ffn2_weight"])
+        self.ffn2_bias = mk([L, M], a["ffn2_bias"], kind="bias")
 
     def init_caches(self, batch_size, max_seq_len, dtype="float32"):
         """Zero KV caches [L, 2, B, S_max, Hkv, D] on the layer's device."""

@@ -7,7 +7,10 @@ given, the loss in f32, `loss.backward()`, the optimizer's global-norm
 clip when it has one (in f32 over every gradient, :364-371), then the
 optimizer's rule on every parameter with the step counter t, the
 learning rate `optimizer.get_lr()` read anew on each call (a scheduler's
-current rate) and the parameter's weight decay (`_param_decay`: the
+current rate) times the parameter's `optimize_attr["learning_rate"]`
+(`Optimizer._param_lr`, as the reference's eager step, :130; its compiled
+step ignores the factor, ROADMAP queue C) and the parameter's weight
+decay (`_param_decay`: the
 optimizer's coefficient, as `_build` applies it, :299-300 and :373-390,
 but for the parameters an `AdamW.apply_decay_param_fun` refuses, which
 the reference's compiled step decays too and its eager `step()` does
@@ -16,10 +19,17 @@ gradient is freed as soon as its parameter is updated. The parameters are
 updated in place (the JAX package's `sync_weights` write-back has nothing
 to do here).
 
-As in the reference, the clip in the step is the global-norm one: an
-optimizer clip with a `clip_norm` (`ClipGradByGlobalNorm`, and
-`ClipGradByNorm` too, whose norm the reference's step also takes over
-every gradient) scales every gradient by clip_norm / max(norm, clip_norm);
+A parameter's regularizer (`ParamAttr(regularizer=...)`) adds its term
+to the gradient before the clip, on the piece of the parameter the rank
+updates (`_shard_param_for_update`: the term is elementwise), and takes
+the place of the optimizer's weight decay for it, as in the reference
+(:301-313, :356-362). As in the reference, the clip in the step is the
+global-norm one: an optimizer clip with a `clip_norm`
+(`ClipGradByGlobalNorm`, and `ClipGradByNorm` too, whose norm the
+reference's step also takes over every gradient) scales the gradients by
+clip_norm / max(norm, clip_norm); a parameter with `need_clip = False`
+is left out of the norm and of the scaling, as the eager clip leaves it
+(the reference's compiled step clips it: ROADMAP queue C).
 `ClipGradByValue` is not applied by the step, as in the reference.
 
 Buffers (a batch norm's running statistics) are the model's own tensors,
@@ -271,14 +281,23 @@ class TrainStep:
         if self._grad_factor is not None:
             grads = {k: None if g is None else scale_grad(g, self._grad_factor)
                      for k, g in grads.items()}
+        for k, p in self.params.items():
+            reg = p.__dict__.get("regularizer")
+            if reg is not None and grads[k] is not None:
+                grads[k] = reg.add_to(grads[k],
+                                      self._shard_param_for_update(k, p))
         clip_norm = getattr(opt._grad_clip, "clip_norm", None)
         if clip_norm is not None:
-            scale = global_norm_scale(self._grad_sq_sum(grads), clip_norm)
-            grads = {k: None if g is None else scale_grad(g, scale)
-                     for k, g in grads.items()}
+            clipped = {k for k, p in self.params.items()
+                       if getattr(p, "need_clip", True)}
+            scale = global_norm_scale(self._grad_sq_sum(
+                {k: g if k in clipped else None for k, g in grads.items()}),
+                clip_norm)
+            grads = {k: scale_grad(g, scale) if g is not None and k in clipped
+                     else g for k, g in grads.items()}
         for k, p in self.params.items():
             pctx = dict(ctx, weight_decay=opt._param_decay(k, p))
-            self._apply(k, p, grads.pop(k), lr, pctx)
+            self._apply(k, p, grads.pop(k), opt._param_lr(lr, p), pctx)
             p.grad = None
             self._restore_param(k, p)
 

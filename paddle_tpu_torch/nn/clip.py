@@ -94,7 +94,8 @@ def _params(parameters):
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
                     error_if_nonfinite=False):
     """Scale every `p.grad` by min(1, max_norm / (total norm + 1e-6));
-    returns the total norm (f32)."""
+    returns the total norm (f32). With `error_if_nonfinite` a total that
+    is not finite raises (a read of the total)."""
     params = _params(parameters)
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
@@ -104,6 +105,10 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     else:
         total = torch.stack([g.float().abs().pow(norm_type).sum()
                              for g in grads]).sum() ** (1.0 / norm_type)
+    if error_if_nonfinite and not torch.isfinite(total):
+        raise RuntimeError(f"the total norm of the gradients is "
+                           f"{float(total)}; error_if_nonfinite=False skips "
+                           "this check")
     coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
     for p in params:
         if p.grad is not None:

@@ -1,5 +1,10 @@
 """Activations (↔ paddle_tpu/nn/functional/activation.py). Each casts its
-input for AMP under the JAX package's op name. `rrelu` in training and
+input for AMP under the JAX package's op name and computes the reference's
+formula with torch ops (the reference's are jax.nn / jnp, with no Pallas
+kernel), with its defaults: `leaky_relu` 0.01, `hardsigmoid` clip(x /
+6 + 1 / 2, 0, 1) at Paddle's slope 0.1666667, `hardswish` x * relu6(x +
+3) / 6, `softplus` x where beta * x exceeds the threshold. `relu_`
+rectifies its tensor in place and returns it. `rrelu` in training and
 `gumbel_softmax` draw from the port's generators (`framework.random`)."""
 
 from __future__ import annotations
@@ -10,8 +15,12 @@ from ... import amp
 from ...framework.core import reported
 from ...framework import random
 
-__all__ = ["gelu", "gumbel_softmax", "log_softmax", "relu", "rrelu", "silu",
-           "softmax", "tanh"]
+__all__ = ["celu", "elu", "gelu", "glu", "gumbel_softmax", "hardshrink",
+           "hardsigmoid", "hardswish", "hardtanh", "leaky_relu",
+           "log_sigmoid", "log_softmax", "maxout", "mish", "prelu", "relu",
+           "relu6", "relu_", "rrelu", "selu", "sigmoid", "silu", "softmax",
+           "softplus", "softshrink", "softsign", "swish", "tanh",
+           "tanhshrink", "thresholded_relu"]
 
 
 @reported("gelu")
@@ -85,3 +94,129 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
         oh = (y == y.amax(dim=axis, keepdim=True)).to(y.dtype)
         return oh + y - y.detach()
     return y
+
+
+def _unary(op_name, fn):
+    """The activation `op_name`: fn(x) on x cast for AMP as that op."""
+    @reported(op_name)
+    def op(x, name=None):
+        (x,) = amp.cast_inputs(op_name, x)
+        return fn(x)
+
+    op.__name__ = op.__qualname__ = op_name
+    return op
+
+
+relu6 = _unary("relu6", lambda a: torch.clamp(a, 0.0, 6.0))
+sigmoid = _unary("sigmoid", torch.sigmoid)
+log_sigmoid = _unary("log_sigmoid", torch.nn.functional.logsigmoid)
+softsign = _unary("softsign", lambda a: a / (1 + a.abs()))
+tanhshrink = _unary("tanhshrink", lambda a: a - torch.tanh(a))
+mish = _unary("mish", lambda a: a * torch.tanh(
+    torch.nn.functional.softplus(a)))
+hardswish = _unary("hardswish", lambda a: a * torch.clamp(a + 3.0, 0.0, 6.0)
+                   / 6.0)
+
+
+def relu_(x, name=None):
+    """relu in place on x; returns x."""
+    return torch.relu_(x)
+
+
+def swish(x, name=None):
+    return silu(x)
+
+
+@reported("leaky_relu")
+def leaky_relu(x, negative_slope=0.01, name=None):
+    (x,) = amp.cast_inputs("leaky_relu", x)
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+@reported("elu")
+def elu(x, alpha=1.0, name=None):
+    (x,) = amp.cast_inputs("elu", x)
+    return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+@reported("selu")
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
+    (x,) = amp.cast_inputs("selu", x)
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+@reported("celu")
+def celu(x, alpha=1.0, name=None):
+    (x,) = amp.cast_inputs("celu", x)
+    return torch.celu(x, alpha)
+
+
+@reported("hardsigmoid")
+def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
+    (x,) = amp.cast_inputs("hardsigmoid", x)
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+@reported("hardtanh")
+def hardtanh(x, min=-1.0, max=1.0, name=None):  # noqa: A002
+    (x,) = amp.cast_inputs("hardtanh", x)
+    return torch.clamp(x, min, max)
+
+
+@reported("hardshrink")
+def hardshrink(x, threshold=0.5, name=None):
+    (x,) = amp.cast_inputs("hardshrink", x)
+    return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
+
+
+@reported("softshrink")
+def softshrink(x, threshold=0.5, name=None):
+    (x,) = amp.cast_inputs("softshrink", x)
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+@reported("softplus")
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    (x,) = amp.cast_inputs("softplus", x)
+    return torch.where(beta * x > threshold, x,
+                       torch.nn.functional.softplus(beta * x) / beta)
+
+
+@reported("prelu")
+def prelu(x, weight, data_format="NCHW", name=None):
+    """max(0, x) + slope * min(0, x): one slope, or one a channel (axis 1,
+    or the last axis when `data_format` is not "NC...")."""
+    x, weight = amp.cast_inputs("prelu", x, weight)
+    if weight.numel() == 1:
+        slope = weight.reshape(())
+    else:
+        shape = [1] * x.dim()
+        shape[1 if data_format.startswith("NC") else x.dim() - 1] = weight.numel()
+        slope = weight.reshape(shape)
+    return torch.where(x > 0, x, slope * x)
+
+
+@reported("glu")
+def glu(x, axis=-1, name=None):
+    """a * sigmoid(b), a and b the two halves of x along `axis`."""
+    (x,) = amp.cast_inputs("glu", x)
+    a, b = x.chunk(2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+@reported("maxout")
+def maxout(x, groups, axis=1, name=None):
+    """The channels of `axis` in runs of `groups`, each run's largest."""
+    (x,) = amp.cast_inputs("maxout", x)
+    ax = axis % x.dim()
+    c = x.shape[ax]
+    shape = x.shape[:ax] + (c // groups, groups) + x.shape[ax + 1:]
+    return x.reshape(shape).amax(dim=ax + 1)
+
+
+@reported("thresholded_relu")
+def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
+    (x,) = amp.cast_inputs("thresholded_relu", x)
+    return torch.where(x > threshold, x, torch.full_like(x, value))

@@ -67,7 +67,8 @@ from ._attn_math import repeat_kv
 from .common import _keep
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
-           "ring_flash_attention", "scaled_dot_product_attention"]
+           "ring_flash_attention", "scaled_dot_product_attention",
+           "sdp_kernel"]
 
 
 def _drop(p, rate):
@@ -156,6 +157,30 @@ def ring_flash_attention(query, key, value, causal=True, axis="sep",
     if mesh is None:
         return _ref_attention(q, k, v, causal=causal)
     return ring_attention_spmd(q, k, v, mesh, axis=axis, causal=causal)
+
+
+class sdp_kernel:
+    """The reference's attention-backend switch (:321), kept to the kernel
+    route: `enable_flash=True` changes nothing, since every attention on
+    the card already runs the port's flash kernels; `enable_flash=False`
+    raises, because nothing on the card switches away from a kernel
+    (ROADMAP, "Not mirrored on purpose"). `enable_math` and
+    `enable_mem_efficient` are accepted and not read."""
+
+    def __init__(self, enable_flash=True, enable_math=True,
+                 enable_mem_efficient=True):
+        if not enable_flash:
+            raise NotImplementedError(
+                "sdp_kernel(enable_flash=False): the port has no switch away "
+                "from its attention kernels; on the card every attention "
+                "runs them (a CPU tensor runs their plain versions)")
+        self.enable_flash = enable_flash
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

@@ -54,10 +54,19 @@ from ...framework.core import report_op
 from ...ops.fused_norm import layer_norm_fwd, rms_norm_fwd
 
 __all__ = ["batch_norm", "batch_stats_group", "batch_stats_over",
-           "group_norm", "instance_norm", "layer_norm", "rms_norm"]
+           "group_norm", "instance_norm", "layer_norm", "normalize",
+           "rms_norm"]
 
 # the process group whose ranks' batches one batch norm spans, else None
 _STATS_GROUP = contextvars.ContextVar("batch_stats_group", default=None)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """x / max(||x||_p along `axis`, epsilon) (↔ :48)."""
+    (x,) = amp.cast_inputs("normalize", x)
+    nrm = x.abs().pow(p).sum(dim=axis, keepdim=True).pow(1.0 / p)
+    out = x / nrm.clamp(min=epsilon)
+    return report_op("normalize", out)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,

@@ -1,20 +1,50 @@
-"""Activation layers (↔ paddle_tpu/nn/layer/activation.py)."""
+"""Activation layers (↔ paddle_tpu/nn/layer/activation.py): each a thin
+`Layer` over its `nn.functional` activation, with the reference's
+positional parameters. `PReLU` holds its slopes as a parameter (one, or
+one a channel), Constant(`init`) unless its `weight_attr` says
+otherwise."""
 
 from __future__ import annotations
 
+import torch
 
 from .. import functional as F
+from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["GELU", "ReLU", "Silu", "Tanh"]
+__all__ = [
+    "ReLU", "ReLU6", "GELU", "LeakyReLU", "ELU", "SELU", "CELU", "Silu",
+    "Swish", "Mish", "Hardswish", "Hardsigmoid", "Hardtanh", "Hardshrink",
+    "Softshrink", "Tanhshrink", "Softplus", "Softsign", "PReLU", "Softmax",
+    "LogSoftmax", "Sigmoid", "LogSigmoid", "Tanh", "GLU", "Maxout",
+    "ThresholdedReLU",
+]
 
 
-class ReLU(Layer):
+def _simple(name, fname):
+    """A layer class `name` calling `nn.functional.<fname>(x)`."""
     def __init__(self, name=None):
-        super().__init__()
+        Layer.__init__(self)
 
     def forward(self, x):
-        return F.relu(x)
+        return getattr(F, fname)(x)
+
+    return type(name, (Layer,), {"__init__": __init__, "forward": forward,
+                                 "__module__": __name__})
+
+
+ReLU = _simple("ReLU", "relu")
+ReLU6 = _simple("ReLU6", "relu6")
+Silu = _simple("Silu", "silu")
+Swish = _simple("Swish", "swish")
+Mish = _simple("Mish", "mish")
+Hardswish = _simple("Hardswish", "hardswish")
+Hardsigmoid = _simple("Hardsigmoid", "hardsigmoid")
+Sigmoid = _simple("Sigmoid", "sigmoid")
+LogSigmoid = _simple("LogSigmoid", "log_sigmoid")
+Tanh = _simple("Tanh", "tanh")
+Tanhshrink = _simple("Tanhshrink", "tanhshrink")
+Softsign = _simple("Softsign", "softsign")
 
 
 class GELU(Layer):
@@ -26,17 +56,133 @@ class GELU(Layer):
         return F.gelu(x, self.approximate)
 
 
-class Tanh(Layer):
-    def __init__(self, name=None):
+class LeakyReLU(Layer):
+    def __init__(self, negative_slope=0.01, name=None):
         super().__init__()
+        self._slope = negative_slope
 
     def forward(self, x):
-        return F.tanh(x)
+        return F.leaky_relu(x, self._slope)
 
 
-class Silu(Layer):
-    def __init__(self, name=None):
+class ELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
         super().__init__()
+        self._alpha = alpha
 
     def forward(self, x):
-        return F.silu(x)
+        return F.elu(x, self._alpha)
+
+
+class SELU(Layer):
+    def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
+                 name=None):
+        super().__init__()
+        self._scale, self._alpha = scale, alpha
+
+    def forward(self, x):
+        return F.selu(x, self._scale, self._alpha)
+
+
+class CELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.celu(x, self._alpha)
+
+
+class Hardtanh(Layer):
+    def __init__(self, min=-1.0, max=1.0, name=None):  # noqa: A002
+        super().__init__()
+        self._min, self._max = min, max
+
+    def forward(self, x):
+        return F.hardtanh(x, self._min, self._max)
+
+
+class Hardshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.hardshrink(x, self._threshold)
+
+
+class Softshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.softshrink(x, self._threshold)
+
+
+class Softplus(Layer):
+    def __init__(self, beta=1.0, threshold=20.0, name=None):
+        super().__init__()
+        self._beta, self._threshold = beta, threshold
+
+    def forward(self, x):
+        return F.softplus(x, self._beta, self._threshold)
+
+
+class PReLU(Layer):
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_parameters], weight_attr, dtype=dtype, device=device,
+            default_initializer=I.Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight, self._data_format)
+
+
+class Softmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.softmax(x, self._axis)
+
+
+class LogSoftmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.log_softmax(x, self._axis)
+
+
+class GLU(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.glu(x, self._axis)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self._groups, self._axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self._groups, self._axis)
+
+
+class ThresholdedReLU(Layer):
+    def __init__(self, threshold=1.0, value=0.0, name=None):
+        super().__init__()
+        self._threshold, self._value = threshold, value
+
+    def forward(self, x):
+        return F.thresholded_relu(x, self._threshold, self._value)

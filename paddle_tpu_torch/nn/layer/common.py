@@ -1,67 +1,74 @@
-"""Linear, Embedding, Identity, Flatten and Dropout (↔
-paddle_tpu/nn/layer/common.py).
+"""Linear, Embedding, Identity, Flatten, the dropout family, and the thin
+layers over `nn.functional` (↔ paddle_tpu/nn/layer/common.py): Upsample,
+UpsamplingBilinear2D / UpsamplingNearest2D, Pad1D/2D/3D, ZeroPad2D,
+CosineSimilarity, Bilinear, Unfold, Fold, PixelShuffle, PixelUnshuffle and
+ChannelShuffle.
 
 Paddle's layout: `Linear.weight` is [in_features, out_features] and the
 layer computes x @ W + b (`nn.functional.linear`, which casts for AMP).
-Parameters are created on an explicit device and
-dtype and initialised from an explicit `torch.Generator`:
-`weight_std=None` keeps Paddle's default initializer (Xavier-uniform for a
-Linear weight, N(0, 1) for an Embedding), a float draws N(0, weight_std)
-(the GPT models' `_init_attr`). Biases start at zero.
+The positional parameters are the reference's, up to `name`; the port's
+own (`weight_std`, `generator`, `device`, `dtype`) are keyword-only.
+Parameters go through `Layer.create_parameter`, so a `weight_attr` /
+`bias_attr` (`ParamAttr`) sets their initializer, learning rate,
+regularizer, trainability and clipping, and False drops them. Without an
+initializer a Linear weight is Xavier-uniform, an Embedding N(0, 1) (the
+reference's defaults, :122) and a bias zero; `weight_std` makes the
+default N(0, weight_std) (the GPT models' `_init_attr`). Random draws come
+from the `generator` given, else from the port's generator of the device.
+
+`Embedding(padding_idx=)` zeroes that row at build and masks it in the
+lookup, so no gradient reaches it (a negative index counts from the end,
+as the reference's); `sparse=True` is accepted and gives the dense
+gradient, the only kind a torch optimizer step here reads.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...device import resolve_device
 from .. import functional as F
+from .. import initializer as I
 from .layers import Layer
-from ...framework.core import Parameter
 
-__all__ = ["AlphaDropout", "Dropout", "Dropout2D", "Dropout3D", "Embedding",
-           "Flatten", "Identity", "Linear", "init_weight"]
+__all__ = ["AlphaDropout", "Bilinear", "ChannelShuffle", "CosineSimilarity",
+           "Dropout", "Dropout2D", "Dropout3D", "Embedding", "Flatten",
+           "Fold", "Identity", "Linear", "Pad1D", "Pad2D", "Pad3D",
+           "PixelShuffle", "PixelUnshuffle", "Unfold", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "ZeroPad2D"]
 
 
-def init_weight(w, std, default, generator):
-    """Fill `w` in place: N(0, std) when `std` is given, else `default`
-    ("xavier_uniform" | "xavier_normal" | "normal"), drawing from
-    `generator` (None = torch's default generator)."""
-    with torch.no_grad():
-        if std is not None:
-            w.normal_(0.0, std, generator=generator)
-        elif default == "xavier_uniform":
-            nn.init.xavier_uniform_(w, generator=generator)
-        elif default == "xavier_normal":
-            nn.init.xavier_normal_(w, generator=generator)
-        elif default == "normal":
-            w.normal_(0.0, 1.0, generator=generator)
-        else:
-            raise ValueError(f"unknown initializer {default!r}")
-    return w
+def std_default(weight_std, default):
+    """The default initializer of a weight: N(0, weight_std) when the
+    port's `weight_std` is given, else `default`."""
+    return I.Normal(0.0, weight_std) if weight_std is not None else default
 
 
 class Linear(Layer):
     """y = xW + b, weight stored [in_features, out_features]."""
 
-    def __init__(self, in_features, out_features, bias_attr=None, *,
-                 weight_std=None, generator=None, device=None,
-                 dtype=torch.float32):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, weight_std=None,
+                 generator=None, device=None, dtype=torch.float32):
         super().__init__()
-        dev = resolve_device(device)
         self._in_features = in_features
         self._out_features = out_features
-        self.weight = Parameter(init_weight(
-            torch.empty(in_features, out_features, device=dev, dtype=dtype),
-            weight_std, "xavier_uniform", generator))
-        if bias_attr is False:
-            self.bias = None
-        else:
-            self.bias = Parameter(
-                torch.zeros(out_features, device=dev, dtype=dtype))
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.weight = self.create_parameter(
+            [in_features, out_features], weight_attr,
+            default_initializer=std_default(weight_std, None), **kw)
+        self.bias = self.create_parameter([out_features], bias_attr,
+                                          is_bias=True, **kw)
+
+    # set by nn.quant.quantize_for_inference: the weight-only algorithm
+    _weight_only = None
 
     def forward(self, x):
+        if self._weight_only is not None:
+            from ..quant import weight_only_linear
+
+            return weight_only_linear(
+                x, self.weight_quant, self.bias, self.weight_scale,
+                "int4" if self._weight_only == "weight_only_int4" else "int8")
         return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
@@ -69,21 +76,36 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
-    """Token lookup table [num_embeddings, embedding_dim]."""
+    """Token lookup table [num_embeddings, embedding_dim] (module
+    docstring)."""
 
-    def __init__(self, num_embeddings, embedding_dim, *, weight_std=None,
-                 generator=None, device=None, dtype=torch.float32,
-                 default_init="normal"):
+    # the weight's initializer when no weight_attr is given
+    _default_init = I.Normal(0.0, 1.0)
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *,
+                 weight_std=None, generator=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        dev = resolve_device(device)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
-        self.weight = Parameter(init_weight(
-            torch.empty(num_embeddings, embedding_dim, device=dev, dtype=dtype),
-            weight_std, default_init, generator))
+        self._padding_idx = (None if padding_idx is None else padding_idx
+                             if padding_idx >= 0
+                             else num_embeddings + padding_idx)
+        self._sparse = sparse
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], weight_attr,
+            default_initializer=std_default(
+                weight_std, self._default_init if weight_attr is None
+                else None),
+            dtype=dtype, generator=generator, device=device)
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
     def extra_repr(self):
         return f"num_embeddings={self._num_embeddings}, embedding_dim={self._embedding_dim}"
@@ -162,3 +184,141 @@ class AlphaDropout(Layer):
 
     def forward(self, x):
         return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Upsample(Layer):
+    """`nn.functional.interpolate` with the layer's settings."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor, self.mode = size, scale_factor, mode
+        self.align_corners, self.align_mode = align_corners, align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True,
+                         data_format=data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False,
+                         data_format=data_format)
+
+
+class _PadN(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding, self.mode, self.value = padding, mode, value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value, self.data_format)
+
+
+class Pad1D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL",
+                 name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadN):
+    pass
+
+
+class Pad3D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(_PadN):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    """out[b, o] = x1[b] W[o] x2[b] + bias[o]: weight [out, in1, in2]
+    (Xavier-uniform by default), bias [1, out]."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], weight_attr, **kw)
+        self.bias = self.create_parameter([1, out_features], bias_attr,
+                                          is_bias=True, **kw)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor, self.data_format = downscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)

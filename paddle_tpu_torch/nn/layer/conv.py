@@ -2,9 +2,12 @@
 
 The weight is [out, in / groups, *k], drawn Kaiming-uniform with
 a = sqrt(5) over fan_in = in / groups * prod(k), the reference's default
-(:40-43: bound 1 / sqrt(fan_in)); the bias starts at zero. Only the
-"zeros" padding mode exists, as in the reference. The transposed conv
-layers raise, naming ROADMAP queue A item 8.
+(:40-43: bound 1 / sqrt(fan_in)); the bias starts at zero. Both go through
+`Layer.create_parameter`, so a `weight_attr` / `bias_attr` applies (a
+given weight_attr replaces the Kaiming default by its own initializer,
+else Xavier-uniform, as in the reference). Only the "zeros" padding mode
+exists, as in the reference. The transposed conv layers take the
+reference's parameters and raise, naming ROADMAP queue A item 8.
 """
 
 from __future__ import annotations
@@ -12,12 +15,10 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
-from ...device import resolve_device
 from .. import functional as F
+from .. import initializer as I
 from .layers import Layer
-from ...framework.core import Parameter
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose"]
@@ -36,11 +37,6 @@ class _ConvNd(Layer):
             raise NotImplementedError(
                 f"padding_mode {padding_mode!r} is ported with ROADMAP queue A "
                 "item 8")
-        if weight_attr is not None:
-            raise NotImplementedError(
-                "a weight_attr (ParamAttr initializers) is ported with ROADMAP "
-                "queue A item 6")
-        dev = resolve_device(device)
         n = self._n
         k = (kernel_size,) * n if isinstance(kernel_size, int) else tuple(kernel_size)
         self._in_channels, self._out_channels = in_channels, out_channels
@@ -48,13 +44,15 @@ class _ConvNd(Layer):
         self._stride, self._padding = stride, padding
         self._dilation, self._groups = dilation, groups
         self._data_format = data_format
-        w = torch.empty(out_channels, in_channels // groups, *k, device=dev,
-                        dtype=dtype)
-        with torch.no_grad():
-            nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=generator)
-        self.weight = Parameter(w)
-        self.bias = (None if bias_attr is False else Parameter(
-            torch.zeros(out_channels, device=dev, dtype=dtype)))
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        fan_in = in_channels // groups * math.prod(k)
+        self.weight = self.create_parameter(
+            [out_channels, in_channels // groups, *k], weight_attr,
+            default_initializer=None if weight_attr is not None else
+            I.KaimingUniform(fan_in=fan_in, negative_slope=math.sqrt(5.0),
+                             nonlinearity="leaky_relu"), **kw)
+        self.bias = self.create_parameter([out_channels], bias_attr,
+                                          is_bias=True, **kw)
 
     def forward(self, x):
         return self._fn(x, self.weight, self.bias, self._stride, self._padding,
@@ -102,20 +100,30 @@ class Conv3D(_ConvNd):
                          bias_attr, data_format, **kw)
 
 
-class _ConvTransposeUnported(Layer):
-    def __init__(self, *args, **kwargs):
+def _transpose_unported(layer):
+    raise NotImplementedError(
+        f"{type(layer).__name__} is ported with ROADMAP queue A item 8")
+
+
+class Conv1DTranspose(Layer):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCL"):
         super().__init__()
-        raise NotImplementedError(
-            f"{type(self).__name__} is ported with ROADMAP queue A item 8")
+        _transpose_unported(self)
 
 
-class Conv1DTranspose(_ConvTransposeUnported):
-    pass
+class Conv2DTranspose(Layer):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__()
+        _transpose_unported(self)
 
 
-class Conv2DTranspose(_ConvTransposeUnported):
-    pass
-
-
-class Conv3DTranspose(_ConvTransposeUnported):
-    pass
+class Conv3DTranspose(Layer):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW"):
+        super().__init__()
+        _transpose_unported(self)

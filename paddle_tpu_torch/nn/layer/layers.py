@@ -1,5 +1,18 @@
 """Layer: the base of every layer of the port (↔ paddle_tpu/nn/layer/layers.py).
 
+`ParamAttr` bundles what Paddle attaches to a parameter at its creation:
+its name, its initializer, its learning-rate factor, its regularizer,
+whether it trains and whether the gradient clip reads it.
+`Layer.create_parameter` applies one: the parameter gets
+`optimize_attr["learning_rate"]` (the optimizers scale their rate by it),
+`regularizer` (added to its gradient before the clip), `need_clip` and
+`trainable`. Its initializer is `attr.initializer`, else the layer's
+default (`default_initializer`), else zeros for a bias and Xavier-uniform
+for a weight. Paddle reads the attribute's initializer first; the JAX
+package's `create_parameter` reads the layer's default first, so a
+LayerNorm given `ParamAttr(initializer=...)` keeps its ones there
+(ROADMAP queue C).
+
 `Layer` is a `torch.nn.Module` that carries the `Layer` methods of Paddle
 whose names torch's Module lacks: `create_parameter`, `add_parameter`,
 `add_sublayer`, `sublayers`, `set_state_dict`, `clear_gradients`,
@@ -24,8 +37,69 @@ import torch
 from torch import nn
 
 from ...framework.core import Parameter, Tensor
+from .. import initializer as I
 
-__all__ = ["Layer"]
+__all__ = ["Layer", "ParamAttr"]
+
+
+class ParamAttr:
+    """A parameter's attributes (module docstring; ↔ :26)."""
+
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(attr):
+        """A ParamAttr from None (the defaults), a ParamAttr, a name, an
+        initializer, or False (no parameter: False back)."""
+        if attr is None:
+            return ParamAttr()
+        if isinstance(attr, ParamAttr):
+            return attr
+        if isinstance(attr, str):
+            return ParamAttr(name=attr)
+        if isinstance(attr, I.Initializer):
+            return ParamAttr(initializer=attr)
+        if attr is False:
+            return False
+        raise TypeError(f"cannot interpret {attr!r} as ParamAttr")
+
+
+def set_param_attr(p, attr):
+    """Give parameter p what `attr` (a `ParamAttr`) attaches: its
+    learning-rate factor, regularizer, clipping, trainability and (when
+    set) its name; returns p."""
+    p.optimize_attr["learning_rate"] = attr.learning_rate
+    p.regularizer = attr.regularizer
+    p.need_clip = attr.need_clip
+    p.trainable = attr.trainable
+    if attr.name is not None:
+        p.name = attr.name
+    return p
+
+
+def make_parameter(shape, attr=None, dtype=torch.float32, is_bias=False,
+                   default_initializer=None, *, generator=None, device=None):
+    """A `Parameter` of `shape` on `device` with `attr` applied (module
+    docstring), or None when `attr` is False; its random draws come from
+    `generator` (None: the port's generator of the device)."""
+    from ...device import resolve_device
+
+    attr = ParamAttr._to_attr(attr)
+    if attr is False:
+        return None
+    p = Parameter(torch.empty(tuple(int(s) for s in shape), dtype=dtype,
+                              device=resolve_device(device)))
+    init = attr.initializer or default_initializer or (
+        I.Constant(0.0) if is_bias else I.XavierUniform())
+    init(p, generator=generator)
+    return set_param_attr(p, attr)
 
 _layer_counter = collections.defaultdict(int)
 
@@ -88,22 +162,19 @@ class Layer(nn.Module):
         return self._full_name
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
-                         default_initializer=None):
-        """A `Parameter` of `shape` on the device of this layer's first
-        parameter (the default device when it has none): zeros for a bias,
-        Xavier-uniform for a weight, or `default_initializer(p)`."""
-        from ...device import resolve_device
-        from ...tensor.creation import create_parameter
+                         default_initializer=None, *, generator=None,
+                         device=None):
+        """`make_parameter` in `dtype` (the layer's by default) on `device`,
+        by default the device of this layer's first parameter (the default
+        device when it has none)."""
+        from ...framework.dtype import convert_dtype
 
-        if attr is False:
-            return None
-        first = next(self.parameters(), None)
-        dev = first.device if first is not None else resolve_device(None)
-        p = create_parameter(shape, dtype or self._dtype, attr=attr,
-                             is_bias=is_bias,
-                             default_initializer=default_initializer)
-        return p if p.device == dev else Parameter(
-            p.detach().to(dev), requires_grad=p.requires_grad, name=p.name)
+        if device is None:
+            first = next(self.parameters(), None)
+            device = first.device if first is not None else None
+        return make_parameter(shape, attr, convert_dtype(dtype or self._dtype),
+                              is_bias, default_initializer,
+                              generator=generator, device=device)
 
     def add_parameter(self, name, parameter):
         if parameter is not None and not isinstance(parameter, nn.Parameter):

@@ -1,6 +1,9 @@
-"""LayerNorm, RMSNorm and the batch norms (↔ paddle_tpu/nn/layer/norm.py):
-weight starts at one and bias at zero; LayerNorm and RMSNorm go through
-`nn.functional`, hence through the fused norm kernel on CUDA tensors.
+"""LayerNorm, RMSNorm, the batch norms, GroupNorm, the instance norms and
+SpectralNorm (↔ paddle_tpu/nn/layer/norm.py): weight starts at one and
+bias at zero (Constant(1) and zeros through `Layer.create_parameter`, so
+a `weight_attr` / `bias_attr` applies as on every layer, and False drops
+the parameter); LayerNorm and RMSNorm go through `nn.functional`, hence
+through the fused norm kernel on CUDA tensors.
 
 The batch norms keep f32 running statistics in the buffers `_mean` (zeros)
 and `_variance` (ones), the reference's names (:47-48), which
@@ -21,32 +24,42 @@ stay f32, the ops being on AMP's black list.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
+from .. import initializer as I
 from .layers import Layer
-from ...framework.core import Parameter
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "GroupNorm",
            "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "LayerNorm",
-           "RMSNorm", "SyncBatchNorm"]
+           "RMSNorm", "SpectralNorm", "SyncBatchNorm"]
+
+
+def _unit_and_zero(layer, shape, weight_attr, bias_attr, dev, dtype):
+    """(weight of ones, bias of zeros) through `create_parameter`, None
+    where the attr is False."""
+    kw = dict(dtype=dtype, device=dev)
+    return (layer.create_parameter(shape, weight_attr,
+                                   default_initializer=I.Constant(1.0), **kw),
+            layer.create_parameter(shape, bias_attr, is_bias=True, **kw))
 
 
 class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
-                 bias_attr=None, *, device=None, dtype=torch.float32):
+                 bias_attr=None, name=None, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        dev = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = (None if weight_attr is False else Parameter(
-            torch.ones(self._normalized_shape, device=dev, dtype=dtype)))
-        self.bias = (None if bias_attr is False else Parameter(
-            torch.zeros(self._normalized_shape, device=dev, dtype=dtype)))
+        self.weight, self.bias = _unit_and_zero(
+            self, self._normalized_shape, weight_attr, bias_attr, device,
+            dtype)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight, self.bias,
@@ -57,18 +70,18 @@ class LayerNorm(Layer):
 
 
 class RMSNorm(Layer):
-    def __init__(self, normalized_shape, epsilon=1e-6, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None, dtype=torch.float32):
         super().__init__()
-        dev = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         if len(normalized_shape) != 1:
             raise ValueError("RMSNorm normalizes over the last axis only")
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = Parameter(
-            torch.ones(self._normalized_shape, device=dev, dtype=dtype))
+        self.weight = self.create_parameter(
+            self._normalized_shape, weight_attr, dtype=dtype, device=device,
+            default_initializer=I.Constant(1.0))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)
@@ -86,10 +99,8 @@ class _BatchNormBase(Layer):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        self.weight = (None if weight_attr is False else Parameter(
-            torch.ones(num_features, device=dev, dtype=dtype)))
-        self.bias = (None if bias_attr is False else Parameter(
-            torch.zeros(num_features, device=dev, dtype=dtype)))
+        self.weight, self.bias = _unit_and_zero(
+            self, [num_features], weight_attr, bias_attr, dev, dtype)
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("_variance", torch.ones(num_features, device=dev))
 
@@ -158,16 +169,6 @@ class SyncBatchNorm(_BatchNormBase):
         return layer
 
 
-def _unit_and_zero(n, weight_attr, bias_attr, dev, dtype):
-    """(weight of ones, bias of zeros) as Parameters, None where the attr
-    is False."""
-    w = (None if weight_attr is False else Parameter(
-        torch.ones(n, device=dev, dtype=dtype)))
-    b = (None if bias_attr is False else Parameter(
-        torch.zeros(n, device=dev, dtype=dtype)))
-    return w, b
-
-
 class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
@@ -181,7 +182,7 @@ class GroupNorm(Layer):
         self._epsilon = epsilon
         self._data_format = data_format
         self.weight, self.bias = _unit_and_zero(
-            num_channels, weight_attr, bias_attr, resolve_device(device), dtype)
+            self, [num_channels], weight_attr, bias_attr, device, dtype)
 
     def forward(self, x):
         return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
@@ -200,8 +201,8 @@ class _InstanceNormBase(Layer):
         self._epsilon = epsilon
         # weight_attr=False drops both, as in the reference (:173)
         self.weight, self.bias = _unit_and_zero(
-            num_features, weight_attr, False if weight_attr is False else
-            bias_attr, resolve_device(device), dtype)
+            self, [num_features], weight_attr, False if weight_attr is False
+            else bias_attr, device, dtype)
 
     def forward(self, x):
         return F.instance_norm(x, weight=self.weight, bias=self.bias,
@@ -218,3 +219,31 @@ class InstanceNorm2D(_InstanceNormBase):
 
 class InstanceNorm3D(_InstanceNormBase):
     pass
+
+
+class SpectralNorm(Layer):
+    """weight / sigma, sigma the largest singular value of `weight` viewed
+    as [weight_shape[dim], rest], estimated by `power_iters` steps of power
+    iteration from the vectors `weight_u` [h] and `weight_v` [rest] (↔
+    :207): parameters drawn N(0, 1) that take no gradient, and that the
+    forward reads and leaves as they are."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32", *, generator=None, device=None):
+        super().__init__(dtype=dtype)
+        self._dim, self._power_iters, self._epsilon = dim, power_iters, epsilon
+        h = weight_shape[dim]
+        w = math.prod(weight_shape) // h
+        kw = dict(default_initializer=I.Normal(0.0, 1.0), generator=generator,
+                  device=device)
+        self.weight_u = self.create_parameter([h], **kw)
+        self.weight_v = self.create_parameter([w], **kw)
+        self.weight_u.stop_gradient = True
+        self.weight_v.stop_gradient = True
+
+    def forward(self, weight):
+        from ..utils import _sigma
+
+        sigma, _, _ = _sigma(weight, self.weight_u, self.weight_v, self._dim,
+                             self._power_iters, self._epsilon)
+        return weight / sigma

@@ -18,8 +18,9 @@ whatever its dropout, where the JAX package's takes its composite at a
 dropout above 0 (the two agree but on a row that sees no key).
 
 Every Linear draws its weight from the `generator` given (Paddle's
-Xavier-uniform), on `device`. A `weight_attr` (ParamAttr initializers)
-raises, naming ROADMAP queue A item 6; `bias_attr=False` drops the biases.
+Xavier-uniform), on `device`. `weight_attr` / `bias_attr` (a `ParamAttr`)
+go to every Linear of the layer, as in the reference; `bias_attr=False`
+drops the biases.
 Encoder and decoder layers are copied `num_layers` times, as the
 reference's (copy.deepcopy of the first), so every layer starts from the
 first one's weights.
@@ -47,12 +48,8 @@ __all__ = ["MultiHeadAttention", "Transformer", "TransformerDecoder",
 
 
 def _linear_kw(weight_attr, bias_attr, generator, device, dtype):
-    if weight_attr is not None:
-        raise NotImplementedError(
-            "a weight_attr (ParamAttr initializers) is ported with ROADMAP "
-            "queue A item 6")
-    return dict(bias_attr=bias_attr, generator=generator, device=device,
-                dtype=dtype)
+    return dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                generator=generator, device=device, dtype=dtype)
 
 
 def _add(a, b):

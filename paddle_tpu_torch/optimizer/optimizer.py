@@ -28,8 +28,18 @@ global-norm clip over every gradient, as the JAX step does.
 `set_lr_scheduler` as the reference's (:47-62).
 
 The weight decay of a parameter is `_param_decay(name, p)`: the
-optimizer's coefficient, or, for an `AdamW` with `apply_decay_param_fun`,
-0 where the function, called with the parameter's name, says no. The name
+optimizer's coefficient; 0 for a parameter with its own regularizer
+(`ParamAttr(regularizer=...)`, whose term `step()` adds to the gradient
+before the clip and which replaces the coefficient, as the reference's
+`append_regularization_ops` order, :93-114); or, for an `AdamW` with
+`apply_decay_param_fun`, 0 where the function, called with the
+parameter's name, says no. `weight_decay` itself takes a float: a
+regularizer given there raises a TypeError naming `ParamAttr` (the
+reference accepts it and fails at its first step, ROADMAP queue C). A
+parameter's rate is the optimizer's times its
+`optimize_attr["learning_rate"]` (`_param_lr`, :130), on `step()` and on
+the steps of `jit.TrainStep`, whose reference ignores the factor (ROADMAP
+queue C). The name
 is the parameter's `state_dict` name where the optimizer knows it (a
 `TrainStep` records the names, and `parameters` may be given as
 `model.named_parameters()` pairs), else "" (the reference's eager step
@@ -62,6 +72,10 @@ __all__ = ["ASGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Lamb",
            "Rprop", "SGD"]
 
 _LOW = (torch.bfloat16, torch.float16)
+
+
+def _regularizer(p):
+    return p.__dict__.get("regularizer")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -85,6 +99,11 @@ class Optimizer:
                 self._names = dict(parameters)
                 parameters = [p for _, p in parameters]
         self._parameter_list = parameters
+        if hasattr(weight_decay, "add_to"):
+            raise TypeError(
+                f"weight_decay takes a float, not {type(weight_decay).__name__}"
+                "; a regularizer goes on a parameter through "
+                "ParamAttr(regularizer=...)")
         self._weight_decay = 0.0 if weight_decay is None else float(weight_decay)
         self._multi_precision = multi_precision
         self._grad_clip = grad_clip
@@ -111,7 +130,21 @@ class Optimizer:
     def _param_decay(self, name, p):
         """The weight decay of parameter p named `name` (module
         docstring)."""
-        return self._decay_coeff()
+        return 0.0 if _regularizer(p) is not None else self._decay_coeff()
+
+    @staticmethod
+    def _param_lr(lr, p):
+        """The rate of parameter p: `lr` times its learning-rate factor."""
+        attr = p.__dict__.get("_optimize_attr")
+        return lr if attr is None else lr * attr.get("learning_rate", 1.0)
+
+    @staticmethod
+    def _regularized(params_grads):
+        """(p, g) pairs with each parameter's regularizer term added to its
+        gradient (before the clip)."""
+        return [(p, g if _regularizer(p) is None
+                 else _regularizer(p).add_to(g, p))
+                for p, g in params_grads]
 
     # rules that read norms of the whole parameter (Lamb, Lars) set this
     whole_norms = False
@@ -185,8 +218,8 @@ class Optimizer:
         """Update every parameter that has a gradient (eager Paddle step),
         the gradients clipped by `grad_clip` first."""
         self._step_count += 1
-        pairs = [(p, p.grad) for p in self._params()
-                 if p.requires_grad and p.grad is not None]
+        pairs = self._regularized([(p, p.grad) for p in self._params()
+                                   if p.requires_grad and p.grad is not None])
         if self._grad_clip is not None:
             pairs = self._grad_clip(pairs)
         lr = self.get_lr()
@@ -194,7 +227,7 @@ class Optimizer:
         for p, g in pairs:
             ctx = {"step": self._step_count, "weight_decay":
                    self._param_decay(names.get(id(p), ""), p)}
-            self.apply_update(p, g, lr, ctx)
+            self.apply_update(p, g, self._param_lr(lr, p), ctx)
 
     def clear_grad(self, set_to_zero=True):
         for p in self._params():
@@ -324,7 +357,7 @@ class AdamW(Adam):
         fn = self._apply_decay_param_fun
         if fn is not None and not fn(name):
             return 0.0
-        return self._decay_coeff()
+        return super()._param_decay(name, p)
 
 
 def _zeros(p, dtype=None):

@@ -87,7 +87,13 @@ def ptq_convert_for_serving(model, bits=8):
     `QuantizedLinear`. Embeddings stay full precision, and so does the LM
     head: the tied head rides the embedding, and an untied `lm_head` is
     skipped by name. In place and idempotent (converted layers are
-    skipped). Returns the number of layers converted."""
+    skipped). A model that `nn.quant.quantize_for_inference` converted is
+    refused (another layout under the same buffer names). Returns the
+    number of layers converted."""
+    if any(getattr(m, "_weight_only", None) for m in model.modules()):
+        raise ValueError(
+            "ptq_convert_for_serving: the model holds layers converted by "
+            "nn.quant.quantize_for_inference; convert a float model")
     n = 0
     for name, sub in list(model.named_modules()):
         # the single-device Column/RowParallelLinear subclass Linear

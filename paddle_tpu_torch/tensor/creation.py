@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..framework.core import Parameter, Tensor, run_op, to_tensor
+from ..framework.core import Tensor, run_op, to_tensor
 from ._common import device, dt, shape_tuple, v
 
 __all__ = [
@@ -169,27 +169,21 @@ def clone(x, name=None):
 
 def create_parameter(shape, dtype=None, name=None, attr=None, is_bias=False,
                      default_initializer=None):
-    """A `Parameter` on the default device: `default_initializer(p)` when
-    given (a callable that fills p), else zeros for a bias and
-    Xavier-uniform for a weight, drawn from the port's generator.
-    `attr` (ParamAttr) comes with nn.initializer (ROADMAP item 6b)."""
-    if attr is not None and attr is not False and not isinstance(attr, str):
-        raise NotImplementedError("ParamAttr is not ported yet (ROADMAP "
-                                  "item 6b); pass attr=None")
-    from ..framework import random as rnd
+    """A `Parameter` on the default device with `attr` (a `ParamAttr`, a
+    name, an initializer, or None) applied as `Layer.create_parameter`
+    applies it; without an initializer, zeros for a bias and
+    Xavier-uniform over fans (shape[0], shape[-1]) for a weight (the
+    reference's rule, :197-201), drawn from the port's generator."""
+    from ..nn import initializer as I
+    from ..nn.layer.layers import ParamAttr, make_parameter
 
-    d = dt(dtype)
     shp = shape_tuple(shape)
-    p = Parameter(torch.zeros(shp, dtype=d, device=device()),
-                  name=name if name is not None else (
-                      attr if isinstance(attr, str) else None))
-    if default_initializer is not None:
-        with torch.no_grad():
-            default_initializer(p)
-    elif not is_bias:
-        fan_in = shp[0] if shp else 1
-        fan_out = shp[-1] if shp else 1
-        limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
-        with torch.no_grad():
-            p.uniform_(-limit, limit, generator=rnd.generator(p.device))
-    return p
+    if default_initializer is None and not is_bias:
+        default_initializer = I.XavierUniform(
+            fan_in=shp[0] if shp else 1, fan_out=shp[-1] if shp else 1)
+    attr = ParamAttr._to_attr(attr)
+    if attr is not False and name is not None:
+        attr = ParamAttr(name, attr.initializer, attr.learning_rate,
+                         attr.regularizer, attr.trainable, attr.need_clip)
+    return make_parameter(shp, attr, dt(dtype), is_bias, default_initializer,
+                          device=device())

@@ -400,40 +400,43 @@ def strided_slice(x, axes, starts, ends, strides, name=None):
     return run_op("strided_slice", fn, [x])
 
 
-def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):  # noqa: A002
+def pad_values(a, pad, mode="constant", value=0.0, data_format="NCHW"):  # noqa: A002
+    """`pad` on torch tensor a (widths for every dim, or pairs for the
+    spatial dims of `data_format`, the first pair the first spatial dim)."""
     widths_flat = _ints(pad)
+    nd = a.dim()
+    if len(widths_flat) == 2 * nd:
+        widths = [(widths_flat[2 * i], widths_flat[2 * i + 1])
+                  for i in range(nd)]
+    else:
+        n_sp = len(widths_flat) // 2
+        widths = [(0, 0)] * nd
+        dims_ = range(nd - n_sp, nd) if data_format.startswith("NC") \
+            else range(1, 1 + n_sp)
+        for k, d in enumerate(dims_):
+            widths[d] = (widths_flat[2 * k], widths_flat[2 * k + 1])
+    if mode == "constant":
+        tp = [w for pair in reversed(widths) for w in pair]
+        return torch.nn.functional.pad(a, tp, mode="constant", value=value)
+    # torch pads the trailing dims of a batched input in the other
+    # modes: move the padded dims last, one at a time
+    out = a
+    tmode = {"reflect": "reflect", "replicate": "replicate",
+             "circular": "circular"}[mode]
+    for d, (lo, hi) in enumerate(widths):
+        if lo == 0 and hi == 0:
+            continue
+        m = out.movedim(d, -1)
+        shp = m.shape
+        m = m.reshape(1, -1, shp[-1])
+        m = torch.nn.functional.pad(m, (lo, hi), mode=tmode)
+        out = m.reshape(*shp[:-1], m.shape[-1]).movedim(-1, d)
+    return out
 
-    def fn(a):
-        nd = a.dim()
-        if len(widths_flat) == 2 * nd:
-            widths = [(widths_flat[2 * i], widths_flat[2 * i + 1])
-                      for i in range(nd)]
-        else:
-            n_sp = len(widths_flat) // 2
-            widths = [(0, 0)] * nd
-            dims_ = range(nd - n_sp, nd) if data_format.startswith("NC") \
-                else range(1, 1 + n_sp)
-            for k, d in enumerate(dims_):
-                widths[d] = (widths_flat[2 * k], widths_flat[2 * k + 1])
-        if mode == "constant":
-            tp = [w for pair in reversed(widths) for w in pair]
-            return torch.nn.functional.pad(a, tp, mode="constant", value=value)
-        # torch pads the trailing dims of a batched input in the other
-        # modes: move the padded dims last, one at a time
-        out = a
-        tmode = {"reflect": "reflect", "replicate": "replicate",
-                 "circular": "circular"}[mode]
-        for d, (lo, hi) in enumerate(widths):
-            if lo == 0 and hi == 0:
-                continue
-            m = out.movedim(d, -1)
-            shp = m.shape
-            m = m.reshape(1, -1, shp[-1])
-            m = torch.nn.functional.pad(m, (lo, hi), mode=tmode)
-            out = m.reshape(*shp[:-1], m.shape[-1]).movedim(-1, d)
-        return out
 
-    return run_op("pad", fn, [x])
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):  # noqa: A002
+    return run_op("pad", lambda a: pad_values(a, pad, mode, value,
+                                              data_format), [x])
 
 
 def repeat_interleave(x, repeats, axis=None, name=None):

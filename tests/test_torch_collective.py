@@ -13,7 +13,10 @@ reduce_scatter MAX, the dp x sep group), the other collectives of the
 port, and the per-op counters. `CommunicateTopology` and
 `HybridCommunicateGroup` are held to the JAX package's on the same dims.
 The 2-rank group also runs `eager_multiproc`'s cases
-(`tests/torch_eager_cases.py`), held to the JAX package's reductions.
+(`tests/torch_eager_cases.py`), held to the JAX package's reductions, and
+the sharded step (sharding 2, stages 1-3) over an MLP whose parameters
+carry ParamAttr attributes (regularizers, rates, need_clip), held to the
+JAX package's eager step on the whole batch.
 """
 
 import numpy as np
@@ -36,10 +39,61 @@ def _rs_vals(world):
     return rng.integers(0, 100, (world, world)).tolist()
 
 
+# the attributes of the sharded-step case: {parameter: ParamAttr keywords},
+# a regularizer as (class name, coefficient)
+ATTRS = {"l1.weight": {"regularizer": ("L2Decay", 0.05)},
+         "l2.weight": {"regularizer": ("L1Decay", 0.002)},
+         "l1.bias": {"learning_rate": 0.5}, "l2.bias": {"learning_rate": 0.0},
+         "l3.weight": {"need_clip": False}}
+ATTR_CLIP = 0.05
+
+
+def _attr_inputs():
+    import paddle_tpu as paddle
+    from torch_dist_worker import H
+
+    paddle.seed(0)
+    model = _attr_reference_mlp()
+    rng = np.random.default_rng(3)
+    return {"attr_mlp": {k: np.asarray(v.numpy())
+                         for k, v in model.state_dict().items()},
+            "attrs": ATTRS, "attr_clip": ATTR_CLIP,
+            "attr_x": rng.normal(size=(32, H)).astype(np.float32),
+            "attr_y": rng.normal(size=(32, 8)).astype(np.float32)}
+
+
+def _attr_reference_mlp():
+    import paddle_tpu.nn as jnn
+    from paddle_tpu import ParamAttr, regularizer
+    from torch_dist_worker import H
+
+    def attr(name):
+        kw = dict(ATTRS.get(name, {}))
+        if "regularizer" in kw:
+            kind, coeff = kw["regularizer"]
+            kw["regularizer"] = getattr(regularizer, kind)(coeff)
+        return ParamAttr(**kw)
+
+    class MLP(jnn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.l1 = jnn.Linear(H, H, attr("l1.weight"), attr("l1.bias"))
+            self.l2 = jnn.Linear(H, H, attr("l2.weight"), attr("l2.bias"))
+            self.l3 = jnn.Linear(H, 8, attr("l3.weight"), attr("l3.bias"))
+
+        def forward(self, x):
+            h = jnn.functional.relu(self.l1(x))
+            h = jnn.functional.relu(self.l2(h))
+            return self.l3(h)
+
+    return MLP()
+
+
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    # the 2-rank group also runs the eager_multiproc cases
-    extra = {2: {"eager_multiproc": True}}
+    # the 2-rank group also runs the eager_multiproc cases and the sharded
+    # step under attributes
+    extra = {2: {"eager_multiproc": True, **_attr_inputs()}}
     groups = {w: Ranks("collective", w, tmp_path_factory.mktemp(f"coll{w}"),
                        {"rs_vals": _rs_vals(w), "hcg_dims": HCG_DIMS[w],
                         **extra.get(w, {})})
@@ -231,3 +285,38 @@ def test_eager_store_group_reduce_and_p2p(results):
         assert res["live_after"] == [False, False, False]
     assert got[1]["recv"] == [[0, 2, 4], [1.0, 1.0]]
     assert got[1]["consumed"] is None
+
+
+@pytest.mark.parametrize("stage", (1, 2, 3))
+def test_sharded_step_with_attributes_matches_reference_eager(results, stage):
+    """ZeRO stage 1-3 over 2 ranks with per-parameter regularizers (before
+    the clip, in place of the weight decay), rates and need_clip, against
+    the JAX package's eager AdamW step on the whole batch, 3 steps: the
+    losses and every parameter (f32, rtol 1e-4: the batch's halves summed
+    across ranks), the rate-0 bias unchanged bit for bit."""
+    import paddle_tpu as paddle
+    import paddle_tpu.nn as jnn
+    import paddle_tpu.optimizer as jopt
+
+    inp = _attr_inputs()
+    paddle.seed(0)
+    model = _attr_reference_mlp()
+    opt = jopt.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                     parameters=model.parameters(),
+                     grad_clip=jnn.ClipGradByGlobalNorm(ATTR_CLIP))
+    x, y = paddle.to_tensor(inp["attr_x"]), paddle.to_tensor(inp["attr_y"])
+    losses = []
+    for _ in range(3):
+        loss = ((model(x) - y) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    want = {k: np.asarray(v.numpy()) for k, v in model.state_dict().items()}
+    for got in _case(results, 2, f"attr_sharded_stage{stage}"):
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-4)
+        for k, v in want.items():
+            np.testing.assert_allclose(got["params"][k], v, rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(got["params"]["l2.bias"],
+                                      inp["attr_mlp"]["l2.bias"])

@@ -317,11 +317,19 @@ def test_layers_state_and_grads_match_jax(name):
 
 
 def test_layer_rules():
-    """A ParamAttr raises naming ROADMAP item 6, False drops the bias;
-    nranks > 1 (the mp cut, item 1f) and need_weights raise."""
+    """A ParamAttr applies (an attr that is none raises a TypeError), False
+    drops the bias; nranks > 1 (the mp cut, item 1f) and need_weights
+    raise."""
+    from paddle_tpu_torch import ParamAttr
+    from paddle_tpu_torch.nn.initializer import Constant
     mk = port_inn.FusedMultiHeadAttention
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="ParamAttr"):
         mk(E, H, qkv_weight_attr=object(), device="cpu")
+    layer = mk(E, H, qkv_weight_attr=ParamAttr(initializer=Constant(0.5),
+                                               need_clip=False),
+               device="cpu")
+    assert bool((layer.qkv_weight == 0.5).all())
+    assert layer.qkv_weight.need_clip is False
     layer = mk(E, H, qkv_bias_attr=False, linear_bias_attr=False,
                device="cpu")
     assert layer.qkv_bias is None and "qkv_bias" not in layer.state_dict()
@@ -329,7 +337,7 @@ def test_layer_rules():
         mk(E, H, nranks=2, device="cpu")
     with pytest.raises(NotImplementedError):
         mk(E, H, need_weights=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="ParamAttr"):
         port_inn.FusedTransformerEncoderLayer(E, H, 2 * E, weight_attr=object(),
                                               device="cpu")
 

@@ -294,6 +294,14 @@ def test_import_loads_no_jax_and_no_jax_package():
             "paddle_tpu_torch.distributed.resilience",
             "paddle_tpu_torch.distributed.rpc",
             "paddle_tpu_torch.distributed.eager_multiproc",
+            "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.nn.utils",
+            "paddle_tpu_torch.nn.quant", "paddle_tpu_torch.regularizer",
+            "paddle_tpu_torch.nn.layer.activation",
+            "paddle_tpu_torch.nn.layer.common",
+            "paddle_tpu_torch.nn.layer.container",
+            "paddle_tpu_torch.nn.functional.activation",
+            "paddle_tpu_torch.nn.functional.common",
+            "paddle_tpu_torch.nn.functional.norm",
             } <= set(
                 _port_modules())
     code = (

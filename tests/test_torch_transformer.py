@@ -175,7 +175,9 @@ def test_dropout_above_zero_in_training_raises_and_weight_attr_raises():
     """Dropout above 0 in training now runs (it raised before the port's
     generators): eval mode drops nothing, training draws from the port's
     generator (the same output again from the same seed, another from the
-    next draw); a weight_attr still raises."""
+    next draw); a weight_attr that is no ParamAttr raises a TypeError (the
+    reference's `ParamAttr._to_attr`), and a ParamAttr applies to every
+    projection."""
     from paddle_tpu_torch import seed
 
     tm = pnn.TransformerEncoderLayer(E, H, 64, dropout=0.1, device="cpu")
@@ -189,5 +191,12 @@ def test_dropout_above_zero_in_training_raises_and_weight_attr_raises():
     seed(7)
     torch.testing.assert_close(tm(x), a, rtol=0, atol=0)
     assert (a - plain).abs().max() > 1e-3 and (a - b).abs().max() > 1e-3
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="ParamAttr"):
         pnn.MultiHeadAttention(E, H, weight_attr=object(), device="cpu")
+    from paddle_tpu_torch import ParamAttr
+    from paddle_tpu_torch.nn.initializer import Constant
+    mha = pnn.MultiHeadAttention(E, H, weight_attr=ParamAttr(
+        initializer=Constant(0.5), learning_rate=0.25), device="cpu")
+    for lin in (mha.q_proj, mha.k_proj, mha.v_proj, mha.out_proj):
+        assert bool((lin.weight == 0.5).all())
+        assert lin.weight.optimize_attr["learning_rate"] == 0.25

@@ -216,7 +216,39 @@ def collective_cases(rank, world, inp):
         from torch_eager_cases import eager_multiproc_cases
 
         out.update(eager_multiproc_cases(rank, world, inp))
+    if "attr_mlp" in inp:
+        for stage in (1, 2, 3):
+            case(f"attr_sharded_stage{stage}")(
+                lambda stage=stage: attr_sharded(inp, stage))
     return out
+
+
+def attr_sharded(inp, stage):
+    """The MLP with the attributes of `inp["attrs"]` ({name: ParamAttr
+    keywords}) through a sharded step over every rank at `stage`: AdamW
+    with weight decay and a global-norm clip, 3 steps on the whole batch;
+    the full parameters after."""
+    from paddle_tpu_torch import ParamAttr, regularizer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.layer.layers import set_param_attr
+
+    model = mlp(inp["attr_mlp"])
+    for name, p in model.named_parameters():
+        kw = dict(inp["attrs"].get(name, {}))
+        if "regularizer" in kw:
+            kind, coeff = kw["regularizer"]
+            kw["regularizer"] = getattr(regularizer, kind)(coeff)
+        set_param_attr(p, ParamAttr(**kw))
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(inp["attr_clip"]))
+    step = dist.DistributedTrainStep(model, mse, opt,
+                                     mesh=dist.build_mesh(sharding=2),
+                                     sharding_stage=stage)
+    x, y = torch.from_numpy(inp["attr_x"]), torch.from_numpy(inp["attr_y"])
+    losses = [step(x, y).item() for _ in range(3)]
+    return dict(losses=losses, params={
+        k: v.numpy() for k, v in dist.full_state_dict(model).items()})
 
 
 # -- the sharded training step --------------------------------------------- #

@@ -332,10 +332,10 @@ def wrapper_mesh_cases(rank, inp, dp=1, mp=1):
     other = (hcg.get_data_parallel_rank() if dp > 1
              else hcg.get_model_parallel_rank()) > 0
     if mp > 1:
-        descs = [LayerDesc(ColumnParallelLinear, 16, 32, True, False,
-                           device="cpu"),
-                 LayerDesc(RowParallelLinear, 32, 16, True, True,
-                           device="cpu"),
+        descs = [LayerDesc(ColumnParallelLinear, 16, 32, has_bias=True,
+                           gather_output=False, device="cpu"),
+                 LayerDesc(RowParallelLinear, 32, 16, has_bias=True,
+                           input_is_parallel=True, device="cpu"),
                  LayerDesc(_Lin, 16, 16), LayerDesc(_Lin, 16, 16)]
     else:
         descs = [LayerDesc(_Lin, 16, 16) for _ in range(4)]
